@@ -1,0 +1,1 @@
+"""algo layer of the PyTorch port (see the package docstring)."""

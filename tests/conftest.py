@@ -44,3 +44,10 @@ def devices():
 @pytest.fixture()
 def rng():
     return np.random.default_rng(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; skips with a reason elsewhere",
+    )
