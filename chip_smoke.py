@@ -8,8 +8,9 @@ exits non-zero without printing a result:
 
 1. env: versions, the card (``nvidia-smi``), and the fp32 matmul
    precision (no TF32), which the port relies on but never sets.
-2. build: ``csrc/gram.cu`` compiled with nvcc for sm_90a (seconds,
-   ptxas register / spill lines).
+2. build, build_serve: ``csrc/gram.cu`` and ``csrc/serve_project.cu``
+   compiled with nvcc for sm_90a, one process each, started together
+   (seconds, ptxas register / spill lines).
 3. parity: the Gram kernel against its plain PyTorch version on the card,
    fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10 shape
    (8, 1024, 3072) and a ragged (3, 1000, 3000).
@@ -20,6 +21,27 @@ exits non-zero without printing a result:
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
    bf16) on planted-spectrum data, which must recover the planted top-10
    within 1 degree with exactly one Gram launch (the cold step).
+6. parity_serve: both serve kernels against their plain versions at
+   (64, 256, 8), the CIFAR-10 serve shape (512, 3072, 10) and a ragged
+   (1000, 3000, 10), fp32 x (and bf16 x at the serve shape); relative
+   Frobenius error <= 1e-5, and the first 300 rows of a 512-row launch
+   equal, bit for bit, a 300-row launch of the same rows.
+7. timing_serve: kernels, plain versions, ``torch.matmul`` on the fp32
+   operands (and ``torch.mm(..., out_dtype=float32)`` on bf16 ones where
+   this torch has it) and the bound at (512, 3072, 10) and
+   (65536, 3072, 10).
+8. slice_serve: the read path on the fit of 5b. The basis is published
+   to an ``EigenbasisRegistry``; for serve_dtype bfloat16 and int8 a
+   ``QueryServer`` (its self-check passes at construction) answers 64
+   queries of 1, 8 or 64 planted-spectrum rows at the default bucket of
+   8 and flush of 0.02 s, with the same basis republished halfway (a hot
+   swap). Every served row must lie within 0.2 degrees of
+   ``est.transform`` (fp32), both versions must be served, the swap must
+   acquire no bucket, and each serve kernel must launch once per
+   ``project`` dispatch. Then one bulk ``project`` of 50,000 rows per
+   quantized dtype, and a float32 server on the same burst, whose
+   served-vs-direct difference is reported (cuBLAS may pick another
+   algorithm for a padded bucket than for the query alone).
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -43,6 +65,16 @@ ENTRY = (4, 128, 256)
 RAGGED = (3, 1000, 3000)
 GRAM_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram.cu"
 GRAM_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:57"
+SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
+SERVE_REPLACES = {
+    "bf16": "distributed_eigenspaces_tpu/ops/pallas_gram.py:184",
+    "i8": "distributed_eigenspaces_tpu/ops/pallas_gram.py:232",
+}
+SERVE_TOL = 1e-5
+SERVE_K = 10
+SERVE_BURST = (512, 3072, SERVE_K)  # a full bucket: 8 queries x 64 rows
+SERVE_BULK = (65536, 3072, SERVE_K)  # 50,000 rows padded to their bucket
+SERVE_PARITY = ((64, 256, 8), SERVE_BURST, (1000, 3000, SERVE_K))
 
 
 def emit(phase: str, **kw) -> None:
@@ -96,6 +128,232 @@ def gram_bound(shape, dtype: str) -> tuple[float, str]:
     return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
 
 
+def serve_bound(shape, route: str) -> tuple[float, str]:
+    """Least time for one serve projection of ``shape``: fp32 x read once,
+    the basis read once (fp32, or int8 plus its k fp32 scales) and the
+    fp32 z written once, against 2*rows*d*k bf16 products."""
+    rows, d, k = shape
+    basis = d * k * 4 if route == "bf16" else d * k + 4 * k
+    bytes_s = (rows * d * 4 + basis + rows * k * 4) / PEAK_BYTES_S
+    ops_s = 2 * rows * d * k / PEAK_FLOPS["bfloat16"]
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def serve_operands(shape, dev, seed: int):
+    """fp32 x (rows, d) and an orthonormal fp32 basis (d, k) on the card."""
+    import torch
+
+    rows, d, k = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, d), generator=gen, device=dev)
+    v = torch.linalg.qr(torch.randn((d, k), generator=gen, device=dev))[0]
+    return x, v.contiguous()
+
+
+def serve_routes(sp, v):
+    """Per serve kernel: its wrapper and its plain version on basis ``v``."""
+    q, s = sp.quantize_basis_i8(v)
+    return (
+        ("bf16", lambda a: sp.serve_project_cuda(a, v),
+         lambda a: sp.serve_project_plain(a, v), "launches"),
+        ("i8", lambda a: sp.serve_project_i8_cuda(a, q, s),
+         lambda a: sp.serve_project_i8_plain(a, q, s), "launches_i8"),
+    )
+
+
+def parity_serve(dev) -> dict:
+    """Both serve kernels against their plain versions; returns each
+    kernel's largest absolute error over the cases."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+
+    worst = {"bf16": 0.0, "i8": 0.0}
+    cases = [(shape, "float32") for shape in SERVE_PARITY] + [(SERVE_BURST, "bfloat16")]
+    for seed, (shape, x_dtype) in enumerate(cases):
+        x, v = serve_operands(shape, dev, seed)
+        x = x.to(getattr(torch, x_dtype))
+        for route, run, plain, counter in serve_routes(sp, v):
+            before = getattr(sp, counter)
+            got = run(x)
+            torch.cuda.synchronize()
+            check(getattr(sp, counter) == before + 1, f"{route}: launch counter did not move")
+            want = plain(x)
+            rel = rel_err(got, want)
+            err = float((got - want).abs().max().item())
+            padded = True
+            if shape == SERVE_BURST:
+                padded = bool(torch.equal(run(x[:300]), got[:300]))
+            worst[route] = max(worst[route], err)
+            emit("parity_serve", kernel=route, shape=list(shape), x_dtype=x_dtype,
+                 rel_frobenius=rel, max_abs_err=err, tol=SERVE_TOL,
+                 first_300_rows_bit_equal=padded)
+            check(rel <= SERVE_TOL, f"serve {route} {shape} {x_dtype}: {rel} > {SERVE_TOL}")
+            check(padded, f"serve {route}: 300 rows alone differ from a 512-row launch")
+        del x, v
+    return worst
+
+
+def mm_bf16_out_fp32(a, b):
+    """``torch.mm(a, b, out_dtype=torch.float32)``, or the reason this
+    torch cannot run it (a yardstick only: the port never calls it)."""
+    import torch
+
+    try:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        return repr(e)[:200]
+
+
+def timing_serve(dev, card: str) -> dict:
+    """Kernel, plain, library times and the bound at the burst and bulk
+    shapes (CUDA events, median of 25 after warm-up)."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+
+    out = {}
+    for shape in (SERVE_BURST, SERVE_BULK):
+        x, v = serve_operands(shape, dev, seed=7)
+        library_ms = time_ms(lambda: torch.matmul(x, v))
+        xb, vb = x.to(torch.bfloat16), v.to(torch.bfloat16)
+        probe = mm_bf16_out_fp32(xb, vb)
+        if isinstance(probe, str):
+            mm_ms, mm_note = None, probe
+        else:
+            mm_ms, mm_note = time_ms(lambda: mm_bf16_out_fp32(xb, vb)), None
+        del xb, vb, probe
+        for route, run, plain, _ in serve_routes(sp, v):
+            ms = time_ms(lambda: run(x))
+            plain_ms = time_ms(lambda: plain(x))
+            bound_ms, bound_by = serve_bound(shape, route)
+            out[(shape, route)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by)
+            emit("timing_serve", kernel=route, shape=list(shape), kernel_ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 library="torch.matmul(x, v), fp32 operands",
+                 mm_bf16_out_fp32_ms=mm_ms, mm_bf16_note=mm_note,
+                 bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
+                 card=card)
+        del x, v
+    return out
+
+
+def row_angles_deg(z, ref):
+    """Per-row angle in degrees between two (rows, k) projections (float64)."""
+    import torch
+
+    z, ref = torch.as_tensor(z).double(), torch.as_tensor(ref).double()
+    cos = (z * ref).sum(1) / (z.norm(dim=1) * ref.norm(dim=1))
+    return torch.rad2deg(torch.arccos(cos.clamp(-1.0, 1.0)))
+
+
+def request_latencies_ms(tracer) -> list[float]:
+    """Per request: admit start to dispatch end, from the engine's spans."""
+    start, end = {}, {}
+    for sp in tracer.snapshot():
+        if sp.name == "admit":
+            start[sp.trace_id] = sp.t_start_mono
+        elif sp.name == "dispatch":
+            end[sp.trace_id] = sp.t_end_mono
+    return sorted((end[t] - start[t]) * 1e3 for t in start if t in end)
+
+
+def slice_serve(est, spec, cfg, card: str) -> dict:
+    """The read path end to end on the fit ``est``; returns each serve
+    kernel's launches in its server's run (burst and bulk)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from distributed_eigenspaces_tpu_torch.serving import (
+        EigenbasisRegistry,
+        QueryServer,
+    )
+    from distributed_eigenspaces_tpu_torch.utils.telemetry import Tracer
+
+    rng = np.random.default_rng(1)
+    queries = [spec.sample(rng, int(r)) for r in rng.choice([1, 8, 64], size=64)]
+    direct = [est.transform(q).cpu() for q in queries]
+    rows_total = sum(q.shape[0] for q in queries)
+    reg = EigenbasisRegistry(keep=4)
+    v1 = reg.publish_fit(est)
+    bulk = spec.sample(torch.Generator(device=est.device).manual_seed(2), 50_000)
+    bulk_direct = est.transform(bulk)
+    launched = {}
+    for serve_dtype, route in (("bfloat16", "bf16"), ("int8", "i8"), ("float32", None)):
+        t0 = time.perf_counter()
+        with QueryServer(reg, dataclasses.replace(cfg, serve_dtype=serve_dtype)) as srv:
+            construct_s = time.perf_counter() - t0
+            eng = srv.engine
+            self_check_deg = eng.self_check()
+            # every bucket a burst can pad to, both operations
+            v_dev = eng.place_basis(reg.latest())
+            for b in (8, 16, 32, 64, 128, 256, 512):
+                xz = torch.zeros((b, eng.d), device=eng.device)
+                eng.residual_energy(xz, eng.project(xz, v_dev))
+            torch.cuda.synchronize()
+            acquired = eng.compile_misses
+            dispatches = [0]
+            project = eng.project
+
+            def counted(x, v, project=project, dispatches=dispatches):
+                dispatches[0] += 1
+                return project(x, v)
+
+            eng.project = counted
+            eng.tracer = Tracer()
+            sp.launches = sp.launches_i8 = 0
+            t_burst = time.perf_counter()
+            served = []
+            for half in (queries[:32], queries[32:]):
+                if served:  # halfway: the same basis as a new version
+                    reg.publish(v1.v, sigma_tilde=v1.sigma_tilde, step=v1.step,
+                                lineage={**v1.lineage, "republished": True})
+                tickets = [srv.submit(q) for q in half]
+                served += [t.result(timeout=300) for t in tickets]
+            burst_s = time.perf_counter() - t_burst
+            swap_acquired = eng.compile_misses - acquired
+            versions = sorted({r.version for r in served})
+            angles = torch.cat([row_angles_deg(r.z, ref) for r, ref in zip(served, direct)])
+            lat = request_latencies_ms(eng.tracer)
+            stats = dict(
+                serve_dtype=serve_dtype, construct_s=construct_s,
+                self_check_deg=self_check_deg, queries=len(served), rows=rows_total,
+                versions=versions, swaps=srv.swap_count,
+                swap_acquisitions=swap_acquired, batches=dispatches[0],
+                latency_p50_ms=statistics.median(lat),
+                latency_p99_ms=float(np.percentile(lat, 99)),
+                rows_per_s=rows_total / burst_s, burst_s=burst_s,
+                max_angle_deg=float(angles.max()), card=card,
+            )
+            if route is None:
+                exact = all(np.array_equal(r.z, ref.numpy()) for r, ref in zip(served, direct))
+                diff = max(float(np.abs(r.z - ref.numpy()).max()) for r, ref in zip(served, direct))
+                emit("slice_serve", served_vs_direct_bit_exact=exact,
+                     served_vs_direct_max_abs_err=diff, **stats)
+                check(max(rel_err(torch.from_numpy(r.z), ref)
+                          for r, ref in zip(served, direct)) <= 1e-5,
+                      "float32 served z strays from the direct projection")
+            else:
+                t0 = time.perf_counter()
+                z_bulk = eng.project(bulk, v_dev)
+                torch.cuda.synchronize()
+                bulk_s = time.perf_counter() - t0
+                bulk_angle = float(row_angles_deg(z_bulk, bulk_direct).max())
+                launched[route] = getattr(sp, "launches" if route == "bf16" else "launches_i8")
+                emit("slice_serve", launches=launched[route], project_dispatches=dispatches[0],
+                     bulk_rows=bulk.shape[0], bulk_s=bulk_s, bulk_max_angle_deg=bulk_angle,
+                     **stats)
+                check(bulk_angle <= 0.2, f"{serve_dtype}: bulk row at {bulk_angle} deg > 0.2")
+                check(launched[route] == dispatches[0],
+                      f"{serve_dtype}: {launched[route]} launches for {dispatches[0]} dispatches")
+            check(stats["max_angle_deg"] <= 0.2,
+                  f"{serve_dtype}: served row at {stats['max_angle_deg']} deg > 0.2")
+            check(len(versions) == 2, f"{serve_dtype}: versions served {versions}")
+            check(swap_acquired == 0, f"{serve_dtype}: the swap acquired {swap_acquired} buckets")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -121,14 +379,18 @@ def main() -> int:
          python=sys.version.split()[0], card=card,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    # 2. build
+    # 2. build, both sources at once
     t0 = time.perf_counter()
+    _build.build_all(["gram", "serve_project"])
     _build.load("gram")
-    info = _build.build_info["gram"]
-    emit("build", source=GRAM_SOURCE, seconds=time.perf_counter() - t0,
-         nvcc_seconds=info["seconds"],
-         ptxas=[ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln])
+    _build.load("serve_project")
+    seconds = time.perf_counter() - t0
+    for phase, name, source in (("build", "gram", GRAM_SOURCE),
+                                ("build_serve", "serve_project", SERVE_SOURCE)):
+        info = _build.build_info[name]
+        emit(phase, source=source, seconds=seconds, nvcc_seconds=info["seconds"],
+             ptxas=[ln.strip() for ln in info["log"].splitlines()
+                    if "registers" in ln or "spill" in ln])
 
     # 3. parity on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -221,17 +483,35 @@ def main() -> int:
          second_samples_per_s=samples / fit2_s, card=card)
     check(angle <= 1.0, f"fit angle {angle} > 1 degree")
 
+    # 6.-8. the read path
+    serve_err = parity_serve(dev)
+    serve_timing = timing_serve(dev, card)
+    serve_launches = slice_serve(est, spec, cfg, card)
+
     def row(name, shape, dtype, launches):
         t = timing[(shape, dtype)]
         return {"name": name, "route": "cuda", "source": GRAM_SOURCE,
                 "replaces": GRAM_REPLACES, "launches": launches,
                 "max_abs_err": max_abs[(shape, dtype)], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": list(shape)}
+
+    def serve_row(name, route):
+        t = serve_timing[(SERVE_BULK, route)]
+        return {"name": name, "route": "cuda", "source": SERVE_SOURCE,
+                "replaces": SERVE_REPLACES[route],
+                "launches": serve_launches[route],
+                "max_abs_err": serve_err[route], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": list(SERVE_BULK)}
 
     print(json.dumps({"kernels": [
         row("gram_bf16", CIFAR, "bfloat16", fit_launches),
         row("gram_fp32", ENTRY, "float32", entry_launches),
+        serve_row("serve_project_bf16", "bf16"),
+        serve_row("serve_project_i8", "i8"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

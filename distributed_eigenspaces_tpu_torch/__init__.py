@@ -3,7 +3,8 @@ Hopper (H100).
 
 A port of ``distributed_eigenspaces_tpu`` (the JAX package, kept as the
 reference) that mirrors its layout: ``config``, ``ops``, ``parallel``,
-``algo``, ``data``, ``api``. It imports neither JAX nor the JAX package.
+``algo``, ``data``, ``api``, and the read path's ``serving``, ``runtime``
+and ``utils``. It imports neither JAX nor the JAX package.
 Entry points run on ``device="cuda"`` unless the caller asks for another
 device, and raise when no card is present.
 """

@@ -121,9 +121,14 @@ class OnlineDistributedPCA:
             raise RuntimeError("call fit() first")
         return self._w
 
-    def transform(self, x) -> torch.Tensor:
+    def transform(self, x, *, serve=None) -> torch.Tensor:
         """Project ``(N, dim) -> (N, k)`` (or ``(dim,) -> (k,)``) with a plain
-        ``torch.matmul`` in ``cfg.dtype``."""
+        ``torch.matmul`` in ``cfg.dtype``.
+
+        ``serve`` (a live ``serving.QueryServer``) routes the query through
+        the server instead: it is admitted to the micro-batch queue and
+        projected against the registry's LATEST published version, which
+        may be newer than this estimator's own fit."""
         w = self.components_
         d = int(w.shape[0])
         width = np.shape(x)[-1] if np.ndim(x) >= 1 else None
@@ -133,6 +138,11 @@ class OnlineDistributedPCA:
                 f"(shape {tuple(np.shape(x))}); this estimator was fitted "
                 f"with dim={d} — pass (N, {d}) or ({d},) rows"
             )
+        if serve is not None:
+            if isinstance(x, torch.Tensor):
+                x = x.detach().float().cpu().numpy()
+            z = serve.submit(np.asarray(x, np.float32)).result().z
+            return torch.from_numpy(z[0] if np.ndim(x) == 1 else z).to(self.device)
         x = torch.as_tensor(x).to(device=self.device, dtype=torch_dtype(self.cfg.dtype))
         return torch.matmul(x, w.to(x.dtype))
 

@@ -1,4 +1,5 @@
-"""``PCAConfig`` for the port: the fields the online-PCA fit reads.
+"""``PCAConfig`` for the port: the fields the online-PCA fit and the read
+path (registry, query server, transform engine) read.
 
 Counterpart of ``distributed_eigenspaces_tpu/config.py``. Field names,
 defaults and the ``ValueError`` validation follow the reference for every
@@ -16,6 +17,8 @@ from distributed_eigenspaces_tpu_torch.device import dtype_name
 
 #: dtypes the Gram kernel and the solvers take
 FLOAT_DTYPES = ("float32", "bfloat16")
+#: precisions of the served projection
+SERVE_DTYPES = ("float32", "bfloat16", "int8")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -50,6 +53,21 @@ class PCAConfig:
         defaults in this port (see ROADMAP.md).
       seed: seed of the ``torch.Generator`` that draws the cold start
         basis (the reference draws it from ``jax.random.PRNGKey(0)``).
+      serve_bucket_size, serve_flush_s: a query micro-batch dispatches
+        when it holds this many queries, or when its oldest query has
+        waited this long.
+      serve_continuous: continuous batching (requests join the next
+        in-flight batch) instead of deadline micro-batches.
+      serve_dtype: ``"float32"`` | ``"bfloat16"`` | ``"int8"``: the serve
+        projection's precision (the quantized ones run the serve kernels,
+        angle-gated against fp32 at server construction).
+      serve_keep_versions: how many basis versions the registry retains.
+      registry_dir: durable root of the eigenbasis registry, or None.
+      serve_queue_depth, serve_breaker_threshold: bounded admission and
+        the per-signature circuit breaker (None = off).
+      serve_slo_p99_ms: declared p99 request latency; with a queue depth
+        set, requests already past it are shed before compute.
+      compile_cache_dir: must stay None in this port (ROADMAP.md).
     """
 
     dim: int
@@ -73,6 +91,16 @@ class PCAConfig:
     pipeline_merge: bool = False
     merge_topology: tuple | None = None
     seed: int = 0
+    serve_bucket_size: int = 8
+    serve_flush_s: float = 0.02
+    serve_continuous: bool = False
+    serve_dtype: str = "float32"
+    serve_keep_versions: int = 4
+    registry_dir: str | None = None
+    serve_queue_depth: int | None = None
+    serve_breaker_threshold: int | None = None
+    serve_slo_p99_ms: float | None = None
+    compile_cache_dir: str | None = None
 
     def __post_init__(self):
         if self.discount not in ("1/T", "1/t", "notebook"):
@@ -161,6 +189,75 @@ class PCAConfig:
         if not (0 < self.k <= self.dim):
             raise ValueError(
                 f"need 0 < k <= dim, got k={self.k}, dim={self.dim}"
+            )
+        self._validate_serve()
+
+    def _validate_serve(self) -> None:
+        """The reference's read-path checks, field for field."""
+        if not isinstance(self.serve_bucket_size, int) or isinstance(
+            self.serve_bucket_size, bool
+        ) or self.serve_bucket_size < 1:
+            raise ValueError(
+                f"serve_bucket_size must be an int >= 1, got "
+                f"{self.serve_bucket_size!r}"
+            )
+        if self.serve_flush_s < 0:
+            raise ValueError(
+                f"serve_flush_s must be >= 0, got {self.serve_flush_s}"
+            )
+        if not isinstance(self.serve_continuous, bool):
+            raise ValueError(
+                f"serve_continuous must be a bool, got "
+                f"{self.serve_continuous!r}"
+            )
+        if self.serve_dtype not in SERVE_DTYPES:
+            raise ValueError(
+                f"unknown serve_dtype: {self.serve_dtype!r} "
+                "(float32/bfloat16/int8 — the serve-kernel precision "
+                "family, angle-gated vs fp32)"
+            )
+        if not isinstance(self.serve_keep_versions, int) or isinstance(
+            self.serve_keep_versions, bool
+        ) or self.serve_keep_versions < 1:
+            raise ValueError(
+                f"serve_keep_versions must be an int >= 1, got "
+                f"{self.serve_keep_versions!r}"
+            )
+        if self.registry_dir is not None and not isinstance(
+            self.registry_dir, str
+        ):
+            raise ValueError(
+                f"registry_dir must be a path string or None, got "
+                f"{self.registry_dir!r}"
+            )
+        for depth_field in ("serve_queue_depth", "serve_breaker_threshold"):
+            val = getattr(self, depth_field)
+            if val is not None and (
+                not isinstance(val, int) or isinstance(val, bool)
+                or val < 1
+            ):
+                raise ValueError(
+                    f"{depth_field} must be an int >= 1 or None, got "
+                    f"{val!r}"
+                )
+        slo = self.serve_slo_p99_ms
+        if slo is not None and (
+            not isinstance(slo, (int, float)) or isinstance(slo, bool)
+            or slo <= 0
+        ):
+            raise ValueError(
+                f"serve_slo_p99_ms must be a positive latency in ms or "
+                f"None, got {slo!r}"
+            )
+        if self.compile_cache_dir is not None:
+            if not isinstance(self.compile_cache_dir, str):
+                raise ValueError(
+                    f"compile_cache_dir must be a path string or None, "
+                    f"got {self.compile_cache_dir!r}"
+                )
+            raise _not_ported(
+                "compile_cache_dir (the persistent compile cache)",
+                "Queue 1 item 16 (utils/compile_cache.py)",
             )
 
     def resolved_warm_start(self) -> int | None:

@@ -10,6 +10,7 @@ calls :func:`load`.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -68,7 +69,7 @@ def build(name: str) -> Path:
     source was already built; returns the library's path."""
     lib = _library_path(name)
     if lib.is_file():
-        build_info[name] = {"seconds": 0.0, "log": ""}
+        build_info.setdefault(name, {"seconds": 0.0, "log": ""})
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -84,6 +85,15 @@ def build(name: str) -> Path:
     os.replace(tmp, lib)
     build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
     return lib
+
+
+def build_all(names) -> None:
+    """Compile several ``csrc/`` sources at once: one ``nvcc`` process each,
+    all started together (each build waits on its own subprocess)."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(build, n) for n in names]:
+            fut.result()
 
 
 def load(name: str) -> ctypes.CDLL:

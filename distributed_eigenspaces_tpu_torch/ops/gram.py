@@ -12,14 +12,17 @@ kernel, which raises on anything it does not take.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from distributed_eigenspaces_tpu_torch.ops import _build
 
-#: kernel launches made by :func:`gram_cuda` (one per call); callers reset
-#: it to 0 before a run whose launches they want to count
+#: kernel launches made by :func:`gram_cuda` (one per call, counted under a
+#: lock so that launches from several threads all count); callers reset it
+#: to 0 before a run whose launches they want to count
 launches = 0
+_count_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -83,7 +86,8 @@ def gram_cuda(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {rc}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out[0] if squeeze else out
 
 

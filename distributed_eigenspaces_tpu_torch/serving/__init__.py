@@ -1,0 +1,47 @@
+"""The read path: versioned eigenbasis registry, micro-batched query server
+and the projection engine under it, single device.
+
+- :mod:`.registry`: append-only store of immutable basis versions with a
+  lock-free ``latest()`` pointer and a crash-safe disk tier whose format is
+  the JAX package's.
+- :mod:`.transform`: :class:`TransformEngine`, projection / reconstruction
+  / residual energy with the basis as an operand and rows padded to
+  buckets; ``serve_dtype`` bfloat16 and int8 run the serve kernels.
+- :mod:`.server`: :class:`QueryServer`, deadline micro-batched admission,
+  a double-buffered basis swap, per-request error isolation.
+
+``DriftMonitor`` and the replication module are not ported yet (ROADMAP.md
+Queue 1 item 11).
+"""
+
+from distributed_eigenspaces_tpu_torch.serving.registry import (
+    BasisVersion,
+    EigenbasisRegistry,
+    VersionRetired,
+)
+from distributed_eigenspaces_tpu_torch.serving.server import (
+    BreakerOpen,
+    DeadlineExceeded,
+    QueryServer,
+    ServedProjection,
+    ServerClosed,
+    ServerOverloaded,
+)
+from distributed_eigenspaces_tpu_torch.serving.transform import (
+    TransformEngine,
+    bucket_rows,
+)
+
+__all__ = [
+    "BasisVersion",
+    "BreakerOpen",
+    "DeadlineExceeded",
+    "EigenbasisRegistry",
+    "QueryServer",
+    "ServedProjection",
+    "ServerClosed",
+    "ServerOverloaded",
+    "TransformEngine",
+    "VersionRetired",
+    "bucket_rows",
+]

@@ -1,0 +1,602 @@
+"""Versioned eigenbasis registry: immutable publishes, lock-free reads.
+
+The port's copy of ``distributed_eigenspaces_tpu/serving/registry.py``. It
+is numpy and threads only, and its disk format is the reference's, byte
+for byte (``format_version`` 1, ``basis.npz`` + ``meta.json``): a registry
+directory written by the JAX package opens here, which is how a basis
+crosses between the two packages. ``publish_fit`` takes the port's
+estimator, whose basis lives on the card, and moves it to the host. Not
+ported yet: a publisher ``lease`` (``serving/replication.py``), a
+``MetricsLogger`` sink, and ``publish_fleet`` (ROADMAP.md Queue 1 items 11,
+15 and 16).
+
+A live serving tier cannot hand queries a basis that is half-written,
+and it cannot block the query path on a publisher's lock. Both follow
+from one rule: a :class:`BasisVersion` is FULLY CONSTRUCTED (arrays
+copied to host, frozen read-only, diagnostics computed) before the
+registry ever sees it, and publication is a single reference assignment
+— the CPython-atomic write readers observe either entirely or not at
+all. ``latest()`` therefore takes no lock: an in-flight query batch
+that grabbed version ``t`` keeps projecting against version ``t`` even
+while ``t+1`` publishes and ``t-N`` is garbage-collected, because the
+version object itself is immutable and reference-held.
+
+Lineage makes a served projection auditable back to its producer: every
+version records which trainer/checkpoint/fit made it, its step count,
+and an explained-variance summary — the registry is the system of
+record connecting the fit fleet's write side to the query tier's read
+side.
+
+**Durability.** With ``registry_dir`` set the registry gains a
+disk tier: every accepted publish lands as one per-version directory
+(``v00000042/``) holding the payload (``basis.npz`` — the frozen arrays,
+written tmp-file + atomic-rename) and a ``meta.json`` commit marker
+(signature, step, lineage, and a sha256 checksum of the payload bytes —
+the ``utils/checkpoint.py`` discipline: a crash at ANY point leaves
+either a fully committed version or no marker at all, never a committed
+half-write). A restarted process constructing
+``EigenbasisRegistry(registry_dir=...)`` recovers by scanning the store:
+committed, checksum-valid versions load bit-exact (np.savez float32
+round-trips exactly, so a warm-restarted server's transforms equal the
+pre-crash ones bit for bit — zero refit); a TORN snapshot (payload, no
+marker — a publisher killed mid-publish) is skipped loudly and removed;
+a checksum-MISMATCHED version (tampering, disk rot) is quarantined
+loudly (renamed ``*.quarantined``, evidence preserved) and never served.
+GC applies to the disk tier too: the newest ``keep`` versions survive.
+
+
+The commit markers also carry the reference's replication fields
+(``t_commit_unix``; a fencing ``epoch``, always 0 here), and recovery
+fences a commit whose epoch is lower than an earlier one's (renamed
+``*.fenced``), so a store written by a leased JAX publisher recovers here
+as it does there. A version the JAX package published in row shards
+(``basis.shardNN.npz``) recovers with ``v`` the row concatenation;
+publishing in shards is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import re
+import shutil
+import threading
+import time
+from typing import Any, Mapping
+
+import numpy as np
+
+__all__ = ["BasisVersion", "EigenbasisRegistry", "VersionRetired"]
+
+_VERSION_DIR_RE = re.compile(r"^v(\d{8})$")
+
+
+def _file_checksum(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _load_committed_payload(path: str, meta: dict):
+    """Read a committed version dir's payload against its marker: the
+    single ``basis.npz`` (replicated publish) or every
+    ``basis.shardNN.npz`` (sharded publish), each verified against ITS
+    committed checksum before a byte of it is trusted — a torn,
+    truncated, or rotted file fails loudly, and recovery quarantines the
+    version. Returns ``(v, sigma_tilde, spec, shard_sizes)`` with ``v``
+    the ordered row concatenation."""
+    shards = meta.get("shards")
+    if not shards:
+        payload = os.path.join(path, "basis.npz")
+        committed = meta.get("checksum")
+        checksum = _file_checksum(payload)
+        if checksum != committed:
+            raise ValueError(
+                f"checksum mismatch: payload {checksum[:12]}... "
+                f"!= committed {str(committed)[:12]}..."
+            )
+        with np.load(payload) as z:
+            v = _frozen_array(z["v"])
+            st = (
+                _frozen_array(z["sigma_tilde"])
+                if "sigma_tilde" in z.files else None
+            )
+        return v, st, None, None
+    parts, st = [], None
+    for i, entry in enumerate(shards):
+        spath = os.path.join(path, entry["file"])
+        if not os.path.exists(spath):
+            # committed-but-missing = corrupt: recovery quarantines
+            raise FileNotFoundError(
+                f"committed shard {i} missing: {entry['file']}"
+            )
+        checksum = _file_checksum(spath)
+        if checksum != entry.get("checksum"):
+            raise ValueError(
+                f"shard {i} checksum mismatch: payload "
+                f"{checksum[:12]}... != committed "
+                f"{str(entry.get('checksum'))[:12]}..."
+            )
+        with np.load(spath) as z:
+            part = _frozen_array(z["v"])
+            if i == 0 and "sigma_tilde" in z.files:
+                st = _frozen_array(z["sigma_tilde"])
+        if part.shape[0] != int(entry["rows"]):
+            raise ValueError(
+                f"shard {i} has {part.shape[0]} rows, marker "
+                f"committed {entry['rows']}"
+            )
+        parts.append(part)
+    v = _frozen_array(np.concatenate(parts, axis=0))
+    spec = tuple(meta["spec"]) if meta.get("spec") else None
+    shard_sizes = tuple(int(e["rows"]) for e in shards)
+    return v, st, spec, shard_sizes
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to distributed_eigenspaces_tpu_torch yet "
+        f"(ROADMAP.md {item})"
+    )
+
+
+class VersionRetired(KeyError):
+    """A version id outside the registry's retention window (GC'd, or
+    never published). A KeyError subclass so pre-existing callers keep
+    working, but the message names the knob that widens the window."""
+
+
+def _host(a) -> np.ndarray:
+    """A torch tensor (on any device) or array as a host numpy array."""
+    if hasattr(a, "detach"):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a)
+
+
+def _frozen_array(a, dtype=np.float32) -> np.ndarray:
+    """Host copy with the write flag dropped: the version's arrays must
+    not be mutable through any alias — a publisher reusing its buffer
+    would otherwise mutate a version already being served."""
+    arr = np.array(np.asarray(a), dtype=dtype, copy=True)
+    arr.setflags(write=False)
+    return arr
+
+
+@dataclasses.dataclass(frozen=True)
+class BasisVersion:
+    """One immutable published eigenbasis.
+
+    Attributes:
+      version: monotonically increasing id (assigned by the registry).
+      v: ``(d, k)`` orthonormal basis, host-resident, read-only.
+      sigma_tilde: optional ``(d, d)`` state snapshot the basis was
+        extracted from (read-only; large — publishers may omit it).
+      signature: ``(d, k)`` — the shape contract a query batch checks.
+      step: the producing fit's online step count.
+      explained_variance: summary diagnostics (e.g. the top-k energy
+        fraction of the producing state) — what a dashboard shows next
+        to the version id.
+      lineage: provenance of the producing fit — trainer name,
+        checkpoint path, fleet ticket, refit trigger — whatever the
+        publisher knows. Stored as an immutable snapshot.
+      spec, shard_sizes: the PartitionSpec (a tuple of mesh-axis names)
+        and the row count of each shard of a version recovered from a
+        sharded publish of the JAX package (``v`` is then the ordered
+        row concatenation); ``None`` for a replicated publish.
+    """
+
+    version: int
+    v: np.ndarray
+    sigma_tilde: np.ndarray | None
+    signature: tuple[int, int]
+    step: int
+    explained_variance: dict[str, float]
+    lineage: dict[str, Any]
+    spec: tuple | None = None
+    shard_sizes: tuple[int, ...] | None = None
+
+    @property
+    def d(self) -> int:
+        return self.signature[0]
+
+    @property
+    def k(self) -> int:
+        return self.signature[1]
+
+
+
+class EigenbasisRegistry:
+    """Append-only store of :class:`BasisVersion` with lock-free reads.
+
+    ``publish`` validates and freezes the version OUTSIDE the lock,
+    assigns the next id and the ``latest`` pointer inside it, and GCs
+    down to the newest ``keep`` versions. ``latest()`` is a plain
+    attribute read — never blocked by a publisher, never a torn value.
+
+    ``registry_dir`` adds the crash-safe disk tier (module docstring):
+    publish commits to disk BEFORE the in-memory swap (a publish the
+    disk rejected is a loud error, not a version that would vanish on
+    restart), and construction recovers every committed, checksum-valid
+    version — ``recovered_versions`` / ``torn_skipped`` /
+    ``quarantined`` report what the scan found.
+    """
+
+    def __init__(self, *, keep: int = 4, registry_dir: str | None = None,
+                 metrics=None, lease=None, retire_grace_s: float = 0.0):
+        if keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
+        if lease is not None:
+            raise _not_ported(
+                "a publisher lease", "Queue 1 item 11 (serving/replication.py)"
+            )
+        if metrics is not None:
+            raise _not_ported(
+                "a MetricsLogger sink", "Queue 1 item 16 (utils/metrics.py)"
+            )
+        if retire_grace_s:
+            raise _not_ported(
+                "retire_grace_s (deferred disk GC for replicas)",
+                "Queue 1 item 11 (serving/replication.py)",
+            )
+        self.keep = keep
+        self.registry_dir = registry_dir
+        self._lock = threading.Lock()
+        self._versions: dict[int, BasisVersion] = {}
+        self._latest: BasisVersion | None = None
+        self._next_id = 1
+        #: recovery report (populated when ``registry_dir`` is set):
+        #: version ids loaded from disk, torn snapshot dirs removed,
+        #: quarantined (checksum-mismatch) dir names, and fenced
+        #: (stale-epoch zombie commit) dir names
+        self.recovered_versions: list[int] = []
+        self.torn_skipped: list[str] = []
+        self.quarantined: list[str] = []
+        self.fenced: list[str] = []
+        if registry_dir is not None:
+            os.makedirs(registry_dir, exist_ok=True)
+            self._recover()
+
+    # -- disk tier -----------------------------------------------------------
+
+    def _version_dir(self, version: int) -> str:
+        return os.path.join(self.registry_dir, f"v{version:08d}")
+
+    def _write_payload(self, vdir: str, bv: BasisVersion) -> str:
+        """The version's arrays via tmp + atomic rename; returns the
+        committed payload's checksum."""
+        os.makedirs(vdir, exist_ok=True)
+        arrays = {"v": bv.v}
+        if bv.sigma_tilde is not None:
+            arrays["sigma_tilde"] = bv.sigma_tilde
+        tmp = os.path.join(vdir, "basis.tmp.npz")
+        np.savez(tmp, **arrays)
+        final = os.path.join(vdir, "basis.npz")
+        os.replace(tmp, final)
+        return _file_checksum(final)
+
+    def _write_meta(self, vdir: str, bv: BasisVersion, checksum: str) -> None:
+        """The commit marker (tmp + atomic rename): a version without
+        it is torn and recovery treats the publish as never having
+        happened. Its fields are the reference's (``spec`` and ``shards``
+        stay None: this registry publishes replicated versions only)."""
+        meta = {
+            "format_version": 1,
+            "version": bv.version,
+            "signature": list(bv.signature),
+            "step": bv.step,
+            "explained_variance": bv.explained_variance,
+            # tuples JSON-round-trip as lists; lineage consumers treat
+            # it as data, not identity, so that is acceptable loss
+            "lineage": json.loads(
+                json.dumps(bv.lineage, default=str)
+            ),
+            "checksum": checksum,
+            "spec": None,
+            "shards": None,
+            # replication bus fields: the wall-clock commit
+            # stamp replicas measure propagation lag against, and the
+            # publisher lease's fencing epoch (0 = unleased publisher;
+            # older markers carry neither and read as epoch 0)
+            "t_commit_unix": time.time(),
+            # (always 0 here: leases come with replication)
+            "epoch": 0,
+        }
+        tmp = os.path.join(vdir, "meta.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=2)
+        os.replace(tmp, os.path.join(vdir, "meta.json"))
+
+    def _persist(self, bv: BasisVersion) -> None:
+        vdir = self._version_dir(bv.version)
+        self._write_meta(vdir, bv, self._write_payload(vdir, bv))
+
+    def _delete_version_dir(self, version: int) -> None:
+        shutil.rmtree(self._version_dir(version), ignore_errors=True)
+
+    def _log(self, msg: str, **fields) -> None:
+        from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
+
+        log_line(msg, **fields)
+
+    def _recover(self) -> None:
+        """Scan the store: load committed, checksum-valid versions
+        (newest ``keep``), remove torn snapshots loudly, quarantine
+        checksum mismatches loudly. ``_next_id`` advances past EVERY id
+        seen on disk — a quarantined id is never reused."""
+        entries = []
+        max_seen = 0
+        for name in sorted(os.listdir(self.registry_dir)):
+            m = _VERSION_DIR_RE.match(name)
+            if not m:
+                # ids renamed away by a PRIOR recovery (quarantined /
+                # fenced evidence dirs) still count toward _next_id:
+                # reusing one would collide with replicas that already
+                # marked it seen-and-rejected
+                mq = re.match(r"^v(\d{8})\.(?:quarantined|fenced)$", name)
+                if mq:
+                    max_seen = max(max_seen, int(mq.group(1)))
+                continue
+            version = int(m.group(1))
+            max_seen = max(max_seen, version)
+            path = os.path.join(self.registry_dir, name)
+            meta_path = os.path.join(path, "meta.json")
+            if not os.path.exists(meta_path):
+                # torn: a publisher died between payload and marker —
+                # the publish never happened; clear the debris
+                self.torn_skipped.append(name)
+                self._log(
+                    "registry recovery: torn snapshot skipped",
+                    version=version, path=path,
+                )
+                shutil.rmtree(path, ignore_errors=True)
+                continue
+            try:
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                v, st, spec, shard_sizes = _load_committed_payload(
+                    path, meta
+                )
+                sig = tuple(meta["signature"])
+                if v.shape != sig:
+                    raise ValueError(
+                        f"payload shape {v.shape} != committed "
+                        f"signature {sig}"
+                    )
+                bv = BasisVersion(
+                    version=version,
+                    v=v,
+                    sigma_tilde=st,
+                    signature=(int(sig[0]), int(sig[1])),
+                    step=int(meta.get("step", 0)),
+                    explained_variance=dict(
+                        meta.get("explained_variance") or {}
+                    ),
+                    lineage=dict(meta.get("lineage") or {}),
+                    spec=spec,
+                    shard_sizes=shard_sizes,
+                )
+                epoch = int(meta.get("epoch", 0))
+            except Exception as e:
+                # corrupt-but-committed (tamper, rot, truncation):
+                # quarantine — never serve it, never silently delete
+                # the evidence
+                qpath = path + ".quarantined"
+                shutil.rmtree(qpath, ignore_errors=True)
+                os.replace(path, qpath)
+                self.quarantined.append(os.path.basename(qpath))
+                self._log(
+                    "registry recovery: corrupt version quarantined",
+                    version=version, path=qpath, error=repr(e),
+                )
+                continue
+            entries.append((bv, epoch))
+        entries.sort(key=lambda be: be[0].version)
+        # epoch fencing: epochs must be non-decreasing in
+        # version order — a commit from a LOWER epoch than an earlier
+        # version is a zombie ex-publisher writing after failover.
+        # Fence it loudly (evidence preserved), never serve it.
+        kept: list[BasisVersion] = []
+        max_epoch = 0
+        for bv, epoch in entries:
+            if epoch < max_epoch:
+                path = self._version_dir(bv.version)
+                fpath = path + ".fenced"
+                shutil.rmtree(fpath, ignore_errors=True)
+                os.replace(path, fpath)
+                self.fenced.append(os.path.basename(fpath))
+                self._log(
+                    "registry recovery: stale-epoch commit fenced",
+                    version=bv.version, epoch=epoch,
+                    fencing_epoch=max_epoch, path=fpath,
+                )
+                continue
+            max_epoch = max(max_epoch, epoch)
+            kept.append(bv)
+        entries = kept
+        for bv in entries[:-self.keep] if len(entries) > self.keep else []:
+            self._delete_version_dir(bv.version)
+        entries = entries[-self.keep:]
+        # install under the lock: recovery runs from __init__ today,
+        # but these are the same shared fields publish()/latest() guard
+        with self._lock:
+            self._versions = {bv.version: bv for bv in entries}
+            self._latest = entries[-1] if entries else None
+            self._next_id = max_seen + 1
+            self.recovered_versions = [bv.version for bv in entries]
+        if entries:
+            self._log(
+                "registry recovery: warm store loaded",
+                versions=self.recovered_versions,
+                latest=self._latest.version,
+            )
+
+    # -- write side ----------------------------------------------------------
+
+    def publish(
+        self,
+        v,
+        *,
+        sigma_tilde=None,
+        step: int = 0,
+        explained_variance: Mapping[str, float] | None = None,
+        lineage: Mapping[str, Any] | None = None,
+        spec=None,
+        num_shards: int | None = None,
+    ) -> BasisVersion:
+        """Publish one basis as the new latest version; returns it.
+
+        The basis is copied, frozen, and validated (2-D, finite) before
+        the swap — a rejected publish leaves the registry untouched, and
+        an accepted one is visible to ``latest()`` only as a complete
+        version. A sharded publish (``v`` a sequence of row shards,
+        ``spec`` or ``num_shards``) is not ported yet.
+        """
+        if isinstance(v, (list, tuple)) or spec is not None or num_shards is not None:
+            raise _not_ported(
+                "a sharded publish", "Queue 1 item 14 (sharded bases)"
+            )
+        arr = _frozen_array(v)
+        if arr.ndim != 2:
+            raise ValueError(
+                f"basis must be (d, k), got shape {arr.shape}"
+            )
+        if not np.isfinite(arr).all():
+            raise ValueError(
+                "refusing to publish a non-finite basis (serving it "
+                "would poison every query batch that grabs it)"
+            )
+        st = None
+        ev = dict(explained_variance or {})
+        if sigma_tilde is not None:
+            st = _frozen_array(sigma_tilde)
+            if st.shape != (arr.shape[0], arr.shape[0]):
+                raise ValueError(
+                    f"sigma_tilde shape {st.shape} != "
+                    f"({arr.shape[0]}, {arr.shape[0]})"
+                )
+            if "top_k_energy" not in ev:
+                # fraction of the state's variance the published basis
+                # captures — the number drift is measured against
+                trace = float(np.trace(st))
+                if trace > 0:
+                    ev["top_k_energy"] = round(
+                        float(np.trace(arr.T @ st @ arr)) / trace, 6
+                    )
+        bv_partial = dict(
+            v=arr,
+            sigma_tilde=st,
+            signature=(int(arr.shape[0]), int(arr.shape[1])),
+            step=int(step),
+            explained_variance=ev,
+            lineage=dict(lineage or {}),
+        )
+        with self._lock:
+            bv = BasisVersion(version=self._next_id, **bv_partial)
+            self._next_id += 1
+        if self.registry_dir is not None:
+            # durable FIRST: commit to disk before the in-memory swap,
+            # so a version readers can observe is always a version a
+            # restart recovers (an IO failure raises here and the
+            # registry is untouched — the id gap is harmless)
+            self._persist(bv)
+        gc_ids: list[int] = []
+        with self._lock:
+            self._versions[bv.version] = bv
+            # single reference assignment = the atomic hot-swap point
+            # (guarded so racing publishers can't move latest backwards)
+            if self._latest is None or bv.version > self._latest.version:
+                self._latest = bv
+            while len(self._versions) > self.keep:
+                oldest = min(self._versions)
+                del self._versions[oldest]
+                gc_ids.append(oldest)
+        if self.registry_dir is not None:
+            # disk GC mirrors memory GC (best effort)
+            for vid in gc_ids:
+                self._delete_version_dir(vid)
+        return bv
+
+    def publish_fit(self, estimator, *, lineage: Mapping[str, Any] | None = None,
+                    include_state: bool = True) -> BasisVersion:
+        """Publish an ``OnlineDistributedPCA`` fit's result.
+
+        Lineage records the trainer the fit actually ran
+        (``trainer_used_``) and its checkpoint dir when the estimator has
+        one; the dense state snapshot rides along (``include_state=True``)
+        so drift monitoring can diff explained variance later. The basis
+        and the snapshot are copied to the host first (the port's
+        estimator keeps them on its device).
+        """
+        w = _host(estimator.components_)  # raises before fit — the right error
+        lin = {
+            "producer": "OnlineDistributedPCA",
+            "trainer": estimator.trainer_used_,
+        }
+        checkpoint_dir = getattr(estimator, "checkpoint_dir", None)
+        if checkpoint_dir is not None:
+            lin["checkpoint_dir"] = checkpoint_dir
+        lin.update(lineage or {})
+        state = estimator.state
+        step = int(state.step) if state is not None else 0
+        sigma = (
+            _host(state.sigma_tilde)
+            if include_state and hasattr(state, "sigma_tilde")
+            else None
+        )
+        return self.publish(w, sigma_tilde=sigma, step=step, lineage=lin)
+
+    def publish_fleet(self, result, tenant: int, **kwargs) -> BasisVersion:
+        """Publish one tenant of a fleet fit: not ported yet."""
+        raise _not_ported(
+            "publish_fleet", "Queue 1 item 15 (parallel/fleet.py)"
+        )
+
+    def publish_grown(self, parent, v_grown, **kwargs) -> BasisVersion:
+        """Publish an elastic-k widening of a version: not ported yet."""
+        raise _not_ported(
+            "publish_grown", "Queue 1 item 13 (solvers/deflation.py grow_basis)"
+        )
+
+    # -- read side -----------------------------------------------------------
+
+    def latest(self) -> BasisVersion | None:
+        """The newest complete version — lock-free (one attribute read;
+        publishers swap it with one assignment)."""
+        return self._latest
+
+    def get(self, version: int) -> BasisVersion:
+        """A retained version by id. A GC'd (or never-published) id
+        raises :class:`VersionRetired` — a KeyError that NAMES the
+        retention window and the knob that widens it, instead of a bare
+        integer a 3am page can't act on."""
+        with self._lock:
+            try:
+                return self._versions[version]
+            except KeyError:
+                retained = sorted(self._versions)
+                raise VersionRetired(
+                    f"version {version} is not retained: the registry "
+                    f"keeps the newest {self.keep} versions "
+                    f"(cfg.serve_keep_versions={self.keep}; currently "
+                    f"retained: {retained}) — raise serve_keep_versions "
+                    "to widen the retention window"
+                ) from None
+
+    def load_payload(self, version: int) -> np.ndarray:
+        """A replica's re-read of a committed payload: not ported yet."""
+        raise _not_ported(
+            "load_payload", "Queue 1 item 11 (serving/replication.py)"
+        )
+
+    def versions(self) -> list[int]:
+        """Retained version ids, oldest first."""
+        with self._lock:
+            return sorted(self._versions)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._versions)

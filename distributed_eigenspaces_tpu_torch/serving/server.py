@@ -1,0 +1,578 @@
+"""QueryServer: deadline micro-batched projection against the registry.
+
+The port's copy of ``distributed_eigenspaces_tpu/serving/server.py``, single
+device. Query admission batches independent transform requests into one
+padded projection dispatch: a micro-batch dispatches when FULL
+(``cfg.serve_bucket_size`` queries) or when its OLDEST query has waited
+``cfg.serve_flush_s``, through ``runtime/scheduler.ShapeBucketQueue``
+(lease/retry, idempotent completion).
+
+Correctness properties, as in the reference:
+
+- **One basis per batch, no torn reads.** A dispatch lane reads
+  ``registry.latest()`` exactly ONCE and projects every query in the batch
+  against that immutable version; a publish mid-batch affects only later
+  batches.
+- **Double-buffered swap, zero stall.** The device-resident basis is a
+  ``(version_id, tensor)`` pair swapped by reference; in-flight batches
+  keep the old tensor alive, and the engine takes the basis as an operand,
+  so a swap is one host-to-device copy: no new bucket acquisition, no
+  drained queue.
+- **Per-request error isolation.** A query with non-finite rows fails ITS
+  ticket (naming the rows) and leaves the batch; its neighbours are served.
+- **Supervised serve lane.** The dispatch loop runs under a
+  ``runtime/supervisor.LaneWatchdog`` (restart with capped backoff; a
+  leased bucket re-leases by lease timeout), with bounded admission
+  (``cfg.serve_queue_depth``, :class:`ServerOverloaded`), deadline shedding
+  against ``cfg.serve_slo_p99_ms`` (:class:`DeadlineExceeded`) and a
+  per-signature circuit breaker (``cfg.serve_breaker_threshold``).
+
+Each micro-batch moves its concatenated rows to the engine's device once,
+projects them (on the card at ``serve_dtype`` bfloat16/int8 this launches
+the serve kernels of ``csrc/serve_project.cu``), computes the residual
+energies, and copies ``z`` back to the host. Request spans go to the
+engine's ``tracer`` when one is attached.
+
+Not ported yet: a ``MetricsLogger`` (``metrics=``), ``DriftMonitor``
+(``drift=``), prewarming, the compile cache and the mesh engine (ROADMAP.md
+Queue 1 items 11, 14 and 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from distributed_eigenspaces_tpu_torch.config import _not_ported
+from distributed_eigenspaces_tpu_torch.runtime.scheduler import (
+    QueueClosed,
+    QueueFull,
+    ShapeBucketQueue,
+)
+from distributed_eigenspaces_tpu_torch.runtime.supervisor import (
+    BreakerOpen,
+    FaultLedger,
+    LaneWatchdog,
+)
+from distributed_eigenspaces_tpu_torch.serving.registry import EigenbasisRegistry
+from distributed_eigenspaces_tpu_torch.serving.transform import TransformEngine
+from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
+from distributed_eigenspaces_tpu_torch.utils.telemetry import NULL_TRACER
+
+__all__ = [
+    "BreakerOpen",
+    "DeadlineExceeded",
+    "QueryServer",
+    "ServedProjection",
+    "ServerClosed",
+    "ServerOverloaded",
+]
+
+
+class ServerClosed(RuntimeError):
+    """submit() after close(): the documented server-boundary error. The
+    request was never admitted; construct a new server to keep serving."""
+
+
+class ServerOverloaded(RuntimeError):
+    """Load shed: bounded admission (``cfg.serve_queue_depth``) refused the
+    NEWEST request so already-admitted requests keep their latency budget.
+    The client should back off and retry."""
+
+
+class DeadlineExceeded(ServerOverloaded):
+    """Deadline-aware shed: the request waited past the declared SLO
+    (``cfg.serve_slo_p99_ms``) before its bucket dispatched, so it is
+    dropped before compute and counted as a shed."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ServedProjection:
+    """One resolved query: the projection, the per-row residual and input
+    energies, and the basis version that served it."""
+
+    z: np.ndarray  # (rows, k)
+    residual_sq: np.ndarray  # (rows,) per-row residual energy
+    input_sq: np.ndarray  # (rows,) per-row input energy
+    version: int
+
+
+@dataclasses.dataclass
+class _QueryRequest:
+    x: np.ndarray  # (rows, d) host rows, width-validated at submit
+    t_submit: float
+    #: correlation id of this request's span chain (admit -> queue_wait ->
+    #: dispatch -> compute -> reply): born on the submitting thread, it
+    #: rides the ticket payload to the dispatch lane
+    trace_id: str | None = None
+
+
+class QueryServer:
+    """Micro-batched transform serving against an
+    :class:`~..serving.registry.EigenbasisRegistry`, on one device
+    (``"cuda"`` unless the caller asks for another).
+
+    ``submit(x)`` admits one ``(rows, d)`` query (a ``(d,)`` vector is one
+    row) and returns a ticket whose ``.result(timeout)`` blocks for a
+    :class:`ServedProjection`. Use it as a context manager, or call
+    :meth:`close`.
+    """
+
+    def __init__(
+        self,
+        registry: EigenbasisRegistry,
+        cfg=None,
+        *,
+        d: int | None = None,
+        k: int | None = None,
+        bucket_size: int | None = None,
+        flush_s: float | None = None,
+        mesh=None,
+        metrics=None,
+        drift=None,
+        num_lanes: int = 1,
+        max_retries: int = 3,
+        lease_timeout: float | None = None,
+        engine: TransformEngine | None = None,
+        compile_cache=None,
+        prewarm=False,
+        prewarmer=None,
+        queue_depth: int | None = None,
+        breaker_threshold: int | None = None,
+        breaker_cooldown_s: float = 1.0,
+        supervise: bool = True,
+        max_lane_restarts: int = 3,
+        fault_hook=None,
+        continuous: bool | None = None,
+        serve_dtype: str | None = None,
+        device="cuda",
+    ):
+        if metrics is not None:
+            raise _not_ported("QueryServer(metrics=)", "Queue 1 item 16 (utils/metrics.py)")
+        if drift is not None:
+            raise _not_ported("QueryServer(drift=)", "Queue 1 item 11 (serving/drift.py)")
+        if prewarm or prewarmer is not None:
+            raise _not_ported("QueryServer(prewarm=)", "Queue 1 item 16 (runtime/prewarm.py)")
+        if compile_cache is not None:
+            raise _not_ported(
+                "QueryServer(compile_cache=)", "Queue 1 item 16 (utils/compile_cache.py)"
+            )
+        if mesh is not None:
+            raise _not_ported("QueryServer(mesh=)", "Queue 1 item 14 (multi-device serving)")
+        live = registry.latest()
+        if d is None:
+            d = cfg.dim if cfg is not None else (live.d if live else None)
+        if k is None:
+            k = cfg.k if cfg is not None else (live.k if live else None)
+        if d is None or k is None:
+            raise ValueError(
+                "QueryServer needs a (d, k) signature: pass cfg / d+k, "
+                "or publish a version before constructing"
+            )
+        if bucket_size is None:
+            bucket_size = cfg.serve_bucket_size if cfg is not None else 8
+        if flush_s is None:
+            flush_s = cfg.serve_flush_s if cfg is not None else 0.02
+        self.registry = registry
+        self.d, self.k = int(d), int(k)
+        self.bucket_size = bucket_size
+        if serve_dtype is None:
+            serve_dtype = cfg.serve_dtype if cfg is not None else "float32"
+        self.serve_dtype = serve_dtype
+        self.engine = engine or TransformEngine(
+            self.d, self.k, serve_dtype=serve_dtype, device=device,
+        )
+        if self.engine.serve_dtype != "float32":
+            # quantized serve kernels are angle-gated at the door: a basis
+            # family whose quantization error blows the 0.2 degree budget
+            # fails construction instead of serving drifted projections
+            self.engine.self_check()
+        #: served-version bookkeeping: the last version a batch used and how
+        #: many hot swaps dispatch has observed
+        self.swap_count = 0
+        self._served_version: int | None = None
+        self._dev_basis: tuple[int, torch.Tensor] | None = None
+        if queue_depth is None and cfg is not None:
+            queue_depth = cfg.serve_queue_depth
+        if breaker_threshold is None and cfg is not None:
+            breaker_threshold = cfg.serve_breaker_threshold
+        self.queue_depth = queue_depth
+        self._slo_ms = cfg.serve_slo_p99_ms if cfg is not None else None
+        #: chaos-injection point: called with the bucket at the top of every
+        #: dispatch; a KillSwitch here is a lane death, anything else a
+        #: dispatch failure (breaker food). None in production.
+        self.fault_hook = fault_hook
+        #: fault ledger: lane restarts/deaths and sheds
+        self.ledger = FaultLedger()
+        self._sheds = {"overload": 0, "deadline": 0, "breaker": 0}
+        self._last_lane_death: float | None = None
+        self.last_recovery_ms: float | None = None
+        self._closed = False
+        if supervise and lease_timeout is None:
+            # liveness default: a bucket leased to a killed lane must
+            # re-lease for the restarted lane; an infinite lease would
+            # hang its waiters forever
+            lease_timeout = 60.0
+        if continuous is None:
+            continuous = cfg.serve_continuous if cfg is not None else False
+        self.continuous = bool(continuous)
+        self.queue = ShapeBucketQueue(
+            bucket_size=bucket_size,
+            flush_deadline=flush_s,
+            max_retries=max_retries,
+            lease_timeout=lease_timeout,
+            max_depth=queue_depth,
+            isolate_failures=supervise,
+            breaker_threshold=breaker_threshold,
+            breaker_cooldown_s=breaker_cooldown_s,
+            on_event=self._queue_event,
+            continuous=self.continuous,
+        )
+        self._num_lanes = max(num_lanes, 1)
+        self._watchdog: LaneWatchdog | None = None
+        if supervise:
+            self._watchdog = LaneWatchdog(
+                "query-serve",
+                self._serve_loop,
+                max_restarts=max_lane_restarts,
+                ledger=self.ledger,
+                on_restart=self._lane_restarted,
+                on_dead=self._lane_dead,
+            ).start()
+            self._thread = self._watchdog._thread
+        else:
+            self._thread = threading.Thread(
+                target=self._serve_loop_logged, daemon=True
+            )
+            self._thread.start()
+
+    def _serve_loop(self) -> None:
+        """One supervised serve-lane entry: exceptions propagate to the
+        watchdog (lane death -> restart), a clean return is the closed
+        queue draining."""
+        self.queue.serve(self._run_batch, num_lanes=self._num_lanes)
+
+    def _serve_loop_logged(self) -> None:
+        try:
+            self._serve_loop()
+        except Exception as e:
+            # unsupervised mode: log instead of dying through the
+            # unhandled-thread hook; tickets were failed by the queue
+            log_line("query server dispatch aborted", error=repr(e))
+
+    # -- resilience event plumbing -------------------------------------------
+
+    def _tracer(self):
+        tr = self.engine.tracer
+        return tr if tr is not None else NULL_TRACER
+
+    def _queue_event(self, kind: str, detail: dict) -> None:
+        """Shed / breaker transitions from the admission queue -> ledger +
+        tracer (one merged timeline)."""
+        if kind == "shed":
+            reason = detail.get("reason", "overload")
+            self._sheds[reason] = self._sheds.get(reason, 0) + 1
+        flat = {
+            k: v for k, v in detail.items()
+            if isinstance(v, (int, float, str, bool))
+        }
+        self.ledger.record(kind, None, **flat)
+        self._tracer().event(f"serve_{kind}", category="serve", attrs=flat)
+
+    def _lane_restarted(self, event: dict) -> None:
+        self._last_lane_death = time.perf_counter()
+        self._tracer().event(
+            "serve_lane_restart", category="fault",
+            attrs={"attempt": event.get("attempt"),
+                   "error": event.get("error")},
+        )
+
+    def _lane_dead(self, exc: Exception) -> None:
+        """Restart budget exhausted: close admission and fail pending
+        waiters loudly — a dead server that still accepts submissions
+        would hang every new caller."""
+        err = ServerClosed(
+            f"query server serve lane is dead after "
+            f"{self._watchdog.restarts} restarts (last error: "
+            f"{exc!r}); pending requests failed, admission closed"
+        )
+        err.__cause__ = exc
+        self._closed = True
+        try:
+            self.queue.close()
+        finally:
+            for rec in self.queue.wq.records:
+                payload = rec.payload
+                if hasattr(payload, "tickets"):
+                    for t in payload.tickets:
+                        if not t.done():
+                            t.fail(err)
+
+    def health(self) -> dict:
+        """Live resilience state: sheds by reason, per-signature breaker
+        snapshots, lane restarts, last recovery time."""
+        out: dict = {
+            "sheds": dict(self._sheds),
+            "shed_count": sum(self._sheds.values()),
+            "inflight": self.queue.inflight,
+            "lane_alive": self._thread.is_alive(),
+        }
+        if self.queue_depth is not None:
+            out["queue_depth"] = self.queue_depth
+        if self.queue.breakers:
+            out["breakers"] = {
+                str(sig): br.snapshot()
+                for sig, br in self.queue.breakers.items()
+            }
+        if self._watchdog is not None:
+            out["lane_restarts"] = self._watchdog.restarts
+            out["lane_dead"] = self._watchdog.dead
+        if self.last_recovery_ms is not None:
+            out["last_recovery_ms"] = round(self.last_recovery_ms, 3)
+        return out
+
+    # -- client API ----------------------------------------------------------
+
+    def submit(self, x, *, tenant=None):
+        """Admit one query; returns its ticket. Width is validated HERE (a
+        malformed request fails its caller at the door). Admission
+        failures are the documented server-boundary errors:
+        :class:`ServerClosed` after ``close()``, :class:`ServerOverloaded`
+        when bounded admission sheds, ``BreakerOpen`` when this signature
+        is fast-failing. ``tenant`` is the continuous-batching fairness
+        key (ignored in deadline mode)."""
+        arr = np.asarray(x, np.float32)
+        if arr.ndim == 1:
+            arr = arr[None, :]
+        if arr.ndim != 2 or arr.shape[1] != self.d:
+            raise ValueError(
+                f"query shape {np.shape(x)} does not match the served "
+                f"signature: want (rows, {self.d})"
+            )
+        if arr.shape[0] < 1:
+            raise ValueError("empty query (zero rows)")
+        tr = self._tracer()
+        tid = tr.new_trace("query")
+        t0 = time.perf_counter()
+        try:
+            ticket = self.queue.submit(
+                (self.d, self.k),
+                _QueryRequest(x=arr, t_submit=t0, trace_id=tid),
+                tenant=tenant,
+            )
+        except QueueClosed as e:
+            raise ServerClosed(
+                "submit on a closed QueryServer (close() already ran; "
+                "in-flight requests drained first) — construct a new "
+                "server"
+            ) from e
+        except QueueFull as e:
+            raise ServerOverloaded(
+                f"query shed: {self.queue.inflight} requests already "
+                f"in flight >= serve_queue_depth {self.queue_depth} "
+                "(reject-newest load shedding; back off and retry)"
+            ) from e
+        tr.record_span(
+            "admit", t0, time.perf_counter(), trace_id=tid,
+            category="serve", attrs={"rows": int(arr.shape[0])},
+        )
+        return ticket
+
+    def close(self) -> None:
+        """Flush partial micro-batches, drain, join dispatch lanes. Marks
+        the shutdown intentional FIRST, so a lane exiting during close is a
+        clean drain, never a restartable death."""
+        self._closed = True
+        if self._watchdog is not None:
+            self._watchdog.close()
+        self.queue.close()
+        self._thread.join()
+
+    def __enter__(self) -> "QueryServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- dispatch ------------------------------------------------------------
+
+    def _basis_device(self, ver) -> torch.Tensor:
+        """Device-resident basis for ``ver``, the double buffer: a
+        ``(version_id, tensor)`` pair swapped by reference, so in-flight
+        batches holding the previous tensor are untouched."""
+        pair = self._dev_basis
+        if pair is not None and pair[0] == ver.version:
+            return pair[1]
+        # a copy: ver.v is a read-only host array
+        arr = torch.tensor(ver.v, dtype=torch.float32, device=self.engine.device)
+        self._dev_basis = (ver.version, arr)
+        return arr
+
+    def _run_batch(self, bucket) -> list:
+        tr = self._tracer()
+        if self.fault_hook is not None:
+            # chaos-injection point: KillSwitch = lane death (watchdog
+            # restarts, lease re-queues the bucket), anything else = a
+            # dispatch failure (retry ladder + breaker food)
+            self.fault_hook(bucket)
+        t0 = time.perf_counter()
+        if self._last_lane_death is not None:
+            # first dispatch after a lane restart: the measured recovery
+            # time (death -> served again), health-reported
+            self.last_recovery_ms = (t0 - self._last_lane_death) * 1e3
+            self._last_lane_death = None
+            self.ledger.record(
+                "lane_recovered", None,
+                recovery_ms=round(self.last_recovery_ms, 3),
+            )
+        # any bucket this batch acquires for the first time shows up as
+        # the delta below, recorded as a compile_stall span
+        stall_ms0 = self.engine.compile_ms_total
+        reqs = [t.payload for t in bucket.tickets]
+        ver = self.registry.latest()
+        if ver is None:
+            raise RuntimeError(
+                "no published basis: publish to the registry before "
+                "serving queries"
+            )
+        if ver.signature != (self.d, self.k):
+            raise RuntimeError(
+                f"live version {ver.version} has signature "
+                f"{ver.signature}; this server serves ({self.d}, {self.k})"
+            )
+        if self._served_version is not None and self._served_version != ver.version:
+            self.swap_count += 1
+        self._served_version = ver.version
+
+        # deadline-aware load shedding (active when bounded admission AND
+        # an SLO are declared): a request that already waited past the
+        # declared p99 target is dropped BEFORE compute
+        dropped: dict[int, Exception] = {}
+        if self.queue_depth is not None and self._slo_ms is not None:
+            for i, req in enumerate(reqs):
+                waited_ms = (t0 - req.t_submit) * 1e3
+                if waited_ms > self._slo_ms:
+                    dropped[i] = DeadlineExceeded(
+                        f"request shed before compute: queued "
+                        f"{waited_ms:.1f} ms > declared SLO "
+                        f"{self._slo_ms} ms (cfg.serve_slo_p99_ms)"
+                    )
+            if dropped:
+                self._sheds["deadline"] += len(dropped)
+                for i, exc in dropped.items():
+                    bucket.tickets[i].fail(exc)
+                    tr.event(
+                        "serve_shed", trace_id=reqs[i].trace_id,
+                        category="serve", attrs={"reason": "deadline"},
+                    )
+
+        # per-request quarantine: a non-finite query fails ITS ticket and
+        # leaves the batch; everyone else is served normally
+        good: list[int] = []
+        fails: dict[int, Exception] = {}
+        for i, req in enumerate(reqs):
+            if i in dropped:
+                fails[i] = dropped[i]  # already failed; skip compute
+                continue
+            finite = np.isfinite(req.x).all(axis=1)
+            if finite.all():
+                good.append(i)
+            else:
+                bad_rows = [int(r) for r in np.nonzero(~finite)[0]]
+                fails[i] = ValueError(
+                    f"query contains non-finite rows {bad_rows} — "
+                    "rejected (its batch neighbors were served)"
+                )
+
+        results: list[Any] = [None] * len(reqs)
+        t_c0 = t_c1 = None
+        if good:
+            v_dev = self._basis_device(ver)
+            x = np.concatenate([reqs[i].x for i in good], axis=0)
+            t_c0 = time.perf_counter()
+            # device=True opens a torch.profiler.record_function region, so
+            # a profiler capture shows this region beside its kernels
+            with tr.span(
+                "batch_compute", category="serve", device=True,
+                attrs={"rows": int(x.shape[0]), "queries": len(good),
+                       "version": ver.version},
+            ):
+                # one host-to-device copy, shared by both operations
+                x_dev = torch.from_numpy(x).to(self.engine.device)
+                z = self.engine.project(x_dev, v_dev)
+                r_sq, e_sq = self.engine.residual_energy(x_dev, z)
+                z = z.cpu().numpy()
+                r_sq = r_sq.cpu().numpy()
+                e_sq = e_sq.cpu().numpy()
+            t_c1 = time.perf_counter()
+            off = 0
+            for i in good:
+                rows = reqs[i].x.shape[0]
+                results[i] = ServedProjection(
+                    z=z[off : off + rows],
+                    residual_sq=r_sq[off : off + rows],
+                    input_sq=e_sq[off : off + rows],
+                    version=ver.version,
+                )
+                off += rows
+        for i, exc in fails.items():
+            bucket.tickets[i].fail(exc)
+            # the scheduler's fold skips already-resolved tickets; mark the
+            # slot served anyway
+            results[i] = ServedProjection(
+                z=np.zeros((0, self.k), np.float32),
+                residual_sq=np.zeros(0, np.float32),
+                input_sq=np.zeros(0, np.float32),
+                version=ver.version,
+            )
+
+        if tr is not NULL_TRACER:
+            now = time.perf_counter()
+            stall_ms = self.engine.compile_ms_total - stall_ms0
+            # per-request span chain under the request's trace_id:
+            # admit (recorded at submit) -> queue_wait -> dispatch
+            # (compile_stall -> compute -> reply)
+            for i, req in enumerate(reqs):
+                tid = req.trace_id
+                qw_attrs = {}
+                if bucket.t_dispatch is not None:
+                    qw_attrs = {
+                        "bucket_wait_s": round(
+                            max(0.0, bucket.t_dispatch - req.t_submit), 6
+                        ),
+                        "lane_wait_s": round(
+                            max(0.0, t0 - bucket.t_dispatch), 6
+                        ),
+                    }
+                tr.record_span(
+                    "queue_wait", req.t_submit, t0, trace_id=tid,
+                    category="serve", attrs=qw_attrs,
+                )
+                dspan = tr.record_span(
+                    "dispatch", t0, now, trace_id=tid, category="serve",
+                    attrs={"version": ver.version,
+                           "queries": len(reqs),
+                           "rejected": i in fails},
+                )
+                if t_c0 is not None:
+                    if stall_ms > 0:
+                        tr.record_span(
+                            "compile_stall", t_c0, t_c0 + stall_ms / 1e3,
+                            trace_id=tid, parent=dspan,
+                            category="compile",
+                            attrs={"compile_stall_ms": round(stall_ms, 3)},
+                        )
+                    tr.record_span(
+                        "compute", t_c0, t_c1, trace_id=tid,
+                        parent=dspan, category="serve",
+                    )
+                    tr.record_span(
+                        "reply", t_c1, now, trace_id=tid,
+                        parent=dspan, category="serve",
+                    )
+        return results

@@ -1,0 +1,301 @@
+"""Query projections against an operand basis, with rows padded to buckets.
+
+Counterpart of ``distributed_eigenspaces_tpu/serving/transform.py`` on one
+device. Two disciplines of the reference carry over:
+
+1. **The basis is an argument.** Every operation is ``f(x, v)``, so
+   publishing a new version changes an operand, never the code that runs:
+   a hot swap costs one host-to-device copy of the basis.
+2. **Rows pad to shape buckets.** :func:`bucket_rows` pads a batch to the
+   next power of two (floored at ``min_bucket``). The engine keeps the
+   reference's acquisition counters: ``compile_misses`` counts the first
+   dispatch of each ``(kind, padded_rows)`` pair, ``cache_hits`` every
+   later one, ``compile_ms_total`` the time the misses took (for the
+   quantized kinds on the card, the first one builds the serve kernels),
+   so a test can assert that a swap acquired nothing.
+
+Routes of :meth:`TransformEngine.project` by ``serve_dtype``:
+``"float32"`` is ``torch.matmul`` (the JAX package runs it outside any
+Pallas kernel, at ``Precision.HIGHEST``; the port never enables TF32);
+``"bfloat16"`` and ``"int8"`` go to ``ops/serve_project.py``, whose
+``*_auto`` functions launch the hand-written kernels on a CUDA tensor and
+take the plain versions on a CPU one. Zero-padded rows leave every real
+row's bits unchanged in the kernels (each row's sum order is fixed); for
+``float32`` that holds only as far as the matmul library keeps rows
+independent across shapes.
+
+Not ported yet: the mesh and sharded-basis (``basis_spec``) engines and
+the persistent compile cache (ROADMAP.md Queue 1 items 14 and 16).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from distributed_eigenspaces_tpu_torch.config import SERVE_DTYPES, _not_ported
+from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+from distributed_eigenspaces_tpu_torch.ops import _build
+from distributed_eigenspaces_tpu_torch.ops.serve_project import (
+    quantize_basis_i8,
+    serve_project_auto,
+    serve_project_i8_auto,
+)
+
+__all__ = ["TransformEngine", "bucket_rows"]
+
+
+def bucket_rows(n: int, *, min_bucket: int = 8) -> int:
+    """Padded row count for an ``n``-row batch: next power of two,
+    floored at ``min_bucket``."""
+    if n < 1:
+        raise ValueError(f"need n >= 1, got {n}")
+    return max(min_bucket, 1 << (n - 1).bit_length())
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """``a`` as a tensor without a host copy, except of a read-only numpy
+    array (which torch would otherwise share and warn about)."""
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        a = a.copy()
+    return torch.as_tensor(a)
+
+
+def _project_exact(x, v):
+    return torch.matmul(x, v.to(x.dtype))
+
+
+def _reconstruct(z, v):
+    return torch.matmul(z, v.T.to(z.dtype))
+
+
+def _residual(x, z):
+    # per-row residual energy ||x||^2 - ||xV||^2 (>= 0 for an orthonormal
+    # V up to rounding; clamped so drift scores never go negative on noise)
+    e_in = torch.sum(x.float() ** 2, dim=-1)
+    e_out = torch.sum(z.float() ** 2, dim=-1)
+    return torch.clamp_min(e_in - e_out, 0.0), e_in
+
+
+class TransformEngine:
+    """Projection / reconstruction / residual operations for one ``(d, k)``
+    signature on one device (``"cuda"`` unless the caller asks for
+    another). The basis is an operand of every call; the acquisition
+    counters (module docstring) make a swap's cost checkable."""
+
+    def __init__(self, d: int, k: int, *, dtype="float32", mesh=None,
+                 min_bucket: int = 8, cache=None, basis_spec=None,
+                 serve_dtype: str = "float32", device="cuda"):
+        if not (0 < k <= d):
+            raise ValueError(f"need 0 < k <= d, got k={k}, d={d}")
+        if serve_dtype not in SERVE_DTYPES:
+            raise ValueError(
+                f"unknown serve_dtype: {serve_dtype!r} "
+                "(float32/bfloat16/int8)"
+            )
+        if mesh is not None or basis_spec is not None:
+            raise _not_ported(
+                "TransformEngine(mesh=, basis_spec=)",
+                "Queue 1 item 14 (multi-device serving)",
+            )
+        if cache is not None:
+            raise _not_ported(
+                "TransformEngine(cache=) (the persistent compile cache)",
+                "Queue 1 item 16 (utils/compile_cache.py)",
+            )
+        self.d = int(d)
+        self.k = int(k)
+        self.serve_dtype = serve_dtype
+        self.dtype = torch_dtype(dtype)
+        self.device = resolve_device(device)
+        self.min_bucket = min_bucket
+        self._cache: dict = {}
+        self.compile_misses = 0
+        self.cache_hits = 0
+        self.compile_ms_total = 0.0
+        #: optional ``utils.telemetry.Tracer``: acquisitions land as
+        #: ``engine_compile`` spans, and a ``QueryServer`` over this engine
+        #: records its request spans there too
+        self.tracer = None
+        project = (
+            _project_exact if serve_dtype == "float32" else self._project_quant
+        )
+        self._fns = {
+            "project": project,
+            "reconstruct": _reconstruct,
+            "residual": _residual,
+        }
+
+    def _project_quant(self, x, v):
+        if self.serve_dtype == "int8":
+            # per call, as the reference quantizes in-program: the fp32
+            # basis stays the operand, so a swap re-quantizes, never rebuilds
+            q, s = quantize_basis_i8(v)
+            return serve_project_i8_auto(x, q, s)
+        return serve_project_auto(x, v)
+
+    # -- acquisition ---------------------------------------------------------
+
+    def _compiled(self, kind: str, rows: int):
+        key = (kind, rows)
+        hit = self._cache.get(key)
+        if hit is not None:
+            self.cache_hits += 1
+            return hit
+        self.compile_misses += 1
+        t0 = time.perf_counter()
+        if (kind == "project" and self.serve_dtype != "float32"
+                and self.device.type == "cuda"):
+            _build.load("serve_project")  # built once, at the first dispatch
+        fn = self._fns[kind]
+        t1 = time.perf_counter()
+        self.compile_ms_total += (t1 - t0) * 1e3
+        if self.tracer is not None:
+            self.tracer.record_span(
+                "engine_compile", t0, t1, category="compile",
+                attrs={"op": kind, "rows": rows,
+                       "signature": f"({self.d}, {self.k})"},
+            )
+        self._cache[key] = fn
+        return fn
+
+    def self_check(
+        self,
+        v=None,
+        *,
+        budget_deg: float = 0.2,
+        rows: int = 64,
+        seed: int = 0,
+    ) -> float:
+        """Startup gate: project a seeded query batch through this engine
+        and compare it with the fp32 matmul of the same operands.
+        ``serve_dtype='float32'`` must be bit-exact; the quantized routes
+        must keep every row's projection within ``budget_deg`` degrees.
+        Raises ``ValueError`` on a breach; returns the worst angle in
+        degrees. ``v=None`` checks a seeded random orthonormal basis.
+
+        Probe rows carry dominant in-subspace energy plus moderate
+        orthogonal noise (the PCA serve regime): a near-orthogonal query's
+        tiny projection would amplify rounding by ``sqrt(d/k)`` and
+        measure the query, not the kernel."""
+        rng = np.random.default_rng(seed)
+        if v is None:
+            q, _ = np.linalg.qr(rng.standard_normal((self.d, self.k)))
+            v = np.asarray(q[:, : self.k], np.float32)
+        elif isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy()
+        else:
+            v = np.asarray(v, np.float32)
+        coeffs = rng.standard_normal((rows, self.k))
+        noise = rng.standard_normal((rows, self.d))
+        noise *= (
+            0.3
+            * np.linalg.norm(coeffs, axis=1, keepdims=True)
+            / np.maximum(
+                np.linalg.norm(noise, axis=1, keepdims=True), 1e-12
+            )
+        )
+        x = np.asarray(coeffs @ v.T + noise, np.float32)
+        z = self.project(x, v).cpu().numpy()
+        z_ref = torch.matmul(
+            torch.from_numpy(x).to(self.device),
+            torch.from_numpy(v).to(self.device),
+        ).cpu().numpy()
+        if self.serve_dtype == "float32":
+            if not np.array_equal(z, z_ref):
+                raise ValueError(
+                    "serve_dtype='float32' self-check failed: the "
+                    "padded bucket projection is not bit-exact against "
+                    "the direct matmul (max abs err "
+                    f"{float(np.abs(z - z_ref).max()):.3e})"
+                )
+            return 0.0
+        num = np.sum(z * z_ref, axis=1)
+        den = np.linalg.norm(z, axis=1) * np.linalg.norm(z_ref, axis=1)
+        ok = den > 1e-12
+        cos = np.clip(num[ok] / den[ok], -1.0, 1.0)
+        worst = float(np.degrees(np.arccos(cos)).max()) if ok.any() else 0.0
+        if worst > budget_deg:
+            raise ValueError(
+                f"serve_dtype={self.serve_dtype!r} self-check failed: "
+                f"worst projection angle {worst:.4f} deg exceeds the "
+                f"{budget_deg} deg budget — the quantized kernel is "
+                "mis-projecting (refusing to serve drifted answers)"
+            )
+        return worst
+
+    def stats(self) -> dict:
+        return {
+            "compile_misses": self.compile_misses,
+            "cache_hits": self.cache_hits,
+            "compile_ms_total": round(self.compile_ms_total, 3),
+            "buckets": sorted({r for _, r in self._cache}),
+        }
+
+    # -- padded dispatch -----------------------------------------------------
+
+    def _pad(self, x, width: int):
+        """``x`` on this engine's device and dtype (one copy from the host
+        when it is there), zero-padded to its row bucket on the device."""
+        x = _as_tensor(x)
+        if x.dim() != 2 or x.shape[1] != width:
+            raise ValueError(
+                f"query batch must be (rows, {width}), got shape "
+                f"{tuple(x.shape)}"
+            )
+        x = x.to(device=self.device, dtype=self.dtype)
+        rows = int(x.shape[0])
+        padded = bucket_rows(rows, min_bucket=self.min_bucket)
+        if padded != rows:
+            buf = torch.zeros((padded, width), dtype=self.dtype, device=self.device)
+            buf[:rows] = x
+            x = buf
+        return x, rows
+
+    def place_basis(self, v) -> torch.Tensor:
+        """A basis on this engine's device as a float32 tensor (a copy).
+        Accepts a ``serving.registry.BasisVersion`` (its host ``v``), a
+        tensor, or any ``(d, k)`` array. A hot swap costs exactly this."""
+        if hasattr(v, "shard_sizes") and hasattr(v, "v"):
+            v = v.v
+        if isinstance(v, torch.Tensor):
+            return v.detach().to(device=self.device, dtype=torch.float32, copy=True)
+        return torch.tensor(np.asarray(v), dtype=torch.float32, device=self.device)
+
+    def _check_basis(self, v) -> torch.Tensor:
+        """Loud signature check at the kernel boundary: a mis-shaped basis
+        would otherwise surface as a shape error deep inside a dispatch
+        lane."""
+        if tuple(v.shape) != (self.d, self.k):
+            raise ValueError(
+                f"basis shape {tuple(v.shape)} does not match this "
+                f"engine's signature ({self.d}, {self.k})"
+            )
+        if isinstance(v, torch.Tensor):
+            return v.to(device=self.device, dtype=torch.float32).contiguous()
+        return self.place_basis(v)
+
+    def project(self, x, v) -> torch.Tensor:
+        """``(n, d) -> (n, k)`` against basis ``v``: pad, dispatch the
+        bucket's operation, slice."""
+        v = self._check_basis(v)
+        x_pad, rows = self._pad(x, self.d)
+        z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
+        return z[:rows]
+
+    def reconstruct(self, z, v) -> torch.Tensor:
+        """``(n, k) -> (n, d)`` back-projection against basis ``v``."""
+        v = self._check_basis(v)
+        z_pad, rows = self._pad(z, self.k)
+        x = self._compiled("reconstruct", int(z_pad.shape[0]))(z_pad, v)
+        return x[:rows]
+
+    def residual_energy(self, x, z) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-row ``(residual_sq, input_sq)`` energies from a query batch
+        and its projection. Zero-padded rows contribute zero to both."""
+        x_pad, rows = self._pad(x, self.d)
+        z_pad, _ = self._pad(z, self.k)
+        r, e = self._compiled("residual", int(x_pad.shape[0]))(x_pad, z_pad)
+        return r[:rows], e[:rows]

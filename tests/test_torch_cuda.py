@@ -11,7 +11,13 @@ Tolerances: the Gram kernel's relative Frobenius error against the plain
 version is at most 1e-5 for fp32 and 1e-4 for bf16 inputs (the same exact
 products, summed in another order); whole rounds on the card and on the
 CPU agree to 1e-4 absolute in ``sigma_tilde`` and 0.05 degrees in bases.
+The serve kernels agree with their plain versions to 1e-5 relative (exact
+products of bf16-rounded operands, fp32 sums in another order), and a
+zero-padded launch gives every real row the same bits as an unpadded one.
 """
+
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -19,8 +25,10 @@ import torch
 
 import distributed_eigenspaces_tpu_torch as dett
 from distributed_eigenspaces_tpu_torch.ops import gram as tgram
+from distributed_eigenspaces_tpu_torch.ops import serve_project as tsp
 from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 from distributed_eigenspaces_tpu_torch.parallel import worker_pool as twp
+from distributed_eigenspaces_tpu_torch.serving import EigenbasisRegistry, QueryServer
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +115,106 @@ def test_entry_step_on_card_matches_cpu(cuda_device):
     cpu_state, cpu_v = cpu_step(cpu_state, cpu_x)
     assert float((state.sigma_tilde.cpu() - cpu_state.sigma_tilde).abs().max()) <= 1e-4
     assert float(principal_angles_degrees(v.cpu(), cpu_v).max()) <= 0.05
+
+
+def _serve_operands(rows, d, k, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    v = torch.from_numpy(np.linalg.qr(rng.standard_normal((d, k)))[0].astype(np.float32))
+    return x, v
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "rows,d,k", [(1000, 3000, 10), (37, 129, 3), (64, 256, 8), (5, 1100, 19), (1, 1, 1)]
+)
+def test_serve_kernels_match_plain(cuda_device, x_dtype, rows, d, k):
+    x, v = _serve_operands(rows, d, k)
+    x = x.to(device=cuda_device, dtype=getattr(torch, x_dtype))
+    v = v.to(cuda_device)
+    q, s = tsp.quantize_basis_i8(v)
+    before = (tsp.launches, tsp.launches_i8)
+    got = tsp.serve_project_cuda(x, v)
+    got_i8 = tsp.serve_project_i8_cuda(x, q, s)
+    torch.cuda.synchronize()
+    assert (tsp.launches, tsp.launches_i8) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (rows, k) and got.dtype == torch.float32
+    assert _rel(got, tsp.serve_project_plain(x, v)) <= 1e-5
+    assert _rel(got_i8, tsp.serve_project_i8_plain(x, q, s)) <= 1e-5
+    # padded rows: a longer launch gives the first rows the same bits
+    pad = torch.zeros((rows + 45, d), dtype=x.dtype, device=cuda_device)
+    pad[:rows] = x
+    assert torch.equal(tsp.serve_project_cuda(pad, v)[:rows], got)
+    assert torch.equal(tsp.serve_project_i8_cuda(pad, q, s)[:rows], got_i8)
+
+
+def test_serve_auto_on_cuda_launches_and_cuda_wrappers_refuse_cpu(cuda_device):
+    x, v = _serve_operands(33, 300, 10)
+    q, s = tsp.quantize_basis_i8(v)
+    before = (tsp.launches, tsp.launches_i8)
+    tsp.serve_project_auto(x.to(cuda_device), v.to(cuda_device))
+    tsp.serve_project_i8_auto(x.to(cuda_device), q.to(cuda_device), s.to(cuda_device))
+    assert (tsp.launches, tsp.launches_i8) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.serve_project_cuda(x, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.serve_project_i8_cuda(x, q, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsp.serve_project_auto(x.to(cuda_device).mT.contiguous().mT, v.to(cuda_device))
+    assert (tsp.launches, tsp.launches_i8) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("serve_dtype", ["bfloat16", "int8"])
+def test_query_server_on_card_launches_once_per_dispatch(cuda_device, serve_dtype):
+    d, k = 256, 8
+    _, v = _serve_operands(1, d, k)
+    reg = EigenbasisRegistry()
+    reg.publish(v.numpy())
+    cfg = dett.PCAConfig(dim=d, k=k, serve_dtype=serve_dtype)
+    rng = np.random.default_rng(1)
+    qs = [(rng.standard_normal((r, k)) @ v.numpy().T
+           + 0.1 * rng.standard_normal((r, d))).astype(np.float32) for r in (1, 8, 64)]
+    with QueryServer(reg, cfg, device=cuda_device) as srv:
+        tsp.launches = tsp.launches_i8 = 0
+        project_calls = srv.engine.compile_misses + srv.engine.cache_hits
+        res = [srv.submit(q).result(timeout=60) for q in qs]
+        dispatches = srv.engine.compile_misses + srv.engine.cache_hits - project_calls
+    launched = tsp.launches_i8 if serve_dtype == "int8" else tsp.launches
+    assert launched == dispatches // 2  # one project and one residual per batch
+    for q, r in zip(qs, res):
+        z_ref = q @ v.numpy()
+        cos = (r.z * z_ref).sum(1) / np.linalg.norm(r.z, axis=1) / np.linalg.norm(z_ref, axis=1)
+        assert float(np.degrees(np.arccos(np.clip(cos, -1, 1))).max()) <= 0.2
+
+
+def test_launch_counters_survive_threads(cuda_device):
+    """Serve lanes launch from their own threads: a counter that lost an
+    update would break the launch gates of chip_smoke.py."""
+    x, v = _serve_operands(64, 256, 8)
+    x, v = x.to(cuda_device), v.to(cuda_device)
+    q, s = tsp.quantize_basis_i8(v)
+    xg = x.reshape(1, 64, 256)
+    before = (tsp.launches, tsp.launches_i8, tgram.launches)
+    threads, reps = 12, 40
+
+    def work():
+        for _ in range(reps):
+            tsp.serve_project_cuda(x, v)
+            tsp.serve_project_i8_cuda(x, q, s)
+            tgram.gram_cuda(xg)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    n = threads * reps
+    assert (tsp.launches, tsp.launches_i8, tgram.launches) == (
+        before[0] + n, before[1] + n, before[2] + n)

@@ -13,6 +13,11 @@ import torch
 
 import distributed_eigenspaces_tpu_torch as dett
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
+from distributed_eigenspaces_tpu_torch.serving import (
+    EigenbasisRegistry,
+    QueryServer,
+    TransformEngine,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_eigenspaces_tpu_torch"
@@ -37,6 +42,14 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, distributed_eigenspaces_tpu_torch as t\n"
         "import distributed_eigenspaces_tpu_torch.interop\n"
+        "import distributed_eigenspaces_tpu_torch.serving\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.scheduler\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.supervisor\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.membership\n"
+        "import distributed_eigenspaces_tpu_torch.utils.telemetry\n"
+        "import distributed_eigenspaces_tpu_torch.utils.faults\n"
+        "import distributed_eigenspaces_tpu_torch.utils.metrics\n"
+        "import distributed_eigenspaces_tpu_torch.ops.serve_project\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -54,7 +67,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 @pytest.mark.parametrize(
     "path",
     sorted(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    + sorted((ROOT / "scripts").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_import_in_port_sources(path):
@@ -74,9 +88,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
         dett.make_scan_fit(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         dett.entry()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransformEngine(16, 2)
+    reg = EigenbasisRegistry()
+    reg.publish(np.eye(16, 2, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        QueryServer(reg, cfg)
 
 
 def test_kernel_sources_ship_with_the_package():
     assert (PKG / "csrc" / "gram.cu").is_file()
+    assert (PKG / "csrc" / "serve_project.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
