@@ -8,9 +8,10 @@ exits non-zero without printing a result:
 
 1. env: versions, the card (``nvidia-smi``), and the fp32 matmul
    precision (no TF32), which the port relies on but never sets.
-2. build, build_serve: ``csrc/gram.cu`` and ``csrc/serve_project.cu``
-   compiled with nvcc for sm_90a, one process each, started together
-   (seconds, ptxas register / spill lines).
+2. build, build_serve, build_matvec_gram: ``csrc/gram.cu``,
+   ``csrc/serve_project.cu`` and ``csrc/matvec_gram.cu`` compiled with nvcc
+   for sm_90a, one process each, started together (seconds, ptxas
+   register / spill lines).
 3. parity: the Gram kernel against its plain PyTorch version on the card,
    fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10 shape
    (8, 1024, 3072) and a ragged (3, 1000, 3000).
@@ -21,11 +22,12 @@ exits non-zero without printing a result:
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
    bf16) on planted-spectrum data, which must recover the planted top-10
    within 1 degree with exactly one Gram launch (the cold step).
-6. parity_serve: both serve kernels against their plain versions at
-   (64, 256, 8), the CIFAR-10 serve shape (512, 3072, 10) and a ragged
-   (1000, 3000, 10), fp32 x (and bf16 x at the serve shape); relative
-   Frobenius error <= 1e-5, and the first 300 rows of a 512-row launch
-   equal, bit for bit, a 300-row launch of the same rows.
+6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
+   one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
+   shape (512, 3072, 10) and a ragged (1000, 3000, 10), fp32 x (and bf16
+   x at the serve shape, but for the fp32 kernel, which takes fp32 x
+   only); relative Frobenius error <= 1e-5, and the first 300 rows of a
+   512-row launch equal, bit for bit, a 300-row launch of the same rows.
 7. timing_serve: kernels, plain versions, ``torch.matmul`` on the fp32
    operands (and ``torch.mm(..., out_dtype=float32)`` on bf16 ones where
    this torch has it) and the bound at (512, 3072, 10) and
@@ -40,8 +42,25 @@ exits non-zero without printing a result:
    acquire no bucket, and each serve kernel must launch once per
    ``project`` dispatch. Then one bulk ``project`` of 50,000 rows per
    quantized dtype, and a float32 server on the same burst, whose
-   served-vs-direct difference is reported (cuBLAS may pick another
-   algorithm for a padded bucket than for the query alone).
+   served rows must equal ``est.transform``'s bit for bit (both take the
+   fixed-order fp32 kernel, once per dispatch).
+9. parity_matvec_gram: the fused matvec + Gram kernel of the large-d
+   solver against its plain version at (256, 64, 16), the slice shape
+   (12288, 200, 58) and a ragged (3000, 80, 13): relative Frobenius error
+   <= 1e-5 on ``w`` and ``g``, ``g`` exactly symmetric, two launches bit
+   for bit the same.
+10. timing_matvec_gram: kernel, plain version, the ``torch.matmul``
+   yardstick and the bound at the slice shape.
+11. slice_dsolve: ``OnlineDistributedPCA`` with ``solver="distributed"``
+   above the crossover at the ImageNet-patch shape (d=12288, k=50, m=4,
+   n=2048, T=10, 16 cold / 1 warm iterations, bf16) on planted-spectrum
+   data (decay 0.97), which must recover the planted top-50 within 1
+   degree; then the fused solve on the fit's own operator (the last
+   block's worker factors), which must agree with
+   ``merged_top_k_distributed`` within 0.05 degrees in exactly 16 kernel
+   launches (and, with ``tol=1e-6``, in as many launches as iterations);
+   then ``dist_extract_top_k`` against a dense ``eigh`` at d=12288, r=100
+   within 0.5 degrees.
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -75,6 +94,15 @@ SERVE_K = 10
 SERVE_BURST = (512, 3072, SERVE_K)  # a full bucket: 8 queries x 64 rows
 SERVE_BULK = (65536, 3072, SERVE_K)  # 50,000 rows padded to their bucket
 SERVE_PARITY = ((64, 256, 8), SERVE_BURST, (1000, 3000, SERVE_K))
+SERVE_F32_NOTE = ("no TPU kernel: the JAX package's fp32 projection is XLA at "
+                  "Precision.HIGHEST (distributed_eigenspaces_tpu/serving/"
+                  "transform.py:523); the port's fixed-order fp32 route")
+MG_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/matvec_gram.cu"
+MG_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:337"
+MG_TOL = 1e-5
+MG_SLICE = (12288, 200, 58)  # C (d, m*k) and the oversampled iterate at k=50
+MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13))
+DSOLVE = dict(dim=12288, k=50, num_workers=4, rows_per_worker=2048, num_steps=10)
 
 
 def emit(phase: str, **kw) -> None:
@@ -131,11 +159,12 @@ def gram_bound(shape, dtype: str) -> tuple[float, str]:
 def serve_bound(shape, route: str) -> tuple[float, str]:
     """Least time for one serve projection of ``shape``: fp32 x read once,
     the basis read once (fp32, or int8 plus its k fp32 scales) and the
-    fp32 z written once, against 2*rows*d*k bf16 products."""
+    fp32 z written once, against 2*rows*d*k bf16 products (fp32 ones for
+    the fp32 route)."""
     rows, d, k = shape
-    basis = d * k * 4 if route == "bf16" else d * k + 4 * k
+    basis = d * k + 4 * k if route == "i8" else d * k * 4
     bytes_s = (rows * d * 4 + basis + rows * k * 4) / PEAK_BYTES_S
-    ops_s = 2 * rows * d * k / PEAK_FLOPS["bfloat16"]
+    ops_s = 2 * rows * d * k / PEAK_FLOPS["float32" if route == "f32" else "bfloat16"]
     return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
 
 
@@ -150,15 +179,19 @@ def serve_operands(shape, dev, seed: int):
     return x, v.contiguous()
 
 
-def serve_routes(sp, v):
-    """Per serve kernel: its wrapper and its plain version on basis ``v``."""
+def serve_routes(sp, v, x_dtype="float32"):
+    """Per serve kernel: its wrapper and its plain version on basis ``v``
+    (the fp32 kernel only for fp32 x, the only x it takes)."""
     q, s = sp.quantize_basis_i8(v)
-    return (
+    routes = (
         ("bf16", lambda a: sp.serve_project_cuda(a, v),
          lambda a: sp.serve_project_plain(a, v), "launches"),
         ("i8", lambda a: sp.serve_project_i8_cuda(a, q, s),
          lambda a: sp.serve_project_i8_plain(a, q, s), "launches_i8"),
+        ("f32", lambda a: sp.serve_project_f32_cuda(a, v),
+         lambda a: sp.serve_project_f32_plain(a, v), "launches_f32"),
     )
+    return routes if x_dtype == "float32" else routes[:2]
 
 
 def parity_serve(dev) -> dict:
@@ -167,12 +200,12 @@ def parity_serve(dev) -> dict:
     import torch
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
 
-    worst = {"bf16": 0.0, "i8": 0.0}
+    worst = {"bf16": 0.0, "i8": 0.0, "f32": 0.0}
     cases = [(shape, "float32") for shape in SERVE_PARITY] + [(SERVE_BURST, "bfloat16")]
     for seed, (shape, x_dtype) in enumerate(cases):
         x, v = serve_operands(shape, dev, seed)
         x = x.to(getattr(torch, x_dtype))
-        for route, run, plain, counter in serve_routes(sp, v):
+        for route, run, plain, counter in serve_routes(sp, v, x_dtype):
             before = getattr(sp, counter)
             got = run(x)
             torch.cuda.synchronize()
@@ -259,7 +292,8 @@ def request_latencies_ms(tracer) -> list[float]:
 
 def slice_serve(est, spec, cfg, card: str) -> dict:
     """The read path end to end on the fit ``est``; returns each serve
-    kernel's launches in its server's run (burst and bulk)."""
+    kernel's launches in its server's run (burst, and bulk for the
+    quantized kernels)."""
     import dataclasses
 
     import numpy as np
@@ -280,7 +314,7 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
     bulk = spec.sample(torch.Generator(device=est.device).manual_seed(2), 50_000)
     bulk_direct = est.transform(bulk)
     launched = {}
-    for serve_dtype, route in (("bfloat16", "bf16"), ("int8", "i8"), ("float32", None)):
+    for serve_dtype, route in (("bfloat16", "bf16"), ("int8", "i8"), ("float32", "f32")):
         t0 = time.perf_counter()
         with QueryServer(reg, dataclasses.replace(cfg, serve_dtype=serve_dtype)) as srv:
             construct_s = time.perf_counter() - t0
@@ -302,7 +336,7 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
 
             eng.project = counted
             eng.tracer = Tracer()
-            sp.launches = sp.launches_i8 = 0
+            sp.launches = sp.launches_i8 = sp.launches_f32 = 0
             t_burst = time.perf_counter()
             served = []
             for half in (queries[:32], queries[32:]):
@@ -326,14 +360,16 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
                 rows_per_s=rows_total / burst_s, burst_s=burst_s,
                 max_angle_deg=float(angles.max()), card=card,
             )
-            if route is None:
+            if route == "f32":
                 exact = all(np.array_equal(r.z, ref.numpy()) for r, ref in zip(served, direct))
                 diff = max(float(np.abs(r.z - ref.numpy()).max()) for r, ref in zip(served, direct))
+                launched[route] = sp.launches_f32
                 emit("slice_serve", served_vs_direct_bit_exact=exact,
-                     served_vs_direct_max_abs_err=diff, **stats)
-                check(max(rel_err(torch.from_numpy(r.z), ref)
-                          for r, ref in zip(served, direct)) <= 1e-5,
-                      "float32 served z strays from the direct projection")
+                     served_vs_direct_max_abs_err=diff, launches=launched[route],
+                     project_dispatches=dispatches[0], **stats)
+                check(exact, f"float32 served z differs from est.transform by {diff}")
+                check(launched[route] == dispatches[0],
+                      f"float32: {launched[route]} launches for {dispatches[0]} dispatches")
             else:
                 t0 = time.perf_counter()
                 z_bulk = eng.project(bulk, v_dev)
@@ -352,6 +388,192 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
             check(len(versions) == 2, f"{serve_dtype}: versions served {versions}")
             check(swap_acquired == 0, f"{serve_dtype}: the swap acquired {swap_acquired} buckets")
     return launched
+
+
+def matvec_gram_bound(shape) -> tuple[float, str]:
+    """Least time for one fused sweep: C read twice (pass 0 and pass 1), v
+    read once and w written once; 4*d*f*k + 2*d*k*k fp32 FLOP (the two
+    products and the Gram)."""
+    d, f, k = shape
+    bytes_s = (2 * d * f + 2 * d * k + k * k) * 4 / PEAK_BYTES_S
+    ops_s = (4 * d * f * k + 2 * d * k * k) / PEAK_FLOPS["float32"]
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def mg_operands(shape, dev, seed: int):
+    """``C (d, f)`` and ``v (d, k)`` at the merge's scale: C's columns
+    orthonormal times 0.5 (four workers' factors at weight 1/4), v an
+    orthonormal block."""
+    import torch
+
+    d, f, k = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.linalg.qr(torch.randn((d, f), generator=gen, device=dev))[0]
+    v = torch.linalg.qr(torch.randn((d, k), generator=gen, device=dev))[0]
+    return (0.5 * c).contiguous(), v.contiguous()
+
+
+def parity_matvec_gram(dev) -> float:
+    """The fused kernel against its plain version; returns the largest
+    absolute error on ``w`` or ``g`` over the cases."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
+
+    worst = 0.0
+    for seed, shape in enumerate(MG_PARITY):
+        c, v = mg_operands(shape, dev, seed)
+        before = mg.launches
+        w, g = mg.matvec_gram_cuda(c, v)
+        torch.cuda.synchronize()
+        check(mg.launches == before + 1, "matvec_gram: launch counter did not move")
+        pw, pg = mg.matvec_gram_plain(c, v)
+        rel_w, rel_g = rel_err(w, pw), rel_err(g, pg)
+        err = max(float((w - pw).abs().max()), float((g - pg).abs().max()))
+        w2, g2 = mg.matvec_gram_cuda(c, v)
+        repeat = bool(torch.equal(w, w2) and torch.equal(g, g2))
+        symmetric = bool(torch.equal(g, g.mT))
+        worst = max(worst, err)
+        emit("parity_matvec_gram", shape=list(shape), rel_frobenius_w=rel_w,
+             rel_frobenius_g=rel_g, max_abs_err=err, tol=MG_TOL,
+             g_symmetric=symmetric, repeat_bit_identical=repeat)
+        check(rel_w <= MG_TOL and rel_g <= MG_TOL,
+              f"matvec_gram {shape}: w {rel_w}, g {rel_g} > {MG_TOL}")
+        check(symmetric, f"matvec_gram {shape}: g is not symmetric")
+        check(repeat, f"matvec_gram {shape}: two launches differ")
+    return worst
+
+
+def timing_matvec_gram(dev, card: str) -> dict:
+    """Kernel, plain, library and bound at the slice shape (CUDA events,
+    median of 25 after warm-up)."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
+
+    c, v = mg_operands(MG_SLICE, dev, seed=11)
+
+    def library():
+        w = torch.matmul(c, torch.matmul(c.T, v))
+        return w, w.T @ w
+
+    ms = time_ms(lambda: mg.matvec_gram_cuda(c, v))
+    plain_ms = time_ms(lambda: mg.matvec_gram_plain(c, v))
+    library_ms = time_ms(library)
+    bound_ms, bound_by = matvec_gram_bound(MG_SLICE)
+    emit("timing_matvec_gram", shape=list(MG_SLICE), kernel_ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, library="torch.matmul(C, torch.matmul(C.T, v)) + w.T @ w",
+         bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def synced_s(fn):
+    """``(result, seconds)`` of ``fn()`` on the host clock, ending in a
+    device synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def slice_dsolve(dev, card: str) -> int:
+    """The large-d solver path: the crossover fit, the fused solve on its
+    own operator, and the factor extract against a dense eigh; returns
+    the kernel's launches in the fused solve."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.algo.step import make_solve_core, merge_start
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.solvers import distributed as sd
+
+    d, k, m, n, T = (DSOLVE[f] for f in ("dim", "k", "num_workers",
+                                          "rows_per_worker", "num_steps"))
+    cfg = dett.PCAConfig(**DSOLVE, solver="distributed", subspace_iters=16,
+                         warm_start_iters=1, compute_dtype="bfloat16", backend="local")
+    check(cfg.uses_distributed_solve(), "dsolve: the crossover merge is off")
+    # the planted basis is numpy's QR of a 12288^2 matrix on the host
+    t0 = time.perf_counter()
+    spec = dett.planted_spectrum(d, k_planted=k, decay=0.97, seed=0)
+    data = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    truth = torch.as_tensor(spec.top_k(k))
+
+    # 1. the fit; its merges take the unfused factor operator, as the reference's
+    est = dett.OnlineDistributedPCA(cfg, device=dev)
+    gram_mod.launches = mg.launches = 0
+    _, fit_s = synced_s(lambda: est.fit(data))
+    fit_launches = (gram_mod.launches, mg.launches)
+    w = est.components_
+    check(w.shape == (d, k) and bool(torch.isfinite(w).all()), "dsolve fit: components_")
+    angle = float(principal_angles_degrees(w.cpu(), truth).max())
+    _, fit2_s = synced_s(lambda: dett.OnlineDistributedPCA(cfg, device=dev).fit(data))
+    samples = T * m * n
+    emit("slice_dsolve", part="fit",
+         config="imagenet-patch shape planted (decay 0.97), d=12288 k=50 m=4 n=2048 "
+                "T=10 solver=distributed 16 cold / 1 warm bf16",
+         trainer=est.trainer_used_, max_angle_deg=angle, data_s=data_s, fit_s=fit_s,
+         samples_per_s=samples / fit_s, second_fit_s=fit2_s,
+         second_samples_per_s=samples / fit2_s,
+         gram_launches=fit_launches[0], matvec_gram_launches=fit_launches[1], card=card)
+    check(angle <= 1.0, f"dsolve fit angle {angle} > 1 degree")
+
+    # 2. the fused solve on the fit's own operator: the last block's factors
+    x_last = data[-m * n:].reshape(m, n, d)
+    vs = make_solve_core(cfg)(x_last, est.v0)
+    cc = sd._scaled_factor_concat(vs, torch.ones((m,), device=dev))
+    kk = k + sd._default_oversample(k, cc.shape[1])
+    v_init = merge_start(cfg, device=dev)
+    check(tuple(v_init.shape) == (d, kk), f"dsolve: merge start {tuple(v_init.shape)}")
+    ref, unfused_s = synced_s(lambda: sd.merged_top_k_distributed(
+        vs, k, iters=16, v_init=v_init))
+
+    def fused(**kw):
+        return sd.dist_subspace_eig(
+            sd.factor_matvec(cc), d, k, iters=16, oversample=kk - k, v_init=v_init,
+            matvec_gram=sd.fused_factor_matvec(cc), **kw)
+
+    fused()  # warm-up (cuSOLVER handles)
+    mg.launches = 0
+    v_fused, fused_s = synced_s(fused)
+    launches = mg.launches
+    agree = float(principal_angles_degrees(v_fused.cpu(), ref.cpu()).max())
+    mg.launches = 0
+    (v_tol, info), _ = synced_s(lambda: fused(tol=1e-6, with_info=True))
+    tol_launches = mg.launches
+    emit("slice_dsolve", part="fused_solve", operator=[d, cc.shape[1]], block=kk,
+         launches=launches, fused_vs_merged_deg=agree, fused_solve_s=fused_s,
+         unfused_merge_s=unfused_s, tol_iters_used=info["iters_used"],
+         tol_residual=info["residual"], tol_launches=tol_launches,
+         fused_vs_truth_deg=float(principal_angles_degrees(v_fused.cpu(), truth).max()),
+         card=card)
+    check(launches == 16, f"dsolve: {launches} matvec_gram launches, want 16")
+    check(agree <= 0.05, f"dsolve: fused solve {agree} deg from merged_top_k_distributed")
+    check(tol_launches == info["iters_used"],
+          f"dsolve: {tol_launches} launches for {info['iters_used']} iterations")
+    del data, x_last, vs, cc, est
+
+    # 3. the factor extract against a dense eigh of U diag(s) U^T
+    r = 100
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = torch.linalg.qr(torch.randn((d, r), generator=gen, device=dev,
+                                    dtype=torch.float64))[0].float()
+    s_vec = torch.linspace(8.0, 1.0, r, device=dev)
+    v_ex, extract_s = synced_s(lambda: sd.dist_extract_top_k(u, s_vec, k, iters=16))
+
+    def dense():
+        return torch.linalg.eigh((u * s_vec) @ u.T)[1][:, -k:].flip(-1)
+
+    v_dense, eigh_s = synced_s(dense)
+    extract_deg = float(principal_angles_degrees(v_ex.cpu(), v_dense.cpu()).max())
+    emit("slice_dsolve", part="extract", d=d, r=r, k=k, extract_vs_eigh_deg=extract_deg,
+         extract_s=extract_s, dense_eigh_s=eigh_s, card=card)
+    check(extract_deg <= 0.5, f"dsolve extract {extract_deg} deg from the dense eigh")
+    return launches
 
 
 def main() -> int:
@@ -379,14 +601,15 @@ def main() -> int:
          python=sys.version.split()[0], card=card,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    # 2. build, both sources at once
+    # 2. build, every source at once
     t0 = time.perf_counter()
-    _build.build_all(["gram", "serve_project"])
-    _build.load("gram")
-    _build.load("serve_project")
+    _build.build_all(["gram", "serve_project", "matvec_gram"])
+    for name in ("gram", "serve_project", "matvec_gram"):
+        _build.load(name)
     seconds = time.perf_counter() - t0
     for phase, name, source in (("build", "gram", GRAM_SOURCE),
-                                ("build_serve", "serve_project", SERVE_SOURCE)):
+                                ("build_serve", "serve_project", SERVE_SOURCE),
+                                ("build_matvec_gram", "matvec_gram", MG_SOURCE)):
         info = _build.build_info[name]
         emit(phase, source=source, seconds=seconds, nvcc_seconds=info["seconds"],
              ptxas=[ln.strip() for ln in info["log"].splitlines()
@@ -487,6 +710,12 @@ def main() -> int:
     serve_err = parity_serve(dev)
     serve_timing = timing_serve(dev, card)
     serve_launches = slice_serve(est, spec, cfg, card)
+    del est, spec, data
+
+    # 9.-11. the large-d solver path
+    mg_err = parity_matvec_gram(dev)
+    mg_timing = timing_matvec_gram(dev, card)
+    mg_launches = slice_dsolve(dev, card)
 
     def row(name, shape, dtype, launches):
         t = timing[(shape, dtype)]
@@ -500,7 +729,7 @@ def main() -> int:
     def serve_row(name, route):
         t = serve_timing[(SERVE_BULK, route)]
         return {"name": name, "route": "cuda", "source": SERVE_SOURCE,
-                "replaces": SERVE_REPLACES[route],
+                "replaces": SERVE_REPLACES.get(route, SERVE_F32_NOTE),
                 "launches": serve_launches[route],
                 "max_abs_err": serve_err[route], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -512,6 +741,12 @@ def main() -> int:
         row("gram_fp32", ENTRY, "float32", entry_launches),
         serve_row("serve_project_bf16", "bf16"),
         serve_row("serve_project_i8", "i8"),
+        serve_row("serve_project_f32", "f32"),
+        {"name": "matvec_gram", "route": "cuda", "source": MG_SOURCE,
+         "replaces": MG_REPLACES, "launches": mg_launches, "max_abs_err": mg_err,
+         "ms": mg_timing["ms"], "plain_ms": mg_timing["plain_ms"],
+         "bound_ms": mg_timing["bound_ms"], "bound_by": mg_timing["bound_by"],
+         "library_ms": mg_timing["library_ms"], "shape": list(MG_SLICE)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ api/estimator.py``, with the two trainers this port has: the whole-fit
 scan (``fit`` by default) and the per-step loop (``fit_stream``, or
 ``fit`` with per-step hooks). The reference's segmented, sketch, fleet
 and feature-sharded trainers, masked whole fits and checkpointing are
-not ported yet (ROADMAP.md Queue 1 items 9c and 9f).
+not ported yet (ROADMAP.md Queue 1 items 9c, 9f and 15). Where the
+reference would send a configuration to its feature-sharded trainers
+(:func:`resolves_feature_sharded`), the estimator raises instead of
+fitting the dense state under that configuration's name.
 """
 
 from __future__ import annotations
@@ -23,8 +26,37 @@ from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.data.stream import block_stream
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis
+from distributed_eigenspaces_tpu_torch.ops.serve_project import project_exact
 
 TRAINERS = ("auto", "scan", "step")
+
+#: d*k above which the reference's ``backend="auto"`` whole fit takes the
+#: feature-sharded sketch trainer (its ``SKETCH_DK_CROSSOVER``)
+SKETCH_DK_CROSSOVER = 65536
+
+
+def resolves_feature_sharded(cfg: PCAConfig, *, whole_fit: bool = True) -> bool:
+    """The reference's rule for "this workload runs the feature-sharded
+    backend": explicit; ``"auto"`` at ``dim >= 4096``; or, for whole fits
+    only, ``"auto"`` at ``dim * k >= SKETCH_DK_CROSSOVER``. The per-step
+    paths (``fit_stream``, per-step hooks) pass ``whole_fit=False``."""
+    if cfg.backend == "feature_sharded":
+        return True
+    if cfg.backend != "auto":
+        return False
+    if cfg.dim >= 4096:
+        return True
+    return whole_fit and cfg.dim * cfg.k >= SKETCH_DK_CROSSOVER
+
+
+def _refuse_feature_sharded(cfg: PCAConfig, *, whole_fit: bool) -> None:
+    if resolves_feature_sharded(cfg, whole_fit=whole_fit):
+        raise NotImplementedError(
+            f"backend={cfg.backend!r} at dim={cfg.dim}, k={cfg.k} runs the "
+            "reference's feature-sharded trainers, which are not ported to "
+            "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item "
+            "15); pass backend='local' for the dense single-device fit"
+        )
 
 
 class OnlineDistributedPCA:
@@ -37,11 +69,13 @@ class OnlineDistributedPCA:
         w = pca.components_        # (3072, 10), descending, canonical signs
 
     ``v0`` is the cold start basis ``(d, k)`` of every subspace solve
-    (default: drawn from ``cfg.seed``).
+    (default: drawn from ``cfg.seed``); ``v_init`` the ``(d, k')`` start of
+    the crossover merge (``solver="distributed"`` above
+    ``eigh_crossover_d``; default: drawn from ``cfg.seed``).
     """
 
     def __init__(self, cfg: PCAConfig, *, device="cuda", trainer: str = "auto",
-                 v0=None):
+                 v0=None, v_init=None):
         if trainer not in TRAINERS:
             raise ValueError(f"unknown trainer {trainer!r}; one of {TRAINERS}")
         self.cfg = cfg
@@ -50,6 +84,7 @@ class OnlineDistributedPCA:
         self.v0 = initial_basis(
             cfg.dim, cfg.k, seed=cfg.seed, device=self.device, v0=v0
         )
+        self.v_init = v_init
         self.state: OnlineState | None = None
         self.trainer_used_: str | None = None
         self._w: torch.Tensor | None = None
@@ -81,6 +116,7 @@ class OnlineDistributedPCA:
                 remainder=cfg.remainder, dtype=cfg.dtype, device=self.device,
             )
             return self.fit_stream(stream, on_step=on_step, worker_masks=worker_masks)
+        _refuse_feature_sharded(cfg, whole_fit=True)
         self.trainer_used_ = "scan"
         blocks = list(block_stream(
             data, num_workers=cfg.num_workers,
@@ -90,7 +126,7 @@ class OnlineDistributedPCA:
         ))
         if not blocks:
             raise ValueError("dataset yielded zero full steps")
-        fit = make_scan_fit(cfg, device=self.device, v0=self.v0)
+        fit = make_scan_fit(cfg, device=self.device, v0=self.v0, v_init=self.v_init)
         state, _ = fit(
             OnlineState.initial(cfg.dim, cfg.state_dtype, device=self.device),
             torch.stack(blocks),
@@ -103,6 +139,7 @@ class OnlineDistributedPCA:
                    max_steps="auto") -> "OnlineDistributedPCA":
         """Fit (or continue fitting) on an iterable of ``(m, n, dim)`` blocks
         with the per-step loop."""
+        _refuse_feature_sharded(self.cfg, whole_fit=False)
         self.trainer_used_ = "step"
         w, state = online_distributed_pca(
             stream, self.cfg, device=self.device, state=self.state,
@@ -122,8 +159,10 @@ class OnlineDistributedPCA:
         return self._w
 
     def transform(self, x, *, serve=None) -> torch.Tensor:
-        """Project ``(N, dim) -> (N, k)`` (or ``(dim,) -> (k,)``) with a plain
-        ``torch.matmul`` in ``cfg.dtype``.
+        """Project ``(N, dim) -> (N, k)`` (or ``(dim,) -> (k,)``) in
+        ``cfg.dtype``: fp32 rows through ``ops.serve_project.project_exact``
+        (on the card the fixed-order fp32 kernel, so a served row equals its
+        direct projection bit for bit), bf16 rows with ``torch.matmul``.
 
         ``serve`` (a live ``serving.QueryServer``) routes the query through
         the server instead: it is admitted to the micro-batch queue and
@@ -144,7 +183,7 @@ class OnlineDistributedPCA:
             z = serve.submit(np.asarray(x, np.float32)).result().z
             return torch.from_numpy(z[0] if np.ndim(x) == 1 else z).to(self.device)
         x = torch.as_tensor(x).to(device=self.device, dtype=torch_dtype(self.cfg.dtype))
-        return torch.matmul(x, w.to(x.dtype))
+        return project_exact(x, w)
 
     def fit_transform(self, data, **kw) -> torch.Tensor:
         return self.fit(data, **kw).transform(data)

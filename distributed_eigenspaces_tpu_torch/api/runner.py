@@ -17,7 +17,9 @@ def extract_dense(cfg: PCAConfig, sigma_tilde: torch.Tensor, v0=None) -> torch.T
     """Top-k of the running projector average by the configured solver and
     orthonormalization, at ``max(cfg.subspace_iters, 16)`` iterations from
     ``v0`` (default: :func:`~..ops.linalg.initial_basis` from ``cfg.seed``)
-    under the subspace solver."""
+    under the subspace solver. ``solver="distributed"`` resolves to the
+    subspace solver here at any d, as in the reference: the state is a dense
+    d x d already, so the factor-operator extract has nothing to save."""
     return merged_top_k(
         sigma_tilde.float(), cfg.k, cfg.resolved_local_solver(),
         max(cfg.subspace_iters, 16), cfg.orth_method,

@@ -38,8 +38,17 @@ class PCAConfig:
       discount: ``"1/T"`` | ``"1/t"`` | ``"notebook"`` (bug-compatible).
       backend: ``"auto"`` | ``"local"`` (both run the workers as a batch
         dimension on one device).
-      solver: ``"eigh"`` | ``"subspace"`` local eigensolver.
-      subspace_iters: cold power-iteration steps.
+      solver: ``"eigh"`` | ``"subspace"`` | ``"distributed"``: the local
+        eigensolver; ``"distributed"`` runs the subspace machinery locally
+        and, above ``eigh_crossover_d``, the factor-operator merge of
+        ``solvers/`` (``uses_distributed_solve()``).
+      eigh_crossover_d: the merge runs the distributed solve when ``dim``
+        exceeds it (strictly).
+      subspace_iters: cold power-iteration steps (and the crossover
+        merge's, cold or warm).
+      solver_tol: residual at which the crossover merge stops early, or
+        None (always ``subspace_iters``).
+      components_axis_size: deflation lanes; must stay 1 in this port.
       warm_start_iters: ``"auto"`` (2 under the subspace solver), an int,
         or None (every step cold).
       orth_method: ``"cholqr2"`` | ``"qr"``; warm_orth_method likewise or
@@ -78,7 +87,10 @@ class PCAConfig:
     discount: str = "1/T"
     backend: str = "auto"
     solver: str = "eigh"
+    eigh_crossover_d: int = 4096
     subspace_iters: int = 16
+    solver_tol: float | None = None
+    components_axis_size: int = 1
     warm_start_iters: int | None | str = "auto"
     orth_method: str = "cholqr2"
     warm_orth_method: str | None = None
@@ -117,14 +129,7 @@ class PCAConfig:
         if self.solver not in ("eigh", "subspace", "distributed",
                                "deflation"):
             raise ValueError(f"unknown solver: {self.solver!r}")
-        if self.solver == "distributed":
-            raise _not_ported(
-                "solver='distributed'", "Queue 1 item 12 (solvers/distributed.py)"
-            )
-        if self.solver == "deflation":
-            raise _not_ported(
-                "solver='deflation'", "Queue 1 item 13 (solvers/deflation.py)"
-            )
+        self._validate_solver()
         if isinstance(self.warm_start_iters, str):
             if self.warm_start_iters != "auto":
                 raise ValueError(
@@ -191,6 +196,49 @@ class PCAConfig:
                 f"need 0 < k <= dim, got k={self.k}, dim={self.dim}"
             )
         self._validate_serve()
+
+    def _validate_solver(self) -> None:
+        """The reference's checks of the solver knobs, then the refusal of
+        the parallel-deflation solve."""
+        tol = self.solver_tol
+        if tol is not None and (
+            not isinstance(tol, (int, float)) or isinstance(tol, bool)
+            or not 0.0 < tol < 1.0
+        ):
+            raise ValueError(
+                f"solver_tol must be a residual tolerance in (0, 1) or None, "
+                f"got {tol!r}"
+            )
+        lanes = self.components_axis_size
+        if not isinstance(lanes, int) or isinstance(lanes, bool) or lanes < 1:
+            raise ValueError(
+                f"components_axis_size must be an int >= 1, got {lanes!r}"
+            )
+        if lanes > 1:
+            if self.solver != "deflation":
+                raise ValueError(
+                    f"components_axis_size={lanes} requires solver='deflation' "
+                    f"(got {self.solver!r})"
+                )
+            if lanes > self.k:
+                raise ValueError(
+                    f"components_axis_size={lanes} exceeds k={self.k}"
+                )
+            if self.k % lanes:
+                raise ValueError(
+                    f"k={self.k} must divide evenly into "
+                    f"components_axis_size={lanes} lanes"
+                )
+        cross = self.eigh_crossover_d
+        if not isinstance(cross, int) or isinstance(cross, bool) or cross < 1:
+            raise ValueError(
+                f"eigh_crossover_d must be an int >= 1, got {cross!r}"
+            )
+        if self.solver == "deflation":
+            raise _not_ported(
+                "solver='deflation' (and components_axis_size > 1)",
+                "Queue 1 item 13 (solvers/deflation.py)",
+            )
 
     def _validate_serve(self) -> None:
         """The reference's read-path checks, field for field."""
@@ -262,16 +310,26 @@ class PCAConfig:
 
     def resolved_warm_start(self) -> int | None:
         """Warm-start iteration count, or None for all-cold steps:
-        ``"auto"`` is 2 under the subspace solver; eigh never warms."""
-        if self.solver != "subspace":
+        ``"auto"`` is 2 under the subspace-family solvers; eigh never
+        warms."""
+        if self.solver not in ("subspace", "distributed"):
             return None
         if self.warm_start_iters == "auto":
             return 2
         return self.warm_start_iters
 
     def resolved_local_solver(self) -> str:
-        """The solver the per-worker and dense eigensolves run."""
+        """The solver the per-worker and dense eigensolves run:
+        ``"distributed"`` solves locally with the subspace machinery."""
+        if self.solver == "distributed":
+            return "subspace"
         return self.solver
+
+    def uses_distributed_solve(self) -> bool:
+        """True when the merge runs the distributed eigensolve
+        (``solvers/``): ``solver="distributed"`` and ``dim`` strictly above
+        ``eigh_crossover_d``."""
+        return self.solver == "distributed" and self.dim > self.eigh_crossover_d
 
     def resolved_warm_orth(self) -> str:
         """Orthonormalization for warm solver rounds."""

@@ -1,6 +1,7 @@
 // Serve-side projection kernels for Hopper (sm_90a), the read path's hot op:
-//   det_serve_project    : z = bf16(x) @ bf16(v)                (fp32 sums)
-//   det_serve_project_i8 : z = (bf16(x) @ widen(v_i8)) * scale  (fp32 sums)
+//   det_serve_project     : z = bf16(x) @ bf16(v)                (fp32 sums)
+//   det_serve_project_i8  : z = (bf16(x) @ widen(v_i8)) * scale  (fp32 sums)
+//   det_serve_project_f32 : z = x @ v, fp32 x and basis, no rounding
 // x is (rows, d) fp32 or bf16, the basis (d, k) with k small (10 for the
 // CIFAR-10 basis), z (rows, k) fp32, written once.
 //
@@ -34,6 +35,14 @@
 // Each row's reduction order depends on d and the lane alone, never on how
 // many rows share the launch: a zero-padded bucket gives every real row the
 // bits it gets unpadded (the serving engine's padding contract).
+//
+// det_serve_project_f32 is no TPU kernel's port: the JAX package computes
+// the fp32 projection with XLA at Precision.HIGHEST. It is the port's fixed-
+// order fp32 route, so that a served row equals the direct projection bit for
+// bit on the card (a matmul library may pick another algorithm for a padded
+// bucket than for a 1-row query). Same walk, same shuffle tree; x is not
+// rounded and the basis is staged as fp32 words, in d chunks of DC / 2 so
+// that the shared memory stays the same.
 // This first version stages the basis once per block and chunk, and has no
 // cp.async/TMA pipeline and no persistent grid; its times are in PERF.md.
 //
@@ -53,6 +62,15 @@ constexpr int ROWS_PER_BLOCK = WARPS * RPW;  // 32
 constexpr int DC = 1024;                     // d indices per staged chunk
 constexpr int MAX_PAIRS = 8;                 // 16 columns per launch tile
 
+// how the basis is stored and staged
+enum Basis { kBf16 = 0, kI8 = 1, kF32 = 2 };
+
+// d indices per staged chunk: fp32 columns take a word each, bf16 ones half
+template <int B>
+__host__ __device__ constexpr int chunk() {
+  return B == kF32 ? DC / 2 : DC;
+}
+
 __device__ __forceinline__ float bf16_round(float a) {
   return __bfloat162float(__float2bfloat16_rn(a));
 }
@@ -61,27 +79,32 @@ __device__ __forceinline__ float bf16_bits(uint32_t h) {
   return __uint_as_float(h << 16);
 }
 
-// VEC x values of one row from column `col`, rounded to bf16 and widened;
-// zeros past d.
+// VEC x values of one row from column `col`, rounded to bf16 and widened
+// (fp32 x only when ROUND; bf16 x is already rounded); zeros past d.
 template <typename XT>
 struct XLoad;
 
 template <>
 struct XLoad<float> {
   static constexpr int VEC = 4;
+  template <bool ROUND>
+  __device__ __forceinline__ static float cvt(float a) {
+    return ROUND ? bf16_round(a) : a;
+  }
+  template <bool ROUND>
   __device__ __forceinline__ static void load(const float* __restrict__ row,
                                               int d, int col, int vec_ok,
                                               float out[VEC]) {
     if (vec_ok && col + VEC <= d) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(row + col));
-      out[0] = bf16_round(t.x);
-      out[1] = bf16_round(t.y);
-      out[2] = bf16_round(t.z);
-      out[3] = bf16_round(t.w);
+      out[0] = cvt<ROUND>(t.x);
+      out[1] = cvt<ROUND>(t.y);
+      out[2] = cvt<ROUND>(t.z);
+      out[3] = cvt<ROUND>(t.w);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        out[e] = col + e < d ? bf16_round(row[col + e]) : 0.f;
+        out[e] = col + e < d ? cvt<ROUND>(row[col + e]) : 0.f;
     }
   }
 };
@@ -89,6 +112,7 @@ struct XLoad<float> {
 template <>
 struct XLoad<uint16_t> {  // bf16 bits
   static constexpr int VEC = 8;
+  template <bool ROUND>
   __device__ __forceinline__ static void load(const uint16_t* __restrict__ row,
                                               int d, int col, int vec_ok,
                                               float out[VEC]) {
@@ -108,22 +132,24 @@ struct XLoad<uint16_t> {  // bf16 bits
   }
 };
 
-// Stage basis rows [c0, c0 + nd) and columns [col0, col0 + 2 * NP) into
-// vs[p * DC + slot] as bf16 pairs (column col0 + 2p in the low half). The
-// slot of local index t = g * 32 * VEC + lane * VEC + e is
+// Stage basis rows [c0, c0 + nd) and columns [col0, col0 + 2 * NP). bf16
+// and int8 bases go to vs[p * DC + slot] as bf16 pairs (column col0 + 2p in
+// the low half); fp32 ones to vs[(2p + h) * DC / 2 + slot], a word per
+// column. The slot of local index t = g * 32 * VEC + lane * VEC + e is
 // g * 32 * VEC + e * 32 + lane: the e-th value of every lane of a group
 // sits in 32 consecutive words.
-template <bool I8, int NP, int VEC>
+template <int B, int NP, int VEC>
 __device__ __forceinline__ void stage(uint32_t* vs, const void* __restrict__ v,
                                       int k, int c0, int nd, int col0) {
-  for (int idx = threadIdx.x; idx < DC * NP; idx += THREADS) {
+  constexpr int C = chunk<B>();
+  for (int idx = threadIdx.x; idx < C * NP; idx += THREADS) {
     const int t = idx / NP;
     const int p = idx - t * NP;
     const int j = col0 + 2 * p;
     float a = 0.f, b = 0.f;
     if (t < nd) {
       const size_t off = (size_t)(c0 + t) * k + j;
-      if constexpr (I8) {
+      if constexpr (B == kI8) {
         const int8_t* q = static_cast<const int8_t*>(v);
         if (j < k) a = static_cast<float>(q[off]);
         if (j + 1 < k) b = static_cast<float>(q[off + 1]);
@@ -136,12 +162,17 @@ __device__ __forceinline__ void stage(uint32_t* vs, const void* __restrict__ v,
     const int g = t / (32 * VEC);
     const int w = t - g * 32 * VEC;
     const int slot = g * 32 * VEC + (w % VEC) * 32 + w / VEC;
-    const __nv_bfloat162 pair = __floats2bfloat162_rn(a, b);
-    vs[p * DC + slot] = *reinterpret_cast<const uint32_t*>(&pair);
+    if constexpr (B == kF32) {
+      vs[(2 * p) * C + slot] = __float_as_uint(a);
+      vs[(2 * p + 1) * C + slot] = __float_as_uint(b);
+    } else {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(a, b);
+      vs[p * DC + slot] = *reinterpret_cast<const uint32_t*>(&pair);
+    }
   }
 }
 
-template <typename XT, bool I8, int NP>
+template <typename XT, int B, int NP>
 __global__ void __launch_bounds__(THREADS)
     serve_project_kernel(const XT* __restrict__ x, const void* __restrict__ v,
                          const float* __restrict__ scale,
@@ -149,6 +180,7 @@ __global__ void __launch_bounds__(THREADS)
                          int vec_ok) {
   constexpr int VEC = XLoad<XT>::VEC;
   constexpr int KT = 2 * NP;
+  constexpr int C = chunk<B>();
   __shared__ uint32_t vs[NP * DC];
 
   const int lane = threadIdx.x & 31;
@@ -162,10 +194,10 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < KT; ++j) acc[r][j] = 0.f;
 
-  for (int c0 = 0; c0 < d; c0 += DC) {
-    const int nd = min(DC, d - c0);
+  for (int c0 = 0; c0 < d; c0 += C) {
+    const int nd = min(C, d - c0);
     __syncthreads();  // every warp is done reading the previous chunk
-    stage<I8, NP, VEC>(vs, v, k, c0, nd, col0);
+    stage<B, NP, VEC>(vs, v, k, c0, nd, col0);
     __syncthreads();
     for (int g0 = 0; g0 < nd; g0 += 32 * VEC) {
       const int col = c0 + g0 + lane * VEC;
@@ -173,7 +205,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         if (row0 + r < rows) {
-          XLoad<XT>::load(x + (size_t)(row0 + r) * d, d, col, vec_ok, xv[r]);
+          XLoad<XT>::template load<B != kF32>(x + (size_t)(row0 + r) * d, d,
+                                               col, vec_ok, xv[r]);
         } else {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) xv[r][e] = 0.f;
@@ -183,9 +216,15 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < VEC; ++e) {
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
-          const uint32_t w = vs[p * DC + g0 + e * 32 + lane];
-          const float v0 = bf16_bits(w & 0xffffu);
-          const float v1 = __uint_as_float(w & 0xffff0000u);
+          float v0, v1;
+          if constexpr (B == kF32) {
+            v0 = __uint_as_float(vs[(2 * p) * C + g0 + e * 32 + lane]);
+            v1 = __uint_as_float(vs[(2 * p + 1) * C + g0 + e * 32 + lane]);
+          } else {
+            const uint32_t w = vs[p * DC + g0 + e * 32 + lane];
+            v0 = bf16_bits(w & 0xffffu);
+            v1 = __uint_as_float(w & 0xffff0000u);
+          }
 #pragma unroll
           for (int r = 0; r < RPW; ++r) {
             acc[r][2 * p] = fmaf(xv[r][e], v0, acc[r][2 * p]);
@@ -216,14 +255,14 @@ __global__ void __launch_bounds__(THREADS)
         const int c = col0 + j;
         if (c >= k) continue;
         float out = acc[r][j];
-        if constexpr (I8) out *= scale[c];  // once, after the whole d sum
+        if constexpr (B == kI8) out *= scale[c];  // once, after the whole d sum
         z[(size_t)row * k + c] = out;
       }
     }
   }
 }
 
-template <typename XT, bool I8>
+template <typename XT, int B>
 int launch(const void* x, const void* v, const float* scale, float* z,
            int rows, int d, int k, int vec_ok, cudaStream_t s) {
   const int np = min(MAX_PAIRS, (k + 1) / 2);
@@ -232,7 +271,7 @@ int launch(const void* x, const void* v, const float* scale, float* z,
   const XT* xt = static_cast<const XT*>(x);
 #define DET_SERVE_CASE(N)                                          \
   case N:                                                          \
-    serve_project_kernel<XT, I8, N><<<grid, THREADS, 0, s>>>(      \
+    serve_project_kernel<XT, B, N><<<grid, THREADS, 0, s>>>(       \
         xt, v, scale, z, rows, d, k, vec_ok);                      \
     break;
   switch (np) {
@@ -251,15 +290,15 @@ int launch(const void* x, const void* v, const float* scale, float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool I8>
+template <int B>
 int dispatch(const void* x, const void* v, const float* scale, void* z,
              int rows, int d, int k, int x_dtype, int vec_ok, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(z);
   if (x_dtype == 0)
-    return launch<float, I8>(x, v, scale, out, rows, d, k, vec_ok, s);
+    return launch<float, B>(x, v, scale, out, rows, d, k, vec_ok, s);
   if (x_dtype == 1)
-    return launch<uint16_t, I8>(x, v, scale, out, rows, d, k, vec_ok, s);
+    return launch<uint16_t, B>(x, v, scale, out, rows, d, k, vec_ok, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -271,7 +310,7 @@ int dispatch(const void* x, const void* v, const float* scale, void* z,
 extern "C" int det_serve_project(const void* x, const void* v, void* z,
                                  int rows, int d, int k, int x_dtype,
                                  int vec_ok, void* stream) {
-  return dispatch<false>(x, v, nullptr, z, rows, d, k, x_dtype, vec_ok,
+  return dispatch<kBf16>(x, v, nullptr, z, rows, d, k, x_dtype, vec_ok,
                          stream);
 }
 
@@ -280,6 +319,15 @@ extern "C" int det_serve_project_i8(const void* x, const void* q,
                                     const void* scale, void* z, int rows,
                                     int d, int k, int x_dtype, int vec_ok,
                                     void* stream) {
-  return dispatch<true>(x, q, static_cast<const float*>(scale), z, rows, d,
-                        k, x_dtype, vec_ok, stream);
+  return dispatch<kI8>(x, q, static_cast<const float*>(scale), z, rows, d,
+                       k, x_dtype, vec_ok, stream);
+}
+
+// As det_serve_project with fp32 x (rows, d) and fp32 v (d, k), neither
+// rounded: x @ v with every row summed in the same order at any row count.
+extern "C" int det_serve_project_f32(const void* x, const void* v, void* z,
+                                     int rows, int d, int k, int vec_ok,
+                                     void* stream) {
+  return launch<float, kF32>(x, v, nullptr, static_cast<float*>(z), rows, d,
+                             k, vec_ok, static_cast<cudaStream_t>(stream));
 }

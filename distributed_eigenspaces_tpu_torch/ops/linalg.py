@@ -92,17 +92,36 @@ def top_k_eigvecs(m: torch.Tensor, k: int) -> torch.Tensor:
     return top_k_eig(m, k)[1]
 
 
+def chol_apply(v: torch.Tensor, g: torch.Tensor, eps: float = 1e-7,
+               floor: float = 0.0) -> torch.Tensor:
+    """Finish one CholeskyQR pass of ``(..., d, k)`` from its precomputed
+    Gram ``g = V^T V``: Cholesky ``L`` of ``g`` jittered by
+    ``eps * trace(g) + floor`` on the diagonal, then the right triangular
+    solve ``X L^T = V`` (the reference's ``feature_sharded._chol_apply``,
+    the half the fused matvec+Gram kernel leaves to do)."""
+    k = g.shape[-1]
+    eye = torch.eye(k, dtype=g.dtype, device=g.device)
+    jitter = eps * torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) + floor
+    lower = torch.linalg.cholesky(g + jitter[..., None, None] * eye)
+    return torch.linalg.solve_triangular(lower.mT, v, upper=True, left=False)
+
+
+def chol_qr(v: torch.Tensor, eps: float = 1e-7, floor: float = 0.0) -> torch.Tensor:
+    """One CholeskyQR pass: :func:`chol_apply` with the Gram of ``v``."""
+    return chol_apply(v, torch.matmul(v.mT, v), eps, floor)
+
+
+def chol_qr2(v: torch.Tensor) -> torch.Tensor:
+    """CholeskyQR2 of the distributed solver (the reference's
+    ``feature_sharded.chol_qr2`` on one device): two passes, jitter
+    ``1e-7 * trace``."""
+    return chol_qr(chol_qr(v))
+
+
 def _cholqr2(v: torch.Tensor) -> torch.Tensor:
-    """CholeskyQR2 of tall-skinny ``(..., d, k)``: two rounds of k x k Gram,
-    trace-jittered Cholesky and a right triangular solve ``X L^T = V``."""
-    k = v.shape[-1]
-    eye = torch.eye(k, dtype=v.dtype, device=v.device)
-    for _ in range(2):
-        s = torch.matmul(v.mT, v)
-        jitter = 1e-7 * torch.diagonal(s, dim1=-2, dim2=-1).sum(-1) + 1e-30
-        lower = torch.linalg.cholesky(s + jitter[..., None, None] * eye)
-        v = torch.linalg.solve_triangular(lower.mT, v, upper=True, left=False)
-    return v
+    """CholeskyQR2 of the dense solvers (the reference's
+    ``ops.linalg._cholqr2``): two passes, jitter ``1e-7 * trace + 1e-30``."""
+    return chol_qr(chol_qr(v, floor=1e-30), floor=1e-30)
 
 
 ORTH_METHODS = ("qr", "cholqr2", "ns")

@@ -14,6 +14,13 @@ versions compute the same functions with ``torch.matmul`` and are what CPU
 tensors get. The ``*_auto`` functions dispatch on the device alone: a CUDA
 tensor always goes to the kernel, which takes every shape (ragged rows, d
 and k are masked in the kernel) and raises on anything else.
+
+:func:`serve_project_f32_cuda` is the port's fixed-order fp32 projection
+(``det_serve_project_f32``, no TPU kernel's port: the JAX package computes
+fp32 with XLA at ``Precision.HIGHEST``). Each row is summed in an order that
+depends on d alone, so a row served in a padded bucket equals its direct
+projection bit for bit; :func:`project_exact` routes both the engine's
+``"float32"`` projection and ``OnlineDistributedPCA.transform`` through it.
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ import torch
 
 from distributed_eigenspaces_tpu_torch.ops import _build
 
-#: launches made by :func:`serve_project_cuda` and :func:`serve_project_i8_cuda`
+#: launches made by :func:`serve_project_cuda`, :func:`serve_project_i8_cuda`
+#: and :func:`serve_project_f32_cuda`
 #: (one per call, counted under a lock: serve lanes launch from their own
 #: threads); callers reset them to 0 before a run whose launches they count
 launches = 0
 launches_i8 = 0
+launches_f32 = 0
 _count_lock = threading.Lock()
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -67,6 +76,11 @@ def serve_project_i8_plain(x: torch.Tensor, q: torch.Tensor,
     return torch.matmul(_bf16(x), q.float()) * scale.reshape(1, -1).float()
 
 
+def serve_project_f32_plain(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``x @ v`` in fp32, unrounded (``torch.matmul``)."""
+    return torch.matmul(x, v)
+
+
 def _lib():
     lib = _build.load("serve_project")
     ptr, i = ctypes.c_void_p, ctypes.c_int
@@ -74,6 +88,8 @@ def _lib():
     lib.det_serve_project.restype = i
     lib.det_serve_project_i8.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
     lib.det_serve_project_i8.restype = i
+    lib.det_serve_project_f32.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
+    lib.det_serve_project_f32.restype = i
     return lib
 
 
@@ -152,6 +168,22 @@ def serve_project_i8_cuda(x: torch.Tensor, q: torch.Tensor,
     return z
 
 
+def serve_project_f32_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``x @ v`` fp32 by the fixed-order kernel: x ``(rows, d)`` and v
+    ``(d, k)`` fp32, contiguous on one card; every row's bits depend on d
+    alone, never on how many rows share the launch."""
+    global launches_f32
+    if x.dtype != torch.float32:
+        raise ValueError(f"serve_project_f32_cuda takes float32 x, got {x.dtype}")
+    rows, d, k, vec_ok = _check("serve_project_f32_cuda", x, v, torch.float32)
+    z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
+    _launch(_lib().det_serve_project_f32, x, x.data_ptr(), v.data_ptr(),
+            z.data_ptr(), rows, d, k, vec_ok)
+    with _count_lock:
+        launches_f32 += 1
+    return z
+
+
 def _route(name: str, x: torch.Tensor) -> str:
     if x.device.type in ("cuda", "cpu"):
         return x.device.type
@@ -173,3 +205,24 @@ def serve_project_i8_auto(x: torch.Tensor, q: torch.Tensor,
     if _route("serve_project_i8_auto", x) == "cuda":
         return serve_project_i8_cuda(x, q, scale)
     return serve_project_i8_plain(x, q, scale)
+
+
+def serve_project_f32_auto(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The fp32 projection on the tensor's own device: the fixed-order
+    kernel for a CUDA tensor (always; no fallback), ``torch.matmul`` for a
+    CPU one (whose rows are independent of the batch there)."""
+    if _route("serve_project_f32_auto", x) == "cuda":
+        return serve_project_f32_cuda(x, v)
+    return serve_project_f32_plain(x, v)
+
+
+def project_exact(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The direct projection ``x @ v`` in ``x``'s dtype: fp32 rows take
+    :func:`serve_project_f32_auto`, so that the served and the direct
+    projections of one row agree bit for bit; bf16 rows a bf16
+    ``torch.matmul``."""
+    if x.dtype != torch.float32:
+        return torch.matmul(x, v.to(x.dtype))
+    if x.dim() == 1:  # one row, projected as a batch of one
+        return project_exact(x.reshape(1, -1), v)[0]
+    return serve_project_f32_auto(x.contiguous(), v.float().contiguous())

@@ -15,14 +15,16 @@ device. Two disciplines of the reference carry over:
    so a test can assert that a swap acquired nothing.
 
 Routes of :meth:`TransformEngine.project` by ``serve_dtype``:
-``"float32"`` is ``torch.matmul`` (the JAX package runs it outside any
-Pallas kernel, at ``Precision.HIGHEST``; the port never enables TF32);
-``"bfloat16"`` and ``"int8"`` go to ``ops/serve_project.py``, whose
-``*_auto`` functions launch the hand-written kernels on a CUDA tensor and
-take the plain versions on a CPU one. Zero-padded rows leave every real
-row's bits unchanged in the kernels (each row's sum order is fixed); for
-``float32`` that holds only as far as the matmul library keeps rows
-independent across shapes.
+``"float32"`` is ``ops.serve_project.project_exact``, the route
+``OnlineDistributedPCA.transform`` takes too: on a CUDA tensor the
+port's fixed-order fp32 kernel (the JAX package runs fp32 outside any
+Pallas kernel, at ``Precision.HIGHEST``; the port never enables TF32), on
+a CPU one ``torch.matmul``. ``"bfloat16"`` and ``"int8"`` go to the
+serve kernels' ``*_auto`` functions, which launch the hand-written kernels
+on a CUDA tensor and take the plain versions on a CPU one. Zero-padded
+rows leave every real row's bits unchanged in all three kernels (each
+row's sum order is fixed), so a served fp32 row equals the direct
+projection bit for bit, as the reference's contract says.
 
 Not ported yet: the mesh and sharded-basis (``basis_spec``) engines and
 the persistent compile cache (ROADMAP.md Queue 1 items 14 and 16).
@@ -39,6 +41,7 @@ from distributed_eigenspaces_tpu_torch.config import SERVE_DTYPES, _not_ported
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops import _build
 from distributed_eigenspaces_tpu_torch.ops.serve_project import (
+    project_exact,
     quantize_basis_i8,
     serve_project_auto,
     serve_project_i8_auto,
@@ -61,10 +64,6 @@ def _as_tensor(a) -> torch.Tensor:
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()
     return torch.as_tensor(a)
-
-
-def _project_exact(x, v):
-    return torch.matmul(x, v.to(x.dtype))
 
 
 def _reconstruct(z, v):
@@ -120,7 +119,7 @@ class TransformEngine:
         #: records its request spans there too
         self.tracer = None
         project = (
-            _project_exact if serve_dtype == "float32" else self._project_quant
+            project_exact if serve_dtype == "float32" else self._project_quant
         )
         self._fns = {
             "project": project,
@@ -146,8 +145,7 @@ class TransformEngine:
             return hit
         self.compile_misses += 1
         t0 = time.perf_counter()
-        if (kind == "project" and self.serve_dtype != "float32"
-                and self.device.type == "cuda"):
+        if kind == "project" and self.device.type == "cuda":
             _build.load("serve_project")  # built once, at the first dispatch
         fn = self._fns[kind]
         t1 = time.perf_counter()
@@ -170,7 +168,8 @@ class TransformEngine:
         seed: int = 0,
     ) -> float:
         """Startup gate: project a seeded query batch through this engine
-        and compare it with the fp32 matmul of the same operands.
+        and compare it with the direct fp32 projection of the same operands
+        (``project_exact``, the estimator's ``transform`` route).
         ``serve_dtype='float32'`` must be bit-exact; the quantized routes
         must keep every row's projection within ``budget_deg`` degrees.
         Raises ``ValueError`` on a breach; returns the worst angle in
@@ -199,7 +198,7 @@ class TransformEngine:
         )
         x = np.asarray(coeffs @ v.T + noise, np.float32)
         z = self.project(x, v).cpu().numpy()
-        z_ref = torch.matmul(
+        z_ref = project_exact(
             torch.from_numpy(x).to(self.device),
             torch.from_numpy(v).to(self.device),
         ).cpu().numpy()

@@ -13,7 +13,12 @@ products, summed in another order); whole rounds on the card and on the
 CPU agree to 1e-4 absolute in ``sigma_tilde`` and 0.05 degrees in bases.
 The serve kernels agree with their plain versions to 1e-5 relative (exact
 products of bf16-rounded operands, fp32 sums in another order), and a
-zero-padded launch gives every real row the same bits as an unpadded one.
+zero-padded launch gives every real row the same bits as an unpadded one;
+so does the fixed-order fp32 projection, which makes a served fp32 row equal
+its direct projection bit for bit. The fused matvec + Gram kernel agrees
+with its plain version to 1e-5 relative on ``w`` and ``g``, its ``g`` is
+exactly symmetric and two launches give the same bits; a fused solve on the
+card lands within 1e-3 degrees of the same solve on the CPU.
 """
 
 import sys
@@ -25,10 +30,16 @@ import torch
 
 import distributed_eigenspaces_tpu_torch as dett
 from distributed_eigenspaces_tpu_torch.ops import gram as tgram
+from distributed_eigenspaces_tpu_torch.ops import matvec_gram as tmg
 from distributed_eigenspaces_tpu_torch.ops import serve_project as tsp
 from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 from distributed_eigenspaces_tpu_torch.parallel import worker_pool as twp
-from distributed_eigenspaces_tpu_torch.serving import EigenbasisRegistry, QueryServer
+from distributed_eigenspaces_tpu_torch.serving import (
+    EigenbasisRegistry,
+    QueryServer,
+    TransformEngine,
+)
+from distributed_eigenspaces_tpu_torch.solvers import distributed as tdist
 
 pytestmark = pytest.mark.cuda
 
@@ -218,3 +229,101 @@ def test_launch_counters_survive_threads(cuda_device):
     n = threads * reps
     assert (tsp.launches, tsp.launches_i8, tgram.launches) == (
         before[0] + n, before[1] + n, before[2] + n)
+
+
+@pytest.mark.parametrize(
+    "rows,d,k", [(1000, 3000, 10), (37, 129, 3), (5, 1100, 19), (1, 1, 1)]
+)
+def test_serve_f32_kernel_matches_plain_and_keeps_padded_rows(cuda_device, rows, d, k):
+    x, v = _serve_operands(rows, d, k, seed=4)
+    x, v = x.to(cuda_device), v.to(cuda_device)
+    before = tsp.launches_f32
+    got = tsp.serve_project_f32_cuda(x, v)
+    torch.cuda.synchronize()
+    assert tsp.launches_f32 == before + 1
+    assert _rel(got, tsp.serve_project_f32_plain(x, v)) <= 1e-5
+    pad = torch.zeros((rows + 45, d), device=cuda_device)
+    pad[:rows] = x
+    assert torch.equal(tsp.serve_project_f32_cuda(pad, v)[:rows], got)
+    for r in range(min(rows, 3)):  # a row alone gets the bits it gets in the batch
+        assert torch.equal(tsp.serve_project_f32_cuda(x[r:r + 1].contiguous(), v)[0], got[r])
+    with pytest.raises(ValueError, match="float32 x"):
+        tsp.serve_project_f32_cuda(x.to(torch.bfloat16), v)
+
+
+def test_padded_project_bit_equals_direct_on_card(cuda_device):
+    """The reference's served-equals-direct contract, on the card: the
+    engine's padded fp32 bucket against ``est.transform`` at the query's own
+    row count (cf. tests/test_serving.py)."""
+    d, k = 96, 5
+    spec = dett.planted_spectrum(d, k_planted=k, seed=0)
+    data = spec.sample(np.random.default_rng(0), 4 * 64 * 3)
+    cfg = dett.PCAConfig(dim=d, k=k, num_workers=4, rows_per_worker=64, num_steps=3,
+                         solver="subspace")
+    est = dett.OnlineDistributedPCA(cfg, device=cuda_device).fit(data)
+    eng = TransformEngine(d, k, device=cuda_device)
+    assert eng.self_check(est.components_) == 0.0
+    w = est.components_.cpu().numpy()
+    rng = np.random.default_rng(5)
+    before = tsp.launches_f32
+    for rows in (1, 3, 8, 11, 40):
+        x = rng.standard_normal((rows, d)).astype(np.float32)
+        z = eng.project(x, w).cpu().numpy()
+        direct = est.transform(x).cpu().numpy()
+        assert np.array_equal(z, direct), rows
+    assert tsp.launches_f32 == before + 10  # both sides take the kernel
+    one = est.transform(x[0])
+    assert one.shape == (k,) and torch.equal(one, est.transform(x[:1])[0])
+
+
+@pytest.mark.parametrize(
+    "d,f,k", [(256, 64, 16), (3000, 80, 13), (12288, 200, 58), (97, 5, 70), (1, 1, 1)]
+)
+def test_matvec_gram_kernel_matches_plain(cuda_device, d, f, k):
+    c = _x((d, f), seed=6).to(cuda_device)
+    v = _x((d, k), seed=7).to(cuda_device)
+    before = tmg.launches
+    w, g = tmg.matvec_gram_cuda(c, v)
+    torch.cuda.synchronize()
+    assert tmg.launches == before + 1
+    pw, pg = tmg.matvec_gram_plain(c, v)
+    assert w.shape == (d, k) and g.shape == (k, k)
+    assert _rel(w, pw) <= 1e-5 and _rel(g, pg) <= 1e-5
+    assert torch.equal(g, g.mT)
+    w2, g2 = tmg.matvec_gram_cuda(c, v)
+    assert torch.equal(w, w2) and torch.equal(g, g2)
+
+
+def test_matvec_gram_auto_on_cuda_launches_or_raises(cuda_device):
+    c = _x((300, 40)).to(cuda_device)
+    v = _x((300, 6), seed=1).to(cuda_device)
+    before = tmg.launches
+    tmg.matvec_gram_auto(c, v)
+    assert tmg.launches == before + 1
+    with pytest.raises(ValueError, match="float32"):
+        tmg.matvec_gram_auto(c.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tmg.matvec_gram_auto(c.mT.contiguous().mT, v)
+    with pytest.raises(ValueError, match=f"k <= {tmg.MAX_K}"):
+        tmg.matvec_gram_auto(c, _x((300, tmg.MAX_K + 1)).to(cuda_device))
+    assert tmg.launches == before + 1
+
+
+def test_fused_solve_on_card_matches_cpu(cuda_device):
+    d, kk, k = 2048, 12, 4
+    rng = np.random.default_rng(8)
+    u = np.linalg.qr(rng.standard_normal((d, 16)))[0]
+    c = torch.from_numpy((u * np.sqrt(2.0 * 0.6 ** np.arange(16))).astype(np.float32))
+    v_init = _x((d, kk), seed=9)
+    want = tdist.dist_subspace_eig(
+        tdist.factor_matvec(c), d, k, iters=16, v_init=v_init, oversample=kk - k,
+        matvec_gram=tdist.fused_factor_matvec(c))
+    cc = c.to(cuda_device)
+    tmg.launches = 0
+    got, info = tdist.dist_subspace_eig(
+        tdist.factor_matvec(cc), d, k, iters=16, v_init=v_init.to(cuda_device),
+        oversample=kk - k, matvec_gram=tdist.fused_factor_matvec(cc), tol=1e-6,
+        with_info=True)
+    torch.cuda.synchronize()
+    assert tmg.launches == info["iters_used"]
+    assert float(principal_angles_degrees(got.cpu(), want).max()) <= 1e-3

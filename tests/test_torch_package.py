@@ -50,6 +50,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.utils.faults\n"
         "import distributed_eigenspaces_tpu_torch.utils.metrics\n"
         "import distributed_eigenspaces_tpu_torch.ops.serve_project\n"
+        "import distributed_eigenspaces_tpu_torch.ops.matvec_gram\n"
+        "import distributed_eigenspaces_tpu_torch.solvers\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -99,5 +101,6 @@ def test_default_device_raises_without_a_card(monkeypatch):
 def test_kernel_sources_ship_with_the_package():
     assert (PKG / "csrc" / "gram.cu").is_file()
     assert (PKG / "csrc" / "serve_project.cu").is_file()
+    assert (PKG / "csrc" / "matvec_gram.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text

@@ -141,7 +141,8 @@ def test_config_rejects_like_the_reference(kw):
         dict(stage_dtype="int8", compute_dtype="bfloat16"),
         dict(warm_orth_method="ns"), dict(merge_interval=2),
         dict(pipeline_merge=True, solver="subspace"),
-        dict(merge_topology=(("chip", 2),)), dict(solver="distributed"),
+        dict(merge_topology=(("chip", 2),)),
+        dict(solver="deflation", components_axis_size=2),
         dict(solver="deflation"), dict(backend="shard_map"),
         dict(backend="feature_sharded"),
     ],
@@ -159,6 +160,8 @@ def test_config_names_the_roadmap_for_unported_settings(kw):
         dict(solver="subspace", warm_start_iters=None),
         dict(solver="subspace", warm_orth_method="qr"),
         dict(compute_dtype="bfloat16"), dict(stage_dtype="float32"),
+        dict(solver="distributed"), dict(solver="distributed", warm_start_iters=1),
+        dict(solver="distributed", eigh_crossover_d=16, solver_tol=1e-3),
     ],
 )
 def test_config_resolvers_match(kw):
@@ -168,6 +171,7 @@ def test_config_resolvers_match(kw):
     assert t.resolved_local_solver() == j.resolved_local_solver()
     assert t.resolved_warm_orth() == j.resolved_warm_orth()
     assert t.resolved_stage_dtype() == str(j.resolved_stage_dtype())
+    assert t.uses_distributed_solve() == j.uses_distributed_solve()
     shared = {f.name for f in dataclasses.fields(PCAConfig)}
     for name in shared - {"dtype", "state_dtype", "compute_dtype", "stage_dtype"}:
         assert getattr(t, name) == getattr(j, name), name
