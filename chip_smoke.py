@@ -8,10 +8,10 @@ exits non-zero without printing a result:
 
 1. env: versions, the card (``nvidia-smi``), and the fp32 matmul
    precision (no TF32), which the port relies on but never sets.
-2. build, build_serve, build_matvec_gram: ``csrc/gram.cu``,
-   ``csrc/serve_project.cu`` and ``csrc/matvec_gram.cu`` compiled with nvcc
-   for sm_90a, one process each, started together (seconds, ptxas
-   register / spill lines).
+2. build, build_serve, build_matvec_gram, build_mutant: ``csrc/gram.cu``,
+   ``csrc/serve_project.cu``, ``csrc/matvec_gram.cu`` and
+   ``csrc/mutant_full_block.cu`` compiled with nvcc for sm_90a, one process
+   each, started together (seconds, ptxas register / spill lines).
 3. parity: the Gram kernel against its plain PyTorch version on the card,
    fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10 shape
    (8, 1024, 3072) and a ragged (3, 1000, 3000).
@@ -61,6 +61,18 @@ exits non-zero without printing a result:
    launches (and, with ``tol=1e-6``, in as many launches as iterations);
    then ``dist_extract_top_k`` against a dense ``eigh`` at d=12288, r=100
    within 0.5 degrees.
+12. parity_mutant: the analyzer's one-CTA mutant kernel against its plain
+   version (``torch.matmul``) at the audit shape (256, 1024, 8) and a
+   ragged (100, 1000, 5): relative Frobenius error <= 1e-5 (FFMA in index
+   order against cuBLAS fp32).
+13. timing_mutant: kernel, plain version, ``torch.matmul`` and the byte
+   bound at (256, 1024, 8).
+14. analysis: the port's analyzer on the card (``run_analysis`` and
+   ``run_mutation_report``, device cuda) under the launch recorder and
+   ``torch.profiler``: the 4 programs honour their contracts, every profiled
+   kernel event has the grid, block and shared memory of its recorded
+   ``KernelLaunch`` (one event per launch), and 5 of 5 seeded mutations are
+   caught, the mutant's launch with grid [1, 1, 1].
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -103,6 +115,13 @@ MG_TOL = 1e-5
 MG_SLICE = (12288, 200, 58)  # C (d, m*k) and the oversampled iterate at k=50
 MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13))
 DSOLVE = dict(dim=12288, k=50, num_workers=4, rows_per_worker=2048, num_steps=10)
+MUTANT_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/mutant_full_block.cu"
+MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
+MUTANT_TOL = 1e-5
+MUTANT_AUDIT = (256, 1024, 8)  # the JAX mutant's (rows, d, k)
+MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
+ANALYSIS_PROGRAMS = 4
+ANALYSIS_MUTATIONS = 5
 
 
 def emit(phase: str, **kw) -> None:
@@ -576,6 +595,123 @@ def slice_dsolve(dev, card: str) -> int:
     return launches
 
 
+def mutant_bound(shape) -> tuple[float, str]:
+    """Least time for ``x @ v`` of ``shape``: x and v read once, o written
+    once, in fp32, against 2*rows*d*k fp32 FLOP."""
+    rows, d, k = shape
+    bytes_s = (rows * d + d * k + rows * k) * 4 / PEAK_BYTES_S
+    ops_s = 2 * rows * d * k / PEAK_FLOPS["float32"]
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def parity_mutant(dev) -> float:
+    """The one-CTA mutant against its plain version; returns the largest
+    absolute error over the cases."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as mfb
+    from distributed_eigenspaces_tpu_torch.ops.geometry import recording
+
+    worst = 0.0
+    for seed, shape in enumerate(MUTANT_PARITY):
+        x, v = serve_operands(shape, dev, seed=20 + seed)
+        before = mfb.launches
+        with recording() as rec:
+            got = mfb.mutant_full_block_cuda(x, v)
+        torch.cuda.synchronize()
+        check(mfb.launches == before + 1, "mutant: launch counter did not move")
+        check(rec == [mfb.mutant_full_block_launch(*shape)],
+              f"mutant: recorded {rec}, not the declared launch")
+        want = mfb.mutant_full_block_plain(x, v)
+        rel = rel_err(got, want)
+        err = float((got - want).abs().max().item())
+        worst = max(worst, err)
+        emit("parity_mutant", shape=list(shape), rel_frobenius=rel, max_abs_err=err,
+             tol=MUTANT_TOL, grid=list(rec[0].grid), threads=rec[0].threads,
+             dynamic_smem=rec[0].dynamic_smem)
+        check(rel <= MUTANT_TOL, f"mutant {shape}: {rel} > {MUTANT_TOL}")
+    return worst
+
+
+def timing_mutant(dev, card: str) -> dict:
+    """Kernel, plain, library and bound at the audit shape (CUDA events,
+    median of 25 after warm-up). The kernel is slow by design."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as mfb
+
+    x, v = serve_operands(MUTANT_AUDIT, dev, seed=22)
+    ms = time_ms(lambda: mfb.mutant_full_block_cuda(x, v))
+    plain_ms = time_ms(lambda: mfb.mutant_full_block_plain(x, v))
+    library_ms = time_ms(lambda: torch.matmul(x, v))
+    bound_ms, bound_by = mutant_bound(MUTANT_AUDIT)
+    emit("timing_mutant", shape=list(MUTANT_AUDIT), kernel_ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, library="torch.matmul(x, v), fp32", bound_ms=bound_ms,
+         bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def analysis(dev, card: str) -> dict:
+    """The port's analyzer on the card, under the launch recorder and the
+    profiler; returns each kernel's launches in that run."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.analysis import report
+    from distributed_eigenspaces_tpu_torch.ops import geometry
+    from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
+    from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as mfb
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from torch.profiler import ProfilerActivity, profile
+
+    sp.launches = sp.launches_i8 = sp.launches_f32 = mg.launches = mfb.launches = 0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with geometry.recording() as launches:
+            rep = report.run_analysis(device=dev)
+            mut = report.run_mutation_report(device=dev)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"serve_project_bf16": sp.launches, "serve_project_i8": sp.launches_i8,
+              "serve_project_f32": sp.launches_f32, "matvec_gram": mg.launches,
+              "mutant_full_block": mfb.launches}
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(trace_dir, exist_ok=True)
+    events = geometry.profiled_kernels(prof, geometry.RECORDED_KERNELS,
+                                       os.path.join(trace_dir, "chip_smoke_analysis_trace.json"))
+    mismatches = geometry.geometry_mismatches(events, launches)
+    for ev in events:
+        emit("analysis", part="profiled_kernel", name=ev["name"], symbol=ev["symbol"],
+             grid=ev["grid"], block=ev["block"], smem=ev["smem"], device_us=ev["dur_us"],
+             args=ev["args"])
+    for name, entry in rep["programs"].items():
+        emit("analysis", part="program", program=name, ok=entry["ok"],
+             contract=entry["contract"], pallas=entry["pallas"], memory=entry["memory"],
+             launches=entry["launches"], violations=entry["violations"])
+    emit("analysis", part="summary", device=rep["device"], ok=rep["ok"],
+         n_violations=rep["n_violations"], lints=rep["lints"],
+         mutations={r["mutation"]: r["caught"] for r in mut["mutations"]},
+         recorded_launches=len(launches), profiled_events=len(events),
+         kernels_device_us=sum(ev["dur_us"] or 0.0 for ev in events),
+         geometry_mismatches=mismatches, launches=counts, seconds=seconds, card=card)
+    # (a) every program honours its contract, with its kernels launched
+    check(rep["ok"] and len(rep["programs"]) == ANALYSIS_PROGRAMS,
+          f"analysis: {rep['n_violations']} violations over {list(rep['programs'])}")
+    check(all(e["launches"] and all(la["grid"] for la in e["launches"])
+              for e in rep["programs"].values()),
+          "analysis: a program recorded no resolved kernel launch on the card")
+    # (b) the declarations equal the card's launches, one event per launch
+    check(not mismatches, f"analysis: profiled geometry differs: {mismatches}")
+    check(len(events) == len(launches) > 0,
+          f"analysis: {len(events)} profiled events for {len(launches)} launches")
+    mutant = [e for e in events if e["symbol"] == "mutant_full_block_kernel"]
+    check([e["grid"] for e in mutant] == [(1, 1, 1)],
+          f"analysis: mutant grids {[e['grid'] for e in mutant]}")
+    # (c) every ported mutation is caught
+    caught = sum(r["caught"] for r in mut["mutations"])
+    check(mut["ok"] and caught == ANALYSIS_MUTATIONS == len(mut["mutations"]),
+          f"analysis: {caught} of {len(mut['mutations'])} mutations caught")
+    check(all(n >= 1 for n in counts.values()), f"analysis: launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -603,13 +739,15 @@ def main() -> int:
 
     # 2. build, every source at once
     t0 = time.perf_counter()
-    _build.build_all(["gram", "serve_project", "matvec_gram"])
-    for name in ("gram", "serve_project", "matvec_gram"):
+    sources = ("gram", "serve_project", "matvec_gram", "mutant_full_block")
+    _build.build_all(sources)
+    for name in sources:
         _build.load(name)
     seconds = time.perf_counter() - t0
     for phase, name, source in (("build", "gram", GRAM_SOURCE),
                                 ("build_serve", "serve_project", SERVE_SOURCE),
-                                ("build_matvec_gram", "matvec_gram", MG_SOURCE)):
+                                ("build_matvec_gram", "matvec_gram", MG_SOURCE),
+                                ("build_mutant", "mutant_full_block", MUTANT_SOURCE)):
         info = _build.build_info[name]
         emit(phase, source=source, seconds=seconds, nvcc_seconds=info["seconds"],
              ptxas=[ln.strip() for ln in info["log"].splitlines()
@@ -717,6 +855,11 @@ def main() -> int:
     mg_timing = timing_matvec_gram(dev, card)
     mg_launches = slice_dsolve(dev, card)
 
+    # 12.-14. the analyzer's kernel gate and its mutant
+    mutant_err = parity_mutant(dev)
+    mutant_timing = timing_mutant(dev, card)
+    analysis_launches = analysis(dev, card)
+
     def row(name, shape, dtype, launches):
         t = timing[(shape, dtype)]
         return {"name": name, "route": "cuda", "source": GRAM_SOURCE,
@@ -747,6 +890,13 @@ def main() -> int:
          "ms": mg_timing["ms"], "plain_ms": mg_timing["plain_ms"],
          "bound_ms": mg_timing["bound_ms"], "bound_by": mg_timing["bound_by"],
          "library_ms": mg_timing["library_ms"], "shape": list(MG_SLICE)},
+        {"name": "mutant_full_block", "route": "cuda", "source": MUTANT_SOURCE,
+         "replaces": MUTANT_REPLACES,
+         "launches": analysis_launches["mutant_full_block"],
+         "max_abs_err": mutant_err, "ms": mutant_timing["ms"],
+         "plain_ms": mutant_timing["plain_ms"], "bound_ms": mutant_timing["bound_ms"],
+         "bound_by": mutant_timing["bound_by"],
+         "library_ms": mutant_timing["library_ms"], "shape": list(MUTANT_AUDIT)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,8 @@
 // tensor cores; its times are in PERF.md.
 //
 // C interface: det_matvec_gram_workspace() gives the scratch the caller
-// allocates; det_matvec_gram() makes one cooperative launch on the given
+// allocates and det_matvec_gram_grid() the grid (the occupancy query);
+// det_matvec_gram() makes one cooperative launch of that grid on the given
 // stream, allocates nothing and returns its CUDA error code.
 
 #include <cooperative_groups.h>
@@ -354,15 +355,14 @@ extern "C" size_t det_matvec_gram_workspace(int d, int f, int k) {
   return make_plan(d, f, k).bytes;
 }
 
-// c: (d, f) fp32 contiguous. v: (d, k) fp32 contiguous. w: (d, k) fp32.
-// g: (k, k) fp32. workspace: det_matvec_gram_workspace(d, f, k) bytes,
-// 256-byte aligned.
-extern "C" int det_matvec_gram(const void* c, const void* v, void* w, void* g,
-                               void* workspace, int d, int f, int k,
-                               void* stream) {
-  if (d < 1 || f < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+// The cooperative grid for C (d, f) and v (d, k) on the current device: as
+// many blocks as can be resident at once (the occupancy query; a cooperative
+// launch's condition), and no more than there are items. Returns the block
+// count, or minus a CUDA error code.
+extern "C" int det_matvec_gram_grid(int d, int f, int k) {
+  if (d < 1 || f < 1 || k < 1) return -static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(d, f, k);
-  if (p.smem > (size_t)SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.smem > (size_t)SMEM_MAX) return -static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -374,12 +374,29 @@ extern "C" int det_matvec_gram(const void* c, const void* v, void* w, void* g,
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, matvec_gram_kernel, THREADS, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // every block resident at once (a cooperative launch's condition); no
-  // more blocks than items
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   const int items = max(p.nslab * p.ntile, p.nblk);
-  const int blocks = min(per_sm * sms, items);
+  return min(per_sm * sms, items);
+}
+
+// c: (d, f) fp32 contiguous. v: (d, k) fp32 contiguous. w: (d, k) fp32.
+// g: (k, k) fp32. workspace: det_matvec_gram_workspace(d, f, k) bytes,
+// 256-byte aligned. blocks: det_matvec_gram_grid(d, f, k), the grid the
+// caller records for this launch.
+extern "C" int det_matvec_gram(const void* c, const void* v, void* w, void* g,
+                               void* workspace, int d, int f, int k,
+                               int blocks, void* stream) {
+  if (d < 1 || f < 1 || k < 1 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = make_plan(d, f, k);
+  if (p.smem > (size_t)SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (p.smem > 48 * 1024)
+    err = cudaFuncSetAttribute(matvec_gram_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* cf = static_cast<const float*>(c);
   const float* vf = static_cast<const float*>(v);

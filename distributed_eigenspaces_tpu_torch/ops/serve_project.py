@@ -21,16 +21,22 @@ fp32 with XLA at ``Precision.HIGHEST``). Each row is summed in an order that
 depends on d alone, so a row served in a padded bucket equals its direct
 projection bit for bit; :func:`project_exact` routes both the engine's
 ``"float32"`` projection and ``OnlineDistributedPCA.transform`` through it.
+
+:func:`serve_project_launch` is the launch geometry all three make (grid,
+threads, shared memory, what one CTA owns); each ``*_cuda`` wrapper records
+it (``ops/geometry.py``) for the analyzer.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
 from distributed_eigenspaces_tpu_torch.ops import _build
+from distributed_eigenspaces_tpu_torch.ops.geometry import KernelLaunch, note
 
 #: launches made by :func:`serve_project_cuda`, :func:`serve_project_i8_cuda`
 #: and :func:`serve_project_f32_cuda`
@@ -42,9 +48,47 @@ launches_f32 = 0
 _count_lock = threading.Lock()
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel tiles k in grid.y blocks of 16 columns
-MAX_K = 65535 * 16
 _INT_MAX = 2**31 - 1
+
+# the kernel's launch constants (csrc/serve_project.cu, namespace scope;
+# tests/test_torch_analysis.py reads them from the source)
+THREADS = 256  # 8 warps
+ROWS_PER_BLOCK = 32  # 4 rows per warp
+DC = 1024  # d indices per staged chunk (half that for an fp32 basis)
+MAX_PAIRS = 8  # column pairs per CTA: 16 columns of the basis
+#: the kernel tiles k in grid.y blocks of 16 columns
+MAX_K = 65535 * 2 * MAX_PAIRS
+
+#: template argument B of serve_project_kernel per basis route
+_BASIS = {"bf16": 0, "i8": 1, "f32": 2}
+_XT = {torch.float32: "float", torch.bfloat16: "unsigned short"}
+
+
+@functools.lru_cache(maxsize=256)  # pure, and the record is frozen
+def serve_project_launch(rows: int, d: int, k: int, x_dtype=torch.float32,
+                         basis: str = "bf16") -> KernelLaunch:
+    """The launch ``det_serve_project*`` makes for x ``(rows, d)`` of
+    ``x_dtype`` and a ``(d, k)`` basis (``basis`` "bf16", "i8" or "f32"):
+    grid ``(ceil(rows / 32), ceil(k / 16))`` of 256 threads, the staged
+    basis chunk as static shared memory; one CTA owns 32 rows of x over
+    all of d and a tile of at most 16 basis columns."""
+    np_ = min(MAX_PAIRS, (k + 1) // 2)
+    kt = 2 * np_
+    chunk = DC // 2 if basis == "f32" else DC
+    rows_cta, cols_cta = min(ROWS_PER_BLOCK, rows), min(kt, k)
+    operands = [("x", (rows_cta, d)), ("v", (d, cols_cta)),
+                ("v staged", (min(chunk, d), cols_cta)), ("z", (rows_cta, cols_cta))]
+    if basis == "i8":
+        operands.insert(2, ("scale", (cols_cta,)))
+    return KernelLaunch(
+        kernel=f"serve_project_kernel<{_XT[x_dtype]}, {_BASIS[basis]}, {np_}>",
+        source="csrc/serve_project.cu",
+        grid=(-(-rows // ROWS_PER_BLOCK), -(-k // kt), 1),
+        threads=THREADS,
+        dynamic_smem=0,
+        static_smem=4 * np_ * DC,  # uint32_t vs[NP * DC]
+        operands=tuple(operands),
+    )
 
 
 def quantize_basis_i8(v: torch.Tensor, *, eps: float = 1e-12):
@@ -139,11 +183,13 @@ def serve_project_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     fp32, both contiguous on one card."""
     global launches
     rows, d, k, vec_ok = _check("serve_project_cuda", x, v, torch.float32)
+    launch = serve_project_launch(rows, d, k, x.dtype, "bf16")
     z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     _launch(_lib().det_serve_project, x, x.data_ptr(), v.data_ptr(),
             z.data_ptr(), rows, d, k, _X_CODES[x.dtype], vec_ok)
     with _count_lock:
         launches += 1
+    note(launch)
     return z
 
 
@@ -160,11 +206,13 @@ def serve_project_i8_cuda(x: torch.Tensor, q: torch.Tensor,
             f"values on {x.device}, got {scale.dtype} {tuple(scale.shape)} "
             f"on {scale.device}"
         )
+    launch = serve_project_launch(rows, d, k, x.dtype, "i8")
     z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     _launch(_lib().det_serve_project_i8, x, x.data_ptr(), q.data_ptr(),
             scale.data_ptr(), z.data_ptr(), rows, d, k, _X_CODES[x.dtype], vec_ok)
     with _count_lock:
         launches_i8 += 1
+    note(launch)
     return z
 
 
@@ -176,11 +224,13 @@ def serve_project_f32_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise ValueError(f"serve_project_f32_cuda takes float32 x, got {x.dtype}")
     rows, d, k, vec_ok = _check("serve_project_f32_cuda", x, v, torch.float32)
+    launch = serve_project_launch(rows, d, k, x.dtype, "f32")
     z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     _launch(_lib().det_serve_project_f32, x, x.data_ptr(), v.data_ptr(),
             z.data_ptr(), rows, d, k, vec_ok)
     with _count_lock:
         launches_f32 += 1
+    note(launch)
     return z
 
 

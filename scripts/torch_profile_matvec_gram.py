@@ -63,7 +63,9 @@ def build_copies(_build) -> dict:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.det_matvec_gram_workspace.argtypes = [i, i, i]
         lib.det_matvec_gram_workspace.restype = ctypes.c_size_t
-        lib.det_matvec_gram.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
+        lib.det_matvec_gram_grid.argtypes = [i, i, i]
+        lib.det_matvec_gram_grid.restype = i
+        lib.det_matvec_gram.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
         lib.det_matvec_gram.restype = i
         libs[PHASES[n - 1]] = lib
     return libs
@@ -78,10 +80,13 @@ def through_phase_us(lib, c, v, reps: int = 200) -> float:
     ws = torch.empty((lib.det_matvec_gram_workspace(d, f, k),), dtype=torch.uint8,
                      device=c.device)
     stream = torch.cuda.current_stream().cuda_stream
+    blocks = lib.det_matvec_gram_grid(d, f, k)
+    if blocks < 1:
+        raise RuntimeError(f"phase copy grid query failed: CUDA error {-blocks}")
 
     def run():
         rc = lib.det_matvec_gram(c.data_ptr(), v.data_ptr(), w.data_ptr(),
-                                 g.data_ptr(), ws.data_ptr(), d, f, k, stream)
+                                 g.data_ptr(), ws.data_ptr(), d, f, k, blocks, stream)
         if rc != 0:
             raise RuntimeError(f"phase copy launch failed: CUDA error {rc}")
 

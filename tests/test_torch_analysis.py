@@ -1,0 +1,385 @@
+"""The port's analyzer (``distributed_eigenspaces_tpu_torch/analysis``) held
+against the JAX analyzer in one process, on the CPU.
+
+Both analyzers audit the same four programs (``serve_project_solo`` and the
+three kernel programs) and must find each honours its contract; the five
+mutations the port carries must be caught by both with the same rule; the
+copied concurrency fixtures must give the same findings. The port audits
+the launch geometry its ``*_launch`` functions declare (the kernels run only
+on the card); a geometry test holds those functions to the constants of the
+CUDA sources, read as text. Tolerance: the mutant's plain version against
+the Pallas body's ``dot_general`` at rel 1e-6 (fp32 sums of 1024 products
+in another order).
+"""
+
+import ast
+import dataclasses
+import json
+import math
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_eigenspaces_tpu.analysis import ast_lints as jax_lints
+from distributed_eigenspaces_tpu.analysis import contracts as jax_contracts
+from distributed_eigenspaces_tpu.analysis import mutations as jax_mutations
+from distributed_eigenspaces_tpu.analysis import programs as jax_programs
+from distributed_eigenspaces_tpu_torch.analysis import (
+    ast_lints,
+    contracts,
+    mutations,
+    programs,
+    report,
+)
+from distributed_eigenspaces_tpu_torch.ops import geometry
+from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
+from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as mfb
+from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "distributed_eigenspaces_tpu_torch" / "csrc"
+KERNEL_PROGRAMS = ["pallas_serve_project_bf16", "pallas_serve_project_i8",
+                   "pallas_matvec_gram"]
+FIXTURES = {
+    "blocking_under_lock": "_FIXTURE_BLOCKING",
+    "lock_order": "_FIXTURE_LOCK_ORDER",
+    "unguarded_shared_write": "_FIXTURE_UNGUARDED",
+}
+
+
+# -- the lock-discipline lint ------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_concurrency_fixture_same_findings_in_both(name):
+    attr = FIXTURES[name]
+    src = getattr(mutations, attr)
+    assert src == getattr(jax_mutations, attr)  # copied verbatim
+    port = {(v.rule, v.location) for v in ast_lints.lint_concurrency_source(src, "f.py")}
+    ref = {(v.rule, v.location) for v in jax_lints.lint_concurrency_source(src, "f.py")}
+    assert port == ref and port
+    assert mutations.MUTATIONS[name][0] in {rule for rule, _ in port}
+
+
+def test_port_threaded_runtime_lock_discipline_clean():
+    viols = ast_lints.lint_concurrency()
+    assert not viols, [v.format() for v in viols]
+    assert all(p.startswith("distributed_eigenspaces_tpu_torch/")
+               for p in ast_lints.CONCURRENCY_TARGETS)
+    for rel in ast_lints.CONCURRENCY_TARGETS:
+        assert (ROOT / rel).is_file(), rel
+
+
+# -- the program matrix in both analyzers -----------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(programs.PROGRAMS))
+def test_program_ok_in_both_analyzers(devices, name):
+    assert name in jax_programs.PROGRAMS
+    ref_built = jax_programs.build_program(name)
+    ref_viols, ref = jax_contracts.check_program(ref_built)
+    assert not ref_viols, [v.format() for v in ref_viols]
+    built = programs.build_program(name, device="cpu")
+    viols, detail = contracts.check_program(built)
+    assert not viols, [v.format() for v in viols]
+    assert detail["ok"] and ref["ok"]
+    assert built.contract == ref_built.contract == detail["contract"]
+    p = built.params
+    assert (p.d, p.k, p.rows) == (ref_built.params.d, ref_built.params.k,
+                                  ref_built.params.rows)
+    assert detail["memory"]["policy"] == ref["memory"]["policy"] == "factor_only"
+    assert built.source and (ROOT / "distributed_eigenspaces_tpu_torch" / built.source).is_file()
+    if name in KERNEL_PROGRAMS:
+        for pal in (detail["pallas"], ref["pallas"]):
+            assert pal["n_pallas_calls"] >= 1
+            assert pal["max_block_elems_seen"] < p.rows * p.d
+            assert pal["max_block_elems_seen"] <= pal["block_bound_elems"] == 131072
+
+
+def test_kernel_programs_plain_outputs_match_jax(devices):
+    """On the CPU a kernel program runs its plain version: the same
+    numbers the JAX kernel gives in interpret mode on the same inputs."""
+    from distributed_eigenspaces_tpu.ops import pallas_gram as pg
+
+    blocks = dict(block_rows=jax_programs._PALLAS_BR, block_d=jax_programs._PALLAS_BD)
+    for name in KERNEL_PROGRAMS:
+        built = programs.build_program(name, device="cpu")
+        args = [jnp.asarray(a.numpy()) for a in built.args]
+        if name.endswith("bf16"):
+            ref = pg.serve_project_pallas(*args, **blocks, interpret=True)
+            got, tol = built.output, 1e-5
+        elif name.endswith("i8"):
+            ref = pg.serve_project_i8_pallas(*args, **blocks, interpret=True)
+            got, tol = built.output, 1e-5
+        else:
+            ref = pg.matvec_gram_pallas(*args, block_d=blocks["block_d"], interpret=True)[0]
+            got, tol = built.output[0], 1e-5
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape
+        assert np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref) <= tol, name
+
+
+def test_serve_program_output_is_the_engine_projection():
+    built = programs.build_program("serve_project_solo", device="cpu")
+    x, v = built.args
+    assert torch.equal(built.output, x @ v)
+    (launch,) = built.launches
+    assert launch.kernel == "serve_project_kernel<float, 2, 1>"
+
+
+# -- the mutations -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(mutations.MUTATIONS))
+def test_mutation_caught_with_the_jax_rule_in_both(devices, name):
+    rule, runner = mutations.MUTATIONS[name]
+    ref_rule, ref_runner = jax_mutations.MUTATIONS[name]
+    assert rule == ref_rule
+    for viols in (runner(torch.device("cpu")), ref_runner()):
+        hits = [v for v in viols if v.rule == rule]
+        assert hits, [v.format() for v in viols]
+        assert hits[0].program in hits[0].format() and rule in hits[0].format()
+        assert hits[0].location
+
+
+def test_run_mutation_checks_aggregate():
+    ok, records = mutations.run_mutation_checks(device="cpu")
+    assert ok, records
+    assert [r["mutation"] for r in records] == list(mutations.MUTATIONS)
+    # the JAX package's record keys (analysis/mutations.py run_mutation_checks)
+    assert all(set(r) == {"mutation", "expected_rule", "caught", "n_violations",
+                          "messages"} for r in records)
+
+
+def test_dense_temp_flagged_by_both_memory_passes(devices):
+    """The same (16, 64) x^T x: the JAX jaxpr/HLO walk and the port's
+    dispatch-mode trace both find the (64, 64) buffer."""
+    ref = [v for v in jax_mutations.MUTATIONS["dense_temp"][1]() if v.rule == "dense-buffer"]
+    port = [v for v in mutations.MUTATIONS["dense_temp"][1](torch.device("cpu"))
+            if v.rule == "dense-buffer"]
+    assert ref and port
+    assert any("[64, 64]" in v.message for v in ref)
+    assert any("[64, 64]" in v.message for v in port)
+    assert all("aten.mm" in v.location for v in port)
+
+
+def test_dense_premise_violation_raises_loudly():
+    contract = contracts.CONTRACTS["serve_transform"]
+    with pytest.raises(ValueError, match="rows"):
+        contracts.check_memory(contract, contracts.ProgramParams(d=64, k=2, rows=64),
+                               program="bad_config")
+
+
+def test_gate_bites_in_both_directions():
+    """The mutant's launch is flagged; the same launch spread over 2 CTAs
+    of 128 rows each (131072 elements, the budget exactly) is not."""
+    contract = contracts.CONTRACTS["serve_pallas"]
+    params = contracts.ProgramParams(d=1024, k=8, rows=256)
+    launch = mfb.mutant_full_block_launch(256, 1024, 8)
+    viols, metrics = contracts.check_pallas(contract, params, [launch], program="m")
+    assert [v.rule for v in viols] == ["pallas-block"]
+    assert "'x'" in viols[0].message and "262144" in viols[0].message
+    assert "mutant_full_block_kernel" in viols[0].location
+    assert metrics["max_block_elems_seen"] == 262144
+    split = dataclasses.replace(
+        launch, grid=(2, 1, 1),
+        operands=(("x", (128, 1024)),) + launch.operands[1:3] + (("o", (128, 8)),),
+    )
+    viols, metrics = contracts.check_pallas(contract, params, [split], program="m")
+    assert viols == [] and metrics["max_block_elems_seen"] == 131072
+
+
+def test_presence_rule_refuses_a_program_without_launches():
+    contract = contracts.CONTRACTS["serve_pallas"]
+    params = contracts.ProgramParams(d=1024, k=8, rows=256)
+    viols, metrics = contracts.check_pallas(contract, params, [], program="p")
+    assert [v.rule for v in viols] == ["pallas-presence"]
+    assert metrics["n_pallas_calls"] == 0
+    _, metrics = contracts.check_pallas(
+        contracts.CONTRACTS["serve_transform"], params, [], program="p")
+    assert metrics["policy"] == "unchecked"
+
+
+def test_mutant_plain_matches_the_pallas_body():
+    """``mutant_full_block_plain`` against the body of the JAX mutant's
+    kernel (``jax.lax.dot_general`` with fp32 results) on the same
+    numpy-seeded (256, 1024) . (1024, 8) operands."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((256, 1024)).astype(np.float32)
+    v = np.linalg.qr(rng.standard_normal((1024, 8)))[0].astype(np.float32)
+    ref = np.asarray(jax.lax.dot_general(
+        jnp.asarray(x), jnp.asarray(v), (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32,
+    ))
+    got = mfb.mutant_full_block_plain(torch.from_numpy(x), torch.from_numpy(v)).numpy()
+    assert got.dtype == np.float32 and got.shape == (256, 8)
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6
+
+
+def test_mutant_wrapper_refuses_cpu_tensors():
+    x, v = torch.zeros((4, 16)), torch.zeros((16, 2))
+    before = mfb.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        mfb.mutant_full_block_cuda(x, v)
+    assert mfb.launches == before
+
+
+# -- launch geometry against the CUDA sources --------------------------------
+
+
+def _constexprs(path: Path) -> dict:
+    """``constexpr int NAME = EXPR;`` at namespace scope, evaluated in
+    order (C integer division)."""
+    names: dict = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", path.read_text(), re.M):
+        tree = ast.parse(expr.replace("/", "//"), mode="eval")
+        names[name] = eval(compile(tree, str(path), "eval"), {"__builtins__": {}}, dict(names))
+    return names
+
+
+def test_serve_project_launch_uses_the_source_constants():
+    src = CSRC / "serve_project.cu"
+    c = _constexprs(src)
+    assert (c["THREADS"], c["ROWS_PER_BLOCK"], c["DC"], c["MAX_PAIRS"]) == (
+        sp.THREADS, sp.ROWS_PER_BLOCK, sp.DC, sp.MAX_PAIRS)
+    text = src.read_text()
+    assert "__shared__ uint32_t vs[NP * DC];" in text
+    assert "serve_project_kernel<XT, B, N><<<grid, THREADS, 0, s>>>" in text
+    for rows, d, k in ((256, 1024, 8), (1000, 3000, 10), (5, 1100, 19), (1, 1, 1)):
+        for basis, code in (("bf16", 0), ("i8", 1), ("f32", 2)):
+            launch = sp.serve_project_launch(rows, d, k, torch.float32, basis)
+            np_ = min(c["MAX_PAIRS"], (k + 1) // 2)
+            assert launch.grid == (math.ceil(rows / c["ROWS_PER_BLOCK"]),
+                                   math.ceil(k / (2 * np_)), 1)
+            assert launch.grid[1] == math.ceil(k / 16)
+            assert launch.threads == c["THREADS"] == c["WARPS"] * 32
+            assert (launch.static_smem, launch.dynamic_smem) == (4 * np_ * c["DC"], 0)
+            assert launch.kernel == f"serve_project_kernel<float, {code}, {np_}>"
+    assert sp.serve_project_launch(8, 64, 2, torch.bfloat16).kernel == (
+        "serve_project_kernel<unsigned short, 0, 1>")
+
+
+def test_matvec_gram_launch_uses_the_source_constants():
+    src = CSRC / "matvec_gram.cu"
+    c = _constexprs(src)
+    for name in ("THREADS", "A_FT", "A_KC", "A_RC", "A_TARGET_ITEMS", "C_R",
+                 "C_KC", "C_FC", "C_CST", "SMEM_MAX"):
+        assert c[name] == getattr(mg, name), name
+    for d, f, k in ((1024, 32, 8), (12288, 200, 58), (3000, 80, 13), (97, 5, 70)):
+        launch = mg.matvec_gram_launch(d, f, k)
+        pad4 = (k + 3) // 4 * 4
+        smem = 4 * max(c["A_RC"] * (c["A_FT"] + c["A_KC"]),
+                       c["C_R"] * pad4 + c["C_FC"] * (c["C_CST"] + c["C_KC"]))
+        assert launch.dynamic_smem == smem and launch.static_smem == 0
+        assert launch.threads == c["THREADS"]
+        assert launch.grid is None and launch.grid_rule == "occupancy"
+        assert launch.resolved((264, 1, 1)).grid == (264, 1, 1)
+    # the slice shape: 4 f tiles x 64 slabs of 192 rows, 192 row items
+    plan = mg._plan(12288, 200, 58)
+    assert (plan["ntile"], plan["nslab"], plan["slab_rows"], plan["nblk"]) == (4, 64, 192, 192)
+
+
+def test_mutant_launch_uses_the_source_constants():
+    src = CSRC / "mutant_full_block.cu"
+    c = _constexprs(src)
+    assert (c["THREADS"], c["KC"], c["SMEM_MAX"]) == (mfb.THREADS, mfb.KC, mfb.SMEM_MAX)
+    text = src.read_text()
+    assert "<<<dim3(1, 1, 1), THREADS, smem," in text
+    assert "analysis/mutations.py:352" in text
+    for rows, d, k, kp in ((256, 1024, 8, 8), (100, 1000, 5, 8), (3, 7, 17, 24)):
+        launch = mfb.mutant_full_block_launch(rows, d, k)
+        assert launch.grid == (1, 1, 1) and launch.threads == c["THREADS"]
+        assert launch.dynamic_smem == 4 * d * kp and launch.static_smem == 0
+        assert dict(launch.operands)["x"] == (rows, d)
+
+
+# -- the recorder and the profile comparison ---------------------------------
+
+
+def _fake_launch(kernel, grid, smem=0):
+    return geometry.KernelLaunch(kernel=kernel, source="csrc/x.cu", grid=grid,
+                                 threads=256, dynamic_smem=smem, static_smem=0,
+                                 operands=(("x", (1, 1)),))
+
+
+def test_recording_nests_and_sees_every_launch():
+    a, b = _fake_launch("k", (1, 1, 1)), _fake_launch("k", (2, 1, 1))
+    geometry.note(a)  # no recorder: dropped
+    with geometry.recording() as outer:
+        geometry.note(a)
+        with geometry.recording() as inner:
+            geometry.note(b)
+    assert outer == [a, b] and inner == [b]
+
+
+def test_profiled_symbol_and_geometry_comparison():
+    name = ("void (anonymous namespace)::serve_project_kernel<float, 0, 4>"
+            "(float const*, void const*, float const*, float*, int, int, int, int)")
+    bases = {"serve_project_kernel", "matvec_gram_kernel"}
+    assert geometry._symbol(name, bases) == "serve_project_kernel<float, 0, 4>"
+    assert geometry._symbol("(anonymous namespace)::matvec_gram_kernel(float const*)",
+                            bases) == "matvec_gram_kernel"
+    assert geometry._symbol("void at::native::vectorized_elementwise_kernel<4>(int)",
+                            bases) is None
+    launch = sp.serve_project_launch(256, 1024, 8)
+    ev = {"symbol": launch.kernel, "grid": (8, 1, 1), "block": (256, 1, 1),
+          "smem": 16384, "name": name}
+    assert geometry.geometry_mismatches([ev], [launch]) == []
+    assert geometry.geometry_mismatches([ev, ev], [launch])  # one event too many
+    assert geometry.geometry_mismatches([dict(ev, smem=0)], [launch])
+    assert geometry.geometry_mismatches([], [launch])
+    unresolved = mg.matvec_gram_launch(1024, 32, 8)
+    assert "unresolved" in geometry.geometry_mismatches([], [unresolved])[0]
+
+
+# -- the report and the script -------------------------------------------------
+
+
+def test_run_analysis_report_shape():
+    rep = report.run_analysis(device="cpu")
+    assert {"schema", "programs", "lints", "ok", "n_violations"} <= set(rep)
+    assert rep["ok"] and rep["n_violations"] == 0 and rep["device"] == "cpu"
+    assert list(rep["programs"]) == list(programs.PROGRAMS)
+    assert set(rep["lints"]) == {"concurrency"}
+    for entry in rep["programs"].values():
+        assert {"contract", "ok", "memory", "pallas", "launches", "source",
+                "violations"} <= set(entry)
+    only_lints = report.run_analysis([], device="cpu")
+    assert only_lints["programs"] == {} and only_lints["ok"]
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        report.run_analysis()
+    with pytest.raises(RuntimeError, match="cuda"):
+        report.run_mutation_report()
+    with pytest.raises(RuntimeError, match="cuda"):
+        programs.build_program("serve_project_solo")
+    with pytest.raises(KeyError, match="nope"):
+        programs.build_program("nope", device="cpu")
+
+
+def test_torch_analyze_cli_cpu(tmp_path, capsys):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_analyze_cli", ROOT / "scripts" / "torch_analyze.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    out_path = tmp_path / "report.json"
+    rc = cli.main(["--all", "--mutation-check", "--device", "cpu", "--json", str(out_path)])
+    assert rc == 0, capsys.readouterr().out
+    out = json.loads(out_path.read_text())
+    assert set(out) == {"schema", "device", "analysis", "mutation_check", "elapsed_s", "ok"}
+    assert out["ok"] and out["schema"] == report.SCHEMA
+    assert len(out["analysis"]["programs"]) == 4
+    assert all(r["caught"] for r in out["mutation_check"]["mutations"])
+    assert cli.main(["--list"]) == 0
+    assert cli.main(["--lints-only", "--device", "cpu"]) == 0
+    assert "serve_project_solo" in capsys.readouterr().out

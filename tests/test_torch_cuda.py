@@ -18,7 +18,10 @@ so does the fixed-order fp32 projection, which makes a served fp32 row equal
 its direct projection bit for bit. The fused matvec + Gram kernel agrees
 with its plain version to 1e-5 relative on ``w`` and ``g``, its ``g`` is
 exactly symmetric and two launches give the same bits; a fused solve on the
-card lands within 1e-3 degrees of the same solve on the CPU.
+card lands within 1e-3 degrees of the same solve on the CPU. The analyzer's
+one-CTA mutant agrees with ``torch.matmul`` to 1e-5 relative (FFMA in index
+order against cuBLAS fp32), and ``torch.profiler`` reads every recorded
+launch back with the grid, block and shared memory its record declares.
 """
 
 import sys
@@ -29,8 +32,10 @@ import pytest
 import torch
 
 import distributed_eigenspaces_tpu_torch as dett
+from distributed_eigenspaces_tpu_torch.ops import geometry as tgeo
 from distributed_eigenspaces_tpu_torch.ops import gram as tgram
 from distributed_eigenspaces_tpu_torch.ops import matvec_gram as tmg
+from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as tmfb
 from distributed_eigenspaces_tpu_torch.ops import serve_project as tsp
 from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 from distributed_eigenspaces_tpu_torch.parallel import worker_pool as twp
@@ -327,3 +332,68 @@ def test_fused_solve_on_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert tmg.launches == info["iters_used"]
     assert float(principal_angles_degrees(got.cpu(), want).max()) <= 1e-3
+
+
+@pytest.mark.parametrize(
+    "rows,d,k", [(256, 1024, 8), (100, 1000, 5), (300, 64, 17), (1, 1, 1)]
+)
+def test_mutant_full_block_matches_plain(cuda_device, rows, d, k):
+    x = _x((rows, d), seed=10).to(cuda_device)
+    v = _x((d, k), seed=11).to(cuda_device)
+    before = tmfb.launches
+    with tgeo.recording() as rec:
+        got = tmfb.mutant_full_block_cuda(x, v)
+    torch.cuda.synchronize()
+    assert tmfb.launches == before + 1
+    assert rec == [tmfb.mutant_full_block_launch(rows, d, k)]
+    assert got.shape == (rows, k) and got.dtype == torch.float32
+    assert _rel(got, tmfb.mutant_full_block_plain(x, v)) <= 1e-5
+    with pytest.raises(ValueError, match="CUDA"):
+        tmfb.mutant_full_block_cuda(x.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="shared memory"):
+        tmfb.mutant_full_block_cuda(x[:, :1].contiguous().expand(rows, 8000).contiguous(),
+                                    _x((8000, k), seed=12).to(cuda_device))
+    assert tmfb.launches == before + 1
+
+
+def test_profiled_launch_geometry_equals_the_records(cuda_device, tmp_path):
+    """What keeps the launch declarations honest: every kernel event the
+    profiler records has the grid, block and shared memory of the
+    ``KernelLaunch`` its wrapper recorded, and each record is what the
+    module's ``*_launch`` function declares for the shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, v = _serve_operands(300, 1000, 10, seed=13)
+    x, v = x.to(cuda_device), v.to(cuda_device)
+    q, s = tsp.quantize_basis_i8(v)
+    c = _x((2000, 48), seed=14).to(cuda_device)
+    w0 = _x((2000, 9), seed=15).to(cuda_device)
+    calls = [
+        lambda: tsp.serve_project_cuda(x, v),
+        lambda: tsp.serve_project_cuda(x.to(torch.bfloat16), v),
+        lambda: tsp.serve_project_i8_cuda(x, q, s),
+        lambda: tsp.serve_project_f32_cuda(x, v),
+        lambda: tmg.matvec_gram_cuda(c, w0),
+        lambda: tmfb.mutant_full_block_cuda(x[:256].contiguous(), v),
+    ]
+    for call in calls:  # builds and first launches outside the window
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tgeo.recording() as rec:
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    events = tgeo.profiled_kernels(prof, tgeo.RECORDED_KERNELS, tmp_path / "trace.json")
+    bad = tgeo.geometry_mismatches(events, rec)
+    assert not bad, (bad, [(e["name"], e["args"]) for e in events])
+    assert rec[:4] == [
+        tsp.serve_project_launch(300, 1000, 10, torch.float32, "bf16"),
+        tsp.serve_project_launch(300, 1000, 10, torch.bfloat16, "bf16"),
+        tsp.serve_project_launch(300, 1000, 10, torch.float32, "i8"),
+        tsp.serve_project_launch(300, 1000, 10, torch.float32, "f32"),
+    ]
+    assert rec[4] == tmg.matvec_gram_launch(2000, 48, 9).resolved(rec[4].grid)
+    assert rec[5] == tmfb.mutant_full_block_launch(256, 1000, 10)
+    mutant = [e for e in events if e["symbol"] == "mutant_full_block_kernel"]
+    assert [e["grid"] for e in mutant] == [(1, 1, 1)]

@@ -52,6 +52,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.ops.serve_project\n"
         "import distributed_eigenspaces_tpu_torch.ops.matvec_gram\n"
         "import distributed_eigenspaces_tpu_torch.solvers\n"
+        "import distributed_eigenspaces_tpu_torch.ops.geometry\n"
+        "import distributed_eigenspaces_tpu_torch.ops.mutant_full_block\n"
+        "from distributed_eigenspaces_tpu_torch.analysis import (\n"
+        "    ast_lints, contracts, mutations, programs, report)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
@@ -102,5 +106,6 @@ def test_kernel_sources_ship_with_the_package():
     assert (PKG / "csrc" / "gram.cu").is_file()
     assert (PKG / "csrc" / "serve_project.cu").is_file()
     assert (PKG / "csrc" / "matvec_gram.cu").is_file()
+    assert (PKG / "csrc" / "mutant_full_block.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
