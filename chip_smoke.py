@@ -16,7 +16,9 @@ exits non-zero without printing a result:
    fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10 shape
    (8, 1024, 3072) and a ragged (3, 1000, 3000).
 4. timing: kernel, plain version, ``torch.bmm`` yardstick and the bound,
-   with CUDA events (median of 25 after warm-up).
+   with CUDA events (median of 25 after warm-up); for bf16 x the yardstick
+   is ``torch.bmm(..., out_dtype=float32)``, which writes the kernel's fp32
+   output, where this torch has it (the bf16-output ``bmm`` beside it).
 5. slice: ``entry()``'s step 10 times (10 Gram launches), checked against
    the same step on the CPU; then ``OnlineDistributedPCA`` at the
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
@@ -24,14 +26,19 @@ exits non-zero without printing a result:
    within 1 degree with exactly one Gram launch (the cold step).
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
-   shape (512, 3072, 10) and a ragged (1000, 3000, 10), fp32 x (and bf16
-   x at the serve shape, but for the fp32 kernel, which takes fp32 x
+   shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
+   3072, 10), fp32 and bf16 x (but for the fp32 kernel, which takes fp32 x
    only); relative Frobenius error <= 1e-5, and the first 300 rows of a
-   512-row launch equal, bit for bit, a 300-row launch of the same rows.
+   512-row launch, and the first 512 of a 65,536-row launch (one-pair
+   column tiles against whole-k ones), equal, bit for bit, a launch of
+   those rows alone.
 7. timing_serve: kernels, plain versions, ``torch.matmul`` on the fp32
    operands (and ``torch.mm(..., out_dtype=float32)`` on bf16 ones where
-   this torch has it) and the bound at (512, 3072, 10) and
-   (65536, 3072, 10).
+   this torch has it) and the bound at the engine's 8-, 64- and 512-row
+   buckets and the bulk 65,536 rows, d=3072, k=10: one call with CUDA
+   events, and the device time of the kernel and of ``torch.matmul``
+   under ``torch.profiler`` (20 calls; every kernel event of the 20 calls
+   must be there, one per kernel call).
 8. slice_serve: the read path on the fit of 5b. The basis is published
    to an ``EigenbasisRegistry``; for serve_dtype bfloat16 and int8 a
    ``QueryServer`` (its self-check passes at construction) answers 64
@@ -80,6 +87,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -105,7 +113,13 @@ SERVE_TOL = 1e-5
 SERVE_K = 10
 SERVE_BURST = (512, 3072, SERVE_K)  # a full bucket: 8 queries x 64 rows
 SERVE_BULK = (65536, 3072, SERVE_K)  # 50,000 rows padded to their bucket
-SERVE_PARITY = ((64, 256, 8), SERVE_BURST, (1000, 3000, SERVE_K))
+SERVE_PARITY = ((64, 256, 8), SERVE_BURST, (1000, 3000, SERVE_K), SERVE_BULK)
+# rows of a launch held bit for bit against a launch of those rows alone:
+# the burst's 512 rows and 300 of them take one-pair column tiles, the bulk
+# launch whole-k tiles, so its first 512 rows cross the tile-width boundary
+SERVE_PREFIX = {SERVE_BURST: 300, SERVE_BULK: 512}
+# the engine's smallest buckets, a full one and the bulk project
+SERVE_SHAPES = ((8, 3072, SERVE_K), (64, 3072, SERVE_K), SERVE_BURST, SERVE_BULK)
 SERVE_F32_NOTE = ("no TPU kernel: the JAX package's fp32 projection is XLA at "
                   "Precision.HIGHEST (distributed_eigenspaces_tpu/serving/"
                   "transform.py:523); the port's fixed-order fp32 route")
@@ -220,7 +234,7 @@ def parity_serve(dev) -> dict:
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
 
     worst = {"bf16": 0.0, "i8": 0.0, "f32": 0.0}
-    cases = [(shape, "float32") for shape in SERVE_PARITY] + [(SERVE_BURST, "bfloat16")]
+    cases = [(shape, x_dtype) for shape in SERVE_PARITY for x_dtype in ("float32", "bfloat16")]
     for seed, (shape, x_dtype) in enumerate(cases):
         x, v = serve_operands(shape, dev, seed)
         x = x.to(getattr(torch, x_dtype))
@@ -232,59 +246,122 @@ def parity_serve(dev) -> dict:
             want = plain(x)
             rel = rel_err(got, want)
             err = float((got - want).abs().max().item())
-            padded = True
-            if shape == SERVE_BURST:
-                padded = bool(torch.equal(run(x[:300]), got[:300]))
             worst[route] = max(worst[route], err)
+            prefix = {}
+            if shape in SERVE_PREFIX:
+                n = SERVE_PREFIX[shape]
+                prefix[f"first_{n}_rows_bit_equal"] = bool(torch.equal(run(x[:n]), got[:n]))
             emit("parity_serve", kernel=route, shape=list(shape), x_dtype=x_dtype,
-                 rel_frobenius=rel, max_abs_err=err, tol=SERVE_TOL,
-                 first_300_rows_bit_equal=padded)
+                 rel_frobenius=rel, max_abs_err=err, tol=SERVE_TOL, **prefix)
             check(rel <= SERVE_TOL, f"serve {route} {shape} {x_dtype}: {rel} > {SERVE_TOL}")
-            check(padded, f"serve {route}: 300 rows alone differ from a 512-row launch")
+            check(all(prefix.values()),
+                  f"serve {route} {x_dtype}: {prefix}: rows alone differ from the "
+                  f"{shape[0]}-row launch")
+            del got, want
         del x, v
     return worst
 
 
-def mm_bf16_out_fp32(a, b):
-    """``torch.mm(a, b, out_dtype=torch.float32)``, or the reason this
-    torch cannot run it (a yardstick only: the port never calls it)."""
+def bf16_out_fp32(op, a, b):
+    """``op(a, b, out_dtype=torch.float32)`` (``torch.mm`` or ``torch.bmm``
+    on bf16 operands), or the reason this torch cannot run it (a yardstick
+    only: the port never calls it)."""
     import torch
 
     try:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return op(a, b, out_dtype=torch.float32)
     except (TypeError, RuntimeError) as e:
         return repr(e)[:200]
 
 
+def profiler_warm(dev) -> None:
+    """A few small kernels at the start of a ``torch.profiler`` window: the
+    card's first launches in a window after earlier windows can go
+    unrecorded, so what is measured comes after these."""
+    import torch
+
+    for _ in range(4):
+        torch.ones(256, device=dev).sum()
+        torch.cuda.synchronize()
+
+
+def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
+              windows: int = 3) -> float:
+    """Device time of one call of ``fn``: under ``torch.profiler``, ``warm``
+    calls, a pause, then ``reps`` calls; the kernels that start after the
+    longest gap on the card's timeline (the pause), summed, over ``reps``.
+    Events are told apart on the card's own clock, since the profiler's
+    host and device clocks can disagree by more than a launch. A window
+    counts only if it holds ``reps * launches`` kernel events after the
+    pause (where ``launches`` is None, for a library call, each kernel's
+    count a multiple of ``reps``): the profiler has dropped events, which
+    would lower the time, so an incomplete window is measured again, up to
+    ``windows`` times, and the run fails after that."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for window in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        gaps = [dev[i].time_range.start - dev[i - 1].time_range.end for i in range(1, len(dev))]
+        cut = 1 + gaps.index(max(gaps)) if gaps else len(dev)
+        measured = dev[cut:]
+        per_name = collections.Counter(e.name for e in measured)
+        if measured and all(n % reps == 0 for n in per_name.values()) and (
+                launches is None or len(measured) == reps * launches):
+            return sum(e.time_range.end - e.time_range.start for e in measured) / reps * 1e-3
+        emit("device_ms", incomplete_window=window, reps=reps, launches=launches,
+             events_before_pause=cut, events_after_pause=dict(per_name))
+    check(False, f"device_ms: {windows} windows without every kernel event of {reps} calls")
+    return 0.0
+
+
 def timing_serve(dev, card: str) -> dict:
-    """Kernel, plain, library times and the bound at the burst and bulk
-    shapes (CUDA events, median of 25 after warm-up)."""
+    """Kernel, plain, library times and the bound at each of
+    ``SERVE_SHAPES`` (CUDA events around one call, median of 25 after
+    warm-up), and the device time of the kernel and of the library call."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
 
     out = {}
-    for shape in (SERVE_BURST, SERVE_BULK):
+    for shape in SERVE_SHAPES:
         x, v = serve_operands(shape, dev, seed=7)
         library_ms = time_ms(lambda: torch.matmul(x, v))
+        library_device_ms = device_ms(lambda: torch.matmul(x, v), launches=None)
         xb, vb = x.to(torch.bfloat16), v.to(torch.bfloat16)
-        probe = mm_bf16_out_fp32(xb, vb)
+        probe = bf16_out_fp32(torch.mm, xb, vb)
         if isinstance(probe, str):
             mm_ms, mm_note = None, probe
         else:
-            mm_ms, mm_note = time_ms(lambda: mm_bf16_out_fp32(xb, vb)), None
+            mm_ms, mm_note = time_ms(lambda: bf16_out_fp32(torch.mm, xb, vb)), None
         del xb, vb, probe
         for route, run, plain, _ in serve_routes(sp, v):
             ms = time_ms(lambda: run(x))
+            kernel_device_ms = device_ms(lambda: run(x))
             plain_ms = time_ms(lambda: plain(x))
             bound_ms, bound_by = serve_bound(shape, route)
-            out[(shape, route)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            out[(shape, route)] = dict(ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+                                       library_ms=library_ms,
+                                       library_device_ms=library_device_ms,
                                        bound_ms=bound_ms, bound_by=bound_by)
             emit("timing_serve", kernel=route, shape=list(shape), kernel_ms=ms,
-                 plain_ms=plain_ms, library_ms=library_ms,
+                 kernel_device_ms=kernel_device_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, library_device_ms=library_device_ms,
                  library="torch.matmul(x, v), fp32 operands",
                  mm_bf16_out_fp32_ms=mm_ms, mm_bf16_note=mm_note,
                  bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
-                 card=card)
+                 device_roofline_share=bound_ms / kernel_device_ms, card=card)
         del x, v
     return out
 
@@ -664,6 +741,7 @@ def analysis(dev, card: str) -> dict:
     sp.launches = sp.launches_i8 = sp.launches_f32 = mg.launches = mfb.launches = 0
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warm(dev)
         with geometry.recording() as launches:
             rep = report.run_analysis(device=dev)
             mut = report.run_mutation_report(device=dev)
@@ -780,12 +858,25 @@ def main() -> int:
         x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
         ms = time_ms(lambda: gram_mod.gram_cuda(x))
         plain_ms = time_ms(lambda: gram_mod.gram_plain(x))
-        library_ms = time_ms(lambda: torch.bmm(x.mT, x))
+        same_out_ms = library_ms = time_ms(lambda: torch.bmm(x.mT, x))
+        library, same_out_note = "torch.bmm(x.mT, x)", None
+        if dtype == "bfloat16":  # bmm writes bf16 for bf16 x; the kernel fp32
+            probe = bf16_out_fp32(torch.bmm, x.mT, x)
+            if isinstance(probe, str):
+                same_out_ms, same_out_note = None, probe
+            else:
+                same_out_ms = time_ms(lambda: bf16_out_fp32(torch.bmm, x.mT, x))
+                library = "torch.bmm(x.mT, x, out_dtype=torch.float32)"
+            del probe
         bound_ms, bound_by = gram_bound(shape, dtype)
-        timing[(shape, dtype)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by)
+        timing[(shape, dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=same_out_ms if same_out_ms is not None else library_ms,
+            library=library, bmm_ms=library_ms)
         emit("timing", shape=list(shape), dtype=dtype, kernel_ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+             plain_ms=plain_ms, library_ms=timing[(shape, dtype)]["library_ms"],
+             library=library, bmm_ms=library_ms, bmm_fp32_out_ms=same_out_ms,
+             bmm_fp32_out_note=same_out_note, bound_ms=bound_ms,
              bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
         del x
 
@@ -867,17 +958,23 @@ def main() -> int:
                 "max_abs_err": max_abs[(shape, dtype)], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "shape": list(shape)}
+                "library": t["library"], "bmm_ms": t["bmm_ms"], "shape": list(shape)}
 
     def serve_row(name, route):
         t = serve_timing[(SERVE_BULK, route)]
+        b = serve_timing[(SERVE_BURST, route)]
         return {"name": name, "route": "cuda", "source": SERVE_SOURCE,
                 "replaces": SERVE_REPLACES.get(route, SERVE_F32_NOTE),
                 "launches": serve_launches[route],
                 "max_abs_err": serve_err[route], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "shape": list(SERVE_BULK)}
+                "shape": list(SERVE_BULK),
+                "burst_shape": list(SERVE_BURST), "burst_ms": b["ms"],
+                "burst_plain_ms": b["plain_ms"], "burst_bound_ms": b["bound_ms"],
+                "burst_library_ms": b["library_ms"],
+                "at_shapes": [dict(serve_timing[(shape, route)], shape=list(shape))
+                              for shape in SERVE_SHAPES]}
 
     print(json.dumps({"kernels": [
         row("gram_bf16", CIFAR, "bfloat16", fit_launches),

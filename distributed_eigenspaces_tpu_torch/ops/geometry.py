@@ -45,7 +45,8 @@ __all__ = [
 
 #: base symbols of the kernels whose wrappers record their launches
 RECORDED_KERNELS = (
-    "serve_project_kernel",  # ops/serve_project.py
+    "serve_split_kernel",  # ops/serve_project.py, bf16 and int8 routes
+    "serve_project_kernel",  # ops/serve_project.py, fp32 route
     "matvec_gram_kernel",  # ops/matvec_gram.py
     "mutant_full_block_kernel",  # ops/mutant_full_block.py
 )
@@ -56,7 +57,7 @@ class KernelLaunch:
     """One launch of a hand-written kernel, as its host code makes it."""
 
     #: the kernel's symbol with its template arguments as the compiler
-    #: spells them, e.g. ``"serve_project_kernel<float, 0, 4>"``
+    #: spells them, e.g. ``"serve_split_kernel<float, 0, 4>"``
     kernel: str
     #: the CUDA source, relative to the package (``"csrc/serve_project.cu"``)
     source: str
@@ -72,6 +73,10 @@ class KernelLaunch:
     #: "fixed" (the host code's formula) or "occupancy" (a cooperative
     #: launch: as many CTAs as the card keeps resident, sized on the card)
     grid_rule: str = "fixed"
+    #: for a kernel whose rows must not depend on the launch's row count,
+    #: the order in which it sums each output, as ``(name, value)`` pairs
+    #: that are a function of the shapes other than rows; empty otherwise
+    order: tuple = ()
 
     @property
     def block(self) -> tuple[int, int, int]:
@@ -102,6 +107,7 @@ class KernelLaunch:
             "dynamic_smem": self.dynamic_smem,
             "static_smem": self.static_smem,
             "operands": [[name, list(ext)] for name, ext in self.operands],
+            "order": [[name, value] for name, value in self.order],
         }
 
 

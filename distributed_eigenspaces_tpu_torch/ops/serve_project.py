@@ -23,8 +23,11 @@ projection bit for bit; :func:`project_exact` routes both the engine's
 ``"float32"`` projection and ``OnlineDistributedPCA.transform`` through it.
 
 :func:`serve_project_launch` is the launch geometry all three make (grid,
-threads, shared memory, what one CTA owns); each ``*_cuda`` wrapper records
-it (``ops/geometry.py``) for the analyzer.
+threads, shared memory, what one CTA owns, and for the bf16 and int8
+kernels the order in which each row is summed); each ``*_cuda`` wrapper
+records it (``ops/geometry.py``) for the analyzer. The bf16 and int8
+kernels run on a persistent grid that the card sizes from its occupancy
+(``det_serve_project_grid``); the wrapper resolves the record with it.
 """
 
 from __future__ import annotations
@@ -50,45 +53,141 @@ _count_lock = threading.Lock()
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
 
-# the kernel's launch constants (csrc/serve_project.cu, namespace scope;
+# the kernels' launch constants (csrc/serve_project.cu, namespace scope;
 # tests/test_torch_analysis.py reads them from the source)
+WARPS = 8
 THREADS = 256  # 8 warps
-ROWS_PER_BLOCK = 32  # 4 rows per warp
-DC = 1024  # d indices per staged chunk (half that for an fp32 basis)
 MAX_PAIRS = 8  # column pairs per CTA: 16 columns of the basis
-#: the kernel tiles k in grid.y blocks of 16 columns
+#: the kernels tile k in grid.y blocks of 16 columns
 MAX_K = 65535 * 2 * MAX_PAIRS
+# the fp32 route (serve_project_kernel)
+ROWS_PER_BLOCK = 32  # 4 rows per warp
+DC = 1024  # staged words per column pair (d indices per chunk: DC / 2)
+# the bf16 and int8 routes (serve_split_kernel)
+S_ROWS = 4  # rows per item
+S_GB = 2  # d groups per warp per load batch
+S_BASIS_WORDS = 24576  # staged basis words per CTA at most
+S_MIN_CTAS = 2  # the kernel's __launch_bounds__ minimum of resident CTAs
+S_SPREAD_ITEMS = 264  # items (4-row groups) from which a column tile takes all of k
 
-#: template argument B of serve_project_kernel per basis route
+#: template argument B of the kernels per basis route
 _BASIS = {"bf16": 0, "i8": 1, "f32": 2}
 _XT = {torch.float32: "float", torch.bfloat16: "unsigned short"}
+#: x values per 16-byte load
+_VEC = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def split_plan(rows: int, d: int, k: int, x_dtype=torch.float32) -> dict:
+    """The split kernel's plan for x ``(rows, d)`` of ``x_dtype`` and a
+    ``(d, k)`` basis, as its host code makes it (``split_np``,
+    ``split_slots``, ``split_smem``): column pairs per tile (all of k, up to
+    16 columns, from ``S_SPREAD_ITEMS`` 4-row items on; one pair below, so
+    that a small launch spreads over more SMs), the column tiles, the d
+    group (one 16-byte load per lane), the d slots (rows) staged at once,
+    each ``np | 1`` words wide, and the dynamic shared memory in bytes."""
+    items = -(-rows // S_ROWS)
+    np_ = 1 if items < S_SPREAD_ITEMS else min(MAX_PAIRS, (k + 1) // 2)
+    group = 32 * _VEC[x_dtype]
+    cap = S_BASIS_WORDS // (np_ | 1) // group * group
+    ds = min(-(-d // group) * group, cap)
+    return dict(np=np_, tiles=-(-k // (2 * np_)), group=group, ds=ds,
+                smem=4 * ((np_ | 1) * ds + 2 * WARPS * S_ROWS * 2 * np_))
+
+
+def split_order(rows: int, d: int, k: int, x_dtype=torch.float32) -> tuple:
+    """The order in which the split kernel sums every output of a row, as
+    data, walked as the kernel walks it for this launch: over the staged d
+    chunks of :func:`split_plan` (whose size varies with the row count),
+    warp ``w`` takes the chunk's d groups ``g = w (mod 8)`` in ascending
+    order (a lane ``vec`` values of each, ``32 * vec`` indices per group);
+    the lanes finish with the tree over lane offsets 16, 8, 4 (halving)
+    then 2, 1 (butterfly), and the warps' partials are added in warp order.
+    The row-order contract is that this is the same at every row count."""
+    p = split_plan(rows, d, k, x_dtype)
+    group, ds = p["group"], p["ds"]
+    groups = -(-d // group)
+    walks = [[] for _ in range(WARPS)]
+    for c0 in range(0, d, ds):  # the kernel's d loop, chunk by chunk
+        g0, g1 = c0 // group, min(groups, (c0 + ds) // group)
+        for w in range(WARPS):
+            walks[w].extend(range(g0 + (w - g0 % WARPS + WARPS) % WARPS, g1, WARPS))
+    return (
+        ("vec", _VEC[x_dtype]),
+        ("group", group),
+        ("warp_groups", tuple(tuple(w) for w in walks)),
+        ("lane_tree", (16, 8, 4, 2, 1)),
+        ("warp_combine", tuple(range(WARPS))),
+    )
 
 
 @functools.lru_cache(maxsize=256)  # pure, and the record is frozen
 def serve_project_launch(rows: int, d: int, k: int, x_dtype=torch.float32,
                          basis: str = "bf16") -> KernelLaunch:
     """The launch ``det_serve_project*`` makes for x ``(rows, d)`` of
-    ``x_dtype`` and a ``(d, k)`` basis (``basis`` "bf16", "i8" or "f32"):
-    grid ``(ceil(rows / 32), ceil(k / 16))`` of 256 threads, the staged
-    basis chunk as static shared memory; one CTA owns 32 rows of x over
-    all of d and a tile of at most 16 basis columns."""
+    ``x_dtype`` and a ``(d, k)`` basis (``basis`` "bf16", "i8" or "f32").
+
+    "f32": grid ``(ceil(rows / 32), ceil(k / 16))`` of 256 threads, the
+    staged basis chunk as static shared memory; one CTA owns 32 rows of x
+    over all of d and a tile of at most 16 basis columns.
+
+    "bf16" / "i8": a persistent grid sized on the card (``grid_rule=
+    "occupancy"``: resident CTAs, at most one per item, by the column tiles
+    of :func:`split_plan`) of 256 threads, the staged basis and the warps'
+    partials as dynamic shared memory. A CTA declares per item: 4 rows of x
+    over all of d (split across its 8 warps), the basis columns it stages
+    once (or per d chunk where they do not fit) and the item's 4 rows of z;
+    ``order`` is :func:`split_order`."""
+    if basis != "f32":
+        return _split_launch(rows, d, k, x_dtype, basis)
     np_ = min(MAX_PAIRS, (k + 1) // 2)
-    kt = 2 * np_
-    chunk = DC // 2 if basis == "f32" else DC
-    rows_cta, cols_cta = min(ROWS_PER_BLOCK, rows), min(kt, k)
-    operands = [("x", (rows_cta, d)), ("v", (d, cols_cta)),
-                ("v staged", (min(chunk, d), cols_cta)), ("z", (rows_cta, cols_cta))]
-    if basis == "i8":
-        operands.insert(2, ("scale", (cols_cta,)))
+    cols_cta = min(2 * np_, k)
+    rows_cta = min(ROWS_PER_BLOCK, rows)
     return KernelLaunch(
         kernel=f"serve_project_kernel<{_XT[x_dtype]}, {_BASIS[basis]}, {np_}>",
         source="csrc/serve_project.cu",
-        grid=(-(-rows // ROWS_PER_BLOCK), -(-k // kt), 1),
+        grid=(-(-rows // ROWS_PER_BLOCK), -(-k // (2 * np_)), 1),
         threads=THREADS,
         dynamic_smem=0,
         static_smem=4 * np_ * DC,  # uint32_t vs[NP * DC]
-        operands=tuple(operands),
+        operands=(("x", (rows_cta, d)), ("v", (d, cols_cta)),
+                  ("v staged", (min(DC // 2, d), cols_cta)), ("z", (rows_cta, cols_cta))),
     )
+
+
+def _split_launch(rows, d, k, x_dtype, basis) -> KernelLaunch:
+    """:func:`serve_project_launch` of the bf16 and int8 routes."""
+    p = split_plan(rows, d, k, x_dtype)
+    np_ = p["np"]
+    cols_cta = min(2 * np_, k)
+    rows_item = min(S_ROWS, rows)
+    operands = [("x (item)", (rows_item, d)), ("v", (d, cols_cta)),
+                ("v staged", (min(p["ds"], d), cols_cta)), ("z (item)", (rows_item, cols_cta))]
+    if basis == "i8":
+        operands.insert(2, ("scale", (cols_cta,)))
+    return KernelLaunch(
+        kernel=f"serve_split_kernel<{_XT[x_dtype]}, {_BASIS[basis]}, {np_}>",
+        source="csrc/serve_project.cu",
+        grid=None,
+        threads=THREADS,
+        dynamic_smem=p["smem"],
+        static_smem=0,
+        operands=tuple(operands),
+        grid_rule="occupancy",
+        order=split_order(rows, d, k, x_dtype),
+    )
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_on(device_index: int, rows: int, d: int, k: int, x_dtype,
+               basis: str) -> KernelLaunch:
+    """:func:`serve_project_launch` of the bf16 or int8 route with the grid
+    the card sizes for it (``det_serve_project_grid`` on ``device_index``)."""
+    with torch.cuda.device(device_index):
+        gx = _lib().det_serve_project_grid(rows, d, k, _X_CODES[x_dtype], _BASIS[basis])
+    if gx < 1:
+        raise RuntimeError(f"serve projection grid query failed: CUDA error {-gx}")
+    launch = serve_project_launch(rows, d, k, x_dtype, basis)
+    return launch.resolved((gx, split_plan(rows, d, k, x_dtype)["tiles"], 1))
 
 
 def quantize_basis_i8(v: torch.Tensor, *, eps: float = 1e-12):
@@ -125,6 +224,7 @@ def serve_project_f32_plain(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, v)
 
 
+@functools.lru_cache(maxsize=1)  # argtypes set once, not per launch
 def _lib():
     lib = _build.load("serve_project")
     ptr, i = ctypes.c_void_p, ctypes.c_int
@@ -134,6 +234,8 @@ def _lib():
     lib.det_serve_project_i8.restype = i
     lib.det_serve_project_f32.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
     lib.det_serve_project_f32.restype = i
+    lib.det_serve_project_grid.argtypes = [i, i, i, i, i]
+    lib.det_serve_project_grid.restype = i
     return lib
 
 
@@ -170,9 +272,11 @@ def _check(name: str, x: torch.Tensor, basis: torch.Tensor, basis_dtype):
 
 
 def _launch(fn, x: torch.Tensor, *ptrs_and_dims) -> None:
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*ptrs_and_dims, stream)
+    if torch.cuda.current_device() == x.device.index:  # no device switch to pay for
+        rc = fn(*ptrs_and_dims, torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            rc = fn(*ptrs_and_dims, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"serve projection kernel launch failed: CUDA error {rc}")
 
@@ -183,7 +287,7 @@ def serve_project_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     fp32, both contiguous on one card."""
     global launches
     rows, d, k, vec_ok = _check("serve_project_cuda", x, v, torch.float32)
-    launch = serve_project_launch(rows, d, k, x.dtype, "bf16")
+    launch = _launch_on(x.device.index, rows, d, k, x.dtype, "bf16")
     z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     _launch(_lib().det_serve_project, x, x.data_ptr(), v.data_ptr(),
             z.data_ptr(), rows, d, k, _X_CODES[x.dtype], vec_ok)
@@ -206,7 +310,7 @@ def serve_project_i8_cuda(x: torch.Tensor, q: torch.Tensor,
             f"values on {x.device}, got {scale.dtype} {tuple(scale.shape)} "
             f"on {scale.device}"
         )
-    launch = serve_project_launch(rows, d, k, x.dtype, "i8")
+    launch = _launch_on(x.device.index, rows, d, k, x.dtype, "i8")
     z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     _launch(_lib().det_serve_project_i8, x, x.data_ptr(), q.data_ptr(),
             scale.data_ptr(), z.data_ptr(), rows, d, k, _X_CODES[x.dtype], vec_ok)

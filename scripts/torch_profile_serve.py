@@ -15,8 +15,9 @@ every bucket is warmed and one untimed burst, it prints one JSON line:
   residual and copies back to the host), medians and maxima;
 - ``profile``: one burst under ``torch.profiler``: wall seconds, the
   device's busy seconds (union of every kernel and copy interval), the idle
-  share, the busiest device activities by name, and the count of kernel
-  launches, copies and stream syncs.
+  share, the serve kernel's device seconds and its share of the busy time,
+  the busiest device activities by name, and the count of kernel launches,
+  copies and stream syncs.
 
 ``--trace`` also writes the last profiler Chrome trace there. The script
 imports nothing of JAX or of the JAX package, needs a card, and exits
@@ -40,6 +41,7 @@ from torch_profile_fit import _union_seconds  # noqa: E402
 
 D, K = 3072, 10
 REGIONS = ("batch_compute",)
+SERVE_KERNELS = ("serve_split_kernel", "serve_project_kernel")
 
 
 def emit(phase: str, **kw) -> None:
@@ -119,8 +121,11 @@ def main() -> int:
                    for name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                 "cudaMemcpyAsync", "cudaStreamSynchronize")}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        kernel_s = sum(s for name, s in by_name.items()
+                       if any(base in name for base in SERVE_KERNELS))
         emit("profile", serve_dtype=serve_dtype, wall_s=wall_s, device_busy_s=busy_s,
-             idle_share=1.0 - busy_s / wall_s, device_events=len(device),
+             idle_share=1.0 - busy_s / wall_s, serve_kernel_s=kernel_s,
+             serve_kernel_share_of_device=kernel_s / busy_s, device_events=len(device),
              runtime_calls=runtime,
              top_device_s=[{"name": n[:120], "s": s} for n, s in top], card=card)
         if args.trace:

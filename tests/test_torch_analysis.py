@@ -245,23 +245,120 @@ def _constexprs(path: Path) -> dict:
 def test_serve_project_launch_uses_the_source_constants():
     src = CSRC / "serve_project.cu"
     c = _constexprs(src)
-    assert (c["THREADS"], c["ROWS_PER_BLOCK"], c["DC"], c["MAX_PAIRS"]) == (
-        sp.THREADS, sp.ROWS_PER_BLOCK, sp.DC, sp.MAX_PAIRS)
+    for name in ("WARPS", "THREADS", "MAX_PAIRS", "ROWS_PER_BLOCK", "DC", "S_ROWS",
+                 "S_GB", "S_BASIS_WORDS", "S_MIN_CTAS", "S_SPREAD_ITEMS"):
+        assert c[name] == getattr(sp, name), name
     text = src.read_text()
     assert "__shared__ uint32_t vs[NP * DC];" in text
-    assert "serve_project_kernel<XT, B, N><<<grid, THREADS, 0, s>>>" in text
-    for rows, d, k in ((256, 1024, 8), (1000, 3000, 10), (5, 1100, 19), (1, 1, 1)):
-        for basis, code in (("bf16", 0), ("i8", 1), ("f32", 2)):
-            launch = sp.serve_project_launch(rows, d, k, torch.float32, basis)
-            np_ = min(c["MAX_PAIRS"], (k + 1) // 2)
-            assert launch.grid == (math.ceil(rows / c["ROWS_PER_BLOCK"]),
-                                   math.ceil(k / (2 * np_)), 1)
-            assert launch.grid[1] == math.ceil(k / 16)
-            assert launch.threads == c["THREADS"] == c["WARPS"] * 32
-            assert (launch.static_smem, launch.dynamic_smem) == (4 * np_ * c["DC"], 0)
-            assert launch.kernel == f"serve_project_kernel<float, {code}, {np_}>"
+    assert "serve_project_kernel<float, kF32, N><<<grid, THREADS, 0, s>>>" in text
+    assert "serve_split_kernel<XT, B, NP><<<dim3(gx, tiles), THREADS, smem, s>>>" in text
+    assert "__launch_bounds__(THREADS, S_MIN_CTAS)" in text
+    assert "return 4 * ((size_t)(np | 1) * ds + 2 * WARPS * S_ROWS * 2 * np);" in text
+    for rows, d, k in ((256, 1024, 8), (1000, 3000, 10), (5, 1100, 19), (1, 1, 1),
+                       (512, 30000, 10), (1056, 3072, 10), (65536, 2000, 33)):
+        np_ = min(c["MAX_PAIRS"], (k + 1) // 2)
+        launch = sp.serve_project_launch(rows, d, k, torch.float32, "f32")
+        assert launch.grid == (math.ceil(rows / c["ROWS_PER_BLOCK"]),
+                               math.ceil(k / (2 * np_)), 1)
+        assert launch.grid[1] == math.ceil(k / 16)
+        assert launch.threads == c["THREADS"] == c["WARPS"] * 32
+        assert (launch.static_smem, launch.dynamic_smem) == (4 * np_ * c["DC"], 0)
+        assert launch.kernel == f"serve_project_kernel<float, 2, {np_}>"
+        # the split kernels: one column pair per tile below S_SPREAD_ITEMS
+        # 4-row items, so that small launches spread over more SMs
+        if math.ceil(rows / c["S_ROWS"]) < c["S_SPREAD_ITEMS"]:
+            np_ = 1
+        for basis, code in (("bf16", 0), ("i8", 1)):
+            for x_dtype, xt, vec in ((torch.float32, "float", 4),
+                                     (torch.bfloat16, "unsigned short", 8)):
+                launch = sp.serve_project_launch(rows, d, k, x_dtype, basis)
+                assert sp.split_plan(rows, d, k, x_dtype)["tiles"] == math.ceil(k / (2 * np_))
+                group = 32 * vec
+                ds = min(math.ceil(d / group) * group,
+                         c["S_BASIS_WORDS"] // (np_ | 1) // group * group)
+                assert launch.kernel == f"serve_split_kernel<{xt}, {code}, {np_}>"
+                assert launch.grid is None and launch.grid_rule == "occupancy"
+                assert launch.threads == c["THREADS"] and launch.static_smem == 0
+                assert launch.dynamic_smem == 4 * ((np_ | 1) * ds + 2 * c["WARPS"]
+                                                   * c["S_ROWS"] * 2 * np_)
+                ops = dict(launch.operands)
+                assert ops["x (item)"] == (min(c["S_ROWS"], rows), d)
+                assert ops["v staged"] == (min(ds, d), min(2 * np_, k))
+                assert ("scale" in ops) == (basis == "i8")
+                assert launch.resolved((7, 1, 1)).grid == (7, 1, 1)
+    # the bulk CIFAR-10 project stages its whole (3072, 10) basis: 61,440
+    # bytes; a full 512-row bucket runs 5 tiles of 2 columns
+    cifar = sp.serve_project_launch(65536, 3072, 10)
+    assert cifar.dynamic_smem == 4 * (5 * 3072 + 2 * 8 * 4 * 10) == 64000
+    burst = sp.serve_project_launch(512, 3072, 10)
+    assert burst.kernel == "serve_split_kernel<float, 0, 1>"
+    assert burst.dynamic_smem == 4 * (3072 + 2 * 8 * 4 * 2)
     assert sp.serve_project_launch(8, 64, 2, torch.bfloat16).kernel == (
-        "serve_project_kernel<unsigned short, 0, 1>")
+        "serve_split_kernel<unsigned short, 0, 1>")
+
+
+def _split_kernel_body() -> str:
+    """The source of ``serve_split_kernel`` and of the two device functions
+    that walk its load batches."""
+    text = (CSRC / "serve_project.cu").read_text()
+    parts = []
+    for head in ("__device__ __forceinline__ void load_batch(",
+                 "__device__ __forceinline__ void fma_batch(",
+                 "    serve_split_kernel(const XT* __restrict__ x"):
+        i = text.index(head)
+        parts.append(text[i:text.index("\n}\n", i)])
+    return "\n".join(parts)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,k", [(3072, 10), (1, 1), (129, 19), (1100, 33), (12288, 10),
+                                 (30000, 10)])
+def test_serve_split_order_is_the_same_at_every_row_count(d, k, x_dtype):
+    """The d split and the combine order ``serve_project_launch`` declares
+    for the bf16 and int8 kernels are a function of (d, k) alone: the same
+    for 1, 7, 32, 512 and 65536 rows, so a row padded into a bucket is
+    summed as it is alone. The declared order replays the kernel's own d
+    loop, read here from the source, through the staged chunks of each row
+    count's plan (at d = 12288 and 30000 the chunk changes with the row
+    count); the lane tree's offsets and the warp combine are read from the
+    source too. Every d group is walked by exactly one warp, in ascending
+    order."""
+    body = _split_kernel_body()
+    for line in ("for (int c0 = 0; c0 < d; c0 += ds) {",
+                 "const int g0 = c0 / G;",
+                 "const int g1 = min(groups, (c0 + ds) / G);",
+                 "for (int g = g0 + (warp - g0 % WARPS + WARPS) % WARPS; g < g1;",
+                 "g += WARPS * S_GB) {",
+                 "for (int b = 0; b < S_GB; ++b) {",
+                 "const int gb = g + b * WARPS;",
+                 "for (int w = 1; w < WARPS; ++w) s += pb[w * N];"):
+        assert line in body, line
+    assert body.count("for (int b = 0; b < S_GB; ++b) {") == 2  # load, then FMA
+    halving = re.findall(r"halve<NP, [^>]*, (\d+)>\(acc, lane\);", body)
+    butterfly = re.findall(r"__shfl_xor_sync\(0xffffffffu, s, (\d+)\)", body)
+    lane_tree = tuple(int(n) for n in halving + butterfly)
+    chunks = {sp.split_plan(rows, d, k, x_dtype)["ds"] for rows in (1, 7, 32, 512, 65536)}
+    orders = {sp.serve_project_launch(rows, d, k, x_dtype, basis).order
+              for rows in (1, 7, 32, 512, 65536) for basis in ("bf16", "i8")}
+    assert len(orders) == 1, (chunks, orders)
+    order = dict(orders.pop())
+    groups = math.ceil(d / order["group"])
+    walked = [g for w in order["warp_groups"] for g in w]
+    assert sorted(walked) == list(range(groups))
+    assert all(list(w) == sorted(w) and all(g % sp.WARPS == i for g in w)
+               for i, w in enumerate(order["warp_groups"]))
+    assert order["lane_tree"] == lane_tree == (16, 8, 4, 2, 1)
+    assert order["warp_combine"] == tuple(range(sp.WARPS))
+    if d >= 12288:  # the chunk does vary with the row count here
+        assert len(chunks) > 1 and min(chunks) < d
+    # what does vary with the row count, the staged chunk and the column
+    # tiles, keeps whole groups and covers every column
+    for rows in (1, 7, 32, 512, 65536):
+        plan = sp.split_plan(rows, d, k, x_dtype)
+        assert plan["ds"] % order["group"] == 0
+        assert plan["tiles"] * 2 * plan["np"] >= k > (plan["tiles"] - 1) * 2 * plan["np"]
+    # the fp32 route declares no order: its rows depend on d alone by design
+    assert sp.serve_project_launch(512, d, k, torch.float32, "f32").order == ()
 
 
 def test_matvec_gram_launch_uses_the_source_constants():
@@ -326,7 +423,7 @@ def test_profiled_symbol_and_geometry_comparison():
                             bases) == "matvec_gram_kernel"
     assert geometry._symbol("void at::native::vectorized_elementwise_kernel<4>(int)",
                             bases) is None
-    launch = sp.serve_project_launch(256, 1024, 8)
+    launch = sp.serve_project_launch(256, 1024, 8, basis="f32")
     ev = {"symbol": launch.kernel, "grid": (8, 1, 1), "block": (256, 1, 1),
           "smem": 16384, "name": name}
     assert geometry.geometry_mismatches([ev], [launch]) == []
@@ -335,6 +432,13 @@ def test_profiled_symbol_and_geometry_comparison():
     assert geometry.geometry_mismatches([], [launch])
     unresolved = mg.matvec_gram_launch(1024, 32, 8)
     assert "unresolved" in geometry.geometry_mismatches([], [unresolved])[0]
+    split = sp.serve_project_launch(256, 1024, 8)
+    assert "unresolved" in geometry.geometry_mismatches([], [split])[0]
+    split = split.resolved((64, 1, 1))
+    ev = {"symbol": split.kernel, "grid": (64, 1, 1), "block": (256, 1, 1),
+          "smem": split.dynamic_smem, "name": name}
+    assert geometry.geometry_mismatches([ev], [split]) == []
+    assert geometry.geometry_mismatches([dict(ev, grid=(8, 1, 1))], [split])
 
 
 # -- the report and the script -------------------------------------------------

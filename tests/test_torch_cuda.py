@@ -12,8 +12,9 @@ version is at most 1e-5 for fp32 and 1e-4 for bf16 inputs (the same exact
 products, summed in another order); whole rounds on the card and on the
 CPU agree to 1e-4 absolute in ``sigma_tilde`` and 0.05 degrees in bases.
 The serve kernels agree with their plain versions to 1e-5 relative (exact
-products of bf16-rounded operands, fp32 sums in another order), and a
-zero-padded launch gives every real row the same bits as an unpadded one;
+products of bf16-rounded operands, fp32 sums in another order), repeat
+bit for bit, and a zero-padded launch gives every real row the same bits as
+an unpadded one, wherever the row sits;
 so does the fixed-order fp32 projection, which makes a served fp32 row equal
 its direct projection bit for bit. The fused matvec + Gram kernel agrees
 with its plain version to 1e-5 relative on ``w`` and ``g``, its ``g`` is
@@ -162,6 +163,61 @@ def test_serve_kernels_match_plain(cuda_device, x_dtype, rows, d, k):
     pad[:rows] = x
     assert torch.equal(tsp.serve_project_cuda(pad, v)[:rows], got)
     assert torch.equal(tsp.serve_project_i8_cuda(pad, q, s)[:rows], got_i8)
+
+
+def _split_kernels(v):
+    """The bf16 and int8 serve kernels as ``x -> z`` on basis ``v``."""
+    q, s = tsp.quantize_basis_i8(v)
+    return {
+        "bf16": (lambda a: tsp.serve_project_cuda(a, v),
+                 lambda a: tsp.serve_project_plain(a, v)),
+        "i8": (lambda a: tsp.serve_project_i8_cuda(a, q, s),
+               lambda a: tsp.serve_project_i8_plain(a, q, s)),
+    }
+
+
+@pytest.mark.parametrize("d", [3072, 12288])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["bf16", "i8"])
+def test_serve_split_rows_keep_their_bits_in_any_launch(cuda_device, route, x_dtype, d):
+    """The row-order contract at the engine's bucket sizes: 1, 3, 8, 64, 300
+    and 512 rows alone give the bits they get at the head of a 512- and of a
+    4096-row launch, and at an offset inside the 4096-row one. Up to 512
+    rows a tile is one column pair with the basis staged whole; at 4096
+    rows a tile holds all of k, and at d = 12288 its basis is staged in d
+    chunks per item."""
+    x, v = _serve_operands(4096, d, 10, seed=16)
+    x = x.to(device=cuda_device, dtype=getattr(torch, x_dtype))
+    run, _ = _split_kernels(v.to(cuda_device))[route]
+    full = {n: run(x[:n]) for n in (512, 4096)}
+    for rows in (1, 3, 8, 64, 300, 512):
+        alone = run(x[:rows].contiguous())
+        for n, z in full.items():
+            assert torch.equal(alone, z[:rows]), (rows, n)
+        inner = run(x[1001:1001 + rows].contiguous())
+        assert torch.equal(inner, full[4096][1001:1001 + rows]), rows
+
+
+@pytest.mark.parametrize("rows", [301, 2048])
+@pytest.mark.parametrize("k", [1, 9, 10, 19, 33])
+@pytest.mark.parametrize("d", [1, 129, 1100, 3000, 3072, 12288])
+def test_serve_split_kernels_match_plain_and_repeat(cuda_device, d, k, rows):
+    """Both kernels, fp32 and bf16 x, against their plain versions at
+    ragged d and k: 1e-5 relative, and a second launch gives the same bits.
+    At 301 rows every tile is one column pair; at 2048 rows a tile holds up
+    to 16 columns (k = 19 and 33 take two and three, odd k a half-empty
+    last pair), and at d = 12288 the basis is staged in d chunks per
+    item."""
+    x = _x((rows, d), seed=17)
+    v = _x((d, k), seed=18).to(cuda_device)  # d < k has no orthonormal basis
+    for x_dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(device=cuda_device, dtype=x_dtype)
+        for route, (run, plain) in _split_kernels(v).items():
+            got = run(xd)
+            torch.cuda.synchronize()
+            assert got.shape == (rows, k) and got.dtype == torch.float32
+            assert _rel(got, plain(xd)) <= 1e-5, (route, x_dtype)
+            assert torch.equal(run(xd), got), (route, x_dtype)
 
 
 def test_serve_auto_on_cuda_launches_and_cuda_wrappers_refuse_cpu(cuda_device):
@@ -388,11 +444,14 @@ def test_profiled_launch_geometry_equals_the_records(cuda_device, tmp_path):
     bad = tgeo.geometry_mismatches(events, rec)
     assert not bad, (bad, [(e["name"], e["args"]) for e in events])
     assert rec[:4] == [
-        tsp.serve_project_launch(300, 1000, 10, torch.float32, "bf16"),
-        tsp.serve_project_launch(300, 1000, 10, torch.bfloat16, "bf16"),
-        tsp.serve_project_launch(300, 1000, 10, torch.float32, "i8"),
+        tsp.serve_project_launch(300, 1000, 10, torch.float32, "bf16").resolved(rec[0].grid),
+        tsp.serve_project_launch(300, 1000, 10, torch.bfloat16, "bf16").resolved(rec[1].grid),
+        tsp.serve_project_launch(300, 1000, 10, torch.float32, "i8").resolved(rec[2].grid),
         tsp.serve_project_launch(300, 1000, 10, torch.float32, "f32"),
     ]
+    # the persistent grid: at most one CTA per 4-row item, by column tiles
+    tiles = tsp.split_plan(300, 1000, 10)["tiles"]
+    assert all(1 <= r.grid[0] <= 75 and r.grid[1:] == (tiles, 1) for r in rec[:3])
     assert rec[4] == tmg.matvec_gram_launch(2000, 48, 9).resolved(rec[4].grid)
     assert rec[5] == tmfb.mutant_full_block_launch(256, 1000, 10)
     mutant = [e for e in events if e["symbol"] == "mutant_full_block_kernel"]
