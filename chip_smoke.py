@@ -11,19 +11,27 @@ exits non-zero without printing a result:
 2. build, build_serve, build_matvec_gram, build_mutant: ``csrc/gram.cu``,
    ``csrc/serve_project.cu``, ``csrc/matvec_gram.cu`` and
    ``csrc/mutant_full_block.cu`` compiled with nvcc for sm_90a, one process
-   each, started together (seconds, ptxas register / spill lines).
-3. parity: the Gram kernel against its plain PyTorch version on the card,
-   fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10 shape
-   (8, 1024, 3072) and a ragged (3, 1000, 3000).
+   each, started together (seconds; per kernel instantiation its ptxas
+   registers, spill stores and shared memory).
+3. parity: the Gram kernels against their plain PyTorch version on the
+   card, fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10
+   shape (8, 1024, 3072) and a ragged (3, 1000, 3000): relative Frobenius
+   error <= 1e-5 (fp32) / 1e-4 (bf16), exactly symmetric; bf16 at these
+   shapes takes the TMA + wgmma kernel (``launches_tma``).
 4. timing: kernel, plain version, ``torch.bmm`` yardstick and the bound,
-   with CUDA events (median of 25 after warm-up); for bf16 x the yardstick
-   is ``torch.bmm(..., out_dtype=float32)``, which writes the kernel's fp32
-   output, where this torch has it (the bf16-output ``bmm`` beside it).
+   with CUDA events (median of 25 after warm-up), and the device time of
+   the kernel and of the yardstick under ``torch.profiler``; for bf16 x
+   the yardstick is ``torch.bmm(..., out_dtype=float32)``, which writes the
+   kernel's fp32 output, where this torch has it (the bf16-output ``bmm``
+   beside it). Then one CIFAR-shape bf16 launch under the launch recorder
+   and the profiler: its profiled grid, block and shared memory must equal
+   its ``gram_launch`` record.
 5. slice: ``entry()``'s step 10 times (10 Gram launches), checked against
    the same step on the CPU; then ``OnlineDistributedPCA`` at the
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
    bf16) on planted-spectrum data, which must recover the planted top-10
-   within 1 degree with exactly one Gram launch (the cold step).
+   within 1 degree with exactly one Gram launch (the cold step), on the
+   TMA kernel.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -90,6 +98,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -122,7 +131,8 @@ SERVE_PREFIX = {SERVE_BURST: 300, SERVE_BULK: 512}
 SERVE_SHAPES = ((8, 3072, SERVE_K), (64, 3072, SERVE_K), SERVE_BURST, SERVE_BULK)
 SERVE_F32_NOTE = ("no TPU kernel: the JAX package's fp32 projection is XLA at "
                   "Precision.HIGHEST (distributed_eigenspaces_tpu/serving/"
-                  "transform.py:523); the port's fixed-order fp32 route")
+                  "transform.py:157-158); the port's fixed-order fp32 route, "
+                  "on the split kernel with an fp32 basis")
 MG_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/matvec_gram.cu"
 MG_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:337"
 MG_TOL = 1e-5
@@ -136,6 +146,36 @@ MUTANT_AUDIT = (256, 1024, 8)  # the JAX mutant's (rows, d, k)
 MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
 ANALYSIS_PROGRAMS = 4
 ANALYSIS_MUTATIONS = 5
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """Per kernel in an ``nvcc -Xptxas=-v`` log: its symbol (the mangled
+    name from the kernel's base name on, e.g. ``serve_split_kernelIfLi2ELi5EE``
+    for ``serve_split_kernel<float, 2, 5>``), registers, spill stores and
+    shared memory bytes, as ptxas reports them."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            sym = name
+            for m in re.finditer(r"(?=(\d+))", name):  # every start of a length
+                start = m.start() + len(m.group(1))
+                ident = name[start:start + int(m.group(1))]
+                if ident.endswith("_kernel") and ident.isidentifier():
+                    rest = name[start + len(ident):]
+                    args = re.match(r"I\w*?EE", rest)
+                    sym = ident + (args.group(0) if args else "")
+                    break
+            cur = {"kernel": sym}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, ln)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
 
 
 def emit(phase: str, **kw) -> None:
@@ -225,6 +265,39 @@ def serve_routes(sp, v, x_dtype="float32"):
          lambda a: sp.serve_project_f32_plain(a, v), "launches_f32"),
     )
     return routes if x_dtype == "float32" else routes[:2]
+
+
+def gram_geometry(dev, gen) -> None:
+    """One CIFAR-shape bf16 Gram launch under the launch recorder and the
+    profiler: the profiled event must have the grid, block and shared
+    memory of the launch's record (``gram_launch``, grid sized on the
+    card)."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import geometry
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(CIFAR, generator=gen, device=dev).to(torch.bfloat16)
+    gram_mod.gram_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warm(dev)
+        with geometry.recording() as launches:
+            gram_mod.gram_cuda(x)
+        torch.cuda.synchronize()
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(trace_dir, exist_ok=True)
+    events = geometry.profiled_kernels(prof, geometry.RECORDED_KERNELS,
+                                       os.path.join(trace_dir, "chip_smoke_gram_trace.json"))
+    mismatches = geometry.geometry_mismatches(events, launches)
+    emit("gram_geometry", shape=list(CIFAR), recorded=[la.to_json() for la in launches],
+         profiled=[{k: ev[k] for k in ("symbol", "grid", "block", "smem", "dur_us")}
+                   for ev in events], geometry_mismatches=mismatches)
+    check(len(launches) == 1 and launches[0].kernel == "gram_bf16_tma_kernel",
+          f"gram geometry: recorded {[la.kernel for la in launches]}")
+    check(launches[0] == gram_mod.gram_launch(*CIFAR).resolved(launches[0].grid),
+          "gram geometry: the record is not gram_launch's")
+    check(not mismatches, f"gram geometry: profiled launch differs: {mismatches}")
 
 
 def parity_serve(dev) -> dict:
@@ -827,9 +900,10 @@ def main() -> int:
                                 ("build_matvec_gram", "matvec_gram", MG_SOURCE),
                                 ("build_mutant", "mutant_full_block", MUTANT_SOURCE)):
         info = _build.build_info[name]
+        kernels = ptxas_summary(info["log"])
         emit(phase, source=source, seconds=seconds, nvcc_seconds=info["seconds"],
-             ptxas=[ln.strip() for ln in info["log"].splitlines()
-                    if "registers" in ln or "spill" in ln])
+             ptxas=kernels,
+             spilling=[k["kernel"] for k in kernels if k.get("spill_stores")])
 
     # 3. parity on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -837,16 +911,19 @@ def main() -> int:
     for shape in (ENTRY, CIFAR, RAGGED):
         for dtype in ("float32", "bfloat16"):
             x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
-            before = gram_mod.launches
+            before = (gram_mod.launches, gram_mod.launches_tma)
             got = gram_mod.gram_cuda(x)
             torch.cuda.synchronize()
-            check(gram_mod.launches == before + 1, "launch counter did not move")
+            tma = dtype == "bfloat16"  # every shape here has d % 8 == 0
+            check((gram_mod.launches, gram_mod.launches_tma) == (before[0] + 1, before[1] + tma),
+                  f"gram {shape} {dtype}: launch counters {before} did not move as the "
+                  f"shape rule says (TMA: {tma})")
             want = gram_mod.gram_plain(x)
             rel = rel_err(got, want)
             err = float((got - want).abs().max().item())
             max_abs[(shape, dtype)] = err
             emit("parity", shape=list(shape), dtype=dtype, rel_frobenius=rel,
-                 max_abs_err=err, tol=TOL[dtype],
+                 max_abs_err=err, tol=TOL[dtype], tma_kernel=tma,
                  symmetric=bool(torch.equal(got, got.mT)))
             check(rel <= TOL[dtype], f"gram {shape} {dtype}: {rel} > {TOL[dtype]}")
             check(torch.equal(got, got.mT), f"gram {shape} {dtype} is not symmetric")
@@ -857,28 +934,36 @@ def main() -> int:
     for shape, dtype in ((CIFAR, "bfloat16"), (CIFAR, "float32"), (ENTRY, "float32")):
         x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
         ms = time_ms(lambda: gram_mod.gram_cuda(x))
+        kernel_device_ms = device_ms(lambda: gram_mod.gram_cuda(x))
         plain_ms = time_ms(lambda: gram_mod.gram_plain(x))
         same_out_ms = library_ms = time_ms(lambda: torch.bmm(x.mT, x))
         library, same_out_note = "torch.bmm(x.mT, x)", None
+        yardstick = lambda: torch.bmm(x.mT, x)  # noqa: E731
         if dtype == "bfloat16":  # bmm writes bf16 for bf16 x; the kernel fp32
             probe = bf16_out_fp32(torch.bmm, x.mT, x)
             if isinstance(probe, str):
                 same_out_ms, same_out_note = None, probe
             else:
-                same_out_ms = time_ms(lambda: bf16_out_fp32(torch.bmm, x.mT, x))
+                yardstick = lambda: bf16_out_fp32(torch.bmm, x.mT, x)  # noqa: E731
+                same_out_ms = time_ms(yardstick)
                 library = "torch.bmm(x.mT, x, out_dtype=torch.float32)"
             del probe
+        library_device_ms = device_ms(yardstick, launches=None)
         bound_ms, bound_by = gram_bound(shape, dtype)
         timing[(shape, dtype)] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
             library_ms=same_out_ms if same_out_ms is not None else library_ms,
-            library=library, bmm_ms=library_ms)
+            library_device_ms=library_device_ms, library=library, bmm_ms=library_ms)
         emit("timing", shape=list(shape), dtype=dtype, kernel_ms=ms,
-             plain_ms=plain_ms, library_ms=timing[(shape, dtype)]["library_ms"],
-             library=library, bmm_ms=library_ms, bmm_fp32_out_ms=same_out_ms,
-             bmm_fp32_out_note=same_out_note, bound_ms=bound_ms,
-             bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
+             kernel_device_ms=kernel_device_ms, plain_ms=plain_ms,
+             library_ms=timing[(shape, dtype)]["library_ms"],
+             library_device_ms=library_device_ms, library=library, bmm_ms=library_ms,
+             bmm_fp32_out_ms=same_out_ms, bmm_fp32_out_note=same_out_note,
+             bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
+             device_roofline_share=bound_ms / kernel_device_ms, card=card)
         del x
+    gram_geometry(dev, gen)
 
     # 5a. the flagship step, 10 rounds, against the same step on the CPU
     step, (state, x) = dett.entry()
@@ -911,13 +996,14 @@ def main() -> int:
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     est = dett.OnlineDistributedPCA(cfg)
-    gram_mod.launches = 0
+    gram_mod.launches = gram_mod.launches_tma = 0
     t0 = time.perf_counter()
     est.fit(data)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = gram_mod.launches
     check(fit_launches == 1, f"fit: {fit_launches} Gram launches, want 1")
+    check(gram_mod.launches_tma == 1, "fit: the Gram launch did not take the TMA kernel")
     w = est.components_
     truth = torch.as_tensor(spec.top_k(k))
     angle = float(principal_angles_degrees(w.cpu(), truth).max())
@@ -958,6 +1044,7 @@ def main() -> int:
                 "max_abs_err": max_abs[(shape, dtype)], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],
                 "library": t["library"], "bmm_ms": t["bmm_ms"], "shape": list(shape)}
 
     def serve_row(name, route):

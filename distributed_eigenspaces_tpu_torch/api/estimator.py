@@ -5,10 +5,12 @@ api/estimator.py``, with the two trainers this port has: the whole-fit
 scan (``fit`` by default) and the per-step loop (``fit_stream``, or
 ``fit`` with per-step hooks). The reference's segmented, sketch, fleet
 and feature-sharded trainers, masked whole fits and checkpointing are
-not ported yet (ROADMAP.md Queue 1 items 9c, 9f and 15). Where the
-reference would send a configuration to its feature-sharded trainers
-(:func:`resolves_feature_sharded`), the estimator raises instead of
-fitting the dense state under that configuration's name.
+not ported yet (ROADMAP.md Queue 1 items 9c, 9e, 9f and 15). ``fit``
+resolves its trainer with the reference's rule (:func:`choose_trainer`);
+where that rule picks a trainer the port lacks (the segmented fit above
+``SCAN_STAGE_BYTES_MAX`` of staged schedule, the feature-sharded ones),
+the estimator raises before staging anything, instead of fitting under
+another trainer's name.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from distributed_eigenspaces_tpu_torch.algo.online import (
 from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
 from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
-from distributed_eigenspaces_tpu_torch.data.stream import block_stream
+from distributed_eigenspaces_tpu_torch.data.stream import block_stream, count_steps
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis
 from distributed_eigenspaces_tpu_torch.ops.serve_project import project_exact
@@ -33,6 +35,10 @@ TRAINERS = ("auto", "scan", "step")
 #: d*k above which the reference's ``backend="auto"`` whole fit takes the
 #: feature-sharded sketch trainer (its ``SKETCH_DK_CROSSOVER``)
 SKETCH_DK_CROSSOVER = 65536
+
+#: staged ``(T, m, n, d)`` bytes above which the reference's ``"auto"``
+#: whole fit takes its segmented trainer (its ``SCAN_STAGE_BYTES_MAX``)
+SCAN_STAGE_BYTES_MAX = 1 << 31  # 2 GiB
 
 
 def resolves_feature_sharded(cfg: PCAConfig, *, whole_fit: bool = True) -> bool:
@@ -56,6 +62,42 @@ def _refuse_feature_sharded(cfg: PCAConfig, *, whole_fit: bool) -> None:
             "reference's feature-sharded trainers, which are not ported to "
             "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item "
             "15); pass backend='local' for the dense single-device fit"
+        )
+
+
+def staged_bytes(cfg: PCAConfig) -> int:
+    """Bytes of the whole fit's staged ``(T, m, n, d)`` schedule in the
+    resolved stage dtype, as the reference counts them."""
+    itemsize = torch_dtype(cfg.resolved_stage_dtype()).itemsize
+    return (cfg.num_steps * cfg.num_workers * cfg.rows_per_worker * cfg.dim
+            * itemsize)
+
+
+def choose_trainer(cfg: PCAConfig, *, per_step_hooks: bool = False) -> str:
+    """The reference's trainer for a whole-dataset ``fit``
+    (``choose_trainer`` without checkpointing, which the port lacks):
+    ``"step"`` for per-step hooks; for the feature-sharded backend
+    ``"sketch"`` from ``dim * k >= SKETCH_DK_CROSSOVER`` on, else its
+    ``"scan"``; for the dense state ``"segmented"`` when the staged
+    schedule exceeds ``SCAN_STAGE_BYTES_MAX``, else ``"scan"``."""
+    if per_step_hooks:
+        return "step"
+    if resolves_feature_sharded(cfg):
+        return "sketch" if cfg.dim * cfg.k >= SKETCH_DK_CROSSOVER else "scan"
+    return "segmented" if staged_bytes(cfg) > SCAN_STAGE_BYTES_MAX else "scan"
+
+
+def _refuse_segmented(cfg: PCAConfig) -> None:
+    staged = staged_bytes(cfg)
+    if staged > SCAN_STAGE_BYTES_MAX:
+        raise NotImplementedError(
+            f"the whole fit stages {staged} bytes (T={cfg.num_steps}, "
+            f"m={cfg.num_workers}, n={cfg.rows_per_worker}, d={cfg.dim}, "
+            f"{cfg.resolved_stage_dtype()}), over SCAN_STAGE_BYTES_MAX = "
+            f"{SCAN_STAGE_BYTES_MAX}: the reference runs such fits on its "
+            "segmented trainer, which is not ported to "
+            "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item "
+            "9e); use trainer='step', or fewer steps per fit"
         )
 
 
@@ -95,14 +137,17 @@ class OnlineDistributedPCA:
         """Fit on ``(N, dim)`` data, streamed as ``num_steps`` blocks of
         ``num_workers x rows_per_worker`` rows. Starts fresh. Runs the
         whole-fit scan trainer unless per-step hooks (``on_step``,
-        ``worker_masks``) or ``trainer="step"`` ask for the per-step loop."""
+        ``worker_masks``) or ``trainer="step"`` ask for the per-step loop.
+        The scan stages the whole schedule on the device, in one
+        ``(T, m, n, d)`` tensor filled block by block; a schedule over
+        ``SCAN_STAGE_BYTES_MAX`` raises (the reference's segmented fit)."""
         self.state = None
         self._w = None
         cfg = self.cfg
         trainer = self.trainer
         hooks = on_step is not None or worker_masks is not None
         if trainer == "auto":
-            trainer = "step" if hooks else "scan"
+            trainer = choose_trainer(cfg, per_step_hooks=hooks)
         elif trainer == "scan" and hooks:
             raise NotImplementedError(
                 "on_step / worker_masks on the scan trainer (the masked "
@@ -117,19 +162,37 @@ class OnlineDistributedPCA:
             )
             return self.fit_stream(stream, on_step=on_step, worker_masks=worker_masks)
         _refuse_feature_sharded(cfg, whole_fit=True)
+        _refuse_segmented(cfg)
         self.trainer_used_ = "scan"
-        blocks = list(block_stream(
+        stage_dtype = torch_dtype(cfg.resolved_stage_dtype())
+        step_rows = cfg.num_workers * cfg.rows_per_worker
+        steps = count_steps(len(data), step_rows, num_steps=cfg.num_steps,
+                            remainder=cfg.remainder)
+        if not steps:
+            raise ValueError(
+                f"dataset yielded zero full steps ({len(data)} rows, one "
+                f"step needs {step_rows})"
+            )
+        # one allocation, each block copied into its slot as it is staged:
+        # the device holds the schedule plus one block at most
+        staged = torch.empty(
+            (steps, cfg.num_workers, cfg.rows_per_worker, cfg.dim),
+            dtype=stage_dtype, device=self.device,
+        )
+        filled = 0
+        for block in block_stream(
             data, num_workers=cfg.num_workers,
             rows_per_worker=cfg.rows_per_worker, num_steps=cfg.num_steps,
-            remainder=cfg.remainder, dtype=cfg.resolved_stage_dtype(),
-            device=self.device,
-        ))
-        if not blocks:
-            raise ValueError("dataset yielded zero full steps")
+            remainder=cfg.remainder, dtype=stage_dtype, device=self.device,
+        ):
+            staged[filled].copy_(block)
+            filled += 1
+        if filled != steps:
+            raise RuntimeError(f"staged {filled} steps, counted {steps}")
         fit = make_scan_fit(cfg, device=self.device, v0=self.v0, v_init=self.v_init)
         state, _ = fit(
             OnlineState.initial(cfg.dim, cfg.state_dtype, device=self.device),
-            torch.stack(blocks),
+            staged,
         )
         self.state = state
         self._w = extract_dense(cfg, state.sigma_tilde, v0=self.v0)

@@ -22,7 +22,8 @@
 // and what decides their time is how many bytes of x are in flight and how
 // often the basis is staged, not arithmetic.
 //
-// serve_split_kernel (det_serve_project, det_serve_project_i8):
+// serve_split_kernel (det_serve_project, det_serve_project_i8 and, with an
+// fp32 basis, det_serve_project_f32):
 //   - An item is S_ROWS = 4 rows over all of d and a tile of basis columns.
 //     Its d is cut into groups of 32 * VEC indices (one 16-byte load per
 //     lane: 4 fp32 or 8 bf16 values) and warp w walks groups w, w + 8,
@@ -43,7 +44,7 @@
 //   - A CTA stages its columns of the basis once, whole, in dynamic shared
 //     memory (61,440 bytes at d = 3072, k = 10; up to S_BASIS_WORDS words),
 //     each value rounded (fp32) or widened exactly (int8) to bf16 and packed
-//     two columns to a 32-bit word. A row's pairs sit side by side in an odd
+//     two columns to a 32-bit word (the fp32 route: see below). A row's pairs sit side by side in an odd
 //     number of words, in the lane-interleaved row order, so the 32 lanes
 //     read 32 banks and each (value, pair) is a constant offset from the
 //     lane's group base. A thread per basis row reads the tile's columns
@@ -53,7 +54,7 @@
 //     Coalesced 16-byte vectors of the whole basis, scattered pair by pair,
 //     were slower or no faster at every shape timed on an H100 (2,048 to
 //     65,536 rows; scripts/torch_profile_serve_staging.py, PERF.md), so
-//     there is one staging. Where the columns exceed S_BASIS_WORDS the
+//     there is one staging. Where the columns exceed the budget the
 //     basis is staged in d chunks of a multiple of the group size, per item.
 //   - Each lane keeps 4 x 2 * NP fp32 sums in registers (products of bf16
 //     values are exact in fp32). The lanes finish with a transpose-reduce
@@ -71,15 +72,21 @@
 // Ragged rows, d and k are masked (zeros in, nothing stored), so every shape
 // takes the kernel.
 //
-// serve_project_kernel (det_serve_project_f32) is no TPU kernel's port: the
-// JAX package computes the fp32 projection with XLA at Precision.HIGHEST. It
-// is the port's fixed-order fp32 route, so that a served row equals the
-// direct projection bit for bit on the card (a matmul library may pick
-// another algorithm for a padded bucket than for a 1-row query). One warp
-// owns RPW rows and walks all of d with 16-byte loads; the fp32 basis is
-// staged per block in d chunks of DC / 2 words per column; a fixed
-// xor-shuffle tree finishes each row. Its design is unchanged from its
-// first version; its times are in PERF.md.
+// The fp32 route (det_serve_project_f32, serve_split_kernel<float, kF32,
+// NP>) is no TPU kernel's port: the JAX package computes the fp32
+// projection with XLA at Precision.HIGHEST. It is the port's fixed-order
+// fp32 route, so that a served row equals the direct projection bit for bit
+// on the card (a matmul library may pick another algorithm for a padded
+// bucket than for a 1-row query), and the split kernel's row order gives
+// exactly that. Its basis is staged unrounded, a 32-bit word per value, a
+// row's 2 * NP values in 2 * NP + 1 words (odd, so the lanes still read 32
+// banks); x is never rounded; the sums are fp32 FMAs. Whole-k tiles at d =
+// 3072, k = 10 stage 33,792 words (135 KB), over S_BASIS_WORDS, so the fp32
+// route has its own budget, S_F32_BASIS_WORDS: such a CTA holds its whole
+// basis once, one CTA per SM, where restaging it per item in d chunks would
+// read the basis again for every 4 rows. Its bound is the bf16 routes'
+// (bytes: x read once); it replaces a first version that gave each warp 4
+// rows over all of d, 16 CTAs at 512 rows (times in PERF.md).
 //
 // C interface: each det_* function launches on the given stream, allocates
 // nothing, and returns cudaGetLastError(); det_serve_project_grid returns
@@ -98,19 +105,26 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_PAIRS = 8;                 // 16 columns per launch tile
-// the fp32 route (serve_project_kernel)
-constexpr int RPW = 4;                       // rows per warp
-constexpr int ROWS_PER_BLOCK = WARPS * RPW;  // 32
-constexpr int DC = 1024;                     // staged words per column pair
-// the bf16 and int8 routes (serve_split_kernel)
 constexpr int S_ROWS = 4;            // rows per item
 constexpr int S_GB = 2;              // groups per warp per load batch
 constexpr int S_BASIS_WORDS = 24576;  // staged basis words per CTA at most
+constexpr int S_F32_BASIS_WORDS = 49152;  // the same for the fp32 basis
 constexpr int S_MIN_CTAS = 2;        // resident CTAs per SM the registers allow
 constexpr int S_SPREAD_ITEMS = 264;  // items from which a tile takes all of k
 
 // how the basis is stored and staged
 enum Basis { kBf16 = 0, kI8 = 1, kF32 = 2 };
+
+// words a staged basis row (slot) takes: for bf16 and int8 the tile's NP
+// bf16 pairs, for fp32 its 2 * NP values, a word each; always an odd count
+__host__ __device__ constexpr int slot_words(int b, int np) {
+  return b == kF32 ? 2 * np + 1 : (np | 1);
+}
+
+// staged basis words per CTA at most
+__host__ __device__ constexpr int basis_budget(int b) {
+  return b == kF32 ? S_F32_BASIS_WORDS : S_BASIS_WORDS;
+}
 
 __device__ __forceinline__ float bf16_bits(uint32_t h) {
   return __uint_as_float(h << 16);
@@ -129,23 +143,8 @@ template <>
 struct XLoad<float> {
   static constexpr int VEC = 4;
   using Raw = float4;
-  // VEC values of one row from column `col` (zeros past d), for the fp32
-  // route, unrounded
-  __device__ __forceinline__ static void load(const float* __restrict__ row,
-                                              int d, int col, int vec_ok,
-                                              float out[VEC]) {
-    if (vec_ok && col + VEC <= d) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(row + col));
-      out[0] = t.x;
-      out[1] = t.y;
-      out[2] = t.z;
-      out[3] = t.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) out[e] = col + e < d ? row[col + e] : 0.f;
-    }
-  }
-  // the same, raw, streamed (read once)
+  // VEC values of one row from column `col` (zeros past d), streamed (read
+  // once)
   __device__ __forceinline__ static Raw raw(const float* __restrict__ row,
                                             int d, int col, int vec_ok) {
     if (vec_ok && col + VEC <= d)
@@ -163,6 +162,10 @@ struct XLoad<float> {
   // values 2i and 2i + 1 rounded to bf16, as one bf16 pair
   __device__ __forceinline__ static uint32_t pair(const Raw& t, int i) {
     return i == 0 ? bf16_pack(t.x, t.y) : bf16_pack(t.z, t.w);
+  }
+  // value e, unrounded (the fp32 route)
+  __device__ __forceinline__ static float value(const Raw& t, int e) {
+    return e == 0 ? t.x : e == 1 ? t.y : e == 2 ? t.z : t.w;
   }
 };
 
@@ -190,10 +193,11 @@ struct XLoad<uint16_t> {  // bf16 bits
 };
 
 // ---------------------------------------------------------------------------
-// serve_split_kernel: the bf16 and int8 routes
+// serve_split_kernel
 
-// The staged basis: column col0 + 2p + h of local row t (d index c0 + t) is
-// half h of word vs[slot(t) * (NP | 1) + p], where with G = 32 * VEC
+// The staged basis: with W = slot_words(B, NP), column col0 + 2p + h of
+// local row t (d index c0 + t) is half h of word vs[slot(t) * W + p] (bf16,
+// int8), or word vs[slot(t) * W + 2p + h] (fp32), where with G = 32 * VEC
 //   slot(t) = (t / G) * G + (t % VEC) * 32 + (t % G) / VEC,
 // the row that lane l meets as its e-th value of a group being slot
 // g * G + e * 32 + l. Each slot holds its row's pairs side by side, in an
@@ -206,12 +210,12 @@ __device__ __forceinline__ int slot(int t) {
 }
 
 // Stage basis rows [c0, c0 + nd), columns [col0, col0 + 2 * NP): a thread
-// per row, the tile's 2 * NP values of RU rows in flight, each pair written
-// whole (zeros past d and k), so no zero fill is needed.
+// per row, the tile's 2 * NP values of RU rows in flight, each pair (or
+// fp32 value) written whole (zeros past d and k), so no zero fill is needed.
 template <int B, int NP, int VEC>
 __device__ __forceinline__ void stage_cols(uint32_t* vs, const void* __restrict__ v,
                                            int k, int c0, int nd, int ds, int col0) {
-  constexpr int NPP = NP | 1;
+  constexpr int W = slot_words(B, NP);
   constexpr int RU = NP <= 2 ? 4 : 1;
   __syncthreads();  // every warp is done reading the previous chunk
   for (int t0 = threadIdx.x; t0 < ds; t0 += THREADS * RU) {
@@ -235,9 +239,15 @@ __device__ __forceinline__ void stage_cols(uint32_t* vs, const void* __restrict_
     for (int ru = 0; ru < RU; ++ru) {
       const int t = t0 + ru * THREADS;
       if (t < ds) {
+        if constexpr (B == kF32) {
 #pragma unroll
-        for (int p = 0; p < NP; ++p)
-          vs[slot<VEC>(t) * NPP + p] = bf16_pack(a[ru][2 * p], a[ru][2 * p + 1]);
+          for (int c = 0; c < 2 * NP; ++c)
+            vs[slot<VEC>(t) * W + c] = __float_as_uint(a[ru][c]);
+        } else {
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            vs[slot<VEC>(t) * W + p] = bf16_pack(a[ru][2 * p], a[ru][2 * p + 1]);
+        }
       }
     }
   }
@@ -264,39 +274,58 @@ __device__ __forceinline__ void load_batch(
   }
 }
 
-template <typename XT, int NP>
+template <typename XT, int B, int NP>
 __device__ __forceinline__ void fma_batch(
     float (&acc)[S_ROWS][2 * NP], typename XLoad<XT>::Raw (&xr)[S_ROWS][S_GB],
     const uint32_t* vs, int g, int g0, int g1, int lane) {
   using L = XLoad<XT>;
   constexpr int VEC = L::VEC;
   constexpr int G = 32 * VEC;
-  constexpr int NPP = NP | 1;
+  constexpr int W = slot_words(B, NP);
 #pragma unroll
   for (int b = 0; b < S_GB; ++b) {
     const int gb = g + b * WARPS;
     if (gb >= g1) break;
-    const uint32_t* vg = vs + ((gb - g0) * G + lane) * NPP;
+    const uint32_t* vg = vs + ((gb - g0) * G + lane) * W;
+    if constexpr (B == kF32) {  // fp32 x and basis, unrounded
 #pragma unroll
-    for (int i = 0; i < VEC / 2; ++i) {
-      uint32_t xw[S_ROWS];
-#pragma unroll
-      for (int r = 0; r < S_ROWS; ++r) xw[r] = L::pair(xr[r][b], i);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = 2 * i + h;
+      for (int e = 0; e < VEC; ++e) {
         float xv[S_ROWS];
 #pragma unroll
-        for (int r = 0; r < S_ROWS; ++r)
-          xv[r] = h ? __uint_as_float(xw[r] & 0xffff0000u) : bf16_bits(xw[r]);
+        for (int r = 0; r < S_ROWS; ++r) xv[r] = L::value(xr[r][b], e);
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
-          const uint32_t w = vg[e * 32 * NPP + p];
-          const float v0 = bf16_bits(w), v1 = __uint_as_float(w & 0xffff0000u);
+          const float v0 = __uint_as_float(vg[e * 32 * W + 2 * p]);
+          const float v1 = __uint_as_float(vg[e * 32 * W + 2 * p + 1]);
 #pragma unroll
           for (int r = 0; r < S_ROWS; ++r) {
             acc[r][2 * p] = fmaf(xv[r], v0, acc[r][2 * p]);
             acc[r][2 * p + 1] = fmaf(xv[r], v1, acc[r][2 * p + 1]);
+          }
+        }
+      }
+    } else {  // bf16 x values against bf16 pairs
+#pragma unroll
+      for (int i = 0; i < VEC / 2; ++i) {
+        uint32_t xw[S_ROWS];
+#pragma unroll
+        for (int r = 0; r < S_ROWS; ++r) xw[r] = L::pair(xr[r][b], i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * i + h;
+          float xv[S_ROWS];
+#pragma unroll
+          for (int r = 0; r < S_ROWS; ++r)
+            xv[r] = h ? __uint_as_float(xw[r] & 0xffff0000u) : bf16_bits(xw[r]);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const uint32_t w = vg[e * 32 * W + p];
+            const float v0 = bf16_bits(w), v1 = __uint_as_float(w & 0xffff0000u);
+#pragma unroll
+            for (int r = 0; r < S_ROWS; ++r) {
+              acc[r][2 * p] = fmaf(xv[r], v0, acc[r][2 * p]);
+              acc[r][2 * p + 1] = fmaf(xv[r], v1, acc[r][2 * p + 1]);
+            }
           }
         }
       }
@@ -331,9 +360,11 @@ __global__ void __launch_bounds__(THREADS, S_MIN_CTAS)
   constexpr int G = 32 * VEC;
   constexpr int KT = 2 * NP;
   constexpr int N = S_ROWS * KT;  // sums per lane per item, 8 * NP
+  constexpr int W = slot_words(B, NP);
+  static_assert(B != kF32 || sizeof(XT) == 4, "the fp32 basis takes fp32 x");
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* vs = smem;  // (NP | 1) * ds staged words
-  float* part = reinterpret_cast<float*>(smem + (NP | 1) * ds);  // [2][WARPS][N]
+  uint32_t* vs = smem;  // W * ds staged words
+  float* part = reinterpret_cast<float*>(smem + W * ds);  // [2][WARPS][N]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -365,7 +396,7 @@ __global__ void __launch_bounds__(THREADS, S_MIN_CTAS)
       for (int g = g0 + (warp - g0 % WARPS + WARPS) % WARPS; g < g1;
            g += WARPS * S_GB) {
         load_batch<XT>(xr, x, r0, rows, d, g, g1, lane, vec_ok);
-        fma_batch<XT, NP>(acc, xr, vs, g, g0, g1, lane);
+        fma_batch<XT, B, NP>(acc, xr, vs, g, g0, g1, lane);
       }
     }
     // lanes: halve over 16, 8, 4, then a butterfly over 2 and 1; the lane
@@ -405,15 +436,15 @@ __global__ void __launch_bounds__(THREADS, S_MIN_CTAS)
 }
 
 // d slots (rows) staged: all of d, rounded up to whole groups, or the
-// largest multiple of the group whose (np | 1) words a slot fit S_BASIS_WORDS
-__host__ __device__ constexpr int split_slots(int d, int np, int group) {
-  return ((d + group - 1) / group) * group <= (S_BASIS_WORDS / (np | 1)) / group * group
+// largest multiple of the group whose `words` words a slot fit `budget`
+__host__ __device__ constexpr int split_slots(int d, int words, int group, int budget) {
+  return ((d + group - 1) / group) * group <= (budget / words) / group * group
              ? ((d + group - 1) / group) * group
-             : (S_BASIS_WORDS / (np | 1)) / group * group;
+             : (budget / words) / group * group;
 }
 
-constexpr size_t split_smem(int np, int ds) {
-  return 4 * ((size_t)(np | 1) * ds + 2 * WARPS * S_ROWS * 2 * np);
+constexpr size_t split_smem(int np, int ds, int words) {
+  return 4 * ((size_t)words * ds + 2 * WARPS * S_ROWS * 2 * np);
 }
 
 std::mutex g_occ_lock;
@@ -455,9 +486,10 @@ int split_run(const void* x, const void* v, const float* scale, float* z,
               int rows, int d, int k, int vec_ok, cudaStream_t s, bool grid_only,
               int* grid_x) {
   constexpr int G = 32 * XLoad<XT>::VEC;
-  const int ds = split_slots(d, NP, G);
-  const size_t smem = split_smem(NP, ds);
-  const size_t smem_max = split_smem(NP, (S_BASIS_WORDS / (NP | 1)) / G * G);
+  constexpr int W = slot_words(B, NP);
+  const int ds = split_slots(d, W, G, basis_budget(B));
+  const size_t smem = split_smem(NP, ds, W);
+  const size_t smem_max = split_smem(NP, (basis_budget(B) / W) / G * G, W);
   const void* kern = reinterpret_cast<const void*>(&serve_split_kernel<XT, B, NP>);
   int sms = 0;
   const int per_sm = resident(kern, smem, smem_max, &sms);
@@ -517,147 +549,12 @@ int split_by_dtype(const void* x, const void* v, const float* scale, void* z,
   if (x_dtype == 0)
     return split_dispatch<float, B>(x, v, scale, out, rows, d, k, vec_ok, s,
                                     grid_only, grid_x);
-  if (x_dtype == 1)
-    return split_dispatch<uint16_t, B>(x, v, scale, out, rows, d, k, vec_ok, s,
-                                       grid_only, grid_x);
+  if constexpr (B != kF32) {
+    if (x_dtype == 1)
+      return split_dispatch<uint16_t, B>(x, v, scale, out, rows, d, k, vec_ok, s,
+                                         grid_only, grid_x);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
-// serve_project_kernel: the fixed-order fp32 route
-
-// Stage fp32 basis rows [c0, c0 + nd) and columns [col0, col0 + 2 * NP), a
-// word per column: column col0 + 2p + h to vs[(2p + h) * DC / 2 + slot],
-// with the row order of slot() above.
-template <int NP>
-__device__ __forceinline__ void stage_f32(uint32_t* vs, const float* __restrict__ v,
-                                          int k, int c0, int nd, int col0) {
-  constexpr int VEC = XLoad<float>::VEC;
-  constexpr int C = DC / 2;
-  for (int idx = threadIdx.x; idx < C * NP; idx += THREADS) {
-    const int t = idx / NP;
-    const int p = idx - t * NP;
-    const int j = col0 + 2 * p;
-    float a = 0.f, b = 0.f;
-    if (t < nd) {
-      const size_t off = (size_t)(c0 + t) * k + j;
-      if (j < k) a = v[off];
-      if (j + 1 < k) b = v[off + 1];
-    }
-    const int g = t / (32 * VEC);
-    const int w = t - g * 32 * VEC;
-    const int slot = g * 32 * VEC + (w % VEC) * 32 + w / VEC;
-    vs[(2 * p) * C + slot] = __float_as_uint(a);
-    vs[(2 * p + 1) * C + slot] = __float_as_uint(b);
-  }
-}
-
-template <typename XT, int B, int NP>
-__global__ void __launch_bounds__(THREADS)
-    serve_project_kernel(const XT* __restrict__ x, const void* __restrict__ v,
-                         const float* __restrict__ scale,
-                         float* __restrict__ z, int rows, int d, int k,
-                         int vec_ok) {
-  static_assert(B == kF32, "the bf16 and int8 routes take serve_split_kernel");
-  constexpr int VEC = XLoad<XT>::VEC;
-  constexpr int KT = 2 * NP;
-  constexpr int C = DC / 2;
-  __shared__ uint32_t vs[NP * DC];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * ROWS_PER_BLOCK + warp * RPW;
-  const int col0 = blockIdx.y * KT;
-
-  float acc[RPW][KT];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int j = 0; j < KT; ++j) acc[r][j] = 0.f;
-
-  for (int c0 = 0; c0 < d; c0 += C) {
-    const int nd = min(C, d - c0);
-    __syncthreads();  // every warp is done reading the previous chunk
-    stage_f32<NP>(vs, static_cast<const float*>(v), k, c0, nd, col0);
-    __syncthreads();
-    for (int g0 = 0; g0 < nd; g0 += 32 * VEC) {
-      const int col = c0 + g0 + lane * VEC;
-      float xv[RPW][VEC];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        if (row0 + r < rows) {
-          XLoad<XT>::load(x + (size_t)(row0 + r) * d, d, col, vec_ok, xv[r]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) xv[r][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const float v0 = __uint_as_float(vs[(2 * p) * C + g0 + e * 32 + lane]);
-          const float v1 = __uint_as_float(vs[(2 * p + 1) * C + g0 + e * 32 + lane]);
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            acc[r][2 * p] = fmaf(xv[r][e], v0, acc[r][2 * p]);
-            acc[r][2 * p + 1] = fmaf(xv[r][e], v1, acc[r][2 * p + 1]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      float s = acc[r][j];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      acc[r][j] = s;
-    }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = row0 + r;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const int c = col0 + j;
-        if (c >= k) continue;
-        z[(size_t)row * k + c] = acc[r][j];
-      }
-    }
-  }
-}
-
-int launch_f32(const void* x, const void* v, float* z, int rows, int d, int k,
-               int vec_ok, cudaStream_t s) {
-  const int np = min(MAX_PAIRS, (k + 1) / 2);
-  const dim3 grid((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
-                  (k + 2 * np - 1) / (2 * np));
-  const float* xt = static_cast<const float*>(x);
-#define DET_SERVE_CASE(N)                                          \
-  case N:                                                          \
-    serve_project_kernel<float, kF32, N><<<grid, THREADS, 0, s>>>( \
-        xt, v, nullptr, z, rows, d, k, vec_ok);                    \
-    break;
-  switch (np) {
-    DET_SERVE_CASE(1)
-    DET_SERVE_CASE(2)
-    DET_SERVE_CASE(3)
-    DET_SERVE_CASE(4)
-    DET_SERVE_CASE(5)
-    DET_SERVE_CASE(6)
-    DET_SERVE_CASE(7)
-    DET_SERVE_CASE(8)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef DET_SERVE_CASE
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -683,9 +580,19 @@ extern "C" int det_serve_project_i8(const void* x, const void* q,
                              d, k, x_dtype, vec_ok, stream, false, &gx);
 }
 
-// grid.x of the launch det_serve_project (basis 0) or det_serve_project_i8
-// (basis 1) makes on the current device for these shapes; a CUDA error as
-// a negative number.
+// As det_serve_project with fp32 x (rows, d) and fp32 v (d, k), neither
+// rounded: x @ v with every row summed in the same order at any row count.
+extern "C" int det_serve_project_f32(const void* x, const void* v, void* z,
+                                     int rows, int d, int k, int vec_ok,
+                                     void* stream) {
+  int gx = 0;
+  return split_by_dtype<kF32>(x, v, nullptr, z, rows, d, k, 0, vec_ok, stream,
+                              false, &gx);
+}
+
+// grid.x of the launch det_serve_project (basis 0), det_serve_project_i8
+// (basis 1) or det_serve_project_f32 (basis 2, fp32 x only) makes on the
+// current device for these shapes; a CUDA error as a negative number.
 extern "C" int det_serve_project_grid(int rows, int d, int k, int x_dtype,
                                       int basis) {
   int gx = 0;
@@ -696,14 +603,8 @@ extern "C" int det_serve_project_grid(int rows, int d, int k, int x_dtype,
   else if (basis == 1)
     rc = split_by_dtype<kI8>(nullptr, nullptr, nullptr, nullptr, rows, d, k,
                              x_dtype, 0, nullptr, true, &gx);
+  else if (basis == 2)
+    rc = split_by_dtype<kF32>(nullptr, nullptr, nullptr, nullptr, rows, d, k,
+                              x_dtype, 0, nullptr, true, &gx);
   return rc != 0 ? -rc : gx;
-}
-
-// As det_serve_project with fp32 x (rows, d) and fp32 v (d, k), neither
-// rounded: x @ v with every row summed in the same order at any row count.
-extern "C" int det_serve_project_f32(const void* x, const void* v, void* z,
-                                     int rows, int d, int k, int vec_ok,
-                                     void* stream) {
-  return launch_f32(x, v, static_cast<float*>(z), rows, d, k, vec_ok,
-                    static_cast<cudaStream_t>(stream));
 }

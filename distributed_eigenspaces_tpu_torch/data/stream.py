@@ -15,6 +15,19 @@ import torch
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 
 
+def count_steps(n_total: int, step_rows: int, *, num_steps: int | None = None,
+                remainder: str = "drop") -> int:
+    """How many blocks :func:`block_stream` yields from ``n_total`` rows at
+    ``step_rows`` rows a step: the full steps (at most ``num_steps``), plus
+    the zero-padded partial one under ``remainder="pad"``. Under
+    ``"error"`` a partial step is counted as none (the stream raises on
+    it)."""
+    full = n_total // step_rows
+    if num_steps is not None and full >= num_steps:
+        return num_steps
+    return full + (remainder == "pad" and n_total % step_rows != 0)
+
+
 def block_stream(
     data,
     *,

@@ -45,8 +45,10 @@ __all__ = [
 
 #: base symbols of the kernels whose wrappers record their launches
 RECORDED_KERNELS = (
-    "serve_split_kernel",  # ops/serve_project.py, bf16 and int8 routes
-    "serve_project_kernel",  # ops/serve_project.py, fp32 route
+    "serve_split_kernel",  # ops/serve_project.py, every route
+    "gram_bf16_tma_kernel",  # ops/gram.py, aligned bf16 x
+    "gram_bf16_kernel",  # ops/gram.py, other bf16 x
+    "gram_f32_kernel",  # ops/gram.py, fp32 x
     "matvec_gram_kernel",  # ops/matvec_gram.py
     "mutant_full_block_kernel",  # ops/mutant_full_block.py
 )

@@ -17,17 +17,19 @@ and k are masked in the kernel) and raises on anything else.
 
 :func:`serve_project_f32_cuda` is the port's fixed-order fp32 projection
 (``det_serve_project_f32``, no TPU kernel's port: the JAX package computes
-fp32 with XLA at ``Precision.HIGHEST``). Each row is summed in an order that
-depends on d alone, so a row served in a padded bucket equals its direct
-projection bit for bit; :func:`project_exact` routes both the engine's
-``"float32"`` projection and ``OnlineDistributedPCA.transform`` through it.
+fp32 with XLA at ``Precision.HIGHEST``): the same split kernel with the
+basis staged unrounded, fp32 x and fp32 sums. Each row is summed in an
+order that depends on (d, k) alone, so a row served in a padded bucket
+equals its direct projection bit for bit; :func:`project_exact` routes
+both the engine's ``"float32"`` projection and
+``OnlineDistributedPCA.transform`` through it.
 
 :func:`serve_project_launch` is the launch geometry all three make (grid,
-threads, shared memory, what one CTA owns, and for the bf16 and int8
-kernels the order in which each row is summed); each ``*_cuda`` wrapper
-records it (``ops/geometry.py``) for the analyzer. The bf16 and int8
-kernels run on a persistent grid that the card sizes from its occupancy
-(``det_serve_project_grid``); the wrapper resolves the record with it.
+threads, shared memory, what one CTA owns, and the order in which each row
+is summed); each ``*_cuda`` wrapper records it (``ops/geometry.py``) for
+the analyzer. The kernel runs on a persistent grid that the card sizes
+from its occupancy (``det_serve_project_grid``); the wrapper resolves the
+record with it.
 """
 
 from __future__ import annotations
@@ -60,13 +62,10 @@ THREADS = 256  # 8 warps
 MAX_PAIRS = 8  # column pairs per CTA: 16 columns of the basis
 #: the kernels tile k in grid.y blocks of 16 columns
 MAX_K = 65535 * 2 * MAX_PAIRS
-# the fp32 route (serve_project_kernel)
-ROWS_PER_BLOCK = 32  # 4 rows per warp
-DC = 1024  # staged words per column pair (d indices per chunk: DC / 2)
-# the bf16 and int8 routes (serve_split_kernel)
 S_ROWS = 4  # rows per item
 S_GB = 2  # d groups per warp per load batch
-S_BASIS_WORDS = 24576  # staged basis words per CTA at most
+S_BASIS_WORDS = 24576  # staged basis words per CTA at most (bf16, int8)
+S_F32_BASIS_WORDS = 49152  # the same for the fp32 basis
 S_MIN_CTAS = 2  # the kernel's __launch_bounds__ minimum of resident CTAs
 S_SPREAD_ITEMS = 264  # items (4-row groups) from which a column tile takes all of k
 
@@ -77,24 +76,31 @@ _XT = {torch.float32: "float", torch.bfloat16: "unsigned short"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
 
 
-def split_plan(rows: int, d: int, k: int, x_dtype=torch.float32) -> dict:
+def split_plan(rows: int, d: int, k: int, x_dtype=torch.float32,
+               basis: str = "bf16") -> dict:
     """The split kernel's plan for x ``(rows, d)`` of ``x_dtype`` and a
-    ``(d, k)`` basis, as its host code makes it (``split_np``,
-    ``split_slots``, ``split_smem``): column pairs per tile (all of k, up to
-    16 columns, from ``S_SPREAD_ITEMS`` 4-row items on; one pair below, so
-    that a small launch spreads over more SMs), the column tiles, the d
-    group (one 16-byte load per lane), the d slots (rows) staged at once,
-    each ``np | 1`` words wide, and the dynamic shared memory in bytes."""
+    ``(d, k)`` basis (``basis`` "bf16", "i8" or "f32"), as its host code
+    makes it (``split_np``, ``slot_words``, ``split_slots``,
+    ``split_smem``): column pairs per tile (all of k, up to 16 columns,
+    from ``S_SPREAD_ITEMS`` 4-row items on; one pair below, so that a small
+    launch spreads over more SMs), the column tiles, the d group (one
+    16-byte load per lane), the words a staged basis row takes (``np | 1``
+    bf16 pairs, or ``2 np + 1`` fp32 values), the d slots (rows) staged at
+    once within the route's budget, and the dynamic shared memory in
+    bytes."""
     items = -(-rows // S_ROWS)
     np_ = 1 if items < S_SPREAD_ITEMS else min(MAX_PAIRS, (k + 1) // 2)
     group = 32 * _VEC[x_dtype]
-    cap = S_BASIS_WORDS // (np_ | 1) // group * group
+    words = 2 * np_ + 1 if basis == "f32" else np_ | 1
+    budget = S_F32_BASIS_WORDS if basis == "f32" else S_BASIS_WORDS
+    cap = budget // words // group * group
     ds = min(-(-d // group) * group, cap)
-    return dict(np=np_, tiles=-(-k // (2 * np_)), group=group, ds=ds,
-                smem=4 * ((np_ | 1) * ds + 2 * WARPS * S_ROWS * 2 * np_))
+    return dict(np=np_, tiles=-(-k // (2 * np_)), group=group, words=words, ds=ds,
+                smem=4 * (words * ds + 2 * WARPS * S_ROWS * 2 * np_))
 
 
-def split_order(rows: int, d: int, k: int, x_dtype=torch.float32) -> tuple:
+def split_order(rows: int, d: int, k: int, x_dtype=torch.float32,
+                basis: str = "bf16") -> tuple:
     """The order in which the split kernel sums every output of a row, as
     data, walked as the kernel walks it for this launch: over the staged d
     chunks of :func:`split_plan` (whose size varies with the row count),
@@ -103,7 +109,7 @@ def split_order(rows: int, d: int, k: int, x_dtype=torch.float32) -> tuple:
     the lanes finish with the tree over lane offsets 16, 8, 4 (halving)
     then 2, 1 (butterfly), and the warps' partials are added in warp order.
     The row-order contract is that this is the same at every row count."""
-    p = split_plan(rows, d, k, x_dtype)
+    p = split_plan(rows, d, k, x_dtype, basis)
     group, ds = p["group"], p["ds"]
     groups = -(-d // group)
     walks = [[] for _ in range(WARPS)]
@@ -124,39 +130,15 @@ def split_order(rows: int, d: int, k: int, x_dtype=torch.float32) -> tuple:
 def serve_project_launch(rows: int, d: int, k: int, x_dtype=torch.float32,
                          basis: str = "bf16") -> KernelLaunch:
     """The launch ``det_serve_project*`` makes for x ``(rows, d)`` of
-    ``x_dtype`` and a ``(d, k)`` basis (``basis`` "bf16", "i8" or "f32").
-
-    "f32": grid ``(ceil(rows / 32), ceil(k / 16))`` of 256 threads, the
-    staged basis chunk as static shared memory; one CTA owns 32 rows of x
-    over all of d and a tile of at most 16 basis columns.
-
-    "bf16" / "i8": a persistent grid sized on the card (``grid_rule=
-    "occupancy"``: resident CTAs, at most one per item, by the column tiles
-    of :func:`split_plan`) of 256 threads, the staged basis and the warps'
-    partials as dynamic shared memory. A CTA declares per item: 4 rows of x
-    over all of d (split across its 8 warps), the basis columns it stages
-    once (or per d chunk where they do not fit) and the item's 4 rows of z;
-    ``order`` is :func:`split_order`."""
-    if basis != "f32":
-        return _split_launch(rows, d, k, x_dtype, basis)
-    np_ = min(MAX_PAIRS, (k + 1) // 2)
-    cols_cta = min(2 * np_, k)
-    rows_cta = min(ROWS_PER_BLOCK, rows)
-    return KernelLaunch(
-        kernel=f"serve_project_kernel<{_XT[x_dtype]}, {_BASIS[basis]}, {np_}>",
-        source="csrc/serve_project.cu",
-        grid=(-(-rows // ROWS_PER_BLOCK), -(-k // (2 * np_)), 1),
-        threads=THREADS,
-        dynamic_smem=0,
-        static_smem=4 * np_ * DC,  # uint32_t vs[NP * DC]
-        operands=(("x", (rows_cta, d)), ("v", (d, cols_cta)),
-                  ("v staged", (min(DC // 2, d), cols_cta)), ("z", (rows_cta, cols_cta))),
-    )
-
-
-def _split_launch(rows, d, k, x_dtype, basis) -> KernelLaunch:
-    """:func:`serve_project_launch` of the bf16 and int8 routes."""
-    p = split_plan(rows, d, k, x_dtype)
+    ``x_dtype`` and a ``(d, k)`` basis (``basis`` "bf16", "i8" or "f32";
+    "f32" takes fp32 x only): a persistent grid sized on the card
+    (``grid_rule="occupancy"``: resident CTAs, at most one per item, by the
+    column tiles of :func:`split_plan`) of 256 threads, the staged basis
+    and the warps' partials as dynamic shared memory. A CTA declares per
+    item: 4 rows of x over all of d (split across its 8 warps), the basis
+    columns it stages once (or per d chunk where they do not fit) and the
+    item's 4 rows of z; ``order`` is :func:`split_order`."""
+    p = split_plan(rows, d, k, x_dtype, basis)
     np_ = p["np"]
     cols_cta = min(2 * np_, k)
     rows_item = min(S_ROWS, rows)
@@ -173,21 +155,21 @@ def _split_launch(rows, d, k, x_dtype, basis) -> KernelLaunch:
         static_smem=0,
         operands=tuple(operands),
         grid_rule="occupancy",
-        order=split_order(rows, d, k, x_dtype),
+        order=split_order(rows, d, k, x_dtype, basis),
     )
 
 
 @functools.lru_cache(maxsize=1024)
 def _launch_on(device_index: int, rows: int, d: int, k: int, x_dtype,
                basis: str) -> KernelLaunch:
-    """:func:`serve_project_launch` of the bf16 or int8 route with the grid
-    the card sizes for it (``det_serve_project_grid`` on ``device_index``)."""
+    """:func:`serve_project_launch` with the grid the card sizes for it
+    (``det_serve_project_grid`` on ``device_index``)."""
     with torch.cuda.device(device_index):
         gx = _lib().det_serve_project_grid(rows, d, k, _X_CODES[x_dtype], _BASIS[basis])
     if gx < 1:
         raise RuntimeError(f"serve projection grid query failed: CUDA error {-gx}")
     launch = serve_project_launch(rows, d, k, x_dtype, basis)
-    return launch.resolved((gx, split_plan(rows, d, k, x_dtype)["tiles"], 1))
+    return launch.resolved((gx, split_plan(rows, d, k, x_dtype, basis)["tiles"], 1))
 
 
 def quantize_basis_i8(v: torch.Tensor, *, eps: float = 1e-12):
@@ -321,14 +303,15 @@ def serve_project_i8_cuda(x: torch.Tensor, q: torch.Tensor,
 
 
 def serve_project_f32_cuda(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``x @ v`` fp32 by the fixed-order kernel: x ``(rows, d)`` and v
-    ``(d, k)`` fp32, contiguous on one card; every row's bits depend on d
-    alone, never on how many rows share the launch."""
+    """``x @ v`` fp32 by the split kernel with an unrounded fp32 basis: x
+    ``(rows, d)`` and v ``(d, k)`` fp32, contiguous on one card; every
+    row's bits depend on (d, k) alone, never on how many rows share the
+    launch."""
     global launches_f32
     if x.dtype != torch.float32:
         raise ValueError(f"serve_project_f32_cuda takes float32 x, got {x.dtype}")
     rows, d, k, vec_ok = _check("serve_project_f32_cuda", x, v, torch.float32)
-    launch = serve_project_launch(rows, d, k, x.dtype, "f32")
+    launch = _launch_on(x.device.index, rows, d, k, x.dtype, "f32")
     z = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     _launch(_lib().det_serve_project_f32, x, x.data_ptr(), v.data_ptr(),
             z.data_ptr(), rows, d, k, vec_ok)

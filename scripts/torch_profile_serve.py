@@ -41,7 +41,7 @@ from torch_profile_fit import _union_seconds  # noqa: E402
 
 D, K = 3072, 10
 REGIONS = ("batch_compute",)
-SERVE_KERNELS = ("serve_split_kernel", "serve_project_kernel")
+SERVE_KERNELS = ("serve_split_kernel",)
 
 
 def emit(phase: str, **kw) -> None:

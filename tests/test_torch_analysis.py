@@ -37,6 +37,7 @@ from distributed_eigenspaces_tpu_torch.analysis import (
     report,
 )
 from distributed_eigenspaces_tpu_torch.ops import geometry
+from distributed_eigenspaces_tpu_torch.ops import gram as tgram
 from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
 from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as mfb
 from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
@@ -129,7 +130,9 @@ def test_serve_program_output_is_the_engine_projection():
     x, v = built.args
     assert torch.equal(built.output, x @ v)
     (launch,) = built.launches
-    assert launch.kernel == "serve_project_kernel<float, 2, 1>"
+    # the fp32 route: the split kernel with an fp32 basis, one column pair
+    assert launch.kernel == "serve_split_kernel<float, 2, 1>"
+    assert launch.grid_rule == "occupancy" and launch.order
 
 
 # -- the mutations -----------------------------------------------------------
@@ -245,41 +248,42 @@ def _constexprs(path: Path) -> dict:
 def test_serve_project_launch_uses_the_source_constants():
     src = CSRC / "serve_project.cu"
     c = _constexprs(src)
-    for name in ("WARPS", "THREADS", "MAX_PAIRS", "ROWS_PER_BLOCK", "DC", "S_ROWS",
-                 "S_GB", "S_BASIS_WORDS", "S_MIN_CTAS", "S_SPREAD_ITEMS"):
+    for name in ("WARPS", "THREADS", "MAX_PAIRS", "S_ROWS", "S_GB", "S_BASIS_WORDS",
+                 "S_F32_BASIS_WORDS", "S_MIN_CTAS", "S_SPREAD_ITEMS"):
         assert c[name] == getattr(sp, name), name
     text = src.read_text()
-    assert "__shared__ uint32_t vs[NP * DC];" in text
-    assert "serve_project_kernel<float, kF32, N><<<grid, THREADS, 0, s>>>" in text
     assert "serve_split_kernel<XT, B, NP><<<dim3(gx, tiles), THREADS, smem, s>>>" in text
     assert "__launch_bounds__(THREADS, S_MIN_CTAS)" in text
-    assert "return 4 * ((size_t)(np | 1) * ds + 2 * WARPS * S_ROWS * 2 * np);" in text
+    assert "return 4 * ((size_t)words * ds + 2 * WARPS * S_ROWS * 2 * np);" in text
+    assert "return b == kF32 ? 2 * np + 1 : (np | 1);" in text
+    assert "return b == kF32 ? S_F32_BASIS_WORDS : S_BASIS_WORDS;" in text
+    # the old fp32 kernel is gone: every route launches the split kernel
+    assert not re.search(r"\bserve_project_kernel\b", text) and "launch_f32" not in text
     for rows, d, k in ((256, 1024, 8), (1000, 3000, 10), (5, 1100, 19), (1, 1, 1),
                        (512, 30000, 10), (1056, 3072, 10), (65536, 2000, 33)):
         np_ = min(c["MAX_PAIRS"], (k + 1) // 2)
-        launch = sp.serve_project_launch(rows, d, k, torch.float32, "f32")
-        assert launch.grid == (math.ceil(rows / c["ROWS_PER_BLOCK"]),
-                               math.ceil(k / (2 * np_)), 1)
-        assert launch.grid[1] == math.ceil(k / 16)
-        assert launch.threads == c["THREADS"] == c["WARPS"] * 32
-        assert (launch.static_smem, launch.dynamic_smem) == (4 * np_ * c["DC"], 0)
-        assert launch.kernel == f"serve_project_kernel<float, 2, {np_}>"
-        # the split kernels: one column pair per tile below S_SPREAD_ITEMS
-        # 4-row items, so that small launches spread over more SMs
+        # one column pair per tile below S_SPREAD_ITEMS 4-row items, so that
+        # small launches spread over more SMs
         if math.ceil(rows / c["S_ROWS"]) < c["S_SPREAD_ITEMS"]:
             np_ = 1
-        for basis, code in (("bf16", 0), ("i8", 1)):
+        for basis, code in (("bf16", 0), ("i8", 1), ("f32", 2)):
+            words = 2 * np_ + 1 if basis == "f32" else np_ | 1
+            budget = c["S_F32_BASIS_WORDS" if basis == "f32" else "S_BASIS_WORDS"]
             for x_dtype, xt, vec in ((torch.float32, "float", 4),
                                      (torch.bfloat16, "unsigned short", 8)):
+                if basis == "f32" and x_dtype != torch.float32:
+                    continue  # the fp32 route takes fp32 x only
                 launch = sp.serve_project_launch(rows, d, k, x_dtype, basis)
-                assert sp.split_plan(rows, d, k, x_dtype)["tiles"] == math.ceil(k / (2 * np_))
+                plan = sp.split_plan(rows, d, k, x_dtype, basis)
+                assert plan["tiles"] == math.ceil(k / (2 * np_))
                 group = 32 * vec
-                ds = min(math.ceil(d / group) * group,
-                         c["S_BASIS_WORDS"] // (np_ | 1) // group * group)
+                ds = min(math.ceil(d / group) * group, budget // words // group * group)
+                assert (plan["ds"], plan["words"]) == (ds, words)
                 assert launch.kernel == f"serve_split_kernel<{xt}, {code}, {np_}>"
                 assert launch.grid is None and launch.grid_rule == "occupancy"
-                assert launch.threads == c["THREADS"] and launch.static_smem == 0
-                assert launch.dynamic_smem == 4 * ((np_ | 1) * ds + 2 * c["WARPS"]
+                assert launch.threads == c["THREADS"] == c["WARPS"] * 32
+                assert launch.static_smem == 0
+                assert launch.dynamic_smem == 4 * (words * ds + 2 * c["WARPS"]
                                                    * c["S_ROWS"] * 2 * np_)
                 ops = dict(launch.operands)
                 assert ops["x (item)"] == (min(c["S_ROWS"], rows), d)
@@ -293,6 +297,13 @@ def test_serve_project_launch_uses_the_source_constants():
     burst = sp.serve_project_launch(512, 3072, 10)
     assert burst.kernel == "serve_split_kernel<float, 0, 1>"
     assert burst.dynamic_smem == 4 * (3072 + 2 * 8 * 4 * 2)
+    # the fp32 route stages its whole unrounded (3072, 10) basis in 11 words
+    # a row, 135 KB, within its own budget; a full bucket 3 words a row
+    f32 = sp.serve_project_launch(65536, 3072, 10, basis="f32")
+    assert f32.kernel == "serve_split_kernel<float, 2, 5>"
+    assert f32.dynamic_smem == 4 * (11 * 3072 + 2 * 8 * 4 * 10) == 137728
+    assert sp.serve_project_launch(512, 3072, 10, basis="f32").dynamic_smem == 4 * (
+        3 * 3072 + 2 * 8 * 4 * 2)
     assert sp.serve_project_launch(8, 64, 2, torch.bfloat16).kernel == (
         "serve_split_kernel<unsigned short, 0, 1>")
 
@@ -338,8 +349,11 @@ def test_serve_split_order_is_the_same_at_every_row_count(d, k, x_dtype):
     butterfly = re.findall(r"__shfl_xor_sync\(0xffffffffu, s, (\d+)\)", body)
     lane_tree = tuple(int(n) for n in halving + butterfly)
     chunks = {sp.split_plan(rows, d, k, x_dtype)["ds"] for rows in (1, 7, 32, 512, 65536)}
+    bases = ("bf16", "i8", "f32") if x_dtype == torch.float32 else ("bf16", "i8")
+    chunks |= {sp.split_plan(rows, d, k, x_dtype, "f32")["ds"]
+               for rows in (1, 7, 32, 512, 65536) if x_dtype == torch.float32}
     orders = {sp.serve_project_launch(rows, d, k, x_dtype, basis).order
-              for rows in (1, 7, 32, 512, 65536) for basis in ("bf16", "i8")}
+              for rows in (1, 7, 32, 512, 65536) for basis in bases}
     assert len(orders) == 1, (chunks, orders)
     order = dict(orders.pop())
     groups = math.ceil(d / order["group"])
@@ -354,11 +368,10 @@ def test_serve_split_order_is_the_same_at_every_row_count(d, k, x_dtype):
     # what does vary with the row count, the staged chunk and the column
     # tiles, keeps whole groups and covers every column
     for rows in (1, 7, 32, 512, 65536):
-        plan = sp.split_plan(rows, d, k, x_dtype)
-        assert plan["ds"] % order["group"] == 0
-        assert plan["tiles"] * 2 * plan["np"] >= k > (plan["tiles"] - 1) * 2 * plan["np"]
-    # the fp32 route declares no order: its rows depend on d alone by design
-    assert sp.serve_project_launch(512, d, k, torch.float32, "f32").order == ()
+        for basis in bases:
+            plan = sp.split_plan(rows, d, k, x_dtype, basis)
+            assert plan["ds"] % order["group"] == 0
+            assert plan["tiles"] * 2 * plan["np"] >= k > (plan["tiles"] - 1) * 2 * plan["np"]
 
 
 def test_matvec_gram_launch_uses_the_source_constants():
@@ -379,6 +392,50 @@ def test_matvec_gram_launch_uses_the_source_constants():
     # the slice shape: 4 f tiles x 64 slabs of 192 rows, 192 row items
     plan = mg._plan(12288, 200, 58)
     assert (plan["ntile"], plan["nslab"], plan["slab_rows"], plan["nblk"]) == (4, 64, 192, 192)
+
+
+@pytest.mark.parametrize("m,n,d,dtype,aligned", [
+    (8, 1024, 3072, torch.bfloat16, True), (4, 128, 256, torch.float32, True),
+    (3, 1000, 3000, torch.bfloat16, True), (2, 37, 129, torch.bfloat16, True),
+    (2, 96, 64, torch.bfloat16, False), (1, 1, 1, torch.float32, True),
+    (5, 64, 136, torch.bfloat16, True)])
+def test_gram_launch_uses_the_source_constants(m, n, d, dtype, aligned):
+    """``gram_launch`` against ``csrc/gram.cu`` read as text: the tile and
+    stage constants, the shape rule that picks the kernel, and the launch
+    each kernel makes (the TMA kernel's persistent grid is sized on the
+    card; the others take one CTA per upper-triangle tile)."""
+    src = CSRC / "gram.cu"
+    c = _constexprs(src)
+    for name in ("TILE", "THREADS", "SMEM_BYTES", "T_BK", "T_STAGES", "T_THREADS",
+                 "T_SMEM_BYTES"):
+        assert c[name] == getattr(tgram, name), name
+    text = src.read_text()
+    assert "return dtype == 1 && aligned && d % 8 == 0;" in text
+    assert "gram_bf16_tma_kernel<<<gx, T_THREADS, T_SMEM_BYTES, s>>>" in text
+    assert "gram_f32_kernel<<<grid, THREADS, SMEM_BYTES, s>>>" in text
+    assert "gram_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>" in text
+    assert "const dim3 grid(tiles * (tiles + 1) / 2, 1, m);" in text
+    assert "__launch_bounds__(T_THREADS, 1)" in text and "pallas_gram.py" in text
+    launch = tgram.gram_launch(m, n, d, dtype, aligned)
+    tma = dtype == torch.bfloat16 and aligned and d % 8 == 0
+    assert tgram.takes_tma(d, dtype, aligned) == tma
+    if tma:
+        assert launch.kernel == "gram_bf16_tma_kernel"
+        assert launch.grid is None and launch.grid_rule == "occupancy"
+        assert (launch.threads, launch.dynamic_smem) == (c["T_THREADS"], c["T_SMEM_BYTES"])
+        ops = dict(launch.operands)
+        assert ops["x staged"] == (c["T_STAGES"] * c["T_BK"], 3 * c["TILE"])
+        assert ops["G block (item)"] == (min(128, d), min(256, d))
+        assert launch.resolved((132, 1, 1)).grid == (132, 1, 1)
+    else:
+        tiles = math.ceil(d / c["TILE"])
+        assert launch.kernel == ("gram_f32_kernel" if dtype == torch.float32
+                                 else "gram_bf16_kernel")
+        assert launch.grid == (tiles * (tiles + 1) // 2, 1, m)
+        assert (launch.threads, launch.dynamic_smem) == (c["THREADS"], c["SMEM_BYTES"])
+        assert dict(launch.operands)["G tile (item)"] == (min(128, d), min(128, d))
+    assert launch.static_smem == 0 and launch.source == "csrc/gram.cu"
+    assert launch.kernel in geometry.RECORDED_KERNELS
 
 
 def test_mutant_launch_uses_the_source_constants():
@@ -415,17 +472,17 @@ def test_recording_nests_and_sees_every_launch():
 
 
 def test_profiled_symbol_and_geometry_comparison():
-    name = ("void (anonymous namespace)::serve_project_kernel<float, 0, 4>"
-            "(float const*, void const*, float const*, float*, int, int, int, int)")
-    bases = {"serve_project_kernel", "matvec_gram_kernel"}
-    assert geometry._symbol(name, bases) == "serve_project_kernel<float, 0, 4>"
+    name = ("void (anonymous namespace)::serve_split_kernel<float, 2, 1>"
+            "(float const*, void const*, float const*, float*, int, int, int, int, int)")
+    bases = {"serve_split_kernel", "matvec_gram_kernel"}
+    assert geometry._symbol(name, bases) == "serve_split_kernel<float, 2, 1>"
     assert geometry._symbol("(anonymous namespace)::matvec_gram_kernel(float const*)",
                             bases) == "matvec_gram_kernel"
     assert geometry._symbol("void at::native::vectorized_elementwise_kernel<4>(int)",
                             bases) is None
-    launch = sp.serve_project_launch(256, 1024, 8, basis="f32")
-    ev = {"symbol": launch.kernel, "grid": (8, 1, 1), "block": (256, 1, 1),
-          "smem": 16384, "name": name}
+    launch = sp.serve_project_launch(256, 1024, 8, basis="f32").resolved((8, 4, 1))
+    ev = {"symbol": launch.kernel, "grid": (8, 4, 1), "block": (256, 1, 1),
+          "smem": launch.dynamic_smem, "name": name}
     assert geometry.geometry_mismatches([ev], [launch]) == []
     assert geometry.geometry_mismatches([ev, ev], [launch])  # one event too many
     assert geometry.geometry_mismatches([dict(ev, smem=0)], [launch])

@@ -9,7 +9,9 @@ nor the JAX package, so it also runs on a machine that has only PyTorch:
 
 Tolerances: the Gram kernel's relative Frobenius error against the plain
 version is at most 1e-5 for fp32 and 1e-4 for bf16 inputs (the same exact
-products, summed in another order); whole rounds on the card and on the
+products, summed in another order), and its output is exactly symmetric,
+whichever of its kernels the shape rule picks (bf16 with d % 8 == 0 on an
+aligned base: the TMA + wgmma kernel); whole rounds on the card and on the
 CPU agree to 1e-4 absolute in ``sigma_tilde`` and 0.05 degrees in bases.
 The serve kernels agree with their plain versions to 1e-5 relative (exact
 products of bf16-rounded operands, fp32 sums in another order), repeat
@@ -71,20 +73,45 @@ def _x(shape, seed=0):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "shape", [(4, 128, 256), (3, 1000, 3000), (2, 37, 129), (1, 1, 1)]
+    "shape", [(4, 128, 256), (3, 1000, 3000), (2, 37, 129), (1, 1, 1), (8, 1024, 3072),
+              (2, 100, 136), (1, 64, 8), (3, 65, 264)]
 )
 def test_gram_cuda_matches_plain(cuda_device, dtype, shape):
     x = _x(shape).to(device=cuda_device, dtype=getattr(torch, dtype))
-    before = tgram.launches
+    before = (tgram.launches, tgram.launches_tma)
+    tma = dtype == "bfloat16" and shape[2] % 8 == 0
+    assert tgram.takes_tma(shape[2], x.dtype, x.data_ptr() % 16 == 0) == tma
     got = tgram.gram_cuda(x)
     torch.cuda.synchronize()
-    assert tgram.launches == before + 1
+    assert (tgram.launches, tgram.launches_tma) == (before[0] + 1, before[1] + tma)
     want = tgram.gram_plain(x)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _rel(got, want) <= TOL[dtype]
     assert torch.equal(got, got.mT)
     unnormalized = tgram.gram_cuda(x, normalize=False)
     assert _rel(unnormalized, tgram.gram_plain(x, normalize=False)) <= TOL[dtype]
+
+
+def test_gram_misaligned_bf16_takes_the_mma_sync_kernel(cuda_device):
+    """The shape rule reads the base address too: a bf16 view 2 bytes off
+    a 16-byte boundary cannot be read by TMA, so it takes the mma.sync
+    kernel, with the same numbers; each launch notes its record."""
+    buf = _x((2 * 96 * 64 + 1,)).to(device=cuda_device, dtype=torch.bfloat16)
+    x = buf[1:].view(2, 96, 64)
+    assert x.data_ptr() % 16 == 2 and x.is_contiguous()
+    before = (tgram.launches, tgram.launches_tma)
+    with tgeo.recording() as rec:
+        got = tgram.gram_cuda(x)
+        aligned = tgram.gram_cuda(x.clone())
+    torch.cuda.synchronize()
+    assert (tgram.launches, tgram.launches_tma) == (before[0] + 2, before[1] + 1)
+    assert [r.kernel for r in rec] == ["gram_bf16_kernel", "gram_bf16_tma_kernel"]
+    assert rec[0] == tgram.gram_launch(2, 96, 64, torch.bfloat16, aligned=False)
+    assert rec[1] == tgram.gram_launch(2, 96, 64).resolved(rec[1].grid)
+    assert 1 <= rec[1].grid[0] <= 2  # at most one CTA per tile
+    want = tgram.gram_plain(x)
+    assert _rel(got, want) <= TOL["bfloat16"] and _rel(aligned, want) <= TOL["bfloat16"]
+    assert torch.equal(got, got.mT) and torch.equal(aligned, aligned.mT)
 
 
 def test_gram_auto_on_cuda_launches_or_raises(cuda_device):
@@ -165,15 +192,20 @@ def test_serve_kernels_match_plain(cuda_device, x_dtype, rows, d, k):
     assert torch.equal(tsp.serve_project_i8_cuda(pad, q, s)[:rows], got_i8)
 
 
-def _split_kernels(v):
-    """The bf16 and int8 serve kernels as ``x -> z`` on basis ``v``."""
+def _split_kernels(v, x_dtype=torch.bfloat16):
+    """The serve routes as ``x -> z`` on basis ``v``: bf16 and int8, and
+    for fp32 x the fp32 route too."""
     q, s = tsp.quantize_basis_i8(v)
-    return {
+    routes = {
         "bf16": (lambda a: tsp.serve_project_cuda(a, v),
                  lambda a: tsp.serve_project_plain(a, v)),
         "i8": (lambda a: tsp.serve_project_i8_cuda(a, q, s),
                lambda a: tsp.serve_project_i8_plain(a, q, s)),
     }
+    if x_dtype == torch.float32:
+        routes["f32"] = (lambda a: tsp.serve_project_f32_cuda(a, v),
+                         lambda a: tsp.serve_project_f32_plain(a, v))
+    return routes
 
 
 @pytest.mark.parametrize("d", [3072, 12288])
@@ -198,12 +230,32 @@ def test_serve_split_rows_keep_their_bits_in_any_launch(cuda_device, route, x_dt
         assert torch.equal(inner, full[4096][1001:1001 + rows]), rows
 
 
+@pytest.mark.parametrize("d", [3072, 12288])
+def test_serve_f32_rows_keep_their_bits_in_any_launch(cuda_device, d):
+    """The row-order contract of the fp32 route, which makes a served row
+    equal its direct projection: rows 1 to 512 alone give the bits they get
+    at the head of a 512- and of a 4096-row launch, and at an offset inside
+    the 4096-row one (one-pair tiles up to 512 rows, whole-k tiles at 4096;
+    at d = 12288 the whole-k basis is staged in d chunks per item)."""
+    x, v = _serve_operands(4096, d, 10, seed=19)
+    x, v = x.to(cuda_device), v.to(cuda_device)
+    full = {n: tsp.serve_project_f32_cuda(x[:n], v) for n in (512, 4096)}
+    assert _rel(full[4096], tsp.serve_project_f32_plain(x, v)) <= 1e-5
+    for rows in (1, 2, 3, 8, 64, 255, 300, 511, 512):
+        alone = tsp.serve_project_f32_cuda(x[:rows].contiguous(), v)
+        for n, z in full.items():
+            assert torch.equal(alone, z[:rows]), (rows, n)
+        inner = tsp.serve_project_f32_cuda(x[1001:1001 + rows].contiguous(), v)
+        assert torch.equal(inner, full[4096][1001:1001 + rows]), rows
+
+
 @pytest.mark.parametrize("rows", [301, 2048])
 @pytest.mark.parametrize("k", [1, 9, 10, 19, 33])
 @pytest.mark.parametrize("d", [1, 129, 1100, 3000, 3072, 12288])
 def test_serve_split_kernels_match_plain_and_repeat(cuda_device, d, k, rows):
-    """Both kernels, fp32 and bf16 x, against their plain versions at
-    ragged d and k: 1e-5 relative, and a second launch gives the same bits.
+    """The three routes (fp32 basis for fp32 x only) against their plain
+    versions at ragged d and k: 1e-5 relative, and a second launch gives
+    the same bits.
     At 301 rows every tile is one column pair; at 2048 rows a tile holds up
     to 16 columns (k = 19 and 33 take two and three, odd k a half-empty
     last pair), and at d = 12288 the basis is staged in d chunks per
@@ -212,7 +264,7 @@ def test_serve_split_kernels_match_plain_and_repeat(cuda_device, d, k, rows):
     v = _x((d, k), seed=18).to(cuda_device)  # d < k has no orthonormal basis
     for x_dtype in (torch.float32, torch.bfloat16):
         xd = x.to(device=cuda_device, dtype=x_dtype)
-        for route, (run, plain) in _split_kernels(v).items():
+        for route, (run, plain) in _split_kernels(v, x_dtype).items():
             got = run(xd)
             torch.cuda.synchronize()
             assert got.shape == (rows, k) and got.dtype == torch.float32
@@ -424,6 +476,7 @@ def test_profiled_launch_geometry_equals_the_records(cuda_device, tmp_path):
     q, s = tsp.quantize_basis_i8(v)
     c = _x((2000, 48), seed=14).to(cuda_device)
     w0 = _x((2000, 9), seed=15).to(cuda_device)
+    xg = _x((3, 200, 384), seed=16).to(device=cuda_device, dtype=torch.bfloat16)
     calls = [
         lambda: tsp.serve_project_cuda(x, v),
         lambda: tsp.serve_project_cuda(x.to(torch.bfloat16), v),
@@ -431,6 +484,9 @@ def test_profiled_launch_geometry_equals_the_records(cuda_device, tmp_path):
         lambda: tsp.serve_project_f32_cuda(x, v),
         lambda: tmg.matvec_gram_cuda(c, w0),
         lambda: tmfb.mutant_full_block_cuda(x[:256].contiguous(), v),
+        lambda: tgram.gram_cuda(xg),
+        lambda: tgram.gram_cuda(xg.float()),
+        lambda: tgram.gram_cuda(xg[:, :, :129].contiguous()),
     ]
     for call in calls:  # builds and first launches outside the window
         call()
@@ -447,11 +503,17 @@ def test_profiled_launch_geometry_equals_the_records(cuda_device, tmp_path):
         tsp.serve_project_launch(300, 1000, 10, torch.float32, "bf16").resolved(rec[0].grid),
         tsp.serve_project_launch(300, 1000, 10, torch.bfloat16, "bf16").resolved(rec[1].grid),
         tsp.serve_project_launch(300, 1000, 10, torch.float32, "i8").resolved(rec[2].grid),
-        tsp.serve_project_launch(300, 1000, 10, torch.float32, "f32"),
+        tsp.serve_project_launch(300, 1000, 10, torch.float32, "f32").resolved(rec[3].grid),
     ]
     # the persistent grid: at most one CTA per 4-row item, by column tiles
     tiles = tsp.split_plan(300, 1000, 10)["tiles"]
-    assert all(1 <= r.grid[0] <= 75 and r.grid[1:] == (tiles, 1) for r in rec[:3])
+    assert all(1 <= r.grid[0] <= 75 and r.grid[1:] == (tiles, 1) for r in rec[:4])
+    assert rec[6:] == [
+        tgram.gram_launch(3, 200, 384).resolved(rec[6].grid),
+        tgram.gram_launch(3, 200, 384, torch.float32),
+        tgram.gram_launch(3, 200, 129),
+    ]
+    assert 1 <= rec[6].grid[0] <= 18  # at most one CTA per tile: 3 workers x 6
     assert rec[4] == tmg.matvec_gram_launch(2000, 48, 9).resolved(rec[4].grid)
     assert rec[5] == tmfb.mutant_full_block_launch(256, 1000, 10)
     mutant = [e for e in events if e["symbol"] == "mutant_full_block_kernel"]

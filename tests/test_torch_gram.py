@@ -79,13 +79,33 @@ def test_gram_plain_bf16_is_not_rounded_to_bf16(rng):
 
 def test_gram_auto_cpu_takes_plain_without_launch(rng):
     x = torch.from_numpy(rng.standard_normal((2, 40, 24)).astype(np.float32))
-    before = tgram.launches
+    before = (tgram.launches, tgram.launches_tma)
     got = tgram.gram_auto(x)
-    assert tgram.launches == before
+    assert (tgram.launches, tgram.launches_tma) == before
     torch.testing.assert_close(got, tgram.gram_plain(x), rtol=0, atol=0)
+    xb = x.to(torch.bfloat16)  # a TMA shape on the card: still plain here
+    torch.testing.assert_close(tgram.gram_auto(xb), tgram.gram_plain(xb), rtol=0, atol=0)
+    assert (tgram.launches, tgram.launches_tma) == before
 
 
 def test_gram_cuda_refuses_cpu_tensor():
+    before = (tgram.launches, tgram.launches_tma)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgram.gram_cuda(torch.zeros((2, 8, 8)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgram.gram_cuda(torch.zeros((2, 8, 8), dtype=torch.bfloat16))
+    assert (tgram.launches, tgram.launches_tma) == before
+
+
+@pytest.mark.parametrize("d,dtype,aligned,tma", [
+    (3072, torch.bfloat16, True, True), (136, torch.bfloat16, True, True),
+    (129, torch.bfloat16, True, False), (3072, torch.bfloat16, False, False),
+    (3072, torch.float32, True, False), (1, torch.bfloat16, True, False)])
+def test_gram_shape_rule(d, dtype, aligned, tma):
+    """Which kernel a launch takes is decided from the shape, the dtype
+    and the base's alignment before the launch: bf16 rows TMA can read
+    (16-byte strides and base) take the TMA kernel."""
+    assert tgram.takes_tma(d, dtype, aligned) is tma
+    kernel = tgram.gram_launch(2, 64, d, dtype, aligned).kernel
+    assert (kernel == "gram_bf16_tma_kernel") is tma
 
