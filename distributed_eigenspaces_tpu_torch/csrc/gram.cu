@@ -34,12 +34,12 @@
 //     as MN-major (the transpose bits, allowed for 16-bit types), one group
 //     of products in flight while the next stage is awaited. The epilogue
 //     divides by `divisor` and stores each entry and its mirror straight
-//     from registers (st.global.cs: streamed, evicted first from L2, which
-//     keeps x); a diagonal tile stores its upper triangle and the mirror of
-//     it, so the output is symmetric whatever order the tensor core sums
-//     in. The producer is already loading the next item meanwhile.
+//     from registers; a diagonal tile stores its upper triangle and the
+//     mirror of it, so the output is symmetric whatever order the tensor
+//     core sums in. The producer is already loading the next item
+//     meanwhile.
 //     What stays exposed is the stores: on an NVIDIA H100 80GB HBM3 at
-//     700 W the products and loads alone take about two thirds of the
+//     700 W the products and loads alone take about three quarters of the
 //     kernel's time (scripts/torch_profile_gram.py, PERF.md). Staging the
 //     tile in shared memory for TMA stores costs ring stages, and measured
 //     slower in this design's trials, as did ping-pong warpgroups and
@@ -585,10 +585,10 @@ __global__ void __launch_bounds__(T_THREADS, 1)
     fence_acc(acc);
 
     // epilogue: accumulator i of this thread is G[w] entry (r, c), stored
-    // from registers (streamed past L1 and evicted first from L2, which
-    // keeps x) with its mirror (c, r); a diagonal tile stores its upper
-    // triangle and the mirror of it. The stores drain while the next
-    // item's products run.
+    // from registers with its mirror (c, r); a diagonal tile stores its
+    // upper triangle and the mirror of it. Plain write-back stores: the
+    // streaming hint (st.global.cs) and L1::no_allocate measured slower
+    // (scripts/torch_profile_gram.py).
     float* g = out + (size_t)w * d * d;
     const int rbase = i0 + wg * 64 + warp * 16 + (lane >> 2);
     const int cbase = j0 + 2 * (lane & 3);
@@ -601,16 +601,16 @@ __global__ void __launch_bounds__(T_THREADS, 1)
       const bool c1 = c + 1 < d;
       if (!(diag && i < 64)) {
         if (c1)
-          __stcs(reinterpret_cast<float2*>(g + (size_t)r * d + c), make_float2(v0, v1));
+          *reinterpret_cast<float2*>(g + (size_t)r * d + c) = make_float2(v0, v1);
         else
-          __stcs(g + (size_t)r * d + c, v0);
-        __stcs(g + (size_t)c * d + r, v0);
-        if (c1) __stcs(g + (size_t)(c + 1) * d + r, v1);
+          g[(size_t)r * d + c] = v0;
+        g[(size_t)c * d + r] = v0;
+        if (c1) g[(size_t)(c + 1) * d + r] = v1;
       } else {
-        if (c >= r) __stcs(g + (size_t)r * d + c, v0);
-        if (c1 && c + 1 >= r) __stcs(g + (size_t)r * d + c + 1, v1);
-        if (c > r) __stcs(g + (size_t)c * d + r, v0);
-        if (c1 && c + 1 > r) __stcs(g + (size_t)(c + 1) * d + r, v1);
+        if (c >= r) g[(size_t)r * d + c] = v0;
+        if (c1 && c + 1 >= r) g[(size_t)r * d + c + 1] = v1;
+        if (c > r) g[(size_t)c * d + r] = v0;
+        if (c1 && c + 1 > r) g[(size_t)(c + 1) * d + r] = v1;
       }
     }
   }

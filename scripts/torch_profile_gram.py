@@ -12,7 +12,10 @@ float32)`` (the call that writes the same fp32 output):
 - ``no_stores``: the epilogue stores nothing (the products and the loads);
 - ``no_mirror``: the epilogue stores each entry but not its mirror;
 - ``no_products``: the wgmma instructions are gone (the loads and the
-  stores of zeros).
+  stores of zeros);
+- ``streaming_stores`` / ``no_allocate_stores``: the same stores with the
+  streaming hint (``st.global.cs``) or ``L1::no_allocate``, where the
+  kernel makes plain write-back stores.
 
 Each is timed with CUDA events over 30 back-to-back launches, in three
 rounds that alternate the builds, and one JSON line per build gives the
@@ -28,6 +31,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -37,8 +41,18 @@ ROUNDS, REPS = 3, 30
 
 # text edits of csrc/gram.cu, each (old, new); every old must be present
 STORE_START = "      if (r >= d || c >= d) continue;"
-MIRROR = ("        __stcs(g + (size_t)c * d + r, v0);\n"
-          "        if (c1) __stcs(g + (size_t)(c + 1) * d + r, v1);\n")
+MIRROR = ("        g[(size_t)c * d + r] = v0;\n"
+          "        if (c1) g[(size_t)(c + 1) * d + r] = v1;\n")
+KERNEL_HEAD = "__global__ void __launch_bounds__(T_THREADS, 1)"
+NO_ALLOCATE = """__device__ __forceinline__ void st_na(float* p, float v) {
+  asm volatile("st.global.L1::no_allocate.f32 [%0], %1;" :: "l"(p), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_na(float2* p, float2 v) {
+  asm volatile("st.global.L1::no_allocate.v2.f32 [%0], {%1, %2};"
+               :: "l"(p), "f"(v.x), "f"(v.y) : "memory");
+}
+
+"""
 PRODUCT = ("        wgmma_m64n256k16(acc, sw128_desc(a + kk * 2048), "
            "sw128_desc(b + kk * 2048));")
 
@@ -59,15 +73,31 @@ def no_products(src: str) -> str:
                                 '"l"(sw128_desc(a)), "l"(sw128_desc(b)));')
 
 
+def hinted_stores(src: str, fn: str) -> str:
+    """Every epilogue store ``g[i] = v`` / ``*reinterpret_cast<float2*>(p)
+    = v`` as ``fn(g + i, v)`` / ``fn(reinterpret_cast<float2*>(p), v)``."""
+    src = re.sub(r"\*reinterpret_cast<float2\*>\((g \+ [^;]*?)\) = (make_float2\([^;]*\));",
+                 rf"{fn}(reinterpret_cast<float2*>(\1), \2);", src)
+    return re.sub(r"\bg\[(\(size_t\)[^\]]*)\] = (v[01]);", rf"{fn}(g + \1, \2);", src)
+
+
+def no_allocate_stores(src: str) -> str:
+    return hinted_stores(src.replace(KERNEL_HEAD, NO_ALLOCATE + KERNEL_HEAD, 1), "st_na")
+
+
 VARIANTS = {"kernel": lambda s: s, "no_stores": no_stores, "no_mirror": no_mirror,
-            "no_products": no_products}
+            "no_products": no_products,
+            "streaming_stores": lambda s: hinted_stores(s, "__stcs"),
+            "no_allocate_stores": no_allocate_stores}
 
 
 def build_copies(_build) -> dict:
     src = (_build.CSRC / "gram.cu").read_text()
-    for mark in (STORE_START, MIRROR, PRODUCT):
+    for mark in (STORE_START, MIRROR, PRODUCT, KERNEL_HEAD):
         if mark not in src:
             raise RuntimeError(f"gram.cu has no text {mark!r}")
+    if hinted_stores(src, "st").count("st(") != 8:
+        raise RuntimeError("gram.cu's epilogue stores are not the 8 the hints rewrite")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, edit in VARIANTS.items():
