@@ -17,7 +17,10 @@ exits non-zero without printing a result:
    card, fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10
    shape (8, 1024, 3072) and a ragged (3, 1000, 3000): relative Frobenius
    error <= 1e-5 (fp32) / 1e-4 (bf16), exactly symmetric; bf16 at these
-   shapes takes the TMA + wgmma kernel (``launches_tma``).
+   shapes takes the TMA + wgmma kernel (``launches_tma``). Then bf16 that
+   TMA cannot read, on the ``mma.sync`` kernel (``launches`` moves,
+   ``launches_tma`` does not), to the same tolerance: (3, 1000, 3001) and
+   the ragged shape on a base 2 bytes off a 16-byte boundary.
 4. timing: kernel, plain version, ``torch.bmm`` yardstick and the bound,
    with CUDA events (median of 25 after warm-up), and the device time of
    the kernel and of the yardstick under ``torch.profiler``; for bf16 x
@@ -98,7 +101,6 @@ from __future__ import annotations
 import collections
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +113,7 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 CIFAR = (8, 1024, 3072)
 ENTRY = (4, 128, 256)
 RAGGED = (3, 1000, 3000)
+GRAM_UNALIGNED_D = (3, 1000, 3001)  # d % 8 != 0: bf16 rows TMA cannot read
 GRAM_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram.cu"
 GRAM_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:57"
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
@@ -148,34 +151,11 @@ ANALYSIS_PROGRAMS = 4
 ANALYSIS_MUTATIONS = 5
 
 
-def ptxas_summary(log: str) -> list[dict]:
-    """Per kernel in an ``nvcc -Xptxas=-v`` log: its symbol (the mangled
-    name from the kernel's base name on, e.g. ``serve_split_kernelIfLi2ELi5EE``
-    for ``serve_split_kernel<float, 2, 5>``), registers, spill stores and
-    shared memory bytes, as ptxas reports them."""
-    out, cur = [], None
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1] if "'" in ln else ln
-            sym = name
-            for m in re.finditer(r"(?=(\d+))", name):  # every start of a length
-                start = m.start() + len(m.group(1))
-                ident = name[start:start + int(m.group(1))]
-                if ident.endswith("_kernel") and ident.isidentifier():
-                    rest = name[start + len(ident):]
-                    args = re.match(r"I\w*?EE", rest)
-                    sym = ident + (args.group(0) if args else "")
-                    break
-            cur = {"kernel": sym}
-            out.append(cur)
-        elif cur is not None:
-            for key, pat in (("registers", r"Used (\d+) registers"),
-                             ("spill_stores", r"(\d+) bytes spill stores"),
-                             ("smem", r"(\d+) bytes smem")):
-                m = re.search(pat, ln)
-                if m:
-                    cur[key] = int(m.group(1))
-    return out
+def ptxas_lines(log: str) -> list[str]:
+    """The lines of an ``nvcc -Xptxas=-v`` log that give, per kernel (its
+    ``Compiling entry function`` line), registers, spills and shared memory."""
+    keys = ("Compiling entry function", "spill stores", "Used ")
+    return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keys)]
 
 
 def emit(phase: str, **kw) -> None:
@@ -900,34 +880,41 @@ def main() -> int:
                                 ("build_matvec_gram", "matvec_gram", MG_SOURCE),
                                 ("build_mutant", "mutant_full_block", MUTANT_SOURCE)):
         info = _build.build_info[name]
-        kernels = ptxas_summary(info["log"])
         emit(phase, source=source, seconds=seconds, nvcc_seconds=info["seconds"],
-             ptxas=kernels,
-             spilling=[k["kernel"] for k in kernels if k.get("spill_stores")])
+             ptxas=ptxas_lines(info["log"]))
 
     # 3. parity on the card
     gen = torch.Generator(device=dev).manual_seed(0)
     max_abs = {}
-    for shape in (ENTRY, CIFAR, RAGGED):
-        for dtype in ("float32", "bfloat16"):
-            x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
-            before = (gram_mod.launches, gram_mod.launches_tma)
-            got = gram_mod.gram_cuda(x)
-            torch.cuda.synchronize()
-            tma = dtype == "bfloat16"  # every shape here has d % 8 == 0
-            check((gram_mod.launches, gram_mod.launches_tma) == (before[0] + 1, before[1] + tma),
-                  f"gram {shape} {dtype}: launch counters {before} did not move as the "
-                  f"shape rule says (TMA: {tma})")
-            want = gram_mod.gram_plain(x)
-            rel = rel_err(got, want)
-            err = float((got - want).abs().max().item())
-            max_abs[(shape, dtype)] = err
-            emit("parity", shape=list(shape), dtype=dtype, rel_frobenius=rel,
-                 max_abs_err=err, tol=TOL[dtype], tma_kernel=tma,
-                 symmetric=bool(torch.equal(got, got.mT)))
-            check(rel <= TOL[dtype], f"gram {shape} {dtype}: {rel} > {TOL[dtype]}")
-            check(torch.equal(got, got.mT), f"gram {shape} {dtype} is not symmetric")
-            del x, got, want
+    cases = [(shape, dtype, 0) for shape in (ENTRY, CIFAR, RAGGED)
+             for dtype in ("float32", "bfloat16")]
+    # bf16 that TMA cannot read takes the mma.sync kernel: d % 8 != 0, and
+    # a base 2 bytes off a 16-byte boundary
+    cases += [(GRAM_UNALIGNED_D, "bfloat16", 0), (RAGGED, "bfloat16", 1)]
+    for shape, dtype, offset in cases:
+        numel = shape[0] * shape[1] * shape[2]
+        flat = torch.randn(numel + offset, generator=gen, device=dev)
+        x = flat.to(getattr(torch, dtype))[offset:].view(shape)
+        del flat
+        before = (gram_mod.launches, gram_mod.launches_tma)
+        got = gram_mod.gram_cuda(x)
+        torch.cuda.synchronize()
+        tma = gram_mod.takes_tma(shape[2], x.dtype, x.data_ptr() % 16 == 0)
+        check(tma == (dtype == "bfloat16" and shape[2] % 8 == 0 and not offset),
+              f"gram {shape} {dtype} offset {offset}: the shape rule says TMA: {tma}")
+        check((gram_mod.launches, gram_mod.launches_tma) == (before[0] + 1, before[1] + tma),
+              f"gram {shape} {dtype}: launch counters {before} did not move as the "
+              f"shape rule says (TMA: {tma})")
+        want = gram_mod.gram_plain(x)
+        rel = rel_err(got, want)
+        err = float((got - want).abs().max().item())
+        max_abs[(shape, dtype, offset)] = err
+        emit("parity", shape=list(shape), dtype=dtype, base_offset_elements=offset,
+             rel_frobenius=rel, max_abs_err=err, tol=TOL[dtype], tma_kernel=tma,
+             symmetric=bool(torch.equal(got, got.mT)))
+        check(rel <= TOL[dtype], f"gram {shape} {dtype}: {rel} > {TOL[dtype]}")
+        check(torch.equal(got, got.mT), f"gram {shape} {dtype} is not symmetric")
+        del x, got, want
 
     # 4. timing
     timing = {}
@@ -1041,7 +1028,7 @@ def main() -> int:
         t = timing[(shape, dtype)]
         return {"name": name, "route": "cuda", "source": GRAM_SOURCE,
                 "replaces": GRAM_REPLACES, "launches": launches,
-                "max_abs_err": max_abs[(shape, dtype)], "ms": t["ms"],
+                "max_abs_err": max_abs[(shape, dtype, 0)], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],

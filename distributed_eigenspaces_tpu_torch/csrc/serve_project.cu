@@ -52,8 +52,9 @@
 //     conversion needs the values in registers, and a raw copy in shared
 //     memory would hold the fp32 basis's 123 KB beside the staged 61 KB.
 //     Coalesced 16-byte vectors of the whole basis, scattered pair by pair,
-//     were slower or no faster at every shape timed on an H100 (2,048 to
-//     65,536 rows; scripts/torch_profile_serve_staging.py, PERF.md), so
+//     were 6-38% slower at 2,048 rows and at d = 12288, and between 6%
+//     slower and 1% faster at 8,192 and 65,536 rows (NVIDIA H100 80GB
+//     HBM3, 700 W; scripts/torch_profile_serve_staging.py, PERF.md), so
 //     there is one staging. Where the columns exceed the budget the
 //     basis is staged in d chunks of a multiple of the group size, per item.
 //   - Each lane keeps 4 x 2 * NP fp32 sums in registers (products of bf16

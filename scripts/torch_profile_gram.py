@@ -19,27 +19,25 @@ float32)`` (the call that writes the same fp32 output):
 
 Each is timed with CUDA events over 30 back-to-back launches, in three
 rounds that alternate the builds, and one JSON line per build gives the
-rounds' ms per launch. The copies are built into ``build/torch_kernels/``
-(nvcc in parallel) and the port never loads them. It prints the card's
-name and power limit first, imports nothing of JAX or of the JAX package,
-needs a card, and exits non-zero without one.
+rounds' ms per launch. The copies are built by
+``scripts/torch_kernel_copies.py``. It prints the card's name and power
+limit first, imports nothing of JAX or of the JAX package, needs a card, and
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
 import re
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_kernel_copies as kc
+
 SHAPE = (8, 1024, 3072)
 ROUNDS, REPS = 3, 30
+SOURCE = "gram.cu"
 
-# text edits of csrc/gram.cu, each (old, new); every old must be present
 STORE_START = "      if (r >= d || c >= d) continue;"
 MIRROR = ("        g[(size_t)c * d + r] = v0;\n"
           "        if (c1) g[(size_t)(c + 1) * d + r] = v1;\n")
@@ -61,63 +59,33 @@ def no_stores(src: str) -> str:
     start = src.index(STORE_START)
     end = src.index("    }\n  }\n}\n", start)
     # keep the accumulators alive without storing them
-    return src[:start] + "      if (v0 == 1234.5f && v1 == 1234.5f) g[r] = v0;\n" + src[end:]
-
-
-def no_mirror(src: str) -> str:
-    return src.replace(MIRROR, "")
-
-
-def no_products(src: str) -> str:
-    return src.replace(PRODUCT, '        asm volatile("" : "+f"(acc[kk]) : '
-                                '"l"(sw128_desc(a)), "l"(sw128_desc(b)));')
+    return kc.edit(src, src[start:end],
+                   "      if (v0 == 1234.5f && v1 == 1234.5f) g[r] = v0;\n", SOURCE)
 
 
 def hinted_stores(src: str, fn: str) -> str:
     """Every epilogue store ``g[i] = v`` / ``*reinterpret_cast<float2*>(p)
     = v`` as ``fn(g + i, v)`` / ``fn(reinterpret_cast<float2*>(p), v)``."""
+    before = src
     src = re.sub(r"\*reinterpret_cast<float2\*>\((g \+ [^;]*?)\) = (make_float2\([^;]*\));",
                  rf"{fn}(reinterpret_cast<float2*>(\1), \2);", src)
-    return re.sub(r"\bg\[(\(size_t\)[^\]]*)\] = (v[01]);", rf"{fn}(g + \1, \2);", src)
+    out = re.sub(r"\bg\[(\(size_t\)[^\]]*)\] = (v[01]);", rf"{fn}(g + \1, \2);", src)
+    if out.count(f"{fn}(") - before.count(f"{fn}(") != 8:
+        raise RuntimeError(f"{SOURCE}'s epilogue stores are not the 8 the hints rewrite")
+    return out
 
 
-def no_allocate_stores(src: str) -> str:
-    return hinted_stores(src.replace(KERNEL_HEAD, NO_ALLOCATE + KERNEL_HEAD, 1), "st_na")
-
-
-VARIANTS = {"kernel": lambda s: s, "no_stores": no_stores, "no_mirror": no_mirror,
-            "no_products": no_products,
-            "streaming_stores": lambda s: hinted_stores(s, "__stcs"),
-            "no_allocate_stores": no_allocate_stores}
-
-
-def build_copies(_build) -> dict:
-    src = (_build.CSRC / "gram.cu").read_text()
-    for mark in (STORE_START, MIRROR, PRODUCT, KERNEL_HEAD):
-        if mark not in src:
-            raise RuntimeError(f"gram.cu has no text {mark!r}")
-    if hinted_stores(src, "st").count("st(") != 8:
-        raise RuntimeError("gram.cu's epilogue stores are not the 8 the hints rewrite")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edit in VARIANTS.items():
-        path = _build.BUILD_DIR / f"gram_profile_{name}.cu"
-        path.write_text(edit(src))
-        out = _build.BUILD_DIR / f"libgram_profile_{name}.so"
-        procs[name] = (out, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} copy:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.det_gram.argtypes = [ptr, ptr, i, i, i, i, ctypes.c_float, i, ptr]
-        lib.det_gram.restype = i
-        libs[name] = lib
-    return libs
+VARIANTS = {
+    "kernel": lambda s: s,
+    "no_stores": no_stores,
+    "no_mirror": lambda s: kc.edit(s, MIRROR, "", SOURCE),
+    "no_products": lambda s: kc.edit(
+        s, PRODUCT, '        asm volatile("" : "+f"(acc[kk]) : '
+                    '"l"(sw128_desc(a)), "l"(sw128_desc(b)));', SOURCE),
+    "streaming_stores": lambda s: hinted_stores(s, "__stcs"),
+    "no_allocate_stores": lambda s: hinted_stores(
+        kc.edit(s, KERNEL_HEAD, NO_ALLOCATE + KERNEL_HEAD, SOURCE), "st_na"),
+}
 
 
 def main(argv=None) -> int:
@@ -126,18 +94,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the results to this file")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("torch_profile_gram: needs a card", file=sys.stderr)
+    if not kc.require_card("torch_profile_gram"):
         return 2
-    sys.path.insert(0, ROOT)
-    from distributed_eigenspaces_tpu_torch.ops import _build
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    libs = build_copies(_build)
+    card = kc.card()
+    libs = kc.build("gram", VARIANTS, {"det_gram": [
+        kc.PTR, kc.PTR, kc.INT, kc.INT, kc.INT, kc.INT, kc.FLOAT, kc.INT, kc.PTR]})
     m, n, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
@@ -145,36 +108,20 @@ def main(argv=None) -> int:
     if not gram_mod.takes_tma(d, x.dtype, x.data_ptr() % 16 == 0):
         raise RuntimeError("the profile shape does not take the TMA kernel")
 
-    def launch(lib):
-        rc = lib.det_gram(x.data_ptr(), out.data_ptr(), m, n, d, 1, float(n), 1,
-                          torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
+    def launch(name):
+        kc.checked(libs[name].det_gram(x.data_ptr(), out.data_ptr(), m, n, d, 1, float(n), 1,
+                                       torch.cuda.current_stream().cuda_stream), name)
 
-    launch(libs["kernel"])
-    rel = float((out - gram_mod.gram_plain(x)).norm() / gram_mod.gram_plain(x).norm())
+    launch("kernel")
+    want = gram_mod.gram_plain(x)
+    rel = float((out - want).norm() / want.norm())
     if rel > 1e-4:
         raise RuntimeError(f"the unchanged copy is off by {rel}")
-
-    def ms(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / REPS
-
-    runs = {name: [] for name in (*libs, "bmm_fp32_out")}
-    for _ in range(ROUNDS):
-        for name, lib in libs.items():
-            runs[name].append(ms(lambda lib=lib: launch(lib)))
-        runs["bmm_fp32_out"].append(
-            ms(lambda: torch.bmm(x.mT, x, out_dtype=torch.float32)))
+    del want
+    fns = {name: (lambda name=name: launch(name)) for name in libs}
+    fns["bmm_fp32_out"] = lambda: torch.bmm(x.mT, x, out_dtype=torch.float32)
     results = []
-    for name, times in runs.items():
+    for name, times in kc.rounds(fns, ROUNDS, REPS).items():
         row = {"build": name, "shape": list(SHAPE), "ms_per_launch": times,
                "rounds": ROUNDS, "reps": REPS, "card": card}
         results.append(row)

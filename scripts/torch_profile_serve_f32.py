@@ -22,62 +22,35 @@ x, an orthonormal basis):
 Each build's rows must equal the unchanged build's (the order of every
 sum does not depend on the tile or the chunk). Times: CUDA events over 50
 back-to-back launches, three rounds alternating the builds; one JSON line
-per (build, rows). The copies are built into ``build/torch_kernels/``
-(nvcc in parallel) and the port never loads them. It prints the card's
-name and power limit first, imports nothing of JAX or of the JAX package,
-needs a card, and exits non-zero without one.
+per (build, rows). The copies are built by
+``scripts/torch_kernel_copies.py``. It prints the card's name and power
+limit first, imports nothing of JAX or of the JAX package, needs a card, and
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_kernel_copies as kc
+
 D, K = 3072, 10
 ROWS = (2048, 8192, 65536)
 ROUNDS, REPS = 3, 50
+SOURCE = "serve_project.cu"
 
 BUDGET = "constexpr int S_F32_BASIS_WORDS = 49152;"
 NP_LINE = "  const int np = split_np(rows, k);\n#define DET_SPLIT_CASE"
 VARIANTS = {
     "own_budget": lambda s: s,
-    "bf16_budget": lambda s: s.replace(BUDGET, "constexpr int S_F32_BASIS_WORDS = 24576;"),
-    "three_pairs": lambda s: s.replace(
-        NP_LINE, "  const int np = B == kF32 && split_np(rows, k) > 3 ? 3 : split_np(rows, k);\n"
-                 "#define DET_SPLIT_CASE"),
+    "bf16_budget": lambda s: kc.edit(
+        s, BUDGET, "constexpr int S_F32_BASIS_WORDS = 24576;", SOURCE),
+    "three_pairs": lambda s: kc.edit(
+        s, NP_LINE, "  const int np = B == kF32 && split_np(rows, k) > 3 ? 3 : "
+                    "split_np(rows, k);\n#define DET_SPLIT_CASE", SOURCE),
 }
-
-
-def build_copies(_build) -> dict:
-    src = (_build.CSRC / "serve_project.cu").read_text()
-    for mark in (BUDGET, NP_LINE):
-        if mark not in src:
-            raise RuntimeError(f"serve_project.cu has no text {mark!r}")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edit in VARIANTS.items():
-        path = _build.BUILD_DIR / f"serve_f32_profile_{name}.cu"
-        path.write_text(edit(src))
-        out = _build.BUILD_DIR / f"libserve_f32_profile_{name}.so"
-        procs[name] = (out, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} copy:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.det_serve_project_f32.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
-        lib.det_serve_project_f32.restype = i
-        libs[name] = lib
-    return libs
 
 
 def main(argv=None) -> int:
@@ -86,42 +59,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the results to this file")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("torch_profile_serve_f32: needs a card", file=sys.stderr)
+    if not kc.require_card("torch_profile_serve_f32"):
         return 2
-    sys.path.insert(0, ROOT)
-    from distributed_eigenspaces_tpu_torch.ops import _build
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    libs = build_copies(_build)
+    card = kc.card()
+    libs = kc.build("serve_project", VARIANTS, {"det_serve_project_f32": [
+        kc.PTR, kc.PTR, kc.PTR, kc.INT, kc.INT, kc.INT, kc.INT, kc.PTR]})
     gen = torch.Generator(device="cuda").manual_seed(0)
     v = torch.linalg.qr(torch.randn((D, K), generator=gen, device="cuda"))[0].contiguous()
-
-    def ms(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / REPS
-
     results = []
     for rows in ROWS:
         x = torch.randn((rows, D), generator=gen, device="cuda")
         outs = {name: torch.empty((rows, K), device="cuda") for name in libs}
 
-        def launch(name):
-            rc = libs[name].det_serve_project_f32(
+        def launch(name, x=x, outs=outs, rows=rows):
+            kc.checked(libs[name].det_serve_project_f32(
                 x.data_ptr(), v.data_ptr(), outs[name].data_ptr(), rows, D, K, 1,
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"{name}: launch failed, CUDA error {rc}")
+                torch.cuda.current_stream().cuda_stream), name)
 
         for name in libs:
             launch(name)
@@ -129,11 +82,8 @@ def main(argv=None) -> int:
         for name in libs:
             if not torch.equal(outs[name], outs["own_budget"]):
                 raise RuntimeError(f"{name} at {rows} rows: rows differ from the source's")
-        runs = {name: [] for name in libs}
-        for _ in range(ROUNDS):
-            for name in libs:
-                runs[name].append(ms(lambda name=name: launch(name)))
-        for name, times in runs.items():
+        fns = {name: (lambda name=name: launch(name)) for name in libs}
+        for name, times in kc.rounds(fns, ROUNDS, REPS).items():
             row = {"build": name, "rows": rows, "d": D, "k": K, "ms_per_launch": times,
                    "rounds": ROUNDS, "reps": REPS, "card": card}
             results.append(row)

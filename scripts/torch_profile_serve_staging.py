@@ -21,7 +21,9 @@ staging is not amortised), the bulk 65,536 rows (d = 3072, k = 10), and
 Each time is CUDA events over 100 back-to-back launches, in 7 rounds that
 alternate the two libraries; it prints the median and the range over the
 rounds, per launch, and fails if the two outputs differ in any bit. One
-JSON line per shape and basis.
+JSON line per shape and basis. The fp32 basis keeps ``stage_cols`` in both
+builds (the vector staging rounds to bf16). The copies are built by
+``scripts/torch_kernel_copies.py``.
 
 It imports nothing of JAX or of the JAX package, needs a card, and exits
 non-zero without one.
@@ -29,14 +31,13 @@ non-zero without one.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import os
 import statistics
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_kernel_copies as kc
+
+SOURCE = "serve_project.cu"
 SHAPES = ((2048, 3072, 10), (8192, 3072, 10), (65536, 3072, 10), (4096, 12288, 10))
 ROUNDS, REPS = 7, 100
 
@@ -182,10 +183,13 @@ STAGE = r"""template <int B, int NP, int VEC>
 __device__ __forceinline__ void stage(uint32_t* vs, const void* __restrict__ v,
                                       int d, int k, int c0, int nd, int ds,
                                       int col0, int tile) {
-  if (tile)
-    stage_tile<B, NP, VEC>(vs, v, k, (long long)d * k, c0, nd, ds);
-  else
-    stage_cols<B, NP, VEC>(vs, v, k, c0, nd, ds, col0);
+  if constexpr (B != kF32) {  // the vector staging rounds or widens to bf16
+    if (tile) {
+      stage_tile<B, NP, VEC>(vs, v, k, (long long)d * k, c0, nd, ds);
+      return;
+    }
+  }
+  stage_cols<B, NP, VEC>(vs, v, k, c0, nd, ds, col0);
 }
 
 """
@@ -210,57 +214,26 @@ def with_stage_tile(src: str) -> str:
     """``serve_project.cu`` with the vector staging put back."""
     for anchor, block in (("// Stage basis rows [c0, c0 + nd), columns [col0, col0 + 2 * NP): a",
                            STAGE_TILE), ("// x of one load batch:", STAGE)):
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"serve_project.cu has no single line {anchor!r}")
-        src = src.replace(anchor, block + anchor)
+        src = kc.edit(src, anchor, block + anchor, SOURCE)
     for old, new in EDITS:
-        if src.count(old) != 1:
-            raise RuntimeError(f"serve_project.cu has no single line {old!r}")
-        src = src.replace(old, new)
+        src = kc.edit(src, old, new, SOURCE)
     return src
-
-
-def _bind(lib) -> ctypes.CDLL:
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.det_serve_project.argtypes = [ptr, ptr, ptr, i, i, i, i, i, ptr]
-    lib.det_serve_project.restype = i
-    lib.det_serve_project_i8.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, ptr]
-    lib.det_serve_project_i8.restype = i
-    return lib
-
-
-def build_libraries(_build) -> dict:
-    """The source as it is and the copy with ``stage_tile``, built side by
-    side."""
-    src = with_stage_tile((_build.CSRC / "serve_project.cu").read_text())
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = _build.BUILD_DIR / "serve_project_stage_tile.cu"
-    path.write_text(src)
-    out = _build.BUILD_DIR / "libserve_project_stage_tile.so"
-    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out), str(path)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    stock = _build.load("serve_project")
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the stage_tile copy:\n{log}")
-    return {"stage_tile": _bind(ctypes.CDLL(str(out))), "stage_cols": _bind(stock)}
 
 
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch_profile_serve_staging: torch.cuda.is_available() is False; "
-              "needs a card", file=sys.stderr)
+    if not kc.require_card("torch_profile_serve_staging"):
         return 2
-    sys.path.insert(0, ROOT)
     import chip_smoke
-    from distributed_eigenspaces_tpu_torch.ops import _build
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
 
-    card = chip_smoke.card_line()
+    card = kc.card()
+    P, I = kc.PTR, kc.INT
+    libs = kc.build("serve_project", {"stage_cols": lambda s: s, "stage_tile": with_stage_tile},
+                    {"det_serve_project": [P, P, P, I, I, I, I, I, P],
+                     "det_serve_project_i8": [P, P, P, P, I, I, I, I, I, P]})
     dev = torch.device("cuda")
-    libs = build_libraries(_build)
     stream = torch.cuda.current_stream().cuda_stream
     for shape in SHAPES:
         rows, d, k = shape
@@ -277,24 +250,11 @@ def main() -> int:
                 else:
                     rc = lib.det_serve_project_i8(x.data_ptr(), q.data_ptr(), s.data_ptr(),
                                                   z[name].data_ptr(), rows, d, k, 0, 1, stream)
-                if rc != 0:
-                    raise RuntimeError(f"{name} {basis} launch failed: CUDA error {rc}")
+                kc.checked(rc, f"{name} {basis}")
 
-            times = {name: [] for name in libs}
-            for name in libs:
-                for _ in range(5):
-                    run(name)
-            torch.cuda.synchronize()
-            for _ in range(ROUNDS):
-                for name in libs:
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for _ in range(REPS):
-                        run(name)
-                    end.record()
-                    end.synchronize()
-                    times[name].append(start.elapsed_time(end) / REPS * 1e3)
+            fns = {name: (lambda name=name: run(name)) for name in libs}
+            times = {name: [t * 1e3 for t in ts]
+                     for name, ts in kc.rounds(fns, ROUNDS, REPS).items()}
             same = bool(torch.equal(z["stage_tile"], z["stage_cols"]))
             bound_ms, bound_by = chip_smoke.serve_bound(shape, basis)
             print(json.dumps({
