@@ -20,15 +20,19 @@ exits non-zero without printing a result:
    shapes takes the TMA + wgmma kernel (``launches_tma``). Then bf16 that
    TMA cannot read, on the ``mma.sync`` kernel (``launches`` moves,
    ``launches_tma`` does not), to the same tolerance: (3, 1000, 3001) and
-   the ragged shape on a base 2 bytes off a 16-byte boundary.
+   the ragged shape on a base 2 bytes off a 16-byte boundary. Then fp32 on
+   every tile edge and copy width of its shape rule (``F32_CASES``: d = 3001,
+   n = 1, a base 4 bytes off a 16-byte boundary), each launch recorded as
+   ``gram_launch`` says.
 4. timing: kernel, plain version, ``torch.bmm`` yardstick and the bound,
    with CUDA events (median of 25 after warm-up), and the device time of
    the kernel and of the yardstick under ``torch.profiler``; for bf16 x
    the yardstick is ``torch.bmm(..., out_dtype=float32)``, which writes the
    kernel's fp32 output, where this torch has it (the bf16-output ``bmm``
-   beside it). Then one CIFAR-shape bf16 launch under the launch recorder
-   and the profiler: its profiled grid, block and shared memory must equal
-   its ``gram_launch`` record.
+   beside it). Then one CIFAR-shape bf16 launch and one fp32 launch at the
+   entry and the CIFAR shape, each under the launch recorder and the
+   profiler: its profiled grid, block and shared memory must equal its
+   ``gram_launch`` record.
 5. slice: ``entry()``'s step 10 times (10 Gram launches), checked against
    the same step on the CPU; then ``OnlineDistributedPCA`` at the
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
@@ -64,11 +68,14 @@ exits non-zero without printing a result:
    fixed-order fp32 kernel, once per dispatch).
 9. parity_matvec_gram: the fused matvec + Gram kernel of the large-d
    solver against its plain version at (256, 64, 16), the slice shape
-   (12288, 200, 58) and a ragged (3000, 80, 13): relative Frobenius error
-   <= 1e-5 on ``w`` and ``g``, ``g`` exactly symmetric, two launches bit
-   for bit the same.
+   (12288, 200, 58) and a ragged (3000, 80, 13) (the resident plan) and at
+   (12288, 400, 58) and (4000, 37, 200) (the streamed plan): relative
+   Frobenius error <= 1e-5 on ``w`` and ``g``, ``g`` exactly symmetric, two
+   launches bit for bit the same, each launch on its plan's kernel.
 10. timing_matvec_gram: kernel, plain version, the ``torch.matmul``
-   yardstick and the bound at the slice shape.
+   yardstick (cuBLAS's three calls) and the bound at the slice shape, one
+   call with CUDA events and the device time of the kernel and of the
+   three calls under ``torch.profiler``.
 11. slice_dsolve: ``OnlineDistributedPCA`` with ``solver="distributed"``
    above the crossover at the ImageNet-patch shape (d=12288, k=50, m=4,
    n=2048, T=10, 16 cold / 1 warm iterations, bf16) on planted-spectrum
@@ -84,7 +91,8 @@ exits non-zero without printing a result:
    ragged (100, 1000, 5): relative Frobenius error <= 1e-5 (FFMA in index
    order against cuBLAS fp32).
 13. timing_mutant: kernel, plain version, ``torch.matmul`` and the byte
-   bound at (256, 1024, 8).
+   bound at (256, 1024, 8), one call with CUDA events and the device time
+   of the kernel and of ``torch.matmul``.
 14. analysis: the port's analyzer on the card (``run_analysis`` and
    ``run_mutation_report``, device cuda) under the launch recorder and
    ``torch.profiler``: the 4 programs honour their contracts, every profiled
@@ -114,6 +122,12 @@ CIFAR = (8, 1024, 3072)
 ENTRY = (4, 128, 256)
 RAGGED = (3, 1000, 3000)
 GRAM_UNALIGNED_D = (3, 1000, 3001)  # d % 8 != 0: bf16 rows TMA cannot read
+# fp32 on each tile edge and copy width of the shape rule (f32_tile,
+# f32_vec), as (shape, base offset in elements): edge 64 with 16-byte and
+# 4-byte copies (d % 4 != 0, ragged n); edge 128 with d % 4 != 0 and on an
+# unaligned base; edge 32 with n = 1; edge 32, 4-byte copies; one entry
+F32_CASES = (((8, 256, 512), 0), ((8, 100, 510), 0), (GRAM_UNALIGNED_D, 0), (RAGGED, 1),
+             ((2, 1, 300), 0), ((5, 37, 130), 0), ((1, 1, 1), 0))
 GRAM_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram.cu"
 GRAM_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:57"
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
@@ -140,7 +154,8 @@ MG_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/matvec_gram.cu"
 MG_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:337"
 MG_TOL = 1e-5
 MG_SLICE = (12288, 200, 58)  # C (d, m*k) and the oversampled iterate at k=50
-MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13))
+MG_STREAMED = (12288, 400, 58)  # eight workers' factors: the slab streams
+MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13), MG_STREAMED, (4000, 37, 200))
 DSOLVE = dict(dim=12288, k=50, num_workers=4, rows_per_worker=2048, num_steps=10)
 MUTANT_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/mutant_full_block.cu"
 MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
@@ -247,17 +262,17 @@ def serve_routes(sp, v, x_dtype="float32"):
     return routes if x_dtype == "float32" else routes[:2]
 
 
-def gram_geometry(dev, gen) -> None:
-    """One CIFAR-shape bf16 Gram launch under the launch recorder and the
-    profiler: the profiled event must have the grid, block and shared
-    memory of the launch's record (``gram_launch``, grid sized on the
-    card)."""
+def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernel: str) -> None:
+    """One Gram launch of ``shape`` and ``dtype`` under the launch recorder
+    and the profiler: the launch must take ``kernel`` and the profiled event
+    must have the grid, block and shared memory of the launch's record
+    (``gram_launch``, the TMA kernel's grid sized on the card)."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import geometry
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.randn(CIFAR, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
     gram_mod.gram_cuda(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -268,16 +283,17 @@ def gram_geometry(dev, gen) -> None:
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
     events = geometry.profiled_kernels(prof, geometry.RECORDED_KERNELS,
-                                       os.path.join(trace_dir, "chip_smoke_gram_trace.json"))
+                                       os.path.join(trace_dir, f"chip_smoke_{phase}_trace.json"))
     mismatches = geometry.geometry_mismatches(events, launches)
-    emit("gram_geometry", shape=list(CIFAR), recorded=[la.to_json() for la in launches],
+    emit(phase, shape=list(shape), dtype=dtype, recorded=[la.to_json() for la in launches],
          profiled=[{k: ev[k] for k in ("symbol", "grid", "block", "smem", "dur_us")}
                    for ev in events], geometry_mismatches=mismatches)
-    check(len(launches) == 1 and launches[0].kernel == "gram_bf16_tma_kernel",
-          f"gram geometry: recorded {[la.kernel for la in launches]}")
-    check(launches[0] == gram_mod.gram_launch(*CIFAR).resolved(launches[0].grid),
-          "gram geometry: the record is not gram_launch's")
-    check(not mismatches, f"gram geometry: profiled launch differs: {mismatches}")
+    check(len(launches) == 1 and launches[0].kernel == kernel,
+          f"{phase}: recorded {[la.kernel for la in launches]}, want {kernel}")
+    want = gram_mod.gram_launch(*shape, x.dtype)
+    check(launches[0] == (want if want.grid else want.resolved(launches[0].grid)),
+          f"{phase}: the record is not gram_launch's")
+    check(not mismatches, f"{phase}: profiled launch differs: {mismatches}")
 
 
 def parity_serve(dev) -> dict:
@@ -540,11 +556,10 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
 
 
 def matvec_gram_bound(shape) -> tuple[float, str]:
-    """Least time for one fused sweep: C read twice (pass 0 and pass 1), v
-    read once and w written once; 4*d*f*k + 2*d*k*k fp32 FLOP (the two
-    products and the Gram)."""
+    """Least time for one fused sweep: C and v read once, w and g written
+    once; 4*d*f*k + 2*d*k*k fp32 FLOP (the two products and the Gram)."""
     d, f, k = shape
-    bytes_s = (2 * d * f + 2 * d * k + k * k) * 4 / PEAK_BYTES_S
+    bytes_s = (d * f + 2 * d * k + k * k) * 4 / PEAK_BYTES_S
     ops_s = (4 * d * f * k + 2 * d * k * k) / PEAK_FLOPS["float32"]
     return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
 
@@ -568,13 +583,21 @@ def parity_matvec_gram(dev) -> float:
     import torch
     from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
 
+    from distributed_eigenspaces_tpu_torch.ops.geometry import recording
+
     worst = 0.0
+    plans = set()
     for seed, shape in enumerate(MG_PARITY):
         c, v = mg_operands(shape, dev, seed)
         before = mg.launches
-        w, g = mg.matvec_gram_cuda(c, v)
+        with recording() as rec:
+            w, g = mg.matvec_gram_cuda(c, v)
         torch.cuda.synchronize()
         check(mg.launches == before + 1, "matvec_gram: launch counter did not move")
+        plan = mg.matvec_gram_plan(*shape)
+        plans.add(plan["resident"])
+        check([r.kernel for r in rec] == [mg.matvec_gram_launch(*shape).kernel],
+              f"matvec_gram {shape}: recorded {[r.kernel for r in rec]}")
         pw, pg = mg.matvec_gram_plain(c, v)
         rel_w, rel_g = rel_err(w, pw), rel_err(g, pg)
         err = max(float((w - pw).abs().max()), float((g - pg).abs().max()))
@@ -582,13 +605,17 @@ def parity_matvec_gram(dev) -> float:
         repeat = bool(torch.equal(w, w2) and torch.equal(g, g2))
         symmetric = bool(torch.equal(g, g.mT))
         worst = max(worst, err)
-        emit("parity_matvec_gram", shape=list(shape), rel_frobenius_w=rel_w,
+        emit("parity_matvec_gram", shape=list(shape), kernel=rec[0].kernel,
+             resident=plan["resident"], grid=list(rec[0].grid),
+             dynamic_smem=rec[0].dynamic_smem, rel_frobenius_w=rel_w,
              rel_frobenius_g=rel_g, max_abs_err=err, tol=MG_TOL,
              g_symmetric=symmetric, repeat_bit_identical=repeat)
         check(rel_w <= MG_TOL and rel_g <= MG_TOL,
               f"matvec_gram {shape}: w {rel_w}, g {rel_g} > {MG_TOL}")
         check(symmetric, f"matvec_gram {shape}: g is not symmetric")
         check(repeat, f"matvec_gram {shape}: two launches differ")
+        del c, v, w, g, w2, g2, pw, pg
+    check(plans == {True, False}, f"matvec_gram parity ran plans {plans}, want both")
     return worst
 
 
@@ -605,14 +632,20 @@ def timing_matvec_gram(dev, card: str) -> dict:
         return w, w.T @ w
 
     ms = time_ms(lambda: mg.matvec_gram_cuda(c, v))
+    kernel_device_ms = device_ms(lambda: mg.matvec_gram_cuda(c, v))
     plain_ms = time_ms(lambda: mg.matvec_gram_plain(c, v))
     library_ms = time_ms(library)
+    library_device_ms = device_ms(library, launches=None)
     bound_ms, bound_by = matvec_gram_bound(MG_SLICE)
-    emit("timing_matvec_gram", shape=list(MG_SLICE), kernel_ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, library="torch.matmul(C, torch.matmul(C.T, v)) + w.T @ w",
-         bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    emit("timing_matvec_gram", shape=list(MG_SLICE),
+         kernel=mg.matvec_gram_launch(*MG_SLICE).kernel, kernel_ms=ms,
+         kernel_device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=library_ms,
+         library_device_ms=library_device_ms,
+         library="torch.matmul(C, torch.matmul(C.T, v)) + w.T @ w",
+         bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
+         device_roofline_share=bound_ms / kernel_device_ms, card=card)
+    return dict(ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def synced_s(fn):
@@ -770,14 +803,17 @@ def timing_mutant(dev, card: str) -> dict:
 
     x, v = serve_operands(MUTANT_AUDIT, dev, seed=22)
     ms = time_ms(lambda: mfb.mutant_full_block_cuda(x, v))
+    kernel_device_ms = device_ms(lambda: mfb.mutant_full_block_cuda(x, v))
     plain_ms = time_ms(lambda: mfb.mutant_full_block_plain(x, v))
     library_ms = time_ms(lambda: torch.matmul(x, v))
+    library_device_ms = device_ms(lambda: torch.matmul(x, v), launches=None)
     bound_ms, bound_by = mutant_bound(MUTANT_AUDIT)
-    emit("timing_mutant", shape=list(MUTANT_AUDIT), kernel_ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, library="torch.matmul(x, v), fp32", bound_ms=bound_ms,
-         bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    emit("timing_mutant", shape=list(MUTANT_AUDIT), kernel_ms=ms,
+         kernel_device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=library_ms,
+         library_device_ms=library_device_ms, library="torch.matmul(x, v), fp32",
+         bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms, card=card)
+    return dict(ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=library_device_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def analysis(dev, card: str) -> dict:
@@ -852,7 +888,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import distributed_eigenspaces_tpu_torch as dett
-    from distributed_eigenspaces_tpu_torch.ops import _build
+    from distributed_eigenspaces_tpu_torch.ops import _build, geometry
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
     from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 
@@ -891,15 +927,25 @@ def main() -> int:
     # bf16 that TMA cannot read takes the mma.sync kernel: d % 8 != 0, and
     # a base 2 bytes off a 16-byte boundary
     cases += [(GRAM_UNALIGNED_D, "bfloat16", 0), (RAGGED, "bfloat16", 1)]
+    cases += [(shape, "float32", offset) for shape, offset in F32_CASES]
+    f32_kernels = set()
     for shape, dtype, offset in cases:
         numel = shape[0] * shape[1] * shape[2]
         flat = torch.randn(numel + offset, generator=gen, device=dev)
         x = flat.to(getattr(torch, dtype))[offset:].view(shape)
         del flat
         before = (gram_mod.launches, gram_mod.launches_tma)
-        got = gram_mod.gram_cuda(x)
+        with geometry.recording() as rec:
+            got = gram_mod.gram_cuda(x)
         torch.cuda.synchronize()
-        tma = gram_mod.takes_tma(shape[2], x.dtype, x.data_ptr() % 16 == 0)
+        aligned = x.data_ptr() % 16 == 0
+        tma = gram_mod.takes_tma(shape[2], x.dtype, aligned)
+        want_launch = gram_mod.gram_launch(*shape, x.dtype, aligned)
+        check([r.kernel for r in rec] == [want_launch.kernel],
+              f"gram {shape} {dtype} offset {offset}: recorded {[r.kernel for r in rec]}, "
+              f"gram_launch says {want_launch.kernel}")
+        if dtype == "float32":
+            f32_kernels.add(want_launch.kernel)
         check(tma == (dtype == "bfloat16" and shape[2] % 8 == 0 and not offset),
               f"gram {shape} {dtype} offset {offset}: the shape rule says TMA: {tma}")
         check((gram_mod.launches, gram_mod.launches_tma) == (before[0] + 1, before[1] + tma),
@@ -910,11 +956,15 @@ def main() -> int:
         err = float((got - want).abs().max().item())
         max_abs[(shape, dtype, offset)] = err
         emit("parity", shape=list(shape), dtype=dtype, base_offset_elements=offset,
-             rel_frobenius=rel, max_abs_err=err, tol=TOL[dtype], tma_kernel=tma,
+             kernel=rec[0].kernel, grid=list(rec[0].grid), rel_frobenius=rel,
+             max_abs_err=err, tol=TOL[dtype], tma_kernel=tma,
              symmetric=bool(torch.equal(got, got.mT)))
         check(rel <= TOL[dtype], f"gram {shape} {dtype}: {rel} > {TOL[dtype]}")
         check(torch.equal(got, got.mT), f"gram {shape} {dtype} is not symmetric")
         del x, got, want
+    want_f32 = {f"gram_f32_kernel<{t}, {v}>" for t in gram_mod.F_TILES for v in (4, 1)}
+    check(f32_kernels == want_f32, f"fp32 parity took {sorted(f32_kernels)}, "
+                                   f"want every instance {sorted(want_f32)}")
 
     # 4. timing
     timing = {}
@@ -950,7 +1000,10 @@ def main() -> int:
              bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
              device_roofline_share=bound_ms / kernel_device_ms, card=card)
         del x
-    gram_geometry(dev, gen)
+    gram_geometry(dev, gen, CIFAR, "bfloat16", "gram_geometry", "gram_bf16_tma_kernel")
+    for shape in (ENTRY, CIFAR):
+        gram_geometry(dev, gen, shape, "float32", "gram_f32_geometry",
+                      gram_mod.gram_launch(*shape, torch.float32).kernel)
 
     # 5a. the flagship step, 10 rounds, against the same step on the CPU
     step, (state, x) = dett.entry()
@@ -1024,7 +1077,7 @@ def main() -> int:
     mutant_timing = timing_mutant(dev, card)
     analysis_launches = analysis(dev, card)
 
-    def row(name, shape, dtype, launches):
+    def row(name, shape, dtype, launches, also=()):
         t = timing[(shape, dtype)]
         return {"name": name, "route": "cuda", "source": GRAM_SOURCE,
                 "replaces": GRAM_REPLACES, "launches": launches,
@@ -1032,7 +1085,10 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],
-                "library": t["library"], "bmm_ms": t["bmm_ms"], "shape": list(shape)}
+                "library": t["library"], "bmm_ms": t["bmm_ms"], "shape": list(shape),
+                "kernel": gram_mod.gram_launch(*shape, getattr(torch, dtype)).kernel,
+                "at_shapes": [dict(timing[(other, dtype)], shape=list(other),
+                                   max_abs_err=max_abs[(other, dtype, 0)]) for other in also]}
 
     def serve_row(name, route):
         t = serve_timing[(SERVE_BULK, route)]
@@ -1052,7 +1108,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("gram_bf16", CIFAR, "bfloat16", fit_launches),
-        row("gram_fp32", ENTRY, "float32", entry_launches),
+        row("gram_fp32", ENTRY, "float32", entry_launches, also=(CIFAR,)),
         serve_row("serve_project_bf16", "bf16"),
         serve_row("serve_project_i8", "i8"),
         serve_row("serve_project_f32", "f32"),
@@ -1060,14 +1116,17 @@ def main() -> int:
          "replaces": MG_REPLACES, "launches": mg_launches, "max_abs_err": mg_err,
          "ms": mg_timing["ms"], "plain_ms": mg_timing["plain_ms"],
          "bound_ms": mg_timing["bound_ms"], "bound_by": mg_timing["bound_by"],
-         "library_ms": mg_timing["library_ms"], "shape": list(MG_SLICE)},
+         "library_ms": mg_timing["library_ms"], "device_ms": mg_timing["device_ms"],
+         "library_device_ms": mg_timing["library_device_ms"], "shape": list(MG_SLICE)},
         {"name": "mutant_full_block", "route": "cuda", "source": MUTANT_SOURCE,
          "replaces": MUTANT_REPLACES,
          "launches": analysis_launches["mutant_full_block"],
          "max_abs_err": mutant_err, "ms": mutant_timing["ms"],
          "plain_ms": mutant_timing["plain_ms"], "bound_ms": mutant_timing["bound_ms"],
          "bound_by": mutant_timing["bound_by"],
-         "library_ms": mutant_timing["library_ms"], "shape": list(MUTANT_AUDIT)},
+         "library_ms": mutant_timing["library_ms"], "device_ms": mutant_timing["device_ms"],
+         "library_device_ms": mutant_timing["library_device_ms"],
+         "shape": list(MUTANT_AUDIT)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel distributed_eigenspaces_tpu/ops/pallas_gram.py::
 // gram_pallas (kernel body _gram_kernel). That kernel ran a sequential
 // (d/bd, d/bd, n/bn) grid on one TensorCore, carrying the output tile in
-// VMEM across the innermost n axis. Here a CTA owns 128 x 128 output tiles
-// of one worker (the TMA kernel two at a time) and loops over n itself. Only the tiles with bj >= bi are
+// VMEM across the innermost n axis. Here a CTA owns square output tiles of
+// one worker (128 x 128 for bf16, the TMA kernel two at a time; 32 to 128
+// for fp32) and loops over n itself. Only the tiles with bj >= bi are
 // computed; each off-diagonal tile is written twice, as itself and as its
 // transpose, so the output is exactly symmetric by construction.
 //
@@ -47,13 +48,30 @@
 //   gram_bf16_kernel : every other bf16 shape. WMMA (mma.sync) 16x16x16
 //     bf16 products with fp32 accumulators, a 64x32 warp tile, eight warps
 //     per 128x128 tile, one CTA per tile, register-staged double buffer,
-//     element-by-element masked loads.
-//   gram_f32_kernel : fp32 x. FFMA on the CUDA cores in full fp32, an 8x8
-//     register tile per thread. TF32 is never used: the reference contracts
-//     fp32 at Precision.HIGHEST.
-// The last two write each tile through shared memory with a scalar loop,
-// the transpose the same way; their diagonal tiles are symmetric because
-// they sum the same products in the same order.
+//     element-by-element masked loads. It writes each tile through shared
+//     memory with a scalar loop, the transpose the same way; its diagonal
+//     tiles are symmetric because they sum the same products in the same
+//     order.
+//   gram_f32_kernel<T, VEC> : fp32 x. FFMA on the CUDA cores in full fp32;
+//     TF32 is never used: the reference contracts fp32 at
+//     Precision.HIGHEST. One CTA per upper-triangle T x T tile, a 16 x 16
+//     grid of threads each holding (T/16) x (T/16) accumulators. The tile
+//     edge T (128, 64 or 32) is a shape rule decided before the launch
+//     (f32_tile): the largest edge whose m * tiles (tiles + 1) / 2 CTAs
+//     fill the 132 SMs, else 32. At the entry shape (4, 128, 256) 128 x 128
+//     tiles gave 12 CTAs; 32 x 32 tiles give 144. The slabs of x arrive
+//     through a ring of F_STAGES cp.async stages of F_BK rows, one barrier
+//     per stage (four stages, or 32 rows a stage, measured slower on an
+//     NVIDIA H100 80GB HBM3 at 700 W; PERF.md); VEC = 4 copies 16 bytes
+//     (d % 4 == 0 on a 16-byte aligned base), VEC = 1 four (ragged d, an
+//     unaligned view), zero-filled past n and d either way. A diagonal tile loads one slab. The epilogue
+//     divides in registers and stores each entry and its mirror straight
+//     from registers (VEC: vector stores along a row, and along a column
+//     of the tile for the mirror); a diagonal tile stores its upper
+//     triangle and the mirror of it, so the output is exactly symmetric.
+//     What bounds it at the CIFAR-10 shape is the FFMA rate (1.15 ms at 67
+//     TFLOP/s); at the entry shape, where the bound is 0.5 us, the launch
+//     and the latency of the first stage.
 //
 // C interface: det_gram(...) launches on the given stream, allocates
 // nothing, and returns cudaGetLastError() (or cudaErrorInvalidValue when
@@ -77,15 +95,18 @@ constexpr int THREADS = 256;  // eight warps
 constexpr int EPI_LD = 132;   // epilogue tile row stride (floats)
 constexpr int EPI_BYTES = TILE * EPI_LD * 4;
 
-constexpr int F_BK = 8;       // fp32: rows of X per stage
 constexpr int B_BK = 32;      // bf16: rows of X per stage
 constexpr int B_LD = TILE + 8;  // bf16 slab row stride (elements)
 
-constexpr int F_LOOP_BYTES = 2 * 2 * F_BK * TILE * 4;
 constexpr int B_LOOP_BYTES = 2 * 2 * B_BK * B_LD * 2;
-constexpr int SMEM_BYTES = EPI_BYTES;  // the largest of the three
-static_assert(EPI_BYTES >= F_LOOP_BYTES && EPI_BYTES >= B_LOOP_BYTES,
-              "the epilogue tile reuses the loop's shared memory");
+constexpr int SMEM_BYTES = EPI_BYTES;  // gram_bf16_kernel's
+static_assert(EPI_BYTES >= B_LOOP_BYTES, "the epilogue tile reuses the loop's shared memory");
+
+// gram_f32_kernel: its own constants (the tile edge is a template argument)
+constexpr int F_THREADS = 256;  // a 16 x 16 grid of threads over the tile
+constexpr int F_BK = 16;        // rows of X per stage
+constexpr int F_STAGES = 2;     // stages in the cp.async ring (4 measured slower)
+constexpr int F_FILL = 132;     // CTAs that fill the card: the SMs of an H100
 
 // gram_bf16_tma_kernel: an item is two neighbouring tiles of a tile row,
 // (bi, bj) and (bi, bj + 1), 128 x 256 outputs
@@ -150,107 +171,193 @@ __device__ __forceinline__ void write_tile(const float* tile,
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-    gram_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    int n, int d, float divisor) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  float* As = smem;                    // [2][F_BK][TILE]
-  float* Bs = smem + 2 * F_BK * TILE;  // [2][F_BK][TILE]
+// -- gram_f32_kernel ---------------------------------------------------------
 
-  const int tiles = (d + TILE - 1) / TILE;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` (4 or 16) from src to shared dst; zeros where !ok
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool ok) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// W adjacent floats (W = 1, 2 or 4) as one shared-memory or global access
+template <int W>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (W == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (W == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+// One CTA per upper-triangle T x T tile (bi <= bj) of worker blockIdx.z.
+// Thread (tx, ty) of the 16 x 16 grid owns rows g * 16 VW + ty VW + e and
+// columns g * 16 VW + tx VW + e of the tile (g < TM / VW, e < VW), so each
+// warp's reads of a stage row are one broadcast and 16 adjacent vectors.
+template <int T, int VEC>
+__global__ void __launch_bounds__(F_THREADS, 2)
+    gram_f32_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int d,
+                    float divisor) {
+  constexpr int TM = T / 16;           // accumulators per thread along each axis
+  constexpr int VW = TM < 4 ? TM : 4;  // of them adjacent: one vector
+  constexpr int G = TM / VW;           // vectors per axis, 16 VW apart
+  constexpr int SLAB = F_BK * T;       // floats of one slab in a stage
+  constexpr int COPIES = 2 * SLAB / (F_THREADS * VEC);  // per thread per stage
+  static_assert(2 * SLAB % (F_THREADS * VEC) == 0 && SLAB % (32 * VEC) == 0,
+                "copies tile the stage, and a warp's lie in one slab");
+  extern __shared__ __align__(16) float fsm[];  // [F_STAGES][slab i, slab j]
+
+  const int tiles = (d + T - 1) / T;
   int bi, bj;
   tile_coords(blockIdx.x, tiles, bi, bj);
-  const int i0 = bi * TILE, j0 = bj * TILE;
+  const int i0 = bi * T, j0 = bj * T;
+  const bool diag = bi == bj;  // slab j is slab i: loaded once
   const float* xw = x + (size_t)blockIdx.z * n * d;
   float* ow = out + (size_t)blockIdx.z * d * d;
-
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-  float ra[4], rb[4];
   const int ktiles = (n + F_BK - 1) / F_BK;
+  const uint32_t ring = smem_u32(fsm);
 
+  // rows [kt F_BK, kt F_BK + F_BK) of x at columns i0.. and j0.. into stage
+  // kt % F_STAGES; zeros past n and d (with VEC = 4, d % 4 == 0, so a
+  // 16-byte copy lies wholly inside or wholly past d)
   auto load = [&](int kt) {
+    const uint32_t st = ring + (kt % F_STAGES) * (2 * SLAB * 4);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int idx = tid + r * THREADS;
-      const int row = idx >> 7;
-      const int col = idx & (TILE - 1);
-      const int gr = kt * F_BK + row;
-      const bool okr = gr < n;
-      ra[r] = (okr && i0 + col < d) ? xw[(size_t)gr * d + i0 + col] : 0.f;
-      rb[r] = (okr && j0 + col < d) ? xw[(size_t)gr * d + j0 + col] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int idx = tid + r * THREADS;
-      As[buf * F_BK * TILE + idx] = ra[r];
-      Bs[buf * F_BK * TILE + idx] = rb[r];
+    for (int q = 0; q < COPIES; ++q) {
+      const int e = (q * F_THREADS + tid) * VEC;
+      const int half = e / SLAB;
+      if (diag && half) continue;
+      const int row = (e - half * SLAB) / T, col = e % T;
+      const int gr = kt * F_BK + row, gc = (half ? j0 : i0) + col;
+      const bool ok = gr < n && gc < d;
+      cp_async<4 * VEC>(st + e * 4, ok ? xw + (size_t)gr * d + gc : x, ok);
     }
   };
 
-  load(0);
-  store(0);
-  __syncthreads();
+  float acc[TM][TM];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int b = 0; b < TM; ++b) acc[a][b] = 0.f;
+
+#pragma unroll
+  for (int kt = 0; kt < F_STAGES - 1; ++kt) {
+    if (kt < ktiles) load(kt);
+    cp_commit();
+  }
   for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < ktiles) load(kt + 1);
-    const float* A = As + cur * F_BK * TILE;
-    const float* B = Bs + cur * F_BK * TILE;
+    cp_wait<F_STAGES - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();          // everyone's, and stage kt - 1 is free
+    if (kt + F_STAGES - 1 < ktiles) load(kt + F_STAGES - 1);
+    cp_commit();
+    const float* A = fsm + (kt % F_STAGES) * 2 * SLAB;
+    const float* B = diag ? A : A + SLAB;
 #pragma unroll
     for (int k = 0; k < F_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(A + k * TILE + ty * 4);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(A + k * TILE + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(B + k * TILE + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(B + k * TILE + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float av[TM], bv[TM];
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+      for (int g = 0; g < G; ++g) {
+        load_vec<VW>(A + k * T + g * 16 * VW + ty * VW, av + g * VW);
+        load_vec<VW>(B + k * T + g * 16 * VW + tx * VW, bv + g * VW);
+      }
 #pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TM; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
     }
-    if (kt + 1 < ktiles) store(cur ^ 1);
-    __syncthreads();
   }
 
-  // epilogue: the loop's buffers are dead, reuse the shared memory
-  float* tile = smem;
+  // epilogue, from registers: block (ga, gb) of this thread is VW x VW
+  // entries at tile rows R0.. and columns C0..; entry (r, c) is stored at
+  // (r, c) and at (c, r). In a diagonal tile the blocks below the diagonal
+  // are left to their mirror, and a block on it stores its upper triangle
+  // and the mirror of that.
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int ri = (a < 4 ? 0 : 64) + ty * 4 + (a & 3);
+  for (int ga = 0; ga < G; ++ga) {
 #pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int cj = (b < 4 ? 0 : 64) + tx * 4 + (b & 3);
-      tile[ri * EPI_LD + cj] = acc[a][b];
-    }
-  }
-  __syncthreads();
-  write_tile(tile, ow, d, i0, j0, divisor);
-  if (bi != bj) {
-    __syncthreads();
+    for (int gb = 0; gb < G; ++gb) {
+      const int R0 = ga * 16 * VW + ty * VW, C0 = gb * 16 * VW + tx * VW;
+      if (diag && R0 > C0) continue;
+      float v[VW][VW];  // v[e][u]: entry (i0 + R0 + e, j0 + C0 + u)
 #pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int ri = (a < 4 ? 0 : 64) + ty * 4 + (a & 3);
+      for (int e = 0; e < VW; ++e)
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int cj = (b < 4 ? 0 : 64) + tx * 4 + (b & 3);
-        tile[cj * EPI_LD + ri] = acc[a][b];
+        for (int u = 0; u < VW; ++u) v[e][u] = acc[ga * VW + e][gb * VW + u] / divisor;
+      const int r0 = i0 + R0, c0 = j0 + C0;
+      if (diag && R0 == C0) {
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+#pragma unroll
+          for (int u = e; u < VW; ++u) {
+            const int r = r0 + e, c = c0 + u;
+            if (max(r, c) < d) {
+              ow[(size_t)r * d + c] = v[e][u];
+              if (u > e) ow[(size_t)c * d + r] = v[e][u];
+            }
+          }
+      } else if (VEC == 4) {  // d % VW == 0: a vector lies wholly inside or past d
+        if (c0 < d) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            if (r0 + e < d) store_vec<VW>(ow + (size_t)(r0 + e) * d + c0, v[e]);
+        }
+        if (r0 < d) {
+#pragma unroll
+          for (int u = 0; u < VW; ++u) {
+            float col[VW];
+#pragma unroll
+            for (int e = 0; e < VW; ++e) col[e] = v[e][u];
+            if (c0 + u < d) store_vec<VW>(ow + (size_t)(c0 + u) * d + r0, col);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+#pragma unroll
+          for (int u = 0; u < VW; ++u) {
+            const int r = r0 + e, c = c0 + u;
+            if (max(r, c) < d) {
+              ow[(size_t)r * d + c] = v[e][u];
+              ow[(size_t)c * d + r] = v[e][u];
+            }
+          }
       }
     }
-    __syncthreads();
-    write_tile(tile, ow, d, j0, i0, divisor);
   }
 }
 
@@ -374,10 +481,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // -- gram_bf16_tma_kernel ----------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
@@ -711,32 +814,69 @@ int launch_tma(const void* x, void* out, int m, int n, int d, float divisor,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the fp32 shape rule: the largest tile edge whose CTAs fill the card
+// (m * tiles (tiles + 1) / 2 >= F_FILL), else the smallest
+int f32_tile(int m, int d) {
+  for (int t = 128; t > 32; t /= 2) {
+    const long long tiles = (d + t - 1) / t;
+    if ((long long)m * (tiles * (tiles + 1) / 2) >= F_FILL) return t;
+  }
+  return 32;
+}
+
+// 16-byte copies and vector stores: rows of x and of the output 16-byte
+// aligned
+bool f32_vec(int d, int aligned) { return aligned && d % 4 == 0; }
+
+template <int T, int VEC>
+int launch_f32(const float* x, float* out, int m, int n, int d, float divisor,
+               cudaStream_t s) {
+  const int tiles = (d + T - 1) / T;
+  const dim3 grid(tiles * (tiles + 1) / 2, 1, m);
+  constexpr int smem = F_STAGES * 2 * F_BK * T * 4;  // the ring
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gram_f32_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  gram_f32_kernel<T, VEC><<<grid, F_THREADS, smem, s>>>(x, out, n, d, divisor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int T>
+int launch_f32_vec(const float* x, float* out, int m, int n, int d, float divisor,
+                   int aligned, cudaStream_t s) {
+  return f32_vec(d, aligned) ? launch_f32<T, 4>(x, out, m, n, d, divisor, s)
+                             : launch_f32<T, 1>(x, out, m, n, d, divisor, s);
+}
+
 }  // namespace
 
 // x: (m, n, d) contiguous, dtype 0 = fp32, 1 = bf16. out: (m, d, d) fp32,
 // 16-byte aligned. divisor: n for the normalized Gram, 1 otherwise.
 // aligned: x is 16-byte aligned. bf16 x that is aligned, with d % 8 == 0,
 // takes gram_bf16_tma_kernel (TMA reads it), other bf16 x gram_bf16_kernel,
-// fp32 x gram_f32_kernel.
+// fp32 x gram_f32_kernel<f32_tile(m, d), f32_vec(d, aligned) ? 4 : 1>.
 extern "C" int det_gram(const void* x, void* out, int m, int n, int d, int dtype,
                         float divisor, int aligned, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (takes_tma(dtype, d, aligned)) return launch_tma(x, out, m, n, d, divisor, s);
+  if (dtype == 0) {
+    const float* xf = static_cast<const float*>(x);
+    float* of = static_cast<float*>(out);
+    switch (f32_tile(m, d)) {
+      case 128: return launch_f32_vec<128>(xf, of, m, n, d, divisor, aligned, s);
+      case 64: return launch_f32_vec<64>(xf, of, m, n, d, divisor, aligned, s);
+      default: return launch_f32_vec<32>(xf, of, m, n, d, divisor, aligned, s);
+    }
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (d + TILE - 1) / TILE;
   const dim3 grid(tiles * (tiles + 1) / 2, 1, m);
-  if (dtype == 0) {
-    cudaFuncSetAttribute(gram_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    gram_f32_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), n, d, divisor);
-  } else if (dtype == 1) {
-    cudaFuncSetAttribute(gram_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    gram_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<float*>(out), n, d, divisor);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaFuncSetAttribute(gram_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM_BYTES);
+  gram_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+      static_cast<const uint16_t*>(x), static_cast<float*>(out), n, d, divisor);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -745,6 +885,7 @@ extern "C" int det_gram(const void* x, void* out, int m, int n, int d, int dtype
 extern "C" int det_gram_grid(int m, int n, int d, int dtype, int aligned) {
   (void)n;
   if (takes_tma(dtype, d, aligned)) return tma_grid(m, d);
-  const int tiles = (d + TILE - 1) / TILE;
+  const int edge = dtype == 0 ? f32_tile(m, d) : TILE;
+  const int tiles = (d + edge - 1) / edge;
   return tiles * (tiles + 1) / 2;
 }

@@ -12,42 +12,57 @@
 // launch run in no order on 132 SMs and nothing carries between them, so
 // both passes become reductions across blocks. This is one cooperative
 // launch (every block resident at once) in four phases, separated by grid
-// barriers:
+// barriers. d is cut into SLABS slabs of contiguous rows (fewer when d is
+// small), one per block on an H100, each slab staged in shared memory by
+// cp.async in chunks of RC rows:
 //
-//   A. items (slab of d rows, tile of 64 f indices): each writes the
-//      partial C_slab^T v_slab of its tile to the workspace;
-//   B. y = sum of the slab partials, one warp per entry of y;
-//   C. items (64 rows of d): each stages y in shared memory chunk by chunk,
-//      writes its rows of w = C y, keeps them in shared memory and writes
-//      the upper triangle of their Gram as a partial;
-//   D. g = sum of the row partials, one warp per upper entry, mirrored, so
-//      g is exactly symmetric.
+//   A. per slab: the partial C_slab^T v_slab (f, k'), staged whole in
+//      shared memory; the launch runs in clusters of PAIR = 2 blocks, and
+//      the two add their partials through distributed shared memory and
+//      write the sum to the workspace in one contiguous run;
+//   B. y = sum of the slab partials: each block stages every slab's piece
+//      of its run of entries (bulk 16-byte copies) and adds them up;
+//   C. per slab: y staged once per block; w_slab = C_slab y, its rows kept
+//      in shared memory and written out contiguously, and the upper
+//      triangle of their Gram summed into a (k', k') tile in shared memory,
+//      added to the pair's other tile and written to the workspace;
+//   D. g = sum of the slab partials, upper triangle, mirrored, so g is
+//      exactly symmetric.
 //
-// A warp adds its entry's partials lane by lane in index order and then
-// down a fixed xor-shuffle tree, so every sum has an order fixed by
-// (d, f, k') alone: no float atomics, and (w, g) is bit-identical from run
-// to run, as the sequential TPU kernel's is, whatever the grid size. All
-// products are FFMA on fp32 operands (never TF32). Ragged d, f and k' are
-// masked (zeros staged, nothing stored), so every shape takes the kernel;
-// k' above 64 runs as column chunks of 64 inside each item. Spreading the
-// two reductions over every warp matters: a version that left each to the
-// last block to finish (threadfence + counter) spent most of its time there,
-// one block waiting out the L2 latency once per partial (PERF.md).
+// Two plans, decided before the launch from (d, f, k') (make_plan):
+//   resident (matvec_gram_kernel<TR_RESIDENT>): the whole slab of C stays
+//     in shared memory across the grid barriers, so C is read from device
+//     memory once; phase C walks it in passes of WARPS * TR_RESIDENT rows.
+//   streamed (matvec_gram_kernel<TR_STREAMED>): where slab and y do not fit
+//     together, the slab goes through a ring of ST_STREAMED chunks, once in
+//     phase A (per pass over f and k') and again in phase C.
+// Every sum has an order fixed by (d, f, k'): rows of a slab in order (in
+// two or four interleaved runs added by a fixed shuffle tree), slabs in
+// order. No float atomics, so (w, g) is bit-identical from run to run
+// whatever the grid size. All products are FFMA on fp32 operands (never
+// TF32). Ragged d, f and k' are masked (zeros staged, nothing stored).
 //
 // What bounds it: at the slice shape (12288, 200, 58) the work is
 // 4 d f k' + 2 d k'^2 = 0.653 GFLOP, 9.75 us at 67 TFLOP/s fp32, against
-// 25.4 MB of bytes (C twice, v, w) = 7.6 us at 3.35 TB/s: operations, and
-// only just, so the launch, the three grid barriers and the load latency of
-// each item's staging weigh about as much as the arithmetic. This version
-// is a tiled CUDA-core kernel: float4 shared-memory reads into 4 x 4 (and
-// 8 x 2) fp32 register tiles, the next chunk of each item loaded into
-// registers while the current one is multiplied, no cp.async/TMA and no
-// tensor cores; its times are in PERF.md.
+// 15.5 MB of bytes (C once, v, w) = 4.6 us at 3.35 TB/s: operations. On the
+// card it is the shared-memory reads: one block of 8 warps per SM, each
+// lane of phases A and C holds a register tile (A: 2 quads of f by 3 groups
+// of 4 columns over one parity of the rows; C: 12 rows by 8 columns over a
+// quarter of f) fed by 16-byte reads, about 5 products per float read, and
+// the SM's shared memory delivers 32 floats a cycle against 128 FFMA
+// lanes. What else weighs, by copies of this file with parts removed
+// (NVIDIA H100 80GB HBM3, 700 W, PERF.md): the launch, three grid
+// barriers, the slab landing before phase A can start (waiting for it
+// chunk by chunk measured no faster than waiting for all of it), the
+// partials' traffic through L2, and stores: the partial of phase A stored
+// from the lanes' scattered tiles measured slower than the same bytes
+// staged and stored in one run (scripts/torch_profile_matvec_gram.py).
 //
 // C interface: det_matvec_gram_workspace() gives the scratch the caller
-// allocates and det_matvec_gram_grid() the grid (the occupancy query);
-// det_matvec_gram() makes one cooperative launch of that grid on the given
-// stream, allocates nothing and returns its CUDA error code.
+// allocates and det_matvec_gram_grid() the grid (the cluster occupancy
+// query); det_matvec_gram() makes one cooperative launch of that grid in
+// clusters of PAIR blocks on the given stream, allocates nothing and
+// returns its CUDA error code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,292 +75,593 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-
-// phase A: an item sums RC rows at a time into an FT x 64 tile (4 f
-// indices by 4 columns per thread)
-constexpr int A_FT = 64;
-constexpr int A_KC = 64;
-constexpr int A_RC = 32;
-constexpr int A_LOADS = A_RC * A_FT / THREADS;  // staged values per thread
-constexpr int A_TARGET_ITEMS = 264;  // two per SM on 132 SMs
-
-// phase C: an item writes R rows of w (8 rows by 2 columns per thread),
-// staging FC indices of f at a time
-constexpr int C_R = 64;
-constexpr int C_TR = 8;
-constexpr int C_KC = 64;
-constexpr int C_FC = 32;
-constexpr int C_CST = C_R + 4;  // row stride of the transposed C tile
-constexpr int C_LOADS = C_R * C_FC / THREADS;  // staged values per thread
+constexpr int SLABS = 132;        // slabs of d: one per SM of an H100
+constexpr int PAIR = 2;  // blocks of a cluster: their partials are added on chip
+static_assert(PAIR == 2, "a block adds its partial to its one partner's");
+constexpr int RC = 32;            // rows of a staged chunk
+constexpr int AQ = 2;             // phase A: a lane's f quads (4 indices each)
+constexpr int AC = 3;             // phase A: a lane's groups of 4 columns
+constexpr int TR_RESIDENT = 12;   // phase C rows per warp per pass (96-row passes)
+constexpr int TR_STREAMED = 4;    // streamed: one chunk per pass
+constexpr int ST_STREAMED = 2;    // streamed: chunks in the ring
+constexpr int SUM_MIN = 4 * SLABS;  // phases B, D stage 4 entries of every slab at least
 constexpr int SMEM_MAX = 232448;  // bytes a block may use on Hopper
 
-// each phase stages two tiles of one size, with the same index split
-static_assert(A_KC == A_FT && C_KC == C_R, "staged tiles differ in size");
+static_assert(WARPS * TR_STREAMED == RC, "a streamed pass is one chunk");
+
+__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+
+// row stride (floats) of the pass's rows of w in shared memory: kp padded
+// to 16 modulo 32, so that the Gram update's two lanes of a tile, on rows
+// r and r + 1, read 16 banks apart
+__host__ __device__ __forceinline__ int wstride(int kp) { return kp + ((16 - kp) % 32 + 32) % 32; }
 
 struct Plan {
-  int ntile;      // f tiles of phase A
-  int nslab;      // d slabs of phase A
-  int slab_rows;  // rows per slab (a multiple of A_RC)
-  int nblk;       // row items of phase C
-  size_t off_part, off_gpart, bytes;  // workspace layout (y first)
-  size_t smem;    // dynamic shared memory
+  int fp, kp;      // f and k' padded to multiples of 4 (shared-memory rows)
+  int rows;        // rows of d per slab
+  int nslab;       // slabs
+  int npart;       // partials: one per pair of slabs
+  int nchunk;      // chunks of RC rows in a slab
+  int resident;    // 1: the slab stays in shared memory; 0: streamed
+  int stages;      // chunks the ring holds
+  size_t smem;     // dynamic shared memory (bytes)
+  size_t off_part, off_gpart, bytes;  // workspace: y, then the partials
 };
 
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
-__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+
+// floats of the region after the C ring: the v ring and the slab's partial
+// in phase A, the staged partials in phases B and D, y, a pass's rows of w
+// and the Gram tile in phase C
+__host__ __device__ __forceinline__ int room_floats(int fp, int kp, int stages, int tr) {
+  return max(max(stages * RC * kp + fp * kp, SUM_MIN), fp * kp + WARPS * tr * wstride(kp) + kp * kp);
+}
+
+// floats of shared memory: the C ring, then that region
+size_t smem_floats(int fp, int kp, int stages, int tr) {
+  return (size_t)stages * RC * fp + room_floats(fp, kp, stages, tr);
+}
 
 Plan make_plan(int d, int f, int k) {
   Plan p;
-  p.ntile = (f + A_FT - 1) / A_FT;
-  const int max_slabs = (d + A_RC - 1) / A_RC;
-  int nslab = (A_TARGET_ITEMS + p.ntile - 1) / p.ntile;
-  nslab = nslab < 1 ? 1 : (nslab > max_slabs ? max_slabs : nslab);
-  const int per = (d + nslab - 1) / nslab;
-  p.slab_rows = (per + A_RC - 1) / A_RC * A_RC;
-  p.nslab = (d + p.slab_rows - 1) / p.slab_rows;  // no empty slab
-  p.nblk = (d + C_R - 1) / C_R;
-  p.off_part = align256(sizeof(float) * (size_t)f * k);
-  p.off_gpart = p.off_part +
-                align256(sizeof(float) * (size_t)p.ntile * p.nslab * A_FT * k);
-  p.bytes = p.off_gpart + align256(sizeof(float) * (size_t)p.nblk * k * k);
-  const size_t smem_a = (size_t)A_RC * (A_FT + A_KC);
-  const size_t smem_c = (size_t)C_R * pad4(k) + (size_t)C_FC * (C_CST + C_KC);
-  p.smem = sizeof(float) * (smem_a > smem_c ? smem_a : smem_c);
+  p.fp = pad4(f);
+  p.kp = pad4(k);
+  p.rows = (d + SLABS - 1) / SLABS;
+  p.nslab = (d + p.rows - 1) / p.rows;
+  p.npart = (p.nslab + PAIR - 1) / PAIR;
+  p.nchunk = (p.rows + RC - 1) / RC;
+  const size_t resident = 4 * smem_floats(p.fp, p.kp, p.nchunk, TR_RESIDENT);
+  p.resident = resident <= (size_t)SMEM_MAX;
+  p.stages = p.resident ? p.nchunk : ST_STREAMED;
+  p.smem = p.resident ? resident : 4 * smem_floats(p.fp, p.kp, ST_STREAMED, TR_STREAMED);
+  p.off_part = align256(sizeof(float) * (size_t)p.fp * p.kp);
+  p.off_gpart = p.off_part + align256(sizeof(float) * (size_t)p.npart * p.fp * p.kp);
+  p.bytes = p.off_gpart + align256(sizeof(float) * (size_t)p.npart * pad4(k * k));
   return p;
 }
 
-// The sum of count partials p[0], p[stride], ... in a fixed order: lane by
-// lane in index order, then down the xor tree (every lane gets the total).
-__device__ __forceinline__ float warp_sum(const float* __restrict__ p,
-                                          size_t stride, int count, int lane) {
-  float s = 0.f;
-  for (int q = lane; q < count; q += 32) s += __ldcg(p + (size_t)q * stride);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  return s;
+struct Args {
+  const float* c;  // (d, f)
+  const float* v;  // (d, k)
+  float* w;        // (d, k)
+  float* g;        // (k, k)
+  float* y;        // workspace: (fp, kp), zero past f and k
+  float* part;     // workspace: (npart, fp, kp), entries past f and k unused
+  float* gpart;    // workspace: npart (k, k) upper triangles, pad4(k k) apart
+  int d, f, k, fp, kp, rows, nslab, npart, nchunk, stages;
+  int cvec, vvec;  // floats per copy of C / v rows (4, 2 or 1: their alignment)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Phase A item: part[t][s] = C[slab s, tile t]^T v[slab s] as (A_FT, k).
-// Each chunk of rows is loaded into registers while the previous one is
-// multiplied out of shared memory.
-__device__ void slab_partial(const float* __restrict__ c,
-                             const float* __restrict__ v,
-                             float* __restrict__ part, float* smem, int d,
-                             int f, int k, int nslab, int slab_rows, int s,
-                             int t) {
-  float* cs = smem;                 // [A_RC][A_FT]
-  float* vsh = smem + A_RC * A_FT;  // [A_RC][A_KC]
-  const int tid = threadIdx.x;
-  const int tj = tid & 15;  // columns 4 tj .. 4 tj + 3 of the chunk
-  const int ti = tid >> 4;  // f indices 4 ti .. 4 ti + 3 of the tile
-  const int r_begin = s * slab_rows;
-  const int r_end = min(d, r_begin + slab_rows);
-  const int f0 = t * A_FT;
-  float* my = part + ((size_t)t * nslab + s) * A_FT * k;
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool ok) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 4 : 0)
+                 : "memory");
+}
 
-  for (int c0 = 0; c0 < k; c0 += A_KC) {
-    float acc[4][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int h = 0; h < 4; ++h) acc[e][h] = 0.f;
-    float rc[A_LOADS], rv[A_LOADS];
-    auto load = [&](int r0) {
-#pragma unroll
-      for (int q = 0; q < A_LOADS; ++q) {
-        const int idx = tid + q * THREADS;
-        const int rr = idx / A_FT, ii = idx % A_FT;  // A_FT == A_KC
-        const int r = r0 + rr, i = f0 + ii, j = c0 + ii;
-        rc[q] = (r < r_end && i < f) ? c[(size_t)r * f + i] : 0.f;
-        rv[q] = (r < r_end && j < k) ? v[(size_t)r * k + j] : 0.f;
-      }
-    };
-    load(r_begin);
-    for (int r0 = r_begin; r0 < r_end; r0 += A_RC) {
-      __syncthreads();  // every warp is done with the previous rows
-#pragma unroll
-      for (int q = 0; q < A_LOADS; ++q) {
-        cs[tid + q * THREADS] = rc[q];
-        vsh[tid + q * THREADS] = rv[q];
-      }
-      __syncthreads();
-      if (r0 + A_RC < r_end) load(r0 + A_RC);
-#pragma unroll 8
-      for (int rr = 0; rr < A_RC; ++rr) {
-        const float4 a = *reinterpret_cast<const float4*>(cs + rr * A_FT + 4 * ti);
-        const float4 b = *reinterpret_cast<const float4*>(vsh + rr * A_KC + 4 * tj);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int h = 0; h < 4; ++h) acc[e][h] = fmaf(av[e], bv[h], acc[e][h]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int il = 4 * ti + e;
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int j = c0 + 4 * tj + h;
-        if (j < k) my[(size_t)il * k + j] = acc[e][h];
-      }
-    }
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// nr rows of a (*, cols) row-major matrix from row r0 into shared rows of
+// stride cp (a multiple of 4, >= cols; zeros past cols) in copies of `vec`
+// floats (4: cols == cp, 2: cols even, rows 8-byte aligned, else 1)
+template <int VEC>
+__device__ __forceinline__ void stage_rows_by(uint32_t dst, const float* __restrict__ src,
+                                              int r0, int nr, int cols, int cp) {
+  for (int e = threadIdx.x * VEC; e < nr * cp; e += THREADS * VEC) {
+    const int r = e / cp, col = e - r * cp;
+    const bool ok = col < cols;
+    cp_async<4 * VEC>(dst + 4 * e, ok ? src + (size_t)(r0 + r) * cols + col : src, ok);
   }
 }
 
-// Phase C item: rows [row0, row0 + C_R) of w = C y, and the upper triangle
-// of their Gram as gpart[item]. Each chunk of f is loaded into registers
-// while the previous one is multiplied out of shared memory.
-__device__ void rows_of_w(const float* __restrict__ c,
-                          const float* __restrict__ y, float* __restrict__ w,
-                          float* __restrict__ gpart, float* smem, int d, int f,
-                          int k, int item) {
-  const int kp = pad4(k);              // row stride of ws, for float4 reads
-  float* ws = smem;                    // [C_R][kp]: this item's w rows
-  float* cst = ws + (size_t)C_R * kp;  // [C_FC][C_CST]: C tile, transposed
-  float* ys = cst + C_FC * C_CST;      // [C_FC][C_KC]: y chunk
-  const int tid = threadIdx.x;
-  const int tc = tid & 31;  // columns tc and tc + 32 of the chunk
-  const int tr = tid >> 5;  // rows tr * C_TR .. + C_TR of the item
-  const int row0 = item * C_R;
+__device__ __forceinline__ void stage_rows(uint32_t dst, const float* __restrict__ src,
+                                           int r0, int nr, int cols, int cp, int vec) {
+  if (vec == 4) stage_rows_by<4>(dst, src, r0, nr, cols, cp);
+  else if (vec == 2) stage_rows_by<2>(dst, src, r0, nr, cols, cp);
+  else stage_rows_by<1>(dst, src, r0, nr, cols, cp);
+}
 
-  for (int c0 = 0; c0 < k; c0 += C_KC) {
-    float acc[C_TR][2];
+// The sums over the n partials p[0], p[stride], ... of entries [0, entries)
+// (a multiple of 4; stride too): block b takes a contiguous run of entries,
+// stages each partial's piece of the run into shared memory (`room`
+// floats) with 16-byte copies, all in flight at once, and one thread per
+// entry adds its n values in partial order; put(e, sum) gets each entry.
+template <class Put>
+__device__ __forceinline__ void sum_partials(const float* __restrict__ p, size_t stride,
+                                             int n, int entries, float* room, int room_size,
+                                             Put put) {
+  const int per_block = ((entries + gridDim.x - 1) / gridDim.x + 3) & ~3;
+  const int e_begin = blockIdx.x * per_block, e_end = min(entries, e_begin + per_block);
+  const int cap = (room_size / n) & ~3;  // entries staged at once
+  const uint32_t dst = smem_u32(room);
+  for (int c0 = e_begin; c0 < e_end; c0 += cap) {
+    const int ce = min(cap, e_end - c0);  // a multiple of 4
+    const int vecs = ce / 4;
+    for (int idx = threadIdx.x; idx < n * vecs; idx += THREADS) {
+      const int q = idx / vecs, v4 = idx - q * vecs;
+      cp_async<16>(dst + 16 * (q * vecs + v4), p + (size_t)q * stride + c0 + 4 * v4, true);
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    for (int x = threadIdx.x; x < ce; x += THREADS) {
+      float sum = 0.f;
+#pragma unroll 16
+      for (int q = 0; q < n; ++q) sum += room[q * ce + x];
+      put(c0 + x, sum);
+    }
+    __syncthreads();  // the room is staged again
+  }
+}
+
+// Phase A for slab s: part[s] = C_slab^T v_slab as blocks of AQ quads of f
+// (4 indices each) by AC groups of 4 columns. In pass p, lane l of warp w
+// holds block p * THREADS / 2 + 16 w + l % 16 over the slab's rows of
+// parity l / 16, summed in order; the two parities are added at the slab's
+// end. Blocks this small tile (f, k') = (200, 58) with 125 of a pass's 128.
+template <int TR>
+__device__ void slab_partial(const Args& a, float* smem, int s) {
+  constexpr bool RESIDENT = TR == TR_RESIDENT;
+  constexpr int PER_PASS = THREADS / 2;  // blocks of a pass: one per lane pair
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fp = a.fp, kp = a.kp;
+  float* cring = smem;
+  float* vring = smem + (size_t)a.stages * RC * fp;
+  float* pstage = vring + (size_t)a.stages * RC * kp;  // the slab's partial (f, kp)
+  const int r_begin = s * a.rows;
+  const int r_end = min(a.d, r_begin + a.rows);
+  const int nchunk = max(0, (r_end - r_begin + RC - 1) / RC);  // 0: no slab s
+  const int nquad = fp / 4, ngrp = kp / 4;
+  const int nct = (ngrp + AC - 1) / AC;
+  const int blocks = (nquad + AQ - 1) / AQ * nct;
+  const int visits = (blocks + PER_PASS - 1) / PER_PASS * nchunk;
+  // visit t (chunk t % nchunk of pass t / nchunk) is in stage stage(t): its
+  // chunk's own when resident, the ring's next when streamed
+  auto stage = [&](int t) { return RESIDENT ? t % nchunk : t % a.stages; };
+  auto issue = [&](int t) {
+    const int q = t % nchunk, st = stage(t);
+    const int r0 = r_begin + q * RC, nr = min(RC, r_end - r0);
+    stage_rows(smem_u32(cring + (size_t)st * RC * fp), a.c, r0, nr, a.f, fp, a.cvec);
+    stage_rows(smem_u32(vring + (size_t)st * RC * kp), a.v, r0, nr, a.k, kp, a.vvec);
+    cp_commit();
+  };
+  if (RESIDENT) {
+    for (int q = 0; q < nchunk; ++q) issue(q);
+  } else if (nchunk > 0) {
+    issue(0);
+  }
+
+  const int half = lane >> 4;
+  float acc[AQ][4][4 * AC];  // [quad][f index in the quad][column]
+  for (int t = 0; t < visits; ++t) {
+    const int q = t % nchunk, pass = t / nchunk;
+    if (RESIDENT) {
+      if (t == 0) {  // the whole slab (waiting chunk by chunk measured no faster)
+        cp_wait<0>();
+        __syncthreads();
+      }
+    } else {
+      if (t + 1 < visits) issue(t + 1);  // into the stage freed at t - 1
+      else cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+    }
+    if (q == 0) {
 #pragma unroll
-    for (int e = 0; e < C_TR; ++e) acc[e][0] = acc[e][1] = 0.f;
-    float rc[C_LOADS], ry[C_LOADS];
-    auto load = [&](int i0) {
+      for (int e = 0; e < AQ; ++e)
 #pragma unroll
-      for (int q = 0; q < C_LOADS; ++q) {
-        const int idx = tid + q * THREADS;
-        const int rr = idx / C_FC, ii = idx % C_FC;
-        const int r = row0 + rr, i = i0 + ii;
-        rc[q] = (r < d && i < f) ? c[(size_t)r * f + i] : 0.f;
-        const int yi = i0 + idx / C_KC, yj = c0 + idx % C_KC;
-        ry[q] = (yi < f && yj < k) ? y[(size_t)yi * k + yj] : 0.f;
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int x = 0; x < 4 * AC; ++x) acc[e][u][x] = 0.f;
+    }
+    const float* cs = cring + (size_t)stage(t) * RC * fp;
+    const float* vs = vring + (size_t)stage(t) * RC * kp;
+    const int nr = min(RC, r_end - (r_begin + q * RC));
+    const int b = pass * PER_PASS + 16 * warp + (lane & 15);
+    const int bb = min(b, blocks - 1);
+    const int q0 = bb / nct * AQ, g0 = bb % nct * AC;  // first quad, column group
+    // quads and column groups clamped to the last (duplicates are summed
+    // and not stored): every load is unconditional
+    int qoff[AQ], goff[AC];
+#pragma unroll
+    for (int e = 0; e < AQ; ++e) qoff[e] = 4 * min(q0 + e, nquad - 1);
+#pragma unroll
+    for (int c = 0; c < AC; ++c) goff[c] = 4 * min(g0 + c, ngrp - 1);
+    struct Row {
+      float4 c[AQ], v[AC];
+    };
+    auto fetch = [&](int rr, Row& o) {
+#pragma unroll
+      for (int e = 0; e < AQ; ++e)
+        o.c[e] = *reinterpret_cast<const float4*>(cs + (size_t)rr * fp + qoff[e]);
+#pragma unroll
+      for (int c = 0; c < AC; ++c)
+        o.v[c] = *reinterpret_cast<const float4*>(vs + (size_t)rr * kp + goff[c]);
+    };
+    auto product = [&](const Row& o) {
+      float bv[4 * AC];
+#pragma unroll
+      for (int c = 0; c < AC; ++c)
+        bv[4 * c] = o.v[c].x, bv[4 * c + 1] = o.v[c].y, bv[4 * c + 2] = o.v[c].z,
+        bv[4 * c + 3] = o.v[c].w;
+#pragma unroll
+      for (int e = 0; e < AQ; ++e) {
+        const float cv[4] = {o.c[e].x, o.c[e].y, o.c[e].z, o.c[e].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int x = 0; x < 4 * AC; ++x) acc[e][u][x] = fmaf(cv[u], bv[x], acc[e][u][x]);
       }
     };
-    load(0);
-    for (int i0 = 0; i0 < f; i0 += C_FC) {
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < C_LOADS; ++q) {
-        const int idx = tid + q * THREADS;
-        cst[(idx % C_FC) * C_CST + idx / C_FC] = rc[q];
-        ys[idx] = ry[q];
+    const int mine = (nr - half + 1) / 2;  // rows half, half + 2, ...
+    auto row = [&](int m) { return half + 2 * min(m, mine - 1); };
+    Row ra, rb;  // two rows in flight: one multiplied while the next lands
+    if (mine > 0) fetch(row(0), ra);
+    for (int m = 0; m < mine; m += 2) {
+      fetch(row(m + 1), rb);
+      product(ra);
+      if (m + 1 < mine) {
+        fetch(row(m + 2), ra);
+        product(rb);
       }
-      __syncthreads();
-      if (i0 + C_FC < f) load(i0 + C_FC);
-#pragma unroll 4
-      for (int ii = 0; ii < C_FC; ++ii) {
-        const float b0 = ys[ii * C_KC + tc];
-        const float b1 = ys[ii * C_KC + tc + 32];
-        const float4* col =
-            reinterpret_cast<const float4*>(cst + ii * C_CST + tr * C_TR);
+    }
+    if (q == nchunk - 1) {
+      // even rows plus odd rows: the same bits in both halves
 #pragma unroll
-        for (int q = 0; q < C_TR / 4; ++q) {
-          const float4 a = col[q];
-          const float av[4] = {a.x, a.y, a.z, a.w};
+      for (int e = 0; e < AQ; ++e)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[4 * q + e][0] = fmaf(av[e], b0, acc[4 * q + e][0]);
-            acc[4 * q + e][1] = fmaf(av[e], b1, acc[4 * q + e][1]);
-          }
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int x = 0; x < 4 * AC; ++x)
+            acc[e][u][x] += __shfl_xor_sync(0xffffffffu, acc[e][u][x], 16);
+#pragma unroll
+      for (int e = 0; e < AQ; ++e) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = 4 * (q0 + e) + u;
+          if (half || b >= blocks || q0 + e >= nquad || i >= a.f) continue;
+          // whole vectors, padding columns too (never read)
+          float4* out = reinterpret_cast<float4*>(pstage + (size_t)i * kp);
+#pragma unroll
+          for (int c = 0; c < AC; ++c)
+            if (g0 + c < ngrp)
+              out[g0 + c] = make_float4(acc[e][u][4 * c], acc[e][u][4 * c + 1],
+                                        acc[e][u][4 * c + 2], acc[e][u][4 * c + 3]);
         }
       }
     }
-#pragma unroll
-    for (int e = 0; e < C_TR; ++e) {
-      const int rl = tr * C_TR + e;
-      const int r = row0 + rl;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = c0 + tc + 32 * h;
-        // columns k .. kp and rows past d hold zeros (zeros were staged)
-        if (j < kp) ws[(size_t)rl * kp + j] = acc[e][h];
-        if (j < k && r < d) w[(size_t)r * k + j] = acc[e][h];
-      }
-    }
+    if (!RESIDENT) __syncthreads();  // the stage may be refilled
+  }
+  if (nchunk == 0)
+    for (int x = threadIdx.x; x < a.f * kp; x += THREADS) pstage[x] = 0.f;
+  // the pair's partial, rank 0's plus rank 1's, read from both blocks'
+  // shared memory and written in order, each block half of the rows, by
+  // 16-byte stores of one contiguous run
+  cg::cluster_group pair = cg::this_cluster();
+  pair.sync();
+  const int rank = pair.block_rank();
+  const float4* own = reinterpret_cast<const float4*>(pstage);
+  const float4* other = pair.map_shared_rank(own, rank ^ 1);
+  const int split = (a.f + 1) / 2 * kp / 4, total = a.f * kp / 4;
+  float4* to = reinterpret_cast<float4*>(a.part + (size_t)(s / PAIR) * fp * kp);
+  const int end = s / PAIR < a.npart ? (rank ? total : split) : 0;  // 0: neither slab is
+  for (int x = (rank ? split : 0) + threadIdx.x; x < end; x += THREADS) {
+    const float4 p0 = rank ? other[x] : own[x], p1 = rank ? own[x] : other[x];
+    to[x] = make_float4(p0.x + p1.x, p0.y + p1.y, p0.z + p1.z, p0.w + p1.w);
+  }
+  pair.sync();  // both have read each other's partial: the slab may be replaced
+}
+
+// Phase C for slab s, with y already in shared memory: rows of w = C_slab y
+// in passes of WARPS * TR rows (warp w: pass rows w + WARPS e; lane l: 8
+// columns of the 64 of pass jpass over one quarter of f, summed in order,
+// the quarters added at the end), each pass's rows
+// kept in wbuf and added into the Gram tile gs in row order; then gs's
+// upper triangle is the slab's partial.
+template <int TR>
+__device__ void slab_rows_of_w(const Args& a, float* smem, int s, bool loaded) {
+  constexpr bool RESIDENT = TR == TR_RESIDENT;
+  constexpr int PR = WARPS * TR;  // rows of a pass
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, quarter = lane >> 3;
+  const int fp = a.fp, kp = a.kp;
+  float* cring = smem;
+  float* ys = smem + (size_t)a.stages * RC * fp;
+  const int ws = wstride(kp);
+  float* wbuf = ys + (size_t)fp * kp;  // [PR][ws]
+  float* gs = wbuf + (size_t)PR * ws;
+  const int r_begin = s * a.rows;
+  const int r_end = min(a.d, r_begin + a.rows);
+  const int nrows = max(0, r_end - r_begin);  // 0: no slab s
+  const int nchunk = (nrows + RC - 1) / RC;
+  const int passes = (nrows + PR - 1) / PR;
+  const int jpasses = (kp + 63) / 64;
+
+  for (int e = threadIdx.x; e < kp * kp; e += THREADS) gs[e] = 0.f;
+  auto issue = [&](int q) {
+    const int r0 = r_begin + q * RC, nr = min(RC, r_end - r0);
+    stage_rows(smem_u32(cring + (size_t)(q % a.stages) * RC * fp), a.c, r0, nr, a.f, fp,
+               a.cvec);
+    cp_commit();
+  };
+  if (RESIDENT && !loaded) {  // a second slab of this block: load it again
+    for (int q = 0; q < nchunk; ++q) issue(q);
+    cp_wait<0>();
+  } else if (!RESIDENT && nchunk > 0) {
+    issue(0);
   }
   __syncthreads();
 
-  // upper triangle of this item's w^T w in 4 x 4 tiles, rows in order
-  float* my = gpart + (size_t)item * k * k;
-  const int nt = kp / 4;
-  for (int tix = tid; tix < nt * nt; tix += THREADS) {
-    const int ta = tix / nt, tb = tix - ta * nt;
-    if (ta > tb) continue;
-    float acc[4][4];
+  for (int pc = 0; pc < passes; ++pc) {
+    if (!RESIDENT) {  // pass pc is chunk pc
+      if (pc + 1 < passes) issue(pc + 1);
+      else cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+    }
+    const int p0 = pc * PR;  // first slab row of the pass
+    const float* cs = RESIDENT ? cring + (size_t)p0 * fp : cring + (size_t)(pc % a.stages) * RC * fp;
+    const int pr = min(PR, nrows - p0);
+    for (int jpass = 0; jpass < jpasses; ++jpass) {
+      // lane l: 8 columns, jpass * 64 + 4 (l % 8) .. + 3 and 32 further on,
+      // over the quarter (l / 8) of f's quads (the quarters meet at the
+      // end: (q0 + q1) + (q2 + q3))
+      const int j = jpass * 64 + 4 * (lane & 7);  // and j + 32
+      const int ja = j < kp ? j : 0, jb = j + 32 < kp ? j + 32 : 0;
+      const int n4 = fp / 4, per = (n4 + 3) / 4;
+      const int i4_begin = min(n4, quarter * per), i4_end = min(n4, i4_begin + per);
+      float acc[TR][8];
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
+      for (int e = 0; e < TR; ++e)
 #pragma unroll
-      for (int z = 0; z < 4; ++z) acc[x][z] = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < C_R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(ws + r * kp + 4 * ta);
-      const float4 b = *reinterpret_cast<const float4*>(ws + r * kp + 4 * tb);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+        for (int x = 0; x < 8; ++x) acc[e][x] = 0.f;
+      // the warp's rows, clamped to the pass's last (duplicates are summed
+      // and not stored): every load unconditional
+      int crow[TR];  // offsets of the rows in cs
+#pragma unroll
+      for (int e = 0; e < TR; ++e) crow[e] = min(warp + WARPS * e, pr - 1) * fp;
+#pragma unroll 1
+      for (int i4 = i4_begin; i4 < i4_end; ++i4) {
+        float4 yv[4][2];  // y rows 4 i4 + u at the lane's columns
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          yv[u][0] = *reinterpret_cast<const float4*>(ys + (size_t)(4 * i4 + u) * kp + ja);
+          yv[u][1] = *reinterpret_cast<const float4*>(ys + (size_t)(4 * i4 + u) * kp + jb);
+        }
+#pragma unroll
+        for (int e = 0; e < TR; ++e) {
+          const float4 c4 = *reinterpret_cast<const float4*>(cs + crow[e] + 4 * i4);
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float yr[8] = {yv[u][0].x, yv[u][0].y, yv[u][0].z, yv[u][0].w,
+                                 yv[u][1].x, yv[u][1].y, yv[u][1].z, yv[u][1].w};
+#pragma unroll
+            for (int x = 0; x < 8; ++x) acc[e][x] = fmaf(cv[u], yr[x], acc[e][x]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < TR; ++e)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          acc[e][x] += __shfl_xor_sync(0xffffffffu, acc[e][x], 8);
+          acc[e][x] += __shfl_xor_sync(0xffffffffu, acc[e][x], 16);
+        }
+#pragma unroll
+      for (int e = 0; e < TR; ++e) {
+        const int lr = warp + WARPS * e;
+        if (quarter || lr >= pr) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int jh = j + 32 * h;
+          if (jh >= kp) continue;
+          *reinterpret_cast<float4*>(wbuf + (size_t)lr * ws + jh) =
+              make_float4(acc[e][4 * h], acc[e][4 * h + 1], acc[e][4 * h + 2], acc[e][4 * h + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    // the pass's rows of w, contiguous in w, written out in order
+    float* wout = a.w + (size_t)(r_begin + p0) * a.k;
+    for (int e = threadIdx.x; e < pr * a.k; e += THREADS) {
+      const int r = e / a.k;
+      wout[e] = wbuf[(size_t)r * ws + (e - r * a.k)];
+    }
+    // the pass's rows into the Gram tile: 4 x 4 blocks (ta <= tb), two
+    // lanes each, over the rows of one parity each in order, added even +
+    // odd into the tile
+    const int nt = kp / 4, ntri = nt * (nt + 1) / 2;
+    const int par = threadIdx.x & 1;
+    for (int base = 0; base < ntri; base += THREADS / 2) {
+      int u = base + (threadIdx.x >> 1), ta = 0;
+      const bool ok = u < ntri;
+      while (ok && u >= nt - ta) u -= nt - ta++;
+      const int tb = ok ? ta + u : 0;
+      float g4[4][4];
 #pragma unroll
       for (int x = 0; x < 4; ++x)
 #pragma unroll
-        for (int z = 0; z < 4; ++z) acc[x][z] = fmaf(av[x], bv[z], acc[x][z]);
-    }
+        for (int z = 0; z < 4; ++z) g4[x][z] = 0.f;
+      if (ok) {
+#pragma unroll 4
+        for (int r = par; r < pr; r += 2) {
+          const float4 p = *reinterpret_cast<const float4*>(wbuf + (size_t)r * ws + 4 * ta);
+          const float4 q = *reinterpret_cast<const float4*>(wbuf + (size_t)r * ws + 4 * tb);
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+          const float qv[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
+          for (int x = 0; x < 4; ++x)
 #pragma unroll
-      for (int z = 0; z < 4; ++z) {
-        const int a = 4 * ta + x, b = 4 * tb + z;
-        if (a < k && b < k && a <= b) my[(size_t)a * k + b] = acc[x][z];
+            for (int z = 0; z < 4; ++z) g4[x][z] = fmaf(pv[x], qv[z], g4[x][z]);
+        }
       }
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) g4[x][z] += __shfl_xor_sync(0xffffffffu, g4[x][z], 1);
+      if (ok && par == 0) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float4* t = reinterpret_cast<float4*>(gs + (size_t)(4 * ta + x) * kp + 4 * tb);
+          const float4 o = *t;
+          *t = make_float4(o.x + g4[x][0], o.y + g4[x][1], o.z + g4[x][2], o.w + g4[x][3]);
+        }
+      }
+    }
+    __syncthreads();  // wbuf and the stage are free
   }
+  // the pair's partial: rank 0's tile plus rank 1's, each block half of
+  // the entries
+  cg::cluster_group pair = cg::this_cluster();
+  pair.sync();
+  const int rank = pair.block_rank();
+  const float* other = pair.map_shared_rank(gs, rank ^ 1);
+  float* my = a.gpart + (size_t)(s / PAIR) * pad4(a.k * a.k);
+  const int kk = a.k * a.k, split = kk / 2;
+  const int end = s / PAIR < a.npart ? (rank ? kk : split) : 0;  // 0: neither slab is
+  for (int e = (rank ? split : 0) + threadIdx.x; e < end; e += THREADS) {
+    const int r = e / a.k, c = e - r * a.k;
+    const float g0 = rank ? other[(size_t)r * kp + c] : gs[(size_t)r * kp + c];
+    const float g1 = rank ? gs[(size_t)r * kp + c] : other[(size_t)r * kp + c];
+    if (r <= c) my[e] = g0 + g1;
+  }
+  pair.sync();  // both have read each other's tile: gs is zeroed next
 }
 
-// two blocks per SM: at most 128 registers a thread
-__global__ void __launch_bounds__(THREADS, 2)
-    matvec_gram_kernel(const float* __restrict__ c, const float* __restrict__ v,
-                       float* __restrict__ w, float* __restrict__ g,
-                       float* __restrict__ y, float* __restrict__ part,
-                       float* __restrict__ gpart, int d, int f, int k,
-                       int nslab, int slab_rows, int ntile, int nblk) {
+// one block of 8 warps per SM; at most 255 registers a thread
+template <int TR>
+__global__ void __launch_bounds__(THREADS, 1) matvec_gram_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31;
-  const int gwarp = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int nwarp = gridDim.x * WARPS;
+  const int bid = blockIdx.x, nblk = gridDim.x;  // nblk: a multiple of PAIR
+  // every block takes the same rounds of slabs, bid + i nblk (past nslab:
+  // none), so the two blocks of a pair meet at each round's cluster barrier
+  const int rounds = (a.nslab + nblk - 1) / nblk;
+  const int last = a.nslab - 1 - (a.nslab - 1 - bid) % nblk;  // this block's last slab
 
-  // A. slab partials of C^T v
-  for (int it = blockIdx.x; it < nslab * ntile; it += gridDim.x)
-    slab_partial(c, v, part, smem, d, f, k, nslab, slab_rows, it % nslab,
-                 it / nslab);
+  // A. slab partials of C^T v, added pairwise (this block's slabs in order;
+  // the last stays)
+  for (int i = 0; i < rounds; ++i) slab_partial<TR>(a, smem, bid + i * nblk);
   grid.sync();
 
   // B. y = sum over slabs, slab order
-  for (int e = gwarp; e < f * k; e += nwarp) {
-    const int i = e / k, j = e - i * k;
-    const int t = i / A_FT, il = i - t * A_FT;
-    const float* p = part + (size_t)t * nslab * A_FT * k + (size_t)il * k + j;
-    const float s = warp_sum(p, (size_t)A_FT * k, nslab, lane);
-    if (lane == 0) y[e] = s;
-  }
+  float* room = smem + (size_t)a.stages * RC * a.fp;  // the region after the C ring
+  const int room_size = room_floats(a.fp, a.kp, a.stages, TR);
+  sum_partials(a.part, (size_t)a.fp * a.kp, a.npart, a.fp * a.kp, room, room_size,
+               [&](int e, float s) {
+                 a.y[e] = e / a.kp < a.f && e % a.kp < a.k ? s : 0.f;
+               });
   grid.sync();
 
-  // C. rows of w and their Gram partials
-  for (int it = blockIdx.x; it < nblk; it += gridDim.x)
-    rows_of_w(c, y, w, gpart, smem, d, f, k, it);
+  // C. y staged once per block; rows of w and their Gram partials, the
+  // slab still in shared memory first
+  {
+    float* ys = smem + (size_t)a.stages * RC * a.fp;
+    const uint32_t dst = smem_u32(ys);
+    for (int e = threadIdx.x * 4; e < a.fp * a.kp; e += THREADS * 4)
+      cp_async<16>(dst + 4 * e, a.y + e, true);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+  }
+  for (int i = rounds - 1; i >= 0; --i)
+    slab_rows_of_w<TR>(a, smem, bid + i * nblk, bid + i * nblk == last);
   grid.sync();
 
-  // D. g = sum over row items, item order, mirrored
-  for (int e = gwarp; e < k * k; e += nwarp) {
-    const int a = e / k, b = e - a * k;
-    if (a > b) continue;
-    const float s = warp_sum(gpart + e, (size_t)k * k, nblk, lane);
-    if (lane == 0) {
-      g[(size_t)a * k + b] = s;
-      g[(size_t)b * k + a] = s;
-    }
+  // D. g = sum over slabs, slab order, mirrored
+  sum_partials(a.gpart, (size_t)pad4(a.k * a.k), a.npart, pad4(a.k * a.k), room, room_size,
+               [&](int e, float s) {
+                 const int r = e / a.k, c = e - r * a.k;
+                 if (e >= a.k * a.k || r > c) return;
+                 a.g[(size_t)r * a.k + c] = s;
+                 a.g[(size_t)c * a.k + r] = s;
+               });
+}
+
+template <int TR>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(matvec_gram_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// the launch: cooperative, in clusters of PAIR blocks
+struct Launch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[2];
+  Launch(int blocks, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attrs[0].id = cudaLaunchAttributeCooperative;
+    attrs[0].val.cooperative = 1;
+    attrs[1].id = cudaLaunchAttributeClusterDimension;
+    attrs[1].val.clusterDim.x = PAIR;
+    attrs[1].val.clusterDim.y = 1;
+    attrs[1].val.clusterDim.z = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 2;
   }
+};
+
+// pairs of blocks resident at once on the current device
+template <int TR>
+cudaError_t resident_pairs(int* pairs, size_t smem) {
+  cudaError_t err = allow_smem<TR>(smem);
+  Launch l(PAIR, smem, nullptr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(pairs, (void*)matvec_gram_kernel<TR>, &l.cfg);
+  return err;
+}
+
+// floats per cp.async of rows of `cols` floats at p: 16-byte copies where
+// every row is 16-byte aligned, 8-byte where 8-byte aligned, else 4-byte
+int copy_width(const void* p, int cols) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (cols % 4 == 0 && a % 16 == 0) return 4;
+  if (cols % 2 == 0 && a % 8 == 0) return 2;
+  return 1;
 }
 
 }  // namespace
@@ -356,28 +672,19 @@ extern "C" size_t det_matvec_gram_workspace(int d, int f, int k) {
 }
 
 // The cooperative grid for C (d, f) and v (d, k) on the current device: as
-// many blocks as can be resident at once (the occupancy query; a cooperative
-// launch's condition), and no more than there are items. Returns the block
-// count, or minus a CUDA error code.
+// many pairs of blocks as can be resident at once (the cluster occupancy
+// query; a cooperative launch's condition), and no more than there are
+// pairs of slabs. Returns the block count, or minus a CUDA error code.
 extern "C" int det_matvec_gram_grid(int d, int f, int k) {
   if (d < 1 || f < 1 || k < 1) return -static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(d, f, k);
   if (p.smem > (size_t)SMEM_MAX) return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && p.smem > 48 * 1024)
-    err = cudaFuncSetAttribute(matvec_gram_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(p.smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, matvec_gram_kernel, THREADS, p.smem);
+  int pairs = 0;
+  const cudaError_t err = p.resident ? resident_pairs<TR_RESIDENT>(&pairs, p.smem)
+                                     : resident_pairs<TR_STREAMED>(&pairs, p.smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  const int items = max(p.nslab * p.ntile, p.nblk);
-  return min(per_sm * sms, items);
+  if (pairs < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  return PAIR * min(pairs, p.npart);
 }
 
 // c: (d, f) fp32 contiguous. v: (d, k) fp32 contiguous. w: (d, k) fp32.
@@ -387,32 +694,30 @@ extern "C" int det_matvec_gram_grid(int d, int f, int k) {
 extern "C" int det_matvec_gram(const void* c, const void* v, void* w, void* g,
                                void* workspace, int d, int f, int k,
                                int blocks, void* stream) {
-  if (d < 1 || f < 1 || k < 1 || blocks < 1)
+  if (d < 1 || f < 1 || k < 1 || blocks < 1 || blocks % PAIR)
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(d, f, k);
   if (p.smem > (size_t)SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSuccess;
-  if (p.smem > 48 * 1024)
-    err = cudaFuncSetAttribute(matvec_gram_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(p.smem));
+  cudaError_t err = p.resident ? allow_smem<TR_RESIDENT>(p.smem) : allow_smem<TR_STREAMED>(p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const float* cf = static_cast<const float*>(c);
-  const float* vf = static_cast<const float*>(v);
-  float* wf = static_cast<float*>(w);
-  float* gf = static_cast<float*>(g);
+  Args a;
+  a.c = static_cast<const float*>(c);
+  a.v = static_cast<const float*>(v);
+  a.w = static_cast<float*>(w);
+  a.g = static_cast<float*>(g);
   char* base = static_cast<char*>(workspace);
-  float* y = reinterpret_cast<float*>(base);
-  float* part = reinterpret_cast<float*>(base + p.off_part);
-  float* gpart = reinterpret_cast<float*>(base + p.off_gpart);
-  int dd = d, ff = f, kk = k, nslab = p.nslab, slab_rows = p.slab_rows;
-  int ntile = p.ntile, nblk = p.nblk;
-  void* args[] = {&cf, &vf, &wf, &gf, &y, &part, &gpart, &dd, &ff, &kk,
-                  &nslab, &slab_rows, &ntile, &nblk};
-  err = cudaLaunchCooperativeKernel((void*)matvec_gram_kernel,
-                                    dim3(blocks), dim3(THREADS), args, p.smem,
-                                    static_cast<cudaStream_t>(stream));
+  a.y = reinterpret_cast<float*>(base);
+  a.part = reinterpret_cast<float*>(base + p.off_part);
+  a.gpart = reinterpret_cast<float*>(base + p.off_gpart);
+  a.d = d, a.f = f, a.k = k, a.fp = p.fp, a.kp = p.kp;
+  a.rows = p.rows, a.nslab = p.nslab, a.npart = p.npart, a.nchunk = p.nchunk;
+  a.stages = p.stages;
+  a.cvec = copy_width(c, f);
+  a.vvec = copy_width(v, k);
+  Launch l(blocks, p.smem, static_cast<cudaStream_t>(stream));
+  err = p.resident ? cudaLaunchKernelEx(&l.cfg, matvec_gram_kernel<TR_RESIDENT>, a)
+                   : cudaLaunchKernelEx(&l.cfg, matvec_gram_kernel<TR_STREAMED>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,10 @@ kernel, which raises on anything it does not take.
 Which of the source's three kernels a launch takes is a shape rule decided
 before the launch: bf16 x with ``d % 8 == 0`` on a 16-byte aligned base
 takes the TMA + ``wgmma`` kernel (TMA needs 16-byte global strides), other
-bf16 x the ``mma.sync`` kernel, fp32 x the FFMA kernel. :func:`gram_launch`
-is that launch's record (``ops/geometry.py``), which :func:`gram_cuda`
-notes after every launch.
+bf16 x the ``mma.sync`` kernel, fp32 x the FFMA kernel, whose tile edge
+(:func:`f32_tile`) and copy width (:func:`f32_vec`) are shape rules too.
+:func:`gram_launch` is that launch's record (``ops/geometry.py``), which
+:func:`gram_cuda` notes after every launch.
 """
 
 from __future__ import annotations
@@ -39,9 +40,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernels' launch constants (csrc/gram.cu, namespace scope;
 # tests/test_torch_analysis.py reads them from the source)
-TILE = 128  # output tile edge
-THREADS = 256  # gram_f32_kernel and gram_bf16_kernel
-SMEM_BYTES = TILE * 132 * 4  # their epilogue tile, rows padded to 132 floats
+TILE = 128  # gram_bf16_kernel's output tile edge
+THREADS = 256  # gram_bf16_kernel
+SMEM_BYTES = TILE * 132 * 4  # its epilogue tile, rows padded to 132 floats
+F_THREADS = 256  # gram_f32_kernel: a 16 x 16 grid of threads over its tile
+F_BK = 16  # rows of x per stage of its cp.async ring
+F_STAGES = 2  # stages in the ring
+F_FILL = 132  # CTAs that fill the card: the SMs of an H100
+F_TILES = (128, 64, 32)  # its tile edges (template instances), largest first
 T_BK = 64  # gram_bf16_tma_kernel: rows of x per stage
 T_STAGES = 4  # stages in its ring
 T_THREADS = 3 * 128  # two consumer warpgroups and a producer warpgroup
@@ -56,6 +62,24 @@ def takes_tma(d: int, dtype, aligned: bool = True) -> bool:
     return dtype == torch.bfloat16 and aligned and d % 8 == 0
 
 
+def f32_tile(m: int, d: int) -> int:
+    """The fp32 kernel's tile edge: the largest of :data:`F_TILES` whose
+    ``m * tiles (tiles + 1) / 2`` CTAs fill the card (``F_FILL``), else
+    the smallest (``f32_tile`` in the source)."""
+    for t in F_TILES[:-1]:
+        tiles = -(-d // t)
+        if m * (tiles * (tiles + 1) // 2) >= F_FILL:
+            return t
+    return F_TILES[-1]
+
+
+def f32_vec(d: int, aligned: bool = True) -> int:
+    """The fp32 kernel's copy width in floats: 4 (16-byte ``cp.async`` and
+    vector stores) where rows of x and of the output are 16-byte aligned,
+    else 1."""
+    return 4 if aligned and d % 4 == 0 else 1
+
+
 @functools.lru_cache(maxsize=256)  # pure, and the record is frozen
 def gram_launch(m: int, n: int, d: int, dtype=torch.bfloat16,
                 aligned: bool = True) -> KernelLaunch:
@@ -68,8 +92,11 @@ def gram_launch(m: int, n: int, d: int, dtype=torch.bfloat16,
     neighbouring upper-triangle tiles of one worker, 128 x 256 entries) a
     CTA reads the item's 128 + 256 columns of x over all of n through its
     ring and writes the entries and their mirror. The other two kernels:
-    one CTA per tile, grid ``(tiles (tiles + 1) / 2, 1, m)`` of 256
-    threads."""
+    one CTA per upper-triangle tile, grid ``(tiles (tiles + 1) / 2, 1, m)``
+    of 256 threads; 128 x 128 tiles for bf16, :func:`f32_tile` for fp32,
+    whose CTA reads the tile's two column slabs of x over all of n through
+    a ring of ``F_STAGES`` stages of ``F_BK`` rows (dynamic shared memory)
+    and writes the tile and its mirror from registers."""
     w = min(TILE, d)
     if takes_tma(d, dtype, aligned):
         w2 = min(2 * TILE, d)  # an item's columns
@@ -85,17 +112,25 @@ def gram_launch(m: int, n: int, d: int, dtype=torch.bfloat16,
                       ("G block (item)", (w, w2)), ("G mirrored (item)", (w2, w))),
             grid_rule="occupancy",
         )
-    tiles = -(-d // TILE)
+    if dtype == torch.float32:
+        edge = f32_tile(m, d)
+        w = min(edge, d)
+        kernel = f"gram_f32_kernel<{edge}, {f32_vec(d, aligned)}>"
+        threads, smem = F_THREADS, F_STAGES * 2 * F_BK * edge * 4
+        staged = (("x staged", (F_STAGES * F_BK, 2 * edge)),)
+    else:
+        edge, kernel, threads, smem, staged = TILE, "gram_bf16_kernel", THREADS, SMEM_BYTES, ()
+    tiles = -(-d // edge)
     slabs = (("x cols i (item)", (n, w)), ("x cols j (item)", (n, w)))
     tiles_out = (("G tile (item)", (w, w)), ("G mirrored (item)", (w, w)))
     return KernelLaunch(
-        kernel="gram_f32_kernel" if dtype == torch.float32 else "gram_bf16_kernel",
+        kernel=kernel,
         source="csrc/gram.cu",
         grid=(tiles * (tiles + 1) // 2, 1, m),
-        threads=THREADS,
-        dynamic_smem=SMEM_BYTES,
+        threads=threads,
+        dynamic_smem=smem,
         static_smem=0,
-        operands=slabs + tiles_out,
+        operands=slabs + staged + tiles_out,
     )
 
 

@@ -4,17 +4,20 @@ Hopper kernel and its plain PyTorch version.
 Counterpart of ``matvec_gram_pallas`` in ``distributed_eigenspaces_tpu/ops/
 pallas_gram.py`` and of the XLA pair ``fused_factor_matvec`` falls back to.
 :func:`matvec_gram_cuda` launches the kernel of ``csrc/matvec_gram.cu`` on
-CUDA tensors (one cooperative launch: block partials of ``C^T v``, their
-sum, ``w`` with partials of its Gram, their sum, each sum in a fixed order,
-so the result is bit-identical from run to run and ``g`` exactly
-symmetric); :func:`matvec_gram_plain`
+CUDA tensors (one cooperative launch in clusters of two blocks: per slab of
+d rows the partial ``C^T v``, added pairwise on chip, their sum ``y``, the
+slab's rows of ``w`` and the partial of their Gram, added the same way,
+their sum, each sum in a fixed order, so the result is bit-identical from
+run to run and ``g`` exactly symmetric); :func:`matvec_gram_plain`
 computes the same function with ``torch.matmul`` and is what CPU tensors
 get. :func:`matvec_gram_auto` dispatches on the device alone: a CUDA tensor
 always goes to the kernel, which masks ragged d, f and k' (no block-legality
 fallback) and raises on anything it does not take.
-:func:`matvec_gram_launch` is its launch geometry; the wrapper fills in the
-cooperative grid the card sizes (``det_matvec_gram_grid``), launches that
-grid and records the launch (``ops/geometry.py``) for the analyzer.
+:func:`matvec_gram_launch` is its launch geometry, with the plan
+(:func:`matvec_gram_plan`: the slab stays in shared memory, or is streamed
+where it does not fit beside ``y``); the wrapper fills in the cooperative
+grid the card sizes (``det_matvec_gram_grid``), launches that grid and
+records the launch (``ops/geometry.py``) for the analyzer.
 """
 
 from __future__ import annotations
@@ -33,67 +36,88 @@ from distributed_eigenspaces_tpu_torch.ops.geometry import KernelLaunch, note
 launches = 0
 _count_lock = threading.Lock()
 
-#: widest iterate the kernel takes: each block keeps 64 rows of w (64, k')
-#: in shared memory (rows padded to a multiple of 4) beside its staging
-#: tiles, within Hopper's 227 KB
-MAX_K = 840
 _INT_MAX = 2**31 - 1
 
 # the kernel's launch constants (csrc/matvec_gram.cu, namespace scope;
 # tests/test_torch_analysis.py reads them from the source)
 THREADS = 256
-A_FT = 64  # phase A: f indices per tile
-A_KC = 64  # phase A: columns of v per chunk
-A_RC = 32  # phase A: rows per staged chunk
-A_TARGET_ITEMS = 264  # phase A: two items per SM on 132 SMs
-C_R = 64  # phase C: rows of w per item
-C_KC = 64  # phase C: columns per chunk
-C_FC = 32  # phase C: f indices per staged chunk
-C_CST = C_R + 4  # phase C: row stride of the transposed C tile
+WARPS = THREADS // 32
+SLABS = 132  # slabs of d: one per SM of an H100
+PAIR = 2  # blocks of a cluster: their partials are added on chip
+RC = 32  # rows of a staged chunk
+AQ = 2  # phase A: a lane's f quads (4 indices each)
+AC = 3  # phase A: a lane's groups of 4 columns
+TR_RESIDENT = 12  # phase C rows per warp per pass, resident plan
+TR_STREAMED = 4  # streamed plan: one chunk per pass
+ST_STREAMED = 2  # streamed plan: chunks in the ring
+SUM_MIN = 4 * SLABS  # phases B, D stage 4 entries of every slab at least
 SMEM_MAX = 232448  # bytes a block may use on Hopper
 
 
-def _plan(d: int, f: int, k: int) -> dict:
-    """``make_plan`` of the C host code: phase A's tiles and slabs, phase
-    C's row items, and the dynamic shared memory (bytes)."""
-    ntile = -(-f // A_FT)
-    max_slabs = -(-d // A_RC)
-    nslab = min(max(-(-A_TARGET_ITEMS // ntile), 1), max_slabs)
-    per = -(-d // nslab)
-    slab_rows = -(-per // A_RC) * A_RC
-    pad4 = (k + 3) & ~3
-    smem_a = A_RC * (A_FT + A_KC)
-    smem_c = C_R * pad4 + C_FC * (C_CST + C_KC)
-    return dict(ntile=ntile, nslab=-(-d // slab_rows), slab_rows=slab_rows,
-                nblk=-(-d // C_R), smem=4 * max(smem_a, smem_c))
+def _smem_floats(fp: int, kp: int, stages: int, tr: int) -> int:
+    """``smem_floats`` of the C host code: the C ring, then a region for the
+    largest of the v ring and the slab's partial (phase A), the staged
+    partials (phases B, D) and y, a pass's w rows (rows of ``kp`` padded to
+    16 modulo 32 floats: ``wstride``) and the Gram tile (phase C)."""
+    ws = kp + (16 - kp) % 32
+    return stages * RC * fp + max(stages * RC * kp + fp * kp, SUM_MIN,
+                                  fp * kp + WARPS * tr * ws + kp * kp)
+
+
+@functools.lru_cache(maxsize=256)
+def matvec_gram_plan(d: int, f: int, k: int) -> dict:
+    """``make_plan`` of the C host code: slabs of d (``rows`` each, in
+    ``nchunk`` chunks of ``RC`` rows), whether a slab stays in shared memory
+    (``resident``, the ring holding every chunk) or streams through
+    ``ST_STREAMED`` stages, and the dynamic shared memory in bytes
+    (``fits``: within ``SMEM_MAX``)."""
+    fp, kp = -(-f // 4) * 4, -(-k // 4) * 4
+    rows = -(-d // SLABS)
+    nchunk = -(-rows // RC)
+    smem = 4 * _smem_floats(fp, kp, nchunk, TR_RESIDENT)
+    resident = smem <= SMEM_MAX
+    if not resident:
+        smem = 4 * _smem_floats(fp, kp, ST_STREAMED, TR_STREAMED)
+    return dict(fp=fp, kp=kp, rows=rows, nslab=-(-d // rows), nchunk=nchunk,
+                resident=resident, stages=nchunk if resident else ST_STREAMED,
+                tr=TR_RESIDENT if resident else TR_STREAMED, smem=smem,
+                fits=smem <= SMEM_MAX)
+
+
+#: widest iterate the kernel takes: y (f, k'), a pass's rows of w and the
+#: (k', k') Gram tile share a block's 227 KB with the staged rows of C, so
+#: above this no plan fits even for f <= 4 (wider f lowers the limit:
+#: :func:`matvec_gram_plan`'s ``fits``)
+MAX_K = 220
 
 
 @functools.lru_cache(maxsize=256)  # pure, and the record is frozen
 def matvec_gram_launch(d: int, f: int, k: int) -> KernelLaunch:
     """The cooperative launch ``det_matvec_gram`` makes for C ``(d, f)`` and
-    v ``(d, k)`` fp32: 256 threads, dynamic shared memory from the plan, a
-    grid sized on the card (``grid_rule="occupancy"``, at most one block per
-    item). A CTA's extents are per item of each phase: phase A reads one slab
-    of C's rows in one 64-wide f tile with the slab of v and writes that
-    tile's partial; phase C reads 64 rows of C across f and all of y, and
-    writes its 64 rows of w and a k x k Gram partial."""
-    p = _plan(d, f, k)
-    rows_a, tile_a, rows_c = min(p["slab_rows"], d), min(A_FT, f), min(C_R, d)
+    v ``(d, k)`` fp32: ``matvec_gram_kernel<TR>`` of the plan (``TR_RESIDENT``
+    or ``TR_STREAMED``), 256 threads, dynamic shared memory from the plan, a
+    grid sized on the card (``grid_rule="occupancy"``: as many clusters of
+    ``PAIR`` blocks as stay resident, at most one block per slab, rounded up
+    to a whole pair). A CTA's extents are per slab: it reads the slab of C
+    and of v, writes the slab's ``C^T v`` partial, reads all of y, writes
+    the slab's rows of w and their Gram partial."""
+    p = matvec_gram_plan(d, f, k)
+    rows = min(p["rows"], d)
     return KernelLaunch(
-        kernel="matvec_gram_kernel",
+        kernel=f"matvec_gram_kernel<{p['tr']}>",
         source="csrc/matvec_gram.cu",
         grid=None,
         threads=THREADS,
         dynamic_smem=p["smem"],
         static_smem=0,
         operands=(
-            ("C (phase A item)", (rows_a, tile_a)),
-            ("v (phase A item)", (rows_a, k)),
-            ("C^T v partial (phase A item)", (tile_a, k)),
-            ("y = C^T v (phase C item)", (f, k)),
-            ("C (phase C item)", (rows_c, f)),
-            ("w (phase C item)", (rows_c, k)),
-            ("w^T w partial (phase C item)", (k, k)),
+            ("C (slab)", (rows, f)),
+            ("v (slab)", (rows, k)),
+            ("C staged", (p["stages"] * RC, p["fp"])),
+            ("C^T v partial (slab)", (f, k)),
+            ("y = C^T v (staged)", (p["fp"], p["kp"])),
+            ("w (slab)", (rows, k)),
+            ("w^T w partial (slab)", (k, k)),
         ),
         grid_rule="occupancy",
     )
@@ -151,9 +175,10 @@ def matvec_gram_cuda(c: torch.Tensor, v: torch.Tensor):
     k = v.shape[1]
     if min(d, f, k) < 1:
         raise ValueError(f"matvec_gram_cuda needs non-empty operands, got {(d, f, k)}")
-    if k > MAX_K or d > _INT_MAX or f > _INT_MAX:
+    if k > MAX_K or d > _INT_MAX or f > _INT_MAX or not matvec_gram_plan(d, f, k)["fits"]:
         raise ValueError(
-            f"matvec_gram_cuda takes k <= {MAX_K} and d, f < 2**31, got {(d, f, k)}"
+            f"matvec_gram_cuda takes k <= {MAX_K}, d, f < 2**31 and y (f, k) within a "
+            f"block's shared memory beside its staged rows, got {(d, f, k)}"
         )
     lib = _lib()
     w = torch.empty((d, k), dtype=torch.float32, device=c.device)

@@ -56,6 +56,8 @@ PRODUCT = ("        wgmma_m64n256k16(acc, sw128_desc(a + kk * 2048), "
 
 
 def no_stores(src: str) -> str:
+    if src.count(STORE_START) != 1:
+        raise RuntimeError(f"{SOURCE} has no single text {STORE_START!r}")
     start = src.index(STORE_START)
     end = src.index("    }\n  }\n}\n", start)
     # keep the accumulators alive without storing them

@@ -1,142 +1,161 @@
 #!/usr/bin/env python3
 """Where the time of the fused matvec + Gram kernel goes, on one card.
 
-    python3 scripts/torch_profile_matvec_gram.py
+    python3 scripts/torch_profile_matvec_gram.py [--json OUT]
 
 For ``chip_smoke.py``'s operands at the slice shape (12288, 200, 58) and at
-two others, it prints one JSON line per shape:
+two others ((12288, 400, 58) takes the streamed plan), it builds copies of
+``csrc/matvec_gram.cu`` and prints one JSON line per shape:
 
 - ``event_ms``: CUDA events around one ``matvec_gram_cuda`` call, median of
   25 after warm-up (the host's launch path included, as in ``chip_smoke.py``);
 - ``device_us``: the kernel's device time per call under ``torch.profiler``
-  (20 calls);
-- ``through_phase_us``: device time per call of copies of
-  ``csrc/matvec_gram.cu`` built to return after phase A, B, C or D (D is
-  the whole kernel), CUDA events over 200 back-to-back calls, so the
-  difference of two neighbours is one phase and its grid barrier. The
-  copies are built into ``build/torch_kernels/`` and the port never loads
-  them.
+  (``chip_smoke.device_ms``, 20 calls);
+- ``through_phase_us``: device time per call of copies that return before
+  phase B, C or D (after A, B or C; D is the whole kernel), so the
+  difference of two neighbours is one phase and its grid barrier;
+- ``parts_us``: device time of copies with one part taken out: through A
+  without the slab's loads (``A_no_loads``, the products run on whatever
+  shared memory holds) or without its products (``A_no_products``),
+  through C without its products (``C_no_products``) or without the Gram
+  tile's update (``C_no_gram``), and the whole kernel with the partial of
+  phase A stored from the lanes' tiles (``A_scattered_stores``) instead
+  of staged and stored in one run.
 
-It imports nothing of JAX or of the JAX package, needs a card, and exits
-non-zero without one.
+The copies are built by ``scripts/torch_kernel_copies.py`` into
+``build/torch_kernels/`` (the port never loads them). It prints the card's
+name and power limit first, imports nothing of JAX or of the JAX package,
+needs a card, and exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_kernel_copies as kc
+
 SHAPES = ((12288, 200, 58), (12288, 400, 58), (3072, 80, 18))
-PHASES = ("A", "B", "C", "D")
-# the kernel's phase comments, each preceded in a copy by an early return
-MARKS = ("  // B. y = sum over slabs", "  // C. rows of w and their Gram",
-         "  // D. g = sum over row items")
+SOURCE = "matvec_gram.cu"
+# the kernel's phase comments: a copy returns before one of them
+MARKS = ("  // B. y = sum over slabs", "  // C. y staged once per block",
+         "  // D. g = sum over slabs")
+A_LOADS = ("    stage_rows(smem_u32(cring + (size_t)st * RC * fp), a.c, r0, nr, a.f, fp, a.cvec);\n"
+           "    stage_rows(smem_u32(vring + (size_t)st * RC * kp), a.v, r0, nr, a.k, kp, a.vvec);\n")
+A_PRODUCTS = ("    if (mine > 0) fetch(row(0), ra);", "    if (q == nchunk - 1) {")
+C_PRODUCTS = ("#pragma unroll 1\n      for (int i4 = i4_begin;",
+              "#pragma unroll\n      for (int e = 0; e < TR; ++e)\n#pragma unroll\n"
+              "        for (int x = 0; x < 8; ++x) {\n          acc[e][x] += __shfl")
+C_GRAM = ("    for (int base = 0; base < ntri; base += THREADS / 2) {",
+          "    __syncthreads();  // wbuf and the stage are free")
+A_STAGED = ("          float4* out = reinterpret_cast<float4*>(pstage + (size_t)i * kp);",
+            "          float4* out = reinterpret_cast<float4*>(\n"
+            "              a.part + (size_t)(s / PAIR) * fp * kp + (size_t)i * kp);")
+A_WRITE_OUT = "    to[x] = make_float4(p0.x + p1.x, p0.y + p1.y, p0.z + p1.z, p0.w + p1.w);"
 
 
-def build_copies(_build) -> dict:
-    """One shared library per phase, returning after it (nvcc in parallel)."""
-    src = (_build.CSRC / "matvec_gram.cu").read_text()
-    for n, mark in enumerate(MARKS, 1):
-        if mark not in src:
-            raise RuntimeError(f"matvec_gram.cu has no line starting {mark!r}")
-        src = src.replace(mark, f"#if DET_STOP_AFTER == {n}\n  return;\n#endif\n{mark}")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = _build.BUILD_DIR / "matvec_gram_phases.cu"
-    path.write_text(src)
-    procs = {}
-    for n in range(1, len(PHASES) + 1):
-        out = _build.BUILD_DIR / f"libmatvec_gram_phase{n}.so"
-        procs[n] = (out, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-DDET_STOP_AFTER={n}",
-             "-o", str(out), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for n, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the phase-{n} copy:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.det_matvec_gram_workspace.argtypes = [i, i, i]
-        lib.det_matvec_gram_workspace.restype = ctypes.c_size_t
-        lib.det_matvec_gram_grid.argtypes = [i, i, i]
-        lib.det_matvec_gram_grid.restype = i
-        lib.det_matvec_gram.argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
-        lib.det_matvec_gram.restype = i
-        libs[PHASES[n - 1]] = lib
-    return libs
+def through(phase: str):
+    """The copy that returns after ``phase`` (before the next one's comment)."""
+    mark = MARKS["ABC".index(phase)]
+    return lambda s: kc.edit(s, mark, "  return;\n" + mark, SOURCE)
 
 
-def through_phase_us(lib, c, v, reps: int = 200) -> float:
+def cut(start: str, end: str):
+    """The copy without the text from ``start`` up to (not including) ``end``."""
+    def edit(src: str) -> str:
+        if src.count(start) != 1:
+            raise RuntimeError(f"{SOURCE} has no single text {start!r}")
+        i = src.index(start)
+        return src[:i] + src[src.index(end, i):]
+    return edit
+
+
+def chain(*edits):
+    def edit(src: str) -> str:
+        for e in edits:
+            src = e(src)
+        return src
+    return edit
+
+
+def scattered_stores(src: str) -> str:
+    """Each lane stores its tile of the phase A partial straight to the
+    workspace, and the staged run is read but not written (a timing copy:
+    its results are wrong)."""
+    src = kc.edit(src, *A_STAGED, SOURCE)
+    return kc.edit(src, A_WRITE_OUT, "    (void)p1;", SOURCE)
+
+
+VARIANTS = {
+    "kernel": lambda s: s,
+    "thru_A": through("A"),
+    "thru_B": through("B"),
+    "thru_C": through("C"),
+    "A_no_loads": chain(lambda s: kc.edit(s, A_LOADS, "", SOURCE), through("A")),
+    "A_no_products": chain(cut(*A_PRODUCTS), through("A")),
+    "C_no_products": chain(cut(*C_PRODUCTS), through("C")),
+    "C_no_gram": chain(cut(*C_GRAM), through("C")),
+    "A_scattered_stores": scattered_stores,
+}
+PARTS = ("A_no_loads", "A_no_products", "C_no_products", "C_no_gram", "A_scattered_stores")
+
+
+def main(argv=None) -> int:
     import torch
 
-    (d, f), k = c.shape, v.shape[1]
-    w = torch.empty((d, k), device=c.device)
-    g = torch.empty((k, k), device=c.device)
-    ws = torch.empty((lib.det_matvec_gram_workspace(d, f, k),), dtype=torch.uint8,
-                     device=c.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    blocks = lib.det_matvec_gram_grid(d, f, k)
-    if blocks < 1:
-        raise RuntimeError(f"phase copy grid query failed: CUDA error {-blocks}")
-
-    def run():
-        rc = lib.det_matvec_gram(c.data_ptr(), v.data_ptr(), w.data_ptr(),
-                                 g.data_ptr(), ws.data_ptr(), d, f, k, blocks, stream)
-        if rc != 0:
-            raise RuntimeError(f"phase copy launch failed: CUDA error {rc}")
-
-    for _ in range(5):
-        run()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps * 1e3
-
-
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("torch_profile_matvec_gram: torch.cuda.is_available() is False; "
-              "needs a card", file=sys.stderr)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", help="also write the results to this file")
+    args = ap.parse_args(argv)
+    if not kc.require_card("torch_profile_matvec_gram"):
         return 2
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-    from distributed_eigenspaces_tpu_torch.ops import _build
     from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
-    from torch.profiler import ProfilerActivity, profile
 
-    card = chip_smoke.card_line()
-    dev = torch.device("cuda")
-    libs = build_copies(_build)
+    cs = kc.chip_smoke
+    card = kc.card()
+    libs = kc.build("matvec_gram", VARIANTS, {
+        "det_matvec_gram_grid": [kc.INT, kc.INT, kc.INT],
+        "det_matvec_gram": [kc.PTR] * 5 + [kc.INT] * 4 + [kc.PTR]})
+    for lib in libs.values():
+        lib.det_matvec_gram_workspace.argtypes = [kc.INT] * 3
+        lib.det_matvec_gram_workspace.restype = ctypes.c_size_t
+    results = []
     for seed, shape in enumerate(SHAPES):
-        c, v = chip_smoke.mg_operands(shape, dev, seed=11 + seed)
-        event_ms = chip_smoke.time_ms(lambda: mg.matvec_gram_cuda(c, v))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                mg.matvec_gram_cuda(c, v)
-            torch.cuda.synchronize()
-        device_us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if "matvec_gram_kernel" in e.key
-        ) / 20
-        phases = {p: through_phase_us(lib, c, v) for p, lib in libs.items()}
-        bound_ms, bound_by = chip_smoke.matvec_gram_bound(shape)
-        print(json.dumps({
-            "phase": "matvec_gram_profile", "shape": list(shape), "event_ms": event_ms,
-            "device_us": device_us, "through_phase_us": phases,
-            "bound_us": bound_ms * 1e3, "bound_by": bound_by, "card": card,
-        }), flush=True)
+        d, f, k = shape
+        c, v = cs.mg_operands(shape, "cuda", seed=11 + seed)
+        event_ms = cs.time_ms(lambda: mg.matvec_gram_cuda(c, v))
+        device_us = cs.device_ms(lambda: mg.matvec_gram_cuda(c, v)) * 1e3
+        w = torch.empty((d, k), device="cuda")
+        g = torch.empty((k, k), device="cuda")
+        copies = {}
+        for name, lib in libs.items():
+            ws = torch.empty((lib.det_matvec_gram_workspace(d, f, k),), dtype=torch.uint8,
+                             device="cuda")
+            blocks = lib.det_matvec_gram_grid(d, f, k)
+            if blocks < 1:
+                raise RuntimeError(f"{name} copy: grid query failed, CUDA error {-blocks}")
+
+            def run(lib=lib, ws=ws, blocks=blocks, name=name):
+                kc.checked(lib.det_matvec_gram(
+                    c.data_ptr(), v.data_ptr(), w.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                    d, f, k, blocks, torch.cuda.current_stream().cuda_stream), name)
+
+            copies[name] = cs.device_ms(run) * 1e3
+        bound_ms, bound_by = cs.matvec_gram_bound(shape)
+        row = {"phase": "matvec_gram_profile", "shape": list(shape),
+               "kernel": mg.matvec_gram_launch(*shape).kernel, "event_ms": event_ms,
+               "device_us": device_us,
+               "through_phase_us": {"A": copies["thru_A"], "B": copies["thru_B"],
+                                    "C": copies["thru_C"], "D": copies["kernel"]},
+               "parts_us": {p: copies[p] for p in PARTS},
+               "bound_us": bound_ms * 1e3, "bound_by": bound_by, "card": card}
+        results.append(row)
+        print(json.dumps(row), flush=True)
+        del c, v, w, g
+    if args.json:
+        with open(args.json, "w", encoding="utf-8") as fh:
+            json.dump({"card": card, "results": results}, fh, indent=1)
     return 0
 
 

@@ -374,47 +374,108 @@ def test_serve_split_order_is_the_same_at_every_row_count(d, k, x_dtype):
             assert plan["tiles"] * 2 * plan["np"] >= k > (plan["tiles"] - 1) * 2 * plan["np"]
 
 
-def test_matvec_gram_launch_uses_the_source_constants():
+@pytest.mark.parametrize("d,f,k,resident", [
+    (1024, 32, 8, True), (12288, 200, 58, True), (3000, 80, 13, True), (97, 5, 70, True),
+    (1, 1, 1, True), (100000, 8, 8, True), (12288, 400, 58, False), (4000, 37, 200, False),
+    (1, 1, 220, False)])
+def test_matvec_gram_launch_uses_the_source_constants(d, f, k, resident):
+    """``matvec_gram_launch`` / ``matvec_gram_plan`` against
+    ``csrc/matvec_gram.cu`` read as text: the constants, the plan rule
+    (resident where the whole slab fits beside y, else streamed) and the
+    shared memory of each plan, computed here from the source's constants."""
     src = CSRC / "matvec_gram.cu"
     c = _constexprs(src)
-    for name in ("THREADS", "A_FT", "A_KC", "A_RC", "A_TARGET_ITEMS", "C_R",
-                 "C_KC", "C_FC", "C_CST", "SMEM_MAX"):
+    for name in ("THREADS", "WARPS", "SLABS", "PAIR", "RC", "AQ", "AC", "TR_RESIDENT",
+                 "TR_STREAMED",
+                 "ST_STREAMED", "SUM_MIN", "SMEM_MAX"):
         assert c[name] == getattr(mg, name), name
-    for d, f, k in ((1024, 32, 8), (12288, 200, 58), (3000, 80, 13), (97, 5, 70)):
-        launch = mg.matvec_gram_launch(d, f, k)
-        pad4 = (k + 3) // 4 * 4
-        smem = 4 * max(c["A_RC"] * (c["A_FT"] + c["A_KC"]),
-                       c["C_R"] * pad4 + c["C_FC"] * (c["C_CST"] + c["C_KC"]))
-        assert launch.dynamic_smem == smem and launch.static_smem == 0
-        assert launch.threads == c["THREADS"]
-        assert launch.grid is None and launch.grid_rule == "occupancy"
-        assert launch.resolved((264, 1, 1)).grid == (264, 1, 1)
-    # the slice shape: 4 f tiles x 64 slabs of 192 rows, 192 row items
-    plan = mg._plan(12288, 200, 58)
-    assert (plan["ntile"], plan["nslab"], plan["slab_rows"], plan["nblk"]) == (4, 64, 192, 192)
+    text = src.read_text()
+    for line in ("p.rows = (d + SLABS - 1) / SLABS;",
+                 "const size_t resident = 4 * smem_floats(p.fp, p.kp, p.nchunk, TR_RESIDENT);",
+                 "p.smem = p.resident ? resident : 4 * smem_floats(p.fp, p.kp, ST_STREAMED, "
+                 "TR_STREAMED);",
+                 "return max(max(stages * RC * kp + fp * kp, SUM_MIN), fp * kp + WARPS * tr * "
+                 "wstride(kp) + kp * kp);",
+                 "int wstride(int kp) { return kp + ((16 - kp) % 32 + 32) % 32; }",
+                 "return PAIR * min(pairs, p.npart);", "pallas_gram.py"):
+        assert line in text, line
+
+    def smem(stages, tr):
+        fp, kp = math.ceil(f / 4) * 4, math.ceil(k / 4) * 4
+        ws = kp + (16 - kp) % 32  # w rows 16 floats modulo 32 apart
+        return 4 * (stages * c["RC"] * fp + max(stages * c["RC"] * kp + fp * kp, c["SUM_MIN"],
+                                                fp * kp + c["WARPS"] * tr * ws + kp * kp))
+
+    plan = mg.matvec_gram_plan(d, f, k)
+    rows = math.ceil(d / c["SLABS"])
+    nchunk = math.ceil(rows / c["RC"])
+    assert (plan["rows"], plan["nslab"], plan["nchunk"]) == (rows, math.ceil(d / rows), nchunk)
+    assert plan["resident"] is resident
+    assert (smem(nchunk, c["TR_RESIDENT"]) <= c["SMEM_MAX"]) is resident
+    want = smem(nchunk, c["TR_RESIDENT"]) if resident else smem(c["ST_STREAMED"],
+                                                                c["TR_STREAMED"])
+    assert plan["fits"] and plan["smem"] == want <= c["SMEM_MAX"]
+    launch = mg.matvec_gram_launch(d, f, k)
+    tr = c["TR_RESIDENT"] if resident else c["TR_STREAMED"]
+    assert launch.kernel == f"matvec_gram_kernel<{tr}>"
+    assert f"matvec_gram_kernel<{'TR_RESIDENT' if resident else 'TR_STREAMED'}>" in text
+    assert launch.dynamic_smem == want and launch.static_smem == 0
+    assert launch.threads == c["THREADS"]
+    assert launch.grid is None and launch.grid_rule == "occupancy"
+    assert launch.resolved((132, 1, 1)).grid == (132, 1, 1)
+    assert "attrs[1].val.clusterDim.x = PAIR;" in text  # launched in pairs
+    ops = dict(launch.operands)
+    assert ops["C (slab)"] == (min(rows, d), f)
+    assert ops["C staged"] == (plan["stages"] * c["RC"], plan["fp"])
+    # every operand a CTA owns stays within the analyzer's tile budget
+    assert max(launch.operand_elems().values()) <= 131072
+
+
+def test_matvec_gram_slice_shape_takes_one_slab_per_sm():
+    """The slice shape: 131 slabs of 94 rows, each staged whole (three
+    chunks), so C is read from device memory once; eight workers' factors
+    (f = 400) stream through two stages; past the limit no plan fits."""
+    plan = mg.matvec_gram_plan(12288, 200, 58)
+    assert (plan["rows"], plan["nslab"], plan["nchunk"], plan["resident"]) == (94, 131, 3, True)
+    assert mg.matvec_gram_plan(12288, 400, 58)["stages"] == mg.ST_STREAMED
+    assert not mg.matvec_gram_plan(12288, 800, 58)["fits"]
+    assert not mg.matvec_gram_plan(1, 1, mg.MAX_K + 1)["fits"]
+    assert mg.matvec_gram_plan(1, 1, mg.MAX_K)["fits"]
 
 
 @pytest.mark.parametrize("m,n,d,dtype,aligned", [
     (8, 1024, 3072, torch.bfloat16, True), (4, 128, 256, torch.float32, True),
     (3, 1000, 3000, torch.bfloat16, True), (2, 37, 129, torch.bfloat16, True),
     (2, 96, 64, torch.bfloat16, False), (1, 1, 1, torch.float32, True),
-    (5, 64, 136, torch.bfloat16, True)])
+    (5, 64, 136, torch.bfloat16, True), (8, 1024, 3072, torch.float32, True),
+    (3, 1000, 3001, torch.float32, True), (3, 1000, 3000, torch.float32, False),
+    (8, 256, 512, torch.float32, True), (8, 100, 510, torch.float32, True),
+    (2, 1, 300, torch.float32, True), (5, 37, 130, torch.float32, True),
+    (65535, 2, 8, torch.float32, True)])
 def test_gram_launch_uses_the_source_constants(m, n, d, dtype, aligned):
     """``gram_launch`` against ``csrc/gram.cu`` read as text: the tile and
-    stage constants, the shape rule that picks the kernel, and the launch
-    each kernel makes (the TMA kernel's persistent grid is sized on the
-    card; the others take one CTA per upper-triangle tile)."""
+    stage constants, the shape rules that pick the kernel (and, for fp32,
+    its tile edge and copy width), and the launch each kernel makes (the TMA
+    kernel's persistent grid is sized on the card; the others take one CTA
+    per upper-triangle tile)."""
     src = CSRC / "gram.cu"
     c = _constexprs(src)
     for name in ("TILE", "THREADS", "SMEM_BYTES", "T_BK", "T_STAGES", "T_THREADS",
-                 "T_SMEM_BYTES"):
+                 "T_SMEM_BYTES", "F_THREADS", "F_BK", "F_STAGES", "F_FILL"):
         assert c[name] == getattr(tgram, name), name
     text = src.read_text()
     assert "return dtype == 1 && aligned && d % 8 == 0;" in text
     assert "gram_bf16_tma_kernel<<<gx, T_THREADS, T_SMEM_BYTES, s>>>" in text
-    assert "gram_f32_kernel<<<grid, THREADS, SMEM_BYTES, s>>>" in text
+    assert "gram_f32_kernel<T, VEC><<<grid, F_THREADS, smem, s>>>" in text
+    assert "constexpr int smem = F_STAGES * 2 * F_BK * T * 4;  // the ring" in text
     assert "gram_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>" in text
-    assert "const dim3 grid(tiles * (tiles + 1) / 2, 1, m);" in text
+    assert text.count("const dim3 grid(tiles * (tiles + 1) / 2, 1, m);") == 2
+    assert "for (int t = 128; t > 32; t /= 2) {" in text  # f32_tile: 128, 64, else 32
+    assert "if ((long long)m * (tiles * (tiles + 1) / 2) >= F_FILL) return t;" in text
+    assert "bool f32_vec(int d, int aligned) { return aligned && d % 4 == 0; }" in text
+    for t in tgram.F_TILES[:-1]:
+        assert f"case {t}: return launch_f32_vec<{t}>" in text
+    assert f"default: return launch_f32_vec<{tgram.F_TILES[-1]}>" in text
     assert "__launch_bounds__(T_THREADS, 1)" in text and "pallas_gram.py" in text
     launch = tgram.gram_launch(m, n, d, dtype, aligned)
     tma = dtype == torch.bfloat16 and aligned and d % 8 == 0
@@ -427,15 +488,49 @@ def test_gram_launch_uses_the_source_constants(m, n, d, dtype, aligned):
         assert ops["x staged"] == (c["T_STAGES"] * c["T_BK"], 3 * c["TILE"])
         assert ops["G block (item)"] == (min(128, d), min(256, d))
         assert launch.resolved((132, 1, 1)).grid == (132, 1, 1)
+    elif dtype == torch.float32:
+        edge = next((t for t in (128, 64) if m * _tri(math.ceil(d / t)) >= c["F_FILL"]), 32)
+        vec = 4 if aligned and d % 4 == 0 else 1
+        assert tgram.f32_tile(m, d) == edge and tgram.f32_vec(d, aligned) == vec
+        assert launch.kernel == f"gram_f32_kernel<{edge}, {vec}>"
+        assert launch.grid == (_tri(math.ceil(d / edge)), 1, m)
+        assert launch.threads == c["F_THREADS"]
+        assert launch.dynamic_smem == c["F_STAGES"] * 2 * c["F_BK"] * edge * 4
+        ops = dict(launch.operands)
+        assert ops["G tile (item)"] == (min(edge, d), min(edge, d))
+        assert ops["x staged"] == (c["F_STAGES"] * c["F_BK"], 2 * edge)
+        # every operand a CTA owns stays within the analyzer's tile budget
+        assert max(launch.operand_elems().values()) <= 131072
     else:
         tiles = math.ceil(d / c["TILE"])
-        assert launch.kernel == ("gram_f32_kernel" if dtype == torch.float32
-                                 else "gram_bf16_kernel")
+        assert launch.kernel == "gram_bf16_kernel"
         assert launch.grid == (tiles * (tiles + 1) // 2, 1, m)
         assert (launch.threads, launch.dynamic_smem) == (c["THREADS"], c["SMEM_BYTES"])
         assert dict(launch.operands)["G tile (item)"] == (min(128, d), min(128, d))
     assert launch.static_smem == 0 and launch.source == "csrc/gram.cu"
-    assert launch.kernel in geometry.RECORDED_KERNELS
+    assert launch.kernel.split("<")[0] in geometry.RECORDED_KERNELS
+
+
+def _tri(tiles: int) -> int:
+    return tiles * (tiles + 1) // 2
+
+
+@pytest.mark.parametrize("m,d,edge", [
+    (4, 256, 32), (8, 3072, 128), (3, 3000, 128), (8, 512, 64), (1, 1, 32), (2, 300, 32),
+    (1, 2048, 128), (1, 1024, 64)])
+def test_gram_f32_tile_fills_the_card(m, d, edge):
+    """The fp32 tile rule: the largest edge whose CTAs fill the 132 SMs, else
+    the smallest. At the entry shape 128 x 128 tiles gave 12 CTAs; 32 x 32
+    tiles give 144."""
+    launch = tgram.gram_launch(m, 64, d, torch.float32)
+    assert tgram.f32_tile(m, d) == edge
+    ctas = launch.grid[0] * launch.grid[2]
+    larger = [t for t in tgram.F_TILES if t > edge]
+    assert all(m * _tri(math.ceil(d / t)) < tgram.F_FILL for t in larger)
+    if edge > tgram.F_TILES[-1]:
+        assert ctas >= tgram.F_FILL
+    if (m, d) == (4, 256):
+        assert ctas == 144 >= 132 and launch.kernel == "gram_f32_kernel<32, 4>"
 
 
 def test_mutant_launch_uses_the_source_constants():

@@ -92,6 +92,34 @@ def test_gram_cuda_matches_plain(cuda_device, dtype, shape):
     assert _rel(unnormalized, tgram.gram_plain(x, normalize=False)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("shape,offset", [
+    ((4, 128, 256), 0), ((8, 256, 512), 0), ((8, 100, 510), 0), ((3, 1000, 3001), 0),
+    ((3, 1000, 3000), 1), ((2, 1, 300), 0), ((5, 37, 130), 0), ((1, 1, 1), 0),
+    ((8, 1024, 3072), 0)])
+def test_gram_f32_every_tile_edge_and_copy_width(cuda_device, shape, offset):
+    """fp32 x takes ``gram_f32_kernel<edge, vec>`` of the shape rule
+    (``f32_tile``: 32, 64 or 128; ``f32_vec``: 16-byte copies on aligned rows
+    with d % 4 == 0, else 4-byte), recorded as ``gram_launch`` declares, at
+    1e-5 of the plain version and exactly symmetric; one launch per call."""
+    flat = _x((int(np.prod(shape)) + offset,), seed=17).to(cuda_device)
+    x = flat[offset:].view(shape)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned == (offset == 0)
+    before = tgram.launches
+    with tgeo.recording() as rec:
+        got = tgram.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert tgram.launches == before + 1
+    want_launch = tgram.gram_launch(*shape, torch.float32, aligned)
+    assert rec == [want_launch]
+    assert want_launch.kernel == (f"gram_f32_kernel<{tgram.f32_tile(shape[0], shape[2])}, "
+                                  f"{tgram.f32_vec(shape[2], aligned)}>")
+    want = tgram.gram_plain(x)
+    assert _rel(got, want) <= TOL["float32"]
+    assert torch.equal(got, got.mT)
+    assert torch.equal(tgram.gram_cuda(x), got)  # the same bits again
+
+
 def test_gram_misaligned_bf16_takes_the_mma_sync_kernel(cuda_device):
     """The shape rule reads the base address too: a bf16 view 2 bytes off
     a 16-byte boundary cannot be read by TMA, so it takes the mma.sync
@@ -390,21 +418,56 @@ def test_padded_project_bit_equals_direct_on_card(cuda_device):
 
 
 @pytest.mark.parametrize(
-    "d,f,k", [(256, 64, 16), (3000, 80, 13), (12288, 200, 58), (97, 5, 70), (1, 1, 1)]
+    "d,f,k", [(256, 64, 16), (3000, 80, 13), (12288, 200, 58), (97, 5, 70), (1, 1, 1),
+              (100000, 8, 8), (12288, 400, 58), (4000, 37, 200), (1, 1, 220)]
 )
 def test_matvec_gram_kernel_matches_plain(cuda_device, d, f, k):
+    """Both plans (the slab resident, or streamed: the last three shapes),
+    ragged f and k', slabs of many chunks: 1e-5 of the plain version, ``g``
+    exactly symmetric, the same bits twice, one launch per call on the
+    plan's kernel."""
     c = _x((d, f), seed=6).to(cuda_device)
     v = _x((d, k), seed=7).to(cuda_device)
     before = tmg.launches
-    w, g = tmg.matvec_gram_cuda(c, v)
+    with tgeo.recording() as rec:
+        w, g = tmg.matvec_gram_cuda(c, v)
     torch.cuda.synchronize()
     assert tmg.launches == before + 1
+    assert rec == [tmg.matvec_gram_launch(d, f, k).resolved(rec[0].grid)]
+    assert rec[0].kernel == ("matvec_gram_kernel<12>" if tmg.matvec_gram_plan(d, f, k)["resident"]
+                             else "matvec_gram_kernel<4>")
     pw, pg = tmg.matvec_gram_plain(c, v)
     assert w.shape == (d, k) and g.shape == (k, k)
     assert _rel(w, pw) <= 1e-5 and _rel(g, pg) <= 1e-5
     assert torch.equal(g, g.mT)
     w2, g2 = tmg.matvec_gram_cuda(c, v)
     assert torch.equal(w, w2) and torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("d,f,k", [(12288, 200, 58), (3000, 80, 13), (12288, 400, 58)])
+def test_matvec_gram_bits_do_not_depend_on_the_grid(cuda_device, d, f, k):
+    """Every sum's order is fixed by (d, f, k'): launches of one and of three
+    pairs of blocks (each block taking many slabs in rounds, the resident
+    plan loading its slabs again in phase C) give the wrapper's launch bit
+    for bit; a grid that is not whole pairs is refused."""
+    c = _x((d, f), seed=18).to(cuda_device)
+    v = _x((d, k), seed=19).to(cuda_device)
+    w, g = tmg.matvec_gram_cuda(c, v)
+    lib = tmg._lib()
+    ws = torch.empty((lib.det_matvec_gram_workspace(d, f, k),), dtype=torch.uint8,
+                     device=cuda_device)
+    w2, g2 = torch.empty_like(w), torch.empty_like(g)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+
+    def launch(blocks):
+        return lib.det_matvec_gram(c.data_ptr(), v.data_ptr(), w2.data_ptr(), g2.data_ptr(),
+                                   ws.data_ptr(), d, f, k, blocks, stream)
+
+    for blocks in (tmg.PAIR, 3 * tmg.PAIR):
+        assert launch(blocks) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(w, w2) and torch.equal(g, g2), blocks
+    assert launch(tmg.PAIR + 1) != 0
 
 
 def test_matvec_gram_auto_on_cuda_launches_or_raises(cuda_device):
@@ -419,6 +482,8 @@ def test_matvec_gram_auto_on_cuda_launches_or_raises(cuda_device):
         tmg.matvec_gram_auto(c.mT.contiguous().mT, v)
     with pytest.raises(ValueError, match=f"k <= {tmg.MAX_K}"):
         tmg.matvec_gram_auto(c, _x((300, tmg.MAX_K + 1)).to(cuda_device))
+    with pytest.raises(ValueError, match="shared memory"):  # y (800, 58) fits no plan
+        tmg.matvec_gram_auto(_x((300, 800)).to(cuda_device), _x((300, 58)).to(cuda_device))
     assert tmg.launches == before + 1
 
 
