@@ -69,13 +69,15 @@ exits non-zero without printing a result:
 9. parity_matvec_gram: the fused matvec + Gram kernel of the large-d
    solver against its plain version at (256, 64, 16), the slice shape
    (12288, 200, 58) and a ragged (3000, 80, 13) (the resident plan) and at
-   (12288, 400, 58) and (4000, 37, 200) (the streamed plan): relative
+   (12288, 400, 58), (4000, 37, 200), (12288, 800, 58) and (2048, 96, 840)
+   (the streamed plan, whose shared memory does not depend on f): relative
    Frobenius error <= 1e-5 on ``w`` and ``g``, ``g`` exactly symmetric, two
    launches bit for bit the same, each launch on its plan's kernel.
 10. timing_matvec_gram: kernel, plain version, the ``torch.matmul``
    yardstick (cuBLAS's three calls) and the bound at the slice shape, one
    call with CUDA events and the device time of the kernel and of the
-   three calls under ``torch.profiler``.
+   three calls under ``torch.profiler``: seven windows of each, in turn,
+   all printed, and their medians in the ``kernels`` line.
 11. slice_dsolve: ``OnlineDistributedPCA`` with ``solver="distributed"``
    above the crossover at the ImageNet-patch shape (d=12288, k=50, m=4,
    n=2048, T=10, 16 cold / 1 warm iterations, bf16) on planted-spectrum
@@ -153,9 +155,13 @@ SERVE_F32_NOTE = ("no TPU kernel: the JAX package's fp32 projection is XLA at "
 MG_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/matvec_gram.cu"
 MG_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:337"
 MG_TOL = 1e-5
+MG_WINDOWS = 7  # device-time windows of the kernel and of cuBLAS's three calls, in turn
 MG_SLICE = (12288, 200, 58)  # C (d, m*k) and the oversampled iterate at k=50
 MG_STREAMED = (12288, 400, 58)  # eight workers' factors: the slab streams
-MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13), MG_STREAMED, (4000, 37, 200))
+# sixteen workers' factors at k = 50, and the widest iterate the port has
+# always taken (k' = 840): the streamed plan takes any f
+MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13), MG_STREAMED, (4000, 37, 200),
+             (12288, 800, 58), (2048, 96, 840))
 DSOLVE = dict(dim=12288, k=50, num_workers=4, rows_per_worker=2048, num_steps=10)
 MUTANT_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/mutant_full_block.cu"
 MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
@@ -377,7 +383,7 @@ def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
             for _ in range(warm):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(0.005)
+            time.sleep(0.05)  # longer than any stall of the host between calls
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -632,15 +638,22 @@ def timing_matvec_gram(dev, card: str) -> dict:
         return w, w.T @ w
 
     ms = time_ms(lambda: mg.matvec_gram_cuda(c, v))
-    kernel_device_ms = device_ms(lambda: mg.matvec_gram_cuda(c, v))
     plain_ms = time_ms(lambda: mg.matvec_gram_plain(c, v))
     library_ms = time_ms(library)
-    library_device_ms = device_ms(library, launches=None)
+    # the two differ by less than one window's spread: MG_WINDOWS of each, in
+    # turn, and their medians
+    kernel_windows, library_windows = [], []
+    for _ in range(MG_WINDOWS):
+        kernel_windows.append(device_ms(lambda: mg.matvec_gram_cuda(c, v)))
+        library_windows.append(device_ms(library, launches=None))
+    kernel_device_ms = statistics.median(kernel_windows)
+    library_device_ms = statistics.median(library_windows)
     bound_ms, bound_by = matvec_gram_bound(MG_SLICE)
     emit("timing_matvec_gram", shape=list(MG_SLICE),
          kernel=mg.matvec_gram_launch(*MG_SLICE).kernel, kernel_ms=ms,
-         kernel_device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=library_ms,
-         library_device_ms=library_device_ms,
+         kernel_device_ms=kernel_device_ms, kernel_device_ms_windows=kernel_windows,
+         plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms,
+         library_device_ms_windows=library_windows,
          library="torch.matmul(C, torch.matmul(C.T, v)) + w.T @ w",
          bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
          device_roofline_share=bound_ms / kernel_device_ms, card=card)

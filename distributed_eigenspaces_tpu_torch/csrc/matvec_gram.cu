@@ -16,26 +16,33 @@
 // small), one per block on an H100, each slab staged in shared memory by
 // cp.async in chunks of RC rows:
 //
-//   A. per slab: the partial C_slab^T v_slab (f, k'), staged whole in
-//      shared memory; the launch runs in clusters of PAIR = 2 blocks, and
-//      the two add their partials through distributed shared memory and
-//      write the sum to the workspace in one contiguous run;
+//   A. per slab, in passes over rectangles of (f, k'): the pass's partial
+//      of C_slab^T v_slab, staged in shared memory; the launch runs in
+//      clusters of PAIR = 2 blocks, and the two add their partials through
+//      distributed shared memory and write the sum to the workspace;
 //   B. y = sum of the slab partials: each block stages every slab's piece
 //      of its run of entries (bulk 16-byte copies) and adds them up;
-//   C. per slab: y staged once per block; w_slab = C_slab y, its rows kept
-//      in shared memory and written out contiguously, and the upper
-//      triangle of their Gram summed into a (k', k') tile in shared memory,
-//      added to the pair's other tile and written to the workspace;
+//   C. per slab: w_slab = C_slab y, its rows kept in shared memory and
+//      written out contiguously, and the upper triangle of their Gram
+//      summed into a (k', k') tile, added to the pair's other tile and
+//      written to the workspace;
 //   D. g = sum of the slab partials, upper triangle, mirrored, so g is
 //      exactly symmetric.
 //
 // Two plans, decided before the launch from (d, f, k') (make_plan):
 //   resident (matvec_gram_kernel<TR_RESIDENT>): the whole slab of C stays
 //     in shared memory across the grid barriers, so C is read from device
-//     memory once; phase C walks it in passes of WARPS * TR_RESIDENT rows.
-//   streamed (matvec_gram_kernel<TR_STREAMED>): where slab and y do not fit
-//     together, the slab goes through a ring of ST_STREAMED chunks, once in
-//     phase A (per pass over f and k') and again in phase C.
+//     memory once; y is staged whole and the Gram tile kept in shared
+//     memory; phase C walks the slab in passes of WARPS * TR_RESIDENT rows.
+//   streamed (matvec_gram_kernel<TR_STREAMED>): where the slab, y and the
+//     Gram tile do not fit together. Its shared memory does not depend on
+//     f: phase A streams each pass's columns of C and v through a ring of
+//     ST_STREAMED chunks, phase C streams (WARPS * TR_STREAMED, FC) of C
+//     and (FC, KC) of y, and each slab's Gram tile is added up in the
+//     workspace. Only a pass's rows of w grow with k', so it takes any f
+//     and k' up to the limit the wrapper computes from this rule (MAX_K).
+// Phase A covers (f, k') in passes of at most PASS_QP pairs of f quads by
+// PASS_CG groups of AC column quads, one block of a lane pair each.
 // Every sum has an order fixed by (d, f, k'): rows of a slab in order (in
 // two or four interleaved runs added by a fixed shuffle tree), slabs in
 // order. No float atomics, so (w, g) is bit-identical from run to run
@@ -56,7 +63,8 @@
 // chunk by chunk measured no faster than waiting for all of it), the
 // partials' traffic through L2, and stores: the partial of phase A stored
 // from the lanes' scattered tiles measured slower than the same bytes
-// staged and stored in one run (scripts/torch_profile_matvec_gram.py).
+// staged and stored in one run. The streamed plan at the slice shape
+// measured 1.4x the resident plan (scripts/torch_profile_matvec_gram.py).
 //
 // C interface: det_matvec_gram_workspace() gives the scratch the caller
 // allocates and det_matvec_gram_grid() the grid (the cluster occupancy
@@ -81,13 +89,15 @@ static_assert(PAIR == 2, "a block adds its partial to its one partner's");
 constexpr int RC = 32;            // rows of a staged chunk
 constexpr int AQ = 2;             // phase A: a lane's f quads (4 indices each)
 constexpr int AC = 3;             // phase A: a lane's groups of 4 columns
+constexpr int PASS_QP = 32;       // phase A: pairs of f quads a pass covers at most
+constexpr int PASS_CG = 16;       // phase A: groups of AC column quads a pass covers at most
 constexpr int TR_RESIDENT = 12;   // phase C rows per warp per pass (96-row passes)
-constexpr int TR_STREAMED = 4;    // streamed: one chunk per pass
-constexpr int ST_STREAMED = 2;    // streamed: chunks in the ring
+constexpr int TR_STREAMED = 4;    // streamed: 32-row passes
+constexpr int ST_STREAMED = 3;    // streamed: chunks in a ring
+constexpr int FC = 64;            // streamed phase C: f indices of a staged chunk
+constexpr int KC = 64;            // phase C: columns of a column pass (8 a lane)
 constexpr int SUM_MIN = 4 * SLABS;  // phases B, D stage 4 entries of every slab at least
 constexpr int SMEM_MAX = 232448;  // bytes a block may use on Hopper
-
-static_assert(WARPS * TR_STREAMED == RC, "a streamed pass is one chunk");
 
 __host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
@@ -103,23 +113,35 @@ struct Plan {
   int npart;       // partials: one per pair of slabs
   int nchunk;      // chunks of RC rows in a slab
   int resident;    // 1: the slab stays in shared memory; 0: streamed
-  int stages;      // chunks the ring holds
+  int stages;      // chunks a ring holds (resident: the slab's)
+  int pq, pc;      // phase A pass: pq pairs of f quads by pc groups of AC column quads
+  int gstride;     // streamed: floats between the slabs' Gram tiles in the workspace
+  size_t room;     // floats before the region phases B and D stage partials in
   size_t smem;     // dynamic shared memory (bytes)
-  size_t off_part, off_gpart, bytes;  // workspace: y, then the partials
+  size_t off_part, off_gpart, off_gslot, bytes;  // workspace: y, then the partials
 };
 
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+size_t mx(size_t a, size_t b) { return a > b ? a : b; }
 
-// floats of the region after the C ring: the v ring and the slab's partial
-// in phase A, the staged partials in phases B and D, y, a pass's rows of w
-// and the Gram tile in phase C
-__host__ __device__ __forceinline__ int room_floats(int fp, int kp, int stages, int tr) {
-  return max(max(stages * RC * kp + fp * kp, SUM_MIN), fp * kp + WARPS * tr * wstride(kp) + kp * kp);
+// floats of the resident plan: the whole slab of C (nchunk chunks), then a
+// region for the largest of the slab of v and a pass's partial (phase A),
+// the staged partials (phases B, D) and y, a pass's rows of w and the Gram
+// tile (phase C)
+size_t resident_floats(size_t fp, size_t kp, size_t nchunk, size_t fw, size_t kw) {
+  return nchunk * RC * fp +
+         mx(mx(nchunk * RC * kp + fw * kw, SUM_MIN),
+            fp * kp + (size_t)WARPS * TR_RESIDENT * wstride((int)kp) + kp * kp);
 }
 
-// floats of shared memory: the C ring, then that region
-size_t smem_floats(int fp, int kp, int stages, int tr) {
-  return (size_t)stages * RC * fp + room_floats(fp, kp, stages, tr);
+// floats of the streamed plan, none depending on f: the largest of phase
+// A's ring of the pass's columns of C and v with the pass's partial, the
+// staged partials, and phase C's ring of (rows, FC) of C and (FC, KC) of y
+// with a pass's rows of w
+size_t streamed_floats(size_t kp, size_t fw, size_t kw) {
+  constexpr size_t PROWS = WARPS * TR_STREAMED;
+  return mx(mx(ST_STREAMED * RC * (fw + kw) + fw * kw, SUM_MIN),
+            ST_STREAMED * (PROWS * FC + FC * KC) + PROWS * wstride((int)kp));
 }
 
 Plan make_plan(int d, int f, int k) {
@@ -130,13 +152,20 @@ Plan make_plan(int d, int f, int k) {
   p.nslab = (d + p.rows - 1) / p.rows;
   p.npart = (p.nslab + PAIR - 1) / PAIR;
   p.nchunk = (p.rows + RC - 1) / RC;
-  const size_t resident = 4 * smem_floats(p.fp, p.kp, p.nchunk, TR_RESIDENT);
+  p.pc = min((p.kp / 4 + AC - 1) / AC, PASS_CG);
+  p.pq = min(THREADS / 2 / p.pc, PASS_QP);
+  const int fw = 4 * AQ * p.pq, kw = 4 * AC * p.pc;
+  const size_t resident = 4 * resident_floats(p.fp, p.kp, p.nchunk, fw, kw);
   p.resident = resident <= (size_t)SMEM_MAX;
   p.stages = p.resident ? p.nchunk : ST_STREAMED;
-  p.smem = p.resident ? resident : 4 * smem_floats(p.fp, p.kp, ST_STREAMED, TR_STREAMED);
+  p.smem = p.resident ? resident : 4 * streamed_floats(p.kp, fw, kw);
+  p.room = p.resident ? (size_t)p.nchunk * RC * p.fp : 0;
+  p.gstride = p.resident ? 0 : (p.kp * p.kp + 63) / 64 * 64;
   p.off_part = align256(sizeof(float) * (size_t)p.fp * p.kp);
   p.off_gpart = p.off_part + align256(sizeof(float) * (size_t)p.npart * p.fp * p.kp);
-  p.bytes = p.off_gpart + align256(sizeof(float) * (size_t)p.npart * pad4(k * k));
+  const size_t gpart = align256(sizeof(float) * (size_t)p.npart * pad4(k * k));
+  p.off_gslot = p.off_gpart + (p.resident ? gpart : 0);
+  p.bytes = p.off_gslot + sizeof(float) * (size_t)p.nslab * p.gstride;
   return p;
 }
 
@@ -147,8 +176,10 @@ struct Args {
   float* g;        // (k, k)
   float* y;        // workspace: (fp, kp), zero past f and k
   float* part;     // workspace: (npart, fp, kp), entries past f and k unused
-  float* gpart;    // workspace: npart (k, k) upper triangles, pad4(k k) apart
-  int d, f, k, fp, kp, rows, nslab, npart, nchunk, stages;
+  float* gpart;    // workspace, resident: npart (k, k) upper triangles, pad4(k k) apart
+  float* gslot;    // workspace, streamed: nslab (kp, kp) upper tiles, gstride apart
+  int d, f, k, fp, kp, rows, nslab, npart, nchunk, stages, pq, pc, gstride;
+  int room, room_size;  // phases B, D: staged partials at smem + room, room_size floats
   int cvec, vvec;  // floats per copy of C / v rows (4, 2 or 1: their alignment)
 };
 
@@ -181,24 +212,25 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// nr rows of a (*, cols) row-major matrix from row r0 into shared rows of
-// stride cp (a multiple of 4, >= cols; zeros past cols) in copies of `vec`
-// floats (4: cols == cp, 2: cols even, rows 8-byte aligned, else 1)
+// nr rows from row r0 and columns c0 .. c0 + cp of a (*, cols) row-major
+// matrix into shared rows of stride cp (a multiple of 4; zeros past cols)
+// in copies of `vec` floats (4: cols and c0 multiples of 4, 2: even, rows
+// aligned to the copy, else 1)
 template <int VEC>
 __device__ __forceinline__ void stage_rows_by(uint32_t dst, const float* __restrict__ src,
-                                              int r0, int nr, int cols, int cp) {
+                                              int r0, int nr, int c0, int cp, int cols) {
   for (int e = threadIdx.x * VEC; e < nr * cp; e += THREADS * VEC) {
-    const int r = e / cp, col = e - r * cp;
+    const int r = e / cp, col = c0 + e - r * cp;
     const bool ok = col < cols;
     cp_async<4 * VEC>(dst + 4 * e, ok ? src + (size_t)(r0 + r) * cols + col : src, ok);
   }
 }
 
 __device__ __forceinline__ void stage_rows(uint32_t dst, const float* __restrict__ src,
-                                           int r0, int nr, int cols, int cp, int vec) {
-  if (vec == 4) stage_rows_by<4>(dst, src, r0, nr, cols, cp);
-  else if (vec == 2) stage_rows_by<2>(dst, src, r0, nr, cols, cp);
-  else stage_rows_by<1>(dst, src, r0, nr, cols, cp);
+                                           int r0, int nr, int c0, int cp, int cols, int vec) {
+  if (vec == 4) stage_rows_by<4>(dst, src, r0, nr, c0, cp, cols);
+  else if (vec == 2) stage_rows_by<2>(dst, src, r0, nr, c0, cp, cols);
+  else stage_rows_by<1>(dst, src, r0, nr, c0, cp, cols);
 }
 
 // The sums over the n partials p[0], p[stride], ... of entries [0, entries)
@@ -234,251 +266,298 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, size_t
   }
 }
 
-// Phase A for slab s: part[s] = C_slab^T v_slab as blocks of AQ quads of f
-// (4 indices each) by AC groups of 4 columns. In pass p, lane l of warp w
-// holds block p * THREADS / 2 + 16 w + l % 16 over the slab's rows of
-// parity l / 16, summed in order; the two parities are added at the slab's
-// end. Blocks this small tile (f, k') = (200, 58) with 125 of a pass's 128.
+// Phase A for slab s: part[s / PAIR] = C^T v over the pair's two slabs, in
+// passes over rectangles of pq pairs of f quads by pc groups of AC column
+// quads. In a pass, lane l of warp w holds block 16 w + l % 16 of the
+// rectangle (AQ quads of f by AC groups of 4 columns) over the slab's rows
+// of parity l / 16, summed in order; the two parities are added at the
+// slab's end, the blocks stored as the pass's partial in shared memory, and
+// the pair's two partials added and written out. Resident, the slab's
+// rows of C and v land whole, once, and every pass reads its columns;
+// streamed, each pass's columns of each chunk go through the ring. At
+// (f, k') = (200, 58) one pass of 25 by 5 blocks covers it all.
 template <int TR>
 __device__ void slab_partial(const Args& a, float* smem, int s) {
   constexpr bool RESIDENT = TR == TR_RESIDENT;
-  constexpr int PER_PASS = THREADS / 2;  // blocks of a pass: one per lane pair
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int fp = a.fp, kp = a.kp;
+  const int fp = a.fp, kp = a.kp, fw = 4 * AQ * a.pq, kw = 4 * AC * a.pc;
+  const int cst = RESIDENT ? fp : fw, vst = RESIDENT ? kp : kw;  // staged row strides
   float* cring = smem;
-  float* vring = smem + (size_t)a.stages * RC * fp;
-  float* pstage = vring + (size_t)a.stages * RC * kp;  // the slab's partial (f, kp)
+  float* vring = smem + (size_t)a.stages * RC * cst;
+  float* pstage = vring + (size_t)a.stages * RC * vst;  // the pass's partial (fw, kw)
   const int r_begin = s * a.rows;
   const int r_end = min(a.d, r_begin + a.rows);
   const int nchunk = max(0, (r_end - r_begin + RC - 1) / RC);  // 0: no slab s
   const int nquad = fp / 4, ngrp = kp / 4;
-  const int nct = (ngrp + AC - 1) / AC;
-  const int blocks = (nquad + AQ - 1) / AQ * nct;
-  const int visits = (blocks + PER_PASS - 1) / PER_PASS * nchunk;
+  const int nrc = ((ngrp + AC - 1) / AC + a.pc - 1) / a.pc;  // rectangles across k'
+  const int passes = ((nquad + AQ - 1) / AQ + a.pq - 1) / a.pq * nrc;
+  const int visits = passes * nchunk;
+  // first f quad and column quad of pass p's rectangle
+  auto quad0 = [&](int p) { return AQ * a.pq * (p / nrc); };
+  auto grp0 = [&](int p) { return AC * a.pc * (p % nrc); };
   // visit t (chunk t % nchunk of pass t / nchunk) is in stage stage(t): its
   // chunk's own when resident, the ring's next when streamed
   auto stage = [&](int t) { return RESIDENT ? t % nchunk : t % a.stages; };
   auto issue = [&](int t) {
-    const int q = t % nchunk, st = stage(t);
+    const int q = t % nchunk, st = stage(t), p = t / nchunk;
     const int r0 = r_begin + q * RC, nr = min(RC, r_end - r0);
-    stage_rows(smem_u32(cring + (size_t)st * RC * fp), a.c, r0, nr, a.f, fp, a.cvec);
-    stage_rows(smem_u32(vring + (size_t)st * RC * kp), a.v, r0, nr, a.k, kp, a.vvec);
+    stage_rows(smem_u32(cring + (size_t)st * RC * cst), a.c, r0, nr, RESIDENT ? 0 : 4 * quad0(p),
+               cst, a.f, a.cvec);
+    stage_rows(smem_u32(vring + (size_t)st * RC * vst), a.v, r0, nr, RESIDENT ? 0 : 4 * grp0(p),
+               vst, a.k, a.vvec);
     cp_commit();
   };
   if (RESIDENT) {
     for (int q = 0; q < nchunk; ++q) issue(q);
-  } else if (nchunk > 0) {
-    issue(0);
+  } else {
+    for (int t = 0; t < ST_STREAMED - 1; ++t)
+      if (t < visits) issue(t);
+      else cp_commit();
   }
 
   const int half = lane >> 4;
-  float acc[AQ][4][4 * AC];  // [quad][f index in the quad][column]
-  for (int t = 0; t < visits; ++t) {
-    const int q = t % nchunk, pass = t / nchunk;
-    if (RESIDENT) {
-      if (t == 0) {  // the whole slab (waiting chunk by chunk measured no faster)
-        cp_wait<0>();
-        __syncthreads();
-      }
-    } else {
-      if (t + 1 < visits) issue(t + 1);  // into the stage freed at t - 1
-      else cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-    }
-    if (q == 0) {
-#pragma unroll
-      for (int e = 0; e < AQ; ++e)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int x = 0; x < 4 * AC; ++x) acc[e][u][x] = 0.f;
-    }
-    const float* cs = cring + (size_t)stage(t) * RC * fp;
-    const float* vs = vring + (size_t)stage(t) * RC * kp;
-    const int nr = min(RC, r_end - (r_begin + q * RC));
-    const int b = pass * PER_PASS + 16 * warp + (lane & 15);
-    const int bb = min(b, blocks - 1);
-    const int q0 = bb / nct * AQ, g0 = bb % nct * AC;  // first quad, column group
+  const int b = 16 * warp + (lane & 15);  // the lane pair's block of the rectangle
+  const bool active = b < a.pq * a.pc;
+  const int bq = min(b / a.pc, a.pq - 1), bc = b % a.pc;
+  cg::cluster_group pair = cg::this_cluster();
+  const int rank = pair.block_rank();
+  for (int p = 0; p < passes; ++p) {
+    const int f0q = quad0(p), k0q = grp0(p);
+    const int q0 = f0q + AQ * bq, g0 = k0q + AC * bc;  // the block's first quad, column quad
     // quads and column groups clamped to the last (duplicates are summed
-    // and not stored): every load is unconditional
+    // and not stored): every load is unconditional; offsets in the staged
+    // rows (streamed: in the rectangle's columns)
     int qoff[AQ], goff[AC];
 #pragma unroll
-    for (int e = 0; e < AQ; ++e) qoff[e] = 4 * min(q0 + e, nquad - 1);
+    for (int e = 0; e < AQ; ++e) qoff[e] = 4 * (min(q0 + e, nquad - 1) - (RESIDENT ? 0 : f0q));
 #pragma unroll
-    for (int c = 0; c < AC; ++c) goff[c] = 4 * min(g0 + c, ngrp - 1);
-    struct Row {
-      float4 c[AQ], v[AC];
-    };
-    auto fetch = [&](int rr, Row& o) {
+    for (int c = 0; c < AC; ++c) goff[c] = 4 * (min(g0 + c, ngrp - 1) - (RESIDENT ? 0 : k0q));
+    float acc[AQ][4][4 * AC];  // [quad][f index in the quad][column]
 #pragma unroll
-      for (int e = 0; e < AQ; ++e)
-        o.c[e] = *reinterpret_cast<const float4*>(cs + (size_t)rr * fp + qoff[e]);
+    for (int e = 0; e < AQ; ++e)
 #pragma unroll
-      for (int c = 0; c < AC; ++c)
-        o.v[c] = *reinterpret_cast<const float4*>(vs + (size_t)rr * kp + goff[c]);
-    };
-    auto product = [&](const Row& o) {
-      float bv[4 * AC];
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int c = 0; c < AC; ++c)
-        bv[4 * c] = o.v[c].x, bv[4 * c + 1] = o.v[c].y, bv[4 * c + 2] = o.v[c].z,
-        bv[4 * c + 3] = o.v[c].w;
-#pragma unroll
-      for (int e = 0; e < AQ; ++e) {
-        const float cv[4] = {o.c[e].x, o.c[e].y, o.c[e].z, o.c[e].w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int x = 0; x < 4 * AC; ++x) acc[e][u][x] = fmaf(cv[u], bv[x], acc[e][u][x]);
+        for (int x = 0; x < 4 * AC; ++x) acc[e][u][x] = 0.f;
+    for (int q = 0; q < nchunk; ++q) {
+      const int t = p * nchunk + q;
+      if (RESIDENT) {
+        if (t == 0) {  // the whole slab (waiting chunk by chunk measured no faster)
+          cp_wait<0>();
+          __syncthreads();
+        }
+      } else {
+        // into the stage freed at t - 1
+        if (t + ST_STREAMED - 1 < visits) issue(t + ST_STREAMED - 1);
+        else cp_commit();
+        cp_wait<ST_STREAMED - 1>();
+        __syncthreads();
       }
-    };
-    const int mine = (nr - half + 1) / 2;  // rows half, half + 2, ...
-    auto row = [&](int m) { return half + 2 * min(m, mine - 1); };
-    Row ra, rb;  // two rows in flight: one multiplied while the next lands
-    if (mine > 0) fetch(row(0), ra);
-    for (int m = 0; m < mine; m += 2) {
-      fetch(row(m + 1), rb);
-      product(ra);
-      if (m + 1 < mine) {
-        fetch(row(m + 2), ra);
-        product(rb);
-      }
-    }
-    if (q == nchunk - 1) {
-      // even rows plus odd rows: the same bits in both halves
+      const float* cs = cring + (size_t)stage(t) * RC * cst;
+      const float* vs = vring + (size_t)stage(t) * RC * vst;
+      const int nr = min(RC, r_end - (r_begin + q * RC));
+      struct Row {
+        float4 c[AQ], v[AC];
+      };
+      auto fetch = [&](int rr, Row& o) {
 #pragma unroll
-      for (int e = 0; e < AQ; ++e)
+        for (int e = 0; e < AQ; ++e)
+          o.c[e] = *reinterpret_cast<const float4*>(cs + (size_t)rr * cst + qoff[e]);
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int c = 0; c < AC; ++c)
+          o.v[c] = *reinterpret_cast<const float4*>(vs + (size_t)rr * vst + goff[c]);
+      };
+      auto product = [&](const Row& o) {
+        float bv[4 * AC];
 #pragma unroll
-          for (int x = 0; x < 4 * AC; ++x)
-            acc[e][u][x] += __shfl_xor_sync(0xffffffffu, acc[e][u][x], 16);
+        for (int c = 0; c < AC; ++c)
+          bv[4 * c] = o.v[c].x, bv[4 * c + 1] = o.v[c].y, bv[4 * c + 2] = o.v[c].z,
+          bv[4 * c + 3] = o.v[c].w;
 #pragma unroll
-      for (int e = 0; e < AQ; ++e) {
+        for (int e = 0; e < AQ; ++e) {
+          const float cv[4] = {o.c[e].x, o.c[e].y, o.c[e].z, o.c[e].w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = 4 * (q0 + e) + u;
-          if (half || b >= blocks || q0 + e >= nquad || i >= a.f) continue;
-          // whole vectors, padding columns too (never read)
-          float4* out = reinterpret_cast<float4*>(pstage + (size_t)i * kp);
+          for (int u = 0; u < 4; ++u)
 #pragma unroll
-          for (int c = 0; c < AC; ++c)
-            if (g0 + c < ngrp)
-              out[g0 + c] = make_float4(acc[e][u][4 * c], acc[e][u][4 * c + 1],
-                                        acc[e][u][4 * c + 2], acc[e][u][4 * c + 3]);
+            for (int x = 0; x < 4 * AC; ++x) acc[e][u][x] = fmaf(cv[u], bv[x], acc[e][u][x]);
+        }
+      };
+      const int mine = (nr - half + 1) / 2;  // rows half, half + 2, ...
+      auto row = [&](int m) { return half + 2 * min(m, mine - 1); };
+      Row ra, rb;  // two rows in flight: one multiplied while the next lands
+      if (mine > 0) fetch(row(0), ra);
+      for (int m = 0; m < mine; m += 2) {
+        fetch(row(m + 1), rb);
+        product(ra);
+        if (m + 1 < mine) {
+          fetch(row(m + 2), ra);
+          product(rb);
         }
       }
+      if (!RESIDENT) __syncthreads();  // the stage may be refilled
     }
-    if (!RESIDENT) __syncthreads();  // the stage may be refilled
+    // even rows plus odd rows: the same bits in both halves
+#pragma unroll
+    for (int e = 0; e < AQ; ++e)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int x = 0; x < 4 * AC; ++x)
+          acc[e][u][x] += __shfl_xor_sync(0xffffffffu, acc[e][u][x], 16);
+#pragma unroll
+    for (int e = 0; e < AQ; ++e) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = 4 * (q0 + e) + u;
+        if (half || !active || q0 + e >= nquad || i >= a.f) continue;
+        // whole vectors, padding columns too (never read)
+        float4* out = reinterpret_cast<float4*>(pstage + (size_t)(i - 4 * f0q) * kw);
+#pragma unroll
+        for (int c = 0; c < AC; ++c)
+          if (g0 + c < ngrp)
+            out[g0 + c - k0q] = make_float4(acc[e][u][4 * c], acc[e][u][4 * c + 1],
+                                            acc[e][u][4 * c + 2], acc[e][u][4 * c + 3]);
+      }
+    }
+    // the pair's partial of the rectangle, rank 0's plus rank 1's, read
+    // from both blocks' shared memory and written in order, each block half
+    // of the rows, by 16-byte stores
+    pair.sync();
+    const float4* own = reinterpret_cast<const float4*>(pstage);
+    const float4* other = pair.map_shared_rank(own, rank ^ 1);
+    const int fr = min(fw, a.f - 4 * f0q);     // rows of the rectangle within f
+    const int kr = min(kw, kp - 4 * k0q) / 4;  // and vectors of a row within k'
+    const int split = (fr + 1) / 2 * kr, total = fr * kr;
+    float4* to = reinterpret_cast<float4*>(a.part + (size_t)(s / PAIR) * fp * kp);
+    const int end = s / PAIR < a.npart ? (rank ? total : split) : 0;  // 0: neither slab is
+    for (int x = (rank ? split : 0) + threadIdx.x; x < end; x += THREADS) {
+      const int i = x / kr, jv = x - i * kr, at = i * (kw / 4) + jv;
+      const float4 p0 = rank ? other[at] : own[at], p1 = rank ? own[at] : other[at];
+      to[(size_t)(4 * f0q + i) * (kp / 4) + k0q + jv] =
+          make_float4(p0.x + p1.x, p0.y + p1.y, p0.z + p1.z, p0.w + p1.w);
+    }
+    pair.sync();  // both have read each other's partial: it may be replaced
   }
-  if (nchunk == 0)
-    for (int x = threadIdx.x; x < a.f * kp; x += THREADS) pstage[x] = 0.f;
-  // the pair's partial, rank 0's plus rank 1's, read from both blocks'
-  // shared memory and written in order, each block half of the rows, by
-  // 16-byte stores of one contiguous run
-  cg::cluster_group pair = cg::this_cluster();
-  pair.sync();
-  const int rank = pair.block_rank();
-  const float4* own = reinterpret_cast<const float4*>(pstage);
-  const float4* other = pair.map_shared_rank(own, rank ^ 1);
-  const int split = (a.f + 1) / 2 * kp / 4, total = a.f * kp / 4;
-  float4* to = reinterpret_cast<float4*>(a.part + (size_t)(s / PAIR) * fp * kp);
-  const int end = s / PAIR < a.npart ? (rank ? total : split) : 0;  // 0: neither slab is
-  for (int x = (rank ? split : 0) + threadIdx.x; x < end; x += THREADS) {
-    const float4 p0 = rank ? other[x] : own[x], p1 = rank ? own[x] : other[x];
-    to[x] = make_float4(p0.x + p1.x, p0.y + p1.y, p0.z + p1.z, p0.w + p1.w);
-  }
-  pair.sync();  // both have read each other's partial: the slab may be replaced
 }
 
-// Phase C for slab s, with y already in shared memory: rows of w = C_slab y
-// in passes of WARPS * TR rows (warp w: pass rows w + WARPS e; lane l: 8
-// columns of the 64 of pass jpass over one quarter of f, summed in order,
-// the quarters added at the end), each pass's rows
-// kept in wbuf and added into the Gram tile gs in row order; then gs's
-// upper triangle is the slab's partial.
+// Phase C for slab s: rows of w = C_slab y in passes of PROWS = WARPS * TR
+// rows (warp w: pass rows w + WARPS e; lane l: 8 columns of the KC of
+// column pass jp over one quarter of f's quads, summed in order, the
+// quarters added at the end), each pass's rows kept in wbuf, written out
+// and added into the Gram tile gt in row order. Resident: the slab is
+// still in shared memory (loaded again when `loaded` is false), y is staged
+// whole, gt is in shared memory, and the pair's two tiles are added into
+// the pair's partial. Streamed: (PROWS, FC) of C and (FC, KC) of y go
+// through the ring, quarters of each chunk's quads, and gt is slab s's
+// partial in the workspace (the first pass stores its upper tiles, later
+// ones add).
 template <int TR>
 __device__ void slab_rows_of_w(const Args& a, float* smem, int s, bool loaded) {
   constexpr bool RESIDENT = TR == TR_RESIDENT;
-  constexpr int PR = WARPS * TR;  // rows of a pass
+  constexpr int PROWS = WARPS * TR;  // rows of a pass
+  constexpr int CH = PROWS * FC + FC * KC;  // floats of a streamed stage
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, quarter = lane >> 3;
   const int fp = a.fp, kp = a.kp;
-  float* cring = smem;
-  float* ys = smem + (size_t)a.stages * RC * fp;
   const int ws = wstride(kp);
-  float* wbuf = ys + (size_t)fp * kp;  // [PR][ws]
-  float* gs = wbuf + (size_t)PR * ws;
+  float* cring = smem;
+  float* ys = smem + (size_t)a.stages * RC * fp;  // resident: y
+  float* wbuf = RESIDENT ? ys + (size_t)fp * kp : smem + ST_STREAMED * CH;  // [PROWS][ws]
+  float* gt = RESIDENT ? wbuf + (size_t)PROWS * ws : a.gslot + (size_t)s * a.gstride;
   const int r_begin = s * a.rows;
   const int r_end = min(a.d, r_begin + a.rows);
   const int nrows = max(0, r_end - r_begin);  // 0: no slab s
   const int nchunk = (nrows + RC - 1) / RC;
-  const int passes = (nrows + PR - 1) / PR;
-  const int jpasses = (kp + 63) / 64;
+  const int passes = (nrows + PROWS - 1) / PROWS;
+  const int jpasses = (kp + KC - 1) / KC;
+  const int nfc = RESIDENT ? 1 : (fp + FC - 1) / FC;
+  const int visits = passes * jpasses * nfc;
 
-  for (int e = threadIdx.x; e < kp * kp; e += THREADS) gs[e] = 0.f;
-  auto issue = [&](int q) {
-    const int r0 = r_begin + q * RC, nr = min(RC, r_end - r0);
-    stage_rows(smem_u32(cring + (size_t)(q % a.stages) * RC * fp), a.c, r0, nr, a.f, fp,
-               a.cvec);
+  if (RESIDENT)
+    for (int e = threadIdx.x; e < kp * kp; e += THREADS) gt[e] = 0.f;
+  // streamed visit t: chunk t % nfc of f, column pass t / nfc % jpasses, row pass t / (nfc jpasses)
+  auto issue = [&](int t) {
+    const int ch = t % nfc, jp = t / nfc % jpasses, pc = t / (nfc * jpasses);
+    const int r0 = r_begin + pc * PROWS;
+    float* st = smem + (size_t)(t % ST_STREAMED) * CH;
+    stage_rows(smem_u32(st), a.c, r0, min(PROWS, r_end - r0), ch * FC, FC, a.f, a.cvec);
+    stage_rows(smem_u32(st + PROWS * FC), a.y, ch * FC, min(FC, fp - ch * FC), jp * KC, KC, kp, 4);
     cp_commit();
   };
   if (RESIDENT && !loaded) {  // a second slab of this block: load it again
-    for (int q = 0; q < nchunk; ++q) issue(q);
+    for (int q = 0; q < nchunk; ++q) {
+      const int r0 = r_begin + q * RC;
+      stage_rows(smem_u32(cring + (size_t)q * RC * fp), a.c, r0, min(RC, r_end - r0), 0, fp,
+                 a.f, a.cvec);
+    }
+    cp_commit();
     cp_wait<0>();
-  } else if (!RESIDENT && nchunk > 0) {
-    issue(0);
+  } else if (!RESIDENT) {
+    for (int t = 0; t < ST_STREAMED - 1; ++t)
+      if (t < visits) issue(t);
+      else cp_commit();
   }
   __syncthreads();
 
   for (int pc = 0; pc < passes; ++pc) {
-    if (!RESIDENT) {  // pass pc is chunk pc
-      if (pc + 1 < passes) issue(pc + 1);
-      else cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-    }
-    const int p0 = pc * PR;  // first slab row of the pass
-    const float* cs = RESIDENT ? cring + (size_t)p0 * fp : cring + (size_t)(pc % a.stages) * RC * fp;
-    const int pr = min(PR, nrows - p0);
-    for (int jpass = 0; jpass < jpasses; ++jpass) {
-      // lane l: 8 columns, jpass * 64 + 4 (l % 8) .. + 3 and 32 further on,
+    const int p0 = pc * PROWS;  // first slab row of the pass
+    const int pr = min(PROWS, nrows - p0);
+    for (int jp = 0; jp < jpasses; ++jp) {
+      // lane l: 8 columns, jp * KC + 4 (l % 8) .. + 3 and 32 further on,
       // over the quarter (l / 8) of f's quads (the quarters meet at the
       // end: (q0 + q1) + (q2 + q3))
-      const int j = jpass * 64 + 4 * (lane & 7);  // and j + 32
-      const int ja = j < kp ? j : 0, jb = j + 32 < kp ? j + 32 : 0;
-      const int n4 = fp / 4, per = (n4 + 3) / 4;
-      const int i4_begin = min(n4, quarter * per), i4_end = min(n4, i4_begin + per);
+      const int j = jp * KC + 4 * (lane & 7);  // and j + 32
       float acc[TR][8];
 #pragma unroll
       for (int e = 0; e < TR; ++e)
 #pragma unroll
         for (int x = 0; x < 8; ++x) acc[e][x] = 0.f;
-      // the warp's rows, clamped to the pass's last (duplicates are summed
-      // and not stored): every load unconditional
-      int crow[TR];  // offsets of the rows in cs
-#pragma unroll
-      for (int e = 0; e < TR; ++e) crow[e] = min(warp + WARPS * e, pr - 1) * fp;
-#pragma unroll 1
-      for (int i4 = i4_begin; i4 < i4_end; ++i4) {
-        float4 yv[4][2];  // y rows 4 i4 + u at the lane's columns
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          yv[u][0] = *reinterpret_cast<const float4*>(ys + (size_t)(4 * i4 + u) * kp + ja);
-          yv[u][1] = *reinterpret_cast<const float4*>(ys + (size_t)(4 * i4 + u) * kp + jb);
+      for (int ch = 0; ch < nfc; ++ch) {
+        const int t = (pc * jpasses + jp) * nfc + ch;
+        const float* cs;  // the pass's rows of C, from its chunk's first quad
+        const float* yc;  // y's rows of the chunk, from the column pass's first column
+        int cstr, ystr, ja, jb, n4;
+        if (RESIDENT) {
+          cs = cring + (size_t)p0 * fp, cstr = fp, yc = ys, ystr = kp, n4 = fp / 4;
+          ja = j < kp ? j : 0, jb = j + 32 < kp ? j + 32 : 0;
+        } else {
+          // into the stage freed at t - 1
+          if (t + ST_STREAMED - 1 < visits) issue(t + ST_STREAMED - 1);
+          else cp_commit();
+          cp_wait<ST_STREAMED - 1>();
+          __syncthreads();
+          cs = smem + (size_t)(t % ST_STREAMED) * CH, cstr = FC, yc = cs + PROWS * FC, ystr = KC;
+          n4 = min(FC, fp - ch * FC) / 4;
+          ja = 4 * (lane & 7), jb = ja + 32;  // zeros staged past kp
         }
+        const int per = (n4 + 3) / 4;
+        const int i4_begin = min(n4, quarter * per), i4_end = min(n4, i4_begin + per);
+        // the warp's rows, clamped to the pass's last (duplicates are summed
+        // and not stored): every load unconditional
+        int crow[TR];  // offsets of the rows in cs
 #pragma unroll
-        for (int e = 0; e < TR; ++e) {
-          const float4 c4 = *reinterpret_cast<const float4*>(cs + crow[e] + 4 * i4);
-          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+        for (int e = 0; e < TR; ++e) crow[e] = min(warp + WARPS * e, pr - 1) * cstr;
+#pragma unroll 1
+        for (int i4 = i4_begin; i4 < i4_end; ++i4) {
+          float4 yv[4][2];  // y rows 4 i4 + u at the lane's columns
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const float yr[8] = {yv[u][0].x, yv[u][0].y, yv[u][0].z, yv[u][0].w,
-                                 yv[u][1].x, yv[u][1].y, yv[u][1].z, yv[u][1].w};
+            yv[u][0] = *reinterpret_cast<const float4*>(yc + (size_t)(4 * i4 + u) * ystr + ja);
+            yv[u][1] = *reinterpret_cast<const float4*>(yc + (size_t)(4 * i4 + u) * ystr + jb);
+          }
 #pragma unroll
-            for (int x = 0; x < 8; ++x) acc[e][x] = fmaf(cv[u], yr[x], acc[e][x]);
+          for (int e = 0; e < TR; ++e) {
+            const float4 c4 = *reinterpret_cast<const float4*>(cs + crow[e] + 4 * i4);
+            const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float yr[8] = {yv[u][0].x, yv[u][0].y, yv[u][0].z, yv[u][0].w,
+                                   yv[u][1].x, yv[u][1].y, yv[u][1].z, yv[u][1].w};
+#pragma unroll
+              for (int x = 0; x < 8; ++x) acc[e][x] = fmaf(cv[u], yr[x], acc[e][x]);
+            }
           }
         }
+        if (!RESIDENT) __syncthreads();  // the stage may be refilled
       }
 #pragma unroll
       for (int e = 0; e < TR; ++e)
@@ -512,9 +591,11 @@ __device__ void slab_rows_of_w(const Args& a, float* smem, int s, bool loaded) {
     // odd into the tile
     const int nt = kp / 4, ntri = nt * (nt + 1) / 2;
     const int par = threadIdx.x & 1;
-    for (int base = 0; base < ntri; base += THREADS / 2) {
-      int u = base + (threadIdx.x >> 1), ta = 0;
-      const bool ok = u < ntri;
+    // the lane pair's tile: u along row ta of the triangle, THREADS / 2 on
+    // each round
+    int u = threadIdx.x >> 1, ta = 0;
+    for (int base = 0; base < ntri; base += THREADS / 2, u += THREADS / 2) {
+      const bool ok = base + (threadIdx.x >> 1) < ntri;
       while (ok && u >= nt - ta) u -= nt - ta++;
       const int tb = ok ? ta + u : 0;
       float g4[4][4];
@@ -542,30 +623,32 @@ __device__ void slab_rows_of_w(const Args& a, float* smem, int s, bool loaded) {
       if (ok && par == 0) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          float4* t = reinterpret_cast<float4*>(gs + (size_t)(4 * ta + x) * kp + 4 * tb);
-          const float4 o = *t;
+          float4* t = reinterpret_cast<float4*>(gt + (size_t)(4 * ta + x) * kp + 4 * tb);
+          const float4 o = RESIDENT || pc ? *t : make_float4(0.f, 0.f, 0.f, 0.f);
           *t = make_float4(o.x + g4[x][0], o.y + g4[x][1], o.z + g4[x][2], o.w + g4[x][3]);
         }
       }
     }
     __syncthreads();  // wbuf and the stage are free
   }
-  // the pair's partial: rank 0's tile plus rank 1's, each block half of
-  // the entries
-  cg::cluster_group pair = cg::this_cluster();
-  pair.sync();
-  const int rank = pair.block_rank();
-  const float* other = pair.map_shared_rank(gs, rank ^ 1);
-  float* my = a.gpart + (size_t)(s / PAIR) * pad4(a.k * a.k);
-  const int kk = a.k * a.k, split = kk / 2;
-  const int end = s / PAIR < a.npart ? (rank ? kk : split) : 0;  // 0: neither slab is
-  for (int e = (rank ? split : 0) + threadIdx.x; e < end; e += THREADS) {
-    const int r = e / a.k, c = e - r * a.k;
-    const float g0 = rank ? other[(size_t)r * kp + c] : gs[(size_t)r * kp + c];
-    const float g1 = rank ? gs[(size_t)r * kp + c] : other[(size_t)r * kp + c];
-    if (r <= c) my[e] = g0 + g1;
+  if constexpr (RESIDENT) {
+    // the pair's partial: rank 0's tile plus rank 1's, each block half of
+    // the entries
+    cg::cluster_group pair = cg::this_cluster();
+    pair.sync();
+    const int rank = pair.block_rank();
+    const float* other = pair.map_shared_rank(gt, rank ^ 1);
+    float* my = a.gpart + (size_t)(s / PAIR) * pad4(a.k * a.k);
+    const int kk = a.k * a.k, split = kk / 2;
+    const int end = s / PAIR < a.npart ? (rank ? kk : split) : 0;  // 0: neither slab is
+    for (int e = (rank ? split : 0) + threadIdx.x; e < end; e += THREADS) {
+      const int r = e / a.k, c = e - r * a.k;
+      const float g0 = rank ? other[(size_t)r * kp + c] : gt[(size_t)r * kp + c];
+      const float g1 = rank ? gt[(size_t)r * kp + c] : other[(size_t)r * kp + c];
+      if (r <= c) my[e] = g0 + g1;
+    }
+    pair.sync();  // both have read each other's tile: it is zeroed next
   }
-  pair.sync();  // both have read each other's tile: gs is zeroed next
 }
 
 // one block of 8 warps per SM; at most 255 registers a thread
@@ -580,22 +663,20 @@ __global__ void __launch_bounds__(THREADS, 1) matvec_gram_kernel(const Args a) {
   const int last = a.nslab - 1 - (a.nslab - 1 - bid) % nblk;  // this block's last slab
 
   // A. slab partials of C^T v, added pairwise (this block's slabs in order;
-  // the last stays)
+  // the last stays, resident)
   for (int i = 0; i < rounds; ++i) slab_partial<TR>(a, smem, bid + i * nblk);
   grid.sync();
 
   // B. y = sum over slabs, slab order
-  float* room = smem + (size_t)a.stages * RC * a.fp;  // the region after the C ring
-  const int room_size = room_floats(a.fp, a.kp, a.stages, TR);
-  sum_partials(a.part, (size_t)a.fp * a.kp, a.npart, a.fp * a.kp, room, room_size,
+  sum_partials(a.part, (size_t)a.fp * a.kp, a.npart, a.fp * a.kp, smem + a.room, a.room_size,
                [&](int e, float s) {
                  a.y[e] = e / a.kp < a.f && e % a.kp < a.k ? s : 0.f;
                });
   grid.sync();
 
-  // C. y staged once per block; rows of w and their Gram partials, the
-  // slab still in shared memory first
-  {
+  // C. y staged once per block (resident); rows of w and their Gram
+  // partials, the slab still in shared memory first
+  if (TR == TR_RESIDENT) {
     float* ys = smem + (size_t)a.stages * RC * a.fp;
     const uint32_t dst = smem_u32(ys);
     for (int e = threadIdx.x * 4; e < a.fp * a.kp; e += THREADS * 4)
@@ -608,11 +689,16 @@ __global__ void __launch_bounds__(THREADS, 1) matvec_gram_kernel(const Args a) {
     slab_rows_of_w<TR>(a, smem, bid + i * nblk, bid + i * nblk == last);
   grid.sync();
 
-  // D. g = sum over slabs, slab order, mirrored
-  sum_partials(a.gpart, (size_t)pad4(a.k * a.k), a.npart, pad4(a.k * a.k), room, room_size,
+  // D. g = sum over slabs, slab order, mirrored (resident: the pairs'
+  // (k, k) partials; streamed: the slabs' (kp, kp) tiles)
+  const bool resident = TR == TR_RESIDENT;
+  const int ld = resident ? a.k : a.kp;  // row stride of a partial
+  const int entries = resident ? pad4(a.k * a.k) : a.kp * a.kp;
+  sum_partials(resident ? a.gpart : a.gslot, resident ? (size_t)entries : (size_t)a.gstride,
+               resident ? a.npart : a.nslab, entries, smem + a.room, a.room_size,
                [&](int e, float s) {
-                 const int r = e / a.k, c = e - r * a.k;
-                 if (e >= a.k * a.k || r > c) return;
+                 const int r = e / ld, c = e - r * ld;
+                 if (r >= a.k || c >= a.k || r > c) return;
                  a.g[(size_t)r * a.k + c] = s;
                  a.g[(size_t)c * a.k + r] = s;
                });
@@ -710,9 +796,12 @@ extern "C" int det_matvec_gram(const void* c, const void* v, void* w, void* g,
   a.y = reinterpret_cast<float*>(base);
   a.part = reinterpret_cast<float*>(base + p.off_part);
   a.gpart = reinterpret_cast<float*>(base + p.off_gpart);
+  a.gslot = reinterpret_cast<float*>(base + p.off_gslot);
   a.d = d, a.f = f, a.k = k, a.fp = p.fp, a.kp = p.kp;
   a.rows = p.rows, a.nslab = p.nslab, a.npart = p.npart, a.nchunk = p.nchunk;
-  a.stages = p.stages;
+  a.stages = p.stages, a.pq = p.pq, a.pc = p.pc, a.gstride = p.gstride;
+  a.room = static_cast<int>(p.room);
+  a.room_size = static_cast<int>(p.smem / sizeof(float) - p.room);
   a.cvec = copy_width(c, f);
   a.vvec = copy_width(v, k);
   Launch l(blocks, p.smem, static_cast<cudaStream_t>(stream));

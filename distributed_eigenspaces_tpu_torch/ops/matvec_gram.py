@@ -15,7 +15,8 @@ always goes to the kernel, which masks ragged d, f and k' (no block-legality
 fallback) and raises on anything it does not take.
 :func:`matvec_gram_launch` is its launch geometry, with the plan
 (:func:`matvec_gram_plan`: the slab stays in shared memory, or is streamed
-where it does not fit beside ``y``); the wrapper fills in the cooperative
+where it does not fit beside ``y``, in shared memory that no f enters, so
+any f and k' up to :data:`MAX_K` fit); the wrapper fills in the cooperative
 grid the card sizes (``det_matvec_gram_grid``), launches that grid and
 records the launch (``ops/geometry.py``) for the analyzer.
 """
@@ -47,48 +48,87 @@ PAIR = 2  # blocks of a cluster: their partials are added on chip
 RC = 32  # rows of a staged chunk
 AQ = 2  # phase A: a lane's f quads (4 indices each)
 AC = 3  # phase A: a lane's groups of 4 columns
+PASS_QP = 32  # phase A: pairs of f quads a pass covers at most
+PASS_CG = 16  # phase A: groups of AC column quads a pass covers at most
 TR_RESIDENT = 12  # phase C rows per warp per pass, resident plan
-TR_STREAMED = 4  # streamed plan: one chunk per pass
-ST_STREAMED = 2  # streamed plan: chunks in the ring
+TR_STREAMED = 4  # phase C rows per warp per pass, streamed plan
+ST_STREAMED = 3  # streamed plan: chunks in a ring
+FC = 64  # streamed phase C: f indices of a staged chunk
+KC = 64  # phase C: columns of a column pass
 SUM_MIN = 4 * SLABS  # phases B, D stage 4 entries of every slab at least
 SMEM_MAX = 232448  # bytes a block may use on Hopper
 
 
-def _smem_floats(fp: int, kp: int, stages: int, tr: int) -> int:
-    """``smem_floats`` of the C host code: the C ring, then a region for the
-    largest of the v ring and the slab's partial (phase A), the staged
-    partials (phases B, D) and y, a pass's w rows (rows of ``kp`` padded to
-    16 modulo 32 floats: ``wstride``) and the Gram tile (phase C)."""
-    ws = kp + (16 - kp) % 32
-    return stages * RC * fp + max(stages * RC * kp + fp * kp, SUM_MIN,
-                                  fp * kp + WARPS * tr * ws + kp * kp)
+def _wstride(kp: int) -> int:
+    """``wstride``: a row of w in shared memory, ``kp`` padded to 16
+    modulo 32 floats."""
+    return kp + (16 - kp) % 32
+
+
+def _pass(kp: int) -> tuple[int, int]:
+    """Phase A's rectangle: ``(pq, pc)`` pairs of f quads by groups of
+    ``AC`` column quads, at most one block per lane pair."""
+    pc = min(-(-(kp // 4) // AC), PASS_CG)
+    return min(THREADS // 2 // pc, PASS_QP), pc
+
+
+def _rect(kp: int) -> tuple[int, int, int]:
+    """``(kp, fw, kw)``: phase A's rectangle in f indices and columns."""
+    pq, pc = _pass(kp)
+    return kp, 4 * AQ * pq, 4 * AC * pc
+
+
+def _resident_floats(fp: int, kp: int, nchunk: int, fw: int, kw: int) -> int:
+    """``resident_floats``: the whole slab of C, then a region for the
+    largest of the slab of v with a pass's partial (phase A), the staged
+    partials (phases B, D) and y, a pass's rows of w and the Gram tile
+    (phase C)."""
+    return nchunk * RC * fp + max(nchunk * RC * kp + fw * kw, SUM_MIN,
+                                  fp * kp + WARPS * TR_RESIDENT * _wstride(kp) + kp * kp)
+
+
+def _streamed_floats(kp: int, fw: int, kw: int) -> int:
+    """``streamed_floats``, which no f enters: phase A's ring of a pass's
+    columns with its partial, the staged partials, phase C's ring of
+    ``(rows, FC)`` of C and ``(FC, KC)`` of y with a pass's rows of w."""
+    pr = WARPS * TR_STREAMED
+    return max(ST_STREAMED * RC * (fw + kw) + fw * kw, SUM_MIN,
+               ST_STREAMED * (pr * FC + FC * KC) + pr * _wstride(kp))
 
 
 @functools.lru_cache(maxsize=256)
 def matvec_gram_plan(d: int, f: int, k: int) -> dict:
     """``make_plan`` of the C host code: slabs of d (``rows`` each, in
-    ``nchunk`` chunks of ``RC`` rows), whether a slab stays in shared memory
-    (``resident``, the ring holding every chunk) or streams through
-    ``ST_STREAMED`` stages, and the dynamic shared memory in bytes
-    (``fits``: within ``SMEM_MAX``)."""
+    ``nchunk`` chunks of ``RC`` rows), phase A's rectangle (``pq`` by
+    ``pc``), whether a slab stays in shared memory (``resident``, the ring
+    holding every chunk) or streams through ``ST_STREAMED`` stages, and
+    the dynamic shared memory in bytes (``fits``: within ``SMEM_MAX``)."""
     fp, kp = -(-f // 4) * 4, -(-k // 4) * 4
     rows = -(-d // SLABS)
     nchunk = -(-rows // RC)
-    smem = 4 * _smem_floats(fp, kp, nchunk, TR_RESIDENT)
+    pq, pc = _pass(kp)
+    _, fw, kw = _rect(kp)
+    smem = 4 * _resident_floats(fp, kp, nchunk, fw, kw)
     resident = smem <= SMEM_MAX
     if not resident:
-        smem = 4 * _smem_floats(fp, kp, ST_STREAMED, TR_STREAMED)
-    return dict(fp=fp, kp=kp, rows=rows, nslab=-(-d // rows), nchunk=nchunk,
+        smem = 4 * _streamed_floats(kp, fw, kw)
+    return dict(fp=fp, kp=kp, rows=rows, nslab=-(-d // rows), nchunk=nchunk, pq=pq, pc=pc,
                 resident=resident, stages=nchunk if resident else ST_STREAMED,
                 tr=TR_RESIDENT if resident else TR_STREAMED, smem=smem,
                 fits=smem <= SMEM_MAX)
 
 
-#: widest iterate the kernel takes: y (f, k'), a pass's rows of w and the
-#: (k', k') Gram tile share a block's 227 KB with the staged rows of C, so
-#: above this no plan fits even for f <= 4 (wider f lowers the limit:
-#: :func:`matvec_gram_plan`'s ``fits``)
-MAX_K = 220
+def _max_k() -> int:
+    """The widest iterate the streamed plan fits: its shared memory grows
+    with k' alone (a pass's rows of w), so every d and f up to it fit."""
+    k = 1
+    while 4 * _streamed_floats(*_rect(-(-(k + 1) // 4) * 4)) <= SMEM_MAX:
+        k += 1
+    return k
+
+
+#: widest iterate the kernel takes, from the streamed plan's rule
+MAX_K = _max_k()
 
 
 @functools.lru_cache(maxsize=256)  # pure, and the record is frozen
@@ -99,10 +139,12 @@ def matvec_gram_launch(d: int, f: int, k: int) -> KernelLaunch:
     grid sized on the card (``grid_rule="occupancy"``: as many clusters of
     ``PAIR`` blocks as stay resident, at most one block per slab, rounded up
     to a whole pair). A CTA's extents are per slab: it reads the slab of C
-    and of v, writes the slab's ``C^T v`` partial, reads all of y, writes
-    the slab's rows of w and their Gram partial."""
+    and of v, stages chunks of C (resident: the whole slab), writes the
+    slab's ``C^T v`` partial, reads all of y, writes the slab's rows of w
+    and their Gram partial."""
     p = matvec_gram_plan(d, f, k)
     rows = min(p["rows"], d)
+    staged = (p["stages"] * RC, p["fp"]) if p["resident"] else (ST_STREAMED * RC, 4 * AQ * p["pq"])
     return KernelLaunch(
         kernel=f"matvec_gram_kernel<{p['tr']}>",
         source="csrc/matvec_gram.cu",
@@ -113,9 +155,9 @@ def matvec_gram_launch(d: int, f: int, k: int) -> KernelLaunch:
         operands=(
             ("C (slab)", (rows, f)),
             ("v (slab)", (rows, k)),
-            ("C staged", (p["stages"] * RC, p["fp"])),
+            ("C staged", staged),
             ("C^T v partial (slab)", (f, k)),
-            ("y = C^T v (staged)", (p["fp"], p["kp"])),
+            ("y = C^T v", (f, k)),
             ("w (slab)", (rows, k)),
             ("w^T w partial (slab)", (k, k)),
         ),
@@ -175,10 +217,10 @@ def matvec_gram_cuda(c: torch.Tensor, v: torch.Tensor):
     k = v.shape[1]
     if min(d, f, k) < 1:
         raise ValueError(f"matvec_gram_cuda needs non-empty operands, got {(d, f, k)}")
-    if k > MAX_K or d > _INT_MAX or f > _INT_MAX or not matvec_gram_plan(d, f, k)["fits"]:
+    if k > MAX_K or d > _INT_MAX or f * k > _INT_MAX:
         raise ValueError(
-            f"matvec_gram_cuda takes k <= {MAX_K}, d, f < 2**31 and y (f, k) within a "
-            f"block's shared memory beside its staged rows, got {(d, f, k)}"
+            f"matvec_gram_cuda takes k <= {MAX_K}, d < 2**31 and f * k < 2**31, got "
+            f"{(d, f, k)}"
         )
     lib = _lib()
     w = torch.empty((d, k), dtype=torch.float32, device=c.device)

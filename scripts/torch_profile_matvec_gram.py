@@ -4,8 +4,9 @@
     python3 scripts/torch_profile_matvec_gram.py [--json OUT]
 
 For ``chip_smoke.py``'s operands at the slice shape (12288, 200, 58) and at
-two others ((12288, 400, 58) takes the streamed plan), it builds copies of
-``csrc/matvec_gram.cu`` and prints one JSON line per shape:
+four others ((12288, 400, 58), (12288, 800, 58) and (2048, 96, 840) take
+the streamed plan), it builds copies of ``csrc/matvec_gram.cu`` and prints
+one JSON line per shape:
 
 - ``event_ms``: CUDA events around one ``matvec_gram_cuda`` call, median of
   25 after warm-up (the host's launch path included, as in ``chip_smoke.py``);
@@ -18,9 +19,8 @@ two others ((12288, 400, 58) takes the streamed plan), it builds copies of
   without the slab's loads (``A_no_loads``, the products run on whatever
   shared memory holds) or without its products (``A_no_products``),
   through C without its products (``C_no_products``) or without the Gram
-  tile's update (``C_no_gram``), and the whole kernel with the partial of
-  phase A stored from the lanes' tiles (``A_scattered_stores``) instead
-  of staged and stored in one run.
+  tile's update (``C_no_gram``), and the whole kernel on the streamed plan
+  (``streamed``), to hold the resident plan against it.
 
 The copies are built by ``scripts/torch_kernel_copies.py`` into
 ``build/torch_kernels/`` (the port never loads them). It prints the card's
@@ -37,23 +37,23 @@ import sys
 
 import torch_kernel_copies as kc
 
-SHAPES = ((12288, 200, 58), (12288, 400, 58), (3072, 80, 18))
+SHAPES = ((12288, 200, 58), (12288, 400, 58), (12288, 800, 58), (3072, 80, 18),
+          (2048, 96, 840))
 SOURCE = "matvec_gram.cu"
 # the kernel's phase comments: a copy returns before one of them
 MARKS = ("  // B. y = sum over slabs", "  // C. y staged once per block",
          "  // D. g = sum over slabs")
-A_LOADS = ("    stage_rows(smem_u32(cring + (size_t)st * RC * fp), a.c, r0, nr, a.f, fp, a.cvec);\n"
-           "    stage_rows(smem_u32(vring + (size_t)st * RC * kp), a.v, r0, nr, a.k, kp, a.vvec);\n")
-A_PRODUCTS = ("    if (mine > 0) fetch(row(0), ra);", "    if (q == nchunk - 1) {")
-C_PRODUCTS = ("#pragma unroll 1\n      for (int i4 = i4_begin;",
-              "#pragma unroll\n      for (int e = 0; e < TR; ++e)\n#pragma unroll\n"
-              "        for (int x = 0; x < 8; ++x) {\n          acc[e][x] += __shfl")
-C_GRAM = ("    for (int base = 0; base < ntri; base += THREADS / 2) {",
+A_LOADS = ("    stage_rows(smem_u32(cring + (size_t)st * RC * cst), a.c, r0, nr, RESIDENT ? 0 : "
+           "4 * quad0(p),\n               cst, a.f, a.cvec);\n"
+           "    stage_rows(smem_u32(vring + (size_t)st * RC * vst), a.v, r0, nr, RESIDENT ? 0 : "
+           "4 * grp0(p),\n               vst, a.k, a.vvec);\n")
+A_PRODUCTS = ("      if (mine > 0) fetch(row(0), ra);",
+              "      if (!RESIDENT) __syncthreads();  // the stage may be refilled")
+C_PRODUCTS = ("#pragma unroll 1\n        for (int i4 = i4_begin;",
+              "        if (!RESIDENT) __syncthreads();  // the stage may be refilled")
+C_GRAM = ("    // the lane pair's tile: u along row ta of the triangle, THREADS / 2 on",
           "    __syncthreads();  // wbuf and the stage are free")
-A_STAGED = ("          float4* out = reinterpret_cast<float4*>(pstage + (size_t)i * kp);",
-            "          float4* out = reinterpret_cast<float4*>(\n"
-            "              a.part + (size_t)(s / PAIR) * fp * kp + (size_t)i * kp);")
-A_WRITE_OUT = "    to[x] = make_float4(p0.x + p1.x, p0.y + p1.y, p0.z + p1.z, p0.w + p1.w);"
+PLAN_RULE = "  p.resident = resident <= (size_t)SMEM_MAX;"
 
 
 def through(phase: str):
@@ -80,12 +80,10 @@ def chain(*edits):
     return edit
 
 
-def scattered_stores(src: str) -> str:
-    """Each lane stores its tile of the phase A partial straight to the
-    workspace, and the staged run is read but not written (a timing copy:
-    its results are wrong)."""
-    src = kc.edit(src, *A_STAGED, SOURCE)
-    return kc.edit(src, A_WRITE_OUT, "    (void)p1;", SOURCE)
+def streamed(src: str) -> str:
+    """The whole kernel on the streamed plan whatever the shape (its shared
+    memory does not depend on f, so every shape fits)."""
+    return kc.edit(src, PLAN_RULE, "  p.resident = 0;", SOURCE)
 
 
 VARIANTS = {
@@ -97,9 +95,9 @@ VARIANTS = {
     "A_no_products": chain(cut(*A_PRODUCTS), through("A")),
     "C_no_products": chain(cut(*C_PRODUCTS), through("C")),
     "C_no_gram": chain(cut(*C_GRAM), through("C")),
-    "A_scattered_stores": scattered_stores,
+    "streamed": streamed,
 }
-PARTS = ("A_no_loads", "A_no_products", "C_no_products", "C_no_gram", "A_scattered_stores")
+PARTS = ("A_no_loads", "A_no_products", "C_no_products", "C_no_gram", "streamed")
 
 
 def main(argv=None) -> int:

@@ -11,7 +11,9 @@ run this script on each in turns (A, B, B, A). It uses that checkout's own
 ``chip_smoke.py`` helpers (``device_ms``, the operands) and prints one JSON
 line per measurement: the fp32 Gram at the entry shape (4, 128, 256) and at
 the CIFAR-10 shape (8, 1024, 3072) beside ``torch.bmm``, and the fused sweep
-at the slice shape (12288, 200, 58) beside cuBLAS's three calls. The card's
+beside cuBLAS's three calls at the slice shape (12288, 200, 58) and at three
+shapes of the streamed plan: eight and sixteen workers' factors at k = 50,
+and k' = 840. The card's
 name and power limit come first. It imports nothing of JAX or of the JAX
 package, needs a card, and exits non-zero without one.
 """
@@ -22,6 +24,10 @@ import argparse
 import json
 import os
 import sys
+
+# the fused sweep's streamed plan: eight and sixteen workers' factors at
+# k = 50, and the widest iterate (k' = 840)
+MG_STREAMED = ((12288, 400, 58), (12288, 800, 58), (2048, 96, 840))
 
 
 def main(argv=None) -> int:
@@ -60,16 +66,18 @@ def main(argv=None) -> int:
                    for _ in range(args.reps)]
         emit("gram_fp32", shape, kernel, "torch.bmm(x.mT, x)", library)
         del x
-    c, v = cs.mg_operands(cs.MG_SLICE, "cuda", 11)
+    for shape in (cs.MG_SLICE,) + MG_STREAMED:
+        c, v = cs.mg_operands(shape, "cuda", 11)
 
-    def three_calls():
-        w = torch.matmul(c, torch.matmul(c.T, v))
-        return w, w.T @ w
+        def three_calls():
+            w = torch.matmul(c, torch.matmul(c.T, v))
+            return w, w.T @ w
 
-    kernel = [cs.device_ms(lambda: mg.matvec_gram_cuda(c, v)) for _ in range(args.reps)]
-    library = [cs.device_ms(three_calls, launches=None) for _ in range(args.reps)]
-    emit("matvec_gram", cs.MG_SLICE, kernel,
-         "torch.matmul(C, torch.matmul(C.T, v)) + w.T @ w", library)
+        kernel = [cs.device_ms(lambda: mg.matvec_gram_cuda(c, v)) for _ in range(args.reps)]
+        library = [cs.device_ms(three_calls, launches=None) for _ in range(args.reps)]
+        emit("matvec_gram", shape, kernel,
+             "torch.matmul(C, torch.matmul(C.T, v)) + w.T @ w", library)
+        del c, v
     return 0
 
 

@@ -377,43 +377,58 @@ def test_serve_split_order_is_the_same_at_every_row_count(d, k, x_dtype):
 @pytest.mark.parametrize("d,f,k,resident", [
     (1024, 32, 8, True), (12288, 200, 58, True), (3000, 80, 13, True), (97, 5, 70, True),
     (1, 1, 1, True), (100000, 8, 8, True), (12288, 400, 58, False), (4000, 37, 200, False),
-    (1, 1, 220, False)])
+    (1, 1, 220, False), (12288, 800, 58, False), (12288, 800, 108, False)])
 def test_matvec_gram_launch_uses_the_source_constants(d, f, k, resident):
     """``matvec_gram_launch`` / ``matvec_gram_plan`` against
     ``csrc/matvec_gram.cu`` read as text: the constants, the plan rule
-    (resident where the whole slab fits beside y, else streamed) and the
-    shared memory of each plan, computed here from the source's constants."""
+    (resident where the whole slab fits beside y, else streamed), phase A's
+    rectangle and the shared memory of each plan, computed here from the
+    source's constants."""
     src = CSRC / "matvec_gram.cu"
     c = _constexprs(src)
-    for name in ("THREADS", "WARPS", "SLABS", "PAIR", "RC", "AQ", "AC", "TR_RESIDENT",
-                 "TR_STREAMED",
-                 "ST_STREAMED", "SUM_MIN", "SMEM_MAX"):
+    for name in ("THREADS", "WARPS", "SLABS", "PAIR", "RC", "AQ", "AC", "PASS_QP", "PASS_CG",
+                 "TR_RESIDENT", "TR_STREAMED", "ST_STREAMED", "FC", "KC", "SUM_MIN",
+                 "SMEM_MAX"):
         assert c[name] == getattr(mg, name), name
     text = src.read_text()
     for line in ("p.rows = (d + SLABS - 1) / SLABS;",
-                 "const size_t resident = 4 * smem_floats(p.fp, p.kp, p.nchunk, TR_RESIDENT);",
-                 "p.smem = p.resident ? resident : 4 * smem_floats(p.fp, p.kp, ST_STREAMED, "
-                 "TR_STREAMED);",
-                 "return max(max(stages * RC * kp + fp * kp, SUM_MIN), fp * kp + WARPS * tr * "
-                 "wstride(kp) + kp * kp);",
+                 "p.pc = min((p.kp / 4 + AC - 1) / AC, PASS_CG);",
+                 "p.pq = min(THREADS / 2 / p.pc, PASS_QP);",
+                 "const int fw = 4 * AQ * p.pq, kw = 4 * AC * p.pc;",
+                 "const size_t resident = 4 * resident_floats(p.fp, p.kp, p.nchunk, fw, kw);",
+                 "p.resident = resident <= (size_t)SMEM_MAX;",
+                 "p.smem = p.resident ? resident : 4 * streamed_floats(p.kp, fw, kw);",
+                 "return nchunk * RC * fp +\n         mx(mx(nchunk * RC * kp + fw * kw, SUM_MIN),"
+                 "\n            fp * kp + (size_t)WARPS * TR_RESIDENT * wstride((int)kp) + "
+                 "kp * kp);",
+                 "constexpr size_t PROWS = WARPS * TR_STREAMED;\n  return mx(mx(ST_STREAMED * "
+                 "RC * (fw + kw) + fw * kw, SUM_MIN),\n            ST_STREAMED * (PROWS * FC + "
+                 "FC * KC) + PROWS * wstride((int)kp));",
                  "int wstride(int kp) { return kp + ((16 - kp) % 32 + 32) % 32; }",
                  "return PAIR * min(pairs, p.npart);", "pallas_gram.py"):
         assert line in text, line
 
-    def smem(stages, tr):
-        fp, kp = math.ceil(f / 4) * 4, math.ceil(k / 4) * 4
-        ws = kp + (16 - kp) % 32  # w rows 16 floats modulo 32 apart
-        return 4 * (stages * c["RC"] * fp + max(stages * c["RC"] * kp + fp * kp, c["SUM_MIN"],
-                                                fp * kp + c["WARPS"] * tr * ws + kp * kp))
-
-    plan = mg.matvec_gram_plan(d, f, k)
+    fp, kp = math.ceil(f / 4) * 4, math.ceil(k / 4) * 4
+    ws = kp + (16 - kp) % 32  # w rows 16 floats modulo 32 apart
+    pc = min(math.ceil(kp // 4 / c["AC"]), c["PASS_CG"])
+    pq = min(c["THREADS"] // 2 // pc, c["PASS_QP"])
+    fw, kw = 4 * c["AQ"] * pq, 4 * c["AC"] * pc
     rows = math.ceil(d / c["SLABS"])
     nchunk = math.ceil(rows / c["RC"])
+    smem_resident = 4 * (nchunk * c["RC"] * fp + max(
+        nchunk * c["RC"] * kp + fw * kw, c["SUM_MIN"],
+        fp * kp + c["WARPS"] * c["TR_RESIDENT"] * ws + kp * kp))
+    pr = c["WARPS"] * c["TR_STREAMED"]
+    smem_streamed = 4 * max(c["ST_STREAMED"] * c["RC"] * (fw + kw) + fw * kw, c["SUM_MIN"],
+                            c["ST_STREAMED"] * (pr * c["FC"] + c["FC"] * c["KC"]) + pr * ws)
+
+    plan = mg.matvec_gram_plan(d, f, k)
     assert (plan["rows"], plan["nslab"], plan["nchunk"]) == (rows, math.ceil(d / rows), nchunk)
+    assert (plan["pq"], plan["pc"]) == (pq, pc)
+    assert pq * pc <= c["THREADS"] // 2  # one block per lane pair
     assert plan["resident"] is resident
-    assert (smem(nchunk, c["TR_RESIDENT"]) <= c["SMEM_MAX"]) is resident
-    want = smem(nchunk, c["TR_RESIDENT"]) if resident else smem(c["ST_STREAMED"],
-                                                                c["TR_STREAMED"])
+    assert (smem_resident <= c["SMEM_MAX"]) is resident
+    want = smem_resident if resident else smem_streamed
     assert plan["fits"] and plan["smem"] == want <= c["SMEM_MAX"]
     launch = mg.matvec_gram_launch(d, f, k)
     tr = c["TR_RESIDENT"] if resident else c["TR_STREAMED"]
@@ -426,21 +441,37 @@ def test_matvec_gram_launch_uses_the_source_constants(d, f, k, resident):
     assert "attrs[1].val.clusterDim.x = PAIR;" in text  # launched in pairs
     ops = dict(launch.operands)
     assert ops["C (slab)"] == (min(rows, d), f)
-    assert ops["C staged"] == (plan["stages"] * c["RC"], plan["fp"])
+    assert ops["C staged"] == ((nchunk * c["RC"], fp) if resident
+                               else (c["ST_STREAMED"] * c["RC"], fw))
     # every operand a CTA owns stays within the analyzer's tile budget
     assert max(launch.operand_elems().values()) <= 131072
 
 
 def test_matvec_gram_slice_shape_takes_one_slab_per_sm():
     """The slice shape: 131 slabs of 94 rows, each staged whole (three
-    chunks), so C is read from device memory once; eight workers' factors
-    (f = 400) stream through two stages; past the limit no plan fits."""
+    chunks), so C is read from device memory once, in one pass of phase A;
+    eight workers' factors (f = 400) and sixteen (f = 800) stream."""
     plan = mg.matvec_gram_plan(12288, 200, 58)
     assert (plan["rows"], plan["nslab"], plan["nchunk"], plan["resident"]) == (94, 131, 3, True)
+    assert 4 * mg.AQ * plan["pq"] >= 200 and 4 * mg.AC * plan["pc"] >= 58
     assert mg.matvec_gram_plan(12288, 400, 58)["stages"] == mg.ST_STREAMED
-    assert not mg.matvec_gram_plan(12288, 800, 58)["fits"]
-    assert not mg.matvec_gram_plan(1, 1, mg.MAX_K + 1)["fits"]
-    assert mg.matvec_gram_plan(1, 1, mg.MAX_K)["fits"]
+    assert not mg.matvec_gram_plan(12288, 800, 58)["resident"]
+
+
+@pytest.mark.parametrize("f", [1, 800, 6720, 10**6])
+@pytest.mark.parametrize("d", [1, 12288])
+def test_matvec_gram_takes_any_f_up_to_max_k(d, f):
+    """The streamed plan's shared memory does not depend on f (nor d), so
+    every f fits at every k' up to ``MAX_K``, which is at least the 840 the
+    fused sweep has always taken, and the wrapper's one limit."""
+    assert mg.MAX_K >= 840
+    for k in (1, 58, 108, 220, 840, mg.MAX_K):
+        plan = mg.matvec_gram_plan(d, f, k)
+        assert plan["fits"], k
+        if not plan["resident"]:  # the same shared memory for every d and f
+            assert plan["smem"] == mg.matvec_gram_plan(12288, 10**6, k)["smem"], k
+    streamed = mg.matvec_gram_plan(12288, 10**6, mg.MAX_K + 1)
+    assert not streamed["resident"] and not streamed["fits"]
 
 
 @pytest.mark.parametrize("m,n,d,dtype,aligned", [

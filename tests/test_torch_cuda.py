@@ -419,10 +419,12 @@ def test_padded_project_bit_equals_direct_on_card(cuda_device):
 
 @pytest.mark.parametrize(
     "d,f,k", [(256, 64, 16), (3000, 80, 13), (12288, 200, 58), (97, 5, 70), (1, 1, 1),
-              (100000, 8, 8), (12288, 400, 58), (4000, 37, 200), (1, 1, 220)]
+              (100000, 8, 8), (12288, 400, 58), (4000, 37, 200), (1, 1, 220),
+              (12288, 800, 58), (12288, 800, 108), (2048, 96, 840), (300, 1000, 61)]
 )
 def test_matvec_gram_kernel_matches_plain(cuda_device, d, f, k):
-    """Both plans (the slab resident, or streamed: the last three shapes),
+    """Both plans (the slab resident, or streamed: (12288, 400, 58) and the
+    shapes after it, any f and k' up to 840 and beyond),
     ragged f and k', slabs of many chunks: 1e-5 of the plain version, ``g``
     exactly symmetric, the same bits twice, one launch per call on the
     plan's kernel."""
@@ -444,7 +446,8 @@ def test_matvec_gram_kernel_matches_plain(cuda_device, d, f, k):
     assert torch.equal(w, w2) and torch.equal(g, g2)
 
 
-@pytest.mark.parametrize("d,f,k", [(12288, 200, 58), (3000, 80, 13), (12288, 400, 58)])
+@pytest.mark.parametrize("d,f,k", [(12288, 200, 58), (3000, 80, 13), (12288, 400, 58),
+                                   (12288, 800, 58), (2048, 96, 840)])
 def test_matvec_gram_bits_do_not_depend_on_the_grid(cuda_device, d, f, k):
     """Every sum's order is fixed by (d, f, k'): launches of one and of three
     pairs of blocks (each block taking many slabs in rounds, the resident
@@ -482,9 +485,9 @@ def test_matvec_gram_auto_on_cuda_launches_or_raises(cuda_device):
         tmg.matvec_gram_auto(c.mT.contiguous().mT, v)
     with pytest.raises(ValueError, match=f"k <= {tmg.MAX_K}"):
         tmg.matvec_gram_auto(c, _x((300, tmg.MAX_K + 1)).to(cuda_device))
-    with pytest.raises(ValueError, match="shared memory"):  # y (800, 58) fits no plan
-        tmg.matvec_gram_auto(_x((300, 800)).to(cuda_device), _x((300, 58)).to(cuda_device))
     assert tmg.launches == before + 1
+    tmg.matvec_gram_auto(_x((300, 800)).to(cuda_device), _x((300, 58)).to(cuda_device))
+    assert tmg.launches == before + 2  # any f: sixteen workers' factors at k = 50
 
 
 def test_fused_solve_on_card_matches_cpu(cuda_device):
