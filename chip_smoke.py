@@ -360,44 +360,76 @@ def profiler_warm(dev) -> None:
         torch.cuda.synchronize()
 
 
-def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
-              windows: int = 3) -> float:
-    """Device time of one call of ``fn``: under ``torch.profiler``, ``warm``
-    calls, a pause, then ``reps`` calls; the kernels that start after the
-    longest gap on the card's timeline (the pause), summed, over ``reps``.
-    Events are told apart on the card's own clock, since the profiler's
-    host and device clocks can disagree by more than a launch. A window
-    counts only if it holds ``reps * launches`` kernel events after the
-    pause (where ``launches`` is None, for a library call, each kernel's
-    count a multiple of ``reps``): the profiler has dropped events, which
-    would lower the time, so an incomplete window is measured again, up to
-    ``windows`` times, and the run fails after that."""
+PAUSE_S = 0.05  # the host's pause between the parts of a device_ms window
+
+
+def profiled_window(fn, reps: int, warm: int) -> list:
+    """The kernel events of one ``device_ms`` window, in order of their
+    start on the card's clock: ``profiler_warm``'s kernels, a pause, ``warm``
+    calls of ``fn``, a pause, ``reps`` calls, and a pause before the window
+    closes, so that no record of the timed calls is still in flight. The
+    profiler can leave out the first kernels of a window, at times every
+    warm call (``scripts/torch_profiler_windows.py`` counts what a window
+    records)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warm("cuda")
+        time.sleep(PAUSE_S)
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PAUSE_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PAUSE_S)
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def timed_events(events: list, reps: int, launches: int | None) -> tuple[list | None, int]:
+    """The events of a window's ``reps`` timed calls and the index where
+    they start: those after the last gap of at least the pause (the card
+    idles through it; ``time_range`` is in microseconds), or every event
+    where the profiler left out all that came before. None where the
+    window lacks one: ``reps * launches`` events are wanted (where
+    ``launches`` is None, for a library call, each kernel's count a
+    multiple of ``reps``)."""
+    pauses = [i for i in range(1, len(events))
+              if events[i].time_range.start - events[i - 1].time_range.end >= 0.9e6 * PAUSE_S]
+    cut = pauses[-1] if pauses else 0
+    measured = events[cut:]
+    per_name = collections.Counter(e.name for e in measured)
+    if measured and all(n % reps == 0 for n in per_name.values()) and (
+            launches is None or len(measured) == reps * launches):
+        return measured, cut
+    return None, cut
+
+
+def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
+              windows: int = 5) -> float:
+    """Device time of one call of ``fn`` under ``torch.profiler``: the
+    kernels of ``reps`` calls in a ``profiled_window``, summed, over
+    ``reps``. Events are told apart on the card's own clock, since the
+    profiler's host and device clocks can disagree by more than a launch.
+    A window that lacks an event of the timed calls (``timed_events``)
+    would read low, so it is measured again, up to ``windows`` times, and
+    the run fails after that."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
     for window in range(1, windows + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(warm):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.05)  # longer than any stall of the host between calls
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        gaps = [dev[i].time_range.start - dev[i - 1].time_range.end for i in range(1, len(dev))]
-        cut = 1 + gaps.index(max(gaps)) if gaps else len(dev)
-        measured = dev[cut:]
-        per_name = collections.Counter(e.name for e in measured)
-        if measured and all(n % reps == 0 for n in per_name.values()) and (
-                launches is None or len(measured) == reps * launches):
+        events = profiled_window(fn, reps, warm)
+        measured, cut = timed_events(events, reps, launches)
+        if measured:
             return sum(e.time_range.end - e.time_range.start for e in measured) / reps * 1e-3
         emit("device_ms", incomplete_window=window, reps=reps, launches=launches,
-             events_before_pause=cut, events_after_pause=dict(per_name))
+             events_before_pause=cut,
+             events_after_pause=dict(collections.Counter(e.name for e in events[cut:])))
     check(False, f"device_ms: {windows} windows without every kernel event of {reps} calls")
     return 0.0
 
