@@ -8,11 +8,11 @@ exits non-zero without printing a result:
 
 1. env: versions, the card (``nvidia-smi``), and the fp32 matmul
    precision (no TF32), which the port relies on but never sets.
-2. build, build_serve, build_matvec_gram, build_mutant: ``csrc/gram.cu``,
-   ``csrc/serve_project.cu``, ``csrc/matvec_gram.cu`` and
-   ``csrc/mutant_full_block.cu`` compiled with nvcc for sm_90a, one process
-   each, started together (seconds; per kernel instantiation its ptxas
-   registers, spill stores and shared memory).
+2. build, build_serve, build_matvec_gram, build_mutant, build_s8:
+   ``csrc/gram.cu``, ``csrc/serve_project.cu``, ``csrc/matvec_gram.cu``,
+   ``csrc/mutant_full_block.cu`` and ``csrc/gram_s8.cu`` compiled with nvcc
+   for sm_90a, one process each, started together (seconds; per kernel
+   instantiation its ptxas registers, spill stores and shared memory).
 3. parity: the Gram kernels against their plain PyTorch version on the
    card, fp32 and bf16, at the entry shape (4, 128, 256), the CIFAR-10
    shape (8, 1024, 3072) and a ragged (3, 1000, 3000): relative Frobenius
@@ -33,12 +33,24 @@ exits non-zero without printing a result:
    entry and the CIFAR shape, each under the launch recorder and the
    profiler: its profiled grid, block and shared memory must equal its
    ``gram_launch`` record.
+4b. parity_gram_s8, gram_s8_geometry, timing_gram_s8: the s8 Gram kernel
+   (int8 blocks) against its plain version (float64 sums, one rounding, a
+   true division) at the CIFAR-10 block (8, 1024, 3072), synthetic1024's
+   (8, 2048, 1024), an unaligned (3, 1000, 1000) and (1, 1000, 9): equal
+   bit for bit, exactly symmetric, both load widths taken; its profiled
+   geometry equal to ``gram_s8_launch`` at CIFAR and (3, 1000, 1000); at the
+   first two shapes its one-call and device time, bound, plain version,
+   ``torch._int_mm`` over the workers with and without the transpose copy,
+   and the bf16 TMA kernel on the block widened beforehand.
 5. slice: ``entry()``'s step 10 times (10 Gram launches), checked against
    the same step on the CPU; then ``OnlineDistributedPCA`` at the
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
    bf16) on planted-spectrum data, which must recover the planted top-10
    within 1 degree with exactly one Gram launch (the cold step), on the
-   TMA kernel.
+   TMA kernel. 5c. slice_fit_eval: the cifar10 eval's own settings (int8
+   stage, ``warm_orth_method="ns"``) on its ``planted_subspace`` data:
+   exactly one s8 launch and no other Gram kernel, ns on all 19 warm
+   rounds, within 1 degree of the planted top-10.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -80,10 +92,11 @@ exits non-zero without printing a result:
    all printed, and their medians in the ``kernels`` line.
 11. slice_dsolve: ``OnlineDistributedPCA`` with ``solver="distributed"``
    above the crossover at the ImageNet-patch shape (d=12288, k=50, m=4,
-   n=2048, T=10, 16 cold / 1 warm iterations, bf16) on planted-spectrum
-   data (decay 0.97), which must recover the planted top-50 within 1
-   degree; then the fused solve on the fit's own operator (the last
-   block's worker factors), which must agree with
+   n=2048, T=10, 16 cold / 1 warm iterations, bf16, int8 stage) on the
+   imagenet12288 eval's ``planted_subspace`` data, which must recover the
+   planted top-50 within 1 degree; then the fused solve on the fit's own
+   operator (the last block's worker factors, from the block quantized as
+   the fit staged it), which must agree with
    ``merged_top_k_distributed`` within 0.05 degrees in exactly 16 kernel
    launches (and, with ``tol=1e-6``, in as many launches as iterations);
    then ``dist_extract_top_k`` against a dense ``eigh`` at d=12288, r=100
@@ -118,7 +131,7 @@ import time
 
 # published H100 SXM peaks (NVIDIA data sheet), used for bound_ms
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 CIFAR = (8, 1024, 3072)
 ENTRY = (4, 128, 256)
@@ -132,6 +145,13 @@ F32_CASES = (((8, 256, 512), 0), ((8, 100, 510), 0), (GRAM_UNALIGNED_D, 0), (RAG
              ((2, 1, 300), 0), ((5, 37, 130), 0), ((1, 1, 1), 0))
 GRAM_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram.cu"
 GRAM_REPLACES = "distributed_eigenspaces_tpu/ops/pallas_gram.py:57"
+S8_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram_s8.cu"
+# no Pallas kernel: the JAX package's int8 Gram is an XLA einsum with int32 sums
+S8_REPLACES = "distributed_eigenspaces_tpu/ops/linalg.py:64"
+S8_SYNTH = (8, 2048, 1024)  # synthetic1024's block: fp32 sums would not be exact
+# CIFAR-10's block, synthetic1024's, an unaligned shape (d % 16 != 0: byte
+# loads) and one worker with d below one tile
+S8_PARITY = (CIFAR, S8_SYNTH, (3, 1000, 1000), (1, 1000, 9))
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
 SERVE_REPLACES = {
     "bf16": "distributed_eigenspaces_tpu/ops/pallas_gram.py:184",
@@ -163,6 +183,14 @@ MG_STREAMED = (12288, 400, 58)  # eight workers' factors: the slab streams
 MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13), MG_STREAMED, (4000, 37, 200),
              (12288, 800, 58), (2048, 96, 840))
 DSOLVE = dict(dim=12288, k=50, num_workers=4, rows_per_worker=2048, num_steps=10)
+# the imagenet12288 eval's data (distributed_eigenspaces_tpu/evals.py:103-120)
+DSOLVE_DATA = dict(k_planted=50, gap=20.0, decay=max(0.8, 0.05 ** (1 / 49)), noise=0.01,
+                   seed=0)
+# the cifar10 eval, field for field (distributed_eigenspaces_tpu/evals.py:86-90)
+EVAL_FIT = dict(dim=3072, k=10, num_workers=8, rows_per_worker=1024, num_steps=20,
+                solver="subspace", subspace_iters=12, warm_start_iters=2,
+                compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns")
+EVAL_DATA = dict(k_planted=10, gap=20.0, decay=0.8, noise=0.01, seed=0)
 MUTANT_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/mutant_full_block.cu"
 MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
 MUTANT_TOL = 1e-5
@@ -224,7 +252,7 @@ def gram_bound(shape, dtype: str) -> tuple[float, str]:
     output written once, and the m*n*d*(d+1) FLOP of the distinct output
     entries (the kernel computes the upper triangle and mirrors it)."""
     m, n, d = shape
-    item = 4 if dtype == "float32" else 2
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
     bytes_s = (m * n * d * item + m * d * d * 4) / PEAK_BYTES_S
     ops_s = m * n * d * (d + 1) / PEAK_FLOPS[dtype]
     return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
@@ -268,23 +296,36 @@ def serve_routes(sp, v, x_dtype="float32"):
     return routes if x_dtype == "float32" else routes[:2]
 
 
+def int8_block(shape, gen, dev):
+    """int8 values in [-127, 127] of ``shape`` on the card."""
+    import torch
+
+    return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+
 def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernel: str) -> None:
     """One Gram launch of ``shape`` and ``dtype`` under the launch recorder
     and the profiler: the launch must take ``kernel`` and the profiled event
     must have the grid, block and shared memory of the launch's record
-    (``gram_launch``, the TMA kernel's grid sized on the card)."""
+    (``gram_launch``, the TMA kernel's grid sized on the card; for int8,
+    ``gram_s8_launch``)."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import geometry
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
-    gram_mod.gram_cuda(x)
+    if dtype == "int8":
+        x, run = int8_block(shape, gen, dev), gram_mod.gram_s8_cuda
+        want = gram_mod.gram_s8_launch(*shape)
+    else:
+        x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
+        run, want = gram_mod.gram_cuda, gram_mod.gram_launch(*shape, x.dtype)
+    run(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiler_warm(dev)
         with geometry.recording() as launches:
-            gram_mod.gram_cuda(x)
+            run(x)
         torch.cuda.synchronize()
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
@@ -296,10 +337,153 @@ def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernel: str) -> None:
                    for ev in events], geometry_mismatches=mismatches)
     check(len(launches) == 1 and launches[0].kernel == kernel,
           f"{phase}: recorded {[la.kernel for la in launches]}, want {kernel}")
-    want = gram_mod.gram_launch(*shape, x.dtype)
     check(launches[0] == (want if want.grid else want.resolved(launches[0].grid)),
           f"{phase}: the record is not gram_launch's")
     check(not mismatches, f"{phase}: profiled launch differs: {mismatches}")
+
+
+def parity_gram_s8(dev, gen) -> float:
+    """The s8 Gram kernel against its plain version at ``S8_PARITY``: equal
+    bit for bit and exactly symmetric, each launch on the instance its load
+    rule names and counted; returns the largest absolute error (0.0)."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import geometry
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+
+    worst = 0.0
+    kernels = set()
+    for shape in S8_PARITY:
+        x = int8_block(shape, gen, dev)
+        before = (gram_mod.launches, gram_mod.launches_s8)
+        with geometry.recording() as rec:
+            got = gram_mod.gram_s8_cuda(x)
+        torch.cuda.synchronize()
+        check((gram_mod.launches, gram_mod.launches_s8) == (before[0], before[1] + 1),
+              f"gram_s8 {shape}: launch counters {before} did not move as one s8 launch")
+        want_launch = gram_mod.gram_s8_launch(*shape)
+        check(rec == [want_launch], f"gram_s8 {shape}: recorded {rec}, not gram_s8_launch's")
+        kernels.add(want_launch.kernel)
+        want = gram_mod.gram_s8_plain(x)
+        err = float((got - want).abs().max().item())
+        worst = max(worst, err)
+        equal, symmetric = bool(torch.equal(got, want)), bool(torch.equal(got, got.mT))
+        emit("parity_gram_s8", shape=list(shape), kernel=want_launch.kernel,
+             grid=list(want_launch.grid), max_abs_err=err, bit_equal=equal,
+             symmetric=symmetric, sum_limit_ok=gram_mod.s8_exact(shape[1]))
+        check(equal, f"gram_s8 {shape}: differs from its plain version by {err}")
+        check(symmetric, f"gram_s8 {shape} is not symmetric")
+        del x, got, want
+    check(kernels == {"gram_s8_kernel<16>", "gram_s8_kernel<1>"},
+          f"gram_s8 parity took {sorted(kernels)}, want both load widths")
+    return worst
+
+
+def timing_gram_s8(dev, gen, card: str) -> dict:
+    """The s8 kernel at the CIFAR-10 and synthetic1024 blocks: one call
+    (CUDA events, median of 25 after warm-up) and device time, beside its
+    bound, its plain version, ``torch._int_mm`` looped over the workers with
+    and without the transpose copy it needs (int32 out, the library's
+    nearest call; a yardstick only), and the bf16 TMA kernel on the block
+    widened beforehand (context: what bf16 staging would cost)."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+
+    out = {}
+    for shape in (CIFAR, S8_SYNTH):
+        x = int8_block(shape, gen, dev)
+        ms = time_ms(lambda: gram_mod.gram_s8_cuda(x))
+        kernel_device_ms = device_ms(lambda: gram_mod.gram_s8_cuda(x))
+        plain_ms = time_ms(lambda: gram_mod.gram_s8_plain(x))
+        xt = [x[w].mT.contiguous() for w in range(shape[0])]
+
+        def loop_t():
+            return [torch._int_mm(x[w].mT.contiguous(), x[w]) for w in range(shape[0])]
+
+        def loop():
+            return [torch._int_mm(xt[w], x[w]) for w in range(shape[0])]
+
+        library_ms = time_ms(loop_t)
+        library_device_ms = device_ms(loop_t, launches=None)
+        no_transpose_ms = time_ms(loop)
+        no_transpose_device_ms = device_ms(loop, launches=None)
+        xb = x.to(torch.bfloat16)
+        bf16_ms = time_ms(lambda: gram_mod.gram_cuda(xb))
+        bf16_device_ms = device_ms(lambda: gram_mod.gram_cuda(xb))
+        bound_ms, bound_by = gram_bound(shape, "int8")
+        out[shape] = dict(ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, library_device_ms=library_device_ms,
+                          int_mm_no_transpose_ms=no_transpose_ms,
+                          int_mm_no_transpose_device_ms=no_transpose_device_ms,
+                          bf16_tma_widened_ms=bf16_ms,
+                          bf16_tma_widened_device_ms=bf16_device_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library="torch._int_mm(x[w].mT.contiguous(), x[w]) over the m "
+                                  "workers, int32 out, the transpose copy timed")
+        emit("timing_gram_s8", shape=list(shape), kernel=gram_mod.gram_s8_launch(*shape).kernel,
+             kernel_ms=ms, kernel_device_ms=kernel_device_ms,
+             roofline_share=bound_ms / ms, device_roofline_share=bound_ms / kernel_device_ms,
+             card=card, **{k: v for k, v in out[shape].items()
+                           if k not in ("ms", "device_ms")})
+        del x, xt, xb
+    return out
+
+
+def slice_fit_eval(dev, card: str) -> int:
+    """The cifar10 eval's own settings (``EVAL_FIT``: int8 stage, ns warm
+    rounds) through ``OnlineDistributedPCA.fit`` on its planted-subspace
+    data: one s8 Gram launch (the cold step), no other Gram kernel, every
+    warm round on ``ns_orth``, within 1 degree of the planted top-10;
+    returns the s8 launches of the fit."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops import linalg
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    cfg = dett.PCAConfig(**EVAL_FIT)
+    d, k, m, n, T = (EVAL_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
+                                          "num_steps"))
+    t0 = time.perf_counter()
+    spec = dett.planted_subspace(d, **EVAL_DATA)
+    data = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    ns_calls = [0]
+    real_ns = linalg.ns_orth
+
+    def counted_ns(v, *a, **kw):
+        ns_calls[0] += 1
+        return real_ns(v, *a, **kw)
+
+    linalg.ns_orth = counted_ns
+    try:
+        est = dett.OnlineDistributedPCA(cfg)
+        gram_mod.launches = gram_mod.launches_tma = gram_mod.launches_s8 = 0
+        _, fit_s = synced_s(lambda: est.fit(data))
+        launched = (gram_mod.launches, gram_mod.launches_tma, gram_mod.launches_s8)
+    finally:
+        linalg.ns_orth = real_ns
+    w = est.components_
+    check(w.shape == (d, k) and bool(torch.isfinite(w).all()), "fit_eval: components_")
+    angle = float(principal_angles_degrees(w.cpu(), torch.as_tensor(spec.top_k(k))).max())
+    _, fit2_s = synced_s(lambda: dett.OnlineDistributedPCA(cfg).fit(data))
+    samples = T * m * n
+    per_round = cfg.resolved_warm_start() + 1  # the start and each iteration
+    emit("slice_fit_eval", config="cifar10 eval (evals.py:86-90): d=3072 k=10 m=8 n=1024 "
+                                  "T=20 subspace 12 cold / 2 warm bf16, stage int8, warm ns",
+         data="planted_subspace(3072, k_planted=10, gap=20, decay=0.8, noise=0.01, seed=0)",
+         trainer=est.trainer_used_, s8_launches=launched[2], gram_launches=launched[0],
+         tma_launches=launched[1], ns_calls=ns_calls[0],
+         ns_warm_rounds=ns_calls[0] / per_round, max_angle_deg=angle, data_s=data_s,
+         fit_s=fit_s, samples_per_s=samples / fit_s, second_fit_s=fit2_s,
+         second_samples_per_s=samples / fit2_s, card=card)
+    check(launched == (0, 0, 1), f"fit_eval: Gram launches (float, TMA, s8) {launched}, "
+                                 "want (0, 0, 1)")
+    check(ns_calls[0] == (T - 1) * per_round,
+          f"fit_eval: {ns_calls[0]} ns_orth calls, want {(T - 1) * per_round}")
+    check(angle <= 1.0, f"fit_eval angle {angle} > 1 degree")
+    del data, est
+    return launched[2]
 
 
 def parity_serve(dev) -> dict:
@@ -712,6 +896,7 @@ def slice_dsolve(dev, card: str) -> int:
     import torch
     import distributed_eigenspaces_tpu_torch as dett
     from distributed_eigenspaces_tpu_torch.algo.step import make_solve_core, merge_start
+    from distributed_eigenspaces_tpu_torch.data.stream import quantize_block_i8_device
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
     from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
     from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
@@ -720,37 +905,42 @@ def slice_dsolve(dev, card: str) -> int:
     d, k, m, n, T = (DSOLVE[f] for f in ("dim", "k", "num_workers",
                                           "rows_per_worker", "num_steps"))
     cfg = dett.PCAConfig(**DSOLVE, solver="distributed", subspace_iters=16,
-                         warm_start_iters=1, compute_dtype="bfloat16", backend="local")
+                         warm_start_iters=1, compute_dtype="bfloat16", stage_dtype="int8",
+                         backend="local")
     check(cfg.uses_distributed_solve(), "dsolve: the crossover merge is off")
-    # the planted basis is numpy's QR of a 12288^2 matrix on the host
+    # the planted model keeps a (d, 50) basis: no d x d QR on the host
     t0 = time.perf_counter()
-    spec = dett.planted_spectrum(d, k_planted=k, decay=0.97, seed=0)
+    spec = dett.planted_subspace(d, **DSOLVE_DATA)
     data = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     truth = torch.as_tensor(spec.top_k(k))
 
-    # 1. the fit; its merges take the unfused factor operator, as the reference's
+    # 1. the fit (int8 stage); its merges take the unfused factor operator,
+    # as the reference's
     est = dett.OnlineDistributedPCA(cfg, device=dev)
-    gram_mod.launches = mg.launches = 0
+    gram_mod.launches = gram_mod.launches_s8 = mg.launches = 0
     _, fit_s = synced_s(lambda: est.fit(data))
-    fit_launches = (gram_mod.launches, mg.launches)
+    fit_launches = (gram_mod.launches + gram_mod.launches_s8, mg.launches)
     w = est.components_
     check(w.shape == (d, k) and bool(torch.isfinite(w).all()), "dsolve fit: components_")
     angle = float(principal_angles_degrees(w.cpu(), truth).max())
     _, fit2_s = synced_s(lambda: dett.OnlineDistributedPCA(cfg, device=dev).fit(data))
     samples = T * m * n
     emit("slice_dsolve", part="fit",
-         config="imagenet-patch shape planted (decay 0.97), d=12288 k=50 m=4 n=2048 "
-                "T=10 solver=distributed 16 cold / 1 warm bf16",
+         config="imagenet12288 shape, d=12288 k=50 m=4 n=2048 T=10 solver=distributed "
+                "16 cold / 1 warm bf16, stage int8",
+         data="planted_subspace(12288, k_planted=50, gap=20, decay=0.05**(1/49), "
+              "noise=0.01, seed=0)",
          trainer=est.trainer_used_, max_angle_deg=angle, data_s=data_s, fit_s=fit_s,
          samples_per_s=samples / fit_s, second_fit_s=fit2_s,
          second_samples_per_s=samples / fit2_s,
          gram_launches=fit_launches[0], matvec_gram_launches=fit_launches[1], card=card)
     check(angle <= 1.0, f"dsolve fit angle {angle} > 1 degree")
 
-    # 2. the fused solve on the fit's own operator: the last block's factors
-    x_last = data[-m * n:].reshape(m, n, d)
+    # 2. the fused solve on the fit's own operator: the last block's factors,
+    # from that block as the fit staged it
+    x_last = quantize_block_i8_device(data[-m * n:].reshape(m, n, d))
     vs = make_solve_core(cfg)(x_last, est.v0)
     cc = sd._scaled_factor_concat(vs, torch.ones((m,), device=dev))
     kk = k + sd._default_oversample(k, cc.shape[1])
@@ -951,7 +1141,7 @@ def main() -> int:
 
     # 2. build, every source at once
     t0 = time.perf_counter()
-    sources = ("gram", "serve_project", "matvec_gram", "mutant_full_block")
+    sources = ("gram", "serve_project", "matvec_gram", "mutant_full_block", "gram_s8")
     _build.build_all(sources)
     for name in sources:
         _build.load(name)
@@ -959,7 +1149,8 @@ def main() -> int:
     for phase, name, source in (("build", "gram", GRAM_SOURCE),
                                 ("build_serve", "serve_project", SERVE_SOURCE),
                                 ("build_matvec_gram", "matvec_gram", MG_SOURCE),
-                                ("build_mutant", "mutant_full_block", MUTANT_SOURCE)):
+                                ("build_mutant", "mutant_full_block", MUTANT_SOURCE),
+                                ("build_s8", "gram_s8", S8_SOURCE)):
         info = _build.build_info[name]
         emit(phase, source=source, seconds=seconds, nvcc_seconds=info["seconds"],
              ptxas=ptxas_lines(info["log"]))
@@ -1050,6 +1241,13 @@ def main() -> int:
         gram_geometry(dev, gen, shape, "float32", "gram_f32_geometry",
                       gram_mod.gram_launch(*shape, torch.float32).kernel)
 
+    # 4b. the s8 Gram: parity, geometry, timing
+    s8_err = parity_gram_s8(dev, gen)
+    for shape in (CIFAR, (3, 1000, 1000)):
+        gram_geometry(dev, gen, shape, "int8", "gram_s8_geometry",
+                      gram_mod.gram_s8_launch(*shape).kernel)
+    s8_timing = timing_gram_s8(dev, gen, card)
+
     # 5a. the flagship step, 10 rounds, against the same step on the CPU
     step, (state, x) = dett.entry()
     gram_mod.launches = 0
@@ -1106,6 +1304,9 @@ def main() -> int:
          second_samples_per_s=samples / fit2_s, card=card)
     check(angle <= 1.0, f"fit angle {angle} > 1 degree")
 
+    # 5c. the cifar10 eval's own settings: int8 stage, ns warm rounds
+    s8_launches = slice_fit_eval(dev, card)
+
     # 6.-8. the read path
     serve_err = parity_serve(dev)
     serve_timing = timing_serve(dev, card)
@@ -1154,6 +1355,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("gram_bf16", CIFAR, "bfloat16", fit_launches),
         row("gram_fp32", ENTRY, "float32", entry_launches, also=(CIFAR,)),
+        dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
+             replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "
+             "(ops/linalg.py:64-72), which gram_auto sends integer blocks to "
+             "(ops/pallas_gram.py:427-431)", launches=s8_launches, max_abs_err=s8_err,
+             shape=list(CIFAR), kernel=gram_mod.gram_s8_launch(*CIFAR).kernel,
+             at_shapes=[dict(s8_timing[S8_SYNTH], shape=list(S8_SYNTH))]),
         serve_row("serve_project_bf16", "bf16"),
         serve_row("serve_project_i8", "i8"),
         serve_row("serve_project_f32", "f32"),

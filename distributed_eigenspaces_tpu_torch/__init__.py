@@ -16,7 +16,10 @@ from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
 from distributed_eigenspaces_tpu_torch.algo.step import make_train_step
 from distributed_eigenspaces_tpu_torch.api.estimator import OnlineDistributedPCA
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
-from distributed_eigenspaces_tpu_torch.data.synthetic import planted_spectrum
+from distributed_eigenspaces_tpu_torch.data.synthetic import (
+    planted_spectrum,
+    planted_subspace,
+)
 
 __all__ = [
     "OnlineDistributedPCA",
@@ -26,6 +29,7 @@ __all__ = [
     "make_scan_fit",
     "make_train_step",
     "planted_spectrum",
+    "planted_subspace",
 ]
 
 

@@ -25,7 +25,11 @@ from distributed_eigenspaces_tpu_torch.algo.online import (
 from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
 from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
-from distributed_eigenspaces_tpu_torch.data.stream import block_stream, count_steps
+from distributed_eigenspaces_tpu_torch.data.stream import (
+    block_stream,
+    count_steps,
+    stage_blocks,
+)
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis
 from distributed_eigenspaces_tpu_torch.ops.serve_project import project_exact
@@ -139,8 +143,10 @@ class OnlineDistributedPCA:
         whole-fit scan trainer unless per-step hooks (``on_step``,
         ``worker_masks``) or ``trainer="step"`` ask for the per-step loop.
         The scan stages the whole schedule on the device, in one
-        ``(T, m, n, d)`` tensor filled block by block; a schedule over
-        ``SCAN_STAGE_BYTES_MAX`` raises (the reference's segmented fit)."""
+        ``(T, m, n, d)`` tensor of the resolved stage dtype filled block by
+        block (int8: each block quantized from fp32 with its own scale); a
+        schedule over ``SCAN_STAGE_BYTES_MAX`` raises (the reference's
+        segmented fit)."""
         self.state = None
         self._w = None
         cfg = self.cfg
@@ -173,18 +179,23 @@ class OnlineDistributedPCA:
                 f"dataset yielded zero full steps ({len(data)} rows, one "
                 f"step needs {step_rows})"
             )
-        # one allocation, each block copied into its slot as it is staged:
-        # the device holds the schedule plus one block at most
+        # one allocation, each block staged into its slot as it arrives:
+        # the device holds the schedule plus one block at most. An int8
+        # stage quantizes each fp32 block with its own scale
+        # (stage_blocks); a float stage casts it.
         staged = torch.empty(
             (steps, cfg.num_workers, cfg.rows_per_worker, cfg.dim),
             dtype=stage_dtype, device=self.device,
         )
-        filled = 0
-        for block in block_stream(
+        blocks = block_stream(
             data, num_workers=cfg.num_workers,
             rows_per_worker=cfg.rows_per_worker, num_steps=cfg.num_steps,
-            remainder=cfg.remainder, dtype=stage_dtype, device=self.device,
-        ):
+            remainder=cfg.remainder,
+            dtype=torch.float32 if stage_dtype == torch.int8 else stage_dtype,
+            device=self.device,
+        )
+        filled = 0
+        for block in stage_blocks(blocks, stage_dtype):
             staged[filled].copy_(block)
             filled += 1
         if filled != steps:
@@ -201,9 +212,14 @@ class OnlineDistributedPCA:
     def fit_stream(self, stream, *, on_step=None, worker_masks=None,
                    max_steps="auto") -> "OnlineDistributedPCA":
         """Fit (or continue fitting) on an iterable of ``(m, n, dim)`` blocks
-        with the per-step loop."""
+        with the per-step loop. Under an int8 stage each block is quantized
+        as the whole fit stages it (:func:`~..data.stream.stage_blocks`), so
+        a continued fit sees the same int8 blocks; float blocks go as they
+        are (the worker solve casts them to the compute dtype)."""
         _refuse_feature_sharded(self.cfg, whole_fit=False)
         self.trainer_used_ = "step"
+        if self.cfg.resolved_stage_dtype() == "int8":
+            stream = stage_blocks(stream, "int8")
         w, state = online_distributed_pca(
             stream, self.cfg, device=self.device, state=self.state,
             on_step=on_step, worker_masks=worker_masks, max_steps=max_steps,

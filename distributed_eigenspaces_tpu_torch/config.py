@@ -13,12 +13,27 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
+import torch
+
 from distributed_eigenspaces_tpu_torch.device import dtype_name
 
 #: dtypes the Gram kernel and the solvers take
 FLOAT_DTYPES = ("float32", "bfloat16")
 #: precisions of the served projection
 SERVE_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def _is_integer_dtype(dtype) -> bool:
+    """True for an integer dtype in any spelling (a ``torch.dtype``, or
+    anything ``numpy.dtype`` accepts); False for floats and for names
+    numpy does not know (``"bfloat16"``)."""
+    if isinstance(dtype, torch.dtype):
+        return not (dtype.is_floating_point or dtype.is_complex or dtype == torch.bool)
+    try:
+        return bool(np.issubdtype(np.dtype(dtype), np.integer))
+    except TypeError:
+        return False
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -51,11 +66,13 @@ class PCAConfig:
       components_axis_size: deflation lanes; must stay 1 in this port.
       warm_start_iters: ``"auto"`` (2 under the subspace solver), an int,
         or None (every step cold).
-      orth_method: ``"cholqr2"`` | ``"qr"``; warm_orth_method likewise or
-        None (= orth_method).
+      orth_method: ``"cholqr2"`` | ``"qr"``; warm_orth_method likewise, or
+        ``"ns"`` (Newton-Schulz, warm rounds only), or None (= orth_method).
       compute_dtype: None | ``"float32"`` | ``"bfloat16"``: the cast applied
         to blocks entering the Gram / matvecs (accumulation is fp32).
-      stage_dtype: None (stage in the compute dtype) or a float dtype.
+      stage_dtype: None (stage in the compute dtype), a float dtype, or
+        ``"int8"`` (one symmetric scale per block; requires
+        ``compute_dtype="bfloat16"``).
       dtype: storage dtype of data blocks; state_dtype: ``sigma_tilde``'s.
       remainder: ``"drop"`` | ``"pad"`` | ``"error"`` batcher policy.
       merge_interval, pipeline_merge, merge_topology: must stay at their
@@ -150,20 +167,15 @@ class PCAConfig:
             raise ValueError(
                 f"unknown warm_orth_method: {self.warm_orth_method!r}"
             )
-        if self.warm_orth_method == "ns":
-            raise _not_ported(
-                "warm_orth_method='ns'", "Queue 1 item 9b (ns_orth)"
-            )
         for field in ("compute_dtype", "stage_dtype", "dtype", "state_dtype"):
             val = getattr(self, field)
             if val is None:
                 continue
+            if field == "stage_dtype" and _is_integer_dtype(val):
+                self._validate_int_stage(val)
+                object.__setattr__(self, field, "int8")
+                continue
             name = dtype_name(val)  # raises on junk
-            if name == "int8" and field == "stage_dtype":
-                raise _not_ported(
-                    "stage_dtype='int8'",
-                    "Queue 1 item 9a (int8 staging and its int8 Gram route)",
-                )
             if name not in FLOAT_DTYPES:
                 raise ValueError(
                     f"{field} must be one of {FLOAT_DTYPES} in this port, "
@@ -196,6 +208,23 @@ class PCAConfig:
                 f"need 0 < k <= dim, got k={self.k}, dim={self.dim}"
             )
         self._validate_serve()
+
+    def _validate_int_stage(self, stage) -> None:
+        """The reference's checks of an integer ``stage_dtype``: int8 only,
+        and only under bf16 compute (the in-loop widen path; without it the
+        streaming solver would widen up front and the stage would only add
+        quantization noise)."""
+        if isinstance(stage, torch.dtype):
+            int8 = stage == torch.int8
+        else:
+            int8 = np.dtype(stage) == np.int8
+        if not int8:
+            raise ValueError(f"integer stage_dtype must be int8, got {stage!r}")
+        if self.compute_dtype != "bfloat16":
+            raise ValueError(
+                "stage_dtype='int8' requires compute_dtype='bfloat16' "
+                "(the in-loop widen path; see BASELINE.md)"
+            )
 
     def _validate_solver(self) -> None:
         """The reference's checks of the solver knobs, then the refusal of

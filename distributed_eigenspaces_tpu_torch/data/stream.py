@@ -1,8 +1,11 @@
-"""Streaming batcher: ``(N, d)`` rows -> per-step ``(m, n, d)`` worker blocks.
+"""Streaming batcher: ``(N, d)`` rows -> per-step ``(m, n, d)`` worker blocks,
+and the staging contract of those blocks.
 
-Counterpart of ``block_stream`` in ``distributed_eigenspaces_tpu/data/
-stream.py``: the cursor advances every step, and the remainder policy for
-a final partial step is explicit.
+Counterpart of ``block_stream``, ``quantize_block_i8``,
+``quantize_block_i8_device`` and ``stage_blocks`` in
+``distributed_eigenspaces_tpu/data/stream.py``: the cursor advances every
+step, the remainder policy for a final partial step is explicit, and an
+int8 stage quantizes each block with one global symmetric scale.
 """
 
 from __future__ import annotations
@@ -13,6 +16,65 @@ import numpy as np
 import torch
 
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+
+
+def _i8_scale(amax: float) -> float:
+    """``127 / absmax`` as the fp32 value the quantizers multiply by (the
+    reference computes it in float64 and its fp32 block product rounds it
+    to fp32)."""
+    return float(np.float32(127.0 / amax))
+
+
+def quantize_block_i8(block) -> np.ndarray:
+    """Symmetric global int8 quantization of one staged block, on the host:
+    ``round_half_even(b * 127 / absmax)`` clipped to +-127. The scale is not
+    returned: a symmetric scale cancels in eigenvectors, so PCA consumers
+    never dequantize. One scale per block, shared by its workers. An
+    all-zero block gives zeros; a non-finite block raises (an inf would
+    zero the scale, a NaN make the cast undefined)."""
+    b = np.asarray(block, np.float32)
+    amax = float(np.max(np.abs(b))) if b.size else 0.0
+    if not np.isfinite(amax):
+        raise ValueError("quantize_block_i8: block contains non-finite values")
+    if amax == 0.0:
+        return np.zeros(b.shape, np.int8)
+    scale = np.float32(_i8_scale(amax))
+    return np.clip(np.round(b * scale), -127, 127).astype(np.int8)
+
+
+def quantize_block_i8_device(block: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_block_i8` on the block's own device (same math, the
+    same bits): quantizing a device-resident block where it lies saves
+    moving the fp32 block. The scalar absmax is fetched to the host and
+    checked, the one sync per block, so a non-finite block raises here as
+    in the host twin instead of becoming finite int8."""
+    b = block.float()
+    amax = float(b.abs().max()) if b.numel() else 0.0
+    if not np.isfinite(amax):
+        raise ValueError(
+            "quantize_block_i8_device: block contains non-finite values"
+        )
+    if amax == 0.0:
+        return torch.zeros(block.shape, dtype=torch.int8, device=block.device)
+    # torch.round rounds half to even, as numpy's
+    return torch.round(b * _i8_scale(amax)).clamp_(-127, 127).to(torch.int8)
+
+
+def stage_blocks(blocks, stage):
+    """Stage an iterable of ``(m, n, d)`` blocks in ``stage`` dtype: the one
+    definition of the staging contract (the whole fit, ``fit_stream``).
+    int8 quantizes each block with its own scale, a tensor on its own
+    device (:func:`quantize_block_i8_device`), numpy on the host
+    (:func:`quantize_block_i8`); a float stage casts (no copy when the
+    block already matches), keeping the block's device."""
+    tdt = torch_dtype(stage)
+    if tdt == torch.int8:
+        return (
+            quantize_block_i8_device(b) if isinstance(b, torch.Tensor)
+            else quantize_block_i8(b)
+            for b in blocks
+        )
+    return (torch.as_tensor(b).to(tdt) for b in blocks)
 
 
 def count_steps(n_total: int, step_rows: int, *, num_steps: int | None = None,

@@ -13,7 +13,7 @@ import torch
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
-    "int8": torch.int8,  # named only so that int8 staging can be refused
+    "int8": torch.int8,  # the int8 stage (PCAConfig.stage_dtype)
 }
 
 

@@ -1,12 +1,20 @@
-"""The Gram ``X^T X / n`` of a batch of worker blocks: the Hopper kernel and
-its plain PyTorch version.
+"""The Gram ``X^T X / n`` of a batch of worker blocks: the Hopper kernels and
+their plain PyTorch versions.
 
 Counterpart of ``distributed_eigenspaces_tpu/ops/pallas_gram.py``
-(``gram_pallas`` / ``gram_auto``). :func:`gram_cuda` launches the kernel
+(``gram_pallas`` / ``gram_auto``). :func:`gram_cuda` launches the kernels
 of ``csrc/gram.cu`` on CUDA tensors; :func:`gram_plain` computes the same
 function with ``torch.matmul`` and is what CPU tensors get. :func:`gram_auto`
-dispatches on the tensor's device only: a CUDA tensor always goes to the
+dispatches on the tensor's device only: a CUDA tensor always goes to a
 kernel, which raises on anything it does not take.
+
+int8 blocks (the int8 stage) follow the reference's integer rule
+(:func:`widen_int`): while ``n * 127^2 < 2^31`` their int32 sums are exact
+and they take :func:`gram_s8_cuda` (``csrc/gram_s8.cu``, the port's kernel
+for the reference's XLA int32 einsum) or its plain version
+:func:`gram_s8_plain`; past that guard, and for any other integer dtype,
+the block is widened to fp32 and takes the fp32 route. Nothing widens int8
+to bf16 to reach the bf16 kernel.
 
 Which of the source's three kernels a launch takes is a shape rule decided
 before the launch: bf16 x with ``d % 8 == 0`` on a 16-byte aligned base
@@ -34,6 +42,8 @@ from distributed_eigenspaces_tpu_torch.ops.geometry import KernelLaunch, note
 #: launches they want to count
 launches = 0
 launches_tma = 0
+#: launches made by :func:`gram_s8_cuda`, counted the same way
+launches_s8 = 0
 _count_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +64,15 @@ T_THREADS = 3 * 128  # two consumer warpgroups and a producer warpgroup
 # the ring (per stage 128 columns of x for the item's rows, 256 for its
 # columns), the barriers, alignment
 T_SMEM_BYTES = T_STAGES * 6 * T_BK * 64 * 2 + 2 * T_STAGES * 8 + 1024
+# gram_s8_kernel's launch constants (csrc/gram_s8.cu)
+S_TILE = 128  # output tile edge
+S_BK = 64  # rows of x per stage
+S_THREADS = 256  # eight warps
+S_STAGES = 2  # stages of shared memory
+S_SMEM_BYTES = S_STAGES * 2 * S_TILE * S_BK  # static: two slabs of int8 a stage
+#: int8 sums of n rows stay exact in int32 while n * 127^2 < 2^31 (the
+#: reference's guard, ``ops/linalg.py:64``)
+S8_SUM_LIMIT = 2**31
 
 
 def takes_tma(d: int, dtype, aligned: bool = True) -> bool:
@@ -134,6 +153,54 @@ def gram_launch(m: int, n: int, d: int, dtype=torch.bfloat16,
     )
 
 
+def s8_exact(n: int) -> bool:
+    """The reference's guard: the int32 sums of ``n`` rows of int8 are
+    exact (``n * 127^2 < 2^31``, n < 133,144)."""
+    return n * 127 * 127 < S8_SUM_LIMIT
+
+
+def widen_int(x: torch.Tensor) -> torch.Tensor:
+    """The reference's integer rule for a Gram: int8 whose sums stay exact
+    in int32 (:func:`s8_exact`) is returned as it is; int8 past the guard
+    and every other integer dtype are widened to fp32 (the reference's
+    fp32 contraction at ``Precision.HIGHEST``: integer sums in the input
+    dtype would wrap); floats are returned as they are."""
+    if x.dtype == torch.int8 and s8_exact(x.shape[-2]):
+        return x
+    if not x.is_floating_point():
+        return x.float()
+    return x
+
+
+def s8_vec(d: int, aligned: bool = True) -> int:
+    """``gram_s8_kernel``'s load width in bytes: 16 where every row of x
+    is 16-byte aligned (``d % 16 == 0`` on an aligned base), else 1."""
+    return 16 if aligned and d % 16 == 0 else 1
+
+
+@functools.lru_cache(maxsize=256)  # pure, and the record is frozen
+def gram_s8_launch(m: int, n: int, d: int, aligned: bool = True) -> KernelLaunch:
+    """The launch ``det_gram_s8`` makes for int8 x ``(m, n, d)``: one CTA
+    per upper-triangle 128 x 128 tile, grid ``(tiles (tiles + 1) / 2, 1,
+    m)`` of 256 threads, two stages of the tile's two column slabs
+    (``S_BK`` rows each, transposed to K-major) as static shared memory;
+    a CTA reads its two slabs of x over all of n and writes the tile and
+    its mirror from registers."""
+    w = min(S_TILE, d)
+    tiles = -(-d // S_TILE)
+    return KernelLaunch(
+        kernel=f"gram_s8_kernel<{s8_vec(d, aligned)}>",
+        source="csrc/gram_s8.cu",
+        grid=(tiles * (tiles + 1) // 2, 1, m),
+        threads=S_THREADS,
+        dynamic_smem=0,
+        static_smem=S_SMEM_BYTES,
+        operands=(("x cols i (item)", (n, w)), ("x cols j (item)", (n, w)),
+                  ("x staged", (S_STAGES * S_BK, 2 * S_TILE)),
+                  ("G tile (item)", (w, w)), ("G mirrored (item)", (w, w))),
+    )
+
+
 @functools.lru_cache(maxsize=1024)
 def _launch_on(device_index: int, m: int, n: int, d: int, dtype,
                aligned: bool) -> KernelLaunch:
@@ -161,6 +228,31 @@ def gram_plain(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     if normalize:
         g = g / n
     return g
+
+
+def gram_s8_plain(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
+    """``(..., n, d)`` int8 -> ``(..., d, d)`` fp32 ``f32(X^T X)`` (divided
+    by n when ``normalize``): the products summed in float64, which is
+    exact while the sums stay under 2^53, then rounded once to fp32 and
+    divided by n with a true division (by an fp32 tensor on x's device:
+    PyTorch's CUDA division by a host scalar multiplies by its
+    reciprocal). Bit for bit the reference's int32 einsum,
+    ``.astype(float32)`` and ``/ n``."""
+    n = x.shape[-2]
+    xd = x.double()
+    g = torch.matmul(xd.mT, xd).float()
+    if normalize:
+        g = g / torch.tensor(float(n), dtype=torch.float32, device=g.device)
+    return g
+
+
+@functools.lru_cache(maxsize=1)  # argtypes set once, not per launch
+def _lib_s8():
+    lib = _build.load("gram_s8")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.det_gram_s8.argtypes = [ptr, ptr, i, i, i, ctypes.c_float, i, ptr]
+    lib.det_gram_s8.restype = i
+    return lib
 
 
 @functools.lru_cache(maxsize=1)  # argtypes set once, not per launch
@@ -216,12 +308,60 @@ def gram_cuda(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
+def gram_s8_cuda(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
+    """``(m, n, d)`` (or ``(n, d)``) CUDA int8 -> ``(m, d, d)`` fp32 Gram by
+    the hand-written s8 kernel (``csrc/gram_s8.cu``): exact int32 sums,
+    converted once and divided by n. Raises past :func:`s8_exact`'s guard,
+    where the sums would wrap (:func:`gram_auto` widens there)."""
+    global launches_s8
+    if not x.is_cuda:
+        raise ValueError(f"gram_s8_cuda takes a CUDA tensor, got device {x.device}")
+    if x.dtype != torch.int8:
+        raise ValueError(f"gram_s8_cuda takes int8, got {x.dtype}")
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x.unsqueeze(0)
+    if x.dim() != 3:
+        raise ValueError(f"gram_s8_cuda takes (m, n, d) or (n, d), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("gram_s8_cuda takes a contiguous tensor")
+    m, n, d = x.shape
+    if min(m, n, d) < 1:
+        raise ValueError(f"gram_s8_cuda needs a non-empty input, got {tuple(x.shape)}")
+    if not s8_exact(n):
+        raise ValueError(
+            f"gram_s8_cuda: n={n} rows of int8 can sum past 2^31 in int32 "
+            "(n * 127^2 >= 2^31); widen to fp32"
+        )
+    if m > 65535:  # grid.z, one block row per worker
+        raise ValueError(f"gram_s8_cuda takes at most 65535 workers, got {m}")
+    aligned = x.data_ptr() % 16 == 0
+    launch = gram_s8_launch(m, n, d, aligned)
+    out = torch.empty((m, d, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib_s8().det_gram_s8(
+            x.data_ptr(), out.data_ptr(), m, n, d,
+            float(n) if normalize else 1.0, int(aligned), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gram_s8 kernel launch failed: CUDA error {rc}")
+    with _count_lock:
+        launches_s8 += 1
+    note(launch)
+    return out[0] if squeeze else out
+
+
 def gram_auto(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
-    """The Gram of a worker batch on the tensor's own device: the kernel
-    for a CUDA tensor (always; no fallback), the plain version for a CPU
-    tensor."""
+    """The Gram of a worker batch on the tensor's own device: a kernel for
+    a CUDA tensor (always; no fallback), the plain version for a CPU
+    tensor. Integer blocks first take :func:`widen_int`'s rule: int8 within
+    the guard goes to the s8 kernel (or its plain version), the rest is
+    fp32."""
+    x = widen_int(x)
+    s8 = x.dtype == torch.int8
     if x.device.type == "cuda":
-        return gram_cuda(x, normalize=normalize)
+        return (gram_s8_cuda if s8 else gram_cuda)(x, normalize=normalize)
     if x.device.type == "cpu":
-        return gram_plain(x, normalize=normalize)
+        return (gram_s8_plain if s8 else gram_plain)(x, normalize=normalize)
     raise ValueError(f"gram_auto: unsupported device {x.device}")

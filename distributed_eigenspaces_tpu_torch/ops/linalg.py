@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from distributed_eigenspaces_tpu_torch.ops.gram import gram_plain
+from distributed_eigenspaces_tpu_torch.ops.gram import gram_plain, gram_s8_plain, widen_int
 
 
 def initial_basis(d: int, k: int, *, seed: int = 0, device="cpu",
@@ -41,28 +41,33 @@ def guarded_inv_sqrt(w: torch.Tensor, tol=1e-12) -> torch.Tensor:
 def gram(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     """Plain ``(..., n, d) -> (..., d, d)`` second moment ``X^T X / n`` in
     fp32 (the reference's XLA ``linalg.gram``; the kernel route is
-    ``ops.gram.gram_auto``)."""
+    ``ops.gram.gram_auto``). int8 within the reference's guard
+    (``n * 127^2 < 2^31``) sums exactly (``ops.gram.gram_s8_plain``: the
+    reference's int32 einsum, bit for bit); past it, and for other integer
+    dtypes, x is widened to fp32 first."""
+    x = widen_int(x)
     if x.dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 Gram route is not ported yet (ROADMAP.md Queue 1 "
-            "item 9a)"
-        )
+        return gram_s8_plain(x, normalize=normalize)
     return gram_plain(x, normalize=normalize)
 
 
 def batched_xtxv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``(m, n, d), (m, d, k) -> (m, d, k)`` fp32 ``X^T (X V)`` per worker,
     unnormalized. As in the reference, ``v`` and the intermediate ``X V``
-    are cast to ``x.dtype`` before each product (bf16 rounding where the
-    reference rounds), and both products come out in fp32."""
+    are rounded to the dtype the products take x in before each product
+    (bf16 rounding where the reference rounds), and both products come out
+    in fp32. That dtype is x's own for floats, bf16 for int8 (the staged
+    wire format, which the reference widens to bf16 inside the solver's
+    loop) and fp32 for other integers; every widening of x is exact."""
     if x.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 staged matvecs are not ported yet (ROADMAP.md Queue 1 "
-            "item 9a)"
-        )
+        wdt = torch.bfloat16
+    elif not x.is_floating_point():
+        wdt = torch.float32
+    else:
+        wdt = x.dtype
     xf = x.float()
-    xv = torch.matmul(xf, v.to(x.dtype).float())
-    return torch.matmul(xf.mT, xv.to(x.dtype).float())
+    xv = torch.matmul(xf, v.to(wdt).float())
+    return torch.matmul(xf.mT, xv.to(wdt).float())
 
 
 def canonicalize_signs(v: torch.Tensor) -> torch.Tensor:
@@ -124,28 +129,55 @@ def _cholqr2(v: torch.Tensor) -> torch.Tensor:
     return chol_qr(chol_qr(v, floor=1e-30), floor=1e-30)
 
 
+def ns_orth(v: torch.Tensor, iters: int = 4, eps: float = 1e-20) -> torch.Tensor:
+    """Orthonormalize tall-skinny fp32 ``v (..., d, k)`` by column scaling
+    and Newton-Schulz iteration: matrix products only, so no Cholesky,
+    triangular solve or error-flag sync (the reference's ``ns_orth``, in
+    its order of operations). One d-sized Gram, then on k x k matrices the
+    column scaling, the bound ``alpha^2`` that puts every singular value at
+    or below 1, and ``iters`` steps of ``a = 1.5 I - 0.5 G; M <- M a;
+    G <- G (a a)`` (G and a commute), then one ``(d, k) (k, k)`` product.
+    Converges for the bounded condition numbers of warm rounds only, which
+    is why ``PCAConfig`` takes it as ``warm_orth_method`` alone. The
+    reference's ``DET_CHECKIFY`` residual assertion is not ported (ROADMAP
+    Queue 1 item 16, with ``utils/guards.py``)."""
+    g = torch.matmul(v.mT, v)
+    dscale = torch.rsqrt(torch.clamp(torch.diagonal(g, dim1=-2, dim2=-1), min=eps))
+    g = g * dscale[..., :, None] * dscale[..., None, :]
+    # sigma_max^2 <= max abs row sum; after the scaling the diagonal is 1,
+    # so the bound is >= 1 and alpha <= 1
+    alpha2 = 1.0 / torch.clamp(torch.sum(torch.abs(g), dim=-1).amax(dim=-1), min=1.0)
+    g = g * alpha2[..., None, None]
+    k = g.shape[-1]
+    eye = torch.eye(k, dtype=g.dtype, device=g.device)
+    m_acc = eye * torch.sqrt(alpha2)[..., None, None]
+    for _ in range(iters):
+        a = 1.5 * eye - 0.5 * g
+        m_acc = torch.matmul(m_acc, a)
+        g = torch.matmul(g, torch.matmul(a, a))
+    return torch.matmul(v * dscale[..., None, :], m_acc)
+
+
 ORTH_METHODS = ("qr", "cholqr2", "ns")
 
 
 def validate_orth_method(method: str) -> None:
-    """Raise on an unknown method, or on ``"ns"`` (not ported yet)."""
+    """Raise on an unknown method, without running anything."""
     if method not in ORTH_METHODS:
         raise ValueError(
             f"unknown orthonormalization method: {method!r}; "
             f"one of {ORTH_METHODS}"
         )
-    if method == "ns":
-        raise NotImplementedError(
-            "ns_orth is not ported yet (ROADMAP.md Queue 1 item 9b)"
-        )
 
 
 def orthonormalize(v: torch.Tensor, method: str = "qr") -> torch.Tensor:
-    """Orthonormalize the columns of ``(..., d, k)``: ``"cholqr2"`` or
-    Householder ``"qr"``."""
+    """Orthonormalize the columns of ``(..., d, k)``: ``"cholqr2"``,
+    Householder ``"qr"``, or ``"ns"`` (:func:`ns_orth`, warm rounds only)."""
     validate_orth_method(method)
     if method == "cholqr2":
         return _cholqr2(v)
+    if method == "ns":
+        return ns_orth(v)
     q, _ = torch.linalg.qr(v)
     return q
 

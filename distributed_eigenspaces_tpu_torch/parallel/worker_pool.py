@@ -56,21 +56,24 @@ def _local_eigenspaces(
     The route rule is the reference's (``worker_pool.py:153-155``): the
     subspace solver streams when ``d >= 4096`` or when the iteration count
     is low (``2 k iters < d and iters <= 6``); otherwise every worker's
-    Gram is formed, by the Hopper kernel for a CUDA batch, and solved.
+    Gram is formed, by a Hopper kernel for a CUDA batch, and solved. int8
+    blocks take the s8 Gram kernel on the Gram route, and stream as int8
+    under bf16 compute (widened up front under any other).
     ``v0 (d, k)`` starts every worker's subspace iteration; the subspace
     solver requires it (eigh ignores it).
     """
-    if x_blocks.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 staged blocks are not ported yet (ROADMAP.md Queue 1 "
-            "item 9a)"
-        )
     cdtype = None if compute_dtype is None else torch_dtype(compute_dtype)
-    if not x_blocks.is_floating_point():
-        # integer einsums would wrap: widen as the reference does
+    # int8 blocks (the int8 stage: one symmetric scale per block, which
+    # cancels in eigenvectors) stay int8 where a native consumer exists:
+    # the Gram route keeps them under any compute dtype (the s8 kernel's
+    # exact int32 sums), the streaming route under bf16 compute only
+    # (batched_xtxv widens them inside the loop); every other integer
+    # dtype widens, as the reference's
+    int8_wire = x_blocks.dtype == torch.int8
+    int8_stream = int8_wire and cdtype == torch.bfloat16
+    if not int8_wire and (cdtype is not None or not x_blocks.is_floating_point()):
+        # other integer products would wrap: widen as the reference does
         x_blocks = x_blocks.to(cdtype or torch.float32)
-    if cdtype is not None:
-        x_blocks = x_blocks.to(cdtype)
     m, _, d = x_blocks.shape
     if solver == "subspace" and v0 is None:
         raise ValueError("the subspace solver needs an explicit v0 (d, k)")
@@ -79,6 +82,8 @@ def _local_eigenspaces(
         d >= 4096 or (2 * k * iters < d and iters <= 6)
     )
     if streaming:
+        if int8_wire and not int8_stream:
+            x_blocks = x_blocks.to(cdtype or torch.float32)
         return _batched_streaming_eigenspaces(x_blocks, k, iters, orth, v0)
 
     g = gram_auto(x_blocks.contiguous())  # (m, d, d) fp32

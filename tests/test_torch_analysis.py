@@ -542,6 +542,41 @@ def test_gram_launch_uses_the_source_constants(m, n, d, dtype, aligned):
     assert launch.kernel.split("<")[0] in geometry.RECORDED_KERNELS
 
 
+@pytest.mark.parametrize("m,n,d,aligned", [
+    (8, 1024, 3072, True), (8, 2048, 1024, True), (3, 1000, 1000, True),
+    (1, 37, 9, True), (2, 130, 48, False), (65535, 2, 16, True), (8, 1000, 3072, False),
+    (8, 64, 16, True)])
+def test_gram_s8_launch_uses_the_source_constants(m, n, d, aligned):
+    """``gram_s8_launch`` against ``csrc/gram_s8.cu`` read as text: the tile,
+    stage and thread constants, the load-width rule, the static shared
+    memory and the one-CTA-per-upper-triangle-tile grid."""
+    src = CSRC / "gram_s8.cu"
+    c = _constexprs(src)
+    for name in ("S_TILE", "S_BK", "S_THREADS", "S_STAGES", "S_SMEM_BYTES"):
+        assert c[name] == getattr(tgram, name), name
+    text = src.read_text()
+    assert "if (aligned && d % 16 == 0) return launch_s8<16>(xi, of, m, n, d, divisor, s);" in text
+    assert "return launch_s8<1>(xi, of, m, n, d, divisor, s);" in text
+    assert "gram_s8_kernel<VEC><<<grid, S_THREADS, 0, s>>>" in text
+    assert "const dim3 grid(tiles * (tiles + 1) / 2, 1, m);" in text
+    assert "__shared__ __align__(16) uint32_t sm[S_STAGES][2][S_SLAB_WORDS];" in text
+    assert c["S_SLAB_WORDS"] * 4 * 2 * c["S_STAGES"] == c["S_SMEM_BYTES"]
+    assert "ops/linalg.py::gram" in text and "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
+    launch = tgram.gram_s8_launch(m, n, d, aligned)
+    tiles = math.ceil(d / c["S_TILE"])
+    vec = 16 if aligned and d % 16 == 0 else 1
+    assert tgram.s8_vec(d, aligned) == vec
+    assert launch.kernel == f"gram_s8_kernel<{vec}>"
+    assert launch.grid == (_tri(tiles), 1, m)
+    assert (launch.threads, launch.dynamic_smem, launch.static_smem) == (
+        c["S_THREADS"], 0, c["S_SMEM_BYTES"])
+    ops = dict(launch.operands)
+    assert ops["x staged"] == (c["S_STAGES"] * c["S_BK"], 2 * c["S_TILE"])
+    assert ops["G tile (item)"] == (min(128, d), min(128, d))
+    assert launch.source == "csrc/gram_s8.cu"
+    assert launch.kernel.split("<")[0] in geometry.RECORDED_KERNELS
+
+
 def _tri(tiles: int) -> int:
     return tiles * (tiles + 1) // 2
 

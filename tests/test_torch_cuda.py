@@ -25,6 +25,9 @@ card lands within 1e-3 degrees of the same solve on the CPU. The analyzer's
 one-CTA mutant agrees with ``torch.matmul`` to 1e-5 relative (FFMA in index
 order against cuBLAS fp32), and ``torch.profiler`` reads every recorded
 launch back with the grid, block and shared memory its record declares.
+The s8 Gram kernel equals its plain version bit for bit (exact int32 sums,
+one rounding to fp32, a true division by n); past its guard an int8 batch
+is widened and its fp32 Gram is held to the float64 truth at 1e-3.
 """
 
 import sys
@@ -586,3 +589,109 @@ def test_profiled_launch_geometry_equals_the_records(cuda_device, tmp_path):
     assert rec[5] == tmfb.mutant_full_block_launch(256, 1000, 10)
     mutant = [e for e in events if e["symbol"] == "mutant_full_block_kernel"]
     assert [e["grid"] for e in mutant] == [(1, 1, 1)]
+
+
+# -- the s8 Gram (int8 blocks) -------------------------------------------------
+
+
+def _i8(shape, seed=0, offset=0):
+    """int8 values in [-127, 127], as a view ``offset`` bytes into its
+    buffer (offset 1 breaks the 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(-127, 128, size=int(np.prod(shape)) + offset).astype(np.int8)
+    return torch.from_numpy(flat)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((8, 1024, 3072), 0), ((8, 2048, 1024), 0), ((3, 1000, 1000), 0), ((1, 37, 9), 0),
+    ((1, 5, 15), 0), ((2, 130, 48), 1), ((4, 64, 256), 0), ((2, 1, 1), 0)])
+def test_gram_s8_bit_equal_to_plain(cuda_device, shape, offset):
+    """The s8 kernel against its plain version (float64 sums, one rounding,
+    a true division): equal bit for bit, exactly symmetric, at aligned and
+    unaligned shapes, n = 2048 (where fp32 sums would no longer be exact)
+    and m = 1 with d below one tile."""
+    x = _i8(shape, seed=sum(shape), offset=offset).to(cuda_device)[offset:].view(shape)
+    vec = 16 if offset == 0 and shape[2] % 16 == 0 else 1
+    before = (tgram.launches, tgram.launches_s8)
+    with tgeo.recording() as rec:
+        got = tgram.gram_s8_cuda(x)
+    torch.cuda.synchronize()
+    assert (tgram.launches, tgram.launches_s8) == (before[0], before[1] + 1)
+    assert rec == [tgram.gram_s8_launch(*shape, aligned=offset == 0)]
+    assert rec[0].kernel == f"gram_s8_kernel<{vec}>"
+    want = tgram.gram_s8_plain(x)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got, got.mT)
+    assert torch.equal(tgram.gram_s8_cuda(x, normalize=False),
+                       tgram.gram_s8_plain(x, normalize=False))
+    assert torch.equal(got.cpu(), tgram.gram_s8_plain(x.cpu()))
+
+
+def test_gram_s8_profiled_geometry_equals_the_record(cuda_device, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = [_i8(s, seed=3).to(cuda_device).view(s) for s in ((8, 1024, 3072), (3, 1000, 1000))]
+    for x in xs:
+        tgram.gram_s8_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tgeo.recording() as rec:
+            for x in xs:
+                tgram.gram_s8_cuda(x)
+        torch.cuda.synchronize()
+    events = tgeo.profiled_kernels(prof, tgeo.RECORDED_KERNELS, tmp_path / "trace.json")
+    bad = tgeo.geometry_mismatches(events, rec)
+    assert not bad, (bad, [(e["name"], e["args"]) for e in events])
+    assert rec == [tgram.gram_s8_launch(8, 1024, 3072), tgram.gram_s8_launch(3, 1000, 1000)]
+    assert [e["grid"] for e in events] == [(300, 1, 8), (36, 1, 3)]
+
+
+def test_gram_auto_int8_routes_by_the_guard(cuda_device):
+    """An int8 CUDA batch reaches the s8 kernel within n * 127^2 < 2^31 and
+    the fp32 kernel past it (widened, as the reference widens); never a
+    bf16 kernel, never a plain version."""
+    x = _i8((2, 300, 64), seed=5).to(cuda_device).view(2, 300, 64)
+    before = (tgram.launches, tgram.launches_tma, tgram.launches_s8)
+    got = tgram.gram_auto(x)
+    torch.cuda.synchronize()
+    assert (tgram.launches, tgram.launches_tma, tgram.launches_s8) == (
+        before[0], before[1], before[2] + 1)
+    assert torch.equal(got, tgram.gram_s8_plain(x))
+    big = _i8((1, 133_200, 32), seed=6).to(cuda_device).view(1, 133_200, 32)
+    assert not tgram.s8_exact(133_200)
+    with tgeo.recording() as rec:
+        wide = tgram.gram_auto(big)
+    torch.cuda.synchronize()
+    assert (tgram.launches, tgram.launches_tma, tgram.launches_s8) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert [r.kernel.split("<")[0] for r in rec] == ["gram_f32_kernel"]
+    exact = tgram.gram_s8_plain(big)  # float64 sums: the truth
+    # fp32 sums of 133,200 products in n order: sequential fp32 sums of
+    # these data lose 1.3e-4 relative (numpy's float32 accumulate on the
+    # host gives the same; the reference's XLA contraction on the CPU
+    # loses as much), hence 1e-3
+    assert _rel(wide, exact) <= 1e-3
+    with pytest.raises(ValueError, match="2\\^31"):
+        tgram.gram_s8_cuda(big)
+
+
+def test_eval_settings_fit_makes_one_s8_launch(cuda_device):
+    """A fit with the cifar10 eval's settings (int8 stage, ns warm rounds,
+    bf16, subspace 12 cold / 2 warm) on the card: the cold step's Gram is
+    one s8 launch, no bf16 Gram kernel runs, and the fit recovers the
+    planted top-k within 1 degree (its default device is the card)."""
+    d, k, m, n, steps = 512, 8, 4, 256, 5
+    cfg = dett.PCAConfig(dim=d, k=k, num_workers=m, rows_per_worker=n, num_steps=steps,
+                         solver="subspace", subspace_iters=12, warm_start_iters=2,
+                         compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns")
+    spec = dett.planted_subspace(d, k_planted=k, gap=20.0, decay=0.8, noise=0.01, seed=0)
+    data = spec.sample(torch.Generator(device=cuda_device).manual_seed(0), steps * m * n)
+    tgram.launches = tgram.launches_tma = tgram.launches_s8 = 0
+    est = dett.OnlineDistributedPCA(cfg).fit(data)
+    torch.cuda.synchronize()
+    assert est.device.type == "cuda" and est.trainer_used_ == "scan"
+    assert (tgram.launches, tgram.launches_tma, tgram.launches_s8) == (0, 0, 1)
+    angle = float(principal_angles_degrees(est.components_.cpu(),
+                                           torch.from_numpy(spec.top_k(k))).max())
+    assert angle <= 1.0

@@ -24,7 +24,8 @@ from distributed_eigenspaces_tpu_torch.data import synthetic as tsyn
 GIB2 = 1 << 31
 
 # (T, m, n, d, k, stage dtype, backend): per-step bytes x T on both sides of
-# 2 GiB; None stages in the compute dtype (bf16 here)
+# 2 GiB; None stages in the compute dtype (bf16 here); int8 counts 1 byte
+# an element
 GRID = [
     (128, 8, 1024, 1024, 8, "bfloat16", "local"),   # exactly 2 GiB: scan
     (129, 8, 1024, 1024, 8, "bfloat16", "local"),   # one step over
@@ -40,6 +41,12 @@ GRID = [
     (40, 4, 2048, 8192, 4, "float32", "auto"),      # feature-sharded scan, any size
     (1, 1, 1 << 20, 1024, 8, "float32", "local"),   # 4 GiB in one step
     (3, 2, 64, 96, 4, None, "local"),
+    (256, 8, 1024, 1024, 8, "int8", "local"),       # exactly 2 GiB at int8
+    (257, 8, 1024, 1024, 8, "int8", "local"),       # one step over
+    (85, 8, 1024, 3072, 10, "int8", "auto"),        # the cifar10 eval's stage, 2040 MiB
+    (86, 8, 1024, 3072, 10, "int8", "auto"),        # 2064 MiB
+    (20, 8, 1024, 3072, 10, "int8", "auto"),        # the eval's own T
+    (10, 4, 2048, 12288, 50, "int8", "local"),      # imagenet12288's stage, 0.94 GiB
 ]
 
 
@@ -76,7 +83,7 @@ class _Untouchable:
 @pytest.mark.parametrize("trainer", ["auto", "scan"])
 @pytest.mark.parametrize("case", [c for c in GRID if c[-1] == "local"
                                   and (c[0] * c[1] * c[2] * c[3]
-                                       * (2 if c[5] == "bfloat16" else 4)) > GIB2],
+                                       * {"bfloat16": 2, "int8": 1}.get(c[5], 4)) > GIB2],
                          ids=lambda c: "-".join(map(str, c)))
 def test_fit_refuses_where_the_reference_goes_segmented(case, trainer):
     cfg, jcfg = _cfgs(*case)

@@ -109,3 +109,26 @@ def test_gram_shape_rule(d, dtype, aligned, tma):
     kernel = tgram.gram_launch(2, 64, d, dtype, aligned).kernel
     assert (kernel == "gram_bf16_tma_kernel") is tma
 
+
+
+# -- the s8 Gram (int8 blocks) -------------------------------------------------
+
+
+def test_gram_s8_cuda_refuses_what_the_kernel_does_not_take():
+    before = tgram.launches_s8
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgram.gram_s8_cuda(torch.zeros((2, 8, 8), dtype=torch.int8))
+    assert tgram.launches_s8 == before
+
+
+def test_gram_auto_int8_on_cpu_takes_the_plain_version(rng):
+    """An int8 CPU batch takes the s8 plain version (exact), launches no
+    kernel, and is never widened to bf16."""
+    x = torch.from_numpy(rng.integers(-127, 128, size=(3, 50, 20)).astype(np.int8))
+    before = (tgram.launches, tgram.launches_tma, tgram.launches_s8)
+    got = tgram.gram_auto(x)
+    assert (tgram.launches, tgram.launches_tma, tgram.launches_s8) == before
+    torch.testing.assert_close(got, tgram.gram_s8_plain(x), rtol=0, atol=0)
+    exact = torch.matmul(x.long().mT, x.long()).double() / 50
+    torch.testing.assert_close(got, exact.float(), rtol=0, atol=0)
+    assert tgram.widen_int(x) is x

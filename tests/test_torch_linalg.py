@@ -116,14 +116,46 @@ def test_orthonormalize_matches(rng, method):
 
 
 def test_validate_orth_method():
-    tl.validate_orth_method("cholqr2")
-    tl.validate_orth_method("qr")
+    for method in ("cholqr2", "qr", "ns"):  # the reference's three
+        tl.validate_orth_method(method)
+        jl.validate_orth_method(method)
+    assert tl.ORTH_METHODS == jl.ORTH_METHODS
     with pytest.raises(ValueError, match="unknown"):
         tl.validate_orth_method("householder")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.validate_orth_method("ns")
     with pytest.raises(ValueError):
         jl.validate_orth_method("householder")
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 5), (64, 5), (2, 96, 8)])
+def test_ns_orth_matches_the_reference(rng, shape):
+    """Newton-Schulz in the reference's order of operations, fp32 without
+    TF32: within 1e-5 of the reference elementwise, and orthonormal to 1e-3
+    (4 iterations on a well-conditioned Gaussian block)."""
+    v = rng.standard_normal(shape).astype(np.float32)
+    want = np.asarray(jnp.vectorize(jl.ns_orth, signature="(d,k)->(d,k)")(jnp.asarray(v)))
+    got = tl.ns_orth(T(v))
+    assert got.dtype == torch.float32 and got.shape == shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    k = shape[-1]
+    resid = (torch.matmul(got.mT, got) - torch.eye(k)).abs().max()
+    assert float(resid) <= 1e-3
+    torch.testing.assert_close(tl.orthonormalize(T(v), "ns"), got, rtol=0, atol=0)
+    np.testing.assert_allclose(
+        tl.orthonormalize(T(v), "ns").numpy(), np.asarray(
+            jnp.vectorize(lambda a: jl.orthonormalize(a, "ns"), signature="(d,k)->(d,k)")(
+                jnp.asarray(v))), atol=1e-5)
+
+
+def test_ns_orth_in_the_warm_regime_spans_like_cholqr2(rng):
+    """A warm round's input (one power step from an orthonormal basis of a
+    clean spectrum): ns and CholeskyQR2 give the same span, and ns's
+    columns are orthonormal to 1e-4."""
+    a = _spd(rng, 48)
+    v = np.linalg.qr(rng.standard_normal((48, 4)))[0].astype(np.float32)
+    w = T(a @ v)
+    ns, chol = tl.ns_orth(w), tl._cholqr2(w)
+    assert _max_angle(ns.numpy(), chol.numpy()) <= 0.01
+    assert float((ns.T @ ns - torch.eye(4)).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("orth", ["cholqr2", "qr"])
@@ -215,8 +247,11 @@ def test_projector_and_gram_match(rng):
     np.testing.assert_allclose(
         tl.gram(T(x)).numpy(), np.asarray(jl.gram(jnp.asarray(x))), rtol=1e-5, atol=1e-6
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.gram(torch.zeros((4, 4), dtype=torch.int8))
+    # int8: the reference's exact int32 sums, bit for bit
+    xi = rng.integers(-127, 128, size=(50, 24)).astype(np.int8)
+    np.testing.assert_array_equal(
+        tl.gram(torch.from_numpy(xi)).numpy(), np.asarray(jl.gram(jnp.asarray(xi)))
+    )
 
 
 def test_principal_angles_match(rng):

@@ -88,6 +88,11 @@ def test_default_device_raises_without_a_card(monkeypatch):
     data = np.zeros((16, 16), np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         dett.OnlineDistributedPCA(cfg).fit(data)
+    evals = PCAConfig(dim=16, k=2, num_workers=2, rows_per_worker=8, num_steps=1,
+                      solver="subspace", compute_dtype="bfloat16", stage_dtype="int8",
+                      warm_orth_method="ns")
+    with pytest.raises(RuntimeError, match="cuda"):
+        dett.OnlineDistributedPCA(evals).fit(data)
     with pytest.raises(RuntimeError, match="cuda"):
         dett.make_train_step(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -107,5 +112,6 @@ def test_kernel_sources_ship_with_the_package():
     assert (PKG / "csrc" / "serve_project.cu").is_file()
     assert (PKG / "csrc" / "matvec_gram.cu").is_file()
     assert (PKG / "csrc" / "mutant_full_block.cu").is_file()
+    assert (PKG / "csrc" / "gram_s8.cu").is_file()
     text = (ROOT / "pyproject.toml").read_text()
     assert 'distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text

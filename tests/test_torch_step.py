@@ -116,9 +116,13 @@ def test_state_carried_across_by_interop_matches():
 
 
 def test_config_from_jax_refuses_unported_settings():
-    jcfg = JaxConfig(**SMALL, stage_dtype="int8", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="int8"):
+    jcfg = JaxConfig(**SMALL, merge_interval=2)
+    with pytest.raises(NotImplementedError, match="merge_interval"):
         interop.config_from_jax(dataclasses.asdict(jcfg))
+    # the int8 stage and the ns warm orthonormalization carry over
+    got = interop.config_from_jax(dataclasses.asdict(JaxConfig(
+        **SMALL, stage_dtype="int8", compute_dtype="bfloat16", warm_orth_method="ns")))
+    assert (got.stage_dtype, got.resolved_warm_orth()) == ("int8", "ns")
     got = interop.config_from_jax(
         dataclasses.asdict(JaxConfig(**SMALL, compute_dtype=jnp.bfloat16))
     )

@@ -73,10 +73,13 @@ def test_local_eigenspaces_both_routes(rng, solver, iters, route, compute_dtype)
 def test_local_eigenspaces_subspace_needs_v0():
     with pytest.raises(ValueError, match="v0"):
         twp._local_eigenspaces(torch.zeros((2, 8, 16)), 2, "subspace", 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="v0"):
         twp._local_eigenspaces(
-            torch.zeros((2, 8, 16), dtype=torch.int8), 2, "eigh", 12
+            torch.zeros((2, 8, 16), dtype=torch.int8), 2, "subspace", 12
         )
+    # int8 blocks take the Gram route of eigh (the s8 Gram's plain version)
+    xi = torch.from_numpy(np.random.default_rng(0).integers(-127, 128, (2, 8, 16)).astype(np.int8))
+    assert twp._local_eigenspaces(xi, 2, "eigh", 12).shape == (2, 16, 2)
 
 
 def test_masked_projector_mean_matches(rng):
@@ -138,8 +141,7 @@ def test_config_rejects_like_the_reference(kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(stage_dtype="int8", compute_dtype="bfloat16"),
-        dict(warm_orth_method="ns"), dict(merge_interval=2),
+        dict(backend="tpu"), dict(compile_cache_dir="cache"), dict(merge_interval=2),
         dict(pipeline_merge=True, solver="subspace"),
         dict(merge_topology=(("chip", 2),)),
         dict(solver="deflation", components_axis_size=2),
@@ -162,6 +164,10 @@ def test_config_names_the_roadmap_for_unported_settings(kw):
         dict(compute_dtype="bfloat16"), dict(stage_dtype="float32"),
         dict(solver="distributed"), dict(solver="distributed", warm_start_iters=1),
         dict(solver="distributed", eigh_crossover_d=16, solver_tol=1e-3),
+        dict(compute_dtype="bfloat16", stage_dtype="int8"),
+        dict(solver="subspace", warm_orth_method="ns"),
+        dict(solver="distributed", compute_dtype="bfloat16", stage_dtype="int8",
+             warm_orth_method="ns"),
     ],
 )
 def test_config_resolvers_match(kw):
