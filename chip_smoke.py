@@ -33,24 +33,29 @@ exits non-zero without printing a result:
    entry and the CIFAR shape, each under the launch recorder and the
    profiler: its profiled grid, block and shared memory must equal its
    ``gram_launch`` record.
-4b. parity_gram_s8, gram_s8_geometry, timing_gram_s8: the s8 Gram kernel
-   (int8 blocks) against its plain version (float64 sums, one rounding, a
-   true division) at the CIFAR-10 block (8, 1024, 3072), synthetic1024's
-   (8, 2048, 1024), an unaligned (3, 1000, 1000) and (1, 1000, 9): equal
-   bit for bit, exactly symmetric, both load widths taken; its profiled
-   geometry equal to ``gram_s8_launch`` at CIFAR and (3, 1000, 1000); at the
-   first two shapes its one-call and device time, bound, plain version,
-   ``torch._int_mm`` over the workers with and without the transpose copy,
-   and the bf16 TMA kernel on the block widened beforehand.
+4b. parity_gram_s8, gram_s8_geometry, timing_gram_s8: the s8 Gram (int8
+   blocks: a transpose into x^T, then the TMA + wgmma kernel) against its
+   plain version (float64 sums, one rounding, a true division) at the
+   CIFAR-10 block (8, 1024, 3072), synthetic1024's (8, 2048, 1024),
+   mnist784's (8, 1024, 784), (3, 1000, 1000) and (1, 1000, 9), each on an
+   aligned base and one byte off it: the transpose equal to its plain
+   version (pad rows included), the Gram equal bit for bit and exactly
+   symmetric, every instance of both kernels taken; both profiled launches
+   equal to ``gram_s8_launch``'s record at CIFAR and (1, 1000, 9); at the
+   three eval blocks the pair's one-call time, the device time of both
+   launches and of the transpose, the bound, the plain version,
+   ``torch._int_mm`` over the workers with the transpose copy, and the bf16
+   TMA kernel on the block widened beforehand.
 5. slice: ``entry()``'s step 10 times (10 Gram launches), checked against
    the same step on the CPU; then ``OnlineDistributedPCA`` at the
    CIFAR-10 shape (d=3072, k=10, m=8, n=1024, T=20, subspace 12 / warm 2,
    bf16) on planted-spectrum data, which must recover the planted top-10
    within 1 degree with exactly one Gram launch (the cold step), on the
-   TMA kernel. 5c. slice_fit_eval: the cifar10 eval's own settings (int8
-   stage, ``warm_orth_method="ns"``) on its ``planted_subspace`` data:
-   exactly one s8 launch and no other Gram kernel, ns on all 19 warm
-   rounds, within 1 degree of the planted top-10.
+   TMA kernel. 5c. slice_fit_eval: the cifar10 and the synthetic1024
+   evals' own settings (int8 stage, ``warm_orth_method="ns"``) on their
+   ``planted_subspace`` data: each exactly one s8 call (a transpose and a
+   TMA launch) and no other Gram kernel, ns on all 19 warm rounds, within 1
+   degree of the planted top-k, both fits' wall seconds.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -149,9 +154,13 @@ S8_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram_s8.cu"
 # no Pallas kernel: the JAX package's int8 Gram is an XLA einsum with int32 sums
 S8_REPLACES = "distributed_eigenspaces_tpu/ops/linalg.py:64"
 S8_SYNTH = (8, 2048, 1024)  # synthetic1024's block: fp32 sums would not be exact
-# CIFAR-10's block, synthetic1024's, an unaligned shape (d % 16 != 0: byte
-# loads) and one worker with d below one tile
-S8_PARITY = (CIFAR, S8_SYNTH, (3, 1000, 1000), (1, 1000, 9))
+S8_MNIST = (8, 1024, 784)  # mnist784's block: a 16-column last tile
+# CIFAR-10's block, synthetic1024's, mnist784's, n = 1000 (n_pad 1008, the
+# division by n) and one worker with d below one tile (d % 4 != 0: the
+# register epilogue), each on an aligned base and one byte off it (byte
+# loads in the transpose)
+S8_PARITY = (CIFAR, S8_SYNTH, S8_MNIST, (3, 1000, 1000), (1, 1000, 9))
+S8_OFFSETS = (0, 1)
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
 SERVE_REPLACES = {
     "bf16": "distributed_eigenspaces_tpu/ops/pallas_gram.py:184",
@@ -191,6 +200,15 @@ EVAL_FIT = dict(dim=3072, k=10, num_workers=8, rows_per_worker=1024, num_steps=2
                 solver="subspace", subspace_iters=12, warm_start_iters=2,
                 compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns")
 EVAL_DATA = dict(k_planted=10, gap=20.0, decay=0.8, noise=0.01, seed=0)
+# the synthetic1024 eval, field for field (distributed_eigenspaces_tpu/evals.py:91-95),
+# its decay by the eval's own formula, max(0.8, (100 noise / gap)^(1 / (k - 1)))
+SYNTH_FIT = dict(dim=1024, k=5, num_workers=8, rows_per_worker=2048, num_steps=20,
+                 solver="subspace", subspace_iters=12, warm_start_iters=2,
+                 compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns")
+SYNTH_DATA = dict(k_planted=5, gap=20.0, decay=max(0.8, (100 * 0.01 / 20.0) ** (1 / 4)),
+                  noise=0.01, seed=0)
+EVALS = (("cifar10", "evals.py:86-90", EVAL_FIT, EVAL_DATA),
+         ("synthetic1024", "evals.py:91-95", SYNTH_FIT, SYNTH_DATA))
 MUTANT_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/mutant_full_block.cu"
 MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
 MUTANT_TOL = 1e-5
@@ -207,8 +225,14 @@ def ptxas_lines(log: str) -> list[str]:
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keys)]
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; ``t_s`` is the seconds since the script
+    started, so the lines show where its time goes."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": round(time.perf_counter() - _START, 3)}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -303,12 +327,12 @@ def int8_block(shape, gen, dev):
     return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
 
-def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernel: str) -> None:
-    """One Gram launch of ``shape`` and ``dtype`` under the launch recorder
-    and the profiler: the launch must take ``kernel`` and the profiled event
-    must have the grid, block and shared memory of the launch's record
-    (``gram_launch``, the TMA kernel's grid sized on the card; for int8,
-    ``gram_s8_launch``)."""
+def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernels: tuple) -> None:
+    """One Gram call of ``shape`` and ``dtype`` under the launch recorder
+    and the profiler: its launches must take ``kernels``, in order, and each
+    profiled event must have the grid, block and shared memory of its
+    launch's record (``gram_launch``, the TMA kernels' grids sized on the
+    card; for int8 the two launches of ``gram_s8_launch``)."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import geometry
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
@@ -319,7 +343,7 @@ def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernel: str) -> None:
         want = gram_mod.gram_s8_launch(*shape)
     else:
         x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
-        run, want = gram_mod.gram_cuda, gram_mod.gram_launch(*shape, x.dtype)
+        run, want = gram_mod.gram_cuda, (gram_mod.gram_launch(*shape, x.dtype),)
     run(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -335,17 +359,21 @@ def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernel: str) -> None:
     emit(phase, shape=list(shape), dtype=dtype, recorded=[la.to_json() for la in launches],
          profiled=[{k: ev[k] for k in ("symbol", "grid", "block", "smem", "dur_us")}
                    for ev in events], geometry_mismatches=mismatches)
-    check(len(launches) == 1 and launches[0].kernel == kernel,
-          f"{phase}: recorded {[la.kernel for la in launches]}, want {kernel}")
-    check(launches[0] == (want if want.grid else want.resolved(launches[0].grid)),
-          f"{phase}: the record is not gram_launch's")
+    check([la.kernel for la in launches] == list(kernels),
+          f"{phase}: recorded {[la.kernel for la in launches]}, want {list(kernels)}")
+    check(launches == [w if w.grid else w.resolved(la.grid) for w, la in zip(want, launches)],
+          f"{phase}: the records are not the launch functions'")
     check(not mismatches, f"{phase}: profiled launch differs: {mismatches}")
 
 
 def parity_gram_s8(dev, gen) -> float:
-    """The s8 Gram kernel against its plain version at ``S8_PARITY``: equal
-    bit for bit and exactly symmetric, each launch on the instance its load
-    rule names and counted; returns the largest absolute error (0.0)."""
+    """The s8 pair (the transpose, then the TMA + wgmma kernel) against its
+    plain version at ``S8_PARITY``, each on an aligned base and one byte off
+    it: the transpose alone equal to ``gram_s8_transpose_plain`` bit for bit
+    (pad rows included), the Gram equal bit for bit and exactly symmetric,
+    each call recorded as ``gram_s8_launch``'s two launches and counted
+    once; every instance of both kernels taken. Returns the largest
+    absolute error (0.0)."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import geometry
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
@@ -353,98 +381,117 @@ def parity_gram_s8(dev, gen) -> float:
     worst = 0.0
     kernels = set()
     for shape in S8_PARITY:
-        x = int8_block(shape, gen, dev)
-        before = (gram_mod.launches, gram_mod.launches_s8)
-        with geometry.recording() as rec:
-            got = gram_mod.gram_s8_cuda(x)
-        torch.cuda.synchronize()
-        check((gram_mod.launches, gram_mod.launches_s8) == (before[0], before[1] + 1),
-              f"gram_s8 {shape}: launch counters {before} did not move as one s8 launch")
-        want_launch = gram_mod.gram_s8_launch(*shape)
-        check(rec == [want_launch], f"gram_s8 {shape}: recorded {rec}, not gram_s8_launch's")
-        kernels.add(want_launch.kernel)
-        want = gram_mod.gram_s8_plain(x)
-        err = float((got - want).abs().max().item())
-        worst = max(worst, err)
-        equal, symmetric = bool(torch.equal(got, want)), bool(torch.equal(got, got.mT))
-        emit("parity_gram_s8", shape=list(shape), kernel=want_launch.kernel,
-             grid=list(want_launch.grid), max_abs_err=err, bit_equal=equal,
-             symmetric=symmetric, sum_limit_ok=gram_mod.s8_exact(shape[1]))
-        check(equal, f"gram_s8 {shape}: differs from its plain version by {err}")
-        check(symmetric, f"gram_s8 {shape} is not symmetric")
-        del x, got, want
-    check(kernels == {"gram_s8_kernel<16>", "gram_s8_kernel<1>"},
-          f"gram_s8 parity took {sorted(kernels)}, want both load widths")
+        for offset in S8_OFFSETS:
+            numel = shape[0] * shape[1] * shape[2]
+            x = int8_block((numel + offset,), gen, dev)[offset:].view(shape)
+            aligned = x.data_ptr() % 16 == 0
+            transpose = gram_mod.gram_s8_transpose_cuda(x)
+            torch.cuda.synchronize()
+            transpose_equal = bool(torch.equal(transpose, gram_mod.gram_s8_transpose_plain(x)))
+            del transpose
+            before = (gram_mod.launches, gram_mod.launches_s8)
+            with geometry.recording() as rec:
+                got = gram_mod.gram_s8_cuda(x)
+            torch.cuda.synchronize()
+            check((gram_mod.launches, gram_mod.launches_s8) == (before[0], before[1] + 1),
+                  f"gram_s8 {shape}: launch counters {before} did not move as one s8 call")
+            want_t, want_g = gram_mod.gram_s8_launch(*shape, aligned)
+            check(len(rec) == 2 and rec == [want_t, want_g.resolved(rec[1].grid)],
+                  f"gram_s8 {shape} offset {offset}: recorded {rec}, not gram_s8_launch's")
+            kernels.update(la.kernel for la in rec)
+            want = gram_mod.gram_s8_plain(x)
+            err = float((got - want).abs().max().item())
+            worst = max(worst, err)
+            equal, symmetric = bool(torch.equal(got, want)), bool(torch.equal(got, got.mT))
+            emit("parity_gram_s8", shape=list(shape), base_offset_bytes=offset,
+                 kernels=[la.kernel for la in rec], grids=[list(la.grid) for la in rec],
+                 n_pad=gram_mod.s8_pad(shape[1]), transpose_bit_equal=transpose_equal,
+                 max_abs_err=err, bit_equal=equal, symmetric=symmetric,
+                 sum_limit_ok=gram_mod.s8_exact(shape[1]))
+            check(transpose_equal, f"gram_s8 transpose {shape} offset {offset} differs")
+            check(equal, f"gram_s8 {shape} offset {offset}: differs from its plain version "
+                         f"by {err}")
+            check(symmetric, f"gram_s8 {shape} offset {offset} is not symmetric")
+            del x, got, want
+    want_kernels = {"gram_s8_transpose_kernel<16>", "gram_s8_transpose_kernel<1>",
+                    "gram_s8_tma_kernel<true>", "gram_s8_tma_kernel<false>"}
+    check(kernels == want_kernels,
+          f"gram_s8 parity took {sorted(kernels)}, want {sorted(want_kernels)}")
     return worst
 
 
 def timing_gram_s8(dev, gen, card: str) -> dict:
-    """The s8 kernel at the CIFAR-10 and synthetic1024 blocks: one call
-    (CUDA events, median of 25 after warm-up) and device time, beside its
-    bound, its plain version, ``torch._int_mm`` looped over the workers with
-    and without the transpose copy it needs (int32 out, the library's
-    nearest call; a yardstick only), and the bf16 TMA kernel on the block
-    widened beforehand (context: what bf16 staging would cost)."""
+    """The s8 pair at the CIFAR-10, synthetic1024 and mnist784 blocks: one
+    call (CUDA events, median of 25 after warm-up) and the device time of
+    both launches of each call, and of the transpose among them, beside the
+    bound, the plain version, ``torch._int_mm`` looped over the workers with
+    the transpose copy it needs (int32 out, the library's nearest call; a
+    yardstick only), and the bf16 TMA kernel on the block widened
+    beforehand (context: what bf16 staging would cost)."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
 
     out = {}
-    for shape in (CIFAR, S8_SYNTH):
+    for shape in (CIFAR, S8_SYNTH, S8_MNIST):
         x = int8_block(shape, gen, dev)
+        kernels = [la.kernel for la in gram_mod.gram_s8_launch(*shape)]
         ms = time_ms(lambda: gram_mod.gram_s8_cuda(x))
-        kernel_device_ms = device_ms(lambda: gram_mod.gram_s8_cuda(x))
+        reps = 20
+        events = device_events(lambda: gram_mod.gram_s8_cuda(x), reps=reps, launches=2)
+        kernel_device_ms = events_ms(events, reps)
+        transpose_device_ms = events_ms(
+            [e for e in events if "gram_s8_transpose_kernel" in e.name], reps)
+        check(sum("gram_s8_transpose_kernel" in e.name for e in events) == reps
+              and sum("gram_s8_tma_kernel" in e.name for e in events) == reps,
+              f"timing_gram_s8 {shape}: the timed calls are not one transpose and one TMA "
+              "launch each")
         plain_ms = time_ms(lambda: gram_mod.gram_s8_plain(x))
-        xt = [x[w].mT.contiguous() for w in range(shape[0])]
 
         def loop_t():
             return [torch._int_mm(x[w].mT.contiguous(), x[w]) for w in range(shape[0])]
 
-        def loop():
-            return [torch._int_mm(xt[w], x[w]) for w in range(shape[0])]
-
         library_ms = time_ms(loop_t)
         library_device_ms = device_ms(loop_t, launches=None)
-        no_transpose_ms = time_ms(loop)
-        no_transpose_device_ms = device_ms(loop, launches=None)
         xb = x.to(torch.bfloat16)
         bf16_ms = time_ms(lambda: gram_mod.gram_cuda(xb))
         bf16_device_ms = device_ms(lambda: gram_mod.gram_cuda(xb))
         bound_ms, bound_by = gram_bound(shape, "int8")
-        out[shape] = dict(ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+        out[shape] = dict(ms=ms, device_ms=kernel_device_ms,
+                          transpose_device_ms=transpose_device_ms,
+                          tma_device_ms=kernel_device_ms - transpose_device_ms,
+                          plain_ms=plain_ms,
                           library_ms=library_ms, library_device_ms=library_device_ms,
-                          int_mm_no_transpose_ms=no_transpose_ms,
-                          int_mm_no_transpose_device_ms=no_transpose_device_ms,
                           bf16_tma_widened_ms=bf16_ms,
                           bf16_tma_widened_device_ms=bf16_device_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library="torch._int_mm(x[w].mT.contiguous(), x[w]) over the m "
                                   "workers, int32 out, the transpose copy timed")
-        emit("timing_gram_s8", shape=list(shape), kernel=gram_mod.gram_s8_launch(*shape).kernel,
+        emit("timing_gram_s8", shape=list(shape), kernels=kernels,
              kernel_ms=ms, kernel_device_ms=kernel_device_ms,
              roofline_share=bound_ms / ms, device_roofline_share=bound_ms / kernel_device_ms,
              card=card, **{k: v for k, v in out[shape].items()
                            if k not in ("ms", "device_ms")})
-        del x, xt, xb
+        del x, xb
     return out
 
 
-def slice_fit_eval(dev, card: str) -> int:
-    """The cifar10 eval's own settings (``EVAL_FIT``: int8 stage, ns warm
-    rounds) through ``OnlineDistributedPCA.fit`` on its planted-subspace
-    data: one s8 Gram launch (the cold step), no other Gram kernel, every
-    warm round on ``ns_orth``, within 1 degree of the planted top-10;
-    returns the s8 launches of the fit."""
+def slice_fit_eval(dev, card: str, name: str, source: str, fit: dict, data_kw: dict) -> int:
+    """An eval's own settings (``fit``: int8 stage, ns warm rounds) through
+    ``OnlineDistributedPCA.fit`` on its planted-subspace data (``data_kw``):
+    one s8 Gram call (the cold step: one transpose and one TMA launch), no
+    other Gram kernel, every warm round on ``ns_orth``, within 1 degree of
+    the planted top-k; returns the s8 calls of the fit."""
     import torch
     import distributed_eigenspaces_tpu_torch as dett
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
     from distributed_eigenspaces_tpu_torch.ops import linalg
     from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 
-    cfg = dett.PCAConfig(**EVAL_FIT)
-    d, k, m, n, T = (EVAL_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
-                                          "num_steps"))
+    cfg = dett.PCAConfig(**fit)
+    d, k, m, n, T = (fit[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
+                                      "num_steps"))
     t0 = time.perf_counter()
-    spec = dett.planted_subspace(d, **EVAL_DATA)
+    spec = dett.planted_subspace(d, **data_kw)
     data = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
@@ -464,24 +511,27 @@ def slice_fit_eval(dev, card: str) -> int:
     finally:
         linalg.ns_orth = real_ns
     w = est.components_
-    check(w.shape == (d, k) and bool(torch.isfinite(w).all()), "fit_eval: components_")
+    check(w.shape == (d, k) and bool(torch.isfinite(w).all()), f"fit_eval {name}: components_")
     angle = float(principal_angles_degrees(w.cpu(), torch.as_tensor(spec.top_k(k))).max())
     _, fit2_s = synced_s(lambda: dett.OnlineDistributedPCA(cfg).fit(data))
     samples = T * m * n
     per_round = cfg.resolved_warm_start() + 1  # the start and each iteration
-    emit("slice_fit_eval", config="cifar10 eval (evals.py:86-90): d=3072 k=10 m=8 n=1024 "
-                                  "T=20 subspace 12 cold / 2 warm bf16, stage int8, warm ns",
-         data="planted_subspace(3072, k_planted=10, gap=20, decay=0.8, noise=0.01, seed=0)",
-         trainer=est.trainer_used_, s8_launches=launched[2], gram_launches=launched[0],
+    emit("slice_fit_eval", eval=name,
+         config=f"{name} eval ({source}): d={d} k={k} m={m} n={n} T={T} subspace "
+                f"{fit['subspace_iters']} cold / {fit['warm_start_iters']} warm bf16, "
+                "stage int8, warm ns",
+         data=f"planted_subspace({d}, " + ", ".join(f"{a}={v}" for a, v in data_kw.items())
+              + ")",
+         trainer=est.trainer_used_, s8_calls=launched[2], gram_launches=launched[0],
          tma_launches=launched[1], ns_calls=ns_calls[0],
          ns_warm_rounds=ns_calls[0] / per_round, max_angle_deg=angle, data_s=data_s,
          fit_s=fit_s, samples_per_s=samples / fit_s, second_fit_s=fit2_s,
          second_samples_per_s=samples / fit2_s, card=card)
-    check(launched == (0, 0, 1), f"fit_eval: Gram launches (float, TMA, s8) {launched}, "
-                                 "want (0, 0, 1)")
+    check(launched == (0, 0, 1), f"fit_eval {name}: Gram launches (float, TMA, s8) "
+                                 f"{launched}, want (0, 0, 1)")
     check(ns_calls[0] == (T - 1) * per_round,
-          f"fit_eval: {ns_calls[0]} ns_orth calls, want {(T - 1) * per_round}")
-    check(angle <= 1.0, f"fit_eval angle {angle} > 1 degree")
+          f"fit_eval {name}: {ns_calls[0]} ns_orth calls, want {(T - 1) * per_round}")
+    check(angle <= 1.0, f"fit_eval {name} angle {angle} > 1 degree")
     del data, est
     return launched[2]
 
@@ -593,15 +643,15 @@ def timed_events(events: list, reps: int, launches: int | None) -> tuple[list | 
     return None, cut
 
 
-def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
-              windows: int = 5) -> float:
-    """Device time of one call of ``fn`` under ``torch.profiler``: the
-    kernels of ``reps`` calls in a ``profiled_window``, summed, over
-    ``reps``. Events are told apart on the card's own clock, since the
-    profiler's host and device clocks can disagree by more than a launch.
-    A window that lacks an event of the timed calls (``timed_events``)
-    would read low, so it is measured again, up to ``windows`` times, and
-    the run fails after that."""
+def device_events(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
+                  windows: int = 5) -> list:
+    """The kernel events of ``reps`` timed calls of ``fn`` under
+    ``torch.profiler``, ``launches`` kernels a call, from a
+    ``profiled_window``. Events are told apart on the card's own clock,
+    since the profiler's host and device clocks can disagree by more than a
+    launch. A window that lacks an event of the timed calls
+    (``timed_events``) would read low, so it is measured again, up to
+    ``windows`` times, and the run fails after that."""
     import torch
 
     fn()
@@ -610,12 +660,24 @@ def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
         events = profiled_window(fn, reps, warm)
         measured, cut = timed_events(events, reps, launches)
         if measured:
-            return sum(e.time_range.end - e.time_range.start for e in measured) / reps * 1e-3
+            return measured
         emit("device_ms", incomplete_window=window, reps=reps, launches=launches,
              events_before_pause=cut,
              events_after_pause=dict(collections.Counter(e.name for e in events[cut:])))
     check(False, f"device_ms: {windows} windows without every kernel event of {reps} calls")
-    return 0.0
+    return []
+
+
+def events_ms(events: list, reps: int) -> float:
+    """The device time of ``events`` per call of ``reps`` calls, in ms."""
+    return sum(e.time_range.end - e.time_range.start for e in events) / reps * 1e-3
+
+
+def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
+              windows: int = 5) -> float:
+    """Device time of one call of ``fn``: the kernels of ``reps`` calls
+    (``device_events``), summed, over ``reps``."""
+    return events_ms(device_events(fn, reps, launches, warm, windows), reps)
 
 
 def timing_serve(dev, card: str) -> dict:
@@ -1236,16 +1298,16 @@ def main() -> int:
              bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
              device_roofline_share=bound_ms / kernel_device_ms, card=card)
         del x
-    gram_geometry(dev, gen, CIFAR, "bfloat16", "gram_geometry", "gram_bf16_tma_kernel")
+    gram_geometry(dev, gen, CIFAR, "bfloat16", "gram_geometry", ("gram_bf16_tma_kernel",))
     for shape in (ENTRY, CIFAR):
         gram_geometry(dev, gen, shape, "float32", "gram_f32_geometry",
-                      gram_mod.gram_launch(*shape, torch.float32).kernel)
+                      (gram_mod.gram_launch(*shape, torch.float32).kernel,))
 
     # 4b. the s8 Gram: parity, geometry, timing
     s8_err = parity_gram_s8(dev, gen)
-    for shape in (CIFAR, (3, 1000, 1000)):
+    for shape in (CIFAR, (1, 1000, 9)):  # every instance of both kernels
         gram_geometry(dev, gen, shape, "int8", "gram_s8_geometry",
-                      gram_mod.gram_s8_launch(*shape).kernel)
+                      tuple(la.kernel for la in gram_mod.gram_s8_launch(*shape)))
     s8_timing = timing_gram_s8(dev, gen, card)
 
     # 5a. the flagship step, 10 rounds, against the same step on the CPU
@@ -1304,8 +1366,9 @@ def main() -> int:
          second_samples_per_s=samples / fit2_s, card=card)
     check(angle <= 1.0, f"fit angle {angle} > 1 degree")
 
-    # 5c. the cifar10 eval's own settings: int8 stage, ns warm rounds
-    s8_launches = slice_fit_eval(dev, card)
+    # 5c. the cifar10 and synthetic1024 evals' own settings: int8 stage, ns
+    # warm rounds, one s8 call each
+    s8_launches = sum(slice_fit_eval(dev, card, *ev) for ev in EVALS)
 
     # 6.-8. the read path
     serve_err = parity_serve(dev)
@@ -1358,9 +1421,13 @@ def main() -> int:
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "
              "(ops/linalg.py:64-72), which gram_auto sends integer blocks to "
-             "(ops/pallas_gram.py:427-431)", launches=s8_launches, max_abs_err=s8_err,
-             shape=list(CIFAR), kernel=gram_mod.gram_s8_launch(*CIFAR).kernel,
-             at_shapes=[dict(s8_timing[S8_SYNTH], shape=list(S8_SYNTH))]),
+             "(ops/pallas_gram.py:427-431)", launches=s8_launches,
+             launches_note="s8 calls of the two eval fits, each one transpose and one TMA "
+                           "launch", max_abs_err=s8_err, shape=list(CIFAR),
+             kernel=" + ".join(la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)),
+             kernels=[la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)],
+             at_shapes=[dict(s8_timing[shape], shape=list(shape))
+                        for shape in (S8_SYNTH, S8_MNIST)]),
         serve_row("serve_project_bf16", "bf16"),
         serve_row("serve_project_i8", "i8"),
         serve_row("serve_project_f32", "f32"),

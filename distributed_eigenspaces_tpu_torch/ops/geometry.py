@@ -49,7 +49,8 @@ RECORDED_KERNELS = (
     "gram_bf16_tma_kernel",  # ops/gram.py, aligned bf16 x
     "gram_bf16_kernel",  # ops/gram.py, other bf16 x
     "gram_f32_kernel",  # ops/gram.py, fp32 x
-    "gram_s8_kernel",  # ops/gram.py, int8 x
+    "gram_s8_transpose_kernel",  # ops/gram.py, int8 x: x^T first
+    "gram_s8_tma_kernel",  # ops/gram.py, int8 x: then the Gram
     "matvec_gram_kernel",  # ops/matvec_gram.py
     "mutant_full_block_kernel",  # ops/mutant_full_block.py
 )

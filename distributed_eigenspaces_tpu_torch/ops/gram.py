@@ -10,8 +10,9 @@ kernel, which raises on anything it does not take.
 
 int8 blocks (the int8 stage) follow the reference's integer rule
 (:func:`widen_int`): while ``n * 127^2 < 2^31`` their int32 sums are exact
-and they take :func:`gram_s8_cuda` (``csrc/gram_s8.cu``, the port's kernel
-for the reference's XLA int32 einsum) or its plain version
+and they take :func:`gram_s8_cuda` (``csrc/gram_s8.cu``, the port's
+kernels for the reference's XLA int32 einsum: a transpose into a scratch,
+then a TMA + ``wgmma`` s8 kernel) or its plain version
 :func:`gram_s8_plain`; past that guard, and for any other integer dtype,
 the block is widened to fp32 and takes the fp32 route. Nothing widens int8
 to bf16 to reach the bf16 kernel.
@@ -42,7 +43,8 @@ from distributed_eigenspaces_tpu_torch.ops.geometry import KernelLaunch, note
 #: launches they want to count
 launches = 0
 launches_tma = 0
-#: launches made by :func:`gram_s8_cuda`, counted the same way
+#: calls of :func:`gram_s8_cuda`, each one transpose and one TMA launch,
+#: counted the same way
 launches_s8 = 0
 _count_lock = threading.Lock()
 
@@ -64,12 +66,22 @@ T_THREADS = 3 * 128  # two consumer warpgroups and a producer warpgroup
 # the ring (per stage 128 columns of x for the item's rows, 256 for its
 # columns), the barriers, alignment
 T_SMEM_BYTES = T_STAGES * 6 * T_BK * 64 * 2 + 2 * T_STAGES * 8 + 1024
-# gram_s8_kernel's launch constants (csrc/gram_s8.cu)
-S_TILE = 128  # output tile edge
-S_BK = 64  # rows of x per stage
-S_THREADS = 256  # eight warps
-S_STAGES = 2  # stages of shared memory
-S_SMEM_BYTES = S_STAGES * 2 * S_TILE * S_BK  # static: two slabs of int8 a stage
+# the int8 route's launch constants (csrc/gram_s8.cu)
+X_TILE = 128  # gram_s8_transpose_kernel: n rows x d columns of x per CTA
+X_THREADS = 256
+X_SMEM_BYTES = X_TILE * X_TILE  # static: the tile, one byte an element
+S_PAD = 16  # x^T's rows (n) are padded to a multiple of 16 bytes: TMA strides
+S_TILE = 128  # gram_s8_tma_kernel: output tile edge (an item is 128 x 256)
+S_BK = 128  # bytes of n per stage: four k32 steps
+S_STAGES = 3  # stages in its ring
+S_THREADS = 3 * 128  # two consumer warpgroups and a producer warpgroup
+S_EPI_BOX = 32  # its epilogue's TMA store box edge (fp32)
+S_EPI_BUFS = 2  # staging buffers per consumer warpgroup
+# the ring (per stage 128 rows of x^T for the item's rows, 256 for its
+# columns), the epilogue's staging (per buffer a 64 x 32 chunk and its
+# mirror), the barriers, alignment
+S_SMEM_BYTES = (S_STAGES * 3 * S_TILE * S_BK + 2 * S_EPI_BUFS * 4 * S_EPI_BOX**2 * 4
+                + 2 * S_STAGES * 8 + 1024)
 #: int8 sums of n rows stay exact in int32 while n * 127^2 < 2^31 (the
 #: reference's guard, ``ops/linalg.py:64``)
 S8_SUM_LIMIT = 2**31
@@ -172,33 +184,84 @@ def widen_int(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def s8_vec(d: int, aligned: bool = True) -> int:
-    """``gram_s8_kernel``'s load width in bytes: 16 where every row of x
-    is 16-byte aligned (``d % 16 == 0`` on an aligned base), else 1."""
+def s8_pad(n: int) -> int:
+    """``n_pad``, the row length of x^T: n rounded up to a multiple of
+    :data:`S_PAD` (16 bytes), so that TMA can read x^T for every n."""
+    return -(-n // S_PAD) * S_PAD
+
+
+def transpose_vec(d: int, aligned: bool = True) -> int:
+    """``gram_s8_transpose_kernel``'s load width in bytes: 16 where every
+    row of x is 16-byte aligned (``d % 16 == 0`` on an aligned base), else
+    1."""
     return 16 if aligned and d % 16 == 0 else 1
 
 
-@functools.lru_cache(maxsize=256)  # pure, and the record is frozen
-def gram_s8_launch(m: int, n: int, d: int, aligned: bool = True) -> KernelLaunch:
-    """The launch ``det_gram_s8`` makes for int8 x ``(m, n, d)``: one CTA
-    per upper-triangle 128 x 128 tile, grid ``(tiles (tiles + 1) / 2, 1,
-    m)`` of 256 threads, two stages of the tile's two column slabs
-    (``S_BK`` rows each, transposed to K-major) as static shared memory;
-    a CTA reads its two slabs of x over all of n and writes the tile and
-    its mirror from registers."""
-    w = min(S_TILE, d)
-    tiles = -(-d // S_TILE)
-    return KernelLaunch(
-        kernel=f"gram_s8_kernel<{s8_vec(d, aligned)}>",
+def tma_store_rows(d: int) -> bool:
+    """Whether ``gram_s8_tma_kernel`` writes G with TMA stores: its rows of
+    ``4 d`` bytes are 16-byte strides (``d % 4 == 0``); else it stores from
+    registers."""
+    return d % 4 == 0
+
+
+@functools.lru_cache(maxsize=256)  # pure, and the records are frozen
+def gram_s8_launch(m: int, n: int, d: int,
+                   aligned: bool = True) -> tuple[KernelLaunch, KernelLaunch]:
+    """The two launches ``det_gram_s8`` makes for int8 x ``(m, n, d)``, in
+    order.
+
+    ``gram_s8_transpose_kernel<VEC>``: one CTA per 128 x 128 tile of one
+    worker's block, grid ``(ceil(n_pad / 128), ceil(d / 128), m)`` of 256
+    threads, the tile as static shared memory; it writes the tile's
+    transpose into x^T ``(m, d, n_pad)`` (:func:`s8_pad`), the pad rows as
+    zeros. ``gram_s8_tma_kernel<TMA_STORE>``: a persistent grid sized on
+    the card (``grid_rule="occupancy"``: resident CTAs, at most one per
+    item) of 384 threads, the stage ring, the epilogue's staging and the
+    barriers as dynamic shared memory; per item (two neighbouring
+    upper-triangle tiles of one worker, 128 x 256 entries) a CTA reads the
+    item's 128 + 256 rows of x^T over all of n_pad through its ring and
+    writes the entries and their mirror, with TMA stores of 32 x 32 boxes
+    where :func:`tma_store_rows` holds, else from registers."""
+    n_pad = s8_pad(n)
+    w, w2 = min(S_TILE, d), min(2 * S_TILE, d)  # an item's rows and columns
+    transpose = KernelLaunch(
+        kernel=f"gram_s8_transpose_kernel<{transpose_vec(d, aligned)}>",
         source="csrc/gram_s8.cu",
-        grid=(tiles * (tiles + 1) // 2, 1, m),
-        threads=S_THREADS,
+        grid=(-(-n_pad // X_TILE), -(-d // X_TILE), m),
+        threads=X_THREADS,
         dynamic_smem=0,
-        static_smem=S_SMEM_BYTES,
-        operands=(("x cols i (item)", (n, w)), ("x cols j (item)", (n, w)),
-                  ("x staged", (S_STAGES * S_BK, 2 * S_TILE)),
-                  ("G tile (item)", (w, w)), ("G mirrored (item)", (w, w))),
+        static_smem=X_SMEM_BYTES,
+        operands=(("x tile (item)", (min(X_TILE, n), min(X_TILE, d))),
+                  ("x staged", (X_TILE, X_TILE)),
+                  ("x^T tile (item)", (min(X_TILE, d), min(X_TILE, n_pad)))),
     )
+    tma = KernelLaunch(
+        kernel=f"gram_s8_tma_kernel<{str(tma_store_rows(d)).lower()}>",
+        source="csrc/gram_s8.cu",
+        grid=None,
+        threads=S_THREADS,
+        dynamic_smem=S_SMEM_BYTES,
+        static_smem=0,
+        operands=(("x^T rows i (item)", (w, n_pad)), ("x^T rows j (item)", (w2, n_pad)),
+                  ("x^T staged", (S_STAGES * 3 * S_TILE, S_BK)),
+                  ("G staged", (2 * S_EPI_BUFS * 2 * S_EPI_BOX, 2 * S_EPI_BOX)),
+                  ("G block (item)", (w, w2)), ("G mirrored (item)", (w2, w))),
+        grid_rule="occupancy",
+    )
+    return transpose, tma
+
+
+@functools.lru_cache(maxsize=1024)
+def _s8_launch_on(device_index: int, m: int, n: int, d: int,
+                  aligned: bool) -> tuple[KernelLaunch, KernelLaunch]:
+    """:func:`gram_s8_launch` with the TMA kernel's grid the card sizes for
+    it (``det_gram_s8_grid`` on ``device_index``)."""
+    transpose, tma = gram_s8_launch(m, n, d, aligned)
+    with torch.cuda.device(device_index):
+        gx = _lib_s8().det_gram_s8_grid(m, d)
+    if gx < 1:
+        raise RuntimeError(f"gram_s8 grid query failed: CUDA error {-gx}")
+    return transpose, tma.resolved((gx, 1, 1))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -246,12 +309,26 @@ def gram_s8_plain(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     return g
 
 
+def gram_s8_transpose_plain(x: torch.Tensor) -> torch.Tensor:
+    """``(..., n, d)`` int8 -> ``(..., d, n_pad)`` int8: ``x.mT`` with zero
+    columns from n to ``n_pad`` (:func:`s8_pad`), what
+    ``gram_s8_transpose_kernel`` writes into its scratch."""
+    n, d = x.shape[-2:]
+    xt = x.new_zeros(x.shape[:-2] + (d, s8_pad(n)))
+    xt[..., :n] = x.mT
+    return xt
+
+
 @functools.lru_cache(maxsize=1)  # argtypes set once, not per launch
 def _lib_s8():
     lib = _build.load("gram_s8")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.det_gram_s8.argtypes = [ptr, ptr, i, i, i, ctypes.c_float, i, ptr]
+    lib.det_gram_s8.argtypes = [ptr, ptr, ptr, i, i, i, ctypes.c_float, i, ptr]
     lib.det_gram_s8.restype = i
+    lib.det_gram_s8_transpose.argtypes = [ptr, ptr, i, i, i, i, ptr]
+    lib.det_gram_s8_transpose.restype = i
+    lib.det_gram_s8_grid.argtypes = [i, i]
+    lib.det_gram_s8_grid.restype = i
     return lib
 
 
@@ -308,47 +385,77 @@ def gram_cuda(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
-def gram_s8_cuda(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
-    """``(m, n, d)`` (or ``(n, d)``) CUDA int8 -> ``(m, d, d)`` fp32 Gram by
-    the hand-written s8 kernel (``csrc/gram_s8.cu``): exact int32 sums,
-    converted once and divided by n. Raises past :func:`s8_exact`'s guard,
-    where the sums would wrap (:func:`gram_auto` widens there)."""
-    global launches_s8
+def _s8_operand(x: torch.Tensor, who: str) -> torch.Tensor:
+    """x as ``(m, n, d)``, checked for what the s8 kernels take."""
     if not x.is_cuda:
-        raise ValueError(f"gram_s8_cuda takes a CUDA tensor, got device {x.device}")
+        raise ValueError(f"{who} takes a CUDA tensor, got device {x.device}")
     if x.dtype != torch.int8:
-        raise ValueError(f"gram_s8_cuda takes int8, got {x.dtype}")
-    squeeze = x.dim() == 2
-    if squeeze:
+        raise ValueError(f"{who} takes int8, got {x.dtype}")
+    if x.dim() == 2:
         x = x.unsqueeze(0)
     if x.dim() != 3:
-        raise ValueError(f"gram_s8_cuda takes (m, n, d) or (n, d), got {tuple(x.shape)}")
+        raise ValueError(f"{who} takes (m, n, d) or (n, d), got {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError("gram_s8_cuda takes a contiguous tensor")
+        raise ValueError(f"{who} takes a contiguous tensor")
     m, n, d = x.shape
     if min(m, n, d) < 1:
-        raise ValueError(f"gram_s8_cuda needs a non-empty input, got {tuple(x.shape)}")
+        raise ValueError(f"{who} needs a non-empty input, got {tuple(x.shape)}")
+    if m > 65535:  # grid.z of the transpose, one block row per worker
+        raise ValueError(f"{who} takes at most 65535 workers, got {m}")
+    return x
+
+
+def gram_s8_transpose_cuda(x: torch.Tensor) -> torch.Tensor:
+    """``(m, n, d)`` (or ``(n, d)``) CUDA int8 -> ``(m, d, n_pad)`` int8:
+    ``gram_s8_transpose_kernel`` alone, the first launch of
+    :func:`gram_s8_cuda`, for holding it against
+    :func:`gram_s8_transpose_plain`."""
+    squeeze = x.dim() == 2
+    x = _s8_operand(x, "gram_s8_transpose_cuda")
+    m, n, d = x.shape
+    aligned = x.data_ptr() % 16 == 0
+    xt = torch.empty((m, d, s8_pad(n)), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib_s8().det_gram_s8_transpose(
+            x.data_ptr(), xt.data_ptr(), m, n, d, int(aligned), stream)
+    if rc != 0:
+        raise RuntimeError(f"gram_s8 transpose launch failed: CUDA error {rc}")
+    note(gram_s8_launch(m, n, d, aligned)[0])
+    return xt[0] if squeeze else xt
+
+
+def gram_s8_cuda(x: torch.Tensor, *, normalize: bool = True) -> torch.Tensor:
+    """``(m, n, d)`` (or ``(n, d)``) CUDA int8 -> ``(m, d, d)`` fp32 Gram by
+    the hand-written s8 kernels (``csrc/gram_s8.cu``): x transposed into a
+    scratch of ``m * d * n_pad`` bytes, then exact int32 sums on the tensor
+    cores, converted once and divided by n. Raises past :func:`s8_exact`'s
+    guard, where the sums would wrap (:func:`gram_auto` widens there)."""
+    global launches_s8
+    squeeze = x.dim() == 2
+    x = _s8_operand(x, "gram_s8_cuda")
+    m, n, d = x.shape
     if not s8_exact(n):
         raise ValueError(
             f"gram_s8_cuda: n={n} rows of int8 can sum past 2^31 in int32 "
             "(n * 127^2 >= 2^31); widen to fp32"
         )
-    if m > 65535:  # grid.z, one block row per worker
-        raise ValueError(f"gram_s8_cuda takes at most 65535 workers, got {m}")
     aligned = x.data_ptr() % 16 == 0
-    launch = gram_s8_launch(m, n, d, aligned)
+    pair = _s8_launch_on(x.device.index, m, n, d, aligned)
+    xt = torch.empty((m, d, s8_pad(n)), dtype=torch.int8, device=x.device)
     out = torch.empty((m, d, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib_s8().det_gram_s8(
-            x.data_ptr(), out.data_ptr(), m, n, d,
+            x.data_ptr(), xt.data_ptr(), out.data_ptr(), m, n, d,
             float(n) if normalize else 1.0, int(aligned), stream,
         )
     if rc != 0:
         raise RuntimeError(f"gram_s8 kernel launch failed: CUDA error {rc}")
     with _count_lock:
         launches_s8 += 1
-    note(launch)
+    for launch in pair:
+        note(launch)
     return out[0] if squeeze else out
 
 

@@ -547,34 +547,59 @@ def test_gram_launch_uses_the_source_constants(m, n, d, dtype, aligned):
     (1, 37, 9, True), (2, 130, 48, False), (65535, 2, 16, True), (8, 1000, 3072, False),
     (8, 64, 16, True)])
 def test_gram_s8_launch_uses_the_source_constants(m, n, d, aligned):
-    """``gram_s8_launch`` against ``csrc/gram_s8.cu`` read as text: the tile,
-    stage and thread constants, the load-width rule, the static shared
-    memory and the one-CTA-per-upper-triangle-tile grid."""
+    """``gram_s8_launch`` against ``csrc/gram_s8.cu`` read as text: the two
+    launches in order (the transpose, then the TMA kernel), their tile,
+    stage, staging and thread constants, the load-width and store rules,
+    the transpose's grid over (n_pad, d, m) and the TMA kernel's
+    persistent, occupancy-sized grid; the source has no ``mma.sync``
+    product."""
     src = CSRC / "gram_s8.cu"
     c = _constexprs(src)
-    for name in ("S_TILE", "S_BK", "S_THREADS", "S_STAGES", "S_SMEM_BYTES"):
+    for name in ("X_TILE", "X_THREADS", "X_SMEM_BYTES", "S_PAD", "S_TILE", "S_BK", "S_STAGES",
+                 "S_THREADS", "S_EPI_BOX", "S_EPI_BUFS", "S_SMEM_BYTES"):
         assert c[name] == getattr(tgram, name), name
     text = src.read_text()
-    assert "if (aligned && d % 16 == 0) return launch_s8<16>(xi, of, m, n, d, divisor, s);" in text
-    assert "return launch_s8<1>(xi, of, m, n, d, divisor, s);" in text
-    assert "gram_s8_kernel<VEC><<<grid, S_THREADS, 0, s>>>" in text
-    assert "const dim3 grid(tiles * (tiles + 1) / 2, 1, m);" in text
-    assert "__shared__ __align__(16) uint32_t sm[S_STAGES][2][S_SLAB_WORDS];" in text
-    assert c["S_SLAB_WORDS"] * 4 * 2 * c["S_STAGES"] == c["S_SMEM_BYTES"]
-    assert "ops/linalg.py::gram" in text and "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
-    launch = tgram.gram_s8_launch(m, n, d, aligned)
-    tiles = math.ceil(d / c["S_TILE"])
+    assert "bool transpose_vec(int d, int aligned) { return aligned && d % 16 == 0; }" in text
+    assert "bool tma_store_rows(int d) { return d % 4 == 0; }" in text
+    assert "const int n_pad = (n + S_PAD - 1) / S_PAD * S_PAD;" in text
+    assert ("const dim3 grid((n_pad + X_TILE - 1) / X_TILE, (d + X_TILE - 1) / X_TILE, m);"
+            in text)
+    assert "gram_s8_transpose_kernel<VEC><<<grid, X_THREADS, 0, s>>>" in text
+    assert "gram_s8_tma_kernel<true><<<gx, S_THREADS, S_SMEM_BYTES, s>>>" in text
+    assert "gram_s8_tma_kernel<false><<<gx, S_THREADS, S_SMEM_BYTES, s>>>" in text
+    assert "__shared__ __align__(16) uint32_t tile[X_TILE * X_TILE / 4];" in text
+    assert "__launch_bounds__(S_THREADS, 1)" in text
+    # the two launches of det_gram_s8, in order
+    body = text[text.index('extern "C" int det_gram_s8('):]
+    assert body.index("det_gram_s8_transpose(x, xt, m, n, d, aligned, stream)") < body.index(
+        "launch_tma(")
+    assert "ops/linalg.py::gram" in text
+    assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text
+    assert "mma.sync" not in text and "gram_s8_kernel" not in text
+    transpose, tma = tgram.gram_s8_launch(m, n, d, aligned)
+    n_pad = -(-n // 16) * 16
+    assert n_pad % c["S_PAD"] == 0 and tgram.s8_pad(n) == n_pad
     vec = 16 if aligned and d % 16 == 0 else 1
-    assert tgram.s8_vec(d, aligned) == vec
-    assert launch.kernel == f"gram_s8_kernel<{vec}>"
-    assert launch.grid == (_tri(tiles), 1, m)
-    assert (launch.threads, launch.dynamic_smem, launch.static_smem) == (
-        c["S_THREADS"], 0, c["S_SMEM_BYTES"])
-    ops = dict(launch.operands)
-    assert ops["x staged"] == (c["S_STAGES"] * c["S_BK"], 2 * c["S_TILE"])
-    assert ops["G tile (item)"] == (min(128, d), min(128, d))
-    assert launch.source == "csrc/gram_s8.cu"
-    assert launch.kernel.split("<")[0] in geometry.RECORDED_KERNELS
+    assert tgram.transpose_vec(d, aligned) == vec
+    assert transpose.kernel == f"gram_s8_transpose_kernel<{vec}>"
+    assert transpose.grid == (math.ceil(n_pad / c["X_TILE"]), math.ceil(d / c["X_TILE"]), m)
+    assert (transpose.threads, transpose.dynamic_smem, transpose.static_smem) == (
+        c["X_THREADS"], 0, c["X_SMEM_BYTES"])
+    assert transpose.grid_rule == "fixed"
+    assert dict(transpose.operands)["x^T tile (item)"] == (min(128, d), min(128, n_pad))
+    assert tma.kernel == f"gram_s8_tma_kernel<{'true' if d % 4 == 0 else 'false'}>"
+    assert tma.grid is None and tma.grid_rule == "occupancy"
+    assert (tma.threads, tma.dynamic_smem, tma.static_smem) == (
+        c["S_THREADS"], c["S_SMEM_BYTES"], 0)
+    assert c["S_SMEM_BYTES"] <= 232448  # the shared memory a block may use
+    ops = dict(tma.operands)
+    assert ops["x^T staged"] == (c["S_STAGES"] * 3 * c["S_TILE"], c["S_BK"])
+    assert ops["x^T rows j (item)"] == (min(256, d), n_pad)
+    assert ops["G block (item)"] == (min(128, d), min(256, d))
+    assert tma.resolved((132, 1, 1)).grid == (132, 1, 1)
+    for launch in (transpose, tma):
+        assert launch.source == "csrc/gram_s8.cu"
+        assert launch.kernel.split("<")[0] in geometry.RECORDED_KERNELS
 
 
 def _tri(tiles: int) -> int:

@@ -25,9 +25,11 @@ card lands within 1e-3 degrees of the same solve on the CPU. The analyzer's
 one-CTA mutant agrees with ``torch.matmul`` to 1e-5 relative (FFMA in index
 order against cuBLAS fp32), and ``torch.profiler`` reads every recorded
 launch back with the grid, block and shared memory its record declares.
-The s8 Gram kernel equals its plain version bit for bit (exact int32 sums,
-one rounding to fp32, a true division by n); past its guard an int8 batch
-is widened and its fp32 Gram is held to the float64 truth at 1e-3.
+The s8 Gram (a transpose, then the TMA + wgmma kernel) equals its plain
+version bit for bit (exact int32 sums, one rounding to fp32, a true
+division by n), and the transpose equals its plain version, pad rows
+included; past its guard an int8 batch is widened and its fp32 Gram is
+held to the float64 truth at 1e-3.
 """
 
 import sys
@@ -602,23 +604,40 @@ def _i8(shape, seed=0, offset=0):
     return torch.from_numpy(flat)
 
 
-@pytest.mark.parametrize("shape,offset", [
-    ((8, 1024, 3072), 0), ((8, 2048, 1024), 0), ((3, 1000, 1000), 0), ((1, 37, 9), 0),
-    ((1, 5, 15), 0), ((2, 130, 48), 1), ((4, 64, 256), 0), ((2, 1, 1), 0)])
+# the s8 parity shapes: the CIFAR-10, synthetic1024 and mnist784 blocks (a
+# 16-column last tile), n = 1000 (n_pad 1008) and d below one tile, each on
+# an aligned base and one byte off it; then smaller corners
+S8_SHAPES = [((8, 1024, 3072), 0), ((8, 2048, 1024), 0), ((8, 1024, 784), 0),
+             ((3, 1000, 1000), 0), ((1, 1000, 9), 0), ((8, 1024, 3072), 1), ((8, 2048, 1024), 1),
+             ((8, 1024, 784), 1), ((3, 1000, 1000), 1), ((1, 1000, 9), 1), ((1, 37, 9), 0),
+             ((1, 5, 15), 0), ((2, 130, 48), 1), ((4, 64, 256), 0), ((2, 1, 1), 0),
+             ((3, 200, 3001), 0)]
+
+
+def _s8_view(shape, seed, offset, device):
+    return _i8(shape, seed=seed, offset=offset).to(device)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape,offset", S8_SHAPES)
 def test_gram_s8_bit_equal_to_plain(cuda_device, shape, offset):
-    """The s8 kernel against its plain version (float64 sums, one rounding,
-    a true division): equal bit for bit, exactly symmetric, at aligned and
-    unaligned shapes, n = 2048 (where fp32 sums would no longer be exact)
-    and m = 1 with d below one tile."""
-    x = _i8(shape, seed=sum(shape), offset=offset).to(cuda_device)[offset:].view(shape)
-    vec = 16 if offset == 0 and shape[2] % 16 == 0 else 1
+    """The s8 pair (the transpose, then the TMA + wgmma kernel) against its
+    plain version (float64 sums, one rounding, a true division): equal bit
+    for bit, exactly symmetric, at aligned and unaligned bases, n = 2048
+    (where fp32 sums would no longer be exact), n not a multiple of 16, m =
+    1 with d below one tile, and d % 4 != 0 (the register epilogue); n not
+    a power of two takes the division, the others the exact reciprocal."""
+    x = _s8_view(shape, sum(shape), offset, cuda_device)
     before = (tgram.launches, tgram.launches_s8)
     with tgeo.recording() as rec:
         got = tgram.gram_s8_cuda(x)
     torch.cuda.synchronize()
     assert (tgram.launches, tgram.launches_s8) == (before[0], before[1] + 1)
-    assert rec == [tgram.gram_s8_launch(*shape, aligned=offset == 0)]
-    assert rec[0].kernel == f"gram_s8_kernel<{vec}>"
+    transpose, tma = tgram.gram_s8_launch(*shape, aligned=offset == 0)
+    assert rec == [transpose, tma.resolved(rec[1].grid)]
+    vec = 16 if offset == 0 and shape[2] % 16 == 0 else 1
+    assert [r.kernel for r in rec] == [
+        f"gram_s8_transpose_kernel<{vec}>",
+        f"gram_s8_tma_kernel<{'true' if shape[2] % 4 == 0 else 'false'}>"]
     want = tgram.gram_s8_plain(x)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.equal(got, want)
@@ -628,10 +647,30 @@ def test_gram_s8_bit_equal_to_plain(cuda_device, shape, offset):
     assert torch.equal(got.cpu(), tgram.gram_s8_plain(x.cpu()))
 
 
+@pytest.mark.parametrize("shape,offset", S8_SHAPES)
+def test_gram_s8_transpose_bit_equal_to_plain(cuda_device, shape, offset):
+    """The transpose kernel alone against its plain version: x^T with its
+    rows padded to n_pad, the pad written as zeros although the scratch
+    comes from ``torch.empty`` (filled with 0x7f here first)."""
+    x = _s8_view(shape, sum(shape) + 1, offset, cuda_device)
+    torch.full((64 << 20,), 127, dtype=torch.int8, device=cuda_device)  # dirty the allocator
+    with tgeo.recording() as rec:
+        got = tgram.gram_s8_transpose_cuda(x)
+    torch.cuda.synchronize()
+    assert rec == [tgram.gram_s8_launch(*shape, aligned=offset == 0)[0]]
+    want = tgram.gram_s8_transpose_plain(x)
+    assert got.shape == (shape[0], shape[2], tgram.s8_pad(shape[1]))
+    assert torch.equal(got, want)
+    assert not got[..., shape[1]:].any()
+
+
 def test_gram_s8_profiled_geometry_equals_the_record(cuda_device, tmp_path):
+    """Both launches of a call, profiled: grid, block and shared memory equal
+    to the record, the transpose first."""
     from torch.profiler import ProfilerActivity, profile
 
-    xs = [_i8(s, seed=3).to(cuda_device).view(s) for s in ((8, 1024, 3072), (3, 1000, 1000))]
+    shapes = ((8, 1024, 3072), (3, 1000, 1000), (8, 1024, 784))
+    xs = [_i8(s, seed=3).to(cuda_device).view(s) for s in shapes]
     for x in xs:
         tgram.gram_s8_cuda(x)
     torch.cuda.synchronize()
@@ -643,8 +682,15 @@ def test_gram_s8_profiled_geometry_equals_the_record(cuda_device, tmp_path):
     events = tgeo.profiled_kernels(prof, tgeo.RECORDED_KERNELS, tmp_path / "trace.json")
     bad = tgeo.geometry_mismatches(events, rec)
     assert not bad, (bad, [(e["name"], e["args"]) for e in events])
-    assert rec == [tgram.gram_s8_launch(8, 1024, 3072), tgram.gram_s8_launch(3, 1000, 1000)]
-    assert [e["grid"] for e in events] == [(300, 1, 8), (36, 1, 3)]
+    want = []
+    for i, shape in enumerate(shapes):
+        transpose, tma = tgram.gram_s8_launch(*shape)
+        want += [transpose, tma.resolved(rec[2 * i + 1].grid)]
+    assert rec == want
+    assert [e["symbol"].split("<")[0] for e in events] == [
+        "gram_s8_transpose_kernel", "gram_s8_tma_kernel"] * 3
+    assert [e["grid"] for e in events][::2] == [(8, 24, 8), (8, 8, 3), (8, 7, 8)]
+    assert all(1 <= e["grid"][0] <= 132 and e["grid"][1:] == (1, 1) for e in events[1::2])
 
 
 def test_gram_auto_int8_routes_by_the_guard(cuda_device):

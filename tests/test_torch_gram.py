@@ -118,7 +118,35 @@ def test_gram_s8_cuda_refuses_what_the_kernel_does_not_take():
     before = tgram.launches_s8
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgram.gram_s8_cuda(torch.zeros((2, 8, 8), dtype=torch.int8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgram.gram_s8_transpose_cuda(torch.zeros((2, 8, 8), dtype=torch.int8))
     assert tgram.launches_s8 == before
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 1000, 2048])
+def test_gram_s8_transpose_plain_pads_n_with_zero_rows(rng, n):
+    """What the transpose kernel writes: x^T ``(m, d, n_pad)`` with n_pad
+    the next multiple of 16 (the TMA kernel's 16-byte row strides), the
+    columns from n on zero, against numpy; its Gram over n_pad is the
+    block's."""
+    m, d = 3, 37
+    x = rng.integers(-127, 128, size=(m, n, d)).astype(np.int8)
+    n_pad = tgram.s8_pad(n)
+    assert n_pad % 16 == 0 and n <= n_pad < n + 16
+    assert n_pad == {1: 16, 15: 16, 16: 16, 1000: 1008, 2048: 2048}[n]
+    got = tgram.gram_s8_transpose_plain(torch.from_numpy(x))
+    assert got.dtype == torch.int8 and tuple(got.shape) == (m, d, n_pad)
+    want = np.zeros((m, d, n_pad), np.int8)
+    want[:, :, :n] = np.swapaxes(x, 1, 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[..., n:].any()
+    # a single block, and the Gram over the padded rows equals the block's
+    np.testing.assert_array_equal(
+        tgram.gram_s8_transpose_plain(torch.from_numpy(x[0])).numpy(), want[0])
+    wide = got.long()
+    np.testing.assert_array_equal(
+        torch.matmul(wide, wide.mT).numpy(),
+        torch.matmul(torch.from_numpy(x).long().mT, torch.from_numpy(x).long()).numpy())
 
 
 def test_gram_auto_int8_on_cpu_takes_the_plain_version(rng):

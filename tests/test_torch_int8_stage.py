@@ -376,6 +376,35 @@ def test_eval_settings_slice_matches_the_reference():
     assert _deg(est.components_, np.asarray(spec.top_k(k))) <= TRUTH_DEG
 
 
+def test_synthetic1024_settings_slice_matches_the_reference():
+    """The synthetic1024 eval's settings (``evals.py:91-95``: k=5, m=8,
+    n=2048 rows a worker, int8 stage, ns warm rounds, bf16, subspace 12
+    cold / 2 warm) on its planted-subspace data, decay by the eval's own
+    formula, cut to d=64 and T=3: the port's fit against the JAX
+    estimator's on the same data and start (0.01 degrees), and within 1
+    degree of the planted top-5. n=2048 is where fp32 sums of int8 products
+    stop being exact: the int8 Gram sums in int32 on both sides."""
+    from distributed_eigenspaces_tpu.data.synthetic import planted_subspace as jax_subspace
+
+    d, k, m, n, steps = 64, 5, 8, 2048, 3
+    gap, noise = 20.0, 0.01
+    decay = max(0.8, float((100.0 * noise / gap) ** (1.0 / max(k - 1, 1))))
+    assert decay == 0.8
+    spec = jax_subspace(d, k_planted=k, gap=gap, decay=decay, noise=noise, seed=0)
+    x = np.asarray(spec.sample(jax.random.PRNGKey(1), steps * m * n))
+    kw = dict(dim=d, k=k, num_workers=m, rows_per_worker=n, num_steps=steps,
+              solver="subspace", subspace_iters=12, warm_start_iters=2,
+              compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns",
+              backend="local")
+    # a sum can pass 2^24, where fp32 stops being exact, and stays in int32
+    assert n * 127 * 127 > 2**24 and tgram.s8_exact(n)
+    want = np.asarray(JaxPCA(JaxConfig(**kw)).fit(x).components_)
+    est = dett.OnlineDistributedPCA(PCAConfig(**kw), device="cpu", v0=_v0(d, k)).fit(x)
+    assert est.trainer_used_ == "scan"
+    assert _deg(est.components_, want) <= REF_DEG
+    assert _deg(est.components_, np.asarray(spec.top_k(k))) <= TRUTH_DEG
+
+
 def test_ns_runs_on_warm_rounds_only(monkeypatch):
     """``resolved_warm_orth()`` reaches warm rounds only, through the scan
     and the per-step loop; cold rounds keep ``orth_method``."""

@@ -16,6 +16,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 import torch_kernel_copies as kc  # noqa: E402
 import torch_profile_gram  # noqa: E402
+import torch_profile_gram_s8  # noqa: E402
 import torch_profile_matvec_gram  # noqa: E402
 import torch_profile_serve_f32  # noqa: E402
 import torch_profile_serve_staging  # noqa: E402
@@ -25,6 +26,7 @@ UNCHANGED = {"kernel", "own_budget"}  # each script's baseline build
 
 CASES = (
     [("gram", name, fn) for name, fn in torch_profile_gram.VARIANTS.items()]
+    + [("gram_s8", name, fn) for name, fn in torch_profile_gram_s8.VARIANTS.items()]
     + [("matvec_gram", name, fn) for name, fn in torch_profile_matvec_gram.VARIANTS.items()]
     + [("serve_project", name, fn) for name, fn in torch_profile_serve_f32.VARIANTS.items()]
     + [("serve_project", "stage_tile", torch_profile_serve_staging.with_stage_tile)]
