@@ -37,12 +37,13 @@ exits non-zero without printing a result:
    blocks: a transpose into x^T, then the TMA + wgmma kernel) against its
    plain version (float64 sums, one rounding, a true division) at the
    CIFAR-10 block (8, 1024, 3072), synthetic1024's (8, 2048, 1024),
-   mnist784's (8, 1024, 784), (3, 1000, 1000) and (1, 1000, 9), each on an
+   mnist784's (8, 1024, 784), clip768's (8, 2048, 768), (3, 1000, 1000)
+   and (1, 1000, 9), each on an
    aligned base and one byte off it: the transpose equal to its plain
    version (pad rows included), the Gram equal bit for bit and exactly
    symmetric, every instance of both kernels taken; both profiled launches
    equal to ``gram_s8_launch``'s record at CIFAR and (1, 1000, 9); at the
-   three eval blocks the pair's one-call time, the device time of both
+   four eval blocks the pair's one-call time, the device time of both
    launches and of the transpose, the bound, the plain version,
    ``torch._int_mm`` over the workers with the transpose copy, and the bf16
    TMA kernel on the block widened beforehand.
@@ -56,6 +57,35 @@ exits non-zero without printing a result:
    ``planted_subspace`` data: each exactly one s8 call (a transpose and a
    TMA launch) and no other Gram kernel, ns on all 19 warm rounds, within 1
    degree of the planted top-k, both fits' wall seconds.
+5d. slice_clip768: the clip768 eval's own route (d=768, k=256, m=8,
+   n=2048, T=10, subspace 8 / 2 warm, bf16): 4 blocks of its
+   ``planted_subspace`` quantized with one global int8 scale by the native
+   ``absmax_f32`` / ``quantize_i8`` and written cyclically to a 126 MB row
+   file under ``build/``, then ``bin_block_stream`` (int8 passed through)
+   -> ``window_stream`` of 5 -> ``prefetch_stream`` (depth 1) ->
+   ``make_segmented_fit(segment=5).fit_windows`` -> ``extract_dense``:
+   within 1 degree of the planted top-256, exactly 10 s8 calls and no float
+   Gram launch, two windows, the native reader built; run twice (the same
+   bits), with fit seconds, samples/s and the prefetch counters.
+5e. slice_clip768_resume: the same fit checkpointed on ``on_segment`` and
+   stopped after window 1, restored by ``Checkpointer.latest()`` and
+   continued from ``bin_block_stream(start_row=cursor)``: ``sigma_tilde``
+   and ``v_prev`` bit-equal to the unkilled run's; then the newest
+   checkpoint's ``state.npz`` torn: quarantined, the ladder steps back.
+5f. slice_fit_eval_segmented: the cifar10 eval's settings through
+   ``OnlineDistributedPCA(cfg, checkpoint_dir=..., segment=5)``: the
+   segmented trainer, 4 commits (steps 5, 10, 15, 20; the two newest kept),
+   ``sigma_tilde`` within 1e-6 relative of the scan fit's (bit-equal
+   expected) and equal to the same trainer's without checkpoints (whose
+   time shows what the commits cost), one s8 call, within 1 degree.
+5g. slice_fit_masked: the same settings with a (20, 8) mask sequence
+   (worker 3 off on steps 4-9, every worker off on step 12): the masked
+   whole fit (``trainer_used_ == "scan"``) against ``trainer="step"`` on
+   the same masks, ``sigma_tilde`` within 1e-4 and components within 0.05
+   degrees, within 1 degree of the planted top-10.
+5h. slice_fit_interval: the same settings with ``merge_interval=2``, then
+   with ``pipeline_merge=True`` too: within 1 degree each, the merged
+   eigensolve on exactly 10 of the 20 rounds.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -155,11 +185,12 @@ S8_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/gram_s8.cu"
 S8_REPLACES = "distributed_eigenspaces_tpu/ops/linalg.py:64"
 S8_SYNTH = (8, 2048, 1024)  # synthetic1024's block: fp32 sums would not be exact
 S8_MNIST = (8, 1024, 784)  # mnist784's block: a 16-column last tile
+S8_CLIP = (8, 2048, 768)  # clip768's block, every step of its segmented fit
 # CIFAR-10's block, synthetic1024's, mnist784's, n = 1000 (n_pad 1008, the
 # division by n) and one worker with d below one tile (d % 4 != 0: the
 # register epilogue), each on an aligned base and one byte off it (byte
 # loads in the transpose)
-S8_PARITY = (CIFAR, S8_SYNTH, S8_MNIST, (3, 1000, 1000), (1, 1000, 9))
+S8_PARITY = (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP, (3, 1000, 1000), (1, 1000, 9))
 S8_OFFSETS = (0, 1)
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
 SERVE_REPLACES = {
@@ -209,6 +240,21 @@ SYNTH_DATA = dict(k_planted=5, gap=20.0, decay=max(0.8, (100 * 0.01 / 20.0) ** (
                   noise=0.01, seed=0)
 EVALS = (("cifar10", "evals.py:86-90", EVAL_FIT, EVAL_DATA),
          ("synthetic1024", "evals.py:91-95", SYNTH_FIT, SYNTH_DATA))
+# the clip768 eval, field for field (distributed_eigenspaces_tpu/evals.py:121-126,
+# 431-462, 625-690): int8 rows streamed from a file, the segmented trainer in
+# windows of 5, one global quantization scale, its decay by the eval's formula
+CLIP_FIT = dict(dim=768, k=256, num_workers=8, rows_per_worker=2048, num_steps=10,
+                solver="subspace", subspace_iters=8, warm_start_iters=2,
+                compute_dtype="bfloat16", backend="local")
+CLIP_DATA = dict(k_planted=256, gap=20.0, decay=max(0.8, 0.05 ** (1 / 255)), noise=0.01,
+                 seed=0)
+CLIP_DISTINCT = 4  # distinct blocks, written cyclically over the 10 steps
+CLIP_SEGMENT = 5
+# the masked cifar10-settings fit: worker 3 dropped on steps 4-9, every
+# worker on step 12 (1-based steps)
+MASK_DROPS = ((range(3, 9), 3), ((11,), slice(None)))
+FIT_SIGMA_ATOL = 1e-4  # the port's parity tolerances (tests/test_torch_step.py)
+FIT_ANGLE_DEG = 0.05
 MUTANT_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/mutant_full_block.cu"
 MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
 MUTANT_TOL = 1e-5
@@ -432,7 +478,7 @@ def timing_gram_s8(dev, gen, card: str) -> dict:
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
 
     out = {}
-    for shape in (CIFAR, S8_SYNTH, S8_MNIST):
+    for shape in (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP):
         x = int8_block(shape, gen, dev)
         kernels = [la.kernel for la in gram_mod.gram_s8_launch(*shape)]
         ms = time_ms(lambda: gram_mod.gram_s8_cuda(x))
@@ -534,6 +580,343 @@ def slice_fit_eval(dev, card: str, name: str, source: str, fit: dict, data_kw: d
     check(angle <= 1.0, f"fit_eval {name} angle {angle} > 1 degree")
     del data, est
     return launched[2]
+
+
+def clip768_file(dev, work_dir: str):
+    """The clip768 eval's row file: ``CLIP_DISTINCT`` blocks of its planted
+    subspace, quantized with one global int8 scale (``127 / absmax``, the
+    port's native ``absmax_f32`` and ``quantize_i8``), written cyclically
+    over the 10 steps. Returns ``(path, spec, seconds)``."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.runtime.native import absmax_f32, quantize_i8
+
+    d, m, n, T = (CLIP_FIT[f] for f in ("dim", "num_workers", "rows_per_worker",
+                                          "num_steps"))
+    t0 = time.perf_counter()
+    spec = dett.planted_subspace(d, **CLIP_DATA)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    host = [spec.sample(gen, m * n).cpu().numpy() for _ in range(CLIP_DISTINCT)]
+    scale = 127.0 / max(max(absmax_f32(b) for b in host), 1e-30)
+    steps = [quantize_i8(b, scale).tobytes() for b in host]
+    path = os.path.join(work_dir, "clip768.i8")
+    with open(path, "wb") as f:
+        for t in range(T):
+            f.write(steps[t % CLIP_DISTINCT])
+    check(os.path.getsize(path) == T * m * n * d, "clip768: row file size")
+    return path, spec, time.perf_counter() - t0
+
+
+def clip768_windows(path: str, stats=None, start_row: int = 0):
+    """The eval's out-of-core route: ``bin_block_stream`` (int8 passed
+    through) -> ``window_stream`` of 5 -> ``prefetch_stream`` (depth 1, the
+    pinned side-stream copy to the card)."""
+    import numpy as np
+    import torch
+    from distributed_eigenspaces_tpu_torch.data.bin_stream import (
+        bin_block_stream,
+        window_stream,
+    )
+    from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
+
+    blocks = bin_block_stream(
+        path, dim=CLIP_FIT["dim"], num_workers=CLIP_FIT["num_workers"],
+        rows_per_worker=CLIP_FIT["rows_per_worker"], num_steps=CLIP_FIT["num_steps"],
+        dtype=np.int8, out_dtype=torch.int8, start_row=start_row)
+    return prefetch_stream(window_stream(blocks, CLIP_SEGMENT), depth=1, stats=stats)
+
+
+def clip768_fit(cfg, state, windows, on_segment=None):
+    """``make_segmented_fit(cfg, segment=5).fit_windows`` over ``windows``,
+    the prefetch generator closed however the fit ends."""
+    import distributed_eigenspaces_tpu_torch as dett
+
+    try:
+        return dett.make_segmented_fit(cfg, segment=CLIP_SEGMENT).fit_windows(
+            state, windows, on_segment=on_segment)
+    finally:
+        windows.close()
+
+
+def slice_clip768(dev, card: str, work_dir: str) -> dict:
+    """The clip768 eval's own route on the card (d=768, k=256, m=8, n=2048,
+    T=10, subspace 8 / 2 warm, bf16, int8 rows from a file, segmented in
+    windows of 5): one s8 call a step and no float Gram, two windows, the
+    native reader, within 1 degree of the planted top-256. Run twice, the
+    second after the first has paid every library's start-up; returns the
+    first run's final state and counts."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.runtime.native import native_available
+    from distributed_eigenspaces_tpu_torch.runtime.prefetch import PrefetchStats
+
+    cfg = dett.PCAConfig(**CLIP_FIT)
+    d, k, m, n, T = (CLIP_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
+                                             "num_steps"))
+    path, spec, data_s = clip768_file(dev, work_dir)
+    native = native_available()
+    runs = []
+    for _ in range(2):
+        stats, segments = PrefetchStats(), []
+        windows = clip768_windows(path, stats)
+        gram_mod.launches = gram_mod.launches_tma = gram_mod.launches_s8 = 0
+        state, fit_s = synced_s(lambda: clip768_fit(
+            cfg, dett.SegmentState.initial(d, k), windows,
+            on_segment=lambda t, st: segments.append(t)))
+        runs.append(dict(state=state, fit_s=fit_s, stats=stats.as_dict(), segments=segments,
+                         launched=(gram_mod.launches, gram_mod.launches_tma,
+                                   gram_mod.launches_s8)))
+    first = runs[0]
+    w, extract_s = synced_s(lambda: extract_dense(cfg, first["state"].sigma_tilde))
+    check(w.shape == (d, k) and bool(torch.isfinite(w).all()), "clip768: components")
+    angle = float(principal_angles_degrees(w.cpu(), torch.as_tensor(spec.top_k(k))).max())
+    samples = T * m * n
+    emit("slice_clip768",
+         config="clip768 eval (evals.py:121-126): d=768 k=256 m=8 n=2048 T=10 subspace 8 "
+                "cold / 2 warm bf16, int8 bin stream, trainer segmented, windows of 5",
+         data="planted_subspace(768, " + ", ".join(f"{a}={v}" for a, v in CLIP_DATA.items())
+              + f"), {CLIP_DISTINCT} distinct blocks, one global int8 scale",
+         file_bytes=os.path.getsize(path), data_s=data_s, native_reader=native,
+         s8_calls=first["launched"][2], gram_launches=first["launched"][0],
+         tma_launches=first["launched"][1], windows=first["segments"],
+         fit_s=first["fit_s"], samples_per_s=samples / first["fit_s"],
+         prefetch=first["stats"], second_fit_s=runs[1]["fit_s"],
+         second_samples_per_s=samples / runs[1]["fit_s"], second_prefetch=runs[1]["stats"],
+         second_s8_calls=runs[1]["launched"][2], extract_s=extract_s, max_angle_deg=angle,
+         card=card)
+    check(native, "clip768: the native reader did not build")
+    for run in runs:
+        check(run["launched"] == (0, 0, T), f"clip768: Gram launches (float, TMA, s8) "
+                                            f"{run['launched']}, want (0, 0, {T})")
+        check(run["segments"] == [CLIP_SEGMENT, T], f"clip768: windows {run['segments']}")
+        check(run["state"].step == T, f"clip768: {run['state'].step} steps")
+    check(torch.equal(runs[0]["state"].sigma_tilde, runs[1]["state"].sigma_tilde),
+          "clip768: two runs of the same fit differ")
+    check(angle <= 1.0, f"clip768 angle {angle} > 1 degree")
+    return dict(path=path, state=first["state"], s8_calls=first["launched"][2])
+
+
+def slice_clip768_resume(dev, card: str, work_dir: str, clip: dict) -> None:
+    """Kill and resume at the clip768 width: a run checkpointed on
+    ``on_segment`` is stopped after window 1, restored by
+    ``Checkpointer.latest()`` and continued from ``bin_block_stream(
+    start_row=cursor)``; its ``sigma_tilde`` and ``v_prev`` must equal the
+    unkilled run's bit for bit. Then a torn ``state.npz`` of the newest
+    checkpoint is quarantined and the ladder steps back."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        restore_checkpoint,
+    )
+    from distributed_eigenspaces_tpu_torch.utils.faults import KillSwitch
+
+    cfg = dett.PCAConfig(**CLIP_FIT)
+    d, k, m, n = (CLIP_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker"))
+    ckpt_dir = os.path.join(work_dir, "clip768_ckpt")
+    ckpt = Checkpointer(ckpt_dir, rows_per_step=m * n)
+
+    def kill_after_first(t, st):
+        ckpt.on_step(t, st)
+        raise KillSwitch(f"stopped after step {t}")
+
+    t0 = time.perf_counter()
+    killed = False
+    try:
+        clip768_fit(cfg, dett.SegmentState.initial(d, k), clip768_windows(clip["path"]),
+                    on_segment=kill_after_first)
+    except KillSwitch:
+        killed = True
+    state, cursor = ckpt.latest()
+    at_kill = state
+    resumed, resume_s = synced_s(lambda: clip768_fit(
+        cfg, state, clip768_windows(clip["path"], start_row=cursor),
+        on_segment=ckpt.on_step))
+    whole = clip["state"]
+    sigma_equal = bool(torch.equal(resumed.sigma_tilde, whole.sigma_tilde))
+    v_equal = bool(torch.equal(resumed.v_prev, whole.v_prev))
+    sigma_diff = float((resumed.sigma_tilde - whole.sigma_tilde).abs().max())
+    # a torn payload of the newest checkpoint: quarantined, the ladder steps back
+    newest = os.path.join(ckpt_dir, f"step_{CLIP_FIT['num_steps']:08d}", "state.npz")
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    back, back_cursor = ckpt.latest()
+    quarantined = os.path.isdir(newest.rsplit(os.sep, 1)[0] + ".quarantined")
+    again, _ = restore_checkpoint(os.path.join(ckpt_dir, f"step_{CLIP_SEGMENT:08d}"))
+    emit("slice_clip768_resume", killed_after_window_1=killed, cursor=cursor,
+         resumed_steps=resumed.step, sigma_bit_equal=sigma_equal, v_prev_bit_equal=v_equal,
+         sigma_max_abs_diff=sigma_diff, resume_s=resume_s,
+         torn_newest_quarantined=quarantined, ladder_step=back.step,
+         ladder_cursor=back_cursor, seconds=time.perf_counter() - t0, card=card)
+    check(killed and at_kill.step == CLIP_SEGMENT and cursor == CLIP_SEGMENT * m * n,
+          f"clip768 resume: checkpoint at step {at_kill.step}, cursor {cursor}")
+    check(resumed.step == CLIP_FIT["num_steps"], f"clip768 resume: {resumed.step} steps")
+    check(sigma_equal and v_equal, f"clip768 resume: resumed run differs from the unkilled "
+                                   f"one (sigma {sigma_equal}, v_prev {v_equal})")
+    check(quarantined and back.step == CLIP_SEGMENT and back_cursor == cursor,
+          "clip768 resume: the torn checkpoint was not quarantined")
+    check(torch.equal(back.sigma_tilde, again.sigma_tilde)
+          and torch.equal(back.v_prev, again.v_prev), "clip768 resume: ladder restore")
+
+
+def eval_data(dev):
+    """The cifar10 eval's planted data on the card: ``(spec, data (T m n,
+    d))``."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+
+    m, n, T = (EVAL_FIT[f] for f in ("num_workers", "rows_per_worker", "num_steps"))
+    spec = dett.planted_subspace(EVAL_FIT["dim"], **EVAL_DATA)
+    return spec, spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+
+
+def components_angle(est, spec) -> float:
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    w = est.components_
+    check(bool(torch.isfinite(w).all()), "components_ not finite")
+    return float(principal_angles_degrees(w.cpu(), torch.as_tensor(
+        spec.top_k(w.shape[1]))).max())
+
+
+def slice_fit_eval_segmented(dev, card: str, work_dir: str, spec, data) -> int:
+    """The cifar10 eval's settings through ``OnlineDistributedPCA(cfg,
+    checkpoint_dir=..., segment=5).fit``: the segmented trainer, four
+    checkpoint commits as they land (the two newest kept), ``sigma_tilde``
+    equal to the scan fit's on the same data, within 1 degree; returns the
+    s8 calls of the segmented fit."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.utils import checkpoint as ckpt_mod
+
+    cfg = dett.PCAConfig(**EVAL_FIT)
+    T = EVAL_FIT["num_steps"]
+    ckpt_dir = os.path.join(work_dir, "eval_ckpt")
+    commits = []
+    real_save = ckpt_mod.save_checkpoint
+
+    def counted(path, state, **kw):
+        real_save(path, state, **kw)
+        commits.append((os.path.basename(path), os.path.exists(
+            os.path.join(path, "meta.json"))))
+
+    ckpt_mod.save_checkpoint = counted
+    try:
+        est = dett.OnlineDistributedPCA(cfg, checkpoint_dir=ckpt_dir, segment=5)
+        gram_mod.launches = gram_mod.launches_tma = gram_mod.launches_s8 = 0
+        _, fit_s = synced_s(lambda: est.fit(data))
+        launched = (gram_mod.launches, gram_mod.launches_tma, gram_mod.launches_s8)
+    finally:
+        ckpt_mod.save_checkpoint = real_save
+    scan = dett.OnlineDistributedPCA(cfg)
+    _, scan_s = synced_s(lambda: scan.fit(data))
+    # the same trainer without checkpoints: what the four commits cost
+    plain_seg = dett.OnlineDistributedPCA(cfg, trainer="segmented", segment=5)
+    _, plain_seg_s = synced_s(lambda: plain_seg.fit(data))
+    diff = float((est.state.sigma_tilde - scan.state.sigma_tilde).abs().max())
+    rel = diff / float(scan.state.sigma_tilde.abs().max())
+    kept = sorted(os.listdir(ckpt_dir))
+    angle = components_angle(est, spec)
+    emit("slice_fit_eval_segmented",
+         config="cifar10 eval settings (evals.py:86-90) through OnlineDistributedPCA("
+                "checkpoint_dir=..., segment=5)", trainer=est.trainer_used_,
+         commits=commits, kept=kept, s8_calls=launched[2], gram_launches=launched[0],
+         sigma_vs_scan_bit_equal=bool(torch.equal(est.state.sigma_tilde,
+                                                  scan.state.sigma_tilde)),
+         sigma_vs_scan_max_abs_diff=diff, sigma_vs_scan_rel=rel, fit_s=fit_s, scan_fit_s=scan_s,
+         segmented_without_checkpoints_fit_s=plain_seg_s,
+         max_angle_deg=angle, card=card)
+    check(est.trainer_used_ == "segmented", f"eval segmented: trainer {est.trainer_used_}")
+    check([c for c, committed in commits if committed] == [f"step_{t:08d}" for t in
+                                                            (5, 10, 15, 20)],
+          f"eval segmented: commits {commits}")
+    check(kept == ["step_00000015", "step_00000020"], f"eval segmented: kept {kept}")
+    check(rel <= 1e-6, f"eval segmented: sigma_tilde {rel} relative from the scan fit")
+    check(torch.equal(plain_seg.state.sigma_tilde, est.state.sigma_tilde),
+          "eval segmented: the fit without checkpoints differs")
+    check(launched == (0, 0, 1), f"eval segmented: Gram launches {launched}")
+    check(angle <= 1.0, f"eval segmented angle {angle} > 1 degree")
+    check(est.state.step == T, f"eval segmented: {est.state.step} steps")
+    return launched[2]
+
+
+def slice_fit_masked(dev, card: str, spec, data) -> int:
+    """The cifar10 eval's settings with a (20, 8) mask sequence: the masked
+    whole fit (``trainer_used_ == "scan"``), equal to ``trainer="step"`` on
+    the same masks within the port's tolerances, within 1 degree; returns
+    its s8 calls."""
+    import numpy as np
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    cfg = dett.PCAConfig(**EVAL_FIT)
+    masks = np.ones((EVAL_FIT["num_steps"], EVAL_FIT["num_workers"]), np.float32)
+    for steps, worker in MASK_DROPS:
+        masks[list(steps), worker] = 0.0
+    est = dett.OnlineDistributedPCA(cfg)
+    gram_mod.launches = gram_mod.launches_tma = gram_mod.launches_s8 = 0
+    _, fit_s = synced_s(lambda: est.fit(data, worker_masks=masks))
+    launched = (gram_mod.launches, gram_mod.launches_tma, gram_mod.launches_s8)
+    step = dett.OnlineDistributedPCA(cfg, trainer="step")
+    _, step_s = synced_s(lambda: step.fit(data, worker_masks=masks))
+    sigma_diff = float((est.state.sigma_tilde - step.state.sigma_tilde).abs().max())
+    agree = float(principal_angles_degrees(est.components_.cpu(),
+                                           step.components_.cpu()).max())
+    angle = components_angle(est, spec)
+    emit("slice_fit_masked", config="cifar10 eval settings, (20, 8) masks: worker 3 off "
+         "on steps 4-9, every worker off on step 12", trainer=est.trainer_used_,
+         step_trainer=step.trainer_used_, live_rounds=int(np.sum(masks.any(axis=1))),
+         s8_calls=launched[2], gram_launches=launched[0],
+         sigma_vs_step_max_abs=sigma_diff, components_vs_step_deg=agree, fit_s=fit_s,
+         step_fit_s=step_s, max_angle_deg=angle, card=card)
+    check(est.trainer_used_ == "scan" and step.trainer_used_ == "step",
+          f"masked: trainers {est.trainer_used_}, {step.trainer_used_}")
+    check(sigma_diff <= FIT_SIGMA_ATOL and agree <= FIT_ANGLE_DEG,
+          f"masked: scan and step differ ({sigma_diff}, {agree} deg)")
+    check(launched == (0, 0, 1), f"masked: Gram launches {launched}, want one s8 call")
+    check(angle <= 1.0, f"masked angle {angle} > 1 degree")
+    return launched[2]
+
+
+def slice_fit_interval(dev, card: str, spec, data) -> None:
+    """The cifar10 eval's settings with ``merge_interval=2``, then with
+    ``merge_interval=2, pipeline_merge=True``: within 1 degree each, the
+    merged eigensolve on exactly ceil(T / 2) rounds (a wrapper around
+    ``merge_core`` counts them)."""
+    import dataclasses
+
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.algo import scan as scan_mod
+
+    T = EVAL_FIT["num_steps"]
+    real = scan_mod.merge_core
+    for kw in (dict(merge_interval=2), dict(merge_interval=2, pipeline_merge=True)):
+        cfg = dataclasses.replace(dett.PCAConfig(**EVAL_FIT), **kw)
+        merges = [0]
+
+        def counted(*a, **k):
+            merges[0] += 1
+            return real(*a, **k)
+
+        scan_mod.merge_core = counted
+        try:
+            est = dett.OnlineDistributedPCA(cfg)
+            _, fit_s = synced_s(lambda: est.fit(data))
+        finally:
+            scan_mod.merge_core = real
+        angle = components_angle(est, spec)
+        emit("slice_fit_interval", knobs=kw, trainer=est.trainer_used_, merges=merges[0],
+             want_merges=-(-T // 2), fit_s=fit_s,
+             samples_per_s=T * EVAL_FIT["num_workers"] * EVAL_FIT["rows_per_worker"] / fit_s,
+             max_angle_deg=angle, card=card)
+        check(merges[0] == -(-T // 2), f"interval {kw}: {merges[0]} merges")
+        check(angle <= 1.0, f"interval {kw}: angle {angle} > 1 degree")
 
 
 def parity_serve(dev) -> dict:
@@ -1370,6 +1753,24 @@ def main() -> int:
     # warm rounds, one s8 call each
     s8_launches = sum(slice_fit_eval(dev, card, *ev) for ev in EVALS)
 
+    # 5d.-5h. the whole-fit trainers: clip768's out-of-core segmented fit,
+    # its kill and resume, and the cifar10 settings segmented, masked and on
+    # the two steady-state knobs
+    import tempfile
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work_dir:
+        clip = slice_clip768(dev, card, work_dir)
+        slice_clip768_resume(dev, card, work_dir, clip)
+        eval_spec, eval_rows = eval_data(dev)
+        s8_by_path = {"eval fits": s8_launches, "clip768": clip["s8_calls"],
+                      "eval segmented": slice_fit_eval_segmented(dev, card, work_dir,
+                                                                 eval_spec, eval_rows),
+                      "eval masked": slice_fit_masked(dev, card, eval_spec, eval_rows)}
+        slice_fit_interval(dev, card, eval_spec, eval_rows)
+        del clip, eval_rows
+
     # 6.-8. the read path
     serve_err = parity_serve(dev)
     serve_timing = timing_serve(dev, card)
@@ -1421,13 +1822,15 @@ def main() -> int:
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "
              "(ops/linalg.py:64-72), which gram_auto sends integer blocks to "
-             "(ops/pallas_gram.py:427-431)", launches=s8_launches,
-             launches_note="s8 calls of the two eval fits, each one transpose and one TMA "
-                           "launch", max_abs_err=s8_err, shape=list(CIFAR),
+             "(ops/pallas_gram.py:427-431)",
+             launches=sum(s8_by_path.values()), launches_by_path=s8_by_path,
+             launches_note="s8 calls (each one transpose and one TMA launch): the two "
+                           "eval fits, clip768's 10 steps, the eval settings segmented "
+                           "and masked", max_abs_err=s8_err, shape=list(CIFAR),
              kernel=" + ".join(la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)),
              kernels=[la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)],
              at_shapes=[dict(s8_timing[shape], shape=list(shape))
-                        for shape in (S8_SYNTH, S8_MNIST)]),
+                        for shape in (S8_SYNTH, S8_MNIST, S8_CLIP)]),
         serve_row("serve_project_bf16", "bf16"),
         serve_row("serve_project_i8", "i8"),
         serve_row("serve_project_f32", "f32"),

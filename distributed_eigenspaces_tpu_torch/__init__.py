@@ -12,7 +12,11 @@ device, and raise when no card is present.
 from __future__ import annotations
 
 from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
-from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
+from distributed_eigenspaces_tpu_torch.algo.scan import (
+    SegmentState,
+    make_scan_fit,
+    make_segmented_fit,
+)
 from distributed_eigenspaces_tpu_torch.algo.step import make_train_step
 from distributed_eigenspaces_tpu_torch.api.estimator import OnlineDistributedPCA
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
@@ -25,8 +29,10 @@ __all__ = [
     "OnlineDistributedPCA",
     "OnlineState",
     "PCAConfig",
+    "SegmentState",
     "entry",
     "make_scan_fit",
+    "make_segmented_fit",
     "make_train_step",
     "planted_spectrum",
     "planted_subspace",

@@ -102,7 +102,10 @@ def online_distributed_pca(
     consumes the whole stream, an int is an explicit cap. ``v0`` is the
     cold start basis (default: :func:`initial_basis` from ``cfg.seed``);
     after the first live round each step warm-starts from the previous
-    merged basis with ``cfg.resolved_warm_start()`` iterations.
+    merged basis with ``cfg.resolved_warm_start()`` iterations. Under
+    ``cfg.merge_interval = s > 1`` only steps 1, s+1, ... merge; the
+    others fold the mean of the worker projectors (``WorkerPool.round(
+    merge=False)``).
     """
     dev = resolve_device(device)
     if worker_masks is not None:
@@ -124,25 +127,44 @@ def online_distributed_pca(
     v_prev = None
     cap = cfg.num_steps if max_steps == "auto" else max_steps
     open_ended = max_steps == "auto" and cfg.discount == "1/t"
+    # merge-interval steady state (cfg.merge_interval = s): the merged
+    # eigensolve runs on steps t with (t - 1) % s == 0; the steps between
+    # fold the masked mean of the worker projectors (the round's
+    # sigma_bar) at the same weight, and the warm carry keeps the last
+    # merged basis
+    s_int = cfg.merge_interval
     for x_blocks in stream:
         if cap is not None and state.step >= cap and not open_ended:
             break
+        merge_now = s_int == 1 or state.step % s_int == 0
         mask = next(worker_masks) if worker_masks is not None else None
-        _, v_bar = pool.round(
+        sigma_bar, v_bar = pool.round(
             x_blocks, cfg.k, worker_mask=mask,
             v0=v_cold if v_prev is None else v_prev,
             iters=warm_iters if v_prev is not None else None,
             orth=cfg.resolved_warm_orth() if v_prev is not None else None,
+            merge=merge_now,
         )
-        # an all-masked round merges to zeros, a fixed point of the
-        # solver: the warm carry keeps the last live basis
-        if warm_iters is not None and (
-            mask is None or bool(np.any(np.asarray(mask)))
-        ):
-            v_prev = v_bar
-        state = update_state(
-            state, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
-        )
+        if merge_now:
+            # an all-masked round merges to zeros, a fixed point of the
+            # solver: the warm carry keeps the last live basis (liveness
+            # read from the mask on the host)
+            if warm_iters is not None and (
+                mask is None or bool(np.any(np.asarray(mask)))
+            ):
+                v_prev = v_bar
+            state = update_state(
+                state, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
+            )
+        else:
+            # between merges: fold this round's (masked) mean projector;
+            # the hook sees the carried basis (zeros before any live merge)
+            state = update_state_projector(
+                state, sigma_bar, discount=cfg.discount, num_steps=cfg.num_steps
+            )
+            v_bar = v_prev if v_prev is not None else torch.zeros(
+                (cfg.dim, cfg.k), dtype=torch.float32, device=dev
+            )
         if on_step is not None:
             on_step(state.step, state, v_bar)
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)

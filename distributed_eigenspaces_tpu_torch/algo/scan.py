@@ -1,44 +1,477 @@
-"""The whole-fit trainer: T online steps, cold first, warm after.
+"""The whole-fit trainers: T online steps, cold first, warm after.
 
-Counterpart of ``make_scan_fit`` in ``distributed_eigenspaces_tpu/algo/
-scan.py`` for one device and no masks; the crossover merge rides on the
-per-step trainer's round. The reference compiles the T steps
-into one ``lax.scan``; here they are a Python loop over the per-step
-trainer (``algo/step.py``).
+Counterpart of ``distributed_eigenspaces_tpu/algo/scan.py`` for one
+device (``mesh=None``): the unmasked scan, the masked scan (§5.3 worker
+masks), the merge-interval and pipelined steady states, and the
+segmented, checkpointable trainer with its out-of-core ``fit_windows``.
+The reference compiles each body into one ``lax.scan``; here a body is a
+Python loop over the same step functions (``algo/step.py``). Its
+``lax.cond``s become host branches: on the step counter and the mask row,
+which the host holds, and on the warm carry's liveness, which is read
+from the tensor (one device sync) where the reference reads it on the
+device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
 import torch
 
-from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
-from distributed_eigenspaces_tpu_torch.algo.step import make_train_step
+from distributed_eigenspaces_tpu_torch.algo.online import (
+    OnlineState,
+    update_state,
+    update_state_projector,
+)
+from distributed_eigenspaces_tpu_torch.algo.step import (
+    make_round_core,
+    make_solve_core,
+    make_warm_core,
+    make_warm_solve_core,
+    mean_projector,
+    merge_core,
+    merge_knobs,
+    merge_start,
+)
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
+from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, projector
 
 
-def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
-    """Build ``fit(state, x_steps) -> (state, v_bars)``.
+@dataclasses.dataclass(frozen=True)
+class _Cores:
+    """The step functions every trainer here shares, built once per
+    trainer: the cold and warm rounds (solves plus merge), their
+    solve-only halves, the seeded starts and the state update."""
 
-    ``x_steps`` is a ``(T, m, n, d)`` tensor or a sequence of ``(m, n, d)``
-    blocks; ``v_bars (T, d, k)`` is the merged eigenspace after every step.
+    cfg: PCAConfig
+    dev: torch.device
+    v_cold: torch.Tensor  # (d, k) cold start of every cold solve
+    v_merge: torch.Tensor | None  # (d, k') crossover-merge start, or None
+    round_core: Callable
+    warm_core: Callable | None  # None without warm starts
+    solve_cold: Callable
+    solve_warm: Callable | None  # None without warm starts
+
+    def place(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.dev)
+
+    def update(self, st: OnlineState, v_bar: torch.Tensor) -> OnlineState:
+        return update_state(st, v_bar, discount=self.cfg.discount,
+                            num_steps=self.cfg.num_steps)
+
+
+def _cores(cfg: PCAConfig, device, v0, v_init) -> _Cores:
+    dev = resolve_device(device)
+    v_merge = merge_start(cfg, device=dev, v_init=v_init)
+    return _Cores(
+        cfg=cfg,
+        dev=dev,
+        v_cold=initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0),
+        v_merge=v_merge,
+        round_core=make_round_core(cfg, v_init=v_merge),
+        warm_core=make_warm_core(cfg, v_init=v_merge),
+        solve_cold=make_solve_core(cfg),
+        solve_warm=make_warm_solve_core(cfg),
+    )
+
+
+def _live(vp: torch.Tensor) -> bool:
+    """Whether the warm carry holds a basis (any nonzero entry): the
+    reference's on-device ``jnp.any(vp != 0)``, read on the host."""
+    return bool(torch.any(vp != 0))
+
+
+def _merge_or_fold_factory(cfg: PCAConfig, cores: _Cores):
+    """The merge-interval round fold shared by every interval-aware body
+    (unmasked and masked scan, pipelined scan, segmented):
+    ``fold_round(st, vs, vp, mask=None) -> (st, v_new, merge_now)``. On
+    merge rounds (``st.step % s == 0``: 1-based steps 1, s+1, 2s+1, ...)
+    the factors run the merge and the merged projector is folded; between
+    merges the masked mean of the worker projectors is folded at the same
+    weight and ``v_new`` is the carried basis. ``mask`` is this round's
+    mask: a worker drop takes effect in this round's fold and at the next
+    merge."""
+    k, s = cfg.k, cfg.merge_interval
+    knobs = merge_knobs(cfg)
+
+    def fold_round(st, vs, vp, mask=None):
+        merge_now = st.step % s == 0
+        if merge_now:
+            v_new = merge_core(vs, k, mask=mask, v_init=cores.v_merge, **knobs)
+            p = projector(v_new)
+        else:
+            v_new, p = vp, mean_projector(vs, mask)
+        st = update_state_projector(
+            st, p, discount=cfg.discount, num_steps=cfg.num_steps
+        )
+        return st, v_new, merge_now
+
+    return fold_round
+
+
+def _masked_body_factory(cfg: PCAConfig, cores: _Cores):
+    """The masked step body shared by the masked scan and the segmented
+    trainer: ``body((st, vp), x, mask_row) -> ((st, vp), v_out)``, with
+    ``mask_row`` a host ``(m,)`` array. It runs cold until the carry holds
+    a basis and warm after, so a killed-and-resumed masked run is the
+    unkilled one and an all-masked first round recovers instead of
+    freezing a zero basis (zeros are a fixed point of the warm solver).
+    Every round folds its merge result (zeros on an all-masked round); the
+    warm carry keeps the last live basis, liveness read from the mask row.
+
+    With ``cfg.merge_interval > 1`` every round solves (cold until a live
+    merge has seeded the carry, warm after), then the shared merge-or-fold
+    runs with this round's mask, and the warm carry advances only on live
+    merge rounds."""
+    warm = cores.warm_core is not None
+
+    def mask_of(row):
+        return torch.as_tensor(np.asarray(row, np.float32)).to(cores.dev)
+
+    if cfg.merge_interval == 1:
+
+        def body(carry, x, row):
+            st, vp = carry
+            mk = mask_of(row)
+            if warm and _live(vp):
+                v_bar = cores.warm_core(x, v0=vp, mask=mk)
+            else:
+                v_bar = cores.round_core(x, v0=cores.v_cold, mask=mk)
+            vp_next = v_bar if bool(np.any(np.asarray(row))) else vp
+            return (cores.update(st, v_bar), vp_next), v_bar
+
+        return body
+
+    fold_round = _merge_or_fold_factory(cfg, cores)
+
+    def body(carry, x, row):
+        st, vp = carry
+        if warm and _live(vp):
+            vs = cores.solve_warm(x, vp)
+        else:
+            vs = cores.solve_cold(x, cores.v_cold)
+        st, v_new, merge_now = fold_round(st, vs, vp, mask=mask_of(row))
+        vp_next = v_new if merge_now and bool(np.any(np.asarray(row))) else vp
+        return (st, vp_next), v_new
+
+    return body
+
+
+def make_masked_step_body(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
+    """The masked per-step body (:func:`_masked_body_factory`) for trainers
+    outside this module, built from ``cfg`` with the cold start ``v0`` and
+    the crossover-merge start ``v_init``; its carry is ``(OnlineState,
+    v_prev (d, k))``, zeros before any live round."""
+    return _masked_body_factory(cfg, _cores(cfg, device, v0, v_init))
+
+
+def _zeros_carry(cfg: PCAConfig, dev) -> torch.Tensor:
+    return torch.zeros((cfg.dim, cfg.k), dtype=torch.float32, device=dev)
+
+
+def _steps_of(x_steps, idx=None) -> list:
+    """The schedule's blocks, in order: each step of ``x_steps`` (a stacked
+    tensor or any iterable of blocks), or ``x_steps[idx[t]]`` under a
+    gather schedule."""
+    if idx is None:
+        return list(x_steps)
+    return [x_steps[int(i)] for i in np.asarray(torch.as_tensor(idx).cpu())]
+
+
+def _schedule(x_steps, idx=None) -> list:
+    """:func:`_steps_of`, refusing an empty schedule."""
+    steps = _steps_of(x_steps, idx)
+    if not steps:
+        raise ValueError("make_scan_fit: the schedule holds no step")
+    return steps
+
+
+def _make_interval_fit(cfg: PCAConfig, cores: _Cores):
+    """Unmasked whole fit for ``cfg.merge_interval > 1`` (pipeline off):
+    every round solves (warm from the carried last-merged basis once one
+    exists) and the merged eigensolve runs only on merge rounds.
+    ``v_bars[t]`` is the merged basis as of step ``t + 1`` (the carry on
+    fold rounds). With warm starts, step 1 runs cold and always merges
+    (it seeds the carry); without, every step is cold and step 1 merges
+    because ``st.step % s == 0`` at ``st.step = 0``."""
+    fold_round = _merge_or_fold_factory(cfg, cores)
+    warm = cores.solve_warm is not None
+    knobs = merge_knobs(cfg)
+
+    def run(state, blocks):
+        out = []
+        if warm:
+            first = cores.place(blocks[0])
+            vp = merge_core(cores.solve_cold(first, cores.v_cold), cfg.k,
+                            v_init=cores.v_merge, **knobs)
+            state = cores.update(state, vp)
+            out.append(vp)
+            blocks = blocks[1:]
+        else:
+            vp = _zeros_carry(cfg, cores.dev)
+        for x in blocks:
+            x = cores.place(x)
+            vs = cores.solve_warm(x, vp) if warm else cores.solve_cold(x, cores.v_cold)
+            state, vp, _ = fold_round(state, vs, vp)
+            out.append(vp)
+        return state, out
+
+    return run
+
+
+def _make_pipelined_fit(cfg: PCAConfig, cores: _Cores):
+    """The pipelined steady state (``cfg.pipeline_merge``): each round runs
+    the merge-or-fold of step ``t - 1``'s pending factors and step ``t``'s
+    warm solves from the one-step-stale merged basis (merges through step
+    ``t - 2``). Step 1 runs cold and merges unpipelined (it seeds the
+    carry); step 2's solves use step 1's fresh merge; steps >= 3 are
+    pipelined; an epilogue merges or folds the last pending round.
+    Composes with ``merge_interval`` (the pending fold goes through
+    :func:`_merge_or_fold_factory`). The reference puts both halves of a
+    round in one program so XLA may overlap them; eagerly they run in
+    turn, with the same numbers."""
+    fold_round = _merge_or_fold_factory(cfg, cores)
+    knobs = merge_knobs(cfg)
+
+    def run(state, blocks):
+        T = len(blocks)
+        v1 = merge_core(cores.solve_cold(cores.place(blocks[0]), cores.v_cold),
+                        cfg.k, v_init=cores.v_merge, **knobs)
+        state = cores.update(state, v1)
+        out = [v1]
+        if T == 1:
+            return state, out
+        vs_p = cores.solve_warm(cores.place(blocks[1]), v1)
+        vp = v1
+        for x in blocks[2:]:
+            # this round's solves read the stale carry vp, not the
+            # pending round's merge
+            vs = cores.solve_warm(cores.place(x), vp)
+            state, vp, _ = fold_round(state, vs_p, vp)
+            vs_p = vs
+            out.append(vp)
+        state, v_last, _ = fold_round(state, vs_p, vp)
+        out.append(v_last)
+        return state, out
+
+    return run
+
+
+def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None,
+                  gather: bool = False, masked: bool = False):
+    """Build the whole-fit trainer.
+
+    ``gather=False``: ``fit(state, x_steps) -> (state, v_bars)``, with
+    ``x_steps`` a ``(T, m, n, d)`` tensor or a sequence of ``(m, n, d)``
+    blocks and ``v_bars (T, d, k)`` the merged eigenspace after every step.
+    ``gather=True``: ``fit(state, blocks, idx)``, each step taking
+    ``blocks[idx[t]]`` of ``B`` distinct blocks (the cycled-blocks schedule
+    without materializing it).
+
     Step 1 runs the cold core at ``cfg.subspace_iters`` from ``v0``
     (default: :func:`~..ops.linalg.initial_basis` from ``cfg.seed``); with
     warm starts on, every later step starts from the previous ``v_bar`` at
     ``cfg.resolved_warm_start()`` iterations, otherwise every step is cold.
-    Above the crossover (``cfg.uses_distributed_solve()``) every step's
-    merge is the distributed solve from ``v_init (d, k')`` (default: drawn
-    from ``cfg.seed``).
+    Above the crossover (``cfg.uses_distributed_solve()``) every merge is
+    the distributed solve from ``v_init (d, k')`` (default: drawn from
+    ``cfg.seed``).
+
+    ``masked=True`` builds the §5.3 variant instead: ``fit(state, x_steps,
+    masks, membership_masks=None) -> (state, v_bars)`` with ``masks`` a
+    ``(T, m)`` {0, 1} array (times ``membership_masks`` when given), each
+    step through :func:`_masked_body_factory`, equal to the per-step masked
+    loop. ``gather`` is not offered masked.
+
+    ``cfg.merge_interval = s > 1`` runs the merged eigensolve every s
+    steps and folds the mean worker projector between
+    (:func:`_make_interval_fit`); ``cfg.pipeline_merge`` overlaps step
+    ``t - 1``'s merge or fold with step ``t``'s warm solves from a
+    one-step-stale basis (:func:`_make_pipelined_fit`). Masked fits honour
+    ``merge_interval`` and run unpipelined.
     """
-    step = make_train_step(cfg, device=device, v0=v0, v_init=v_init)
+    if masked and gather:
+        raise ValueError("masked scan fits take a dense (T, ...) stack")
+    cores = _cores(cfg, device, v0, v_init)
+
+    if masked:
+        body = _masked_body_factory(cfg, cores)
+
+        def fit_masked(state, x_steps, masks, membership_masks=None):
+            masks = np.asarray(
+                torch.as_tensor(masks).cpu() if isinstance(masks, torch.Tensor)
+                else masks, np.float32)
+            if membership_masks is not None:
+                masks = masks * np.asarray(membership_masks, np.float32)
+            blocks = _schedule(x_steps)
+            if masks.shape != (len(blocks), cfg.num_workers):
+                raise ValueError(
+                    f"masks shape {masks.shape} != (T={len(blocks)}, "
+                    f"num_workers={cfg.num_workers})"
+                )
+            carry, out = (state, _zeros_carry(cfg, cores.dev)), []
+            for x, row in zip(blocks, masks):
+                carry, v = body(carry, cores.place(x), row)
+                out.append(v)
+            return carry[0], torch.stack(out)
+
+        return fit_masked
+
+    if cfg.pipeline_merge:
+        run = _make_pipelined_fit(cfg, cores)
+    elif cfg.merge_interval > 1:
+        run = _make_interval_fit(cfg, cores)
+    else:
+        warm = cores.warm_core is not None
+
+        def run(state, blocks):
+            out, vp = [], None
+            for x in blocks:
+                x = cores.place(x)
+                vp = (cores.warm_core(x, v0=vp) if warm and vp is not None
+                      else cores.round_core(x, v0=cores.v_cold))
+                state = cores.update(state, vp)
+                out.append(vp)
+            return state, out
+
+    if gather:
+
+        def fit_gather(state, blocks, idx):
+            state, out = run(state, _schedule(blocks, idx))
+            return state, torch.stack(out)
+
+        return fit_gather
 
     def fit(state: OnlineState, x_steps):
-        v_bars = []
-        v_prev = None
-        for x in x_steps:
-            state, v_prev = step(state, x, v_prev)
-            v_bars.append(v_prev)
-        if not v_bars:
-            raise ValueError("make_scan_fit: x_steps holds no step")
-        return state, torch.stack(v_bars)
+        state, out = run(state, _schedule(x_steps))
+        return state, torch.stack(out)
 
+    return fit
+
+
+class SegmentState(NamedTuple):
+    """Checkpointable carry of the segmented trainer: the online state and
+    the warm-start carry (the last merged estimate), so a resumed run
+    continues bit for bit. ``step`` is the 1-based count of rounds folded
+    in, a host int."""
+
+    sigma_tilde: torch.Tensor
+    step: int
+    v_prev: torch.Tensor  # (d, k) last merged estimate; zeros before step 1
+
+    @classmethod
+    def initial(cls, dim: int, k: int, dtype="float32", *,
+                device="cuda") -> "SegmentState":
+        dev = resolve_device(device)
+        return cls(
+            sigma_tilde=torch.zeros((dim, dim), dtype=torch_dtype(dtype), device=dev),
+            step=0,
+            v_prev=torch.zeros((dim, k), dtype=torch.float32, device=dev),
+        )
+
+
+def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, device="cuda",
+                       v0=None, v_init=None):
+    """Checkpointable whole-fit trainer: ``fit(state, x_steps,
+    on_segment=None) -> SegmentState`` runs the T steps as windows of
+    ``segment`` steps, calling ``on_segment(steps_done, state)`` on the
+    host between windows (checkpoints, metrics).
+
+    The steps are those of :func:`make_scan_fit` on the same workload: with
+    warm starts the cold first step runs only when the run starts (step 0,
+    or a zero carry), and the warm carry crosses window and checkpoint
+    boundaries in ``state.v_prev``, so a killed-and-resumed run is the
+    unkilled run bit for bit. ``cfg.merge_interval > 1`` is resume-safe:
+    the merge phase follows the step counter, which every checkpoint
+    holds. ``cfg.pipeline_merge`` is refused: the pipelined carry's
+    pending factors are no part of ``SegmentState``.
+
+    ``fit.fit_windows(state, windows, on_segment=None, worker_masks=None)``
+    consumes an iterator of ``(S, m, n, d)`` windows instead (the
+    out-of-core route: wrap the source in
+    :func:`~..runtime.prefetch.prefetch_stream` to read and move window
+    t + 1 while window t runs); ``worker_masks``, an iterable of ``(S, m)``
+    {0, 1} arrays zipped strictly with the windows, runs the masked body
+    (:func:`_masked_body_factory`) on every window.
+    """
+    if segment < 1:
+        raise ValueError(f"segment must be >= 1, got {segment}")
+    if cfg.pipeline_merge:
+        raise ValueError(
+            "pipeline_merge is not supported by the segmented trainer: "
+            "the pending-factor carry is not checkpointable state, so "
+            "kill/resume could not be bit-for-bit (use make_scan_fit, "
+            "or merge_interval without pipelining)"
+        )
+    cores = _cores(cfg, device, v0, v_init)
+    warm = cores.warm_core is not None
+    s_int = cfg.merge_interval
+    fold_round = _merge_or_fold_factory(cfg, cores) if s_int > 1 else None
+    masked_body = _masked_body_factory(cfg, cores)
+
+    def body(st, vp, x):
+        if s_int > 1:
+            vs = cores.solve_warm(x, vp) if warm else cores.solve_cold(x, cores.v_cold)
+            st, vp, _ = fold_round(st, vs, vp)
+            return st, vp
+        v = (cores.warm_core(x, v0=vp) if warm
+             else cores.round_core(x, v0=cores.v_cold))
+        return cores.update(st, v), v
+
+    def seg(sstate: SegmentState, window, first: bool) -> SegmentState:
+        st, vp = OnlineState(sstate.sigma_tilde, sstate.step), sstate.v_prev
+        blocks = _steps_of(window)
+        if warm and first and blocks:
+            # the cold first step at the full iteration count
+            vp = cores.round_core(cores.place(blocks[0]), v0=cores.v_cold)
+            st = cores.update(st, vp)
+            blocks = blocks[1:]
+        for x in blocks:
+            st, vp = body(st, vp, cores.place(x))
+        return SegmentState(st.sigma_tilde, st.step, vp)
+
+    def seg_masked(sstate: SegmentState, window, masks) -> SegmentState:
+        carry = (OnlineState(sstate.sigma_tilde, sstate.step), sstate.v_prev)
+        blocks = _steps_of(window)
+        masks = np.asarray(masks, np.float32)
+        if masks.shape != (len(blocks), cfg.num_workers):
+            raise ValueError(
+                f"mask window shape {masks.shape} != (S={len(blocks)}, "
+                f"num_workers={cfg.num_workers})"
+            )
+        for x, row in zip(blocks, masks):
+            carry, _ = masked_body(carry, cores.place(x), row)
+        st, vp = carry
+        return SegmentState(st.sigma_tilde, st.step, vp)
+
+    def fit_windows(state: SegmentState, windows, on_segment=None,
+                    worker_masks=None) -> SegmentState:
+        # a zero carry must run cold too: zeros are a fixed point of the
+        # warm solver, so warm-starting a restored state that lacks v_prev
+        # would discard every later step. Read once, up front: after the
+        # first window the step is > 0 and the carry nonzero.
+        first = warm and (int(state.step) == 0 or not _live(state.v_prev))
+        pairs = (
+            ((w, None) for w in windows) if worker_masks is None
+            else zip(windows, worker_masks, strict=True)
+        )
+        for w, mk in pairs:
+            state = seg(state, w, first) if mk is None else seg_masked(state, w, mk)
+            first = False
+            if on_segment is not None:
+                on_segment(int(state.step), state)
+        return state
+
+    def fit(state: SegmentState, x_steps, on_segment=None) -> SegmentState:
+        total = len(x_steps)
+        return fit_windows(
+            state,
+            (x_steps[t:t + segment] for t in range(0, total, segment)),
+            on_segment,
+        )
+
+    fit.segment = segment
+    fit.fit_windows = fit_windows
     return fit

@@ -17,6 +17,7 @@ from torch.profiler import record_function
 from distributed_eigenspaces_tpu_torch.algo.online import (
     OnlineState,
     update_state,
+    update_state_projector,
 )
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device
@@ -52,6 +53,25 @@ def make_solve_core(
     return solve_core
 
 
+def make_warm_solve_core(cfg: PCAConfig):
+    """The warm-round solves (short iteration count, warm
+    orthonormalization) without the merge, or None when warm starts are
+    off: the solve-only twin of :func:`make_warm_core`."""
+    warm_iters = cfg.resolved_warm_start()
+    if warm_iters is None:
+        return None
+    return make_solve_core(cfg, iters=warm_iters, orth=cfg.resolved_warm_orth())
+
+
+def merge_knobs(cfg: PCAConfig) -> dict:
+    """The crossover-merge arguments of :func:`merge_core` for ``cfg``:
+    ``dist_iters`` and ``dist_tol`` set when ``cfg.uses_distributed_solve()``,
+    both None below the crossover (the exact low-rank merge)."""
+    dist_iters = cfg.subspace_iters if cfg.uses_distributed_solve() else None
+    return {"dist_iters": dist_iters,
+            "dist_tol": cfg.solver_tol if dist_iters is not None else None}
+
+
 def merge_core(vs: torch.Tensor, k: int, mask=None, dist_iters=None,
                dist_tol=None, v_init=None) -> torch.Tensor:
     """Masked top-k of the mean of the workers' projectors (the flat
@@ -84,8 +104,9 @@ def mean_projector(vs: torch.Tensor, mask=None) -> torch.Tensor:
     projectors (zeros when every worker is masked)."""
     if mask is None:
         mask = torch.ones((vs.shape[0],), dtype=torch.float32, device=vs.device)
-    psum, cnt = _masked_projector_mean(vs, mask)
-    return psum / torch.clamp(cnt, min=1.0)
+    with record_function("det_mean_projector"):
+        psum, cnt = _masked_projector_mean(vs, mask)
+        return psum / torch.clamp(cnt, min=1.0)
 
 
 def make_round_core(
@@ -99,14 +120,11 @@ def make_round_core(
     from ``v_init`` (see :func:`merge_start`)."""
     solve_core = make_solve_core(cfg, iters=iters, orth=orth)
     k = cfg.k
-    dist_iters = cfg.subspace_iters if cfg.uses_distributed_solve() else None
-    dist_tol = cfg.solver_tol if dist_iters is not None else None
+    knobs = merge_knobs(cfg)
 
     def round_core(x_blocks, v0=None, mask=None):
-        return merge_core(
-            solve_core(x_blocks, v0), k, mask=mask, dist_iters=dist_iters,
-            dist_tol=dist_tol, v_init=v_init,
-        )
+        return merge_core(solve_core(x_blocks, v0), k, mask=mask,
+                          v_init=v_init, **knobs)
 
     return round_core
 
@@ -123,7 +141,8 @@ def make_warm_core(cfg: PCAConfig, v_init=None):
 
 
 def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
-    """Build ``step(state, x_blocks, v_prev=None) -> (state, v_bar)``.
+    """Build ``step(state, x_blocks, v_prev=None, merge=True) ->
+    (state, v_bar)``.
 
     Without ``v_prev`` (or without warm starts in ``cfg``) the step runs the
     cold core at ``cfg.subspace_iters`` from the cold start ``v0 (d, k)``
@@ -131,12 +150,22 @@ def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
     ``v_prev``, the previous round's merged basis, it runs the warm core.
     Above the crossover every merge starts from ``v_init (d, k')`` (default:
     :func:`merge_start` from ``cfg.seed``).
+
+    With ``cfg.merge_interval > 1``, ``merge=False`` is the fold-only step
+    of the rounds between merges: the same solves, then the mean of the
+    worker projectors folded at the step's weight, and no merged
+    eigensolve at all; it returns ``(state, v_prev)`` (a fold round makes
+    no merged basis). Callers schedule the phase (``merge = (t - 1) % s ==
+    0`` at 1-based step ``t``).
     """
     dev = resolve_device(device)
     v_merge = merge_start(cfg, device=dev, v_init=v_init)
     round_core = make_round_core(cfg, v_init=v_merge)
     warm_core = make_warm_core(cfg, v_init=v_merge)
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
+    s_int = cfg.merge_interval
+    solve_cold = make_solve_core(cfg) if s_int > 1 else None
+    solve_warm = make_warm_solve_core(cfg) if s_int > 1 else None
 
     def fold(state, v_bar):
         return (
@@ -146,8 +175,23 @@ def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
             v_bar,
         )
 
-    def step(state: OnlineState, x_blocks, v_prev=None):
+    def fold_p(state, p):
+        return update_state_projector(
+            state, p, discount=cfg.discount, num_steps=cfg.num_steps
+        )
+
+    def step(state: OnlineState, x_blocks, v_prev=None, merge=True):
         x = torch.as_tensor(x_blocks).to(dev)
+        if not merge:
+            if s_int == 1:
+                raise ValueError(
+                    "step(merge=False) needs cfg.merge_interval > 1 "
+                    "(the fold-only steps are built from the interval "
+                    "config)"
+                )
+            if solve_warm is not None and v_prev is not None:
+                return fold_p(state, mean_projector(solve_warm(x, v_prev))), v_prev
+            return fold_p(state, mean_projector(solve_cold(x, v_cold))), v_prev
         if warm_core is not None and v_prev is not None:
             return fold(state, warm_core(x, v0=v_prev))
         return fold(state, round_core(x, v0=v_cold))

@@ -1,16 +1,16 @@
 """sklearn-style estimator over the port's trainers.
 
 Counterpart of ``OnlineDistributedPCA`` in ``distributed_eigenspaces_tpu/
-api/estimator.py``, with the two trainers this port has: the whole-fit
-scan (``fit`` by default) and the per-step loop (``fit_stream``, or
-``fit`` with per-step hooks). The reference's segmented, sketch, fleet
-and feature-sharded trainers, masked whole fits and checkpointing are
-not ported yet (ROADMAP.md Queue 1 items 9c, 9e, 9f and 15). ``fit``
-resolves its trainer with the reference's rule (:func:`choose_trainer`);
-where that rule picks a trainer the port lacks (the segmented fit above
-``SCAN_STAGE_BYTES_MAX`` of staged schedule, the feature-sharded ones),
-the estimator raises before staging anything, instead of fitting under
-another trainer's name.
+api/estimator.py`` with the dense trainers of one device: the whole-fit
+scan, its segmented and checkpointable twin (``checkpoint_dir``, or a
+staged schedule over ``SCAN_STAGE_BYTES_MAX``), the masked whole fits of
+both (``worker_masks`` as a ``(T, m)`` sequence), and the per-step loop
+(``fit_stream``, per-step hooks, mask generators). ``fit`` resolves its
+trainer with the reference's rule (:func:`choose_trainer`) and raises the
+reference's ``ValueError``s for combinations it refuses. Where the rule
+picks a trainer the port lacks (the feature-sharded ones, ROADMAP.md Queue
+1 item 15), the estimator raises before staging anything, instead of
+fitting under another trainer's name.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ from distributed_eigenspaces_tpu_torch.algo.online import (
     online_distributed_pca,
 )
 from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
-from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
+from distributed_eigenspaces_tpu_torch.api.runner import extract_dense, make_whole_fit
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
+from distributed_eigenspaces_tpu_torch.data.bin_stream import window_stream
 from distributed_eigenspaces_tpu_torch.data.stream import (
     block_stream,
     count_steps,
@@ -33,8 +34,10 @@ from distributed_eigenspaces_tpu_torch.data.stream import (
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis
 from distributed_eigenspaces_tpu_torch.ops.serve_project import project_exact
+from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
+from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
 
-TRAINERS = ("auto", "scan", "step")
+TRAINERS = ("auto", "scan", "step", "segmented")
 
 #: d*k above which the reference's ``backend="auto"`` whole fit takes the
 #: feature-sharded sketch trainer (its ``SKETCH_DK_CROSSOVER``)
@@ -69,40 +72,89 @@ def _refuse_feature_sharded(cfg: PCAConfig, *, whole_fit: bool) -> None:
         )
 
 
+def _step_bytes(cfg: PCAConfig) -> int:
+    """Bytes of one staged ``(m, n, d)`` step in the resolved stage dtype."""
+    itemsize = torch_dtype(cfg.resolved_stage_dtype()).itemsize
+    return cfg.num_workers * cfg.rows_per_worker * cfg.dim * itemsize
+
+
 def staged_bytes(cfg: PCAConfig) -> int:
     """Bytes of the whole fit's staged ``(T, m, n, d)`` schedule in the
     resolved stage dtype, as the reference counts them."""
-    itemsize = torch_dtype(cfg.resolved_stage_dtype()).itemsize
-    return (cfg.num_steps * cfg.num_workers * cfg.rows_per_worker * cfg.dim
-            * itemsize)
+    return cfg.num_steps * _step_bytes(cfg)
 
 
-def choose_trainer(cfg: PCAConfig, *, per_step_hooks: bool = False) -> str:
-    """The reference's trainer for a whole-dataset ``fit``
-    (``choose_trainer`` without checkpointing, which the port lacks):
-    ``"step"`` for per-step hooks; for the feature-sharded backend
-    ``"sketch"`` from ``dim * k >= SKETCH_DK_CROSSOVER`` on, else its
-    ``"scan"``; for the dense state ``"segmented"`` when the staged
+def choose_trainer(cfg: PCAConfig, *, per_step_hooks: bool = False,
+                   checkpointing: bool = False) -> str:
+    """The reference's trainer for a whole-dataset ``fit``: ``"step"`` for
+    per-step hooks; for the feature-sharded backend ``"sketch"`` from
+    ``dim * k >= SKETCH_DK_CROSSOVER`` on, else its ``"scan"``; for the
+    dense state ``"segmented"`` when checkpointing or when the staged
     schedule exceeds ``SCAN_STAGE_BYTES_MAX``, else ``"scan"``."""
     if per_step_hooks:
         return "step"
     if resolves_feature_sharded(cfg):
         return "sketch" if cfg.dim * cfg.k >= SKETCH_DK_CROSSOVER else "scan"
-    return "segmented" if staged_bytes(cfg) > SCAN_STAGE_BYTES_MAX else "scan"
+    if checkpointing or staged_bytes(cfg) > SCAN_STAGE_BYTES_MAX:
+        return "segmented"
+    return "scan"
 
 
-def _refuse_segmented(cfg: PCAConfig) -> None:
-    staged = staged_bytes(cfg)
-    if staged > SCAN_STAGE_BYTES_MAX:
-        raise NotImplementedError(
-            f"the whole fit stages {staged} bytes (T={cfg.num_steps}, "
-            f"m={cfg.num_workers}, n={cfg.rows_per_worker}, d={cfg.dim}, "
-            f"{cfg.resolved_stage_dtype()}), over SCAN_STAGE_BYTES_MAX = "
-            f"{SCAN_STAGE_BYTES_MAX}: the reference runs such fits on its "
-            "segmented trainer, which is not ported to "
-            "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item "
-            "9e); use trainer='step', or fewer steps per fit"
+def _budget_steps(cfg: PCAConfig) -> int:
+    """The most schedule steps the staging budget allows on the device
+    (``SCAN_STAGE_BYTES_MAX // step_bytes``, at least 1): the segmented
+    fit's window clamp."""
+    return max(1, SCAN_STAGE_BYTES_MAX // max(_step_bytes(cfg), 1))
+
+
+def _validated_masks(worker_masks, num_workers: int) -> np.ndarray:
+    """Shape-check a ``(T, m)`` worker-mask sequence (every masked
+    whole-fit route)."""
+    if isinstance(worker_masks, torch.Tensor):
+        worker_masks = worker_masks.detach().cpu().numpy()
+    worker_masks = np.asarray(worker_masks, np.float32)
+    if worker_masks.ndim != 2 or worker_masks.shape[1] != num_workers:
+        raise ValueError(
+            f"worker_masks shape {worker_masks.shape} != "
+            f"(T, num_workers={num_workers})"
         )
+    return worker_masks
+
+
+def _masks_for(worker_masks: np.ndarray, t: int) -> np.ndarray:
+    """The first ``t`` mask rows; raises when the supply is short (a step
+    silently left unmasked is the fault this guards)."""
+    if len(worker_masks) < t:
+        raise ValueError(
+            f"worker_masks covers {len(worker_masks)} steps; the "
+            f"schedule runs {t} — every step needs its mask row"
+        )
+    return worker_masks[:t]
+
+
+def _lockstep_mask_windows(windows, take_rows):
+    """Mask windows shaped by the data windows: the schedule's step count
+    belongs to the data. ``fit_windows``'s strict zip pulls a data window
+    first, so its size is known when the mask side is pulled (under
+    prefetch the data side only runs further ahead). ``take_rows(start,
+    size)`` returns the ``(size, m)`` rows of steps ``[start, start +
+    size)``. Returns the tapped window iterator and the mask iterator."""
+    sizes: list[int] = []
+
+    def tapped():
+        for w in windows:
+            sizes.append(int(w.shape[0]))
+            yield w
+
+    def masks():
+        idx = taken = 0
+        while idx < len(sizes):  # grows while iterating
+            s = sizes[idx]
+            idx += 1
+            yield take_rows(taken, s)
+            taken += s
+
+    return tapped(), masks()
 
 
 class OnlineDistributedPCA:
@@ -118,20 +170,27 @@ class OnlineDistributedPCA:
     (default: drawn from ``cfg.seed``); ``v_init`` the ``(d, k')`` start of
     the crossover merge (``solver="distributed"`` above
     ``eigh_crossover_d``; default: drawn from ``cfg.seed``).
+    ``checkpoint_dir`` makes ``fit`` take the segmented trainer and commit
+    a checkpoint (``utils.checkpoint.Checkpointer``, the two newest kept)
+    after every window of ``segment`` steps.
     """
 
     def __init__(self, cfg: PCAConfig, *, device="cuda", trainer: str = "auto",
-                 v0=None, v_init=None):
+                 v0=None, v_init=None, checkpoint_dir: str | None = None,
+                 segment: int = 50):
         if trainer not in TRAINERS:
             raise ValueError(f"unknown trainer {trainer!r}; one of {TRAINERS}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.trainer = trainer
+        self.checkpoint_dir = checkpoint_dir
+        self.segment = segment
         self.v0 = initial_basis(
             cfg.dim, cfg.k, seed=cfg.seed, device=self.device, v0=v0
         )
         self.v_init = v_init
         self.state: OnlineState | None = None
+        #: the trainer the last ``fit`` ran
         self.trainer_used_: str | None = None
         self._w: torch.Tensor | None = None
 
@@ -139,26 +198,73 @@ class OnlineDistributedPCA:
 
     def fit(self, data, *, on_step=None, worker_masks=None) -> "OnlineDistributedPCA":
         """Fit on ``(N, dim)`` data, streamed as ``num_steps`` blocks of
-        ``num_workers x rows_per_worker`` rows. Starts fresh. Runs the
-        whole-fit scan trainer unless per-step hooks (``on_step``,
-        ``worker_masks``) or ``trainer="step"`` ask for the per-step loop.
-        The scan stages the whole schedule on the device, in one
-        ``(T, m, n, d)`` tensor of the resolved stage dtype filled block by
-        block (int8: each block quantized from fp32 with its own scale); a
-        schedule over ``SCAN_STAGE_BYTES_MAX`` raises (the reference's
-        segmented fit)."""
+        ``num_workers x rows_per_worker`` rows. Starts fresh.
+
+        The trainer is :func:`choose_trainer`'s unless the constructor
+        named one: the whole-fit scan, which stages the schedule on the
+        device in one ``(T, m, n, d)`` tensor of the resolved stage dtype
+        (int8: each block quantized with its own scale); the segmented fit
+        when checkpointing or above ``SCAN_STAGE_BYTES_MAX``, which stages
+        windows of ``segment`` steps one at a time; or, for ``on_step``
+        hooks, the per-step loop. ``worker_masks`` as a ``(T, m)`` sequence
+        (array, tensor, list, tuple) runs the masked whole fit on the scan
+        and segmented routes; a mask generator keeps the per-step loop,
+        one ``next()`` a round."""
         self.state = None
         self._w = None
         cfg = self.cfg
         trainer = self.trainer
-        hooks = on_step is not None or worker_masks is not None
+        ckpt = self.checkpoint_dir is not None
+        if cfg.pipeline_merge and ckpt:
+            raise ValueError(
+                "pipeline_merge fits cannot checkpoint: the pipelined "
+                "carry (pending worker factors) is not part of any saved "
+                "state, so kill/resume could not be bit-for-bit. Drop "
+                "checkpoint_dir, or use merge_interval alone (resume-"
+                "safe: the merge phase derives from the step counter)."
+            )
+        # a mask sequence rides the masked whole fit; a mask generator
+        # keeps the per-step loop (one next() a round, its length unknown)
+        masks_seq = (
+            worker_masks is not None and on_step is None
+            and isinstance(worker_masks, (np.ndarray, torch.Tensor, list, tuple))
+        )
         if trainer == "auto":
-            trainer = choose_trainer(cfg, per_step_hooks=hooks)
-        elif trainer == "scan" and hooks:
-            raise NotImplementedError(
-                "on_step / worker_masks on the scan trainer (the masked "
-                "whole fit) is not ported yet (ROADMAP.md Queue 1 item 9c); "
-                "use trainer='step'"
+            trainer = choose_trainer(
+                cfg, per_step_hooks=on_step is not None or (
+                    worker_masks is not None and not masks_seq),
+                checkpointing=ckpt,
+            )
+        elif trainer != "step" and on_step is not None:
+            raise ValueError(
+                f"trainer={trainer!r} runs the whole fit as compiled "
+                "programs — per-step on_step hooks need trainer='step' "
+                "(or 'auto', which picks it for you)"
+            )
+        elif trainer != "step" and worker_masks is not None and not masks_seq:
+            raise ValueError(
+                f"trainer={trainer!r} takes worker_masks as a (T, m) "
+                "sequence (array/list/tuple); use trainer='step' for a "
+                "per-step mask generator"
+            )
+        if ckpt and (trainer == "step" or (
+                trainer == "scan" and not resolves_feature_sharded(cfg))):
+            raise ValueError(
+                f"checkpoint_dir is honored by the whole-fit trainers "
+                f"(segmented / feature-sharded scan / sketch); this fit "
+                f"resolved to trainer={trainer!r}"
+                + (
+                    " because on_step/worker_masks hooks require the "
+                    "per-step trainer. Drop the hooks, or checkpoint "
+                    "from your own on_step hook via "
+                    "utils.checkpoint.Checkpointer"
+                    if trainer == "step" and self.trainer == "auto"
+                    else ". Drop checkpoint_dir, drop the trainer "
+                    "override (trainer='auto' picks a checkpointable "
+                    "one), or checkpoint per-step state yourself via "
+                    "utils.checkpoint in an on_step hook with "
+                    "trainer='step'"
+                )
             )
         if trainer == "step":
             stream = block_stream(
@@ -167,9 +273,34 @@ class OnlineDistributedPCA:
                 remainder=cfg.remainder, dtype=cfg.dtype, device=self.device,
             )
             return self.fit_stream(stream, on_step=on_step, worker_masks=worker_masks)
-        _refuse_feature_sharded(cfg, whole_fit=True)
-        _refuse_segmented(cfg)
-        self.trainer_used_ = "scan"
+        if trainer == "sketch" or trainer == "scan":
+            _refuse_feature_sharded(cfg, whole_fit=True)
+        masks = None
+        if worker_masks is not None:
+            masks = _validated_masks(worker_masks, cfg.num_workers)
+        self.trainer_used_ = trainer
+        if trainer == "segmented":
+            return self._fit_segmented(data, masks)
+        return self._fit_scan(data, masks)
+
+    def _blocks(self, data, stage_dtype):
+        """The schedule's blocks on the device in the stage dtype: an int8
+        stage quantizes each fp32 block with its own scale
+        (``stage_blocks``), a float stage casts it."""
+        cfg = self.cfg
+        return stage_blocks(block_stream(
+            data, num_workers=cfg.num_workers,
+            rows_per_worker=cfg.rows_per_worker, num_steps=cfg.num_steps,
+            remainder=cfg.remainder,
+            dtype=torch.float32 if stage_dtype == torch.int8 else stage_dtype,
+            device=self.device,
+        ), stage_dtype)
+
+    def _fit_scan(self, data, masks) -> "OnlineDistributedPCA":
+        """The whole-fit scan over the schedule staged on the device: one
+        allocation, each block staged into its slot as it arrives, so the
+        device holds the schedule plus one block at most."""
+        cfg = self.cfg
         stage_dtype = torch_dtype(cfg.resolved_stage_dtype())
         step_rows = cfg.num_workers * cfg.rows_per_worker
         steps = count_steps(len(data), step_rows, num_steps=cfg.num_steps,
@@ -179,34 +310,64 @@ class OnlineDistributedPCA:
                 f"dataset yielded zero full steps ({len(data)} rows, one "
                 f"step needs {step_rows})"
             )
-        # one allocation, each block staged into its slot as it arrives:
-        # the device holds the schedule plus one block at most. An int8
-        # stage quantizes each fp32 block with its own scale
-        # (stage_blocks); a float stage casts it.
+        if masks is not None:
+            masks = _masks_for(masks, steps)
         staged = torch.empty(
             (steps, cfg.num_workers, cfg.rows_per_worker, cfg.dim),
             dtype=stage_dtype, device=self.device,
         )
-        blocks = block_stream(
-            data, num_workers=cfg.num_workers,
-            rows_per_worker=cfg.rows_per_worker, num_steps=cfg.num_steps,
-            remainder=cfg.remainder,
-            dtype=torch.float32 if stage_dtype == torch.int8 else stage_dtype,
-            device=self.device,
-        )
         filled = 0
-        for block in stage_blocks(blocks, stage_dtype):
+        for block in self._blocks(data, stage_dtype):
             staged[filled].copy_(block)
             filled += 1
         if filled != steps:
             raise RuntimeError(f"staged {filled} steps, counted {steps}")
-        fit = make_scan_fit(cfg, device=self.device, v0=self.v0, v_init=self.v_init)
-        state, _ = fit(
-            OnlineState.initial(cfg.dim, cfg.state_dtype, device=self.device),
-            staged,
-        )
+        fit = make_scan_fit(cfg, device=self.device, v0=self.v0, v_init=self.v_init,
+                            masked=masks is not None)
+        state0 = OnlineState.initial(cfg.dim, cfg.state_dtype, device=self.device)
+        state, _ = fit(state0, staged) if masks is None else fit(state0, staged, masks)
+        return self._finish_dense(state)
+
+    def _fit_segmented(self, data, masks) -> "OnlineDistributedPCA":
+        """The segmented fit over windows of ``segment`` steps (clamped to
+        the staging budget) staged one at a time, the next window read and
+        staged by a prefetch thread while the current one runs
+        (``cfg.prefetch_depth > 0``), a checkpoint committed after every
+        window when checkpointing; ``masks`` run the masked windows in
+        lockstep with the data windows."""
+        cfg = self.cfg
+        stage_dtype = torch_dtype(cfg.resolved_stage_dtype())
+        seg = max(1, min(self.segment, _budget_steps(cfg)))
+        on_segment = None
+        if self.checkpoint_dir is not None:
+            on_segment = Checkpointer(
+                self.checkpoint_dir, every=1,
+                rows_per_step=cfg.num_workers * cfg.rows_per_worker,
+                device=self.device,
+            ).on_step
+        source = windows = window_stream(self._blocks(data, stage_dtype), seg)
+        if cfg.prefetch_depth > 0:
+            # one window in flight: windows are the big unit here
+            source = windows = prefetch_stream(windows, depth=1, place=lambda w: w)
+        mask_windows = None
+        if masks is not None:
+            windows, mask_windows = _lockstep_mask_windows(
+                windows, lambda start, s: _masks_for(masks, start + s)[start:])
+        handle = make_whole_fit(cfg, "segmented", segment=self.segment,
+                                device=self.device, v0=self.v0, v_init=self.v_init)
+        try:
+            state = handle.fit_windows(handle.init_state(), windows,
+                                       on_segment=on_segment,
+                                       worker_masks=mask_windows)
+        finally:
+            source.close()
+        if int(state.step) == 0:
+            raise ValueError("dataset yielded zero full steps")
+        return self._finish_dense(OnlineState(state.sigma_tilde, state.step))
+
+    def _finish_dense(self, state: OnlineState) -> "OnlineDistributedPCA":
         self.state = state
-        self._w = extract_dense(cfg, state.sigma_tilde, v0=self.v0)
+        self._w = extract_dense(self.cfg, state.sigma_tilde, v0=self.v0)
         return self
 
     def fit_stream(self, stream, *, on_step=None, worker_masks=None,

@@ -1,16 +1,47 @@
-"""Extraction of the final estimate from the running state.
+"""One constructor for the whole-fit trainers, and the final extraction.
 
-Counterpart of ``extract_dense`` in ``distributed_eigenspaces_tpu/api/
-runner.py``. The reference's other whole-fit kinds (segmented, sketch,
-fleet, feature-sharded) are not ported yet (ROADMAP.md Queue 1 item 9f).
+Counterpart of ``distributed_eigenspaces_tpu/api/runner.py``:
+:func:`make_whole_fit` names the program kind and returns a uniform
+:class:`WholeFitHandle`; which kind fits a workload stays with the caller
+(``choose_trainer`` for the estimator)::
+
+    h = make_whole_fit(cfg, kind, segment=..., masked=..., device=...)
+    state = h.init_state()
+    state = h.fit(state, blocks, idx=None, worker_masks=None)
+    state = h.fit_windows(state, windows, on_segment=..., worker_masks=...)
+    w = h.extract(state)          # (d, k), descending, canonical signs
+
+Kinds: ``"scan"`` (the dense whole fit) and ``"segmented"`` (dense,
+windowed and checkpointable). The reference's feature-sharded kinds
+(``"fs_scan"``, ``"sketch"``) are not ported yet (ROADMAP.md Queue 1
+item 15).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Callable
+
 import torch
 
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
+from distributed_eigenspaces_tpu_torch.device import resolve_device
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, merged_top_k
+
+KINDS = ("scan", "segmented", "fs_scan", "sketch")
+
+
+@dataclass(frozen=True)
+class WholeFitHandle:
+    kind: str
+    fit: Callable  # (state, blocks, idx=None, worker_masks=None) -> state
+    init_state: Callable[[], Any]
+    extract: Callable[[Any], torch.Tensor]
+    fit_windows: Callable | None = None
+    #: trainer-specific extras (the segment length) for reports
+    info: dict | None = None
+    #: the underlying trainer, for attributes the handle does not model
+    raw: Any = None
 
 
 def extract_dense(cfg: PCAConfig, sigma_tilde: torch.Tensor, v0=None) -> torch.Tensor:
@@ -26,4 +57,87 @@ def extract_dense(cfg: PCAConfig, sigma_tilde: torch.Tensor, v0=None) -> torch.T
         v0=initial_basis(
             cfg.dim, cfg.k, seed=cfg.seed, device=sigma_tilde.device, v0=v0
         ),
+    )
+
+
+def make_whole_fit(
+    cfg: PCAConfig,
+    kind: str,
+    *,
+    segment: int = 50,
+    gather: bool = False,
+    masked: bool = False,
+    device="cuda",
+    v0=None,
+    v_init=None,
+) -> WholeFitHandle:
+    """Build the ``kind`` whole-fit trainer as a uniform handle, on
+    ``device``, with the cold start ``v0 (d, k)`` of every subspace solve
+    and of the extraction and the crossover-merge start ``v_init`` (both
+    drawn from ``cfg.seed`` by default). ``gather`` / ``masked`` select
+    the dense scan's gather and §5.3 variants (``algo/scan.py``); a masked
+    segmented fit runs through ``fit_windows(worker_masks=...)``."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown whole-fit kind {kind!r}; one of {KINDS}")
+    if kind in ("fs_scan", "sketch"):
+        raise NotImplementedError(
+            f"whole-fit kind {kind!r} is the reference's feature-sharded "
+            "trainer, not ported to distributed_eigenspaces_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 15)"
+        )
+    dev = resolve_device(device)
+    v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
+
+    def extract(st):
+        return extract_dense(cfg, st.sigma_tilde, v0=v_cold)
+
+    if kind == "scan":
+        from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+        from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
+
+        f = make_scan_fit(cfg, device=dev, v0=v_cold, v_init=v_init,
+                          gather=gather, masked=masked)
+
+        def fit(state, blocks, idx=None, worker_masks=None):
+            if masked:
+                if worker_masks is None:
+                    raise ValueError("masked scan fit needs worker_masks")
+                return f(state, blocks, worker_masks)[0]
+            if worker_masks is not None:
+                raise ValueError(
+                    "unmasked scan handle got worker_masks; build with "
+                    "masked=True"
+                )
+            if gather:
+                return f(state, blocks, idx)[0]
+            return f(state, blocks)[0]
+
+        return WholeFitHandle(
+            kind=kind, fit=fit,
+            init_state=lambda: OnlineState.initial(cfg.dim, cfg.state_dtype,
+                                                   device=dev),
+            extract=extract, raw=f,
+        )
+
+    from distributed_eigenspaces_tpu_torch.algo.scan import (
+        SegmentState,
+        make_segmented_fit,
+    )
+
+    f = make_segmented_fit(cfg, segment=segment, device=dev, v0=v_cold,
+                           v_init=v_init)
+
+    def fit(state, blocks, idx=None, worker_masks=None, on_segment=None):
+        # masked segmented fits go through fit_windows with (S, m) mask
+        # windows (the estimator's lockstep mask windows)
+        if worker_masks is not None:
+            raise ValueError("segmented masks run via fit_windows(worker_masks=...)")
+        return f(state, blocks, on_segment=on_segment)
+
+    return WholeFitHandle(
+        kind=kind, fit=fit,
+        init_state=lambda: SegmentState.initial(cfg.dim, cfg.k, cfg.state_dtype,
+                                                device=dev),
+        extract=extract, fit_windows=f.fit_windows, info={"segment": f.segment},
+        raw=f,
     )

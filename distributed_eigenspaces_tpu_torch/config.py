@@ -75,8 +75,19 @@ class PCAConfig:
         ``compute_dtype="bfloat16"``).
       dtype: storage dtype of data blocks; state_dtype: ``sigma_tilde``'s.
       remainder: ``"drop"`` | ``"pad"`` | ``"error"`` batcher policy.
-      merge_interval, pipeline_merge, merge_topology: must stay at their
-        defaults in this port (see ROADMAP.md).
+      prefetch_depth: windows kept in flight ahead of the segmented whole
+        fit (``runtime/prefetch.py``; one window whenever it is > 0), or 0
+        for none.
+      merge_interval: the merged eigensolve runs every ``s`` steps (steps
+        1, s+1, ...); the steps between fold the (masked) mean of the
+        worker projectors at the same discount weight, and the warm carry
+        keeps the last merged basis. ``s = 1`` is the per-step merge.
+      pipeline_merge: the whole-fit scan's pipelined steady state: step
+        ``t``'s warm solves start from the merge of step ``t - 2`` while
+        step ``t - 1``'s merge or fold follows. Needs the subspace solver
+        with warm starts; the masked fits ignore it and the segmented
+        trainer refuses it (its pending factors are no checkpoint state).
+      merge_topology: must stay None in this port (see ROADMAP.md).
       seed: seed of the ``torch.Generator`` that draws the cold start
         basis (the reference draws it from ``jax.random.PRNGKey(0)``).
       serve_bucket_size, serve_flush_s: a query micro-batch dispatches
@@ -116,6 +127,7 @@ class PCAConfig:
     dtype: Any = "float32"
     state_dtype: Any = "float32"
     remainder: str = "drop"
+    prefetch_depth: int = 2
     merge_interval: int = 1
     pipeline_merge: bool = False
     merge_topology: tuple | None = None
@@ -184,6 +196,10 @@ class PCAConfig:
             object.__setattr__(self, field, name)
         if self.remainder not in ("drop", "pad", "error"):
             raise ValueError(f"unknown remainder policy: {self.remainder!r}")
+        if self.prefetch_depth < 0:
+            raise ValueError(
+                f"prefetch_depth must be >= 0, got {self.prefetch_depth}"
+            )
         if not isinstance(self.merge_interval, int) or isinstance(
             self.merge_interval, bool
         ) or self.merge_interval < 1:
@@ -191,13 +207,18 @@ class PCAConfig:
                 f"merge_interval must be an int >= 1, got "
                 f"{self.merge_interval!r}"
             )
-        if self.merge_interval > 1:
-            raise _not_ported(
-                "merge_interval > 1", "Queue 1 item 9d (merge_interval)"
-            )
-        if self.pipeline_merge:
-            raise _not_ported(
-                "pipeline_merge=True", "Queue 1 item 9d (pipeline_merge)"
+        if self.pipeline_merge and (
+            self.solver not in ("subspace", "distributed")
+            or self.resolved_warm_start() is None
+        ):
+            # the pipelined body overlaps step t-1's merge/fold with step
+            # t's warm solves from a one-step-stale basis: without warm
+            # starts there is no stale carry to solve from
+            raise ValueError(
+                "pipeline_merge=True requires solver='subspace' with "
+                "warm starts enabled (warm_start_iters not None): the "
+                "pipeline overlaps the merge with the NEXT step's "
+                "warm solves from a one-step-stale basis"
             )
         if self.merge_topology is not None:
             raise _not_ported(

@@ -162,14 +162,17 @@ class WorkerPool:
 
     def round(
         self, x_blocks, k: int, worker_mask=None, v0=None,
-        iters: int | None = None, orth: str | None = None,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+        iters: int | None = None, orth: str | None = None, merge: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """One merge round: ``(m, n, d) -> (sigma_bar (d, d), v_bar (d, k))``.
 
         ``worker_mask (m,)`` in {0, 1} excludes workers from the merge;
         ``v0 (d, k)`` starts every worker's subspace iteration (the pool's
         seeded cold start when None); ``iters`` / ``orth`` override the
         pool's settings for this round (the warm-start levers).
+        ``merge=False`` is the merge-interval steady state's fold-only
+        round: no merged eigensolve runs, and it returns ``(sigma_bar,
+        None)``, the masked mean projector for the caller to fold.
         """
         x = self.shard(x_blocks)
         m = x.shape[0]
@@ -192,4 +195,6 @@ class WorkerPool:
         )
         psum, cnt = _masked_projector_mean(vs, mask)
         sigma_bar = psum / torch.clamp(cnt, min=1.0)
+        if not merge:
+            return sigma_bar, None
         return sigma_bar, merged_top_k_lowrank(vs, k, mask)

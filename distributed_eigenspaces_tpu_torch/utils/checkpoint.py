@@ -1,0 +1,237 @@
+"""Checkpoint / resume of the dense online state.
+
+Counterpart of the dense half of ``distributed_eigenspaces_tpu/utils/
+checkpoint.py``, on the same on-disk format, so a checkpoint crosses both
+ways between the packages:
+
+  - ``OnlineState``  = sigma_tilde (d, d) + step          (kind "online")
+  - ``SegmentState`` = OnlineState + the warm carry v_prev (d, k)
+    (kind "scan_segment"), so a resumed segmented run is bit for bit the
+    unkilled one
+  - plus the data-stream cursor (an integer row offset)
+
+A checkpoint directory holds ``state.npz`` (``step`` as an int32 scalar,
+the tensors as float32 arrays) and a ``meta.json`` commit marker, renamed
+into place last and carrying the payload's sha256. A crash mid-write
+leaves no marker, so the checkpoint is simply not found; a committed
+checkpoint whose payload is torn or fails its checksum raises
+:class:`CheckpointCorrupt`, and :meth:`Checkpointer.latest` quarantines it
+(renamed ``*.quarantined``) and steps back to the next newest. The
+reference's low-rank and sketch kinds (the feature-sharded trainers) are
+not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+from typing import Any
+
+import numpy as np
+import torch
+
+from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+from distributed_eigenspaces_tpu_torch.algo.scan import SegmentState
+from distributed_eigenspaces_tpu_torch.device import resolve_device
+from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A committed checkpoint whose payload does not restore: torn or
+    truncated npz, checksum mismatch, or missing fields. Distinct from "no
+    committed checkpoint" (FileNotFoundError): the marker landed but the
+    bytes are damaged."""
+
+
+_STATE_TYPES = {
+    "online": OnlineState,
+    "scan_segment": SegmentState,
+}
+#: the reference's feature-sharded kinds
+_UNPORTED_KINDS = ("lowrank", "sketch")
+
+
+def _unported_kind(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"checkpoint kind {kind!r} holds the state of the reference's "
+        "feature-sharded trainers, which are not ported to "
+        "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item 15)"
+    )
+
+
+def _to_host(state) -> dict:
+    """Each field as the numpy array the reference's payload holds: the
+    step an int32 scalar, every tensor float32."""
+    out = {}
+    for name in state._fields:
+        value = getattr(state, name)
+        if name == "step":
+            out[name] = np.asarray(int(value), np.int32)
+        elif value.dtype != torch.float32:
+            raise ValueError(
+                f"checkpoints hold float32 states; field {name!r} is "
+                f"{value.dtype}"
+            )
+        else:
+            out[name] = value.detach().cpu().numpy()
+    return out
+
+
+def save_checkpoint(path: str, state, *, cursor: int = 0,
+                    extra: dict[str, Any] | None = None) -> None:
+    """Write a self-describing checkpoint directory at ``path``."""
+    kind = next((n for n, cls in _STATE_TYPES.items()
+                 if type(state) is cls), None)
+    if kind is None:
+        raise ValueError(
+            f"unsupported checkpoint state type {type(state).__name__}; "
+            f"known: {sorted(_STATE_TYPES)}"
+        )
+    _write_checkpoint(path, _to_host(state), kind, cursor, extra)
+
+
+def _write_checkpoint(path, host: dict, kind: str, cursor, extra) -> None:
+    os.makedirs(path, exist_ok=True)
+    # invalidate any previous commit marker before touching state.npz, and
+    # write the payload via tmp + rename: a crash at any point leaves the
+    # old complete checkpoint or no committed one, never a committed but
+    # corrupt one
+    meta_final = os.path.join(path, "meta.json")
+    if os.path.exists(meta_final):
+        os.remove(meta_final)
+    state_tmp = os.path.join(path, "state.tmp.npz")  # np.savez keeps .npz
+    np.savez(state_tmp, **host)
+    with open(state_tmp, "rb") as f:
+        checksum = hashlib.sha256(f.read()).hexdigest()
+    os.replace(state_tmp, os.path.join(path, "state.npz"))
+    meta = {
+        "state_type": kind,
+        "cursor": int(cursor),
+        "step": int(host["step"]),
+        "format_version": 1,
+        "checksum": checksum,
+    }
+    if extra:
+        meta["extra"] = extra
+    tmp = os.path.join(path, "meta.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f, indent=2)
+    os.replace(tmp, meta_final)  # the atomic commit marker
+
+
+def restore_checkpoint(path: str, *, device="cuda"):
+    """Load ``(state, cursor)`` from a checkpoint directory, the tensors on
+    ``device``. Raises FileNotFoundError on a missing or uncommitted
+    checkpoint, :class:`CheckpointCorrupt` on a committed one whose payload
+    does not restore, and NotImplementedError on the reference's
+    feature-sharded kinds. A marker without a checksum (older checkpoints)
+    restores unverified."""
+    dev = resolve_device(device)
+    meta_path = os.path.join(path, "meta.json")
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(f"no committed checkpoint at {path!r}")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    kind = meta["state_type"]
+    if kind in _UNPORTED_KINDS:
+        raise _unported_kind(kind)
+    cls = _STATE_TYPES[kind]
+    payload = os.path.join(path, "state.npz")
+    want = meta.get("checksum")
+    if want is not None:
+        try:
+            with open(payload, "rb") as f:
+                got = hashlib.sha256(f.read()).hexdigest()
+        except OSError as e:
+            raise CheckpointCorrupt(
+                f"committed checkpoint at {path!r} has an unreadable "
+                f"payload: {e!r}"
+            ) from e
+        if got != want:
+            raise CheckpointCorrupt(
+                f"committed checkpoint at {path!r} failed its payload "
+                f"checksum (sha256 {got[:12]}... != recorded "
+                f"{want[:12]}...): torn or rotted bytes"
+            )
+
+    def field(name, arr):
+        if name == "step":
+            return int(arr)
+        return torch.from_numpy(np.array(arr, np.float32)).to(dev)
+
+    try:
+        with np.load(payload) as z:
+            state = cls(**{f: field(f, z[f]) for f in cls._fields})
+    except FileNotFoundError:
+        raise
+    except Exception as e:  # torn zip, missing field, bad dtype...
+        raise CheckpointCorrupt(
+            f"committed checkpoint at {path!r} does not restore: {e!r}"
+        ) from e
+    return state, meta["cursor"]
+
+
+@dataclasses.dataclass
+class Checkpointer:
+    """Periodic checkpoint hook for the online loop and the segmented
+    trainer: ``on_step(t, state)`` (an ``on_step`` or ``on_segment``
+    callback) saves ``step_{t:08d}`` every ``every`` steps and keeps the
+    newest ``keep``; :meth:`latest` restores onto ``device``."""
+
+    directory: str
+    every: int = 1
+    keep: int = 2
+    rows_per_step: int = 0  # rows consumed per step -> saved stream cursor
+    device: Any = "cuda"
+
+    def on_step(self, t: int, state, v_bar=None) -> None:
+        if t % self.every:
+            return
+        path = os.path.join(self.directory, f"step_{t:08d}")
+        save_checkpoint(path, state, cursor=t * self.rows_per_step)
+        self._gc()
+
+    def latest(self):
+        """Restore the newest committed checkpoint that restores, or None:
+        the resume ladder. A committed step whose payload is torn or fails
+        its checksum is quarantined (directory renamed ``*.quarantined``,
+        kept as evidence) and the ladder steps back to the next newest."""
+        for step in reversed(self._steps()):
+            path = os.path.join(self.directory, f"step_{step:08d}")
+            try:
+                return restore_checkpoint(path, device=self.device)
+            except CheckpointCorrupt as e:
+                quarantined = path + ".quarantined"
+                try:
+                    os.replace(path, quarantined)
+                except OSError:
+                    quarantined = None
+                log_line(
+                    "checkpoint quarantined: stepping the resume ladder back",
+                    step=step, error=str(e), quarantined=quarantined,
+                )
+            except FileNotFoundError:
+                continue  # lost a GC race: older steps still stand
+        return None
+
+    def _steps(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
+        out = []
+        for name in os.listdir(self.directory):
+            # "step_NNNNNNNN" only: quarantined dirs keep the prefix but
+            # grow a suffix, and never re-enter the ladder
+            if name.startswith("step_") and name[5:].isdigit():
+                if os.path.exists(os.path.join(self.directory, name, "meta.json")):
+                    out.append(int(name[5:]))
+        return sorted(out)
+
+    def _gc(self) -> None:
+        steps = self._steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(
+                os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True
+            )

@@ -29,7 +29,10 @@ The s8 Gram (a transpose, then the TMA + wgmma kernel) equals its plain
 version bit for bit (exact int32 sums, one rounding to fp32, a true
 division by n), and the transpose equals its plain version, pad rows
 included; past its guard an int8 batch is widened and its fp32 Gram is
-held to the float64 truth at 1e-3.
+held to the float64 truth at 1e-3. The segmented trainer on int8 windows
+from the prefetch thread resumes from a checkpoint bit for bit, agrees
+with the CPU path to 1e-4 / 0.05 degrees, and the checkpointed estimator
+equals its scan fit bit for bit.
 """
 
 import sys
@@ -741,3 +744,83 @@ def test_eval_settings_fit_makes_one_s8_launch(cuda_device):
     angle = float(principal_angles_degrees(est.components_.cpu(),
                                            torch.from_numpy(spec.top_k(k))).max())
     assert angle <= 1.0
+
+
+# k = 64 at 2 warm iterations keeps every step on the Gram route (2 k iters
+# >= d), so each step is one s8 call, as clip768's
+SEG_CFG = dict(dim=256, k=64, num_workers=4, rows_per_worker=512, num_steps=6,
+               solver="subspace", subspace_iters=8, warm_start_iters=2,
+               compute_dtype="bfloat16", backend="local")
+
+
+def _int8_windows(seed, steps=6, window=2):
+    x = np.random.default_rng(seed).integers(-127, 128, (steps, 4, 512, 256), dtype=np.int8)
+    return [torch.from_numpy(x[t:t + window]) for t in range(0, steps, window)]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(merge_interval=2)], ids=["s1", "s2"])
+def test_segmented_resume_on_card_is_bit_equal(cuda_device, kw, tmp_path):
+    """Int8 windows through the prefetch thread on the card: a run
+    checkpointed after its first window, restored and continued equals the
+    unkilled run bit for bit, one s8 call a step."""
+    from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
+    from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = dett.PCAConfig(**SEG_CFG, **kw)
+    windows = _int8_windows(0)
+    fit = dett.make_segmented_fit(cfg, segment=2)
+    tgram.launches_s8 = 0
+    whole = fit.fit_windows(dett.SegmentState.initial(256, 64),
+                            prefetch_stream(iter(windows), depth=1))
+    torch.cuda.synchronize()
+    assert tgram.launches_s8 == 6 and whole.step == 6
+    ck = Checkpointer(str(tmp_path), rows_per_step=4 * 512)
+    fit.fit_windows(dett.SegmentState.initial(256, 64), prefetch_stream(iter(windows[:1])),
+                    on_segment=ck.on_step)
+    state, cursor = ck.latest()
+    assert cursor == 2 * 4 * 512 and state.sigma_tilde.is_cuda
+    resumed = dett.make_segmented_fit(cfg, segment=2).fit_windows(
+        state, prefetch_stream(iter(windows[1:]), depth=1))
+    assert torch.equal(resumed.sigma_tilde, whole.sigma_tilde)
+    assert torch.equal(resumed.v_prev, whole.v_prev)
+
+
+def test_segmented_fit_on_card_matches_cpu(cuda_device):
+    """The same int8 windows on the card (s8 kernel) and on the CPU (plain
+    version): sigma_tilde within 1e-4, v_prev within 0.05 degrees."""
+    cfg = dett.PCAConfig(**SEG_CFG)
+    windows = _int8_windows(1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fit = dett.make_segmented_fit(cfg, segment=2, device=dev)
+        out[dev] = fit.fit_windows(dett.SegmentState.initial(256, 64, device=dev),
+                                   iter(windows))
+    a, b = out["cuda"], out["cpu"]
+    assert float((a.sigma_tilde.cpu() - b.sigma_tilde).abs().max()) <= 1e-4
+    assert float(principal_angles_degrees(a.v_prev.cpu(), b.v_prev).max()) <= 0.05
+
+
+def test_prefetch_places_host_windows_on_the_card(cuda_device):
+    """The default placement: pinned copies on a side stream, each window
+    on the card and equal to its host bytes, in order."""
+    from distributed_eigenspaces_tpu_torch.runtime.prefetch import PrefetchStats, prefetch_stream
+
+    windows = _int8_windows(2)
+    stats = PrefetchStats()
+    placed = list(prefetch_stream(iter(windows), depth=2, stats=stats))
+    assert stats.yields == 3
+    for got, want in zip(placed, windows):
+        assert got.is_cuda and got.dtype == torch.int8
+        assert torch.equal(got.cpu(), want)
+
+
+def test_checkpointed_estimator_on_card_equals_its_scan(cuda_device, tmp_path):
+    """The estimator with checkpoint_dir takes the segmented trainer; its
+    sigma_tilde equals the scan fit's on the same data bit for bit."""
+    cfg = dett.PCAConfig(**{**SEG_CFG, "stage_dtype": "int8"})
+    data = torch.randn((6 * 4 * 512, 256), generator=torch.Generator().manual_seed(3))
+    seg = dett.OnlineDistributedPCA(cfg, checkpoint_dir=str(tmp_path), segment=2).fit(data)
+    scan = dett.OnlineDistributedPCA(cfg).fit(data)
+    assert (seg.trainer_used_, scan.trainer_used_) == ("segmented", "scan")
+    assert torch.equal(seg.state.sigma_tilde, scan.state.sigma_tilde)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000004", "step_00000006"]

@@ -54,6 +54,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.solvers\n"
         "import distributed_eigenspaces_tpu_torch.ops.geometry\n"
         "import distributed_eigenspaces_tpu_torch.ops.mutant_full_block\n"
+        "import distributed_eigenspaces_tpu_torch.algo.scan\n"
+        "import distributed_eigenspaces_tpu_torch.api.runner\n"
+        "import distributed_eigenspaces_tpu_torch.data.bin_stream\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.native\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.prefetch\n"
+        "import distributed_eigenspaces_tpu_torch.utils.checkpoint\n"
         "from distributed_eigenspaces_tpu_torch.analysis import (\n"
         "    ast_lints, contracts, mutations, programs, report)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -98,6 +104,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         dett.make_scan_fit(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
+        dett.make_segmented_fit(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dett.OnlineDistributedPCA(cfg, checkpoint_dir="unused").fit(data)
+    from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
+    from distributed_eigenspaces_tpu_torch.utils.checkpoint import restore_checkpoint
+    with pytest.raises(RuntimeError, match="cuda"):
+        prefetch_stream(iter([data]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore_checkpoint("unused")
+    with pytest.raises(RuntimeError, match="cuda"):
         dett.entry()
     with pytest.raises(RuntimeError, match="cuda"):
         TransformEngine(16, 2)
@@ -113,5 +129,7 @@ def test_kernel_sources_ship_with_the_package():
     assert (PKG / "csrc" / "matvec_gram.cu").is_file()
     assert (PKG / "csrc" / "mutant_full_block.cu").is_file()
     assert (PKG / "csrc" / "gram_s8.cu").is_file()
+    assert (PKG / "native" / "loader.cc").is_file()  # the bin stream's host reader
     text = (ROOT / "pyproject.toml").read_text()
-    assert 'distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
+    assert ('distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh", '
+            '"native/*.cc"]') in text

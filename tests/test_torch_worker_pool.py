@@ -128,6 +128,8 @@ def test_pool_refuses_unported_backends():
         dict(warm_start_iters="often"), dict(remainder="wrap"),
         dict(compute_dtype="not-a-dtype"), dict(k=0), dict(k=99),
         dict(merge_interval=0), dict(backend="gpu"),
+        dict(prefetch_depth=-1), dict(pipeline_merge=True),
+        dict(pipeline_merge=True, solver="subspace", warm_start_iters=None),
     ],
 )
 def test_config_rejects_like_the_reference(kw):
@@ -141,8 +143,9 @@ def test_config_rejects_like_the_reference(kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(backend="tpu"), dict(compile_cache_dir="cache"), dict(merge_interval=2),
-        dict(pipeline_merge=True, solver="subspace"),
+        dict(backend="tpu"), dict(compile_cache_dir="cache"),
+        dict(merge_topology=(("chip", 2),), merge_interval=2),
+        dict(backend="feature_sharded", solver="subspace", pipeline_merge=True),
         dict(merge_topology=(("chip", 2),)),
         dict(solver="deflation", components_axis_size=2),
         dict(solver="deflation"), dict(backend="shard_map"),
@@ -168,6 +171,10 @@ def test_config_names_the_roadmap_for_unported_settings(kw):
         dict(solver="subspace", warm_orth_method="ns"),
         dict(solver="distributed", compute_dtype="bfloat16", stage_dtype="int8",
              warm_orth_method="ns"),
+        dict(solver="subspace", merge_interval=2),
+        dict(solver="subspace", pipeline_merge=True),
+        dict(solver="distributed", merge_interval=3, pipeline_merge=True),
+        dict(prefetch_depth=0),
     ],
 )
 def test_config_resolvers_match(kw):
