@@ -83,6 +83,24 @@ def update_state(
     )
 
 
+def merge_phase(cfg: PCAConfig, step: int) -> bool:
+    """The merge-interval schedule of every trainer: whether the round
+    after ``step`` folded rounds runs the merged eigensolve. Under
+    ``cfg.merge_interval = s`` the 1-based steps 1, s+1, 2s+1, ... merge
+    (``step % s == 0``) and the rounds between fold the mean of the worker
+    projectors; at ``s = 1`` every round merges."""
+    return step % cfg.merge_interval == 0
+
+
+def carry_after(v_prev, v_new, merge_now: bool, mask=None):
+    """The warm carry after a round: ``v_new`` on a live merge round, else
+    ``v_prev``. A fold round makes no merged basis, and an all-masked
+    round merges to zeros, a fixed point of the warm solver; liveness is
+    read from the host mask row (None: every worker live)."""
+    live = mask is None or bool(np.any(np.asarray(mask)))
+    return v_new if merge_now and live else v_prev
+
+
 def online_distributed_pca(
     stream: Iterable,
     cfg: PCAConfig,
@@ -127,16 +145,10 @@ def online_distributed_pca(
     v_prev = None
     cap = cfg.num_steps if max_steps == "auto" else max_steps
     open_ended = max_steps == "auto" and cfg.discount == "1/t"
-    # merge-interval steady state (cfg.merge_interval = s): the merged
-    # eigensolve runs on steps t with (t - 1) % s == 0; the steps between
-    # fold the masked mean of the worker projectors (the round's
-    # sigma_bar) at the same weight, and the warm carry keeps the last
-    # merged basis
-    s_int = cfg.merge_interval
     for x_blocks in stream:
         if cap is not None and state.step >= cap and not open_ended:
             break
-        merge_now = s_int == 1 or state.step % s_int == 0
+        merge_now = merge_phase(cfg, state.step)
         mask = next(worker_masks) if worker_masks is not None else None
         sigma_bar, v_bar = pool.round(
             x_blocks, cfg.k, worker_mask=mask,
@@ -146,13 +158,6 @@ def online_distributed_pca(
             merge=merge_now,
         )
         if merge_now:
-            # an all-masked round merges to zeros, a fixed point of the
-            # solver: the warm carry keeps the last live basis (liveness
-            # read from the mask on the host)
-            if warm_iters is not None and (
-                mask is None or bool(np.any(np.asarray(mask)))
-            ):
-                v_prev = v_bar
             state = update_state(
                 state, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
             )
@@ -165,6 +170,8 @@ def online_distributed_pca(
             v_bar = v_prev if v_prev is not None else torch.zeros(
                 (cfg.dim, cfg.k), dtype=torch.float32, device=dev
             )
+        if warm_iters is not None:
+            v_prev = carry_after(v_prev, v_bar, merge_now, mask)
         if on_step is not None:
             on_step(state.step, state, v_bar)
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)

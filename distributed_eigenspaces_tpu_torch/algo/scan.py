@@ -22,13 +22,13 @@ import torch
 
 from distributed_eigenspaces_tpu_torch.algo.online import (
     OnlineState,
+    carry_after,
+    merge_phase,
     update_state,
     update_state_projector,
 )
 from distributed_eigenspaces_tpu_torch.algo.step import (
-    make_round_core,
     make_solve_core,
-    make_warm_core,
     make_warm_solve_core,
     mean_projector,
     merge_core,
@@ -43,15 +43,13 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, projecto
 @dataclasses.dataclass(frozen=True)
 class _Cores:
     """The step functions every trainer here shares, built once per
-    trainer: the cold and warm rounds (solves plus merge), their
-    solve-only halves, the seeded starts and the state update."""
+    trainer: the cold and warm solves, the seeded starts and the state
+    update."""
 
     cfg: PCAConfig
     dev: torch.device
     v_cold: torch.Tensor  # (d, k) cold start of every cold solve
     v_merge: torch.Tensor | None  # (d, k') crossover-merge start, or None
-    round_core: Callable
-    warm_core: Callable | None  # None without warm starts
     solve_cold: Callable
     solve_warm: Callable | None  # None without warm starts
 
@@ -62,17 +60,20 @@ class _Cores:
         return update_state(st, v_bar, discount=self.cfg.discount,
                             num_steps=self.cfg.num_steps)
 
+    def cold_round(self, x) -> torch.Tensor:
+        """The cold round at the full iteration count, always merged: the
+        first step of a run, which seeds the warm carry."""
+        return merge_core(self.solve_cold(x, self.v_cold), self.cfg.k,
+                          v_init=self.v_merge, **merge_knobs(self.cfg))
+
 
 def _cores(cfg: PCAConfig, device, v0, v_init) -> _Cores:
     dev = resolve_device(device)
-    v_merge = merge_start(cfg, device=dev, v_init=v_init)
     return _Cores(
         cfg=cfg,
         dev=dev,
         v_cold=initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0),
-        v_merge=v_merge,
-        round_core=make_round_core(cfg, v_init=v_merge),
-        warm_core=make_warm_core(cfg, v_init=v_merge),
+        v_merge=merge_start(cfg, device=dev, v_init=v_init),
         solve_cold=make_solve_core(cfg),
         solve_warm=make_warm_solve_core(cfg),
     )
@@ -85,22 +86,21 @@ def _live(vp: torch.Tensor) -> bool:
 
 
 def _merge_or_fold_factory(cfg: PCAConfig, cores: _Cores):
-    """The merge-interval round fold shared by every interval-aware body
-    (unmasked and masked scan, pipelined scan, segmented):
-    ``fold_round(st, vs, vp, mask=None) -> (st, v_new, merge_now)``. On
-    merge rounds (``st.step % s == 0``: 1-based steps 1, s+1, 2s+1, ...)
-    the factors run the merge and the merged projector is folded; between
+    """The round fold shared by every body here (unmasked and masked scan,
+    pipelined scan, segmented): ``fold_round(st, vs, vp, mask=None) ->
+    (st, v_new, merge_now)``. On merge rounds (:func:`~.online.merge_phase`:
+    every round at ``s = 1``, else 1-based steps 1, s+1, 2s+1, ...) the
+    factors run the merge and the merged projector is folded; between
     merges the masked mean of the worker projectors is folded at the same
     weight and ``v_new`` is the carried basis. ``mask`` is this round's
     mask: a worker drop takes effect in this round's fold and at the next
     merge."""
-    k, s = cfg.k, cfg.merge_interval
     knobs = merge_knobs(cfg)
 
     def fold_round(st, vs, vp, mask=None):
-        merge_now = st.step % s == 0
+        merge_now = merge_phase(cfg, st.step)
         if merge_now:
-            v_new = merge_core(vs, k, mask=mask, v_init=cores.v_merge, **knobs)
+            v_new = merge_core(vs, cfg.k, mask=mask, v_init=cores.v_merge, **knobs)
             p = projector(v_new)
         else:
             v_new, p = vp, mean_projector(vs, mask)
@@ -115,36 +115,14 @@ def _merge_or_fold_factory(cfg: PCAConfig, cores: _Cores):
 def _masked_body_factory(cfg: PCAConfig, cores: _Cores):
     """The masked step body shared by the masked scan and the segmented
     trainer: ``body((st, vp), x, mask_row) -> ((st, vp), v_out)``, with
-    ``mask_row`` a host ``(m,)`` array. It runs cold until the carry holds
-    a basis and warm after, so a killed-and-resumed masked run is the
-    unkilled one and an all-masked first round recovers instead of
+    ``mask_row`` a host ``(m,)`` array. Every round solves, cold until the
+    carry holds a basis and warm after, so a killed-and-resumed masked run
+    is the unkilled one and an all-masked first round recovers instead of
     freezing a zero basis (zeros are a fixed point of the warm solver).
-    Every round folds its merge result (zeros on an all-masked round); the
-    warm carry keeps the last live basis, liveness read from the mask row.
-
-    With ``cfg.merge_interval > 1`` every round solves (cold until a live
-    merge has seeded the carry, warm after), then the shared merge-or-fold
-    runs with this round's mask, and the warm carry advances only on live
-    merge rounds."""
-    warm = cores.warm_core is not None
-
-    def mask_of(row):
-        return torch.as_tensor(np.asarray(row, np.float32)).to(cores.dev)
-
-    if cfg.merge_interval == 1:
-
-        def body(carry, x, row):
-            st, vp = carry
-            mk = mask_of(row)
-            if warm and _live(vp):
-                v_bar = cores.warm_core(x, v0=vp, mask=mk)
-            else:
-                v_bar = cores.round_core(x, v0=cores.v_cold, mask=mk)
-            vp_next = v_bar if bool(np.any(np.asarray(row))) else vp
-            return (cores.update(st, v_bar), vp_next), v_bar
-
-        return body
-
+    Then the shared merge-or-fold runs with this round's mask (an
+    all-masked merge round folds zeros), and the warm carry advances only
+    on live merge rounds (:func:`~.online.carry_after`)."""
+    warm = cores.solve_warm is not None
     fold_round = _merge_or_fold_factory(cfg, cores)
 
     def body(carry, x, row):
@@ -153,9 +131,9 @@ def _masked_body_factory(cfg: PCAConfig, cores: _Cores):
             vs = cores.solve_warm(x, vp)
         else:
             vs = cores.solve_cold(x, cores.v_cold)
-        st, v_new, merge_now = fold_round(st, vs, vp, mask=mask_of(row))
-        vp_next = v_new if merge_now and bool(np.any(np.asarray(row))) else vp
-        return (st, vp_next), v_new
+        mk = torch.as_tensor(np.asarray(row, np.float32)).to(cores.dev)
+        st, v_new, merge_now = fold_round(st, vs, vp, mask=mk)
+        return (st, carry_after(vp, v_new, merge_now, row)), v_new
 
     return body
 
@@ -166,6 +144,34 @@ def make_masked_step_body(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None
     the crossover-merge start ``v_init``; its carry is ``(OnlineState,
     v_prev (d, k))``, zeros before any live round."""
     return _masked_body_factory(cfg, _cores(cfg, device, v0, v_init))
+
+
+def _segment_factory(cfg: PCAConfig, cores: _Cores):
+    """The unmasked steps, shared by the scan and the segmented trainer:
+    ``seg(st, vp, blocks, first) -> (st, vp, v_bars)``. With warm starts,
+    ``first`` runs the first block as the cold round (always merged: it
+    seeds the carry) and every later step solves warm from the carry;
+    without, every step solves cold. Each step then folds through the
+    shared merge-or-fold; ``v_bars[t]`` is the merged basis as of that
+    step (the carry on fold rounds)."""
+    warm = cores.solve_warm is not None
+    fold_round = _merge_or_fold_factory(cfg, cores)
+
+    def seg(st, vp, blocks, first: bool):
+        out = []
+        if warm and first and blocks:
+            vp = cores.cold_round(cores.place(blocks[0]))
+            st = cores.update(st, vp)
+            out.append(vp)
+            blocks = blocks[1:]
+        for x in blocks:
+            x = cores.place(x)
+            vs = cores.solve_warm(x, vp) if warm else cores.solve_cold(x, cores.v_cold)
+            st, vp, _ = fold_round(st, vs, vp)
+            out.append(vp)
+        return st, vp, out
+
+    return seg
 
 
 def _zeros_carry(cfg: PCAConfig, dev) -> torch.Tensor:
@@ -189,39 +195,6 @@ def _schedule(x_steps, idx=None) -> list:
     return steps
 
 
-def _make_interval_fit(cfg: PCAConfig, cores: _Cores):
-    """Unmasked whole fit for ``cfg.merge_interval > 1`` (pipeline off):
-    every round solves (warm from the carried last-merged basis once one
-    exists) and the merged eigensolve runs only on merge rounds.
-    ``v_bars[t]`` is the merged basis as of step ``t + 1`` (the carry on
-    fold rounds). With warm starts, step 1 runs cold and always merges
-    (it seeds the carry); without, every step is cold and step 1 merges
-    because ``st.step % s == 0`` at ``st.step = 0``."""
-    fold_round = _merge_or_fold_factory(cfg, cores)
-    warm = cores.solve_warm is not None
-    knobs = merge_knobs(cfg)
-
-    def run(state, blocks):
-        out = []
-        if warm:
-            first = cores.place(blocks[0])
-            vp = merge_core(cores.solve_cold(first, cores.v_cold), cfg.k,
-                            v_init=cores.v_merge, **knobs)
-            state = cores.update(state, vp)
-            out.append(vp)
-            blocks = blocks[1:]
-        else:
-            vp = _zeros_carry(cfg, cores.dev)
-        for x in blocks:
-            x = cores.place(x)
-            vs = cores.solve_warm(x, vp) if warm else cores.solve_cold(x, cores.v_cold)
-            state, vp, _ = fold_round(state, vs, vp)
-            out.append(vp)
-        return state, out
-
-    return run
-
-
 def _make_pipelined_fit(cfg: PCAConfig, cores: _Cores):
     """The pipelined steady state (``cfg.pipeline_merge``): each round runs
     the merge-or-fold of step ``t - 1``'s pending factors and step ``t``'s
@@ -234,12 +207,10 @@ def _make_pipelined_fit(cfg: PCAConfig, cores: _Cores):
     round in one program so XLA may overlap them; eagerly they run in
     turn, with the same numbers."""
     fold_round = _merge_or_fold_factory(cfg, cores)
-    knobs = merge_knobs(cfg)
 
     def run(state, blocks):
         T = len(blocks)
-        v1 = merge_core(cores.solve_cold(cores.place(blocks[0]), cores.v_cold),
-                        cfg.k, v_init=cores.v_merge, **knobs)
+        v1 = cores.cold_round(cores.place(blocks[0]))
         state = cores.update(state, v1)
         out = [v1]
         if T == 1:
@@ -277,7 +248,8 @@ def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None,
     ``cfg.resolved_warm_start()`` iterations, otherwise every step is cold.
     Above the crossover (``cfg.uses_distributed_solve()``) every merge is
     the distributed solve from ``v_init (d, k')`` (default: drawn from
-    ``cfg.seed``).
+    ``cfg.seed``). The steps are the segmented trainer's
+    (:func:`_segment_factory`) over one window holding the whole schedule.
 
     ``masked=True`` builds the §5.3 variant instead: ``fit(state, x_steps,
     masks, membership_masks=None) -> (state, v_bars)`` with ``masks`` a
@@ -287,7 +259,7 @@ def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None,
 
     ``cfg.merge_interval = s > 1`` runs the merged eigensolve every s
     steps and folds the mean worker projector between
-    (:func:`_make_interval_fit`); ``cfg.pipeline_merge`` overlaps step
+    (:func:`_merge_or_fold_factory`); ``cfg.pipeline_merge`` overlaps step
     ``t - 1``'s merge or fold with step ``t``'s warm solves from a
     one-step-stale basis (:func:`_make_pipelined_fit`). Masked fits honour
     ``merge_interval`` and run unpipelined.
@@ -321,19 +293,12 @@ def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None,
 
     if cfg.pipeline_merge:
         run = _make_pipelined_fit(cfg, cores)
-    elif cfg.merge_interval > 1:
-        run = _make_interval_fit(cfg, cores)
     else:
-        warm = cores.warm_core is not None
+        seg = _segment_factory(cfg, cores)
 
         def run(state, blocks):
-            out, vp = [], None
-            for x in blocks:
-                x = cores.place(x)
-                vp = (cores.warm_core(x, v0=vp) if warm and vp is not None
-                      else cores.round_core(x, v0=cores.v_cold))
-                state = cores.update(state, vp)
-                out.append(vp)
+            state, _, out = seg(state, _zeros_carry(cfg, cores.dev), blocks,
+                                first=True)
             return state, out
 
     if gather:
@@ -406,30 +371,13 @@ def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, device="cuda",
             "or merge_interval without pipelining)"
         )
     cores = _cores(cfg, device, v0, v_init)
-    warm = cores.warm_core is not None
-    s_int = cfg.merge_interval
-    fold_round = _merge_or_fold_factory(cfg, cores) if s_int > 1 else None
+    warm = cores.solve_warm is not None
+    run_steps = _segment_factory(cfg, cores)
     masked_body = _masked_body_factory(cfg, cores)
 
-    def body(st, vp, x):
-        if s_int > 1:
-            vs = cores.solve_warm(x, vp) if warm else cores.solve_cold(x, cores.v_cold)
-            st, vp, _ = fold_round(st, vs, vp)
-            return st, vp
-        v = (cores.warm_core(x, v0=vp) if warm
-             else cores.round_core(x, v0=cores.v_cold))
-        return cores.update(st, v), v
-
     def seg(sstate: SegmentState, window, first: bool) -> SegmentState:
-        st, vp = OnlineState(sstate.sigma_tilde, sstate.step), sstate.v_prev
-        blocks = _steps_of(window)
-        if warm and first and blocks:
-            # the cold first step at the full iteration count
-            vp = cores.round_core(cores.place(blocks[0]), v0=cores.v_cold)
-            st = cores.update(st, vp)
-            blocks = blocks[1:]
-        for x in blocks:
-            st, vp = body(st, vp, cores.place(x))
+        st, vp, _ = run_steps(OnlineState(sstate.sigma_tilde, sstate.step),
+                              sstate.v_prev, _steps_of(window), first)
         return SegmentState(st.sigma_tilde, st.step, vp)
 
     def seg_masked(sstate: SegmentState, window, masks) -> SegmentState:

@@ -114,8 +114,8 @@ def make_round_core(
     v_init=None,
 ):
     """``round_core(x_blocks, v0, mask=None) -> v_bar (d, k)``: solves then
-    merge, the one definition of a round shared by the per-step and the
-    whole-fit trainers. Above the crossover the merge runs
+    merge, one round of the train step (the whole-fit trainers fold their
+    solves through ``algo/scan.py``'s merge-or-fold instead). Above the crossover the merge runs
     ``cfg.subspace_iters`` iterations, cold or warm (as the reference's),
     from ``v_init`` (see :func:`merge_start`)."""
     solve_core = make_solve_core(cfg, iters=iters, orth=orth)
@@ -155,8 +155,10 @@ def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
     of the rounds between merges: the same solves, then the mean of the
     worker projectors folded at the step's weight, and no merged
     eigensolve at all; it returns ``(state, v_prev)`` (a fold round makes
-    no merged basis). Callers schedule the phase (``merge = (t - 1) % s ==
-    0`` at 1-based step ``t``).
+    no merged basis). Callers schedule the phase with
+    :func:`~.online.merge_phase` on ``state.step``, as the reference's
+    callers pass ``merge=``, and advance their warm carry with
+    :func:`~.online.carry_after`.
     """
     dev = resolve_device(device)
     v_merge = merge_start(cfg, device=dev, v_init=v_init)

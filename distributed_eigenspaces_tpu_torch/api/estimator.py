@@ -331,8 +331,7 @@ class OnlineDistributedPCA:
     def _fit_segmented(self, data, masks) -> "OnlineDistributedPCA":
         """The segmented fit over windows of ``segment`` steps (clamped to
         the staging budget) staged one at a time, the next window read and
-        staged by a prefetch thread while the current one runs
-        (``cfg.prefetch_depth > 0``), a checkpoint committed after every
+        staged by a prefetch thread while the current one runs, a checkpoint committed after every
         window when checkpointing; ``masks`` run the masked windows in
         lockstep with the data windows."""
         cfg = self.cfg
@@ -345,10 +344,10 @@ class OnlineDistributedPCA:
                 rows_per_step=cfg.num_workers * cfg.rows_per_worker,
                 device=self.device,
             ).on_step
-        source = windows = window_stream(self._blocks(data, stage_dtype), seg)
-        if cfg.prefetch_depth > 0:
-            # one window in flight: windows are the big unit here
-            source = windows = prefetch_stream(windows, depth=1, place=lambda w: w)
+        # one window in flight: windows are the big unit here
+        source = windows = prefetch_stream(
+            window_stream(self._blocks(data, stage_dtype), seg), depth=1,
+            place=lambda w: w)
         mask_windows = None
         if masks is not None:
             windows, mask_windows = _lockstep_mask_windows(

@@ -75,9 +75,6 @@ class PCAConfig:
         ``compute_dtype="bfloat16"``).
       dtype: storage dtype of data blocks; state_dtype: ``sigma_tilde``'s.
       remainder: ``"drop"`` | ``"pad"`` | ``"error"`` batcher policy.
-      prefetch_depth: windows kept in flight ahead of the segmented whole
-        fit (``runtime/prefetch.py``; one window whenever it is > 0), or 0
-        for none.
       merge_interval: the merged eigensolve runs every ``s`` steps (steps
         1, s+1, ...); the steps between fold the (masked) mean of the
         worker projectors at the same discount weight, and the warm carry
@@ -127,7 +124,6 @@ class PCAConfig:
     dtype: Any = "float32"
     state_dtype: Any = "float32"
     remainder: str = "drop"
-    prefetch_depth: int = 2
     merge_interval: int = 1
     pipeline_merge: bool = False
     merge_topology: tuple | None = None
@@ -196,10 +192,6 @@ class PCAConfig:
             object.__setattr__(self, field, name)
         if self.remainder not in ("drop", "pad", "error"):
             raise ValueError(f"unknown remainder policy: {self.remainder!r}")
-        if self.prefetch_depth < 0:
-            raise ValueError(
-                f"prefetch_depth must be >= 0, got {self.prefetch_depth}"
-            )
         if not isinstance(self.merge_interval, int) or isinstance(
             self.merge_interval, bool
         ) or self.merge_interval < 1:

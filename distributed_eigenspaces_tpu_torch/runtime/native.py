@@ -6,8 +6,8 @@ and :func:`quantize_i8`. The shared library is built with ``g++ -O3
 -shared`` at first use into ``build/native/`` at the root of the checkout,
 under a name that carries a hash of the source, and loaded once. Every
 entry point has a numpy fallback, taken on a machine without a toolchain
-or with ``DET_NO_NATIVE=1``; :func:`native_available` says which is in
-use.
+(the failed build is logged once) or with ``DET_NO_NATIVE=1`` (silently);
+:func:`native_available` says which is in use.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -75,8 +77,14 @@ def _load() -> ctypes.CDLL | None:
                 ctypes.c_float, ctypes.c_int32,
             ]
             _LIB = lib
-        except Exception:
+        except Exception as e:
+            # said once: the numpy fallback rounds quantization ties to
+            # even where the native code rounds them away from zero
             _LIB_FAILED = True
+            detail = getattr(e, "stderr", None)
+            log_line("native reader unavailable; using the numpy fallback",
+                     error=repr(e),
+                     detail=detail.decode(errors="replace")[-2000:] if detail else None)
         return _LIB
 
 

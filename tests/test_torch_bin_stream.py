@@ -266,6 +266,30 @@ def test_native_kernels_equal_their_fallbacks(monkeypatch):
     assert np.array_equal(native[2], fallback[2])
 
 
+@pytest.mark.parametrize("no_native", ["0", "1"])
+def test_failed_native_build_is_said_once(no_native, tmp_path, monkeypatch, capsys):
+    """A broken build falls back to numpy with one log line on stderr;
+    ``DET_NO_NATIVE=1`` falls back silently."""
+    import subprocess
+
+    def broken_gxx(*a, **k):
+        raise subprocess.CalledProcessError(1, "g++", stderr=b"loader.cc: error: broken")
+
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_LIB_FAILED", False)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(tnative.subprocess, "run", broken_gxx)
+    monkeypatch.setenv("DET_NO_NATIVE", no_native)
+    capsys.readouterr()
+    assert not tnative.native_available() and not tnative.native_available()
+    lines = capsys.readouterr().err.splitlines()
+    if no_native == "1":
+        assert lines == []
+    else:
+        assert len(lines) == 1
+        assert "numpy fallback" in lines[0] and "broken" in lines[0]
+
+
 def test_missing_file_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         tnative.ChunkReader(str(tmp_path / "absent.bin"), 64)

@@ -238,13 +238,11 @@ def test_oversized_schedule_runs_segmented_in_both_packages(budget_steps, monkey
     _same_fit(est, jfit)
 
 
-@pytest.mark.parametrize("prefetch_depth", [0, 2])
 @pytest.mark.parametrize("segment", [2, 4])
-def test_checkpointed_fit_is_segmented_and_equals_the_scan(segment, prefetch_depth,
-                                                           tmp_path):
+def test_checkpointed_fit_is_segmented_and_equals_the_scan(segment, tmp_path):
     from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
 
-    cfg = PCAConfig(**SMALL, prefetch_depth=prefetch_depth)
+    cfg = PCAConfig(**SMALL)
     data = _small_data()
     est = pest.OnlineDistributedPCA(cfg, device="cpu", v0=_jv0(),
                                     checkpoint_dir=str(tmp_path), segment=segment).fit(data)

@@ -72,3 +72,39 @@ def test_stage_tile_copy_keeps_the_fp32_basis_on_stage_cols():
     gate = stage.index("if constexpr (B != kF32)")
     assert stage.index("stage_tile<B, NP, VEC>") > gate
     assert out.count("stage_tile<B, NP, VEC>(") == 1  # the dispatch's call only
+
+
+def test_smoke_ab_alternates_the_sides():
+    import torch_smoke_ab as ab
+
+    assert ab.order(5) == ["parent", "change", "change", "parent", "parent",
+                           "change", "change", "parent", "parent", "change"]
+    assert ab.order(1) == ["parent", "change"]
+
+
+def test_smoke_ab_reads_each_fit_from_its_phase_line():
+    import json
+
+    import torch_smoke_ab as ab
+
+    lines = [
+        "NVIDIA H100 80GB HBM3, 700.00 W",
+        json.dumps({"phase": "slice_fit", "fit_s": 0.2, "second_fit_s": 0.13}),
+        json.dumps({"phase": "slice_fit_eval", "eval": "cifar10", "second_fit_s": 0.12}),
+        json.dumps({"phase": "slice_fit_eval", "eval": "synthetic1024", "second_fit_s": 0.1}),
+        json.dumps({"phase": "slice_dsolve", "part": "extract", "extract_s": 0.02}),
+        json.dumps({"phase": "slice_dsolve", "part": "fit", "second_fit_s": 0.24}),
+        json.dumps({"phase": "slice_fit_interval", "knobs": {"merge_interval": 2},
+                    "fit_s": 0.11}),
+        json.dumps({"phase": "slice_fit_interval",
+                    "knobs": {"merge_interval": 2, "pipeline_merge": True}, "fit_s": 0.12}),
+        '{"ok": true}',
+    ]
+    got = ab.fit_seconds(lines)
+    assert got == {"slice_fit": 0.13, "cifar10": 0.12, "synthetic1024": 0.1,
+                   "large_d": 0.24, "interval": 0.11, "pipelined": 0.12}
+    rows = ab.summary({"parent": [got, {**got, "cifar10": 0.2}, {**got, "cifar10": 0.1}],
+                       "change": [got]})
+    cifar = [r for r in rows if r["fit"] == "cifar10"]
+    assert [(r["side"], r["median_s"], r["min_s"], r["max_s"]) for r in cifar] == [
+        ("parent", 0.12, 0.1, 0.2), ("change", 0.12, 0.12, 0.12)]

@@ -119,10 +119,12 @@ def test_config_from_jax_refuses_unported_settings():
     jcfg = JaxConfig(**SMALL, merge_topology=(("chip", 2), ("host", 2)))
     with pytest.raises(NotImplementedError, match="merge_topology"):
         interop.config_from_jax(dataclasses.asdict(jcfg))
-    # the steady-state knobs carry over (ported with the whole-fit trainers)
+    # the steady-state knobs carry over (ported with the whole-fit trainers);
+    # prefetch_depth is dropped: the port always prefetches one window
     got = interop.config_from_jax(dataclasses.asdict(JaxConfig(
         **SMALL, merge_interval=2, pipeline_merge=True, prefetch_depth=0)))
-    assert (got.merge_interval, got.pipeline_merge, got.prefetch_depth) == (2, True, 0)
+    assert (got.merge_interval, got.pipeline_merge) == (2, True)
+    assert not hasattr(got, "prefetch_depth")
     # the int8 stage and the ns warm orthonormalization carry over
     got = interop.config_from_jax(dataclasses.asdict(JaxConfig(
         **SMALL, stage_dtype="int8", compute_dtype="bfloat16", warm_orth_method="ns")))

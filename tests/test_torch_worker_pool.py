@@ -128,7 +128,7 @@ def test_pool_refuses_unported_backends():
         dict(warm_start_iters="often"), dict(remainder="wrap"),
         dict(compute_dtype="not-a-dtype"), dict(k=0), dict(k=99),
         dict(merge_interval=0), dict(backend="gpu"),
-        dict(prefetch_depth=-1), dict(pipeline_merge=True),
+        dict(merge_interval=True), dict(pipeline_merge=True),
         dict(pipeline_merge=True, solver="subspace", warm_start_iters=None),
     ],
 )
@@ -174,7 +174,7 @@ def test_config_names_the_roadmap_for_unported_settings(kw):
         dict(solver="subspace", merge_interval=2),
         dict(solver="subspace", pipeline_merge=True),
         dict(solver="distributed", merge_interval=3, pipeline_merge=True),
-        dict(prefetch_depth=0),
+        dict(solver="subspace", merge_interval=2, warm_start_iters=None),
     ],
 )
 def test_config_resolvers_match(kw):
