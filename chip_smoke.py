@@ -86,6 +86,26 @@ exits non-zero without printing a result:
 5h. slice_fit_interval: the same settings with ``merge_interval=2``, then
    with ``pipeline_merge=True`` too: within 1 degree each, the merged
    eigensolve on exactly 10 of the 20 rounds.
+5i. slice_grow: the CLI's ``--grow-k`` path at the same settings: the fit
+   published to an on-disk ``EigenbasisRegistry`` under a
+   ``PublisherLease``, grown to k' = 20 by ``grow_basis`` on
+   ``sigma_tilde``'s matvec and published with ``publish_grown`` (prefix bit
+   for bit the parent, lineage ``grew_from`` / ``k_from`` / ``k_to``,
+   ||V^T V - I|| <= 1e-5); a ``ReplicaRegistry`` tailing the directory
+   installs it (one grown install, payload bit-equal, no version lag,
+   propagation within its 500 ms bound); a ``QueryServer`` on the replica
+   serves 32 queries of 64 rows at bfloat16 and at int8, every row within 0.2
+   degrees of the fp32 projection on the grown basis, the serve kernel
+   launched once per dispatch.
+5j. slice_drift: the serve -> drift -> refit -> swap loop at the same
+   settings: the fit's basis served (float32) with a ``DriftMonitor(
+   supervise=False, buffer_rows=32768, auto=True)`` attached; 64 queries of
+   512 rows of the fit's own data, then rows of ``planted_subspace(3072,
+   seed=1)`` one query a batch until the monitor arms (its EWMA weight set
+   so that this happens after its ring holds shifted rows only); exactly one
+   refresh published, within 1 degree of the seed-1 top-10, the server's
+   next batches on the new version with a lower residual ratio, the refit's
+   s8 call counted, the refit seconds and the swap latency.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -136,6 +156,17 @@ exits non-zero without printing a result:
    launches (and, with ``tol=1e-6``, in as many launches as iterations);
    then ``dist_extract_top_k`` against a dense ``eigh`` at d=12288, r=100
    within 0.5 degrees.
+11b. slice_deflate: the same fit with ``solver="deflation",
+   components_axis_size=5`` (5 lanes of 10): within 1 degree of the planted
+   top-50 (and its angle to slice_dsolve's fit), every one of the 10 merges
+   on the lanes, their device syncs counted, no Gram launch (d >= 4096
+   streams); one ``merged_top_k_deflation(tol=1e-3, iters=64,
+   with_info=True)`` on the last block's factors, its per-lane sweeps and
+   residuals, its span within 0.5 degrees of the exact merge; then on
+   ``bench.py --deflate``'s operand (d=2048, rank 16, spectrum 8 * 0.5^i, k=8
+   on 4 lanes) every lane of the cold, warm and grown (4 -> 8) solves within
+   0.5 degrees of the dense ``eigh``, the grown prefix bit for bit the
+   parent's.
 12. parity_mutant: the analyzer's one-CTA mutant kernel against its plain
    version (``torch.matmul``) at the audit shape (256, 1024, 8) and a
    ragged (100, 1000, 5): relative Frobenius error <= 1e-5 (FFMA in index
@@ -147,8 +178,9 @@ exits non-zero without printing a result:
    ``run_mutation_report``, device cuda) under the launch recorder and
    ``torch.profiler``: the 4 programs honour their contracts, every profiled
    kernel event has the grid, block and shared memory of its recorded
-   ``KernelLaunch`` (one event per launch), and 5 of 5 seeded mutations are
-   caught, the mutant's launch with grid [1, 1, 1].
+   ``KernelLaunch`` (one event per launch; a window the profiler left an
+   event out of is run again, three windows at most), and 5 of 5 seeded
+   mutations are caught, the mutant's launch with grid [1, 1, 1].
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -201,7 +233,9 @@ SERVE_TOL = 1e-5
 SERVE_K = 10
 SERVE_BURST = (512, 3072, SERVE_K)  # a full bucket: 8 queries x 64 rows
 SERVE_BULK = (65536, 3072, SERVE_K)  # 50,000 rows padded to their bucket
-SERVE_PARITY = ((64, 256, 8), SERVE_BURST, (1000, 3000, SERVE_K), SERVE_BULK)
+# ... and the grown basis's k' = 20 (slice_grow's burst buckets)
+SERVE_PARITY = ((64, 256, 8), SERVE_BURST, (1000, 3000, SERVE_K), SERVE_BULK, (512, 3072, 20),
+                (64, 3072, 20))
 # rows of a launch held bit for bit against a launch of those rows alone:
 # the burst's 512 rows and 300 of them take one-pair column tiles, the bulk
 # launch whole-k tiles, so its first 512 rows cross the tile-width boundary
@@ -262,6 +296,31 @@ MUTANT_AUDIT = (256, 1024, 8)  # the JAX mutant's (rows, d, k)
 MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
 ANALYSIS_PROGRAMS = 4
 ANALYSIS_MUTATIONS = 5
+ANALYSIS_WINDOWS = 3  # profiled windows of the analysis phase at most
+# the deflation route at the imagenet12288 shape: slice_dsolve's config with
+# the merge on 5 parallel-deflation lanes of 10
+DEFLATE_LANES = 5
+# bench.py --deflate's operand at its timing shape (bench.py:2966-3062): U
+# diag(s) U^T of rank 16, geometric spectrum 8 * 0.5^i (a 2x gap at every lane
+# boundary, so each lane's block is defined), k = 8 on 4 lanes, grown 4 -> 8
+DEFLATE_OPERAND = dict(d=2048, k=8, lanes=4, r=16)
+DEFLATE_LANE_DEG = 0.5
+# the cifar10 eval's basis grown to k' = 20 (the CLI's --grow-k path), served
+# by a replica at bf16 and int8
+GROW_K = 20
+GROW_QUERIES = 32  # queries of 64 rows
+REPLICA_STALENESS_MS = 500.0
+# the serve -> drift -> refit -> swap loop: 64 queries of 512 rows of the
+# fit's own data, then rows of the seed-1 model until the monitor's 32,768-row
+# ring holds only shifted rows (64 queries; the refit's 4 steps of 8 x 1024)
+DRIFT_QUERY_ROWS = 512
+DRIFT_BUFFER_ROWS = 32768
+DRIFT_SHIFT = dict(k_planted=10, gap=20.0, decay=0.8, noise=0.01, seed=1)
+# the residual EWMA's weight: one query a batch, it crosses the default arm
+# ratio (threshold / 2 = 0.125) ~89 shifted batches in, after the ring has
+# turned over (64 batches), so the refit fits shifted rows only
+DRIFT_EMA_ALPHA = 0.0015
+DRIFT_MAX_SHIFTED = 160
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -773,14 +832,25 @@ def eval_data(dev):
     return spec, spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
 
 
-def components_angle(est, spec) -> float:
+def basis_angle(v, spec) -> float:
+    """The largest principal angle in degrees between a ``(d, k)`` basis
+    (tensor or array) and the planted top-k."""
+    import numpy as np
     import torch
     from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 
+    if not isinstance(v, torch.Tensor):  # a registry's arrays are read-only
+        v = torch.from_numpy(np.array(v, np.float32))
+    return float(principal_angles_degrees(v.cpu(), torch.as_tensor(
+        spec.top_k(v.shape[1]))).max())
+
+
+def components_angle(est, spec) -> float:
+    import torch
+
     w = est.components_
     check(bool(torch.isfinite(w).all()), "components_ not finite")
-    return float(principal_angles_degrees(w.cpu(), torch.as_tensor(
-        spec.top_k(w.shape[1]))).max())
+    return basis_angle(w, spec)
 
 
 def slice_fit_eval_segmented(dev, card: str, work_dir: str, spec, data) -> int:
@@ -1334,10 +1404,11 @@ def synced_s(fn):
     return out, time.perf_counter() - t0
 
 
-def slice_dsolve(dev, card: str) -> int:
+def slice_dsolve(dev, card: str):
     """The large-d solver path: the crossover fit, the fused solve on its
     own operator, and the factor extract against a dense eigh; returns
-    the kernel's launches in the fused solve."""
+    the kernel's launches in the fused solve and the fit's components (on
+    the host)."""
     import torch
     import distributed_eigenspaces_tpu_torch as dett
     from distributed_eigenspaces_tpu_torch.algo.step import make_solve_core, merge_start
@@ -1382,6 +1453,7 @@ def slice_dsolve(dev, card: str) -> int:
          second_samples_per_s=samples / fit2_s,
          gram_launches=fit_launches[0], matvec_gram_launches=fit_launches[1], card=card)
     check(angle <= 1.0, f"dsolve fit angle {angle} > 1 degree")
+    w_host = w.cpu()
 
     # 2. the fused solve on the fit's own operator: the last block's factors,
     # from that block as the fit staged it
@@ -1435,7 +1507,7 @@ def slice_dsolve(dev, card: str) -> int:
     emit("slice_dsolve", part="extract", d=d, r=r, k=k, extract_vs_eigh_deg=extract_deg,
          extract_s=extract_s, dense_eigh_s=eigh_s, card=card)
     check(extract_deg <= 0.5, f"dsolve extract {extract_deg} deg from the dense eigh")
-    return launches
+    return launches, w_host
 
 
 def mutant_bound(shape) -> tuple[float, str]:
@@ -1507,23 +1579,34 @@ def analysis(dev, card: str) -> dict:
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
     from torch.profiler import ProfilerActivity, profile
 
-    sp.launches = sp.launches_i8 = sp.launches_f32 = mg.launches = mfb.launches = 0
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_warm(dev)
-        with geometry.recording() as launches:
-            rep = report.run_analysis(device=dev)
-            mut = report.run_mutation_report(device=dev)
-        torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = {"serve_project_bf16": sp.launches, "serve_project_i8": sp.launches_i8,
-              "serve_project_f32": sp.launches_f32, "matvec_gram": mg.launches,
-              "mutant_full_block": mfb.launches}
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
-    events = geometry.profiled_kernels(prof, geometry.RECORDED_KERNELS,
-                                       os.path.join(trace_dir, "chip_smoke_analysis_trace.json"))
-    mismatches = geometry.geometry_mismatches(events, launches)
+    # the profiler can leave a launch's kernel event out of a window (as
+    # device_ms finds): a window with fewer events than recorded launches is
+    # run again, up to ANALYSIS_WINDOWS times, each attempt printed; the
+    # checks below hold the last one
+    for attempt in range(1, ANALYSIS_WINDOWS + 1):
+        sp.launches = sp.launches_i8 = sp.launches_f32 = mg.launches = mfb.launches = 0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warm(dev)
+            with geometry.recording() as launches:
+                rep = report.run_analysis(device=dev)
+                mut = report.run_mutation_report(device=dev)
+            torch.cuda.synchronize()
+            time.sleep(PAUSE_S)
+        seconds = time.perf_counter() - t0
+        counts = {"serve_project_bf16": sp.launches, "serve_project_i8": sp.launches_i8,
+                  "serve_project_f32": sp.launches_f32, "matvec_gram": mg.launches,
+                  "mutant_full_block": mfb.launches}
+        events = geometry.profiled_kernels(
+            prof, geometry.RECORDED_KERNELS,
+            os.path.join(trace_dir, "chip_smoke_analysis_trace.json"))
+        mismatches = geometry.geometry_mismatches(events, launches)
+        emit("analysis", part="window", attempt=attempt, recorded_launches=len(launches),
+             profiled_events=len(events), geometry_mismatches=mismatches)
+        if len(events) == len(launches):
+            break
     for ev in events:
         emit("analysis", part="profiled_kernel", name=ev["name"], symbol=ev["symbol"],
              grid=ev["grid"], block=ev["block"], smem=ev["smem"], device_us=ev["dur_us"],
@@ -1557,6 +1640,411 @@ def analysis(dev, card: str) -> dict:
           f"analysis: {caught} of {len(mut['mutations'])} mutations caught")
     check(all(n >= 1 for n in counts.values()), f"analysis: launches {counts}")
     return counts
+
+
+def lane_angles_deg(v, truth, lanes: int) -> list[float]:
+    """Per lane: the largest principal angle between a lane's columns of
+    ``v`` and the same columns of ``truth`` (float64)."""
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    kb = v.shape[1] // lanes
+    return [float(principal_angles_degrees(v[:, i * kb:(i + 1) * kb].cpu(),
+                                           truth[:, i * kb:(i + 1) * kb].cpu()).max())
+            for i in range(lanes)]
+
+
+def counted_syncs(fn):
+    """``(fn(), syncs)``: the device synchronizations ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (one warning
+    each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def slice_deflate(dev, card: str, dsolve_w) -> int:
+    """The deflation route at the imagenet12288 shape (slice_dsolve's fit with
+    the merge on parallel-deflation lanes), one tol-stopped merge with its
+    per-lane counters, and every lane of the cold, warm and grown solves on
+    bench.py --deflate's operand against the dense eigh; returns the s8 calls
+    of the fit."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.algo import step as step_mod
+    from distributed_eigenspaces_tpu_torch.algo.step import make_solve_core, merge_start
+    from distributed_eigenspaces_tpu_torch.data.stream import quantize_block_i8_device
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops.linalg import (
+        merged_top_k_lowrank,
+        principal_angles_degrees,
+    )
+    from distributed_eigenspaces_tpu_torch.solvers import deflation as sdefl
+    from distributed_eigenspaces_tpu_torch.solvers import distributed as sd
+
+    d, k, m, n, T = (DSOLVE[f] for f in ("dim", "k", "num_workers",
+                                          "rows_per_worker", "num_steps"))
+    cfg = dett.PCAConfig(**DSOLVE, solver="deflation", components_axis_size=DEFLATE_LANES,
+                         subspace_iters=16, warm_start_iters=1, compute_dtype="bfloat16",
+                         stage_dtype="int8", backend="local")
+    check(cfg.uses_deflation_solve(), "deflate: the deflation merge is off")
+    check(tuple(merge_start(cfg, device=dev).shape) == (d, k),
+          "deflate: the lanes' start is not (d, k)")
+    t0 = time.perf_counter()
+    spec = dett.planted_subspace(d, **DSOLVE_DATA)
+    data = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    truth = torch.as_tensor(spec.top_k(k))
+
+    # 1. the fit; every merge on the lanes, counted with its device syncs
+    merges = {"calls": 0, "syncs": 0, "lanes": set()}
+    real_merge = step_mod.merged_top_k_deflation
+
+    def counted_merge(*a, **kw):
+        merges["calls"] += 1
+        merges["lanes"].add(kw["lanes"])
+        out, syncs = counted_syncs(lambda: real_merge(*a, **kw))
+        merges["syncs"] += syncs
+        return out
+
+    est = dett.OnlineDistributedPCA(cfg, device=dev)
+    gram_mod.launches = gram_mod.launches_s8 = 0
+    _, fit_s = synced_s(lambda: est.fit(data))
+    fit_launches = (gram_mod.launches, gram_mod.launches_s8)
+    w = est.components_
+    check(w.shape == (d, k) and bool(torch.isfinite(w).all()), "deflate fit: components_")
+    angle = float(principal_angles_degrees(w.cpu(), truth).max())
+    vs_dsolve = float(principal_angles_degrees(w.cpu(), dsolve_w).max())
+    _, fit2_s = synced_s(lambda: dett.OnlineDistributedPCA(cfg, device=dev).fit(data))
+    step_mod.merged_top_k_deflation = counted_merge
+    residual_syncs0 = sdefl.syncs
+    try:
+        dett.OnlineDistributedPCA(cfg, device=dev).fit(data)
+    finally:
+        step_mod.merged_top_k_deflation = real_merge
+    samples = T * m * n
+    emit("slice_deflate", part="fit",
+         config=f"imagenet12288 shape, d=12288 k=50 m=4 n=2048 T=10 solver=deflation "
+                f"components_axis_size={DEFLATE_LANES} 16 cold / 1 warm bf16, stage int8",
+         data="planted_subspace(12288, k_planted=50, gap=20, decay=0.05**(1/49), "
+              "noise=0.01, seed=0)",
+         trainer=est.trainer_used_, max_angle_deg=angle, vs_dsolve_fit_deg=vs_dsolve,
+         data_s=data_s, fit_s=fit_s, samples_per_s=samples / fit_s, second_fit_s=fit2_s,
+         second_samples_per_s=samples / fit2_s, gram_launches=fit_launches[0],
+         s8_calls=fit_launches[1], merges=merges["calls"], merge_lanes=sorted(merges["lanes"]),
+         merge_syncs=merges["syncs"], merge_residual_syncs=sdefl.syncs - residual_syncs0,
+         card=card)
+    check(angle <= 1.0, f"deflate fit angle {angle} > 1 degree")
+    check(merges["calls"] == T and merges["lanes"] == {DEFLATE_LANES},
+          f"deflate: {merges['calls']} lane merges ({merges['lanes']}), want {T} of "
+          f"{DEFLATE_LANES}")
+    # d >= 4096: every worker streams X^T (X V) (the reference's route rule), so
+    # the int8 stage reaches no Gram kernel
+    check(fit_launches == (0, 0), f"deflate fit: Gram launches {fit_launches}, want none")
+
+    # 2. one tol-stopped merge on the last round's factors, with its counters
+    x_last = quantize_block_i8_device(data[-m * n:].reshape(m, n, d))
+    vs = make_solve_core(cfg)(x_last, est.v0)
+    v_init = merge_start(cfg, device=dev)
+    exact = merged_top_k_lowrank(vs, k)
+    sdefl.merged_top_k_deflation(vs, k, lanes=DEFLATE_LANES, iters=4, v_init=v_init)  # warm-up
+    (v_tol, info), solve_s = synced_s(lambda: sdefl.merged_top_k_deflation(
+        vs, k, lanes=DEFLATE_LANES, tol=1e-3, iters=64, v_init=v_init, with_info=True))
+    _, all_syncs = counted_syncs(lambda: sdefl.merged_top_k_deflation(
+        vs, k, lanes=DEFLATE_LANES, tol=1e-3, iters=64, v_init=v_init))
+    fixed, fixed_s = synced_s(lambda: sdefl.merged_top_k_deflation(
+        vs, k, lanes=DEFLATE_LANES, iters=16, v_init=v_init))
+    span = float(principal_angles_degrees(v_tol.cpu(), exact.cpu()).max())
+    span_fixed = float(principal_angles_degrees(fixed.cpu(), exact.cpu()).max())
+    emit("slice_deflate", part="merge_with_info", operator=[d, m * k], lanes=DEFLATE_LANES,
+         tol=1e-3, iters=64, iters_used=info["iters_used"], residual=info["residual"],
+         residual_syncs=info["syncs"], device_syncs=all_syncs, solve_s=solve_s,
+         span_vs_exact_merge_deg=span, fixed16_s=fixed_s, fixed16_vs_exact_merge_deg=span_fixed,
+         card=card)
+    check(max(info["residual"]) <= 1e-3 and max(info["iters_used"]) < 64,
+          f"deflate merge: lanes did not converge {info}")
+    check(info["syncs"] == max(info["iters_used"]), "deflate merge: syncs != sweeps")
+    check(span <= DEFLATE_LANE_DEG and span_fixed <= DEFLATE_LANE_DEG,
+          f"deflate merge span {span} / {span_fixed} deg from the exact merge")
+    del data, x_last, vs, est
+
+    # 3. every lane against the dense eigh on the geometric operand
+    od, ok_, lanes, r = (DEFLATE_OPERAND[f] for f in ("d", "k", "lanes", "r"))
+    rng = np.random.default_rng(0)
+    u = np.linalg.qr(rng.standard_normal((od, r)))[0].astype(np.float32)
+    s = (8.0 * 0.5 ** np.arange(r)).astype(np.float32)
+    v_warm = np.linalg.qr(u[:, :ok_].astype(np.float64)
+                          + 0.02 * rng.standard_normal((od, ok_)))[0].astype(np.float32)
+    c = torch.as_tensor(u * np.sqrt(s)[None, :], device=dev)
+    mv = sd.factor_matvec(c)
+    eigh_v = torch.linalg.eigh(c @ c.T)[1][:, -ok_:].flip(-1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    start = torch.randn((od, ok_), generator=gen, device=dev)
+    sdefl.deflation_eig(mv, od, ok_, lanes=lanes, iters=2, v_init=start)  # warm-up
+    (cold, cold_info), cold_s = synced_s(lambda: sdefl.deflation_eig(
+        mv, od, ok_, lanes=lanes, iters=64, tol=1e-3, v_init=start, with_info=True))
+    warm, warm_s = synced_s(lambda: sdefl.deflation_eig(
+        mv, od, ok_, lanes=lanes, iters=12, v_init=start,
+        v0=torch.as_tensor(v_warm, device=dev)))
+    k0 = ok_ // 2
+    parent = sd.dist_subspace_eig(mv, od, k0, iters=12, v_init=start[:, :k0])
+    grown, grow_s = synced_s(lambda: sdefl.grow_basis(mv, parent, ok_, iters=12,
+                                                     v_init=start[:, k0:]))
+    angles = {"cold": lane_angles_deg(cold, eigh_v, lanes),
+              "warm": lane_angles_deg(warm, eigh_v, lanes),
+              "grown": lane_angles_deg(grown, eigh_v, lanes)}
+    prefix = bool(torch.equal(grown[:, :k0], parent))
+    emit("slice_deflate", part="lanes",
+         operand="bench.py --deflate: U diag(8 * 0.5^i) U^T, d=2048 rank 16, k=8, 4 lanes",
+         lane_angles_deg=angles, cold_iters_used=cold_info["iters_used"],
+         cold_residual=cold_info["residual"], cold_s=cold_s, warm_s=warm_s, grow_s=grow_s,
+         grown_prefix_bit_equal=prefix, budget_deg=DEFLATE_LANE_DEG, card=card)
+    for name, a in angles.items():
+        check(max(a) <= DEFLATE_LANE_DEG, f"deflate {name}: lanes {a} deg from the eigh")
+    check(prefix, "deflate: the grown prefix is not the parent bit for bit")
+    return fit_launches[1]
+
+
+def slice_grow(dev, card: str, work_dir: str, spec, data) -> dict:
+    """The CLI's --grow-k path at the cifar10 settings: fit, publish under a
+    publisher lease, grow to k' = 20 on the fit's state, publish the grown
+    version, tail it from a replica and serve it at bf16 and int8. Returns
+    the fit (for slice_drift), its s8 calls and the serve launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from distributed_eigenspaces_tpu_torch.serving import (
+        EigenbasisRegistry,
+        PublisherLease,
+        QueryServer,
+        ReplicaRegistry,
+    )
+    from distributed_eigenspaces_tpu_torch.solvers import grow_basis
+
+    cfg = dett.PCAConfig(**EVAL_FIT)
+    est = dett.OnlineDistributedPCA(cfg)
+    gram_mod.launches_s8 = 0
+    _, fit_s = synced_s(lambda: est.fit(data))
+    s8_calls = gram_mod.launches_s8
+    fit_angle = components_angle(est, spec)
+    reg_dir = os.path.join(work_dir, "registry_grow")
+    lease = PublisherLease(reg_dir, owner="chip-smoke", lease_ms=5000.0).acquire(10.0)
+    lease.start_heartbeat()
+    rep = None
+    try:
+        reg = EigenbasisRegistry(registry_dir=reg_dir, lease=lease)
+        parent = reg.publish_fit(est)
+        rep = ReplicaRegistry(reg_dir, name="replica-0", staleness_ms=REPLICA_STALENESS_MS,
+                              poll_s=0.005)
+        sigma = est.state.sigma_tilde.float()
+        v_parent = torch.as_tensor(np.array(parent.v), device=dev)
+        v_init = torch.randn((cfg.dim, GROW_K - cfg.k), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(11))
+        (v_grown, info), grow_s = synced_s(lambda: grow_basis(
+            lambda v: sigma @ v, v_parent, GROW_K, iters=cfg.subspace_iters,
+            tol=cfg.solver_tol, v_init=v_init, with_info=True))
+        grown_host = v_grown.cpu().numpy()
+        t_pub = time.perf_counter()
+        grown = reg.publish_grown(parent, v_grown)
+        publish_s = time.perf_counter() - t_pub
+        deadline = time.perf_counter() + 10.0
+        while rep.latest() is None or rep.latest().version < grown.version:
+            check(time.perf_counter() < deadline, "grow: the replica never installed the "
+                                                  "grown version")
+            time.sleep(0.002)
+        install_s = time.perf_counter() - t_pub
+        installed = rep.get(grown.version)
+        gram = grown_host.T @ grown_host
+        orth_err = float(np.abs(gram - np.eye(GROW_K)).max())
+        lineage_ok = ({f: grown.lineage.get(f) for f in ("producer", "grew_from", "k_from",
+                                                       "k_to")}
+                      == {"producer": "grow_basis", "grew_from": parent.version,
+                          "k_from": cfg.k, "k_to": GROW_K})
+        health = rep.health()
+        stats = dict(
+            fit_s=fit_s, fit_angle_deg=fit_angle, s8_calls=s8_calls, grow_s=grow_s,
+            grow_iters=info["iters_used"], publish_s=publish_s, install_s=install_s,
+            parent_version=parent.version, grown_version=grown.version,
+            lineage=grown.lineage, lease_epoch=lease.epoch,
+            prefix_bit_equal=bool(np.array_equal(grown.v[:, :cfg.k], parent.v)),
+            orthonormality_max_abs=orth_err,
+            grown_vs_planted_top10_deg=float(basis_angle(grown_host[:, :cfg.k], spec)),
+            replica_grown_installs=rep.grown_installs,
+            replica_payload_bit_equal=bool(np.array_equal(installed.v, grown_host)),
+            replica_lineage_grew_from=installed.lineage.get("grew_from"),
+            replica_version_lag=rep.version_lag(), replica_last_lag_ms=health["last_lag_ms"],
+            replica_stale_installs=health["stale_installs"],
+            staleness_ms=REPLICA_STALENESS_MS)
+        emit("slice_grow", part="grow_and_replicate",
+             config=f"cifar10 eval settings ({EVAL_FIT['dim']}, k={cfg.k}) grown to "
+                    f"k'={GROW_K}, iters {cfg.subspace_iters}, tol {cfg.solver_tol}",
+             card=card, **stats)
+        check(stats["prefix_bit_equal"], "grow: the prefix is not the parent bit for bit")
+        check(lineage_ok, f"grow: lineage {grown.lineage}")
+        check(orth_err <= 1e-5, f"grow: ||V^T V - I|| = {orth_err}")
+        check(rep.grown_installs == 1, f"grow: {rep.grown_installs} grown installs")
+        check(stats["replica_payload_bit_equal"], "grow: the replica's payload differs")
+        check(stats["replica_version_lag"] == 0, "grow: the replica lags the store")
+        check(health["last_lag_ms"] is not None
+              and health["last_lag_ms"] <= REPLICA_STALENESS_MS,
+              f"grow: propagation {health['last_lag_ms']} ms > {REPLICA_STALENESS_MS}")
+
+        # the replica serves the grown basis through the serve kernel
+        rng = np.random.default_rng(5)
+        queries = [spec.sample(rng, 64) for _ in range(GROW_QUERIES)]
+        v32 = torch.as_tensor(grown_host, device=dev)
+        direct = [torch.matmul(torch.as_tensor(q, device=dev), v32).cpu() for q in queries]
+        launched = {}
+        for serve_dtype, route, counter in (("bfloat16", "bf16", "launches"),
+                                            ("int8", "i8", "launches_i8")):
+            scfg = dataclasses.replace(cfg, k=GROW_K, serve_dtype=serve_dtype)
+            with QueryServer(rep, scfg) as srv:
+                eng = srv.engine
+                dispatches = [0]
+                project = eng.project
+
+                def counted(x, v, project=project, dispatches=dispatches):
+                    dispatches[0] += 1
+                    return project(x, v)
+
+                eng.project = counted
+                setattr(sp, counter, 0)
+                t0 = time.perf_counter()
+                tickets = [srv.submit(q) for q in queries]
+                served = [t.result(timeout=300) for t in tickets]
+                burst_s = time.perf_counter() - t0
+                launched[route] = getattr(sp, counter)
+            angles = torch.cat([row_angles_deg(r.z, ref) for r, ref in zip(served, direct)])
+            versions = sorted({r.version for r in served})
+            emit("slice_grow", part="serve", serve_dtype=serve_dtype, k=GROW_K,
+                 queries=len(served), rows=64 * len(served), versions=versions,
+                 launches=launched[route], project_dispatches=dispatches[0],
+                 max_angle_deg=float(angles.max()), burst_s=burst_s, card=card)
+            check(versions == [grown.version], f"grow {serve_dtype}: served {versions}")
+            check(launched[route] == dispatches[0] and launched[route] > 0,
+                  f"grow {serve_dtype}: {launched[route]} launches for {dispatches[0]} "
+                  "dispatches")
+            check(float(angles.max()) <= 0.2,
+                  f"grow {serve_dtype}: served row at {float(angles.max())} deg > 0.2")
+    finally:
+        if rep is not None:
+            rep.close()
+        lease.release()
+    return {"est": est, "s8": s8_calls, "serve": launched}
+
+
+def slice_drift(dev, card: str, est, spec) -> dict:
+    """The serve -> drift -> refit -> swap loop at the cifar10 settings: the
+    fit's basis served with a DriftMonitor attached, in-distribution traffic,
+    then the seed-1 model's rows until the monitor refits (its s8 pair) and
+    publishes, and the server's next batches carry the new version."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from distributed_eigenspaces_tpu_torch.serving import (
+        DriftMonitor,
+        EigenbasisRegistry,
+        QueryServer,
+    )
+
+    cfg = dett.PCAConfig(**EVAL_FIT)
+    shifted = dett.planted_subspace(EVAL_FIT["dim"], **DRIFT_SHIFT)
+    reg = EigenbasisRegistry(keep=4)
+    v1 = reg.publish_fit(est)
+    published_at = []
+    publish = reg.publish
+
+    def stamped(*a, **kw):
+        out = publish(*a, **kw)
+        published_at.append(time.perf_counter())
+        return out
+
+    reg.publish = stamped
+    mon = DriftMonitor(reg, cfg, supervise=False, buffer_rows=DRIFT_BUFFER_ROWS, auto=True,
+                       ema_alpha=DRIFT_EMA_ALPHA, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def query(model):  # rows drawn on the card, submitted as host numpy
+        return model.sample(gen, DRIFT_QUERY_ROWS).cpu().numpy()
+
+    before_ratio, after_ratio = [], []
+    requests = 0
+    sp.launches_f32 = 0
+    gram_mod.launches_s8 = 0
+    with QueryServer(reg, cfg, drift=mon) as srv:
+        t0 = time.perf_counter()
+        for _ in range(64):  # the fit's own data
+            r = srv.submit(query(spec)).result(timeout=300)
+            requests += 1
+            check(r.version == v1.version, "drift: a version moved on in-distribution rows")
+        in_dist_drift = mon.residual_drift()
+        shifted_queries = 0
+        while not (mon.refreshes or mon.refreshing()):
+            check(shifted_queries < DRIFT_MAX_SHIFTED,
+                  f"drift: no refresh after {shifted_queries} shifted queries "
+                  f"(drift {mon.residual_drift()})")
+            r = srv.submit(query(shifted)).result(timeout=300)
+            requests += 1
+            before_ratio.append(float(r.residual_sq.sum() / r.input_sq.sum()))
+            shifted_queries += 1
+        buffered = mon.buffered_rows()
+        mon.join_refresh(timeout=300)
+        check(not mon.refreshing(), "drift: the refresh did not finish in 300 s")
+        refit_s8 = gram_mod.launches_s8
+        v2 = reg.latest()
+        served_new = None
+        for _ in range(8):
+            r = srv.submit(query(shifted)).result(timeout=300)
+            requests += 1
+            if served_new is None and r.version == v2.version:
+                served_new = time.perf_counter()
+            after_ratio.append(float(r.residual_sq.sum() / r.input_sq.sum()))
+        loop_s = time.perf_counter() - t0
+    f32_launches = sp.launches_f32
+    stale = basis_angle(v1.v, shifted)
+    fresh = basis_angle(v2.v, shifted)
+    swap_ms = (served_new - published_at[0]) * 1e3 if served_new and published_at else None
+    emit("slice_drift",
+         config="cifar10 eval settings, DriftMonitor(supervise=False, "
+                f"buffer_rows={DRIFT_BUFFER_ROWS}, auto=True, ema_alpha={DRIFT_EMA_ALPHA})",
+         traffic=f"64 x {DRIFT_QUERY_ROWS} rows of planted_subspace(3072, seed=0), then "
+                 f"{shifted_queries} x {DRIFT_QUERY_ROWS} of planted_subspace(3072, seed=1)",
+         in_distribution_drift=in_dist_drift, shifted_queries=shifted_queries,
+         buffered_rows_at_arm=buffered, refreshes=mon.refreshes,
+         published=[v.version for v in (v1, v2)], last_score=mon.last_score,
+         refit_s=mon.last_refit_s, refit_s8_calls=refit_s8, swap_ms=swap_ms,
+         stale_vs_shift_deg=stale, refreshed_vs_shift_deg=fresh,
+         residual_ratio_before=float(np.median(before_ratio[-8:])),
+         residual_ratio_after=float(np.median(after_ratio)), serve_f32_launches=f32_launches,
+         requests=requests, failed_requests=0, loop_s=loop_s, lineage=v2.lineage,
+         card=card)
+    check(mon.refreshes == 1 and v2.version == v1.version + 1 and len(published_at) == 1,
+          f"drift: {mon.refreshes} refreshes, {len(published_at)} publishes, want one")
+    check(buffered == DRIFT_BUFFER_ROWS and shifted_queries >= DRIFT_BUFFER_ROWS // DRIFT_QUERY_ROWS,
+          "drift: the refit's ring still held in-distribution rows")
+    check(fresh <= 1.0, f"drift: the refreshed basis is {fresh} deg from the shifted truth")
+    check(served_new is not None, "drift: the server never served the new version")
+    check(max(after_ratio) < min(before_ratio[-8:]),
+          "drift: the residual ratio did not fall after the swap")
+    check(refit_s8 == 1, f"drift: the refit made {refit_s8} s8 calls, want 1")
+    check(f32_launches > 0, "drift: the fp32 serve kernel never launched")
+    return {"s8": refit_s8, "serve_f32": f32_launches}
 
 
 def main() -> int:
@@ -1769,6 +2257,11 @@ def main() -> int:
                                                                  eval_spec, eval_rows),
                       "eval masked": slice_fit_masked(dev, card, eval_spec, eval_rows)}
         slice_fit_interval(dev, card, eval_spec, eval_rows)
+        # 5i.-5j. elastic k through a replica, and the drift loop
+        grow = slice_grow(dev, card, work_dir, eval_spec, eval_rows)
+        s8_by_path["grow fit"] = grow["s8"]
+        drift = slice_drift(dev, card, grow.pop("est"), eval_spec)
+        s8_by_path["drift refit"] = drift["s8"]
         del clip, eval_rows
 
     # 6.-8. the read path
@@ -1780,7 +2273,9 @@ def main() -> int:
     # 9.-11. the large-d solver path
     mg_err = parity_matvec_gram(dev)
     mg_timing = timing_matvec_gram(dev, card)
-    mg_launches = slice_dsolve(dev, card)
+    mg_launches, dsolve_w = slice_dsolve(dev, card)
+    # 11b. the same shape on the parallel-deflation lanes
+    s8_by_path["deflation fit"] = slice_deflate(dev, card, dsolve_w)
 
     # 12.-14. the analyzer's kernel gate and its mutant
     mutant_err = parity_mutant(dev)
@@ -1800,12 +2295,18 @@ def main() -> int:
                 "at_shapes": [dict(timing[(other, dtype)], shape=list(other),
                                    max_abs_err=max_abs[(other, dtype, 0)]) for other in also]}
 
+    serve_by_path = {route: {"slice_serve": n} for route, n in serve_launches.items()}
+    for route, n in grow["serve"].items():
+        serve_by_path[route]["slice_grow (k'=20, replica)"] = n
+    serve_by_path["f32"]["slice_drift"] = drift["serve_f32"]
+
     def serve_row(name, route):
         t = serve_timing[(SERVE_BULK, route)]
         b = serve_timing[(SERVE_BURST, route)]
         return {"name": name, "route": "cuda", "source": SERVE_SOURCE,
                 "replaces": SERVE_REPLACES.get(route, SERVE_F32_NOTE),
-                "launches": serve_launches[route],
+                "launches": sum(serve_by_path[route].values()),
+                "launches_by_path": serve_by_path[route],
                 "max_abs_err": serve_err[route], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1826,7 +2327,8 @@ def main() -> int:
              launches=sum(s8_by_path.values()), launches_by_path=s8_by_path,
              launches_note="s8 calls (each one transpose and one TMA launch): the two "
                            "eval fits, clip768's 10 steps, the eval settings segmented "
-                           "and masked", max_abs_err=s8_err, shape=list(CIFAR),
+                           "and masked, the grow fit, the drift refit (the deflation fit "
+                           "streams at d=12288: none)", max_abs_err=s8_err, shape=list(CIFAR),
              kernel=" + ".join(la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)),
              kernels=[la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)],
              at_shapes=[dict(s8_timing[shape], shape=list(shape))

@@ -11,7 +11,11 @@ device, and raise when no card is present.
 
 from __future__ import annotations
 
-from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+from distributed_eigenspaces_tpu_torch.algo.online import (
+    OnlineState,
+    one_shot_round,
+    online_distributed_pca,
+)
 from distributed_eigenspaces_tpu_torch.algo.scan import (
     SegmentState,
     make_scan_fit,
@@ -24,18 +28,36 @@ from distributed_eigenspaces_tpu_torch.data.synthetic import (
     planted_spectrum,
     planted_subspace,
 )
+from distributed_eigenspaces_tpu_torch.ops.linalg import (
+    gram,
+    principal_angles,
+    principal_angles_degrees,
+    projector,
+    subspace_iteration,
+    top_k_eigvecs,
+)
+from distributed_eigenspaces_tpu_torch.parallel.worker_pool import WorkerPool
 
 __all__ = [
     "OnlineDistributedPCA",
     "OnlineState",
     "PCAConfig",
     "SegmentState",
+    "WorkerPool",
     "entry",
+    "gram",
     "make_scan_fit",
     "make_segmented_fit",
     "make_train_step",
+    "one_shot_round",
+    "online_distributed_pca",
     "planted_spectrum",
     "planted_subspace",
+    "principal_angles",
+    "principal_angles_degrees",
+    "projector",
+    "subspace_iteration",
+    "top_k_eigvecs",
 ]
 
 

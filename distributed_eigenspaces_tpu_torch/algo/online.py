@@ -176,3 +176,16 @@ def online_distributed_pca(
             on_step(state.step, state, v_bar)
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)
     return w, state
+
+
+def one_shot_round(x_blocks, k: int, *, pool: WorkerPool | None = None,
+                   backend: str = "auto", device="cuda"):
+    """One distributed round, as the reference's ``one_shot_round`` (the
+    CLI's one-shot mode): ``(m, n, d)`` blocks -> ``(sigma_bar (d, d),
+    v_bar (d, k))``, the merged projector average and its top-k. ``pool``
+    defaults to an ``m``-worker ``WorkerPool`` (eigh workers) on
+    ``device``."""
+    x = torch.as_tensor(x_blocks)
+    if pool is None:
+        pool = WorkerPool(x.shape[0], backend=backend, device=device)
+    return pool.round(pool.shard(x), k)

@@ -2,11 +2,13 @@
 
 Counterpart of ``distributed_eigenspaces_tpu/algo/step.py`` with
 ``mesh=None``: the per-worker solves, the merge (exact low-rank, or above
-the crossover the distributed factor-operator solve) and the fold into
+the crossover the distributed factor-operator solve or its
+parallel-deflation lanes) and the fold into
 ``sigma_tilde``. PyTorch runs eagerly, so the reference's jitted cold and
 warm executables are two plain functions here. Worker solves and the merge
 run under the profiler regions the reference's traces name
-(``det_worker_solve`` / ``det_merge`` / ``det_dist_merge``).
+(``det_worker_solve`` / ``det_merge`` / ``det_dist_merge`` /
+``det_deflation_merge``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from distributed_eigenspaces_tpu_torch.parallel.worker_pool import (
     _local_eigenspaces,
     _masked_projector_mean,
 )
+from distributed_eigenspaces_tpu_torch.solvers.deflation import merged_top_k_deflation
 from distributed_eigenspaces_tpu_torch.solvers.distributed import (
     _default_oversample,
     merged_top_k_distributed,
@@ -66,19 +69,31 @@ def make_warm_solve_core(cfg: PCAConfig):
 def merge_knobs(cfg: PCAConfig) -> dict:
     """The crossover-merge arguments of :func:`merge_core` for ``cfg``:
     ``dist_iters`` and ``dist_tol`` set when ``cfg.uses_distributed_solve()``,
-    both None below the crossover (the exact low-rank merge)."""
+    ``deflate_lanes`` (``cfg.components_axis_size``) when also
+    ``cfg.uses_deflation_solve()``; all None below the crossover (the exact
+    low-rank merge)."""
     dist_iters = cfg.subspace_iters if cfg.uses_distributed_solve() else None
-    return {"dist_iters": dist_iters,
+    lanes = (cfg.components_axis_size
+             if dist_iters is not None and cfg.uses_deflation_solve() else None)
+    return {"dist_iters": dist_iters, "deflate_lanes": lanes,
             "dist_tol": cfg.solver_tol if dist_iters is not None else None}
 
 
 def merge_core(vs: torch.Tensor, k: int, mask=None, dist_iters=None,
-               dist_tol=None, v_init=None) -> torch.Tensor:
+               dist_tol=None, v_init=None, deflate_lanes=None) -> torch.Tensor:
     """Masked top-k of the mean of the workers' projectors (the flat
     merge); an all-masked round merges to zeros. ``dist_iters`` (set when
     ``cfg.uses_distributed_solve()``) runs the distributed subspace solve
     of the factor operator from the start ``v_init (d, k')`` instead of
-    the exact low-rank route, stopping early at ``dist_tol``."""
+    the exact low-rank route, stopping early at ``dist_tol``;
+    ``deflate_lanes`` runs that solve as parallel-deflation lanes from
+    ``v_init (d, k)``."""
+    if dist_iters is not None and deflate_lanes is not None:
+        with record_function("det_deflation_merge"):
+            return merged_top_k_deflation(
+                vs, k, lanes=deflate_lanes, mask=mask, iters=dist_iters,
+                tol=dist_tol, v_init=v_init,
+            )
     if dist_iters is not None:
         with record_function("det_dist_merge"):
             return merged_top_k_distributed(
@@ -90,12 +105,15 @@ def merge_core(vs: torch.Tensor, k: int, mask=None, dist_iters=None,
 
 def merge_start(cfg: PCAConfig, *, device, v_init=None):
     """The ``(d, k')`` start of the crossover merge (``k' = k`` plus the
-    default oversample of the ``m k``-wide factor operator), or None below
-    the crossover: ``v_init`` when given, else drawn from ``cfg.seed``
-    (the reference draws it from ``jax.random.PRNGKey(0)`` every round)."""
+    default oversample of the ``m k``-wide factor operator; the deflation
+    lanes take no oversample, ``k' = k``), or None below the crossover:
+    ``v_init`` when given, else drawn from ``cfg.seed`` (the reference
+    draws it from ``jax.random.PRNGKey(0)`` every round)."""
     if not cfg.uses_distributed_solve():
         return None
-    kk = cfg.k + _default_oversample(cfg.k, cfg.num_workers * cfg.k)
+    kk = cfg.k
+    if not cfg.uses_deflation_solve():
+        kk += _default_oversample(cfg.k, cfg.num_workers * cfg.k)
     return initial_basis(cfg.dim, kk, seed=cfg.seed, device=device, v0=v_init)
 
 

@@ -5,12 +5,14 @@ api/estimator.py`` with the dense trainers of one device: the whole-fit
 scan, its segmented and checkpointable twin (``checkpoint_dir``, or a
 staged schedule over ``SCAN_STAGE_BYTES_MAX``), the masked whole fits of
 both (``worker_masks`` as a ``(T, m)`` sequence), and the per-step loop
-(``fit_stream``, per-step hooks, mask generators). ``fit`` resolves its
-trainer with the reference's rule (:func:`choose_trainer`) and raises the
-reference's ``ValueError``s for combinations it refuses. Where the rule
-picks a trainer the port lacks (the feature-sharded ones, ROADMAP.md Queue
-1 item 15), the estimator raises before staging anything, instead of
-fitting under another trainer's name.
+(``fit_stream``, ``partial_fit``, per-step hooks, mask generators), plus the
+reference's ``transform`` / ``inverse_transform`` / ``score`` and the
+``matrix_w`` alias. ``fit`` resolves its trainer with the reference's rule
+(:func:`choose_trainer`) and raises the reference's ``ValueError``s for
+combinations it refuses. Where the rule, or the caller, picks a trainer the
+port lacks (the feature-sharded ones, ``"sketch"``, ``"fleet"``: ROADMAP.md
+Queue 1 items 15 and 9f), the estimator raises ``NotImplementedError``
+before staging anything, instead of fitting under another trainer's name.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from distributed_eigenspaces_tpu_torch.algo.online import (
 )
 from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
 from distributed_eigenspaces_tpu_torch.api.runner import extract_dense, make_whole_fit
-from distributed_eigenspaces_tpu_torch.config import PCAConfig
+from distributed_eigenspaces_tpu_torch.config import PCAConfig, _not_ported
 from distributed_eigenspaces_tpu_torch.data.bin_stream import window_stream
 from distributed_eigenspaces_tpu_torch.data.stream import (
     block_stream,
@@ -32,12 +34,22 @@ from distributed_eigenspaces_tpu_torch.data.stream import (
     stage_blocks,
 )
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
-from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis
+from distributed_eigenspaces_tpu_torch.ops.linalg import (
+    initial_basis,
+    principal_angles_degrees,
+)
 from distributed_eigenspaces_tpu_torch.ops.serve_project import project_exact
 from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
 from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
 
-TRAINERS = ("auto", "scan", "step", "segmented")
+TRAINERS = ("auto", "step", "scan", "segmented", "sketch", "fleet")
+
+#: trainers the reference accepts that the port refuses, with the ROADMAP
+#: items that will add them
+_UNPORTED_TRAINERS = {
+    "sketch": "Queue 1 items 15 and 9f (the feature-sharded sketch trainer)",
+    "fleet": "Queue 1 items 15 and 9f (parallel/fleet.py)",
+}
 
 #: d*k above which the reference's ``backend="auto"`` whole fit takes the
 #: feature-sharded sketch trainer (its ``SKETCH_DK_CROSSOVER``)
@@ -180,6 +192,8 @@ class OnlineDistributedPCA:
                  segment: int = 50):
         if trainer not in TRAINERS:
             raise ValueError(f"unknown trainer {trainer!r}; one of {TRAINERS}")
+        if trainer in _UNPORTED_TRAINERS:
+            raise _not_ported(f"trainer={trainer!r}", _UNPORTED_TRAINERS[trainer])
         self.cfg = cfg
         self.device = resolve_device(device)
         self.trainer = trainer
@@ -372,14 +386,15 @@ class OnlineDistributedPCA:
     def fit_stream(self, stream, *, on_step=None, worker_masks=None,
                    max_steps="auto") -> "OnlineDistributedPCA":
         """Fit (or continue fitting) on an iterable of ``(m, n, dim)`` blocks
-        with the per-step loop. Under an int8 stage each block is quantized
-        as the whole fit stages it (:func:`~..data.stream.stage_blocks`), so
-        a continued fit sees the same int8 blocks; float blocks go as they
-        are (the worker solve casts them to the compute dtype)."""
+        with the per-step loop. Blocks go as they are, whatever
+        ``stage_dtype`` says: as in the reference, only the whole-fit
+        trainers stage (an int8 stage quantizes there), and the per-step
+        route casts each block to the compute dtype inside the worker
+        solve. So ``fit(trainer="step")``, ``on_step`` hooks and mask
+        generators fit the same float blocks with or without an int8
+        stage."""
         _refuse_feature_sharded(self.cfg, whole_fit=False)
         self.trainer_used_ = "step"
-        if self.cfg.resolved_stage_dtype() == "int8":
-            stream = stage_blocks(stream, "int8")
         w, state = online_distributed_pca(
             stream, self.cfg, device=self.device, state=self.state,
             on_step=on_step, worker_masks=worker_masks, max_steps=max_steps,
@@ -387,6 +402,12 @@ class OnlineDistributedPCA:
         )
         self._w, self.state = w, state
         return self
+
+    def partial_fit(self, x_blocks) -> "OnlineDistributedPCA":
+        """Fold one more ``(m, n, dim)`` step into the running estimate (no
+        step cap: extra online rounds past T keep refining)."""
+        return self.fit_stream([torch.as_tensor(x_blocks).to(self.device)],
+                               max_steps=None)
 
     # -- results ------------------------------------------------------------
 
@@ -396,6 +417,9 @@ class OnlineDistributedPCA:
         if self._w is None:
             raise RuntimeError("call fit() first")
         return self._w
+
+    # the reference's name for it (its notebook's ``matrix_w``)
+    matrix_w = components_
 
     def transform(self, x, *, serve=None) -> torch.Tensor:
         """Project ``(N, dim) -> (N, k)`` (or ``(dim,) -> (k,)``) in
@@ -426,3 +450,24 @@ class OnlineDistributedPCA:
 
     def fit_transform(self, data, **kw) -> torch.Tensor:
         return self.fit(data, **kw).transform(data)
+
+    def inverse_transform(self, z) -> torch.Tensor:
+        """Back-project ``(N, k) -> (N, dim)`` (reconstruction)."""
+        w = self.components_
+        return torch.matmul(torch.as_tensor(z).to(device=w.device, dtype=w.dtype), w.mT)
+
+    def score(self, x, exact_w=None) -> dict:
+        """Diagnostics: the explained-variance ratio on ``x`` (the summed
+        column variances of ``x W`` over those of ``x``, in ``cfg.dtype``);
+        with ``exact_w`` also the worst principal angle in degrees against
+        that subspace."""
+        w = self.components_
+        x = torch.as_tensor(x).to(device=w.device, dtype=torch_dtype(self.cfg.dtype))
+        z = torch.matmul(x, w.to(x.dtype))
+        total = torch.sum(torch.var(x.float(), dim=0, correction=0))
+        explained = torch.sum(torch.var(z.float(), dim=0, correction=0))
+        out = {"explained_variance_ratio": float(explained / total)}
+        if exact_w is not None:
+            ang = principal_angles_degrees(w, torch.as_tensor(exact_w).to(w.device))
+            out["max_principal_angle_deg"] = float(torch.max(ang))
+        return out

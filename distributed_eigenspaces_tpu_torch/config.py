@@ -53,17 +53,20 @@ class PCAConfig:
       discount: ``"1/T"`` | ``"1/t"`` | ``"notebook"`` (bug-compatible).
       backend: ``"auto"`` | ``"local"`` (both run the workers as a batch
         dimension on one device).
-      solver: ``"eigh"`` | ``"subspace"`` | ``"distributed"``: the local
-        eigensolver; ``"distributed"`` runs the subspace machinery locally
-        and, above ``eigh_crossover_d``, the factor-operator merge of
-        ``solvers/`` (``uses_distributed_solve()``).
+      solver: ``"eigh"`` | ``"subspace"`` | ``"distributed"`` |
+        ``"deflation"``: the local eigensolver; ``"distributed"`` runs the
+        subspace machinery locally and, above ``eigh_crossover_d``, the
+        factor-operator merge of ``solvers/`` (``uses_distributed_solve()``);
+        ``"deflation"`` the same, with the merge on parallel-deflation lanes
+        (``uses_deflation_solve()``, ``solvers/deflation.py``).
       eigh_crossover_d: the merge runs the distributed solve when ``dim``
         exceeds it (strictly).
       subspace_iters: cold power-iteration steps (and the crossover
         merge's, cold or warm).
       solver_tol: residual at which the crossover merge stops early, or
         None (always ``subspace_iters``).
-      components_axis_size: deflation lanes; must stay 1 in this port.
+      components_axis_size: the deflation merge's lane count (equal lanes,
+        batched on the one device); > 1 needs ``solver="deflation"``.
       warm_start_iters: ``"auto"`` (2 under the subspace solver), an int,
         or None (every step cold).
       orth_method: ``"cholqr2"`` | ``"qr"``; warm_orth_method likewise, or
@@ -240,8 +243,7 @@ class PCAConfig:
             )
 
     def _validate_solver(self) -> None:
-        """The reference's checks of the solver knobs, then the refusal of
-        the parallel-deflation solve."""
+        """The reference's checks of the solver knobs."""
         tol = self.solver_tol
         if tol is not None and (
             not isinstance(tol, (int, float)) or isinstance(tol, bool)
@@ -275,11 +277,6 @@ class PCAConfig:
         if not isinstance(cross, int) or isinstance(cross, bool) or cross < 1:
             raise ValueError(
                 f"eigh_crossover_d must be an int >= 1, got {cross!r}"
-            )
-        if self.solver == "deflation":
-            raise _not_ported(
-                "solver='deflation' (and components_axis_size > 1)",
-                "Queue 1 item 13 (solvers/deflation.py)",
             )
 
     def _validate_serve(self) -> None:
@@ -354,7 +351,7 @@ class PCAConfig:
         """Warm-start iteration count, or None for all-cold steps:
         ``"auto"`` is 2 under the subspace-family solvers; eigh never
         warms."""
-        if self.solver not in ("subspace", "distributed"):
+        if self.solver not in ("subspace", "distributed", "deflation"):
             return None
         if self.warm_start_iters == "auto":
             return 2
@@ -362,16 +359,25 @@ class PCAConfig:
 
     def resolved_local_solver(self) -> str:
         """The solver the per-worker and dense eigensolves run:
-        ``"distributed"`` solves locally with the subspace machinery."""
-        if self.solver == "distributed":
+        ``"distributed"`` and ``"deflation"`` solve locally with the
+        subspace machinery."""
+        if self.solver in ("distributed", "deflation"):
             return "subspace"
         return self.solver
 
     def uses_distributed_solve(self) -> bool:
         """True when the merge runs the distributed eigensolve
-        (``solvers/``): ``solver="distributed"`` and ``dim`` strictly above
-        ``eigh_crossover_d``."""
-        return self.solver == "distributed" and self.dim > self.eigh_crossover_d
+        (``solvers/``): ``solver="distributed"`` or its lane twin
+        ``"deflation"``, and ``dim`` strictly above ``eigh_crossover_d``."""
+        return (self.solver in ("distributed", "deflation")
+                and self.dim > self.eigh_crossover_d)
+
+    def uses_deflation_solve(self) -> bool:
+        """True when that merge runs the parallel-deflation lanes
+        (``solvers/deflation.py``, ``components_axis_size`` of them) instead
+        of the single-block distributed iteration: ``solver="deflation"``
+        above the crossover."""
+        return self.solver == "deflation" and self.dim > self.eigh_crossover_d
 
     def resolved_warm_orth(self) -> str:
         """Orthonormalization for warm solver rounds."""

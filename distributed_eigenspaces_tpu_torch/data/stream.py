@@ -1,8 +1,8 @@
 """Streaming batcher: ``(N, d)`` rows -> per-step ``(m, n, d)`` worker blocks,
 and the staging contract of those blocks.
 
-Counterpart of ``block_stream``, ``quantize_block_i8``,
-``quantize_block_i8_device`` and ``stage_blocks`` in
+Counterpart of ``make_batches``, ``block_stream``, ``synthetic_stream``,
+``quantize_block_i8``, ``quantize_block_i8_device`` and ``stage_blocks`` in
 ``distributed_eigenspaces_tpu/data/stream.py``: the cursor advances every
 step, the remainder policy for a final partial step is explicit, and an
 int8 stage quantizes each block with one global symmetric scale.
@@ -16,6 +16,31 @@ import numpy as np
 import torch
 
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+
+
+def make_batches(n_rows: int, batch_size: int, *, keep_tail: bool = True):
+    """Contiguous index ranges ``[(lo, hi), ...]`` over ``n_rows`` rows:
+    the ragged tail kept (``keep_tail=True``) or dropped."""
+    ranges = [(lo, min(lo + batch_size, n_rows)) for lo in range(0, n_rows, batch_size)]
+    if not keep_tail and ranges and ranges[-1][1] - ranges[-1][0] < batch_size:
+        ranges.pop()
+    return ranges
+
+
+def synthetic_stream(spectrum, *, num_workers: int, rows_per_worker: int,
+                     num_steps: int, seed: int = 0, generator=None,
+                     dtype="float32") -> Iterator[torch.Tensor]:
+    """Fresh planted-spectrum draws every step: ``num_steps`` tensors of
+    ``(num_workers, rows_per_worker, d)`` in ``dtype``. The rows come from
+    ``generator`` (a ``torch.Generator``: drawn on its device) or, by
+    default, from ``numpy.random.default_rng(seed)`` (CPU tensors); the
+    reference splits ``jax.random.PRNGKey(seed)`` every step, bits torch
+    cannot draw."""
+    rng = np.random.default_rng(seed) if generator is None else generator
+    tdt = torch_dtype(dtype)
+    for _ in range(num_steps):
+        x = torch.as_tensor(spectrum.sample(rng, num_workers * rows_per_worker))
+        yield x.to(tdt).reshape(num_workers, rows_per_worker, -1)
 
 
 def _i8_scale(amax: float) -> float:

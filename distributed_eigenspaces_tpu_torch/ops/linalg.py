@@ -201,6 +201,28 @@ def subspace_iteration(
     return rayleigh_ritz(v, matvec(v))
 
 
+def top_k_eigvecs_streaming(x_blocks: torch.Tensor, k: int, *, iters: int = 16,
+                            v0=None, seed: int = 0,
+                            orth: str = "cholqr2") -> torch.Tensor:
+    """Top-k eigenvectors of ``(1/N) X^T X`` for ``x_blocks (b, n, d)``
+    without forming the d x d Gram: each power step applies ``X^T (X V)``
+    block by block in fp32 (a bf16 block is widened; ``V`` and ``X V`` stay
+    fp32, as the reference's mixed-dtype matmuls promote them). The start is ``v0 (d, k)``, or drawn from ``seed``
+    (:func:`initial_basis`; the reference draws it from
+    ``jax.random.PRNGKey(0)``)."""
+    b, n, d = x_blocks.shape
+    v0 = initial_basis(d, k, seed=seed, device=x_blocks.device, v0=v0)
+
+    def matvec(v):
+        acc = torch.zeros((d, v.shape[-1]), dtype=torch.float32, device=v.device)
+        for xb in x_blocks:
+            xf = xb.float()
+            acc = acc + torch.matmul(xf.mT, torch.matmul(xf, v))
+        return acc / (b * n)
+
+    return subspace_iteration(matvec, v0, iters=iters, orth=orth)
+
+
 def merged_top_k(p: torch.Tensor, k: int, solver: str = "eigh",
                  iters: int = 16, orth: str = "cholqr2",
                  v0: torch.Tensor | None = None) -> torch.Tensor:
@@ -257,6 +279,14 @@ def projector(v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(vf, vf.mT).to(v.dtype)
 
 
+def merge_projectors(v_stack: torch.Tensor) -> torch.Tensor:
+    """``(m, d, k) -> (d, d)`` mean of the workers' projectors, accumulated
+    in fp32, in ``v_stack.dtype``."""
+    vf = v_stack.float()
+    p = torch.einsum("mik,mjk->ij", vf, vf)
+    return (p / v_stack.shape[0]).to(v_stack.dtype)
+
+
 def principal_angles(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Principal angles (radians, ascending) between the column spans of
     ``u, v (d, k)``. Both are re-orthonormalized in float64 first: the
@@ -271,3 +301,8 @@ def principal_angles(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def principal_angles_degrees(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """:func:`principal_angles` in degrees."""
     return torch.rad2deg(principal_angles(u, v))
+
+
+def grassmann_distance(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Grassmann (geodesic) distance: the l2 norm of the principal angles."""
+    return torch.linalg.vector_norm(principal_angles(u, v))

@@ -9,15 +9,24 @@ and the projection engine under it, single device.
   buckets; ``serve_dtype`` bfloat16 and int8 run the serve kernels.
 - :mod:`.server`: :class:`QueryServer`, deadline micro-batched admission,
   a double-buffered basis swap, per-request error isolation.
-
-``DriftMonitor`` and the replication module are not ported yet (ROADMAP.md
-Queue 1 item 11).
+- :mod:`.drift`: :class:`DriftMonitor`, served residual energy and a
+  refit's angle gap folded into a drift score; past threshold the refit
+  publishes as a new version.
+- :mod:`.replication`: :class:`ReplicaRegistry` replicas tailing one
+  committed store under a staleness bound, and the :class:`PublisherLease`
+  single-writer election with epoch fencing.
 """
 
+from distributed_eigenspaces_tpu_torch.serving.drift import DriftMonitor
 from distributed_eigenspaces_tpu_torch.serving.registry import (
     BasisVersion,
     EigenbasisRegistry,
     VersionRetired,
+)
+from distributed_eigenspaces_tpu_torch.serving.replication import (
+    LeaseLost,
+    PublisherLease,
+    ReplicaRegistry,
 )
 from distributed_eigenspaces_tpu_torch.serving.server import (
     BreakerOpen,
@@ -36,8 +45,12 @@ __all__ = [
     "BasisVersion",
     "BreakerOpen",
     "DeadlineExceeded",
+    "DriftMonitor",
     "EigenbasisRegistry",
+    "LeaseLost",
+    "PublisherLease",
     "QueryServer",
+    "ReplicaRegistry",
     "ServedProjection",
     "ServerClosed",
     "ServerOverloaded",

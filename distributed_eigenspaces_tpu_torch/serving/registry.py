@@ -6,9 +6,8 @@ for byte (``format_version`` 1, ``basis.npz`` + ``meta.json``): a registry
 directory written by the JAX package opens here, which is how a basis
 crosses between the two packages. ``publish_fit`` takes the port's
 estimator, whose basis lives on the card, and moves it to the host. Not
-ported yet: a publisher ``lease`` (``serving/replication.py``), a
-``MetricsLogger`` sink, and ``publish_fleet`` (ROADMAP.md Queue 1 items 11,
-15 and 16).
+ported yet: a ``MetricsLogger`` sink, sharded publishes and
+``publish_fleet`` (ROADMAP.md Queue 1 items 16, 14 and 15).
 
 A live serving tier cannot hand queries a basis that is half-written,
 and it cannot block the query path on a publisher's lock. Both follow
@@ -44,14 +43,25 @@ a checksum-MISMATCHED version (tampering, disk rot) is quarantined
 loudly (renamed ``*.quarantined``, evidence preserved) and never served.
 GC applies to the disk tier too: the newest ``keep`` versions survive.
 
+**Replication hooks.** The committed store is also the propagation bus of
+``serving/replication.py``: ``ReplicaRegistry`` readers tail the commit
+markers and install each version with the same one-assignment swap. Three
+store-side mechanisms make that safe, as in the reference:
 
-The commit markers also carry the reference's replication fields
-(``t_commit_unix``; a fencing ``epoch``, always 0 here), and recovery
-fences a commit whose epoch is lower than an earlier one's (renamed
-``*.fenced``), so a store written by a leased JAX publisher recovers here
-as it does there. A version the JAX package published in row shards
-(``basis.shardNN.npz``) recovers with ``v`` the row concatenation;
-publishing in shards is not ported.
+- every ``meta.json`` carries a ``t_commit_unix`` stamp and, when the
+  publisher holds a ``PublisherLease``, the lease's fencing ``epoch``;
+  recovery fences a commit whose epoch is lower than an earlier one's
+  (renamed ``*.fenced``, never served);
+- ``publish`` with a ``lease`` re-validates it before assigning a version
+  id, so a zombie that lost its lease raises ``LeaseLost`` instead of
+  committing;
+- ``retire_grace_s`` defers disk GC: a retired version leaves memory at
+  once, but its payload outlives retirement by the grace window, so a
+  replica between marker read and payload read never sees a dangling path.
+
+A version the JAX package published in row shards (``basis.shardNN.npz``)
+recovers with ``v`` the row concatenation; publishing in shards is not
+ported.
 """
 
 from __future__ import annotations
@@ -81,24 +91,27 @@ def _file_checksum(path: str) -> str:
     return h.hexdigest()
 
 
-def _load_committed_payload(path: str, meta: dict):
+def _load_committed_payload(path: str, meta: dict, *, require_checksum: bool = True):
     """Read a committed version dir's payload against its marker: the
     single ``basis.npz`` (replicated publish) or every
     ``basis.shardNN.npz`` (sharded publish), each verified against ITS
     committed checksum before a byte of it is trusted — a torn,
     truncated, or rotted file fails loudly, and recovery quarantines the
-    version. Returns ``(v, sigma_tilde, spec, shard_sizes)`` with ``v``
-    the ordered row concatenation."""
+    version (a replica's tail skips it). Returns ``(v, sigma_tilde, spec,
+    shard_sizes)`` with ``v`` the ordered row concatenation.
+    ``require_checksum=False`` (the replica tail) installs a replicated
+    payload whose marker predates the checksum field unverified."""
     shards = meta.get("shards")
     if not shards:
         payload = os.path.join(path, "basis.npz")
         committed = meta.get("checksum")
-        checksum = _file_checksum(payload)
-        if checksum != committed:
-            raise ValueError(
-                f"checksum mismatch: payload {checksum[:12]}... "
-                f"!= committed {str(committed)[:12]}..."
-            )
+        if committed is not None or require_checksum:
+            checksum = _file_checksum(payload)
+            if checksum != committed:
+                raise ValueError(
+                    f"checksum mismatch: payload {checksum[:12]}... "
+                    f"!= committed {str(committed)[:12]}..."
+                )
         with np.load(payload) as z:
             v = _frozen_array(z["v"])
             st = (
@@ -110,7 +123,8 @@ def _load_committed_payload(path: str, meta: dict):
     for i, entry in enumerate(shards):
         spath = os.path.join(path, entry["file"])
         if not os.path.exists(spath):
-            # committed-but-missing = corrupt: recovery quarantines
+            # FileNotFoundError, so a read mid-GC maps to retirement;
+            # recovery quarantines it (committed-but-missing = corrupt)
             raise FileNotFoundError(
                 f"committed shard {i} missing: {entry['file']}"
             )
@@ -229,21 +243,27 @@ class EigenbasisRegistry:
                  metrics=None, lease=None, retire_grace_s: float = 0.0):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
-        if lease is not None:
-            raise _not_ported(
-                "a publisher lease", "Queue 1 item 11 (serving/replication.py)"
+        if retire_grace_s < 0:
+            raise ValueError(
+                f"retire_grace_s must be >= 0, got {retire_grace_s}"
             )
         if metrics is not None:
             raise _not_ported(
                 "a MetricsLogger sink", "Queue 1 item 16 (utils/metrics.py)"
             )
-        if retire_grace_s:
-            raise _not_ported(
-                "retire_grace_s (deferred disk GC for replicas)",
-                "Queue 1 item 11 (serving/replication.py)",
-            )
         self.keep = keep
         self.registry_dir = registry_dir
+        #: optional ``serving/replication.PublisherLease``: publish
+        #: re-validates it (``lease.ensure()``) before assigning an id, and
+        #: its fencing epoch is stamped into every commit marker
+        self.lease = lease
+        #: disk-GC grace window (seconds): a retired version's payload
+        #: outlives its retirement by at least this long, so a replica
+        #: between marker read and payload read never sees a dangling path
+        self.retire_grace_s = retire_grace_s
+        #: deferred disk retirements: (due_monotonic, version id),
+        #: appended under the lock at GC time, swept outside it
+        self._pending_retire: list[tuple[float, int]] = []
         self._lock = threading.Lock()
         self._versions: dict[int, BasisVersion] = {}
         self._latest: BasisVersion | None = None
@@ -282,7 +302,8 @@ class EigenbasisRegistry:
         """The commit marker (tmp + atomic rename): a version without
         it is torn and recovery treats the publish as never having
         happened. Its fields are the reference's (``spec`` and ``shards``
-        stay None: this registry publishes replicated versions only)."""
+        stay None: this registry publishes replicated versions only; the
+        ``epoch`` is the lease's, 0 for an unleased publisher)."""
         meta = {
             "format_version": 1,
             "version": bv.version,
@@ -302,8 +323,7 @@ class EigenbasisRegistry:
             # publisher lease's fencing epoch (0 = unleased publisher;
             # older markers carry neither and read as epoch 0)
             "t_commit_unix": time.time(),
-            # (always 0 here: leases come with replication)
-            "epoch": 0,
+            "epoch": int(self.lease.epoch) if self.lease is not None else 0,
         }
         tmp = os.path.join(vdir, "meta.json.tmp")
         with open(tmp, "w") as f:
@@ -316,6 +336,40 @@ class EigenbasisRegistry:
 
     def _delete_version_dir(self, version: int) -> None:
         shutil.rmtree(self._version_dir(version), ignore_errors=True)
+
+    def _retire_disk(self, gc_ids: list[int]) -> None:
+        """Disk GC of freshly retired ids: deferred by ``retire_grace_s``
+        (a replica that saw the commit marker gets that long to finish its
+        payload read), else immediate."""
+        if not gc_ids:
+            self.sweep_retired()
+            return
+        if self.retire_grace_s <= 0:
+            for vid in gc_ids:
+                self._delete_version_dir(vid)
+            return
+        due = time.monotonic() + self.retire_grace_s
+        with self._lock:
+            self._pending_retire.extend((due, vid) for vid in gc_ids)
+        self.sweep_retired()
+
+    def sweep_retired(self, *, force: bool = False) -> list[int]:
+        """Delete the deferred-retired version dirs whose grace window has
+        elapsed (``force=True``: all of them, at teardown). Called from the
+        publish path; returns the version ids deleted."""
+        now = time.monotonic()
+        with self._lock:
+            if force:
+                ready = [vid for _, vid in self._pending_retire]
+                self._pending_retire = []
+            else:
+                ready = [vid for due, vid in self._pending_retire if due <= now]
+                self._pending_retire = [
+                    (due, vid) for due, vid in self._pending_retire if due > now
+                ]
+        for vid in ready:
+            self._delete_version_dir(vid)
+        return ready
 
     def _log(self, msg: str, **fields) -> None:
         from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
@@ -452,9 +506,14 @@ class EigenbasisRegistry:
         The basis is copied, frozen, and validated (2-D, finite) before
         the swap — a rejected publish leaves the registry untouched, and
         an accepted one is visible to ``latest()`` only as a complete
-        version. A sharded publish (``v`` a sequence of row shards,
-        ``spec`` or ``num_shards``) is not ported yet.
+        version. With a ``lease`` attached, the lease is re-validated
+        first (``lease.ensure()`` raises ``LeaseLost``): a zombie
+        ex-publisher is rejected before it assigns an id or touches disk.
+        A sharded publish (``v`` a sequence of row shards, ``spec`` or
+        ``num_shards``) is not ported yet.
         """
+        if self.lease is not None:
+            self.lease.ensure()
         if isinstance(v, (list, tuple)) or spec is not None or num_shards is not None:
             raise _not_ported(
                 "a sharded publish", "Queue 1 item 14 (sharded bases)"
@@ -515,9 +574,9 @@ class EigenbasisRegistry:
                 del self._versions[oldest]
                 gc_ids.append(oldest)
         if self.registry_dir is not None:
-            # disk GC mirrors memory GC (best effort)
-            for vid in gc_ids:
-                self._delete_version_dir(vid)
+            # disk GC mirrors memory GC (best effort); with a grace
+            # window the payloads linger so replicas mid-read survive
+            self._retire_disk(gc_ids)
         return bv
 
     def publish_fit(self, estimator, *, lineage: Mapping[str, Any] | None = None,
@@ -555,10 +614,75 @@ class EigenbasisRegistry:
             "publish_fleet", "Queue 1 item 15 (parallel/fleet.py)"
         )
 
-    def publish_grown(self, parent, v_grown, **kwargs) -> BasisVersion:
-        """Publish an elastic-k widening of a version: not ported yet."""
-        raise _not_ported(
-            "publish_grown", "Queue 1 item 13 (solvers/deflation.py grow_basis)"
+    def publish_grown(
+        self,
+        parent: "BasisVersion | int",
+        v_grown,
+        *,
+        sigma_tilde=None,
+        step: int | None = None,
+        explained_variance: Mapping[str, float] | None = None,
+        lineage: Mapping[str, Any] | None = None,
+        spec=None,
+        num_shards: int | None = None,
+        prefix_atol: float = 1e-5,
+    ) -> BasisVersion:
+        """Publish an elastic-k widening of a retained version: ``v_grown
+        (d, k')`` with ``k' > parent k``, from ``solvers.grow_basis``
+        against the parent. Its first k columns must match the parent
+        within ``prefix_atol`` (the grow fit freezes the parent lane; a
+        drifted prefix means it was grown against another basis, and
+        serving it under this lineage would mislead every replica that
+        trusts ``grew_from``).
+
+        Lineage: ``{"producer": "grow_basis", "grew_from": <parent
+        version>, "k_from": k, "k_to": k'}``, under any caller entries.
+        Otherwise an ordinary publish: durable first, lease-fenced, GC'd by
+        the same retention window (``grew_from`` keeps naming the parent
+        after the parent is GC'd)."""
+        if not hasattr(parent, "v"):
+            parent = self.get(int(parent))
+        parr = np.asarray(parent.v)
+        if isinstance(v_grown, (list, tuple)):
+            garr = np.concatenate([_host(p) for p in v_grown], axis=0)
+        else:
+            garr = _host(v_grown)
+        if garr.ndim != 2 or garr.shape[0] != parr.shape[0]:
+            raise ValueError(
+                f"grown basis must be (d={parr.shape[0]}, k'), got "
+                f"shape {garr.shape}"
+            )
+        k0, k1 = parr.shape[1], garr.shape[1]
+        if not k1 > k0:
+            raise ValueError(
+                f"publish_grown needs k' > parent k, got k'={k1} vs "
+                f"parent k={k0} (version {parent.version}; shrinking "
+                "is a slice of the parent, not a new version)"
+            )
+        if not np.allclose(garr[:, :k0], parr, atol=prefix_atol):
+            drift = float(np.abs(garr[:, :k0] - parr).max())
+            raise ValueError(
+                f"grown basis prefix drifts from parent version "
+                f"{parent.version} (max abs diff {drift:.3e} > "
+                f"prefix_atol {prefix_atol:g}): grow_basis freezes the "
+                "parent lane, so a drifted prefix means this was grown "
+                "against a different basis — refusing the lineage link"
+            )
+        lin = {
+            "producer": "grow_basis",
+            "grew_from": int(parent.version),
+            "k_from": int(k0),
+            "k_to": int(k1),
+        }
+        lin.update(lineage or {})
+        return self.publish(
+            garr if not isinstance(v_grown, (list, tuple)) else v_grown,
+            sigma_tilde=None if sigma_tilde is None else _host(sigma_tilde),
+            step=int(parent.step if step is None else step),
+            explained_variance=explained_variance,
+            lineage=lin,
+            spec=spec,
+            num_shards=num_shards,
         )
 
     # -- read side -----------------------------------------------------------
@@ -587,10 +711,34 @@ class EigenbasisRegistry:
                 ) from None
 
     def load_payload(self, version: int) -> np.ndarray:
-        """A replica's re-read of a committed payload: not ported yet."""
-        raise _not_ported(
-            "load_payload", "Queue 1 item 11 (serving/replication.py)"
-        )
+        """Re-read a version's committed basis from the disk tier (the path
+        a replica takes between commit-marker read and install). A version
+        GC'd out from under the read, even one whose dir vanished between
+        ``latest()`` and the load, raises :class:`VersionRetired`, never a
+        dangling-path ``FileNotFoundError``."""
+        if self.registry_dir is None:
+            raise ValueError(
+                "load_payload needs a durable registry "
+                "(cfg.registry_dir is not set)"
+            )
+        vdir = self._version_dir(version)
+        try:
+            with open(os.path.join(vdir, "meta.json")) as f:
+                meta = json.load(f)
+            if meta.get("shards"):
+                return _load_committed_payload(vdir, meta)[0]
+            with np.load(os.path.join(vdir, "basis.npz")) as z:
+                return _frozen_array(z["v"])
+        except FileNotFoundError:
+            with self._lock:
+                retained = sorted(self._versions)
+            raise VersionRetired(
+                f"version {version} is not on disk: retired past its "
+                f"grace window (retire_grace_s={self.retire_grace_s}; "
+                f"currently retained: {retained}) — raise "
+                "serve_keep_versions or replica_staleness_ms to widen "
+                "the window"
+            ) from None
 
     def versions(self) -> list[int]:
         """Retained version ids, oldest first."""

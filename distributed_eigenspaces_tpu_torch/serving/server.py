@@ -33,9 +33,12 @@ the serve kernels of ``csrc/serve_project.cu``), computes the residual
 energies, and copies ``z`` back to the host. Request spans go to the
 engine's ``tracer`` when one is attached.
 
-Not ported yet: a ``MetricsLogger`` (``metrics=``), ``DriftMonitor``
-(``drift=``), prewarming, the compile cache and the mesh engine (ROADMAP.md
-Queue 1 items 11, 14 and 16).
+``drift`` (a :class:`~.drift.DriftMonitor`) receives every good batch's
+residual and input energy sums and its rows: the serve -> drift -> refit
+loop.
+
+Not ported yet: a ``MetricsLogger`` (``metrics=``), prewarming, the compile
+cache and the mesh engine (ROADMAP.md Queue 1 items 14 and 16).
 """
 
 from __future__ import annotations
@@ -154,8 +157,6 @@ class QueryServer:
     ):
         if metrics is not None:
             raise _not_ported("QueryServer(metrics=)", "Queue 1 item 16 (utils/metrics.py)")
-        if drift is not None:
-            raise _not_ported("QueryServer(drift=)", "Queue 1 item 11 (serving/drift.py)")
         if prewarm or prewarmer is not None:
             raise _not_ported("QueryServer(prewarm=)", "Queue 1 item 16 (runtime/prewarm.py)")
         if compile_cache is not None:
@@ -179,6 +180,7 @@ class QueryServer:
         if flush_s is None:
             flush_s = cfg.serve_flush_s if cfg is not None else 0.02
         self.registry = registry
+        self.drift = drift
         self.d, self.k = int(d), int(k)
         self.bucket_size = bucket_size
         if serve_dtype is None:
@@ -575,4 +577,6 @@ class QueryServer:
                         "reply", t_c1, now, trace_id=tid,
                         parent=dspan, category="serve",
                     )
+        if self.drift is not None and good:
+            self.drift.observe(float(r_sq.sum()), float(e_sq.sum()), rows=x)
         return results

@@ -306,9 +306,12 @@ def test_solver_knobs_reject_like_the_reference(kw):
     "kw", [dict(solver="deflation"), dict(solver="deflation", components_axis_size=2)]
 )
 def test_deflation_names_the_roadmap(kw):
-    JaxConfig(**BASE, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        PCAConfig(**BASE, **kw)
+    # solvers/deflation.py is ported: the configuration builds and resolves
+    # its dispatch as the reference's does
+    jcfg, cfg = JaxConfig(**BASE, **kw), PCAConfig(**BASE, **kw)
+    for name in ("uses_deflation_solve", "uses_distributed_solve",
+                 "resolved_local_solver", "resolved_warm_start"):
+        assert getattr(cfg, name)() == getattr(jcfg, name)(), name
 
 
 def test_interop_carries_the_solver_fields():

@@ -345,9 +345,12 @@ def test_server_records_request_spans_on_the_engine_tracer():
 def test_unported_server_modes_raise():
     reg = EigenbasisRegistry()
     reg.publish(_basis())
-    for kw in ({"metrics": object()}, {"drift": object()}, {"prewarm": True}):
+    for kw in ({"metrics": object()}, {"prewarm": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             QueryServer(reg, _cfg(), device="cpu", **kw)
+    # a DriftMonitor is ported (tests/test_torch_drift.py)
+    with QueryServer(reg, _cfg(), device="cpu", drift=object()) as srv:
+        assert srv.drift is not None
 
 
 def test_estimator_transform_through_the_server():

@@ -147,8 +147,9 @@ def test_config_rejects_like_the_reference(kw):
         dict(merge_topology=(("chip", 2),), merge_interval=2),
         dict(backend="feature_sharded", solver="subspace", pipeline_merge=True),
         dict(merge_topology=(("chip", 2),)),
-        dict(solver="deflation", components_axis_size=2),
-        dict(solver="deflation"), dict(backend="shard_map"),
+        # the deflation solve is ported on one device; its mesh forms are not
+        dict(solver="deflation", components_axis_size=2, backend="shard_map"),
+        dict(solver="deflation", merge_topology=(("chip", 2),)), dict(backend="shard_map"),
         dict(backend="feature_sharded"),
     ],
 )
