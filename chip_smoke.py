@@ -20,7 +20,8 @@ exits non-zero without printing a result:
    shapes takes the TMA + wgmma kernel (``launches_tma``). Then bf16 that
    TMA cannot read, on the ``mma.sync`` kernel (``launches`` moves,
    ``launches_tma`` does not), to the same tolerance: (3, 1000, 3001) and
-   the ragged shape on a base 2 bytes off a 16-byte boundary. Then fp32 on
+   the ragged shape on a base 2 bytes off a 16-byte boundary; and bf16 at a
+   mesh rank's share of mnist784's block, (4, 1024, 784), on the TMA kernel. Then fp32 on
    every tile edge and copy width of its shape rule (``F32_CASES``: d = 3001,
    n = 1, a base 4 bytes off a 16-byte boundary), each launch recorded as
    ``gram_launch`` says.
@@ -37,8 +38,8 @@ exits non-zero without printing a result:
    blocks: a transpose into x^T, then the TMA + wgmma kernel) against its
    plain version (float64 sums, one rounding, a true division) at the
    CIFAR-10 block (8, 1024, 3072), synthetic1024's (8, 2048, 1024),
-   mnist784's (8, 1024, 784), clip768's (8, 2048, 768), (3, 1000, 1000)
-   and (1, 1000, 9), each on an
+   mnist784's (8, 1024, 784), clip768's (8, 2048, 768), (3, 1000, 1000),
+   (1, 1000, 9) and a mesh rank's (4, 1024, 784), each on an
    aligned base and one byte off it: the transpose equal to its plain
    version (pad rows included), the Gram equal bit for bit and exactly
    symmetric, every instance of both kernels taken; both profiled launches
@@ -106,6 +107,24 @@ exits non-zero without printing a result:
    refresh published, within 1 degree of the seed-1 top-10, the server's
    next batches on the new version with a lower residual ratio, the refit's
    s8 call counted, the refit seconds and the swap latency.
+5k. slice_mesh_eval: the mnist784 eval field for field (d=784, k=20, m=8,
+   n=1024, T=20, subspace 16 / 2 warm, bf16, int8 stage, ns warm,
+   ``backend="shard_map"``) on its ``planted_subspace`` data: through
+   ``OnlineDistributedPCA`` in one process (no process group, so no mesh:
+   one s8 call, within 1 degree), its bf16 variant (no int8 stage: one bf16
+   TMA Gram launch), then the same 20 steps through ``make_train_step(cfg,
+   mesh=make_mesh(1))`` on a one-rank NCCL group: ``sigma_tilde`` bit-equal
+   to the same step loop without a mesh, 20 factor gathers of 8 x 784 x 20
+   floats, one s8 call, the NCCL init seconds.
+5l. slice_mesh_ranks2: two ranks sharing the card in one gloo group
+   (``parallel.mesh.launch``; NCCL refuses two ranks on one device): the
+   eval and its bf16 variant through the estimator's scan on a (2, 1) mesh
+   (one s8 call and one bf16 TMA launch a rank, on (4, 1024, 784)), each
+   within 0.01 degrees and 1e-5 relative ``sigma_tilde`` of the one-device
+   fit, every rank's state bit-equal to rank 0's; ``dist_merged_top_k`` on
+   the last step's factors within 0.05 degrees of the exact merge; the
+   deflation lanes on a (2, 1) components mesh over bench.py --deflate's
+   operand (2 lanes of 4), each lane within 0.1 degrees of the dense eigh.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -222,7 +241,8 @@ S8_CLIP = (8, 2048, 768)  # clip768's block, every step of its segmented fit
 # division by n) and one worker with d below one tile (d % 4 != 0: the
 # register epilogue), each on an aligned base and one byte off it (byte
 # loads in the transpose)
-S8_PARITY = (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP, (3, 1000, 1000), (1, 1000, 9))
+S8_PARITY = (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP, (3, 1000, 1000), (1, 1000, 9),
+             (4, 1024, 784))  # the last: a mesh rank's share of mnist784's block
 S8_OFFSETS = (0, 1)
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
 SERVE_REPLACES = {
@@ -321,6 +341,25 @@ DRIFT_SHIFT = dict(k_planted=10, gap=20.0, decay=0.8, noise=0.01, seed=1)
 # turned over (64 batches), so the refit fits shifted rows only
 DRIFT_EMA_ALPHA = 0.0015
 DRIFT_MAX_SHIFTED = 160
+# the mnist784 eval field for field (evals.py:96-102; its data evals.py:307-322):
+# 8 workers sharded over the worker mesh
+MNIST_FIT = dict(dim=784, k=20, num_workers=8, rows_per_worker=1024, num_steps=20,
+                 solver="subspace", subspace_iters=16, warm_start_iters=2,
+                 compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns",
+                 backend="shard_map")
+MNIST_DATA = dict(k_planted=20, gap=20.0, decay=max(0.8, 0.05 ** (1 / 19)), noise=0.01,
+                  seed=0)
+# its bf16 variant (no int8 stage), whose cold step is the bf16 TMA Gram
+MNIST_VARIANTS = (("int8", MNIST_FIT), ("bf16", dict(MNIST_FIT, stage_dtype=None)))
+MESH_RANKS = 2  # two ranks sharing the one card over gloo
+MESH_DEVICE = "cuda:0"  # the card both ranks compute on
+MESH_RANK_BLOCK = (4, 1024, 784)  # each rank's workers of mnist784's block
+MESH_FIT_DEG = 0.01  # a mesh fit against the same fit on one device
+MESH_SIGMA_REL = 1e-5
+MESH_MERGE_DEG = 0.05  # dist_merged_top_k against the exact merge
+MESH_LANE_DEG = 0.1  # each deflation lane against the dense eigh
+MESH_LANES = 2
+MESH_TIMEOUT_S = 600.0
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -526,7 +565,8 @@ def parity_gram_s8(dev, gen) -> float:
 
 
 def timing_gram_s8(dev, gen, card: str) -> dict:
-    """The s8 pair at the CIFAR-10, synthetic1024 and mnist784 blocks: one
+    """The s8 pair at the CIFAR-10, synthetic1024, mnist784 and clip768
+    blocks and a mesh rank's share of mnist784's: one
     call (CUDA events, median of 25 after warm-up) and the device time of
     both launches of each call, and of the transpose among them, beside the
     bound, the plain version, ``torch._int_mm`` looped over the workers with
@@ -537,7 +577,7 @@ def timing_gram_s8(dev, gen, card: str) -> dict:
     from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
 
     out = {}
-    for shape in (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP):
+    for shape in (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP, MESH_RANK_BLOCK):
         x = int8_block(shape, gen, dev)
         kernels = [la.kernel for la in gram_mod.gram_s8_launch(*shape)]
         ms = time_ms(lambda: gram_mod.gram_s8_cuda(x))
@@ -2047,6 +2087,264 @@ def slice_drift(dev, card: str, est, spec) -> dict:
     return {"s8": refit_s8, "serve_f32": f32_launches}
 
 
+def mnist_data(dev):
+    """mnist784's planted data on ``dev``: ``(spec, data (T m n, 784))``, the
+    same bits in every process on the same card."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+
+    m, n, T = (MNIST_FIT[f] for f in ("num_workers", "rows_per_worker", "num_steps"))
+    spec = dett.planted_subspace(MNIST_FIT["dim"], **MNIST_DATA)
+    return spec, spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+
+
+def zero_counts() -> None:
+    """Every launch counter of the Gram kernels and the mesh's gather counts
+    to 0, just before a path is driven."""
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    gram_mod.launches = gram_mod.launches_tma = gram_mod.launches_s8 = 0
+    pmesh.gathers = pmesh.gather_bytes = 0
+
+
+def read_counts() -> dict:
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    return {"gram": gram_mod.launches, "tma": gram_mod.launches_tma,
+            "s8": gram_mod.launches_s8, "gathers": pmesh.gathers,
+            "gather_bytes": pmesh.gather_bytes}
+
+
+def slice_mesh_eval(dev, card: str, work_dir: str) -> dict:
+    """The mnist784 eval field for field (``backend="shard_map"``) on one
+    rank: through the estimator in one process (no process group, so its
+    scan mesh is None, as the reference's with one device), then the same T
+    steps through ``make_train_step(cfg, mesh=make_mesh(1))`` on a one-rank
+    NCCL group, against the same step loop without a mesh (bit-equal: the
+    gather of one rank is a copy). Both within 1 degree of the planted
+    top-20. Also the bf16 variant's local fit, for the two-rank phase."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.api.estimator import _scan_mesh
+    from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    spec, data = mnist_data(dev)
+    k, T = MNIST_FIT["k"], MNIST_FIT["num_steps"]
+    cfg = dett.PCAConfig(**MNIST_FIT)
+    check(_scan_mesh(cfg, dev) is None, "mesh_eval: a scan mesh without a process group")
+    local = {}
+    for name, fit_kw in MNIST_VARIANTS:
+        vcfg = dett.PCAConfig(**fit_kw)
+        est = dett.OnlineDistributedPCA(vcfg)
+        zero_counts()
+        _, fit_s = synced_s(lambda: est.fit(data))
+        counts = read_counts()
+        _, fit2_s = synced_s(lambda: dett.OnlineDistributedPCA(vcfg).fit(data))
+        local[name] = dict(est=est, counts=counts, fit_s=fit_s, second_fit_s=fit2_s,
+                           angle=components_angle(est, spec))
+    est = local["int8"]["est"]
+    blocks = list(est._blocks(data, torch.int8))
+    check(len(blocks) == T, f"mesh_eval: {len(blocks)} staged blocks, want {T}")
+
+    def step_loop(step):
+        st, vp = dett.OnlineState.initial(cfg.dim, device=dev), None
+        for x in blocks:
+            st, vp = step(st, x, v_prev=vp)
+        return st
+
+    plain = step_loop(dett.make_train_step(cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pmesh.initialize("nccl", rank=0, world_size=1,
+                     init_method=f"file://{os.path.join(work_dir, 'nccl_rendezvous')}",
+                     timeout=300, device=dev)
+    try:
+        mesh = pmesh.make_mesh(1, device=dev)
+        with pmesh.mesh_scope(mesh):  # NCCL's communicator comes up on first use
+            pmesh.all_gather(torch.zeros(1, device=dev), pmesh.WORKER_AXIS)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step = dett.make_train_step(cfg, mesh=mesh)
+        zero_counts()
+        st, mesh_s = synced_s(lambda: step_loop(step))
+        counts = read_counts()
+        backend = torch.distributed.get_backend()
+    finally:
+        pmesh.shutdown()
+    equal = bool(torch.equal(st.sigma_tilde, plain.sigma_tilde))
+    sigma_rel = rel_err(st.sigma_tilde, est.state.sigma_tilde)
+    w = extract_dense(cfg, st.sigma_tilde, v0=est.v0)
+    mesh_angle = basis_angle(w, spec)
+    m, d = MNIST_FIT["num_workers"], MNIST_FIT["dim"]
+    emit("slice_mesh_eval",
+         config="mnist784 eval (evals.py:96-102): d=784 k=20 m=8 n=1024 T=20 subspace 16 "
+                "cold / 2 warm bf16, stage int8, warm ns, backend shard_map",
+         data=f"planted_subspace({MNIST_FIT['dim']}, "
+              + ", ".join(f"{a}={v}" for a, v in MNIST_DATA.items()) + ")",
+         trainer=est.trainer_used_, scan_mesh=None,
+         fit_s=local["int8"]["fit_s"], second_fit_s=local["int8"]["second_fit_s"],
+         samples_per_s=T * m * MNIST_FIT["rows_per_worker"] / local["int8"]["second_fit_s"],
+         s8_calls=local["int8"]["counts"]["s8"], max_angle_deg=local["int8"]["angle"],
+         bf16_variant=dict(fit_s=local["bf16"]["fit_s"],
+                           second_fit_s=local["bf16"]["second_fit_s"],
+                           tma_launches=local["bf16"]["counts"]["tma"],
+                           s8_calls=local["bf16"]["counts"]["s8"],
+                           max_angle_deg=local["bf16"]["angle"]),
+         mesh=dict(backend=backend, shape=mesh.shape, nccl_init_s=init_s,
+                   step_loop_s=mesh_s, s8_calls=counts["s8"], gathers=counts["gathers"],
+                   gather_bytes=counts["gather_bytes"],
+                   gather_bytes_each=counts["gather_bytes"] / max(counts["gathers"], 1),
+                   sigma_bit_equal_to_plain_steps=equal,
+                   sigma_rel_to_estimator=sigma_rel, max_angle_deg=mesh_angle),
+         card=card)
+    check(local["int8"]["counts"]["s8"] == 1 and local["int8"]["counts"]["gram"] == 0,
+          f"mesh_eval: the local fit's Gram launches {local['int8']['counts']}")
+    check(local["bf16"]["counts"]["tma"] == 1 and local["bf16"]["counts"]["s8"] == 0,
+          f"mesh_eval: the bf16 fit's Gram launches {local['bf16']['counts']}")
+    check(max(local[n]["angle"] for n in local) <= 1.0, "mesh_eval: a local fit > 1 degree")
+    check(backend == "nccl" and mesh.shape == {"workers": 1, "features": 1},
+          f"mesh_eval: mesh {mesh.shape} on {backend}")
+    check(counts["s8"] == 1 and counts["gathers"] == T
+          and counts["gather_bytes"] == T * m * d * k * 4,
+          f"mesh_eval: one-rank mesh counts {counts}")
+    check(equal, "mesh_eval: the one-rank mesh's sigma_tilde is not the plain steps' bits")
+    check(sigma_rel <= MESH_SIGMA_REL, f"mesh_eval: mesh vs estimator sigma {sigma_rel}")
+    check(mesh_angle <= 1.0, f"mesh_eval: mesh fit {mesh_angle} > 1 degree")
+    return {"s8": {"mesh eval (estimator, one process)": local["int8"]["counts"]["s8"],
+                   "mesh eval (one-rank NCCL mesh)": counts["s8"]},
+            "bf16": {"mesh eval bf16 (estimator, one process)": local["bf16"]["counts"]["tma"]},
+            "local": {n: (v["est"].components_.cpu().numpy(),
+                          v["est"].state.sigma_tilde.cpu().numpy()) for n, v in local.items()}}
+
+
+def mesh_rank_phase(rank: int, world: int, local: dict) -> dict:
+    """One rank of ``slice_mesh_ranks2`` (both ranks on ``cuda:0``, over
+    gloo): the mnist784 eval and its bf16 variant through the estimator's
+    scan on a (2, 1) mesh, ``dist_merged_top_k`` over the last step's
+    factors against the exact merge, and the deflation lanes on a (2, 1)
+    components mesh over bench.py --deflate's operand against the dense
+    eigh. Fails (and so fails the script) on any gate."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.api.estimator import _scan_mesh
+    from distributed_eigenspaces_tpu_torch.ops.linalg import (
+        initial_basis,
+        merged_top_k_lowrank,
+        principal_angles_degrees,
+    )
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+    from distributed_eigenspaces_tpu_torch.parallel.worker_pool import _local_eigenspaces
+    from distributed_eigenspaces_tpu_torch.solvers import deflation as sdefl
+    from distributed_eigenspaces_tpu_torch.solvers import distributed as sd
+
+    dev = torch.device(MESH_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    spec, data = mnist_data(dev)
+    k = MNIST_FIT["k"]
+    out = {"backend": torch.distributed.get_backend(), "device": str(dev)}
+    for name, fit_kw in MNIST_VARIANTS:
+        cfg = dett.PCAConfig(**fit_kw)
+        mesh = _scan_mesh(cfg, dev)
+        est = dett.OnlineDistributedPCA(cfg, device=dev)
+        est.fit(data)  # warm-up: the libraries' first calls
+        est = dett.OnlineDistributedPCA(cfg, device=dev)
+        zero_counts()
+        _, fit_s = synced_s(lambda: est.fit(data))
+        counts = read_counts()
+        comps, sigma = local[name]
+        w = est.components_
+        sig = est.state.sigma_tilde
+        out[name] = dict(
+            mesh=mesh.shape, trainer=est.trainer_used_, fit_s=fit_s, counts=counts,
+            angle_to_one_device=float(principal_angles_degrees(
+                w.cpu(), torch.from_numpy(comps)).max()),
+            sigma_rel_to_one_device=float(np.linalg.norm(sig.cpu().numpy() - sigma)
+                                          / np.linalg.norm(sigma)),
+            angle_to_truth=basis_angle(w, spec), sigma=sig.cpu().numpy())
+        check(out[name]["angle_to_one_device"] <= MESH_FIT_DEG
+              and out[name]["sigma_rel_to_one_device"] <= MESH_SIGMA_REL,
+              f"mesh_ranks2 {name} rank {rank}: {out[name]['angle_to_one_device']} deg, "
+              f"sigma {out[name]['sigma_rel_to_one_device']} from the one-device fit")
+        check(out[name]["angle_to_truth"] <= 1.0, f"mesh_ranks2 {name}: > 1 degree")
+    # the merge over the last step's factors
+    cfg = dett.PCAConfig(**MNIST_FIT)
+    mesh = _scan_mesh(cfg, dev)
+    est = dett.OnlineDistributedPCA(cfg, device=dev)
+    x_last = list(est._blocks(data, torch.int8, mesh))[-1]
+    vs = _local_eigenspaces(x_last, k, "subspace", MNIST_FIT["subspace_iters"], "cholqr2",
+                            MNIST_FIT["compute_dtype"],
+                            v0=initial_basis(MNIST_FIT["dim"], k, device=dev))
+    with pmesh.mesh_scope(mesh):
+        exact = merged_top_k_lowrank(pmesh.all_gather(vs, pmesh.WORKER_AXIS), k)
+        (merged, merge_s) = synced_s(lambda: sd.dist_merged_top_k(vs, k, iters=16))
+    out["merge"] = dict(angle=float(principal_angles_degrees(merged.cpu(), exact.cpu()).max()),
+                        s=merge_s, mesh=mesh.shape)
+    check(out["merge"]["angle"] <= MESH_MERGE_DEG,
+          f"mesh_ranks2 merge: {out['merge']['angle']} deg from the exact merge")
+    # the deflation lanes, one a rank
+    od, ok_, r = (DEFLATE_OPERAND[f] for f in ("d", "k", "r"))
+    rng = np.random.default_rng(0)
+    u = np.linalg.qr(rng.standard_normal((od, r)))[0].astype(np.float32)
+    s = (8.0 * 0.5 ** np.arange(r)).astype(np.float32)
+    c = torch.as_tensor(u * np.sqrt(s)[None, :], device=dev)
+    eigh_v = torch.linalg.eigh(c @ c.T)[1][:, -ok_:].flip(-1)
+    cm = pmesh.make_component_mesh(MESH_LANES, 1, device=dev)
+    with pmesh.mesh_scope(cm):
+        mv = sd.factor_matvec(c, pmesh.FEATURE_AXIS)
+        (v, info), lanes_s = synced_s(lambda: sdefl.dist_deflation_eig(
+            mv, od, ok_, lanes=MESH_LANES, iters=64, tol=1e-5, device=dev,
+            with_info=True))
+        staircase = pmesh.all_gather(torch.tensor([float(info["iters_used"])]),
+                                     pmesh.COMPONENT_AXIS).tolist()
+    out["lanes"] = dict(angles=lane_angles_deg(v, eigh_v, MESH_LANES), iters_used=staircase,
+                        s=lanes_s, mesh=cm.shape)
+    check(max(out["lanes"]["angles"]) <= MESH_LANE_DEG,
+          f"mesh_ranks2 lanes: {out['lanes']['angles']} deg from the eigh")
+    return out
+
+
+def slice_mesh_ranks2(dev, card: str, mesh_eval: dict, work_dir: str) -> dict:
+    """Two ranks sharing the one card in one gloo group (NCCL refuses two
+    ranks on one device), started by ``parallel.mesh.launch``: each rank runs
+    ``mesh_rank_phase``; rank 0's numbers are printed, every rank's state must
+    equal rank 0's bit for bit, and a failing rank fails the script."""
+    import numpy as np
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    (out, ranks_s) = synced_s(lambda: pmesh.launch(
+        mesh_rank_phase, MESH_RANKS, mesh_eval["local"], backend="gloo",
+        timeout=MESH_TIMEOUT_S, workdir=work_dir))
+    r0 = out[0]
+    same = {name: all(np.array_equal(o[name]["sigma"], r0[name]["sigma"]) for o in out)
+            for name, _ in MNIST_VARIANTS}
+    emit("slice_mesh_ranks2", ranks=MESH_RANKS, backend=r0["backend"], device=r0["device"],
+         launch_s=ranks_s,
+         fits={name: {f: v for f, v in r0[name].items() if f != "sigma"}
+               for name, _ in MNIST_VARIANTS},
+         every_rank_bit_equal=same, merge=r0["merge"], lanes=r0["lanes"],
+         s8_calls_by_rank=[o["int8"]["counts"]["s8"] for o in out],
+         tma_launches_by_rank=[o["bf16"]["counts"]["tma"] for o in out],
+         card=card)
+    check(all(o["backend"] == "gloo" for o in out), "mesh_ranks2: not a gloo group")
+    check(all(same.values()), f"mesh_ranks2: rank states differ from rank 0's: {same}")
+    for o in out:
+        check(o["int8"]["mesh"] == {"workers": MESH_RANKS, "features": 1},
+              f"mesh_ranks2: mesh {o['int8']['mesh']}")
+        check(o["int8"]["counts"]["s8"] == 1 and o["int8"]["counts"]["gram"] == 0,
+              f"mesh_ranks2 int8: Gram launches {o['int8']['counts']}")
+        check(o["bf16"]["counts"]["tma"] == 1 and o["bf16"]["counts"]["s8"] == 0,
+              f"mesh_ranks2 bf16: Gram launches {o['bf16']['counts']}")
+        check(o["int8"]["counts"]["gathers"] == MNIST_FIT["num_steps"],
+              f"mesh_ranks2: {o['int8']['counts']['gathers']} gathers")
+    return {"s8": sum(o["int8"]["counts"]["s8"] for o in out),
+            "bf16": sum(o["bf16"]["counts"]["tma"] for o in out)}
+
+
 def main() -> int:
     import torch
 
@@ -2096,6 +2394,8 @@ def main() -> int:
     # bf16 that TMA cannot read takes the mma.sync kernel: d % 8 != 0, and
     # a base 2 bytes off a 16-byte boundary
     cases += [(GRAM_UNALIGNED_D, "bfloat16", 0), (RAGGED, "bfloat16", 1)]
+    # a mesh rank's share of mnist784's block, the mesh path's bf16 Gram
+    cases += [(MESH_RANK_BLOCK, "bfloat16", 0)]
     cases += [(shape, "float32", offset) for shape, offset in F32_CASES]
     f32_kernels = set()
     for shape, dtype, offset in cases:
@@ -2137,7 +2437,8 @@ def main() -> int:
 
     # 4. timing
     timing = {}
-    for shape, dtype in ((CIFAR, "bfloat16"), (CIFAR, "float32"), (ENTRY, "float32")):
+    for shape, dtype in ((CIFAR, "bfloat16"), (CIFAR, "float32"), (ENTRY, "float32"),
+                         (MESH_RANK_BLOCK, "bfloat16")):
         x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
         ms = time_ms(lambda: gram_mod.gram_cuda(x))
         kernel_device_ms = device_ms(lambda: gram_mod.gram_cuda(x))
@@ -2263,6 +2564,16 @@ def main() -> int:
         drift = slice_drift(dev, card, grow.pop("est"), eval_spec)
         s8_by_path["drift refit"] = drift["s8"]
         del clip, eval_rows
+        # 5k.-5l. the worker mesh: mnist784 on one rank (the estimator in one
+        # process, then a one-rank NCCL mesh), then on two ranks sharing the
+        # card over gloo
+        mesh_eval = slice_mesh_eval(dev, card, work_dir)
+        s8_by_path.update(mesh_eval["s8"])
+        ranks2 = slice_mesh_ranks2(dev, card, mesh_eval, work_dir)
+        s8_by_path["mesh ranks2 (2 ranks, gloo)"] = ranks2["s8"]
+        bf16_by_path = {"slice_fit (cifar10 shape)": fit_launches, **mesh_eval["bf16"],
+                        "mesh ranks2 bf16 (2 ranks, gloo)": ranks2["bf16"]}
+        del mesh_eval
 
     # 6.-8. the read path
     serve_err = parity_serve(dev)
@@ -2318,7 +2629,8 @@ def main() -> int:
                               for shape in SERVE_SHAPES]}
 
     print(json.dumps({"kernels": [
-        row("gram_bf16", CIFAR, "bfloat16", fit_launches),
+        dict(row("gram_bf16", CIFAR, "bfloat16", sum(bf16_by_path.values()),
+                 also=(MESH_RANK_BLOCK,)), launches_by_path=bf16_by_path),
         row("gram_fp32", ENTRY, "float32", entry_launches, also=(CIFAR,)),
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "
@@ -2328,11 +2640,13 @@ def main() -> int:
              launches_note="s8 calls (each one transpose and one TMA launch): the two "
                            "eval fits, clip768's 10 steps, the eval settings segmented "
                            "and masked, the grow fit, the drift refit (the deflation fit "
-                           "streams at d=12288: none)", max_abs_err=s8_err, shape=list(CIFAR),
+                           "streams at d=12288: none), mnist784 on one device and on a "
+                           "one-rank NCCL mesh, and on two gloo ranks (one call each)",
+             max_abs_err=s8_err, shape=list(CIFAR),
              kernel=" + ".join(la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)),
              kernels=[la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)],
              at_shapes=[dict(s8_timing[shape], shape=list(shape))
-                        for shape in (S8_SYNTH, S8_MNIST, S8_CLIP)]),
+                        for shape in (S8_SYNTH, S8_MNIST, S8_CLIP, MESH_RANK_BLOCK)]),
         serve_row("serve_project_bf16", "bf16"),
         serve_row("serve_project_i8", "i8"),
         serve_row("serve_project_f32", "f32"),

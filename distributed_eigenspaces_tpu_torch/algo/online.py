@@ -24,6 +24,7 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
     projector,
     top_k_eigvecs,
 )
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import WorkerPool
 
 
@@ -124,20 +125,25 @@ def online_distributed_pca(
     ``cfg.merge_interval = s > 1`` only steps 1, s+1, ... merge; the
     others fold the mean of the worker projectors (``WorkerPool.round(
     merge=False)``).
+
+    The pool's backend is ``cfg.backend``'s: under ``"shard_map"`` (or
+    ``"auto"`` in a group of more than one rank) every rank runs the loop on
+    the same blocks, solves its workers and holds the same state; ``on_step``
+    then runs on rank 0 and the ranks meet at a barrier after it.
     """
-    dev = resolve_device(device)
     if worker_masks is not None:
         worker_masks = iter(worker_masks)
     pool = WorkerPool(
         cfg.num_workers,
-        backend="local",
+        backend=cfg.backend,
         solver=cfg.resolved_local_solver(),
         subspace_iters=cfg.subspace_iters,
         orth_method=cfg.orth_method,
         compute_dtype=cfg.compute_dtype,
-        device=dev,
+        device=device,
         seed=cfg.seed,
     )
+    dev = pool.device
     if state is None:
         state = OnlineState.initial(cfg.dim, cfg.state_dtype, device=dev)
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
@@ -173,7 +179,10 @@ def online_distributed_pca(
         if warm_iters is not None:
             v_prev = carry_after(v_prev, v_bar, merge_now, mask)
         if on_step is not None:
-            on_step(state.step, state, v_bar)
+            if pool.mesh is None or pmesh.is_writer():
+                on_step(state.step, state, v_bar)
+            if pool.mesh is not None:
+                pmesh.barrier()
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)
     return w, state
 

@@ -1,15 +1,22 @@
 """The whole-fit trainers: T online steps, cold first, warm after.
 
-Counterpart of ``distributed_eigenspaces_tpu/algo/scan.py`` for one
-device (``mesh=None``): the unmasked scan, the masked scan (§5.3 worker
-masks), the merge-interval and pipelined steady states, and the
-segmented, checkpointable trainer with its out-of-core ``fit_windows``.
-The reference compiles each body into one ``lax.scan``; here a body is a
-Python loop over the same step functions (``algo/step.py``). Its
-``lax.cond``s become host branches: on the step counter and the mask row,
-which the host holds, and on the warm carry's liveness, which is read
-from the tensor (one device sync) where the reference reads it on the
-device.
+Counterpart of ``distributed_eigenspaces_tpu/algo/scan.py``: the unmasked
+scan, the masked scan (§5.3 worker masks), the merge-interval and
+pipelined steady states, and the segmented, checkpointable trainer with
+its out-of-core ``fit_windows``, each on one device or on a ``(workers,
+features)`` mesh. The reference compiles each body into one ``lax.scan``;
+here a body is a Python loop over the same step functions
+(``algo/step.py``). Its ``lax.cond``s become host branches: on the step
+counter and the mask row, which the host holds, and on the warm carry's
+liveness, which is read from the tensor (one device sync) where the
+reference reads it on the device.
+
+On a mesh the ``(T, m, n, d)`` steps shard over axis 1 (the reference's
+``P(None, WORKER_AXIS)``): each rank is given every step's block, whole or
+already its ``m / W`` workers, solves its workers and all-gathers the
+factors, so the merge, the fold and the carry are the same bits on every
+rank, and every host branch reads a replicated value. Host hooks
+(``on_segment``) run on rank 0, then every rank waits at a barrier.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from distributed_eigenspaces_tpu_torch.algo.step import (
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, projector
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +60,14 @@ class _Cores:
     v_merge: torch.Tensor | None  # (d, k') crossover-merge start, or None
     solve_cold: Callable
     solve_warm: Callable | None  # None without warm starts
+    mesh: pmesh.Mesh | None = None
 
     def place(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.dev)
+        """A step's block on this rank's device: all of it, or on a mesh
+        this rank's workers (the block whole or already sharded)."""
+        if self.mesh is None:
+            return torch.as_tensor(x).to(self.dev)
+        return pmesh.worker_block(self.mesh, x, self.cfg.num_workers)
 
     def update(self, st: OnlineState, v_bar: torch.Tensor) -> OnlineState:
         return update_state(st, v_bar, discount=self.cfg.discount,
@@ -67,15 +80,16 @@ class _Cores:
                           v_init=self.v_merge, **merge_knobs(self.cfg))
 
 
-def _cores(cfg: PCAConfig, device, v0, v_init) -> _Cores:
-    dev = resolve_device(device)
+def _cores(cfg: PCAConfig, device, v0, v_init, mesh=None) -> _Cores:
+    dev = mesh.device if mesh is not None else resolve_device(device)
     return _Cores(
         cfg=cfg,
         dev=dev,
         v_cold=initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0),
         v_merge=merge_start(cfg, device=dev, v_init=v_init),
-        solve_cold=make_solve_core(cfg),
-        solve_warm=make_warm_solve_core(cfg),
+        solve_cold=make_solve_core(cfg, mesh=mesh),
+        solve_warm=make_warm_solve_core(cfg, mesh=mesh),
+        mesh=mesh,
     )
 
 
@@ -138,12 +152,13 @@ def _masked_body_factory(cfg: PCAConfig, cores: _Cores):
     return body
 
 
-def make_masked_step_body(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
+def make_masked_step_body(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
+                          v_init=None):
     """The masked per-step body (:func:`_masked_body_factory`) for trainers
     outside this module, built from ``cfg`` with the cold start ``v0`` and
     the crossover-merge start ``v_init``; its carry is ``(OnlineState,
     v_prev (d, k))``, zeros before any live round."""
-    return _masked_body_factory(cfg, _cores(cfg, device, v0, v_init))
+    return _masked_body_factory(cfg, _cores(cfg, device, v0, v_init, mesh))
 
 
 def _segment_factory(cfg: PCAConfig, cores: _Cores):
@@ -231,8 +246,8 @@ def _make_pipelined_fit(cfg: PCAConfig, cores: _Cores):
     return run
 
 
-def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None,
-                  gather: bool = False, masked: bool = False):
+def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
+                  v_init=None, gather: bool = False, masked: bool = False):
     """Build the whole-fit trainer.
 
     ``gather=False``: ``fit(state, x_steps) -> (state, v_bars)``, with
@@ -263,10 +278,15 @@ def make_scan_fit(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None,
     ``t - 1``'s merge or fold with step ``t``'s warm solves from a
     one-step-stale basis (:func:`_make_pipelined_fit`). Masked fits honour
     ``merge_interval`` and run unpipelined.
+
+    With a ``(workers, features)`` ``mesh`` the fit runs on every rank of it
+    (on the mesh's device): each step's block is given whole or as this
+    rank's workers, ``masks`` whole, and the returned state and bases are
+    the same on every rank.
     """
     if masked and gather:
         raise ValueError("masked scan fits take a dense (T, ...) stack")
-    cores = _cores(cfg, device, v0, v_init)
+    cores = _cores(cfg, device, v0, v_init, mesh)
 
     if masked:
         body = _masked_body_factory(cfg, cores)
@@ -337,8 +357,8 @@ class SegmentState(NamedTuple):
         )
 
 
-def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, device="cuda",
-                       v0=None, v_init=None):
+def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, mesh=None,
+                       device="cuda", v0=None, v_init=None):
     """Checkpointable whole-fit trainer: ``fit(state, x_steps,
     on_segment=None) -> SegmentState`` runs the T steps as windows of
     ``segment`` steps, calling ``on_segment(steps_done, state)`` on the
@@ -360,6 +380,11 @@ def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, device="cuda",
     t + 1 while window t runs); ``worker_masks``, an iterable of ``(S, m)``
     {0, 1} arrays zipped strictly with the windows, runs the masked body
     (:func:`_masked_body_factory`) on every window.
+
+    With a ``(workers, features)`` ``mesh`` every rank runs the windows
+    (each step's block whole or as its workers) and holds the same state;
+    ``on_segment`` runs on rank 0 only, then every rank waits at a barrier,
+    so a checkpoint it commits is on disk before any rank goes on.
     """
     if segment < 1:
         raise ValueError(f"segment must be >= 1, got {segment}")
@@ -370,7 +395,7 @@ def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, device="cuda",
             "kill/resume could not be bit-for-bit (use make_scan_fit, "
             "or merge_interval without pipelining)"
         )
-    cores = _cores(cfg, device, v0, v_init)
+    cores = _cores(cfg, device, v0, v_init, mesh)
     warm = cores.solve_warm is not None
     run_steps = _segment_factory(cfg, cores)
     masked_body = _masked_body_factory(cfg, cores)
@@ -409,7 +434,10 @@ def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, device="cuda",
             state = seg(state, w, first) if mk is None else seg_masked(state, w, mk)
             first = False
             if on_segment is not None:
-                on_segment(int(state.step), state)
+                if mesh is None or pmesh.is_writer():
+                    on_segment(int(state.step), state)
+                if mesh is not None:
+                    pmesh.barrier()
         return state
 
     def fit(state: SegmentState, x_steps, on_segment=None) -> SegmentState:

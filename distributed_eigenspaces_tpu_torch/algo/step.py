@@ -1,13 +1,16 @@
-"""One online round plus the state update, on one device.
+"""One online round plus the state update, on one device or a mesh.
 
-Counterpart of ``distributed_eigenspaces_tpu/algo/step.py`` with
-``mesh=None``: the per-worker solves, the merge (exact low-rank, or above
-the crossover the distributed factor-operator solve or its
-parallel-deflation lanes) and the fold into
-``sigma_tilde``. PyTorch runs eagerly, so the reference's jitted cold and
-warm executables are two plain functions here. Worker solves and the merge
-run under the profiler regions the reference's traces name
-(``det_worker_solve`` / ``det_merge`` / ``det_dist_merge`` /
+Counterpart of ``distributed_eigenspaces_tpu/algo/step.py``: the
+per-worker solves, the merge (exact low-rank, or above the crossover the
+distributed factor-operator solve or its parallel-deflation lanes) and the
+fold into ``sigma_tilde``. PyTorch runs eagerly, so the reference's jitted
+cold and warm executables are two plain functions here. With a ``(workers,
+features)`` mesh (``parallel/mesh.py``) each rank solves its ``m / W``
+workers and all-gathers the ``(m, d, k)`` factors over ``workers``; the
+merge and the fold then run on every rank on the same bits, so the state
+is replicated. Worker solves, the gather and the merge run under the
+profiler regions the reference's traces name (``det_worker_solve`` /
+``det_factor_gather`` / ``det_merge`` / ``det_dist_merge`` /
 ``det_deflation_merge``).
 """
 
@@ -27,6 +30,7 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
     initial_basis,
     merged_top_k_lowrank,
 )
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import (
     _local_eigenspaces,
     _masked_projector_mean,
@@ -39,31 +43,41 @@ from distributed_eigenspaces_tpu_torch.solvers.distributed import (
 
 
 def make_solve_core(
-    cfg: PCAConfig, iters: int | None = None, orth: str | None = None
+    cfg: PCAConfig, iters: int | None = None, orth: str | None = None,
+    mesh: pmesh.Mesh | None = None,
 ):
     """``solve_core(x_blocks, v0) -> vs (m, d, k)``: the per-worker local
-    eigenspaces of one round, without the merge."""
+    eigenspaces of one round, without the merge. With ``mesh``,
+    ``x_blocks`` is this rank's ``(m / W, n, d)`` and the factors are
+    all-gathered over ``workers`` (in worker order) into the whole stack."""
     k, solver = cfg.k, cfg.resolved_local_solver()
     iters = cfg.subspace_iters if iters is None else iters
     orth = cfg.orth_method if orth is None else orth
 
     def solve_core(x_blocks, v0=None):
         with record_function("det_worker_solve"):
-            return _local_eigenspaces(
+            vs = _local_eigenspaces(
                 x_blocks, k, solver, iters, orth, cfg.compute_dtype, v0
             )
+        if mesh is None:
+            return vs
+        # the reference's whole wire protocol: one gather of m d x k
+        # factors, never a d x d psum
+        with record_function("det_factor_gather"), pmesh.mesh_scope(mesh):
+            return pmesh.all_gather(vs, pmesh.WORKER_AXIS)
 
     return solve_core
 
 
-def make_warm_solve_core(cfg: PCAConfig):
+def make_warm_solve_core(cfg: PCAConfig, mesh: pmesh.Mesh | None = None):
     """The warm-round solves (short iteration count, warm
     orthonormalization) without the merge, or None when warm starts are
     off: the solve-only twin of :func:`make_warm_core`."""
     warm_iters = cfg.resolved_warm_start()
     if warm_iters is None:
         return None
-    return make_solve_core(cfg, iters=warm_iters, orth=cfg.resolved_warm_orth())
+    return make_solve_core(cfg, iters=warm_iters, orth=cfg.resolved_warm_orth(),
+                           mesh=mesh)
 
 
 def merge_knobs(cfg: PCAConfig) -> dict:
@@ -129,14 +143,14 @@ def mean_projector(vs: torch.Tensor, mask=None) -> torch.Tensor:
 
 def make_round_core(
     cfg: PCAConfig, iters: int | None = None, orth: str | None = None,
-    v_init=None,
+    v_init=None, mesh: pmesh.Mesh | None = None,
 ):
     """``round_core(x_blocks, v0, mask=None) -> v_bar (d, k)``: solves then
     merge, one round of the train step (the whole-fit trainers fold their
     solves through ``algo/scan.py``'s merge-or-fold instead). Above the crossover the merge runs
     ``cfg.subspace_iters`` iterations, cold or warm (as the reference's),
     from ``v_init`` (see :func:`merge_start`)."""
-    solve_core = make_solve_core(cfg, iters=iters, orth=orth)
+    solve_core = make_solve_core(cfg, iters=iters, orth=orth, mesh=mesh)
     k = cfg.k
     knobs = merge_knobs(cfg)
 
@@ -147,18 +161,20 @@ def make_round_core(
     return round_core
 
 
-def make_warm_core(cfg: PCAConfig, v_init=None):
+def make_warm_core(cfg: PCAConfig, v_init=None, mesh: pmesh.Mesh | None = None):
     """The warm-round core (short iteration count, warm orthonormalization),
     or None when warm starts are off."""
     warm_iters = cfg.resolved_warm_start()
     if warm_iters is None:
         return None
     return make_round_core(
-        cfg, iters=warm_iters, orth=cfg.resolved_warm_orth(), v_init=v_init
+        cfg, iters=warm_iters, orth=cfg.resolved_warm_orth(), v_init=v_init,
+        mesh=mesh,
     )
 
 
-def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
+def make_train_step(cfg: PCAConfig, *, mesh: pmesh.Mesh | None = None,
+                    device="cuda", v0=None, v_init=None):
     """Build ``step(state, x_blocks, v_prev=None, merge=True) ->
     (state, v_bar)``.
 
@@ -177,15 +193,23 @@ def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
     :func:`~.online.merge_phase` on ``state.step``, as the reference's
     callers pass ``merge=``, and advance their warm carry with
     :func:`~.online.carry_after`.
+
+    With a ``(workers, features)`` ``mesh`` the step runs on every rank of
+    it, on the mesh's device (``device`` is not used): ``x_blocks`` is the
+    whole ``(m, n, d)`` block, of which each rank solves its ``m / W``
+    workers, or already that rank's share; the factors are all-gathered
+    over ``workers`` and the returned state and basis are the same on every
+    rank (a one-rank mesh's gather is a copy, so its step is the local
+    step bit for bit).
     """
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     v_merge = merge_start(cfg, device=dev, v_init=v_init)
-    round_core = make_round_core(cfg, v_init=v_merge)
-    warm_core = make_warm_core(cfg, v_init=v_merge)
+    round_core = make_round_core(cfg, v_init=v_merge, mesh=mesh)
+    warm_core = make_warm_core(cfg, v_init=v_merge, mesh=mesh)
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
     s_int = cfg.merge_interval
-    solve_cold = make_solve_core(cfg) if s_int > 1 else None
-    solve_warm = make_warm_solve_core(cfg) if s_int > 1 else None
+    solve_cold = make_solve_core(cfg, mesh=mesh) if s_int > 1 else None
+    solve_warm = make_warm_solve_core(cfg, mesh=mesh) if s_int > 1 else None
 
     def fold(state, v_bar):
         return (
@@ -200,8 +224,13 @@ def make_train_step(cfg: PCAConfig, *, device="cuda", v0=None, v_init=None):
             state, p, discount=cfg.discount, num_steps=cfg.num_steps
         )
 
+    def place(x_blocks):
+        if mesh is None:
+            return torch.as_tensor(x_blocks).to(dev)
+        return pmesh.worker_block(mesh, x_blocks, cfg.num_workers)
+
     def step(state: OnlineState, x_blocks, v_prev=None, merge=True):
-        x = torch.as_tensor(x_blocks).to(dev)
+        x = place(x_blocks)
         if not merge:
             if s_int == 1:
                 raise ValueError(

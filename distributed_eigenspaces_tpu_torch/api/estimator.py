@@ -1,7 +1,12 @@
 """sklearn-style estimator over the port's trainers.
 
 Counterpart of ``OnlineDistributedPCA`` in ``distributed_eigenspaces_tpu/
-api/estimator.py`` with the dense trainers of one device: the whole-fit
+api/estimator.py`` with the dense trainers, on one device or, under
+``backend="shard_map"`` (or ``"auto"`` in a process group of more than
+one rank), on a workers mesh of the group's ranks (:func:`_scan_mesh`):
+every rank is given the same data, fits its own workers, and holds the
+same state; host side effects (checkpoint commits, ``on_step`` hooks) run
+on rank 0 and the ranks then meet at a barrier. The whole-fit
 scan, its segmented and checkpointable twin (``checkpoint_dir``, or a
 staged schedule over ``SCAN_STAGE_BYTES_MAX``), the masked whole fits of
 both (``worker_masks`` as a ``(T, m)`` sequence), and the per-step loop
@@ -39,6 +44,7 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
     principal_angles_degrees,
 )
 from distributed_eigenspaces_tpu_torch.ops.serve_project import project_exact
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
 from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -72,6 +78,21 @@ def resolves_feature_sharded(cfg: PCAConfig, *, whole_fit: bool = True) -> bool:
     if cfg.dim >= 4096:
         return True
     return whole_fit and cfg.dim * cfg.k >= SKETCH_DK_CROSSOVER
+
+
+def _scan_mesh(cfg: PCAConfig, device="cuda"):
+    """The workers mesh of the dense trainers, or None for one device: under
+    ``backend="shard_map"`` / ``"tpu"``, or ``"auto"`` in a process group of
+    more than one rank, a ``(W, 1)`` mesh with ``W`` the largest divisor of
+    ``num_workers`` up to the group's size; None when that is 1 (one rank,
+    as the reference with one device)."""
+    if cfg.backend in ("shard_map", "tpu") or (
+        cfg.backend == "auto" and pmesh.world_size() > 1
+    ):
+        workers = pmesh.largest_divisor_leq(cfg.num_workers, pmesh.world_size())
+        if workers > 1:
+            return pmesh.make_mesh(num_workers=workers, device=device)
+    return None
 
 
 def _refuse_feature_sharded(cfg: PCAConfig, *, whole_fit: bool) -> None:
@@ -171,7 +192,8 @@ def _lockstep_mask_windows(windows, take_rows):
 
 class OnlineDistributedPCA:
     """Online distributed PCA estimator on one device (``"cuda"`` unless
-    the caller asks for another)::
+    the caller asks for another), or on every rank of a process group under
+    ``backend="shard_map"`` (the module docstring)::
 
         pca = OnlineDistributedPCA(PCAConfig(dim=3072, k=10, ...))
         pca.fit(data)              # data: (N, 3072), numpy or torch
@@ -297,10 +319,20 @@ class OnlineDistributedPCA:
             return self._fit_segmented(data, masks)
         return self._fit_scan(data, masks)
 
-    def _blocks(self, data, stage_dtype):
+    def _blocks(self, data, stage_dtype, mesh=None):
         """The schedule's blocks on the device in the stage dtype: an int8
         stage quantizes each fp32 block with its own scale
-        (``stage_blocks``), a float stage casts it."""
+        (``stage_blocks``), a float stage casts it. With a mesh each block
+        is staged whole (the scale is the whole block's, as the
+        reference's) and this rank keeps its workers."""
+        cfg = self.cfg
+        staged = self._staged_blocks(data, stage_dtype)
+        if mesh is None:
+            return staged
+        rows = pmesh.worker_rows(mesh, cfg.num_workers)
+        return (b[rows] for b in staged)
+
+    def _staged_blocks(self, data, stage_dtype):
         cfg = self.cfg
         return stage_blocks(block_stream(
             data, num_workers=cfg.num_workers,
@@ -326,18 +358,21 @@ class OnlineDistributedPCA:
             )
         if masks is not None:
             masks = _masks_for(masks, steps)
+        mesh = _scan_mesh(cfg, self.device)
+        m_local = cfg.num_workers // (1 if mesh is None
+                                      else mesh.axis_size(pmesh.WORKER_AXIS))
         staged = torch.empty(
-            (steps, cfg.num_workers, cfg.rows_per_worker, cfg.dim),
+            (steps, m_local, cfg.rows_per_worker, cfg.dim),
             dtype=stage_dtype, device=self.device,
         )
         filled = 0
-        for block in self._blocks(data, stage_dtype):
+        for block in self._blocks(data, stage_dtype, mesh):
             staged[filled].copy_(block)
             filled += 1
         if filled != steps:
             raise RuntimeError(f"staged {filled} steps, counted {steps}")
-        fit = make_scan_fit(cfg, device=self.device, v0=self.v0, v_init=self.v_init,
-                            masked=masks is not None)
+        fit = make_scan_fit(cfg, mesh=mesh, device=self.device, v0=self.v0,
+                            v_init=self.v_init, masked=masks is not None)
         state0 = OnlineState.initial(cfg.dim, cfg.state_dtype, device=self.device)
         state, _ = fit(state0, staged) if masks is None else fit(state0, staged, masks)
         return self._finish_dense(state)
@@ -351,6 +386,7 @@ class OnlineDistributedPCA:
         cfg = self.cfg
         stage_dtype = torch_dtype(cfg.resolved_stage_dtype())
         seg = max(1, min(self.segment, _budget_steps(cfg)))
+        mesh = _scan_mesh(cfg, self.device)
         on_segment = None
         if self.checkpoint_dir is not None:
             on_segment = Checkpointer(
@@ -360,13 +396,13 @@ class OnlineDistributedPCA:
             ).on_step
         # one window in flight: windows are the big unit here
         source = windows = prefetch_stream(
-            window_stream(self._blocks(data, stage_dtype), seg), depth=1,
+            window_stream(self._blocks(data, stage_dtype, mesh), seg), depth=1,
             place=lambda w: w)
         mask_windows = None
         if masks is not None:
             windows, mask_windows = _lockstep_mask_windows(
                 windows, lambda start, s: _masks_for(masks, start + s)[start:])
-        handle = make_whole_fit(cfg, "segmented", segment=self.segment,
+        handle = make_whole_fit(cfg, "segmented", mesh=mesh, segment=self.segment,
                                 device=self.device, v0=self.v0, v_init=self.v_init)
         try:
             state = handle.fit_windows(handle.init_state(), windows,

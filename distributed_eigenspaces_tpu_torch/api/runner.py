@@ -5,14 +5,17 @@ Counterpart of ``distributed_eigenspaces_tpu/api/runner.py``:
 :class:`WholeFitHandle`; which kind fits a workload stays with the caller
 (``choose_trainer`` for the estimator)::
 
-    h = make_whole_fit(cfg, kind, segment=..., masked=..., device=...)
+    h = make_whole_fit(cfg, kind, mesh, segment=..., masked=..., device=...)
     state = h.init_state()
     state = h.fit(state, blocks, idx=None, worker_masks=None)
     state = h.fit_windows(state, windows, on_segment=..., worker_masks=...)
     w = h.extract(state)          # (d, k), descending, canonical signs
 
 Kinds: ``"scan"`` (the dense whole fit) and ``"segmented"`` (dense,
-windowed and checkpointable). The reference's feature-sharded kinds
+windowed and checkpointable), each on one device (``mesh=None``) or on a
+``(workers, features)`` mesh of ranks (``parallel/mesh.py``), where every
+rank runs the handle and holds the same state. The reference's
+feature-sharded kinds
 (``"fs_scan"``, ``"sketch"``) are not ported yet (ROADMAP.md Queue 1
 item 15).
 """
@@ -63,6 +66,7 @@ def extract_dense(cfg: PCAConfig, sigma_tilde: torch.Tensor, v0=None) -> torch.T
 def make_whole_fit(
     cfg: PCAConfig,
     kind: str,
+    mesh=None,
     *,
     segment: int = 50,
     gather: bool = False,
@@ -76,7 +80,9 @@ def make_whole_fit(
     and of the extraction and the crossover-merge start ``v_init`` (both
     drawn from ``cfg.seed`` by default). ``gather`` / ``masked`` select
     the dense scan's gather and §5.3 variants (``algo/scan.py``); a masked
-    segmented fit runs through ``fit_windows(worker_masks=...)``."""
+    segmented fit runs through ``fit_windows(worker_masks=...)``. With a
+    ``mesh`` the handle runs on its device (``device`` is not used) and the
+    fits shard each step's workers over it."""
     if kind not in KINDS:
         raise ValueError(f"unknown whole-fit kind {kind!r}; one of {KINDS}")
     if kind in ("fs_scan", "sketch"):
@@ -85,7 +91,7 @@ def make_whole_fit(
             "trainer, not ported to distributed_eigenspaces_tpu_torch yet "
             "(ROADMAP.md Queue 1 item 15)"
         )
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
 
     def extract(st):
@@ -95,7 +101,7 @@ def make_whole_fit(
         from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
         from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
 
-        f = make_scan_fit(cfg, device=dev, v0=v_cold, v_init=v_init,
+        f = make_scan_fit(cfg, mesh=mesh, device=dev, v0=v_cold, v_init=v_init,
                           gather=gather, masked=masked)
 
         def fit(state, blocks, idx=None, worker_masks=None):
@@ -124,7 +130,7 @@ def make_whole_fit(
         make_segmented_fit,
     )
 
-    f = make_segmented_fit(cfg, segment=segment, device=dev, v0=v_cold,
+    f = make_segmented_fit(cfg, segment=segment, mesh=mesh, device=dev, v0=v_cold,
                            v_init=v_init)
 
     def fit(state, blocks, idx=None, worker_masks=None, on_segment=None):

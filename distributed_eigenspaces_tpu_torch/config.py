@@ -51,8 +51,12 @@ class PCAConfig:
       dim, k: feature dimension d and subspace rank.
       num_workers, rows_per_worker, num_steps: m, n and T.
       discount: ``"1/T"`` | ``"1/t"`` | ``"notebook"`` (bug-compatible).
-      backend: ``"auto"`` | ``"local"`` (both run the workers as a batch
-        dimension on one device).
+      backend: ``"auto"`` | ``"local"`` | ``"shard_map"`` (alias ``"tpu"``):
+        ``"local"`` runs the workers as a batch dimension on one device;
+        ``"shard_map"`` spreads them over the ranks of a process group, one
+        rank a device, gathering the factors each round
+        (``parallel/mesh.py``); ``"auto"`` is ``"shard_map"`` when a group
+        of more than one rank is initialized, else ``"local"``.
       solver: ``"eigh"`` | ``"subspace"`` | ``"distributed"`` |
         ``"deflation"``: the local eigensolver; ``"distributed"`` runs the
         subspace machinery locally and, above ``eigh_crossover_d``, the
@@ -66,7 +70,8 @@ class PCAConfig:
       solver_tol: residual at which the crossover merge stops early, or
         None (always ``subspace_iters``).
       components_axis_size: the deflation merge's lane count (equal lanes,
-        batched on the one device); > 1 needs ``solver="deflation"``.
+        batched on each rank, or one lane a rank on a ``components`` mesh);
+        > 1 needs ``solver="deflation"``.
       warm_start_iters: ``"auto"`` (2 under the subspace solver), an int,
         or None (every step cold).
       orth_method: ``"cholqr2"`` | ``"qr"``; warm_orth_method likewise, or
@@ -149,10 +154,10 @@ class PCAConfig:
             "auto", "local", "shard_map", "tpu", "feature_sharded"
         ):
             raise ValueError(f"unknown backend: {self.backend!r}")
-        if self.backend not in ("auto", "local"):
+        if self.backend == "feature_sharded":
             raise _not_ported(
-                f"backend={self.backend!r}",
-                "Queue 1 item 14 (multi-device on torch.distributed)",
+                "backend='feature_sharded'",
+                "Queue 1 item 15 (parallel/feature_sharded.py's trainers)",
             )
         if self.solver not in ("eigh", "subspace", "distributed",
                                "deflation"):

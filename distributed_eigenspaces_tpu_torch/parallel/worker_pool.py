@@ -1,10 +1,16 @@
-"""The m-worker round on one device: workers are a batch dimension.
+"""The m-worker round: workers as a batch dimension, on one device or
+spread over the ranks of a mesh.
 
-Counterpart of ``distributed_eigenspaces_tpu/parallel/worker_pool.py``
-(the ``"local"`` backend). The reference ``vmap``-ed each worker's solve;
-here the worker axis is written out, so the Gram route is one batched
-kernel launch for all m workers and the Cholesky / triangular solves /
-``eigh`` calls are batched too.
+Counterpart of ``distributed_eigenspaces_tpu/parallel/worker_pool.py``.
+The reference ``vmap``-ed each worker's solve; here the worker axis is
+written out, so the Gram route is one batched kernel launch for a rank's
+workers and the Cholesky / triangular solves / ``eigh`` calls are batched
+too. The ``"local"`` backend holds all m workers on one device. The
+``"shard_map"`` backend (alias ``"tpu"``) gives each rank of a
+``(workers, features)`` mesh (``parallel/mesh.py``) its ``m / W`` workers:
+a round solves them, all-gathers the ``(m, d, k)`` factors and the mask
+over ``workers``, and merges on every rank, so every rank holds the same
+result.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.ops.gram import gram_auto
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     batched_xtxv,
@@ -109,13 +116,26 @@ def _masked_projector_mean(
 
 
 class WorkerPool:
-    """Pool of ``m`` logical PCA workers on one device (``"local"``)."""
+    """Pool of ``m`` logical PCA workers: ``"local"`` on one device, or
+    ``"shard_map"`` over a mesh of ranks.
+
+    ``backend="auto"`` is ``"shard_map"`` when a process group of more than
+    one rank is initialized, else ``"local"`` (the reference's ``len(
+    jax.devices()) > 1``). Under ``"shard_map"`` the mesh is ``mesh``, or,
+    when a group is initialized, a ``(W, 1)`` mesh of all its ranks with
+    ``W`` the largest divisor of ``m`` up to the group's size (a layout that
+    leaves ranks out is refused). A process with no group is a world of one
+    rank, which has nothing to gather: its shard_map pool solves all m
+    workers on ``device``, as a one-rank mesh would, bit for bit.
+    Every rank is given the same ``(m, n, d)`` blocks and solves its own.
+    """
 
     def __init__(
         self,
         num_workers: int,
         *,
         backend: str = "local",
+        mesh: pmesh.Mesh | None = None,
         solver: str = "eigh",
         subspace_iters: int = 16,
         orth_method: str = "cholqr2",
@@ -128,33 +148,51 @@ class WorkerPool:
                 "orth_method='ns' is warm-only: construct the pool with "
                 "cholqr2/qr and pass orth='ns' to round() on warm rounds"
             )
+        if backend == "tpu":
+            backend = "shard_map"
         if backend == "auto":
-            backend = "local"
-        if backend != "local":
-            raise NotImplementedError(
-                f"WorkerPool backend {backend!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 14)"
-            )
+            backend = "shard_map" if pmesh.world_size() > 1 else "local"
+        if backend not in ("local", "shard_map"):
+            raise ValueError(f"unknown WorkerPool backend: {backend!r}")
         validate_orth_method(orth_method)
+        if backend == "shard_map":
+            if mesh is None and torch.distributed.is_initialized():
+                mesh = pmesh.make_mesh(
+                    num_workers=pmesh.largest_divisor_leq(
+                        num_workers, pmesh.world_size()),
+                    device=device,
+                )
+            if mesh is not None and num_workers % mesh.axis_size(pmesh.WORKER_AXIS):
+                raise ValueError(
+                    f"num_workers={num_workers} not divisible by mesh "
+                    f"workers axis {mesh.axis_size(pmesh.WORKER_AXIS)}"
+                )
+        elif mesh is not None:
+            raise ValueError("a mesh is for backend='shard_map'")
         self.num_workers = num_workers
         self.backend = backend
+        self.mesh = mesh
         self.solver = solver
         self.subspace_iters = subspace_iters
         self.orth_method = orth_method
         self.compute_dtype = compute_dtype
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.seed = seed
 
     def shard(self, x_blocks) -> torch.Tensor:
-        """Place ``(m, n, d)`` host data on the pool's device."""
-        return torch.as_tensor(x_blocks).to(self.device)
+        """This rank's workers of ``(m, n, d)`` host or device data, on the
+        pool's device (all of them without a mesh)."""
+        if self.mesh is None:
+            return torch.as_tensor(x_blocks).to(self.device)
+        return pmesh.worker_shard(self.mesh, x_blocks)
 
     def _v0(self, d: int, k: int, v0):
         return initial_basis(d, k, seed=self.seed, device=self.device, v0=v0)
 
     def local_eigenspaces(self, x_blocks, k: int, v0=None) -> torch.Tensor:
-        """Per-worker eigenspaces ``(m, d, k)`` without the merge."""
-        x = self.shard(x_blocks)
+        """Per-worker eigenspaces ``(m, d, k)`` of all m workers, on this
+        rank, without the merge."""
+        x = torch.as_tensor(x_blocks).to(self.device)
         return _local_eigenspaces(
             x, k, self.solver, self.subspace_iters, self.orth_method,
             self.compute_dtype, v0=self._v0(x.shape[2], k, v0),
@@ -172,15 +210,17 @@ class WorkerPool:
         pool's settings for this round (the warm-start levers).
         ``merge=False`` is the merge-interval steady state's fold-only
         round: no merged eigensolve runs, and it returns ``(sigma_bar,
-        None)``, the masked mean projector for the caller to fold.
+        None)``, the masked mean projector for the caller to fold. On a
+        mesh each rank solves its workers, then the factors and the mask
+        are all-gathered over ``workers`` and every rank merges them.
         """
-        x = self.shard(x_blocks)
-        m = x.shape[0]
+        m = int(x_blocks.shape[0])
         if m != self.num_workers:
             raise ValueError(
                 f"x_blocks has {m} workers, pool was built for "
                 f"{self.num_workers}"
             )
+        x = self.shard(x_blocks)
         if worker_mask is None:
             mask = torch.ones((m,), dtype=torch.float32, device=self.device)
         else:
@@ -193,6 +233,11 @@ class WorkerPool:
             self.orth_method if orth is None else orth,
             self.compute_dtype, v0=self._v0(x.shape[2], k, v0),
         )
+        if self.mesh is not None:
+            with pmesh.mesh_scope(self.mesh):
+                vs = pmesh.all_gather(vs, pmesh.WORKER_AXIS)
+                rows = pmesh.worker_rows(self.mesh, m)
+                mask = pmesh.all_gather(mask[rows], pmesh.WORKER_AXIS)
         psum, cnt = _masked_projector_mean(vs, mask)
         sigma_bar = psum / torch.clamp(cnt, min=1.0)
         if not merge:

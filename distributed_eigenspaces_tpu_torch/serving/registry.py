@@ -7,7 +7,7 @@ directory written by the JAX package opens here, which is how a basis
 crosses between the two packages. ``publish_fit`` takes the port's
 estimator, whose basis lives on the card, and moves it to the host. Not
 ported yet: a ``MetricsLogger`` sink, sharded publishes and
-``publish_fleet`` (ROADMAP.md Queue 1 items 16, 14 and 15).
+``publish_fleet`` (ROADMAP.md Queue 1 items 16, 14b and 15).
 
 A live serving tier cannot hand queries a basis that is half-written,
 and it cannot block the query path on a publisher's lock. Both follow
@@ -516,7 +516,7 @@ class EigenbasisRegistry:
             self.lease.ensure()
         if isinstance(v, (list, tuple)) or spec is not None or num_shards is not None:
             raise _not_ported(
-                "a sharded publish", "Queue 1 item 14 (sharded bases)"
+                "a sharded publish", "Queue 1 item 14b (mesh serving)"
             )
         arr = _frozen_array(v)
         if arr.ndim != 2:

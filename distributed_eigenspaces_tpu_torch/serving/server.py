@@ -38,7 +38,7 @@ residual and input energy sums and its rows: the serve -> drift -> refit
 loop.
 
 Not ported yet: a ``MetricsLogger`` (``metrics=``), prewarming, the compile
-cache and the mesh engine (ROADMAP.md Queue 1 items 14 and 16).
+cache and the mesh engine (ROADMAP.md Queue 1 items 14b and 16).
 """
 
 from __future__ import annotations
@@ -164,7 +164,7 @@ class QueryServer:
                 "QueryServer(compile_cache=)", "Queue 1 item 16 (utils/compile_cache.py)"
             )
         if mesh is not None:
-            raise _not_ported("QueryServer(mesh=)", "Queue 1 item 14 (multi-device serving)")
+            raise _not_ported("QueryServer(mesh=)", "Queue 1 item 14b (mesh serving)")
         live = registry.latest()
         if d is None:
             d = cfg.dim if cfg is not None else (live.d if live else None)

@@ -27,7 +27,7 @@ row's sum order is fixed), so a served fp32 row equals the direct
 projection bit for bit, as the reference's contract says.
 
 Not ported yet: the mesh and sharded-basis (``basis_spec``) engines and
-the persistent compile cache (ROADMAP.md Queue 1 items 14 and 16).
+the persistent compile cache (ROADMAP.md Queue 1 items 14b and 16).
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ class TransformEngine:
         if mesh is not None or basis_spec is not None:
             raise _not_ported(
                 "TransformEngine(mesh=, basis_spec=)",
-                "Queue 1 item 14 (multi-device serving)",
+                "Queue 1 item 14b (mesh serving)",
             )
         if cache is not None:
             raise _not_ported(

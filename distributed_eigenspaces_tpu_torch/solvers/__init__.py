@@ -1,5 +1,6 @@
 """Eigensolves from matvec access only: the large-d (crossover) merge and
-extract, the parallel-deflation lanes and elastic k, on one device.
+extract, the parallel-deflation lanes and elastic k, on one device or a
+mesh of ranks.
 
 Counterpart of ``distributed_eigenspaces_tpu/solvers``. ``PCAConfig`` holds
 the dispatch: ``solver="distributed"`` sends the merge through
@@ -7,8 +8,8 @@ the dispatch: ``solver="distributed"`` sends the merge through
 (``cfg.uses_distributed_solve()``), ``solver="deflation"`` through
 :func:`merged_top_k_deflation` (``cfg.uses_deflation_solve()``). The mesh
 variants (``dist_merged_top_k``, ``dist_deflation_eig``,
-``dist_merged_top_k_deflation``) raise ``NotImplementedError`` until the
-mesh collectives land (ROADMAP.md Queue 1 item 14). The exports are the
+``dist_merged_top_k_deflation``, and ``axis_name=`` on the others) run
+inside ``parallel.mesh.mesh_scope``. The exports are the
 reference's; ``fused_factor_matvec`` is reached, as there, from
 ``solvers.distributed``.
 """

@@ -1,7 +1,9 @@
-"""Parallel-deflation eigensolve and elastic k, on one device.
+"""Parallel-deflation eigensolve and elastic k.
 
-Counterpart of ``distributed_eigenspaces_tpu/solvers/deflation.py`` with
-the lanes batched on one device (``axis_name=None``):
+Counterpart of ``distributed_eigenspaces_tpu/solvers/deflation.py``: the
+lanes batched on one device, their rows optionally sharded over an
+``axis_name`` (inside ``parallel.mesh.mesh_scope``), or one lane a rank on
+a ``components`` mesh axis:
 
 - :func:`deflation_eig`: the k eigenvector columns split into L equal
   lanes of width kb = k / L that iterate concurrently on one operator. A
@@ -11,6 +13,12 @@ the lanes batched on one device (``axis_name=None``):
   on each lane; the finish is one cross-lane CholeskyQR2, Rayleigh-Ritz and
   sign canonicalization, so the output contract is
   :func:`~.distributed.dist_subspace_eig`'s.
+- :func:`dist_deflation_eig`: the same schedule with the lanes sharded over
+  ``components`` (``make_component_mesh``), one lane a rank, rows over
+  ``features``: each sweep all-gathers the ``(d_local, kb)`` lane blocks
+  over ``components`` and sums the ``kb x kb`` panels over ``features``.
+- :func:`dist_merged_top_k_deflation`: the deflation merge on a
+  ``(workers, features)`` mesh.
 - :func:`merged_top_k_deflation`: the crossover merge of
   ``solver="deflation"`` (``cfg.uses_deflation_solve()``), the lanes on the
   factor operator ``C C^T`` of the workers' factors.
@@ -21,31 +29,33 @@ the lanes batched on one device (``axis_name=None``):
 
 Random starts are explicit, as in ``solvers/distributed.py``: the
 reference draws ``jax.random.normal(key, (d, k))`` (``PRNGKey(0)`` by
-default), which torch cannot reproduce, so every solve takes that block as
-``v_init`` (default: drawn from ``torch.Generator().manual_seed(0)``).
+default; per row shard and per lane from ``fold_in`` on a mesh), which
+torch cannot reproduce, so every solve takes the whole block as ``v_init``
+(default: drawn from ``torch.Generator().manual_seed(0)``) and each rank
+takes its rows, and on a ``components`` axis its lane's columns.
 
 ``tol`` arms the per-lane stop: a lane whose residual drops below ``tol``
 freezes, and the loop ends when every lane froze or at ``iters``. The
 reference runs it as a ``lax.while_loop``; here it is a host loop that
 reads the ``(L,)`` residual once per sweep, one device sync a sweep, which
 the module counter :data:`syncs` counts (``grow_directions``' stop likewise).
-Without ``tol`` the loop makes no deliberate sync.
-
-The lanes sharded over a ``components`` mesh axis
-(:func:`dist_deflation_eig`, :func:`dist_merged_top_k_deflation`) are not
-ported yet (ROADMAP.md Queue 1 item 14).
+Without ``tol`` the loop makes no deliberate sync. On a mesh the residuals
+it reads are already summed over ``features`` (and, for the sharded lanes,
+their max taken over ``components``), so every rank stops on the same
+sweep.
 """
 
 from __future__ import annotations
 
 import torch
 
-from distributed_eigenspaces_tpu_torch.config import _not_ported
-from distributed_eigenspaces_tpu_torch.ops.linalg import chol_qr2, initial_basis
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import _psum_if
 from distributed_eigenspaces_tpu_torch.solvers.distributed import (
-    _MESH,
+    _qr2,
+    _refuse_wire,
+    _row_start,
     _scaled_factor_concat,
-    _single_device,
     _start_device,
     dist_rayleigh_ritz,
     factor_matvec,
@@ -94,14 +104,14 @@ def _flat_to_lanes(v: torch.Tensor, lanes: int) -> torch.Tensor:
     return v.reshape(d, lanes, k // lanes).permute(1, 0, 2)
 
 
-def _lane_residuals(vs: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+def _lane_residuals(vs: torch.Tensor, ws: torch.Tensor, axis_name=None) -> torch.Tensor:
     """Per-lane relative invariance residual ``||W_l - V_l (V_l^T W_l)||_F /
-    ||W_l||_F`` of lane stacks ``(L, d, kb)``; a dead lane (zero ``W_l``)
-    reads 0, converged."""
-    s = torch.einsum("ldb,ldc->lbc", vs, ws)
+    ||W_l||_F`` of lane stacks ``(L, d, kb)`` (``kb x kb`` and scalar sums
+    over ``axis_name``); a dead lane (zero ``W_l``) reads 0, converged."""
+    s = _psum_if(torch.einsum("ldb,ldc->lbc", vs, ws), axis_name)
     r = ws - torch.einsum("ldb,lbc->ldc", vs, s)
-    rn = torch.sum(r * r, dim=(1, 2))
-    wn = torch.sum(ws * ws, dim=(1, 2))
+    rn = _psum_if(torch.sum(r * r, dim=(1, 2)), axis_name)
+    wn = _psum_if(torch.sum(ws * ws, dim=(1, 2)), axis_name)
     return torch.sqrt(rn) / torch.sqrt(torch.clamp(wn, min=1e-30))
 
 
@@ -139,29 +149,32 @@ def deflation_eig(
     once its residual is below it (frozen lower lanes keep feeding their
     corrections) and stops when all froze or at ``iters``; ``info =
     {"iters_used": [int] * L, "residual": [float] * L (nan without tol),
-    "lanes": L, "lane_width": kb, "syncs": host residual reads}``."""
-    _single_device(axis_name)
+    "lanes": L, "lane_width": kb, "syncs": host residual reads}``.
+
+    With ``axis_name`` (inside ``mesh_scope``) the rows are this rank's
+    share: ``matvec`` maps rows to rows, ``v_init`` is the whole ``(d, k)``
+    start, ``v0`` this rank's rows, and the correction panels,
+    residuals and Grams are summed over the axis."""
     kb = _lane_widths(k, lanes)
     dev = _start_device(device, v_init, v0)
-    v = initial_basis(d_local, k, device=dev, v0=v_init)
-    if tuple(v.shape) != (d_local, k):
-        raise ValueError(f"v_init must be ({d_local}, {k}), got {tuple(v.shape)}")
+    v = _row_start(v_init, d_local, k, axis_name, dev)
     if v0 is not None:
         v0 = torch.as_tensor(v0, dtype=torch.float32).to(dev)
-        scale = 1e-3 * torch.rsqrt(torch.tensor(float(d_local), dtype=torch.float32))
+        d_total = d_local * (1 if axis_name is None else pmesh.axis_size(axis_name))
+        scale = 1e-3 * torch.rsqrt(torch.tensor(float(d_total), dtype=torch.float32))
         v = scale.to(dev) * v
         v[:, : v0.shape[1]] += v0
-    vs = _flat_to_lanes(chol_qr2(v), lanes)
+    vs = _flat_to_lanes(_qr2(v, axis_name), lanes)
     idx = torch.arange(lanes, device=dev)
     lower = (idx[:, None] < idx[None, :]).to(torch.float32)[:, :, None, None]
 
     def sweep(vs, active):
         # one operator application covers every lane (columns independent)
         ws = _flat_to_lanes(matvec(_lanes_to_flat(vs)), lanes)
-        coef = torch.einsum("jdb,ldc->jlbc", vs, ws) * lower
+        coef = _psum_if(torch.einsum("jdb,ldc->jlbc", vs, ws), axis_name) * lower
         ws = ws - torch.einsum("jdb,jlbc->ldc", vs, coef)
-        res = _lane_residuals(vs, ws)
-        vn = chol_qr2(ws)
+        res = _lane_residuals(vs, ws, axis_name)
+        vn = _qr2(ws, axis_name)
         if active is None:
             return vn, res
         return torch.where(active[:, None, None], vn, vs), res
@@ -182,17 +195,106 @@ def deflation_eig(
             vs, res = sweep(vs, res > tol)
             iters_used = [u + (r > tol) for u, r in zip(iters_used, residual)]
             residual = _host_residuals(res)
-    flat = chol_qr2(_lanes_to_flat(vs))
-    out = dist_rayleigh_ritz(flat, matvec(flat))[:, :k]
+    flat = _qr2(_lanes_to_flat(vs), axis_name)
+    out = dist_rayleigh_ritz(flat, matvec(flat), axis_name)[:, :k]
     if with_info:
         return out, {"iters_used": iters_used, "residual": residual,
                      "lanes": lanes, "lane_width": kb, "syncs": syncs - syncs0}
     return out
 
 
-def dist_deflation_eig(*args, **kwargs):
-    """The lanes sharded over the ``components`` mesh axis: not ported yet."""
-    raise _not_ported("dist_deflation_eig (lanes over a components mesh axis)", _MESH)
+def dist_deflation_eig(
+    matvec,
+    d_local: int,
+    k: int,
+    *,
+    lanes: int,
+    iters: int = 16,
+    tol: float | None = None,
+    v_init=None,
+    device=None,
+    lane_axis: str = pmesh.COMPONENT_AXIS,
+    axis_name=pmesh.FEATURE_AXIS,
+    v0=None,
+    with_info: bool = False,
+    wire_dtype: str = "fp32",
+):
+    """:func:`deflation_eig` with the lanes sharded over ``lane_axis``, run
+    by every rank of a ``(components, features)`` mesh inside
+    ``mesh_scope(mesh)`` (``make_component_mesh``), one lane of width
+    ``kb = k / lanes`` a components rank; ``lanes`` must be that axis's
+    size. Returns this rank's ``(d_local, k)`` rows of the whole basis, the
+    same on every components rank.
+
+    Each sweep all-gathers the ``(d_local, kb)`` lane blocks over
+    ``lane_axis``, applies ``matvec`` (this rank's rows to rows) to this
+    lane, subtracts the corrections from the lanes below with ``kb x kb``
+    panels summed over ``axis_name``, and runs this lane's CholeskyQR2. The
+    finish gathers the lanes once more, then CholeskyQR2 across lanes and
+    the shared Rayleigh-Ritz.
+
+    The start is this rank's rows of this lane's columns of ``v_init`` (the
+    whole ``(d, k)`` block, default drawn from seed 0), or this lane's
+    ``(d_local, kb)`` seed block ``v0``. ``tol`` freezes this lane once its
+    residual is below it while lower lanes keep correcting; the loop runs
+    until the largest residual over ``lane_axis`` (one ``pmax`` a sweep,
+    read on the host, the same on every rank) is below ``tol``, or
+    ``iters``. ``info`` holds this lane's own ``iters_used`` and
+    ``residual``. The wire codecs (``wire_dtype`` other than ``"fp32"``)
+    are not ported yet (ROADMAP.md Queue 1 item 15)."""
+    global syncs
+    _refuse_wire("xla", wire_dtype)
+    kb = _lane_widths(k, lanes)
+    if pmesh.axis_size(lane_axis) != lanes:
+        raise ValueError(
+            f"lanes={lanes} must equal the {lane_axis!r} axis size "
+            f"{pmesh.axis_size(lane_axis)} (one lane a rank)"
+        )
+    my = pmesh.axis_index(lane_axis)
+    dev = _start_device(device, v_init, v0)
+    if v0 is not None:
+        v = _qr2(torch.as_tensor(v0, dtype=torch.float32).to(dev), axis_name)
+    else:
+        v = _row_start(v_init, d_local, k, axis_name, dev)
+        v = _qr2(v[:, my * kb:(my + 1) * kb].contiguous(), axis_name)
+    below = (torch.arange(lanes, device=dev) < my).to(torch.float32)[:, None, None]
+
+    def sweep(v, active: bool):
+        vs = pmesh.all_gather(v, lane_axis, tiled=False)  # (L, d_local, kb)
+        w = matvec(v)
+        coef = _psum_if(torch.einsum("jdb,dc->jbc", vs, w), axis_name) * below
+        w = w - torch.einsum("jdb,jbc->dc", vs, coef)
+        # this lane's residual: kb-wide and scalar sums over the rows
+        s = _psum_if(torch.matmul(v.mT, w), axis_name)
+        r = w - torch.matmul(v, s)
+        rn = _psum_if(torch.sum(r * r), axis_name)
+        wn = _psum_if(torch.sum(w * w), axis_name)
+        res = torch.sqrt(rn) / torch.sqrt(torch.clamp(wn, min=1e-30))
+        vn = _qr2(w, axis_name)
+        return (vn if active else v), res
+
+    syncs0 = syncs
+    if tol is None:
+        for _ in range(iters):
+            v = sweep(v, True)[0]
+        iters_used, residual = iters, float("nan")
+    else:
+        iters_used, residual, worst = 0, float("inf"), float("inf")
+        for _ in range(iters):
+            if not worst > tol:
+                break
+            active = residual > tol
+            v, res = sweep(v, active)
+            iters_used += int(active)
+            residual, worst = _host_residuals(
+                torch.stack([res, pmesh.pmax(res, lane_axis)]))
+    vs = pmesh.all_gather(v, lane_axis, tiled=False)  # the finishing gather
+    flat = _qr2(_lanes_to_flat(vs), axis_name)
+    out = dist_rayleigh_ritz(flat, matvec(flat), axis_name)[:, :k]
+    if with_info:
+        return out, {"iters_used": iters_used, "residual": residual,
+                     "lanes": lanes, "lane_width": kb, "syncs": syncs - syncs0}
+    return out
 
 
 def merged_top_k_deflation(
@@ -232,9 +334,46 @@ def merged_top_k_deflation(
     return out * alive.to(out.dtype)
 
 
-def dist_merged_top_k_deflation(*args, **kwargs):
-    """The deflation merge on the ``(workers, features)`` mesh: not ported yet."""
-    raise _not_ported("dist_merged_top_k_deflation (the mesh deflation merge)", _MESH)
+def dist_merged_top_k_deflation(
+    v_workers: torch.Tensor,
+    k: int,
+    *,
+    lanes: int,
+    mask=None,
+    iters: int = 16,
+    tol: float | None = None,
+    v_init=None,
+    collectives: str = "xla",
+    v0=None,
+    wire_dtype: str = "fp32",
+    with_info: bool = False,
+):
+    """The deflation merge on a ``(workers, features)`` mesh, run by every
+    rank inside ``mesh_scope(mesh)``: the factors ``v_workers (m_local,
+    d_local, kf)`` and ``mask (m_local,)`` all-gathered over ``workers`` as
+    in :func:`~.distributed.dist_merged_top_k`, then the lanes batched on
+    each rank (:func:`deflation_eig`) with the rows over ``features``.
+    Returns this rank's ``(d_local, k)`` rows; an all-masked round returns
+    zeros. The ring collectives and wire codecs are not ported yet
+    (ROADMAP.md Queue 1 item 15)."""
+    _refuse_wire(collectives, wire_dtype)
+    c = pmesh.all_gather(torch.as_tensor(v_workers).float(), pmesh.WORKER_AXIS)
+    if mask is None:
+        w = torch.ones((c.shape[0],), dtype=torch.float32, device=c.device)
+    else:
+        w = pmesh.all_gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device),
+                             pmesh.WORKER_AXIS)
+    alive = torch.sum(w) > 0
+    cc = _scaled_factor_concat(c, w)
+    out = deflation_eig(
+        factor_matvec(cc, pmesh.FEATURE_AXIS, alive=alive), c.shape[1], k,
+        lanes=lanes, iters=iters, tol=tol, v_init=v_init, device=c.device,
+        axis_name=pmesh.FEATURE_AXIS, v0=v0, with_info=with_info,
+    )
+    if with_info:
+        v, info = out
+        return v * alive.to(v.dtype), info
+    return out * alive.to(out.dtype)
 
 
 def grow_directions(
@@ -258,23 +397,23 @@ def grow_directions(
     deflates the block once more and orthonormalizes it (keeping it
     orthogonal to the parent to fp32 rounding), then Rayleigh-Ritz of the
     new block on the deflated operator: descending, canonical signs. ``info = {"iters_used": int, "residual": float,
-    "syncs": host residual reads}``."""
+    "syncs": host residual reads}``. With ``axis_name`` the parent,
+    ``matvec`` and the result are this rank's rows (``v_init`` the whole
+    block), and the ``k0 x k_new`` correction is summed over the axis."""
     global syncs
-    _single_device(axis_name)
     v_parent = torch.as_tensor(v_parent, dtype=torch.float32)
     d_local = v_parent.shape[0]
-    v = initial_basis(d_local, k_new, device=v_parent.device, v0=v_init)
-    if tuple(v.shape) != (d_local, k_new):
-        raise ValueError(f"v_init must be ({d_local}, {k_new}), got {tuple(v.shape)}")
+    v = _row_start(v_init, d_local, k_new, axis_name, v_parent.device)
 
     def deflate(w):
-        return w - torch.matmul(v_parent, torch.matmul(v_parent.mT, w))
+        return w - torch.matmul(
+            v_parent, _psum_if(torch.matmul(v_parent.mT, w), axis_name))
 
-    v = chol_qr2(deflate(v))
+    v = _qr2(deflate(v), axis_name)
 
     def sweep(vi):
         w = deflate(matvec(vi))
-        return w, chol_qr2(w)
+        return w, _qr2(w, axis_name)
 
     syncs0 = syncs
     iters_used, res = iters, float("nan")
@@ -285,7 +424,7 @@ def grow_directions(
         iters_used, res = 0, float("inf")
         while iters_used < iters and res > tol:
             w, vn = sweep(v)
-            res = float(subspace_residual(v, w))
+            res = float(subspace_residual(v, w, axis_name))
             syncs += 1
             v, iters_used = vn, iters_used + 1
     # one more pass against the parent before the finish: where the new
@@ -293,8 +432,8 @@ def grow_directions(
     # sigma_tilde, whose spectrum past k is ~1e-6), one deflation leaves the
     # block ~1e-4 off orthogonal to the parent, a second leaves ~1e-7 (the
     # reference finishes after one: ROADMAP.md Queue 3)
-    v = chol_qr2(deflate(v))
-    out = dist_rayleigh_ritz(v, deflate(matvec(v)))
+    v = _qr2(deflate(v), axis_name)
+    out = dist_rayleigh_ritz(v, deflate(matvec(v)), axis_name)
     if with_info:
         return out, {"iters_used": iters_used, "residual": res, "syncs": syncs - syncs0}
     return out

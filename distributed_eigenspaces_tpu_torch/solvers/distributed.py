@@ -1,12 +1,21 @@
-"""Blocked subspace eigensolves from matvec access only, on one device.
+"""Blocked subspace eigensolves from matvec access only.
 
-Counterpart of ``distributed_eigenspaces_tpu/solvers/distributed.py`` at
-``axis_name=None`` (the reference's single-device / root-tier degenerate):
+Counterpart of ``distributed_eigenspaces_tpu/solvers/distributed.py``. With
+``axis_name=None`` (the reference's single-device / root-tier degenerate)
+everything runs on one device; with an axis name, inside
+``parallel.mesh.mesh_scope(mesh)``, the rows of every ``(d_local, k)``
+block are this rank's share along that axis, and each ``k``-wide Gram,
+projection or norm is summed over it (``parallel/mesh.psum``), so every
+rank of the axis holds the same small matrices and takes the same host
+branches:
 
 - :func:`dist_subspace_eig`: blocked subspace iteration on a symmetric PSD
   operator, orthonormalized by CholeskyQR2 and finished by one
   Rayleigh-Ritz solve; ``oversample``, ``tol``, ``with_info`` and the
   fused ``matvec_gram`` sweep as in the reference.
+- :func:`dist_merged_top_k`: the crossover merge on a ``(workers,
+  features)`` mesh: the factors all-gathered over ``workers``, the solve's
+  rows over ``features``.
 - :func:`merged_top_k_distributed`: the crossover MERGE, top-k of the
   masked mean of the workers' projectors from their factors, as subspace
   iteration on ``C C^T`` (``C`` the scaled factor concatenation). Never
@@ -21,12 +30,14 @@ Counterpart of ``distributed_eigenspaces_tpu/solvers/distributed.py`` at
 Random starts are explicit: torch cannot draw ``jax.random``'s bits, so
 every solve takes ``v_init (d, k')``, the standard-normal block the
 reference draws with ``jax.random.normal(key, (d, k'))`` (``PRNGKey(0)``
-by default). Without it the block is drawn from
-``torch.Generator().manual_seed(0)`` on the CPU
-(:func:`~..ops.linalg.initial_basis`), the same start on every device;
-the trainers pass one drawn from ``cfg.seed`` (``algo.step.merge_start``).
-A sharded ``axis_name`` and the mesh merge (``dist_merged_top_k``) are not
-ported yet (ROADMAP.md Queue 1 item 14).
+by default; on a mesh it draws each row shard from ``fold_in(key,
+axis_index)``, so the global start is those shards stacked). Without it
+the block is drawn from ``torch.Generator().manual_seed(0)`` on the CPU
+(:func:`~..ops.linalg.initial_basis`), the same start on every device; on
+a mesh each rank takes its rows of the global start. The trainers pass one
+drawn from ``cfg.seed`` (``algo.step.merge_start``). The wire codecs and
+the ring collectives (``collectives=`` / ``wire_dtype=``) are not ported
+yet (ROADMAP.md Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -44,6 +55,14 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
     rayleigh_ritz,
 )
 from distributed_eigenspaces_tpu_torch.ops.matvec_gram import matvec_gram_auto
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+    _psum_if,
+    _small_eigh_desc,
+)
+from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+    chol_qr2 as dist_chol_qr2,
+)
 
 __all__ = [
     "dist_canonicalize_signs",
@@ -58,27 +77,67 @@ __all__ = [
     "subspace_residual",
 ]
 
-_MESH = "Queue 1 item 14 (mesh and round collectives)"
+_WIRE = "Queue 1 item 15 (parallel/wire.py, parallel/ring.py)"
 
 
-def _single_device(axis_name) -> None:
-    if axis_name is not None:
-        raise _not_ported(f"the row-sharded solve (axis_name={axis_name!r})", _MESH)
+def _refuse_wire(collectives: str, wire_dtype: str) -> None:
+    if collectives != "xla" or wire_dtype != "fp32":
+        raise _not_ported(
+            f"collectives={collectives!r} / wire_dtype={wire_dtype!r} (the "
+            "ring collectives and wire codecs)", _WIRE,
+        )
+
+
+def _qr2(v: torch.Tensor, axis_name) -> torch.Tensor:
+    """CholeskyQR2 of a row-sharded block (``ops.linalg.chol_qr2`` at
+    ``axis_name=None``)."""
+    return chol_qr2(v) if axis_name is None else dist_chol_qr2(v, axis_name)
+
+
+def _row_start(v_init, d_local: int, width: int, axis_name, device) -> torch.Tensor:
+    """This rank's ``(d_local, width)`` rows of the whole ``(d, width)``
+    start ``v_init`` along ``axis_name`` (default: drawn whole from seed 0)."""
+    shards = 1 if axis_name is None else pmesh.axis_size(axis_name)
+    v = initial_basis(d_local * shards, width, device=device, v0=v_init)
+    if tuple(v.shape) != (d_local * shards, width):
+        raise ValueError(
+            f"v_init must be ({d_local * shards}, {width}), got {tuple(v.shape)}"
+        )
+    if shards == 1:
+        return v
+    i = pmesh.axis_index(axis_name)
+    return v[i * d_local:(i + 1) * d_local]
 
 
 def dist_canonicalize_signs(v: torch.Tensor, axis_name=None) -> torch.Tensor:
-    """Flip each column so its largest-|entry| element is positive."""
-    _single_device(axis_name)
-    return canonicalize_signs(v)
+    """Flip each column so its globally largest-|entry| element is positive.
+    On a row-sharded ``v (d_local, k)`` only a ``(2, k)`` candidate per
+    shard is gathered (never the basis); cross-shard ties go to the lowest
+    shard, the one-device rule's first index."""
+    if axis_name is None:
+        return canonicalize_signs(v)
+    idx = torch.argmax(torch.abs(v), dim=0, keepdim=True)
+    pivot = torch.take_along_dim(v, idx, dim=0)[0]  # (k,)
+    cand = torch.stack([torch.abs(pivot), pivot])  # (2, k)
+    allc = pmesh.all_gather(cand, axis_name, tiled=False)  # (f, 2, k)
+    shard = torch.argmax(allc[:, 0, :], dim=0, keepdim=True)
+    gpivot = torch.take_along_dim(allc[:, 1, :], shard, dim=0)[0]
+    signs = torch.where(gpivot >= 0, 1.0, -1.0).to(v.dtype)
+    return v * signs[None, :]
 
 
 def dist_rayleigh_ritz(v: torch.Tensor, av: torch.Tensor, axis_name=None) -> torch.Tensor:
     """Rotate an orthonormal ``v (d, k)`` to eigenvector coordinates given
     ``av = A v``: descending, canonical signs. On one device this is
     ``ops.linalg.rayleigh_ritz`` (the reference's ``_small_eigh_desc`` of
-    the symmetrized ``v^T A v``, then the rotation)."""
-    _single_device(axis_name)
-    return rayleigh_ritz(v, av)
+    the symmetrized ``v^T A v``, then the rotation); row-sharded, the
+    ``k x k`` projection is summed over ``axis_name``, the small ``eigh``
+    runs on every rank and the rotation is row-local."""
+    if axis_name is None:
+        return rayleigh_ritz(v, av)
+    small = _psum_if(torch.matmul(v.mT, av), axis_name)
+    _, q = _small_eigh_desc(small)
+    return dist_canonicalize_signs(torch.matmul(v, q), axis_name)
 
 
 def _start_device(device, v_init, v0):
@@ -119,23 +178,36 @@ def dist_subspace_eig(
     call and the first CholeskyQR pass finishes from that Gram. ``tol``
     stops as soon as :func:`subspace_residual` drops below it (at most
     ``iters`` sweeps); ``info = {"iters_used": int, "residual": float}``
-    (``nan`` without ``tol``)."""
-    _single_device(axis_name)
+    (``nan`` without ``tol``).
+
+    With ``axis_name`` (inside ``mesh_scope``) ``matvec`` maps this rank's
+    ``(d_local, k')`` rows to rows, ``v_init`` is the whole ``(d, k')``
+    start (this rank takes its rows), ``v0`` this rank's rows
+    of the warm basis, and every Gram and residual is summed over the axis,
+    so the ``tol`` stop reads the same value on every rank. ``matvec_gram``
+    fuses a local operator only (``axis_name=None``), as in the
+    reference."""
+    if matvec_gram is not None and axis_name is not None:
+        raise ValueError(
+            "matvec_gram fuses a LOCAL operator with its Gram; the "
+            "sharded inner loop must psum between the matvec and the "
+            "Gram, so fusion only applies with axis_name=None"
+        )
     kk = k + max(int(oversample), 0)
-    v = initial_basis(d_local, kk, device=_start_device(device, v_init, v0), v0=v_init)
-    if tuple(v.shape) != (d_local, kk):
-        raise ValueError(f"v_init must be ({d_local}, {kk}), got {tuple(v.shape)}")
+    v = _row_start(v_init, d_local, kk, axis_name,
+                   _start_device(device, v_init, v0))
     if v0 is not None:
-        scale = 1e-3 * torch.rsqrt(torch.tensor(float(d_local), dtype=torch.float32))
+        d_total = d_local * (1 if axis_name is None else pmesh.axis_size(axis_name))
+        scale = 1e-3 * torch.rsqrt(torch.tensor(float(d_total), dtype=torch.float32))
         v = scale.to(v.device) * v
         v[:, :k] += torch.as_tensor(v0, dtype=torch.float32, device=v.device)
-    v = chol_qr2(v)
+    v = _qr2(v, axis_name)
 
     if matvec_gram is None:
 
         def sweep(vi):
             w = matvec(vi)
-            return w, chol_qr2(w)
+            return w, _qr2(w, axis_name)
 
     else:
 
@@ -153,9 +225,10 @@ def dist_subspace_eig(
         iters_used, res = 0, float("inf")
         while iters_used < iters and res > tol:
             w, vn = sweep(v)
-            res = float(subspace_residual(v, w))
+            # summed over the axis: every rank reads the same residual
+            res = float(subspace_residual(v, w, axis_name))
             v, iters_used = vn, iters_used + 1
-    out = dist_rayleigh_ritz(v, matvec(v))[:, :k]
+    out = dist_rayleigh_ritz(v, matvec(v), axis_name)[:, :k]
     if with_info:
         return out, {"iters_used": iters_used, "residual": res}
     return out
@@ -163,12 +236,12 @@ def dist_subspace_eig(
 
 def subspace_residual(v: torch.Tensor, w: torch.Tensor, axis_name=None) -> torch.Tensor:
     """Relative invariance residual ``||W - V (V^T W)||_F / ||W||_F`` of an
-    orthonormal ``v (d, k')`` given ``w = A v``; zero for a zero ``w``."""
-    _single_device(axis_name)
-    s = torch.matmul(v.mT, w)
+    orthonormal ``v (d, k')`` given ``w = A v``; zero for a zero ``w``.
+    Row-sharded: one ``k' x k'`` and two scalar sums over ``axis_name``."""
+    s = _psum_if(torch.matmul(v.mT, w), axis_name)
     r = w - torch.matmul(v, s)
-    rn = torch.sum(r * r)
-    wn = torch.sum(w * w)
+    rn = _psum_if(torch.sum(r * r), axis_name)
+    wn = _psum_if(torch.sum(w * w), axis_name)
     return torch.sqrt(rn) / torch.sqrt(torch.clamp(wn, min=1e-30))
 
 
@@ -176,11 +249,11 @@ def factor_matvec(c: torch.Tensor, axis_name=None, alive=None):
     """``matvec(v) = C (C^T v)`` for a factor concatenation ``C (d, f)``.
     ``alive`` (a bool tensor) guards the all-masked merge: a dead operator
     acts as the identity, so CholeskyQR2 never sees a zero Gram, and the
-    caller zeroes the result."""
-    _single_device(axis_name)
+    caller zeroes the result. Row-sharded (``c`` this rank's ``(d_local,
+    f)`` rows), the ``(f, k)`` inner product is summed over ``axis_name``."""
 
     def matvec(v):
-        out = torch.matmul(c, torch.matmul(c.mT, v))
+        out = torch.matmul(c, _psum_if(torch.matmul(c.mT, v), axis_name))
         if alive is None:
             return out
         return torch.where(alive, out, v)
@@ -203,11 +276,11 @@ def fused_factor_matvec(c: torch.Tensor):
 
 def lowrank_matvec(u: torch.Tensor, s: torch.Tensor, axis_name=None):
     """``matvec(v) = U diag(max(s, 0)) (U^T v)`` for a low-rank state
-    ``U (d, r)``, ``s (r,)``."""
-    _single_device(axis_name)
+    ``U (d, r)``, ``s (r,)`` (row-sharded: ``U``'s rows, the ``(r, k)``
+    product summed over ``axis_name``)."""
 
     def matvec(v):
-        y = torch.matmul(u.mT, v)
+        y = _psum_if(torch.matmul(u.mT, v), axis_name)
         return torch.matmul(u, torch.clamp(s, min=0.0)[:, None] * y)
 
     return matvec
@@ -226,9 +299,51 @@ def _scaled_factor_concat(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return c.permute(1, 0, 2).reshape(c.shape[1], -1)
 
 
-def dist_merged_top_k(*args, **kwargs):
-    """The merge on the ``(workers, features)`` mesh: not ported yet."""
-    raise _not_ported("dist_merged_top_k (the mesh merge)", _MESH)
+def dist_merged_top_k(
+    v_workers: torch.Tensor,
+    k: int,
+    *,
+    mask=None,
+    iters: int = 16,
+    v_init=None,
+    collectives: str = "xla",
+    v0=None,
+    oversample: int | None = None,
+    tol: float | None = None,
+    wire_dtype: str = "fp32",
+) -> torch.Tensor:
+    """The crossover merge on a ``(workers, features)`` mesh, run by every
+    rank inside ``mesh_scope(mesh)``: top-k of the masked mean of the
+    workers' projectors, by subspace iteration on ``C C^T``.
+
+    ``v_workers (m_local, d_local, kf)`` are this rank's workers' factors
+    (its rows along ``features``) and ``mask (m_local,)`` their mask; both
+    are all-gathered over ``workers``, and the solve runs with its rows over
+    ``features`` (:func:`dist_subspace_eig`, ``axis_name="features"``), its
+    start ``v_init`` the whole ``(d, k')`` block (default: drawn from seed
+    0), ``v0`` this rank's rows of a warm basis.
+    Returns this rank's ``(d_local, k)`` rows, the same on every workers
+    rank; an all-masked round returns zeros. The ring collectives and wire
+    codecs (``collectives`` other than ``"xla"``, ``wire_dtype`` other than
+    ``"fp32"``) are not ported yet (ROADMAP.md Queue 1 item 15)."""
+    _refuse_wire(collectives, wire_dtype)
+    c = pmesh.all_gather(torch.as_tensor(v_workers).float(), pmesh.WORKER_AXIS)
+    m_total, d_local = c.shape[0], c.shape[1]
+    if mask is None:
+        w = torch.ones((m_total,), dtype=torch.float32, device=c.device)
+    else:
+        w = pmesh.all_gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device),
+                             pmesh.WORKER_AXIS)
+    alive = torch.sum(w) > 0
+    cc = _scaled_factor_concat(c, w)
+    if oversample is None:
+        oversample = _default_oversample(k, cc.shape[1])
+    v = dist_subspace_eig(
+        factor_matvec(cc, pmesh.FEATURE_AXIS, alive=alive), d_local, k,
+        iters=iters, v_init=v_init, device=c.device,
+        axis_name=pmesh.FEATURE_AXIS, v0=v0, oversample=oversample, tol=tol,
+    )
+    return v * alive.to(v.dtype)
 
 
 def merged_top_k_distributed(
@@ -274,7 +389,9 @@ def dist_extract_top_k(
     oversample: int | None = None,
 ) -> torch.Tensor:
     """Top-k eigenbasis of ``U diag(s) U^T`` from ``u (d, r)``, ``s (r,)``:
-    descending, canonical signs, warm-started from ``u[:, :k]``."""
+    descending, canonical signs, warm-started from ``u[:, :k]``. With
+    ``axis_name`` ``u`` is this rank's rows and so is the result (the
+    published basis stays row-sharded)."""
     if oversample is None:
         oversample = _default_oversample(k, u.shape[1])
     return dist_subspace_eig(

@@ -19,6 +19,13 @@ checkpoint whose payload is torn or fails its checksum raises
 (renamed ``*.quarantined``) and steps back to the next newest. The
 reference's low-rank and sketch kinds (the feature-sharded trainers) are
 not ported.
+
+On a mesh the state is the same on every rank, so rank 0 alone writes
+(and collects old steps), and every rank restores. The segmented
+trainer runs its ``on_segment`` hook on rank 0 and then holds every rank at
+a barrier, so a commit is on disk before any rank reads it; a caller that
+saves from every rank itself follows the call with
+``parallel.mesh.barrier()``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
 from distributed_eigenspaces_tpu_torch.algo.scan import SegmentState
 from distributed_eigenspaces_tpu_torch.device import resolve_device
+from distributed_eigenspaces_tpu_torch.parallel.mesh import is_writer
 from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
 
 
@@ -82,7 +90,8 @@ def _to_host(state) -> dict:
 
 def save_checkpoint(path: str, state, *, cursor: int = 0,
                     extra: dict[str, Any] | None = None) -> None:
-    """Write a self-describing checkpoint directory at ``path``."""
+    """Write a self-describing checkpoint directory at ``path`` (on rank 0
+    of a process group only: the other ranks hold the same state)."""
     kind = next((n for n, cls in _STATE_TYPES.items()
                  if type(state) is cls), None)
     if kind is None:
@@ -90,7 +99,8 @@ def save_checkpoint(path: str, state, *, cursor: int = 0,
             f"unsupported checkpoint state type {type(state).__name__}; "
             f"known: {sorted(_STATE_TYPES)}"
         )
-    _write_checkpoint(path, _to_host(state), kind, cursor, extra)
+    if is_writer():
+        _write_checkpoint(path, _to_host(state), kind, cursor, extra)
 
 
 def _write_checkpoint(path, host: dict, kind: str, cursor, extra) -> None:
@@ -230,6 +240,8 @@ class Checkpointer:
         return sorted(out)
 
     def _gc(self) -> None:
+        if not is_writer():  # one collector: the writer
+            return
         steps = self._steps()
         for s in steps[: max(0, len(steps) - self.keep)]:
             shutil.rmtree(

@@ -194,9 +194,13 @@ def test_merged_top_k_deflation_all_masked_zeros(rng):
 
 
 def test_mesh_variants_name_the_roadmap():
-    for fn in (tdefl.dist_deflation_eig, tdefl.dist_merged_top_k_deflation):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            fn(None, K, lanes=LANES)
+    # the mesh variants are ported (tests/test_torch_mesh_solvers.py); their
+    # wire codecs and ring collectives still name their item
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        tdefl.dist_deflation_eig(None, D, K, lanes=LANES, wire_dtype="int8")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        tdefl.dist_merged_top_k_deflation(torch.zeros((4, D, K)), K, lanes=LANES,
+                                          collectives="ring")
 
 
 # -- elastic k ----------------------------------------------------------------

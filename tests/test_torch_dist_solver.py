@@ -199,10 +199,19 @@ def test_operators_and_signs_match(rng):
 
 def test_mesh_solves_name_the_roadmap():
     tc = torch.zeros((8, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, axis_name="features")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tdist.dist_merged_top_k(tc[None], 1)
+    # the mesh solves are ported (tests/test_torch_mesh_solvers.py); an axis
+    # name resolves against the active mesh, and the wire codecs and ring
+    # collectives still name their item
+    with pytest.raises(RuntimeError, match="mesh_scope"):
+        tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, axis_name="features",
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        tdist.dist_merged_top_k(tc[None], 1, wire_dtype="bf16")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        tdist.dist_merged_top_k(tc[None], 1, collectives="ring")
+    with pytest.raises(ValueError, match="axis_name=None"):
+        tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, axis_name="features",
+                                matvec_gram=tdist.fused_factor_matvec(tc))
     with pytest.raises(ValueError, match="v_init"):
         tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, v_init=torch.zeros((8, 3)))
 

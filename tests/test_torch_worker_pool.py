@@ -110,11 +110,22 @@ def test_pool_round_matches(rng, mask):
         tpool.round(x[:2], k, v0=v0)
 
 
-def test_pool_refuses_unported_backends():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twp.WorkerPool(4, backend="shard_map", device="cpu")
+def test_pool_refuses_unported_backends(rng):
+    with pytest.raises(ValueError, match="unknown WorkerPool backend"):
+        twp.WorkerPool(4, backend="feature_sharded", device="cpu")
     with pytest.raises(ValueError, match="warm-only"):
         twp.WorkerPool(4, orth_method="ns", device="cpu")
+    # shard_map (and its alias) is ported: a process with no group is a
+    # world of one rank, whose round is the local round bit for bit (the
+    # multi-rank meshes: tests/test_torch_mesh.py)
+    x = _planted_blocks(rng, 4, 32, 24, 2)
+    v0 = _v0(24, 2)
+    local = twp.WorkerPool(4, solver="subspace", device="cpu").round(x, 2, v0=v0)
+    for backend in ("shard_map", "tpu"):
+        pool = twp.WorkerPool(4, backend=backend, solver="subspace", device="cpu")
+        assert pool.backend == "shard_map" and pool.mesh is None
+        got = pool.round(x, 2, v0=v0)
+        assert torch.equal(got[0], local[0]) and torch.equal(got[1], local[1])
 
 
 # -- config ------------------------------------------------------------------
@@ -143,13 +154,11 @@ def test_config_rejects_like_the_reference(kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(backend="tpu"), dict(compile_cache_dir="cache"),
+        dict(compile_cache_dir="cache"),
         dict(merge_topology=(("chip", 2),), merge_interval=2),
         dict(backend="feature_sharded", solver="subspace", pipeline_merge=True),
         dict(merge_topology=(("chip", 2),)),
-        # the deflation solve is ported on one device; its mesh forms are not
-        dict(solver="deflation", components_axis_size=2, backend="shard_map"),
-        dict(solver="deflation", merge_topology=(("chip", 2),)), dict(backend="shard_map"),
+        dict(solver="deflation", merge_topology=(("chip", 2),)),
         dict(backend="feature_sharded"),
     ],
 )
@@ -157,6 +166,20 @@ def test_config_names_the_roadmap_for_unported_settings(kw):
     JaxConfig(dim=32, k=4, num_workers=2, **kw)  # legal in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
         PCAConfig(dim=32, k=4, num_workers=2, **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        # the mesh backend and its alias, and the deflation lanes under it
+        dict(backend="tpu"), dict(backend="shard_map"),
+        dict(solver="deflation", components_axis_size=2, backend="shard_map"),
+    ],
+)
+def test_config_accepts_the_mesh_backends(kw):
+    j = JaxConfig(dim=32, k=4, num_workers=2, **kw)
+    t = PCAConfig(dim=32, k=4, num_workers=2, **kw)
+    assert (t.backend, t.components_axis_size) == (j.backend, j.components_axis_size)
 
 
 @pytest.mark.parametrize(
