@@ -122,7 +122,8 @@ exits non-zero without printing a result:
    (one s8 call and one bf16 TMA launch a rank, on (4, 1024, 784)), each
    within 0.01 degrees and 1e-5 relative ``sigma_tilde`` of the one-device
    fit, every rank's state bit-equal to rank 0's; ``dist_merged_top_k`` on
-   the last step's factors within 0.05 degrees of the exact merge; the
+   the last step's factors within 0.05 degrees of the exact merge, which
+   the parent makes over the whole block without a collective; the
    deflation lanes on a (2, 1) components mesh over bench.py --deflate's
    operand (2 lanes of 4), each lane within 0.1 degrees of the dense eigh.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
@@ -2124,12 +2125,16 @@ def slice_mesh_eval(dev, card: str, work_dir: str) -> dict:
     steps through ``make_train_step(cfg, mesh=make_mesh(1))`` on a one-rank
     NCCL group, against the same step loop without a mesh (bit-equal: the
     gather of one rank is a copy). Both within 1 degree of the planted
-    top-20. Also the bf16 variant's local fit, for the two-rank phase."""
+    top-20. Also the bf16 variant's local fit and the exact merge of the
+    last step's factors, both over the whole block in this one process, for
+    the two-rank phase to be held against."""
     import torch
     import distributed_eigenspaces_tpu_torch as dett
     from distributed_eigenspaces_tpu_torch.api.estimator import _scan_mesh
     from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
+    from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, merged_top_k_lowrank
     from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+    from distributed_eigenspaces_tpu_torch.parallel.worker_pool import _local_eigenspaces
 
     spec, data = mnist_data(dev)
     k, T = MNIST_FIT["k"], MNIST_FIT["num_steps"]
@@ -2148,6 +2153,12 @@ def slice_mesh_eval(dev, card: str, work_dir: str) -> dict:
     est = local["int8"]["est"]
     blocks = list(est._blocks(data, torch.int8))
     check(len(blocks) == T, f"mesh_eval: {len(blocks)} staged blocks, want {T}")
+    # the last step's factors over all m workers, merged exactly: what the
+    # two ranks' dist_merged_top_k is held against, made with no collective
+    vs_all = _local_eigenspaces(blocks[-1], k, "subspace", MNIST_FIT["subspace_iters"],
+                                "cholqr2", MNIST_FIT["compute_dtype"],
+                                v0=initial_basis(MNIST_FIT["dim"], k, device=dev))
+    exact_merge = merged_top_k_lowrank(vs_all, k).cpu().numpy()
 
     def step_loop(step):
         st, vp = dett.OnlineState.initial(cfg.dim, device=dev), None
@@ -2217,14 +2228,16 @@ def slice_mesh_eval(dev, card: str, work_dir: str) -> dict:
                    "mesh eval (one-rank NCCL mesh)": counts["s8"]},
             "bf16": {"mesh eval bf16 (estimator, one process)": local["bf16"]["counts"]["tma"]},
             "local": {n: (v["est"].components_.cpu().numpy(),
-                          v["est"].state.sigma_tilde.cpu().numpy()) for n, v in local.items()}}
+                          v["est"].state.sigma_tilde.cpu().numpy()) for n, v in local.items()},
+            "exact_merge": exact_merge}
 
 
-def mesh_rank_phase(rank: int, world: int, local: dict) -> dict:
+def mesh_rank_phase(rank: int, world: int, local: dict, exact_merge) -> dict:
     """One rank of ``slice_mesh_ranks2`` (both ranks on ``cuda:0``, over
     gloo): the mnist784 eval and its bf16 variant through the estimator's
     scan on a (2, 1) mesh, ``dist_merged_top_k`` over the last step's
-    factors against the exact merge, and the deflation lanes on a (2, 1)
+    factors against the exact merge (``exact_merge``, made by the parent
+    over the whole block), and the deflation lanes on a (2, 1)
     components mesh over bench.py --deflate's operand against the dense
     eigh. Fails (and so fails the script) on any gate."""
     import numpy as np
@@ -2233,7 +2246,6 @@ def mesh_rank_phase(rank: int, world: int, local: dict) -> dict:
     from distributed_eigenspaces_tpu_torch.api.estimator import _scan_mesh
     from distributed_eigenspaces_tpu_torch.ops.linalg import (
         initial_basis,
-        merged_top_k_lowrank,
         principal_angles_degrees,
     )
     from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
@@ -2280,9 +2292,9 @@ def mesh_rank_phase(rank: int, world: int, local: dict) -> dict:
                             MNIST_FIT["compute_dtype"],
                             v0=initial_basis(MNIST_FIT["dim"], k, device=dev))
     with pmesh.mesh_scope(mesh):
-        exact = merged_top_k_lowrank(pmesh.all_gather(vs, pmesh.WORKER_AXIS), k)
         (merged, merge_s) = synced_s(lambda: sd.dist_merged_top_k(vs, k, iters=16))
-    out["merge"] = dict(angle=float(principal_angles_degrees(merged.cpu(), exact.cpu()).max()),
+    exact = torch.from_numpy(exact_merge)
+    out["merge"] = dict(angle=float(principal_angles_degrees(merged.cpu(), exact).max()),
                         s=merge_s, mesh=mesh.shape)
     check(out["merge"]["angle"] <= MESH_MERGE_DEG,
           f"mesh_ranks2 merge: {out['merge']['angle']} deg from the exact merge")
@@ -2317,7 +2329,8 @@ def slice_mesh_ranks2(dev, card: str, mesh_eval: dict, work_dir: str) -> dict:
     from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 
     (out, ranks_s) = synced_s(lambda: pmesh.launch(
-        mesh_rank_phase, MESH_RANKS, mesh_eval["local"], backend="gloo",
+        mesh_rank_phase, MESH_RANKS, mesh_eval["local"], mesh_eval["exact_merge"],
+        backend="gloo",
         timeout=MESH_TIMEOUT_S, workdir=work_dir))
     r0 = out[0]
     same = {name: all(np.array_equal(o[name]["sigma"], r0[name]["sigma"]) for o in out)

@@ -179,10 +179,7 @@ def online_distributed_pca(
         if warm_iters is not None:
             v_prev = carry_after(v_prev, v_bar, merge_now, mask)
         if on_step is not None:
-            if pool.mesh is None or pmesh.is_writer():
-                on_step(state.step, state, v_bar)
-            if pool.mesh is not None:
-                pmesh.barrier()
+            pmesh.on_writer(pool.mesh, on_step, state.step, state, v_bar)
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)
     return w, state
 

@@ -65,9 +65,7 @@ class _Cores:
     def place(self, x) -> torch.Tensor:
         """A step's block on this rank's device: all of it, or on a mesh
         this rank's workers (the block whole or already sharded)."""
-        if self.mesh is None:
-            return torch.as_tensor(x).to(self.dev)
-        return pmesh.worker_block(self.mesh, x, self.cfg.num_workers)
+        return pmesh.place_workers(self.mesh, x, self.cfg.num_workers, self.dev)
 
     def update(self, st: OnlineState, v_bar: torch.Tensor) -> OnlineState:
         return update_state(st, v_bar, discount=self.cfg.discount,
@@ -81,7 +79,7 @@ class _Cores:
 
 
 def _cores(cfg: PCAConfig, device, v0, v_init, mesh=None) -> _Cores:
-    dev = mesh.device if mesh is not None else resolve_device(device)
+    dev = pmesh.mesh_device(mesh, device)
     return _Cores(
         cfg=cfg,
         dev=dev,
@@ -434,10 +432,7 @@ def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, mesh=None,
             state = seg(state, w, first) if mk is None else seg_masked(state, w, mk)
             first = False
             if on_segment is not None:
-                if mesh is None or pmesh.is_writer():
-                    on_segment(int(state.step), state)
-                if mesh is not None:
-                    pmesh.barrier()
+                pmesh.on_writer(mesh, on_segment, int(state.step), state)
         return state
 
     def fit(state: SegmentState, x_steps, on_segment=None) -> SegmentState:

@@ -25,7 +25,6 @@ from distributed_eigenspaces_tpu_torch.algo.online import (
     update_state_projector,
 )
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
-from distributed_eigenspaces_tpu_torch.device import resolve_device
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     initial_basis,
     merged_top_k_lowrank,
@@ -202,7 +201,7 @@ def make_train_step(cfg: PCAConfig, *, mesh: pmesh.Mesh | None = None,
     rank (a one-rank mesh's gather is a copy, so its step is the local
     step bit for bit).
     """
-    dev = mesh.device if mesh is not None else resolve_device(device)
+    dev = pmesh.mesh_device(mesh, device)
     v_merge = merge_start(cfg, device=dev, v_init=v_init)
     round_core = make_round_core(cfg, v_init=v_merge, mesh=mesh)
     warm_core = make_warm_core(cfg, v_init=v_merge, mesh=mesh)
@@ -224,13 +223,8 @@ def make_train_step(cfg: PCAConfig, *, mesh: pmesh.Mesh | None = None,
             state, p, discount=cfg.discount, num_steps=cfg.num_steps
         )
 
-    def place(x_blocks):
-        if mesh is None:
-            return torch.as_tensor(x_blocks).to(dev)
-        return pmesh.worker_block(mesh, x_blocks, cfg.num_workers)
-
     def step(state: OnlineState, x_blocks, v_prev=None, merge=True):
-        x = place(x_blocks)
+        x = pmesh.place_workers(mesh, x_blocks, cfg.num_workers, dev)
         if not merge:
             if s_int == 1:
                 raise ValueError(

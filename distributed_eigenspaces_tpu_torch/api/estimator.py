@@ -89,9 +89,9 @@ def _scan_mesh(cfg: PCAConfig, device="cuda"):
     if cfg.backend in ("shard_map", "tpu") or (
         cfg.backend == "auto" and pmesh.world_size() > 1
     ):
-        workers = pmesh.largest_divisor_leq(cfg.num_workers, pmesh.world_size())
-        if workers > 1:
-            return pmesh.make_mesh(num_workers=workers, device=device)
+        mesh = pmesh.workers_mesh(cfg.num_workers, device)
+        if mesh is not None and mesh.axis_size(pmesh.WORKER_AXIS) > 1:
+            return mesh
     return None
 
 
@@ -326,21 +326,17 @@ class OnlineDistributedPCA:
         is staged whole (the scale is the whole block's, as the
         reference's) and this rank keeps its workers."""
         cfg = self.cfg
-        staged = self._staged_blocks(data, stage_dtype)
-        if mesh is None:
-            return staged
-        rows = pmesh.worker_rows(mesh, cfg.num_workers)
-        return (b[rows] for b in staged)
-
-    def _staged_blocks(self, data, stage_dtype):
-        cfg = self.cfg
-        return stage_blocks(block_stream(
+        staged = stage_blocks(block_stream(
             data, num_workers=cfg.num_workers,
             rows_per_worker=cfg.rows_per_worker, num_steps=cfg.num_steps,
             remainder=cfg.remainder,
             dtype=torch.float32 if stage_dtype == torch.int8 else stage_dtype,
             device=self.device,
         ), stage_dtype)
+        if mesh is None:
+            return staged
+        rows = pmesh.worker_rows(mesh, cfg.num_workers)
+        return (b[rows] for b in staged)
 
     def _fit_scan(self, data, masks) -> "OnlineDistributedPCA":
         """The whole-fit scan over the schedule staged on the device: one

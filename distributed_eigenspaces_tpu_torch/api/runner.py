@@ -28,8 +28,8 @@ from typing import Any, Callable
 import torch
 
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
-from distributed_eigenspaces_tpu_torch.device import resolve_device
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, merged_top_k
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 
 KINDS = ("scan", "segmented", "fs_scan", "sketch")
 
@@ -91,7 +91,7 @@ def make_whole_fit(
             "trainer, not ported to distributed_eigenspaces_tpu_torch yet "
             "(ROADMAP.md Queue 1 item 15)"
         )
-    dev = mesh.device if mesh is not None else resolve_device(device)
+    dev = pmesh.mesh_device(mesh, device)
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
 
     def extract(st):

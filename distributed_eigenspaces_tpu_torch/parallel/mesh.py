@@ -134,6 +134,12 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def mesh_device(mesh: Mesh | None, device) -> torch.device:
+    """The device a step computes on: the mesh's, or ``device`` without a
+    mesh."""
+    return mesh.device if mesh is not None else resolve_device(device)
+
+
 def _mesh_device(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -218,6 +224,21 @@ def largest_divisor_leq(m: int, cap: int) -> int:
     return 1
 
 
+def workers_mesh(m: int, device) -> Mesh | None:
+    """The ``(W, 1)`` mesh of an ``m``-worker fit over the default group:
+    ``W`` the largest divisor of ``m`` up to the group's size, the
+    reference's policy over its devices. None outside a process group, and
+    None when only a one-wide workers axis divides ``m`` in a group of
+    several ranks (each rank then solves every worker itself)."""
+    if not dist.is_initialized():
+        return None
+    have = world_size()
+    workers = largest_divisor_leq(m, have)
+    if workers == 1 and have > 1:
+        return None
+    return make_mesh(num_workers=workers, device=device)
+
+
 def _shard_bounds(total: int, parts: int, index: int, what: str) -> slice:
     if total % parts:
         raise ValueError(f"{what}={total} not divisible by mesh axis of {parts}")
@@ -241,28 +262,29 @@ def _place(x, mesh: Mesh) -> torch.Tensor:
     return torch.as_tensor(x).to(mesh.device)
 
 
-def worker_shard(mesh: Mesh, x, axis: int = 0) -> torch.Tensor:
-    """This rank's slice of a global per-worker stack on its device: axis
-    ``axis`` (0 for ``(m, n, d)``, 1 for ``(T, m, n, d)``) split over
-    ``workers``, replicated over ``features`` (the reference's
-    ``worker_sharding``). Host arrays are sliced before they move."""
-    sl = [slice(None)] * (axis + 1)
-    sl[axis] = worker_rows(mesh, x.shape[axis])
-    return _place(x[tuple(sl)], mesh)
+def worker_shard(mesh: Mesh, x) -> torch.Tensor:
+    """This rank's workers of a global ``(m, ...)`` stack on its device:
+    axis 0 split over ``workers``, replicated over ``features`` (the
+    reference's ``worker_sharding``). Host arrays are sliced before they
+    move."""
+    return _place(x[worker_rows(mesh, x.shape[0])], mesh)
 
 
-def worker_block(mesh: Mesh, x, m: int, axis: int = 0) -> torch.Tensor:
-    """This rank's workers of a per-worker block whose axis ``axis`` holds
-    all ``m`` workers (sliced here) or already this rank's ``m / W`` (placed
-    as they are), on this rank's device."""
+def place_workers(mesh: Mesh | None, x, m: int, device) -> torch.Tensor:
+    """A per-worker block on the device its step computes on: without a
+    mesh all of it on ``device``; on a mesh this rank's workers on the
+    mesh's device, from a block that holds all ``m`` workers (sliced here)
+    or already this rank's ``m / W`` (placed as it is)."""
+    if mesh is None:
+        return torch.as_tensor(x).to(device)
     width = mesh.axis_size(WORKER_AXIS)
-    n = x.shape[axis]
+    n = x.shape[0]
     if n == m:
-        return worker_shard(mesh, x, axis)
+        return worker_shard(mesh, x)
     if width > 1 and n * width == m:
         return _place(x, mesh)
     raise ValueError(
-        f"block axis {axis} holds {n} workers: want all {m} or this rank's "
+        f"block holds {n} workers: want all {m} or this rank's "
         f"{m // width} of a {width}-wide workers axis"
     )
 
@@ -322,7 +344,10 @@ def _staged(group, x: torch.Tensor):
 
 
 def _all_reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
-    group = current_mesh().group(axis_name)
+    mesh = current_mesh()
+    if mesh.axis_size(axis_name) == 1:  # a reduction over one rank is x
+        return x
+    group = mesh.group(axis_name)
     buf, back = _staged(group, x)
     if back is None:  # reduced in place: a copy, never the caller's tensor
         buf = buf.detach().clone(memory_format=torch.contiguous_format)
@@ -369,6 +394,16 @@ def is_writer() -> bool:
     return rank() == 0
 
 
+def on_writer(mesh: Mesh | None, fn, *args) -> None:
+    """A host side effect of a mesh run (a hook, a commit): ``fn(*args)``
+    on the writer rank, then a barrier so no rank runs ahead of it; without
+    a mesh, ``fn(*args)`` here."""
+    if mesh is None or is_writer():
+        fn(*args)
+    if mesh is not None:
+        barrier()
+
+
 # -- the launcher ----------------------------------------------------------------
 
 
@@ -376,12 +411,11 @@ class RankTimeout(TimeoutError):
     """The ranks of a :func:`launch` did not finish within its timeout."""
 
 
-def _rank_main(fn, rank_, world, backend, init_method, group_timeout, threads,
-               args, conn) -> None:
-    torch.set_num_threads(threads)
+def _rank_main(fn, rank_, world, backend, init_method, timeout, args, conn) -> None:
+    torch.set_num_threads(1)
     try:
         initialize(backend, rank=rank_, world_size=world, init_method=init_method,
-                   timeout=group_timeout)
+                   timeout=timeout)
         result = fn(rank_, world, *args)
     except BaseException as e:  # noqa: BLE001 - reported to the caller
         tb = traceback.format_exc()
@@ -408,22 +442,19 @@ def _kill(procs) -> None:
 
 
 def launch(fn, world: int, *args, backend: str = "gloo", timeout: float = 300.0,
-           group_timeout: float | None = None, workdir: str | None = None,
-           threads: int = 1) -> list:
+           workdir: str | None = None) -> list:
     """Run ``fn(rank, world, *args)`` on ``world`` ranks started here with
     ``spawn``, each in the default process group of ``backend`` (joined
     through a ``file://`` rendezvous under ``workdir``, default a fresh
     temporary directory); returns each rank's return value, in rank order.
 
     ``fn`` and its arguments and results must pickle (a module-level
-    function). Every rank runs at ``threads`` intra-op threads. The ranks
-    are joined within ``timeout`` seconds: on expiry every rank is killed
-    and :class:`RankTimeout` raised; when a rank raises, the others are
-    killed and its exception is raised here, its traceback attached.
-    ``group_timeout`` (default ``timeout``) bounds each collective inside
-    the ranks."""
+    function). Every rank runs one intra-op thread. The ranks are joined
+    within ``timeout`` seconds, which also bounds each collective inside
+    them: on expiry every rank is killed and :class:`RankTimeout` raised;
+    when a rank raises, the others are killed and its exception is raised
+    here, its traceback attached."""
     ctx = multiprocessing.get_context("spawn")
-    gt = timeout if group_timeout is None else group_timeout
     with contextlib.ExitStack() as stack:
         if workdir is None:
             workdir = stack.enter_context(tempfile.TemporaryDirectory(prefix="det_launch_"))
@@ -437,7 +468,7 @@ def launch(fn, world: int, *args, backend: str = "gloo", timeout: float = 300.0,
                 recv, send = ctx.Pipe(duplex=False)
                 p = ctx.Process(
                     target=_rank_main,
-                    args=(fn, r, world, backend, init, gt, threads, args, send),
+                    args=(fn, r, world, backend, init, timeout, args, send),
                     daemon=True,
                 )
                 p.start()

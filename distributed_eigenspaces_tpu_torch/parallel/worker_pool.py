@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+from distributed_eigenspaces_tpu_torch.device import torch_dtype
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.ops.gram import gram_auto
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
@@ -156,12 +156,8 @@ class WorkerPool:
             raise ValueError(f"unknown WorkerPool backend: {backend!r}")
         validate_orth_method(orth_method)
         if backend == "shard_map":
-            if mesh is None and torch.distributed.is_initialized():
-                mesh = pmesh.make_mesh(
-                    num_workers=pmesh.largest_divisor_leq(
-                        num_workers, pmesh.world_size()),
-                    device=device,
-                )
+            if mesh is None:
+                mesh = pmesh.workers_mesh(num_workers, device)
             if mesh is not None and num_workers % mesh.axis_size(pmesh.WORKER_AXIS):
                 raise ValueError(
                     f"num_workers={num_workers} not divisible by mesh "
@@ -176,15 +172,14 @@ class WorkerPool:
         self.subspace_iters = subspace_iters
         self.orth_method = orth_method
         self.compute_dtype = compute_dtype
-        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.device = pmesh.mesh_device(mesh, device)
         self.seed = seed
 
     def shard(self, x_blocks) -> torch.Tensor:
         """This rank's workers of ``(m, n, d)`` host or device data, on the
         pool's device (all of them without a mesh)."""
-        if self.mesh is None:
-            return torch.as_tensor(x_blocks).to(self.device)
-        return pmesh.worker_shard(self.mesh, x_blocks)
+        return pmesh.place_workers(self.mesh, x_blocks, self.num_workers,
+                                   self.device)
 
     def _v0(self, d: int, k: int, v0):
         return initial_basis(d, k, seed=self.seed, device=self.device, v0=v0)

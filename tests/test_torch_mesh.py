@@ -72,7 +72,17 @@ def test_mesh_layout_and_collectives(world, tmp_path):
             assert got["pmax_workers"] == float((w - 1) * f + rf)
             np.testing.assert_array_equal(
                 got["stacked"], np.repeat([[float(i * f + rf)] for i in range(w)], 2, 1))
+            np.testing.assert_array_equal(got["placed"], xg[wrows])
+            np.testing.assert_array_equal(got["placed_share"], xg[wrows])
+            assert got["one_rank_psum_is_x"] == [True] * ((w == 1) + (f == 1))
+            assert "block holds 3 workers" in got["place_error"]
         assert o["components"] == ({"components": world, "features": 1}, r)
+        # the fit's workers mesh: the largest divisor of m up to the group;
+        # none when only a one-wide axis divides m in a group of several
+        assert o["workers_mesh"] == [{"workers": world, "features": 1},
+                                     {"workers": 1, "features": 1} if world == 1 else None]
+        # a host side effect runs on the writer rank only
+        assert o["on_writer"] == ([0] if r == 0 else [])
         # oversubscribed and empty layouts are refused loudly, as the reference's
         assert f"needs {world + 1} ranks, have {world}" in o["errors"][0]
         assert f"needs {2 * world} ranks, have {world}" in o["errors"][1]
@@ -90,6 +100,14 @@ def test_mesh_needs_a_group_and_an_active_mesh():
     with pytest.raises(ValueError, match="nccl"):
         pmesh.initialize("mpi", rank=0, world_size=1, init_method="file:///nonexistent")
     assert pmesh.largest_divisor_leq(8, 3) == 2 and pmesh.largest_divisor_leq(7, 4) == 1
+    # without a group: no workers mesh, the caller's device, everything placed
+    assert pmesh.workers_mesh(8, "cpu") is None
+    assert pmesh.mesh_device(None, "cpu") == torch.device("cpu")
+    x = np.arange(24, dtype=np.float32).reshape(4, 3, 2)
+    np.testing.assert_array_equal(pmesh.place_workers(None, x, 4, "cpu").numpy(), x)
+    ran = []
+    pmesh.on_writer(None, ran.append, 1)
+    assert ran == [1]
     pmesh.barrier()  # a world of one waits for nobody
 
 

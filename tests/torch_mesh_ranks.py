@@ -68,7 +68,25 @@ def layout(rank, world, shapes):
                                               pmesh.WORKER_AXIS)),
                 stacked=_np(pmesh.all_gather(torch.full((2,), float(rank)),
                                              pmesh.WORKER_AXIS, tiled=False)),
+                # a whole block and this rank's share place alike
+                placed=_np(pmesh.place_workers(mesh, xg, 8, CPU)),
+                placed_share=_np(pmesh.place_workers(mesh, xg[rows], 8, CPU)),
+                # a reduction over a one-rank axis is its operand, no collective
+                one_rank_psum_is_x=[
+                    pmesh.psum(t, ax) is t
+                    for ax in (pmesh.WORKER_AXIS, pmesh.FEATURE_AXIS)
+                    if mesh.axis_size(ax) == 1
+                    for t in (torch.tensor([float(rank)]),)],
             )
+            try:
+                pmesh.place_workers(mesh, xg[:3], 8, CPU)
+            except ValueError as e:
+                out[(w, f)]["place_error"] = str(e)
+    wm = [pmesh.workers_mesh(m, CPU) for m in (8, 7)]
+    out["workers_mesh"] = [None if x is None else x.shape for x in wm]
+    ran = []
+    pmesh.on_writer(wm[0], ran.append, rank)
+    out["on_writer"] = ran
     comp = pmesh.make_component_mesh(world, 1, device=CPU)
     out["components"] = (comp.shape, comp.axis_index(pmesh.COMPONENT_AXIS))
     errors = []
