@@ -187,6 +187,29 @@ exits non-zero without printing a result:
    on 4 lanes) every lane of the cold, warm and grown (4 -> 8) solves within
    0.5 degrees of the dense ``eigh``, the grown prefix bit for bit the
    parent's.
+11c. parity_serve_shards, timing_serve_shards: the three serve routes at
+   the features path's shard shapes, k=50 and d/f = 6144 or 12288, at 8,
+   64, 512 and 4,096 rows, against their plain versions (<= 1e-5 relative)
+   and timed as timing_serve times them.
+11d. slice_fs_eval: the imagenet12288 eval field for field (``backend=
+   "feature_sharded"``, ``trainer="sketch"``, 16 cold / 1 warm, bf16, int8
+   stage) on slice_dsolve's data in one process (the (1, 1) layout): within
+   1 degree of the planted top-50, seconds and samples/s, beside the exact
+   rank-r scan (``trainer="scan"``, its angle to the sketch) and the dense
+   scan of slice_dsolve; ``backend="auto"`` picks the sketch (one warning);
+   a windowed sketch fit (windows of 4) checkpointed, stopped after its
+   first window, restored and resumed: bit-equal to the unkilled one.
+11e. slice_fs_ranks2: two gloo ranks sharing the card (one
+   ``parallel.mesh.launch``), a (1, 2) features mesh of 6,144 columns a
+   rank: both fits, every replicated value (``s``, the sketch's ``omega^T
+   y``, ``step``) bit-equal to rank 0's, each basis within 0.01 degrees of
+   the one-process fit; rank 0 publishes the sketch basis in two shards and
+   a ``ReplicaRegistry`` on each rank installs it (spec, shard sizes); each
+   rank serves a 64-query burst of 1, 8 and 64 rows through
+   ``QueryServer(mesh=)`` on ``TransformEngine(basis_spec=("features",
+   None))`` at bf16, int8 and fp32: rows within 0.2 degrees of the direct
+   fp32 projection, one psum and one serve-kernel launch (on the (rows,
+   6144, 50) shard) a lockstep round.
 12. parity_mutant: the analyzer's one-CTA mutant kernel against its plain
    version (``torch.matmul``) at the audit shape (256, 1024, 8) and a
    ragged (100, 1000, 5): relative Frobenius error <= 1e-5 (FFMA in index
@@ -361,6 +384,17 @@ MESH_MERGE_DEG = 0.05  # dist_merged_top_k against the exact merge
 MESH_LANE_DEG = 0.1  # each deflation lane against the dense eigh
 MESH_LANES = 2
 MESH_TIMEOUT_S = 600.0
+# the feature-sharded slice: imagenet12288 field for field (evals.py:103-120)
+FS_EVAL_SOURCE = "distributed_eigenspaces_tpu/evals.py:103-120"
+FS_SEGMENT = 4  # the windowed sketch fit's window: steps 4, 8, 10
+FS_RANK_DEG = 0.01  # a two-rank fit against the same fit in one process
+FS_SERVE_DEG = 0.2
+FS_QUERIES = 64  # the burst each rank serves, 1, 8 and 64 rows in turn
+FS_SERVE_DTYPES = ("bfloat16", "int8", "float32")
+# the serve kernels at the features path's shard shapes: k = 50 and d / f
+# = 6144 (two feature shards) or 12288 (one), at the engine's buckets
+FS_SHARD_SHAPES = tuple((rows, dl, 50) for dl in (6144, 12288)
+                        for rows in (8, 64, 512, 4096))
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -1030,14 +1064,14 @@ def slice_fit_interval(dev, card: str, spec, data) -> None:
         check(angle <= 1.0, f"interval {kw}: angle {angle} > 1 degree")
 
 
-def parity_serve(dev) -> dict:
-    """Both serve kernels against their plain versions; returns each
-    kernel's largest absolute error over the cases."""
+def parity_serve(dev, shapes=SERVE_PARITY, phase: str = "parity_serve") -> dict:
+    """Both serve kernels against their plain versions at ``shapes``;
+    returns each kernel's largest absolute error over the cases."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
 
     worst = {"bf16": 0.0, "i8": 0.0, "f32": 0.0}
-    cases = [(shape, x_dtype) for shape in SERVE_PARITY for x_dtype in ("float32", "bfloat16")]
+    cases = [(shape, x_dtype) for shape in shapes for x_dtype in ("float32", "bfloat16")]
     for seed, (shape, x_dtype) in enumerate(cases):
         x, v = serve_operands(shape, dev, seed)
         x = x.to(getattr(torch, x_dtype))
@@ -1054,7 +1088,7 @@ def parity_serve(dev) -> dict:
             if shape in SERVE_PREFIX:
                 n = SERVE_PREFIX[shape]
                 prefix[f"first_{n}_rows_bit_equal"] = bool(torch.equal(run(x[:n]), got[:n]))
-            emit("parity_serve", kernel=route, shape=list(shape), x_dtype=x_dtype,
+            emit(phase, kernel=route, shape=list(shape), x_dtype=x_dtype,
                  rel_frobenius=rel, max_abs_err=err, tol=SERVE_TOL, **prefix)
             check(rel <= SERVE_TOL, f"serve {route} {shape} {x_dtype}: {rel} > {SERVE_TOL}")
             check(all(prefix.values()),
@@ -1174,15 +1208,15 @@ def device_ms(fn, reps: int = 20, launches: int | None = 1, warm: int = 5,
     return events_ms(device_events(fn, reps, launches, warm, windows), reps)
 
 
-def timing_serve(dev, card: str) -> dict:
-    """Kernel, plain, library times and the bound at each of
-    ``SERVE_SHAPES`` (CUDA events around one call, median of 25 after
-    warm-up), and the device time of the kernel and of the library call."""
+def timing_serve(dev, card: str, shapes=SERVE_SHAPES, phase: str = "timing_serve") -> dict:
+    """Kernel, plain, library times and the bound at each of ``shapes``
+    (CUDA events around one call, median of 25 after warm-up), and the
+    device time of the kernel and of the library call."""
     import torch
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
 
     out = {}
-    for shape in SERVE_SHAPES:
+    for shape in shapes:
         x, v = serve_operands(shape, dev, seed=7)
         library_ms = time_ms(lambda: torch.matmul(x, v))
         library_device_ms = device_ms(lambda: torch.matmul(x, v), launches=None)
@@ -1202,7 +1236,7 @@ def timing_serve(dev, card: str) -> dict:
                                        library_ms=library_ms,
                                        library_device_ms=library_device_ms,
                                        bound_ms=bound_ms, bound_by=bound_by)
-            emit("timing_serve", kernel=route, shape=list(shape), kernel_ms=ms,
+            emit(phase, kernel=route, shape=list(shape), kernel_ms=ms,
                  kernel_device_ms=kernel_device_ms, plain_ms=plain_ms,
                  library_ms=library_ms, library_device_ms=library_device_ms,
                  library="torch.matmul(x, v), fp32 operands",
@@ -1530,7 +1564,7 @@ def slice_dsolve(dev, card: str):
     check(agree <= 0.05, f"dsolve: fused solve {agree} deg from merged_top_k_distributed")
     check(tol_launches == info["iters_used"],
           f"dsolve: {tol_launches} launches for {info['iters_used']} iterations")
-    del data, x_last, vs, cc, est
+    del x_last, vs, cc, est
 
     # 3. the factor extract against a dense eigh of U diag(s) U^T
     r = 100
@@ -1548,7 +1582,292 @@ def slice_dsolve(dev, card: str):
     emit("slice_dsolve", part="extract", d=d, r=r, k=k, extract_vs_eigh_deg=extract_deg,
          extract_s=extract_s, dense_eigh_s=eigh_s, card=card)
     check(extract_deg <= 0.5, f"dsolve extract {extract_deg} deg from the dense eigh")
-    return launches, w_host
+    dense = dict(data=data, spec=spec, fit_s=fit_s, second_fit_s=fit2_s,
+                 second_samples_per_s=samples / fit2_s, max_angle_deg=angle)
+    return launches, w_host, dense
+
+
+def fs_eval_config(**kw):
+    """imagenet12288's settings (``evals.py:103-120``) field for field:
+    d=12288, k=50, m=4, n=2048, T=10, 16 cold / 1 warm, bf16, int8 stage,
+    ``backend="feature_sharded"``."""
+    import distributed_eigenspaces_tpu_torch as dett
+
+    return dett.PCAConfig(**{**DSOLVE, "subspace_iters": 16, "warm_start_iters": 1,
+                             "compute_dtype": "bfloat16", "stage_dtype": "int8",
+                             "backend": "feature_sharded", **kw})
+
+
+def fs_windows(cfg, mesh, data, dev, start_row: int = 0):
+    """The fit's blocks from ``start_row`` on, staged as the estimator stages
+    them (int8, one scale a block, this rank's columns), in windows of
+    ``FS_SEGMENT`` steps."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.data.bin_stream import window_stream
+    from distributed_eigenspaces_tpu_torch.data.stream import block_stream, stage_feature_blocks
+
+    step_rows = cfg.num_workers * cfg.rows_per_worker
+    blocks = block_stream(data[start_row:], num_workers=cfg.num_workers,
+                          rows_per_worker=cfg.rows_per_worker,
+                          num_steps=cfg.num_steps - start_row // step_rows,
+                          dtype=torch.float32, device=dev)
+    return window_stream(stage_feature_blocks(blocks, "int8", mesh, num_workers=cfg.num_workers,
+                                              dim=cfg.dim), FS_SEGMENT)
+
+
+class FsKilled(Exception):
+    """The deliberate stop of the windowed sketch fit after its first window."""
+
+
+def slice_fs_eval(dev, card: str, work_dir: str, dense: dict) -> dict:
+    """imagenet12288 field for field in one process (the (1, 1) layout): the
+    sketch fit on slice_dsolve's data, the exact rank-r scan beside it and
+    the dense scan of slice_dsolve beside both; ``backend="auto"`` picks the
+    sketch; a windowed sketch fit with checkpoints, stopped after its first
+    window and resumed from the checkpoint, bit-equal to the unkilled
+    windowed fit. Returns the sketch fit's basis and state for the two-rank
+    phase."""
+    import dataclasses
+    import warnings
+
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.api.runner import make_whole_fit
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+        LowRankState,
+        SketchState,
+    )
+    from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
+
+    data, spec = dense["data"], dense["spec"]
+    cfg = fs_eval_config()
+    d, k, m, n, T = cfg.dim, cfg.k, cfg.num_workers, cfg.rows_per_worker, cfg.num_steps
+    samples = T * m * n
+    out = {}
+    for trainer in ("sketch", "scan"):
+        est = dett.OnlineDistributedPCA(cfg, device=dev, trainer=trainer)
+        _, first_s = synced_s(lambda: est.fit(data))  # pays the libraries' start-up
+        est = dett.OnlineDistributedPCA(cfg, device=dev, trainer=trainer)
+        _, fit_s = synced_s(lambda: est.fit(data))
+        w = est.components_
+        check(w.shape == (d, k) and bool(torch.isfinite(w).all()), f"fs_eval {trainer}")
+        check(isinstance(est.state, SketchState if trainer == "sketch" else LowRankState),
+              f"fs_eval {trainer}: state {type(est.state).__name__}")
+        out[trainer] = dict(est=est, first_fit_s=first_s, fit_s=fit_s,
+                            samples_per_s=samples / fit_s, angle=basis_angle(w, spec))
+    sk, ex = out["sketch"], out["scan"]
+    sketch_vs_exact = float(principal_angles_degrees(
+        sk["est"].components_.cpu(), ex["est"].components_.cpu()).max())
+    emit("slice_fs_eval", part="fit", source=FS_EVAL_SOURCE,
+         config="imagenet12288 field for field: d=12288 k=50 m=4 n=2048 T=10, 16 cold / "
+                "1 warm, bf16, int8 stage, backend=feature_sharded, trainer=sketch; "
+                "one process, the (1, 1) layout",
+         data="slice_dsolve's planted_subspace(12288, k_planted=50, ...) rows",
+         trainer=sk["est"].trainer_used_, max_angle_deg=sk["angle"],
+         first_fit_s=sk["first_fit_s"], fit_s=sk["fit_s"],
+         samples_per_s=sk["samples_per_s"],
+         exact_fs_scan=dict(trainer=ex["est"].trainer_used_, max_angle_deg=ex["angle"],
+                            fit_s=ex["fit_s"], samples_per_s=ex["samples_per_s"],
+                            angle_to_sketch_deg=sketch_vs_exact),
+         dense_scan_of_slice_dsolve=dict(fit_s=dense["second_fit_s"],
+                                         samples_per_s=dense["second_samples_per_s"],
+                                         max_angle_deg=dense["max_angle_deg"]),
+         card=card)
+    check(sk["angle"] <= 1.0, f"fs_eval sketch: {sk['angle']} deg from the planted top-50")
+    check(ex["angle"] <= 1.0, f"fs_eval fs_scan: {ex['angle']} deg from the planted top-50")
+
+    # backend="auto" at d >= 4096 and d k >= 65536: the feature-sharded sketch
+    auto = dett.OnlineDistributedPCA(dataclasses.replace(cfg, backend="auto"), device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, auto_s = synced_s(lambda: auto.fit(data))
+    warned = sum("Nystrom" in str(w.message) for w in caught)
+    auto_same = bool(torch.equal(auto.components_, sk["est"].components_))
+    emit("slice_fs_eval", part="auto", backend="auto", trainer_used_=auto.trainer_used_,
+         state=type(auto.state).__name__, warnings=warned, fit_s=auto_s,
+         bit_equal_to_explicit_sketch=auto_same, card=card)
+    check(auto.trainer_used_ == "sketch" and isinstance(auto.state, SketchState),
+          f"fs_eval auto: picked {auto.trainer_used_}")
+    check(warned == 1, f"fs_eval auto: {warned} sketch warnings, want 1")
+    del auto
+
+    # the windowed sketch fit, stopped after window 1 and resumed
+    h = make_whole_fit(cfg, "sketch", device=dev)
+    mesh = h.raw.mesh
+    unkilled, windowed_s = synced_s(lambda: h.fit_windows(
+        h.init_state(), fs_windows(cfg, mesh, data, dev)))
+    ckdir = os.path.join(work_dir, "fs_ckpt")
+    ck = Checkpointer(ckdir, rows_per_step=m * n, device=dev)
+
+    def stop_after_first(t, st):
+        ck.on_step(t, st)
+        if t == FS_SEGMENT:
+            raise FsKilled
+
+    try:
+        h.fit_windows(h.init_state(), fs_windows(cfg, mesh, data, dev),
+                      on_segment=stop_after_first)
+        check(False, "fs_eval resume: the stopped fit ran to its end")
+    except FsKilled:
+        pass
+    restored, cursor = ck.latest()
+    resumed, resume_s = synced_s(lambda: h.fit_windows(
+        restored, fs_windows(cfg, mesh, data, dev, cursor), on_segment=ck.on_step))
+    bit_equal = (resumed.step == unkilled.step == T
+                 and bool(torch.equal(resumed.y, unkilled.y))
+                 and bool(torch.equal(resumed.v, unkilled.v)))
+    staged_equal = bool(torch.equal(unkilled.y, sk["est"].state.y))
+    emit("slice_fs_eval", part="windowed_resume", segment=FS_SEGMENT,
+         restored_step=restored.step, cursor=cursor, resumed_step=resumed.step,
+         bit_equal_to_unkilled=bit_equal, windowed_equal_to_staged=staged_equal,
+         windowed_fit_s=windowed_s, resumed_s=resume_s,
+         checkpoints=sorted(os.listdir(ckdir)), card=card)
+    check(restored.step == FS_SEGMENT and cursor == FS_SEGMENT * m * n,
+          f"fs_eval resume: restored step {restored.step}, cursor {cursor}")
+    check(bit_equal, "fs_eval resume: the resumed windowed fit differs from the unkilled one")
+    return {"sketch_w": sk["est"].components_.cpu().numpy(),
+            "scan_w": ex["est"].components_.cpu().numpy()}
+
+
+def fs_rank_phase(rank: int, world: int, one: dict, reg_dir: str) -> dict:
+    """One rank of ``slice_fs_ranks2`` (both ranks on ``cuda:0``, over gloo,
+    a (1, 2) features mesh of 6,144 columns a rank): the sketch and the
+    exact rank-r fit of imagenet12288 through the estimator; rank 0
+    publishes the sketch basis in two shards and a replica on each rank
+    installs it; each rank serves a 64-query burst of 1, 8 and 64 rows
+    through ``QueryServer(mesh=)`` on a row-sharded engine at bf16, int8
+    and fp32. Fails (and so fails the script) on any gate."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+    from distributed_eigenspaces_tpu_torch.serving.registry import EigenbasisRegistry
+    from distributed_eigenspaces_tpu_torch.serving.replication import ReplicaRegistry
+    from distributed_eigenspaces_tpu_torch.serving.server import QueryServer
+    from distributed_eigenspaces_tpu_torch.serving.transform import TransformEngine
+
+    dev = torch.device(MESH_DEVICE)
+    torch.cuda.set_device(dev)
+    cfg = fs_eval_config()
+    d, k, m, n, T = cfg.dim, cfg.k, cfg.num_workers, cfg.rows_per_worker, cfg.num_steps
+    spec = dett.planted_subspace(d, **DSOLVE_DATA)
+    data = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+    mesh = pmesh.auto_feature_mesh(cfg, dev)
+    out = {"backend": torch.distributed.get_backend(), "device": str(dev),
+           "mesh": mesh.shape}
+    fits = {}
+    for trainer in ("sketch", "scan"):
+        est = dett.OnlineDistributedPCA(cfg, device=dev, trainer=trainer)
+        _, fit_s = synced_s(lambda: est.fit(data))
+        st = est.state
+        with pmesh.mesh_scope(mesh):
+            if trainer == "sketch":  # the k+16 square Gram every rank holds
+                replicated = pmesh.psum(torch.matmul(est._sketch_fit.raw.omega.mT, st.y),
+                                        pmesh.FEATURE_AXIS)
+            else:
+                replicated = st.s
+        w = est.components_
+        one_w = torch.from_numpy(one["sketch_w" if trainer == "sketch" else "scan_w"])
+        fits[trainer] = est
+        out[trainer] = dict(
+            trainer=est.trainer_used_, fit_s=fit_s, step=st.step,
+            replicated=replicated.cpu().numpy(), rows=tuple(st[0].shape),
+            angle_to_one_process=float(principal_angles_degrees(w.cpu(), one_w).max()),
+            angle_to_truth=basis_angle(w, spec))
+        check(out[trainer]["angle_to_one_process"] <= FS_RANK_DEG,
+              f"fs_ranks2 {trainer} rank {rank}: "
+              f"{out[trainer]['angle_to_one_process']} deg from the one-process fit")
+        check(out[trainer]["angle_to_truth"] <= 1.0, f"fs_ranks2 {trainer}: > 1 degree")
+    del data
+    # publish in two shards (rank 0), install on a replica (every rank)
+    est = fits["sketch"]
+    rows = est._sketch_fit.extract(est.state)
+    with pmesh.mesh_scope(mesh):
+        parts = pmesh.all_gather(rows.contiguous(), pmesh.FEATURE_AXIS, tiled=False)
+    if pmesh.is_writer():
+        EigenbasisRegistry(registry_dir=reg_dir).publish(
+            [p.cpu().numpy() for p in parts], step=est.state.step,
+            lineage={"trainer": "sketch", "ranks": world})
+    pmesh.barrier()
+    replica = ReplicaRegistry(reg_dir, name=f"fs-replica-{rank}", start=False)
+    live = replica.latest()
+    out["installed"] = dict(version=live.version, spec=live.spec,
+                            shard_sizes=live.shard_sizes)
+    check(live.spec == ("features", None) and live.shard_sizes == (d // 2, d // 2),
+          f"fs_ranks2 replica: installed {out['installed']}")
+    # the burst: rows dominant in the served subspace plus moderate noise
+    w = torch.from_numpy(np.array(live.v)).to(dev)
+    rng = np.random.default_rng(11)
+    queries = []
+    for i in range(FS_QUERIES):
+        r_ = (1, 8, 64)[i % 3]
+        c = rng.standard_normal((r_, k))
+        noise = rng.standard_normal((r_, d))
+        noise *= 0.3 * np.linalg.norm(c, axis=1, keepdims=True) / np.linalg.norm(
+            noise, axis=1, keepdims=True)
+        queries.append((c @ np.array(live.v).T + noise).astype(np.float32))
+    counters = {"bfloat16": "launches", "int8": "launches_i8", "float32": "launches_f32"}
+    for dt in FS_SERVE_DTYPES:
+        eng = TransformEngine(d, k, mesh=mesh, basis_spec=("features", None),
+                              serve_dtype=dt)
+        with QueryServer(replica, d=d, k=k, mesh=mesh, engine=eng, serve_dtype=dt) as srv:
+            check(srv.lockstep, "fs_ranks2: the server is not in lockstep")
+            setattr(sp, counters[dt], 0)
+            p0, r0 = eng.psums, srv.lockstep_rounds
+            t0 = time.perf_counter()
+            tickets = [srv.submit(q) for q in queries]
+            zs = [t.result(timeout=300).z for t in tickets]
+            burst_s = time.perf_counter() - t0
+            launches = getattr(sp, counters[dt])
+            psums, rounds = eng.psums - p0, srv.lockstep_rounds - r0
+        worst = max(float(row_angles_deg(torch.from_numpy(z),
+                                         torch.matmul(torch.from_numpy(q).to(dev), w).cpu()
+                                         ).max()) for z, q in zip(zs, queries))
+        out[dt] = dict(launches=launches, psums=psums, rounds=rounds, burst_s=burst_s,
+                       worst_row_deg=worst, shard=[eng.d_local, k], z=np.concatenate(zs))
+        check(eng.d_local == d // 2, f"fs_ranks2 {dt}: shard of {eng.d_local} columns")
+        check(worst <= FS_SERVE_DEG, f"fs_ranks2 {dt}: a served row {worst} deg off")
+        check(psums == rounds and launches == rounds and rounds >= FS_QUERIES // 8,
+              f"fs_ranks2 {dt}: {launches} launches, {psums} psums, {rounds} rounds")
+    replica.close()
+    return out
+
+
+def slice_fs_ranks2(dev, card: str, one: dict, work_dir: str) -> dict:
+    """Two ranks sharing the card in one gloo group, a (1, 2) features mesh
+    (``fs_rank_phase``, one ``parallel.mesh.launch``): every rank's
+    replicated values equal rank 0's bit for bit, each within 0.01 degrees of
+    the one-process fit; returns the serve kernels' launches per route,
+    summed over the ranks."""
+    import numpy as np
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    reg_dir = os.path.join(work_dir, "fs_registry")
+    (out, ranks_s) = synced_s(lambda: pmesh.launch(
+        fs_rank_phase, MESH_RANKS, one, reg_dir, backend="gloo",
+        timeout=MESH_TIMEOUT_S, workdir=work_dir))
+    r0 = out[0]
+    same = {t: all(o[t]["step"] == r0[t]["step"]
+                   and np.array_equal(o[t]["replicated"], r0[t]["replicated"])
+                   for o in out) for t in ("sketch", "scan")}
+    served_same = {dt: all(np.array_equal(o[dt]["z"], r0[dt]["z"]) for o in out)
+                   for dt in FS_SERVE_DTYPES}
+    emit("slice_fs_ranks2", ranks=MESH_RANKS, backend=r0["backend"], device=r0["device"],
+         mesh=r0["mesh"], launch_s=ranks_s,
+         fits={t: {f: v for f, v in r0[t].items() if f != "replicated"}
+               for t in ("sketch", "scan")},
+         replicated_bit_equal=same, installed=r0["installed"],
+         serve={dt: [{f: v for f, v in o[dt].items() if f != "z"} for o in out]
+                for dt in FS_SERVE_DTYPES},
+         served_rows_equal_on_every_rank=served_same, card=card)
+    check(all(o["backend"] == "gloo" for o in out), "fs_ranks2: not a gloo group")
+    check(all(o["mesh"] == {"workers": 1, "features": MESH_RANKS} for o in out),
+          f"fs_ranks2: mesh {[o['mesh'] for o in out]}")
+    check(all(same.values()), f"fs_ranks2: replicated values differ from rank 0's: {same}")
+    return {dt: sum(o[dt]["launches"] for o in out) for dt in FS_SERVE_DTYPES}
 
 
 def mutant_bound(shape) -> tuple[float, str]:
@@ -2593,13 +2912,28 @@ def main() -> int:
     serve_timing = timing_serve(dev, card)
     serve_launches = slice_serve(est, spec, cfg, card)
     del est, spec, data
+    serve_by_path = {route: {"slice_serve": n} for route, n in serve_launches.items()}
+    for route, n in grow["serve"].items():
+        serve_by_path[route]["slice_grow (k'=20, replica)"] = n
+    serve_by_path["f32"]["slice_drift"] = drift["serve_f32"]
 
     # 9.-11. the large-d solver path
     mg_err = parity_matvec_gram(dev)
     mg_timing = timing_matvec_gram(dev, card)
-    mg_launches, dsolve_w = slice_dsolve(dev, card)
+    mg_launches, dsolve_w, dense = slice_dsolve(dev, card)
     # 11b. the same shape on the parallel-deflation lanes
     s8_by_path["deflation fit"] = slice_deflate(dev, card, dsolve_w)
+    # 11c.-11e. the features axis: the serve kernels at its shard shapes,
+    # imagenet12288 field for field in one process, then on two gloo ranks
+    fs_serve_err = parity_serve(dev, FS_SHARD_SHAPES, "parity_serve_shards")
+    fs_serve_timing = timing_serve(dev, card, FS_SHARD_SHAPES, "timing_serve_shards")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fs_", dir=build_dir) as work_dir:
+        fs_one = slice_fs_eval(dev, card, work_dir, dense)
+        del dense
+        fs_serve = slice_fs_ranks2(dev, card, fs_one, work_dir)
+    for route, dt in (("bf16", "bfloat16"), ("i8", "int8"), ("f32", "float32")):
+        serve_by_path[route]["slice_fs_ranks2 (2 ranks, (rows, 6144, 50))"] = fs_serve[dt]
+        serve_err[route] = max(serve_err[route], fs_serve_err[route])
 
     # 12.-14. the analyzer's kernel gate and its mutant
     mutant_err = parity_mutant(dev)
@@ -2619,11 +2953,6 @@ def main() -> int:
                 "at_shapes": [dict(timing[(other, dtype)], shape=list(other),
                                    max_abs_err=max_abs[(other, dtype, 0)]) for other in also]}
 
-    serve_by_path = {route: {"slice_serve": n} for route, n in serve_launches.items()}
-    for route, n in grow["serve"].items():
-        serve_by_path[route]["slice_grow (k'=20, replica)"] = n
-    serve_by_path["f32"]["slice_drift"] = drift["serve_f32"]
-
     def serve_row(name, route):
         t = serve_timing[(SERVE_BULK, route)]
         b = serve_timing[(SERVE_BURST, route)]
@@ -2639,7 +2968,9 @@ def main() -> int:
                 "burst_plain_ms": b["plain_ms"], "burst_bound_ms": b["bound_ms"],
                 "burst_library_ms": b["library_ms"],
                 "at_shapes": [dict(serve_timing[(shape, route)], shape=list(shape))
-                              for shape in SERVE_SHAPES]}
+                              for shape in SERVE_SHAPES],
+                "at_shard_shapes": [dict(fs_serve_timing[(shape, route)], shape=list(shape))
+                                    for shape in FS_SHARD_SHAPES]}
 
     print(json.dumps({"kernels": [
         dict(row("gram_bf16", CIFAR, "bfloat16", sum(bf16_by_path.values()),

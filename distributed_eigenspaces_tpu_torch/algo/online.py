@@ -126,13 +126,19 @@ def online_distributed_pca(
     others fold the mean of the worker projectors (``WorkerPool.round(
     merge=False)``).
 
-    The pool's backend is ``cfg.backend``'s: under ``"shard_map"`` (or
+    Under ``backend="feature_sharded"`` the loop runs the rank-r trainer
+    of ``parallel/feature_sharded.py`` instead (:func:`_fit_feature_sharded`).
+    Otherwise the pool's backend is ``cfg.backend``'s: under ``"shard_map"`` (or
     ``"auto"`` in a group of more than one rank) every rank runs the loop on
     the same blocks, solves its workers and holds the same state; ``on_step``
     then runs on rank 0 and the ranks meet at a barrier after it.
     """
     if worker_masks is not None:
         worker_masks = iter(worker_masks)
+    if cfg.backend == "feature_sharded":
+        return _fit_feature_sharded(stream, cfg, device=device, state=state,
+                                    on_step=on_step, worker_masks=worker_masks,
+                                    max_steps=max_steps)
     pool = WorkerPool(
         cfg.num_workers,
         backend=cfg.backend,
@@ -182,6 +188,40 @@ def online_distributed_pca(
             pmesh.on_writer(pool.mesh, on_step, state.step, state, v_bar)
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)
     return w, state
+
+
+def _fit_feature_sharded(stream, cfg: PCAConfig, *, device, state, on_step,
+                         worker_masks, max_steps):
+    """The per-step loop of the feature-sharded backend: each ``(m, n, d)``
+    block through ``make_feature_sharded_step`` on
+    ``parallel.mesh.auto_feature_mesh(cfg)`` (the ``(1, 1)`` layout in one
+    process), the state rank-r (``LowRankState``, this rank's rows). Returns
+    ``(w, state)``, ``w`` the whole ``(d, k)`` ``u[:, :k]`` with canonical
+    signs on every rank; ``on_step(t, state, v_bar)`` sees the whole state
+    and basis on rank 0, then every rank meets at a barrier."""
+    from distributed_eigenspaces_tpu_torch.ops.linalg import canonicalize_signs
+    from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as fs
+
+    mesh = pmesh.auto_feature_mesh(cfg, device)
+    fstep = fs.make_feature_sharded_step(cfg, mesh, device=device)
+    mesh = fstep.mesh
+    if state is None:
+        state = fstep.init_state()
+    cap = cfg.num_steps if max_steps == "auto" else max_steps
+    open_ended = max_steps == "auto" and cfg.discount == "1/t"
+    for x_blocks in stream:
+        if cap is not None and state.step >= cap and not open_ended:
+            break
+        mask = next(worker_masks) if worker_masks is not None else None
+        state, v_bar = fstep(state, x_blocks, worker_mask=mask)
+        if on_step is not None:
+            with pmesh.mesh_scope(mesh):
+                whole = fs.gather_state(state)
+                v_whole = pmesh.all_gather(v_bar, pmesh.FEATURE_AXIS)
+            pmesh.on_writer(mesh, on_step, state.step, whole, v_whole)
+    with pmesh.mesh_scope(mesh):
+        u_k = pmesh.all_gather(state.u[:, :cfg.k].contiguous(), pmesh.FEATURE_AXIS)
+    return canonicalize_signs(u_k), state
 
 
 def one_shot_round(x_blocks, k: int, *, pool: WorkerPool | None = None,

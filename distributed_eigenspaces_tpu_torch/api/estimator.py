@@ -14,13 +14,27 @@ both (``worker_masks`` as a ``(T, m)`` sequence), and the per-step loop
 reference's ``transform`` / ``inverse_transform`` / ``score`` and the
 ``matrix_w`` alias. ``fit`` resolves its trainer with the reference's rule
 (:func:`choose_trainer`) and raises the reference's ``ValueError``s for
-combinations it refuses. Where the rule, or the caller, picks a trainer the
-port lacks (the feature-sharded ones, ``"sketch"``, ``"fleet"``: ROADMAP.md
-Queue 1 items 15 and 9f), the estimator raises ``NotImplementedError``
-before staging anything, instead of fitting under another trainer's name.
+combinations it refuses.
+
+The feature-sharded backend (``backend="feature_sharded"``, or ``"auto"`` at
+``dim >= 4096`` and, for a whole fit, at ``dim * k >= 65536``) runs the
+rank-r scan (``trainer="scan"``) or the Nystrom sketch (``"sketch"``) of
+``parallel/feature_sharded.py`` on ``parallel.mesh.auto_feature_mesh(cfg)``
+(the ``(1, 1)`` layout in one process), staged in one program or, when
+checkpointing or over the per-device staging budget, in windows; the
+per-step loop runs the rank-r step, and ``fit_stream`` / ``partial_fit``
+continue a sketch fit through its windowed entry (:meth:`_continue_sketch`).
+Each rank holds its rows of the state; ``components_`` is the whole
+``(d, k)`` basis on every rank. ``trainer="fleet"`` raises
+``NotImplementedError`` (ROADMAP.md Queue 1 items 15 and 9f).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import warnings
 
 import numpy as np
 import torch
@@ -37,6 +51,7 @@ from distributed_eigenspaces_tpu_torch.data.stream import (
     block_stream,
     count_steps,
     stage_blocks,
+    stage_feature_blocks,
 )
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
@@ -53,7 +68,6 @@ TRAINERS = ("auto", "step", "scan", "segmented", "sketch", "fleet")
 #: trainers the reference accepts that the port refuses, with the ROADMAP
 #: items that will add them
 _UNPORTED_TRAINERS = {
-    "sketch": "Queue 1 items 15 and 9f (the feature-sharded sketch trainer)",
     "fleet": "Queue 1 items 15 and 9f (parallel/fleet.py)",
 }
 
@@ -95,14 +109,20 @@ def _scan_mesh(cfg: PCAConfig, device="cuda"):
     return None
 
 
-def _refuse_feature_sharded(cfg: PCAConfig, *, whole_fit: bool) -> None:
-    if resolves_feature_sharded(cfg, whole_fit=whole_fit):
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} at dim={cfg.dim}, k={cfg.k} runs the "
-            "reference's feature-sharded trainers, which are not ported to "
-            "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item "
-            "15); pass backend='local' for the dense single-device fit"
-        )
+def _routes_feature_whole(cfg: PCAConfig, trainer: str) -> bool:
+    """Whether this (cfg, resolved trainer) pair runs the feature-sharded
+    whole-fit programs: ``trainer="sketch"`` whatever the backend, and
+    ``"scan"`` where the backend resolves to feature sharding."""
+    return trainer == "sketch" or (
+        trainer == "scan" and resolves_feature_sharded(cfg)
+    )
+
+
+def _feature_mesh(cfg: PCAConfig, device):
+    """The feature-sharded trainers' mesh: ``auto_feature_mesh``, or the
+    one-process ``(1, 1)`` layout."""
+    mesh = pmesh.auto_feature_mesh(cfg, device)
+    return pmesh.local_mesh(device) if mesh is None else mesh
 
 
 def _step_bytes(cfg: PCAConfig) -> int:
@@ -133,11 +153,12 @@ def choose_trainer(cfg: PCAConfig, *, per_step_hooks: bool = False,
     return "scan"
 
 
-def _budget_steps(cfg: PCAConfig) -> int:
-    """The most schedule steps the staging budget allows on the device
-    (``SCAN_STAGE_BYTES_MAX // step_bytes``, at least 1): the segmented
-    fit's window clamp."""
-    return max(1, SCAN_STAGE_BYTES_MAX // max(_step_bytes(cfg), 1))
+def _budget_steps(cfg: PCAConfig, n_devices: int = 1) -> int:
+    """The most schedule steps the staging budget allows
+    (``SCAN_STAGE_BYTES_MAX * n_devices // step_bytes``, at least 1): the
+    segmented fit's window clamp, and the feature-sharded fits' (whose
+    stack splits over every rank of the mesh)."""
+    return max(1, SCAN_STAGE_BYTES_MAX * max(n_devices, 1) // max(_step_bytes(cfg), 1))
 
 
 def _validated_masks(worker_masks, num_workers: int) -> np.ndarray:
@@ -225,10 +246,13 @@ class OnlineDistributedPCA:
             cfg.dim, cfg.k, seed=cfg.seed, device=self.device, v0=v0
         )
         self.v_init = v_init
-        self.state: OnlineState | None = None
+        self.state = None
         #: the trainer the last ``fit`` ran
         self.trainer_used_: str | None = None
         self._w: torch.Tensor | None = None
+        #: the sketch trainer of the last sketch fit, kept for its online
+        #: continuation (``fit_stream`` / ``partial_fit``)
+        self._sketch_fit = None
 
     # -- fitting ------------------------------------------------------------
 
@@ -309,12 +333,12 @@ class OnlineDistributedPCA:
                 remainder=cfg.remainder, dtype=cfg.dtype, device=self.device,
             )
             return self.fit_stream(stream, on_step=on_step, worker_masks=worker_masks)
-        if trainer == "sketch" or trainer == "scan":
-            _refuse_feature_sharded(cfg, whole_fit=True)
         masks = None
         if worker_masks is not None:
             masks = _validated_masks(worker_masks, cfg.num_workers)
         self.trainer_used_ = trainer
+        if _routes_feature_whole(cfg, trainer):
+            return self._fit_feature_sharded(data, trainer, masks)
         if trainer == "segmented":
             return self._fit_segmented(data, masks)
         return self._fit_scan(data, masks)
@@ -415,6 +439,87 @@ class OnlineDistributedPCA:
         self._w = extract_dense(self.cfg, state.sigma_tilde, v0=self.v0)
         return self
 
+    def _fit_feature_sharded(self, data, trainer: str, masks) -> "OnlineDistributedPCA":
+        """The feature-sharded whole fits (the rank-r scan, the Nystrom
+        sketch) on :func:`_feature_mesh`. A schedule within the per-device
+        staging budget and no checkpointing stages once, each rank its
+        ``(T, m_local, n, d_local)`` share, and runs one fit; otherwise the
+        windowed entry streams windows of ``segment`` steps (clamped to the
+        budget), committing a checkpoint per window when checkpointing.
+        ``masks`` (a validated ``(T, m)`` array) must cover the schedule."""
+        cfg = self.cfg
+        if trainer == "sketch" and self.trainer == "auto":
+            warnings.warn(
+                f"auto dispatch picked the Nystrom-sketch trainer for d*k = "
+                f"{cfg.dim * cfg.k} >= {SKETCH_DK_CROSSOVER} (the large-d "
+                "path; drift vs the exact online estimate is bounded). Pass "
+                "trainer='step' for the exact estimate, and see "
+                "estimator.trainer_used_.",
+                stacklevel=3,
+            )
+        mesh = _feature_mesh(cfg, self.device)
+        handle = make_whole_fit(cfg, "sketch" if trainer == "sketch" else "fs_scan",
+                                mesh, device=self.device, v_init=self.v_init)
+        if trainer == "sketch":
+            self._sketch_fit = handle
+        stage_dtype = torch_dtype(cfg.resolved_stage_dtype())
+        budget = _budget_steps(cfg, math.prod(mesh.shape.values()))
+        blocks = stage_feature_blocks(block_stream(
+            data, num_workers=cfg.num_workers, rows_per_worker=cfg.rows_per_worker,
+            num_steps=cfg.num_steps, remainder=cfg.remainder,
+            dtype=torch.float32 if stage_dtype == torch.int8 else stage_dtype,
+            device=self.device,
+        ), stage_dtype, mesh, num_workers=cfg.num_workers, dim=cfg.dim)
+        if self.checkpoint_dir is None and cfg.num_steps <= budget:
+            steps = count_steps(len(data), cfg.num_workers * cfg.rows_per_worker,
+                                num_steps=cfg.num_steps, remainder=cfg.remainder)
+            if not steps:
+                raise ValueError("dataset yielded zero full steps")
+            staged = None
+            for t, b in enumerate(blocks):
+                if staged is None:
+                    staged = torch.empty((steps, *b.shape), dtype=b.dtype,
+                                         device=b.device)
+                staged[t].copy_(b)
+            state = handle.fit(handle.init_state(), staged,
+                               worker_masks=None if masks is None
+                               else _masks_for(masks, steps))
+            del staged
+        else:
+            on_segment = None
+            if self.checkpoint_dir is not None:
+                on_segment = Checkpointer(
+                    self.checkpoint_dir, every=1,
+                    rows_per_step=cfg.num_workers * cfg.rows_per_worker,
+                    device=self.device,
+                ).on_step
+            source = windows = prefetch_stream(
+                window_stream(blocks, max(1, min(self.segment, budget))),
+                depth=1, place=lambda w: w)
+            mask_windows = None
+            if masks is not None:
+                windows, mask_windows = _lockstep_mask_windows(
+                    windows, lambda start, s: _masks_for(masks, start + s)[start:])
+            try:
+                state = handle.fit_windows(handle.init_state(), windows,
+                                           on_segment=on_segment,
+                                           worker_masks=mask_windows)
+            finally:
+                source.close()
+            if int(state.step) == 0:
+                raise ValueError("dataset yielded zero full steps")
+        self.state = state
+        self._w = self._whole_basis(handle, state)
+        return self
+
+    def _whole_basis(self, handle, state) -> torch.Tensor:
+        """The whole ``(d, k)`` basis on every rank: the handle's extract,
+        this rank's rows, gathered over ``features``."""
+        mesh = handle.raw.mesh
+        rows = handle.extract(state)
+        with pmesh.mesh_scope(mesh):
+            return pmesh.all_gather(rows.contiguous(), pmesh.FEATURE_AXIS)
+
     def fit_stream(self, stream, *, on_step=None, worker_masks=None,
                    max_steps="auto") -> "OnlineDistributedPCA":
         """Fit (or continue fitting) on an iterable of ``(m, n, dim)`` blocks
@@ -424,15 +529,91 @@ class OnlineDistributedPCA:
         route casts each block to the compute dtype inside the worker
         solve. So ``fit(trainer="step")``, ``on_step`` hooks and mask
         generators fit the same float blocks with or without an int8
-        stage."""
-        _refuse_feature_sharded(self.cfg, whole_fit=False)
+        stage.
+
+        A sketch fit's ``SketchState`` continues through the sketch
+        trainer (:meth:`_continue_sketch`). Where the backend resolves to
+        feature sharding for a per-step fit (``dim >= 4096`` under
+        ``"auto"``), or the state is a ``LowRankState``, the loop runs the
+        feature-sharded rank-r step."""
+        from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+            LowRankState,
+            SketchState,
+        )
+
+        if isinstance(self.state, SketchState):
+            return self._continue_sketch(stream, on_step=on_step,
+                                         worker_masks=worker_masks,
+                                         max_steps=max_steps)
+        cfg = self.cfg
+        if cfg.backend != "feature_sharded" and (
+            resolves_feature_sharded(cfg, whole_fit=False)
+            or isinstance(self.state, LowRankState)
+        ):
+            cfg = dataclasses.replace(cfg, backend="feature_sharded")
         self.trainer_used_ = "step"
         w, state = online_distributed_pca(
-            stream, self.cfg, device=self.device, state=self.state,
+            stream, cfg, device=self.device, state=self.state,
             on_step=on_step, worker_masks=worker_masks, max_steps=max_steps,
             v0=self.v0,
         )
         self._w, self.state = w, state
+        return self
+
+    def _continue_sketch(self, stream, *, on_step, worker_masks,
+                         max_steps) -> "OnlineDistributedPCA":
+        """Feed more ``(m, n, dim)`` blocks into a sketch fit's
+        ``SketchState`` through the trainer's windowed entry: a nonzero
+        carry runs the all-warm program, so windowed and incremental runs
+        are the same bits. Blocks stage as the whole fit stages them, in
+        windows of ``segment`` steps (clamped to the staging budget);
+        ``on_step`` forces one-step windows and sees ``(t, state,
+        state.v)`` (the whole state, on rank 0). ``worker_masks`` gives one
+        ``(m,)`` row a consumed block; running out first raises. The step
+        cap is the per-step loop's: ``cfg.num_steps`` in all under
+        ``"auto"`` (open-ended for ``"1/t"``), an int cap, or None."""
+        cfg = self.cfg
+        fit = self._sketch_fit
+        if fit is None:  # a restored state: rebuild the trainer the fit built
+            fit = make_whole_fit(cfg, "sketch", _feature_mesh(cfg, self.device),
+                                 device=self.device)
+            self._sketch_fit = fit
+        cap = cfg.num_steps if max_steps == "auto" else max_steps
+        if max_steps == "auto" and cfg.discount == "1/t":
+            cap = None
+        if cap is not None:
+            remaining = max(0, cap - int(self.state.step))
+            if remaining == 0:
+                return self
+            stream = itertools.islice(iter(stream), remaining)
+        mesh = fit.raw.mesh
+        blocks = stage_feature_blocks(stream, cfg.resolved_stage_dtype(), mesh,
+                                      num_workers=cfg.num_workers, dim=cfg.dim)
+        seg = 1 if on_step is not None else max(
+            1, min(self.segment, _budget_steps(cfg, math.prod(mesh.shape.values()))))
+        windows = window_stream(blocks, seg)
+        mask_windows = None
+        if worker_masks is not None:
+            mit = iter(worker_masks)
+
+            def take_rows(start, s):
+                rows = list(itertools.islice(mit, s))
+                if len(rows) < s:
+                    raise ValueError(
+                        "worker_masks exhausted before the stream — every "
+                        "step needs its mask row"
+                    )
+                return np.stack([np.asarray(r, np.float32) for r in rows])
+
+            windows, mask_windows = _lockstep_mask_windows(windows, take_rows)
+        on_segment = None
+        if on_step is not None:
+            def on_segment(steps_done, st):
+                on_step(steps_done, st, st.v)
+        self.state = fit.fit_windows(self.state, windows, on_segment=on_segment,
+                                     worker_masks=mask_windows)
+        self._w = self._whole_basis(fit, self.state)
+        self.trainer_used_ = "sketch"
         return self
 
     def partial_fit(self, x_blocks) -> "OnlineDistributedPCA":

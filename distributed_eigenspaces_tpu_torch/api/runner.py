@@ -14,10 +14,13 @@ Counterpart of ``distributed_eigenspaces_tpu/api/runner.py``:
 Kinds: ``"scan"`` (the dense whole fit) and ``"segmented"`` (dense,
 windowed and checkpointable), each on one device (``mesh=None``) or on a
 ``(workers, features)`` mesh of ranks (``parallel/mesh.py``), where every
-rank runs the handle and holds the same state. The reference's
-feature-sharded kinds
-(``"fs_scan"``, ``"sketch"``) are not ported yet (ROADMAP.md Queue 1
-item 15).
+rank runs the handle and holds the same state; ``"fs_scan"`` (the exact
+rank-r trainer) and ``"sketch"`` (the Nystrom sketch) of
+``parallel/feature_sharded.py``, on a ``(workers, features)`` mesh (default
+``parallel.mesh.auto_feature_mesh(cfg)``, the ``(1, 1)`` layout in one
+process), where each rank holds its rows of the state and ``extract``
+returns its rows of the basis; both are windowed and checkpointable
+(``fit_windows``).
 """
 
 from __future__ import annotations
@@ -86,11 +89,8 @@ def make_whole_fit(
     if kind not in KINDS:
         raise ValueError(f"unknown whole-fit kind {kind!r}; one of {KINDS}")
     if kind in ("fs_scan", "sketch"):
-        raise NotImplementedError(
-            f"whole-fit kind {kind!r} is the reference's feature-sharded "
-            "trainer, not ported to distributed_eigenspaces_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 15)"
-        )
+        return _feature_sharded_handle(cfg, kind, mesh, device=device,
+                                       v_init=v_init)
     dev = pmesh.mesh_device(mesh, device)
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
 
@@ -147,3 +147,26 @@ def make_whole_fit(
         extract=extract, fit_windows=f.fit_windows, info={"segment": f.segment},
         raw=f,
     )
+
+
+def _feature_sharded_handle(cfg: PCAConfig, kind: str, mesh, *, device,
+                            v_init=None) -> WholeFitHandle:
+    """The feature-sharded kinds as a handle: ``fit(state, blocks, idx=None,
+    worker_masks=None)`` with ``idx`` defaulting to every block once."""
+    from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as fs
+
+    if mesh is None:
+        mesh = pmesh.auto_feature_mesh(cfg, device)
+    if kind == "fs_scan":
+        f = fs.make_feature_sharded_scan_fit(cfg, mesh, device=device, v_init=v_init)
+        info = {"rank": f.rank}
+    else:
+        f = fs.make_feature_sharded_sketch_fit(cfg, mesh, device=device)
+        info = {"sketch_width": f.sketch_width}
+
+    def fit(state, blocks, idx=None, worker_masks=None):
+        return f(state, blocks, idx, worker_masks=worker_masks)
+
+    return WholeFitHandle(kind=kind, fit=fit, init_state=f.init_state,
+                          extract=f.extract, fit_windows=f.fit_windows, info=info,
+                          raw=f)

@@ -51,12 +51,17 @@ class PCAConfig:
       dim, k: feature dimension d and subspace rank.
       num_workers, rows_per_worker, num_steps: m, n and T.
       discount: ``"1/T"`` | ``"1/t"`` | ``"notebook"`` (bug-compatible).
-      backend: ``"auto"`` | ``"local"`` | ``"shard_map"`` (alias ``"tpu"``):
-        ``"local"`` runs the workers as a batch dimension on one device;
-        ``"shard_map"`` spreads them over the ranks of a process group, one
-        rank a device, gathering the factors each round
-        (``parallel/mesh.py``); ``"auto"`` is ``"shard_map"`` when a group
-        of more than one rank is initialized, else ``"local"``.
+      backend: ``"auto"`` | ``"local"`` | ``"shard_map"`` (alias ``"tpu"``)
+        | ``"feature_sharded"``: ``"local"`` runs the workers as a batch
+        dimension on one device; ``"shard_map"`` spreads them over the
+        ranks of a process group, one rank a device, gathering the factors
+        each round (``parallel/mesh.py``); ``"feature_sharded"`` runs the
+        rank-r and sketch trainers of ``parallel/feature_sharded.py`` on a
+        ``(workers, features)`` mesh, ``d`` split over ``features`` (one
+        process with no group is the ``(1, 1)`` layout); ``"auto"`` is
+        ``"feature_sharded"`` at ``dim >= 4096`` (and, for a whole fit, at
+        ``dim * k >= 65536``), else ``"shard_map"`` when a group of more
+        than one rank is initialized, else ``"local"``.
       solver: ``"eigh"`` | ``"subspace"`` | ``"distributed"`` |
         ``"deflation"``: the local eigensolver; ``"distributed"`` runs the
         subspace machinery locally and, above ``eigh_crossover_d``, the
@@ -83,6 +88,12 @@ class PCAConfig:
         ``compute_dtype="bfloat16"``).
       dtype: storage dtype of data blocks; state_dtype: ``sigma_tilde``'s.
       remainder: ``"drop"`` | ``"pad"`` | ``"error"`` batcher policy.
+      mesh_shape: an explicit ``{"workers": W, "features": F}`` layout for
+        the feature-sharded backend (``parallel.mesh.auto_feature_mesh``),
+        or None for the default policy.
+      collectives: ``"xla"`` (the process group's all-reduce and
+        all-gather); ``"ring"`` is not ported yet (ROADMAP.md Queue 1
+        item 15, ``parallel/ring.py``).
       merge_interval: the merged eigensolve runs every ``s`` steps (steps
         1, s+1, ...); the steps between fold the (masked) mean of the
         worker projectors at the same discount weight, and the warm carry
@@ -132,6 +143,8 @@ class PCAConfig:
     dtype: Any = "float32"
     state_dtype: Any = "float32"
     remainder: str = "drop"
+    mesh_shape: dict[str, int] | None = None
+    collectives: str = "xla"
     merge_interval: int = 1
     pipeline_merge: bool = False
     merge_topology: tuple | None = None
@@ -154,11 +167,6 @@ class PCAConfig:
             "auto", "local", "shard_map", "tpu", "feature_sharded"
         ):
             raise ValueError(f"unknown backend: {self.backend!r}")
-        if self.backend == "feature_sharded":
-            raise _not_ported(
-                "backend='feature_sharded'",
-                "Queue 1 item 15 (parallel/feature_sharded.py's trainers)",
-            )
         if self.solver not in ("eigh", "subspace", "distributed",
                                "deflation"):
             raise ValueError(f"unknown solver: {self.solver!r}")
@@ -200,6 +208,12 @@ class PCAConfig:
             object.__setattr__(self, field, name)
         if self.remainder not in ("drop", "pad", "error"):
             raise ValueError(f"unknown remainder policy: {self.remainder!r}")
+        if self.collectives not in ("xla", "ring"):
+            raise ValueError(f"unknown collectives mode: {self.collectives!r}")
+        if self.collectives == "ring":
+            raise _not_ported(
+                "collectives='ring'", "Queue 1 item 15 (parallel/ring.py)"
+            )
         if not isinstance(self.merge_interval, int) or isinstance(
             self.merge_interval, bool
         ) or self.merge_interval < 1:

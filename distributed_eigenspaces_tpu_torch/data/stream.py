@@ -3,7 +3,8 @@ and the staging contract of those blocks.
 
 Counterpart of ``make_batches``, ``block_stream``, ``synthetic_stream``,
 ``quantize_block_i8``, ``quantize_block_i8_device`` and ``stage_blocks`` in
-``distributed_eigenspaces_tpu/data/stream.py``: the cursor advances every
+``distributed_eigenspaces_tpu/data/stream.py``, and the feature-sharded
+staging of a block (:func:`stage_feature_blocks`): the cursor advances every
 step, the remainder policy for a final partial step is explicit, and an
 int8 stage quantizes each block with one global symmetric scale.
 """
@@ -100,6 +101,18 @@ def stage_blocks(blocks, stage):
             for b in blocks
         )
     return (torch.as_tensor(b).to(tdt) for b in blocks)
+
+
+def stage_feature_blocks(blocks, stage, mesh, *, num_workers: int, dim: int):
+    """Stage ``(m, n, d)`` blocks for a ``(workers, features)`` mesh: each
+    block staged whole (:func:`stage_blocks`: an int8 stage takes ONE scale
+    over the whole block, the same on every rank, as the reference
+    quantizes before it shards), then this rank's workers and feature
+    columns kept on the mesh's device (``parallel.feature_sharded.
+    place_block``)."""
+    from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import place_block
+
+    return (place_block(mesh, b, num_workers, dim) for b in stage_blocks(blocks, stage))
 
 
 def count_steps(n_total: int, step_rows: int, *, num_steps: int | None = None,

@@ -16,6 +16,11 @@ import torch
 from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device
+from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+    LowRankState,
+    SketchState,
+    shard_state,
+)
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PCAConfig))
 
@@ -28,6 +33,8 @@ def config_from_jax(cfg_dict: dict) -> PCAConfig:
     kw = {name: cfg_dict[name] for name in _FIELDS if name in cfg_dict}
     if kw.get("merge_topology") is not None:
         kw["merge_topology"] = tuple(kw["merge_topology"])
+    if kw.get("mesh_shape") is not None:
+        kw["mesh_shape"] = dict(kw["mesh_shape"])
     return PCAConfig(**kw)
 
 
@@ -53,3 +60,35 @@ def basis_from_numpy(v, device="cuda") -> torch.Tensor:
     """A ``(d, k)`` basis (e.g. a warm ``v_prev``) as a float32 tensor."""
     dev = resolve_device(device)
     return torch.from_numpy(np.array(np.asarray(v), dtype=np.float32)).to(dev)
+
+
+_FS_STATES = {"lowrank": LowRankState, "sketch": SketchState}
+
+
+def fs_state_from_numpy(kind: str, state: dict, device="cuda", mesh=None):
+    """A feature-sharded state from the reference's ``LowRankState``
+    (``kind="lowrank"``: ``{"u", "s", "step"}``) or ``SketchState``
+    (``"sketch"``: ``{"y", "v", "step"}``) as numpy arrays of the whole
+    state. With a ``(workers, features)`` ``mesh`` each rank keeps its rows
+    (on the mesh's device); otherwise the whole state on ``device``."""
+    cls = _FS_STATES[kind]
+    dev = resolve_device(device)
+    out = {}
+    for name in cls._fields:
+        if name == "step":
+            out[name] = int(np.asarray(state[name]))
+        else:
+            arr = np.array(np.asarray(state[name]), dtype=np.float32)
+            out[name] = torch.from_numpy(arr).to(dev)
+    st = cls(**out)
+    return st if mesh is None else shard_state(mesh, st)
+
+
+def fs_state_to_numpy(state) -> dict:
+    """A whole ``LowRankState`` / ``SketchState`` as numpy arrays: the
+    float32 fields and ``step`` as an int32 scalar (the reference's)."""
+    return {
+        name: (np.int32(value) if name == "step"
+               else value.detach().float().cpu().numpy())
+        for name, value in zip(state._fields, state)
+    }

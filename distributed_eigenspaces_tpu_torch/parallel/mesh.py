@@ -17,6 +17,9 @@ DeviceMesh's group for that dim: :func:`psum`, :func:`pmax` and
 gather is the list form, in group-rank order, concatenated on axis 0: the
 reference's ``all_gather(..., axis=0, tiled=True)``.
 
+One process with no group is the ``(1, 1)`` layout, :func:`local_mesh`:
+every collective over its axes is the identity.
+
 The process-group backend is the caller's choice, never a reaction to an
 error: ``"nccl"`` for ranks each on their own card, ``"gloo"`` for CPU ranks
 and for ranks that share one card (NCCL refuses two ranks on one device).
@@ -65,15 +68,19 @@ class Mesh:
     the device this rank computes on. ``shape`` maps each axis name to its
     size, as the reference's ``Mesh.shape`` does."""
 
-    device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    device_mesh: object  # torch.distributed.device_mesh.DeviceMesh, or None
     device: torch.device
 
     @property
     def axis_names(self) -> tuple:
+        if self.device_mesh is None:
+            return (WORKER_AXIS, FEATURE_AXIS)
         return tuple(self.device_mesh.mesh_dim_names)
 
     @property
     def shape(self) -> dict:
+        if self.device_mesh is None:
+            return {WORKER_AXIS: 1, FEATURE_AXIS: 1}
         return dict(zip(self.axis_names, self.device_mesh.mesh.shape))
 
     def group(self, axis_name: str):
@@ -85,6 +92,9 @@ class Mesh:
 
     def axis_index(self, axis_name: str) -> int:
         """This rank's coordinate along ``axis_name``."""
+        if self.device_mesh is None:
+            self._checked(axis_name)
+            return 0
         dim = self.axis_names.index(self._checked(axis_name))
         return int(self.device_mesh.get_coordinate()[dim])
 
@@ -213,6 +223,41 @@ def make_component_mesh(num_components: int, num_feature_shards: int = 1, *,
     one lane a components slot, rows over ``features``."""
     return _grid((COMPONENT_AXIS, FEATURE_AXIS),
                  (num_components, num_feature_shards), device)
+
+
+def local_mesh(device="cuda") -> Mesh:
+    """The ``(1, 1)`` ``(workers, features)`` layout of one process with no
+    process group: the reference's one-device mesh. Every collective over
+    its axes is the identity and runs no communication, so a trainer written
+    for a mesh runs unchanged on one device."""
+    return Mesh(None, _mesh_device(device))
+
+
+def auto_feature_mesh(cfg, device="cuda") -> Mesh | None:
+    """The ``(workers, features)`` mesh of ``backend="feature_sharded"`` over
+    the default group (the reference's ``auto_feature_mesh``): ``cfg.
+    mesh_shape`` when given; otherwise a features axis of 2 when the group's
+    size and ``cfg.dim`` are even, and the workers axis the largest divisor
+    of ``cfg.num_workers`` that fits the remaining ranks. None without a
+    process group (the ``(1, 1)`` layout, :func:`local_mesh`). The layout
+    must use every rank of the group: one that leaves ranks out is refused
+    by :func:`make_mesh`."""
+    if not dist.is_initialized():
+        if cfg.mesh_shape and (cfg.mesh_shape.get(WORKER_AXIS, 1),
+                               cfg.mesh_shape.get(FEATURE_AXIS, 1)) != (1, 1):
+            raise ValueError(
+                f"mesh_shape={cfg.mesh_shape} needs a process group; one "
+                "process is the (1, 1) layout"
+            )
+        return None
+    if cfg.mesh_shape:
+        return make_mesh(num_workers=cfg.mesh_shape.get(WORKER_AXIS),
+                         num_feature_shards=cfg.mesh_shape.get(FEATURE_AXIS, 1),
+                         device=device)
+    have = world_size()
+    feats = 2 if (have >= 2 and have % 2 == 0 and cfg.dim % 2 == 0) else 1
+    workers = largest_divisor_leq(cfg.num_workers, max(have // feats, 1))
+    return make_mesh(num_workers=workers, num_feature_shards=feats, device=device)
 
 
 def largest_divisor_leq(m: int, cap: int) -> int:
@@ -371,7 +416,11 @@ def all_gather(x: torch.Tensor, axis_name: str, *, tiled: bool = True) -> torch.
     concatenated on axis 0 (``tiled``, the reference's ``all_gather(...,
     axis=0, tiled=True)``) or stacked on a new axis 0."""
     global gathers, gather_bytes
-    group = current_mesh().group(axis_name)
+    mesh = current_mesh()
+    if mesh.device_mesh is None:  # one process: the gather of one rank
+        mesh._checked(axis_name)
+        return x if tiled else x[None]
+    group = mesh.group(axis_name)
     x = x.detach().contiguous()
     buf, back = _staged(group, x)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]

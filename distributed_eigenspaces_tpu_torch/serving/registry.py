@@ -5,9 +5,12 @@ is numpy and threads only, and its disk format is the reference's, byte
 for byte (``format_version`` 1, ``basis.npz`` + ``meta.json``): a registry
 directory written by the JAX package opens here, which is how a basis
 crosses between the two packages. ``publish_fit`` takes the port's
-estimator, whose basis lives on the card, and moves it to the host. Not
-ported yet: a ``MetricsLogger`` sink, sharded publishes and
-``publish_fleet`` (ROADMAP.md Queue 1 items 16, 14b and 15).
+estimator, whose basis lives on the card, and moves it to the host. A
+sharded publish (``publish(v=[row shards] | spec= | num_shards=)``) writes
+one checksummed ``basis.shardNN.npz`` a shard, each with its own atomic
+rename, and a torn, missing or rotted shard fails its version alone and
+loudly. Not ported yet: a ``MetricsLogger`` sink and ``publish_fleet``
+(ROADMAP.md Queue 1 items 16 and 15).
 
 A live serving tier cannot hand queries a basis that is half-written,
 and it cannot block the query path on a publisher's lock. Both follow
@@ -59,9 +62,9 @@ store-side mechanisms make that safe, as in the reference:
   once, but its payload outlives retirement by the grace window, so a
   replica between marker read and payload read never sees a dangling path.
 
-A version the JAX package published in row shards (``basis.shardNN.npz``)
-recovers with ``v`` the row concatenation; publishing in shards is not
-ported.
+A sharded version (either package's) recovers with ``v`` the ordered row
+concatenation, its ``spec`` and ``shard_sizes``; ``shard(i)`` is the unit a
+sharded consumer places per rank.
 """
 
 from __future__ import annotations
@@ -197,10 +200,11 @@ class BasisVersion:
       lineage: provenance of the producing fit — trainer name,
         checkpoint path, fleet ticket, refit trigger — whatever the
         publisher knows. Stored as an immutable snapshot.
-      spec, shard_sizes: the PartitionSpec (a tuple of mesh-axis names)
-        and the row count of each shard of a version recovered from a
-        sharded publish of the JAX package (``v`` is then the ordered
-        row concatenation); ``None`` for a replicated publish.
+      spec, shard_sizes: the PartitionSpec (a tuple of mesh-axis names,
+        e.g. ``("features", None)``: rows over the features axis) and the
+        row count of each shard of a sharded version (``v`` is then the
+        ordered row concatenation, persisted per shard); ``None`` for a
+        replicated publish.
     """
 
     version: int
@@ -221,6 +225,26 @@ class BasisVersion:
     def k(self) -> int:
         return self.signature[1]
 
+    @property
+    def num_shards(self) -> int:
+        return 1 if self.shard_sizes is None else len(self.shard_sizes)
+
+    def shard(self, i: int) -> np.ndarray:
+        """Row block ``i`` of the basis (a read-only view): the unit a
+        sharded consumer places per rank. ``shard(0)`` of a replicated
+        version is the whole basis."""
+        if self.shard_sizes is None:
+            if i != 0:
+                raise IndexError(
+                    f"replicated version has 1 shard, asked for {i}"
+                )
+            return self.v
+        if not (0 <= i < len(self.shard_sizes)):
+            raise IndexError(
+                f"shard {i} out of range for {len(self.shard_sizes)} shards"
+            )
+        off = int(sum(self.shard_sizes[:i]))
+        return self.v[off:off + int(self.shard_sizes[i])]
 
 
 class EigenbasisRegistry:
@@ -298,12 +322,35 @@ class EigenbasisRegistry:
         os.replace(tmp, final)
         return _file_checksum(final)
 
-    def _write_meta(self, vdir: str, bv: BasisVersion, checksum: str) -> None:
+    def _write_payload_sharded(self, vdir: str, bv: BasisVersion) -> list[dict]:
+        """A sharded version's payload: one ``basis.shardNN.npz`` a row
+        shard, each tmp + atomic rename and checksummed on its own, so a
+        torn or rotted shard is found by itself. ``sigma_tilde`` (if any)
+        rides in shard 0. Returns the per-shard manifest the marker
+        commits to."""
+        os.makedirs(vdir, exist_ok=True)
+        manifest = []
+        for i in range(bv.num_shards):
+            arrays = {"v": bv.shard(i)}
+            if i == 0 and bv.sigma_tilde is not None:
+                arrays["sigma_tilde"] = bv.sigma_tilde
+            name = f"basis.shard{i:02d}.npz"
+            tmp = os.path.join(vdir, f"basis.shard{i:02d}.tmp.npz")
+            np.savez(tmp, **arrays)
+            final = os.path.join(vdir, name)
+            os.replace(tmp, final)
+            manifest.append({"file": name, "rows": int(bv.shard_sizes[i]),
+                             "checksum": _file_checksum(final)})
+        return manifest
+
+    def _write_meta(self, vdir: str, bv: BasisVersion, checksum: str | None,
+                    shards: list[dict] | None = None) -> None:
         """The commit marker (tmp + atomic rename): a version without
         it is torn and recovery treats the publish as never having
-        happened. Its fields are the reference's (``spec`` and ``shards``
-        stay None: this registry publishes replicated versions only; the
-        ``epoch`` is the lease's, 0 for an unleased publisher)."""
+        happened. Its fields are the reference's: a sharded version's
+        marker carries the per-shard manifest (file, rows, checksum) and
+        the PartitionSpec instead of the single ``checksum``; the
+        ``epoch`` is the lease's, 0 for an unleased publisher."""
         meta = {
             "format_version": 1,
             "version": bv.version,
@@ -316,8 +363,8 @@ class EigenbasisRegistry:
                 json.dumps(bv.lineage, default=str)
             ),
             "checksum": checksum,
-            "spec": None,
-            "shards": None,
+            "spec": list(bv.spec) if bv.spec is not None else None,
+            "shards": shards,
             # replication bus fields: the wall-clock commit
             # stamp replicas measure propagation lag against, and the
             # publisher lease's fencing epoch (0 = unleased publisher;
@@ -332,7 +379,11 @@ class EigenbasisRegistry:
 
     def _persist(self, bv: BasisVersion) -> None:
         vdir = self._version_dir(bv.version)
-        self._write_meta(vdir, bv, self._write_payload(vdir, bv))
+        if bv.shard_sizes is not None:
+            self._write_meta(vdir, bv, None,
+                             shards=self._write_payload_sharded(vdir, bv))
+        else:
+            self._write_meta(vdir, bv, self._write_payload(vdir, bv))
 
     def _delete_version_dir(self, version: int) -> None:
         shutil.rmtree(self._version_dir(version), ignore_errors=True)
@@ -509,20 +560,52 @@ class EigenbasisRegistry:
         version. With a ``lease`` attached, the lease is re-validated
         first (``lease.ensure()`` raises ``LeaseLost``): a zombie
         ex-publisher is rejected before it assigns an id or touches disk.
-        A sharded publish (``v`` a sequence of row shards, ``spec`` or
-        ``num_shards``) is not ported yet.
+
+        ``v`` is the whole ``(d, k)`` basis or, a sharded publish, the
+        ordered sequence of its row shards (tensors on any device or
+        arrays; the rows concatenate on the host). ``spec`` records the
+        PartitionSpec as a tuple of mesh-axis names (default ``("features",
+        None)`` for a sharded publish); ``num_shards`` alone asks for a
+        balanced row split of a whole ``v``.
         """
         if self.lease is not None:
             self.lease.ensure()
-        if isinstance(v, (list, tuple)) or spec is not None or num_shards is not None:
-            raise _not_ported(
-                "a sharded publish", "Queue 1 item 14b (mesh serving)"
-            )
-        arr = _frozen_array(v)
+        shard_sizes = None
+        if isinstance(v, (list, tuple)):
+            parts = [_host(p) for p in v]
+            if not parts or any(p.ndim != 2 for p in parts):
+                raise ValueError(
+                    "a sharded publish takes a non-empty sequence of "
+                    f"(rows_i, k) row shards, got {len(parts)} parts "
+                    f"with shapes {[p.shape for p in parts]}"
+                )
+            shard_sizes = tuple(int(p.shape[0]) for p in parts)
+            arr = _frozen_array(np.concatenate(parts, axis=0))
+        else:
+            arr = _frozen_array(_host(v))
         if arr.ndim != 2:
             raise ValueError(
                 f"basis must be (d, k), got shape {arr.shape}"
             )
+        if num_shards is not None and shard_sizes is None:
+            if not (1 <= int(num_shards) <= arr.shape[0]):
+                raise ValueError(
+                    f"num_shards must be in [1, d={arr.shape[0]}], "
+                    f"got {num_shards}"
+                )
+            base, rem = divmod(arr.shape[0], int(num_shards))
+            shard_sizes = tuple(base + (1 if i < rem else 0)
+                                for i in range(int(num_shards)))
+        if spec is not None:
+            spec = tuple(spec)
+            if shard_sizes is None:
+                # a spec with one payload is still a sharded version, with
+                # a single shard, so the marker stays honest
+                shard_sizes = (int(arr.shape[0]),)
+        elif shard_sizes is not None:
+            # rows over the features axis: the sharded layout the serving
+            # tier produces
+            spec = ("features", None)
         if not np.isfinite(arr).all():
             raise ValueError(
                 "refusing to publish a non-finite basis (serving it "
@@ -552,6 +635,8 @@ class EigenbasisRegistry:
             step=int(step),
             explained_variance=ev,
             lineage=dict(lineage or {}),
+            spec=spec,
+            shard_sizes=shard_sizes,
         )
         with self._lock:
             bv = BasisVersion(version=self._next_id, **bv_partial)

@@ -1,8 +1,8 @@
 """QueryServer: deadline micro-batched projection against the registry.
 
-The port's copy of ``distributed_eigenspaces_tpu/serving/server.py``, single
-device. Query admission batches independent transform requests into one
-padded projection dispatch: a micro-batch dispatches when FULL
+The port's copy of ``distributed_eigenspaces_tpu/serving/server.py``. Query
+admission batches independent transform requests into one padded
+projection dispatch: a micro-batch dispatches when FULL
 (``cfg.serve_bucket_size`` queries) or when its OLDEST query has waited
 ``cfg.serve_flush_s``, through ``runtime/scheduler.ShapeBucketQueue``
 (lease/retry, idempotent completion).
@@ -37,8 +37,22 @@ engine's ``tracer`` when one is attached.
 residual and input energy sums and its rows: the serve -> drift -> refit
 loop.
 
-Not ported yet: a ``MetricsLogger`` (``metrics=``), prewarming, the compile
-cache and the mesh engine (ROADMAP.md Queue 1 items 14b and 16).
+``mesh=`` (a ``parallel.mesh.Mesh``) builds the engine on the mesh: each
+rank runs its own server over the traffic it is given. With an engine whose
+basis is row-sharded over a ``features`` axis of more than one rank
+(``TransformEngine(mesh=, basis_spec=("features", None))``), every rank of
+the group must be given the same requests in the same order: each dispatch
+first agrees with the other ranks on the next run of requests (one small
+all-gather of the first request's sequence number and the count; the
+shortest count wins and the rest go in the next round), so the ranks'
+micro-batches may be cut differently and still meet in the same
+collectives; each round is then one ``(rows, k + 1)`` psum carrying the
+projection and the input energy, and a rejected request's rows go in as
+zeros so the ranks' shapes agree. A version is placed shard by shard: each
+rank moves its rows only.
+
+Not ported yet: a ``MetricsLogger`` (``metrics=``), prewarming and the
+compile cache (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ import numpy as np
 import torch
 
 from distributed_eigenspaces_tpu_torch.config import _not_ported
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.runtime.scheduler import (
     QueueClosed,
     QueueFull,
@@ -113,12 +128,16 @@ class _QueryRequest:
     #: dispatch -> compute -> reply): born on the submitting thread, it
     #: rides the ticket payload to the dispatch lane
     trace_id: str | None = None
+    #: admission order on this server (the ranks of a sharded engine agree
+    #: on runs of requests by it)
+    seq: int = 0
 
 
 class QueryServer:
     """Micro-batched transform serving against an
     :class:`~..serving.registry.EigenbasisRegistry`, on one device
-    (``"cuda"`` unless the caller asks for another).
+    (``"cuda"`` unless the caller asks for another) or, with ``mesh=``, on
+    each rank of a mesh (the module docstring).
 
     ``submit(x)`` admits one ``(rows, d)`` query (a ``(d,)`` vector is one
     row) and returns a ticket whose ``.result(timeout)`` blocks for a
@@ -163,8 +182,6 @@ class QueryServer:
             raise _not_ported(
                 "QueryServer(compile_cache=)", "Queue 1 item 16 (utils/compile_cache.py)"
             )
-        if mesh is not None:
-            raise _not_ported("QueryServer(mesh=)", "Queue 1 item 14b (mesh serving)")
         live = registry.latest()
         if d is None:
             d = cfg.dim if cfg is not None else (live.d if live else None)
@@ -187,8 +204,20 @@ class QueryServer:
             serve_dtype = cfg.serve_dtype if cfg is not None else "float32"
         self.serve_dtype = serve_dtype
         self.engine = engine or TransformEngine(
-            self.d, self.k, serve_dtype=serve_dtype, device=device,
+            self.d, self.k, mesh=mesh, serve_dtype=serve_dtype, device=device,
         )
+        eng_mesh = self.engine.mesh
+        #: whether dispatch meets the other ranks of a sharded engine's
+        #: features group in its collectives (module docstring)
+        self.lockstep = self.engine.sharded and (
+            eng_mesh.axis_size(pmesh.FEATURE_AXIS) > 1)
+        if self.lockstep:
+            num_lanes = 1  # one lane: the collectives run in request order
+        self._seq = 0
+        self._seq_lock = threading.Lock()
+        #: rounds of agreed requests a lockstep server has dispatched (one
+        #: reduction of the engine each)
+        self.lockstep_rounds = 0
         if self.engine.serve_dtype != "float32":
             # quantized serve kernels are angle-gated at the door: a basis
             # family whose quantization error blows the 0.2 degree budget
@@ -361,10 +390,13 @@ class QueryServer:
         tr = self._tracer()
         tid = tr.new_trace("query")
         t0 = time.perf_counter()
+        with self._seq_lock:
+            seq = self._seq
+            self._seq += 1
         try:
             ticket = self.queue.submit(
                 (self.d, self.k),
-                _QueryRequest(x=arr, t_submit=t0, trace_id=tid),
+                _QueryRequest(x=arr, t_submit=t0, trace_id=tid, seq=seq),
                 tenant=tenant,
             )
         except QueueClosed as e:
@@ -410,10 +442,43 @@ class QueryServer:
         pair = self._dev_basis
         if pair is not None and pair[0] == ver.version:
             return pair[1]
-        # a copy: ver.v is a read-only host array
-        arr = torch.tensor(ver.v, dtype=torch.float32, device=self.engine.device)
+        # a copy (ver.v is a read-only host array); a sharded engine moves
+        # this rank's rows only
+        arr = self.engine.place_basis(ver)
         self._dev_basis = (ver.version, arr)
         return arr
+
+    def _lockstep_compute(self, reqs, v_dev):
+        """Every request of a bucket through a sharded engine, in rounds
+        agreed with the other ranks of the features group: each round
+        serves the next ``c`` requests, ``c`` the shortest remaining count
+        among the ranks, which must all start at the same sequence number.
+        A request with non-finite rows goes in as zeros (its ticket fails
+        anyway), so every rank's shapes agree. Returns host ``(z, r, e)``
+        over all requests' rows, in order."""
+        mesh = self.engine.mesh
+        out, i = [], 0
+        while i < len(reqs):
+            mine = torch.tensor([[reqs[i].seq, len(reqs) - i]], dtype=torch.int64,
+                                device=self.engine.device)
+            with pmesh.mesh_scope(mesh):
+                agreed = pmesh.all_gather(mine, pmesh.FEATURE_AXIS).cpu()
+            if bool((agreed[:, 0] != agreed[0, 0]).any()):
+                raise RuntimeError(
+                    f"sharded serving out of step: the ranks of the features "
+                    f"group start their next batch at requests "
+                    f"{agreed[:, 0].tolist()} — every rank must be given the "
+                    "same requests in the same order"
+                )
+            c = int(agreed[:, 1].min())
+            self.lockstep_rounds += 1
+            x = np.concatenate([np.where(np.isfinite(r.x), r.x, 0.0)
+                                for r in reqs[i:i + c]], axis=0).astype(np.float32)
+            z, r_sq, e_sq = self.engine.project_energy(
+                torch.from_numpy(x).to(self.engine.device), v_dev)
+            out.append((z.cpu().numpy(), r_sq.cpu().numpy(), e_sq.cpu().numpy()))
+            i += c
+        return tuple(np.concatenate([o[j] for o in out]) for j in range(3))
 
     def _run_batch(self, bucket) -> list:
         tr = self._tracer()
@@ -493,7 +558,27 @@ class QueryServer:
 
         results: list[Any] = [None] * len(reqs)
         t_c0 = t_c1 = None
-        if good:
+        if self.lockstep:
+            # every request's rows take part (see _lockstep_compute); only
+            # the good ones are answered from them
+            v_dev = self._basis_device(ver)
+            t_c0 = time.perf_counter()
+            with tr.span("batch_compute", category="serve", device=True,
+                         attrs={"rows": sum(r.x.shape[0] for r in reqs),
+                                "queries": len(reqs), "version": ver.version}):
+                z_all, r_all, e_all = self._lockstep_compute(reqs, v_dev)
+            t_c1 = time.perf_counter()
+            offs = np.cumsum([0] + [r.x.shape[0] for r in reqs])
+            keep = np.concatenate([np.arange(offs[i], offs[i + 1]) for i in good]
+                                  ) if good else np.zeros(0, np.int64)
+            x = np.concatenate([reqs[i].x for i in good], axis=0) if good else None
+            r_sq, e_sq = r_all[keep], e_all[keep]
+            for i in good:
+                lo, hi = offs[i], offs[i + 1]
+                results[i] = ServedProjection(
+                    z=z_all[lo:hi], residual_sq=r_all[lo:hi],
+                    input_sq=e_all[lo:hi], version=ver.version)
+        elif good:
             v_dev = self._basis_device(ver)
             x = np.concatenate([reqs[i].x for i in good], axis=0)
             t_c0 = time.perf_counter()

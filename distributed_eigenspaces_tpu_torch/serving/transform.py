@@ -1,7 +1,7 @@
 """Query projections against an operand basis, with rows padded to buckets.
 
-Counterpart of ``distributed_eigenspaces_tpu/serving/transform.py`` on one
-device. Two disciplines of the reference carry over:
+Counterpart of ``distributed_eigenspaces_tpu/serving/transform.py``. Two
+disciplines of the reference carry over:
 
 1. **The basis is an argument.** Every operation is ``f(x, v)``, so
    publishing a new version changes an operand, never the code that runs:
@@ -26,8 +26,24 @@ rows leave every real row's bits unchanged in all three kernels (each
 row's sum order is fixed), so a served fp32 row equals the direct
 projection bit for bit, as the reference's contract says.
 
-Not ported yet: the mesh and sharded-basis (``basis_spec``) engines and
-the persistent compile cache (ROADMAP.md Queue 1 items 14b and 16).
+On a mesh of ranks (``parallel/mesh.py``) each rank runs its own engine,
+SPMD:
+
+- ``mesh=`` alone: each rank projects the rows it is given (its share of
+  the traffic) against the whole basis, the padded rows rounded up to a
+  multiple of the ``workers`` axis as in the reference. Zero collectives.
+- ``basis_spec=("features", None)``: the basis stays row-sharded over
+  ``features``. Each rank keeps its ``d / f`` columns of every query and
+  its rows of the basis, ``project`` runs the serve kernel on that shard
+  (an int8 basis quantized and scaled per shard, so the dequantization
+  comes before the reduce) and sums the fp32 ``(rows, k)`` partials with
+  ONE psum over ``features``; ``reconstruct`` is row-local onto the shards
+  (this rank's columns, no collective); ``residual_energy`` sums the input
+  energy over ``features``. Every rank of a features group must make the
+  same calls in the same order (``QueryServer`` agrees on each batch
+  first). The dense ``(d, k)`` basis never lands on one rank.
+
+Not ported yet: the persistent compile cache (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -46,16 +62,22 @@ from distributed_eigenspaces_tpu_torch.ops.serve_project import (
     serve_project_auto,
     serve_project_i8_auto,
 )
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+from distributed_eigenspaces_tpu_torch.parallel.mesh import FEATURE_AXIS, WORKER_AXIS
 
 __all__ = ["TransformEngine", "bucket_rows"]
 
 
-def bucket_rows(n: int, *, min_bucket: int = 8) -> int:
+def bucket_rows(n: int, *, min_bucket: int = 8, multiple_of: int = 1) -> int:
     """Padded row count for an ``n``-row batch: next power of two,
-    floored at ``min_bucket``."""
+    floored at ``min_bucket``, rounded up to ``multiple_of`` (the mesh
+    path's workers axis)."""
     if n < 1:
         raise ValueError(f"need n >= 1, got {n}")
-    return max(min_bucket, 1 << (n - 1).bit_length())
+    b = max(min_bucket, 1 << (n - 1).bit_length())
+    if b % multiple_of:
+        b = ((b + multiple_of - 1) // multiple_of) * multiple_of
+    return b
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -81,8 +103,10 @@ def _residual(x, z):
 class TransformEngine:
     """Projection / reconstruction / residual operations for one ``(d, k)``
     signature on one device (``"cuda"`` unless the caller asks for
-    another). The basis is an operand of every call; the acquisition
-    counters (module docstring) make a swap's cost checkable."""
+    another; on a ``mesh``, the mesh's device). The basis is an operand of
+    every call; the acquisition counters (module docstring) make a swap's
+    cost checkable, and ``psums`` counts the reductions a sharded engine
+    ran."""
 
     def __init__(self, d: int, k: int, *, dtype="float32", mesh=None,
                  min_bucket: int = 8, cache=None, basis_spec=None,
@@ -94,11 +118,24 @@ class TransformEngine:
                 f"unknown serve_dtype: {serve_dtype!r} "
                 "(float32/bfloat16/int8)"
             )
-        if mesh is not None or basis_spec is not None:
-            raise _not_ported(
-                "TransformEngine(mesh=, basis_spec=)",
-                "Queue 1 item 14b (mesh serving)",
-            )
+        self.mesh = mesh
+        self.basis_spec = None if basis_spec is None else tuple(basis_spec)
+        if self.basis_spec is not None:
+            if mesh is None or FEATURE_AXIS not in mesh.shape:
+                raise ValueError(
+                    "basis_spec needs a (workers, features) mesh — the "
+                    "basis rows shard over the features axis "
+                    f"(got mesh={mesh})"
+                )
+            if self.basis_spec != (FEATURE_AXIS, None):
+                raise ValueError(
+                    "the serving tier shards bases by rows over the "
+                    f"features axis: basis_spec must be "
+                    f"({FEATURE_AXIS!r}, None), got {self.basis_spec}"
+                )
+            nf = int(mesh.shape[FEATURE_AXIS])
+            if d % nf:
+                raise ValueError(f"d={d} does not divide over {nf} feature shards")
         if cache is not None:
             raise _not_ported(
                 "TransformEngine(cache=) (the persistent compile cache)",
@@ -108,8 +145,19 @@ class TransformEngine:
         self.k = int(k)
         self.serve_dtype = serve_dtype
         self.dtype = torch_dtype(dtype)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.min_bucket = min_bucket
+        self._row_multiple = (
+            1 if mesh is None else int(mesh.shape.get(WORKER_AXIS, 1))
+        )
+        #: this rank's feature columns (the whole of d unless sharded)
+        self._cols = (
+            pmesh.feature_rows(mesh, self.d) if self.basis_spec is not None
+            else slice(0, self.d)
+        )
+        self.d_local = self._cols.stop - self._cols.start
+        #: reductions over ``features`` this engine ran (sharded mode)
+        self.psums = 0
         self._cache: dict = {}
         self.compile_misses = 0
         self.cache_hits = 0
@@ -169,7 +217,9 @@ class TransformEngine:
     ) -> float:
         """Startup gate: project a seeded query batch through this engine
         and compare it with the direct fp32 projection of the same operands
-        (``project_exact``, the estimator's ``transform`` route).
+        (``project_exact``, the estimator's ``transform`` route; sharded,
+        each shard's direct projection summed over ``features``, so every
+        rank of the group must run the check together).
         ``serve_dtype='float32'`` must be bit-exact; the quantized routes
         must keep every row's projection within ``budget_deg`` degrees.
         Raises ``ValueError`` on a breach; returns the worst angle in
@@ -198,10 +248,14 @@ class TransformEngine:
         )
         x = np.asarray(coeffs @ v.T + noise, np.float32)
         z = self.project(x, v).cpu().numpy()
+        cols = self._cols
         z_ref = project_exact(
-            torch.from_numpy(x).to(self.device),
-            torch.from_numpy(v).to(self.device),
-        ).cpu().numpy()
+            torch.from_numpy(np.ascontiguousarray(x[:, cols])).to(self.device),
+            torch.from_numpy(np.ascontiguousarray(v[cols])).to(self.device),
+        )
+        if self.sharded:  # the direct projection of each shard, summed alike
+            z_ref = self._psum(z_ref)
+        z_ref = z_ref.cpu().numpy()
         if self.serve_dtype == "float32":
             if not np.array_equal(z, z_ref):
                 raise ValueError(
@@ -235,10 +289,26 @@ class TransformEngine:
 
     # -- padded dispatch -----------------------------------------------------
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the basis is row-sharded over ``features``."""
+        return self.basis_spec is not None
+
+    def _psum(self, t: torch.Tensor) -> torch.Tensor:
+        self.psums += 1
+        with pmesh.mesh_scope(self.mesh):
+            return pmesh.psum(t, FEATURE_AXIS)
+
     def _pad(self, x, width: int):
         """``x`` on this engine's device and dtype (one copy from the host
-        when it is there), zero-padded to its row bucket on the device."""
+        when it is there), zero-padded to its row bucket on the device. In
+        sharded mode a ``(rows, d)`` batch keeps this rank's columns (taken
+        before the copy); a ``(rows, d_local)`` batch is those already."""
         x = _as_tensor(x)
+        if self.sharded and width == self.d and x.dim() == 2:
+            if x.shape[1] == self.d:
+                x = x[:, self._cols]
+            width = self.d_local
         if x.dim() != 2 or x.shape[1] != width:
             raise ValueError(
                 f"query batch must be (rows, {width}), got shape "
@@ -246,7 +316,8 @@ class TransformEngine:
             )
         x = x.to(device=self.device, dtype=self.dtype)
         rows = int(x.shape[0])
-        padded = bucket_rows(rows, min_bucket=self.min_bucket)
+        padded = bucket_rows(rows, min_bucket=self.min_bucket,
+                             multiple_of=self._row_multiple)
         if padded != rows:
             buf = torch.zeros((padded, width), dtype=self.dtype, device=self.device)
             buf[:rows] = x
@@ -256,9 +327,13 @@ class TransformEngine:
     def place_basis(self, v) -> torch.Tensor:
         """A basis on this engine's device as a float32 tensor (a copy).
         Accepts a ``serving.registry.BasisVersion`` (its host ``v``), a
-        tensor, or any ``(d, k)`` array. A hot swap costs exactly this."""
+        tensor, or any ``(d, k)`` array; in sharded mode only this rank's
+        rows move (a ``(d_local, k)`` operand is taken as those rows). A
+        hot swap costs exactly this."""
         if hasattr(v, "shard_sizes") and hasattr(v, "v"):
             v = v.v
+        if self.sharded and tuple(v.shape) == (self.d, self.k):
+            v = v[self._cols]
         if isinstance(v, torch.Tensor):
             return v.detach().to(device=self.device, dtype=torch.float32, copy=True)
         return torch.tensor(np.asarray(v), dtype=torch.float32, device=self.device)
@@ -266,26 +341,55 @@ class TransformEngine:
     def _check_basis(self, v) -> torch.Tensor:
         """Loud signature check at the kernel boundary: a mis-shaped basis
         would otherwise surface as a shape error deep inside a dispatch
-        lane."""
-        if tuple(v.shape) != (self.d, self.k):
+        lane. Sharded: the whole basis (its rows are taken) or this rank's
+        ``(d_local, k)`` rows."""
+        shape = tuple(v.shape)
+        ok = shape == (self.d, self.k) or (
+            self.sharded and shape == (self.d_local, self.k))
+        if not ok:
             raise ValueError(
-                f"basis shape {tuple(v.shape)} does not match this "
+                f"basis shape {shape} does not match this "
                 f"engine's signature ({self.d}, {self.k})"
             )
+        if self.sharded and shape == (self.d, self.k):
+            return self.place_basis(v)
         if isinstance(v, torch.Tensor):
             return v.to(device=self.device, dtype=torch.float32).contiguous()
         return self.place_basis(v)
 
     def project(self, x, v) -> torch.Tensor:
         """``(n, d) -> (n, k)`` against basis ``v``: pad, dispatch the
-        bucket's operation, slice."""
+        bucket's operation, slice. Sharded: this rank's shard through the
+        serve kernel, then the one ``(rows, k)`` fp32 psum over
+        ``features``."""
         v = self._check_basis(v)
         x_pad, rows = self._pad(x, self.d)
         z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
+        if self.sharded:
+            z = self._psum(z)
         return z[:rows]
 
+    def project_energy(self, x, v):
+        """``(z, residual_sq, input_sq)`` of a query batch in one pass: the
+        server's dispatch. Sharded, the partial projection and the partial
+        input energy ride ONE ``(rows, k + 1)`` psum over ``features``."""
+        if not self.sharded:
+            z = self.project(x, v)
+            r, e = self.residual_energy(x, z)
+            return z, r, e
+        v = self._check_basis(v)
+        x_pad, rows = self._pad(x, self.d)
+        z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
+        e_part = torch.sum(x_pad.float() ** 2, dim=-1, keepdim=True)
+        both = self._psum(torch.cat([z.float(), e_part], dim=1))
+        z, e_in = both[:rows, :self.k], both[:rows, self.k]
+        e_out = torch.sum(z ** 2, dim=-1)
+        return z, torch.clamp_min(e_in - e_out, 0.0), e_in
+
     def reconstruct(self, z, v) -> torch.Tensor:
-        """``(n, k) -> (n, d)`` back-projection against basis ``v``."""
+        """``(n, k) -> (n, d)`` back-projection against basis ``v``;
+        sharded, this rank's ``(n, d_local)`` columns (row-local, no
+        collective)."""
         v = self._check_basis(v)
         z_pad, rows = self._pad(z, self.k)
         x = self._compiled("reconstruct", int(z_pad.shape[0]))(z_pad, v)
@@ -293,8 +397,13 @@ class TransformEngine:
 
     def residual_energy(self, x, z) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-row ``(residual_sq, input_sq)`` energies from a query batch
-        and its projection. Zero-padded rows contribute zero to both."""
+        and its projection. Zero-padded rows contribute zero to both.
+        Sharded: the input energy summed over ``features``."""
         x_pad, rows = self._pad(x, self.d)
         z_pad, _ = self._pad(z, self.k)
+        if self.sharded:
+            e_in = self._psum(torch.sum(x_pad.float() ** 2, dim=-1))
+            e_out = torch.sum(z_pad.float() ** 2, dim=-1)
+            return torch.clamp_min(e_in - e_out, 0.0)[:rows], e_in[:rows]
         r, e = self._compiled("residual", int(x_pad.shape[0]))(x_pad, z_pad)
         return r[:rows], e[:rows]

@@ -1,14 +1,23 @@
-"""Checkpoint / resume of the dense online state.
+"""Checkpoint / resume of the online state.
 
-Counterpart of the dense half of ``distributed_eigenspaces_tpu/utils/
-checkpoint.py``, on the same on-disk format, so a checkpoint crosses both
-ways between the packages:
+Counterpart of ``distributed_eigenspaces_tpu/utils/checkpoint.py``, on the
+same on-disk format, so a checkpoint crosses both ways between the
+packages:
 
   - ``OnlineState``  = sigma_tilde (d, d) + step          (kind "online")
   - ``SegmentState`` = OnlineState + the warm carry v_prev (d, k)
     (kind "scan_segment"), so a resumed segmented run is bit for bit the
     unkilled one
+  - ``LowRankState`` = U (d, r) + S (r,) + step            (kind "lowrank")
+  - ``SketchState``  = y (d, p) + v (d, k) + step          (kind "sketch")
   - plus the data-stream cursor (an integer row offset)
+
+The feature-sharded kinds record each leaf's layout in the commit marker
+as the reference does (``leaf_specs``: ``["features", None]`` for the
+row-sharded leaves, ``[]`` for the replicated ones), and
+:func:`restore_checkpoint` with a ``mesh`` gives each rank its rows of the
+row-sharded leaves. A state is saved whole: the feature-sharded trainers
+gather it over ``features`` before their hooks run.
 
 A checkpoint directory holds ``state.npz`` (``step`` as an int32 scalar,
 the tensors as float32 arrays) and a ``meta.json`` commit marker, renamed
@@ -16,9 +25,7 @@ into place last and carrying the payload's sha256. A crash mid-write
 leaves no marker, so the checkpoint is simply not found; a committed
 checkpoint whose payload is torn or fails its checksum raises
 :class:`CheckpointCorrupt`, and :meth:`Checkpointer.latest` quarantines it
-(renamed ``*.quarantined``) and steps back to the next newest. The
-reference's low-rank and sketch kinds (the feature-sharded trainers) are
-not ported.
+(renamed ``*.quarantined``) and steps back to the next newest.
 
 On a mesh the state is the same on every rank, so rank 0 alone writes
 (and collects old steps), and every rank restores. The segmented
@@ -43,6 +50,12 @@ import torch
 from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
 from distributed_eigenspaces_tpu_torch.algo.scan import SegmentState
 from distributed_eigenspaces_tpu_torch.device import resolve_device
+from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+    ROW_FIELDS,
+    LowRankState,
+    SketchState,
+    shard_state,
+)
 from distributed_eigenspaces_tpu_torch.parallel.mesh import is_writer
 from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
 
@@ -56,18 +69,20 @@ class CheckpointCorrupt(RuntimeError):
 
 _STATE_TYPES = {
     "online": OnlineState,
+    "lowrank": LowRankState,
     "scan_segment": SegmentState,
+    "sketch": SketchState,
 }
-#: the reference's feature-sharded kinds
-_UNPORTED_KINDS = ("lowrank", "sketch")
 
 
-def _unported_kind(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"checkpoint kind {kind!r} holds the state of the reference's "
-        "feature-sharded trainers, which are not ported to "
-        "distributed_eigenspaces_tpu_torch yet (ROADMAP.md Queue 1 item 15)"
-    )
+def _leaf_specs(cls) -> dict | None:
+    """The reference's per-leaf layout record of a feature-sharded state:
+    rows over ``features`` for the row-sharded leaves, replicated for the
+    rest; None for the dense kinds."""
+    rows = ROW_FIELDS.get(cls)
+    if rows is None:
+        return None
+    return {f: (["features", None] if f in rows else []) for f in cls._fields}
 
 
 def _to_host(state) -> dict:
@@ -100,10 +115,12 @@ def save_checkpoint(path: str, state, *, cursor: int = 0,
             f"known: {sorted(_STATE_TYPES)}"
         )
     if is_writer():
-        _write_checkpoint(path, _to_host(state), kind, cursor, extra)
+        _write_checkpoint(path, _to_host(state), kind, cursor, extra,
+                          _leaf_specs(type(state)))
 
 
-def _write_checkpoint(path, host: dict, kind: str, cursor, extra) -> None:
+def _write_checkpoint(path, host: dict, kind: str, cursor, extra,
+                      leaf_specs=None) -> None:
     os.makedirs(path, exist_ok=True)
     # invalidate any previous commit marker before touching state.npz, and
     # write the payload via tmp + rename: a crash at any point leaves the
@@ -124,6 +141,8 @@ def _write_checkpoint(path, host: dict, kind: str, cursor, extra) -> None:
         "format_version": 1,
         "checksum": checksum,
     }
+    if leaf_specs:
+        meta["leaf_specs"] = leaf_specs
     if extra:
         meta["extra"] = extra
     tmp = os.path.join(path, "meta.json.tmp")
@@ -132,23 +151,21 @@ def _write_checkpoint(path, host: dict, kind: str, cursor, extra) -> None:
     os.replace(tmp, meta_final)  # the atomic commit marker
 
 
-def restore_checkpoint(path: str, *, device="cuda"):
+def restore_checkpoint(path: str, *, device="cuda", mesh=None):
     """Load ``(state, cursor)`` from a checkpoint directory, the tensors on
     ``device``. Raises FileNotFoundError on a missing or uncommitted
-    checkpoint, :class:`CheckpointCorrupt` on a committed one whose payload
-    does not restore, and NotImplementedError on the reference's
-    feature-sharded kinds. A marker without a checksum (older checkpoints)
-    restores unverified."""
-    dev = resolve_device(device)
+    checkpoint and :class:`CheckpointCorrupt` on a committed one whose
+    payload does not restore. A marker without a checksum (older
+    checkpoints) restores unverified. With a ``(workers, features)``
+    ``mesh`` a feature-sharded state comes back as this rank's rows, on
+    the mesh's device."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     meta_path = os.path.join(path, "meta.json")
     if not os.path.exists(meta_path):
         raise FileNotFoundError(f"no committed checkpoint at {path!r}")
     with open(meta_path) as f:
         meta = json.load(f)
-    kind = meta["state_type"]
-    if kind in _UNPORTED_KINDS:
-        raise _unported_kind(kind)
-    cls = _STATE_TYPES[kind]
+    cls = _STATE_TYPES[meta["state_type"]]
     payload = os.path.join(path, "state.npz")
     want = meta.get("checksum")
     if want is not None:
@@ -181,6 +198,8 @@ def restore_checkpoint(path: str, *, device="cuda"):
         raise CheckpointCorrupt(
             f"committed checkpoint at {path!r} does not restore: {e!r}"
         ) from e
+    if mesh is not None and cls in ROW_FIELDS:
+        state = shard_state(mesh, state)
     return state, meta["cursor"]
 
 
@@ -189,13 +208,15 @@ class Checkpointer:
     """Periodic checkpoint hook for the online loop and the segmented
     trainer: ``on_step(t, state)`` (an ``on_step`` or ``on_segment``
     callback) saves ``step_{t:08d}`` every ``every`` steps and keeps the
-    newest ``keep``; :meth:`latest` restores onto ``device``."""
+    newest ``keep``; :meth:`latest` restores onto ``device`` (with ``mesh``,
+    a feature-sharded state as this rank's rows)."""
 
     directory: str
     every: int = 1
     keep: int = 2
     rows_per_step: int = 0  # rows consumed per step -> saved stream cursor
     device: Any = "cuda"
+    mesh: Any = None
 
     def on_step(self, t: int, state, v_bar=None) -> None:
         if t % self.every:
@@ -212,7 +233,7 @@ class Checkpointer:
         for step in reversed(self._steps()):
             path = os.path.join(self.directory, f"step_{step:08d}")
             try:
-                return restore_checkpoint(path, device=self.device)
+                return restore_checkpoint(path, device=self.device, mesh=self.mesh)
             except CheckpointCorrupt as e:
                 quarantined = path + ".quarantined"
                 try:

@@ -6,7 +6,7 @@ segmented fit resumed from a reference checkpoint in the port matches the
 reference's own resumed fit (``sigma_tilde`` within 1e-4, ``v_prev`` within
 0.05 degrees); a torn or bad-checksum payload is quarantined and the resume
 ladder steps back; rotation keeps the newest two; the reference's
-feature-sharded kinds are refused by name.
+feature-sharded kinds (``lowrank``, ``sketch``) cross both ways bit for bit.
 """
 
 import json
@@ -173,13 +173,29 @@ def test_every_and_uncommitted_steps(tmp_path):
 
 @pytest.mark.parametrize("kind", ["lowrank", "sketch"])
 def test_feature_sharded_kinds_are_refused_by_name(kind, tmp_path):
+    """Once refused by name, the reference's feature-sharded kinds now
+    restore in the port, and the port's in the reference, bit for bit
+    (more cases: tests/test_torch_sketch.py)."""
+    from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as tfs
+
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((D, 5)).astype(np.float32)
+    b = rng.standard_normal((D, K) if kind == "sketch" else (5,)).astype(np.float32)
     if kind == "lowrank":
-        jst = LowRankState(jnp.zeros((D, 4)), jnp.zeros((4,)), jnp.int32(1))
+        jst = LowRankState(jnp.asarray(a), jnp.asarray(b), jnp.int32(3))
     else:
-        jst = SketchState(jnp.zeros((D, 5)), jnp.zeros((D, K)), jnp.int32(1))
-    jckpt.save_checkpoint(str(tmp_path), jst)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tckpt.restore_checkpoint(str(tmp_path), device="cpu")
+        jst = SketchState(jnp.asarray(a), jnp.asarray(b), jnp.int32(3))
+    jckpt.save_checkpoint(str(tmp_path / "jax"), jst, cursor=12)
+    got, cursor = tckpt.restore_checkpoint(str(tmp_path / "jax"), device="cpu")
+    assert type(got) is (tfs.LowRankState if kind == "lowrank" else tfs.SketchState)
+    assert got.step == 3 and cursor == 12
+    np.testing.assert_array_equal(got[0].numpy(), a)
+    np.testing.assert_array_equal(got[1].numpy(), b)
+    tckpt.save_checkpoint(str(tmp_path / "port"), got, cursor=12)
+    back, jcursor = jckpt.restore_checkpoint(str(tmp_path / "port"))
+    assert type(back) is type(jst) and int(back.step) == 3 and jcursor == 12
+    np.testing.assert_array_equal(np.asarray(back[0]), a)
+    np.testing.assert_array_equal(np.asarray(back[1]), b)
 
 
 def test_save_refuses_other_states(tmp_path):

@@ -342,12 +342,14 @@ def test_refuses_exactly_where_the_reference_goes_feature_sharded(entry, backend
     whole = entry == "fit"
     kw = dict(dim=dim, k=k, num_workers=2, rows_per_worker=8, num_steps=1,
               solver="subspace", subspace_iters=2, backend=backend)
+    from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
+        LowRankState,
+        SketchState,
+    )
+
+    # the port no longer refuses: it goes feature-sharded exactly where the
+    # reference does, and stays dense elsewhere
     refuse = jax_resolves_feature_sharded(JaxConfig(**kw), whole_fit=whole)
-    if backend == "feature_sharded":  # refused when the config is built
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1[45]"):
-            PCAConfig(**kw)
-        assert refuse
-        return
     cfg = PCAConfig(**kw)
     assert resolves_feature_sharded(cfg, whole_fit=whole) == refuse
     data = np.random.default_rng(0).standard_normal((16, dim)).astype(np.float32)
@@ -356,9 +358,11 @@ def test_refuses_exactly_where_the_reference_goes_feature_sharded(entry, backend
         run = lambda: est.fit(data)  # noqa: E731
     else:
         run = lambda: est.fit_stream(iter(torch.from_numpy(data).reshape(1, 2, 8, dim)))  # noqa: E731
-    if refuse:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            run()
-        assert est.state is None
+    assert run().components_.shape == (dim, k)
+    if not refuse:
+        assert isinstance(est.state, ton.OnlineState)
+    elif whole and dim * k >= 65536:
+        assert isinstance(est.state, SketchState) and est.trainer_used_ == "sketch"
     else:
-        assert run().components_.shape == (dim, k)
+        assert isinstance(est.state, LowRankState)
+        assert est.trainer_used_ == ("scan" if whole else "step")

@@ -60,6 +60,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.runtime.native\n"
         "import distributed_eigenspaces_tpu_torch.runtime.prefetch\n"
         "import distributed_eigenspaces_tpu_torch.utils.checkpoint\n"
+        "import distributed_eigenspaces_tpu_torch.parallel.feature_sharded\n"
+        "import distributed_eigenspaces_tpu_torch.parallel.mesh\n"
+        "import distributed_eigenspaces_tpu_torch.algo.online\n"
+        "import distributed_eigenspaces_tpu_torch.api.estimator\n"
+        "import distributed_eigenspaces_tpu_torch.serving.replication\n"
         "from distributed_eigenspaces_tpu_torch.analysis import (\n"
         "    ast_lints, contracts, mutations, programs, report)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -133,3 +138,23 @@ def test_kernel_sources_ship_with_the_package():
     text = (ROOT / "pyproject.toml").read_text()
     assert ('distributed_eigenspaces_tpu_torch = ["csrc/*.cu", "csrc/*.cuh", '
             '"native/*.cc"]') in text
+
+
+def test_feature_sharded_entry_points_raise_without_a_card(monkeypatch):
+    """The feature-sharded trainers, the sharded engine and the estimator on
+    the feature-sharded backend default to the card too."""
+    from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as fs
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PCAConfig(dim=16, k=2, num_workers=2, rows_per_worker=8, num_steps=1,
+                    solver="subspace", backend="feature_sharded")
+    data = np.zeros((16, 16), np.float32)
+    for build in (fs.make_feature_sharded_step, fs.make_feature_sharded_scan_fit,
+                  fs.make_feature_sharded_sketch_fit, pmesh.local_mesh):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(cfg) if build is not pmesh.local_mesh else build()
+    with pytest.raises(RuntimeError, match="cuda"):
+        dett.OnlineDistributedPCA(cfg).fit(data)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dett.OnlineDistributedPCA(cfg, trainer="sketch").fit(data)

@@ -185,11 +185,16 @@ class TestPublisherLease:
         assert b.epoch == 2
 
     def test_heartbeat_keeps_lease_live_then_lapse(self, tmp_path):
-        a = PublisherLease(str(tmp_path), owner="a", lease_ms=200.0)
-        b = PublisherLease(str(tmp_path), owner="b", lease_ms=200.0)
-        a.acquire(timeout_s=5.0).start_heartbeat()
+        # a 2 s lease renewed every 0.1 s: the heartbeat thread may go
+        # unscheduled for over a second on a loaded machine and the lease
+        # still holds, so the check reads the heartbeat, not the scheduler
+        lease_ms, beat_s = 2000.0, 0.1
+        a = PublisherLease(str(tmp_path), owner="a", lease_ms=lease_ms)
+        b = PublisherLease(str(tmp_path), owner="b", lease_ms=lease_ms)
+        a.acquire(timeout_s=5.0).start_heartbeat(interval_s=beat_s)
         try:
-            deadline = time.monotonic() + 0.6
+            # live across ten beats
+            deadline = time.monotonic() + 1.0
             while time.monotonic() < deadline:
                 assert a.check() is True
                 assert b.try_acquire() is False
@@ -197,8 +202,8 @@ class TestPublisherLease:
         finally:
             a.stop_heartbeat()
         # heartbeat stopped == kill -9 aftermath: the record lapses
-        # naturally and the standby wins within the lease TTL
-        b.acquire(timeout_s=2.0)
+        # naturally and the standby wins once the lease runs out
+        b.acquire(timeout_s=5 * lease_ms / 1e3)
         assert b.epoch == a.epoch + 1
 
     def test_store_rejects_zombie_publish_before_id_assignment(

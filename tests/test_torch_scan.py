@@ -426,9 +426,11 @@ def test_whole_fit_handle_kinds():
         scan.fit(scan.init_state(), torch.from_numpy(x), worker_masks=masks)
     with pytest.raises(ValueError, match="fit_windows"):
         seg.fit(seg.init_state(), torch.from_numpy(x), worker_masks=masks)
-    for kind in ("fs_scan", "sketch"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            make_whole_fit(cfg, kind, device="cpu")
+    # the feature-sharded kinds build on the one-process (1, 1) layout
+    # (their parity: tests/test_torch_feature_sharded.py)
+    for kind, info in (("fs_scan", "rank"), ("sketch", "sketch_width")):
+        h = make_whole_fit(cfg, kind, device="cpu")
+        assert h.kind == kind and info in h.info and h.fit_windows is not None
     with pytest.raises(ValueError, match="unknown"):
         make_whole_fit(cfg, "fleet", device="cpu")
 

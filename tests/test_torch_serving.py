@@ -154,8 +154,10 @@ def test_engine_rejects_bad_operands_and_unported_modes():
         eng.project(np.zeros((2, D + 1), np.float32), _basis())
     with pytest.raises(ValueError, match="serve_dtype"):
         TransformEngine(D, K, serve_dtype="fp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformEngine(D, K, mesh=object(), device="cpu")
+    # the mesh engines are ported (tests/test_torch_sharded_basis.py); a
+    # basis_spec without a mesh is refused loudly, as in the reference
+    with pytest.raises(ValueError, match="features"):
+        TransformEngine(D, K, basis_spec=("features", None), device="cpu")
     assert [bucket_rows(n) for n in (1, 8, 9, 64, 65)] == [8, 8, 16, 64, 128]
 
 
@@ -209,8 +211,10 @@ def test_registry_recovers_a_sharded_jax_publish(tmp_path):
     got = EigenbasisRegistry(registry_dir=str(tmp_path)).latest()
     assert got.version == 1 and got.shard_sizes == want.shard_sizes == (11, 11, 10)
     np.testing.assert_array_equal(got.v, want.v)
-    with pytest.raises(NotImplementedError, match="sharded publish"):
-        EigenbasisRegistry().publish(_basis(), num_shards=2)
+    # the port publishes in shards too, with the reference's balanced split
+    mine = EigenbasisRegistry().publish(_basis(4), num_shards=3, step=2)
+    assert mine.shard_sizes == want.shard_sizes and mine.spec == want.spec
+    np.testing.assert_array_equal(mine.v, want.v)
 
 
 def test_registry_quarantines_a_corrupt_version(tmp_path):

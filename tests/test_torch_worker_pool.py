@@ -156,10 +156,10 @@ def test_config_rejects_like_the_reference(kw):
     [
         dict(compile_cache_dir="cache"),
         dict(merge_topology=(("chip", 2),), merge_interval=2),
-        dict(backend="feature_sharded", solver="subspace", pipeline_merge=True),
+        dict(collectives="ring", solver="subspace", pipeline_merge=True),
         dict(merge_topology=(("chip", 2),)),
         dict(solver="deflation", merge_topology=(("chip", 2),)),
-        dict(backend="feature_sharded"),
+        dict(collectives="ring"),
     ],
 )
 def test_config_names_the_roadmap_for_unported_settings(kw):
