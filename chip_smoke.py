@@ -1839,8 +1839,8 @@ def fs_rank_phase(rank: int, world: int, one: dict, reg_dir: str) -> dict:
 def slice_fs_ranks2(dev, card: str, one: dict, work_dir: str) -> dict:
     """Two ranks sharing the card in one gloo group, a (1, 2) features mesh
     (``fs_rank_phase``, one ``parallel.mesh.launch``): every rank's
-    replicated values equal rank 0's bit for bit, each within 0.01 degrees of
-    the one-process fit; returns the serve kernels' launches per route,
+    replicated values and served rows equal rank 0's bit for bit, each fit
+    within 0.01 degrees of the one-process fit; returns the serve kernels' launches per route,
     summed over the ranks."""
     import numpy as np
     from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
@@ -1867,6 +1867,8 @@ def slice_fs_ranks2(dev, card: str, one: dict, work_dir: str) -> dict:
     check(all(o["mesh"] == {"workers": 1, "features": MESH_RANKS} for o in out),
           f"fs_ranks2: mesh {[o['mesh'] for o in out]}")
     check(all(same.values()), f"fs_ranks2: replicated values differ from rank 0's: {same}")
+    check(all(served_same.values()),
+          f"fs_ranks2: served rows differ from rank 0's: {served_same}")
     return {dt: sum(o[dt]["launches"] for o in out) for dt in FS_SERVE_DTYPES}
 
 

@@ -41,8 +41,8 @@ out_dtype=torch.float32)`` on the card; widened operands on the CPU,
 which is exact): the ``(m, n, k)`` partial is summed over ``features``
 in fp32, then rounded to bf16 for the second product, as the reference
 rounds it. An int8 block stays int8 in device memory and is widened to
-bf16 inside each matvec. ``collectives="ring"`` is not ported yet
-(ROADMAP.md Queue 1 item 15).
+bf16 inside each matvec. ``PCAConfig`` refuses ``collectives="ring"``
+(not ported yet, ROADMAP.md Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from distributed_eigenspaces_tpu_torch.config import PCAConfig, _not_ported
+from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     _sym,
@@ -465,19 +465,8 @@ def _starts(cfg: PCAConfig, mesh, *, v_rand=None, v_init=None, seed=None) -> _St
                    merge_start(cfg, device=mesh.device, v_init=v_init))
 
 
-def _check_collectives(cfg: PCAConfig, collectives) -> None:
-    """``collectives`` (default ``cfg.collectives``): ``"xla"``; ``"ring"``
-    is not ported yet."""
-    collectives = cfg.collectives if collectives is None else collectives
-    if collectives not in ("xla", "ring"):
-        raise ValueError(f"unknown collectives mode: {collectives!r}")
-    if collectives == "ring":
-        raise _not_ported("collectives='ring'", "Queue 1 item 15 (parallel/ring.py)")
-
-
 def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = None,
-                              device="cuda", v_rand=None, v_init=None,
-                              collectives=None):
+                              device="cuda", v_rand=None, v_init=None):
     """The per-step trainer of the ``(workers, features)`` mesh:
     ``step(state, x_blocks, worker_mask=None) -> (state, v_bar)``, on every
     rank (``mesh=None``: the one-process ``(1, 1)`` layout on ``device``).
@@ -488,7 +477,6 @@ def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = N
     set, the first step runs ``cfg.subspace_iters`` and later steps the
     short count; the choice reads the replicated step count on the host.
     ``step.init_state()`` is this rank's zero state."""
-    _check_collectives(cfg, collectives)
     mesh = _mesh_of(mesh, device)
     r = _resolve_rank(cfg, rank)
     core = _make_step_core(cfg, mesh, _starts(cfg, mesh, v_rand=v_rand, v_init=v_init))
@@ -559,8 +547,7 @@ def _windowed_whole_fit(mesh, run_window, run_masked, carry_live):
 
 
 def make_feature_sharded_scan_fit(cfg: PCAConfig, mesh=None, *, rank: int | None = None,
-                                  device="cuda", v_rand=None, v_init=None,
-                                  collectives=None):
+                                  device="cuda", v_rand=None, v_init=None):
     """Whole-fit trainer of the rank-r state on the ``(workers, features)``
     mesh: ``fit(state, blocks, idx=None, worker_masks=None) -> state``.
 
@@ -573,7 +560,6 @@ def make_feature_sharded_scan_fit(cfg: PCAConfig, mesh=None, *, rank: int | None
     and ``u`` survives. ``fit.fit_windows`` is the windowed, checkpointable
     entry (:func:`_windowed_whole_fit`); ``fit.extract(state)`` is ``u[:,
     :k]`` with canonical signs (this rank's rows)."""
-    _check_collectives(cfg, collectives)
     mesh = _mesh_of(mesh, device)
     r = _resolve_rank(cfg, rank)
     core = _make_step_core(cfg, mesh, _starts(cfg, mesh, v_rand=v_rand, v_init=v_init))
@@ -649,8 +635,7 @@ def sketch_draws(cfg: PCAConfig, oversample: int = 16, seed=None):
 
 
 def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: int = 16,
-                                    device="cuda", omega=None, v_rand=None,
-                                    collectives=None):
+                                    device="cuda", omega=None, v_rand=None):
     """Sketched whole-fit trainer on the ``(workers, features)`` mesh:
     ``fit(state, blocks, idx=None, worker_masks=None) -> state`` with a
     steady state that runs no eigensolve, Cholesky or triangular solve.
@@ -674,7 +659,6 @@ def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: in
     machinery again. ``cfg.merge_interval`` and ``cfg.pipeline_merge`` do
     not apply (no per-step eigensolve). ``omega`` / ``v_rand`` default to
     :func:`sketch_draws`."""
-    _check_collectives(cfg, collectives)
     mesh = _mesh_of(mesh, device)
     d, k, n, m = cfg.dim, cfg.k, cfg.rows_per_worker, cfg.num_workers
     p = min(d, k + oversample)

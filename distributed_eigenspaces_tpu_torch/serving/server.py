@@ -41,15 +41,25 @@ loop.
 rank runs its own server over the traffic it is given. With an engine whose
 basis is row-sharded over a ``features`` axis of more than one rank
 (``TransformEngine(mesh=, basis_spec=("features", None))``), every rank of
-the group must be given the same requests in the same order: each dispatch
-first agrees with the other ranks on the next run of requests (one small
-all-gather of the first request's sequence number and the count; the
-shortest count wins and the rest go in the next round), so the ranks'
-micro-batches may be cut differently and still meet in the same
-collectives; each round is then one ``(rows, k + 1)`` psum carrying the
-projection and the input energy, and a rejected request's rows go in as
-zeros so the ranks' shapes agree. A version is placed shard by shard: each
-rank moves its rows only.
+the group must be given the same requests in the same order, and each
+dispatch runs in rounds agreed with the other ranks. A round opens with
+one small all-gather of each rank's first sequence number, remaining
+count, live version and deadline-shed mask:
+
+- the round serves the next run of requests, as many as the shortest
+  count (the rest go in the next round), so the ranks' micro-batches may
+  be cut differently and still meet in the same collectives;
+- it serves them at ONE version, the oldest any rank reads as live, so no
+  reduction adds the shards of two versions during a hot swap or while a
+  rank's replica lags (a rank that has moved on reads that version back
+  from its registry; if one no longer holds it, every rank fails the
+  round's requests alike);
+- a request that any rank sheds for its deadline is shed on every rank.
+
+Each round is then one ``(rows, k + 1)`` psum carrying the projection and
+the input energy; a rejected request's rows go in as zeros so the ranks'
+shapes agree. A version is placed shard by shard: each rank moves its rows
+only.
 
 Not ported yet: a ``MetricsLogger`` (``metrics=``), prewarming and the
 compile cache (ROADMAP.md Queue 1 item 16).
@@ -107,6 +117,11 @@ class DeadlineExceeded(ServerOverloaded):
     """Deadline-aware shed: the request waited past the declared SLO
     (``cfg.serve_slo_p99_ms``) before its bucket dispatched, so it is
     dropped before compute and counted as a shed."""
+
+
+#: requests a lockstep round agrees on at most: each takes one bit of the
+#: round's int64 shed mask
+_ROUND_MAX = 62
 
 
 @dataclasses.dataclass(frozen=True)
@@ -448,37 +463,217 @@ class QueryServer:
         self._dev_basis = (ver.version, arr)
         return arr
 
-    def _lockstep_compute(self, reqs, v_dev):
-        """Every request of a bucket through a sharded engine, in rounds
-        agreed with the other ranks of the features group: each round
-        serves the next ``c`` requests, ``c`` the shortest remaining count
-        among the ranks, which must all start at the same sequence number.
-        A request with non-finite rows goes in as zeros (its ticket fails
-        anyway), so every rank's shapes agree. Returns host ``(z, r, e)``
-        over all requests' rows, in order."""
-        mesh = self.engine.mesh
-        out, i = [], 0
-        while i < len(reqs):
-            mine = torch.tensor([[reqs[i].seq, len(reqs) - i]], dtype=torch.int64,
-                                device=self.engine.device)
-            with pmesh.mesh_scope(mesh):
-                agreed = pmesh.all_gather(mine, pmesh.FEATURE_AXIS).cpu()
-            if bool((agreed[:, 0] != agreed[0, 0]).any()):
-                raise RuntimeError(
-                    f"sharded serving out of step: the ranks of the features "
-                    f"group start their next batch at requests "
-                    f"{agreed[:, 0].tolist()} — every rank must be given the "
-                    "same requests in the same order"
-                )
-            c = int(agreed[:, 1].min())
-            self.lockstep_rounds += 1
-            x = np.concatenate([np.where(np.isfinite(r.x), r.x, 0.0)
-                                for r in reqs[i:i + c]], axis=0).astype(np.float32)
-            z, r_sq, e_sq = self.engine.project_energy(
-                torch.from_numpy(x).to(self.engine.device), v_dev)
-            out.append((z.cpu().numpy(), r_sq.cpu().numpy(), e_sq.cpu().numpy()))
-            i += c
-        return tuple(np.concatenate([o[j] for o in out]) for j in range(3))
+    def _version_fault(self, ver) -> str | None:
+        """Why ``ver`` (a ``registry.latest()``) cannot be served here, or
+        None."""
+        if ver is None:
+            return ("no published basis: publish to the registry before "
+                    "serving queries")
+        if ver.signature != (self.d, self.k):
+            return (f"live version {ver.version} has signature "
+                    f"{ver.signature}; this server serves ({self.d}, {self.k})")
+        return None
+
+    def _note_version(self, version: int) -> None:
+        """Served-version bookkeeping: a change is one observed hot swap."""
+        if self._served_version is not None and self._served_version != version:
+            self.swap_count += 1
+        self._served_version = version
+
+    def _deadline_missed(self, req, t0: float) -> DeadlineExceeded | None:
+        """Deadline-aware load shedding (active when bounded admission AND
+        an SLO are declared): a request that already waited past the
+        declared p99 target is dropped BEFORE compute."""
+        if self.queue_depth is None or self._slo_ms is None:
+            return None
+        waited_ms = (t0 - req.t_submit) * 1e3
+        if waited_ms <= self._slo_ms:
+            return None
+        return DeadlineExceeded(
+            f"request shed before compute: queued {waited_ms:.1f} ms > "
+            f"declared SLO {self._slo_ms} ms (cfg.serve_slo_p99_ms)"
+        )
+
+    def _shed(self, ticket, req, exc: Exception, tr) -> Exception:
+        self._sheds["deadline"] += 1
+        ticket.fail(exc)
+        tr.event("serve_shed", trace_id=req.trace_id, category="serve",
+                 attrs={"reason": "deadline"})
+        return exc
+
+    @staticmethod
+    def _non_finite(req) -> ValueError | None:
+        """Per-request quarantine: a non-finite query fails ITS ticket and
+        leaves the batch; everyone else is served normally."""
+        finite = np.isfinite(req.x).all(axis=1)
+        if finite.all():
+            return None
+        bad_rows = [int(r) for r in np.nonzero(~finite)[0]]
+        return ValueError(
+            f"query contains non-finite rows {bad_rows} — rejected (its "
+            "batch neighbors were served)"
+        )
+
+    def _local_batch(self, bucket, reqs, t0, tr):
+        """A bucket on this rank alone, at the one version read for it.
+        Returns ``(results, fails, served, (t_c0, t_c1) or None)``,
+        ``served`` the ``(x, residual_sq, input_sq)`` of the answered rows."""
+        ver = self.registry.latest()
+        fault = self._version_fault(ver)
+        if fault is not None:
+            raise RuntimeError(fault)
+        self._note_version(ver.version)
+        fails: dict[int, Exception] = {}
+        good: list[int] = []
+        for i, req in enumerate(reqs):
+            exc = self._deadline_missed(req, t0)
+            if exc is not None:
+                fails[i] = self._shed(bucket.tickets[i], req, exc, tr)
+                continue
+            exc = self._non_finite(req)
+            if exc is not None:
+                fails[i] = exc
+            else:
+                good.append(i)
+        results: list[Any] = [None] * len(reqs)
+        if not good:
+            return results, fails, [], None
+        v_dev = self._basis_device(ver)
+        x = np.concatenate([reqs[i].x for i in good], axis=0)
+        t_c0 = time.perf_counter()
+        # device=True opens a torch.profiler.record_function region, so a
+        # profiler capture shows this region beside its kernels
+        with tr.span(
+            "batch_compute", category="serve", device=True,
+            attrs={"rows": int(x.shape[0]), "queries": len(good),
+                   "version": ver.version},
+        ):
+            # one host-to-device copy, shared by both operations
+            x_dev = torch.from_numpy(x).to(self.engine.device)
+            z = self.engine.project(x_dev, v_dev)
+            r_sq, e_sq = self.engine.residual_energy(x_dev, z)
+            z = z.cpu().numpy()
+            r_sq = r_sq.cpu().numpy()
+            e_sq = e_sq.cpu().numpy()
+        t_c1 = time.perf_counter()
+        off = 0
+        for i in good:
+            rows = reqs[i].x.shape[0]
+            results[i] = ServedProjection(
+                z=z[off : off + rows],
+                residual_sq=r_sq[off : off + rows],
+                input_sq=e_sq[off : off + rows],
+                version=ver.version,
+            )
+            off += rows
+        return results, fails, [(x, r_sq, e_sq)], (t_c0, t_c1)
+
+    def _agree(self, row: list[int]) -> list[list[int]]:
+        """Every rank's ``row`` of small ints, in rank order: one
+        all-gather over ``features``."""
+        mine = torch.tensor([row], dtype=torch.int64, device=self.engine.device)
+        with pmesh.mesh_scope(self.engine.mesh):
+            return pmesh.all_gather(mine, pmesh.FEATURE_AXIS).cpu().tolist()
+
+    def _held(self, version: int):
+        try:
+            return self.registry.get(version)
+        except KeyError:  # VersionRetired
+            return None
+
+    def _lockstep_batch(self, bucket, reqs, t0, tr):
+        """A bucket through a sharded engine, in rounds agreed with the
+        other ranks of the features group (the module docstring): one
+        version and one shed decision a round, the same on every rank.
+        Returns what :meth:`_local_batch` returns."""
+        n = len(reqs)
+        results: list[Any] = [None] * n
+        fails: dict[int, Exception] = {}
+        served = []
+        t_c0 = time.perf_counter()
+        i = 0
+        with tr.span("batch_compute", category="serve", device=True,
+                     attrs={"rows": sum(r.x.shape[0] for r in reqs),
+                            "queries": n}):
+            while i < n:
+                ver = self.registry.latest()
+                fault = self._version_fault(ver)
+                mask = 0
+                for j in range(min(n - i, _ROUND_MAX)):
+                    if self._deadline_missed(reqs[i + j], t0) is not None:
+                        mask |= 1 << j
+                rows = self._agree([reqs[i].seq, n - i,
+                                    -1 if fault else ver.version, mask])
+                seqs, counts, vers, masks = (list(col) for col in zip(*rows))
+                if len(set(seqs)) > 1:
+                    raise RuntimeError(
+                        f"sharded serving out of step: the ranks of the "
+                        f"features group start their next batch at requests "
+                        f"{seqs} — every rank must be given the same "
+                        "requests in the same order"
+                    )
+                if min(vers) < 0:
+                    raise RuntimeError(
+                        fault or f"sharded serving: a rank of the features "
+                        f"group has no servable version (live versions {vers})"
+                    )
+                c = min(min(counts), _ROUND_MAX)
+                vid = min(vers)
+                if max(vers) != vid:
+                    # a hot swap under way, or a lagging replica: the round
+                    # is served at the oldest live version, if every rank
+                    # still holds it
+                    held = ver if ver.version == vid else self._held(vid)
+                    if not all(h for (h,) in self._agree([held is not None])):
+                        err = RuntimeError(
+                            f"sharded serving: the ranks of the features "
+                            f"group read versions {vers} as live and version "
+                            f"{vid} is no longer held on every rank; the "
+                            "requests fail rather than mix the shards of two "
+                            "versions"
+                        )
+                        fails.update((i + j, err) for j in range(c))
+                        i += c
+                        continue
+                    ver = held
+                shed = 0
+                for m_ in masks:
+                    shed |= m_
+                live = []
+                for j in range(i, i + c):
+                    if shed >> (j - i) & 1:
+                        exc = self._deadline_missed(reqs[j], t0) or DeadlineExceeded(
+                            "request shed before compute: another rank of the "
+                            "features group queued it past the declared SLO "
+                            f"{self._slo_ms} ms (cfg.serve_slo_p99_ms)"
+                        )
+                        fails[j] = self._shed(bucket.tickets[j], reqs[j], exc, tr)
+                    else:
+                        live.append(j)
+                i += c
+                if not live:
+                    continue
+                self._note_version(ver.version)
+                x = np.concatenate([np.where(np.isfinite(reqs[j].x), reqs[j].x, 0.0)
+                                    for j in live], axis=0).astype(np.float32)
+                z, r_sq, e_sq = (t.cpu().numpy() for t in self.engine.project_energy(
+                    torch.from_numpy(x).to(self.engine.device),
+                    self._basis_device(ver)))
+                self.lockstep_rounds += 1
+                off = 0
+                for j in live:
+                    rows_j = reqs[j].x.shape[0]
+                    sl = slice(off, off + rows_j)
+                    off += rows_j
+                    exc = self._non_finite(reqs[j])
+                    if exc is not None:
+                        fails[j] = exc
+                        continue
+                    results[j] = ServedProjection(
+                        z=z[sl], residual_sq=r_sq[sl], input_sq=e_sq[sl],
+                        version=ver.version)
+                    served.append((reqs[j].x, r_sq[sl], e_sq[sl]))
+        return results, fails, served, (t_c0, time.perf_counter())
 
     def _run_batch(self, bucket) -> list:
         tr = self._tracer()
@@ -501,112 +696,8 @@ class QueryServer:
         # the delta below, recorded as a compile_stall span
         stall_ms0 = self.engine.compile_ms_total
         reqs = [t.payload for t in bucket.tickets]
-        ver = self.registry.latest()
-        if ver is None:
-            raise RuntimeError(
-                "no published basis: publish to the registry before "
-                "serving queries"
-            )
-        if ver.signature != (self.d, self.k):
-            raise RuntimeError(
-                f"live version {ver.version} has signature "
-                f"{ver.signature}; this server serves ({self.d}, {self.k})"
-            )
-        if self._served_version is not None and self._served_version != ver.version:
-            self.swap_count += 1
-        self._served_version = ver.version
-
-        # deadline-aware load shedding (active when bounded admission AND
-        # an SLO are declared): a request that already waited past the
-        # declared p99 target is dropped BEFORE compute
-        dropped: dict[int, Exception] = {}
-        if self.queue_depth is not None and self._slo_ms is not None:
-            for i, req in enumerate(reqs):
-                waited_ms = (t0 - req.t_submit) * 1e3
-                if waited_ms > self._slo_ms:
-                    dropped[i] = DeadlineExceeded(
-                        f"request shed before compute: queued "
-                        f"{waited_ms:.1f} ms > declared SLO "
-                        f"{self._slo_ms} ms (cfg.serve_slo_p99_ms)"
-                    )
-            if dropped:
-                self._sheds["deadline"] += len(dropped)
-                for i, exc in dropped.items():
-                    bucket.tickets[i].fail(exc)
-                    tr.event(
-                        "serve_shed", trace_id=reqs[i].trace_id,
-                        category="serve", attrs={"reason": "deadline"},
-                    )
-
-        # per-request quarantine: a non-finite query fails ITS ticket and
-        # leaves the batch; everyone else is served normally
-        good: list[int] = []
-        fails: dict[int, Exception] = {}
-        for i, req in enumerate(reqs):
-            if i in dropped:
-                fails[i] = dropped[i]  # already failed; skip compute
-                continue
-            finite = np.isfinite(req.x).all(axis=1)
-            if finite.all():
-                good.append(i)
-            else:
-                bad_rows = [int(r) for r in np.nonzero(~finite)[0]]
-                fails[i] = ValueError(
-                    f"query contains non-finite rows {bad_rows} — "
-                    "rejected (its batch neighbors were served)"
-                )
-
-        results: list[Any] = [None] * len(reqs)
-        t_c0 = t_c1 = None
-        if self.lockstep:
-            # every request's rows take part (see _lockstep_compute); only
-            # the good ones are answered from them
-            v_dev = self._basis_device(ver)
-            t_c0 = time.perf_counter()
-            with tr.span("batch_compute", category="serve", device=True,
-                         attrs={"rows": sum(r.x.shape[0] for r in reqs),
-                                "queries": len(reqs), "version": ver.version}):
-                z_all, r_all, e_all = self._lockstep_compute(reqs, v_dev)
-            t_c1 = time.perf_counter()
-            offs = np.cumsum([0] + [r.x.shape[0] for r in reqs])
-            keep = np.concatenate([np.arange(offs[i], offs[i + 1]) for i in good]
-                                  ) if good else np.zeros(0, np.int64)
-            x = np.concatenate([reqs[i].x for i in good], axis=0) if good else None
-            r_sq, e_sq = r_all[keep], e_all[keep]
-            for i in good:
-                lo, hi = offs[i], offs[i + 1]
-                results[i] = ServedProjection(
-                    z=z_all[lo:hi], residual_sq=r_all[lo:hi],
-                    input_sq=e_all[lo:hi], version=ver.version)
-        elif good:
-            v_dev = self._basis_device(ver)
-            x = np.concatenate([reqs[i].x for i in good], axis=0)
-            t_c0 = time.perf_counter()
-            # device=True opens a torch.profiler.record_function region, so
-            # a profiler capture shows this region beside its kernels
-            with tr.span(
-                "batch_compute", category="serve", device=True,
-                attrs={"rows": int(x.shape[0]), "queries": len(good),
-                       "version": ver.version},
-            ):
-                # one host-to-device copy, shared by both operations
-                x_dev = torch.from_numpy(x).to(self.engine.device)
-                z = self.engine.project(x_dev, v_dev)
-                r_sq, e_sq = self.engine.residual_energy(x_dev, z)
-                z = z.cpu().numpy()
-                r_sq = r_sq.cpu().numpy()
-                e_sq = e_sq.cpu().numpy()
-            t_c1 = time.perf_counter()
-            off = 0
-            for i in good:
-                rows = reqs[i].x.shape[0]
-                results[i] = ServedProjection(
-                    z=z[off : off + rows],
-                    residual_sq=r_sq[off : off + rows],
-                    input_sq=e_sq[off : off + rows],
-                    version=ver.version,
-                )
-                off += rows
+        batch = self._lockstep_batch if self.lockstep else self._local_batch
+        results, fails, served, t_c = batch(bucket, reqs, t0, tr)
         for i, exc in fails.items():
             bucket.tickets[i].fail(exc)
             # the scheduler's fold skips already-resolved tickets; mark the
@@ -615,7 +706,7 @@ class QueryServer:
                 z=np.zeros((0, self.k), np.float32),
                 residual_sq=np.zeros(0, np.float32),
                 input_sq=np.zeros(0, np.float32),
-                version=ver.version,
+                version=-1 if self._served_version is None else self._served_version,
             )
 
         if tr is not NULL_TRACER:
@@ -642,11 +733,12 @@ class QueryServer:
                 )
                 dspan = tr.record_span(
                     "dispatch", t0, now, trace_id=tid, category="serve",
-                    attrs={"version": ver.version,
+                    attrs={"version": results[i].version,
                            "queries": len(reqs),
                            "rejected": i in fails},
                 )
-                if t_c0 is not None:
+                if t_c is not None:
+                    t_c0, t_c1 = t_c
                     if stall_ms > 0:
                         tr.record_span(
                             "compile_stall", t_c0, t_c0 + stall_ms / 1e3,
@@ -662,6 +754,7 @@ class QueryServer:
                         "reply", t_c1, now, trace_id=tid,
                         parent=dspan, category="serve",
                     )
-        if self.drift is not None and good:
+        if self.drift is not None and served:
+            x, r_sq, e_sq = (np.concatenate(part) for part in zip(*served))
             self.drift.observe(float(r_sq.sum()), float(e_sq.sum()), rows=x)
         return results

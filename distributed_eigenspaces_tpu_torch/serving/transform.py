@@ -30,18 +30,21 @@ On a mesh of ranks (``parallel/mesh.py``) each rank runs its own engine,
 SPMD:
 
 - ``mesh=`` alone: each rank projects the rows it is given (its share of
-  the traffic) against the whole basis, the padded rows rounded up to a
-  multiple of the ``workers`` axis as in the reference. Zero collectives.
+  the traffic) against the whole basis, as the one-device engine does on
+  the mesh's device. Zero collectives.
 - ``basis_spec=("features", None)``: the basis stays row-sharded over
   ``features``. Each rank keeps its ``d / f`` columns of every query and
   its rows of the basis, ``project`` runs the serve kernel on that shard
   (an int8 basis quantized and scaled per shard, so the dequantization
-  comes before the reduce) and sums the fp32 ``(rows, k)`` partials with
-  ONE psum over ``features``; ``reconstruct`` is row-local onto the shards
-  (this rank's columns, no collective); ``residual_energy`` sums the input
-  energy over ``features``. Every rank of a features group must make the
-  same calls in the same order (``QueryServer`` agrees on each batch
-  first). The dense ``(d, k)`` basis never lands on one rank.
+  comes before the reduce) and sums the fp32 partials with ONE psum over
+  ``features``; ``reconstruct`` is row-local onto the shards (this rank's
+  columns, no collective); ``residual_energy`` sums the input energy over
+  ``features``. Every sharded reduction is one call of
+  ``TransformEngine._shard_sums``: the partial projection and the partial
+  input energy in one ``(rows, k + 1)`` fp32 psum. Every rank of a
+  features group must make the same calls in the same order
+  (``QueryServer`` agrees on each batch first). The dense ``(d, k)`` basis
+  never lands on one rank.
 
 Not ported yet: the persistent compile cache (ROADMAP.md Queue 1 item 16).
 """
@@ -63,21 +66,17 @@ from distributed_eigenspaces_tpu_torch.ops.serve_project import (
     serve_project_i8_auto,
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
-from distributed_eigenspaces_tpu_torch.parallel.mesh import FEATURE_AXIS, WORKER_AXIS
+from distributed_eigenspaces_tpu_torch.parallel.mesh import FEATURE_AXIS
 
 __all__ = ["TransformEngine", "bucket_rows"]
 
 
-def bucket_rows(n: int, *, min_bucket: int = 8, multiple_of: int = 1) -> int:
+def bucket_rows(n: int, *, min_bucket: int = 8) -> int:
     """Padded row count for an ``n``-row batch: next power of two,
-    floored at ``min_bucket``, rounded up to ``multiple_of`` (the mesh
-    path's workers axis)."""
+    floored at ``min_bucket``."""
     if n < 1:
         raise ValueError(f"need n >= 1, got {n}")
-    b = max(min_bucket, 1 << (n - 1).bit_length())
-    if b % multiple_of:
-        b = ((b + multiple_of - 1) // multiple_of) * multiple_of
-    return b
+    return max(min_bucket, 1 << (n - 1).bit_length())
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -147,9 +146,6 @@ class TransformEngine:
         self.dtype = torch_dtype(dtype)
         self.device = resolve_device(device) if mesh is None else mesh.device
         self.min_bucket = min_bucket
-        self._row_multiple = (
-            1 if mesh is None else int(mesh.shape.get(WORKER_AXIS, 1))
-        )
         #: this rank's feature columns (the whole of d unless sharded)
         self._cols = (
             pmesh.feature_rows(mesh, self.d) if self.basis_spec is not None
@@ -316,8 +312,7 @@ class TransformEngine:
             )
         x = x.to(device=self.device, dtype=self.dtype)
         rows = int(x.shape[0])
-        padded = bucket_rows(rows, min_bucket=self.min_bucket,
-                             multiple_of=self._row_multiple)
+        padded = bucket_rows(rows, min_bucket=self.min_bucket)
         if padded != rows:
             buf = torch.zeros((padded, width), dtype=self.dtype, device=self.device)
             buf[:rows] = x
@@ -357,34 +352,40 @@ class TransformEngine:
             return v.to(device=self.device, dtype=torch.float32).contiguous()
         return self.place_basis(v)
 
+    def _shard_sums(self, x, v=None):
+        """Sharded mode's one reduction: this rank's partial projection of
+        ``x`` against its basis rows ``v`` (the serve kernel; none when
+        ``v`` is None) and its partial input energy, summed over
+        ``features`` in ONE fp32 psum. Returns ``(z or None, input_sq)``
+        for the real rows."""
+        x_pad, rows = self._pad(x, self.d)
+        parts = [torch.sum(x_pad.float() ** 2, dim=-1, keepdim=True)]
+        if v is not None:
+            v = self._check_basis(v)
+            z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
+            parts.insert(0, z.float())
+        both = self._psum(torch.cat(parts, dim=1))[:rows]
+        return (None if v is None else both[:, :self.k]), both[:, -1]
+
     def project(self, x, v) -> torch.Tensor:
         """``(n, d) -> (n, k)`` against basis ``v``: pad, dispatch the
         bucket's operation, slice. Sharded: this rank's shard through the
-        serve kernel, then the one ``(rows, k)`` fp32 psum over
-        ``features``."""
+        serve kernel, then the one psum of :meth:`_shard_sums`."""
+        if self.sharded:
+            return self._shard_sums(x, v)[0]
         v = self._check_basis(v)
         x_pad, rows = self._pad(x, self.d)
-        z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
-        if self.sharded:
-            z = self._psum(z)
-        return z[:rows]
+        return self._compiled("project", int(x_pad.shape[0]))(x_pad, v)[:rows]
 
     def project_energy(self, x, v):
         """``(z, residual_sq, input_sq)`` of a query batch in one pass: the
-        server's dispatch. Sharded, the partial projection and the partial
-        input energy ride ONE ``(rows, k + 1)`` psum over ``features``."""
+        server's dispatch. Sharded, one reduction (:meth:`_shard_sums`)."""
         if not self.sharded:
             z = self.project(x, v)
             r, e = self.residual_energy(x, z)
             return z, r, e
-        v = self._check_basis(v)
-        x_pad, rows = self._pad(x, self.d)
-        z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
-        e_part = torch.sum(x_pad.float() ** 2, dim=-1, keepdim=True)
-        both = self._psum(torch.cat([z.float(), e_part], dim=1))
-        z, e_in = both[:rows, :self.k], both[:rows, self.k]
-        e_out = torch.sum(z ** 2, dim=-1)
-        return z, torch.clamp_min(e_in - e_out, 0.0), e_in
+        z, e_in = self._shard_sums(x, v)
+        return z, torch.clamp_min(e_in - torch.sum(z ** 2, dim=-1), 0.0), e_in
 
     def reconstruct(self, z, v) -> torch.Tensor:
         """``(n, k) -> (n, d)`` back-projection against basis ``v``;
@@ -399,11 +400,12 @@ class TransformEngine:
         """Per-row ``(residual_sq, input_sq)`` energies from a query batch
         and its projection. Zero-padded rows contribute zero to both.
         Sharded: the input energy summed over ``features``."""
+        if self.sharded:
+            _, e_in = self._shard_sums(x)
+            z_pad, rows = self._pad(z, self.k)
+            e_out = torch.sum(z_pad[:rows].float() ** 2, dim=-1)
+            return torch.clamp_min(e_in - e_out, 0.0), e_in
         x_pad, rows = self._pad(x, self.d)
         z_pad, _ = self._pad(z, self.k)
-        if self.sharded:
-            e_in = self._psum(torch.sum(x_pad.float() ** 2, dim=-1))
-            e_out = torch.sum(z_pad.float() ** 2, dim=-1)
-            return torch.clamp_min(e_in - e_out, 0.0)[:rows], e_in[:rows]
         r, e = self._compiled("residual", int(x_pad.shape[0]))(x_pad, z_pad)
         return r[:rows], e[:rows]

@@ -325,8 +325,6 @@ def test_auto_feature_mesh_and_refusals():
         pmesh.auto_feature_mesh(PCAConfig(**BASE, mesh_shape={"features": 2}), "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         PCAConfig(**BASE, collectives="ring")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tfs.make_feature_sharded_step(cfg, device="cpu", collectives="ring")
     with pytest.raises(ValueError, match="rank=2 must be >= k"):
         tfs.make_feature_sharded_step(cfg, device="cpu", rank=2)
     with pytest.raises(ValueError, match="unknown collectives"):

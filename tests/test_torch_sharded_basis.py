@@ -9,7 +9,8 @@ shard and installs a good sharded version with its spec and shard sizes,
 sharded grown lineage survives recovery, and on two gloo ranks (one
 ``parallel.mesh.launch``, ``tests/torch_fs_ranks.py``) the row-sharded
 engine equals the dense one with ``project`` as its only reduction and
-the query server serves a sharded version at fp32, bf16 and int8. An
+the query server serves a sharded version at fp32, bf16 and int8; during
+a hot swap every rank serves one agreed version and sheds alike. An
 indivisible ``d`` is refused loudly. Tolerances: bytes and shard sizes
 exact; served rows as the reference's tests hold them (fp32 within 1e-5,
 the quantized routes within 0.2 degrees a row).
@@ -172,15 +173,11 @@ def test_indivisible_d_rejected_loudly(tmp_path):
     assert out == ["d=33 does not divide over 2 feature shards"] * 2
 
 
-def test_sharded_engine_and_server_on_two_ranks(tmp_path):
-    """Two gloo ranks, a ``(1, 2)`` features mesh: rank 0 publishes the
-    basis in two shards and a replica on each rank installs it; the
-    row-sharded engine's ``project`` equals the dense engine's (its one
-    reduction), ``reconstruct`` is each rank's columns of the dense
-    reconstruction (none), ``residual_energy`` sums the input energy (one);
-    ``TransformEngine(mesh=)`` alone on a ``(2, 1)`` mesh projects each
-    rank's rows with none; a burst of 1-, 8- and 64-row queries served through ``QueryServer(mesh=)``
-    at fp32 / bf16 / int8 on every rank, one reduction a batch."""
+@pytest.fixture(scope="module")
+def two_rank_serving(tmp_path_factory):
+    """One ``parallel.mesh.launch`` of ``torch_fs_ranks.sharded_serving``
+    on two gloo ranks (the hot-swap phases included), with its inputs."""
+    tmp_path = tmp_path_factory.mktemp("serving")
     rng = np.random.default_rng(5)
     d, k = 64, 4
     v = np.linalg.qr(rng.standard_normal((d, k)))[0].astype(np.float32)
@@ -194,6 +191,20 @@ def test_sharded_engine_and_server_on_two_ranks(tmp_path):
     dtypes = ("float32", "bfloat16", "int8")
     out = pmesh.launch(ranks.sharded_serving, 2, v, queries, str(tmp_path / "reg"),
                        dtypes, workdir=str(tmp_path), timeout=TIMEOUT)
+    return out, v, queries, dtypes
+
+
+def test_sharded_engine_and_server_on_two_ranks(two_rank_serving):
+    """Two gloo ranks, a ``(1, 2)`` features mesh: rank 0 publishes the
+    basis in two shards and a replica on each rank installs it; the
+    row-sharded engine's ``project`` equals the dense engine's (its one
+    reduction), ``reconstruct`` is each rank's columns of the dense
+    reconstruction (none), ``residual_energy`` sums the input energy (one);
+    ``TransformEngine(mesh=)`` alone on a ``(2, 1)`` mesh projects each
+    rank's rows with none; a burst of 1-, 8- and 64-row queries served through ``QueryServer(mesh=)``
+    at fp32 / bf16 / int8 on every rank, one reduction a batch."""
+    out, v, queries, dtypes = two_rank_serving
+    d, k = v.shape
     dense = TransformEngine(d, k, device="cpu")
     x = queries[-1]
     z_dense = dense.project(x, v).numpy()
@@ -210,7 +221,7 @@ def test_sharded_engine_and_server_on_two_ranks(tmp_path):
         np.testing.assert_allclose(e["e"], np.sum(x.astype(np.float64) ** 2, axis=1),
                                    rtol=1e-5)
         assert np.all(e["r"] >= 0)
-        # mesh= alone: zero reductions, the bucket a multiple of the workers axis
+        # mesh= alone: zero reductions, the one-device bucket
         rows = o["rows_engine"]
         assert rows["psums"] == 0 and rows["buckets"] == [8]
         np.testing.assert_array_equal(rows["z"], dense.project(x[:3], v).numpy())
@@ -229,3 +240,29 @@ def test_sharded_engine_and_server_on_two_ranks(tmp_path):
                     cos = np.sum(z * want, 1) / (np.linalg.norm(z, axis=1)
                                                  * np.linalg.norm(want, axis=1))
                     assert np.degrees(np.arccos(np.clip(cos, -1, 1))).max() <= 0.2
+
+
+def test_sharded_server_agrees_on_one_version_and_one_shed(two_rank_serving):
+    """Each rank serves through its own replica of one store while rank 0
+    publishes. Every served row equals the direct fp32 projection at the
+    version it is labelled with, on both ranks alike: while rank 0's replica
+    is ahead, both serve the older version rank 1 still reads; once rank 0
+    no longer holds that version, both fail the requests loudly instead of
+    adding the shards of two versions; and a request that rank 0 sheds for
+    its deadline is shed on rank 1 too."""
+    out = [o["swap"] for o in two_rank_serving[0]]
+    vs, queries = out[0]["vs"], out[0]["queries"]
+    want = {"both_v1": 1, "rank0_ahead": 1, "both_v2": 2}
+    for o in out:
+        for name, version in want.items():
+            for (ver, z), q in zip(o[name], queries):
+                assert ver == version, (name, ver, z)
+                np.testing.assert_allclose(z, q @ vs[ver - 1], atol=1e-5, rtol=0)
+        for cls, msg in o["rank0_retired_v2"]:
+            assert cls == "RuntimeError" and "no longer held on every rank" in msg
+        assert [cls for cls, _ in o["shed_on_rank0"]] == ["DeadlineExceeded"] * len(queries)
+        assert o["sheds"] == len(queries)
+        assert o["swap_count"] == 1
+    for name in want:
+        for (_, z0), (_, z1) in zip(out[0][name], out[1][name]):
+            np.testing.assert_array_equal(z0, z1)

@@ -151,6 +151,76 @@ def sharded_serving(rank, world, v, queries, regdir, dtypes):
             zs = [t.result(timeout=120).z for t in tickets]
         out[dt] = (zs, eng.psums - p0)
     replica.close()
+    out["swap"] = sharded_swap(rank, world, mesh, regdir + "-swap")
+    return out
+
+
+def _served(tickets):
+    """Each ticket's ``(version, z)``, or ``(error class, message)``."""
+    got = []
+    for t in tickets:
+        try:
+            p = t.result(timeout=120)
+            got.append((p.version, p.z))
+        except Exception as e:  # noqa: BLE001 - the test reads the class
+            got.append((type(e).__name__, str(e)))
+    return got
+
+
+def sharded_swap(rank, world, mesh, regdir):
+    """A hot swap during sharded serving, each rank on its own replica of
+    one store (rank 0 keeps 2 versions, the others 4). Bases ``v1..v4`` are
+    seeded ``(64, 4)``; the same queries are served in phases: both ranks
+    at ``v1``; rank 0's replica at ``v2``, the others' still at ``v1``;
+    every rank at ``v2``; rank 0 at ``v4`` (no longer holding ``v2``), the
+    others at ``v2``; and, every rank at ``v4``, a server whose deadline
+    sheds every request on rank 0 only. Returns the bases, the queries, each
+    phase's :func:`_served` and the server's counters."""
+    from distributed_eigenspaces_tpu_torch.serving.registry import EigenbasisRegistry
+    from distributed_eigenspaces_tpu_torch.serving.replication import ReplicaRegistry
+    from distributed_eigenspaces_tpu_torch.serving.server import QueryServer
+    from distributed_eigenspaces_tpu_torch.serving.transform import TransformEngine
+
+    rng = np.random.default_rng(9)
+    d, k = 64, 4
+    vs = [np.linalg.qr(rng.standard_normal((d, k)))[0].astype(np.float32)
+          for _ in range(4)]
+    queries = [rng.standard_normal((rows, d)).astype(np.float32)
+               for rows in (1, 8, 3, 16, 5, 2)]
+    store = EigenbasisRegistry(registry_dir=regdir) if pmesh.is_writer() else None
+
+    def publish(*which):
+        if store is not None:
+            for i in which:
+                store.publish(np.split(vs[i], world), step=i + 1)
+        pmesh.barrier()
+
+    publish(0)
+    replica = ReplicaRegistry(regdir, name=f"swap{rank}", keep=2 if rank == 0 else 4,
+                              start=False)
+    eng = TransformEngine(d, k, mesh=mesh, basis_spec=("features", None), device=CPU)
+    out = {"vs": vs, "queries": queries}
+    with QueryServer(replica, d=d, k=k, mesh=mesh, engine=eng, device=CPU) as srv:
+        def phase(name, poll_on):
+            if rank in poll_on:
+                replica._poll_once()
+            pmesh.barrier()
+            out[name] = _served([srv.submit(q) for q in queries])
+
+        phase("both_v1", ())
+        publish(1)
+        phase("rank0_ahead", (0,))
+        phase("both_v2", tuple(range(1, world)))
+        publish(2, 3)
+        phase("rank0_retired_v2", (0,))
+        out["swap_count"] = srv.swap_count
+    replica._poll_once()
+    pmesh.barrier()
+    cfg = PCAConfig(dim=d, k=k, serve_queue_depth=64,
+                    serve_slo_p99_ms=1e-3 if rank == 0 else 1e6)
+    with QueryServer(replica, cfg, mesh=mesh, engine=eng, device=CPU) as srv:
+        out["shed_on_rank0"] = _served([srv.submit(q) for q in queries])
+        out["sheds"] = srv.health()["sheds"]["deadline"]
     return out
 
 
