@@ -21,7 +21,8 @@ exits non-zero without printing a result:
    TMA cannot read, on the ``mma.sync`` kernel (``launches`` moves,
    ``launches_tma`` does not), to the same tolerance: (3, 1000, 3001) and
    the ragged shape on a base 2 bytes off a 16-byte boundary; and bf16 at a
-   mesh rank's share of mnist784's block, (4, 1024, 784), on the TMA kernel. Then fp32 on
+   mesh rank's share of mnist784's block, (4, 1024, 784), and a tiered
+   rank's leaf worker, (1, 1024, 3072), on the TMA kernel. Then fp32 on
    every tile edge and copy width of its shape rule (``F32_CASES``: d = 3001,
    n = 1, a base 4 bytes off a 16-byte boundary), each launch recorded as
    ``gram_launch`` says.
@@ -126,6 +127,33 @@ exits non-zero without printing a result:
    the parent makes over the whole block without a collective; the
    deflation lanes on a (2, 1) components mesh over bench.py --deflate's
    operand (2 lanes of 4), each lane within 0.1 degrees of the dense eigh.
+5m. slice_tree_eval: the cifar10 eval field for field with
+   ``merge_topology=(("chip", 4), ("host", 2))`` through the estimator in
+   one process (the stacked tree at every merge): within 1 degree of the
+   planted top-10 and 0.5 degrees of the flat fit on the same data and
+   starts, the one-tier ``(("all", 8),)`` fit bit-equal to the flat fit, one
+   s8 call; the fit's wall seconds.
+5n. slice_tree_ranks4: four gloo ranks sharing the card (one
+   ``parallel.mesh.launch``), rank r leaf worker r of a (host 2, chip 2)
+   tiered mesh. (a) ``make_tree_scan_fit`` on the cifar10 shape under 5b's
+   bf16 settings with m=4 (bf16-rounded ``planted_spectrum`` rows): the fp32
+   arm within 0.2 degrees of the stacked route the parent runs on the same
+   blocks and starts, the bf16 and int8 wire arms within 0.2 degrees of it
+   and at most 0.2 degrees further from the truth, finite (T, 2) residual
+   norms, every rank's bases bit-equal, one bf16 TMA Gram launch a rank a
+   fit; from the collective recorder, per tier and arm: movers in the
+   tier's wire dtype, every sum fp32, no payload above max(d k, (f k)^2)
+   elements, the bytes leaving a rank a round equal to ``tier_wire_records``'
+   2 (f - 1) / f d k itemsize (scale sidecars reported, compression ratios
+   printed). (c) each rank's worker read back from the parent's bf16 row
+   file with ``bin_block_stream(worker_range=host_worker_range(...))``:
+   the fit bit-equal to the fit from memory. (b) imagenet12288 on a (1, 4)
+   features mesh (3,072 columns a rank) through the estimator, the sketch
+   and the rank-r scan with ``collectives="ring"`` and ``"xla"``: ring
+   within atol 5e-4 and 0.01 degrees of xla, its replicated values
+   bit-equal across ranks, ppermute hops and bytes printed. Cuts: m=4 (one
+   worker a rank), gloo through host memory instead of NVLink, four ranks
+   standing in for cards.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -395,6 +423,24 @@ FS_SERVE_DTYPES = ("bfloat16", "int8", "float32")
 # = 6144 (two feature shards) or 12288 (one), at the engine's buckets
 FS_SHARD_SHAPES = tuple((rows, dl, 50) for dl in (6144, 12288)
                         for rows in (8, 64, 512, 4096))
+# the hierarchical merge: the cifar10 eval on the stacked tree in one process
+TREE_EVAL_TOPOLOGY = (("chip", 4), ("host", 2))
+TREE_FLAT_DEG = 0.5  # the tree against the flat fit (tests/test_topology.py:156-170)
+# ... and the tier-local tree on four gloo ranks sharing the card, one leaf
+# worker a rank: the cifar10 shape under slice_fit's bf16 settings, m=4
+TREE_RANKS = 4
+TREE_TIERS = (("chip", 2), ("host", 2))
+TREE_FIT = dict(dim=3072, k=10, num_workers=4, rows_per_worker=1024, num_steps=20,
+                solver="subspace", subspace_iters=12, warm_start_iters=2,
+                compute_dtype="bfloat16", merge_topology=TREE_TIERS)
+TREE_RANK_BLOCK = (1, 1024, 3072)  # a rank's one leaf worker: its bf16 Gram
+TREE_ARMS = (("fp32", None), ("bf16", {"chip": "bf16", "host": "bf16"}),
+             ("int8", {"host": "int8"}))
+TREE_ARM_DEG = 0.2  # tests/test_topology.py:220-231, tests/test_wire.py:305-331
+# the ring: imagenet12288 on a (1, 4) features mesh, 3,072 columns a rank
+RING_MESH = {"workers": 1, "features": 4}
+RING_ATOL = 5e-4  # tests/test_ring.py:101-137
+RING_DEG = 0.01
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -1872,6 +1918,317 @@ def slice_fs_ranks2(dev, card: str, one: dict, work_dir: str) -> dict:
     return {dt: sum(o[dt]["launches"] for o in out) for dt in FS_SERVE_DTYPES}
 
 
+def slice_tree_eval(dev, card: str, spec, data) -> int:
+    """The cifar10 eval field for field through the estimator with
+    ``merge_topology=(("chip", 4), ("host", 2))``, in one process: the
+    stacked tree (``algo.step.merge_core``) at every merge. Within 1 degree
+    of the planted top-10 and 0.5 degrees of the flat fit on the same data
+    and starts; the one-tier ``(("all", 8),)`` fit bit-equal to the flat
+    fit; one s8 call. Returns the tree fit's s8 calls."""
+    import dataclasses
+
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    flat_cfg = dett.PCAConfig(**EVAL_FIT)
+    flat = dett.OnlineDistributedPCA(flat_cfg).fit(data)
+    tree = dett.OnlineDistributedPCA(dataclasses.replace(
+        flat_cfg, merge_topology=TREE_EVAL_TOPOLOGY))
+    zero_counts()
+    _, fit_s = synced_s(lambda: tree.fit(data))
+    counts = read_counts()
+    one = dett.OnlineDistributedPCA(dataclasses.replace(
+        flat_cfg, merge_topology=(("all", flat_cfg.num_workers),))).fit(data)
+    angle = components_angle(tree, spec)
+    to_flat = float(principal_angles_degrees(tree.components_.cpu(),
+                                             flat.components_.cpu()).max())
+    one_equal = bool(torch.equal(one.state.sigma_tilde, flat.state.sigma_tilde)
+                     and torch.equal(one.components_, flat.components_))
+    emit("slice_tree_eval",
+         config=f"cifar10 eval (evals.py:86-90) field for field, merge_topology="
+                f"{TREE_EVAL_TOPOLOGY} (the stacked tree, one process)",
+         trainer=tree.trainer_used_, max_angle_deg=angle, angle_to_flat_deg=to_flat,
+         flat_angle_deg=components_angle(flat, spec), one_tier_bit_equal_flat=one_equal,
+         counts=counts, fit_s=fit_s, card=card)
+    check(angle <= 1.0, f"tree_eval: {angle} deg from the planted top-10")
+    check(to_flat <= TREE_FLAT_DEG, f"tree_eval: {to_flat} deg from the flat fit")
+    check(one_equal, "tree_eval: the one-tier fit is not the flat fit bit for bit")
+    check(counts["s8"] == 1 and counts["gram"] == 0,
+          f"tree_eval: Gram launches {counts}, want one s8 call")
+    return counts["s8"]
+
+
+def tree_data(dev):
+    """slice_tree_ranks4's planted data (slice_fit's ``planted_spectrum(3072,
+    k_planted=10, seed=0)``) rounded to bf16, the values its row file holds:
+    ``(spec, x (T, m, n, d) fp32)``, the same bits in every process on the
+    same card."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+
+    d, k, m, n, T = (TREE_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
+                                           "num_steps"))
+    spec = dett.planted_spectrum(d, k_planted=k, seed=0)
+    x = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n)
+    return spec, x.to(torch.bfloat16).float().reshape(T, m, n, d)
+
+
+def _tier_traffic(log, topo, T: int) -> dict:
+    """Per tier, from the recorder's log of one fit: the data movers'
+    dtypes, every sum's dtype, the largest payload in elements, the bytes
+    that leave a rank in one round (an all-to-all sends all but its own
+    slot, an all-gather its shard to f - 1 peers) and the int8 scale
+    sidecars' bytes beside them."""
+    from distributed_eigenspaces_tpu_torch.parallel.wire import SCALE_TAG
+
+    out = {}
+    for name, f in topo.tiers:
+        mine = [r for r in log if r["axis"] == name]
+        movers = [r for r in mine if r["op"] in ("all_to_all", "all_gather")
+                  and r["tag"] is None]
+
+        def sent(r):
+            return r["bytes"] * (f - 1) / f if r["op"] == "all_to_all" else r["bytes"] * (f - 1)
+
+        out[name] = dict(
+            mover_dtypes=sorted({r["dtype"] for r in movers}),
+            mover_ops=len(movers),
+            psum_dtypes=sorted({r["dtype"] for r in mine if r["op"] == "psum"}),
+            max_elements=max(r["elements"] for r in mine if r["tag"] is None),
+            bytes_per_round=sum(sent(r) for r in movers) / T,
+            sidecar_bytes_per_round=sum(sent(r) for r in mine if r["tag"] == SCALE_TAG) / T)
+    return out
+
+
+def tree_rank_phase(rank: int, world: int, path: str) -> dict:
+    """One rank of ``slice_tree_ranks4`` (four ranks on ``cuda:0`` over gloo,
+    rank ``r`` leaf worker ``r`` of a ``(host, chip)`` tiered mesh).
+
+    (a) The tier-local fit (``make_tree_scan_fit``) of the cifar10 shape
+    under slice_fit's bf16 settings, fp32 and the two wire arms with their
+    residual norms, each under the collective recorder and the launch
+    counters. (c) The fp32 arm again on this rank's worker read from the
+    shared bf16 row file with ``bin_block_stream(worker_range=
+    host_worker_range(...))``. (b) imagenet12288 on a ``(1, 4)`` features
+    mesh through the estimator, the sketch and the rank-r scan, each with
+    ``collectives="xla"`` and ``"ring"``, the ring's permutes counted."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+    from distributed_eigenspaces_tpu_torch.data.bin_stream import bin_block_stream
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+    from distributed_eigenspaces_tpu_torch.parallel import multihost, ring
+    from distributed_eigenspaces_tpu_torch.parallel import topology as tp
+    from distributed_eigenspaces_tpu_torch.parallel.wire import (
+        resolve_wire_policy,
+        tier_wire_records,
+    )
+
+    dev = torch.device(MESH_DEVICE)
+    torch.cuda.set_device(dev)
+    d, k, m, n, T = (TREE_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
+                                           "num_steps"))
+    out = {"backend": torch.distributed.get_backend(), "device": str(dev)}
+    spec, x = tree_data(dev)
+    arms = {}
+    for name, policy in TREE_ARMS:
+        cfg = dett.PCAConfig(**TREE_FIT, merge_wire_dtype=policy)
+        topo = tp.resolve_topology(cfg)
+        mesh = tp.make_tiered_mesh(topo, device=dev)
+        fit = tp.make_tree_scan_fit(cfg, mesh, with_wire_stats=policy is not None)
+        zero_counts()
+        with pmesh.recording_collectives() as log:
+            res, fit_s = synced_s(lambda: fit(OnlineState.initial(d, device=dev), x))
+        wire = resolve_wire_policy(cfg, topo) or ("fp32",) * len(topo.tiers)
+        arms[name] = dict(
+            v_bars=res[1].cpu().numpy(), counts=read_counts(), fit_s=fit_s,
+            norms=None if policy is None else res[2].cpu().numpy(),
+            traffic=_tier_traffic(log, topo, T),
+            records=tier_wire_records(topo, wire, d, k),
+            truth_deg=basis_angle(res[1][-1], spec))
+    out["leaf"] = tp.flat_worker_index(topo, mesh)
+    out["mesh"] = mesh.shape
+    out["arms"] = arms
+    del x
+    # (c) this rank's worker from the shared row file
+    shard = multihost.host_worker_range(m)
+    t0 = time.perf_counter()
+    blocks = torch.stack(list(bin_block_stream(
+        path, dim=d, num_workers=m, rows_per_worker=n, dtype="bfloat16",
+        out_dtype=torch.float32, worker_range=(shard.lo, shard.hi))))
+    read_s = time.perf_counter() - t0
+    cfg = dett.PCAConfig(**TREE_FIT)
+    fit = tp.make_tree_scan_fit(cfg, tp.make_tiered_mesh(tp.resolve_topology(cfg), device=dev))
+    _, from_file = fit(OnlineState.initial(d, device=dev), blocks)
+    out["file"] = dict(shard=(shard.lo, shard.hi), steps=blocks.shape[0],
+                       block=list(blocks.shape[1:]), read_s=read_s,
+                       bit_equal_memory=bool(np.array_equal(from_file.cpu().numpy(),
+                                                            arms["fp32"]["v_bars"])))
+    del blocks
+    # (b) the ring on the features axis
+    torch.cuda.empty_cache()
+    cfg0 = fs_eval_config()
+    fspec = dett.planted_subspace(cfg0.dim, **DSOLVE_DATA)
+    # drawn a step at a time (four ranks share the card: one 4 GB draw
+    # each peaks at three times that), the same rows on every rank
+    step_rows = cfg0.num_workers * cfg0.rows_per_worker
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.empty((cfg0.num_steps * step_rows, cfg0.dim), device=dev)
+    for t in range(cfg0.num_steps):
+        data[t * step_rows:(t + 1) * step_rows] = fspec.sample(gen, step_rows)
+    ring_out = {}
+    for trainer in ("sketch", "scan"):
+        for coll in ("xla", "ring"):
+            est = dett.OnlineDistributedPCA(
+                fs_eval_config(collectives=coll, mesh_shape=RING_MESH), device=dev,
+                trainer=trainer)
+            with pmesh.recording_collectives() as log:
+                _, fit_s = synced_s(lambda: est.fit(data))
+            st, fmesh = est.state, pmesh.auto_feature_mesh(est.cfg, dev)
+            with pmesh.mesh_scope(fmesh):  # a replicated value through the ring
+                rows = st.y if trainer == "sketch" else st.u
+                left = est._sketch_fit.raw.omega if trainer == "sketch" else st.u
+                replicated = ring.ring_psum(torch.matmul(left.mT, rows), pmesh.FEATURE_AXIS)
+            hops = [r for r in log if r["op"] == "ppermute"]
+            ring_out[(trainer, coll)] = dict(
+                w=est.components_.cpu().numpy(), fit_s=fit_s, step=st.step,
+                state=(st.y if trainer == "sketch" else st.s).cpu().numpy(),
+                replicated=replicated.cpu().numpy(), mesh=fmesh.shape,
+                hops=len(hops), hop_bytes=sum(r["bytes"] for r in hops),
+                truth_deg=basis_angle(est.components_, fspec))
+            del est, st
+            torch.cuda.empty_cache()
+    out["ring"] = ring_out
+    return out
+
+
+def slice_tree_ranks4(dev, card: str, work_dir: str) -> dict:
+    """Four ranks sharing the card in one gloo group (one
+    ``parallel.mesh.launch`` of ``tree_rank_phase``). The parent writes the
+    tiered fit's blocks once as bf16 rows and runs the stacked route on the
+    same blocks and starts. Gates: the fp32 arm within 0.2 degrees of the
+    stacked route, each wire arm within 0.2 degrees of the fp32 arm and at
+    most 0.2 degrees further from the truth, finite ``(T, 2)`` norms, every
+    rank's bases bit-equal to rank 0's, one bf16 Gram launch a rank a fit;
+    from the recorder, each tier's movers in its wire dtype, every sum fp32,
+    no payload above ``max(d k, (f k)^2)`` elements (below the flat route's
+    ``m d k`` gather), the bytes leaving a rank a round as
+    ``tier_wire_records`` defines them; the fit from the file bit-equal to
+    the fit from memory; the ring within ``atol=5e-4`` and 0.01 degrees of
+    xla, its replicated values bit-equal across ranks. Returns the bf16
+    Gram launches of the ranks' fits."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+    from distributed_eigenspaces_tpu_torch.data.bin_stream import write_rows
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+    from distributed_eigenspaces_tpu_torch.parallel.wire import WIRE_ITEMSIZE
+
+    d, k, m, n, T = (TREE_FIT[f] for f in ("dim", "k", "num_workers", "rows_per_worker",
+                                           "num_steps"))
+    spec, x = tree_data(dev)
+    path = os.path.join(work_dir, "tree_rows.bf16.bin")
+    _, write_s = synced_s(lambda: write_rows(path, x.reshape(-1, d).to(torch.bfloat16)))
+    stacked = dett.make_scan_fit(dett.PCAConfig(**TREE_FIT), device=dev)(
+        OnlineState.initial(d, device=dev), x)[1][-1].cpu()
+    del x
+    (out, ranks_s) = synced_s(lambda: pmesh.launch(
+        tree_rank_phase, TREE_RANKS, path, backend="gloo", timeout=MESH_TIMEOUT_S,
+        workdir=work_dir))
+    r0 = out[0]
+
+    def deg(a, b):
+        return float(principal_angles_degrees(torch.as_tensor(a), torch.as_tensor(b)).max())
+
+    arms = {}
+    for name, policy in TREE_ARMS:
+        a = r0["arms"][name]
+        arms[name] = dict(
+            fit_s=[o["arms"][name]["fit_s"] for o in out], counts=a["counts"],
+            truth_deg=a["truth_deg"],
+            to_stacked_deg=deg(a["v_bars"][-1], stacked),
+            to_fp32_deg=deg(a["v_bars"][-1], r0["arms"]["fp32"]["v_bars"][-1]),
+            norms_last=None if a["norms"] is None else a["norms"][-1].tolist(),
+            ranks_bit_equal=all(np.array_equal(o["arms"][name]["v_bars"], a["v_bars"])
+                                for o in out),
+            traffic=a["traffic"], compression={})
+        for rec in a["records"]:  # the recorder's bytes beside tier_wire_records'
+            t = a["traffic"][rec["tier"]]
+            fp32_bytes = t["bytes_per_round"] * 4 / WIRE_ITEMSIZE[rec["wire_dtype"]]
+            arms[name]["compression"][rec["tier"]] = dict(
+                rec, measured_ratio=fp32_bytes / (t["bytes_per_round"]
+                                                  + t["sidecar_bytes_per_round"]))
+    ring = {}
+    for trainer in ("sketch", "scan"):
+        xl, rg = r0["ring"][(trainer, "xla")], r0["ring"][(trainer, "ring")]
+        ring[trainer] = dict(
+            xla_fit_s=xl["fit_s"], ring_fit_s=rg["fit_s"], step=rg["step"],
+            ring_to_xla_deg=deg(rg["w"], xl["w"]),
+            state_max_abs=float(np.abs(rg["state"] - xl["state"]).max()),
+            truth_deg=rg["truth_deg"], xla_truth_deg=xl["truth_deg"], mesh=rg["mesh"],
+            ppermute_hops=rg["hops"], ppermute_bytes=rg["hop_bytes"],
+            xla_hops=xl["hops"],
+            replicated_bit_equal=all(np.array_equal(o["ring"][(trainer, "ring")]["replicated"],
+                                                    rg["replicated"]) for o in out))
+    emit("slice_tree_ranks4", ranks=TREE_RANKS, backend=r0["backend"], device=r0["device"],
+         mesh=r0["mesh"], config="cifar10 shape under slice_fit's bf16 settings (d=3072 k=10 "
+         "n=1024 T=20, subspace 12 / warm 2, cholqr2, no stage), m=4 on merge_topology="
+         f"{TREE_TIERS}", cuts="m=4 (one leaf worker a rank, 4 ranks share one card); "
+         "tiers named chip and host, every collective through host memory over gloo, "
+         "not NVLink; 4 ranks stand in for a features axis of cards",
+         launch_s=ranks_s, file_write_s=write_s, arms=arms,
+         file=[o["file"] for o in out], ring=ring, card=card)
+    check(all(o["backend"] == "gloo" for o in out), "tree_ranks4: not a gloo group")
+    check([o["leaf"] for o in out] == list(range(TREE_RANKS)),
+          f"tree_ranks4: leaves {[o['leaf'] for o in out]}")
+    check(arms["fp32"]["to_stacked_deg"] <= TREE_ARM_DEG,
+          f"tree_ranks4: fp32 arm {arms['fp32']['to_stacked_deg']} deg from the stacked route")
+    for name, policy in TREE_ARMS:
+        a = arms[name]
+        check(a["ranks_bit_equal"], f"tree_ranks4 {name}: a rank's bases differ from rank 0's")
+        for o in out:
+            c = o["arms"][name]["counts"]
+            check(c["gram"] == 1 and c["tma"] == 1 and c["s8"] == 0,
+                  f"tree_ranks4 {name}: Gram launches {c}, want one bf16 TMA launch")
+        if policy is not None:
+            check(a["to_fp32_deg"] <= TREE_ARM_DEG,
+                  f"tree_ranks4 {name}: {a['to_fp32_deg']} deg from the fp32 arm")
+            check(a["truth_deg"] <= arms["fp32"]["truth_deg"] + TREE_ARM_DEG,
+                  f"tree_ranks4 {name}: {a['truth_deg']} deg from the truth")
+            norms = r0["arms"][name]["norms"]
+            check(norms.shape == (T, len(TREE_TIERS)) and bool(np.isfinite(norms).all()),
+                  f"tree_ranks4 {name}: residual norms {norms.shape}")
+        for tier, f in TREE_TIERS:
+            t = a["traffic"][tier]
+            want = {"fp32": "float32", "bf16": "bfloat16", "int8": "int8"}[
+                (policy or {}).get(tier, "fp32")]
+            check(t["mover_dtypes"] == [want], f"tree_ranks4 {name} {tier}: movers carry "
+                                               f"{t['mover_dtypes']}, want {want}")
+            check(t["psum_dtypes"] == ["float32"], f"tree_ranks4 {name} {tier}: sums carry "
+                                                   f"{t['psum_dtypes']}")
+            check(t["max_elements"] <= max(d * k, (f * k) ** 2) < m * d * k,
+                  f"tree_ranks4 {name} {tier}: a payload of {t['max_elements']} elements")
+            item = WIRE_ITEMSIZE[(policy or {}).get(tier, "fp32")]
+            check(t["bytes_per_round"] == 2 * (f - 1) / f * d * k * item,
+                  f"tree_ranks4 {name} {tier}: {t['bytes_per_round']} bytes a round")
+    for o in out:
+        check(o["file"]["bit_equal_memory"] and o["file"]["steps"] == T,
+              f"tree_ranks4: the fit from the file differs on rank {o['file']['shard']}")
+    for trainer, r in ring.items():
+        check(r["ring_to_xla_deg"] <= RING_DEG and r["state_max_abs"] <= RING_ATOL,
+              f"ring {trainer}: {r['ring_to_xla_deg']} deg, {r['state_max_abs']} from xla")
+        check(r["replicated_bit_equal"], f"ring {trainer}: replicated values differ by rank")
+        check(r["ppermute_hops"] > 0 and r["xla_hops"] == 0,
+              f"ring {trainer}: {r['ppermute_hops']} ring hops, xla {r['xla_hops']}")
+        check(r["truth_deg"] <= 1.0, f"ring {trainer}: {r['truth_deg']} deg from the truth")
+    return {"bf16": sum(o["arms"][name]["counts"]["tma"] for o in out
+                        for name, _ in TREE_ARMS)}
+
+
 def mutant_bound(shape) -> tuple[float, str]:
     """Least time for ``x @ v`` of ``shape``: x and v read once, o written
     once, in fp32, against 2*rows*d*k fp32 FLOP."""
@@ -2728,8 +3085,9 @@ def main() -> int:
     # bf16 that TMA cannot read takes the mma.sync kernel: d % 8 != 0, and
     # a base 2 bytes off a 16-byte boundary
     cases += [(GRAM_UNALIGNED_D, "bfloat16", 0), (RAGGED, "bfloat16", 1)]
-    # a mesh rank's share of mnist784's block, the mesh path's bf16 Gram
-    cases += [(MESH_RANK_BLOCK, "bfloat16", 0)]
+    # a mesh rank's share of mnist784's block, the mesh path's bf16 Gram,
+    # and a tiered-mesh rank's one leaf worker of the cifar10 shape
+    cases += [(MESH_RANK_BLOCK, "bfloat16", 0), (TREE_RANK_BLOCK, "bfloat16", 0)]
     cases += [(shape, "float32", offset) for shape, offset in F32_CASES]
     f32_kernels = set()
     for shape, dtype, offset in cases:
@@ -2772,7 +3130,7 @@ def main() -> int:
     # 4. timing
     timing = {}
     for shape, dtype in ((CIFAR, "bfloat16"), (CIFAR, "float32"), (ENTRY, "float32"),
-                         (MESH_RANK_BLOCK, "bfloat16")):
+                         (MESH_RANK_BLOCK, "bfloat16"), (TREE_RANK_BLOCK, "bfloat16")):
         x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
         ms = time_ms(lambda: gram_mod.gram_cuda(x))
         kernel_device_ms = device_ms(lambda: gram_mod.gram_cuda(x))
@@ -2892,6 +3250,9 @@ def main() -> int:
                                                                  eval_spec, eval_rows),
                       "eval masked": slice_fit_masked(dev, card, eval_spec, eval_rows)}
         slice_fit_interval(dev, card, eval_spec, eval_rows)
+        # 5m. the hierarchical merge: the stacked tree in one process
+        s8_by_path["tree eval (stacked tree)"] = slice_tree_eval(dev, card, eval_spec,
+                                                                 eval_rows)
         # 5i.-5j. elastic k through a replica, and the drift loop
         grow = slice_grow(dev, card, work_dir, eval_spec, eval_rows)
         s8_by_path["grow fit"] = grow["s8"]
@@ -2905,8 +3266,12 @@ def main() -> int:
         s8_by_path.update(mesh_eval["s8"])
         ranks2 = slice_mesh_ranks2(dev, card, mesh_eval, work_dir)
         s8_by_path["mesh ranks2 (2 ranks, gloo)"] = ranks2["s8"]
+        # 5n. the tier-local tree, the wire codecs, the ring and the
+        # multi-host read on four ranks sharing the card
+        tree4 = slice_tree_ranks4(dev, card, work_dir)
         bf16_by_path = {"slice_fit (cifar10 shape)": fit_launches, **mesh_eval["bf16"],
-                        "mesh ranks2 bf16 (2 ranks, gloo)": ranks2["bf16"]}
+                        "mesh ranks2 bf16 (2 ranks, gloo)": ranks2["bf16"],
+                        "tree ranks4 (4 ranks, gloo, 3 arms)": tree4["bf16"]}
         del mesh_eval
 
     # 6.-8. the read path
@@ -2976,7 +3341,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         dict(row("gram_bf16", CIFAR, "bfloat16", sum(bf16_by_path.values()),
-                 also=(MESH_RANK_BLOCK,)), launches_by_path=bf16_by_path),
+                 also=(MESH_RANK_BLOCK, TREE_RANK_BLOCK)), launches_by_path=bf16_by_path),
         row("gram_fp32", ENTRY, "float32", entry_launches, also=(CIFAR,)),
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "

@@ -203,7 +203,8 @@ def _fit_feature_sharded(stream, cfg: PCAConfig, *, device, state, on_step,
     from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as fs
 
     mesh = pmesh.auto_feature_mesh(cfg, device)
-    fstep = fs.make_feature_sharded_step(cfg, mesh, device=device)
+    fstep = fs.make_feature_sharded_step(cfg, mesh, device=device,
+                                         collectives=cfg.collectives)
     mesh = fstep.mesh
     if state is None:
         state = fstep.init_state()

@@ -281,9 +281,28 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
     (on the mesh's device): each step's block is given whole or as this
     rank's workers, ``masks`` whole, and the returned state and bases are
     the same on every rank.
+
+    With ``cfg.merge_topology`` every merge is the stacked tree
+    (``algo.step.merge_core``), and a tiered ``mesh``
+    (``parallel.topology.make_tiered_mesh``) dispatches to the tier-local
+    trainer, ``parallel.topology.make_tree_scan_fit`` (no ``gather``).
     """
     if masked and gather:
         raise ValueError("masked scan fits take a dense (T, ...) stack")
+    from distributed_eigenspaces_tpu_torch.parallel.topology import (
+        is_tiered_mesh,
+        make_tree_scan_fit,
+        resolve_topology,
+    )
+
+    if is_tiered_mesh(mesh, resolve_topology(cfg)):
+        if gather:
+            raise ValueError(
+                "gather staging is not supported on the tiered-mesh "
+                "path (stage dense (T, ...) stacks, or use a flat "
+                "worker-axis mesh)"
+            )
+        return make_tree_scan_fit(cfg, mesh, masked=masked, v0=v0)
     cores = _cores(cfg, device, v0, v_init, mesh)
 
     if masked:

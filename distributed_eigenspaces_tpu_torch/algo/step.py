@@ -8,10 +8,12 @@ cold and warm executables are two plain functions here. With a ``(workers,
 features)`` mesh (``parallel/mesh.py``) each rank solves its ``m / W``
 workers and all-gathers the ``(m, d, k)`` factors over ``workers``; the
 merge and the fold then run on every rank on the same bits, so the state
-is replicated. Worker solves, the gather and the merge run under the
-profiler regions the reference's traces name (``det_worker_solve`` /
-``det_factor_gather`` / ``det_merge`` / ``det_dist_merge`` /
-``det_deflation_merge``).
+is replicated. With ``cfg.merge_topology`` the merge is the stacked tree
+of ``parallel/topology.py`` (the tier-local route on a tiered mesh is
+``algo.scan.make_scan_fit``'s). Worker solves, the gather and the merge run
+under the profiler regions the reference's traces name
+(``det_worker_solve`` / ``det_factor_gather`` / ``det_merge`` /
+``det_dist_merge`` / ``det_deflation_merge`` / ``det_tree_merge``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
     merged_top_k_lowrank,
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+from distributed_eigenspaces_tpu_torch.parallel.topology import (
+    resolve_topology,
+    tree_merge_stacked,
+)
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import (
     _local_eigenspaces,
     _masked_projector_mean,
@@ -80,27 +86,38 @@ def make_warm_solve_core(cfg: PCAConfig, mesh: pmesh.Mesh | None = None):
 
 
 def merge_knobs(cfg: PCAConfig) -> dict:
-    """The crossover-merge arguments of :func:`merge_core` for ``cfg``:
-    ``dist_iters`` and ``dist_tol`` set when ``cfg.uses_distributed_solve()``,
-    ``deflate_lanes`` (``cfg.components_axis_size``) when also
-    ``cfg.uses_deflation_solve()``; all None below the crossover (the exact
-    low-rank merge)."""
+    """The merge arguments of :func:`merge_core` for ``cfg``, resolved once
+    where a trainer is built: ``topology`` (``cfg.merge_topology``
+    resolved, or None for the flat merge); ``dist_iters`` and ``dist_tol``
+    set when ``cfg.uses_distributed_solve()``, ``deflate_lanes``
+    (``cfg.components_axis_size``) when also ``cfg.uses_deflation_solve()``;
+    None below the crossover (the exact low-rank merge)."""
     dist_iters = cfg.subspace_iters if cfg.uses_distributed_solve() else None
     lanes = (cfg.components_axis_size
              if dist_iters is not None and cfg.uses_deflation_solve() else None)
     return {"dist_iters": dist_iters, "deflate_lanes": lanes,
-            "dist_tol": cfg.solver_tol if dist_iters is not None else None}
+            "dist_tol": cfg.solver_tol if dist_iters is not None else None,
+            "topology": resolve_topology(cfg)}
 
 
 def merge_core(vs: torch.Tensor, k: int, mask=None, dist_iters=None,
-               dist_tol=None, v_init=None, deflate_lanes=None) -> torch.Tensor:
+               dist_tol=None, v_init=None, deflate_lanes=None,
+               topology=None) -> torch.Tensor:
     """Masked top-k of the mean of the workers' projectors (the flat
-    merge); an all-masked round merges to zeros. ``dist_iters`` (set when
+    merge); an all-masked round merges to zeros. ``topology`` (a resolved
+    ``parallel.topology.MergeTopology``) runs the stacked tree instead
+    (``tree_merge_stacked``: exact merges a group, weighted by live
+    counts), with the distributed solve at the root tier only when
+    ``dist_iters`` is set; None is the flat merge. ``dist_iters`` (set when
     ``cfg.uses_distributed_solve()``) runs the distributed subspace solve
     of the factor operator from the start ``v_init (d, k')`` instead of
     the exact low-rank route, stopping early at ``dist_tol``;
     ``deflate_lanes`` runs that solve as parallel-deflation lanes from
     ``v_init (d, k)``."""
+    if topology is not None:
+        with record_function("det_tree_merge"):
+            return tree_merge_stacked(vs, k, topology, mask=mask,
+                                      root_dist_iters=dist_iters, root_v_init=v_init)
     if dist_iters is not None and deflate_lanes is not None:
         with record_function("det_deflation_merge"):
             return merged_top_k_deflation(
@@ -119,13 +136,18 @@ def merge_core(vs: torch.Tensor, k: int, mask=None, dist_iters=None,
 def merge_start(cfg: PCAConfig, *, device, v_init=None):
     """The ``(d, k')`` start of the crossover merge (``k' = k`` plus the
     default oversample of the ``m k``-wide factor operator; the deflation
-    lanes take no oversample, ``k' = k``), or None below the crossover:
-    ``v_init`` when given, else drawn from ``cfg.seed`` (the reference
-    draws it from ``jax.random.PRNGKey(0)`` every round)."""
+    lanes take no oversample, ``k' = k``; under a merge topology the root
+    tier's ``f k``-wide operator, which the distributed solve takes in
+    either case), or None below the crossover: ``v_init`` when given, else
+    drawn from ``cfg.seed`` (the reference draws it from
+    ``jax.random.PRNGKey(0)`` every round)."""
     if not cfg.uses_distributed_solve():
         return None
     kk = cfg.k
-    if not cfg.uses_deflation_solve():
+    topo = resolve_topology(cfg)
+    if topo is not None:
+        kk += _default_oversample(cfg.k, topo.fan_ins[-1] * cfg.k)
+    elif not cfg.uses_deflation_solve():
         kk += _default_oversample(cfg.k, cfg.num_workers * cfg.k)
     return initial_basis(cfg.dim, kk, seed=cfg.seed, device=device, v0=v_init)
 

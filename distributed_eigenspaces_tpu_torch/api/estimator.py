@@ -25,8 +25,14 @@ checkpointing or over the per-device staging budget, in windows; the
 per-step loop runs the rank-r step, and ``fit_stream`` / ``partial_fit``
 continue a sketch fit through its windowed entry (:meth:`_continue_sketch`).
 Each rank holds its rows of the state; ``components_`` is the whole
-``(d, k)`` basis on every rank. ``trainer="fleet"`` raises
-``NotImplementedError`` (ROADMAP.md Queue 1 items 15 and 9f).
+``(d, k)`` basis on every rank; ``cfg.collectives="ring"`` runs their
+switchable reductions over explicit rings (``parallel/ring.py``).
+
+``cfg.merge_topology`` makes every merge of the dense trainers the stacked
+tree of ``parallel/topology.py`` (on one device and on the workers mesh
+alike); ``cfg.merge_wire_dtype`` has no effect there (the stacked route
+has no collectives to narrow). ``trainer="fleet"`` raises
+``NotImplementedError`` (ROADMAP.md Queue 1 items 15b and 9f).
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ TRAINERS = ("auto", "step", "scan", "segmented", "sketch", "fleet")
 #: trainers the reference accepts that the port refuses, with the ROADMAP
 #: items that will add them
 _UNPORTED_TRAINERS = {
-    "fleet": "Queue 1 items 15 and 9f (parallel/fleet.py)",
+    "fleet": "Queue 1 items 15b and 9f (parallel/fleet.py)",
 }
 
 #: d*k above which the reference's ``backend="auto"`` whole fit takes the

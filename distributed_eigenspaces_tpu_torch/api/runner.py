@@ -158,10 +158,12 @@ def _feature_sharded_handle(cfg: PCAConfig, kind: str, mesh, *, device,
     if mesh is None:
         mesh = pmesh.auto_feature_mesh(cfg, device)
     if kind == "fs_scan":
-        f = fs.make_feature_sharded_scan_fit(cfg, mesh, device=device, v_init=v_init)
+        f = fs.make_feature_sharded_scan_fit(cfg, mesh, device=device, v_init=v_init,
+                                             collectives=cfg.collectives)
         info = {"rank": f.rank}
     else:
-        f = fs.make_feature_sharded_sketch_fit(cfg, mesh, device=device)
+        f = fs.make_feature_sharded_sketch_fit(cfg, mesh, device=device,
+                                               collectives=cfg.collectives)
         info = {"sketch_width": f.sketch_width}
 
     def fit(state, blocks, idx=None, worker_masks=None):

@@ -91,9 +91,9 @@ class PCAConfig:
       mesh_shape: an explicit ``{"workers": W, "features": F}`` layout for
         the feature-sharded backend (``parallel.mesh.auto_feature_mesh``),
         or None for the default policy.
-      collectives: ``"xla"`` (the process group's all-reduce and
-        all-gather); ``"ring"`` is not ported yet (ROADMAP.md Queue 1
-        item 15, ``parallel/ring.py``).
+      collectives: the feature-sharded trainers' switchable reductions:
+        ``"xla"`` (the process group's all-reduce and all-gather) or
+        ``"ring"`` (explicit neighbour-exchange rings, ``parallel/ring.py``).
       merge_interval: the merged eigensolve runs every ``s`` steps (steps
         1, s+1, ...); the steps between fold the (masked) mean of the
         worker projectors at the same discount weight, and the warm carry
@@ -103,7 +103,20 @@ class PCAConfig:
         step ``t - 1``'s merge or fold follows. Needs the subspace solver
         with warm starts; the masked fits ignore it and the segmented
         trainer refuses it (its pending factors are no checkpoint state).
-      merge_topology: must stay None in this port (see ROADMAP.md).
+      merge_topology: the hierarchical merge (``parallel/topology.py``):
+        ``(tier_name, fan_in)`` pairs, leaf to root, e.g. ``(("chip", 4),
+        ("host", 2))`` for 8 workers merged 4-way, then 2-way. The fan-ins
+        must multiply to ``num_workers`` and each divide ``dim`` (checked
+        where a trainer is built). On a tiered mesh
+        (``make_tiered_mesh``) each tier merges with tier-local
+        collectives; anywhere else the gathered factors merge as the same
+        tree. Normalized to a tuple of pairs; None is the flat merge.
+      merge_wire_dtype: the tree merge's per-tier wire precision
+        (``parallel/wire.py``): tier name to ``"fp32"`` / ``"bf16"`` /
+        ``"int8"`` for each tier's all-to-all and basis all-gather (sums
+        stay fp32), unnamed tiers fp32, with error feedback one round
+        stale. Needs ``merge_topology``; normalized to tier-ordered
+        pairs. The stacked route has no collectives and ignores it.
       seed: seed of the ``torch.Generator`` that draws the cold start
         basis (the reference draws it from ``jax.random.PRNGKey(0)``).
       serve_bucket_size, serve_flush_s: a query micro-batch dispatches
@@ -148,6 +161,7 @@ class PCAConfig:
     merge_interval: int = 1
     pipeline_merge: bool = False
     merge_topology: tuple | None = None
+    merge_wire_dtype: Any = None
     seed: int = 0
     serve_bucket_size: int = 8
     serve_flush_s: float = 0.02
@@ -210,10 +224,6 @@ class PCAConfig:
             raise ValueError(f"unknown remainder policy: {self.remainder!r}")
         if self.collectives not in ("xla", "ring"):
             raise ValueError(f"unknown collectives mode: {self.collectives!r}")
-        if self.collectives == "ring":
-            raise _not_ported(
-                "collectives='ring'", "Queue 1 item 15 (parallel/ring.py)"
-            )
         if not isinstance(self.merge_interval, int) or isinstance(
             self.merge_interval, bool
         ) or self.merge_interval < 1:
@@ -234,15 +244,111 @@ class PCAConfig:
                 "pipeline overlaps the merge with the NEXT step's "
                 "warm solves from a one-step-stale basis"
             )
-        if self.merge_topology is not None:
-            raise _not_ported(
-                "merge_topology", "Queue 1 item 15 (parallel/topology.py)"
-            )
+        self._validate_topology()
         if not (0 < self.k <= self.dim):
             raise ValueError(
                 f"need 0 < k <= dim, got k={self.k}, dim={self.dim}"
             )
         self._validate_serve()
+
+    def _validate_topology(self) -> None:
+        """The reference's checks and normal forms of ``merge_topology`` and
+        ``merge_wire_dtype``."""
+        if self.merge_topology is not None:
+            topo = self.merge_topology
+            if not isinstance(topo, (list, tuple)) or len(topo) == 0:
+                raise ValueError(
+                    f"merge_topology must be a non-empty sequence of "
+                    f"(tier_name, fan_in) pairs or None, got {topo!r}"
+                )
+            tiers = []
+            for entry in topo:
+                if not isinstance(entry, (list, tuple)) or len(entry) != 2:
+                    raise ValueError(
+                        f"merge_topology entries must be (tier_name, "
+                        f"fan_in) pairs, got {entry!r}"
+                    )
+                name, fan_in = entry
+                if not isinstance(name, str) or not name:
+                    raise ValueError(
+                        f"merge_topology tier names must be non-empty "
+                        f"strings, got {name!r}"
+                    )
+                if not isinstance(fan_in, int) or isinstance(
+                    fan_in, bool
+                ) or fan_in < 1:
+                    raise ValueError(
+                        f"merge_topology tier {name!r} fan_in must be an "
+                        f"int >= 1, got {fan_in!r}"
+                    )
+                tiers.append((name, fan_in))
+            names = [name for name, _ in tiers]
+            if len(set(names)) != len(names):
+                raise ValueError(
+                    f"merge_topology tier names must be unique, got {names!r}"
+                )
+            # the tree replaces the flat merge core: the knobs that
+            # restructure the flat merge's schedule have no tiered form
+            if self.pipeline_merge:
+                raise ValueError(
+                    "merge_topology does not compose with "
+                    "pipeline_merge=True: the pipelined body overlaps "
+                    "the FLAT merge; pick one"
+                )
+            if self.backend == "feature_sharded":
+                raise ValueError(
+                    "merge_topology is not supported on the "
+                    "feature_sharded backend (the tree factors the "
+                    "WORKER axis; feature sharding factors d)"
+                )
+            object.__setattr__(self, "merge_topology", tuple(tiers))
+        if self.merge_wire_dtype is None:
+            return
+        wd = self.merge_wire_dtype
+        if isinstance(wd, dict):
+            items = list(wd.items())
+        elif isinstance(wd, (list, tuple)) and all(
+            isinstance(e, (list, tuple)) and len(e) == 2 for e in wd
+        ):
+            items = [(k, v) for k, v in wd]
+        else:
+            raise ValueError(
+                f"merge_wire_dtype must be a mapping of tier name "
+                f"-> wire dtype or None, got {wd!r}"
+            )
+        if self.pipeline_merge:
+            raise ValueError(
+                "merge_wire_dtype does not compose with "
+                "pipeline_merge=True: the pipelined body overlaps "
+                "the FLAT merge, which has no tiers to compress"
+            )
+        if self.merge_topology is None:
+            raise ValueError(
+                "merge_wire_dtype requires merge_topology: the "
+                "wire policy is per TIER, keyed by the resolved "
+                "topology's tier names (flat merges have none)"
+            )
+        tier_names = [name for name, _ in self.merge_topology]
+        for name, dtype in items:
+            if not isinstance(name, str) or name not in tier_names:
+                raise ValueError(
+                    f"merge_wire_dtype key {name!r} names no "
+                    f"merge_topology tier; tiers are {tier_names}"
+                )
+            if dtype not in ("fp32", "bf16", "int8"):
+                raise ValueError(
+                    f"merge_wire_dtype tier {name!r} has unknown "
+                    f"wire dtype {dtype!r} (fp32/bf16/int8 — the "
+                    "write-path codec family, error-feedback corrected)"
+                )
+        if len({name for name, _ in items}) != len(items):
+            raise ValueError(
+                f"merge_wire_dtype tier keys must be unique, got "
+                f"{[name for name, _ in items]!r}"
+            )
+        by_name = dict(items)
+        object.__setattr__(self, "merge_wire_dtype", tuple(
+            (name, by_name[name]) for name in tier_names if name in by_name))
 
     def _validate_int_stage(self, stage) -> None:
         """The reference's checks of an integer ``stage_dtype``: int8 only,

@@ -147,15 +147,15 @@ def bin_block_stream(
     ``start_row`` seeks past already-consumed rows before the first read:
     the resume argument for the cursor a checkpoint saves (``steps_done *
     num_workers * rows_per_worker``); it must land on a step boundary.
-    ``worker_range`` (the reference's multi-host strided read) is not
-    ported.
+
+    ``worker_range=(lo, hi)``: the multi-host read. Each step yields only
+    workers ``[lo, hi)`` of the ``num_workers``, ``(hi - lo,
+    rows_per_worker, dim)``; the strided reader seeks past the other ranks'
+    rows of every step, so each rank reads only the bytes of its workers
+    from one shared file (``parallel.multihost.host_worker_range`` gives
+    the range). Only ``remainder="drop"`` (a partial final step may cut
+    mid-stride), and every rank stops after the same number of whole steps.
     """
-    if worker_range is not None:
-        raise NotImplementedError(
-            "bin_block_stream(worker_range=...) is the multi-host read, not "
-            "ported to distributed_eigenspaces_tpu_torch yet (ROADMAP.md "
-            "Queue 1 item 15)"
-        )
     if remainder not in ("drop", "pad", "error"):
         raise ValueError(f"unknown remainder policy: {remainder!r}")
     in_name, in_dt = _file_dtype(dtype)
@@ -186,6 +186,29 @@ def bin_block_stream(
             )
         if start_row > total:
             raise ValueError(f"start_row={start_row} beyond the file's {total} rows")
+    offset, skip, out_workers = start_row * row_bytes, 0, num_workers
+    if worker_range is not None:
+        lo, hi = worker_range
+        if not (0 <= lo < hi <= num_workers):
+            raise ValueError(
+                f"worker_range {worker_range} invalid: need "
+                f"0 <= lo < hi <= num_workers (= {num_workers})"
+            )
+        if remainder != "drop":
+            raise ValueError(
+                "worker_range supports remainder='drop' only (a partial "
+                "final step may cut mid-stride)"
+            )
+        out_workers = hi - lo
+        skipped = start_row // step_rows
+        # past the other ranks' leading workers and any resumed whole steps
+        offset = (lo * rows_per_worker + skipped * step_rows) * row_bytes
+        skip = (num_workers - out_workers) * rows_per_worker * row_bytes
+        # every rank stops after the same count of whole steps: a ragged
+        # last step may hold low ranks' workers and not high ones'
+        full = total // step_rows - skipped
+        num_steps = full if num_steps is None else min(num_steps, full)
+        step_rows = out_workers * rows_per_worker
     chunk_bytes = step_rows * row_bytes
 
     def convert(buf: bytes, rows: int) -> torch.Tensor:
@@ -202,7 +225,7 @@ def bin_block_stream(
         return torch.from_numpy(arr.reshape(rows, dim)).to(out_t)
 
     steps = 0
-    with ChunkReader(path, chunk_bytes, offset=start_row * row_bytes) as reader:
+    with ChunkReader(path, chunk_bytes, offset=offset, skip=skip) as reader:
         it = iter(reader)
         while True:
             # the cap is checked before pulling: past it a chunk would be
@@ -223,7 +246,7 @@ def bin_block_stream(
                     )
                 block = torch.zeros((step_rows, dim), dtype=out_t)
                 block[:tail_rows] = convert(chunk[: tail_rows * row_bytes], tail_rows)
-                yield block.reshape(num_workers, rows_per_worker, dim)
+                yield block.reshape(out_workers, rows_per_worker, dim)
                 return
             steps += 1
-            yield convert(chunk, step_rows).reshape(num_workers, rows_per_worker, dim)
+            yield convert(chunk, step_rows).reshape(out_workers, rows_per_worker, dim)

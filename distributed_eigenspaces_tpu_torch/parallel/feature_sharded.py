@@ -41,8 +41,17 @@ out_dtype=torch.float32)`` on the card; widened operands on the CPU,
 which is exact): the ``(m, n, k)`` partial is summed over ``features``
 in fp32, then rounded to bf16 for the second product, as the reference
 rounds it. An int8 block stays int8 in device memory and is widened to
-bf16 inside each matvec. ``PCAConfig`` refuses ``collectives="ring"``
-(not ported yet, ROADMAP.md Queue 1 item 15).
+bf16 inside each matvec.
+
+``collectives="ring"`` (the factories' argument, ``cfg.collectives`` from
+the estimator) sends every switchable reduction through the explicit rings
+of ``parallel/ring.py`` instead of the process group's collectives: the
+matvec's ``(m, n, k)`` sum over ``features``, the merge's factor and mask
+gathers over ``workers`` and ``features`` and its Gram sum, the
+between-merge fold's gathers, the crossover merges' worker gather, and the
+sketch's fold and power-step sums (:func:`_collective_ops`, as the
+reference's). CholeskyQR2, Newton-Schulz and the rank-r update keep the
+group's sum, as in the reference.
 """
 
 from __future__ import annotations
@@ -104,6 +113,22 @@ def ns_orth(v: torch.Tensor, axis_name=None, iters: int = 4,
 
 def _psum_f(x: torch.Tensor) -> torch.Tensor:
     return psum(x, FEATURE_AXIS)
+
+
+def _collective_ops(collectives: str):
+    """``(psum, gather)``, each taking ``(tensor, axis_name)``: the process
+    group's (``"xla"``) or the explicit rings (``"ring"``). Every
+    collectives-switchable reduction of this module goes through here."""
+    if collectives == "ring":
+        from distributed_eigenspaces_tpu_torch.parallel.ring import (
+            ring_all_gather,
+            ring_psum,
+        )
+
+        return ring_psum, ring_all_gather
+    if collectives != "xla":
+        raise ValueError(f"unknown collectives mode: {collectives!r}")
+    return psum, pmesh.all_gather
 
 
 
@@ -241,14 +266,16 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def _make_matvec(x: torch.Tensor, n_total_rows: int, compute_dtype=None):
+def _make_matvec(x: torch.Tensor, n_total_rows: int, compute_dtype=None,
+                 collectives: str = "xla"):
     """``matvec(v) = X^T (X v) / n`` with the feature dim sharded, batched
     over the local workers: ``x (m_local, n, d_local)``, ``v (m_local,
     d_local, k)``; the ``(m_local, n, k)`` partial is summed over
     ``features``. ``compute_dtype`` (bf16) takes both products' operands in
     bf16 with fp32 results; an integer block without one is widened to
     fp32; an int8 block under bf16 stays int8 and is widened inside each
-    call."""
+    call. ``collectives`` chooses the sum (:func:`_collective_ops`)."""
+    psum_c, _ = _collective_ops(collectives)
     cdt = None if compute_dtype is None else torch_dtype(compute_dtype)
     if cdt is None and not x.is_floating_point():
         cdt = torch.float32
@@ -257,14 +284,15 @@ def _make_matvec(x: torch.Tensor, n_total_rows: int, compute_dtype=None):
 
     def matvec(v):
         xw = xc.to(torch.bfloat16) if int8_stream else xc
-        xv = _psum_f(_mm_f32(xw, v.to(xw.dtype)))
+        xv = psum_c(_mm_f32(xw, v.to(xw.dtype)), FEATURE_AXIS)
         return _mm_f32(xw.mT, xv.to(xw.dtype)) / n_total_rows
 
     return matvec
 
 
 def worker_subspace_sharded(x, k: int, iters: int, n_total_rows: int, v_rand,
-                            *, v0=None, compute_dtype=None, ritz: bool = True):
+                            *, v0=None, compute_dtype=None, ritz: bool = True,
+                            collectives: str = "xla"):
     """Per-worker top-k eigenspaces with the feature dim sharded: ``x
     (m_local, n, d_local)`` this rank's workers' columns; returns ``(m_local,
     d_local, k)`` shards, orthonormal globally over ``features``.
@@ -273,8 +301,9 @@ def worker_subspace_sharded(x, k: int, iters: int, n_total_rows: int, v_rand,
     start. ``v0 (d_local, k)`` warm-starts every worker: the start is
     ``v0 + (1e-3 / sqrt(d)) v_rand`` (a zero ``v0`` — the cold first step —
     leaves the random start, rescaled). ``ritz=False`` skips the closing
-    Rayleigh-Ritz rotation (the merge consumes projectors only)."""
-    matvec = _make_matvec(x, n_total_rows, compute_dtype)
+    Rayleigh-Ritz rotation (the merge consumes projectors only).
+    ``collectives`` chooses the matvec's sum over ``features``."""
+    matvec = _make_matvec(x, n_total_rows, compute_dtype, collectives)
     v = v_rand
     if v0 is not None:
         d_total = v_rand.shape[1] * pmesh.axis_size(FEATURE_AXIS)
@@ -299,19 +328,19 @@ def _scaled_concat(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return c.permute(1, 0, 2).reshape(c.shape[1], -1)
 
 
-def _gathered_factors(v_workers, mask):
+def _gathered_factors(v_workers, mask, gather=pmesh.all_gather):
     """Every worker's factors ``(m, d_local, kf)`` (gathered over
-    ``workers``) and the ``(m,)`` weights."""
-    c = pmesh.all_gather(v_workers.float(), WORKER_AXIS)
+    ``workers`` by ``gather``) and the ``(m,)`` weights."""
+    c = gather(v_workers.float(), WORKER_AXIS)
     if mask is None:
         w = torch.ones((c.shape[0],), dtype=torch.float32, device=c.device)
     else:
-        w = pmesh.all_gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device),
-                             WORKER_AXIS)
+        w = gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device), WORKER_AXIS)
     return c, w
 
 
-def merged_lowrank_sharded(v_workers, k: int, mask=None, dim_total=None):
+def merged_lowrank_sharded(v_workers, k: int, mask=None, dim_total=None,
+                           collectives: str = "xla"):
     """Exact top-k of the (masked) mean projector ``(1/sum w) sum_l w_l V_l
     V_l^T`` from the factors, fully sharded: ``v_workers (m_local, d_local,
     kf)`` and ``mask (m_local,)`` this rank's; returns this rank's ``(d_local,
@@ -322,17 +351,19 @@ def merged_lowrank_sharded(v_workers, k: int, mask=None, dim_total=None):
     back. From ``m kf >= dim_total`` on, the dense ``d x d`` projector is
     the smaller problem: the factors are gathered over ``features`` and
     solved densely (an all-masked round gives zeros there, as it does from
-    the guarded inverse square root on the Gram route)."""
-    c, w = _gathered_factors(v_workers, mask)
+    the guarded inverse square root on the Gram route). ``collectives``
+    chooses the gathers and the Gram's sum."""
+    psum_c, gather_c = _collective_ops(collectives)
+    c, w = _gathered_factors(v_workers, mask, gather_c)
     m_total, d_local, kf = c.shape
     cc = _scaled_concat(c, w)
     if dim_total is not None and m_total * kf >= dim_total:
-        cf = pmesh.all_gather(cc, FEATURE_AXIS)  # (dim_total, m kf)
+        cf = gather_c(cc, FEATURE_AXIS)  # (dim_total, m kf)
         alive = (torch.sum(w) > 0).to(torch.float32)
         v = top_k_eigvecs(torch.matmul(cf, cf.mT), k) * alive
         i = pmesh.axis_index(FEATURE_AXIS)
         return v[i * d_local:(i + 1) * d_local]
-    b = _psum_f(torch.matmul(cc.mT, cc))
+    b = psum_c(torch.matmul(cc.mT, cc), FEATURE_AXIS)
     w_ev, q = _small_eigh_desc(b)
     inv = guarded_inv_sqrt(torch.clamp(w_ev[:k], min=0.0))
     return torch.matmul(cc, q[:, :k]) * inv[None, :]
@@ -394,7 +425,7 @@ class _Starts(NamedTuple):
     v_init: torch.Tensor | None  # the crossover merge's whole (d, k')
 
 
-def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts):
+def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts, collectives: str = "xla"):
     """The per-step sharded body (worker solves, masked merge, discounted
     rank-r fold), shared by the per-step and whole-fit trainers:
     ``step_core(st, x, step_iters, mask=None) -> (state, v_bar)``, run
@@ -405,7 +436,9 @@ def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts):
     concatenation ``C`` (``C C^T`` is the masked mean projector) straight
     into the rank-r state and report its top-k. Above the crossover the
     merge is ``solvers.dist_merged_top_k`` (or the deflation lanes) with
-    the rows over ``features``, warm-started from ``u[:, :k]``."""
+    the rows over ``features``, warm-started from ``u[:, :k]``.
+    ``collectives`` chooses every switchable reduction."""
+    _, gather_c = _collective_ops(collectives)
     k, n = cfg.k, cfg.rows_per_worker
     weights = _discount_weights(cfg)
     s_int = cfg.merge_interval
@@ -422,7 +455,7 @@ def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts):
             v_bar = dist_merged_top_k_deflation(
                 vws, k, lanes=cfg.components_axis_size, mask=mask,
                 iters=cfg.subspace_iters, tol=cfg.solver_tol, v_init=starts.v_init,
-                v0=st.u[:, :k])
+                collectives=collectives, v0=st.u[:, :k])
         elif dist:
             from distributed_eigenspaces_tpu_torch.solvers.distributed import (
                 dist_merged_top_k,
@@ -430,21 +463,22 @@ def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts):
 
             v_bar = dist_merged_top_k(
                 vws, k, mask=mask, iters=cfg.subspace_iters, v_init=starts.v_init,
-                v0=st.u[:, :k], tol=cfg.solver_tol)
+                collectives=collectives, v0=st.u[:, :k], tol=cfg.solver_tol)
         else:
-            v_bar = merged_lowrank_sharded(vws, k, mask=mask, dim_total=cfg.dim)
+            v_bar = merged_lowrank_sharded(vws, k, mask=mask, dim_total=cfg.dim,
+                                           collectives=collectives)
         return _lowrank_update(st, v_bar, w, keep, FEATURE_AXIS), v_bar
 
     def fold_round(st, vws, mask):
         w, keep = weights(st.step)
-        c, wm = _gathered_factors(vws, mask)
+        c, wm = _gathered_factors(vws, mask, gather_c)
         new = _lowrank_update(st, _scaled_concat(c, wm), w, keep, FEATURE_AXIS)
         return new, new.u[:, :k]
 
     def step_core(st, x, step_iters, mask=None):
         vws = worker_subspace_sharded(
             x, k, step_iters, n, starts.v_rand, v0=st.u[:, :k],
-            compute_dtype=cfg.compute_dtype, ritz=False)
+            compute_dtype=cfg.compute_dtype, ritz=False, collectives=collectives)
         if s_int == 1 or st.step % s_int == 0:
             return merge_round(st, vws, mask)
         return fold_round(st, vws, mask)
@@ -466,7 +500,8 @@ def _starts(cfg: PCAConfig, mesh, *, v_rand=None, v_init=None, seed=None) -> _St
 
 
 def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = None,
-                              device="cuda", v_rand=None, v_init=None):
+                              device="cuda", v_rand=None, v_init=None,
+                              collectives: str = "xla"):
     """The per-step trainer of the ``(workers, features)`` mesh:
     ``step(state, x_blocks, worker_mask=None) -> (state, v_bar)``, on every
     rank (``mesh=None``: the one-process ``(1, 1)`` layout on ``device``).
@@ -476,10 +511,14 @@ def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = N
     ``worker_mask`` the whole ``(m,)`` mask. With ``cfg.warm_start_iters``
     set, the first step runs ``cfg.subspace_iters`` and later steps the
     short count; the choice reads the replicated step count on the host.
-    ``step.init_state()`` is this rank's zero state."""
+    ``collectives`` (``"xla"`` or ``"ring"``) chooses the switchable
+    reductions (:func:`_collective_ops`). ``step.init_state()`` is this
+    rank's zero state."""
+    _collective_ops(collectives)
     mesh = _mesh_of(mesh, device)
     r = _resolve_rank(cfg, rank)
-    core = _make_step_core(cfg, mesh, _starts(cfg, mesh, v_rand=v_rand, v_init=v_init))
+    core = _make_step_core(cfg, mesh, _starts(cfg, mesh, v_rand=v_rand, v_init=v_init),
+                           collectives)
     warm_iters = cfg.resolved_warm_start()
     d_local = cfg.dim // mesh.axis_size(FEATURE_AXIS)
 
@@ -547,7 +586,8 @@ def _windowed_whole_fit(mesh, run_window, run_masked, carry_live):
 
 
 def make_feature_sharded_scan_fit(cfg: PCAConfig, mesh=None, *, rank: int | None = None,
-                                  device="cuda", v_rand=None, v_init=None):
+                                  device="cuda", v_rand=None, v_init=None,
+                                  collectives: str = "xla"):
     """Whole-fit trainer of the rank-r state on the ``(workers, features)``
     mesh: ``fit(state, blocks, idx=None, worker_masks=None) -> state``.
 
@@ -559,10 +599,13 @@ def make_feature_sharded_scan_fit(cfg: PCAConfig, mesh=None, *, rank: int | None
     each round's merge exactly; an all-masked round folds a zero ``v_bar``
     and ``u`` survives. ``fit.fit_windows`` is the windowed, checkpointable
     entry (:func:`_windowed_whole_fit`); ``fit.extract(state)`` is ``u[:,
-    :k]`` with canonical signs (this rank's rows)."""
+    :k]`` with canonical signs (this rank's rows). ``collectives`` as in
+    :func:`make_feature_sharded_step`."""
+    _collective_ops(collectives)
     mesh = _mesh_of(mesh, device)
     r = _resolve_rank(cfg, rank)
-    core = _make_step_core(cfg, mesh, _starts(cfg, mesh, v_rand=v_rand, v_init=v_init))
+    core = _make_step_core(cfg, mesh, _starts(cfg, mesh, v_rand=v_rand, v_init=v_init),
+                           collectives)
     warm_iters = cfg.resolved_warm_start()
     m, d, k = cfg.num_workers, cfg.dim, cfg.k
     d_local = d // mesh.axis_size(FEATURE_AXIS)
@@ -635,7 +678,8 @@ def sketch_draws(cfg: PCAConfig, oversample: int = 16, seed=None):
 
 
 def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: int = 16,
-                                    device="cuda", omega=None, v_rand=None):
+                                    device="cuda", omega=None, v_rand=None,
+                                    collectives: str = "xla"):
     """Sketched whole-fit trainer on the ``(workers, features)`` mesh:
     ``fit(state, blocks, idx=None, worker_masks=None) -> state`` with a
     steady state that runs no eigensolve, Cholesky or triangular solve.
@@ -658,7 +702,10 @@ def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: in
     nothing, and while no cold step has survived, each step runs the cold
     machinery again. ``cfg.merge_interval`` and ``cfg.pipeline_merge`` do
     not apply (no per-step eigensolve). ``omega`` / ``v_rand`` default to
-    :func:`sketch_draws`."""
+    :func:`sketch_draws`. ``collectives`` as in
+    :func:`make_feature_sharded_step` (here also the fold's and the power
+    step's sums)."""
+    psum_c, _ = _collective_ops(collectives)
     mesh = _mesh_of(mesh, device)
     d, k, n, m = cfg.dim, cfg.k, cfg.rows_per_worker, cfg.num_workers
     p = min(d, k + oversample)
@@ -675,7 +722,7 @@ def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: in
 
     def fold(st, v_bar):
         w_t, keep = weights(st.step)
-        g = _psum_f(torch.matmul(v_bar.mT, omega_l))
+        g = psum_c(torch.matmul(v_bar.mT, omega_l), FEATURE_AXIS)
         y = keep * st.y + w_t * torch.matmul(v_bar, g)
         return SketchState(y=y, v=v_bar, step=int(st.step) + 1)
 
@@ -685,22 +732,24 @@ def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: in
 
     def cold_step(st, x, mask=None, alive=True):
         vws = worker_subspace_sharded(x, k, iters, n, v_rand_l, v0=st.v,
-                                      compute_dtype=cfg.compute_dtype, ritz=False)
-        v_bar = merged_lowrank_sharded(vws, k, mask=mask, dim_total=d)
+                                      compute_dtype=cfg.compute_dtype, ritz=False,
+                                      collectives=collectives)
+        v_bar = merged_lowrank_sharded(vws, k, mask=mask, dim_total=d,
+                                       collectives=collectives)
         return fold(st, v_bar) if alive else skipped(st)
 
     def warm_step(st, x, mask=None, alive=True):
         if not alive:
             return skipped(st)
-        matvec = _make_matvec(x, n, cfg.compute_dtype)
+        matvec = _make_matvec(x, n, cfg.compute_dtype, collectives)
         v = st.v[None].expand(x.shape[0], -1, -1)
         for _ in range(warm_iters):
             v = matvec(v)
         v = ns_orth(v, FEATURE_AXIS)
-        yl = _psum_f(torch.matmul(v.mT, st.v))  # (m_local, k, k)
+        yl = psum_c(torch.matmul(v.mT, st.v), FEATURE_AXIS)  # (m_local, k, k)
         if mask is not None:
             v = v * mask[:, None, None]
-        z = psum(torch.sum(torch.matmul(v, yl), dim=0), WORKER_AXIS)
+        z = psum_c(torch.sum(torch.matmul(v, yl), dim=0), WORKER_AXIS)
         return fold(st, ns_orth(z, FEATURE_AXIS))
 
     def masked_step(st, x, mask, alive):

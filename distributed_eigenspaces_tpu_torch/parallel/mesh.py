@@ -6,16 +6,20 @@ reference drives every device from one controller through a
 (SPMD), and a :class:`Mesh` wraps a ``torch.distributed`` ``DeviceMesh``
 whose named dims stand in for the reference's axes: ``("workers",
 "features")`` from :func:`make_mesh`, ``("components", "features")`` from
-:func:`make_component_mesh`. The layout is row-major, the reference's
-``devices.reshape(W, F)``, so worker rank ``r`` holds workers ``[r m / W,
-(r + 1) m / W)``.
+:func:`make_component_mesh`, one axis per merge tier from
+``parallel.topology.make_tiered_mesh`` (any names: :func:`grid_mesh`). The
+layout is row-major, the reference's ``devices.reshape(W, F)``, so worker
+rank ``r`` holds workers ``[r m / W, (r + 1) m / W)``.
 
-A reference ``psum`` / ``all_gather`` over an axis name runs on the
-DeviceMesh's group for that dim: :func:`psum`, :func:`pmax` and
-:func:`all_gather` resolve the name against the mesh made active by
-:func:`mesh_scope` (the counterpart of tracing inside ``shard_map``). The
-gather is the list form, in group-rank order, concatenated on axis 0: the
-reference's ``all_gather(..., axis=0, tiled=True)``.
+A reference ``psum`` / ``all_gather`` / ``all_to_all`` / ``ppermute`` over
+an axis name runs on the DeviceMesh's group for that dim: :func:`psum`,
+:func:`pmax`, :func:`all_gather`, :func:`all_to_all` and :func:`ppermute`
+resolve the name against the mesh made active by :func:`mesh_scope` (the
+counterpart of tracing inside ``shard_map``). The gather is the list form,
+in group-rank order, concatenated on axis 0: the reference's
+``all_gather(..., axis=0, tiled=True)``. :func:`recording_collectives` logs
+each call's op, axis, dtype, elements and bytes: the port has no HLO, so
+what was handed to ``torch.distributed`` is what a payload gate reads.
 
 One process with no group is the ``(1, 1)`` layout, :func:`local_mesh`:
 every collective over its axes is the identity.
@@ -60,6 +64,10 @@ COMPONENT_AXIS = "components"
 #: each rank put on the wire for them (its own shard, once per gather)
 gathers = 0
 gather_bytes = 0
+
+#: the open :func:`recording_collectives` logs; each call handed to
+#: ``torch.distributed`` appends one record to every open log
+_RECORDERS: list[list] = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,13 +185,22 @@ def _device_mesh(shape: tuple, names: tuple):
     return _DEVICE_MESHES[key]
 
 
-def _grid(names: tuple, sizes: tuple, device) -> Mesh:
+def grid_mesh(names: tuple, sizes: tuple, device="cuda") -> Mesh:
+    """A mesh of any number of named axes over the default group's ranks,
+    row-major (C order: rank ``r``'s coordinates are ``r`` unravelled over
+    ``sizes``, the last axis fastest). The product of ``sizes`` must equal
+    the group's size."""
+    names, sizes = tuple(names), tuple(int(s) for s in sizes)
+    if len(names) != len(sizes) or len(set(names)) != len(names):
+        raise ValueError(f"mesh axes {names} do not name sizes {sizes} one to one")
     if any(s < 1 for s in sizes):
         raise ValueError(
             "mesh axes must be >= 1, got "
             + ", ".join(f"{n}={s}" for n, s in zip(names, sizes))
         )
-    need = sizes[0] * sizes[1]
+    need = 1
+    for s in sizes:
+        need *= s
     have = world_size()
     if not dist.is_initialized():
         raise RuntimeError(
@@ -193,10 +210,11 @@ def _grid(names: tuple, sizes: tuple, device) -> Mesh:
         )
     if need != have:
         raise ValueError(
-            f"mesh {sizes[0]}x{sizes[1]} needs {need} ranks, have {have} "
+            f"mesh {'x'.join(map(str, sizes))} needs {need} ranks, have {have} "
             "(every rank of the group is one mesh slot)"
         )
     return Mesh(_device_mesh(sizes, names), _mesh_device(device))
+
 
 
 def make_mesh(num_workers: int | None = None, num_feature_shards: int = 1, *,
@@ -213,7 +231,7 @@ def make_mesh(num_workers: int | None = None, num_feature_shards: int = 1, *,
                 f"{have} ranks not divisible by features={num_feature_shards}"
             )
         num_workers = have // num_feature_shards
-    return _grid((WORKER_AXIS, FEATURE_AXIS), (num_workers, num_feature_shards),
+    return grid_mesh((WORKER_AXIS, FEATURE_AXIS), (num_workers, num_feature_shards),
                  device)
 
 
@@ -221,7 +239,7 @@ def make_component_mesh(num_components: int, num_feature_shards: int = 1, *,
                         device="cuda") -> Mesh:
     """A ``(components, features)`` mesh for the parallel-deflation lanes:
     one lane a components slot, rows over ``features``."""
-    return _grid((COMPONENT_AXIS, FEATURE_AXIS),
+    return grid_mesh((COMPONENT_AXIS, FEATURE_AXIS),
                  (num_components, num_feature_shards), device)
 
 
@@ -388,11 +406,43 @@ def _staged(group, x: torch.Tensor):
     return x, None
 
 
+@contextlib.contextmanager
+def recording_collectives():
+    """Record every collective handed to ``torch.distributed`` inside the
+    block: yields a list that gets one dict a call, ``{"op", "axis",
+    "dtype", "elements", "bytes", "group_size", "tag"}``, with ``elements``
+    and ``bytes`` those of the tensor this rank handed over (an
+    all-gather's own shard, an all-to-all's whole send buffer, a
+    permute's block) and ``tag`` the caller's label of a side payload
+    (an int8 scale sidecar, a weight vector) or None. What runs no
+    communication is not recorded: anything in one process without a
+    group, and a sum, all-to-all or permute over a one-rank axis."""
+    log: list = []
+    _RECORDERS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDERS.remove(log)
+
+
+def _record(op: str, axis_name: str, x: torch.Tensor, group_size: int,
+            tag=None) -> None:
+    if not _RECORDERS:
+        return
+    rec = {"op": op, "axis": axis_name, "dtype": str(x.dtype).replace("torch.", ""),
+           "elements": x.numel(), "bytes": x.numel() * x.element_size(),
+           "group_size": group_size, "tag": tag}
+    for log in _RECORDERS:
+        log.append(dict(rec))
+
+
 def _all_reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
     mesh = current_mesh()
     if mesh.axis_size(axis_name) == 1:  # a reduction over one rank is x
         return x
     group = mesh.group(axis_name)
+    _record("psum" if op == dist.ReduceOp.SUM else "pmax", axis_name, x,
+            mesh.axis_size(axis_name))
     buf, back = _staged(group, x)
     if back is None:  # reduced in place: a copy, never the caller's tensor
         buf = buf.detach().clone(memory_format=torch.contiguous_format)
@@ -411,10 +461,12 @@ def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     return _all_reduce(x, axis_name, dist.ReduceOp.MAX)
 
 
-def all_gather(x: torch.Tensor, axis_name: str, *, tiled: bool = True) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis_name: str, *, tiled: bool = True,
+               tag=None) -> torch.Tensor:
     """Every rank's ``x`` along ``axis_name`` in group-rank order:
     concatenated on axis 0 (``tiled``, the reference's ``all_gather(...,
-    axis=0, tiled=True)``) or stacked on a new axis 0."""
+    axis=0, tiled=True)``) or stacked on a new axis 0. ``tag`` labels the
+    call in :func:`recording_collectives`."""
     global gathers, gather_bytes
     mesh = current_mesh()
     if mesh.device_mesh is None:  # one process: the gather of one rank
@@ -422,12 +474,57 @@ def all_gather(x: torch.Tensor, axis_name: str, *, tiled: bool = True) -> torch.
         return x if tiled else x[None]
     group = mesh.group(axis_name)
     x = x.detach().contiguous()
+    _record("all_gather", axis_name, x, mesh.axis_size(axis_name), tag)
     buf, back = _staged(group, x)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
     gathers += 1
     gather_bytes += x.numel() * x.element_size()
     out = torch.cat(parts, dim=0) if tiled else torch.stack(parts)
+    return out if back is None else out.to(back.device)
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, *, tag=None) -> torch.Tensor:
+    """The reference's ``lax.all_to_all(x, axis_name, split_axis=0,
+    concat_axis=0)``: ``x (g, ...)`` with ``g`` the axis size; slot ``j``
+    goes to group rank ``j``, and slot ``j`` of the result is what group
+    rank ``j`` sent this rank."""
+    mesh = current_mesh()
+    size = mesh.axis_size(axis_name)
+    if x.shape[0] != size:
+        raise ValueError(
+            f"all_to_all over {axis_name!r} splits axis 0 into {size} slots, "
+            f"got shape {tuple(x.shape)}"
+        )
+    if mesh.device_mesh is None or size == 1:
+        return x
+    group = mesh.group(axis_name)
+    x = x.detach().contiguous()
+    _record("all_to_all", axis_name, x, size, tag)
+    buf, back = _staged(group, x)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return out if back is None else out.to(back.device)
+
+
+def ppermute(x: torch.Tensor, axis_name: str, *, tag=None) -> torch.Tensor:
+    """The cyclic +1 neighbour exchange over ``axis_name`` (the reference's
+    ``ppermute`` with ``[(i, (i + 1) % size)]``): this rank sends ``x`` to
+    group rank ``i + 1`` and returns what group rank ``i - 1`` sent."""
+    mesh = current_mesh()
+    size = mesh.axis_size(axis_name)
+    if mesh.device_mesh is None or size == 1:
+        return x
+    group = mesh.group(axis_name)
+    i = mesh.axis_index(axis_name)
+    x = x.detach().contiguous()
+    _record("ppermute", axis_name, x, size, tag)
+    buf, back = _staged(group, x)
+    out = torch.empty_like(buf)
+    ops = [dist.P2POp(dist.isend, buf, dist.get_global_rank(group, (i + 1) % size), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (i - 1) % size), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
     return out if back is None else out.to(back.device)
 
 

@@ -696,7 +696,7 @@ class EigenbasisRegistry:
     def publish_fleet(self, result, tenant: int, **kwargs) -> BasisVersion:
         """Publish one tenant of a fleet fit: not ported yet."""
         raise _not_ported(
-            "publish_fleet", "Queue 1 item 15 (parallel/fleet.py)"
+            "publish_fleet", "Queue 1 item 15b (parallel/fleet.py)"
         )
 
     def publish_grown(

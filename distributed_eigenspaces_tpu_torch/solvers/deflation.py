@@ -51,9 +51,10 @@ import torch
 
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import _psum_if
+from distributed_eigenspaces_tpu_torch.parallel.wire import WIRE_DTYPES, wire_all_gather
 from distributed_eigenspaces_tpu_torch.solvers.distributed import (
+    _gathered_worker_factors,
     _qr2,
-    _refuse_wire,
     _row_start,
     _scaled_factor_concat,
     _start_device,
@@ -240,10 +241,16 @@ def dist_deflation_eig(
     until the largest residual over ``lane_axis`` (one ``pmax`` a sweep,
     read on the host, the same on every rank) is below ``tol``, or
     ``iters``. ``info`` holds this lane's own ``iters_used`` and
-    ``residual``. The wire codecs (``wire_dtype`` other than ``"fp32"``)
-    are not ported yet (ROADMAP.md Queue 1 item 15)."""
+    ``residual``. ``wire_dtype`` (fp32, bf16 or int8) ships the lane
+    gathers, each sweep's and the finishing one, in that codec
+    (``parallel/wire.py``; one-shot lossy, every sum stays fp32)."""
     global syncs
-    _refuse_wire("xla", wire_dtype)
+
+    def lane_gather(x):
+        return wire_all_gather(x, lane_axis, wire_dtype, tiled=False)
+
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire dtype {wire_dtype!r}; one of {WIRE_DTYPES}")
     kb = _lane_widths(k, lanes)
     if pmesh.axis_size(lane_axis) != lanes:
         raise ValueError(
@@ -260,7 +267,7 @@ def dist_deflation_eig(
     below = (torch.arange(lanes, device=dev) < my).to(torch.float32)[:, None, None]
 
     def sweep(v, active: bool):
-        vs = pmesh.all_gather(v, lane_axis, tiled=False)  # (L, d_local, kb)
+        vs = lane_gather(v)  # (L, d_local, kb)
         w = matvec(v)
         coef = _psum_if(torch.einsum("jdb,dc->jbc", vs, w), axis_name) * below
         w = w - torch.einsum("jdb,jbc->dc", vs, coef)
@@ -288,7 +295,7 @@ def dist_deflation_eig(
             iters_used += int(active)
             residual, worst = _host_residuals(
                 torch.stack([res, pmesh.pmax(res, lane_axis)]))
-    vs = pmesh.all_gather(v, lane_axis, tiled=False)  # the finishing gather
+    vs = lane_gather(v)  # the finishing gather
     flat = _qr2(_lanes_to_flat(vs), axis_name)
     out = dist_rayleigh_ritz(flat, matvec(flat), axis_name)[:, :k]
     if with_info:
@@ -354,15 +361,9 @@ def dist_merged_top_k_deflation(
     in :func:`~.distributed.dist_merged_top_k`, then the lanes batched on
     each rank (:func:`deflation_eig`) with the rows over ``features``.
     Returns this rank's ``(d_local, k)`` rows; an all-masked round returns
-    zeros. The ring collectives and wire codecs are not ported yet
-    (ROADMAP.md Queue 1 item 15)."""
-    _refuse_wire(collectives, wire_dtype)
-    c = pmesh.all_gather(torch.as_tensor(v_workers).float(), pmesh.WORKER_AXIS)
-    if mask is None:
-        w = torch.ones((c.shape[0],), dtype=torch.float32, device=c.device)
-    else:
-        w = pmesh.all_gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device),
-                             pmesh.WORKER_AXIS)
+    zeros. ``collectives`` and ``wire_dtype`` choose how the factors are
+    gathered, as in ``dist_merged_top_k``."""
+    c, w = _gathered_worker_factors(v_workers, mask, collectives, wire_dtype)
     alive = torch.sum(w) > 0
     cc = _scaled_factor_concat(c, w)
     out = deflation_eig(

@@ -35,16 +35,17 @@ axis_index)``, so the global start is those shards stacked). Without it
 the block is drawn from ``torch.Generator().manual_seed(0)`` on the CPU
 (:func:`~..ops.linalg.initial_basis`), the same start on every device; on
 a mesh each rank takes its rows of the global start. The trainers pass one
-drawn from ``cfg.seed`` (``algo.step.merge_start``). The wire codecs and
-the ring collectives (``collectives=`` / ``wire_dtype=``) are not ported
-yet (ROADMAP.md Queue 1 item 15).
+drawn from ``cfg.seed`` (``algo.step.merge_start``). The merges'
+worker factor-stack gather, the solve's one d-wide payload, takes
+``collectives="ring"`` (``parallel/ring.py``) or a wire codec
+(``wire_dtype``, ``parallel/wire.py``, one-shot lossy: every sum and the
+mask gather stay fp32), not both.
 """
 
 from __future__ import annotations
 
 import torch
 
-from distributed_eigenspaces_tpu_torch.config import _not_ported
 from distributed_eigenspaces_tpu_torch.device import resolve_device
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     canonicalize_signs,
@@ -63,6 +64,8 @@ from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
 from distributed_eigenspaces_tpu_torch.parallel.feature_sharded import (
     chol_qr2 as dist_chol_qr2,
 )
+from distributed_eigenspaces_tpu_torch.parallel.ring import ring_all_gather
+from distributed_eigenspaces_tpu_torch.parallel.wire import wire_all_gather
 
 __all__ = [
     "dist_canonicalize_signs",
@@ -77,15 +80,30 @@ __all__ = [
     "subspace_residual",
 ]
 
-_WIRE = "Queue 1 item 15 (parallel/wire.py, parallel/ring.py)"
-
-
-def _refuse_wire(collectives: str, wire_dtype: str) -> None:
-    if collectives != "xla" or wire_dtype != "fp32":
-        raise _not_ported(
-            f"collectives={collectives!r} / wire_dtype={wire_dtype!r} (the "
-            "ring collectives and wire codecs)", _WIRE,
+def _gathered_worker_factors(v_workers, mask, collectives: str, wire_dtype: str):
+    """The merges' prologue on a ``(workers, features)`` mesh: every
+    worker's factors ``(m, d_local, kf)``, gathered over ``workers`` by
+    the process group (``collectives="xla"``), the explicit ring, or in
+    the wire dtype, and the ``(m,)`` fp32 weights (ones without a mask)."""
+    if collectives not in ("xla", "ring"):
+        raise ValueError(f"unknown collectives mode: {collectives!r}")
+    if wire_dtype != "fp32" and collectives != "xla":
+        raise ValueError(
+            "wire_dtype compression needs collectives='xla' (the "
+            "ring route has no codec path)"
         )
+    gather = ring_all_gather if collectives == "ring" else pmesh.all_gather
+    x = torch.as_tensor(v_workers).float()
+    if wire_dtype != "fp32":
+        c = wire_all_gather(x, pmesh.WORKER_AXIS, wire_dtype)
+    else:
+        c = gather(x, pmesh.WORKER_AXIS)
+    if mask is None:
+        w = torch.ones((c.shape[0],), dtype=torch.float32, device=c.device)
+    else:
+        w = gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device),
+                   pmesh.WORKER_AXIS)
+    return c, w
 
 
 def _qr2(v: torch.Tensor, axis_name) -> torch.Tensor:
@@ -323,17 +341,12 @@ def dist_merged_top_k(
     start ``v_init`` the whole ``(d, k')`` block (default: drawn from seed
     0), ``v0`` this rank's rows of a warm basis.
     Returns this rank's ``(d_local, k)`` rows, the same on every workers
-    rank; an all-masked round returns zeros. The ring collectives and wire
-    codecs (``collectives`` other than ``"xla"``, ``wire_dtype`` other than
-    ``"fp32"``) are not ported yet (ROADMAP.md Queue 1 item 15)."""
-    _refuse_wire(collectives, wire_dtype)
-    c = pmesh.all_gather(torch.as_tensor(v_workers).float(), pmesh.WORKER_AXIS)
-    m_total, d_local = c.shape[0], c.shape[1]
-    if mask is None:
-        w = torch.ones((m_total,), dtype=torch.float32, device=c.device)
-    else:
-        w = pmesh.all_gather(torch.as_tensor(mask, dtype=torch.float32).to(c.device),
-                             pmesh.WORKER_AXIS)
+    rank; an all-masked round returns zeros. ``collectives="ring"`` gathers
+    the factors and the mask over an explicit ring; ``wire_dtype`` (fp32,
+    bf16 or int8, with ``collectives="xla"`` only) ships the factor gather
+    in that codec (``parallel/wire.py``)."""
+    c, w = _gathered_worker_factors(v_workers, mask, collectives, wire_dtype)
+    d_local = c.shape[1]
     alive = torch.sum(w) > 0
     cc = _scaled_factor_concat(c, w)
     if oversample is None:

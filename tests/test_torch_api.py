@@ -274,6 +274,7 @@ def test_new_modules_import_without_jax():
         "import distributed_eigenspaces_tpu_torch.solvers.deflation\n"
         "import distributed_eigenspaces_tpu_torch.serving.drift\n"
         "import distributed_eigenspaces_tpu_torch.serving.replication\n"
+        "from distributed_eigenspaces_tpu_torch.parallel import multihost, ring, topology, wire\n"
         "from distributed_eigenspaces_tpu_torch import algo, data, ops\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributed_eigenspaces_tpu')]\n"
@@ -293,6 +294,10 @@ def test_new_entry_points_run_on_the_card_unless_asked(monkeypatch):
         dett.one_shot_round(x, K)
     with pytest.raises(RuntimeError, match="cuda"):
         tsolvers.deflation_eig(lambda v: v, D, K, lanes=1)
+    from distributed_eigenspaces_tpu_torch.parallel import topology
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        topology.init_wire_residuals(topology.MergeTopology((("a", 2),)), ("int8",), 8, 2, 2)
     from distributed_eigenspaces_tpu_torch.serving import DriftMonitor, EigenbasisRegistry
 
     reg = EigenbasisRegistry()
@@ -308,7 +313,7 @@ def test_new_entry_points_run_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("trainer,item", [("sketch", "items 15 and 9f"),
-                                          ("fleet", "items 15 and 9f")])
+                                          ("fleet", "items 15b and 9f")])
 def test_unported_trainers_name_their_items(trainer, item):
     assert trainer in TRAINERS
     JaxPCA(JaxConfig(**_kw()), trainer=trainer)  # the reference accepts the name
@@ -352,3 +357,60 @@ def test_per_step_route_takes_float_blocks_under_an_int8_stage(route):
     staged, plain = run(True), run(False)
     assert torch.equal(staged.state.sigma_tilde, plain.state.sigma_tilde)
     assert torch.equal(staged.components_, plain.components_)
+
+
+# -- the hierarchical merge through the estimator ----------------------------------
+
+TREE = (("chip", 2), ("host", 2))
+
+
+@pytest.mark.parametrize("trainer", ["scan", "step"])
+def test_estimator_with_a_merge_topology_matches_the_reference(trainer):
+    """The stacked route (``backend="local"``): every merge the tree of
+    ``parallel/topology.py``, against the reference's estimator with the
+    same topology (fit tolerances)."""
+    spec, data = _data()
+    kw = _kw(merge_topology=TREE)
+    jest = JaxPCA(JaxConfig(**kw), trainer=trainer).fit(data)
+    est = dett.OnlineDistributedPCA(PCAConfig(**kw), device="cpu", trainer=trainer,
+                                    v0=_v0()).fit(data)
+    assert est.trainer_used_ == trainer
+    np.testing.assert_allclose(est.state.sigma_tilde.numpy(),
+                               np.asarray(jest.state.sigma_tilde), atol=SIGMA_ATOL, rtol=0)
+    assert _angle(est.components_, jest.components_) <= FIT_DEG
+    assert _angle(est.components_, spec.top_k(K)) < 1.0
+
+
+def test_estimator_without_a_topology_is_the_flat_fit_bit_for_bit():
+    """``merge_topology=None`` and a one-tier topology both run the flat
+    merge: the same bits as the estimator without the field set."""
+    _, data = _data()
+    fits = {}
+    for name, kw in (("default", _kw()), ("none", _kw(merge_topology=None)),
+                     ("one_tier", _kw(merge_topology=(("all", M),)))):
+        est = dett.OnlineDistributedPCA(PCAConfig(**kw), device="cpu", v0=_v0()).fit(data)
+        fits[name] = (est.state.sigma_tilde, est.components_)
+    for name in ("none", "one_tier"):
+        assert torch.equal(fits[name][0], fits["default"][0]), name
+        assert torch.equal(fits[name][1], fits["default"][1]), name
+
+
+def test_estimator_with_a_merge_topology_on_two_ranks_matches_the_reference(tmp_path):
+    """``backend="shard_map"`` on two gloo ranks (each solving two of the
+    four workers, the factors gathered, then the stacked tree) against the
+    reference's estimator on a workers mesh, and every rank's state equal
+    to rank 0's."""
+    import torch_tree_ranks as ranks
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    spec, data = _data()
+    kw = _kw(merge_topology=TREE)
+    out = pmesh.launch(ranks.shard_map_estimator, 2, dict(kw, backend="shard_map"), data,
+                       _v0(), workdir=str(tmp_path), timeout=180.0)
+    jest = JaxPCA(JaxConfig(**dict(kw, backend="shard_map"))).fit(data)
+    for got in out:
+        assert got["trainer"] == "scan"
+        np.testing.assert_allclose(got["sigma"], np.asarray(jest.state.sigma_tilde),
+                                   atol=SIGMA_ATOL, rtol=0)
+        assert _angle(got["w"], jest.components_) <= FIT_DEG
+        np.testing.assert_array_equal(got["sigma"], out[0]["sigma"])

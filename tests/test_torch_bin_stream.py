@@ -107,8 +107,11 @@ def test_bin_block_stream_rejects_like_the_reference(tmp_path):
     tail = _file(tmp_path, _rows(STEP + 3), "tail.bin")
     with pytest.raises(ValueError, match="remainder rows"):
         list(tbs.bin_block_stream(tail, remainder="error", **kw))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        list(tbs.bin_block_stream(path, worker_range=(0, 1), **kw))
+    for mod in (tbs, jbs):  # the multi-host read's refusals
+        with pytest.raises(ValueError, match="worker_range"):
+            list(mod.bin_block_stream(path, worker_range=(1, 1), **kw))
+        with pytest.raises(ValueError, match="remainder='drop' only"):
+            list(mod.bin_block_stream(path, worker_range=(0, 1), remainder="pad", **kw))
     bad = str(tmp_path / "bad.bin")
     np.zeros(D * 3 + 1, np.float32).tofile(bad)
     with pytest.raises(ValueError, match="whole number"):

@@ -194,13 +194,14 @@ def test_merged_top_k_deflation_all_masked_zeros(rng):
 
 
 def test_mesh_variants_name_the_roadmap():
-    # the mesh variants are ported (tests/test_torch_mesh_solvers.py); their
-    # wire codecs and ring collectives still name their item
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tdefl.dist_deflation_eig(None, D, K, lanes=LANES, wire_dtype="int8")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    # the mesh variants are ported (tests/test_torch_mesh_solvers.py), their
+    # wire codecs and ring collectives too; a codec with the ring is
+    # refused and an unknown codec named, as in the reference
+    with pytest.raises(ValueError, match="unknown wire dtype"):
+        tdefl.dist_deflation_eig(None, D, K, lanes=LANES, wire_dtype="fp8")
+    with pytest.raises(ValueError, match="collectives='xla'"):
         tdefl.dist_merged_top_k_deflation(torch.zeros((4, D, K)), K, lanes=LANES,
-                                          collectives="ring")
+                                          collectives="ring", wire_dtype="int8")
 
 
 # -- elastic k ----------------------------------------------------------------

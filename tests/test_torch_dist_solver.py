@@ -36,6 +36,7 @@ from distributed_eigenspaces_tpu_torch.api.estimator import resolves_feature_sha
 from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.solvers import distributed as tdist
 
 ANGLE_DEG = 1e-3
@@ -200,15 +201,16 @@ def test_operators_and_signs_match(rng):
 def test_mesh_solves_name_the_roadmap():
     tc = torch.zeros((8, 2))
     # the mesh solves are ported (tests/test_torch_mesh_solvers.py); an axis
-    # name resolves against the active mesh, and the wire codecs and ring
-    # collectives still name their item
+    # name resolves against the active mesh; the wire codecs refuse the
+    # ring collectives and an unknown codec, as the reference does
     with pytest.raises(RuntimeError, match="mesh_scope"):
         tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, axis_name="features",
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tdist.dist_merged_top_k(tc[None], 1, wire_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tdist.dist_merged_top_k(tc[None], 1, collectives="ring")
+    with pytest.raises(ValueError, match="collectives='xla'"):
+        tdist.dist_merged_top_k(tc[None], 1, wire_dtype="bf16", collectives="ring")
+    with pytest.raises(ValueError, match="unknown wire dtype"):
+        with pmesh.mesh_scope(pmesh.local_mesh("cpu")):
+            tdist.dist_merged_top_k(tc[None], 1, wire_dtype="fp8")
     with pytest.raises(ValueError, match="axis_name=None"):
         tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, axis_name="features",
                                 matvec_gram=tdist.fused_factor_matvec(tc))

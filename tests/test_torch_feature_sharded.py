@@ -316,15 +316,14 @@ def test_trainers_on_two_ranks_match_the_reference(tmp_path):
 
 
 def test_auto_feature_mesh_and_refusals():
-    """No group: the ``(1, 1)`` layout (None); the ring collectives and an
-    explicit multi-rank ``mesh_shape`` without a group are refused loudly;
-    a rank below k is refused as in the reference."""
+    """No group: the ``(1, 1)`` layout (None); an explicit multi-rank
+    ``mesh_shape`` without a group is refused loudly; the ring collectives
+    are accepted; a rank below k is refused as in the reference."""
     cfg = PCAConfig(**BASE)
     assert pmesh.auto_feature_mesh(cfg, "cpu") is None
     with pytest.raises(ValueError, match="process group"):
         pmesh.auto_feature_mesh(PCAConfig(**BASE, mesh_shape={"features": 2}), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        PCAConfig(**BASE, collectives="ring")
+    assert PCAConfig(**BASE, collectives="ring").collectives == "ring"
     with pytest.raises(ValueError, match="rank=2 must be >= k"):
         tfs.make_feature_sharded_step(cfg, device="cpu", rank=2)
     with pytest.raises(ValueError, match="unknown collectives"):

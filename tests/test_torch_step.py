@@ -116,9 +116,15 @@ def test_state_carried_across_by_interop_matches():
 
 
 def test_config_from_jax_refuses_unported_settings():
-    jcfg = JaxConfig(**SMALL, merge_topology=(("chip", 2), ("host", 2)))
-    with pytest.raises(NotImplementedError, match="merge_topology"):
+    jcfg = JaxConfig(**SMALL, compile_cache_dir="cache")
+    with pytest.raises(NotImplementedError, match="compile_cache_dir"):
         interop.config_from_jax(dataclasses.asdict(jcfg))
+    # the hierarchical merge's knobs carry over in the reference's normal form
+    jcfg = JaxConfig(**SMALL, merge_topology=(("chip", 2), ("host", 2)),
+                     merge_wire_dtype={"host": "int8"})
+    got = interop.config_from_jax(dataclasses.asdict(jcfg))
+    assert got.merge_topology == jcfg.merge_topology
+    assert got.merge_wire_dtype == jcfg.merge_wire_dtype == (("host", "int8"),)
     # the steady-state knobs carry over (ported with the whole-fit trainers);
     # prefetch_depth is dropped: the port always prefetches one window
     got = interop.config_from_jax(dataclasses.asdict(JaxConfig(
