@@ -154,6 +154,56 @@ exits non-zero without printing a result:
    bit-equal across ranks, ppermute hops and bytes printed. Cuts: m=4 (one
    worker a rank), gloo through host memory instead of NVLink, four ranks
    standing in for cards.
+5o. slice_fleet_eval: the multi-tenant fleet, 8 tenants (one full bucket),
+   each the mnist784 eval's settings field for field on its own
+   ``planted_subspace(784, seed=b)``, ``backend="local"`` and fp32 staging
+   (the reference fleet's own): ``parallel.fleet.fit_fleet`` from host
+   arrays makes exactly one Gram launch (the bf16 TMA kernel at (64, 1024,
+   784)); each tenant within 1 degree of its planted top-20 and 0.2 degrees
+   of the port's solo scan fit on the same blocks and start; the fleet
+   program's kernels (``torch.profiler``) at most 1.5 times one solo fit's;
+   fits/s of the fleet program and of the 8 solo fits one after another
+   (both on stacks on the card, median of 3; bench.py --fleet's A/B) and of
+   ``fit_fleet`` from host arrays; syncs of each. Both sides solve their
+   33- to 256-wide eigenproblems by one batched cuSOLVER call
+   (``ops.cusolver.eigh``); the same programs again with torch's
+   per-matrix ``eigh`` (times, angles; kernels in
+   ``scripts/torch_profile_eigh.py``) give the eigensolver's share apart
+   from the batching's. Then the Gram kernel at
+   (64, 1024, 784) bf16 against its plain version (<= 1e-4 relative), its
+   one-call and device time beside the bound and ``torch.bmm(...,
+   out_dtype=float32)``.
+5p. slice_fleet_solo: ``OnlineDistributedPCA(trainer="fleet")`` on the
+   cifar10 eval's settings and data (a one-tenant fleet, fp32 staging):
+   within 1 degree of the planted top-10 and 0.2 degrees of
+   ``trainer="scan"`` on the same blocks (its bf16 stage) and start, one
+   bf16 TMA Gram launch at (8, 1024, 3072); the eval's int8-stage scan
+   beside it.
+5q. slice_fleet_server: ``FleetServer`` at the fleet's settings,
+   ``prewarm()`` and ``wait_warm()``, then 11 submits: a full bucket of 8
+   and 3 flushed after ``fleet_flush_s`` and padded to 8; both buckets
+   resolve, one Gram launch each, every served result equal to
+   ``fit_fleet`` called directly (rtol 1e-5, atol 1e-6), the first
+   bucket's ``compile_ms`` 0.0; each bucket's ``compile_ms``, queue waits
+   and seconds printed. Tenant 0 of the direct result ``publish_fleet``-ed
+   (lineage ``fit_fleet`` / tenant / signature) and served through
+   ``QueryServer`` at bf16: a 64-query burst, every row within 0.2 degrees
+   of the direct fp32 projection, one serve launch a dispatch.
+5r. slice_clients: ``make_population_merge`` at the reference bench's
+   population shape (d=64, k=4, cohort 256, ``max_poison_frac=0.08``), 12
+   cohorts of honest summaries (noise 0.1) with 13 colluders submitting one
+   orthonormal basis orthogonal to the planted one, folded: hardened within
+   5 degrees of the planted basis, the naive mean at least twice as far,
+   every colluder screened; merge ms.
+5s. slice_fleet_ranks2: two gloo ranks sharing the card: 5o's fleet on a
+   fleet mesh of 2 (four tenants a rank), the recorder showing no
+   collective inside the fit and one all-gather of the results after it,
+   each tenant within 0.01 degrees of the one-process fleet, one Gram
+   launch a rank; ``make_sharded_cohort_reduce`` on 5r's first cohort at
+   fp32 and at a bf16 wire: one stack gather in the wire dtype and one fp32
+   mask gather, bit-equal across ranks, fp32 within 1e-3 degrees of the
+   one-process merge. Cut: 2 ranks stand in for a fleet axis of cards; the
+   gathers cross host memory.
 6. parity_serve: the serve kernels (bf16, int8 and the fixed-order fp32
    one) against their plain versions at (64, 256, 8), the CIFAR-10 serve
    shape (512, 3072, 10), a ragged (1000, 3000, 10) and the bulk (65536,
@@ -441,6 +491,29 @@ TREE_ARM_DEG = 0.2  # tests/test_topology.py:220-231, tests/test_wire.py:305-331
 RING_MESH = {"workers": 1, "features": 4}
 RING_ATOL = 5e-4  # tests/test_ring.py:101-137
 RING_DEG = 0.01
+# the multi-tenant fleet: fleet_bucket_size's default (one full bucket) of
+# tenants, each the mnist784 eval's settings field for field
+# (distributed_eigenspaces_tpu/evals.py:96-102), backend "local" (the fleet
+# axis is the data-parallel axis, as the reference bench's _fleet_cfg has it)
+FLEET_B = 8
+FLEET_FIT = dict(MNIST_FIT, backend="local")
+FLEET_GRAM = (FLEET_B * MNIST_FIT["num_workers"], MNIST_FIT["rows_per_worker"],
+              MNIST_FIT["dim"])  # one cold step's worker batch: (64, 1024, 784)
+FLEET_SOLO_DEG = 0.2  # a tenant against its solo fit (tests/test_fleet.py:87)
+FLEET_REPS = 3  # timed reps a side of the fleet / sequential A/B (bench.py --fleet)
+FLEET_LAUNCH_RATIO = 1.5  # a fleet fit's kernels against one solo fit's, at most
+FLEET_SERVER_EXTRA = 3  # requests after the full bucket: flushed on the deadline
+FLEET_QUERIES = 64  # the published tenant's burst, of 1, 8 or 64 rows
+FLEET_RANK_DEG = 0.01  # a two-rank fleet's tenant against the one-process fleet's
+# the reference bench's population shape (bench.py:2241-2256) and its
+# orthonormal colluders (gate 2): 5% of a cohort of 256, honest clients at
+# runtime/population.py's noise, 12 rounds folded
+POP_FIT = dict(dim=64, k=4, num_workers=8, rows_per_worker=16, num_steps=12,
+               backend="local", cohort_size=256, max_poison_frac=0.08)
+POP_POISON = round(0.05 * POP_FIT["cohort_size"])
+POP_NOISE = 0.1
+POP_BUDGET_DEG = 5.0  # the bench's angle budget
+COHORT_RANK_DEG = 1e-3  # the two-rank fp32 reduce against the one-process merge
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -3036,6 +3109,544 @@ def slice_mesh_ranks2(dev, card: str, mesh_eval: dict, work_dir: str) -> dict:
             "bf16": sum(o["bf16"]["counts"]["tma"] for o in out)}
 
 
+def fleet_problems(dev, seeds) -> list:
+    """Per seed b, ``(spec, (T, m, n, d) host float32)``: a tenant of the
+    fleet phases on its own ``planted_subspace(784, seed=b)`` of mnist784's
+    data settings, drawn on ``dev`` from a generator seeded b."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+
+    m, n, d, T = (MNIST_FIT[f] for f in ("num_workers", "rows_per_worker", "dim",
+                                         "num_steps"))
+    out = []
+    for b in seeds:
+        spec = dett.planted_subspace(d, **dict(MNIST_DATA, seed=b))
+        x = spec.sample(torch.Generator(device=dev).manual_seed(b), T * m * n)
+        out.append((spec, x.reshape(T, m, n, d).cpu().numpy()))
+        del x
+    return out
+
+
+def profiled_launches(fn) -> dict:
+    """What one call of ``fn`` runs on the card, from ``torch.profiler``:
+    its kernel events (copies, memsets and the ``det_*`` regions apart; the
+    window opens with ``profiler_warm``'s 8 kernels, counted in every
+    window alike) and the runtime's launch calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warm("cuda")
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset", "det_"))]
+    runtime = sum(1 for e in events if e.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    return {"kernels": len(kernels), "runtime_launch_calls": runtime,
+            "copies": sum(1 for e in events if e.device_type == DeviceType.CUDA
+                          and e.name.startswith("Memcpy"))}
+
+
+def slice_fleet_eval(dev, card: str) -> dict:
+    """The multi-tenant fleet on the card: 8 tenants, each the mnist784 eval
+    field for field on its own planted data, through ``fit_fleet`` (fp32
+    staging, one copy of the stack). Each tenant within 1 degree of its
+    planted top-20 and 0.2 degrees of the port's solo scan fit on the same
+    blocks and start; one Gram launch (the bf16 TMA kernel at (64, 1024,
+    784)) for the whole fit; the fleet program's kernels at most 1.5 times
+    one solo fit's. Fits/s of the fleet program and of the 8 solo fits one
+    after another, both on stacks already on the card (bench.py --fleet's
+    A/B), and of ``fit_fleet`` from host arrays. Then the Gram kernel at the
+    fleet's shape against its plain version, timed beside ``torch.bmm``.
+    Both sides solve every eigenproblem from 33 to 256 wide by the batched
+    cuSOLVER call (``ops.cusolver.eigh``), so the A/B measures the
+    batching; the same programs are then run and timed with torch's
+    per-matrix ``eigh`` to measure the eigensolver's share apart."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
+    from distributed_eigenspaces_tpu_torch.ops import cusolver
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops.linalg import (
+        initial_basis,
+        principal_angles_degrees,
+    )
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+    cfg = dett.PCAConfig(**FLEET_FIT)
+    d, k, m, n, T = fleet.fleet_signature(cfg)
+    tenants, data_s = synced_s(lambda: fleet_problems(dev, range(FLEET_B)))
+    probs = [p for _, p in tenants]
+    cache: dict = {}
+    zero_counts()
+    res, first_s = synced_s(lambda: fleet.fit_fleet(cfg, probs, mesh=None, fit_cache=cache))
+    counts = read_counts()
+    # the fleet program and the solo scan, on the stack already on the card
+    batch = res.batch
+    xs = torch.from_numpy(batch.xs).to(dev)
+    fit, extract, _ = fleet.acquire_fleet_programs(cfg, None, masked=False, b_pad=FLEET_B,
+                                                   fit_cache=cache, device=dev)
+    v_cold = initial_basis(d, k, seed=cfg.seed, device=dev)
+    solo = dett.make_scan_fit(cfg, device=dev, v0=v_cold)
+
+    def fleet_program():
+        st, _ = fit(fleet.init_fleet_states(cfg, FLEET_B, device=dev), xs, batch.actives)
+        return st, extract(st.sigma_tilde)
+
+    def solo_fit(b):
+        st, _ = solo(dett.OnlineState.initial(d, device=dev), xs[b])
+        return st, extract_dense(cfg, st.sigma_tilde, v0=v_cold)
+
+    def sequential():
+        return [solo_fit(b) for b in range(FLEET_B)]
+
+    fleet_program()
+    seq = sequential()
+    zero_counts()
+    (st_f, w_f), _ = synced_s(fleet_program)
+    program_counts = read_counts()
+    times = {"fit_fleet": [], "fleet_program": [], "sequential": []}
+    for _ in range(FLEET_REPS):
+        times["fit_fleet"].append(synced_s(
+            lambda: fleet.fit_fleet(cfg, probs, mesh=None, fit_cache=cache))[1])
+        times["fleet_program"].append(synced_s(fleet_program)[1])
+        times["sequential"].append(synced_s(sequential)[1])
+    med = {key: statistics.median(v) for key, v in times.items()}
+    fleet_launch = profiled_launches(fleet_program)
+    solo_launch = profiled_launches(lambda: solo_fit(0))
+    _, fleet_syncs = counted_syncs(fleet_program)
+    _, solo_syncs = counted_syncs(lambda: solo_fit(0))
+    # the eigensolver's share: the same programs with torch's eigh, which
+    # loops one syevj a matrix above 32 wide, in place of the batched call
+    saved_eigh = cusolver.eigh
+    cusolver.eigh = torch.linalg.eigh
+    try:
+        (_, w_te), _ = synced_s(fleet_program)
+        seq_te = sequential()
+        te_times = {"fleet_program": [], "sequential": []}
+        for _ in range(FLEET_REPS):
+            te_times["fleet_program"].append(synced_s(fleet_program)[1])
+            te_times["sequential"].append(synced_s(sequential)[1])
+    finally:
+        cusolver.eigh = saved_eigh
+    te_med = {key: statistics.median(v) for key, v in te_times.items()}
+    torch_eigh = dict(
+        times=te_times, fleet_program_s=te_med["fleet_program"],
+        sequential_s=te_med["sequential"],
+        fleet_deg=[float(principal_angles_degrees(w_f[b].cpu(), w_te[b].cpu()).max())
+                   for b in range(FLEET_B)],
+        solo_deg=[float(principal_angles_degrees(seq[b][1].cpu(), seq_te[b][1].cpu()).max())
+                  for b in range(FLEET_B)],
+        tenant_to_solo_deg=[float(principal_angles_degrees(w_te[b].cpu(),
+                                                           seq_te[b][1].cpu()).max())
+                            for b in range(FLEET_B)])
+    del xs, seq_te
+    truth_deg, solo_deg, sigma_rel, program_deg = [], [], [], []
+    for b, (spec, _) in enumerate(tenants):
+        w = torch.from_numpy(res.components[b])
+        truth_deg.append(basis_angle(w, spec))
+        solo_deg.append(float(principal_angles_degrees(w, seq[b][1].cpu()).max()))
+        sigma_rel.append(rel_err(res.states.sigma_tilde[b], seq[b][0].sigma_tilde))
+        program_deg.append(float(principal_angles_degrees(w, w_f[b].cpu()).max()))
+    del seq
+    # the Gram kernel at the fleet's cold-step shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(FLEET_GRAM, generator=gen, device=dev).to(torch.bfloat16)
+    got, want = gram_mod.gram_cuda(x), gram_mod.gram_plain(x)
+    rel = rel_err(got, want)
+    gram = dict(ms=time_ms(lambda: gram_mod.gram_cuda(x)),
+                device_ms=device_ms(lambda: gram_mod.gram_cuda(x)),
+                plain_ms=time_ms(lambda: gram_mod.gram_plain(x)),
+                bmm_ms=time_ms(lambda: torch.bmm(x.mT, x)),
+                kernel=gram_mod.gram_launch(*FLEET_GRAM, torch.bfloat16).kernel)
+    gram["bound_ms"], gram["bound_by"] = gram_bound(FLEET_GRAM, "bfloat16")
+    probe = bf16_out_fp32(torch.bmm, x.mT, x)
+    if isinstance(probe, str):
+        gram.update(library_ms=None, library_device_ms=None, library_note=probe)
+    else:
+        yard = lambda: bf16_out_fp32(torch.bmm, x.mT, x)  # noqa: E731
+        gram.update(library_ms=time_ms(yard), library_device_ms=device_ms(yard, launches=None),
+                    library="torch.bmm(x.mT, x, out_dtype=torch.float32)")
+    max_abs = float((got - want).abs().max().item())
+    del x, got, want, probe
+    samples = FLEET_B * T * m * n
+    emit("slice_fleet_eval",
+         config=f"{FLEET_B} tenants, each the mnist784 eval (evals.py:96-102) field for "
+                "field: d=784 k=20 m=8 n=1024 T=20 subspace 16 cold / 2 warm bf16, warm "
+                "ns; backend local, fp32 staging (the reference fleet's own)",
+         data="per tenant b: planted_subspace(784, "
+              + ", ".join(f"{a}={v}" for a, v in MNIST_DATA.items() if a != "seed")
+              + ", seed=b)",
+         data_s=data_s, gram_calls=counts, program_gram_calls=program_counts,
+         first_fit_fleet_s=first_s, first_compile_ms=res.compile_ms,
+         fit_fleet_s=med["fit_fleet"], fleet_program_s=med["fleet_program"],
+         sequential_s=med["sequential"], times=times,
+         fleet_fits_per_s=FLEET_B / med["fleet_program"],
+         sequential_fits_per_s=FLEET_B / med["sequential"],
+         fit_fleet_fits_per_s=FLEET_B / med["fit_fleet"],
+         fleet_speedup=med["sequential"] / med["fleet_program"],
+         fleet_samples_per_s=samples / med["fleet_program"],
+         launches=dict(fleet_program=fleet_launch, solo_fit=solo_launch,
+                       ratio=fleet_launch["kernels"] / solo_launch["kernels"]),
+         syncs=dict(fleet_program=fleet_syncs, solo_fit=solo_syncs),
+         torch_eigh=torch_eigh,
+         angle_to_truth_deg=truth_deg, angle_to_solo_deg=solo_deg,
+         sigma_rel_to_solo=sigma_rel, fit_fleet_vs_program_deg=program_deg,
+         gram=dict(gram, shape=list(FLEET_GRAM), rel_frobenius=rel, max_abs_err=max_abs,
+                   tol=TOL["bfloat16"]),
+         card=card)
+    check(counts["gram"] == 1 and counts["tma"] == 1 and counts["s8"] == 0,
+          f"fleet_eval: Gram launches {counts}, want one bf16 TMA launch for the fleet")
+    check(program_counts["tma"] == 1, f"fleet_eval: the program's Gram {program_counts}")
+    check(max(truth_deg) <= 1.0, f"fleet_eval: a tenant {max(truth_deg)} deg from its truth")
+    check(max(solo_deg) <= FLEET_SOLO_DEG, f"fleet_eval: {max(solo_deg)} deg from solo")
+    check(fleet_launch["kernels"] <= FLEET_LAUNCH_RATIO * solo_launch["kernels"],
+          f"fleet_eval: {fleet_launch['kernels']} kernels for the fleet against "
+          f"{solo_launch['kernels']} for one solo fit")
+    check(rel <= TOL["bfloat16"], f"fleet_eval: Gram at {FLEET_GRAM} {rel} > 1e-4")
+    check(bool(np.isfinite(res.components).all()), "fleet_eval: components not finite")
+    return {"tma": counts["tma"], "result": res, "tenants": tenants,
+            "gram": dict(gram, max_abs_err=max_abs)}
+
+
+def slice_fleet_server(dev, card: str, ev: dict) -> dict:
+    """``FleetServer`` on the same per-tenant config: ``prewarm()`` then
+    ``wait_warm()``, then 11 submits, one full bucket and 3 flushed on the
+    deadline and padded to 8. Every served result equals ``fit_fleet``
+    called directly; the first bucket acquired nothing. Then tenant 0 of the
+    direct result is ``publish_fleet``-ed and served through ``QueryServer``
+    at bf16, a 64-query burst whose rows lie within 0.2 degrees of the direct
+    fp32 projection. Returns the Gram and serve-kernel launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+    from distributed_eigenspaces_tpu_torch.serving import EigenbasisRegistry, QueryServer
+
+    cfg = dett.PCAConfig(**FLEET_FIT)
+    extra = fleet_problems(dev, range(FLEET_B, FLEET_B + FLEET_SERVER_EXTRA))
+    probs = [p for _, p in ev["tenants"]] + [p for _, p in extra]
+    zero_counts()
+    t0 = time.perf_counter()
+    with fleet.FleetServer(cfg, device=dev) as srv:
+        construct_s = time.perf_counter() - t0
+        pw = srv.prewarm()
+        warm_ok, warm_s = synced_s(lambda: srv.wait_warm(timeout=600))
+        t0 = time.perf_counter()
+        tickets = [srv.submit(p) for p in probs]
+        served = [t.result(timeout=600) for t in tickets]
+        burst_s = time.perf_counter() - t0
+        log = [dict(b) for b in srv.bucket_log]
+        warm_stats = pw.stats()
+    counts = read_counts()
+    direct_full = ev["result"].components
+    direct_pad = fleet.fit_fleet(cfg, probs[FLEET_B:], mesh=None, pad_to=FLEET_B).components
+    direct = list(direct_full) + list(direct_pad)
+    diffs = [float(np.abs(s - w).max()) for s, w in zip(served, direct)]
+    close = all(np.allclose(s, w, rtol=1e-5, atol=1e-6) for s, w in zip(served, direct))
+    # tenant 0 of the direct result published and served at bf16
+    reg = EigenbasisRegistry(keep=4)
+    bv = reg.publish_fleet(ev["result"], 0)
+    spec0 = ev["tenants"][0][0]
+    rng = np.random.default_rng(5)
+    queries = [spec0.sample(rng, int(r)) for r in rng.choice([1, 8, 64], size=FLEET_QUERIES)]
+    w0 = torch.from_numpy(ev["result"].components[0]).to(dev)
+    ref = [torch.matmul(torch.from_numpy(q).to(dev), w0).cpu() for q in queries]
+    with QueryServer(reg, dataclasses.replace(cfg, serve_dtype="bfloat16")) as qs:
+        dispatches = [0]
+        project = qs.engine.project
+
+        def counted(x, v, project=project, dispatches=dispatches):
+            dispatches[0] += 1
+            return project(x, v)
+
+        qs.engine.project = counted
+        sp.launches = 0
+        t_q = time.perf_counter()
+        replies = [t.result(timeout=300) for t in [qs.submit(q) for q in queries]]
+        query_s = time.perf_counter() - t_q
+        serve_launches = sp.launches
+    angles = torch.cat([row_angles_deg(r.z, z) for r, z in zip(replies, ref)])
+    emit("slice_fleet_server",
+         config=f"FleetServer, bucket {cfg.fleet_bucket_size}, flush {cfg.fleet_flush_s} s; "
+                "per tenant the mnist784 eval's settings",
+         construct_s=construct_s, prewarm=dict(ok=warm_ok, wait_s=warm_s, **warm_stats),
+         submits=len(probs), burst_s=burst_s,
+         buckets=[{key: b[key] for key in ("tenants", "occupancy", "compile_ms",
+                                           "bucket_seconds", "queue_wait_s",
+                                           "bucket_wait_s")} for b in log],
+         gram_calls=counts, served_vs_direct_max_abs=max(diffs), served_equal_direct=close,
+         published=dict(version=bv.version, lineage=dict(bv.lineage), step=bv.step),
+         query_burst=dict(queries=len(replies), rows=int(sum(q.shape[0] for q in queries)),
+                          s=query_s, batches=dispatches[0], serve_launches=serve_launches,
+                          versions=sorted({r.version for r in replies}),
+                          max_angle_deg=float(angles.max())),
+         card=card)
+    check(warm_ok and warm_stats["compiled"] == 1, f"fleet_server: prewarm {warm_stats}")
+    check([b["tenants"] for b in log] == [FLEET_B, FLEET_SERVER_EXTRA],
+          f"fleet_server: buckets {[b['tenants'] for b in log]}")
+    check(log[0]["compile_ms"] == 0.0, f"fleet_server: first bucket {log[0]['compile_ms']} ms")
+    check(close, f"fleet_server: served vs direct {max(diffs)}")
+    check(counts["tma"] == 2 and counts["gram"] == 2 and counts["s8"] == 0,
+          f"fleet_server: Gram launches {counts}, want one a bucket")
+    check(bv.lineage["producer"] == "fit_fleet" and bv.lineage["tenant"] == 0
+          and tuple(bv.lineage["fleet_signature"]) == fleet.fleet_signature(cfg),
+          f"fleet_server: lineage {dict(bv.lineage)}")
+    check(float(angles.max()) <= 0.2, f"fleet_server: served row {float(angles.max())} deg")
+    check(serve_launches == dispatches[0] and serve_launches > 0,
+          f"fleet_server: {serve_launches} serve launches, {dispatches[0]} dispatches")
+    return {"tma": counts["tma"], "serve_bf16": serve_launches}
+
+
+def slice_fleet_solo(dev, card: str, spec, data) -> int:
+    """``OnlineDistributedPCA(trainer="fleet")`` on the cifar10 eval's
+    settings and data: a one-tenant fleet with the fleet's fp32 staging,
+    within 1 degree of the planted top-10 and 0.2 degrees of
+    ``trainer="scan"`` on the same blocks (its bf16 stage, which casts the
+    blocks the fleet casts in-loop) and start, with one Gram launch (the
+    bf16 TMA kernel at (8, 1024, 3072)); beside it the eval's own int8-stage
+    scan. Returns the fleet fit's TMA launches."""
+    import dataclasses
+
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    cfg = dett.PCAConfig(**EVAL_FIT)
+    est = dett.OnlineDistributedPCA(cfg, trainer="fleet")
+    zero_counts()
+    _, fit_s = synced_s(lambda: est.fit(data))
+    counts = read_counts()
+    _, second_s = synced_s(lambda: dett.OnlineDistributedPCA(cfg, trainer="fleet").fit(data))
+    scan = dett.OnlineDistributedPCA(dataclasses.replace(cfg, stage_dtype=None),
+                                     trainer="scan").fit(data)
+    scan_i8 = dett.OnlineDistributedPCA(cfg, trainer="scan").fit(data)
+
+    def deg(a, b):
+        return float(principal_angles_degrees(a.components_.cpu(), b.components_.cpu()).max())
+
+    angle = components_angle(est, spec)
+    to_scan, to_i8 = deg(est, scan), deg(est, scan_i8)
+    emit("slice_fleet_solo",
+         config="cifar10 eval (evals.py:86-90) field for field through "
+                "OnlineDistributedPCA(trainer='fleet'): a one-tenant fleet, fp32 staging",
+         trainer=est.trainer_used_, step=est.state.step, counts=counts, fit_s=fit_s,
+         second_fit_s=second_s, max_angle_deg=angle, angle_to_scan_bf16_stage_deg=to_scan,
+         angle_to_scan_int8_stage_deg=to_i8, scan_angle_deg=components_angle(scan, spec),
+         card=card)
+    check(est.trainer_used_ == "fleet" and est.state.step == cfg.num_steps,
+          f"fleet_solo: trainer {est.trainer_used_}, step {est.state.step}")
+    check(angle <= 1.0, f"fleet_solo: {angle} deg from the planted top-10")
+    check(to_scan <= FLEET_SOLO_DEG, f"fleet_solo: {to_scan} deg from trainer='scan'")
+    check(counts["gram"] == 1 and counts["tma"] == 1 and counts["s8"] == 0,
+          f"fleet_solo: Gram launches {counts}, want one bf16 TMA launch")
+    return counts["tma"]
+
+
+def pop_rounds():
+    """The population phase's cohorts, as ``runtime/population.py`` draws
+    them: per round ``(stack (256, 64, 4) float32, mask)``, the first
+    ``POP_POISON`` clients colluders submitting the same sign-flipped basis
+    orthogonal to the planted one (orthonormal, so it slips the gauntlet),
+    the rest ``QR(planted + noise * eps)`` with deterministic column signs;
+    and the planted basis."""
+    import numpy as np
+
+    d, k, seed = POP_FIT["dim"], POP_FIT["k"], 0
+    rng = np.random.default_rng([seed, 0xBA515])
+    q, _ = np.linalg.qr(rng.standard_normal((d, 2 * k)))
+    planted = np.ascontiguousarray(q[:, :k], np.float32)
+    poison = -np.ascontiguousarray(q[:, k:2 * k], np.float32)
+    rounds = []
+    for rnd in range(POP_FIT["num_steps"]):
+        stack = np.empty((POP_FIT["cohort_size"], d, k), np.float32)
+        stack[:POP_POISON] = poison
+        for c in range(POP_POISON, POP_FIT["cohort_size"]):
+            w = planted + POP_NOISE * np.random.default_rng([seed, rnd, c]).standard_normal(
+                (d, k)).astype(np.float32)
+            qq, r = np.linalg.qr(w)
+            stack[c] = qq * np.sign(np.diag(r))[None, :]
+        rounds.append((stack, np.ones(POP_FIT["cohort_size"], np.float32)))
+    return rounds, planted
+
+
+def slice_clients(dev, card: str) -> dict:
+    """``make_population_merge`` at the reference bench's population shape
+    (d=64, k=4, cohort 256, ``max_poison_frac=0.08``) on cohorts with 5%
+    colluding orthonormal poison (bench gate 2: only the trim and the screen
+    stand against it), 12 rounds folded as ``population_fit`` folds them:
+    the hardened basis within the bench's 5 degrees of the planted one, the
+    naive mean at least twice as far. No hand kernel on this path."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.algo.online import update_state
+    from distributed_eigenspaces_tpu_torch.ops.linalg import (
+        principal_angles_degrees,
+        top_k_eigvecs,
+    )
+    from distributed_eigenspaces_tpu_torch.parallel import clients
+
+    cfg = dett.PCAConfig(**POP_FIT)
+    rounds, planted = pop_rounds()
+    merge = clients.make_population_merge(cfg, device=dev)
+    st_h = dett.OnlineState.initial(cfg.dim, device=dev)
+    st_n = dett.OnlineState.initial(cfg.dim, device=dev)
+    kept, screened_poison, merge_ms, first = [], [], [], None
+    for stack, mask in rounds:
+        s_dev, m_dev = torch.from_numpy(stack).to(dev), torch.from_numpy(mask).to(dev)
+        (v, keep, stats), sec = synced_s(lambda: merge(s_dev, m_dev))
+        merge_ms.append(sec * 1e3)
+        keep = keep.cpu().numpy()
+        kept.append(int(keep.sum()))
+        screened_poison.append(int((keep[:POP_POISON] == 0).sum()))
+        first = v.cpu().numpy() if first is None else first
+        st_h = update_state(st_h, v, discount=cfg.discount, num_steps=cfg.num_steps)
+        st_n = update_state(st_n, clients.naive_mean_basis(s_dev, m_dev, cfg.k),
+                            discount=cfg.discount, num_steps=cfg.num_steps)
+    truth = torch.from_numpy(planted)
+
+    def deg(st):
+        return float(principal_angles_degrees(top_k_eigvecs(st.sigma_tilde, cfg.k).cpu(),
+                                              truth).max())
+
+    hardened, naive = deg(st_h), deg(st_n)
+    emit("slice_clients",
+         config="population merge (bench.py:2241-2256): d=64 k=4 cohort 256, "
+                f"max_poison_frac 0.08, {POP_POISON} orthonormal colluders a cohort, honest "
+                f"noise {POP_NOISE}, {len(rounds)} rounds folded",
+         hardened_angle_deg=hardened, naive_angle_deg=naive,
+         naive_over_hardened=naive / hardened, kept_by_round=kept,
+         screened_by_round=[cfg.cohort_size - n for n in kept],
+         poison_screened_by_round=screened_poison,
+         merge_ms_median=statistics.median(merge_ms), merge_ms=merge_ms, card=card)
+    check(hardened <= POP_BUDGET_DEG, f"clients: hardened {hardened} deg > {POP_BUDGET_DEG}")
+    check(naive >= 2.0 * hardened, f"clients: naive {naive} deg < 2 x hardened {hardened}")
+    check(min(screened_poison) == POP_POISON, f"clients: colluders kept {screened_poison}")
+    stack0, mask0 = rounds[0]
+    return {"stack": stack0, "mask": mask0, "v": first}
+
+
+def fleet_rank_phase(rank: int, world: int, one: dict) -> dict:
+    """One rank of ``slice_fleet_ranks2`` (both on ``cuda:0``, over gloo):
+    ``slice_fleet_eval``'s fleet on a fleet mesh of 2, its tenants 4 a rank,
+    under the collective recorder (none inside the fit; one gather of the
+    results after it), each tenant against the one-process fleet
+    (``one["components"]``); then ``make_sharded_cohort_reduce`` on the
+    population phase's first cohort at fp32 and at a bf16 wire."""
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.parallel import clients, fleet
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(MESH_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = dett.PCAConfig(**FLEET_FIT)
+    probs = [p for _, p in fleet_problems(dev, range(FLEET_B))]
+    mesh = fleet.fleet_mesh(FLEET_B, dev)
+    cache: dict = {}
+    fleet.fit_fleet(cfg, probs[:2 * world], mesh=mesh, fit_cache=cache)  # start-up
+    zero_counts()
+    with pmesh.recording_collectives() as log:
+        res, fit_s = synced_s(lambda: fleet.fit_fleet(cfg, probs, mesh=mesh, fit_cache=cache))
+    counts = read_counts()
+    rows = pmesh.worker_rows(mesh, FLEET_B)
+    fit = fleet.make_fleet_fit(cfg, mesh)
+    xs = torch.from_numpy(res.batch.xs[rows]).to(dev)
+    with pmesh.recording_collectives() as inner:
+        fit(fleet.init_fleet_states(cfg, rows.stop - rows.start, device=dev), xs,
+            res.batch.actives[rows])
+    del xs
+    angles = [float(principal_angles_degrees(torch.from_numpy(res.components[b]),
+                                             torch.from_numpy(one["components"][b])).max())
+              for b in range(FLEET_B)]
+    out = {"backend": torch.distributed.get_backend(), "mesh": mesh.shape, "fit_s": fit_s,
+           "counts": counts, "log": [dict(r) for r in log], "fit_log": [dict(r) for r in inner],
+           "angles": angles, "components": res.components,
+           "steps": res.states.step.tolist()}
+    del res
+    pcfg = dett.PCAConfig(**POP_FIT)
+    cmesh = pmesh.make_mesh(world, device=dev)
+    crows = pmesh.worker_rows(cmesh, pcfg.cohort_size)
+    for wire in ("fp32", "bf16"):
+        reduce = clients.make_sharded_cohort_reduce(pcfg, cmesh, wire_dtype=wire)
+        with pmesh.recording_collectives() as clog:
+            v, sec = synced_s(lambda: reduce(one["stack"][crows], one["mask"][crows]))
+        out[f"cohort_{wire}"] = {
+            "v": v.cpu().numpy(), "s": sec, "log": [dict(r) for r in clog],
+            "deg_to_one_process": float(principal_angles_degrees(
+                v.cpu(), torch.from_numpy(one["v"])).max())}
+    check(max(angles) <= FLEET_RANK_DEG,
+          f"fleet_ranks2 rank {rank}: a tenant {max(angles)} deg from the one-process fleet")
+    return out
+
+
+def slice_fleet_ranks2(dev, card: str, ev: dict, cohort: dict, work_dir: str) -> int:
+    """Two ranks sharing the card in one gloo group (``parallel.mesh.launch``):
+    each runs ``fleet_rank_phase``. The fleet's fit makes no collective and
+    its results come by one all-gather; each tenant within 0.01 degrees of
+    the one-process fleet; the sharded cohort reduce makes one stack gather
+    in the wire dtype and one fp32 mask gather, is bit-equal across ranks,
+    and at fp32 within 1e-3 degrees of the one-process merge. Returns the
+    ranks' TMA launches."""
+    import numpy as np
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    one = {"components": ev["result"].components, **cohort}
+    out, launch_s = synced_s(lambda: pmesh.launch(
+        fleet_rank_phase, MESH_RANKS, one, backend="gloo", timeout=MESH_TIMEOUT_S,
+        workdir=work_dir))
+    r0 = out[0]
+
+    def ops(log):
+        return [(r["op"], r["axis"], r["dtype"], r["elements"]) for r in log]
+
+    emit("slice_fleet_ranks2", ranks=MESH_RANKS, backend=r0["backend"], launch_s=launch_s,
+         mesh=r0["mesh"], fit_s_by_rank=[o["fit_s"] for o in out],
+         gram_by_rank=[o["counts"] for o in out],
+         collectives_in_fit_by_rank=[len(o["fit_log"]) for o in out],
+         fit_fleet_collectives=ops(r0["log"]), max_angle_to_one_process_deg=max(
+             max(o["angles"]) for o in out),
+         cohort={wire: dict(s_by_rank=[o[f"cohort_{wire}"]["s"] for o in out],
+                            collectives=ops(r0[f"cohort_{wire}"]["log"]),
+                            deg_to_one_process=r0[f"cohort_{wire}"]["deg_to_one_process"],
+                            ranks_bit_equal=all(np.array_equal(
+                                o[f"cohort_{wire}"]["v"], r0[f"cohort_{wire}"]["v"])
+                                for o in out))
+                 for wire in ("fp32", "bf16")},
+         card=card)
+    k, d, c = POP_FIT["k"], POP_FIT["dim"], POP_FIT["cohort_size"]
+    for o in out:
+        check(o["backend"] == "gloo" and o["mesh"] == {"workers": MESH_RANKS, "features": 1},
+              f"fleet_ranks2: {o['backend']} mesh {o['mesh']}")
+        check(o["fit_log"] == [], f"fleet_ranks2: collectives inside the fit {o['fit_log']}")
+        check([r["op"] for r in o["log"]] == ["all_gather"]
+              and o["log"][0]["axis"] == pmesh.WORKER_AXIS,
+              f"fleet_ranks2: fit_fleet's collectives {ops(o['log'])}")
+        check(o["counts"]["tma"] == 1 and o["counts"]["gram"] == 1,
+              f"fleet_ranks2: a rank's Gram launches {o['counts']}")
+        check(o["steps"] == [MNIST_FIT["num_steps"]] * FLEET_B, f"fleet_ranks2: {o['steps']}")
+        np.testing.assert_array_equal(o["components"], r0["components"])
+        for wire, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+            got = ops(o[f"cohort_{wire}"]["log"])
+            check(got == [("all_gather", pmesh.WORKER_AXIS, dtype, c // MESH_RANKS * d * k),
+                          ("all_gather", pmesh.WORKER_AXIS, "float32", c // MESH_RANKS)],
+                  f"fleet_ranks2 cohort {wire}: collectives {got}")
+            check(np.array_equal(o[f"cohort_{wire}"]["v"], r0[f"cohort_{wire}"]["v"]),
+                  f"fleet_ranks2 cohort {wire}: ranks differ")
+        check(o["cohort_fp32"]["deg_to_one_process"] <= COHORT_RANK_DEG,
+              f"fleet_ranks2: fp32 cohort {o['cohort_fp32']['deg_to_one_process']} deg")
+    return sum(o["counts"]["tma"] for o in out)
+
+
 def main() -> int:
     import torch
 
@@ -3253,6 +3864,8 @@ def main() -> int:
         # 5m. the hierarchical merge: the stacked tree in one process
         s8_by_path["tree eval (stacked tree)"] = slice_tree_eval(dev, card, eval_spec,
                                                                  eval_rows)
+        # 5p. the solo fit as a one-tenant fleet program
+        fleet_solo_tma = slice_fleet_solo(dev, card, eval_spec, eval_rows)
         # 5i.-5j. elastic k through a replica, and the drift loop
         grow = slice_grow(dev, card, work_dir, eval_spec, eval_rows)
         s8_by_path["grow fit"] = grow["s8"]
@@ -3269,10 +3882,26 @@ def main() -> int:
         # 5n. the tier-local tree, the wire codecs, the ring and the
         # multi-host read on four ranks sharing the card
         tree4 = slice_tree_ranks4(dev, card, work_dir)
+        # 5o.-5s. the multi-tenant fleet: 8 mnist784 tenants in one program,
+        # the bucketed server and a published tenant, the cohort merge, and
+        # the fleet and the cohort reduce on two gloo ranks
+        fleet_eval = slice_fleet_eval(dev, card)
+        fleet_server = slice_fleet_server(dev, card, fleet_eval)
+        cohort = slice_clients(dev, card)
+        fleet_ranks_tma = slice_fleet_ranks2(dev, card, fleet_eval, cohort, work_dir)
         bf16_by_path = {"slice_fit (cifar10 shape)": fit_launches, **mesh_eval["bf16"],
                         "mesh ranks2 bf16 (2 ranks, gloo)": ranks2["bf16"],
-                        "tree ranks4 (4 ranks, gloo, 3 arms)": tree4["bf16"]}
-        del mesh_eval
+                        "tree ranks4 (4 ranks, gloo, 3 arms)": tree4["bf16"],
+                        "fleet eval (8 tenants, one (64,1024,784) launch)": fleet_eval["tma"],
+                        "fleet server (2 buckets of 8)": fleet_server["tma"],
+                        "fleet solo (cifar10, trainer='fleet')": fleet_solo_tma,
+                        "fleet ranks2 (2 ranks, gloo, (32,1024,784))": fleet_ranks_tma}
+        fleet_gram = fleet_eval.pop("gram")
+        timing[(FLEET_GRAM, "bfloat16")] = {key: fleet_gram[key] for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "bmm_ms")}
+        max_abs[(FLEET_GRAM, "bfloat16", 0)] = fleet_gram["max_abs_err"]
+        del mesh_eval, fleet_eval, cohort
 
     # 6.-8. the read path
     serve_err = parity_serve(dev)
@@ -3283,6 +3912,8 @@ def main() -> int:
     for route, n in grow["serve"].items():
         serve_by_path[route]["slice_grow (k'=20, replica)"] = n
     serve_by_path["f32"]["slice_drift"] = drift["serve_f32"]
+    serve_by_path["bf16"]["slice_fleet_server (tenant 0 published, k=20)"] = \
+        fleet_server["serve_bf16"]
 
     # 9.-11. the large-d solver path
     mg_err = parity_matvec_gram(dev)
@@ -3341,7 +3972,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         dict(row("gram_bf16", CIFAR, "bfloat16", sum(bf16_by_path.values()),
-                 also=(MESH_RANK_BLOCK, TREE_RANK_BLOCK)), launches_by_path=bf16_by_path),
+                 also=(MESH_RANK_BLOCK, TREE_RANK_BLOCK, FLEET_GRAM)),
+             launches_by_path=bf16_by_path),
         row("gram_fp32", ENTRY, "float32", entry_launches, also=(CIFAR,)),
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "

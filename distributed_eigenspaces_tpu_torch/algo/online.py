@@ -66,13 +66,41 @@ def update_state_projector(
     The arithmetic is fp32 whatever the state dtype, then cast back."""
     step = state.step + 1
     w = _discount(discount, step, num_steps)
-    sigma = state.sigma_tilde.float()
-    p = p.to(state.sigma_tilde.dtype).float()
+    sigma = fold_projector(state.sigma_tilde, p, float(w),
+                           float(np.float32(1.0) - w), discount=discount)
+    return OnlineState(sigma, step)
+
+
+def fold_projector(sigma: torch.Tensor, p: torch.Tensor, w, one_minus_w, *,
+                   discount: str) -> torch.Tensor:
+    """The fold's arithmetic: ``sigma (..., d, d)`` and ``p`` in fp32
+    whatever the state dtype, at weight ``w`` and ``one_minus_w`` (floats,
+    or float32 tensors that broadcast against ``sigma``: a fleet's
+    ``(B, 1, 1)``, one weight a tenant), cast back to ``sigma``'s dtype."""
+    dtype = sigma.dtype
+    s = sigma.float()
+    p = p.to(dtype).float()
     if discount == "1/t":
-        sigma = sigma * float(np.float32(1.0) - w) + p * float(w)
+        s = s * one_minus_w + p * w
     else:
-        sigma = sigma + p * float(w)
-    return OnlineState(sigma.to(state.sigma_tilde.dtype), step)
+        s = s + p * w
+    return s.to(dtype)
+
+
+def discount_schedule(rule: str, actives, num_steps: int):
+    """The fold weights of B tenants over a ``(B, T)`` {0, 1} schedule of
+    active steps: ``(w, one_minus_w)``, two ``(T, B)`` float32 arrays, each
+    entry :func:`_discount` of the tenant's own 1-based step count at that
+    step (the count of its active steps so far, this one included) and
+    ``np.float32(1) - w``, so every tenant's fold rounds where its solo fold
+    rounds (:func:`fold_projector` takes them). An inactive step's entry is
+    the weight its next fold would take; the fleet discards that step's
+    fold."""
+    actives = np.asarray(actives) != 0
+    steps = np.cumsum(actives, axis=1) + ~actives  # (B, T), >= 1
+    w = np.array([[_discount(rule, int(s), num_steps) for s in row]
+                  for row in steps], np.float32).T
+    return w, np.float32(1.0) - w
 
 
 def update_state(

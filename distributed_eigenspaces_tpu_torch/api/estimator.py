@@ -31,8 +31,9 @@ switchable reductions over explicit rings (``parallel/ring.py``).
 ``cfg.merge_topology`` makes every merge of the dense trainers the stacked
 tree of ``parallel/topology.py`` (on one device and on the workers mesh
 alike); ``cfg.merge_wire_dtype`` has no effect there (the stacked route
-has no collectives to narrow). ``trainer="fleet"`` raises
-``NotImplementedError`` (ROADMAP.md Queue 1 items 15b and 9f).
+has no collectives to narrow). ``trainer="fleet"`` runs the solo fit as a
+one-tenant fleet program (``parallel.fleet.fit_fleet``, one device; masks
+as a ``(T, m)`` sequence); it does not checkpoint.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from distributed_eigenspaces_tpu_torch.algo.online import (
 )
 from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
 from distributed_eigenspaces_tpu_torch.api.runner import extract_dense, make_whole_fit
-from distributed_eigenspaces_tpu_torch.config import PCAConfig, _not_ported
+from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.data.bin_stream import window_stream
 from distributed_eigenspaces_tpu_torch.data.stream import (
     block_stream,
@@ -70,12 +71,6 @@ from distributed_eigenspaces_tpu_torch.runtime.prefetch import prefetch_stream
 from distributed_eigenspaces_tpu_torch.utils.checkpoint import Checkpointer
 
 TRAINERS = ("auto", "step", "scan", "segmented", "sketch", "fleet")
-
-#: trainers the reference accepts that the port refuses, with the ROADMAP
-#: items that will add them
-_UNPORTED_TRAINERS = {
-    "fleet": "Queue 1 items 15b and 9f (parallel/fleet.py)",
-}
 
 #: d*k above which the reference's ``backend="auto"`` whole fit takes the
 #: feature-sharded sketch trainer (its ``SKETCH_DK_CROSSOVER``)
@@ -241,8 +236,6 @@ class OnlineDistributedPCA:
                  segment: int = 50):
         if trainer not in TRAINERS:
             raise ValueError(f"unknown trainer {trainer!r}; one of {TRAINERS}")
-        if trainer in _UNPORTED_TRAINERS:
-            raise _not_ported(f"trainer={trainer!r}", _UNPORTED_TRAINERS[trainer])
         self.cfg = cfg
         self.device = resolve_device(device)
         self.trainer = trainer
@@ -313,7 +306,7 @@ class OnlineDistributedPCA:
                 "sequence (array/list/tuple); use trainer='step' for a "
                 "per-step mask generator"
             )
-        if ckpt and (trainer == "step" or (
+        if ckpt and (trainer in ("step", "fleet") or (
                 trainer == "scan" and not resolves_feature_sharded(cfg))):
             raise ValueError(
                 f"checkpoint_dir is honored by the whole-fit trainers "
@@ -343,6 +336,8 @@ class OnlineDistributedPCA:
         if worker_masks is not None:
             masks = _validated_masks(worker_masks, cfg.num_workers)
         self.trainer_used_ = trainer
+        if trainer == "fleet":
+            return self._fit_fleet(data, masks)
         if _routes_feature_whole(cfg, trainer):
             return self._fit_feature_sharded(data, trainer, masks)
         if trainer == "segmented":
@@ -439,6 +434,21 @@ class OnlineDistributedPCA:
         if int(state.step) == 0:
             raise ValueError("dataset yielded zero full steps")
         return self._finish_dense(OnlineState(state.sigma_tilde, state.step))
+
+    def _fit_fleet(self, data, masks) -> "OnlineDistributedPCA":
+        """The solo fit as a one-tenant fleet program on this estimator's
+        device (``parallel.fleet.fit_fleet``, the reference's
+        ``trainer="fleet"``): the state and components are tenant 0's."""
+        from distributed_eigenspaces_tpu_torch.parallel.fleet import fit_fleet
+
+        res = fit_fleet(
+            self.cfg, [data], mesh=None,
+            worker_masks=None if masks is None else [masks],
+            device=self.device, v0=self.v0, v_init=self.v_init,
+        )
+        self.state = OnlineState(res.states.sigma_tilde[0], int(res.states.step[0]))
+        self._w = torch.from_numpy(res.components[0]).to(self.device)
+        return self
 
     def _finish_dense(self, state: OnlineState) -> "OnlineDistributedPCA":
         self.state = state

@@ -134,6 +134,18 @@ class PCAConfig:
       serve_slo_p99_ms: declared p99 request latency; with a queue depth
         set, requests already past it are shed before compute.
       compile_cache_dir: must stay None in this port (ROADMAP.md).
+      fleet_bucket_size, fleet_flush_s: a ``parallel.fleet.FleetServer``
+        bucket dispatches when it holds this many fit requests, or when
+        its oldest request has waited this long (padded with inactive
+        tenants to the bucket size).
+      fleet_pad_k: heterogeneous-k fleet buckets: k is padded to the next
+        power of two (``parallel.fleet.padded_fleet_cfg``) so tenants whose
+        k differs within one padded width share one bucket.
+      fleet_slo_p99_ms: declared p99 fit-request latency of the fleet
+        server, or None.
+      cohort_size, max_poison_frac: the population merge
+        (``parallel/clients.py``): contributions a cohort, and the declared
+        Byzantine fraction, which is the merge's trim fraction.
     """
 
     dim: int
@@ -173,6 +185,12 @@ class PCAConfig:
     serve_breaker_threshold: int | None = None
     serve_slo_p99_ms: float | None = None
     compile_cache_dir: str | None = None
+    fleet_bucket_size: int = 8
+    fleet_flush_s: float = 0.1
+    fleet_pad_k: bool = False
+    fleet_slo_p99_ms: float | None = None
+    cohort_size: int = 256
+    max_poison_frac: float = 0.05
 
     def __post_init__(self):
         if self.discount not in ("1/T", "1/t", "notebook"):
@@ -250,6 +268,53 @@ class PCAConfig:
                 f"need 0 < k <= dim, got k={self.k}, dim={self.dim}"
             )
         self._validate_serve()
+        self._validate_fleet()
+
+    def _validate_fleet(self) -> None:
+        """The reference's checks of the fleet and cohort fields."""
+        if not isinstance(self.fleet_bucket_size, int) or isinstance(
+            self.fleet_bucket_size, bool
+        ) or self.fleet_bucket_size < 1:
+            raise ValueError(
+                f"fleet_bucket_size must be an int >= 1, got "
+                f"{self.fleet_bucket_size!r}"
+            )
+        if self.fleet_flush_s < 0:
+            raise ValueError(
+                f"fleet_flush_s must be >= 0, got {self.fleet_flush_s}"
+            )
+        if not isinstance(self.fleet_pad_k, bool):
+            raise ValueError(
+                f"fleet_pad_k must be a bool, got {self.fleet_pad_k!r} "
+                "(heterogeneous-k fleet bucketing: pad k to the next "
+                "power of two so tenants with different k share one "
+                "compiled program, padded lanes masked inactive)"
+            )
+        slo = self.fleet_slo_p99_ms
+        if slo is not None and (
+            not isinstance(slo, (int, float)) or isinstance(slo, bool)
+            or slo <= 0
+        ):
+            raise ValueError(
+                f"fleet_slo_p99_ms must be a positive latency in ms or "
+                f"None, got {slo!r}"
+            )
+        if not isinstance(self.cohort_size, int) or isinstance(
+            self.cohort_size, bool
+        ) or self.cohort_size < 1:
+            raise ValueError(
+                f"cohort_size must be an int >= 1, got "
+                f"{self.cohort_size!r}"
+            )
+        if not isinstance(self.max_poison_frac, (int, float)) or (
+            isinstance(self.max_poison_frac, bool)
+            or not 0.0 <= self.max_poison_frac < 0.5
+        ):
+            raise ValueError(
+                f"max_poison_frac must be a fraction in [0, 0.5), got "
+                f"{self.max_poison_frac!r} (trimming both α-tails past "
+                "half the cohort leaves nothing to average)"
+            )
 
     def _validate_topology(self) -> None:
         """The reference's checks and normal forms of ``merge_topology`` and

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from distributed_eigenspaces_tpu_torch.ops import cusolver
 from distributed_eigenspaces_tpu_torch.ops.gram import gram_plain, gram_s8_plain, widen_int
 
 
@@ -86,7 +87,7 @@ def _sym(m: torch.Tensor) -> torch.Tensor:
 def top_k_eig(m: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k (eigenvalues, eigenvectors) of symmetric ``(..., d, d)``, both
     in descending order, signs canonicalized."""
-    w, v = torch.linalg.eigh(_sym(m.float()))
+    w, v = cusolver.eigh(_sym(m.float()))
     wk = torch.flip(w[..., -k:], dims=(-1,))
     vk = canonicalize_signs(torch.flip(v[..., -k:], dims=(-1,)))
     return wk, vk
@@ -191,7 +192,7 @@ def rayleigh_ritz(v: torch.Tensor, av: torch.Tensor) -> torch.Tensor:
     """Rotate an orthonormal ``(..., d, k)`` basis to the operator's
     eigenvector coordinates given ``av = A v``: descending, canonical signs."""
     small = torch.matmul(v.mT, av)
-    _, r = torch.linalg.eigh(_sym(small))
+    _, r = cusolver.eigh(_sym(small))
     return canonicalize_signs(torch.matmul(v, torch.flip(r, dims=(-1,))))
 
 
@@ -246,35 +247,41 @@ def merged_top_k_lowrank(
     v_stack: torch.Tensor, k: int, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Exact top-k eigenvectors of the (masked) mean of projectors
-    ``(1/sum w) sum_l w_l V_l V_l^T`` from the ``(m, d, k_f)`` factors.
-    ``m * k_f >= d`` takes the dense route (d x d eigh), otherwise the
-    factor-Gram route ((m k_f)^2 eigh). All workers masked -> zeros."""
-    m, d, kf = v_stack.shape
+    ``(1/sum w) sum_l w_l V_l V_l^T`` from the ``(..., m, d, k_f)`` factors
+    and a ``(..., m)`` mask: a fleet's B tenants are a leading ``(B,)``,
+    each merged on its own mask. ``m * k_f >= d`` takes the dense route
+    (d x d eigh), otherwise the factor-Gram route ((m k_f)^2 eigh); the
+    rule depends on the shape alone, so every tenant takes the same one,
+    and the eigensolve is one call for all of them (``ops.cusolver.eigh``).
+    All workers masked -> zeros."""
+    m, d, kf = v_stack.shape[-3:]
     if mask is None:
-        w = torch.ones((m,), dtype=torch.float32, device=v_stack.device)
+        w = torch.ones(v_stack.shape[:-2], dtype=torch.float32, device=v_stack.device)
     else:
         w = mask.to(device=v_stack.device, dtype=torch.float32)
-    cnt = torch.clamp(torch.sum(w), min=1.0)
+    cnt = torch.clamp(torch.sum(w, dim=-1), min=1.0)
     if m * kf >= d:
         return _merged_top_k_dense(v_stack, k, w, cnt)
     return _merged_top_k_factor_gram(v_stack, k, w, cnt)
 
 
 def _merged_top_k_dense(v_stack, k, w, cnt):
-    p = torch.einsum("mik,mjk,m->ij", v_stack.float(), v_stack.float(), w / cnt)
-    alive = (torch.sum(w) > 0).to(torch.float32)
-    return top_k_eigvecs(p, k) * alive
+    vf = v_stack.float()
+    p = torch.einsum("...mik,...mjk,...m->...ij", vf, vf, w / cnt[..., None])
+    alive = (torch.sum(w, dim=-1) > 0).to(torch.float32)
+    vk = torch.flip(cusolver.eigh(_sym(p))[1][..., -k:], dims=(-1,))
+    return canonicalize_signs(vk) * alive[..., None, None]
 
 
 def _merged_top_k_factor_gram(v_stack, k, w, cnt):
-    c = v_stack.float() * torch.sqrt(w / cnt)[:, None, None]
-    d = c.shape[1]
-    c = c.permute(1, 0, 2).reshape(d, -1)  # (d, m*k)
+    c = v_stack.float() * torch.sqrt(w / cnt[..., None])[..., None, None]
+    *lead, m, d, kf = c.shape
+    c = c.movedim(-3, -2).reshape(*lead, d, m * kf)  # (..., d, m*k)
     b = torch.matmul(c.mT, c)
-    ew, u = torch.linalg.eigh(_sym(b))
-    wk = torch.flip(ew[-k:], dims=(-1,))
-    uk = torch.flip(u[:, -k:], dims=(-1,))
-    vb = torch.matmul(c, uk) * guarded_inv_sqrt(wk)[None, :]
+    ew, u = cusolver.eigh(_sym(b))
+    wk = torch.flip(ew[..., -k:], dims=(-1,))
+    uk = torch.flip(u[..., -k:], dims=(-1,))
+    vb = torch.matmul(c, uk) * guarded_inv_sqrt(wk)[..., None, :]
     return canonicalize_signs(vb)
 
 

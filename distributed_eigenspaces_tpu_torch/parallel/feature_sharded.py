@@ -63,6 +63,7 @@ import torch
 
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+from distributed_eigenspaces_tpu_torch.ops import cusolver
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     _sym,
     chol_apply,
@@ -99,7 +100,7 @@ def chol_qr2(v: torch.Tensor, axis_name=None) -> torch.Tensor:
 
 def _small_eigh_desc(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``eigh`` of a small replicated symmetric matrix, descending."""
-    w, q = torch.linalg.eigh(_sym(g))
+    w, q = cusolver.eigh(_sym(g))
     return torch.flip(w, dims=(-1,)), torch.flip(q, dims=(-1,))
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from distributed_eigenspaces_tpu_torch.device import resolve_device
+from distributed_eigenspaces_tpu_torch.ops import cusolver
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     _cholqr2,
     _sym,
@@ -165,7 +166,7 @@ def tree_merge_stacked(vs: torch.Tensor, k: int, topo: MergeTopology, mask=None,
                        root_dist_iters=None, root_v_init=None) -> torch.Tensor:
     """The tree over a gathered factor stack ``vs (m, d, kf)``: each tier
     splits the members into runs of its fan-in and merges each run exactly
-    (``merged_top_k_lowrank``), every member weighted by the live leaves it
+    (``merged_top_k_lowrank``, one call for the tier's groups), every member weighted by the live leaves it
     stands for; returns the root's ``(d, k)``. One tier is one call of the
     flat merge on the whole stack, bit for bit. A group whose leaves are
     all masked merges to zeros with weight zero. ``root_dist_iters`` (set
@@ -193,8 +194,7 @@ def tree_merge_stacked(vs: torch.Tensor, k: int, topo: MergeTopology, mask=None,
             vs = merged_top_k_distributed(groups[0], k, mask=gw[0], iters=root_dist_iters,
                                           v_init=root_v_init)[None]
         else:
-            vs = torch.stack([merged_top_k_lowrank(groups[i], k, mask=gw[i])
-                              for i in range(g)])
+            vs = merged_top_k_lowrank(groups, k, mask=gw)
         w = gw.sum(dim=1)
     return vs[0]
 
@@ -207,7 +207,7 @@ def _tier_solve(s: torch.Tensor, k: int, axis: str) -> torch.Tensor:
     (d / f, f kf)`` of the scaled factor concatenation: the ``(f kf)^2``
     Gram summed over the tier, its replicated ``eigh``, mapped back."""
     b = pmesh.psum(torch.matmul(s.mT, s), axis)
-    ew, u = torch.linalg.eigh(_sym(b))
+    ew, u = cusolver.eigh(_sym(b))
     wk = torch.flip(ew[-k:], dims=(-1,))
     uk = torch.flip(u[:, -k:], dims=(-1,))
     return torch.matmul(s, uk) * guarded_inv_sqrt(wk)[None, :]

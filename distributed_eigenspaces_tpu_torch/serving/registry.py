@@ -693,10 +693,34 @@ class EigenbasisRegistry:
         )
         return self.publish(w, sigma_tilde=sigma, step=step, lineage=lin)
 
-    def publish_fleet(self, result, tenant: int, **kwargs) -> BasisVersion:
-        """Publish one tenant of a fleet fit: not ported yet."""
-        raise _not_ported(
-            "publish_fleet", "Queue 1 item 15b (parallel/fleet.py)"
+    def publish_fleet(self, result, tenant: int, *,
+                      lineage: Mapping[str, Any] | None = None,
+                      include_state: bool = True) -> BasisVersion:
+        """Publish one tenant's basis from a ``parallel.fleet.FleetResult``:
+        the fleet -> registry edge of the serving loop. Lineage records the
+        tenant index and the fleet batch's shape signature, so a served
+        projection is attributable to the multi-tenant dispatch that made
+        its basis; the tenant's ``sigma_tilde`` (copied to the host) and
+        step ride along."""
+        if not (0 <= tenant < len(result.components)):
+            raise ValueError(
+                f"tenant {tenant} out of range for a "
+                f"{len(result.components)}-tenant fleet result"
+            )
+        lin = {
+            "producer": "fit_fleet",
+            "tenant": int(tenant),
+            "fleet_signature": tuple(result.batch.signature),
+        }
+        lin.update(lineage or {})
+        return self.publish(
+            result.components[tenant],
+            sigma_tilde=(
+                _host(result.states.sigma_tilde[tenant])
+                if include_state else None
+            ),
+            step=int(result.states.step[tenant]),
+            lineage=lin,
         )
 
     def publish_grown(

@@ -275,6 +275,9 @@ def test_new_modules_import_without_jax():
         "import distributed_eigenspaces_tpu_torch.serving.drift\n"
         "import distributed_eigenspaces_tpu_torch.serving.replication\n"
         "from distributed_eigenspaces_tpu_torch.parallel import multihost, ring, topology, wire\n"
+        "from distributed_eigenspaces_tpu_torch.parallel import clients, fleet\n"
+        "from distributed_eigenspaces_tpu_torch.runtime import prewarm\n"
+        "from distributed_eigenspaces_tpu_torch.ops import cusolver\n"
         "from distributed_eigenspaces_tpu_torch import algo, data, ops\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'distributed_eigenspaces_tpu')]\n"
@@ -307,6 +310,19 @@ def test_new_entry_points_run_on_the_card_unless_asked(monkeypatch):
         (M * N, D)).astype(np.float32))
     with pytest.raises(RuntimeError, match="cuda"):
         mon.refresh_now()
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+    cfg = PCAConfig(**_kw())
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet.fit_fleet(cfg, [np.zeros((T, M, N, D), np.float32)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet.FleetServer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet.FleetPCA(cfg)
+    from distributed_eigenspaces_tpu_torch.parallel import clients
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        clients.make_population_merge(cfg)
 
 
 # -- the two faults -------------------------------------------------------------
@@ -317,14 +333,12 @@ def test_new_entry_points_run_on_the_card_unless_asked(monkeypatch):
 def test_unported_trainers_name_their_items(trainer, item):
     assert trainer in TRAINERS
     JaxPCA(JaxConfig(**_kw()), trainer=trainer)  # the reference accepts the name
-    if trainer == "sketch":  # ported: the feature-sharded sketch trainer
-        est = dett.OnlineDistributedPCA(PCAConfig(**_kw()), device="cpu",
-                                        trainer=trainer)
-        assert est.trainer == "sketch"
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            dett.OnlineDistributedPCA(PCAConfig(**_kw()), device="cpu",
-                                      trainer=trainer)
+    # both are ported: the feature-sharded sketch trainer and the
+    # one-tenant fleet program (items 15b and 9f; its parity:
+    # tests/test_torch_fleet.py)
+    est = dett.OnlineDistributedPCA(PCAConfig(**_kw()), device="cpu",
+                                    trainer=trainer)
+    assert est.trainer == trainer
     with pytest.raises(ValueError, match="unknown trainer"):
         dett.OnlineDistributedPCA(PCAConfig(**_kw()), device="cpu", trainer="nope")
 

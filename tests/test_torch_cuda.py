@@ -32,7 +32,10 @@ included; past its guard an int8 batch is widened and its fp32 Gram is
 held to the float64 truth at 1e-3. The segmented trainer on int8 windows
 from the prefetch thread resumes from a checkpoint bit for bit, agrees
 with the CPU path to 1e-4 / 0.05 degrees, and the checkpointed estimator
-equals its scan fit bit for bit.
+equals its scan fit bit for bit. A padded fleet of bf16 tenants makes one
+Gram launch for the whole fit and agrees with the CPU fleet to 1e-4 /
+0.05 degrees; ``FleetServer`` on the card serves a full and a deadline
+bucket equal to ``fit_fleet`` called directly.
 """
 
 import sys
@@ -836,3 +839,144 @@ def test_checkpointed_estimator_on_card_equals_its_scan(cuda_device, tmp_path):
     assert (seg.trainer_used_, scan.trainer_used_) == ("segmented", "scan")
     assert torch.equal(seg.state.sigma_tilde, scan.state.sigma_tilde)
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000004", "step_00000006"]
+
+
+@pytest.mark.parametrize("shape", [(8, 160, 160), (2, 33, 33), (5, 256, 256), (1, 80, 80)])
+def test_syev_batched_matches_torch_eigh(cuda_device, shape):
+    """cuSOLVER's batched eigensolver (the port's on the card from 33 to
+    256 wide) against float64 truth: eigenvalues ascending and within 1e-4
+    of the largest, the residual ``||A v - v w||_F`` within 1e-4 of
+    ``||A||_F`` and ``V^T V`` within 1e-4 of the identity: fp32 rounding at
+    these n (a backward-stable fp32 solver's error grows as n eps ||A||).
+    ``ops.cusolver.eigh`` takes it for a batch and for one matrix alike."""
+    from distributed_eigenspaces_tpu_torch.ops import cusolver
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    a = x @ x.mT / shape[-1]
+    calls = []
+    syev = cusolver.syev_batched
+
+    def counted(m):
+        calls.append(tuple(m.shape))
+        return syev(m)
+
+    cusolver.syev_batched = counted
+    try:
+        w, v = cusolver.eigh(a)
+        w1, v1 = cusolver.eigh(a[0])
+    finally:
+        cusolver.syev_batched = syev
+    assert calls == [shape, (1,) + shape[1:]]
+    assert float((w1 - w[0]).abs().max()) <= 1e-4 * float(w[0].abs().max())
+    truth = torch.linalg.eigvalsh(a.cpu().double())
+    scale = truth.abs().amax(dim=-1, keepdim=True)
+    assert float(((w.cpu().double() - truth).abs() / scale).max()) <= 1e-4
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    ad, vd, wd = a.cpu().double(), v.cpu().double(), w.cpu().double()
+    resid = torch.linalg.matrix_norm(ad @ vd - vd * wd[:, None, :]) / torch.linalg.matrix_norm(ad)
+    assert float(resid.max()) <= 1e-4
+    assert float((vd.mT @ vd - torch.eye(shape[-1], dtype=torch.float64)).abs().max()) <= 1e-4
+    # another dtype, or a width outside the window, is torch's own
+    w64, _ = cusolver.eigh(a.double())
+    assert w64.dtype == torch.float64
+    big = torch.eye(300, device=cuda_device)
+    assert torch.equal(cusolver.eigh(big)[0], torch.linalg.eigh(big)[0])
+
+
+FLEET_CFG = dict(dim=256, k=4, num_workers=4, rows_per_worker=256, num_steps=4,
+                 solver="subspace", subspace_iters=12, warm_start_iters=2,
+                 compute_dtype="bfloat16", warm_orth_method="ns", backend="local")
+
+
+def _fleet_problems(n_tenants, steps=4):
+    rng = np.random.default_rng(5)
+    spec = dett.planted_subspace(256, k_planted=4, gap=20.0, decay=0.8, noise=0.01, seed=1)
+    return spec, [spec.sample(rng, steps * 4 * 256).reshape(steps, 4, 256, 256)
+                  for _ in range(n_tenants)]
+
+
+def test_fleet_on_card_makes_one_gram_launch_and_matches_cpu(cuda_device):
+    """Three tenants (one ragged) padded to four on the card: one bf16 TMA
+    Gram launch for the whole fit, and each tenant within 1e-4 / 0.05
+    degrees of the same fleet on the CPU and 1 degree of the truth."""
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+    cfg = dett.PCAConfig(**FLEET_CFG)
+    spec, probs = _fleet_problems(3)
+    probs[1] = probs[1][:3]
+    tgram.launches = tgram.launches_tma = tgram.launches_s8 = 0
+    card = fleet.fit_fleet(cfg, probs, mesh=None, pad_to=4)
+    torch.cuda.synchronize()
+    assert (tgram.launches, tgram.launches_tma, tgram.launches_s8) == (1, 1, 0)
+    assert card.states.sigma_tilde.is_cuda and card.states.step.tolist() == [4, 3, 4]
+    cpu = fleet.fit_fleet(cfg, probs, mesh=None, pad_to=4, device="cpu")
+    for b in range(3):
+        assert float((card.states.sigma_tilde[b].cpu() - cpu.states.sigma_tilde[b])
+                     .abs().max()) <= 1e-4
+        w = torch.from_numpy(card.components[b])
+        assert float(principal_angles_degrees(w, torch.from_numpy(cpu.components[b])).max()) <= 0.05
+        assert float(principal_angles_degrees(w, torch.from_numpy(spec.top_k(4))).max()) <= 1.0
+
+
+def test_fleet_on_card_at_a_wide_merge_matches_cpu(cuda_device):
+    """The merge at the width the evals give it: m k = 8 x 12 = 96 > 32,
+    so every step's (B, 96, 96) merge is one cuSOLVER batched call on the
+    card, and a solo fit's (96, 96) one too. Three tenants on the card
+    within 1e-4 / 0.05 degrees of the same fleet on the CPU (LAPACK), of
+    the solo scan on the card, and within 1 degree of the truth."""
+    from distributed_eigenspaces_tpu_torch.ops import cusolver
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+    cfg = dett.PCAConfig(**{**FLEET_CFG, "k": 12, "num_workers": 8})
+    rng = np.random.default_rng(6)
+    spec = dett.planted_subspace(256, k_planted=12, gap=20.0, decay=0.8, noise=0.01, seed=2)
+    probs = [spec.sample(rng, 4 * 8 * 256).reshape(4, 8, 256, 256) for _ in range(3)]
+    calls = []
+    syev = cusolver.syev_batched
+
+    def counted(m):
+        calls.append(tuple(m.shape))
+        return syev(m)
+
+    cusolver.syev_batched = counted
+    try:
+        card = fleet.fit_fleet(cfg, probs, mesh=None)
+        solo, _ = dett.make_scan_fit(cfg, device=cuda_device)(
+            dett.OnlineState.initial(256, device=cuda_device),
+            torch.from_numpy(probs[1]).to(cuda_device))
+    finally:
+        cusolver.syev_batched = syev
+    assert (3, 96, 96) in calls and (1, 96, 96) in calls
+    cpu = fleet.fit_fleet(cfg, probs, mesh=None, device="cpu")
+    for b in range(3):
+        assert float((card.states.sigma_tilde[b].cpu() - cpu.states.sigma_tilde[b])
+                     .abs().max()) <= 1e-4
+        w = torch.from_numpy(card.components[b])
+        assert float(principal_angles_degrees(w, torch.from_numpy(cpu.components[b])).max()) <= 0.05
+        assert float(principal_angles_degrees(w, torch.from_numpy(spec.top_k(12))).max()) <= 1.0
+    assert float((card.states.sigma_tilde[1] - solo.sigma_tilde).abs().max()) <= 1e-4
+
+
+def test_fleet_server_on_card_serves_full_and_deadline_buckets(cuda_device):
+    """Three submits into buckets of two: a full bucket at once, the third
+    on the deadline, each served result equal to ``fit_fleet`` called
+    directly on the card, one Gram launch a bucket."""
+    from dataclasses import replace
+
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+    cfg = replace(dett.PCAConfig(**FLEET_CFG), fleet_bucket_size=2, fleet_flush_s=0.05)
+    _, probs = _fleet_problems(3)
+    tgram.launches = 0
+    with fleet.FleetServer(cfg) as srv:
+        srv.prewarm()
+        assert srv.wait_warm(timeout=300)
+        served = [t.result(timeout=300) for t in [srv.submit(p) for p in probs]]
+        log = list(srv.bucket_log)
+    assert [b["tenants"] for b in log] == [2, 1] and log[0]["compile_ms"] == 0.0
+    assert tgram.launches == 2
+    direct = list(fleet.fit_fleet(cfg, probs[:2], mesh=None).components)
+    direct += list(fleet.fit_fleet(cfg, probs[2:], mesh=None, pad_to=2).components)
+    for got, want in zip(served, direct):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
