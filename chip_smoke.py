@@ -270,7 +270,7 @@ exits non-zero without printing a result:
    64, 512 and 4,096 rows, against their plain versions (<= 1e-5 relative)
    and timed as timing_serve times them.
 11d. slice_fs_eval: the imagenet12288 eval field for field (``backend=
-   "feature_sharded"``, ``trainer="sketch"``, 16 cold / 1 warm, bf16, int8
+   "feature_sharded"``, ``trainer="sketch"``, 12 cold / 1 warm, bf16, int8
    stage) on slice_dsolve's data in one process (the (1, 1) layout): within
    1 degree of the planted top-50, seconds and samples/s, beside the exact
    rank-r scan (``trainer="scan"``, its angle to the sketch) and the dense
@@ -299,9 +299,24 @@ exits non-zero without printing a result:
    ``run_mutation_report``, device cuda) under the launch recorder and
    ``torch.profiler``: the 4 programs honour their contracts, every profiled
    kernel event has the grid, block and shared memory of its recorded
-   ``KernelLaunch`` (one event per launch; a window the profiler left an
-   event out of is run again, three windows at most), and 5 of 5 seeded
-   mutations are caught, the mutant's launch with grid [1, 1, 1].
+   ``KernelLaunch`` (one event per launch; the programs run once before
+   the windows, each window opens with 64 pairs of untimed kernels, and a
+   window the profiler left an event out of is run again, five windows at
+   most), and 5 of 5 seeded mutations are caught, the mutant's launch with
+   grid [1, 1, 1].
+15. slice_evals: the port's eval harness (``distributed_eigenspaces_tpu_torch.
+   evals.run_eval``) on each of the six eval specs at full size, as
+   published, with the default repeats (3), one report line each: within 1
+   degree of the planted top-k; the backend and trainer the reference picks
+   on one device (``local`` / ``scan`` for cifar10, synthetic1024 and
+   mnist784, ``feature_sharded`` / ``sketch`` for imagenet12288 and
+   clip768_chip, ``local`` / ``segmented`` from an int8 ``bin`` file for
+   clip768); the s8 Gram's calls, one a fit for the in-memory dense evals
+   (the accuracy fit, the warm-up, three timed 240-step fits) and one a step
+   for clip768's (k=256: every step takes the Gram), none for the sketch,
+   and no float Gram; the matmul anchor measured (``anchor_tflops`` > 0),
+   the HBM anchor measured or its failed probe recorded, ``pct_of_anchor``
+   at most 105; the ``device`` block naming this card and its power limit.
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -378,34 +393,43 @@ MG_STREAMED = (12288, 400, 58)  # eight workers' factors: the slab streams
 # always taken (k' = 840): the streamed plan takes any f
 MG_PARITY = ((256, 64, 16), MG_SLICE, (3000, 80, 13), MG_STREAMED, (4000, 37, 200),
              (12288, 800, 58), (2048, 96, 840))
-DSOLVE = dict(dim=12288, k=50, num_workers=4, rows_per_worker=2048, num_steps=10)
-# the imagenet12288 eval's data (distributed_eigenspaces_tpu/evals.py:103-120)
-DSOLVE_DATA = dict(k_planted=50, gap=20.0, decay=max(0.8, 0.05 ** (1 / 49)), noise=0.01,
-                   seed=0)
-# the cifar10 eval, field for field (distributed_eigenspaces_tpu/evals.py:86-90)
-EVAL_FIT = dict(dim=3072, k=10, num_workers=8, rows_per_worker=1024, num_steps=20,
-                solver="subspace", subspace_iters=12, warm_start_iters=2,
-                compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns")
-EVAL_DATA = dict(k_planted=10, gap=20.0, decay=0.8, noise=0.01, seed=0)
-# the synthetic1024 eval, field for field (distributed_eigenspaces_tpu/evals.py:91-95),
-# its decay by the eval's own formula, max(0.8, (100 noise / gap)^(1 / (k - 1)))
-SYNTH_FIT = dict(dim=1024, k=5, num_workers=8, rows_per_worker=2048, num_steps=20,
-                 solver="subspace", subspace_iters=12, warm_start_iters=2,
-                 compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns")
-SYNTH_DATA = dict(k_planted=5, gap=20.0, decay=max(0.8, (100 * 0.01 / 20.0) ** (1 / 4)),
-                  noise=0.01, seed=0)
+def spec_fit(name: str) -> dict:
+    """The ``PCAConfig`` fields of one of the port's eval specs
+    (``distributed_eigenspaces_tpu_torch/evals.py``: ``EVAL_SPECS`` and
+    ``eval_config``, the reference's ``evals.py:77-145`` field for field)."""
+    from distributed_eigenspaces_tpu_torch.evals import EVAL_SPECS, eval_config
+
+    cfg = eval_config(EVAL_SPECS[name])
+    return {f: getattr(cfg, f) for f in SPEC_FIELDS}
+
+
+def spec_data(name: str) -> dict:
+    """The ``planted_subspace`` arguments of an eval's synthetic data
+    (``evals.synthetic_model``: the reference's decay rule, seed 0)."""
+    from distributed_eigenspaces_tpu_torch.evals import EVAL_SPECS, synthetic_model
+
+    return synthetic_model(EVAL_SPECS[name])
+
+
+SPEC_FIELDS = ("dim", "k", "num_workers", "rows_per_worker", "num_steps", "solver",
+               "subspace_iters", "warm_start_iters", "warm_orth_method", "compute_dtype",
+               "stage_dtype", "backend")
+# the imagenet12288 eval's shape and data; slice_dsolve and slice_deflate
+# run it on their own solvers
+DSOLVE = {f: spec_fit("imagenet12288")[f]
+          for f in ("dim", "k", "num_workers", "rows_per_worker", "num_steps")}
+DSOLVE_DATA = spec_data("imagenet12288")
+# the cifar10 and synthetic1024 evals
+EVAL_FIT, EVAL_DATA = spec_fit("cifar10"), spec_data("cifar10")
+SYNTH_FIT, SYNTH_DATA = spec_fit("synthetic1024"), spec_data("synthetic1024")
 EVALS = (("cifar10", "evals.py:86-90", EVAL_FIT, EVAL_DATA),
          ("synthetic1024", "evals.py:91-95", SYNTH_FIT, SYNTH_DATA))
-# the clip768 eval, field for field (distributed_eigenspaces_tpu/evals.py:121-126,
-# 431-462, 625-690): int8 rows streamed from a file, the segmented trainer in
-# windows of 5, one global quantization scale, its decay by the eval's formula
-CLIP_FIT = dict(dim=768, k=256, num_workers=8, rows_per_worker=2048, num_steps=10,
-                solver="subspace", subspace_iters=8, warm_start_iters=2,
-                compute_dtype="bfloat16", backend="local")
-CLIP_DATA = dict(k_planted=256, gap=20.0, decay=max(0.8, 0.05 ** (1 / 255)), noise=0.01,
-                 seed=0)
-CLIP_DISTINCT = 4  # distinct blocks, written cyclically over the 10 steps
-CLIP_SEGMENT = 5
+# the clip768 eval (distributed_eigenspaces_tpu/evals.py:121-126, 431-462,
+# 625-690): int8 rows streamed from a file, the segmented trainer in windows of
+# min(5, T), one global quantization scale, min(T, 4) distinct blocks
+CLIP_FIT, CLIP_DATA = spec_fit("clip768"), spec_data("clip768")
+CLIP_DISTINCT = min(CLIP_FIT["num_steps"], 4)
+CLIP_SEGMENT = max(1, min(5, CLIP_FIT["num_steps"]))
 # the masked cifar10-settings fit: worker 3 dropped on steps 4-9, every
 # worker on step 12 (1-based steps)
 MASK_DROPS = ((range(3, 9), 3), ((11,), slice(None)))
@@ -418,7 +442,8 @@ MUTANT_AUDIT = (256, 1024, 8)  # the JAX mutant's (rows, d, k)
 MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
 ANALYSIS_PROGRAMS = 4
 ANALYSIS_MUTATIONS = 5
-ANALYSIS_WINDOWS = 3  # profiled windows of the analysis phase at most
+ANALYSIS_WINDOWS = 5  # profiled windows of the analysis phase at most
+ANALYSIS_WARM_ROUNDS = 64  # profiler_warm's kernel pairs opening each of them
 # the deflation route at the imagenet12288 shape: slice_dsolve's config with
 # the merge on 5 parallel-deflation lanes of 10
 DEFLATE_LANES = 5
@@ -445,12 +470,7 @@ DRIFT_EMA_ALPHA = 0.0015
 DRIFT_MAX_SHIFTED = 160
 # the mnist784 eval field for field (evals.py:96-102; its data evals.py:307-322):
 # 8 workers sharded over the worker mesh
-MNIST_FIT = dict(dim=784, k=20, num_workers=8, rows_per_worker=1024, num_steps=20,
-                 solver="subspace", subspace_iters=16, warm_start_iters=2,
-                 compute_dtype="bfloat16", stage_dtype="int8", warm_orth_method="ns",
-                 backend="shard_map")
-MNIST_DATA = dict(k_planted=20, gap=20.0, decay=max(0.8, 0.05 ** (1 / 19)), noise=0.01,
-                  seed=0)
+MNIST_FIT, MNIST_DATA = spec_fit("mnist784"), spec_data("mnist784")
 # its bf16 variant (no int8 stage), whose cold step is the bf16 TMA Gram
 MNIST_VARIANTS = (("int8", MNIST_FIT), ("bf16", dict(MNIST_FIT, stage_dtype=None)))
 MESH_RANKS = 2  # two ranks sharing the one card over gloo
@@ -514,6 +534,12 @@ POP_POISON = round(0.05 * POP_FIT["cohort_size"])
 POP_NOISE = 0.1
 POP_BUDGET_DEG = 5.0  # the bench's angle budget
 COHORT_RANK_DEG = 1e-3  # the two-rank fp32 reduce against the one-process merge
+# the eval harness: the (backend, trainer) each eval takes on one device, as
+# the reference picks them (distributed_eigenspaces_tpu/evals.py:352-395)
+EVAL_ROUTES = {"cifar10": ("local", "scan"), "synthetic1024": ("local", "scan"),
+               "mnist784": ("local", "scan"), "imagenet12288": ("feature_sharded", "sketch"),
+               "clip768": ("local", "segmented"), "clip768_chip": ("feature_sharded", "sketch")}
+EVAL_PCT_MAX = 105.0  # pct_of_anchor above this: the matmul anchor under-measured
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -1230,13 +1256,14 @@ def bf16_out_fp32(op, a, b):
         return repr(e)[:200]
 
 
-def profiler_warm(dev) -> None:
-    """A few small kernels at the start of a ``torch.profiler`` window: the
-    card's first launches in a window after earlier windows can go
-    unrecorded, so what is measured comes after these."""
+def profiler_warm(dev, rounds: int = 4) -> None:
+    """A few small kernels (``rounds`` pairs) at the start of a
+    ``torch.profiler`` window: the card's first launches in a window after
+    earlier windows can go unrecorded, so what is measured comes after
+    these."""
     import torch
 
-    for _ in range(4):
+    for _ in range(rounds):
         torch.ones(256, device=dev).sum()
         torch.cuda.synchronize()
 
@@ -1708,13 +1735,11 @@ def slice_dsolve(dev, card: str):
 
 def fs_eval_config(**kw):
     """imagenet12288's settings (``evals.py:103-120``) field for field:
-    d=12288, k=50, m=4, n=2048, T=10, 16 cold / 1 warm, bf16, int8 stage,
+    d=12288, k=50, m=4, n=2048, T=10, 12 cold / 1 warm, bf16, int8 stage,
     ``backend="feature_sharded"``."""
     import distributed_eigenspaces_tpu_torch as dett
 
-    return dett.PCAConfig(**{**DSOLVE, "subspace_iters": 16, "warm_start_iters": 1,
-                             "compute_dtype": "bfloat16", "stage_dtype": "int8",
-                             "backend": "feature_sharded", **kw})
+    return dett.PCAConfig(**{**spec_fit("imagenet12288"), **kw})
 
 
 def fs_windows(cfg, mesh, data, dev, start_row: int = 0):
@@ -1779,7 +1804,7 @@ def slice_fs_eval(dev, card: str, work_dir: str, dense: dict) -> dict:
     sketch_vs_exact = float(principal_angles_degrees(
         sk["est"].components_.cpu(), ex["est"].components_.cpu()).max())
     emit("slice_fs_eval", part="fit", source=FS_EVAL_SOURCE,
-         config="imagenet12288 field for field: d=12288 k=50 m=4 n=2048 T=10, 16 cold / "
+         config="imagenet12288 field for field: d=12288 k=50 m=4 n=2048 T=10, 12 cold / "
                 "1 warm, bf16, int8 stage, backend=feature_sharded, trainer=sketch; "
                 "one process, the (1, 1) layout",
          data="slice_dsolve's planted_subspace(12288, k_planted=50, ...) rows",
@@ -2360,6 +2385,62 @@ def timing_mutant(dev, card: str) -> dict:
                 library_device_ms=library_device_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def eval_s8_calls(spec, repeats: int) -> int:
+    """The s8 Gram calls one ``run_eval`` of ``spec`` makes on the card: a
+    whole fit (the accuracy fit, the warm-up, ``repeats`` timed fits) takes
+    the Gram on its cold step and streams its warm ones; clip768 (k=256)
+    takes the Gram on every step of its warm-up pass and of each timed run,
+    and of the one window timed alone; the sketch takes none."""
+    if spec.trainer == "sketch":
+        return 0
+    if spec.streaming == "bin":
+        return (1 + repeats) * spec.steps + min(5, spec.steps)
+    return 2 + repeats
+
+
+def slice_evals(dev, card: str) -> dict:
+    """The eval harness on the six specs at full size: one report line
+    each, their gates (``accuracy_ok``, the reference's route, the s8 calls,
+    the anchors, the device block). Returns the s8 calls by eval."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.evals import EVAL_SPECS, run_eval
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+
+    s8 = {}
+    for name, spec in EVAL_SPECS.items():
+        gram_mod.launches = gram_mod.launches_tma = gram_mod.launches_s8 = 0
+        t0 = time.perf_counter()
+        rep = run_eval(name, device=dev)
+        torch.cuda.synchronize()
+        launched = (gram_mod.launches, gram_mod.launches_tma, gram_mod.launches_s8)
+        emit("slice_evals", eval_s=time.perf_counter() - t0, gram_launches=launched[0],
+             tma_launches=launched[1], s8_calls=launched[2], report=rep, card=card)
+        roof = rep["roofline"]
+        want_s8 = eval_s8_calls(spec, rep["timing"]["n_repeats"])
+        check(rep["accuracy_ok"], f"evals {name}: {rep['principal_angle_deg']} deg")
+        check((rep["backend"], rep["trainer"]) == EVAL_ROUTES[name],
+              f"evals {name}: backend / trainer {rep['backend']} / {rep['trainer']}")
+        check(name != "clip768" or (rep["streaming"], rep["bin_dtype"]) == ("bin", "int8"),
+              f"evals {name}: streaming {rep['streaming']}")
+        check(rep["timing"]["n_repeats"] == 3, f"evals {name}: {rep['timing']['n_repeats']} "
+                                               "repeats, want the default 3")
+        check(launched == (0, 0, want_s8), f"evals {name}: Gram launches (float, TMA, s8) "
+                                           f"{launched}, want (0, 0, {want_s8})")
+        check(roof.get("anchor_tflops", 0) > 0, f"evals {name}: no matmul anchor")
+        check("hbm_anchor_gb_per_sec" in roof or (
+            roof.get("hbm_probe_failed") and roof.get("hbm_probe", {}).get("attempts")),
+            f"evals {name}: no HBM anchor and no failed-probe record")
+        check(roof["pct_of_anchor"] <= EVAL_PCT_MAX,
+              f"evals {name}: {roof['pct_of_anchor']}% of the matmul anchor")
+        devb = rep["device"]
+        check(devb["platform"] == "gpu" and devb["kind"] == torch.cuda.get_device_name(0)
+              and devb["count"] == torch.cuda.device_count() and devb["power_limit"],
+              f"evals {name}: device block {devb}")
+        s8[name] = launched[2]
+        torch.cuda.empty_cache()
+    return s8
+
+
 def analysis(dev, card: str) -> dict:
     """The port's analyzer on the card, under the launch recorder and the
     profiler; returns each kernel's launches in that run."""
@@ -2373,15 +2454,23 @@ def analysis(dev, card: str) -> dict:
 
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
-    # the profiler can leave a launch's kernel event out of a window (as
-    # device_ms finds): a window with fewer events than recorded launches is
-    # run again, up to ANALYSIS_WINDOWS times, each attempt printed; the
-    # checks below hold the last one
+    # the profiler can leave the first kernel events of a window out (as
+    # device_ms finds; here, late in the script, the first window lost its
+    # first two serve launches in 5 of 6 runs, later windows in 3 of 8): the
+    # programs run once before any window, each window opens with
+    # ANALYSIS_WARM_ROUNDS pairs of untimed kernels and a pause, and a
+    # window with fewer events than recorded launches (never one with an
+    # event of another geometry) is run again, up to ANALYSIS_WINDOWS
+    # times, each attempt printed; the checks below hold the last one
+    report.run_analysis(device=dev)
+    report.run_mutation_report(device=dev)
+    torch.cuda.synchronize()
     for attempt in range(1, ANALYSIS_WINDOWS + 1):
         sp.launches = sp.launches_i8 = sp.launches_f32 = mg.launches = mfb.launches = 0
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiler_warm(dev)
+            profiler_warm(dev, ANALYSIS_WARM_ROUNDS)
+            time.sleep(PAUSE_S)
             with geometry.recording() as launches:
                 rep = report.run_analysis(device=dev)
                 mut = report.run_mutation_report(device=dev)
@@ -3938,6 +4027,10 @@ def main() -> int:
     mutant_timing = timing_mutant(dev, card)
     analysis_launches = analysis(dev, card)
 
+    # 15. the eval harness on the six specs at full size
+    for name, n in slice_evals(dev, card).items():
+        s8_by_path[f"slice_evals {name} (run_eval, 3 repeats)"] = n
+
     def row(name, shape, dtype, launches, also=()):
         t = timing[(shape, dtype)]
         return {"name": name, "route": "cuda", "source": GRAM_SOURCE,
@@ -3984,7 +4077,8 @@ def main() -> int:
                            "eval fits, clip768's 10 steps, the eval settings segmented "
                            "and masked, the grow fit, the drift refit (the deflation fit "
                            "streams at d=12288: none), mnist784 on one device and on a "
-                           "one-rank NCCL mesh, and on two gloo ranks (one call each)",
+                           "one-rank NCCL mesh, and on two gloo ranks (one call each), "
+                           "and the eval harness's runs (slice_evals)",
              max_abs_err=s8_err, shape=list(CIFAR),
              kernel=" + ".join(la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)),
              kernels=[la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)],

@@ -26,6 +26,7 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import WorkerPool
+from distributed_eigenspaces_tpu_torch.utils.tracing import annotate_step
 
 
 class OnlineState(NamedTuple):
@@ -190,26 +191,27 @@ def online_distributed_pca(
             break
         merge_now = merge_phase(cfg, state.step)
         mask = next(worker_masks) if worker_masks is not None else None
-        sigma_bar, v_bar = pool.round(
-            x_blocks, cfg.k, worker_mask=mask,
-            v0=v_cold if v_prev is None else v_prev,
-            iters=warm_iters if v_prev is not None else None,
-            orth=cfg.resolved_warm_orth() if v_prev is not None else None,
-            merge=merge_now,
-        )
-        if merge_now:
-            state = update_state(
-                state, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
+        with annotate_step(state.step + 1):
+            sigma_bar, v_bar = pool.round(
+                x_blocks, cfg.k, worker_mask=mask,
+                v0=v_cold if v_prev is None else v_prev,
+                iters=warm_iters if v_prev is not None else None,
+                orth=cfg.resolved_warm_orth() if v_prev is not None else None,
+                merge=merge_now,
             )
-        else:
-            # between merges: fold this round's (masked) mean projector;
-            # the hook sees the carried basis (zeros before any live merge)
-            state = update_state_projector(
-                state, sigma_bar, discount=cfg.discount, num_steps=cfg.num_steps
-            )
-            v_bar = v_prev if v_prev is not None else torch.zeros(
-                (cfg.dim, cfg.k), dtype=torch.float32, device=dev
-            )
+            if merge_now:
+                state = update_state(
+                    state, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
+                )
+            else:
+                # between merges: fold this round's (masked) mean projector;
+                # the hook sees the carried basis (zeros before any live merge)
+                state = update_state_projector(
+                    state, sigma_bar, discount=cfg.discount, num_steps=cfg.num_steps
+                )
+                v_bar = v_prev if v_prev is not None else torch.zeros(
+                    (cfg.dim, cfg.k), dtype=torch.float32, device=dev
+                )
         if warm_iters is not None:
             v_prev = carry_after(v_prev, v_bar, merge_now, mask)
         if on_step is not None:
@@ -242,7 +244,8 @@ def _fit_feature_sharded(stream, cfg: PCAConfig, *, device, state, on_step,
         if cap is not None and state.step >= cap and not open_ended:
             break
         mask = next(worker_masks) if worker_masks is not None else None
-        state, v_bar = fstep(state, x_blocks, worker_mask=mask)
+        with annotate_step(state.step + 1):
+            state, v_bar = fstep(state, x_blocks, worker_mask=mask)
         if on_step is not None:
             with pmesh.mesh_scope(mesh):
                 whole = fs.gather_state(state)

@@ -13,7 +13,8 @@ threaded runtime. Two passes over the programs:
 
 ``scripts/torch_analyze.py`` drives them over the matrix, and the gate is
 self-testing: :mod:`.mutations` seeds one violation per class and requires
-each to be caught.
+each to be caught. :mod:`.hlo` holds the collective byte model of the eval
+reports' ``ici_model`` block.
 
 The package ``__init__`` stays lazy: submodules resolve on first attribute
 access.
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 _LAZY = {
     "contracts": "distributed_eigenspaces_tpu_torch.analysis.contracts",
+    "hlo": "distributed_eigenspaces_tpu_torch.analysis.hlo",
     "programs": "distributed_eigenspaces_tpu_torch.analysis.programs",
     "ast_lints": "distributed_eigenspaces_tpu_torch.analysis.ast_lints",
     "report": "distributed_eigenspaces_tpu_torch.analysis.report",

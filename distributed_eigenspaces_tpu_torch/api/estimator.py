@@ -255,9 +255,14 @@ class OnlineDistributedPCA:
 
     # -- fitting ------------------------------------------------------------
 
-    def fit(self, data, *, on_step=None, worker_masks=None) -> "OnlineDistributedPCA":
+    def fit(self, data, *, on_step=None, worker_masks=None,
+            tracer=None) -> "OnlineDistributedPCA":
         """Fit on ``(N, dim)`` data, streamed as ``num_steps`` blocks of
         ``num_workers x rows_per_worker`` rows. Starts fresh.
+
+        ``tracer`` (a ``utils.telemetry.Tracer``) wraps the whole fit in a
+        root ``estimator_fit`` span on a fresh ``fit`` trace, with the
+        trainer that ran set on it; ``None`` traces nothing.
 
         The trainer is :func:`choose_trainer`'s unless the constructor
         named one: the whole-fit scan, which stages the schedule on the
@@ -269,6 +274,20 @@ class OnlineDistributedPCA:
         (array, tensor, list, tuple) runs the masked whole fit on the scan
         and segmented routes; a mask generator keeps the per-step loop,
         one ``next()`` a round."""
+        from distributed_eigenspaces_tpu_torch.utils.telemetry import NULL_TRACER
+
+        tr = tracer if tracer is not None else NULL_TRACER
+        with tr.span(
+            "estimator_fit", trace_id=tr.new_trace("fit"),
+            category="fit", device=True,
+            attrs={"dim": self.cfg.dim, "k": self.cfg.k,
+                   "steps": self.cfg.num_steps},
+        ) as sp:
+            out = self._fit_impl(data, on_step=on_step, worker_masks=worker_masks)
+            sp.set(trainer=self.trainer_used_)
+            return out
+
+    def _fit_impl(self, data, *, on_step, worker_masks):
         self.state = None
         self._w = None
         cfg = self.cfg

@@ -1,7 +1,9 @@
 // Native host-side reader of distributed_eigenspaces_tpu_torch's bin
-// stream (data/bin_stream.py): a copy of the JAX package's loader with what
-// the bin stream needs.
+// stream (data/bin_stream.py) and image loaders (data/cifar.py): a copy of
+// the JAX package's loader.
 //
+//   - u8_nhwc_to_gray_f32: (n, h, w, c) uint8 -> (n, h*w) float32
+//     channel-mean grayscale (the CIFAR preprocessing), threaded.
 //   - u8_to_f32: multithreaded uint8 -> float32 widen of a uint8 row file.
 //   - f32_absmax / f32_quantize_i8: the symmetric int8 wire-format prep
 //     (data/bin_stream.py::quantize_file_i8): vectorization-shaped inner
@@ -24,6 +26,37 @@
 extern "C" {
 
 // ---- conversion kernels ---------------------------------------------------
+
+// (n, h, w, c) uint8 -> (n, h*w) float32 channel-mean grayscale.
+void u8_nhwc_to_gray_f32(const uint8_t* in, float* out, int64_t n,
+                         int64_t h, int64_t w, int64_t c,
+                         int32_t num_threads) {
+  const int64_t hw = h * w;
+  const float inv_c = 1.0f / static_cast<float>(c);
+  auto worker = [&](int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i) {
+      const uint8_t* row = in + i * hw * c;
+      float* dst = out + i * hw;
+      for (int64_t p = 0; p < hw; ++p) {
+        int32_t acc = 0;
+        for (int64_t ch = 0; ch < c; ++ch) acc += row[p * c + ch];
+        dst[p] = static_cast<float>(acc) * inv_c;
+      }
+    }
+  };
+  if (num_threads <= 1 || n < num_threads) {
+    worker(0, n);
+    return;
+  }
+  std::vector<std::thread> ts;
+  int64_t per = (n + num_threads - 1) / num_threads;
+  for (int32_t t = 0; t < num_threads; ++t) {
+    int64_t lo = t * per, hi = std::min<int64_t>(n, lo + per);
+    if (lo >= hi) break;
+    ts.emplace_back(worker, lo, hi);
+  }
+  for (auto& t : ts) t.join();
+}
 
 // flat uint8 -> float32 widen.
 void u8_to_f32(const uint8_t* in, float* out, int64_t count,

@@ -86,8 +86,9 @@ def syev_batched(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Eigenvalues (ascending) and eigenvectors (columns) of a ``(B, n, n)``
     batch of symmetric float32 matrices on the card, as
     ``torch.linalg.eigh`` returns them, by one ``cusolverDnXsyevBatched``
-    call on the current stream. Raises where a matrix fails to converge,
-    as ``torch.linalg.eigh`` does (one device sync reads the flags)."""
+    call on the current stream. A matrix that fails to converge comes out
+    NaN, the others as they are: its flag is read on the device, with no
+    sync, so one failed lane fails neither the batch nor the host."""
     if not a.is_cuda or a.dtype != torch.float32 or a.dim() != 3 \
             or a.shape[-1] != a.shape[-2]:
         raise ValueError(
@@ -122,12 +123,9 @@ def syev_batched(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             _CUDA_R_32F, vp(dbuf.data_ptr()), ctypes.c_size_t(dws.value),
             ctypes.cast(hbuf, vp), ctypes.c_size_t(hws.value), vp(info.data_ptr()), i64(b)),
             "cusolverDnXsyevBatched")
-    if bool(info.ne(0).any()):
-        raise RuntimeError(
-            f"syev_batched: the eigensolver failed on matrices "
-            f"{torch.nonzero(info).flatten().tolist()} (info {info.tolist()})"
-        )
-    return w, work.mT
+    ok = info.eq(0)
+    return (torch.where(ok[:, None], w, float("nan")),
+            torch.where(ok[:, None, None], work.mT, float("nan")))
 
 
 #: the widths the batched routine takes on the card: above 32 torch's
@@ -144,11 +142,36 @@ def eigh(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     float32 input with n in :data:`BATCHED_N` is solved by one
     :func:`syev_batched` call over all its leading dimensions (a solo
     merge and a fleet's B merges alike); any other input (the CPU, another
-    dtype, another n) goes to ``torch.linalg.eigh``."""
+    dtype, another n) goes to ``torch.linalg.eigh``.
+
+    Each matrix fails alone, as the reference's batched ``jnp.linalg.eigh``
+    lanes do: a matrix that is not finite is solved as zeros and comes out
+    NaN (torch's solver would return some finite columns for it, or raise
+    for the batch), with no host sync; one that torch's solver fails to
+    converge on comes out NaN after the batch is solved again matrix by
+    matrix."""
     n = a.shape[-1]
+    ok = torch.isfinite(a).flatten(-2).all(-1)
+    a = torch.where(ok[..., None, None], a, 0.0)
     if a.is_cuda and a.dtype == torch.float32 and BATCHED_N[0] <= n <= BATCHED_N[1] \
             and a.numel() > 0:
         lead = a.shape[:-2]
         w, v = syev_batched(a.reshape(-1, n, n))
-        return w.reshape(*lead, n), v.reshape(*lead, n, n)
-    return torch.linalg.eigh(a)
+        w, v = w.reshape(*lead, n), v.reshape(*lead, n, n)
+    else:
+        w, v = _torch_eigh(a)
+    return (torch.where(ok[..., None], w, float("nan")),
+            torch.where(ok[..., None, None], v, float("nan")))
+
+
+def _torch_eigh(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh``; where it fails to converge, each matrix again
+    alone, the failed ones NaN."""
+    try:
+        return torch.linalg.eigh(a)
+    except torch.linalg.LinAlgError:
+        if a.dim() == 2:
+            return a.new_full(a.shape[:-1], float("nan")), a.new_full(a.shape, float("nan"))
+    parts = [_torch_eigh(m) for m in a.reshape(-1, *a.shape[-2:])]
+    return (torch.stack([p[0] for p in parts]).reshape(a.shape[:-1]),
+            torch.stack([p[1] for p in parts]).reshape(a.shape))

@@ -104,11 +104,17 @@ def chol_apply(v: torch.Tensor, g: torch.Tensor, eps: float = 1e-7,
     Gram ``g = V^T V``: Cholesky ``L`` of ``g`` jittered by
     ``eps * trace(g) + floor`` on the diagonal, then the right triangular
     solve ``X L^T = V`` (the reference's ``feature_sharded._chol_apply``,
-    the half the fused matvec+Gram kernel leaves to do)."""
+    the half the fused matvec+Gram kernel leaves to do).
+
+    A batch element whose factorization fails (a Gram that is not positive
+    definite, or not finite) comes out NaN, and the others as they are:
+    the reference's batched lanes, where ``jnp.linalg.cholesky`` is NaN in
+    the failed lane alone. The flag is read on the device, with no sync."""
     k = g.shape[-1]
     eye = torch.eye(k, dtype=g.dtype, device=g.device)
     jitter = eps * torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) + floor
-    lower = torch.linalg.cholesky(g + jitter[..., None, None] * eye)
+    lower, info = torch.linalg.cholesky_ex(g + jitter[..., None, None] * eye)
+    lower = torch.where(info.eq(0)[..., None, None], lower, float("nan"))
     return torch.linalg.solve_triangular(lower.mT, v, upper=True, left=False)
 
 

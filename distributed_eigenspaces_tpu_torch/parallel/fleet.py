@@ -19,11 +19,13 @@ launches what a solo step launches, not B times that.
 - Ragged schedules ride a ``(B, T)`` active mask. An inactive step's
   solves still run (the batch has no per-tenant exit) and a select
   discards them, so a tenant's result is exactly its own ``T_b``-step fit.
-  Where the reference's discarded lane may go NaN, ``torch.linalg.
-  cholesky`` would raise for the whole batch: a frozen tenant whose carry
-  holds no basis yet (a padding tenant) solves from the cold start, which
-  is finite, and that solve is never reported. A real tenant's non-PD Gram
-  still raises, as its solo fit does.
+  A frozen tenant whose carry holds no basis yet (a padding tenant) solves
+  from the cold start, which is finite, and that solve is never reported.
+- One tenant's failure is its own, as in the reference's independent
+  lanes: the batched Cholesky (``ops.linalg.chol_apply``) and eigensolves
+  (``ops.cusolver.eigh``) fail per batch element, NaN in that element and
+  no host sync, so a tenant whose Gram is not finite or not positive
+  definite comes out non-finite and every other tenant as it would alone.
 - Worker masks ``(B, T, m)`` run the solo masked body's semantics
   (``algo.scan._masked_body_factory``) with per-tenant selects: cold or
   warm by the carry's liveness (read from the device once a step), the
@@ -559,7 +561,7 @@ def _acquire_device(dev: torch.device) -> None:
     a = torch.eye(2, device=dev)
     torch.linalg.eigh(a)
     torch.linalg.qr(a)
-    torch.linalg.solve_triangular(torch.linalg.cholesky(a), a, upper=False)
+    torch.linalg.solve_triangular(torch.linalg.cholesky_ex(a)[0], a, upper=False)
     torch.matmul(a, a)
     torch.cuda.synchronize(dev)
 

@@ -1,8 +1,8 @@
 """ctypes bindings for the native host reader (``native/loader.cc``).
 
-A copy of ``distributed_eigenspaces_tpu/runtime/native.py`` with what the
-bin stream needs: :class:`ChunkReader`, :func:`to_f32`, :func:`absmax_f32`
-and :func:`quantize_i8`. The shared library is built with ``g++ -O3
+A copy of ``distributed_eigenspaces_tpu/runtime/native.py``: the bin
+stream's :class:`ChunkReader`, :func:`to_f32`, :func:`absmax_f32` and
+:func:`quantize_i8`, and the CIFAR loader's :func:`to_gray_f32`. The shared library is built with ``g++ -O3
 -shared`` at first use into ``build/native/`` at the root of the checkout,
 under a name that carries a hash of the source, and loaded once. Every
 entry point has a numpy fallback, taken on a machine without a toolchain
@@ -58,6 +58,10 @@ def _load() -> ctypes.CDLL | None:
                 )
                 os.replace(tmp, so_path)
             lib = ctypes.CDLL(str(so_path))
+            lib.u8_nhwc_to_gray_f32.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ]
             lib.u8_to_f32.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
             ]
@@ -96,6 +100,24 @@ def native_available() -> bool:
 
 def _nthreads() -> int:
     return min(8, os.cpu_count() or 1)
+
+
+def to_gray_f32(images: np.ndarray) -> np.ndarray:
+    """(N, H, W, C) uint8 -> (N, H*W) float32 channel-mean grayscale — the
+    reference's preprocessing (``distributed.py:170-173``) as a native
+    kernel; numpy fallback otherwise."""
+    images = np.ascontiguousarray(images)
+    n, h, w, c = images.shape
+    lib = _load()
+    if lib is None or images.dtype != np.uint8:
+        return (
+            images.astype(np.float32).mean(axis=3).reshape(n, h * w)
+        )
+    out = np.empty((n, h * w), np.float32)
+    lib.u8_nhwc_to_gray_f32(
+        images.ctypes.data, out.ctypes.data, n, h, w, c, _nthreads()
+    )
+    return out
 
 
 def to_f32(flat: np.ndarray) -> np.ndarray:

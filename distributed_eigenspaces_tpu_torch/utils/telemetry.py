@@ -6,9 +6,13 @@ both clocks, exported as a Chrome trace-event JSON that Perfetto loads),
 :class:`NullTracer` / :data:`NULL_TRACER` and :func:`tracer_of`. Spans
 opened with ``device=True`` also enter a ``torch.profiler.record_function``
 (``utils/tracing.py``), so a ``torch.profiler`` capture run alongside shows
-the same names beside the kernels they launched. The histogram, ring log
-and SLO summary of the reference module belong to ``MetricsLogger`` and
-are not ported yet (ROADMAP.md Queue 1 item 16).
+the same names beside the kernels they launched. Beside them, the
+reference's fixed-memory aggregates, copied as they are: :class:`Histogram`
+(log-spaced buckets, mergeable, quantile estimates), :class:`RingLog` (a
+bounded event list that folds what it evicts) and :func:`slo_summary`
+(attainment and error-budget burn of a p99 target). ``MetricsLogger``,
+which holds them in the reference, is not ported yet (ROADMAP.md Queue 1
+item 16).
 
 Cross-thread propagation rule: a trace is born where the request enters
 the system (``submit``); its ``trace_id`` rides the ticket payload to the
@@ -19,6 +23,7 @@ thread to match.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import threading
@@ -27,9 +32,12 @@ from typing import Any, Iterator
 
 __all__ = [
     "NULL_TRACER",
+    "Histogram",
     "NullTracer",
+    "RingLog",
     "Span",
     "Tracer",
+    "slo_summary",
     "tracer_of",
 ]
 
@@ -543,3 +551,242 @@ def tracer_of(metrics) -> Any:
 
 # -- histogram ---------------------------------------------------------------
 
+
+class Histogram:
+    """Bounded log-spaced histogram with mergeable counts and quantile
+    estimates — the fixed-memory replacement for raw latency lists.
+
+    Bucket upper edges are ``lo * growth**i`` up to ``hi`` plus one
+    overflow bucket, so the whole structure is ~60 ints regardless of
+    how many values were recorded. Quantiles interpolate geometrically
+    inside the winning bucket: the estimate is within one ``growth``
+    factor of the exact quantile by construction (tested against known
+    distributions). Two histograms with the same parameters merge by
+    adding counts — the property that makes ring-buffer eviction safe
+    (evicted events fold here; ``summary()`` merges live + evicted).
+    """
+
+    __slots__ = ("lo", "hi", "growth", "bounds", "counts", "count",
+                 "total", "min", "max")
+
+    def __init__(self, *, lo: float = 1e-6, hi: float = 3600.0,
+                 growth: float = 1.5):
+        if not (lo > 0 and hi > lo and growth > 1):
+            raise ValueError(
+                f"need 0 < lo < hi and growth > 1: {lo}, {hi}, {growth}"
+            )
+        self.lo = lo
+        self.hi = hi
+        self.growth = growth
+        bounds = []
+        edge = lo
+        while edge < hi:
+            bounds.append(edge)
+            edge *= growth
+        bounds.append(edge)
+        self.bounds = bounds  # upper edges; +1 overflow bucket beyond
+        self.counts = [0] * (len(bounds) + 1)
+        self.count = 0
+        self.total = 0.0
+        self.min: float | None = None
+        self.max: float | None = None
+
+    def record(self, value: float) -> None:
+        v = float(value)
+        i = bisect.bisect_left(self.bounds, v)
+        self.counts[i] += 1
+        self.count += 1
+        self.total += v
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+
+    def record_many(self, values) -> None:
+        for v in values:
+            self.record(v)
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        if (self.lo, self.hi, self.growth) != (
+            other.lo, other.hi, other.growth
+        ):
+            raise ValueError(
+                "cannot merge histograms with different bucket layouts"
+            )
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        for m, pick in (("min", min), ("max", max)):
+            ov = getattr(other, m)
+            if ov is not None:
+                sv = getattr(self, m)
+                setattr(self, m, ov if sv is None else pick(sv, ov))
+        return self
+
+    def copy(self) -> "Histogram":
+        h = Histogram(lo=self.lo, hi=self.hi, growth=self.growth)
+        h.merge(self)
+        return h
+
+    def quantile(self, q: float) -> float | None:
+        """Estimated q-quantile (0 <= q <= 1), or None when empty.
+        Geometric interpolation inside the winning bucket; clamped to
+        the observed min/max so the estimate never leaves the data's
+        range."""
+        if self.count == 0:
+            return None
+        if not (0.0 <= q <= 1.0):
+            raise ValueError(f"q must be in [0, 1]: {q}")
+        # nearest-rank target (1-based), matching sorted()[ceil(q*n)-1]
+        target = max(1, int(q * self.count + 0.9999999999))
+        seen = 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen >= target:
+                if i >= len(self.bounds):  # overflow bucket
+                    est = self.max if self.max is not None else self.hi
+                else:
+                    upper = self.bounds[i]
+                    lower = upper / self.growth if i > 0 else 0.0
+                    # geometric midpoint-ish: position of the target
+                    # rank inside the bucket, interpolated in log space
+                    frac = (target - (seen - c)) / max(c, 1)
+                    if lower <= 0:
+                        est = upper * frac
+                    else:
+                        est = lower * (upper / lower) ** frac
+                lo_clamp = self.min if self.min is not None else est
+                hi_clamp = self.max if self.max is not None else est
+                return min(max(est, lo_clamp), hi_clamp)
+        return self.max
+
+    @property
+    def mean(self) -> float | None:
+        return self.total / self.count if self.count else None
+
+    def as_dict(self) -> dict:
+        out = {
+            "count": self.count,
+            "sum": round(self.total, 6),
+        }
+        if self.count:
+            out["mean"] = round(self.total / self.count, 9)
+            for name, q in (("p50", 0.5), ("p90", 0.9), ("p99", 0.99)):
+                out[name] = round(self.quantile(q), 9)
+            out["min"] = round(self.min, 9)
+            out["max"] = round(self.max, 9)
+        return out
+
+
+# -- ring buffer -------------------------------------------------------------
+
+
+class RingLog:
+    """Bounded event list: appending past ``retention`` evicts the
+    OLDEST entry through ``on_evict`` (which folds it into running
+    aggregates — :class:`Histogram` and counters — so a long-lived
+    server's summary stays correct after eviction, at fixed memory).
+
+    Quacks like the list it replaces in ``MetricsLogger``: iteration,
+    ``len``, indexing, truthiness all behave identically for retained
+    entries."""
+
+    def __init__(self, retention: int = 4096, on_evict=None):
+        if retention < 1:
+            raise ValueError(f"retention must be >= 1: {retention}")
+        self.retention = retention
+        self.on_evict = on_evict
+        self.evicted = 0
+        self._items: list = []
+
+    def append(self, item) -> None:
+        self._items.append(item)
+        if len(self._items) > self.retention:
+            old = self._items.pop(0)
+            self.evicted += 1
+            if self.on_evict is not None:
+                self.on_evict(old)
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __iter__(self) -> Iterator:
+        return iter(list(self._items))
+
+    def __getitem__(self, i):
+        return self._items[i]
+
+    def __bool__(self) -> bool:
+        return bool(self._items)
+
+    def clear(self) -> None:
+        self._items.clear()
+
+
+# -- SLO ---------------------------------------------------------------------
+
+
+def slo_summary(
+    target_p99_ms: float,
+    latencies_ms,
+    *,
+    objective: float = 0.99,
+    evicted_requests: int = 0,
+    evicted_violations: int = 0,
+    p99_ms: float | None = None,
+) -> dict:
+    """SLO attainment + error-budget burn for a declared p99 target.
+
+    ``latencies_ms`` is the LIVE (ring-retained) rolling window;
+    ``evicted_*`` carry the folded lifetime counts, so attainment is
+    reported both for the rolling window and the whole run. Burn rate
+    is the standard SRE definition: the fraction of requests violating
+    the target divided by the budgeted fraction (``1 - objective``) —
+    1.0 means burning budget exactly as fast as allowed, >1 means the
+    SLO fails if sustained.
+
+    Burn is reported over TWO windows side by side (``out["burn"]``,
+    docs/OBSERVABILITY.md): ``fast`` over the rolling ring window
+    (a flash crowd spikes it immediately, then it decays as healthy
+    requests refill the ring) and ``slow`` over the whole run's
+    lifetime counts (a slow regression creeps it up and a burst barely
+    moves it) — the pairing that distinguishes transient incidents
+    from sustained SLO erosion. ``budget_burn`` stays the lifetime
+    (slow) number for backward compatibility; the rolling window's own
+    burn also appears as ``window["budget_burn"]``.
+    """
+    window = [float(v) for v in latencies_ms]
+    w_viol = sum(1 for v in window if v > target_p99_ms)
+    requests = len(window) + evicted_requests
+    violations = w_viol + evicted_violations
+    budget = max(1.0 - objective, 1e-9)
+    out: dict = {
+        "target_p99_ms": target_p99_ms,
+        "objective": objective,
+        "requests": requests,
+        "violations": violations,
+    }
+    if p99_ms is None and window:
+        ws = sorted(window)
+        p99_ms = ws[min(len(ws) - 1, int(len(ws) * objective))]
+    if p99_ms is not None:
+        out["p99_ms"] = round(p99_ms, 3)
+        out["attained"] = bool(p99_ms <= target_p99_ms)
+    if requests:
+        attainment = 1.0 - violations / requests
+        slow_burn = round((violations / requests) / budget, 4)
+        out["attainment"] = round(attainment, 6)
+        out["error_budget"] = round(budget, 6)
+        out["budget_burn"] = slow_burn
+        fast_burn = (
+            round((w_viol / len(window)) / budget, 4) if window
+            else slow_burn
+        )
+        out["burn"] = {"fast": fast_burn, "slow": slow_burn}
+    if window:
+        out["window"] = {
+            "requests": len(window),
+            "violations": w_viol,
+            "attainment": round(1.0 - w_viol / len(window), 6),
+            "budget_burn": round((w_viol / len(window)) / budget, 4),
+        }
+    return out

@@ -240,17 +240,12 @@ def test_synthetic_stream_draws_fresh_planted_blocks():
 
 # -- the namespaces -------------------------------------------------------------
 
-#: the reference's loaders, which wait for ROADMAP.md Queue 1 item 16b
-DATA_LOADERS = {"load_cifar10", "load_CIFAR_10_data", "unpickle", "preprocess",
-                "load_mnist", "read_idx"}
-
-
 @pytest.mark.parametrize("ours,theirs,missing", [
     (dett, jdet, {"__version__"}),
     # ops.gram is the port's Gram kernel module; the function is ops.linalg.gram
     (tops, jops, {"gram"}),
     (talgo, jalgo, set()),
-    (tdata, jdata, DATA_LOADERS),
+    (tdata, jdata, set()),
     (tsolvers, jsolvers, set()),
     (tserving, jserving, set()),
 ], ids=["top", "ops", "algo", "data", "solvers", "serving"])

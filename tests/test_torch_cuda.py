@@ -884,6 +884,43 @@ def test_syev_batched_matches_torch_eigh(cuda_device, shape):
     assert torch.equal(cusolver.eigh(big)[0], torch.linalg.eigh(big)[0])
 
 
+@pytest.mark.parametrize("n", [40, 300])
+def test_factorizations_fail_per_matrix_on_the_card(cuda_device, n):
+    """A matrix of a batch that is not finite comes out NaN in its own batch
+    element and the others as a batch without it gives them: the batched
+    cuSOLVER call (n = 40) with no host sync, and torch's ``eigh`` (n = 300).
+    A Gram that is not positive definite fails its CholeskyQR element alone,
+    with no host sync either (the fleet's per-tenant failure)."""
+    from distributed_eigenspaces_tpu_torch.ops import cusolver
+    from distributed_eigenspaces_tpu_torch.ops.linalg import chol_qr
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((3, n, n), generator=g, device=cuda_device)
+    a = x @ x.mT / n
+    bad = a.clone()
+    bad[1, 3, 5] = float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error" if n == 40 else "default")
+    try:
+        w, v = cusolver.eigh(bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isnan(w[1]).all()) and bool(torch.isnan(v[1]).all())
+    w2, v2 = cusolver.eigh(a[[0, 2]])
+    torch.testing.assert_close(w[[0, 2]], w2, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close((v[[0, 2]].mT @ v2).abs().diagonal(dim1=-2, dim2=-1)[..., -4:],
+                               torch.ones((2, 4), device=cuda_device), rtol=0, atol=1e-3)
+    q_in = torch.randn((3, 64, 4), generator=g, device=cuda_device)
+    q_in[2] = 0.0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q = chol_qr(q_in)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isnan(q[2]).all()) and bool(torch.isfinite(q[:2]).all())
+    torch.testing.assert_close(q[:2], chol_qr(q_in[:2]), rtol=1e-6, atol=1e-6)
+
+
 FLEET_CFG = dict(dim=256, k=4, num_workers=4, rows_per_worker=256, num_steps=4,
                  solver="subspace", subspace_iters=12, warm_start_iters=2,
                  compute_dtype="bfloat16", warm_orth_method="ns", backend="local")

@@ -14,6 +14,8 @@ Gram once, a fleet on two gloo ranks makes no collective inside its fit,
 and ``publish_fleet``'s lineage is the reference's.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -285,6 +287,106 @@ def test_merge_of_a_tenant_stack_is_each_tenants_merge():
             want = merged_top_k_lowrank(vs[b], 3, mask[b])
             torch.testing.assert_close(got[b], want, rtol=1e-5, atol=1e-6)
         assert float(got[1].abs().max()) == 0.0
+
+
+# -- one tenant's failure ----------------------------------------------------------
+
+PB, PD, PK, PM, PN, PT = 2, 32, 3, 2, 32, 3
+
+
+def _poisoned_fleet():
+    """Two tenants on numpy draws, one NaN in tenant 1's first block."""
+    base = dict(dim=PD, k=PK, num_workers=PM, rows_per_worker=PN, num_steps=PT,
+                solver="subspace", subspace_iters=10, backend="local")
+    scale = np.linspace(3.0, 0.1, PD, dtype=np.float32)
+    xs = np.random.default_rng(0).standard_normal((PB, PT, PM, PN, PD)).astype(np.float32)
+    xs *= scale
+    xs[1, 0, 0, 0, 0] = np.nan
+    v0 = np.array(jax.random.normal(jax.random.PRNGKey(0), (PD, PK), jnp.float32))
+    return PCAConfig(**base), JaxConfig(**base), xs, v0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_one_tenants_failed_factorization_fails_that_tenant_alone(masked):
+    """A tenant whose Gram is not finite fails in its own lane: its
+    ``sigma_tilde`` is non-finite in both packages, and the healthy tenant
+    beside it matches the reference's and equals its own fit in a fleet
+    without the poisoned tenant (the reference's lanes are independent; the
+    port's batched Cholesky and eigensolves fail per batch element)."""
+    cfg, jcfg, xs, v0 = _poisoned_fleet()
+    act = np.ones((PB, PT), np.float32)
+    masks = np.ones((PB, PT, PM), np.float32)
+
+    def port(x):
+        fit = fleet.make_fleet_fit(cfg, masked=masked, device=CPU, v0=v0)
+        st0 = fleet.init_fleet_states(cfg, x.shape[0], device=CPU)
+        args = (torch.from_numpy(x),) + ((masks[: x.shape[0]],) if masked else ())
+        return _sigma(fit(st0, *args, act[: x.shape[0]])[0])
+
+    jfit = jfleet.make_fleet_fit(jcfg, masked=masked)
+    jargs = (jnp.asarray(xs),) + ((jnp.asarray(masks),) if masked else ())
+    want = np.asarray(jfit(jfleet.init_fleet_states(jcfg, PB), *jargs, jnp.asarray(act))[0]
+                      .sigma_tilde)
+    got = port(xs)
+    assert np.isfinite(want[0]).all() and not np.isfinite(want[1]).all()
+    assert np.isfinite(got[0]).all() and not np.isfinite(got[1]).all()
+    _close(got[0], want[0])
+    _close(got[0], port(xs[:1])[0])
+
+
+def test_fleet_server_resolves_the_healthy_tenant_beside_a_failed_one():
+    """The server's bucket holds both tenants: the healthy request resolves
+    with ``fit_fleet``'s components, the poisoned one with non-finite ones."""
+    cfg, _, xs, v0 = _poisoned_fleet()
+    cfg = dataclasses.replace(cfg, fleet_bucket_size=2, fleet_flush_s=30.0)
+    with fleet.FleetServer(cfg, device=CPU, v0=v0) as srv:
+        ws = [t.result(timeout=300) for t in [srv.submit(x) for x in xs]]
+    ref = fleet.fit_fleet(cfg, list(xs), mesh=None, device=CPU, v0=v0)
+    np.testing.assert_array_equal(ws[0], ref.components[0])
+    assert np.isfinite(ws[0]).all() and not np.isfinite(ws[1]).all()
+    assert not np.isfinite(ref.components[1]).all()
+
+
+def test_eigh_and_cholesky_fail_per_batch_element(monkeypatch):
+    """The factorizations under the fleet: a matrix that is not finite, that
+    torch's solver fails to converge on, or that is not positive definite, is
+    NaN in its own batch element, and the others are what a batch without it
+    gives."""
+    from distributed_eigenspaces_tpu_torch.ops.cusolver import eigh
+    from distributed_eigenspaces_tpu_torch.ops.linalg import chol_qr
+
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn((3, 40, 40), generator=g)
+    a = a @ a.mT
+    a[1, 3, 5] = float("nan")
+    w, v = eigh(a)
+    assert torch.isnan(w[1]).all() and torch.isnan(v[1]).all()
+    for b in (0, 2):
+        ww, vv = torch.linalg.eigh(a[b])
+        assert torch.equal(w[b], ww) and torch.equal(v[b], vv)
+    # a matrix torch's solver fails to converge on: the batch is solved again
+    # matrix by matrix, the failed one NaN
+    real_eigh = torch.linalg.eigh
+
+    def fails_on_the_marked(m):
+        if bool((m[..., 0, 0] == -7.0).any()):
+            raise torch.linalg.LinAlgError("failed to converge")
+        return real_eigh(m)
+
+    monkeypatch.setattr(torch.linalg, "eigh", fails_on_the_marked)
+    marked = a.nan_to_num(0.0)
+    marked[1, 0, 0] = -7.0
+    w, v = eigh(marked)
+    monkeypatch.undo()
+    assert torch.isnan(w[1]).all() and torch.isnan(v[1]).all()
+    for i in (0, 2):
+        ww, vv = real_eigh(marked[i])
+        assert torch.equal(w[i], ww) and torch.equal(v[i], vv)
+    x = torch.randn((3, 16, 4), generator=g)
+    x[2] = 0.0  # a zero Gram under zero jitter: not positive definite
+    q = chol_qr(x)
+    assert torch.isnan(q[2]).all() and torch.isfinite(q[:2]).all()
+    torch.testing.assert_close(q[:2], chol_qr(x[:2]), rtol=0, atol=0)
 
 
 # -- the mesh of ranks -------------------------------------------------------------

@@ -60,6 +60,13 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.runtime.native\n"
         "import distributed_eigenspaces_tpu_torch.runtime.prefetch\n"
         "import distributed_eigenspaces_tpu_torch.utils.checkpoint\n"
+        "import distributed_eigenspaces_tpu_torch.evals\n"
+        "import distributed_eigenspaces_tpu_torch.utils.roofline\n"
+        "import distributed_eigenspaces_tpu_torch.utils.tracing\n"
+        "import distributed_eigenspaces_tpu_torch.analysis.hlo\n"
+        "import distributed_eigenspaces_tpu_torch.data.cifar\n"
+        "import distributed_eigenspaces_tpu_torch.data.mnist\n"
+        "import distributed_eigenspaces_tpu_torch.data.npy_dir\n"
         "import distributed_eigenspaces_tpu_torch.parallel.feature_sharded\n"
         "import distributed_eigenspaces_tpu_torch.parallel.mesh\n"
         "import distributed_eigenspaces_tpu_torch.algo.online\n"
