@@ -101,13 +101,17 @@ exits non-zero without printing a result:
    launched once per dispatch.
 5j. slice_drift: the serve -> drift -> refit -> swap loop at the same
    settings: the fit's basis served (float32) with a ``DriftMonitor(
-   supervise=False, buffer_rows=32768, auto=True)`` attached; 64 queries of
-   512 rows of the fit's own data, then rows of ``planted_subspace(3072,
-   seed=1)`` one query a batch until the monitor arms (its EWMA weight set
-   so that this happens after its ring holds shifted rows only); exactly one
-   refresh published, within 1 degree of the seed-1 top-10, the server's
-   next batches on the new version with a lower residual ratio, the refit's
-   s8 call counted, the refit seconds and the swap latency.
+   supervise=True, buffer_rows=32768, auto=True, metrics=MetricsLogger())``
+   attached; 64 queries of 512 rows of the fit's own data, then rows of
+   ``planted_subspace(3072, seed=1)`` one query a batch until the monitor
+   arms (its EWMA weight set so that this happens after its ring holds
+   shifted rows only); exactly one refresh published, within 1 degree of the
+   seed-1 top-10, the server's next batches on the new version with a lower
+   residual ratio, the supervised refit's one bf16 TMA Gram launch, its
+   drift event and steps in the logger, the refit seconds and the swap
+   latency. Then a second ``DriftMonitor(supervise=False, auto=False)`` on
+   the same buffered rows refreshes once through the estimator: one s8
+   call, within 1 degree of the seed-1 top-10.
 5k. slice_mesh_eval: the mnist784 eval field for field (d=784, k=20, m=8,
    n=1024, T=20, subspace 16 / 2 warm, bf16, int8 stage, ns warm,
    ``backend="shard_map"``) on its ``planted_subspace`` data: through
@@ -368,6 +372,7 @@ SERVE_REPLACES = {
 }
 SERVE_TOL = 1e-5
 SERVE_K = 10
+SERVE_SLO_MS = 100.0  # the bf16 burst's declared p99 target (its logger's SLO section)
 SERVE_BURST = (512, 3072, SERVE_K)  # a full bucket: 8 queries x 64 rows
 SERVE_BULK = (65536, 3072, SERVE_K)  # 50,000 rows padded to their bucket
 # ... and the grown basis's k' = 20 (slice_grow's burst buckets)
@@ -443,7 +448,10 @@ MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
 ANALYSIS_PROGRAMS = 4
 ANALYSIS_MUTATIONS = 5
 ANALYSIS_WINDOWS = 5  # profiled windows of the analysis phase at most
-ANALYSIS_WARM_ROUNDS = 64  # profiler_warm's kernel pairs opening each of them
+# profiler_warm's kernel pairs opening each profiled window (the analysis
+# phase's and every device_ms window): a window after many earlier ones lost
+# its first 19 kernel events (a timed call's included)
+ANALYSIS_WARM_ROUNDS = 64
 # the deflation route at the imagenet12288 shape: slice_dsolve's config with
 # the merge on 5 parallel-deflation lanes of 10
 DEFLATE_LANES = 5
@@ -525,6 +533,8 @@ FLEET_LAUNCH_RATIO = 1.5  # a fleet fit's kernels against one solo fit's, at mos
 FLEET_SERVER_EXTRA = 3  # requests after the full bucket: flushed on the deadline
 FLEET_QUERIES = 64  # the published tenant's burst, of 1, 8 or 64 rows
 FLEET_RANK_DEG = 0.01  # a two-rank fleet's tenant against the one-process fleet's
+# fit_fleet(supervisor=): one NaN worker block in one tenant (1-based step)
+FLEET_BAD = dict(tenant=3, step=5, worker=2)
 # the reference bench's population shape (bench.py:2241-2256) and its
 # orthonormal colluders (gate 2): 5% of a cohort of 256, honest clients at
 # runtime/population.py's noise, 12 rounds folded
@@ -1284,7 +1294,7 @@ def profiled_window(fn, reps: int, warm: int) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_warm("cuda")
+        profiler_warm("cuda", ANALYSIS_WARM_ROUNDS)
         time.sleep(PAUSE_S)
         for _ in range(warm):
             fn()
@@ -1416,7 +1426,9 @@ def request_latencies_ms(tracer) -> list[float]:
 def slice_serve(est, spec, cfg, card: str) -> dict:
     """The read path end to end on the fit ``est``; returns each serve
     kernel's launches in its server's run (burst, and bulk for the
-    quantized kernels)."""
+    quantized kernels). The bf16 server runs under a ``MetricsLogger``
+    (``QueryServer(metrics=)``) whose serving section must count the burst
+    as the burst counts itself: 64 requests, its batches, no sheds."""
     import dataclasses
 
     import numpy as np
@@ -1426,6 +1438,7 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
         EigenbasisRegistry,
         QueryServer,
     )
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
     from distributed_eigenspaces_tpu_torch.utils.telemetry import Tracer
 
     rng = np.random.default_rng(1)
@@ -1438,8 +1451,10 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
     bulk_direct = est.transform(bulk)
     launched = {}
     for serve_dtype, route in (("bfloat16", "bf16"), ("int8", "i8"), ("float32", "f32")):
+        logger = MetricsLogger(slo_p99_ms=SERVE_SLO_MS) if route == "bf16" else None
         t0 = time.perf_counter()
-        with QueryServer(reg, dataclasses.replace(cfg, serve_dtype=serve_dtype)) as srv:
+        with QueryServer(reg, dataclasses.replace(cfg, serve_dtype=serve_dtype),
+                         metrics=logger) as srv:
             construct_s = time.perf_counter() - t0
             eng = srv.engine
             self_check_deg = eng.self_check()
@@ -1506,6 +1521,27 @@ def slice_serve(est, spec, cfg, card: str) -> dict:
                 check(bulk_angle <= 0.2, f"{serve_dtype}: bulk row at {bulk_angle} deg > 0.2")
                 check(launched[route] == dispatches[0],
                       f"{serve_dtype}: {launched[route]} launches for {dispatches[0]} dispatches")
+            if logger is not None:
+                summary = logger.summary()
+                serving = summary["serving"]
+                # the health section lists sheds only once one happened
+                sheds = serving.get("health", {}).get("shed_count", 0)
+                emit("slice_serve", part="metrics", serve_dtype=serve_dtype,
+                     serving={key: serving.get(key) for key in (
+                         "batches", "queries", "rejected", "qps", "mean_occupancy",
+                         "swaps", "versions_served", "padded_rows", "mean_fill_fraction",
+                         "p50_latency_s", "p99_latency_s", "latency_decomposition",
+                         "compile_misses", "health")},
+                     slo=summary.get("slo"), card=card)
+                check(serving["queries"] == len(served) == len(queries),
+                      f"{serve_dtype}: the logger counted {serving['queries']} requests")
+                check(serving["batches"] == stats["batches"],
+                      f"{serve_dtype}: the logger counted {serving['batches']} batches for "
+                      f"the burst's {stats['batches']} dispatches")
+                check(sheds == 0 and serving["rejected"] == 0,
+                      f"{serve_dtype}: the logger counted {sheds} sheds")
+                check(serving["swaps"] == srv.swap_count,
+                      f"{serve_dtype}: the logger counted {serving['swaps']} swaps")
             check(stats["max_angle_deg"] <= 0.2,
                   f"{serve_dtype}: served row at {stats['max_angle_deg']} deg > 0.2")
             check(len(versions) == 2, f"{serve_dtype}: versions served {versions}")
@@ -2715,6 +2751,7 @@ def slice_grow(dev, card: str, work_dir: str, spec, data) -> dict:
         ReplicaRegistry,
     )
     from distributed_eigenspaces_tpu_torch.solvers import grow_basis
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
 
     cfg = dett.PCAConfig(**EVAL_FIT)
     est = dett.OnlineDistributedPCA(cfg)
@@ -2729,8 +2766,9 @@ def slice_grow(dev, card: str, work_dir: str, spec, data) -> dict:
     try:
         reg = EigenbasisRegistry(registry_dir=reg_dir, lease=lease)
         parent = reg.publish_fit(est)
+        rep_logger = MetricsLogger()
         rep = ReplicaRegistry(reg_dir, name="replica-0", staleness_ms=REPLICA_STALENESS_MS,
-                              poll_s=0.005)
+                              poll_s=0.005, metrics=rep_logger)
         sigma = est.state.sigma_tilde.float()
         v_parent = torch.as_tensor(np.array(parent.v), device=dev)
         v_init = torch.randn((cfg.dim, GROW_K - cfg.k), device=dev,
@@ -2783,6 +2821,16 @@ def slice_grow(dev, card: str, work_dir: str, spec, data) -> dict:
         check(health["last_lag_ms"] is not None
               and health["last_lag_ms"] <= REPLICA_STALENESS_MS,
               f"grow: propagation {health['last_lag_ms']} ms > {REPLICA_STALENESS_MS}")
+        replication = rep_logger.summary()["replication"]
+        installs = [r for r in rep_logger.replication_records
+                    if r["replication"] == "install"]
+        emit("slice_grow", part="metrics", replication={
+            key: v for key, v in replication.items() if key != "recent"}, card=card)
+        check(replication["installs"] == rep.installs == len(installs) >= 2,
+              f"grow: the logger counted {replication['installs']} installs, the replica "
+              f"{rep.installs}")
+        check(installs[-1].get("grew_from") == parent.version,
+              f"grow: the grown install event names {installs[-1].get('grew_from')}")
 
         # the replica serves the grown basis through the serve kernel
         rng = np.random.default_rng(5)
@@ -2831,18 +2879,25 @@ def slice_grow(dev, card: str, work_dir: str, spec, data) -> dict:
 def slice_drift(dev, card: str, est, spec) -> dict:
     """The serve -> drift -> refit -> swap loop at the cifar10 settings: the
     fit's basis served with a DriftMonitor attached, in-distribution traffic,
-    then the seed-1 model's rows until the monitor refits (its s8 pair) and
-    publishes, and the server's next batches carry the new version."""
+    then the seed-1 model's rows until the monitor refits and publishes, and
+    the server's next batches carry the new version. The refit runs under
+    ``supervised_fit`` (the monitor's default, ``supervise=True``) on the
+    per-step loop, which feeds its blocks as they come: one cold round, one
+    bf16 TMA Gram launch, no s8 call. The monitor reports to a
+    ``MetricsLogger``: its drift event and the refit's steps land there.
+    Then the unsupervised refit (``supervise=False``: the estimator, whose
+    int8 stage makes one s8 call) on the same buffered rows, through a
+    second monitor's ``refresh_now``."""
     import numpy as np
     import torch
     import distributed_eigenspaces_tpu_torch as dett
-    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
     from distributed_eigenspaces_tpu_torch.serving import (
         DriftMonitor,
         EigenbasisRegistry,
         QueryServer,
     )
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
 
     cfg = dett.PCAConfig(**EVAL_FIT)
     shifted = dett.planted_subspace(EVAL_FIT["dim"], **DRIFT_SHIFT)
@@ -2857,17 +2912,19 @@ def slice_drift(dev, card: str, est, spec) -> dict:
         return out
 
     reg.publish = stamped
-    mon = DriftMonitor(reg, cfg, supervise=False, buffer_rows=DRIFT_BUFFER_ROWS, auto=True,
-                       ema_alpha=DRIFT_EMA_ALPHA, device=dev)
+    logger = MetricsLogger()
+    mon = DriftMonitor(reg, cfg, supervise=True, buffer_rows=DRIFT_BUFFER_ROWS, auto=True,
+                       ema_alpha=DRIFT_EMA_ALPHA, metrics=logger, device=dev)
     gen = torch.Generator(device=dev).manual_seed(21)
 
     def query(model):  # rows drawn on the card, submitted as host numpy
         return model.sample(gen, DRIFT_QUERY_ROWS).cpu().numpy()
 
     before_ratio, after_ratio = [], []
+    fed = []  # the shifted queries with their served energies
     requests = 0
     sp.launches_f32 = 0
-    gram_mod.launches_s8 = 0
+    zero_counts()
     with QueryServer(reg, cfg, drift=mon) as srv:
         t0 = time.perf_counter()
         for _ in range(64):  # the fit's own data
@@ -2880,14 +2937,16 @@ def slice_drift(dev, card: str, est, spec) -> dict:
             check(shifted_queries < DRIFT_MAX_SHIFTED,
                   f"drift: no refresh after {shifted_queries} shifted queries "
                   f"(drift {mon.residual_drift()})")
-            r = srv.submit(query(shifted)).result(timeout=300)
+            q = query(shifted)
+            r = srv.submit(q).result(timeout=300)
             requests += 1
             before_ratio.append(float(r.residual_sq.sum() / r.input_sq.sum()))
+            fed.append((q, float(r.residual_sq.sum()), float(r.input_sq.sum())))
             shifted_queries += 1
         buffered = mon.buffered_rows()
         mon.join_refresh(timeout=300)
         check(not mon.refreshing(), "drift: the refresh did not finish in 300 s")
-        refit_s8 = gram_mod.launches_s8
+        refit = read_counts()
         v2 = reg.latest()
         served_new = None
         for _ in range(8):
@@ -2898,18 +2957,45 @@ def slice_drift(dev, card: str, est, spec) -> dict:
             after_ratio.append(float(r.residual_sq.sum() / r.input_sq.sum()))
         loop_s = time.perf_counter() - t0
     f32_launches = sp.launches_f32
+    # the unsupervised refit on the rows the supervised one buffered: a
+    # second monitor fed the same shifted queries, refreshed inline
+    reg_u = EigenbasisRegistry(keep=4)
+    reg_u.publish_fit(est)
+    mon_u = DriftMonitor(reg_u, cfg, supervise=False, buffer_rows=DRIFT_BUFFER_ROWS,
+                         auto=False, ema_alpha=DRIFT_EMA_ALPHA, device=dev)
+    for q, res_sq, in_sq in fed:
+        mon_u.observe(res_sq, in_sq, rows=q)
+    check(mon_u.buffered_rows() == buffered,
+          f"drift: the unsupervised monitor buffered {mon_u.buffered_rows()} rows, "
+          f"the supervised one {buffered}")
+    zero_counts()
+    v2_u = mon_u.refresh_now()
+    refit_u = read_counts()
+    fresh_u = basis_angle(v2_u.v, shifted) if v2_u is not None else None
     stale = basis_angle(v1.v, shifted)
     fresh = basis_angle(v2.v, shifted)
     swap_ms = (served_new - published_at[0]) * 1e3 if served_new and published_at else None
+    summary = logger.summary()
+    drift_events = [r for r in logger.serve_records if r["serve"] == "drift"]
     emit("slice_drift",
-         config="cifar10 eval settings, DriftMonitor(supervise=False, "
-                f"buffer_rows={DRIFT_BUFFER_ROWS}, auto=True, ema_alpha={DRIFT_EMA_ALPHA})",
+         config="cifar10 eval settings, DriftMonitor(supervise=True, "
+                f"buffer_rows={DRIFT_BUFFER_ROWS}, auto=True, ema_alpha={DRIFT_EMA_ALPHA}, "
+                "metrics=MetricsLogger())",
          traffic=f"64 x {DRIFT_QUERY_ROWS} rows of planted_subspace(3072, seed=0), then "
                  f"{shifted_queries} x {DRIFT_QUERY_ROWS} of planted_subspace(3072, seed=1)",
          in_distribution_drift=in_dist_drift, shifted_queries=shifted_queries,
          buffered_rows_at_arm=buffered, refreshes=mon.refreshes,
          published=[v.version for v in (v1, v2)], last_score=mon.last_score,
-         refit_s=mon.last_refit_s, refit_s8_calls=refit_s8, swap_ms=swap_ms,
+         refit_s=mon.last_refit_s, refit_gram_calls=refit, swap_ms=swap_ms,
+         unsupervised_refit=dict(refit_s=mon_u.last_refit_s, gram_calls=refit_u,
+                                 published=v2_u.version if v2_u is not None else None,
+                                 refreshed_vs_shift_deg=fresh_u,
+                                 lineage=v2_u.lineage if v2_u is not None else None),
+         logger=dict(steps=summary["steps"],
+                     drift_refreshes=summary["serving"].get("drift_refreshes"),
+                     drift_published=summary["serving"].get("drift_published"),
+                     drift_score=summary["serving"].get("drift_score"),
+                     faults=summary.get("faults", {}).get("by_kind")),
          stale_vs_shift_deg=stale, refreshed_vs_shift_deg=fresh,
          residual_ratio_before=float(np.median(before_ratio[-8:])),
          residual_ratio_after=float(np.median(after_ratio)), serve_f32_launches=f32_launches,
@@ -2923,9 +3009,23 @@ def slice_drift(dev, card: str, est, spec) -> dict:
     check(served_new is not None, "drift: the server never served the new version")
     check(max(after_ratio) < min(before_ratio[-8:]),
           "drift: the residual ratio did not fall after the swap")
-    check(refit_s8 == 1, f"drift: the refit made {refit_s8} s8 calls, want 1")
+    check((refit["gram"], refit["tma"], refit["s8"]) == (1, 1, 0),
+          f"drift: the supervised refit's Gram launches {refit}, want its one cold round "
+          "on the bf16 TMA kernel")
+    check(v2.lineage.get("supervised") is True, f"drift: lineage {v2.lineage}")
+    check(len(drift_events) == 1 and drift_events[0].get("published") == v2.version,
+          f"drift: the logger holds {len(drift_events)} drift events")
+    check(summary["steps"] == DRIFT_BUFFER_ROWS // (cfg.num_workers * cfg.rows_per_worker),
+          f"drift: the logger saw {summary['steps']} refit steps")
     check(f32_launches > 0, "drift: the fp32 serve kernel never launched")
-    return {"s8": refit_s8, "serve_f32": f32_launches}
+    check(v2_u is not None and mon_u.refreshes == 1,
+          f"drift: the unsupervised refresh published {v2_u}")
+    check(v2_u.lineage.get("supervised") is False, f"drift: lineage {v2_u.lineage}")
+    check(fresh_u <= 1.0,
+          f"drift: the unsupervised refit is {fresh_u} deg from the shifted truth")
+    check(refit_u["s8"] == 1, f"drift: the unsupervised refit made {refit_u['s8']} s8 "
+          "calls, want 1")
+    return {"tma": refit["tma"], "s8": refit_u["s8"], "serve_f32": f32_launches}
 
 
 def mnist_data(dev):
@@ -3398,8 +3498,56 @@ def slice_fleet_eval(dev, card: str) -> dict:
           f"{solo_launch['kernels']} for one solo fit")
     check(rel <= TOL["bfloat16"], f"fleet_eval: Gram at {FLEET_GRAM} {rel} > 1e-4")
     check(bool(np.isfinite(res.components).all()), "fleet_eval: components not finite")
-    return {"tma": counts["tma"], "result": res, "tenants": tenants,
+    sup_tma = fleet_supervised(dev, card, cfg, tenants, cache)
+    return {"tma": counts["tma"] + sup_tma, "result": res, "tenants": tenants,
             "gram": dict(gram, max_abs_err=max_abs)}
+
+
+def fleet_supervised(dev, card: str, cfg, tenants, cache) -> int:
+    """``fit_fleet(supervisor=)`` on the same 8 tenants with one NaN worker
+    block in tenant 3: the screen quarantines that worker of that tenant for
+    that step (ledgered with its tenant index), the 7 other tenants equal
+    the same fleet fit without a supervisor bit for bit (both on the masked
+    fleet program, the unsupervised one given all-live masks), and tenant 3
+    stays within 1 degree of its truth. Returns its Gram launches."""
+    import numpy as np
+    import torch
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+    from distributed_eigenspaces_tpu_torch.runtime.supervisor import Supervisor
+    from distributed_eigenspaces_tpu_torch.utils.faults import ChaosPlan, ChaosStream
+
+    bad = FLEET_BAD["tenant"]
+    probs = [p for _, p in tenants]
+    chaotic = list(probs)
+    chaotic[bad] = ChaosStream(iter(probs[bad]), ChaosPlan(
+        nan_blocks={FLEET_BAD["step"]: [FLEET_BAD["worker"]]}))
+    sup = Supervisor(cfg)
+    zero_counts()
+    got, sup_s = synced_s(lambda: fleet.fit_fleet(cfg, chaotic, mesh=None, supervisor=sup,
+                                                  fit_cache=cache))
+    counts = read_counts()
+    live = [np.ones((cfg.num_steps, cfg.num_workers), np.float32)] * len(probs)
+    want, _ = synced_s(lambda: fleet.fit_fleet(cfg, probs, mesh=None, worker_masks=live,
+                                               fit_cache=cache))
+    others = [b for b in range(len(probs)) if b != bad]
+    equal = all(np.array_equal(got.components[b], want.components[b])
+                and torch.equal(got.states.sigma_tilde[b], want.states.sigma_tilde[b])
+                for b in others)
+    bad_deg = basis_angle(torch.from_numpy(got.components[bad]), tenants[bad][0])
+    events = [dict(e) for e in sup.ledger.events]
+    emit("slice_fleet_eval", part="supervised",
+         corruption=f"NaN rows: tenant {bad}, step {FLEET_BAD['step']}, worker "
+                    f"{FLEET_BAD['worker']}",
+         ledger=events, others_bit_equal=equal, bad_tenant_vs_truth_deg=bad_deg,
+         fit_fleet_s=sup_s, gram_calls=counts, card=card)
+    check(equal, "fleet supervised: a healthy tenant differs from the unsupervised fleet")
+    check([(e["kind"], e["tenant"], e["step"], e["workers"]) for e in events]
+          == [("quarantine_nonfinite", bad, FLEET_BAD["step"], [FLEET_BAD["worker"]])],
+          f"fleet supervised: ledger {events}")
+    check(bad_deg <= 1.0, f"fleet supervised: tenant {bad} {bad_deg} deg from its truth")
+    check(bool(np.isfinite(got.components).all()), "fleet supervised: not finite")
+    check((counts["gram"], counts["tma"]) == (1, 1), f"fleet supervised: Gram {counts}")
+    return counts["tma"]
 
 
 def slice_fleet_server(dev, card: str, ev: dict) -> dict:
@@ -3418,13 +3566,18 @@ def slice_fleet_server(dev, card: str, ev: dict) -> dict:
     from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
     from distributed_eigenspaces_tpu_torch.parallel import fleet
     from distributed_eigenspaces_tpu_torch.serving import EigenbasisRegistry, QueryServer
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+    from distributed_eigenspaces_tpu_torch.utils.telemetry import Tracer
 
     cfg = dett.PCAConfig(**FLEET_FIT)
     extra = fleet_problems(dev, range(FLEET_B, FLEET_B + FLEET_SERVER_EXTRA))
+    logger = MetricsLogger()
+    tracer = Tracer()
+    logger.attach_tracer(tracer)
     probs = [p for _, p in ev["tenants"]] + [p for _, p in extra]
     zero_counts()
     t0 = time.perf_counter()
-    with fleet.FleetServer(cfg, device=dev) as srv:
+    with fleet.FleetServer(cfg, device=dev, metrics=logger) as srv:
         construct_s = time.perf_counter() - t0
         pw = srv.prewarm()
         warm_ok, warm_s = synced_s(lambda: srv.wait_warm(timeout=600))
@@ -3432,7 +3585,7 @@ def slice_fleet_server(dev, card: str, ev: dict) -> dict:
         tickets = [srv.submit(p) for p in probs]
         served = [t.result(timeout=600) for t in tickets]
         burst_s = time.perf_counter() - t0
-        log = [dict(b) for b in srv.bucket_log]
+        log = [dict(b) for b in logger.fleet_records if b["fleet"] == "bucket"]
         warm_stats = pw.stats()
     counts = read_counts()
     direct_full = ev["result"].components
@@ -3463,14 +3616,30 @@ def slice_fleet_server(dev, card: str, ev: dict) -> dict:
         query_s = time.perf_counter() - t_q
         serve_launches = sp.launches
     angles = torch.cat([row_angles_deg(r.z, z) for r, z in zip(replies, ref)])
+    fleet_summary = logger.summary()["fleet"]
+    chains: dict = {}
+    for span in tracer.snapshot():
+        if (span.trace_id or "").startswith("fleet"):
+            chains.setdefault(span.trace_id, set()).add(span.name)
+    chain_ok = len(chains) == len(probs) and all(
+        {"admit", "queue_wait", "dispatch", "compute"} <= names for names in chains.values())
+    emit("slice_fleet_server", part="metrics", fleet=fleet_summary,
+         span_chains=len(chains), span_chains_complete=chain_ok, card=card)
+    check(fleet_summary["buckets"] == 2 and fleet_summary["tenants"] == len(probs),
+          f"fleet_server: the logger counted {fleet_summary['buckets']} buckets, "
+          f"{fleet_summary['tenants']} tenants")
+    check(fleet_summary["compile_misses"] == 0 and fleet_summary["compile_stall_ms"] == 0.0,
+          f"fleet_server: the logger saw a compile stall on a prewarmed server: "
+          f"{fleet_summary}")
+    check(chain_ok, f"fleet_server: span chains {chains}")
     emit("slice_fleet_server",
          config=f"FleetServer, bucket {cfg.fleet_bucket_size}, flush {cfg.fleet_flush_s} s; "
                 "per tenant the mnist784 eval's settings",
          construct_s=construct_s, prewarm=dict(ok=warm_ok, wait_s=warm_s, **warm_stats),
          submits=len(probs), burst_s=burst_s,
-         buckets=[{key: b[key] for key in ("tenants", "occupancy", "compile_ms",
-                                           "bucket_seconds", "queue_wait_s",
-                                           "bucket_wait_s")} for b in log],
+         buckets=[{key: b[key] for key in ("tenants", "occupancy", "compile_stall_ms",
+                                           "bucket_seconds", "queue_wait_s")}
+                  for b in log],
          gram_calls=counts, served_vs_direct_max_abs=max(diffs), served_equal_direct=close,
          published=dict(version=bv.version, lineage=dict(bv.lineage), step=bv.step),
          query_burst=dict(queries=len(replies), rows=int(sum(q.shape[0] for q in queries)),
@@ -3481,7 +3650,8 @@ def slice_fleet_server(dev, card: str, ev: dict) -> dict:
     check(warm_ok and warm_stats["compiled"] == 1, f"fleet_server: prewarm {warm_stats}")
     check([b["tenants"] for b in log] == [FLEET_B, FLEET_SERVER_EXTRA],
           f"fleet_server: buckets {[b['tenants'] for b in log]}")
-    check(log[0]["compile_ms"] == 0.0, f"fleet_server: first bucket {log[0]['compile_ms']} ms")
+    check(log[0]["compile_stall_ms"] == 0.0,
+          f"fleet_server: first bucket {log[0]['compile_stall_ms']} ms")
     check(close, f"fleet_server: served vs direct {max(diffs)}")
     check(counts["tma"] == 2 and counts["gram"] == 2 and counts["s8"] == 0,
           f"fleet_server: Gram launches {counts}, want one a bucket")
@@ -3736,6 +3906,379 @@ def slice_fleet_ranks2(dev, card: str, ev: dict, cohort: dict, work_dir: str) ->
     return sum(o["counts"]["tma"] for o in out)
 
 
+# the supervised and elastic fits (runtime/supervisor.py, runtime/membership.py):
+# the reference chaos harness's fit mode (scripts/chaos.py:1054-1200) on the
+# cifar10 eval's settings, its churn bench (bench.py:2002-2160) at mnist784's
+# widths, and the master's dynamic round (runtime/scheduler.py:949-1040)
+SUP_CHAOS = dict(nan_blocks={3: [2]}, zero_blocks={5: [4]},
+                 raise_at={7: "chaos: flaky read"}, kill_at=11)
+SUP_SEGMENT = 4  # the segmented trainer's window: a commit every window
+SUP_CLEAN_DEG = 1.0  # the corrupted run against the clean supervised run
+# the bench's contract; prefetch at the port's default depth, so each round's
+# assembly (its deadline wait) runs on the producer thread while the card
+# computes the last one, and a round takes the deadline, as the bench's tiny
+# rounds do (its flap gate needs rounds under half the heartbeat timeout)
+CHURN_FIT = dict(MNIST_FIT, num_workers=10, num_steps=14, backend="local",
+                 prefetch_depth=2, heartbeat_timeout_ms=100.0, round_deadline_ms=40.0,
+                 min_quorum_frac=0.5)
+CHURN_GRAM = (CHURN_FIT["num_workers"], CHURN_FIT["rows_per_worker"], CHURN_FIT["dim"])
+CHURN_PLAN = dict(kill_at={3: [0, 1, 2], 9: [3]}, rejoin_at={9: [0, 1], 12: [3]},
+                  slow={9: 0.08})  # bench.py:2073-2079
+CHURN_QUORUM_KILLED = [0, 1, 2, 3, 4, 5]  # 60%: live 40% < the 50% floor
+DYN_ROWS = 16_384  # the cifar10 eval's first rows
+DYN_BATCHES = 16
+DYN_LANES = 2
+DYN_FAULT_TASKS = (3, 11)
+DYN_GRAM = (1, DYN_ROWS // DYN_BATCHES, EVAL_FIT["dim"])  # one batch's fp32 Gram
+DYN_SIGMA_REL = 1e-5
+DYN_LANE_DEG = 0.01
+
+
+def step_percentiles_ms(logger) -> dict:
+    """p50 / p99 of a MetricsLogger's retained step times, in ms."""
+    import numpy as np
+
+    secs = [r["step_seconds"] for r in logger.records if "step_seconds" in r]
+    if not secs:
+        return {"p50_ms": None, "p99_ms": None, "steps": 0}
+    return {"p50_ms": float(np.percentile(secs, 50) * 1e3),
+            "p99_ms": float(np.percentile(secs, 99) * 1e3), "steps": len(secs)}
+
+
+def chaos_fit(cfg, data, ckpt_dir: str, trainer: str, plan_kw: dict, sup, logger,
+              dev) -> tuple:
+    """``supervised_fit`` under the chaos harness's restart loop: a
+    ``KillSwitch`` is the process dying, caught outside, and the next call
+    resumes from the checkpoint directory, the kill fired once; one
+    ``Supervisor`` across the loop. Returns ``(w, state, restarts,
+    seconds)``."""
+    from distributed_eigenspaces_tpu_torch.data.stream import block_stream
+    from distributed_eigenspaces_tpu_torch.runtime.supervisor import supervised_fit
+    from distributed_eigenspaces_tpu_torch.utils.faults import (
+        ChaosPlan,
+        ChaosStream,
+        KillSwitch,
+    )
+
+    m, n = cfg.num_workers, cfg.rows_per_worker
+    fired = [False]
+
+    def factory(start_row):
+        plan = dict(plan_kw)
+        if fired[0]:
+            plan["kill_at"] = None
+        return ChaosStream(block_stream(data, num_workers=m, rows_per_worker=n,
+                                        start_row=start_row, device=dev),
+                           ChaosPlan(**plan), first_step=start_row // (m * n) + 1)
+
+    restarts = 0
+    t0 = time.perf_counter()
+    while True:
+        try:
+            w, st, _ = supervised_fit(
+                factory, cfg, checkpoint_dir=ckpt_dir, trainer=trainer,
+                checkpoint_every=SUP_SEGMENT if trainer == "segmented" else 1,
+                supervisor=sup, metrics=logger, device=dev)
+            break
+        except KillSwitch:
+            restarts += 1
+            fired[0] = True
+    import torch
+
+    torch.cuda.synchronize()
+    return w, st, restarts, time.perf_counter() - t0
+
+
+def slice_supervised(dev, card: str, work_dir: str, spec, data) -> dict:
+    """The chaos harness's fit mode on the cifar10 eval's settings field for
+    field (d=3072 k=10 m=8 n=1024 T=20, bf16, ns warm rounds) and data, on
+    the per-step trainer (prefetch depth 2) and the segmented one (a commit
+    a window of 4): a clean supervised run, then the chaotic stream (a NaN
+    block at step 3, a zeroed one at 5, a flaky read at 7, a kill at 11)
+    restarted on the same checkpoint directory under one Supervisor with a
+    MetricsLogger; on the segmented trainer also a kill-only run, equal to
+    the clean one bit for bit. The supervised routes feed the blocks as
+    they come (the reference's), so the int8 stage is not taken: each run's
+    cold rounds are bf16 TMA Gram launches, one a process start on the
+    per-step loop (its warm carry is no checkpoint state), one a run on the
+    segmented trainer (``SegmentState`` carries it). Returns the Gram
+    launches."""
+    import dataclasses
+
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.runtime.supervisor import Supervisor
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
+    base = dett.PCAConfig(**EVAL_FIT)
+    m, n, T = base.num_workers, base.rows_per_worker, base.num_steps
+    bf16 = {}
+    for trainer in ("step", "segmented"):
+        cfg = dataclasses.replace(base, prefetch_depth=2) if trainer == "step" else base
+        runs = {}
+        plans = {"clean": {}, "chaos": SUP_CHAOS}
+        if trainer == "segmented":
+            plans["kill_only"] = {"kill_at": SUP_CHAOS["kill_at"]}
+        for name, plan in plans.items():
+            logger = MetricsLogger(samples_per_step=m * n)
+            sup = Supervisor(cfg, metrics=logger)
+            zero_counts()
+            w, st, restarts, secs = chaos_fit(
+                cfg, data, os.path.join(work_dir, f"sup_{trainer}_{name}"), trainer, plan,
+                sup, logger, dev)
+            counts = read_counts()
+            runs[name] = dict(w=w, st=st, restarts=restarts, s=secs, counts=counts,
+                              ledger=sup.ledger.by_kind, summary=logger.summary(),
+                              steps=step_percentiles_ms(logger))
+        chaos, clean = runs["chaos"], runs["clean"]
+        summary = chaos["summary"]
+        cold = {"step": {"clean": 1, "chaos": 2, "kill_only": 2},
+                "segmented": {"clean": 1, "chaos": 1, "kill_only": 1}}[trainer]
+        angles = dict(
+            chaos_vs_clean_deg=float(principal_angles_degrees(
+                chaos["w"].cpu(), clean["w"].cpu()).max()),
+            chaos_vs_truth_deg=basis_angle(chaos["w"], spec),
+            clean_vs_truth_deg=basis_angle(clean["w"], spec))
+        kill_equal = None
+        if "kill_only" in runs:
+            kill_equal = bool(torch.equal(runs["kill_only"]["st"].sigma_tilde,
+                                          clean["st"].sigma_tilde)
+                              and torch.equal(runs["kill_only"]["w"], clean["w"]))
+        emit("slice_supervised", trainer=trainer,
+             config="cifar10 eval settings (evals.py:86-90) field for field"
+                    + (", prefetch_depth 2" if trainer == "step"
+                       else f", segment {SUP_SEGMENT} (a commit a window)"),
+             chaos_plan={k: v for k, v in SUP_CHAOS.items()},
+             restarts=chaos["restarts"], ledger_by_kind=chaos["ledger"],
+             faults=summary.get("faults", {}).get("by_kind"),
+             steps_completed=int(chaos["st"].step),
+             logger_step_ms=chaos["steps"], ingest=summary.get("ingest"),
+             gram_launches={name: r["counts"] for name, r in runs.items()},
+             gram_launches_predicted={name: {"gram": c, "tma": c, "s8": 0}
+                                      for name, c in cold.items()},
+             wall_s={name: r["s"] for name, r in runs.items()},
+             kill_only_equals_clean=kill_equal, card=card, **angles)
+        for name, r in runs.items():
+            check(int(r["st"].step) == T, f"supervised {trainer} {name}: {r['st'].step} steps")
+            check(bool(torch.isfinite(r["st"].sigma_tilde).all()),
+                  f"supervised {trainer} {name}: sigma_tilde not finite")
+            c = cold[name]
+            check((r["counts"]["gram"], r["counts"]["tma"], r["counts"]["s8"]) == (c, c, 0),
+                  f"supervised {trainer} {name}: Gram launches {r['counts']}, the route "
+                  f"predicts {c} bf16 TMA launches")
+        check(chaos["restarts"] == 1, f"supervised {trainer}: {chaos['restarts']} restarts")
+        check(set(chaos["ledger"]) == {"quarantine_nonfinite", "stream_retry", "resume"},
+              f"supervised {trainer}: ledger {chaos['ledger']}")
+        check("faults" in summary, f"supervised {trainer}: no faults section")
+        check(angles["chaos_vs_clean_deg"] <= SUP_CLEAN_DEG,
+              f"supervised {trainer}: {angles['chaos_vs_clean_deg']} deg from the clean run")
+        check(angles["chaos_vs_truth_deg"] <= 1.0,
+              f"supervised {trainer}: {angles['chaos_vs_truth_deg']} deg from the truth")
+        if kill_equal is not None:
+            check(kill_equal, "supervised segmented: the kill-only run differs from the "
+                              "unkilled run")
+        bf16[trainer] = sum(r["counts"]["tma"] for r in runs.values())
+        del runs
+    return bf16
+
+
+def slice_churn(dev, card: str, work_dir: str) -> dict:
+    """``bench.py --chaos-churn``'s two scenarios at mnist784's widths (d=784
+    k=20 n=1024, bf16, 16 subspace iterations, on its planted data), m=10
+    T=14, heartbeat 100 ms, round deadline 40 ms, quorum floor 0.5: a churn
+    fit (30% crash-killed at step 3, two rejoin, one flaps, one persistent
+    straggler past the deadline) and a quorum loss (60% killed at step 4, a
+    rejoiner thread, a checkpoint directory), each gated as the bench gates
+    them, and each within 1 degree of the planted truth. Returns the Gram
+    launches."""
+    import tempfile
+    import threading
+
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.data.stream import block_stream
+    from distributed_eigenspaces_tpu_torch.runtime.membership import (
+        ElasticStream,
+        MembershipTable,
+    )
+    from distributed_eigenspaces_tpu_torch.runtime.supervisor import supervised_fit
+    from distributed_eigenspaces_tpu_torch.utils.faults import ChurnPlan
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = dett.PCAConfig(**CHURN_FIT)
+    m, n, T = cfg.num_workers, cfg.rows_per_worker, cfg.num_steps
+    spec = dett.planted_subspace(cfg.dim, **MNIST_DATA)
+    data = spec.sample(torch.Generator(device=dev).manual_seed(1), m * n * T)
+    gates: dict = {}
+
+    def factory(table, churn, metrics):
+        def make(start_row):
+            raw = block_stream(data, num_workers=m, rows_per_worker=n,
+                               start_row=start_row, device=dev)
+            return ElasticStream(raw, table, cfg, churn=churn,
+                                 first_step=start_row // (m * n) + 1, metrics=metrics,
+                                 device=dev)
+
+        return make
+
+    # 1. churn fit: 30% loss, dead -> join rejoin, a flap, a straggler
+    metrics1 = MetricsLogger()
+    table1 = MembershipTable(m, heartbeat_timeout_ms=cfg.heartbeat_timeout_ms,
+                             min_quorum_frac=cfg.min_quorum_frac, metrics=metrics1)
+    metrics1.attach_membership(table1)
+    zero_counts()
+    t0 = time.perf_counter()
+    w1, st1, _ = supervised_fit(factory(table1, ChurnPlan(**CHURN_PLAN), metrics1), cfg,
+                                metrics=metrics1, membership=table1, device=dev)
+    torch.cuda.synchronize()
+    churn_fit_s = time.perf_counter() - t0
+    counts1 = read_counts()
+    angle1 = basis_angle(w1, spec)
+    ms = metrics1.summary()["membership"]
+    rounds_closed = [r for r in metrics1.membership_records
+                     if r["membership"] == "round_closed"]
+    admit_t = {r["slot"]: r["t_mono"] for r in metrics1.membership_records
+               if r["membership"] == "admit"}
+    rejoined_contributes = 0 in admit_t and any(
+        0 in r.get("arrived_slots", ()) and r["t_mono"] > admit_t[0] for r in rounds_closed)
+    gates["churn_completed_all_steps"] = int(st1.step) == T
+    gates["churn_angle_within_budget"] = angle1 <= 1.0
+    gates["churn_no_deadlock"] = ms["rounds"] == T and churn_fit_s < 60.0
+    gates["churn_straggler_folds_stale"] = ms["stale_folds"] >= 3
+    gates["churn_deadline_closes_rounds"] = ms["deadline_closed"] >= 3
+    gates["churn_deaths_detected"] = ms["by_kind"].get("dead", 0) >= 3
+    gates["churn_rejoin_admitted"] = ms["by_kind"].get("admit", 0) >= 2
+    gates["churn_rejoin_contributes_next_merge"] = rejoined_contributes
+    gates["churn_flap_recovers"] = ms["by_kind"].get("recovered", 0) >= 1
+
+    # 2. quorum loss: loud within 2x the heartbeat, resumed once they rejoin
+    metrics2 = MetricsLogger()
+    table2 = MembershipTable(m, heartbeat_timeout_ms=cfg.heartbeat_timeout_ms,
+                             min_quorum_frac=cfg.min_quorum_frac, metrics=metrics2)
+    metrics2.attach_membership(table2)
+    killed = CHURN_QUORUM_KILLED
+
+    def rejoiner():
+        # an operator bringing capacity back: wait for the loud quorum loss,
+        # then rejoin slots as their leases run out (bench.py:2132-2147)
+        deadline = time.monotonic() + 30.0
+        while table2.quorum_ok() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        joined: set = set()
+        while len(joined) < 4 and time.monotonic() < deadline:
+            table2.sweep()
+            for s in killed:
+                if s not in joined and table2.state(s) == "dead":
+                    table2.join(s)
+                    joined.add(s)
+            time.sleep(0.01)
+
+    thread = threading.Thread(target=rejoiner, daemon=True)
+    thread.start()
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="churn_ck_", dir=work_dir) as ck:
+        w2, st2, sup2 = supervised_fit(
+            factory(table2, ChurnPlan(kill_at={4: killed}), metrics2), cfg,
+            metrics=metrics2, membership=table2, checkpoint_dir=ck, device=dev)
+    torch.cuda.synchronize()
+    quorum_fit_s = time.perf_counter() - t0
+    counts2 = read_counts()
+    thread.join(timeout=30.0)
+    kinds2 = sup2.ledger.by_kind
+    mrecs, frecs = list(metrics2.membership_records), list(metrics2.fault_records)
+
+    def first_t(records, key, kind):
+        return next((r["t_mono"] for r in records if r.get(key) == kind), None)
+
+    t_kill = first_t(mrecs, "membership", "churn_kill")
+    t_lost = first_t(mrecs, "membership", "quorum_lost")
+    t_resume = next((r["t_mono"] for r in frecs if r.get("fault") == "resume"
+                     and r.get("reason") == "quorum_restored"), None)
+    quorum_detect_ms = (t_lost - t_kill) * 1e3 if None not in (t_kill, t_lost) else None
+    churn_recovery_ms = (t_resume - t_lost) * 1e3 if None not in (t_lost, t_resume) else None
+    angle2 = basis_angle(w2, spec)
+    gates["quorum_lost_raised"] = kinds2.get("quorum_lost", 0) >= 1
+    gates["quorum_detected_within_2x_heartbeat"] = (
+        quorum_detect_ms is not None and quorum_detect_ms <= 2.0 * cfg.heartbeat_timeout_ms)
+    gates["quorum_resumed_and_completed"] = (
+        kinds2.get("quorum_restored", 0) >= 1 and int(st2.step) == T)
+    gates["quorum_run_angle_within_budget"] = angle2 <= 1.0
+    ms2 = metrics2.summary()["membership"]
+    emit("slice_churn",
+         config=f"bench.py --chaos-churn contract (heartbeat {cfg.heartbeat_timeout_ms} ms, "
+                f"deadline {cfg.round_deadline_ms} ms, quorum {cfg.min_quorum_frac}, m={m}, "
+                f"T={T}) at the mnist784 eval's widths (d={cfg.dim} k={cfg.k} n={n}, bf16, "
+                f"{cfg.subspace_iters} subspace iterations, ns warm)",
+         churn_plan=CHURN_PLAN, quorum_killed=killed, gates=gates,
+         churn_recovery_ms=churn_recovery_ms, quorum_detect_ms=quorum_detect_ms,
+         stale_folds=ms["stale_folds"], deadline_closed=ms["deadline_closed"],
+         membership_by_kind=ms["by_kind"], arrival_hist=ms.get("arrival_hist"),
+         quorum_membership_by_kind=ms2["by_kind"], quorum_ledger=kinds2,
+         churn_angle_deg=angle1, quorum_angle_deg=angle2, churn_fit_s=churn_fit_s,
+         quorum_fit_s=quorum_fit_s, gram_launches={"churn": counts1, "quorum": counts2},
+         gram_launches_predicted={"churn": 1, "quorum": 2}, card=card)
+    for name, ok in gates.items():
+        check(ok, f"churn: gate {name} failed")
+    check((counts1["tma"], counts1["s8"]) == (1, 0) and counts1["gram"] == 1,
+          f"churn: Gram launches {counts1}, the route predicts one bf16 TMA launch")
+    check((counts2["tma"], counts2["s8"]) == (2, 0) and counts2["gram"] == 2,
+          f"churn: Gram launches {counts2}, the route predicts two (a cold round a "
+          "process start)")
+    return {"churn": counts1["tma"], "quorum": counts2["tma"]}
+
+
+def slice_dynamic_round(dev, card: str, spec, data) -> int:
+    """``run_dynamic_round`` on the cifar10 eval's first 16,384 rows (fp32,
+    d=3072): 16 batches, k=10 by the spec's solver and cold iterations, two
+    lanes, a fault hook raising ``OSError`` once at tasks 3 and 11, against
+    one lane with no faults. Each batch's Gram is the fp32 kernel at (1,
+    1024, 3072); the retried tasks fail before it. Returns its launches."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.runtime.scheduler import run_dynamic_round
+
+    rows = data[:DYN_ROWS].float().cpu().numpy()
+    kw = dict(num_batches=DYN_BATCHES, k=EVAL_FIT["k"], solver=EVAL_FIT["solver"],
+              subspace_iters=EVAL_FIT["subspace_iters"], device=dev)
+    fired: list = []
+
+    def hook(task):
+        if task in DYN_FAULT_TASKS and task not in fired:
+            fired.append(task)
+            raise OSError(f"chaos: lane crash at task {task}")
+
+    zero_counts()
+    (sigma, v), secs = synced_s(lambda: run_dynamic_round(
+        rows, num_lanes=DYN_LANES, fault_hook=hook, **kw))
+    counts = read_counts()
+    (sigma1, v1), secs1 = synced_s(lambda: run_dynamic_round(rows, num_lanes=1, **kw))
+    rel = rel_err(sigma, sigma1)
+    lane_deg = float(principal_angles_degrees(v.cpu(), v1.cpu()).max())
+    truth_deg = basis_angle(v, spec)
+    emit("slice_dynamic_round",
+         config=f"the cifar10 eval's first {DYN_ROWS} rows (d={rows.shape[1]}, fp32), "
+                f"{DYN_BATCHES} batches, k={kw['k']}, solver {kw['solver']} at "
+                f"{kw['subspace_iters']} iterations, {DYN_LANES} lanes",
+         fault_tasks=list(DYN_FAULT_TASKS), retries=len(fired),
+         sigma_rel_frobenius_vs_one_lane=rel, basis_vs_one_lane_deg=lane_deg,
+         basis_vs_truth_deg=truth_deg, seconds=secs, one_lane_seconds=secs1,
+         gram_launches=counts, gram_launches_predicted=DYN_BATCHES,
+         gram_kernel=gram_mod.gram_launch(*DYN_GRAM, torch.float32).kernel,
+         finite=bool(torch.isfinite(sigma).all() and torch.isfinite(v).all()), card=card)
+    check(bool(torch.isfinite(sigma).all() and torch.isfinite(v).all()),
+          "dynamic round: not finite")
+    check(sorted(fired) == list(DYN_FAULT_TASKS), f"dynamic round: {len(fired)} retries")
+    check(rel <= DYN_SIGMA_REL, f"dynamic round: sigma_bar {rel} from one lane")
+    check(lane_deg <= DYN_LANE_DEG, f"dynamic round: basis {lane_deg} deg from one lane")
+    check(truth_deg <= 1.0, f"dynamic round: basis {truth_deg} deg from the truth")
+    check((counts["gram"], counts["tma"], counts["s8"]) == (DYN_BATCHES, 0, 0),
+          f"dynamic round: Gram launches {counts}, want {DYN_BATCHES} fp32 launches")
+    return counts["gram"]
+
+
 def main() -> int:
     import torch
 
@@ -3788,6 +4331,9 @@ def main() -> int:
     # a mesh rank's share of mnist784's block, the mesh path's bf16 Gram,
     # and a tiered-mesh rank's one leaf worker of the cifar10 shape
     cases += [(MESH_RANK_BLOCK, "bfloat16", 0), (TREE_RANK_BLOCK, "bfloat16", 0)]
+    # the churn fit's cold round (10 workers of mnist784's block) and one
+    # batch of the dynamic round (fp32)
+    cases += [(CHURN_GRAM, "bfloat16", 0), (DYN_GRAM, "float32", 0)]
     cases += [(shape, "float32", offset) for shape, offset in F32_CASES]
     f32_kernels = set()
     for shape, dtype, offset in cases:
@@ -3959,7 +4505,11 @@ def main() -> int:
         grow = slice_grow(dev, card, work_dir, eval_spec, eval_rows)
         s8_by_path["grow fit"] = grow["s8"]
         drift = slice_drift(dev, card, grow.pop("est"), eval_spec)
-        s8_by_path["drift refit"] = drift["s8"]
+        s8_by_path["drift refit (supervise=False)"] = drift["s8"]
+        # 5t.-5v. supervised and elastic fits, and the master's dynamic round
+        supervised = slice_supervised(dev, card, work_dir, eval_spec, eval_rows)
+        dyn_launches = slice_dynamic_round(dev, card, eval_spec, eval_rows)
+        churn = slice_churn(dev, card, work_dir)
         del clip, eval_rows
         # 5k.-5l. the worker mesh: mnist784 on one rank (the estimator in one
         # process, then a one-rank NCCL mesh), then on two ranks sharing the
@@ -3981,7 +4531,15 @@ def main() -> int:
         bf16_by_path = {"slice_fit (cifar10 shape)": fit_launches, **mesh_eval["bf16"],
                         "mesh ranks2 bf16 (2 ranks, gloo)": ranks2["bf16"],
                         "tree ranks4 (4 ranks, gloo, 3 arms)": tree4["bf16"],
-                        "fleet eval (8 tenants, one (64,1024,784) launch)": fleet_eval["tma"],
+                        "fleet eval (8 tenants, one (64,1024,784) launch; then supervised)":
+                            fleet_eval["tma"],
+                        "slice_drift supervised refit (one cold round)": drift["tma"],
+                        "slice_supervised step (clean, chaos: 2 process starts)":
+                            supervised["step"],
+                        "slice_supervised segmented (clean, chaos, kill-only)":
+                            supervised["segmented"],
+                        "slice_churn churn fit ((10,1024,784))": churn["churn"],
+                        "slice_churn quorum loss (2 process starts)": churn["quorum"],
                         "fleet server (2 buckets of 8)": fleet_server["tma"],
                         "fleet solo (cifar10, trainer='fleet')": fleet_solo_tma,
                         "fleet ranks2 (2 ranks, gloo, (32,1024,784))": fleet_ranks_tma}
@@ -4067,7 +4625,11 @@ def main() -> int:
         dict(row("gram_bf16", CIFAR, "bfloat16", sum(bf16_by_path.values()),
                  also=(MESH_RANK_BLOCK, TREE_RANK_BLOCK, FLEET_GRAM)),
              launches_by_path=bf16_by_path),
-        row("gram_fp32", ENTRY, "float32", entry_launches, also=(CIFAR,)),
+        dict(row("gram_fp32", ENTRY, "float32", entry_launches + dyn_launches,
+                 also=(CIFAR,)),
+             launches_by_path={"slice_entry (10 steps)": entry_launches,
+                               "slice_dynamic_round (16 batches at (1,1024,3072))":
+                                   dyn_launches}),
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "
              "(ops/linalg.py:64-72), which gram_auto sends integer blocks to "
@@ -4075,8 +4637,11 @@ def main() -> int:
              launches=sum(s8_by_path.values()), launches_by_path=s8_by_path,
              launches_note="s8 calls (each one transpose and one TMA launch): the two "
                            "eval fits, clip768's 10 steps, the eval settings segmented "
-                           "and masked, the grow fit, the drift refit (the deflation fit "
-                           "streams at d=12288: none), mnist784 on one device and on a "
+                           "and masked, the grow fit, the unsupervised drift refit "
+                           "(the deflation fit streams at d=12288: none; the "
+                           "supervised drift refit and the supervised and elastic "
+                           "fits take float blocks: none), mnist784 on one "
+                           "device and on a "
                            "one-rank NCCL mesh, and on two gloo ranks (one call each), "
                            "and the eval harness's runs (slice_evals)",
              max_abs_err=s8_err, shape=list(CIFAR),

@@ -26,6 +26,8 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import WorkerPool
+from distributed_eigenspaces_tpu_torch.runtime.prefetch import device_placer
+from distributed_eigenspaces_tpu_torch.utils.guards import checked
 from distributed_eigenspaces_tpu_torch.utils.tracing import annotate_step
 
 
@@ -141,19 +143,36 @@ def online_distributed_pca(
     worker_masks=None,
     max_steps: int | None | str = "auto",
     v0: torch.Tensor | None = None,
+    step_hook: Callable | None = None,
+    ingest_stats=None,
 ):
     """Run the online algorithm over a stream of ``(m, n, d)`` blocks on the
     per-step loop; returns ``(w (d, k), state)``.
 
     ``max_steps``: ``"auto"`` caps the total step count at
     ``cfg.num_steps`` (open-ended under ``discount="1/t"``), ``None``
-    consumes the whole stream, an int is an explicit cap. ``v0`` is the
+    consumes the whole stream, an int is an explicit cap. A capped loop
+    stops on the block after the cap, as the reference's does, and under
+    ``cfg.prefetch_depth > 0`` the producer may have taken up to
+    ``prefetch_depth + 1`` blocks more; every block read past the cap is
+    dropped, so an iterator shared across capped calls does not resume
+    where a fit stopped (give each call its own stream, e.g.
+    ``block_stream(start_row=)``). ``v0`` is the
     cold start basis (default: :func:`initial_basis` from ``cfg.seed``);
     after the first live round each step warm-starts from the previous
     merged basis with ``cfg.resolved_warm_start()`` iterations. Under
     ``cfg.merge_interval = s > 1`` only steps 1, s+1, ... merge; the
     others fold the mean of the worker projectors (``WorkerPool.round(
     merge=False)``).
+
+    ``step_hook(step, state, x_blocks, t)`` wraps each step's execution
+    (the supervisor's retry hook, ``runtime/supervisor.py``): it calls
+    ``step(state, x_blocks) -> (state, v_bar)`` as often as it likes, and a
+    retried step pulls its ``worker_masks`` row again. Under
+    ``cfg.prefetch_depth > 0`` a producer thread reads the stream and
+    copies each block to the device that many steps ahead
+    (``runtime/prefetch.prefetch_stream``), counting its stalls into
+    ``ingest_stats`` (a ``PrefetchStats``) when given.
 
     Under ``backend="feature_sharded"`` the loop runs the rank-r trainer
     of ``parallel/feature_sharded.py`` instead (:func:`_fit_feature_sharded`).
@@ -167,7 +186,8 @@ def online_distributed_pca(
     if cfg.backend == "feature_sharded":
         return _fit_feature_sharded(stream, cfg, device=device, state=state,
                                     on_step=on_step, worker_masks=worker_masks,
-                                    max_steps=max_steps)
+                                    max_steps=max_steps, step_hook=step_hook,
+                                    ingest_stats=ingest_stats)
     pool = WorkerPool(
         cfg.num_workers,
         backend=cfg.backend,
@@ -184,51 +204,108 @@ def online_distributed_pca(
     v_cold = initial_basis(cfg.dim, cfg.k, seed=cfg.seed, device=dev, v0=v0)
     warm_iters = cfg.resolved_warm_start()
     v_prev = None
-    cap = cfg.num_steps if max_steps == "auto" else max_steps
-    open_ended = max_steps == "auto" and cfg.discount == "1/t"
-    for x_blocks in stream:
-        if cap is not None and state.step >= cap and not open_ended:
-            break
-        merge_now = merge_phase(cfg, state.step)
+
+    def step(st: OnlineState, x_blocks):
+        # the warm carry is host state committed only when a step returns,
+        # so a step the hook retries re-runs the same phase and start
+        nonlocal v_prev
+        merge_now = merge_phase(cfg, st.step)
         mask = next(worker_masks) if worker_masks is not None else None
-        with annotate_step(state.step + 1):
-            sigma_bar, v_bar = pool.round(
-                x_blocks, cfg.k, worker_mask=mask,
-                v0=v_cold if v_prev is None else v_prev,
-                iters=warm_iters if v_prev is not None else None,
-                orth=cfg.resolved_warm_orth() if v_prev is not None else None,
-                merge=merge_now,
+        sigma_bar, v_bar = pool.round(
+            x_blocks, cfg.k, worker_mask=mask,
+            v0=v_cold if v_prev is None else v_prev,
+            iters=warm_iters if v_prev is not None else None,
+            orth=cfg.resolved_warm_orth() if v_prev is not None else None,
+            merge=merge_now,
+        )
+        if merge_now:
+            st = update_state(
+                st, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
             )
-            if merge_now:
-                state = update_state(
-                    state, v_bar, discount=cfg.discount, num_steps=cfg.num_steps
-                )
-            else:
-                # between merges: fold this round's (masked) mean projector;
-                # the hook sees the carried basis (zeros before any live merge)
-                state = update_state_projector(
-                    state, sigma_bar, discount=cfg.discount, num_steps=cfg.num_steps
-                )
-                v_bar = v_prev if v_prev is not None else torch.zeros(
-                    (cfg.dim, cfg.k), dtype=torch.float32, device=dev
-                )
+        else:
+            # between merges: fold this round's (masked) mean projector;
+            # the hook sees the carried basis (zeros before any live merge)
+            st = update_state_projector(
+                st, sigma_bar, discount=cfg.discount, num_steps=cfg.num_steps
+            )
+            v_bar = v_prev if v_prev is not None else torch.zeros(
+                (cfg.dim, cfg.k), dtype=torch.float32, device=dev
+            )
         if warm_iters is not None:
             v_prev = carry_after(v_prev, v_bar, merge_now, mask)
-        if on_step is not None:
-            pmesh.on_writer(pool.mesh, on_step, state.step, state, v_bar)
+        return st, v_bar
+
+    hook = None
+    if on_step is not None:
+        def hook(t, st, v_bar):
+            pmesh.on_writer(pool.mesh, on_step, t, st, v_bar)
+
+    state = _drive_stream(
+        stream, cfg, device=dev, step=checked(step),
+        state=state, on_step=hook, max_steps=max_steps,
+        step_hook=step_hook, ingest_stats=ingest_stats,
+    )
     w = top_k_eigvecs(state.sigma_tilde, cfg.k)
     return w, state
 
 
+def _drive_stream(stream, cfg: PCAConfig, *, device, step, state, on_step,
+                  max_steps, step_hook=None, ingest_stats=None):
+    """The loop every per-step backend shares: prefetch wiring, the step
+    cap (open-ended for a ``1/t`` running mean under ``"auto"``), step
+    bookkeeping and the producer's cleanup.
+
+    ``step(state, x) -> (state, v_bar)``; the prefetch producer moves each
+    block to ``device`` ahead of the loop (``runtime/prefetch.
+    device_placer``: a block already there passes through). ``step_hook`` wraps each step's
+    execution (:func:`online_distributed_pca`). The stream is closed when
+    the loop ends, early or not."""
+    if cfg.prefetch_depth > 0:
+        # overlap block reads and host-to-device copies with the steps; the
+        # producer reads ahead of the consumer
+        from distributed_eigenspaces_tpu_torch.runtime.prefetch import (
+            prefetch_stream,
+        )
+
+        stream = prefetch_stream(stream, depth=cfg.prefetch_depth,
+                                 place=device_placer(device), stats=ingest_stats)
+    cap = cfg.num_steps if max_steps == "auto" else max_steps
+    # an explicit integer cap is honored under every discount rule
+    open_ended = max_steps == "auto" and cfg.discount == "1/t"
+    steps_done = int(state.step)
+    try:
+        for x_blocks in stream:
+            if cap is not None and steps_done >= cap and not open_ended:
+                break
+            with annotate_step(steps_done + 1):
+                if step_hook is None:
+                    state, v_bar = step(state, x_blocks)
+                else:
+                    state, v_bar = step_hook(step, state, x_blocks,
+                                             steps_done + 1)
+            steps_done += 1
+            if on_step is not None:
+                on_step(steps_done, state, v_bar)
+    finally:
+        # stop the prefetch producer (and release its device blocks) when
+        # the loop ends early
+        close = getattr(stream, "close", None)
+        if close is not None:
+            close()
+    return state
+
+
 def _fit_feature_sharded(stream, cfg: PCAConfig, *, device, state, on_step,
-                         worker_masks, max_steps):
+                         worker_masks, max_steps, step_hook=None,
+                         ingest_stats=None):
     """The per-step loop of the feature-sharded backend: each ``(m, n, d)``
     block through ``make_feature_sharded_step`` on
     ``parallel.mesh.auto_feature_mesh(cfg)`` (the ``(1, 1)`` layout in one
-    process), the state rank-r (``LowRankState``, this rank's rows). Returns
-    ``(w, state)``, ``w`` the whole ``(d, k)`` ``u[:, :k]`` with canonical
-    signs on every rank; ``on_step(t, state, v_bar)`` sees the whole state
-    and basis on rank 0, then every rank meets at a barrier."""
+    process), the state rank-r (``LowRankState``, this rank's rows), driven
+    by :func:`_drive_stream`. Returns ``(w, state)``, ``w`` the whole
+    ``(d, k)`` ``u[:, :k]`` with canonical signs on every rank;
+    ``on_step(t, state, v_bar)`` sees the whole state and basis on rank 0,
+    then every rank meets at a barrier."""
     from distributed_eigenspaces_tpu_torch.ops.linalg import canonicalize_signs
     from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as fs
 
@@ -238,19 +315,23 @@ def _fit_feature_sharded(stream, cfg: PCAConfig, *, device, state, on_step,
     mesh = fstep.mesh
     if state is None:
         state = fstep.init_state()
-    cap = cfg.num_steps if max_steps == "auto" else max_steps
-    open_ended = max_steps == "auto" and cfg.discount == "1/t"
-    for x_blocks in stream:
-        if cap is not None and state.step >= cap and not open_ended:
-            break
+
+    def step(st, x_blocks):
         mask = next(worker_masks) if worker_masks is not None else None
-        with annotate_step(state.step + 1):
-            state, v_bar = fstep(state, x_blocks, worker_mask=mask)
-        if on_step is not None:
+        return fstep(st, x_blocks, worker_mask=mask)
+
+    hook = None
+    if on_step is not None:
+        def hook(t, st, v_bar):
             with pmesh.mesh_scope(mesh):
-                whole = fs.gather_state(state)
+                whole = fs.gather_state(st)
                 v_whole = pmesh.all_gather(v_bar, pmesh.FEATURE_AXIS)
-            pmesh.on_writer(mesh, on_step, state.step, whole, v_whole)
+            pmesh.on_writer(mesh, on_step, t, whole, v_whole)
+
+    state = _drive_stream(
+        stream, cfg, device=pmesh.mesh_device(mesh, device), step=checked(step), state=state, on_step=hook, max_steps=max_steps,
+        step_hook=step_hook, ingest_stats=ingest_stats,
+    )
     with pmesh.mesh_scope(mesh):
         u_k = pmesh.all_gather(state.u[:, :cfg.k].contiguous(), pmesh.FEATURE_AXIS)
     return canonicalize_signs(u_k), state

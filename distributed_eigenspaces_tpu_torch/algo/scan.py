@@ -308,7 +308,12 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
     if masked:
         body = _masked_body_factory(cfg, cores)
 
-        def fit_masked(state, x_steps, masks, membership_masks=None):
+        def fit_masked_elastic(state, x_steps, masks, membership_masks=None):
+            """The masked whole fit, with an elastic run's ``(T, m)``
+            per-round membership masks (``runtime/membership.
+            ElasticStream``) combined with the quarantine ``masks`` by AND
+            before the steps: membership and quarantine are one masked
+            mean, so an elastic run replays through the masked steps."""
             masks = np.asarray(
                 torch.as_tensor(masks).cpu() if isinstance(masks, torch.Tensor)
                 else masks, np.float32)
@@ -326,7 +331,7 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
                 out.append(v)
             return carry[0], torch.stack(out)
 
-        return fit_masked
+        return fit_masked_elastic
 
     if cfg.pipeline_merge:
         run = _make_pipelined_fit(cfg, cores)

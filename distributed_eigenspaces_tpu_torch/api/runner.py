@@ -77,6 +77,7 @@ def make_whole_fit(
     device="cuda",
     v0=None,
     v_init=None,
+    supervisor=None,
 ) -> WholeFitHandle:
     """Build the ``kind`` whole-fit trainer as a uniform handle, on
     ``device``, with the cold start ``v0 (d, k)`` of every subspace solve
@@ -85,9 +86,15 @@ def make_whole_fit(
     the dense scan's gather and §5.3 variants (``algo/scan.py``); a masked
     segmented fit runs through ``fit_windows(worker_masks=...)``. With a
     ``mesh`` the handle runs on its device (``device`` is not used) and the
-    fits shard each step's workers over it."""
+    fits shard each step's workers over it. ``supervisor`` (a
+    ``runtime.supervisor.Supervisor``) runs the handle's ``fit`` and
+    ``fit_windows`` under its retry and backoff policy."""
     if kind not in KINDS:
         raise ValueError(f"unknown whole-fit kind {kind!r}; one of {KINDS}")
+    if supervisor is not None:
+        inner = make_whole_fit(cfg, kind, mesh, segment=segment, gather=gather,
+                               masked=masked, device=device, v0=v0, v_init=v_init)
+        return supervisor.wrap_handle(inner)
     if kind in ("fs_scan", "sketch"):
         return _feature_sharded_handle(cfg, kind, mesh, device=device,
                                        v_init=v_init)

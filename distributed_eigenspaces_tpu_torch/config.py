@@ -133,6 +133,23 @@ class PCAConfig:
         the per-signature circuit breaker (None = off).
       serve_slo_p99_ms: declared p99 request latency; with a queue depth
         set, requests already past it are shed before compute.
+      prefetch_depth: blocks the per-step loop keeps in flight ahead of the
+        step (``runtime/prefetch.py``: read and copied to the device on a
+        producer thread); 0 disables it. The producer reads ahead, so pass
+        0 when one iterator is shared across fit calls.
+      metrics_retention: ring-buffer retention of each ``MetricsLogger``
+        event list; evicted entries fold into running aggregates, so
+        ``summary()`` still covers the whole run.
+      heartbeat_timeout_ms: the elastic-membership lease
+        (``runtime/membership.py``): a worker silent this long is suspect
+        (excluded from merges, still owns its slot), and dead one timeout
+        later (slot joinable). Only elastic runs consult it.
+      round_deadline_ms: an elastic merge round closes this long after it
+        opens with whatever arrived; a late worker's rows fold into the
+        next merge. None waits for every live member.
+      min_quorum_frac: below this live fraction of ``num_workers`` an
+        elastic round raises ``QuorumLost``; ``supervised_fit`` waits for
+        quorum and resumes from the newest checkpoint.
       compile_cache_dir: must stay None in this port (ROADMAP.md).
       fleet_bucket_size, fleet_flush_s: a ``parallel.fleet.FleetServer``
         bucket dispatches when it holds this many fit requests, or when
@@ -168,6 +185,7 @@ class PCAConfig:
     dtype: Any = "float32"
     state_dtype: Any = "float32"
     remainder: str = "drop"
+    prefetch_depth: int = 2
     mesh_shape: dict[str, int] | None = None
     collectives: str = "xla"
     merge_interval: int = 1
@@ -184,7 +202,11 @@ class PCAConfig:
     serve_queue_depth: int | None = None
     serve_breaker_threshold: int | None = None
     serve_slo_p99_ms: float | None = None
+    metrics_retention: int = 4096
     compile_cache_dir: str | None = None
+    heartbeat_timeout_ms: float = 1000.0
+    round_deadline_ms: float | None = 250.0
+    min_quorum_frac: float = 0.5
     fleet_bucket_size: int = 8
     fleet_flush_s: float = 0.1
     fleet_pad_k: bool = False
@@ -517,6 +539,42 @@ class PCAConfig:
                     f"{depth_field} must be an int >= 1 or None, got "
                     f"{val!r}"
                 )
+        if self.prefetch_depth < 0:
+            raise ValueError(
+                f"prefetch_depth must be >= 0, got {self.prefetch_depth}"
+            )
+        if not isinstance(self.metrics_retention, int) or isinstance(
+            self.metrics_retention, bool
+        ) or self.metrics_retention < 1:
+            raise ValueError(
+                f"metrics_retention must be an int >= 1, got "
+                f"{self.metrics_retention!r}"
+            )
+        if not isinstance(self.heartbeat_timeout_ms, (int, float)) or (
+            isinstance(self.heartbeat_timeout_ms, bool)
+            or self.heartbeat_timeout_ms <= 0
+        ):
+            raise ValueError(
+                f"heartbeat_timeout_ms must be a positive duration in "
+                f"ms, got {self.heartbeat_timeout_ms!r}"
+            )
+        if self.round_deadline_ms is not None and (
+            not isinstance(self.round_deadline_ms, (int, float))
+            or isinstance(self.round_deadline_ms, bool)
+            or self.round_deadline_ms <= 0
+        ):
+            raise ValueError(
+                f"round_deadline_ms must be a positive duration in ms "
+                f"or None, got {self.round_deadline_ms!r}"
+            )
+        if not isinstance(self.min_quorum_frac, (int, float)) or (
+            isinstance(self.min_quorum_frac, bool)
+            or not 0.0 < self.min_quorum_frac <= 1.0
+        ):
+            raise ValueError(
+                f"min_quorum_frac must be a fraction in (0, 1], got "
+                f"{self.min_quorum_frac!r}"
+            )
         slo = self.serve_slo_p99_ms
         if slo is not None and (
             not isinstance(slo, (int, float)) or isinstance(slo, bool)

@@ -137,12 +137,15 @@ def block_stream(
     remainder: str = "drop",
     dtype="float32",
     device="cuda",
+    start_row: int = 0,
 ) -> Iterator[torch.Tensor]:
     """Yield ``(num_workers, rows_per_worker, d)`` tensors on ``device``
     from ``(N, d)`` numpy or torch data. Each step consumes
     ``num_workers * rows_per_worker`` fresh rows. A final partial step is
     dropped (``"drop"``), zero-padded (``"pad"``) or refused
-    (``"error"``).
+    (``"error"``). ``start_row`` seeks the cursor before the first step:
+    the resume point a checkpoint saved (``num_steps`` then counts steps
+    from there).
     """
     dev = resolve_device(device)
     tdt = torch_dtype(dtype)
@@ -152,12 +155,16 @@ def block_stream(
     step_rows = num_workers * rows_per_worker
     if step_rows > n_total:
         raise ValueError(f"one step needs {step_rows} rows, dataset has {n_total}")
+    if not 0 <= start_row <= n_total:
+        raise ValueError(
+            f"start_row={start_row} outside the dataset's {n_total} rows"
+        )
 
     def place(block):
         t = torch.as_tensor(block).to(device=dev, dtype=tdt)
         return t.reshape(num_workers, rows_per_worker, d)
 
-    cursor, steps = 0, 0
+    cursor, steps = start_row, 0
     while num_steps is None or steps < num_steps:
         if cursor + step_rows > n_total:
             tail = n_total - cursor

@@ -20,6 +20,7 @@ import torch
 
 from distributed_eigenspaces_tpu_torch.ops import cusolver
 from distributed_eigenspaces_tpu_torch.ops.gram import gram_plain, gram_s8_plain, widen_int
+from distributed_eigenspaces_tpu_torch.utils.guards import check, checks_enabled
 
 
 def initial_basis(d: int, k: int, *, seed: int = 0, device="cpu",
@@ -146,11 +147,13 @@ def ns_orth(v: torch.Tensor, iters: int = 4, eps: float = 1e-20,
     or below 1, and ``iters`` steps of ``a = 1.5 I - 0.5 G; M <- M a;
     G <- G (a a)`` (G and a commute), then one ``(d, k) (k, k)`` product.
     Converges for the bounded condition numbers of warm rounds only, which
-    is why ``PCAConfig`` takes it as ``warm_orth_method`` alone. The
-    reference's ``DET_CHECKIFY`` residual assertion is not ported (ROADMAP
-    Queue 1 item 16, with ``utils/guards.py``). ``reduce`` sums the Gram of
-    a row-sharded ``v`` over its shards (the feature-sharded trainers pass
-    a ``features`` psum), so the block is orthonormalized globally."""
+    is why ``PCAConfig`` takes it as ``warm_orth_method`` alone: under
+    ``DET_CHECKIFY=1`` (``utils/guards.py``) it asserts the result's
+    orthonormality residual ``||V^T V - I||_max < 5e-2``, as the
+    reference's does, at the price of one more k x k Gram and a host read;
+    with the guards off it launches nothing more. ``reduce`` sums the Gram
+    of a row-sharded ``v`` over its shards (the feature-sharded trainers
+    pass a ``features`` psum), so the block is orthonormalized globally."""
     g = torch.matmul(v.mT, v)
     if reduce is not None:
         g = reduce(g)
@@ -167,7 +170,19 @@ def ns_orth(v: torch.Tensor, iters: int = 4, eps: float = 1e-20,
         a = 1.5 * eye - 0.5 * g
         m_acc = torch.matmul(m_acc, a)
         g = torch.matmul(g, torch.matmul(a, a))
-    return torch.matmul(v * dscale[..., None, :], m_acc)
+    out = torch.matmul(v * dscale[..., None, :], m_acc)
+    if checks_enabled():
+        # NS converges only for a bounded condition number; a broken
+        # assumption degrades the basis with no NaN anywhere, so a float
+        # check never fires: assert the residual instead
+        vtv = torch.matmul(out.mT, out)
+        if reduce is not None:
+            vtv = reduce(vtv)
+        resid = torch.max(torch.abs(vtv - eye))
+        check(resid < 5e-2,
+              f"ns_orth left ||V^T V - I||_max = {float(resid):.4g}: input "
+              "condition number outside the convergence regime (use cholqr2)")
+    return out
 
 
 ORTH_METHODS = ("qr", "cholqr2", "ns")

@@ -41,9 +41,13 @@ launches what a solo step launches, not B times that.
 
 Solo fits are the B = 1 case: ``OnlineDistributedPCA(trainer="fleet")``.
 
-Not ported yet (ROADMAP.md Queue 1 item 16): the supervisor's block
-screen (``stage_fleet(supervisor=)``), ``MetricsLogger`` (``metrics=``) and
-the persistent compile cache (``compile_cache=``).
+``stage_fleet(supervisor=)`` / ``fit_fleet(supervisor=)`` screen every
+tenant block through ``runtime.supervisor.Supervisor.screen_block``: a
+tenant's corrupt worker is that tenant's mask drop, ledgered with its
+index, and a tenant whose stream dies is quarantined whole, the others
+untouched. ``FleetServer(metrics=)`` feeds a ``MetricsLogger``'s fleet
+section. Not ported yet (ROADMAP.md Queue 1 item 16): the persistent
+compile cache (``compile_cache=``).
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import _local_eigenspaces
+from distributed_eigenspaces_tpu_torch.utils.telemetry import NULL_TRACER, tracer_of
 
 __all__ = [
     "FleetBatch",
@@ -440,11 +445,16 @@ def stage_fleet(
     ``T_b``-step fit). ``worker_masks`` is an optional per-tenant sequence
     of ``(T_b, m)`` mask schedules (entries may be None for all-live
     tenants). ``pad_to`` pads the fleet axis with inactive tenants so a
-    partial bucket runs at the full bucket's width. ``supervisor`` (the
-    block screen of ``runtime.supervisor.Supervisor``) is not ported yet.
+    partial bucket runs at the full bucket's width. ``supervisor`` (a
+    ``runtime.supervisor.Supervisor``) screens every tenant block through
+    its quarantine check: a corrupt worker becomes that tenant's mask drop,
+    ledgered with its tenant index, and a tenant whose stream dies with
+    ``utils.faults.KillSwitch`` is quarantined whole (its remaining steps
+    inactive, ledger kind ``"tenant_killed"``) without touching the other
+    tenants' fits.
     """
-    if supervisor is not None:
-        raise _not_ported("stage_fleet(supervisor=) (Supervisor.screen_block)", _ITEM_16)
+    from distributed_eigenspaces_tpu_torch.utils.faults import KillSwitch
+
     b_real = len(problems)
     if b_real == 0:
         raise ValueError("stage_fleet needs at least one tenant")
@@ -462,6 +472,7 @@ def stage_fleet(
     xs = np.empty((b_pad, t_max, m, n, d), np.float32)
     actives = np.zeros((b_pad, t_max), np.float32)
     masks = np.ones((b_pad, t_max, m), np.float32)
+    any_mask = worker_masks is not None or supervisor is not None
 
     for b, problem in enumerate(problems):
         base = None if worker_masks is None else worker_masks[b]
@@ -479,6 +490,14 @@ def stage_fleet(
                 block = next(it)
             except StopIteration:
                 break
+            except KillSwitch as e:
+                if supervisor is None:
+                    raise
+                # a hard tenant death: the whole tenant is quarantined from
+                # this step on; the other tenants never notice
+                supervisor.record("tenant_killed", t + 1, tenant=b, error=repr(e))
+                break
+            base_row = None
             if base is not None:
                 if t >= len(base):
                     raise ValueError(
@@ -486,7 +505,15 @@ def stage_fleet(
                         f"steps; its schedule reached step {t + 1} — "
                         "every step needs its mask row"
                     )
-                masks[b, t] = base[t]
+                base_row = base[t]
+            if supervisor is not None:
+                screened = supervisor.screen_block(block, t + 1,
+                                                   base_mask=base_row, tenant=b)
+                if screened is None:
+                    continue  # dropped round: same step, next block
+                block, base_row = screened
+            if base_row is not None:
+                masks[b, t] = base_row
             block = _host_array(block, np.float32)
             if block.shape != (m, n, d):
                 raise ValueError(
@@ -496,7 +523,7 @@ def stage_fleet(
             xs[b, t] = block
             actives[b, t] = 1.0
             t += 1
-        if t == 0:
+        if t == 0 and supervisor is None:
             raise ValueError(f"tenant {b} yielded zero full steps")
         xs[b, t:] = ph
     xs[b_real:] = ph
@@ -504,7 +531,7 @@ def stage_fleet(
     return FleetBatch(
         xs=xs,
         actives=actives,
-        masks=masks if worker_masks is not None else None,
+        masks=masks if any_mask else None,
         n_tenants=b_real,
         signature=fleet_signature(cfg),
     )
@@ -660,7 +687,8 @@ def fit_fleet(
     owns) reuses programs across calls, keyed by config, variant, B, mesh,
     device and starts. ``compile_cache="auto"`` resolves to None
     (``cfg.compile_cache_dir`` must be None in this port); another cache
-    and ``supervisor`` are not ported yet. ``v0`` / ``v_init`` as for
+    is not ported yet. ``supervisor`` screens every tenant block
+    (:func:`stage_fleet`). ``v0`` / ``v_init`` as for
     :func:`make_fleet_fit`.
     """
     batch = stage_fleet(
@@ -769,6 +797,8 @@ class _FleetRequest:
     #: result (the first ``cfg.k`` columns).
     pad_cfg: PCAConfig | None = None
     t_submit: float = 0.0
+    #: the request's trace (``Tracer.new_trace("fleet")``), or None
+    trace_id: str | None = None
 
 
 class FleetServer:
@@ -788,11 +818,16 @@ class FleetServer:
 
     Every bucket runs on ``device`` (one process; a server on a mesh of
     ranks is ROADMAP.md Queue 1 item 15c). ``v0``, when given, is the cold
-    start of every bucket whose k is its width. :attr:`bucket_log` records
-    each bucket's tenants, occupancy, ``compile_ms`` (the acquisition its
-    dispatch paid: 0.0 once prewarmed), queue waits and seconds.
-    ``metrics=`` (``MetricsLogger``) and ``compile_cache=`` are not ported
-    yet (Queue 1 item 16).
+    start of every bucket whose k is its width. The server's
+    ``MetricsLogger`` (``metrics=``, else one of its own) receives each
+    bucket as a fleet event in ``fleet_records``: its tenants, occupancy,
+    ``compile_stall_ms`` (the acquisition its dispatch paid: 0.0 once
+    prewarmed), padded lanes, queue waits and seconds;
+    ``summary()["fleet"]`` aggregates them (padded lanes and compile stalls
+    by signature, the latency decomposition; ``cfg.fleet_slo_p99_ms``
+    becomes its fleet SLO), and its tracer records each tenant's span chain
+    (admit, queue_wait, dispatch, compile_stall, compute). ``compile_cache=`` is not
+    ported yet (Queue 1 item 16).
     """
 
     def __init__(
@@ -812,8 +847,6 @@ class FleetServer:
             ShapeBucketQueue,
         )
 
-        if metrics is not None:
-            raise _not_ported("FleetServer(metrics=)", f"{_ITEM_16} (utils/metrics.py)")
         if compile_cache is not None:
             raise _not_ported("FleetServer(compile_cache=)",
                               f"{_ITEM_16} (utils/compile_cache.py)")
@@ -823,11 +856,19 @@ class FleetServer:
             raise _not_ported("FleetServer on a mesh of ranks",
                               "Queue 1 item 15c (lockstep bucket agreement)")
         self.cfg = cfg
+        if metrics is None:
+            from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
+            metrics = MetricsLogger()
+        self.metrics = metrics
+        if (
+            cfg.fleet_slo_p99_ms is not None
+            and metrics.fleet_slo_p99_ms is None
+        ):
+            metrics.fleet_slo_p99_ms = cfg.fleet_slo_p99_ms
         self.device = pmesh._mesh_device(device)
         self.v0 = None if v0 is None else _host_array(v0, np.float32)
         self.prewarmer = None
-        #: one record a dispatched bucket (see the class docstring)
-        self.bucket_log: list[dict] = []
         self.queue = ShapeBucketQueue(
             bucket_size=cfg.fleet_bucket_size,
             flush_deadline=cfg.fleet_flush_s,
@@ -867,11 +908,14 @@ class FleetServer:
                 pad_cfg = padded
         bucket_cfg = pad_cfg if pad_cfg is not None else cfg
         sig = (fleet_signature(bucket_cfg), repr(bucket_cfg))
+        tr = tracer_of(self.metrics)
+        tid = tr.new_trace("fleet")
+        t0 = time.perf_counter()
         try:
-            return self.queue.submit(
+            ticket = self.queue.submit(
                 sig,
                 _FleetRequest(cfg, problem, worker_masks, pad_cfg=pad_cfg,
-                              t_submit=time.perf_counter()),
+                              t_submit=t0, trace_id=tid),
                 tenant=tenant,
             )
         except QueueClosed as e:
@@ -890,6 +934,11 @@ class FleetServer:
                 f"already in flight >= serve_queue_depth "
                 f"{self.queue.max_depth} (reject-newest load shedding)"
             ) from e
+        tr.record_span(
+            "admit", t0, time.perf_counter(), trace_id=tid,
+            category="fleet", attrs={"signature": str(fleet_signature(cfg))},
+        )
+        return ticket
 
     def pending_cfgs(self) -> list[PCAConfig]:
         """One config per signature waiting in a bucket: the live half of
@@ -987,20 +1036,56 @@ class FleetServer:
                 v0=self._v0_for(cfg),
             )
         now = time.perf_counter()
-        self.bucket_log.append({
-            "tenants": len(reqs),
-            "occupancy": len(reqs) / cfg.fleet_bucket_size,
-            "signature": list(fleet_signature(cfg)),
-            "compile_ms": result.compile_ms,
-            "bucket_seconds": now - t0,
-            "queue_wait_s": [max(0.0, t0 - r.t_submit) for r in reqs],
-            "bucket_wait_s": [max(0.0, (bucket.t_dispatch or t0) - r.t_submit)
-                              for r in reqs],
-            "padded_lanes": sum(cfg.k - r.cfg.k for r in reqs),
-        })
+        self._record_bucket(bucket, reqs, cfg, result, t0, now)
         # each tenant's own k columns of the padded program's output
         # (descending order, so the first k_i columns are its top-k_i)
         return [
             result.components[i][:, : reqs[i].cfg.k]
             for i in range(len(reqs))
         ]
+
+    def _record_bucket(self, bucket, reqs, cfg: PCAConfig, result, t0: float,
+                       now: float) -> None:
+        """Each tenant's span chain under its trace (the fleet twin of the
+        query server's) and the bucket's fleet event: the first use of a
+        signature's programs counted as its compile stall, per signature,
+        instead of inflating the bucket's latency unseen."""
+        tr = tracer_of(self.metrics)
+        stall_s = result.compile_ms / 1e3
+        if tr is not NULL_TRACER:
+            for req in reqs:
+                qw_attrs = {}
+                if bucket.t_dispatch is not None:
+                    qw_attrs = {
+                        "bucket_wait_s": round(max(0.0, bucket.t_dispatch - req.t_submit), 6),
+                        "lane_wait_s": round(max(0.0, t0 - bucket.t_dispatch), 6),
+                    }
+                tr.record_span("queue_wait", req.t_submit, t0, trace_id=req.trace_id,
+                               category="fleet", attrs=qw_attrs)
+                dspan = tr.record_span("dispatch", t0, now, trace_id=req.trace_id,
+                                       category="fleet", attrs={"tenants": len(reqs)})
+                if result.compile_ms:
+                    tr.record_span("compile_stall", t0, t0 + stall_s,
+                                   trace_id=req.trace_id, parent=dspan,
+                                   category="compile",
+                                   attrs={"compile_stall_ms": result.compile_ms})
+                tr.record_span("compute", t0 + stall_s, now, trace_id=req.trace_id,
+                               parent=dspan, category="fleet")
+        self.metrics.fleet({
+            "kind": "bucket",
+            "tenants": len(reqs),
+            "occupancy": round(len(reqs) / cfg.fleet_bucket_size, 4),
+            "signature": list(fleet_signature(cfg)),
+            "compile_misses": 1 if result.compile_ms else 0,
+            "compile_stall_ms": result.compile_ms,
+            "bucket_seconds": round(now - t0, 6),
+            # the decomposition feed: per-request latency = queue_wait +
+            # compile_stall + compute + other
+            "request_latency_s": [round(now - r.t_submit, 6) for r in reqs],
+            "queue_wait_s": [round(max(0.0, t0 - r.t_submit), 6) for r in reqs],
+            "compute_s": round(max(0.0, (now - t0) - stall_s), 6),
+            "dispatch_s": round(now - t0, 6),
+            # eigenvector lanes fitted only because a tenant's k was padded
+            # up to the bucket's width
+            "padded_lanes": sum(cfg.k - r.cfg.k for r in reqs),
+        })

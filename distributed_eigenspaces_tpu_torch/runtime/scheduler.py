@@ -24,10 +24,10 @@ is that scheduler, with the reference's failure modes fixed:
   (the liveness logic the reference lacks), up to ``max_retries``;
 - the result is actually returned (B4 fix).
 
-The port's copy (of ``distributed_eigenspaces_tpu/runtime/scheduler.py``)
-carries the queues as they are; the reference's ``run_dynamic_round``, the
-master's end-to-end one-shot round on top of them, needs the fit's
-one-shot round and is not ported yet.
+The port's copy of ``distributed_eigenspaces_tpu/runtime/scheduler.py``:
+the queues as they are, and :func:`run_dynamic_round`, the master's
+end-to-end one-shot round on top of them, whose batch Grams go through the
+port's Gram kernel on the card.
 """
 
 from __future__ import annotations
@@ -947,9 +947,110 @@ class ShapeBucketQueue:
             )
 
 
-def run_dynamic_round(*args, **kwargs):
-    """The reference's one-shot dynamic round: not ported yet."""
-    raise NotImplementedError(
-        "run_dynamic_round is not ported to distributed_eigenspaces_tpu_torch "
-        "yet (ROADMAP.md Queue 1 item 16, runtime/scheduler.py)"
+def run_dynamic_round(
+    data,
+    *,
+    num_batches: int,
+    k: int,
+    prefetch_depth: int = 5,
+    num_lanes: int = 2,
+    order: str = "lifo",
+    remainder: str = "drop",
+    solver: str = "eigh",
+    subspace_iters: int = 16,
+    orth_method: str = "cholqr2",
+    compute_dtype=None,
+    fault_hook: Callable[[int], None] | None = None,
+    max_retries: int = 3,
+    lease_timeout: float | None = None,
+    device="cuda",
+    v0=None,
+):
+    """The reference master's one-shot round over the dynamic scheduler.
+
+    Splits ``(N, d)`` rows into ``num_batches`` contiguous ranges (the
+    remainder policy explicit: ``"drop"`` the tail, ``"pad"`` it as one
+    more batch, or ``"error"``), computes each batch's top-k eigenspace on
+    ``device`` as the lanes drain the queue, folds the projector mean
+    weighted by row count on the host as results arrive (the merge is
+    order-invariant), and returns ``(sigma_bar, v_bar)`` on ``device``.
+
+    Each batch's Gram is ``ops.gram.gram_auto`` of its ``(1, rows, d)``
+    block: the hand-written Gram kernel on a CUDA tensor (fp32, or the
+    ``compute_dtype`` cast), its plain version on the CPU; the lanes take
+    turns on the device, so the kernel counters count every launch.
+    ``fault_hook(task_id)`` runs before each batch computes and may raise
+    to simulate a lane or worker crash; the queue retries it per
+    ``max_retries``. ``v0 (d, k)`` starts the subspace solves (default:
+    ``ops.linalg.initial_basis`` from seed 0).
+    """
+    import numpy as np
+    import torch
+
+    from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+    from distributed_eigenspaces_tpu_torch.ops.gram import gram_auto
+    from distributed_eigenspaces_tpu_torch.ops.linalg import (
+        initial_basis,
+        merged_top_k,
     )
+
+    dev = resolve_device(device)
+    data = np.asarray(data)
+    n_total, d = data.shape
+    step = n_total // num_batches
+    if step == 0:
+        raise ValueError(f"num_batches={num_batches} > rows={n_total}")
+    ranges = [(i * step, (i + 1) * step) for i in range(num_batches)]
+    tail = n_total - num_batches * step
+    if tail:
+        if remainder == "error":
+            raise ValueError(f"{tail} remainder rows with remainder='error'")
+        if remainder == "pad":  # fold the ragged tail as one more batch
+            ranges.append((num_batches * step, n_total))
+    cdt = None if compute_dtype is None else torch_dtype(compute_dtype)
+    v_start = (initial_basis(d, k, device=dev, v0=v0)
+               if solver == "subspace" else None)
+    device_lock = threading.Lock()
+
+    def eigenspace(x: torch.Tensor) -> torch.Tensor:
+        if cdt is not None:
+            x = x.to(cdt)
+        g = gram_auto(x[None])[0]
+        return merged_top_k(g, k, solver, subspace_iters, orth_method, v0=v_start)
+
+    # projector mean weighted by batch row count: equal weights for the
+    # equal-size batches, while a ragged "pad" tail counts in proportion to
+    # its rows instead of skewing the mean
+    merged_sum = np.zeros((d, d), np.float32)
+    merged_rows = 0
+    fold_lock = threading.Lock()
+
+    def compute(rng_pair):
+        lo, hi = rng_pair
+        if fault_hook is not None:
+            fault_hook(lo // step if step else 0)
+        x = torch.from_numpy(np.ascontiguousarray(data[lo:hi], np.float32))
+        with device_lock:
+            v = eigenspace(x.to(dev)).cpu().numpy()
+        return v, hi - lo
+
+    def fold(task_id, result):
+        nonlocal merged_sum, merged_rows
+        v, rows = result
+        with fold_lock:
+            merged_sum = merged_sum + rows * (v @ v.T)
+            merged_rows += rows
+
+    wq = WorkQueue(
+        ranges,
+        prefetch_depth=prefetch_depth,
+        order=order,
+        max_retries=max_retries,
+        lease_timeout=lease_timeout,
+    )
+    wq.run(compute, num_lanes=num_lanes, on_result=fold)
+
+    sigma_bar = torch.from_numpy(merged_sum / max(merged_rows, 1)).to(dev)
+    v_bar = merged_top_k(sigma_bar, k, solver, subspace_iters, orth_method,
+                         v0=v_start)
+    return sigma_bar, v_bar

@@ -19,11 +19,13 @@ the refit publishes as a new registry version (lineage: the trigger score
 and the version it replaces), and the server's next batch serves it through
 the lock-free ``latest()``.
 
-The refit is the caller's ``refit`` hook, or with ``supervise=False`` the
-port's ``OnlineDistributedPCA`` on the buffered rows (the reference's
-unsupervised route). The reference's default, the supervised refit
-(``runtime/supervisor.supervised_fit``), and a ``MetricsLogger`` sink are
-not ported yet (ROADMAP.md Queue 1 item 16).
+The refit is the caller's ``refit`` hook, else by default the supervised
+per-step fit (``runtime/supervisor.supervised_fit``: a corrupt buffered
+block is quarantined instead of killing the refresh), or with
+``supervise=False`` the port's ``OnlineDistributedPCA`` on the buffered rows.
+A ``MetricsLogger`` (``metrics=``) receives each refresh as a ``drift``
+serve event (score, residual drift, angle gap, published version) and the
+supervised refit's faults; its tracer records the refresh's spans.
 """
 
 from __future__ import annotations
@@ -36,13 +38,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from distributed_eigenspaces_tpu_torch.config import _not_ported
 from distributed_eigenspaces_tpu_torch.serving.registry import (
     BasisVersion,
     EigenbasisRegistry,
     _host,
 )
 from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
+from distributed_eigenspaces_tpu_torch.utils.telemetry import tracer_of
 
 __all__ = ["DriftMonitor"]
 
@@ -65,8 +67,8 @@ class DriftMonitor:
       buffer_rows: ring-buffer capacity of served rows the refit trains
         on; default one full fit's worth (``num_steps * num_workers *
         rows_per_worker``).
-      supervise: the reference's supervised refit; not ported, so it needs
-        a ``refit`` hook here, or ``supervise=False``.
+      supervise: run the refit under ``supervised_fit`` (quarantine and
+        retry) instead of a bare fit.
       refit: ``(rows) -> (w, state)`` replacing the built-in refit.
       auto: spawn the background refresh thread when armed; ``False``
         leaves refreshes to :meth:`refresh_now`.
@@ -74,6 +76,8 @@ class DriftMonitor:
       lease: a ``serving/replication.PublisherLease``: only its holder
         publishes (a non-holder's confirmed refresh is dropped and counted
         in ``publishes_rejected``).
+      metrics: a ``MetricsLogger``: drift events land in its
+        ``summary()["serving"]``.
       device: where the built-in refit runs (``"cuda"`` unless asked).
     """
 
@@ -96,17 +100,8 @@ class DriftMonitor:
     ):
         if threshold <= 0:
             raise ValueError(f"threshold must be > 0, got {threshold}")
-        if supervise and refit is None:
-            raise _not_ported(
-                "DriftMonitor(supervise=True)'s refit (runtime/supervisor."
-                "supervised_fit); pass supervise=False or a refit= hook",
-                "Queue 1 item 16",
-            )
-        if metrics is not None:
-            raise _not_ported(
-                "DriftMonitor(metrics=)", "Queue 1 item 16 (utils/metrics.py)"
-            )
         self.registry = registry
+        self.metrics = metrics
         self.cfg = cfg
         self.threshold = threshold
         self.arm_ratio = threshold / 2.0 if arm_ratio is None else arm_ratio
@@ -219,6 +214,9 @@ class DriftMonitor:
             self.refresh_now()
         except Exception as e:
             log_line("drift refresh failed", error=repr(e))
+            if self.metrics is not None:
+                self.metrics.serve({"kind": "drift", "error": repr(e),
+                                    "published": None})
 
     def join_refresh(self, timeout: float | None = None) -> None:
         """Wait for an in-flight background refresh."""
@@ -232,17 +230,34 @@ class DriftMonitor:
         return t is not None and t.is_alive()
 
     def _run_refit(self, rows: np.ndarray):
-        """The refit: the caller's ``refit``, else the port's estimator on
-        the buffered rows (``num_steps`` re-derived from them). Returns
-        ``(w, state)``."""
+        """The refit on the buffered rows (``num_steps`` re-derived from
+        them): the caller's ``refit``, else supervised by default (a
+        corrupt buffered block is quarantined instead of killing the
+        refresh), else the port's estimator. Returns ``(w, state)``."""
         if self.refit is not None:
             return self.refit(rows)
-        from distributed_eigenspaces_tpu_torch.api.estimator import OnlineDistributedPCA
-
         cfg = self.cfg
         steps = max(1, len(rows) // (cfg.num_workers * cfg.rows_per_worker))
-        est = OnlineDistributedPCA(dataclasses.replace(cfg, num_steps=steps),
-                                   device=self.device)
+        cfg = dataclasses.replace(cfg, num_steps=steps)
+        if self.supervise:
+            from distributed_eigenspaces_tpu_torch.data.stream import block_stream
+            from distributed_eigenspaces_tpu_torch.runtime.supervisor import (
+                supervised_fit,
+            )
+
+            def factory(start_row):
+                return block_stream(
+                    rows, num_workers=cfg.num_workers,
+                    rows_per_worker=cfg.rows_per_worker, start_row=start_row,
+                    remainder=cfg.remainder, device=self.device,
+                )
+
+            w, state, _sup = supervised_fit(factory, cfg, metrics=self.metrics,
+                                            device=self.device)
+            return w, state
+        from distributed_eigenspaces_tpu_torch.api.estimator import OnlineDistributedPCA
+
+        est = OnlineDistributedPCA(cfg, device=self.device)
         est.fit(rows)
         return est.components_, est.state
 
@@ -264,23 +279,35 @@ class DriftMonitor:
             live = self.registry.latest()
             if live is None:
                 return None
-            t0 = time.perf_counter()
-            w, state = self._run_refit(rows)
-            w = _host(w)
-            self.last_refit_s = time.perf_counter() - t0
-            angle = float(torch.max(principal_angles_degrees(
-                torch.from_numpy(np.array(w, np.float32)),
-                torch.from_numpy(np.array(live.v, np.float32)))))
+            tr = tracer_of(self.metrics)
+            trace_id = tr.new_trace("drift")
+            with tr.span(
+                "drift_refresh", trace_id=trace_id, category="drift",
+                attrs={"refit_rows": int(len(rows)),
+                       "residual_drift": round(drift, 4),
+                       "base_version": live.version},
+            ):
+                t0 = time.perf_counter()
+                with tr.span("refit", category="drift"):
+                    w, state = self._run_refit(rows)
+                    w = _host(w)
+                self.last_refit_s = time.perf_counter() - t0
+                with tr.span("angle_confirm", category="drift"):
+                    angle = float(torch.max(principal_angles_degrees(
+                        torch.from_numpy(np.array(w, np.float32)),
+                        torch.from_numpy(np.array(live.v, np.float32)))))
             score = drift + angle / 90.0
             self.last_score = score
             self.refreshes += 1
             with self._lock:
                 self._observes_since_refresh = 0
             published = None
+            rejected = None
             if score >= self.threshold and self.lease is not None \
                     and not self.lease.check():
                 # only the lease holder publishes; the holder's own monitor
                 # performs the real refresh
+                rejected = "not_lease_holder"
                 self.publishes_rejected += 1
                 log_line(
                     "drift refresh publish rejected: not lease holder",
@@ -304,6 +331,22 @@ class DriftMonitor:
                 with self._lock:
                     # re-anchor the tripwire on the new version
                     self._ewma = None
+                tr.event("publish", trace_id=trace_id, category="drift",
+                         attrs={"version": published.version,
+                                "score": round(score, 4)})
+            if self.metrics is not None:
+                event = {
+                    "kind": "drift",
+                    "trace_id": trace_id,
+                    "score": round(score, 4),
+                    "residual_drift": round(drift, 4),
+                    "angle_gap_deg": round(angle, 4),
+                    "refit_rows": int(len(rows)),
+                    "published": published.version if published else None,
+                }
+                if rejected is not None:
+                    event["rejected"] = rejected
+                self.metrics.serve(event)
             log_line("drift refresh", score=round(score, 4),
                      residual_drift=round(drift, 4), angle_gap_deg=round(angle, 4),
                      refit_rows=int(len(rows)),

@@ -9,8 +9,9 @@ estimator, whose basis lives on the card, and moves it to the host. A
 sharded publish (``publish(v=[row shards] | spec= | num_shards=)``) writes
 one checksummed ``basis.shardNN.npz`` a shard, each with its own atomic
 rename, and a torn, missing or rotted shard fails its version alone and
-loudly. Not ported yet: a ``MetricsLogger`` sink and ``publish_fleet``
-(ROADMAP.md Queue 1 items 16 and 15).
+loudly. A ``MetricsLogger`` (``metrics=``) receives the store's log lines
+(recoveries, torn snapshots, quarantines, GC) as ``registry`` serve
+events.
 
 A live serving tier cannot hand queries a basis that is half-written,
 and it cannot block the query path on a publisher's lock. Both follow
@@ -154,13 +155,6 @@ def _load_committed_payload(path: str, meta: dict, *, require_checksum: bool = T
     return v, st, spec, shard_sizes
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to distributed_eigenspaces_tpu_torch yet "
-        f"(ROADMAP.md {item})"
-    )
-
-
 class VersionRetired(KeyError):
     """A version id outside the registry's retention window (GC'd, or
     never published). A KeyError subclass so pre-existing callers keep
@@ -271,11 +265,8 @@ class EigenbasisRegistry:
             raise ValueError(
                 f"retire_grace_s must be >= 0, got {retire_grace_s}"
             )
-        if metrics is not None:
-            raise _not_ported(
-                "a MetricsLogger sink", "Queue 1 item 16 (utils/metrics.py)"
-            )
         self.keep = keep
+        self.metrics = metrics
         self.registry_dir = registry_dir
         #: optional ``serving/replication.PublisherLease``: publish
         #: re-validates it (``lease.ensure()``) before assigning an id, and
@@ -426,6 +417,8 @@ class EigenbasisRegistry:
         from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
 
         log_line(msg, **fields)
+        if self.metrics is not None:
+            self.metrics.serve({"kind": "registry", "event": msg, **fields})
 
     def _recover(self) -> None:
         """Scan the store: load committed, checksum-valid versions

@@ -29,9 +29,10 @@ Staleness and GC meet in the registry's ``retire_grace_s``: key the grace
 window off the staleness bound and a replica that read a commit marker
 just before the publisher GC'd it still completes its payload read.
 
-A ``MetricsLogger`` sink (``metrics=``) is not ported yet (ROADMAP.md Queue
-1 item 16); the counters and :meth:`ReplicaRegistry.health` carry the same
-numbers.
+A ``MetricsLogger`` (``metrics=``) receives every install, staleness
+breach, fenced commit and lease failover as a ``replication`` event
+(``summary()["replication"]``); the counters and
+:meth:`ReplicaRegistry.health` carry the same numbers.
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ import os
 import threading
 import time
 
-from distributed_eigenspaces_tpu_torch.config import _not_ported
 from distributed_eigenspaces_tpu_torch.runtime.supervisor import LaneWatchdog
 from distributed_eigenspaces_tpu_torch.serving.registry import (
     _VERSION_DIR_RE,
@@ -60,13 +60,6 @@ class LeaseLost(RuntimeError):
     """The publisher lease is no longer ours: it expired unrenewed, or
     a standby took over with a higher fencing epoch. A publish gated on
     the lease raises this INSTEAD of committing — the zombie path."""
-
-
-def _refuse_metrics(metrics) -> None:
-    if metrics is not None:
-        raise _not_ported(
-            "a MetricsLogger sink (metrics=)", "Queue 1 item 16 (utils/metrics.py)"
-        )
 
 
 def _read_json(path: str) -> dict | None:
@@ -103,7 +96,6 @@ class PublisherLease:
                  metrics=None):
         if lease_ms <= 0:
             raise ValueError(f"lease_ms must be > 0, got {lease_ms}")
-        _refuse_metrics(metrics)
         os.makedirs(registry_dir, exist_ok=True)
         self.registry_dir = registry_dir
         self.owner = owner or f"pid-{os.getpid()}-{id(self):x}"
@@ -365,7 +357,6 @@ class ReplicaRegistry:
             raise ValueError(
                 f"staleness_ms must be > 0, got {staleness_ms}"
             )
-        _refuse_metrics(metrics)
         self.registry_dir = registry_dir
         self.name = name
         self.keep = keep

@@ -61,8 +61,11 @@ the input energy; a rejected request's rows go in as zeros so the ranks'
 shapes agree. A version is placed shard by shard: each rank moves its rows
 only.
 
-Not ported yet: a ``MetricsLogger`` (``metrics=``), prewarming and the
-compile cache (ROADMAP.md Queue 1 item 16).
+A ``MetricsLogger`` (``metrics=``) receives every batch (queries, padded
+rows, queue waits, compute, version, swap), shed, breaker and lane event,
+and its ``summary()["serving"]["health"]`` reads :meth:`QueryServer.health`;
+its tracer, when one is attached, records each request's span chain. Not
+ported yet: prewarming and the compile cache (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -88,9 +91,12 @@ from distributed_eigenspaces_tpu_torch.runtime.supervisor import (
     LaneWatchdog,
 )
 from distributed_eigenspaces_tpu_torch.serving.registry import EigenbasisRegistry
-from distributed_eigenspaces_tpu_torch.serving.transform import TransformEngine
+from distributed_eigenspaces_tpu_torch.serving.transform import (
+    TransformEngine,
+    bucket_rows,
+)
 from distributed_eigenspaces_tpu_torch.utils.metrics import log_line
-from distributed_eigenspaces_tpu_torch.utils.telemetry import NULL_TRACER
+from distributed_eigenspaces_tpu_torch.utils.telemetry import NULL_TRACER, tracer_of
 
 __all__ = [
     "BreakerOpen",
@@ -189,8 +195,6 @@ class QueryServer:
         serve_dtype: str | None = None,
         device="cuda",
     ):
-        if metrics is not None:
-            raise _not_ported("QueryServer(metrics=)", "Queue 1 item 16 (utils/metrics.py)")
         if prewarm or prewarmer is not None:
             raise _not_ported("QueryServer(prewarm=)", "Queue 1 item 16 (runtime/prewarm.py)")
         if compile_cache is not None:
@@ -213,6 +217,16 @@ class QueryServer:
             flush_s = cfg.serve_flush_s if cfg is not None else 0.02
         self.registry = registry
         self.drift = drift
+        self.metrics = metrics
+        if (
+            metrics is not None
+            and cfg is not None
+            and cfg.serve_slo_p99_ms is not None
+            and metrics.slo_p99_ms is None
+        ):
+            # the declared SLO rides the config; the logger owns the
+            # attainment math (summary()["slo"]["serve"])
+            metrics.slo_p99_ms = cfg.serve_slo_p99_ms
         self.d, self.k = int(d), int(k)
         self.bucket_size = bucket_size
         if serve_dtype is None:
@@ -248,7 +262,10 @@ class QueryServer:
         if breaker_threshold is None and cfg is not None:
             breaker_threshold = cfg.serve_breaker_threshold
         self.queue_depth = queue_depth
-        self._slo_ms = cfg.serve_slo_p99_ms if cfg is not None else None
+        self._slo_ms = (
+            metrics.slo_p99_ms if metrics is not None
+            else (cfg.serve_slo_p99_ms if cfg is not None else None)
+        )
         #: chaos-injection point: called with the bucket at the top of every
         #: dispatch; a KillSwitch here is a lane death, anything else a
         #: dispatch failure (breaker food). None in production.
@@ -296,6 +313,9 @@ class QueryServer:
                 target=self._serve_loop_logged, daemon=True
             )
             self._thread.start()
+        if metrics is not None:
+            # summary()["serving"]["health"] reads the live state
+            metrics.attach_serve_health(self.health)
 
     def _serve_loop(self) -> None:
         """One supervised serve-lane entry: exceptions propagate to the
@@ -314,8 +334,20 @@ class QueryServer:
     # -- resilience event plumbing -------------------------------------------
 
     def _tracer(self):
+        """The logger's tracer when one is attached (handed to the engine
+        too, so its acquisitions land on the same timeline), else the
+        engine's."""
+        tr = tracer_of(self.metrics)
+        if tr is not NULL_TRACER:
+            if self.engine.tracer is None:
+                self.engine.tracer = tr
+            return tr
         tr = self.engine.tracer
         return tr if tr is not None else NULL_TRACER
+
+    def _serve_event(self, event: dict) -> None:
+        if self.metrics is not None:
+            self.metrics.serve(event)
 
     def _queue_event(self, kind: str, detail: dict) -> None:
         """Shed / breaker transitions from the admission queue -> ledger +
@@ -329,6 +361,10 @@ class QueryServer:
         }
         self.ledger.record(kind, None, **flat)
         self._tracer().event(f"serve_{kind}", category="serve", attrs=flat)
+        self._serve_event({
+            "kind": kind, "signature": [self.d, self.k],
+            **{k: v for k, v in detail.items() if k != "signature"},
+        })
 
     def _lane_restarted(self, event: dict) -> None:
         self._last_lane_death = time.perf_counter()
@@ -337,6 +373,11 @@ class QueryServer:
             attrs={"attempt": event.get("attempt"),
                    "error": event.get("error")},
         )
+        self._serve_event({
+            "kind": "lane", "event": "restart",
+            "attempt": event.get("attempt"), "error": event.get("error"),
+            "backoff_s": event.get("backoff_s"),
+        })
 
     def _lane_dead(self, exc: Exception) -> None:
         """Restart budget exhausted: close admission and fail pending
@@ -348,6 +389,10 @@ class QueryServer:
             f"{exc!r}); pending requests failed, admission closed"
         )
         err.__cause__ = exc
+        self._serve_event({
+            "kind": "lane", "event": "dead", "error": repr(exc),
+            "restarts": self._watchdog.restarts,
+        })
         self._closed = True
         try:
             self.queue.close()
@@ -499,6 +544,8 @@ class QueryServer:
         ticket.fail(exc)
         tr.event("serve_shed", trace_id=req.trace_id, category="serve",
                  attrs={"reason": "deadline"})
+        self._serve_event({"kind": "shed", "reason": "deadline", "dropped": 1,
+                           "signature": [self.d, self.k]})
         return exc
 
     @staticmethod
@@ -692,9 +739,15 @@ class QueryServer:
                 "lane_recovered", None,
                 recovery_ms=round(self.last_recovery_ms, 3),
             )
+            self._serve_event({
+                "kind": "lane", "event": "recovered",
+                "recovery_ms": round(self.last_recovery_ms, 3),
+            })
         # any bucket this batch acquires for the first time shows up as
-        # the delta below, recorded as a compile_stall span
+        # the delta below: a compile_stall span and the event's stall
+        stall_miss0 = self.engine.compile_misses
         stall_ms0 = self.engine.compile_ms_total
+        swaps0 = self.swap_count
         reqs = [t.payload for t in bucket.tickets]
         batch = self._lockstep_batch if self.lockstep else self._local_batch
         results, fails, served, t_c = batch(bucket, reqs, t0, tr)
@@ -709,9 +762,9 @@ class QueryServer:
                 version=-1 if self._served_version is None else self._served_version,
             )
 
+        now = time.perf_counter()
+        stall_ms = self.engine.compile_ms_total - stall_ms0
         if tr is not NULL_TRACER:
-            now = time.perf_counter()
-            stall_ms = self.engine.compile_ms_total - stall_ms0
             # per-request span chain under the request's trace_id:
             # admit (recorded at submit) -> queue_wait -> dispatch
             # (compile_stall -> compute -> reply)
@@ -754,7 +807,51 @@ class QueryServer:
                         "reply", t_c1, now, trace_id=tid,
                         parent=dspan, category="serve",
                     )
+        if self.metrics is not None:
+            self._batch_event(bucket, reqs, fails, t0, now, t_c, stall_ms,
+                              stall_miss0, swaps0)
         if self.drift is not None and served:
             x, r_sq, e_sq = (np.concatenate(part) for part in zip(*served))
             self.drift.observe(float(r_sq.sum()), float(e_sq.sum()), rows=x)
         return results
+
+    def _batch_event(self, bucket, reqs, fails, t0, now, t_c, stall_ms,
+                     stall_miss0, swaps0) -> None:
+        """The batch record of the logger's serving section: per-request
+        queue waits and latencies, the batch's compute net of any inline
+        acquisition, padded rows and the fill of the row bucket, the
+        version served and whether it was a hot swap."""
+        rows_total = int(sum(r.x.shape[0] for r in reqs))
+        rows_served = int(sum(r.x.shape[0] for i, r in enumerate(reqs)
+                              if i not in fails))
+        padded = (bucket_rows(rows_served, min_bucket=self.engine.min_bucket)
+                  - rows_served) if rows_served else 0
+        compute_s = (max(0.0, (t_c[1] - t_c[0]) - stall_ms / 1e3)
+                     if t_c is not None else 0.0)
+        event = {
+            "kind": "batch",
+            "queries": len(reqs),
+            "rejected": len(fails),
+            "rows": rows_total,
+            "padded_rows": padded,
+            "fill_fraction": (round(rows_served / (rows_served + padded), 4)
+                              if rows_served else 0.0),
+            "admit_to_dispatch_s": [
+                round(max(0.0, bucket.t_dispatch - r.t_submit), 6) for r in reqs
+            ] if bucket.t_dispatch is not None else [],
+            "batch_seconds": round(now - t0, 6),
+            "signature": [self.d, self.k],
+            "compile_misses": self.engine.compile_misses - stall_miss0,
+            "compile_stall_ms": round(stall_ms, 3),
+            "query_latency_s": [round(now - r.t_submit, 6) for r in reqs],
+            # the decomposition feed: latency = queue_wait + compile_stall
+            # + compute + other
+            "queue_wait_s": [round(max(0.0, t0 - r.t_submit), 6) for r in reqs],
+            "compute_s": round(compute_s, 6),
+            "dispatch_s": round(now - t0, 6),
+            "occupancy": round(len(reqs) / self.bucket_size, 4),
+            "swap": self.swap_count > swaps0,
+        }
+        if self._served_version is not None:
+            event["version"] = self._served_version
+        self.metrics.serve(event)

@@ -10,9 +10,8 @@ the same names beside the kernels they launched. Beside them, the
 reference's fixed-memory aggregates, copied as they are: :class:`Histogram`
 (log-spaced buckets, mergeable, quantile estimates), :class:`RingLog` (a
 bounded event list that folds what it evicts) and :func:`slo_summary`
-(attainment and error-budget burn of a p99 target). ``MetricsLogger``,
-which holds them in the reference, is not ported yet (ROADMAP.md Queue 1
-item 16).
+(attainment and error-budget burn of a p99 target), which
+``utils/metrics.MetricsLogger`` holds.
 
 Cross-thread propagation rule: a trace is born where the request enters
 the system (``submit``); its ``trace_id`` rides the ticket payload to the

@@ -1010,10 +1010,77 @@ def test_fleet_server_on_card_serves_full_and_deadline_buckets(cuda_device):
         srv.prewarm()
         assert srv.wait_warm(timeout=300)
         served = [t.result(timeout=300) for t in [srv.submit(p) for p in probs]]
-        log = list(srv.bucket_log)
-    assert [b["tenants"] for b in log] == [2, 1] and log[0]["compile_ms"] == 0.0
+        log = [r for r in srv.metrics.fleet_records if r["fleet"] == "bucket"]
+    assert [b["tenants"] for b in log] == [2, 1] and log[0]["compile_stall_ms"] == 0.0
     assert tgram.launches == 2
     direct = list(fleet.fit_fleet(cfg, probs[:2], mesh=None).components)
     direct += list(fleet.fit_fleet(cfg, probs[2:], mesh=None, pad_to=2).components)
     for got, want in zip(served, direct):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["ill", "fine"])
+def test_ns_orth_guard_on_card_matches_cpu(cuda_device, case, monkeypatch):
+    """Under DET_CHECKIFY=1 ``ns_orth``'s residual check fires on the card
+    exactly where it fires on the CPU, and the card's result agrees with
+    the CPU's to 1e-5 where it passes."""
+    from distributed_eigenspaces_tpu_torch.ops.linalg import ns_orth
+    from distributed_eigenspaces_tpu_torch.utils import guards
+
+    v = _x((256, 8), seed=3)
+    if case == "ill":
+        v[:, 1] = v[:, 0] * 1.0001
+    monkeypatch.setenv("DET_CHECKIFY", "1")
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        try:
+            outs.append(ns_orth(v.to(dev)).cpu())
+        except guards.CheckError:
+            outs.append(None)
+    assert (outs[0] is None) == (outs[1] is None) == (case == "ill")
+    if case == "fine":
+        assert _rel(outs[1], outs[0]) <= 1e-5
+
+
+def test_supervised_step_on_card_matches_cpu(cuda_device, tmp_path):
+    """One supervised per-step fit with a NaN block, a flaky read and a
+    kill on the card: the same ledger as on the CPU, the card's Gram kernel
+    launched, and sigma_tilde within 1e-4 / bases within 0.05 degrees."""
+    from distributed_eigenspaces_tpu_torch.data.stream import block_stream
+    from distributed_eigenspaces_tpu_torch.runtime.supervisor import (
+        Supervisor,
+        supervised_fit,
+    )
+    from distributed_eigenspaces_tpu_torch.utils import faults
+
+    m, n, d, k, T = 4, 128, 256, 4, 6
+    cfg = dett.PCAConfig(dim=d, k=k, num_workers=m, rows_per_worker=n, num_steps=T,
+                         solver="subspace", subspace_iters=8, backend="local")
+    data = _x((T * m * n, d), seed=9).numpy() * np.linspace(3, 0.2, d, dtype=np.float32)
+    v0 = _x((d, k), seed=10)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        fired = [False]
+
+        def factory(start, dev=dev, fired=fired):
+            plan = faults.ChaosPlan(nan_blocks={2: [1]}, raise_at={3: "flaky"},
+                                    kill_at=None if fired[0] else 4)
+            return faults.ChaosStream(
+                block_stream(data, num_workers=m, rows_per_worker=n, start_row=start,
+                             device=dev), plan, first_step=start // (m * n) + 1)
+
+        sup = Supervisor(cfg, sleep=lambda s: None)
+        tgram.launches = 0
+        while True:
+            try:
+                w, st, _ = supervised_fit(factory, cfg, checkpoint_dir=str(tmp_path / dev),
+                                          supervisor=sup, device=dev, v0=v0)
+                break
+            except faults.KillSwitch:
+                fired[0] = True
+        runs[dev] = (w.cpu(), st.sigma_tilde.cpu(), sup.ledger.by_kind, tgram.launches)
+    assert runs["cuda"][2] == runs["cpu"][2] == {
+        "quarantine_nonfinite": 1, "stream_retry": 1, "resume": 1}
+    assert runs["cuda"][3] >= 2  # a cold round in each of the two processes
+    assert float((runs["cuda"][1] - runs["cpu"][1]).abs().max()) <= 1e-4
+    assert float(principal_angles_degrees(runs["cuda"][0], runs["cpu"][0]).max()) <= 0.05

@@ -189,12 +189,16 @@ def test_empty_buffer_or_registry_refreshes_nothing():
 
 
 def test_unported_modes_name_the_roadmap():
+    # the supervised refit (the reference's default) and the logger sink
+    # are ported: both construct as the reference's do
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
     reg = EigenbasisRegistry()
     cfg = PCAConfig(**_kw())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        DriftMonitor(reg, cfg)  # supervise=True without a refit hook
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        DriftMonitor(reg, cfg, supervise=False, metrics=object())
+    assert DriftMonitor(reg, cfg, device="cpu").supervise
+    logger = MetricsLogger()
+    assert DriftMonitor(reg, cfg, supervise=False, metrics=logger,
+                        device="cpu").metrics is logger
     with pytest.raises(ValueError, match="threshold"):
         DriftMonitor(reg, cfg, supervise=False, threshold=0.0)
     # a refit hook makes the supervised flag harmless, as in the reference

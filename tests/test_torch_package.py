@@ -72,6 +72,18 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.algo.online\n"
         "import distributed_eigenspaces_tpu_torch.api.estimator\n"
         "import distributed_eigenspaces_tpu_torch.serving.replication\n"
+        "import distributed_eigenspaces_tpu_torch.utils.guards\n"
+        "import distributed_eigenspaces_tpu_torch.serving.drift\n"
+        "import distributed_eigenspaces_tpu_torch.parallel.fleet\n"
+        "from distributed_eigenspaces_tpu_torch.runtime.supervisor import (\n"
+        "    Supervisor, supervised_fit)\n"
+        "from distributed_eigenspaces_tpu_torch.runtime.membership import (\n"
+        "    ElasticStream, MembershipTable)\n"
+        "from distributed_eigenspaces_tpu_torch.runtime.scheduler import (\n"
+        "    run_dynamic_round)\n"
+        "from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger\n"
+        "from distributed_eigenspaces_tpu_torch.utils.faults import (\n"
+        "    ChaosPlan, ChaosStream, ChurnPlan, ClientChaosPlan, FaultInjector)\n"
         "from distributed_eigenspaces_tpu_torch.analysis import (\n"
         "    ast_lints, contracts, mutations, programs, report)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -165,3 +177,26 @@ def test_feature_sharded_entry_points_raise_without_a_card(monkeypatch):
         dett.OnlineDistributedPCA(cfg).fit(data)
     with pytest.raises(RuntimeError, match="cuda"):
         dett.OnlineDistributedPCA(cfg, trainer="sketch").fit(data)
+
+
+def test_supervised_entry_points_raise_without_a_card(monkeypatch):
+    """The supervised fit, the elastic stream and the dynamic round default
+    to the card too: no retry or resume turns that into a CPU run."""
+    from distributed_eigenspaces_tpu_torch.runtime.membership import (
+        ElasticStream,
+        MembershipTable,
+    )
+    from distributed_eigenspaces_tpu_torch.runtime.scheduler import run_dynamic_round
+    from distributed_eigenspaces_tpu_torch.runtime.supervisor import supervised_fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PCAConfig(dim=16, k=2, num_workers=2, rows_per_worker=8, num_steps=1)
+    data = np.zeros((16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        supervised_fit(lambda s: iter([data.reshape(2, 8, 16)]), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        supervised_fit(lambda s: iter([data.reshape(2, 8, 16)]), cfg, trainer="segmented")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ElasticStream(iter([]), MembershipTable(2), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_dynamic_round(data, num_batches=2, k=2)

@@ -595,21 +595,22 @@ class TestGrownReplication:
 
     def test_grown_install_event_names_parent(self, tmp_path):
         """The replica's installed version carries ``grew_from`` so an
-        operator can trace a width change from any follower (the
-        reference reads it from the install event of its MetricsLogger,
-        which is not ported: the sink is refused, naming its item)."""
+        operator can trace a width change from any follower, and so does
+        the install event of its MetricsLogger, as the reference's."""
+        from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
         td = str(tmp_path / "reg")
         reg = EigenbasisRegistry(registry_dir=td)
         parent = _basis(seed=4)
         bv0 = reg.publish(parent)
         bv1 = reg.publish_grown(bv0, _grown_from(parent, K + 1))
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ReplicaRegistry(td, name="r0", start=False, metrics=object())
-        with pytest.raises(NotImplementedError, match="item 16"):
-            PublisherLease(td, owner="a", metrics=object())
-        rep = ReplicaRegistry(td, name="r0", start=False)
+        logger = MetricsLogger()
+        rep = ReplicaRegistry(td, name="r0", start=False, metrics=logger)
         rep._poll_once()
         assert rep.grown_installs == 1
+        installs = [e for e in logger.replication_records
+                    if e["replication"] == "install"]
+        assert [e["grew_from"] for e in installs] == [None, bv0.version]
         got = rep.get(bv1.version)
         assert got.lineage["grew_from"] == bv0.version
         assert got.lineage["producer"] == "grow_basis"

@@ -349,7 +349,8 @@ def test_server_records_request_spans_on_the_engine_tracer():
 def test_unported_server_modes_raise():
     reg = EigenbasisRegistry()
     reg.publish(_basis())
-    for kw in ({"metrics": object()}, {"prewarm": True}):
+    # a MetricsLogger sink is ported (tests/test_torch_metrics.py)
+    for kw in ({"prewarm": True}, {"compile_cache": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             QueryServer(reg, _cfg(), device="cpu", **kw)
     # a DriftMonitor is ported (tests/test_torch_drift.py)

@@ -125,12 +125,12 @@ def test_config_from_jax_refuses_unported_settings():
     got = interop.config_from_jax(dataclasses.asdict(jcfg))
     assert got.merge_topology == jcfg.merge_topology
     assert got.merge_wire_dtype == jcfg.merge_wire_dtype == (("host", "int8"),)
-    # the steady-state knobs carry over (ported with the whole-fit trainers);
-    # prefetch_depth is dropped: the port always prefetches one window
+    # the steady-state knobs carry over (ported with the whole-fit trainers),
+    # and so does the per-step loop's prefetch depth
     got = interop.config_from_jax(dataclasses.asdict(JaxConfig(
         **SMALL, merge_interval=2, pipeline_merge=True, prefetch_depth=0)))
     assert (got.merge_interval, got.pipeline_merge) == (2, True)
-    assert not hasattr(got, "prefetch_depth")
+    assert got.prefetch_depth == 0
     # the int8 stage and the ns warm orthonormalization carry over
     got = interop.config_from_jax(dataclasses.asdict(JaxConfig(
         **SMALL, stage_dtype="int8", compute_dtype="bfloat16", warm_orth_method="ns")))
