@@ -24,7 +24,8 @@ exits non-zero without printing a result:
    mesh rank's share of mnist784's block, (4, 1024, 784), and a tiered
    rank's leaf worker, (1, 1024, 3072), on the TMA kernel. Then fp32 on
    every tile edge and copy width of its shape rule (``F32_CASES``: d = 3001,
-   n = 1, a base 4 bytes off a 16-byte boundary), each launch recorded as
+   n = 1, a base 4 bytes off a 16-byte boundary) and at the scenario
+   replays' blocks (``SCENARIO_GRAMS``), each launch recorded as
    ``gram_launch`` says.
 4. timing: kernel, plain version, ``torch.bmm`` yardstick and the bound,
    with CUDA events (median of 25 after warm-up), and the device time of
@@ -40,7 +41,8 @@ exits non-zero without printing a result:
    plain version (float64 sums, one rounding, a true division) at the
    CIFAR-10 block (8, 1024, 3072), synthetic1024's (8, 2048, 1024),
    mnist784's (8, 1024, 784), clip768's (8, 2048, 768), (3, 1000, 1000),
-   (1, 1000, 9) and a mesh rank's (4, 1024, 784), each on an
+   (1, 1000, 9), a mesh rank's (4, 1024, 784) and the real-data check's
+   clip768 block (4, 256, 768), each on an
    aligned base and one byte off it: the transpose equal to its plain
    version (pad rows included), the Gram equal bit for bit and exactly
    symmetric, every instance of both kernels taken; both profiled launches
@@ -321,6 +323,35 @@ exits non-zero without printing a result:
    and no float Gram; the matmul anchor measured (``anchor_tflops`` > 0),
    the HBM anchor measured or its failed probe recorded, ``pct_of_anchor``
    at most 105; the ``device`` block naming this card and its power limit.
+16. slice_scenario (19 and 18 run before it): ``runtime.scenario.
+   run_scenario`` on the card with ``scenarios/ci_smoke.json`` and
+   ``production_day.json`` at mnist784's feature width (d=784, m=8, n=1024, T=20 added to each spec's ``config``
+   block in memory; episodes, rates, SLOs, seeds and k=3 the spec's), then an
+   in-memory spec whose churn episode kills host 1 of a (chip 2, host 2)
+   tree (m=4; ``TierSet`` / ``TieredStream``): every hard gate true; per
+   episode its attainment, p99 and recovery; the p99 decomposition; the
+   publisher failover and the replicas' convergence, the population rounds
+   and the churn fits; each replay launching the fp32 serve kernel and a
+   Gram kernel and calling no plain version (each is wrapped to count).
+17. slice_controller: ``bench.py --controller``'s A/B on ``controller_day``
+   at the same width: the autoscaler off, on, and on with the seeded bad
+   plan (``serve_flush_s=2.0``); every arm's own gates, every decision
+   lineage-stamped, the bad plan rolled back; the on-over-off attainment
+   comparison printed, not gated (one card, one timing).
+18. slice_population: ``bench.py --population``'s four gates on the card
+   (100,000 clients, cohorts of 256, d=64 k=4, 12 rounds): hardened within
+   5 degrees and naive not under scaled poison; naive at least twice the
+   hardened angle under orthonormal colluders; every reject ledgered, counts
+   equal; the 90% outage wave collapsing, waiting and resuming; each arm's
+   wall seconds.
+19. slice_real_data: ``scripts/torch_real_data_check.py --offline`` on the
+   clip768 and imagenet12288 row corpora synthesized to disk: ``"data":
+   "real"``, ``"source": "synthesized-on-disk"`` and the loader's
+   ``data_source``; each synthesized corpus's planted leading 10
+   directions within 5 degrees of the fitted span (its full top-k sinks
+   below the noise floor, so the angle to it is near 90 and only bounded
+   by [0, 90]). Then parity_serve_scenario: the serve kernels at the
+   replays' buckets, (8, 16 and 32 rows, 784, 3).
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -363,7 +394,8 @@ S8_CLIP = (8, 2048, 768)  # clip768's block, every step of its segmented fit
 # register epilogue), each on an aligned base and one byte off it (byte
 # loads in the transpose)
 S8_PARITY = (CIFAR, S8_SYNTH, S8_MNIST, S8_CLIP, (3, 1000, 1000), (1, 1000, 9),
-             (4, 1024, 784))  # the last: a mesh rank's share of mnist784's block
+             (4, 1024, 784),  # a mesh rank's share of mnist784's block
+             (4, 256, 768))  # the real-data check's clip768 block (slice_real_data)
 S8_OFFSETS = (0, 1)
 SERVE_SOURCE = "distributed_eigenspaces_tpu_torch/csrc/serve_project.cu"
 SERVE_REPLACES = {
@@ -4279,6 +4311,405 @@ def slice_dynamic_round(dev, card: str, spec, data) -> int:
     return counts["gram"]
 
 
+# the scenario layer (runtime/scenario.py, tiers.py, population.py,
+# controller.py): the committed specs replayed at mnist784's feature width,
+# the widths added to each spec's own config block in memory (load_spec's
+# override path); everything else (episodes, rates, SLOs, seeds) the spec's
+SCENARIO_WIDTHS = dict(dim=MNIST_FIT["dim"], num_workers=8, rows_per_worker=1024,
+                       num_steps=20)
+SCENARIO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenarios")
+# one churn episode on the host tier of a (chip 2, host 2) tree, m=4 workers
+TIER_SPEC = {
+    "name": "tier_churn", "seed": 13, "slo_p99_ms": 500.0,
+    "config": {"merge_topology": [["chip", 2], ["host", 2]], **SCENARIO_WIDTHS,
+               "num_workers": 4},
+    "episodes": [
+        {"name": "steady_load", "kind": "steady", "start_s": 0.0, "duration_s": 1.5,
+         "qps": 10},
+        {"name": "host_loss", "kind": "churn", "start_s": 0.1, "duration_s": 1.0,
+         "workers": 4, "kill_slots": [1], "kill_step": 2, "rejoin_step": 6, "steps": 10,
+         "tier": "host", "publish": True},
+    ],
+}
+# the replays' fp32 Gram and fp32 serve shapes at those widths: the fit's
+# (8, 1024, 784), tier_churn's fit (4, 1024, 784) and a churn fit's or a
+# two-tenant bucket's (4, 8, 784); buckets of 8, 16 and 32 query rows
+# against k=3
+SCENARIO_GRAMS = tuple((m, n, SCENARIO_WIDTHS["dim"])
+                       for m, n in ((8, 1024), (4, 1024), (4, 8)))
+SCENARIO_SERVE = tuple((rows, SCENARIO_WIDTHS["dim"], 3) for rows in (8, 16, 32))
+# bench.py --controller's seeded bad plan (bench.py:3277-3281) and lineage
+CONTROLLER_BAD_PLAN = {"schema": "plan-v1", "plan_id": "plan-seeded-bad",
+                       "chosen": {"config_overrides": {"serve_flush_s": 2.0}}}
+CONTROLLER_LINEAGE = {"action": ("knob", "trigger", "from", "to"),
+                      "rollback": ("knob", "trigger", "from", "to"),
+                      "commit": ("knob", "trigger", "to")}
+# bench.py --population (bench.py:2241-2256, 2299-2310): the acceptance shape
+POP_BENCH = dict(dim=64, k=4, num_workers=8, rows_per_worker=16, num_steps=12,
+                 backend="local", heartbeat_timeout_ms=100.0, population=100_000,
+                 cohort_size=256, min_participation_frac=0.5, max_poison_frac=0.08)
+POP_SCALED = dict(dropout_frac=0.30, dropout_waves={4: 0.9}, straggler_frac=0.03,
+                  nan_frac=0.01, poison_frac=0.05, poison_scale=3.0)
+POP_ORTH = dict(dropout_frac=0.30, straggler_frac=0.03, poison_frac=0.05, poison_scale=1.0)
+# the real-data check's rows corpora, synthesized to disk
+REAL_DATA_CONFIGS = ("clip768", "imagenet12288")
+PLAIN_FNS = (("gram", "gram_plain"), ("gram", "gram_s8_plain"),
+             ("serve_project", "serve_project_plain"),
+             ("serve_project", "serve_project_i8_plain"),
+             ("serve_project", "serve_project_f32_plain"))
+
+
+def widened_spec(name: str, extra: dict | None = None) -> dict:
+    """A committed spec with the card's widths added to its ``config``
+    block (an in-memory copy; the file is not touched)."""
+    with open(os.path.join(SCENARIO_DIR, f"{name}.json")) as f:
+        raw = json.load(f)
+    raw["config"] = {**raw.get("config", {}), **SCENARIO_WIDTHS, **(extra or {})}
+    return raw
+
+
+def zero_serve_counts() -> None:
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+
+    sp.launches = sp.launches_i8 = sp.launches_f32 = 0
+
+
+def kernel_counts() -> dict:
+    """The Gram counters by variant (fp32 is every ``gram_cuda`` launch that
+    is not bf16) and the serve counters."""
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+
+    return {"gram": gram_mod.launches, "gram_bf16_tma": gram_mod.launches_tma,
+            "gram_s8": gram_mod.launches_s8, "serve_f32": sp.launches_f32,
+            "serve_bf16": sp.launches, "serve_i8": sp.launches_i8}
+
+
+def counted_plain(calls: list):
+    """Wrap every plain version of the serve and Gram kernels so that a call
+    lands in ``calls``; returns the undo. On the card a plain call means a
+    tensor reached the CPU."""
+    import importlib
+
+    saved = []
+    for mod_name, fn_name in PLAIN_FNS:
+        mod = importlib.import_module(f"distributed_eigenspaces_tpu_torch.ops.{mod_name}")
+        fn = getattr(mod, fn_name)
+
+        def wrapped(*a, _fn=fn, _name=fn_name, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+
+        setattr(mod, fn_name, wrapped)
+        saved.append((mod, fn_name, fn))
+
+    def undo():
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+    return undo
+
+
+def counted_replay(dev, raw: dict, **kw) -> dict:
+    """One ``run_scenario`` on the card with every launch counter set to 0
+    just before and read just after, and every plain-version call counted."""
+    from distributed_eigenspaces_tpu_torch.runtime.scenario import load_spec, run_scenario
+
+    spec = load_spec(raw)
+    plain: list = []
+    undo = counted_plain(plain)
+    zero_counts()
+    zero_serve_counts()
+    t0 = time.perf_counter()
+    try:
+        verdict, ok = run_scenario(spec, device=dev, **kw)
+    finally:
+        undo()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    return {"verdict": verdict, "ok": ok, "counts": counts, "plain": plain,
+            "seconds": seconds, "spec": spec}
+
+
+def replay_record(run: dict) -> dict:
+    """What a phase line prints of one replay: the gates, per-episode
+    attainment and recovery, p99 with its decomposition, the launches."""
+    v = run["verdict"]
+    serve_slo = (v.get("slo") or {}).get("serve") or {}
+    return {
+        "scenario": v["scenario"], "ok": run["ok"], "gates": v["gates"],
+        "attainment": v.get("value"), "p99_ms": serve_slo.get("p99_ms"),
+        "burn": serve_slo.get("burn"),
+        "latency_decomposition": v["serving"].get("latency_decomposition"),
+        "episodes": {name: {"attainment": (ep.get("slo") or {}).get("attainment"),
+                            "requests": ep.get("requests"), "p99_ms": ep.get("p99_ms"),
+                            "recovered": ep.get("recovered"),
+                            "recovery_ms": ep.get("recovery_ms")}
+                     for name, ep in v["episodes"].items()},
+        "replay": v["replay"], "drift_refreshes": v["serving"].get("drift_refreshes"),
+        "launches": run["counts"], "plain_calls": len(run["plain"]),
+        "seconds": run["seconds"],
+    }
+
+
+def check_replay(run: dict, what: str) -> None:
+    """A replay's hard gates, and the hand kernels on its path: one fp32
+    serve launch and one Gram launch at least, no plain version."""
+    c = run["counts"]
+    check(run["ok"] and all(run["verdict"]["gates"].values()),
+          f"{what}: gates failed {run['verdict'].get('scenario_fail')}")
+    check(c["serve_f32"] >= 1, f"{what}: no fp32 serve kernel launch ({c})")
+    check(c["gram"] + c["gram_s8"] >= 1, f"{what}: no Gram kernel launch ({c})")
+    check(not run["plain"], f"{what}: plain versions called on the card: "
+                            f"{sorted(set(run['plain']))}")
+
+
+def slice_scenario(dev, card: str) -> dict:
+    """``ci_smoke`` and ``production_day`` at mnist784's feature width (d=784,
+    m=8, n=1024, T=20, the specs' k=3), then an in-memory spec whose churn
+    episode kills a host of a (chip 2, host 2) tree (m=4): each replay's
+    gates, per-episode attainment, p99 and its decomposition, the publisher
+    failover and replica convergence, the population rounds and the churn
+    fits; each replay launching the fp32 serve kernel and a Gram kernel and
+    no plain version. Returns the launches by replay."""
+    from distributed_eigenspaces_tpu_torch.runtime import tiers
+
+    out = {}
+    for name in ("ci_smoke", "production_day"):
+        run = counted_replay(dev, widened_spec(name))
+        v = run["verdict"]
+        extra = {}
+        if name == "production_day":
+            extra = {"replication": v["replication"],
+                     "publisher_failovers": v["replay"]["publisher_failovers"],
+                     "replicas_converged": v["gates"].get("hotfix_push_replicas_converged"),
+                     "population": v["population"], "population_fits": v["population_fits"],
+                     "fleet": v["fleet"]}
+        emit("slice_scenario", spec=name, widths=SCENARIO_WIDTHS, **replay_record(run),
+             churn=v["churn"], membership=v["membership"], **extra, card=card)
+        check_replay(run, f"scenario {name}")
+        if name == "production_day":
+            check(v["replay"]["publisher_failovers"] == 1,
+                  f"scenario {name}: {v['replay']['publisher_failovers']} failovers")
+        out[name] = run["counts"]
+    # the host tier: TierSet / TieredStream under the churn fit
+    rounds: list = []
+    begin = tiers.TierSet.begin_round
+
+    def recorded(self, step):
+        info = begin(self, step)
+        rounds.append({"step": step, **{t: i["effective"].tolist() for t, i in info.items()}})
+        return info
+
+    tiers.TierSet.begin_round = recorded
+    try:
+        run = counted_replay(dev, json.loads(json.dumps(TIER_SPEC)))
+    finally:
+        tiers.TierSet.begin_round = begin
+    masked = [r["step"] for r in rounds if 0.0 in r["host"]]
+    emit("slice_scenario", spec=TIER_SPEC["name"], widths=TIER_SPEC["config"],
+         **replay_record(run), churn=run["verdict"]["churn"],
+         membership=run["verdict"]["membership"], tier_rounds=len(rounds),
+         host_masked_steps=masked, card=card)
+    check_replay(run, "scenario tier_churn")
+    check(len(rounds) >= 10 and masked, f"scenario tier_churn: tier rounds {rounds}")
+    out[TIER_SPEC["name"]] = run["counts"]
+    return out
+
+
+def controller_lineage_ok(trail: list) -> bool:
+    """Every knob decision carries its lineage: the fields of its kind plus
+    ``plan_id`` and ``seq`` (bench.py:3296-3309)."""
+    for ev in trail:
+        fields = CONTROLLER_LINEAGE.get(ev.get("kind"))
+        if fields is None:
+            continue
+        if "plan_id" not in ev or "seq" not in ev or any(f not in ev for f in fields):
+            return False
+    return True
+
+
+def slice_controller(dev, card: str) -> dict:
+    """``bench.py --controller`` (bench.py:3311-3390) on ``controller_day`` at
+    mnist784's feature width: the replay with the autoscaler off, on, and on
+    with the seeded bad plan (``serve_flush_s=2.0`` against a 150 ms SLO).
+    Fails on the structural gates only: every arm's own hard gates, every
+    decision lineage-stamped, the bad plan rolled back; the on-over-off
+    attainment comparison is printed. Returns the launches by arm."""
+    arms = {}
+    for arm, kw in (("off", {}), ("on", {"controller": True}),
+                    ("bad_plan", {"controller": True, "plan": CONTROLLER_BAD_PLAN})):
+        arms[arm] = counted_replay(dev, widened_spec("controller_day"), **kw)
+        emit("slice_controller", arm=arm, **replay_record(arms[arm]),
+             controller=arms[arm]["verdict"].get("controller"), card=card)
+    off, on, bad = (arms[a]["verdict"] for a in ("off", "on", "bad_plan"))
+    on_trail = list((on.get("controller") or {}).get("events") or [])
+    bad_trail = list((bad.get("controller") or {}).get("events") or [])
+    rollbacks = [ev for ev in bad_trail if ev.get("kind") == "rollback"
+                 and ev.get("plan_id") == CONTROLLER_BAD_PLAN["plan_id"]]
+    att_off, att_on = off.get("value"), on.get("value")
+    gates = {"off_arm_ok": arms["off"]["ok"], "on_arm_ok": arms["on"]["ok"],
+             "bad_plan_arm_ok": arms["bad_plan"]["ok"],
+             "actions_lineage_stamped": controller_lineage_ok(on_trail)
+             and controller_lineage_ok(bad_trail),
+             "bad_plan_rolled_back": bool(rollbacks)}
+    on_ge_off = att_off is not None and att_on is not None and att_on >= att_off
+
+    def episodes(v):
+        return {name: (ep.get("slo") or {}).get("attainment")
+                for name, ep in (v.get("episodes") or {}).items()}
+
+    emit("slice_controller", arm="ab", metric="pca_controller_ab", scenario=off["scenario"],
+         seed=off["seed"],
+         value=att_on / max(att_off, 1e-9) if None not in (att_off, att_on) else None,
+         unit="slo_attainment_ratio", attainment_off=att_off, attainment_on=att_on,
+         on_attainment_ge_off=on_ge_off,
+         p99_ms_off=((off.get("slo") or {}).get("serve") or {}).get("p99_ms"),
+         p99_ms_on=((on.get("slo") or {}).get("serve") or {}).get("p99_ms"),
+         episodes_off=episodes(off), episodes_on=episodes(on),
+         bad_plan=CONTROLLER_BAD_PLAN, bad_plan_rollbacks=rollbacks,
+         decisions_on=[(ev.get("kind"), ev.get("knob"), ev.get("trigger")) for ev in on_trail],
+         decisions_bad_plan=[(ev.get("kind"), ev.get("knob"), ev.get("trigger"))
+                             for ev in bad_trail],
+         gates=gates, card=card)
+    for arm, run in arms.items():
+        check_replay(run, f"controller {arm}")
+    for name, ok in gates.items():
+        check(ok, f"controller: gate {name} failed")
+    return {arm: run["counts"] for arm, run in arms.items()}
+
+
+def slice_population(dev, card: str) -> dict:
+    """``bench.py --population`` (bench.py:2259-2420) on the card: 100,000
+    transient clients, cohorts of 256, d=64 k=4, 12 rounds. The hardened arm
+    under scaled (x3) colluding poison, NaN submitters, 3% stragglers and a
+    90% outage wave at round 4, the naive arm under the same plan, then both
+    under orthonormal colluders (scale 1). Gates: hardened within 5 degrees
+    and naive not; naive at least twice the hardened angle under orthonormal
+    poison; every reject in the ledger with its client and reason, counts
+    equal; the wave collapsing a round, waiting, resuming and every round
+    completed. Prints each arm's wall seconds and the launch counters (no
+    hand kernel is on this path)."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.runtime.population import population_fit
+    from distributed_eigenspaces_tpu_torch.utils.faults import ClientChaosPlan
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = dett.PCAConfig(**POP_BENCH)
+    rounds, budget = cfg.num_steps, POP_BUDGET_DEG
+
+    def angle(w, planted):
+        w = torch.from_numpy(np.ascontiguousarray(w))
+        if not bool(torch.isfinite(w).all()):
+            return float("nan")
+        return float(principal_angles_degrees(w, torch.from_numpy(planted)).max())
+
+    arms = {}
+    zero_counts()
+    zero_serve_counts()
+    for arm, plan_kw, kw in (("hardened_scaled", POP_SCALED, {}),
+                             ("naive_scaled", POP_SCALED, {"hardened": False}),
+                             ("hardened_orth", POP_ORTH, {}),
+                             ("naive_orth", POP_ORTH, {"hardened": False})):
+        metrics = MetricsLogger()
+        t0 = time.perf_counter()
+        w, info, sup = population_fit(cfg, plan=ClientChaosPlan(**plan_kw), rounds=rounds,
+                                      metrics=metrics, participation_wait_s=5.0, device=dev,
+                                      **kw)
+        torch.cuda.synchronize()
+        arms[arm] = {"w": w, "info": info, "sup": sup, "seconds": time.perf_counter() - t0,
+                     "summary": metrics.summary().get("population") or {},
+                     "angle": angle(w, info["planted"])}
+    counts = kernel_counts()
+    h = arms["hardened_scaled"]
+    quarantines = [e for e in h["sup"].ledger.events if e["kind"] == "quarantine_client"]
+    reject_total = sum(h["info"]["rejects"].values())
+    gates = {
+        "hardened_within_budget": h["angle"] <= budget,
+        "naive_exceeds_budget": not (arms["naive_scaled"]["angle"] <= budget),
+        "orth_poison_hardened_within_budget": arms["hardened_orth"]["angle"] <= budget,
+        "orth_poison_steers_naive_2x":
+            arms["naive_orth"]["angle"] >= 2.0 * arms["hardened_orth"]["angle"],
+        "every_reject_in_ledger_with_attribution":
+            len(quarantines) == reject_total > 0
+            and all("client" in e and "reason" in e for e in quarantines),
+        "participation_lost_then_resumed":
+            h["sup"].ledger.by_kind.get("participation_lost", 0) >= 1
+            and h["info"]["resumes"] >= 1,
+        "hardened_completed_all_rounds": h["info"]["rounds"] == rounds,
+        "telemetry_covers_run": h["summary"].get("rounds") == rounds
+        and bool(h["summary"].get("participation_hist"))
+        and bool(h["summary"].get("rejects_by_reason")),
+        "no_deadlock": all(a["seconds"] < 120.0 for a in arms.values()),
+    }
+    emit("slice_population",
+         config="bench.py --population: population 100,000, cohort 256, d=64 k=4, "
+                f"{rounds} rounds, max_poison_frac 0.08, min_participation_frac 0.5",
+         angles_deg={a: r["angle"] for a, r in arms.items()},
+         seconds={a: r["seconds"] for a, r in arms.items()},
+         resumes=h["info"]["resumes"], rejects_by_reason=h["info"]["rejects"],
+         ledger_quarantines=len(quarantines),
+         participation_hist=h["summary"].get("participation_hist"),
+         stale_folds=h["summary"].get("stale_folds"),
+         ledger_by_kind=h["sup"].ledger.by_kind, gates=gates, launches=counts, card=card)
+    for name, ok in gates.items():
+        check(ok, f"population: gate {name} failed")
+    return {a: r["seconds"] for a, r in arms.items()}
+
+
+def slice_real_data(dev, card: str, work_dir: str) -> dict:
+    """``scripts/torch_real_data_check.py --offline`` on the rows corpora
+    (clip768, imagenet12288) synthesized to disk under ``work_dir``: exit 0,
+    each report ``"data": "real"`` with ``"source": "synthesized-on-disk"``
+    and the loader's ``data_source``, its angle within [0, 90], and the
+    corpus's planted leading directions within the script's gate of the
+    fitted span. Nothing is fetched. Returns its kernel launches."""
+    import contextlib
+    import importlib.util
+    import io
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_real_data_check.py")
+    spec = importlib.util.spec_from_file_location("torch_real_data_check", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    data_dir = os.path.join(work_dir, "real_data")
+    out = io.StringIO()
+    rcs, seconds = [], {}
+    zero_counts()
+    zero_serve_counts()
+    for name in REAL_DATA_CONFIGS:  # one call a config: each one's wall seconds
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rcs.append(script.main([name, "--data-dir", data_dir, "--offline"]))
+        seconds[name] = time.perf_counter() - t0
+    counts = kernel_counts()
+    reports = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    emit("slice_real_data", configs=list(REAL_DATA_CONFIGS), rcs=rcs, seconds=seconds,
+         reports=[{k: r.get(k) for k in ("config", "dim", "k", "num_workers",
+                                          "rows_per_worker", "steps", "backend", "trainer",
+                                          "data", "source", "data_source",
+                                          "principal_angle_deg", "reference_angles_deg",
+                                          "samples_per_sec", "device")} for r in reports],
+         launches=counts, card=card)
+    check(rcs == [0] * len(REAL_DATA_CONFIGS), f"real_data: exit codes {rcs}")
+    check([r["config"] for r in reports] == list(REAL_DATA_CONFIGS),
+          f"real_data: reports {[r.get('config') for r in reports]}")
+    for r in reports:
+        check(r["data"] == "real" and r.get("source") == "synthesized-on-disk"
+              and "data_source" in r, f"real_data: {r['config']} provenance {r}")
+        check(0.0 <= r["principal_angle_deg"] <= 90.0,
+              f"real_data: {r['config']} angle {r['principal_angle_deg']}")
+        planted = r.get("reference_angles_deg", {}).get("planted_leading")
+        check(planted is not None and planted <= script.PLANTED_GATE_DEG,
+              f"real_data: {r['config']}'s planted leading {script.PLANTED_LEADING} "
+              f"directions {planted} deg outside the fit")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4334,6 +4765,9 @@ def main() -> int:
     # the churn fit's cold round (10 workers of mnist784's block) and one
     # batch of the dynamic round (fp32)
     cases += [(CHURN_GRAM, "bfloat16", 0), (DYN_GRAM, "float32", 0)]
+    # the scenario replays' fp32 Grams: the fit's block and a churn fit's or a
+    # two-tenant bucket's
+    cases += [(shape, "float32", 0) for shape in SCENARIO_GRAMS]
     cases += [(shape, "float32", offset) for shape, offset in F32_CASES]
     f32_kernels = set()
     for shape, dtype, offset in cases:
@@ -4589,6 +5023,28 @@ def main() -> int:
     for name, n in slice_evals(dev, card).items():
         s8_by_path[f"slice_evals {name} (run_eval, 3 repeats)"] = n
 
+    # 16.-19. the scenario layer: the real-data check and the population A/B
+    # (host numpy first, before the replays' threads), the replays at
+    # mnist784's width and the autoscaler A/B; then the serve kernels at the
+    # replays' buckets
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rd_", dir=build_dir) as work_dir:
+        s8_by_path["slice_real_data (clip768, synthesized on disk)"] = \
+            slice_real_data(dev, card, work_dir)["gram_s8"]
+    slice_population(dev, card)
+    f32_by_path = {"slice_entry (10 steps)": entry_launches,
+                   "slice_dynamic_round (16 batches at (1,1024,3072))": dyn_launches}
+    replays = {f"slice_scenario {name}": c for name, c in slice_scenario(dev, card).items()}
+    replays.update({f"slice_controller controller_day {arm}": c
+                    for arm, c in slice_controller(dev, card).items()})
+    for path, c in replays.items():
+        f32_by_path[path] = c["gram"] - c["gram_bf16_tma"]
+        serve_by_path["f32"][path] = c["serve_f32"]
+        if c["gram_bf16_tma"]:
+            bf16_by_path[path] = c["gram_bf16_tma"]
+    scenario_serve_err = parity_serve(dev, SCENARIO_SERVE, "parity_serve_scenario")
+    for route, err in scenario_serve_err.items():
+        serve_err[route] = max(serve_err[route], err)
+
     def row(name, shape, dtype, launches, also=()):
         t = timing[(shape, dtype)]
         return {"name": name, "route": "cuda", "source": GRAM_SOURCE,
@@ -4625,11 +5081,9 @@ def main() -> int:
         dict(row("gram_bf16", CIFAR, "bfloat16", sum(bf16_by_path.values()),
                  also=(MESH_RANK_BLOCK, TREE_RANK_BLOCK, FLEET_GRAM)),
              launches_by_path=bf16_by_path),
-        dict(row("gram_fp32", ENTRY, "float32", entry_launches + dyn_launches,
+        dict(row("gram_fp32", ENTRY, "float32", sum(f32_by_path.values()),
                  also=(CIFAR,)),
-             launches_by_path={"slice_entry (10 steps)": entry_launches,
-                               "slice_dynamic_round (16 batches at (1,1024,3072))":
-                                   dyn_launches}),
+             launches_by_path=f32_by_path),
         dict(s8_timing[CIFAR], name="gram_s8", route="cuda", source=S8_SOURCE,
              replaces=S8_REPLACES, replaces_note="no Pallas kernel: the XLA int32 einsum "
              "(ops/linalg.py:64-72), which gram_auto sends integer blocks to "
@@ -4643,7 +5097,8 @@ def main() -> int:
                            "fits take float blocks: none), mnist784 on one "
                            "device and on a "
                            "one-rank NCCL mesh, and on two gloo ranks (one call each), "
-                           "and the eval harness's runs (slice_evals)",
+                           "the eval harness's runs (slice_evals), and the real-data "
+                           "check's clip768 run (slice_real_data)",
              max_abs_err=s8_err, shape=list(CIFAR),
              kernel=" + ".join(la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)),
              kernels=[la.kernel for la in gram_mod.gram_s8_launch(*CIFAR)],

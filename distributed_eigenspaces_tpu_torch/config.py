@@ -163,6 +163,31 @@ class PCAConfig:
       cohort_size, max_poison_frac: the population merge
         (``parallel/clients.py``): contributions a cohort, and the declared
         Byzantine fraction, which is the merge's trim fraction.
+      population: size of the simulated transient client population that
+        ``runtime/population.py`` samples a cohort of ``cohort_size`` from
+        each round (``cohort_size`` must not exceed it); None disables the
+        population ingest.
+      min_participation_frac: a population round whose arrivals fall below
+        this fraction of the sampled cohort raises ``ParticipationLost``
+        (a ``QuorumLost``); ``population_fit`` waits a bounded time and
+        resumes.
+      replicas: serve-tier replica count: ``ReplicaRegistry`` readers
+        tailing one committed ``registry_dir`` (``serving/replication.py``).
+        Only the CLI reads it, so any value but 1 is refused until the CLI
+        is ported (ROADMAP.md Queue 1); a scenario takes its replica count
+        from its episode.
+      replica_staleness_ms: the declared propagation bound of a replica
+        (and the registry's retire grace window).
+      publisher_lease_ms: the single-writer publisher lease's duration; a
+        standby takes over an unrenewed lease at the next fencing epoch.
+      controller_window_s: the online autoscaler's observation window
+        (``runtime/controller.py``): at most one knob change a window, then
+        one window of hold before it is judged; None switches it off.
+      controller_max_actions: the autoscaler's budget of actions and
+        rollbacks; spent, it freezes with a ``budget_exhausted`` decision.
+      plan_path: path of a ``plan-v1`` JSON artifact, or None. Only the CLI
+        reads the file, so a path is validated, then refused until the CLI
+        is ported (ROADMAP.md Queue 1).
     """
 
     dim: int
@@ -213,6 +238,14 @@ class PCAConfig:
     fleet_slo_p99_ms: float | None = None
     cohort_size: int = 256
     max_poison_frac: float = 0.05
+    population: int | None = None
+    min_participation_frac: float = 0.5
+    replicas: int = 1
+    replica_staleness_ms: float = 500.0
+    publisher_lease_ms: float = 1000.0
+    controller_window_s: float | None = None
+    controller_max_actions: int = 8
+    plan_path: str | None = None
 
     def __post_init__(self):
         if self.discount not in ("1/T", "1/t", "notebook"):
@@ -291,6 +324,7 @@ class PCAConfig:
             )
         self._validate_serve()
         self._validate_fleet()
+        self._validate_control()
 
     def _validate_fleet(self) -> None:
         """The reference's checks of the fleet and cohort fields."""
@@ -328,6 +362,29 @@ class PCAConfig:
                 f"cohort_size must be an int >= 1, got "
                 f"{self.cohort_size!r}"
             )
+        if self.population is not None and (
+            not isinstance(self.population, int)
+            or isinstance(self.population, bool)
+            or self.population < 1
+        ):
+            raise ValueError(
+                f"population must be an int >= 1 or None, got "
+                f"{self.population!r}"
+            )
+        if self.population is not None and self.cohort_size > self.population:
+            raise ValueError(
+                f"cohort_size must not exceed population, got "
+                f"cohort_size={self.cohort_size} > "
+                f"population={self.population}"
+            )
+        if not isinstance(self.min_participation_frac, (int, float)) or (
+            isinstance(self.min_participation_frac, bool)
+            or not 0.0 < self.min_participation_frac <= 1.0
+        ):
+            raise ValueError(
+                f"min_participation_frac must be a fraction in (0, 1], "
+                f"got {self.min_participation_frac!r}"
+            )
         if not isinstance(self.max_poison_frac, (int, float)) or (
             isinstance(self.max_poison_frac, bool)
             or not 0.0 <= self.max_poison_frac < 0.5
@@ -336,6 +393,60 @@ class PCAConfig:
                 f"max_poison_frac must be a fraction in [0, 0.5), got "
                 f"{self.max_poison_frac!r} (trimming both α-tails past "
                 "half the cohort leaves nothing to average)"
+            )
+
+    def _validate_control(self) -> None:
+        """The reference's checks of the replica, lease, autoscaler and
+        plan fields."""
+        if not isinstance(self.replicas, int) or isinstance(
+            self.replicas, bool
+        ) or self.replicas < 1:
+            raise ValueError(
+                f"replicas must be an int >= 1, got {self.replicas!r}"
+            )
+        for ms_field in ("replica_staleness_ms", "publisher_lease_ms"):
+            ms = getattr(self, ms_field)
+            if not isinstance(ms, (int, float)) or isinstance(
+                ms, bool
+            ) or ms <= 0:
+                raise ValueError(
+                    f"{ms_field} must be a positive duration in ms, "
+                    f"got {ms!r}"
+                )
+        if self.controller_window_s is not None and (
+            not isinstance(self.controller_window_s, (int, float))
+            or isinstance(self.controller_window_s, bool)
+            or self.controller_window_s <= 0
+        ):
+            raise ValueError(
+                f"controller_window_s must be a positive duration in "
+                f"seconds or None, got {self.controller_window_s!r} "
+                "(None disables the online autoscaler)"
+            )
+        if not isinstance(self.controller_max_actions, int) or isinstance(
+            self.controller_max_actions, bool
+        ) or self.controller_max_actions < 1:
+            raise ValueError(
+                f"controller_max_actions must be an int >= 1, got "
+                f"{self.controller_max_actions!r} (to disable the "
+                "controller set controller_window_s=None instead)"
+            )
+        if self.plan_path is not None and (
+            not isinstance(self.plan_path, str) or not self.plan_path
+        ):
+            raise ValueError(
+                f"plan_path must be a non-empty path string or None, "
+                f"got {self.plan_path!r}"
+            )
+        # valid values that only the CLI reads: refused until it is ported,
+        # so that they are not accepted and silently ignored
+        if self.replicas != 1:
+            raise _not_ported(
+                "replicas (the CLI's serve tier)", "Queue 1 item 16 (cli.py)"
+            )
+        if self.plan_path is not None:
+            raise _not_ported(
+                "plan_path (the CLI reads the plan)", "Queue 1 item 16 (cli.py)"
             )
 
     def _validate_topology(self) -> None:

@@ -255,7 +255,18 @@ def _real_data(spec: EvalSpec, data_dir: str | None):
 
 def exact_top_k(data: np.ndarray, k: int) -> np.ndarray:
     """Exact top-k eigenspace of the (uncentered) covariance in float64:
-    the ground truth of evals on real data."""
+    the ground truth of evals on real data.
+
+    With fewer rows than features (an ingested corpus of a few thousand
+    rows at d=12288) the same eigenvectors come from the rows' side: those
+    of ``X X^T / n`` mapped back by ``X^T`` and normalized, an ``(n, n)``
+    problem in place of ``(d, d)``."""
+    n, d = data.shape
+    if n < d:
+        x = np.asarray(data, np.float64)
+        _, u = np.linalg.eigh((x @ x.T) / n)
+        v = x.T @ u[:, -k:][:, ::-1]
+        return (v / np.linalg.norm(v, axis=0)).astype(np.float32)
     g = (data.T @ data) / len(data)
     _, v = np.linalg.eigh(g.astype(np.float64))
     return v[:, -k:][:, ::-1].astype(np.float32)
@@ -294,6 +305,7 @@ def run_eval(
     device="cuda",
     blocks=None,
     v0=None,
+    reference_bases: dict | None = None,
     **overrides: Any,
 ) -> dict:
     """Run one eval config end to end on ``device``; returns the JSON-able
@@ -311,6 +323,11 @@ def run_eval(
     the port makes itself, so a test can hand it the reference's own (torch
     cannot reproduce ``jax.random``); omitted, they change nothing. The
     feature-sharded routes draw their starts from ``seed``.
+
+    ``reference_bases`` (name -> a ``(d, j)`` basis, ``j <= k``) adds
+    ``reference_angles_deg``: for each, the largest principal angle between
+    its span and the fit's, i.e. how far its worst direction lies outside
+    the fitted subspace (a synthesized corpus's planted leading directions).
     """
     from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
     from distributed_eigenspaces_tpu_torch.algo.step import make_train_step
@@ -744,10 +761,14 @@ def run_eval(
         if bin_path is not None:
             os.unlink(bin_path)
 
-    w = final_w(state)
-    angle = float(principal_angles_degrees(
-        w.detach().float().cpu(), torch.as_tensor(truth)).max())
+    w = final_w(state).detach().float().cpu()
+    angle = float(principal_angles_degrees(w, torch.as_tensor(truth)).max())
     report_extra = {}
+    if reference_bases:
+        report_extra["reference_angles_deg"] = {
+            key: round(float(principal_angles_degrees(w, torch.as_tensor(b)).max()), 4)
+            for key, b in reference_bases.items()
+        }
     # the headline samples/s is the median over the repeats, with the IQR
     # and the spread beside it
     dt = float(np.median(dts))

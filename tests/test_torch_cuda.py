@@ -35,7 +35,9 @@ with the CPU path to 1e-4 / 0.05 degrees, and the checkpointed estimator
 equals its scan fit bit for bit. A padded fleet of bf16 tenants makes one
 Gram launch for the whole fit and agrees with the CPU fleet to 1e-4 /
 0.05 degrees; ``FleetServer`` on the card serves a full and a deadline
-bucket equal to ``fit_fleet`` called directly.
+bucket equal to ``fit_fleet`` called directly. ``population_fit`` on the
+card lands within 0.01 degrees of its CPU run, and a ``ci_smoke`` replay on
+the card holds every gate with no plain kernel version called.
 """
 
 import sys
@@ -1084,3 +1086,61 @@ def test_supervised_step_on_card_matches_cpu(cuda_device, tmp_path):
     assert runs["cuda"][3] >= 2  # a cold round in each of the two processes
     assert float((runs["cuda"][1] - runs["cpu"][1]).abs().max()) <= 1e-4
     assert float(principal_angles_degrees(runs["cuda"][0], runs["cpu"][0]).max()) <= 0.05
+
+
+def test_population_fit_on_card_matches_cpu(cuda_device):
+    """``population_fit`` at the bench's population shape (d=64, k=4, cohort
+    256 of 100,000) under scaled poison, NaN submitters and a 90% outage
+    wave: the card's basis within 0.01 degrees of the CPU run's, the same
+    rounds, resumes and reject totals."""
+    from distributed_eigenspaces_tpu_torch.runtime.population import population_fit
+    from distributed_eigenspaces_tpu_torch.utils.faults import ClientChaosPlan
+
+    cfg = dett.PCAConfig(dim=64, k=4, num_workers=8, rows_per_worker=16, num_steps=8,
+                         backend="local", heartbeat_timeout_ms=100.0, population=100_000,
+                         cohort_size=256, min_participation_frac=0.5, max_poison_frac=0.08)
+    plan = ClientChaosPlan(dropout_frac=0.3, dropout_waves={4: 0.9}, straggler_frac=0.03,
+                           nan_frac=0.01, poison_frac=0.05, poison_scale=3.0)
+    runs = {dev: population_fit(cfg, plan=plan, participation_wait_s=5.0, device=dev)
+            for dev in ("cpu", "cuda")}
+    (w, info, _), (wc, infoc, _) = runs["cuda"], runs["cpu"]
+    for key in ("rounds", "resumes", "rejects"):
+        assert info[key] == infoc[key], key
+    assert info["resumes"] >= 1
+    assert float(principal_angles_degrees(torch.from_numpy(w), torch.from_numpy(wc)).max()) \
+        <= 0.01
+
+
+def test_ci_smoke_replay_on_card_passes_every_gate(cuda_device):
+    """The ``ci_smoke`` scenario replayed on the card: every hard gate true,
+    the fp32 serve kernel and a Gram kernel launched, no plain serve or Gram
+    version called."""
+    import os
+
+    from distributed_eigenspaces_tpu_torch.runtime.scenario import run_scenario
+
+    plain = []
+    saved = {name: getattr(mod, name) for mod, name in (
+        (tgram, "gram_plain"), (tgram, "gram_s8_plain"), (tsp, "serve_project_f32_plain"))}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            plain.append(name)
+            return fn(*a, **kw)
+        return call
+
+    before = (tsp.launches_f32, tgram.launches, tgram.launches_s8)
+    try:
+        for name, fn in saved.items():
+            setattr(tgram if "gram" in name else tsp, name, counted(name, fn))
+        verdict, ok = run_scenario(os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenarios",
+            "ci_smoke.json"))
+    finally:
+        for name, fn in saved.items():
+            setattr(tgram if "gram" in name else tsp, name, fn)
+    assert ok, verdict.get("scenario_fail")
+    assert all(verdict["gates"].values())
+    assert tsp.launches_f32 > before[0]
+    assert tgram.launches + tgram.launches_s8 > before[1] + before[2]
+    assert plain == []

@@ -20,6 +20,7 @@ from distributed_eigenspaces_tpu import evals as jevals
 from distributed_eigenspaces_tpu.analysis.hlo import ici_step_model as jici_step_model
 from distributed_eigenspaces_tpu.data.mnist import write_idx
 from distributed_eigenspaces_tpu_torch import evals
+from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel import worker_pool
 
@@ -125,6 +126,16 @@ def test_mnist784_real_data(tmp_path):
 def test_exact_top_k_is_the_references():
     x = np.random.default_rng(2).standard_normal((300, 24)).astype(np.float32)
     np.testing.assert_array_equal(evals.exact_top_k(x, 5), jevals.exact_top_k(x, 5))
+
+
+def test_exact_top_k_from_the_rows_side_spans_the_references():
+    # fewer rows than features: the (n, n) problem, the reference's (d, d) one
+    x = np.random.default_rng(3).standard_normal((40, 300)).astype(np.float32)
+    got, want = evals.exact_top_k(x, 6), jevals.exact_top_k(x, 6)
+    assert got.shape == want.shape == (300, 6) and got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=0), 1.0, rtol=1e-6)
+    assert float(principal_angles_degrees(torch.as_tensor(got),
+                                          torch.as_tensor(want)).max()) <= 1e-3
 
 
 def test_run_eval_raises_without_a_card(monkeypatch):

@@ -75,6 +75,15 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.utils.guards\n"
         "import distributed_eigenspaces_tpu_torch.serving.drift\n"
         "import distributed_eigenspaces_tpu_torch.parallel.fleet\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.tiers\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.population\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.controller\n"
+        "import distributed_eigenspaces_tpu_torch.runtime.scenario\n"
+        "from distributed_eigenspaces_tpu_torch.runtime import (\n"
+        "    ScenarioRunner, ScenarioSpec, build_schedule, load_spec, run_scenario)\n"
+        "import runpy\n"
+        "for script in ('torch_scenario', 'torch_real_data_check'):\n"
+        "    runpy.run_path(f'scripts/{script}.py', run_name='imported')\n"
         "from distributed_eigenspaces_tpu_torch.runtime.supervisor import (\n"
         "    Supervisor, supervised_fit)\n"
         "from distributed_eigenspaces_tpu_torch.runtime.membership import (\n"
@@ -177,6 +186,26 @@ def test_feature_sharded_entry_points_raise_without_a_card(monkeypatch):
         dett.OnlineDistributedPCA(cfg).fit(data)
     with pytest.raises(RuntimeError, match="cuda"):
         dett.OnlineDistributedPCA(cfg, trainer="sketch").fit(data)
+
+
+def test_scenario_entry_points_raise_without_a_card(monkeypatch):
+    """The scenario replay and the population fit default to the card: a
+    machine without one raises before any thread starts."""
+    from distributed_eigenspaces_tpu_torch.runtime.population import population_fit
+    from distributed_eigenspaces_tpu_torch.runtime.scenario import (
+        ScenarioRunner,
+        load_spec,
+        run_scenario,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = load_spec(str(ROOT / "scenarios" / "ci_smoke.json"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ScenarioRunner(spec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_scenario(spec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        population_fit(PCAConfig(dim=16, k=2, population=100, cohort_size=8))
 
 
 def test_supervised_entry_points_raise_without_a_card(monkeypatch):
