@@ -4710,6 +4710,334 @@ def slice_real_data(dev, card: str, work_dir: str) -> dict:
     return counts
 
 
+# -- the command line (distributed_eigenspaces_tpu_torch/cli.py) -------------------
+# CIFAR-10's own size: five batches of 10,000 rows of 3072 bytes, written here
+# in CIFAR's pickle format with two planted pixel patterns (a clean top-2)
+CLI_CIFAR_BATCHES, CLI_CIFAR_ROWS = 5, 10_000
+# the README's first command (README.md:117-118), --rgb (3072 wide)
+CLI_README = ["--mode", "fit", "--rank", "2", "--workers", "10", "--steps", "10",
+              "--metrics", "--rgb"]
+CLI_README_DEG = 0.01  # its --save against the estimator's fit of the same rows
+
+
+def _cli_spec_args(name: str) -> list:
+    """An eval spec's widths and solver settings as CLI flags (the CLI has no
+    --stage-dtype: its fits stage in the compute dtype)."""
+    fit = spec_fit(name)
+    return ["--dim", str(fit["dim"]), "--rank", str(fit["k"]),
+            "--workers", str(fit["num_workers"]),
+            "--rows-per-worker", str(fit["rows_per_worker"]),
+            "--solver", fit["solver"], "--subspace-iters", str(fit["subspace_iters"]),
+            "--warm-start-iters", str(fit["warm_start_iters"]),
+            "--warm-orth-method", fit["warm_orth_method"],
+            "--compute-dtype", fit["compute_dtype"]]
+
+
+# --mode serve at the cifar10 eval's widths (d=3072, k=10, m=8, n=1024, T=20)
+CLI_SERVE = (["--mode", "serve", "--data", "synthetic", "--steps", "20"]
+             + _cli_spec_args("cifar10"))
+# --mode fleet at mnist784's widths, 8 tenants; depth cut to 10 steps (the
+# host staging of 8 tenants' rows is most of the run)
+CLI_FLEET = (["--mode", "fleet", "--data", "synthetic", "--steps", "10", "--fleet-size", "8",
+              "--prewarm"] + _cli_spec_args("mnist784"))
+CLI_ONESHOT = ["--mode", "oneshot", "--data", "synthetic", "--dim", "3072", "--rank", "10",
+               "--workers", "8", "--rows-per-worker", "1024", "--steps", "1"]
+CLI_SERVE_DEG = 0.2  # bf16 / int8 served rows against fp32 (the serve budget)
+#: the kernel wrappers slice_cli records the calls of, by module
+CLI_WRAPPERS = (("gram", "gram_cuda"), ("gram", "gram_s8_cuda"),
+                ("serve_project", "serve_project_cuda"),
+                ("serve_project", "serve_project_i8_cuda"),
+                ("serve_project", "serve_project_f32_cuda"),
+                ("matvec_gram", "matvec_gram_cuda"))
+
+
+def cli_cifar_dir(path: str) -> None:
+    """CIFAR-10's five training batches at their own size, as pickles of
+    uint8 rows: 128 plus two sign patterns (standard deviations 40 and 20
+    grey levels) plus noise of 4, from numpy seed 11."""
+    import pickle
+
+    import numpy as np
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(11)
+    signs = rng.choice(np.float32([-1.0, 1.0]), size=(2, 3072))
+    for b in range(CLI_CIFAR_BATCHES):
+        z = rng.standard_normal((CLI_CIFAR_ROWS, 2), dtype=np.float32) * np.float32([40, 20])
+        x = 128.0 + z @ signs + 4.0 * rng.standard_normal((CLI_CIFAR_ROWS, 3072),
+                                                         dtype=np.float32)
+        batch = {b"data": np.clip(np.rint(x), 0, 255).astype(np.uint8),
+                 b"filenames": [b"img_%d_%d.png" % (b, i) for i in range(CLI_CIFAR_ROWS)],
+                 b"labels": [i % 10 for i in range(CLI_CIFAR_ROWS)]}
+        with open(os.path.join(path, f"data_batch_{b + 1}"), "wb") as f:
+            pickle.dump(batch, f)
+
+
+def recorded_wrappers(calls: list):
+    """Wrap every kernel wrapper of ``CLI_WRAPPERS`` so that each call lands
+    in ``calls`` as ``(name, ((shape, dtype), ...))``; returns the undo."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for mod_name, fn_name in CLI_WRAPPERS:
+        mod = importlib.import_module(f"distributed_eigenspaces_tpu_torch.ops.{mod_name}")
+        fn = getattr(mod, fn_name)
+
+        def wrapped(*a, _fn=fn, _name=fn_name, **kw):
+            calls.append((_name, tuple((tuple(t.shape), str(t.dtype)) for t in a
+                                       if isinstance(t, torch.Tensor))))
+            return _fn(*a, **kw)
+
+        setattr(mod, fn_name, wrapped)
+        saved.append((mod, fn_name, fn))
+
+    def undo():
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+    return undo
+
+
+def cli_run(argv: list, what: str) -> tuple[int, dict | None, str]:
+    """``cli.main(argv)`` in this process, its stdout and stderr captured:
+    ``(exit code, the last JSON line of stdout, stderr)``."""
+    import contextlib
+    import io
+
+    from distributed_eigenspaces_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    emit("slice_cli_run", run=what, argv=" ".join(argv), exit=rc,
+         seconds=time.perf_counter() - t0)
+    return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
+
+
+def cli_parity(dev, calls: list) -> dict:
+    """Every distinct call the CLI runs made, held against the kernel's plain
+    version on fresh operands of its shapes: the Gram calls here, the serve
+    calls through ``parity_serve``. Returns the worst errors by route."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops import gram as gram_mod
+
+    worst = {"gram_fp32": 0.0, "gram_bf16": 0.0, "gram_s8": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for name, args in sorted(set(c for c in calls if c[0].startswith("gram"))):
+        (shape, dtype), = args[:1]
+        if name == "gram_s8_cuda":
+            x = int8_block(shape, gen, dev)
+            got, want = gram_mod.gram_s8_cuda(x), gram_mod.gram_s8_plain(x)
+            route, tol = "gram_s8", 0.0  # exact int32 sums, as parity_gram_s8 holds
+        else:
+            x = torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype[6:]))
+            got, want = gram_mod.gram_cuda(x), gram_mod.gram_plain(x)
+            route = "gram_bf16" if x.dtype == torch.bfloat16 else "gram_fp32"
+            tol = TOL[dtype[6:]]
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        err = float((got - want).abs().max().item())
+        worst[route] = max(worst[route], err)
+        emit("parity_cli_gram", kernel=name, shape=list(shape), dtype=dtype,
+             rel_frobenius=rel, max_abs_err=err, tol=tol)
+        check(rel <= tol, f"slice_cli: {name} {shape} {dtype}: {rel} > {tol}")
+        del x, got, want
+    # (rows, d, k) of each serve call: x is (rows, d), the basis (d, k)
+    shapes = sorted({(*args[0][0], args[1][0][1]) for name, args in calls
+                     if name.startswith("serve")})
+    worst.update(parity_serve(dev, tuple(shapes), "parity_serve_cli"))
+    check(not any(n == "matvec_gram_cuda" for n, _ in calls),
+          "slice_cli: a fused sweep launched (no run here takes the distributed solve)")
+    return worst
+
+
+def slice_cli(dev, card: str, work_dir: str) -> dict:
+    """The port's command line on the card at full width, ``cli.main`` in this
+    process with the launch counters set to 0 just before each run and read
+    just after: the README's first command on a CIFAR-10-size directory
+    against the estimator's fit of the same rows; --mode serve at the
+    cifar10 eval's widths in fp32, bf16 (through --registry-dir and
+    --replicas 2) and int8; --mode fleet at mnist784's widths; --mode oneshot
+    at d=3072; the refusals; then the cold/warm pair of processes over one
+    fresh --compile-cache directory. Every kernel call of the in-process runs
+    is held against its plain version at its shapes. Returns the launches by
+    route and run."""
+    import numpy as np
+    import torch
+
+    from distributed_eigenspaces_tpu_torch.api.estimator import OnlineDistributedPCA
+    from distributed_eigenspaces_tpu_torch.config import PCAConfig
+    from distributed_eigenspaces_tpu_torch.data.cifar import load_cifar10
+    from distributed_eigenspaces_tpu_torch.data.synthetic import (
+        planted_spectrum,
+        sample_prefix_stable,
+    )
+    from distributed_eigenspaces_tpu_torch.ops import serve_project as sp
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+
+    def deg(a, b) -> float:
+        return float(principal_angles_degrees(torch.as_tensor(a).float().cpu(),
+                                              torch.as_tensor(b).float().cpu()).max())
+
+    launches: dict = {}
+    calls: list = []
+
+    def counted(argv, what):
+        plain: list = []
+        undo_plain, undo_rec = counted_plain(plain), recorded_wrappers(calls)
+        zero_counts()
+        zero_serve_counts()
+        try:
+            rc, out, err = cli_run(argv, what)
+        finally:
+            undo_rec()
+            undo_plain()
+        launches[what] = kernel_counts()
+        check(not plain, f"slice_cli {what}: plain versions ran on the card: {plain}")
+        return rc, out, err
+
+    # 1. the README's first command on CIFAR-10-size batches
+    cifar = os.path.join(work_dir, "cifar-10-batches-py")
+    t0 = time.perf_counter()
+    cli_cifar_dir(cifar)
+    write_s = time.perf_counter() - t0
+    readme_w = os.path.join(work_dir, "readme_w.npy")
+    rc, out, _ = counted(CLI_README + ["--data", cifar, "--checkpoint-dir",
+                                       os.path.join(work_dir, "ckpt"), "--save", readme_w],
+                         "readme fit")
+    check(rc == 0 and out["steps"] == 10, f"slice_cli readme fit: exit {rc}, {out}")
+    rows, _ = load_cifar10(cifar, grayscale=False)
+    cfg = PCAConfig(dim=3072, k=2, num_workers=10, rows_per_worker=len(rows) // 100,
+                    num_steps=10)
+    api_w = OnlineDistributedPCA(cfg, device=dev).fit(rows).components_
+    readme_deg = deg(np.load(readme_w), api_w)
+    emit("slice_cli", part="readme", rows=int(len(rows)), write_s=write_s,
+         cli_vs_api_deg=readme_deg, tol=CLI_README_DEG, launches=launches["readme fit"],
+         card=card)
+    check(readme_deg <= CLI_README_DEG,
+          f"slice_cli readme: {readme_deg} deg from the API fit > {CLI_README_DEG}")
+    del rows, api_w
+
+    # 2. --mode serve at the cifar10 eval's widths, one run a serve dtype
+    spec_args = CLI_SERVE[CLI_SERVE.index("--dim"):]
+    served = {}
+    for dt in ("float32", "bfloat16", "int8"):
+        argv = CLI_SERVE + ["--serve-dtype", dt,
+                            "--save", os.path.join(work_dir, f"serve_{dt}.npy")]
+        if dt == "bfloat16":
+            argv += ["--registry-dir", os.path.join(work_dir, "registry"), "--replicas", "2"]
+        if dt != "float32":  # a quantized engine's buckets launched before the burst
+            argv += ["--prewarm"]
+        rc, out, _ = counted(argv, f"serve {dt}")
+        check(rc == 0 and out["max_abs_err_vs_direct"] == 0.0,
+              f"slice_cli serve {dt}: exit {rc}, served vs direct "
+              f"{out and out['max_abs_err_vs_direct']}")
+        check(dt == "float32" or (out["compile_misses"] == 0
+                                  and out["compile_stall_ms"] == 0.0),
+              f"slice_cli serve {dt}: the prewarmed burst acquired {out['compile_misses']}")
+        served[dt] = out
+    v = torch.as_tensor(np.load(os.path.join(work_dir, "serve_float32.npy"))).to(dev)
+    # the burst's rows (cli._serve_cli's queries), each dtype's direct
+    # projection: the CLI's exit 0 says its served rows equal these bit for bit
+    dim, steps = 3072, 20
+    spec = planted_spectrum(dim, k_planted=10, gap=20.0, noise=0.01, seed=0)
+    data = sample_prefix_stable(spec, 8 * 1024 * steps, seed=1, device=dev)
+    q = torch.cat([data[(i * 8) % (len(data) - 8):][:8] for i in range(64)]).contiguous()
+    del data
+    z32 = sp.project_exact(q, v)
+    angles = {}
+    for dt in ("bfloat16", "int8"):
+        vq = torch.as_tensor(np.load(os.path.join(work_dir, f"serve_{dt}.npy"))).to(dev)
+        z = (sp.serve_project_auto(q, vq.contiguous()) if dt == "bfloat16"
+             else sp.serve_project_i8_auto(q, *sp.quantize_basis_i8(vq.contiguous())))
+        angles[dt] = float(row_angles_deg(z, z32).max())
+    emit("slice_cli", part="serve", widths=" ".join(spec_args),
+         runs={dt: {key: served[dt].get(key) for key in (
+             "fit_seconds", "serve_seconds", "qps", "p50_latency_s", "p99_latency_s",
+             "compile_misses", "compile_stall_ms", "principal_angle_deg", "replicas")}
+             for dt in served},
+         served_rows_vs_fp32_deg=angles, tol=CLI_SERVE_DEG,
+         launches={dt: launches[f"serve {dt}"] for dt in served}, card=card)
+    for dt, a in angles.items():
+        check(a <= CLI_SERVE_DEG, f"slice_cli serve {dt}: rows {a} deg from fp32")
+    check(served["bfloat16"]["replicas"] == 2, "slice_cli: the replicated run")
+    check(launches["serve float32"]["serve_f32"] >= 8
+          and launches["serve bfloat16"]["serve_bf16"] >= 8
+          and launches["serve int8"]["serve_i8"] >= 8,
+          f"slice_cli serve launches: {[launches[f'serve {d}'] for d in served]}")
+    del q, z32, v
+
+    # 3. --mode fleet at mnist784's widths and --mode oneshot at d=3072
+    rc, out, _ = counted(CLI_FLEET, "fleet")
+    check(rc == 0 and out["prewarmed"] is True and out["principal_angle_deg_max"] <= 1.0,
+          f"slice_cli fleet: exit {rc}, {out}")
+    emit("slice_cli", part="fleet", out=out, launches=launches["fleet"], card=card)
+    rc, out, _ = counted(CLI_ONESHOT + ["--save", os.path.join(work_dir, "oneshot.npy")],
+                         "oneshot")
+    one_deg = deg(np.load(os.path.join(work_dir, "oneshot.npy")),
+                  planted_spectrum(3072, k_planted=10, gap=20.0, noise=0.01,
+                                   seed=0).top_k(10))
+    emit("slice_cli", part="oneshot", out=out, planted_deg=one_deg,
+         launches=launches["oneshot"], card=card)
+    check(rc == 0 and one_deg <= 1.0, f"slice_cli oneshot: exit {rc}, {one_deg} deg")
+    for what, c in launches.items():
+        check(c["gram"] + c["gram_s8"] >= 1, f"slice_cli {what}: no Gram launch")
+
+    # 4. the refusals
+    for argv in (["--plan", "x"], ["--mode", "slave"]):
+        rc, out, err = cli_run(argv, "refusal")
+        check(rc == 2 and out is None, f"slice_cli {argv}: exit {rc}")
+
+    # 5. every kernel call above against its plain version
+    worst = cli_parity(dev, calls)
+
+    # 6. the cold/warm pair: two processes, one fresh --compile-cache dir
+    cache = os.path.join(work_dir, "compile_cache")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    pair = []
+    for i in (1, 2):
+        save = os.path.join(work_dir, f"cold_warm_{i}.npy")
+        argv = [sys.executable, "-m", "distributed_eigenspaces_tpu_torch.cli", *CLI_SERVE,
+                "--compile-cache", cache, "--prewarm", "--save", save]
+        t_launch = time.time()
+        proc = subprocess.run(argv, capture_output=True, text=True, cwd=root, env=env,
+                              timeout=600)
+        wall = time.time() - t_launch
+        check(proc.returncode == 0, f"slice_cli process {i}: exit {proc.returncode}\n"
+                                    f"{proc.stderr[-3000:]}")
+        out = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+        [life] = [json.loads(ln)["compile_lifecycle"] for ln in proc.stderr.splitlines()
+                  if ln.startswith('{"compile_lifecycle"')]
+        pair.append({"out": out, "life": life, "wall_s": wall, "save": save,
+                     "first_result_s": life["first_result_unix"] - t_launch})
+    cold, warm = pair
+    bit_equal = bool(np.array_equal(np.load(cold["save"]), np.load(warm["save"])))
+    record = {
+        name: {"first_result_s": p["first_result_s"], "process_wall_s": p["wall_s"],
+               "nvcc_runs": p["life"]["nvcc_runs"], "nvcc_seconds": p["life"]["nvcc_seconds"],
+               "fit_seconds": p["out"]["fit_seconds"],
+               "compile_stall_ms": p["out"]["compile_stall_ms"],
+               "compile_cache": p["out"]["compile_cache"], "prewarm": p["out"]["prewarm"]}
+        for name, p in (("cold", cold), ("warm", warm))}
+    print(f"slice_cli cold/warm pair: first served result {cold['first_result_s']:.3f} s "
+          f"cold, {warm['first_result_s']:.3f} s warm ({card})", flush=True)
+    emit("slice_cli", part="cold_warm", **record, components_bit_equal=bit_equal, card=card)
+    check(cold["life"]["nvcc_runs"] >= 1, "slice_cli: the cold process built nothing")
+    check(warm["life"]["nvcc_runs"] == 0, f"slice_cli: the warm process ran nvcc {warm['life']}")
+    wcc = warm["out"]["compile_cache"]
+    check(wcc["disk_hits"] >= 1 and wcc["misses"] == 0 and wcc["fallbacks"] == 0,
+          f"slice_cli: the warm process's cache {wcc}")
+    check(warm["out"]["compile_stall_ms"] == 0.0 and warm["out"]["compile_misses"] == 0,
+          "slice_cli: the warm process's first request stalled")
+    check(bit_equal, "slice_cli: the warm process's components differ from the cold one's")
+    return {"launches": launches, "worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -5044,6 +5372,22 @@ def main() -> int:
     scenario_serve_err = parity_serve(dev, SCENARIO_SERVE, "parity_serve_scenario")
     for route, err in scenario_serve_err.items():
         serve_err[route] = max(serve_err[route], err)
+
+    # 20. the command line: the README's command, the serve dtypes, the fleet,
+    # the one-shot round and the cold/warm pair over one compile cache
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=build_dir) as work_dir:
+        cli_phase = slice_cli(dev, card, work_dir)
+    for what, c in cli_phase["launches"].items():
+        path = f"slice_cli {what}"
+        for by_path, n in ((f32_by_path, c["gram"] - c["gram_bf16_tma"]),
+                           (bf16_by_path, c["gram_bf16_tma"]), (s8_by_path, c["gram_s8"])):
+            if n:
+                by_path[path] = n
+        for route, key in (("f32", "serve_f32"), ("bf16", "serve_bf16"), ("i8", "serve_i8")):
+            if c[key]:
+                serve_by_path[route][path] = c[key]
+    for route in ("bf16", "i8", "f32"):
+        serve_err[route] = max(serve_err[route], cli_phase["worst"][route])
 
     def row(name, shape, dtype, launches, also=()):
         t = timing[(shape, dtype)]

@@ -22,7 +22,7 @@ facts:
   runs on the CPU as on the card.
 
 Collective schedules, sharding contracts, baked constants and the cost model
-are not checked here yet (ROADMAP Queue 1 item 17 says what each waits for).
+are not checked here yet (ROADMAP Queue 1 item 17b says what each waits for).
 Checkers return :class:`Violation` records, never raise on a breach; the
 report aggregates and formats them.
 

@@ -16,7 +16,8 @@ the buffers one call of it materialized (:func:`trace_buffers`) and the
   ``interpret=True``: the blocks, not the execution.
 
 The scan, tree, fleet, feature-sharded, dist and deflation programs of the
-JAX matrix wait for the multi-device slice (ROADMAP Queue 1 item 17).
+JAX matrix wait for ROADMAP Queue 1 item 17b (the multi-device trainers
+they read are ported).
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ Counterpart of ``distributed_eigenspaces_tpu/analysis/report.py``:
 - :func:`run_mutation_report` — the self-test (:mod:`.mutations`).
 
 Both run on ``device="cuda"`` unless the caller asks for the CPU, and raise
-without a card. ``engine_report`` waits for the port's ``MetricsLogger``
-(ROADMAP Queue 1 item 17).
+without a card. ``engine_report`` waits for ROADMAP Queue 1 item 17b (the port's
+``MetricsLogger`` is ready for it).
 """
 
 from __future__ import annotations

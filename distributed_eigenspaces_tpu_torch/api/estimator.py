@@ -28,6 +28,11 @@ Each rank holds its rows of the state; ``components_`` is the whole
 ``(d, k)`` basis on every rank; ``cfg.collectives="ring"`` runs their
 switchable reductions over explicit rings (``parallel/ring.py``).
 
+``cfg.compile_cache_dir`` acquires the one-device scan fit, its extraction
+and ``transform``'s bucket programs through the persistent compile cache
+(``utils/compile_cache.py``), as the reference does; a mesh fit stays on the
+direct path.
+
 ``cfg.merge_topology`` makes every merge of the dense trainers the stacked
 tree of ``parallel/topology.py`` (on one device and on the workers mesh
 alike); ``cfg.merge_wire_dtype`` has no effect there (the stacked route
@@ -252,6 +257,33 @@ class OnlineDistributedPCA:
         #: the sketch trainer of the last sketch fit, kept for its online
         #: continuation (``fit_stream`` / ``partial_fit``)
         self._sketch_fit = None
+        #: transform buckets backed by the persistent compile cache (built
+        #: lazily when cfg.compile_cache_dir is set)
+        self._transform_engine = None
+
+    def _compile_cache(self):
+        """The persistent store for ``cfg.compile_cache_dir``, or None
+        (``utils.compile_cache.compile_cache_for``: one a directory)."""
+        from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+            compile_cache_for,
+        )
+
+        return compile_cache_for(self.cfg)
+
+    def _cache_key(self, kind: str, shape: tuple, dtype):
+        """A compile-cache key of this estimator's programs: ``shape``, the
+        seed, the starts the closures hold, and the device in the
+        signature; the config's program knobs."""
+        from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+            config_knobs,
+            make_key,
+            start_digest,
+        )
+
+        starts = (self.cfg.seed, start_digest(self.v0), start_digest(self.v_init),
+                  str(self.device))
+        return make_key(kind, (*shape, starts), dtype, knobs=config_knobs(self.cfg),
+                        device=self.device)
 
     # -- fitting ------------------------------------------------------------
 
@@ -411,11 +443,30 @@ class OnlineDistributedPCA:
             filled += 1
         if filled != steps:
             raise RuntimeError(f"staged {filled} steps, counted {steps}")
-        fit = make_scan_fit(cfg, mesh=mesh, device=self.device, v0=self.v0,
-                            v_init=self.v_init, masked=masks is not None)
+        def build():
+            return make_scan_fit(cfg, mesh=mesh, device=self.device, v0=self.v0,
+                                 v_init=self.v_init, masked=masks is not None)
+
+        cc = self._compile_cache()
+        if cc is not None and mesh is None:
+            # the one-device scan acquired through the persistent store (a
+            # mesh fit stays on the direct path, as the reference's)
+            from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+                fit_libraries,
+            )
+
+            key = self._cache_key(
+                "scan_fit", (cfg.dim, cfg.k, cfg.num_workers, cfg.rows_per_worker,
+                             steps, masks is not None),
+                staged.dtype)
+            fit = cc.get_or_build(
+                key, build,
+                libraries=fit_libraries(cfg) if self.device.type == "cuda" else ())
+        else:
+            fit = build()
         state0 = OnlineState.initial(cfg.dim, cfg.state_dtype, device=self.device)
         state, _ = fit(state0, staged) if masks is None else fit(state0, staged, masks)
-        return self._finish_dense(state)
+        return self._finish_dense(state, cached=mesh is None)
 
     def _fit_segmented(self, data, masks) -> "OnlineDistributedPCA":
         """The segmented fit over windows of ``segment`` steps (clamped to
@@ -452,7 +503,8 @@ class OnlineDistributedPCA:
             source.close()
         if int(state.step) == 0:
             raise ValueError("dataset yielded zero full steps")
-        return self._finish_dense(OnlineState(state.sigma_tilde, state.step))
+        return self._finish_dense(OnlineState(state.sigma_tilde, state.step),
+                                  cached=mesh is None)
 
     def _fit_fleet(self, data, masks) -> "OnlineDistributedPCA":
         """The solo fit as a one-tenant fleet program on this estimator's
@@ -469,9 +521,22 @@ class OnlineDistributedPCA:
         self._w = torch.from_numpy(res.components[0]).to(self.device)
         return self
 
-    def _finish_dense(self, state: OnlineState) -> "OnlineDistributedPCA":
+    def _finish_dense(self, state: OnlineState, cached: bool = False) -> "OnlineDistributedPCA":
+        """Keep ``state`` and extract its basis; ``cached`` (a one-device
+        fit) acquires the extraction through the compile cache when one is
+        configured, the same ``extract_dense`` either way."""
         self.state = state
-        self._w = extract_dense(self.cfg, state.sigma_tilde, v0=self.v0)
+        cfg = self.cfg
+        cc = self._compile_cache() if cached else None
+        if cc is None:
+            self._w = extract_dense(cfg, state.sigma_tilde, v0=self.v0)
+            return self
+        v0 = self.v0
+        extract = cc.get_or_build(
+            self._cache_key("scan_extract", (cfg.dim, cfg.k), state.sigma_tilde.dtype),
+            lambda: (lambda sigma: extract_dense(cfg, sigma, v0=v0)),
+        )
+        self._w = extract(state.sigma_tilde)
         return self
 
     def _fit_feature_sharded(self, data, trainer: str, masks) -> "OnlineDistributedPCA":
@@ -693,6 +758,23 @@ class OnlineDistributedPCA:
                 x = x.detach().float().cpu().numpy()
             z = serve.submit(np.asarray(x, np.float32)).result().z
             return torch.from_numpy(z[0] if np.ndim(x) == 1 else z).to(self.device)
+        cc = self._compile_cache()
+        if cc is not None:
+            # bucket programs backed by the persistent store
+            # (serving/transform.py): padding leaves every row's bits as the
+            # direct projection below computes them, so the knob changes
+            # first-call latency, never results
+            if self._transform_engine is None:
+                from distributed_eigenspaces_tpu_torch.serving.transform import (
+                    TransformEngine,
+                )
+
+                self._transform_engine = TransformEngine(
+                    d, int(w.shape[1]), dtype=self.cfg.dtype, cache=cc,
+                    device=self.device,
+                )
+            z = self._transform_engine.project(x if np.ndim(x) == 2 else x[None], w)
+            return z[0] if np.ndim(x) == 1 else z
         x = torch.as_tensor(x).to(device=self.device, dtype=torch_dtype(self.cfg.dtype))
         return project_exact(x, w)
 

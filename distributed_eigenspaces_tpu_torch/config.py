@@ -36,6 +36,11 @@ def _is_integer_dtype(dtype) -> bool:
         return False
 
 
+#: the ROADMAP.md item the planner (``plan_path``, the CLI's ``--plan``)
+#: waits for
+PLANNER_ITEM = "Queue 1 item 17b (analysis/planner.py)"
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to distributed_eigenspaces_tpu_torch yet "
@@ -150,7 +155,11 @@ class PCAConfig:
       min_quorum_frac: below this live fraction of ``num_workers`` an
         elastic round raises ``QuorumLost``; ``supervised_fit`` waits for
         quorum and resumes from the newest checkpoint.
-      compile_cache_dir: must stay None in this port (ROADMAP.md).
+      compile_cache_dir: root of the persistent compile cache
+        (``utils/compile_cache.py``): kernel libraries under
+        ``<dir>/kernels``, acquired-program entries under
+        ``<dir>/programs``, so a second process with the same signatures
+        loads its kernels instead of building them. None: no persistence.
       fleet_bucket_size, fleet_flush_s: a ``parallel.fleet.FleetServer``
         bucket dispatches when it holds this many fit requests, or when
         its oldest request has waited this long (padded with inactive
@@ -173,9 +182,8 @@ class PCAConfig:
         resumes.
       replicas: serve-tier replica count: ``ReplicaRegistry`` readers
         tailing one committed ``registry_dir`` (``serving/replication.py``).
-        Only the CLI reads it, so any value but 1 is refused until the CLI
-        is ported (ROADMAP.md Queue 1); a scenario takes its replica count
-        from its episode.
+        The CLI's serve mode reads it (``--replicas``); a scenario takes its
+        replica count from its episode.
       replica_staleness_ms: the declared propagation bound of a replica
         (and the registry's retire grace window).
       publisher_lease_ms: the single-writer publisher lease's duration; a
@@ -185,9 +193,9 @@ class PCAConfig:
         one window of hold before it is judged; None switches it off.
       controller_max_actions: the autoscaler's budget of actions and
         rollbacks; spent, it freezes with a ``budget_exhausted`` decision.
-      plan_path: path of a ``plan-v1`` JSON artifact, or None. Only the CLI
-        reads the file, so a path is validated, then refused until the CLI
-        is ported (ROADMAP.md Queue 1).
+      plan_path: path of a ``plan-v1`` JSON artifact, or None. The planner
+        reads the file, so a path is validated, then refused until
+        ``analysis/planner.py`` is ported (ROADMAP.md Queue 1 item 17b).
     """
 
     dim: int
@@ -438,16 +446,10 @@ class PCAConfig:
                 f"plan_path must be a non-empty path string or None, "
                 f"got {self.plan_path!r}"
             )
-        # valid values that only the CLI reads: refused until it is ported,
-        # so that they are not accepted and silently ignored
-        if self.replicas != 1:
-            raise _not_ported(
-                "replicas (the CLI's serve tier)", "Queue 1 item 16 (cli.py)"
-            )
+        # a valid plan path is refused until the planner is ported, so that
+        # it is not accepted and silently ignored
         if self.plan_path is not None:
-            raise _not_ported(
-                "plan_path (the CLI reads the plan)", "Queue 1 item 16 (cli.py)"
-            )
+            raise _not_ported("plan_path (the plan artifact)", PLANNER_ITEM)
 
     def _validate_topology(self) -> None:
         """The reference's checks and normal forms of ``merge_topology`` and
@@ -695,15 +697,12 @@ class PCAConfig:
                 f"serve_slo_p99_ms must be a positive latency in ms or "
                 f"None, got {slo!r}"
             )
-        if self.compile_cache_dir is not None:
-            if not isinstance(self.compile_cache_dir, str):
-                raise ValueError(
-                    f"compile_cache_dir must be a path string or None, "
-                    f"got {self.compile_cache_dir!r}"
-                )
-            raise _not_ported(
-                "compile_cache_dir (the persistent compile cache)",
-                "Queue 1 item 16 (utils/compile_cache.py)",
+        if self.compile_cache_dir is not None and not isinstance(
+            self.compile_cache_dir, str
+        ):
+            raise ValueError(
+                f"compile_cache_dir must be a path string or None, "
+                f"got {self.compile_cache_dir!r}"
             )
 
     def resolved_warm_start(self) -> int | None:

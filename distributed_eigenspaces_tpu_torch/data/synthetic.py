@@ -6,15 +6,20 @@ Counterpart of ``planted_spectrum`` and ``planted_subspace`` in
 built in numpy exactly as the reference builds them (same seed, same
 arrays). Samples are drawn from a numpy ``Generator`` (numpy out) or a
 ``torch.Generator`` (a tensor on the generator's device, so large draws can
-be made on the card).
+be made on the card). :func:`sample_prefix_stable` draws in fixed-size
+chunks, so a larger draw begins with the rows of a smaller one.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+#: rows one chunk of :func:`sample_prefix_stable` draws, whatever the total
+CHUNK_ROWS = 4096
 
 
 class PlantedSpectrum(NamedTuple):
@@ -125,3 +130,27 @@ def planted_subspace(
         eigenvalues=lead.astype(np.float32),
         noise=float(noise),
     )
+
+
+def _chunk_seed(seed: int, chunk: int) -> int:
+    digest = hashlib.sha256(f"{seed}:{chunk}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2**63 - 1)
+
+
+def sample_prefix_stable(spec, n: int, *, seed: int = 0, device="cpu",
+                         chunk_rows: int = CHUNK_ROWS) -> torch.Tensor:
+    """``n`` float32 rows of ``spec`` (a :class:`PlantedSpectrum` or
+    :class:`PlantedSubspace`) on ``device``, prefix-stable: the first rows
+    of an ``n`` draw equal those of any larger draw. One ``torch.randn`` of
+    ``n`` rows does not promise that (on CUDA the Philox offsets follow the
+    launch grid, and the grid follows ``n``), so the rows are drawn in
+    chunks of ``chunk_rows``, chunk ``c`` from a generator seeded with
+    ``(seed, c)``; every chunk draws and transforms all ``chunk_rows`` rows,
+    so its bits never depend on ``n``, and the last one is cut."""
+    d = spec.basis.shape[0]
+    out = torch.empty((n, d), dtype=torch.float32, device=device)
+    for c, lo in enumerate(range(0, n, chunk_rows)):
+        gen = torch.Generator(device=device).manual_seed(_chunk_seed(seed, c))
+        hi = min(lo + chunk_rows, n)
+        out[lo:hi] = spec.sample(gen, chunk_rows)[: hi - lo]
+    return out

@@ -1,18 +1,25 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use, load with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled for
-``sm_90a`` into ``build/torch_kernels/`` at the root of the checkout, under
-a file name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing is
-built when a module is imported: only the first launch on a CUDA tensor
-calls :func:`load`.
+``sm_90a`` into the library directory, ``build/torch_kernels/`` at the root
+of the checkout unless :func:`set_build_dir` points it elsewhere (the
+persistent compile cache, ``utils/compile_cache.py``, points it at
+``<dir>/kernels``), under a file name that carries a hash of the source,
+the flags and the ``nvcc`` version, so an edited source or another
+compiler is rebuilt and an unchanged one is loaded as it is. A library is
+written to a temporary file and renamed into place, so a reader never sees
+a torn one. Nothing is built when a module is imported: only the first
+launch on a CUDA tensor calls :func:`load`. A library loaded once stays
+loaded for the process, wherever the directory points later.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -32,10 +39,22 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_runs_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: per kernel source: {"seconds": build time (0.0 when reused), "log": the
 #: compiler's output (ptxas register / shared-memory / spill lines)}
 build_info: dict[str, dict] = {}
+#: ``nvcc`` compiles this process ran (a warm start runs none)
+nvcc_runs = 0
+
+
+def set_build_dir(path) -> Path:
+    """Point the library directory at ``path`` for this process (libraries
+    already loaded stay loaded); returns it."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def nvcc_path() -> str:
@@ -58,25 +77,44 @@ def nvcc_path() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str:
+    """The compiler's version as the CUDA toolkit's ``version.json`` states
+    it, read without running ``nvcc``; the digest of the ``nvcc`` binary
+    where that file is missing."""
+    nvcc = Path(nvcc_path())
+    try:
+        meta = json.loads((nvcc.resolve().parent.parent / "version.json").read_text())
+        return f"nvcc {meta['cuda_nvcc']['version']}"
+    except (OSError, ValueError, KeyError, TypeError):
+        return f"nvcc sha256:{hashlib.sha256(nvcc.read_bytes()).hexdigest()[:16]}"
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives in the current library
+    directory: its file name carries the digest of the source, the flags
+    and the ``nvcc`` version."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    key = src + " ".join(NVCC_FLAGS).encode() + nvcc_version().encode()
+    return BUILD_DIR / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library unless the same
     source was already built; returns the library's path."""
-    lib = _library_path(name)
+    global nvcc_runs
+    lib = library_path(name)
     if lib.is_file():
         build_info.setdefault(name, {"seconds": 0.0, "log": ""})
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    with _runs_lock:
+        nvcc_runs += 1
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"

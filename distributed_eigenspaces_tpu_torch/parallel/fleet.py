@@ -46,8 +46,10 @@ tenant block through ``runtime.supervisor.Supervisor.screen_block``: a
 tenant's corrupt worker is that tenant's mask drop, ledgered with its
 index, and a tenant whose stream dies is quarantined whole, the others
 untouched. ``FleetServer(metrics=)`` feeds a ``MetricsLogger``'s fleet
-section. Not ported yet (ROADMAP.md Queue 1 item 16): the persistent
-compile cache (``compile_cache=``).
+section. ``compile_cache=`` (a ``utils.compile_cache.CompileCache``;
+``"auto"`` resolves ``cfg.compile_cache_dir``) acquires the fleet's fit and
+extraction through the persistent store, so a second process loads the
+Gram kernel's library from the cache directory instead of building it.
 """
 
 from __future__ import annotations
@@ -98,9 +100,6 @@ __all__ = [
     "padded_fleet_cfg",
     "stage_fleet",
 ]
-
-_ITEM_16 = "Queue 1 item 16"
-
 
 def fleet_signature(cfg: PCAConfig) -> tuple:
     """The exact shape signature ``(d, k, m, n, T)`` two requests must
@@ -613,20 +612,52 @@ def acquire_fleet_programs(
     the programs costs here, building the closures and, on a first use in
     the process, the Gram kernels' build (``ops/_build.py``) and the
     cuBLAS / cuSOLVER start-up (0.0 on a cache hit, the steady state).
-    :class:`FleetServer` reports it per bucket as ``compile_ms``.
-    ``compile_cache`` (the persistent cache) is not ported yet.
+    :class:`FleetServer` reports it per bucket as ``compile_ms``. With
+    ``compile_cache`` (a ``utils.compile_cache.CompileCache``) the fit
+    (and, on one device, the extraction) is acquired through the
+    persistent store, keyed by the padded bucket's shape, the config's
+    program knobs, the seed, the starts and the device.
     """
-    if compile_cache is not None:
-        raise _not_ported("compile_cache= (the persistent compile cache)",
-                          f"{_ITEM_16} (utils/compile_cache.py)")
     dev = pmesh.mesh_device(mesh, device)
     key = _fleet_cache_key(cfg, masked, b_pad, mesh, dev, v0, v_init)
     if fit_cache is not None and key in fit_cache:
         fit, extract = fit_cache[key]
         return fit, extract, 0.0
     t0 = time.perf_counter()
-    fit = make_fleet_fit(cfg, mesh, masked=masked, device=dev, v0=v0, v_init=v_init)
-    extract = _make_extract_fleet(cfg, dev, v0)
+
+    def build_fit():
+        return make_fleet_fit(cfg, mesh, masked=masked, device=dev, v0=v0,
+                              v_init=v_init)
+
+    def build_extract():
+        return _make_extract_fleet(cfg, dev, v0)
+
+    if compile_cache is not None:
+        from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+            config_knobs,
+            fit_libraries,
+            make_key,
+        )
+
+        starts = (cfg.seed, _start_key(v0), _start_key(v_init), str(dev))
+        mesh_shape = None if mesh is None else tuple(mesh.shape.items())
+        sig = (cfg.dim, cfg.k, cfg.num_workers, cfg.rows_per_worker,
+               cfg.num_steps, b_pad, bool(masked), mesh_shape, starts)
+        fit = compile_cache.get_or_build(
+            make_key("fleet_fit", sig, "float32", knobs=config_knobs(cfg),
+                     device=dev),
+            build_fit,
+            libraries=fit_libraries(cfg, staged=False) if dev.type == "cuda" else (),
+        )
+        # the extraction through the store on one device only, as the
+        # reference's (a mesh rank extracts its tenants directly)
+        extract = build_extract() if mesh is not None else compile_cache.get_or_build(
+            make_key("fleet_extract", (cfg.dim, cfg.k, b_pad, starts), "float32",
+                     knobs=config_knobs(cfg), device=dev),
+            build_extract,
+        )
+    else:
+        fit, extract = build_fit(), build_extract()
     _acquire_device(dev)
     build_ms = (time.perf_counter() - t0) * 1e3
     if fit_cache is not None:
@@ -685,9 +716,10 @@ def fit_fleet(
     mesh each rank fits and extracts its tenants, then one all-gather gives
     every rank every tenant's results. ``fit_cache`` (a dict the caller
     owns) reuses programs across calls, keyed by config, variant, B, mesh,
-    device and starts. ``compile_cache="auto"`` resolves to None
-    (``cfg.compile_cache_dir`` must be None in this port); another cache
-    is not ported yet. ``supervisor`` screens every tenant block
+    device and starts. ``compile_cache`` backs the program build with the
+    persistent store (``"auto"`` resolves ``cfg.compile_cache_dir`` through
+    ``utils.compile_cache.compile_cache_for``; pass a ``CompileCache`` or
+    None). ``supervisor`` screens every tenant block
     (:func:`stage_fleet`). ``v0`` / ``v_init`` as for
     :func:`make_fleet_fit`.
     """
@@ -705,7 +737,11 @@ def fit_fleet(
             f"{mesh.axis_size(pmesh.WORKER_AXIS)}"
         )
     if compile_cache == "auto":
-        compile_cache = None  # cfg.compile_cache_dir is None (config.py)
+        from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+            compile_cache_for,
+        )
+
+        compile_cache = compile_cache_for(cfg)
     fit, extract, build_ms = acquire_fleet_programs(
         cfg, mesh, masked=masked, b_pad=b_pad, fit_cache=fit_cache,
         compile_cache=compile_cache, device=device, v0=v0, v_init=v_init,
@@ -752,11 +788,14 @@ class FleetPCA:
         z = fleet.transform(1, data_b)           # tenant 1's projection
     """
 
-    def __init__(self, cfg: PCAConfig, *, mesh="auto", device="cuda", v0=None):
+    def __init__(self, cfg: PCAConfig, *, mesh="auto", device="cuda", v0=None,
+                 compile_cache="auto"):
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
         self.v0 = v0
+        #: as :func:`fit_fleet`'s (``"auto"``: ``cfg.compile_cache_dir``)
+        self.compile_cache = compile_cache
         self.result: FleetResult | None = None
         self._fit_cache: dict = {}
 
@@ -764,7 +803,8 @@ class FleetPCA:
         self.result = fit_fleet(
             self.cfg, problems, mesh=self.mesh,
             worker_masks=worker_masks, supervisor=supervisor,
-            fit_cache=self._fit_cache, device=self.device, v0=self.v0,
+            fit_cache=self._fit_cache, compile_cache=self.compile_cache,
+            device=self.device, v0=self.v0,
         )
         return self
 
@@ -826,8 +866,10 @@ class FleetServer:
     ``summary()["fleet"]`` aggregates them (padded lanes and compile stalls
     by signature, the latency decomposition; ``cfg.fleet_slo_p99_ms``
     becomes its fleet SLO), and its tracer records each tenant's span chain
-    (admit, queue_wait, dispatch, compile_stall, compute). ``compile_cache=`` is not
-    ported yet (Queue 1 item 16).
+    (admit, queue_wait, dispatch, compile_stall, compute). Program builds go
+    through ``compile_cache`` (default: ``compile_cache_for(cfg)``, else a
+    memory-only ``CompileCache``), so ``compile_stall_ms`` is a measured
+    acquisition and a cache directory makes a second process start warm.
     """
 
     def __init__(
@@ -847,9 +889,11 @@ class FleetServer:
             ShapeBucketQueue,
         )
 
-        if compile_cache is not None:
-            raise _not_ported("FleetServer(compile_cache=)",
-                              f"{_ITEM_16} (utils/compile_cache.py)")
+        from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+            CompileCache,
+            compile_cache_for,
+        )
+
         if mesh == "auto":
             mesh = None
         if mesh is not None:
@@ -868,6 +912,9 @@ class FleetServer:
             metrics.fleet_slo_p99_ms = cfg.fleet_slo_p99_ms
         self.device = pmesh._mesh_device(device)
         self.v0 = None if v0 is None else _host_array(v0, np.float32)
+        self.compile_cache = (
+            compile_cache or compile_cache_for(cfg) or CompileCache(None)
+        )
         self.prewarmer = None
         self.queue = ShapeBucketQueue(
             bucket_size=cfg.fleet_bucket_size,
@@ -984,8 +1031,8 @@ class FleetServer:
                 ("fleet", repr(cfg), masked),
                 lambda c=cfg: acquire_fleet_programs(
                     c, None, masked=masked, b_pad=c.fleet_bucket_size,
-                    fit_cache=self._fit_cache, device=self.device,
-                    v0=self._v0_for(c),
+                    fit_cache=self._fit_cache, compile_cache=self.compile_cache,
+                    device=self.device, v0=self._v0_for(c),
                 ),
             )
         return prewarmer
@@ -1032,6 +1079,7 @@ class FleetServer:
                 worker_masks=masks,
                 pad_to=cfg.fleet_bucket_size,
                 fit_cache=self._fit_cache,
+                compile_cache=self.compile_cache,
                 device=self.device,
                 v0=self._v0_for(cfg),
             )

@@ -1,8 +1,9 @@
 """Prewarmer: acquire expected signatures' programs OFF the serving thread.
 
 The port's copy of ``distributed_eigenspaces_tpu/runtime/prewarm.py``.
-A serving tier (``parallel/fleet.FleetServer``) would otherwise pay a
-signature's first acquisition inside its dispatch lane, where the stall
+A serving tier (``parallel/fleet.FleetServer``,
+``serving/server.QueryServer``) would otherwise pay a signature's first
+acquisition inside its dispatch lane, where the stall
 blocks every queued neighbour. In the port there is no compile step: what
 acquiring a program costs is building its closures and, on a first use,
 the hand kernels' ``nvcc`` build (``ops/_build.py``) and the cuBLAS /
@@ -120,7 +121,10 @@ class Prewarmer:
     ) -> list:
         """Transform feed: acquire ``engine``'s programs for the padded row
         buckets covering ``rows`` query sizes (deduplicated: several row
-        counts share one power-of-two bucket)."""
+        counts share one power-of-two bucket) and, on a card, launch each
+        once (``TransformEngine.warm``): the launch loads the serve
+        kernel's library and starts cuBLAS here rather than in the first
+        request."""
         from distributed_eigenspaces_tpu_torch.serving.transform import (
             bucket_rows,
         )
@@ -134,7 +138,7 @@ class Prewarmer:
                 labels.append(
                     self.submit(
                         ("engine", engine.d, engine.k, kind, p),
-                        lambda k=kind, p=p: engine._compiled(k, p),
+                        lambda k=kind, p=p: engine.warm(k, p),
                     )
                 )
         return labels

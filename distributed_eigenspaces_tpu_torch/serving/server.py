@@ -64,8 +64,14 @@ only.
 A ``MetricsLogger`` (``metrics=``) receives every batch (queries, padded
 rows, queue waits, compute, version, swap), shed, breaker and lane event,
 and its ``summary()["serving"]["health"]`` reads :meth:`QueryServer.health`;
-its tracer, when one is attached, records each request's span chain. Not
-ported yet: prewarming and the compile cache (ROADMAP.md Queue 1 item 16).
+its tracer, when one is attached, records each request's span chain.
+
+``prewarm=`` acquires the expected row buckets on a ``runtime.prewarm.
+Prewarmer`` lane and launches each once on a card (:meth:`wait_warm` is the
+fence: a prewarmed first request records ``compile_stall_ms`` 0.0);
+``compile_cache=`` (default: ``compile_cache_for(cfg)``, from
+``cfg.compile_cache_dir``) backs the engine's buckets with the persistent
+store (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -78,7 +84,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from distributed_eigenspaces_tpu_torch.config import _not_ported
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.runtime.scheduler import (
     QueueClosed,
@@ -195,12 +200,6 @@ class QueryServer:
         serve_dtype: str | None = None,
         device="cuda",
     ):
-        if prewarm or prewarmer is not None:
-            raise _not_ported("QueryServer(prewarm=)", "Queue 1 item 16 (runtime/prewarm.py)")
-        if compile_cache is not None:
-            raise _not_ported(
-                "QueryServer(compile_cache=)", "Queue 1 item 16 (utils/compile_cache.py)"
-            )
         live = registry.latest()
         if d is None:
             d = cfg.dim if cfg is not None else (live.d if live else None)
@@ -232,8 +231,18 @@ class QueryServer:
         if serve_dtype is None:
             serve_dtype = cfg.serve_dtype if cfg is not None else "float32"
         self.serve_dtype = serve_dtype
+        if compile_cache is None and cfg is not None:
+            # cfg.compile_cache_dir wires the persistent store in without a
+            # second knob at every construction site
+            from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
+                compile_cache_for,
+            )
+
+            compile_cache = compile_cache_for(cfg)
+        self.compile_cache = compile_cache
         self.engine = engine or TransformEngine(
-            self.d, self.k, mesh=mesh, serve_dtype=serve_dtype, device=device,
+            self.d, self.k, mesh=mesh, cache=compile_cache,
+            serve_dtype=serve_dtype, device=device,
         )
         eng_mesh = self.engine.mesh
         #: whether dispatch meets the other ranks of a sharded engine's
@@ -252,6 +261,26 @@ class QueryServer:
             # family whose quantization error blows the 0.2 degree budget
             # fails construction instead of serving drifted projections
             self.engine.self_check()
+        # prewarm: acquire the expected row buckets OFF this thread
+        # (runtime/prewarm.py) and, on a card, launch each once, so the
+        # first request of a declared size acquires nothing. ``prewarm`` is
+        # True (the bucket ladder min_bucket .. 16 * min_bucket) or the
+        # per-dispatch row counts to expect; callers that need the zero-stall
+        # guarantee call wait_warm() before serving.
+        self.prewarmer = prewarmer
+        self.prewarm_labels: list = []
+        self._own_prewarmer = bool(prewarm) and prewarmer is None
+        if prewarm:
+            from distributed_eigenspaces_tpu_torch.runtime.prewarm import Prewarmer
+
+            if self._own_prewarmer:
+                self.prewarmer = Prewarmer(metrics=metrics)
+            mb = self.engine.min_bucket
+            rows = (
+                prewarm if isinstance(prewarm, (list, tuple, range))
+                else (mb, 2 * mb, 4 * mb, 8 * mb, 16 * mb)
+            )
+            self.prewarm_labels = self.prewarmer.warm_engine(self.engine, rows)
         #: served-version bookkeeping: the last version a batch used and how
         #: many hot swaps dispatch has observed
         self.swap_count = 0
@@ -477,15 +506,26 @@ class QueryServer:
         )
         return ticket
 
+    def wait_warm(self, timeout: float | None = None) -> bool:
+        """Block until every prewarm acquisition submitted at construction
+        has finished: the fence before the first request when the zero-stall
+        guarantee matters. True at once when prewarming was not asked for."""
+        if self.prewarmer is None:
+            return True
+        return self.prewarmer.wait(timeout)
+
     def close(self) -> None:
-        """Flush partial micro-batches, drain, join dispatch lanes. Marks
-        the shutdown intentional FIRST, so a lane exiting during close is a
-        clean drain, never a restartable death."""
+        """Flush partial micro-batches, drain, join dispatch lanes (and the
+        prewarm lane this server started). Marks the shutdown intentional
+        FIRST, so a lane exiting during close is a clean drain, never a
+        restartable death."""
         self._closed = True
         if self._watchdog is not None:
             self._watchdog.close()
         self.queue.close()
         self._thread.join()
+        if self._own_prewarmer:
+            self.prewarmer.close()
 
     def __enter__(self) -> "QueryServer":
         return self

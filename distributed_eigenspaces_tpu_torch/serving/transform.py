@@ -12,7 +12,14 @@ disciplines of the reference carry over:
    dispatch of each ``(kind, padded_rows)`` pair, ``cache_hits`` every
    later one, ``compile_ms_total`` the time the misses took (for the
    quantized kinds on the card, the first one builds the serve kernels),
-   so a test can assert that a swap acquired nothing.
+   so a test can assert that a swap acquired nothing. ``cache`` (a
+   ``utils.compile_cache.CompileCache``) backs the bucket dict with the
+   persistent store: a bucket's program is acquired through it, keyed by
+   ``(kind, padded_rows)`` and the signature, and a process whose cache
+   directory already holds the serve kernel's library loads it there
+   instead of building it. :meth:`TransformEngine.warm` acquires a bucket
+   and launches it once on zeros, so a prewarmed bucket's first request
+   finds the library loaded and cuBLAS started.
 
 Routes of :meth:`TransformEngine.project` by ``serve_dtype``:
 ``"float32"`` is ``ops.serve_project.project_exact``, the route
@@ -45,8 +52,6 @@ SPMD:
   features group must make the same calls in the same order
   (``QueryServer`` agrees on each batch first). The dense ``(d, k)`` basis
   never lands on one rank.
-
-Not ported yet: the persistent compile cache (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -56,8 +61,8 @@ import time
 import numpy as np
 import torch
 
-from distributed_eigenspaces_tpu_torch.config import SERVE_DTYPES, _not_ported
-from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
+from distributed_eigenspaces_tpu_torch.config import SERVE_DTYPES
+from distributed_eigenspaces_tpu_torch.device import dtype_name, resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops import _build
 from distributed_eigenspaces_tpu_torch.ops.serve_project import (
     project_exact,
@@ -135,11 +140,6 @@ class TransformEngine:
             nf = int(mesh.shape[FEATURE_AXIS])
             if d % nf:
                 raise ValueError(f"d={d} does not divide over {nf} feature shards")
-        if cache is not None:
-            raise _not_ported(
-                "TransformEngine(cache=) (the persistent compile cache)",
-                "Queue 1 item 16 (utils/compile_cache.py)",
-            )
         self.d = int(d)
         self.k = int(k)
         self.serve_dtype = serve_dtype
@@ -155,6 +155,7 @@ class TransformEngine:
         #: reductions over ``features`` this engine ran (sharded mode)
         self.psums = 0
         self._cache: dict = {}
+        self._persist = cache
         self.compile_misses = 0
         self.cache_hits = 0
         self.compile_ms_total = 0.0
@@ -189,9 +190,29 @@ class TransformEngine:
             return hit
         self.compile_misses += 1
         t0 = time.perf_counter()
-        if kind == "project" and self.device.type == "cuda":
-            _build.load("serve_project")  # built once, at the first dispatch
-        fn = self._fns[kind]
+        # the serve kernels' library, built or loaded at the acquisition
+        libraries = (
+            ("serve_project",) if kind == "project" and self.device.type == "cuda"
+            else ()
+        )
+        if self._persist is not None:
+            from distributed_eigenspaces_tpu_torch.utils.compile_cache import make_key
+
+            ck = make_key(
+                f"transform_{kind}",
+                (
+                    self.d, self.k, rows,
+                    None if self.mesh is None else tuple(self.mesh.shape.items()),
+                    self.basis_spec, self.serve_dtype, str(self.device),
+                ),
+                dtype_name(self.dtype), device=self.device,
+            )
+            fn = self._persist.get_or_build(ck, lambda: self._fns[kind],
+                                            libraries=libraries)
+        else:
+            for name in libraries:
+                _build.load(name)
+            fn = self._fns[kind]
         t1 = time.perf_counter()
         self.compile_ms_total += (t1 - t0) * 1e3
         if self.tracer is not None:
@@ -202,6 +223,21 @@ class TransformEngine:
             )
         self._cache[key] = fn
         return fn
+
+    def warm(self, kind: str, rows: int) -> None:
+        """Acquire the ``(kind, rows)`` bucket and, on a card, run it once on
+        zero operands: the launch that loads the kernel's library and starts
+        cuBLAS, off the dispatch thread when a ``Prewarmer`` calls it. A
+        sharded engine's bucket is acquired only (its run is a collective
+        every rank of its group would have to join)."""
+        fn = self._compiled(kind, rows)
+        if self.device.type != "cuda" or self.sharded:
+            return
+        width = self.k if kind == "reconstruct" else self.d
+        second = (rows, self.k) if kind == "residual" else (self.d, self.k)
+        fn(torch.zeros((rows, width), dtype=self.dtype, device=self.device),
+           torch.zeros(second, dtype=torch.float32, device=self.device))
+        torch.cuda.synchronize(self.device)
 
     def self_check(
         self,
@@ -276,12 +312,15 @@ class TransformEngine:
         return worst
 
     def stats(self) -> dict:
-        return {
+        out = {
             "compile_misses": self.compile_misses,
             "cache_hits": self.cache_hits,
             "compile_ms_total": round(self.compile_ms_total, 3),
             "buckets": sorted({r for _, r in self._cache}),
         }
+        if self._persist is not None:
+            out["persistent"] = self._persist.stats()
+        return out
 
     # -- padded dispatch -----------------------------------------------------
 

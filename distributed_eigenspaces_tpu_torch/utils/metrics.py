@@ -21,9 +21,8 @@ controller layers, each folded into ``summary()``:
   attach_tracer`) receives per-step spans, so the exported Chrome trace
   covers fit, serve, fleet, drift and fault events together.
 
-Not ported: ``attach_compile`` (the compile cache, ROADMAP.md Queue 1
-item 16, ``utils/compile_cache.py``) and ``attach_analysis``
-(``engine_report``, Queue 1 item 17b) refuse.
+Not ported: ``attach_analysis`` (``engine_report``, ROADMAP.md Queue 1
+item 17b) refuses.
 """
 from __future__ import annotations
 
@@ -328,10 +327,15 @@ class MetricsLogger:
         return self
 
     def attach_compile(self, cache) -> "MetricsLogger":
-        """The reference attaches its compile cache's counters here; the
-        port has no compile cache yet."""
-        raise _not_ported("MetricsLogger.attach_compile (the compile cache)",
-                          "Queue 1 item 16 (utils/compile_cache.py)")
+        """Attach a live ``utils.compile_cache.CompileCache``: its hit, miss
+        and build-ms counters land in ``summary()["compile"]`` (read at
+        summary time, like the ingest stats). An attached tracer is handed
+        to the cache, so its hits and builds land on the exported timeline
+        too."""
+        self.compile_cache = cache
+        if self.tracer is not None and getattr(cache, "tracer", None) is None:
+            cache.tracer = self.tracer
+        return self
 
     def attach_analysis(self, report) -> "MetricsLogger":
         """The reference attaches a static-analysis verdict

@@ -65,15 +65,23 @@ def test_defaults_and_good_values_equal_the_reference():
 
 
 def test_compile_cache_dir_still_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        PCAConfig(dim=16, k=4, compile_cache_dir="cache")
+    # accepted since the compile cache is ported (utils/compile_cache.py);
+    # a value that is not a path string is still refused, as the reference's
+    assert PCAConfig(dim=16, k=4, compile_cache_dir="cache").compile_cache_dir == "cache"
+    with pytest.raises(ValueError, match="compile_cache_dir"):
+        PCAConfig(dim=16, k=4, compile_cache_dir=7)
 
 
 @pytest.mark.parametrize("field,value", [("replicas", 2), ("plan_path", "plan.json")])
 def test_fields_only_the_cli_reads_are_refused(field, value):
-    # the reference accepts them (its CLI reads them); the port has no CLI yet
+    # the reference accepts both (its CLI reads them); the port's CLI reads
+    # replicas, and refuses a plan until the planner is ported
     JaxConfig(dim=16, k=4, **{field: value})
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 16 \(cli.py\)"):
+    if field == "replicas":
+        assert PCAConfig(dim=16, k=4, replicas=value).replicas == value
+        return
+    with pytest.raises(NotImplementedError,
+                       match=r"Queue 1 item 17b \(analysis/planner.py\)"):
         PCAConfig(dim=16, k=4, **{field: value})
 
 

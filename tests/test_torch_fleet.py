@@ -37,6 +37,7 @@ from distributed_eigenspaces_tpu_torch.parallel import fleet
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel import worker_pool
 from distributed_eigenspaces_tpu_torch.runtime.prewarm import Prewarmer, registry_signatures
+from distributed_eigenspaces_tpu_torch.utils.compile_cache import CompileCache
 from distributed_eigenspaces_tpu_torch.serving.registry import EigenbasisRegistry
 from distributed_eigenspaces_tpu_torch.serving.transform import TransformEngine
 
@@ -465,14 +466,16 @@ def test_fleet_rejects_steady_state_knobs():
 
 
 def test_fleet_refuses_what_waits_for_item_16(spec):
-    # the supervisor's screen and the logger sink are ported; the
-    # persistent compile cache still waits
+    # the supervisor's screen, the logger sink and the compile cache are
+    # ported: both take a cache now, and acquire through it
     cfg, _ = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fleet.FleetServer(cfg, device=CPU, compile_cache=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fleet.acquire_fleet_programs(cfg, None, masked=False, b_pad=1,
-                                     compile_cache=object(), device=CPU)
+    cc = CompileCache(None)
+    with fleet.FleetServer(cfg, device=CPU, compile_cache=cc) as srv:
+        assert srv.compile_cache is cc
+    fit, extract, ms = fleet.acquire_fleet_programs(
+        cfg, None, masked=False, b_pad=1, compile_cache=cc, device=CPU)
+    assert callable(fit) and callable(extract) and ms > 0.0
+    assert cc.stats()["misses"] == 2  # the fit and the extraction
 
 
 def test_fleetpca_components_and_transform(spec):

@@ -58,6 +58,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import distributed_eigenspaces_tpu_torch.api.runner\n"
         "import distributed_eigenspaces_tpu_torch.data.bin_stream\n"
         "import distributed_eigenspaces_tpu_torch.runtime.native\n"
+        "import distributed_eigenspaces_tpu_torch.cli\n"
+        "import distributed_eigenspaces_tpu_torch.utils.compile_cache\n"
         "import distributed_eigenspaces_tpu_torch.runtime.prefetch\n"
         "import distributed_eigenspaces_tpu_torch.utils.checkpoint\n"
         "import distributed_eigenspaces_tpu_torch.evals\n"
@@ -229,3 +231,58 @@ def test_supervised_entry_points_raise_without_a_card(monkeypatch):
         ElasticStream(iter([]), MembershipTable(2), cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         run_dynamic_round(data, num_batches=2, k=2)
+
+
+def test_cli_and_compile_lifecycle_run_on_the_card_by_default(monkeypatch, tmp_path):
+    """The command line, a cached engine and a prewarming server default to
+    the card: a compile cache never turns a run into a CPU run."""
+    from distributed_eigenspaces_tpu_torch import cli
+    from distributed_eigenspaces_tpu_torch.utils.compile_cache import CompileCache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--data", "synthetic", "--dim", "16", "--rank", "2",
+                  "--compile-cache", str(tmp_path)])
+    assert cli.build_parser().get_default("device") == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransformEngine(16, 2, cache=CompileCache(None))
+    reg = EigenbasisRegistry()
+    reg.publish(np.linalg.qr(np.random.default_rng(0).standard_normal((16, 2)))[0]
+                .astype(np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        QueryServer(reg, PCAConfig(dim=16, k=2, compile_cache_dir=str(tmp_path)),
+                    prewarm=True)
+
+
+def _roadmap_labels() -> set[str]:
+    """The item labels of ROADMAP.md's Queue 1 (``**15c.``, parked ``**9g.``)."""
+    import re
+
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
+    return set(re.findall(r"\*\*(\d+[a-z]?)\.", queue))
+
+
+def test_refusals_name_items_that_exist_in_the_roadmap():
+    """Every "Queue 1 item X" the port names (its NotImplementedError
+    messages, and the docstrings that point at the queue) is a label of
+    ROADMAP.md's Queue 1; nothing names the ported compile cache, prewarm
+    or command line as waiting."""
+    import re
+
+    labels = _roadmap_labels()
+    named = {}
+    for path in sorted(PKG.rglob("*.py")):
+        text = path.read_text()
+        for label in re.findall(r"Queue 1\s+item\s+(\d+[a-z]?)", text):
+            named.setdefault(label, []).append(path.name)
+        for ported in ("utils/compile_cache.py)", "runtime/prewarm.py)", "(cli.py)"):
+            assert f"item 16 {ported}" not in text.replace("\n", " "), path
+    assert named, "no refusal names a ROADMAP item"
+    missing = {label: files for label, files in named.items() if label not in labels}
+    assert not missing, f"labels not in ROADMAP.md Queue 1 {sorted(labels)}: {missing}"
+    from distributed_eigenspaces_tpu_torch import cli
+
+    assert re.search(r"item (\w+)", cli.PLANNER_ITEM).group(1) in labels
+    with pytest.raises(NotImplementedError, match=re.escape(cli.PLANNER_ITEM)):
+        PCAConfig(dim=16, k=2, plan_path="plan.json")

@@ -39,6 +39,7 @@ from distributed_eigenspaces_tpu_torch.serving import (
     VersionRetired,
     bucket_rows,
 )
+from distributed_eigenspaces_tpu_torch.utils.compile_cache import CompileCache
 from distributed_eigenspaces_tpu_torch.utils.telemetry import Tracer
 
 D, K = 32, 3
@@ -349,10 +350,12 @@ def test_server_records_request_spans_on_the_engine_tracer():
 def test_unported_server_modes_raise():
     reg = EigenbasisRegistry()
     reg.publish(_basis())
-    # a MetricsLogger sink is ported (tests/test_torch_metrics.py)
-    for kw in ({"prewarm": True}, {"compile_cache": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            QueryServer(reg, _cfg(), device="cpu", **kw)
+    # a MetricsLogger sink is ported (tests/test_torch_metrics.py); so are
+    # prewarming and the compile cache (tests/test_torch_compile_cache.py)
+    for kw in ({"prewarm": True}, {"compile_cache": CompileCache(None)}):
+        with QueryServer(reg, _cfg(), device="cpu", **kw) as srv:
+            assert srv.wait_warm(timeout=TIMEOUT)
+            assert srv.compile_cache is kw.get("compile_cache")
     # a DriftMonitor is ported (tests/test_torch_drift.py)
     with QueryServer(reg, _cfg(), device="cpu", drift=object()) as srv:
         assert srv.drift is not None
@@ -410,8 +413,9 @@ def test_config_carries_serve_fields_from_jax(tmp_path):
               "serve_keep_versions", "registry_dir", "serve_queue_depth",
               "serve_breaker_threshold", "serve_slo_p99_ms"):
         assert getattr(cfg, f) == getattr(jcfg, f)
-    with pytest.raises(NotImplementedError, match="compile"):
-        _cfg(compile_cache_dir=str(tmp_path))
+    # the compile cache's directory carries over too (utils/compile_cache.py)
+    jcfg = jconfig.PCAConfig(dim=D, k=K, compile_cache_dir=str(tmp_path))
+    assert config_from_jax(dataclasses.asdict(jcfg)).compile_cache_dir == str(tmp_path)
 
 
 def test_quorum_lost_names_the_table():

@@ -116,8 +116,9 @@ def test_state_carried_across_by_interop_matches():
 
 
 def test_config_from_jax_refuses_unported_settings():
-    jcfg = JaxConfig(**SMALL, compile_cache_dir="cache")
-    with pytest.raises(NotImplementedError, match="compile_cache_dir"):
+    # the compile cache is ported; a plan waits for the planner
+    jcfg = JaxConfig(**SMALL, plan_path="plan.json")
+    with pytest.raises(NotImplementedError, match="plan_path"):
         interop.config_from_jax(dataclasses.asdict(jcfg))
     # the hierarchical merge's knobs carry over in the reference's normal form
     jcfg = JaxConfig(**SMALL, merge_topology=(("chip", 2), ("host", 2)),
