@@ -303,13 +303,17 @@ exits non-zero without printing a result:
    of the kernel and of ``torch.matmul``.
 14. analysis: the port's analyzer on the card (``run_analysis`` and
    ``run_mutation_report``, device cuda) under the launch recorder and
-   ``torch.profiler``: the 4 programs honour their contracts, every profiled
-   kernel event has the grid, block and shared memory of its recorded
+   ``torch.profiler``: the 18 programs honour their contracts — the 4
+   single-device ones with their kernels launched, the 14 mesh programs
+   (one launch of 4 gloo ranks sharing the card, every rank recording the
+   same collective schedule) with their collectives and byte budgets equal
+   to the committed ``ANALYSIS_COSTS_TORCH.json``'s — every profiled kernel
+   event has the grid, block and shared memory of its recorded
    ``KernelLaunch`` (one event per launch; the programs run once before
    the windows, each window opens with 64 pairs of untimed kernels, and a
    window the profiler left an event out of is run again, five windows at
-   most), and 5 of 5 seeded mutations are caught, the mutant's launch with
-   grid [1, 1, 1].
+   most), and 11 of 11 seeded mutations are caught, the mutant's launch
+   with grid [1, 1, 1].
 15. slice_evals: the port's eval harness (``distributed_eigenspaces_tpu_torch.
    evals.run_eval``) on each of the six eval specs at full size, as
    published, with the default repeats (3), one report line each: within 1
@@ -352,6 +356,15 @@ exits non-zero without printing a result:
    below the noise floor, so the angle to it is near 90 and only bounded
    by [0, 90]). Then parity_serve_scenario: the serve kernels at the
    replays' buckets, (8, 16 and 32 rows, 784, 3).
+20. slice_cli: the command line, every mode, and a cold/warm pair of
+   processes over one compile cache.
+21. slice_plan: the committed ``ANALYSIS_PLAN_TORCH.json`` self-checked
+   and equal to a replan from ``PLAN_CALIBRATION_H100.json``; ``cli.main``
+   with ``--plan`` on a fit and on an fp32 serve at the plan's k=8, m=64,
+   n=128 and its topology, interval and serve knobs (cut: 2 steps, and
+   d=3072 for the plan's 32768, ``PLAN_CUT_D`` says why), each run's
+   kernel calls held against their plain versions; the serve kernel and the two p99 terms re-measured and the
+   plan's drift rows printed, a ``fail`` or ``missing`` row failing.
 
 Then the kernel table as one JSON line and, last, the result line.
 It imports nothing of JAX or of the JAX package.
@@ -361,6 +374,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -477,8 +491,11 @@ MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
 MUTANT_TOL = 1e-5
 MUTANT_AUDIT = (256, 1024, 8)  # the JAX mutant's (rows, d, k)
 MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
-ANALYSIS_PROGRAMS = 4
-ANALYSIS_MUTATIONS = 5
+ANALYSIS_PROGRAMS = 18  # 4 in this process, 14 on 4 gloo ranks sharing the card
+ANALYSIS_MUTATIONS = 11
+#: what the card's run of the mesh programs is held to in the committed cost
+#: snapshot (the FLOP and byte fields are the CPU's: costmodel.py)
+ANALYSIS_SNAPSHOT_KEYS = ("collectives_per_axis", "budget_bytes_per_op")
 ANALYSIS_WINDOWS = 5  # profiled windows of the analysis phase at most
 # profiler_warm's kernel pairs opening each profiled window (the analysis
 # phase's and every device_ms window): a window after many earlier ones lost
@@ -2511,9 +2528,10 @@ def slice_evals(dev, card: str) -> dict:
 
 def analysis(dev, card: str) -> dict:
     """The port's analyzer on the card, under the launch recorder and the
-    profiler; returns each kernel's launches in that run."""
+    profiler; returns each kernel's launches in that run, and the Gram
+    launches rank 0 recorded in the mesh programs (``mesh_gram``)."""
     import torch
-    from distributed_eigenspaces_tpu_torch.analysis import report
+    from distributed_eigenspaces_tpu_torch.analysis import costmodel, programs, report
     from distributed_eigenspaces_tpu_torch.ops import geometry
     from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
     from distributed_eigenspaces_tpu_torch.ops import mutant_full_block as mfb
@@ -2529,8 +2547,13 @@ def analysis(dev, card: str) -> dict:
     # ANALYSIS_WARM_ROUNDS pairs of untimed kernels and a pause, and a
     # window with fewer events than recorded launches (never one with an
     # event of another geometry) is run again, up to ANALYSIS_WINDOWS
-    # times, each attempt printed; the checks below hold the last one
+    # times, each attempt printed; the checks below hold the last one. The
+    # first run_analysis builds the mesh programs and mutants on 4 gloo
+    # ranks sharing the card, in one launch a process: the windows reuse
+    # them, so their launches are this process's programs'
+    t0 = time.perf_counter()
     report.run_analysis(device=dev)
+    mesh_s = time.perf_counter() - t0
     report.run_mutation_report(device=dev)
     torch.cuda.synchronize()
     for attempt in range(1, ANALYSIS_WINDOWS + 1):
@@ -2560,22 +2583,42 @@ def analysis(dev, card: str) -> dict:
         emit("analysis", part="profiled_kernel", name=ev["name"], symbol=ev["symbol"],
              grid=ev["grid"], block=ev["block"], smem=ev["smem"], device_us=ev["dur_us"],
              args=ev["args"])
+    mesh_gram = {"bf16_tma": 0, "other": 0}
     for name, entry in rep["programs"].items():
         emit("analysis", part="program", program=name, ok=entry["ok"],
-             contract=entry["contract"], pallas=entry["pallas"], memory=entry["memory"],
+             contract=entry["contract"], collectives=entry["collectives"],
+             costs={k: entry["costs"][k] for k in ("collectives_per_axis",
+                                                   "budget_bytes_per_op")},
+             pallas=entry["pallas"], memory=entry["memory"],
              launches=entry["launches"], violations=entry["violations"])
+        if name in programs.MESH_PROGRAMS:
+            for la in entry["launches"]:
+                if la["kernel"].startswith("gram_"):
+                    mesh_gram["bf16_tma" if "tma" in la["kernel"] else "other"] += 1
+    # the mesh programs' collectives against the committed snapshot (made on
+    # the CPU): gloo moves the same tensors on both routes
+    current = {"schema": costmodel.SNAPSHOT_SCHEMA, "programs": {
+        name: {k: entry["costs"][k] for k in ANALYSIS_SNAPSHOT_KEYS}
+        for name, entry in rep["programs"].items()}}
+    drift = costmodel.check_snapshot(current, costmodel.load_snapshot(),
+                                     keys=ANALYSIS_SNAPSHOT_KEYS, projections_too=False)
     emit("analysis", part="summary", device=rep["device"], ok=rep["ok"],
          n_violations=rep["n_violations"], lints=rep["lints"],
          mutations={r["mutation"]: r["caught"] for r in mut["mutations"]},
          recorded_launches=len(launches), profiled_events=len(events),
          kernels_device_us=sum(ev["dur_us"] or 0.0 for ev in events),
-         geometry_mismatches=mismatches, launches=counts, seconds=seconds, card=card)
-    # (a) every program honours its contract, with its kernels launched
+         geometry_mismatches=mismatches, launches=counts, seconds=seconds,
+         mesh_programs_s=mesh_s, mesh_gram_launches_rank0=mesh_gram,
+         snapshot_drift=[v.format() for v in drift], card=card)
+    # (a) every program honours its contract, the single-device ones with
+    # their kernels launched, the mesh ones' collectives as the snapshot's
     check(rep["ok"] and len(rep["programs"]) == ANALYSIS_PROGRAMS,
           f"analysis: {rep['n_violations']} violations over {list(rep['programs'])}")
     check(all(e["launches"] and all(la["grid"] for la in e["launches"])
-              for e in rep["programs"].values()),
+              for name, e in rep["programs"].items() if name in programs.PROGRAMS),
           "analysis: a program recorded no resolved kernel launch on the card")
+    check(not drift, f"analysis: collectives drifted from the snapshot: "
+                     f"{[v.format() for v in drift]}")
     # (b) the declarations equal the card's launches, one event per launch
     check(not mismatches, f"analysis: profiled geometry differs: {mismatches}")
     check(len(events) == len(launches) > 0,
@@ -2588,7 +2631,7 @@ def analysis(dev, card: str) -> dict:
     check(mut["ok"] and caught == ANALYSIS_MUTATIONS == len(mut["mutations"]),
           f"analysis: {caught} of {len(mut['mutations'])} mutations caught")
     check(all(n >= 1 for n in counts.values()), f"analysis: launches {counts}")
-    return counts
+    return dict(counts, mesh_gram=mesh_gram)
 
 
 def lane_angles_deg(v, truth, lanes: int) -> list[float]:
@@ -4455,9 +4498,10 @@ def replay_record(run: dict) -> dict:
 def check_replay(run: dict, what: str) -> None:
     """A replay's hard gates, and the hand kernels on its path: one fp32
     serve launch and one Gram launch at least, no plain version."""
-    c = run["counts"]
-    check(run["ok"] and all(run["verdict"]["gates"].values()),
-          f"{what}: gates failed {run['verdict'].get('scenario_fail')}")
+    c, v = run["counts"], run["verdict"]
+    check(run["ok"] and all(v["gates"].values()),
+          f"{what}: gates failed {v.get('scenario_fail')}; churn {v.get('churn')}, "
+          f"membership {v.get('membership')}")
     check(c["serve_f32"] >= 1, f"{what}: no fp32 serve kernel launch ({c})")
     check(c["gram"] + c["gram_s8"] >= 1, f"{what}: no Gram kernel launch ({c})")
     check(not run["plain"], f"{what}: plain versions called on the card: "
@@ -5038,6 +5082,146 @@ def slice_cli(dev, card: str, work_dir: str) -> dict:
     return {"launches": launches, "worst": worst}
 
 
+#: slice_plan's cuts: the plan's workload (k, m, n) and knobs, for the fit
+#: and for the serve run's fit, at the cifar10 eval's solver flags (the plan
+#: names no solver; the CLI's default eigh route solves a d x d Gram a
+#: worker) and one merge interval of steps (at least PLAN_STEPS), at d=3072
+#: (the cifar10 eval's width) instead of the plan's 32768: the CLI's
+#: synthetic source draws a d x d Haar basis on the host (numpy QR,
+#: O(d^3): 29 s at d=8192 on one CPU core, ~30 min extrapolated at
+#: 32768), the per-step route ends on a dense d x d eigh, and at d >= 4096
+#: the auto backend (feature_sharded) refuses the plan's merge_topology
+PLAN_STEPS = 2
+PLAN_CUT_D = 3072
+PLAN_DRIFT_FAIL = ("fail", "missing")  # the reference gate's failing rows
+
+
+def plan_calibrate_module():
+    """``scripts/torch_plan_calibrate.py`` as a module (its cheap terms)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_plan_calibrate.py")
+    spec = importlib.util.spec_from_file_location("torch_plan_calibrate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def slice_plan(dev, card: str, work_dir: str) -> dict:
+    """The planner on the card: the committed ``ANALYSIS_PLAN_TORCH.json``
+    re-checked (``self_check``, and a replan from the committed calibration
+    equal to it), then the command line with ``--plan`` on a fit and on a
+    short fp32 serve at the plan's k, m, n and knobs (cut to PLAN_STEPS
+    steps and d=PLAN_CUT_D; no --registry-dir, so the plan's replica count
+    is not exercised), each
+    with the launch counters set to 0 just before and read just after and
+    every kernel call held against its plain version; then the cheap
+    calibration terms re-measured (the serve kernel and the two p99s; the
+    cold processes and the fit grid are the committed record's) and the
+    plan's drift rows printed: a ``fail`` or ``missing`` row fails the
+    phase. Returns the launches by run."""
+    import torch
+
+    from distributed_eigenspaces_tpu_torch.analysis import planner
+    from distributed_eigenspaces_tpu_torch.ops import matvec_gram as mg
+
+    t_phase = time.perf_counter()
+    path = planner.plan_file_path()
+    plan = planner.load_plan(path)
+    check(plan is not None, f"slice_plan: no plan at {path}")
+    viols = planner.self_check(plan)
+    replan_drift = planner.check_plan(planner.make_plan(), plan)
+    w = plan["workload"]
+    over = plan["chosen"]["config_overrides"]
+    # the run's copy of the plan: the same knobs and plan_id at PLAN_CUT_D
+    cut = json.loads(json.dumps(plan))
+    cut["workload"]["d"] = PLAN_CUT_D
+    cut_viols = planner.self_check(cut)
+    cut_path = os.path.join(work_dir, "plan_cut.json")
+    with open(cut_path, "w", encoding="utf-8") as f:
+        json.dump(cut, f)
+    emit("slice_plan", part="plan", plan_id=plan["plan_id"], workload=w, overrides=over,
+         predicted=plan["chosen"]["predicted"],
+         self_check=[v.format() for v in viols],
+         replan_drift=[v.format() for v in replan_drift],
+         run_at={"d": PLAN_CUT_D, "steps": max(PLAN_STEPS, over.get("merge_interval") or 1)},
+         card=card)
+    check(not viols and not replan_drift and not cut_viols,
+          "slice_plan: the committed plan fails its checks")
+
+    launches: dict = {}
+    calls: list = []
+
+    def counted(argv, what):
+        plain: list = []
+        undo_plain, undo_rec = counted_plain(plain), recorded_wrappers(calls)
+        zero_counts()
+        zero_serve_counts()
+        mg.launches = 0
+        try:
+            rc, out, err = cli_run(argv, what)
+        finally:
+            undo_rec()
+            undo_plain()
+        launches[what] = dict(kernel_counts(), matvec_gram=mg.launches)
+        check(not plain, f"slice_plan {what}: plain versions ran on the card: {plain}")
+        check(f"applied {plan['plan_id']}" in err,
+              f"slice_plan {what}: no note line: {err[-400:]}")
+        return rc, out
+
+    steps = max(PLAN_STEPS, over.get("merge_interval") or 1)
+    base = (["--plan", cut_path, "--data", "synthetic", "--steps", str(steps),
+             "--device", "cuda"] + _cli_spec_args("cifar10")[8:])
+    rc, fit = counted(["--mode", "fit"] + base, "fit")
+    check(rc == 0 and fit is not None, f"slice_plan fit: exit {rc}")
+    check((fit["dim"], fit["k"], fit["steps"]) == (PLAN_CUT_D, w["k"], steps)
+          and fit["final_principal_angle_deg"] <= 1.0, f"slice_plan fit: {fit}")
+    rc, served = counted(["--mode", "serve"] + base, "serve float32")
+    check(rc == 0 and served is not None and served["max_abs_err_vs_direct"] == 0.0,
+          f"slice_plan serve: exit {rc}, {served}")
+    check(launches["serve float32"]["serve_f32"] >= 1,
+          f"slice_plan serve: no fp32 serve launch {launches}")
+    emit("slice_plan", part="cli", fit=fit, serve=served, launches=launches, card=card)
+
+    # every recorded kernel call against its plain version at its shapes
+    worst = cli_parity(dev, [c for c in calls if c[0] != "matvec_gram_cuda"])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for (c_shape, _), (v_shape, _) in sorted({c[1][:2] for c in calls
+                                              if c[0] == "matvec_gram_cuda"}):
+        c_op = torch.randn(c_shape, generator=gen, device=dev)
+        v_op = torch.randn(v_shape, generator=gen, device=dev)
+        got, want = mg.matvec_gram_cuda(c_op, v_op), mg.matvec_gram_plain(c_op, v_op)
+        torch.cuda.synchronize()
+        rel = max(rel_err(g, h) for g, h in zip(got, want))
+        err = max(float((g - h).abs().max()) for g, h in zip(got, want))
+        emit("parity_plan_matvec_gram", shape=[list(c_shape), list(v_shape)],
+             rel_frobenius=rel, max_abs_err=err, tol=MG_TOL)
+        check(rel <= MG_TOL, f"slice_plan: matvec_gram {c_shape} {v_shape}: {rel}")
+        worst["matvec_gram"] = max(worst.get("matvec_gram", 0.0), err)
+
+    # the cheap calibration terms again, and the plan's drift rows
+    cal = plan_calibrate_module()
+    with open(os.path.join(os.path.dirname(path), planner.CALIBRATION_RECORD),
+              encoding="utf-8") as f:
+        record = json.load(f)
+    fresh = cal.measure_cheap(dev)
+    record.update(fresh)
+    with open(os.path.join(work_dir, planner.CALIBRATION_RECORD), "w", encoding="utf-8") as f:
+        json.dump(record, f)
+    rows = planner.drift_check(plan, root=work_dir)
+    for row in rows:
+        emit("slice_plan", part="drift", **row, card=card)
+    bad = [r for r in rows if r["status"] in PLAN_DRIFT_FAIL]
+    emit("slice_plan", part="summary", remeasured={k: v["value"] for k, v in fresh.items()},
+         drift={r["anchor"]: r["status"] for r in rows}, worst_parity=worst,
+         seconds=time.perf_counter() - t_phase, card=card)
+    check(all(v["bit_exact_vs_direct"] for k, v in fresh.items() if k != "serve_kernel_ms"),
+          "slice_plan: a calibration burst's answers differ from transform")
+    check(rows and not bad, f"slice_plan: drift rows {bad or rows}")
+    return {"launches": launches, "worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -5388,6 +5572,28 @@ def main() -> int:
                 serve_by_path[route][path] = c[key]
     for route in ("bf16", "i8", "f32"):
         serve_err[route] = max(serve_err[route], cli_phase["worst"][route])
+
+    # 21. the planner: the committed plan through the command line at its
+    # widths, and the cheap calibration terms against its drift anchors
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_", dir=build_dir) as work_dir:
+        plan_phase = slice_plan(dev, card, work_dir)
+    for what, c in plan_phase["launches"].items():
+        path = f"slice_plan {what}"
+        for by_path, n in ((f32_by_path, c["gram"] - c["gram_bf16_tma"]),
+                           (bf16_by_path, c["gram_bf16_tma"]), (s8_by_path, c["gram_s8"])):
+            if n:
+                by_path[path] = n
+        if c["serve_f32"]:
+            serve_by_path["f32"][path] = c["serve_f32"]
+        mg_launches += c["matvec_gram"]
+    for route in ("bf16", "i8", "f32"):
+        serve_err[route] = max(serve_err[route], plan_phase["worst"][route])
+    mg_err = max(mg_err, plan_phase["worst"].get("matvec_gram", 0.0))
+    mesh_gram = analysis_launches["mesh_gram"]
+    if mesh_gram["bf16_tma"]:
+        bf16_by_path["analysis mesh programs (rank 0 of 4 gloo ranks)"] = mesh_gram["bf16_tma"]
+    if mesh_gram["other"]:
+        f32_by_path["analysis mesh programs (rank 0 of 4 gloo ranks)"] = mesh_gram["other"]
 
     def row(name, shape, dtype, launches, also=()):
         t = timing[(shape, dtype)]

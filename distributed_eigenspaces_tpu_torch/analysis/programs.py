@@ -2,22 +2,38 @@
 audit-sized shapes, on the device asked for.
 
 Counterpart of ``distributed_eigenspaces_tpu/analysis/programs.py``, with
-its names and audit shapes (d=64, k=2, 16 rows for serve; 1024 / 256 / 8 /
-32 for the kernels). A :class:`BuiltProgram` holds the callable, its inputs,
-the buffers one call of it materialized (:func:`trace_buffers`) and the
+its names and audit shapes (d=64, k=2, m=4, n=8, T=3; d=128 on the
+features path; B=8; cohort 16; 16 rows for serve; 1024 / 256 / 8 / 32 for
+the kernels). A :class:`BuiltProgram` holds what one call of the program
+did: the buffers it materialized (:func:`trace_buffers`), its FLOPs
+(``FlopCounterMode``), the collectives it handed to ``torch.distributed``
+(``parallel.mesh.recording_collectives``) and the
 :class:`~..ops.geometry.KernelLaunch` records of its hand-written kernels:
 
 - on the card the program really runs, under :func:`~..ops.geometry.
   recording`, so the records are the launches it made (``torch.profiler``
   holds them against the card in ``chip_smoke.py``);
 - on the CPU the kernels cannot run; the program runs its plain versions
-  for the buffer trace, and its records come from the ``*_launch``
-  functions at the same shapes — what the JAX audit gets from
-  ``interpret=True``: the blocks, not the execution.
+  for the buffer trace, and a single-device program's records come from
+  the ``*_launch`` functions at the same shapes — what the JAX audit gets
+  from ``interpret=True``: the blocks, not the execution.
 
-The scan, tree, fleet, feature-sharded, dist and deflation programs of the
-JAX matrix wait for ROADMAP Queue 1 item 17b (the multi-device trainers
-they read are ported).
+:data:`PROGRAMS` run in this process. :data:`MESH_PROGRAMS` — the scan
+family, the tree, the feature-sharded cores, the fleet and the cohort
+reduce — run on a mesh of :data:`MESH_RANKS` gloo ranks that
+:func:`build_matrix` starts with ONE ``parallel.mesh.launch`` for all of
+them and for the seeded mesh mutations (on the card the ranks share it, as
+``chip_smoke.py``'s ``slice_tree_ranks4`` does). Where the reference takes
+8 devices the port keeps 4 ranks and says so in ``ProgramParams``: the
+features cores on workers 2 x features 2, the fleet with 2 tenants a rank,
+the cohort of 16 over 4 ranks; the bounds are evaluated at the params of
+the mesh that ran. Rank 0's run forms the ``BuiltProgram``; every other
+rank's collective records are held against it (``schedule_diffs``). The
+matrix is built once a process and device type (the reference caches its
+builds the same way).
+
+The row-sharded serve, dist and deflation programs wait for ROADMAP Queue 1
+item 17c.
 """
 
 from __future__ import annotations
@@ -34,9 +50,15 @@ from distributed_eigenspaces_tpu_torch.analysis.contracts import ProgramParams
 from distributed_eigenspaces_tpu_torch.device import resolve_device
 from distributed_eigenspaces_tpu_torch.ops.geometry import KernelLaunch, recording
 
-# audit shapes: d=64 serve, every other dimension well below it
-_D, _K = 64, 2
+# audit shapes: d=64 solo / fleet / serve, d=128 over 2 feature shards
+# (d_local=64); everything else well below 64
+_D, _K, _M, _N, _T = 64, 2, 4, 8, 3
+_FEAT_D = 128
+_FLEET_B = 8
+_COHORT = 16
 _SERVE_ROWS = 16
+#: the ranks every mesh program runs on (the reference's 8 virtual devices)
+MESH_RANKS = 4
 # kernel-audit shapes: LARGE enough that a full-operand block is
 # distinguishable from a tile — and the legit kernels sit far under the
 # 131072-elem budget that the mutant's full (rows, d) CTA (262144) trips
@@ -50,7 +72,9 @@ class BuiltProgram:
     name: str
     contract: str  # key into contracts.CONTRACTS
     params: ProgramParams
-    fn: Callable
+    #: the callable and its inputs (None / () for a mesh program, which ran
+    #: in the ranks of a launch)
+    fn: Callable | None
     args: tuple
     device: torch.device
     #: the hand-written kernels' launches (recorded on the card, declared
@@ -58,9 +82,17 @@ class BuiltProgram:
     launches: tuple[KernelLaunch, ...]
     #: ``(where, shape, dtype)`` of every input and every aten op output
     buffers: tuple
-    #: the CUDA source whose kernel the program audits, if any
+    #: the source whose kernel or trainer the program audits
     source: str | None = None
     output: Any = None
+    #: the collectives the call handed to ``torch.distributed`` (rank 0's),
+    #: as ``parallel.mesh.recording_collectives`` records them
+    collectives: tuple = ()
+    #: FLOPs of the call as ``torch.utils.flop_counter`` counts them, on the
+    #: CPU (0 on the card, whose hand kernels it cannot see)
+    flops: int = 0
+    #: how another rank's collective schedule differed from rank 0's
+    schedule_diffs: tuple = ()
 
 
 class _BufferTrace(TorchDispatchMode):
@@ -99,20 +131,38 @@ def _orthonormal(d: int, k: int, seed: int, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(device)
 
 
-def _built(name, contract, params, fn, args, declare, source, device):
-    """Run ``fn(*args)`` once under the buffer trace; on the card also
-    under the launch recorder, on the CPU take ``declare(*args)``."""
-    if device.type == "cuda":
-        with recording() as launches:
+def _run_traced(fn, args, device):
+    """``(out, buffers, flops, collectives, launches)`` of one call of
+    ``fn(*args)`` under the buffer trace, the collective recorder and, on
+    the card, the launch recorder; on the CPU under the FLOP counter too
+    (on the card it would count none of the hand kernels' FLOPs, and its
+    formulas do not take ``torch.bmm``'s ``out_dtype``: 0 there)."""
+    import contextlib
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    counter = FlopCounterMode(display=False) if device.type == "cpu" else None
+    with recording() as launches, pmesh.recording_collectives() as log:
+        with counter or contextlib.nullcontext():
             out, buffers = trace_buffers(fn, *args)
+    if device.type == "cuda":
         torch.cuda.synchronize(device)
-    else:
-        out, buffers = trace_buffers(fn, *args)
-        launches = declare(*args)
+    flops = int(counter.get_total_flops()) if counter is not None else 0
+    return out, buffers, flops, tuple(log), tuple(launches)
+
+
+def _built(name, contract, params, fn, args, declare, source, device):
+    """Run ``fn(*args)`` once (:func:`_run_traced`); on the CPU the kernel
+    records are ``declare(*args)``."""
+    out, buffers, flops, log, launches = _run_traced(fn, args, device)
+    if device.type != "cuda":
+        launches = tuple(declare(*args))
     return BuiltProgram(
         name=name, contract=contract, params=params, fn=fn, args=args,
-        device=device, launches=tuple(launches), buffers=buffers,
-        source=source, output=out,
+        device=device, launches=launches, buffers=buffers,
+        source=source, output=out, collectives=log, flops=flops,
     )
 
 
@@ -184,7 +234,8 @@ def _kernel_program(name: str, kind: str):
     return build
 
 
-#: name -> build function taking the device. The ORDER is the report order.
+#: name -> build function taking the device: the programs that run in this
+#: process
 PROGRAMS: dict[str, Callable[[torch.device], BuiltProgram]] = {
     "serve_project_solo": _serve_program("serve_project_solo"),
     "pallas_serve_project_bf16": _kernel_program(
@@ -197,9 +248,315 @@ PROGRAMS: dict[str, Callable[[torch.device], BuiltProgram]] = {
 }
 
 
+# -- the mesh programs ---------------------------------------------------------
+
+
+def _cfg(**kw):
+    from distributed_eigenspaces_tpu_torch.config import PCAConfig
+
+    base = dict(
+        dim=_D, k=_K, num_workers=_M, rows_per_worker=_N, num_steps=_T,
+        solver="subspace", subspace_iters=2, warm_start_iters=1,
+        compute_dtype="bfloat16",
+    )
+    base.update(kw)
+    return PCAConfig(**base)
+
+
+#: this rank's meshes, by layout: a ``DeviceMesh`` a layout, made once
+_RANK_MESHES: dict = {}
+
+
+def rank_mesh(kind: str, device, cfg=None):
+    """This rank's mesh of one layout of the matrix (made once a launch):
+    ``"workers"`` (4 workers), ``"tiered"`` (chip 2 x host 2),
+    ``"features"`` (``auto_feature_mesh``: workers 2 x features 2) or
+    ``"fleet"`` (``fleet_mesh(8)``: 2 tenants a rank)."""
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    if kind not in _RANK_MESHES:
+        if kind == "workers":
+            mesh = pmesh.make_mesh(num_workers=MESH_RANKS, device=device)
+        elif kind == "tiered":
+            from distributed_eigenspaces_tpu_torch.parallel import topology as tp
+
+            topo = tp.MergeTopology((("chip", 2), ("host", 2)))
+            mesh = tp.make_tiered_mesh(topo, device=device)
+        elif kind == "features":
+            mesh = pmesh.auto_feature_mesh(cfg, device)
+        else:
+            from distributed_eigenspaces_tpu_torch.parallel.fleet import fleet_mesh
+
+            mesh = fleet_mesh(_FLEET_B, device=device)
+        _RANK_MESHES[kind] = mesh
+    return _RANK_MESHES[kind]
+
+
+def _steps(device) -> torch.Tensor:
+    """The scan and tree programs' ``(T, m, n, d)`` bf16 schedule: the same
+    seeded draw on every rank (each places its own workers)."""
+    return _normal((_T, _M, _N, _D), 7, "cpu").to(torch.bfloat16).to(device)
+
+
+def _scan_mesh(masked: bool = False, **cfg_kw):
+    def build(rank, world, device):
+        from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+        from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
+
+        cfg = _cfg(**cfg_kw)
+        fit = make_scan_fit(cfg, mesh=rank_mesh("workers", device), device=device,
+                            masked=masked)
+        args = (OnlineState.initial(_D, device=device), _steps(device))
+        if masked:
+            args += (torch.ones((_T, _M)),)
+        params = ProgramParams(d=_D, k=_K, m=_M, n=_N, T=_T, n_workers_mesh=world)
+        return fit, args, params
+
+    return "scan_fit", "algo/scan.py", build
+
+
+def _tree_mesh(masked: bool = False, wire: dict | None = None):
+    """The tiered tree fit on chip 2 x host 2 (the reference's topology, on
+    4 ranks as on its 4 workers). The bound shows the tree's point:
+    max(d*k, (f*k)^2) = 128 elems against the flat stack's m*d*k = 512.
+    ``wire`` runs the same fit under a ``merge_wire_dtype`` policy, whose
+    codecs the ``collective-wire-dtype`` rule audits on the data movers."""
+
+    def build(rank, world, device):
+        from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+        from distributed_eigenspaces_tpu_torch.algo.scan import make_scan_fit
+        from distributed_eigenspaces_tpu_torch.parallel.topology import resolve_topology
+        from distributed_eigenspaces_tpu_torch.parallel.wire import resolve_wire_policy
+
+        cfg = _cfg(merge_topology=(("chip", 2), ("host", 2)), merge_wire_dtype=wire)
+        topo = resolve_topology(cfg)
+        fit = make_scan_fit(cfg, mesh=rank_mesh("tiered", device), device=device,
+                            masked=masked)
+        args = (OnlineState.initial(_D, device=device), _steps(device))
+        if masked:
+            args += (torch.ones((_T, _M)),)
+        params = ProgramParams(
+            d=_D, k=_K, m=_M, n=_N, T=_T, n_workers_mesh=world,
+            tier_fan_ins=topo.fan_ins, tier_axes=topo.names,
+            tier_wire_dtypes=resolve_wire_policy(cfg, topo) or (),
+        )
+        return fit, args, params
+
+    return "tree_merge", "parallel/topology.py", build
+
+
+def _feature_mesh(kind: str):
+    def build(rank, world, device):
+        from distributed_eigenspaces_tpu_torch.parallel import feature_sharded as fs
+        from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+        cfg = _cfg(dim=_FEAT_D, backend="feature_sharded")
+        mesh = rank_mesh("features", device, cfg)
+        mk = (fs.make_feature_sharded_scan_fit if kind == "scan"
+              else fs.make_feature_sharded_sketch_fit)
+        fit = mk(cfg, mesh, device=device)
+        blocks = _normal((3, _M, _N, _FEAT_D), 8, "cpu").to(torch.bfloat16)
+        idx = torch.arange(2 * _T) % 3
+        params = ProgramParams(
+            d=_FEAT_D, k=_K, m=_M, n=_N, T=2 * _T,
+            n_feature_shards=mesh.axis_size(pmesh.FEATURE_AXIS),
+            n_workers_mesh=mesh.axis_size(pmesh.WORKER_AXIS),
+            sketch_width=int(getattr(fit, "sketch_width", 0) or 0),
+        )
+        return fit, (fit.init_state(), blocks.to(device), idx), params
+
+    return "feature_sharded", "parallel/feature_sharded.py", build
+
+
+def _fleet_mesh(masked: bool = False):
+    def build(rank, world, device):
+        from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+        cfg = _cfg()
+        mesh = rank_mesh("fleet", device)
+        per = _FLEET_B // world
+        mine = slice(rank * per, (rank + 1) * per)
+        fit = fleet.make_fleet_fit(cfg, mesh, masked=masked, device=device)
+        xs = _normal((_FLEET_B, _T, _M, _N, _D), 9, "cpu")[mine].to(torch.bfloat16)
+        args = (fleet.init_fleet_states(cfg, per, device=device), xs.to(device))
+        if masked:
+            args += (torch.ones((per, _T, _M)),)
+        args += (torch.ones((per, _T)),)
+        params = ProgramParams(d=_D, k=_K, m=_M, n=_N, T=_T, B=_FLEET_B,
+                               n_workers_mesh=world)
+        return fit, args, params
+
+    return "fleet_fit", "parallel/fleet.py", build
+
+
+def _population_mesh():
+    """The cohort reduce: the hardened merge of one sampled cohort's (d, k)
+    client bases, cohort-sharded over the workers axis — ONE all-gather of
+    the (cohort, d, k) stack, a function of the cohort, never the
+    population."""
+
+    def build(rank, world, device):
+        from distributed_eigenspaces_tpu_torch.parallel.clients import (
+            make_sharded_cohort_reduce,
+        )
+
+        cfg = _cfg(population=1024, cohort_size=_COHORT, max_poison_frac=0.1)
+        reduce = make_sharded_cohort_reduce(cfg, rank_mesh("workers", device))
+        q, _ = torch.linalg.qr(_normal((_COHORT, _D, _K), 10, "cpu"))
+        per = _COHORT // world
+        mine = slice(rank * per, (rank + 1) * per)
+        args = (q[mine].contiguous().to(device), torch.ones(per).to(device))
+        params = ProgramParams(d=_D, k=_K, m=_COHORT, n_workers_mesh=world)
+        return reduce, args, params
+
+    return "population_merge", "parallel/clients.py", build
+
+
+#: name -> ``(contract, source, build(rank, world, device) -> (fn, args,
+#: params))``: the programs that run on a mesh of ranks. With
+#: :data:`PROGRAMS`, the reference's report order is :data:`MATRIX`.
+MESH_PROGRAMS: dict[str, tuple] = {
+    # solo scan family x pipeline x merge_interval
+    "scan_solo": _scan_mesh(),
+    "scan_pipelined": _scan_mesh(pipeline_merge=True),
+    "scan_interval2": _scan_mesh(merge_interval=2),
+    "scan_pipelined_interval2": _scan_mesh(pipeline_merge=True, merge_interval=2),
+    "scan_masked": _scan_mesh(masked=True),
+    "scan_masked_interval2": _scan_mesh(masked=True, merge_interval=2),
+    # tiered-mesh tree merge
+    "tree_fit": _tree_mesh(),
+    "tree_fit_masked": _tree_mesh(masked=True),
+    "tree_fit_wire": _tree_mesh(wire={"chip": "bf16", "host": "int8"}),
+    # feature-sharded cores
+    "feature_scan": _feature_mesh("scan"),
+    "feature_sketch": _feature_mesh("sketch"),
+    # fleet (B > 1, sharded over the workers axis)
+    "fleet_b8": _fleet_mesh(),
+    "fleet_b8_masked": _fleet_mesh(masked=True),
+    # population cohort reduce
+    "population_reduce": _population_mesh(),
+}
+
+#: every audited program, in the reference's report order
+MATRIX: tuple[str, ...] = (
+    "scan_solo", "scan_pipelined", "scan_interval2", "scan_pipelined_interval2",
+    "scan_masked", "scan_masked_interval2", "tree_fit", "tree_fit_masked",
+    "tree_fit_wire", "feature_scan", "feature_sketch", "fleet_b8", "fleet_b8_masked",
+    "serve_project_solo", "population_reduce", "pallas_serve_project_bf16",
+    "pallas_serve_project_i8", "pallas_matvec_gram",
+)
+
+
+def _schedule(log) -> list:
+    return [(r["op"], r["axis"], r["dtype"], tuple(r["shape"]), r["group_size"], r["tag"])
+            for r in log]
+
+
+def _mesh_rank(rank: int, world: int, device_type: str, names, mutants) -> dict:
+    """One rank of :func:`build_matrix`'s launch: every mesh program of
+    ``names`` once, then every seeded mesh mutation of ``mutants``, each
+    under the collective recorder. Rank 0 returns the whole record of each
+    (buffers, FLOPs, launches, collectives); the others their collective
+    schedules, which the parent holds against rank 0's."""
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    device = resolve_device(device_type)
+    out: dict = {"programs": {}, "mutants": {}}
+    for name in names:
+        contract, source, build = MESH_PROGRAMS[name]
+        fn, args, params = build(rank, world, device)
+        if rank == 0:
+            _, buffers, flops, log, launches = _run_traced(fn, args, device)
+            out["programs"][name] = dict(
+                contract=contract, source=source, params=params, buffers=buffers,
+                flops=flops, collectives=log, launches=launches)
+        else:
+            with pmesh.recording_collectives() as log:
+                fn(*args)
+            out["programs"][name] = dict(collectives=tuple(log))
+    if mutants:
+        from distributed_eigenspaces_tpu_torch.analysis.mutations import MESH_SEEDS
+
+        for name in mutants:
+            with pmesh.recording_collectives() as log:
+                MESH_SEEDS[name](device)
+            out["mutants"][name] = tuple(log)
+    pmesh.barrier()
+    return out
+
+
+def _diffs(mine, theirs, rank: int) -> list[str]:
+    a, b = _schedule(mine), _schedule(theirs)
+    if a == b:
+        return []
+    at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return [f"rank {rank} recorded {len(b)} collectives against rank 0's {len(a)}; "
+            f"first difference at call {at}: rank 0 "
+            f"{a[at] if at < len(a) else None} vs rank {rank} "
+            f"{b[at] if at < len(b) else None}"]
+
+
+#: device type -> (built mesh programs, rank 0's records of each mutant)
+_MESH_BUILT: dict[str, tuple[dict, dict]] = {}
+
+
+def _mesh_matrix(device: torch.device, timeout: float) -> tuple[dict, dict]:
+    """Every mesh program and seeded mesh mutation, from ONE launch of
+    :data:`MESH_RANKS` gloo ranks on ``device``'s type (cached a process)."""
+    if device.type in _MESH_BUILT:
+        return _MESH_BUILT[device.type]
+    from distributed_eigenspaces_tpu_torch.analysis.mutations import MESH_SEEDS
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    names, mutants = list(MESH_PROGRAMS), list(MESH_SEEDS)
+    ranks = pmesh.launch(_mesh_rank, MESH_RANKS, device.type, names, mutants,
+                         backend="gloo", timeout=timeout)
+    built = {}
+    for name in names:
+        r0 = ranks[0]["programs"][name]
+        diffs = [d for r in range(1, MESH_RANKS)
+                 for d in _diffs(r0["collectives"], ranks[r]["programs"][name]["collectives"], r)]
+        built[name] = BuiltProgram(
+            name=name, contract=r0["contract"], params=r0["params"], fn=None, args=(),
+            device=device, launches=r0["launches"], buffers=r0["buffers"],
+            source=r0["source"], collectives=r0["collectives"], flops=r0["flops"],
+            schedule_diffs=tuple(diffs),
+        )
+    recorded = {name: ranks[0]["mutants"][name] for name in mutants}
+    _MESH_BUILT[device.type] = (built, recorded)
+    return built, recorded
+
+
+def build_matrix(names=None, *, device="cuda", timeout: float = 600.0):
+    """Build and run the programs ``names`` (default: the whole
+    :data:`MATRIX`) on ``device`` (``"cuda"`` unless the caller asks for
+    the CPU; raises without a card). Returns ``(built, mutant_records)``:
+    name -> :class:`BuiltProgram`, and the seeded mesh mutations' rank-0
+    collective records (``mutations.MESH_SEEDS``), which the same launch
+    ran. Any mesh program asked for starts that one launch (once a process
+    and device type)."""
+    dev = resolve_device(device)
+    names = list(MATRIX if names is None else names)
+    unknown = [n for n in names if n not in PROGRAMS and n not in MESH_PROGRAMS]
+    if unknown:
+        raise KeyError(f"unknown program {unknown[0]!r}; matrix: {sorted(MATRIX)}")
+    mesh_built, recorded = ({}, {})
+    if any(n in MESH_PROGRAMS for n in names):
+        mesh_built, recorded = _mesh_matrix(dev, timeout)
+    built = {n: mesh_built[n] if n in MESH_PROGRAMS else PROGRAMS[n](dev) for n in names}
+    return built, recorded
+
+
+def mesh_mutant_records(device="cuda") -> dict:
+    """Rank 0's collective records of every seeded mesh mutation, from the
+    matrix's launch (made now if this process has not made it)."""
+    return _mesh_matrix(resolve_device(device), 600.0)[1]
+
+
 def build_program(name: str, device="cuda") -> BuiltProgram:
     """Build and run one audited program by matrix name on ``device``
-    (``"cuda"`` unless the caller asks for the CPU; raises without a card)."""
-    if name not in PROGRAMS:
-        raise KeyError(f"unknown program {name!r}; matrix: {sorted(PROGRAMS)}")
-    return PROGRAMS[name](resolve_device(device))
+    (``"cuda"`` unless the caller asks for the CPU; raises without a card).
+    A mesh program comes from the matrix's one launch."""
+    if name not in PROGRAMS and name not in MESH_PROGRAMS:
+        raise KeyError(f"unknown program {name!r}; matrix: {sorted(MATRIX)}")
+    return build_matrix([name], device=device)[0][name]

@@ -11,8 +11,10 @@ publish to the versioned registry, serve a micro-batched burst through
 ``serving.QueryServer``; exit 1 unless every served row equals the direct
 projection bit for bit), ``oneshot`` / ``master`` (one merge round) and
 ``slave`` (explains itself and exits 2). Every validation exit of the
-reference exits 2 here with the same flag named; ``--plan`` exits 2 too,
-until ``analysis/planner.py`` is ported (ROADMAP.md Queue 1 item 17b).
+reference exits 2 here with the same flag named. ``--plan PATH`` applies a
+``plan-v1`` artifact as the reference's does: its self-check runs first
+(any violation exits 2), then its workload fields and chosen
+``config_overrides`` become the flags, with one ``note:`` line on stderr.
 
 The port runs one process on one card; ranks of a mesh meet over
 ``torch.distributed``. ``--data synthetic`` draws its rows on the device
@@ -34,8 +36,6 @@ import sys
 import time
 
 import numpy as np
-
-from distributed_eigenspaces_tpu_torch.config import PLANNER_ITEM
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1495,15 +1495,60 @@ def _merge_topology(args):
     return tuple(parsed), 0
 
 
+def _apply_plan(args) -> int:
+    """``--plan PATH``: load the ``plan-v1`` artifact, run its self-check
+    (exit 2 on any violation: a plan that fails its own audit is stale or
+    hand-edited), then copy its workload fields and chosen
+    ``config_overrides`` onto the flags and print the ``note:`` line, as
+    the reference's CLI does. Returns 0 or the exit code."""
+    from distributed_eigenspaces_tpu_torch.analysis import planner
+
+    plan = planner.load_plan(args.plan)
+    if plan is None:
+        print(f"error: --plan {args.plan}: no such plan artifact", file=sys.stderr)
+        return 2
+    viols = planner.self_check(plan)
+    if viols:
+        for v in viols:
+            print(f"error: --plan {args.plan}: {v.format()}", file=sys.stderr)
+        return 2
+    workload = plan.get("workload") or {}
+    for field, attr in (
+        ("m", "workers"), ("k", "rank"), ("d", "dim"),
+        ("n", "rows_per_worker"), ("slo_p99_ms", "slo_p99_ms"),
+    ):
+        if workload.get(field) is not None:
+            setattr(args, attr, workload[field])
+    over = (plan.get("chosen") or {}).get("config_overrides") or {}
+    for knob, attr in (
+        ("merge_interval", "merge_interval"),
+        ("pipeline_merge", "pipeline_merge"),
+        ("replicas", "replicas"),
+        ("serve_bucket_size", "serve_bucket"),
+        ("serve_continuous", "serve_continuous"),
+        ("serve_flush_s", "serve_flush_s"),
+    ):
+        if knob in over:
+            setattr(args, attr, over[knob])
+    if over.get("merge_topology"):
+        args.merge_topology = ",".join(
+            f"{name}:{fan}" for name, fan in over["merge_topology"]
+        )
+    print(
+        f"note: --plan {args.plan}: applied {plan['plan_id']} "
+        f"({', '.join(sorted(over))})",
+        file=sys.stderr,
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     if args.plan:
-        return _error(
-            f"--plan {args.plan}: the planner (analysis/planner.py) is not "
-            "ported to distributed_eigenspaces_tpu_torch yet "
-            f"(ROADMAP.md {PLANNER_ITEM})"
-        )
+        err = _apply_plan(args)
+        if err:
+            return err
     err = _validate(args)
     if err:
         return err
@@ -1617,6 +1662,7 @@ def main(argv=None) -> int:
         cohort_size=args.cohort_size,
         min_participation_frac=args.min_participation_frac,
         max_poison_frac=args.max_poison_frac,
+        plan_path=args.plan,
     )
 
     if args.mode == "serve":

@@ -36,11 +36,6 @@ def _is_integer_dtype(dtype) -> bool:
         return False
 
 
-#: the ROADMAP.md item the planner (``plan_path``, the CLI's ``--plan``)
-#: waits for
-PLANNER_ITEM = "Queue 1 item 17b (analysis/planner.py)"
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to distributed_eigenspaces_tpu_torch yet "
@@ -193,9 +188,10 @@ class PCAConfig:
         one window of hold before it is judged; None switches it off.
       controller_max_actions: the autoscaler's budget of actions and
         rollbacks; spent, it freezes with a ``budget_exhausted`` decision.
-      plan_path: path of a ``plan-v1`` JSON artifact, or None. The planner
-        reads the file, so a path is validated, then refused until
-        ``analysis/planner.py`` is ported (ROADMAP.md Queue 1 item 17b).
+      plan_path: path of the ``plan-v1`` artifact (``analysis/planner.py``)
+        the config was applied from, or None: provenance only (the CLI's
+        ``--plan`` copies the plan's knobs onto the config itself); a path
+        must be a non-empty string.
     """
 
     dim: int
@@ -446,10 +442,6 @@ class PCAConfig:
                 f"plan_path must be a non-empty path string or None, "
                 f"got {self.plan_path!r}"
             )
-        # a valid plan path is refused until the planner is ported, so that
-        # it is not accepted and silently ignored
-        if self.plan_path is not None:
-            raise _not_ported("plan_path (the plan artifact)", PLANNER_ITEM)
 
     def _validate_topology(self) -> None:
         """The reference's checks and normal forms of ``merge_topology`` and

@@ -410,11 +410,14 @@ def _staged(group, x: torch.Tensor):
 def recording_collectives():
     """Record every collective handed to ``torch.distributed`` inside the
     block: yields a list that gets one dict a call, ``{"op", "axis",
-    "dtype", "elements", "bytes", "group_size", "tag"}``, with ``elements``
-    and ``bytes`` those of the tensor this rank handed over (an
+    "dtype", "elements", "bytes", "group_size", "tag", "shape"}``, with
+    ``elements`` and ``bytes`` those of the tensor this rank handed over (an
     all-gather's own shard, an all-to-all's whole send buffer, a
-    permute's block) and ``tag`` the caller's label of a side payload
-    (an int8 scale sidecar, a weight vector) or None. What runs no
+    permute's block), ``shape`` the collective's result on this rank (a
+    gather's whole output, else the tensor's own shape: what a compiled
+    program's collective instruction carries) and ``tag`` the caller's
+    label of a side payload (an int8 scale sidecar, a weight vector) or
+    None. What runs no
     communication is not recorded: anything in one process without a
     group, and a sum, all-to-all or permute over a one-rank axis."""
     log: list = []
@@ -426,12 +429,13 @@ def recording_collectives():
 
 
 def _record(op: str, axis_name: str, x: torch.Tensor, group_size: int,
-            tag=None) -> None:
+            tag=None, shape=None) -> None:
     if not _RECORDERS:
         return
     rec = {"op": op, "axis": axis_name, "dtype": str(x.dtype).replace("torch.", ""),
            "elements": x.numel(), "bytes": x.numel() * x.element_size(),
-           "group_size": group_size, "tag": tag}
+           "group_size": group_size, "tag": tag,
+           "shape": list(x.shape if shape is None else shape)}
     for log in _RECORDERS:
         log.append(dict(rec))
 
@@ -474,7 +478,9 @@ def all_gather(x: torch.Tensor, axis_name: str, *, tiled: bool = True,
         return x if tiled else x[None]
     group = mesh.group(axis_name)
     x = x.detach().contiguous()
-    _record("all_gather", axis_name, x, mesh.axis_size(axis_name), tag)
+    g = mesh.axis_size(axis_name)
+    whole = ((g * x.shape[0], *x.shape[1:]) if tiled and x.dim() else (g, *x.shape))
+    _record("all_gather", axis_name, x, g, tag, whole)
     buf, back = _staged(group, x)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)

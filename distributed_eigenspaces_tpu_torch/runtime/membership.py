@@ -163,8 +163,13 @@ class MembershipTable:
 
     # -- state machine -------------------------------------------------------
 
-    def heartbeat(self, slot: int) -> None:
-        """Renew ``slot``'s lease. A suspect worker recovers to live
+    def clock(self) -> float:
+        """The table's clock now (``time.monotonic`` unless injected)."""
+        return self._clock()
+
+    def heartbeat(self, slot: int, now: float | None = None) -> None:
+        """Renew ``slot``'s lease, stamped ``now`` (default: the clock).
+        A suspect worker recovers to live
         (it never stopped owning the slot); a dead slot's heartbeat is
         ignored LOUDLY — the worker must :meth:`join` again (its lease
         was released; the slot may have been re-claimed)."""
@@ -173,7 +178,7 @@ class MembershipTable:
             if st == "dead":
                 self._record("stale_heartbeat", slot)
                 return
-            self._stamp[slot] = self._clock()
+            self._stamp[slot] = self._clock() if now is None else now
             if st == "suspect":
                 self._state[slot] = "live"
                 self._record("recovered", slot)
@@ -217,13 +222,14 @@ class MembershipTable:
             self._stamp[slot] = self._clock()
             self._record("leave", slot)
 
-    def sweep(self) -> list[dict]:
-        """Apply lease expiry at the current clock: live slots past the
-        heartbeat timeout go suspect; suspects past the grace go dead.
-        Returns the transition events (also recorded)."""
+    def sweep(self, now: float | None = None) -> list[dict]:
+        """Apply lease expiry at ``now`` (default: the clock): live slots
+        past the heartbeat timeout go suspect; suspects past the grace go
+        dead. Returns the transition events (also recorded)."""
         out = []
         with self._lock:
-            now = self._clock()
+            if now is None:
+                now = self._clock()
             for i, st in enumerate(self._state):
                 if st == "live" and (
                     now - self._stamp[i] > self.heartbeat_timeout_s
@@ -242,13 +248,15 @@ class MembershipTable:
                     out.append(self._record("dead", i))
         return out
 
-    def admit_pending(self) -> list[int]:
-        """Admit every *joining* slot to live with a fresh lease — the
-        round-boundary half of the join protocol (also run by the
-        quorum wait: the resume IS the next round)."""
+    def admit_pending(self, now: float | None = None) -> list[int]:
+        """Admit every *joining* slot to live with a fresh lease (stamped
+        ``now``, default the clock) — the round-boundary half of the join
+        protocol (also run by the quorum wait: the resume IS the next
+        round)."""
         admitted = []
         with self._lock:
-            now = self._clock()
+            if now is None:
+                now = self._clock()
             for i, st in enumerate(self._state):
                 if st == "joining":
                     self._state[i] = "live"
@@ -257,15 +265,16 @@ class MembershipTable:
                     self._record("admit", i)
         return admitted
 
-    def begin_round(self, step: int) -> np.ndarray:
-        """Round boundary: sweep leases, admit pending joiners, return
+    def begin_round(self, step: int, now: float | None = None) -> np.ndarray:
+        """Round boundary at ``now`` (default: the clock): sweep leases,
+        admit pending joiners, return
         the round's membership mask. Raises :class:`QuorumLost` when
         live membership is below ``min_quorum_frac`` — the bounded-time
         loud failure (lease expiry is at most one heartbeat timeout
         behind the crash; the deadline bounds the round)."""
         with self._lock:
-            self.sweep()
-            self.admit_pending()
+            self.sweep(now)
+            self.admit_pending(now)
             if not self.quorum_ok():
                 self._record(
                     "quorum_lost", step=step, live=self.live_count(),
@@ -473,11 +482,15 @@ class ElasticStream:
                 table.leave(s)
         # heartbeats from every simulated-alive worker, then the round
         # boundary: sweep (kills surface as suspect→dead once their
-        # lease runs out), admit joiners, quorum check
+        # lease runs out), admit joiners, quorum check. One clock reading
+        # for both: the simulated workers beat at the boundary itself, so
+        # a stall of this process between the two (a collection pause,
+        # another thread holding the interpreter) expires no live lease
+        now = table.clock()
         for s in range(table.num_workers):
             if s not in self._sim_dead and table.state(s) != "dead":
-                table.heartbeat(s)
-        member_mask = table.begin_round(t)
+                table.heartbeat(s, now)
+        member_mask = table.begin_round(t, now)
         if churn is not None:
             rejoins = churn.rejoin_at.get(t, ())
             if rejoins:

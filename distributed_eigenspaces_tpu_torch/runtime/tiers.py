@@ -83,9 +83,9 @@ class TierTable(MembershipTable):
         detail.setdefault("tier", self.tier)
         return super()._record(kind, slot, **detail)
 
-    def begin_round(self, step):
+    def begin_round(self, step, now=None):
         try:
-            return super().begin_round(step)
+            return super().begin_round(step, now)
         except TierQuorumLost:
             raise
         except QuorumLost as ql:
@@ -264,10 +264,13 @@ class TierSet:
             for s in plan.leave_at.get(step, ()):
                 sim_dead.add(s)
                 table.leave(s)
+        # one clock reading for the members' beats and the sweep, as the
+        # leaf stream does
+        now = table.clock()
         for s in range(table.num_workers):
             if s not in sim_dead and table.state(s) != "dead":
-                table.heartbeat(s)
-        member_mask = table.begin_round(step)  # may raise TierQuorumLost
+                table.heartbeat(s, now)
+        member_mask = table.begin_round(step, now)  # may raise TierQuorumLost
         if plan is not None:
             rejoins = plan.rejoin_at.get(step, ())
             if rejoins:

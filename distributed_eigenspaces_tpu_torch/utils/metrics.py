@@ -19,10 +19,9 @@ controller layers, each folded into ``summary()``:
   p99 targets (``cfg.serve_slo_p99_ms`` / ``cfg.fleet_slo_p99_ms``);
 - an attached :class:`~.telemetry.Tracer` (:meth:`MetricsLogger.
   attach_tracer`) receives per-step spans, so the exported Chrome trace
-  covers fit, serve, fleet, drift and fault events together.
-
-Not ported: ``attach_analysis`` (``engine_report``, ROADMAP.md Queue 1
-item 17b) refuses.
+  covers fit, serve, fleet, drift and fault events together;
+- an attached analysis verdict (:meth:`MetricsLogger.attach_analysis`,
+  ``analysis.report.engine_report``) rides in ``summary()["analysis"]``.
 """
 from __future__ import annotations
 
@@ -33,7 +32,6 @@ from typing import IO
 
 import numpy as np
 
-from distributed_eigenspaces_tpu_torch.config import _not_ported
 from distributed_eigenspaces_tpu_torch.utils.telemetry import (
     Histogram,
     RingLog,
@@ -338,10 +336,13 @@ class MetricsLogger:
         return self
 
     def attach_analysis(self, report) -> "MetricsLogger":
-        """The reference attaches a static-analysis verdict
-        (``analysis.report.engine_report``) here; not ported yet."""
-        raise _not_ported("MetricsLogger.attach_analysis (engine_report)",
-                          "Queue 1 item 17b (analysis/report.py)")
+        """Attach a contract verdict (``analysis.report.engine_report``'s
+        dict, or a zero-arg callable producing one, evaluated at summary
+        time so it sees every bucket the run acquired). Lands in
+        ``summary()["analysis"]`` — the run report carries the contract
+        verdict alongside its latency numbers."""
+        self.analysis_report = report
+        return self
 
     def attach_serve_health(self, source) -> "MetricsLogger":
         """Attach a live read-path health source (a zero-arg callable

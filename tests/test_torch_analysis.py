@@ -691,11 +691,13 @@ def test_run_analysis_report_shape():
     rep = report.run_analysis(device="cpu")
     assert {"schema", "programs", "lints", "ok", "n_violations"} <= set(rep)
     assert rep["ok"] and rep["n_violations"] == 0 and rep["device"] == "cpu"
-    assert list(rep["programs"]) == list(programs.PROGRAMS)
+    # the whole matrix: the single-device programs and the mesh ones
+    assert list(rep["programs"]) == list(programs.MATRIX)
+    assert set(programs.PROGRAMS) | set(programs.MESH_PROGRAMS) == set(programs.MATRIX)
     assert set(rep["lints"]) == {"concurrency"}
     for entry in rep["programs"].values():
         assert {"contract", "ok", "memory", "pallas", "launches", "source",
-                "violations"} <= set(entry)
+                "violations", "collectives", "costs"} <= set(entry)
     only_lints = report.run_analysis([], device="cpu")
     assert only_lints["programs"] == {} and only_lints["ok"]
 
@@ -725,7 +727,8 @@ def test_torch_analyze_cli_cpu(tmp_path, capsys):
     out = json.loads(out_path.read_text())
     assert set(out) == {"schema", "device", "analysis", "mutation_check", "elapsed_s", "ok"}
     assert out["ok"] and out["schema"] == report.SCHEMA
-    assert len(out["analysis"]["programs"]) == 4
+    assert len(out["analysis"]["programs"]) == len(programs.MATRIX) == 18
+    assert len(out["mutation_check"]["mutations"]) == len(mutations.MUTATIONS) == 11
     assert all(r["caught"] for r in out["mutation_check"]["mutations"])
     assert cli.main(["--list"]) == 0
     assert cli.main(["--lints-only", "--device", "cpu"]) == 0

@@ -127,10 +127,15 @@ def test_validation_exits_match_the_reference(argv, flag, capsys, tmp_path, monk
     assert list(tmp_path.iterdir()) == []
 
 
-def test_plan_refuses_naming_the_planner_item(capsys):
+def test_plan_refuses_naming_the_planner_item(capsys, tmp_path, monkeypatch):
+    # the planner is ported (tests/test_torch_planner.py applies a plan): a
+    # path with no plan artifact exits 2 in both packages, naming the flag
+    monkeypatch.chdir(tmp_path)
     rc, out, err = _run(cli.main, ["--plan", "plan.json"] + CPU, capsys)
-    assert rc == 2 and out is None
-    assert cli.PLANNER_ITEM in err and "--plan" in err
+    jrc, jout, jerr = _run(jcli.main, ["--plan", "plan.json"], capsys)
+    assert (rc, jrc) == (2, 2) and out is None and jout is None
+    assert "--plan plan.json: no such plan artifact" in err
+    assert err == jerr
 
 
 def test_cuda_is_the_default_and_raises_without_a_card():

@@ -75,14 +75,9 @@ def test_compile_cache_dir_still_refused():
 @pytest.mark.parametrize("field,value", [("replicas", 2), ("plan_path", "plan.json")])
 def test_fields_only_the_cli_reads_are_refused(field, value):
     # the reference accepts both (its CLI reads them); the port's CLI reads
-    # replicas, and refuses a plan until the planner is ported
+    # both too since the planner is ported, so both are accepted as given
     JaxConfig(dim=16, k=4, **{field: value})
-    if field == "replicas":
-        assert PCAConfig(dim=16, k=4, replicas=value).replicas == value
-        return
-    with pytest.raises(NotImplementedError,
-                       match=r"Queue 1 item 17b \(analysis/planner.py\)"):
-        PCAConfig(dim=16, k=4, **{field: value})
+    assert getattr(PCAConfig(dim=16, k=4, **{field: value}), field) == value
 
 
 # -- the autoscaler, tick by tick ---------------------------------------------

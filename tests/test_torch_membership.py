@@ -156,6 +156,40 @@ def test_elastic_stream_matches_the_reference(name, first_step):
         [{k: v for k, v in r.items() if k not in strip} for r in jlogger.membership_records]
 
 
+def _stalling_beats(tab, t, stall_s):
+    """Make every heartbeat of ``tab`` stall the process ``stall_s`` on
+    the injected clock ``t`` after it lands."""
+    beat = tab.heartbeat
+
+    def stalled(*args, **kw):
+        beat(*args, **kw)
+        t[0] += stall_s
+
+    tab.heartbeat = stalled
+
+
+def test_a_stall_between_the_beats_and_the_sweep_expires_no_live_lease():
+    # the simulated workers beat at the round boundary itself: a stall of
+    # ten heartbeat timeouts after each beat, before the sweep, leaves
+    # every worker live (the per-call clock read made all four suspect and
+    # lost the quorum at the first round)
+    t = [0.0]
+    cfg = PCAConfig(dim=D, k=K, num_workers=M, rows_per_worker=N, num_steps=4,
+                    heartbeat_timeout_ms=100.0, round_deadline_ms=40.0,
+                    min_quorum_frac=0.5)
+    tab = tm.MembershipTable(M, heartbeat_timeout_ms=100.0, min_quorum_frac=0.5,
+                             clock=lambda: t[0])
+    _stalling_beats(tab, t, 1.0)
+    data = np.zeros((4, M, N, D), np.float32)
+    stream = tm.ElasticStream(iter(data), tab, cfg, first_step=1, clock=lambda: t[0],
+                              sleep=lambda s: None, device="cpu")
+    feed = stream.membership_masks()
+    for _ in stream:
+        np.testing.assert_array_equal(next(feed), np.ones(M, np.float32))
+    assert t[0] >= 4 * M * 1.0  # every round stalled past the timeout
+    assert not [e for e in tab.events if e["kind"] in ("suspect", "quorum_lost")]
+
+
 def test_mask_feed_out_of_lockstep_raises():
     feed = tm._MembershipMaskFeed(__import__("collections").deque())
     with pytest.raises(RuntimeError, match="lockstep"):

@@ -144,8 +144,11 @@ def test_compile_and_analysis_attachments_name_their_items():
     # the compile cache is ported: attached, its stats land in the summary
     cc = CompileCache(None)
     assert m.attach_compile(cc) is m and m.summary()["compile"] == cc.stats()
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        m.attach_analysis({})
+    # the analysis verdict is ported too: a dict, or a callable read at
+    # summary time, as the reference's
+    rep = {"schema": "analysis-torch-v2", "ok": True}
+    assert m.attach_analysis(rep) is m and m.summary()["analysis"] == rep
+    assert m.attach_analysis(lambda: {"ok": False}).summary()["analysis"] == {"ok": False}
 
 
 def _basis(seed=0):

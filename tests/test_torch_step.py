@@ -116,10 +116,9 @@ def test_state_carried_across_by_interop_matches():
 
 
 def test_config_from_jax_refuses_unported_settings():
-    # the compile cache is ported; a plan waits for the planner
+    # the compile cache and the planner are ported: a plan path carries over
     jcfg = JaxConfig(**SMALL, plan_path="plan.json")
-    with pytest.raises(NotImplementedError, match="plan_path"):
-        interop.config_from_jax(dataclasses.asdict(jcfg))
+    assert interop.config_from_jax(dataclasses.asdict(jcfg)).plan_path == "plan.json"
     # the hierarchical merge's knobs carry over in the reference's normal form
     jcfg = JaxConfig(**SMALL, merge_topology=(("chip", 2), ("host", 2)),
                      merge_wire_dtype={"host": "int8"})

@@ -124,6 +124,29 @@ def test_tier_quorum_loss_equals_the_reference():
     assert issubclass(tt.TierQuorumLost, tm.QuorumLost)
 
 
+def test_a_stall_between_the_host_beats_and_the_sweep_loses_no_quorum():
+    # kill_rejoin leaves one live host member for rounds 2-6; a stall of ten
+    # heartbeat timeouts after each member's beat, before the sweep, must
+    # not expire it (the per-call clock read lost the tier's quorum there)
+    cfg = _cfg(PORT)
+    now = [0.0]
+    ts = tt.TierSet(resolve_topology(cfg), cfg, churn={"host": ChurnPlan(**PLANS["kill_rejoin"])},
+                    clock=lambda: now[0], sleep=lambda s: None)
+    table = ts.tables["host"]
+    beat = table.heartbeat
+
+    def stalled(*args, **kw):
+        beat(*args, **kw)
+        now[0] += 1.0
+
+    table.heartbeat = stalled
+    masks = [ts.begin_round(step)["host"]["member_mask"].tolist() for step in range(1, ROUNDS + 1)]
+    assert masks[0] == [1.0, 1.0] and all(m[0] == 1.0 for m in masks)
+    assert table.state(0) == "live"
+    assert not [e for e in table.events if e["kind"] == "quorum_lost"]
+    assert not [e for e in table.events if e["kind"] == "suspect" and e["slot"] == 0]
+
+
 def test_churn_on_an_unknown_or_leaf_tier_is_refused_with_the_reference_text():
     for tier in ("pod", "chip"):
         msgs = []

@@ -164,9 +164,8 @@ def test_config_rejects_like_the_reference(kw):
 )
 def test_config_names_the_roadmap_for_unported_settings(kw):
     j = JaxConfig(dim=32, k=4, num_workers=2, **kw)  # legal in the reference
-    if "plan_path" in kw:  # waits for the planner
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
-            PCAConfig(dim=32, k=4, num_workers=2, **kw)
+    if "plan_path" in kw:  # the planner is ported: accepted as given
+        assert PCAConfig(dim=32, k=4, num_workers=2, **kw).plan_path == j.plan_path
         return
     # the ring collectives and the tree merge are ported: accepted, in the
     # reference's normal form
