@@ -303,17 +303,23 @@ exits non-zero without printing a result:
    of the kernel and of ``torch.matmul``.
 14. analysis: the port's analyzer on the card (``run_analysis`` and
    ``run_mutation_report``, device cuda) under the launch recorder and
-   ``torch.profiler``: the 18 programs honour their contracts — the 4
-   single-device ones with their kernels launched, the 14 mesh programs
+   ``torch.profiler``: the 27 programs honour their contracts — the 4
+   single-device ones with their kernels launched, the 23 mesh programs
    (one launch of 4 gloo ranks sharing the card, every rank recording the
-   same collective schedule) with their collectives and byte budgets equal
-   to the committed ``ANALYSIS_COSTS_TORCH.json``'s — every profiled kernel
+   same collective schedule and every rank's held shapes passing the
+   declared layouts) with their collectives and byte budgets equal to the
+   committed ``ANALYSIS_COSTS_TORCH.json``'s, each of the six serve mesh
+   programs (row-sharded and sharded-basis) with at least one fp32 serve
+   kernel launch of a resolved grid on rank 0 (in its audited bucket, or,
+   for a reconstruct or residual, in the projection its build made before
+   it) — every profiled kernel
    event has the grid, block and shared memory of its recorded
    ``KernelLaunch`` (one event per launch; the programs run once before
    the windows, each window opens with 64 pairs of untimed kernels, and a
    window the profiler left an event out of is run again, five windows at
-   most), and 11 of 11 seeded mutations are caught, the mutant's launch
-   with grid [1, 1, 1].
+   most), and 14 of 14 seeded mutations are caught, the mutant's launch
+   with grid [1, 1, 1]. Rank 0's launches in the mesh programs are counted
+   by kernel into the kernels line.
 15. slice_evals: the port's eval harness (``distributed_eigenspaces_tpu_torch.
    evals.run_eval``) on each of the six eval specs at full size, as
    published, with the default repeats (3), one report line each: within 1
@@ -491,8 +497,13 @@ MUTANT_REPLACES = "distributed_eigenspaces_tpu/analysis/mutations.py:352"
 MUTANT_TOL = 1e-5
 MUTANT_AUDIT = (256, 1024, 8)  # the JAX mutant's (rows, d, k)
 MUTANT_PARITY = (MUTANT_AUDIT, (100, 1000, 5))
-ANALYSIS_PROGRAMS = 18  # 4 in this process, 14 on 4 gloo ranks sharing the card
-ANALYSIS_MUTATIONS = 11
+ANALYSIS_PROGRAMS = 27  # 4 in this process, 23 on 4 gloo ranks sharing the card
+ANALYSIS_MUTATIONS = 14
+#: the mesh programs that serve through the engine: each launches the fp32
+#: serve kernel on every rank (rank 0's launches are recorded)
+ANALYSIS_SERVE_MESH = ("serve_project", "serve_reconstruct", "serve_residual",
+                       "dist_serve_project", "dist_serve_reconstruct",
+                       "dist_serve_residual")
 #: what the card's run of the mesh programs is held to in the committed cost
 #: snapshot (the FLOP and byte fields are the CPU's: costmodel.py)
 ANALYSIS_SNAPSHOT_KEYS = ("collectives_per_axis", "budget_bytes_per_op")
@@ -2526,10 +2537,16 @@ def slice_evals(dev, card: str) -> dict:
     return s8
 
 
+def is_f32_serve(kernel: str) -> bool:
+    """Whether a launch record's kernel is the fp32 serve kernel
+    (``serve_split_kernel<float, 2, NP>``: basis code 2)."""
+    return kernel.startswith("serve_split_kernel<") and kernel.split(",")[1].strip() == "2"
+
+
 def analysis(dev, card: str) -> dict:
     """The port's analyzer on the card, under the launch recorder and the
-    profiler; returns each kernel's launches in that run, and the Gram
-    launches rank 0 recorded in the mesh programs (``mesh_gram``)."""
+    profiler; returns each kernel's launches in that run, and the launches
+    rank 0 recorded in the mesh programs, by kernel (``mesh_kernels``)."""
     import torch
     from distributed_eigenspaces_tpu_torch.analysis import costmodel, programs, report
     from distributed_eigenspaces_tpu_torch.ops import geometry
@@ -2583,18 +2600,25 @@ def analysis(dev, card: str) -> dict:
         emit("analysis", part="profiled_kernel", name=ev["name"], symbol=ev["symbol"],
              grid=ev["grid"], block=ev["block"], smem=ev["smem"], device_us=ev["dur_us"],
              args=ev["args"])
-    mesh_gram = {"bf16_tma": 0, "other": 0}
+    # rank 0's launches in the mesh programs, by kernel (the audited calls'
+    # and their builds'), and the fp32 serve launches with a resolved grid
+    # of each serve mesh program (a reconstruct or residual program's come
+    # from the projection its build makes before the audited bucket)
+    mesh_kernels: dict = {}
+    serve_mesh = {name: 0 for name in ANALYSIS_SERVE_MESH}
     for name, entry in rep["programs"].items():
         emit("analysis", part="program", program=name, ok=entry["ok"],
              contract=entry["contract"], collectives=entry["collectives"],
              costs={k: entry["costs"][k] for k in ("collectives_per_axis",
                                                    "budget_bytes_per_op")},
              pallas=entry["pallas"], memory=entry["memory"],
-             launches=entry["launches"], violations=entry["violations"])
+             shardings=entry["shardings"], launches=entry["launches"],
+             setup_launches=entry["setup_launches"], violations=entry["violations"])
         if name in programs.MESH_PROGRAMS:
-            for la in entry["launches"]:
-                if la["kernel"].startswith("gram_"):
-                    mesh_gram["bf16_tma" if "tma" in la["kernel"] else "other"] += 1
+            for la in entry["launches"] + entry["setup_launches"]:
+                mesh_kernels[la["kernel"]] = mesh_kernels.get(la["kernel"], 0) + 1
+                if name in serve_mesh and is_f32_serve(la["kernel"]) and la["grid"]:
+                    serve_mesh[name] += 1
     # the mesh programs' collectives against the committed snapshot (made on
     # the CPU): gloo moves the same tensors on both routes
     current = {"schema": costmodel.SNAPSHOT_SCHEMA, "programs": {
@@ -2608,7 +2632,8 @@ def analysis(dev, card: str) -> dict:
          recorded_launches=len(launches), profiled_events=len(events),
          kernels_device_us=sum(ev["dur_us"] or 0.0 for ev in events),
          geometry_mismatches=mismatches, launches=counts, seconds=seconds,
-         mesh_programs_s=mesh_s, mesh_gram_launches_rank0=mesh_gram,
+         mesh_programs_s=mesh_s, mesh_launches_rank0=mesh_kernels,
+         serve_mesh_f32_launches_rank0=serve_mesh,
          snapshot_drift=[v.format() for v in drift], card=card)
     # (a) every program honours its contract, the single-device ones with
     # their kernels launched, the mesh ones' collectives as the snapshot's
@@ -2617,6 +2642,11 @@ def analysis(dev, card: str) -> dict:
     check(all(e["launches"] and all(la["grid"] for la in e["launches"])
               for name, e in rep["programs"].items() if name in programs.PROGRAMS),
           "analysis: a program recorded no resolved kernel launch on the card")
+    check(all(n >= 1 for n in serve_mesh.values()),
+          f"analysis: fp32 serve launches on rank 0 of the serve mesh programs {serve_mesh}")
+    check(all(e["shardings"]["checked"] for name, e in rep["programs"].items()
+              if name in programs.MESH_PROGRAMS),
+          "analysis: a mesh program's layouts were not checked")
     check(not drift, f"analysis: collectives drifted from the snapshot: "
                      f"{[v.format() for v in drift]}")
     # (b) the declarations equal the card's launches, one event per launch
@@ -2631,7 +2661,7 @@ def analysis(dev, card: str) -> dict:
     check(mut["ok"] and caught == ANALYSIS_MUTATIONS == len(mut["mutations"]),
           f"analysis: {caught} of {len(mut['mutations'])} mutations caught")
     check(all(n >= 1 for n in counts.values()), f"analysis: launches {counts}")
-    return dict(counts, mesh_gram=mesh_gram)
+    return dict(counts, mesh_kernels=mesh_kernels)
 
 
 def lane_angles_deg(v, truth, lanes: int) -> list[float]:
@@ -5589,11 +5619,13 @@ def main() -> int:
     for route in ("bf16", "i8", "f32"):
         serve_err[route] = max(serve_err[route], plan_phase["worst"][route])
     mg_err = max(mg_err, plan_phase["worst"].get("matvec_gram", 0.0))
-    mesh_gram = analysis_launches["mesh_gram"]
-    if mesh_gram["bf16_tma"]:
-        bf16_by_path["analysis mesh programs (rank 0 of 4 gloo ranks)"] = mesh_gram["bf16_tma"]
-    if mesh_gram["other"]:
-        f32_by_path["analysis mesh programs (rank 0 of 4 gloo ranks)"] = mesh_gram["other"]
+    mesh_path = "analysis mesh programs (rank 0 of 4 gloo ranks)"
+    for kernel, n in analysis_launches["mesh_kernels"].items():
+        if kernel.startswith("gram_"):
+            by_path = bf16_by_path if "tma" in kernel else f32_by_path
+            by_path[mesh_path] = by_path.get(mesh_path, 0) + n
+        elif is_f32_serve(kernel):
+            serve_by_path["f32"][mesh_path] = serve_by_path["f32"].get(mesh_path, 0) + n
 
     def row(name, shape, dtype, launches, also=()):
         t = timing[(shape, dtype)]

@@ -30,6 +30,7 @@ from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     initial_basis,
     merged_top_k_lowrank,
+    start_rows,
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.topology import (
@@ -133,14 +134,16 @@ def merge_core(vs: torch.Tensor, k: int, mask=None, dist_iters=None,
         return merged_top_k_lowrank(vs, k, mask=mask)
 
 
-def merge_start(cfg: PCAConfig, *, device, v_init=None):
-    """The ``(d, k')`` start of the crossover merge (``k' = k`` plus the
-    default oversample of the ``m k``-wide factor operator; the deflation
-    lanes take no oversample, ``k' = k``; under a merge topology the root
-    tier's ``f k``-wide operator, which the distributed solve takes in
-    either case), or None below the crossover: ``v_init`` when given, else
-    drawn from ``cfg.seed`` (the reference draws it from
-    ``jax.random.PRNGKey(0)`` every round)."""
+def merge_start(cfg: PCAConfig, *, device, v_init=None, rows: slice | None = None):
+    """Rows ``rows`` (default: all ``d``) of the ``(d, k')`` start of the
+    crossover merge (``k' = k`` plus the default oversample of the ``m
+    k``-wide factor operator; the deflation lanes take no oversample, ``k'
+    = k``; under a merge topology the root tier's ``f k``-wide operator,
+    which the distributed solve takes in either case), or None below the
+    crossover: those rows of ``v_init (d, k')`` when given, else drawn
+    from ``cfg.seed`` by ``ops.linalg.start_rows`` (the reference draws it
+    from ``jax.random.PRNGKey(0)`` every round, each row shard from its own
+    key). A feature-sharded rank asks for its rows and draws those only."""
     if not cfg.uses_distributed_solve():
         return None
     kk = cfg.k
@@ -149,7 +152,13 @@ def merge_start(cfg: PCAConfig, *, device, v_init=None):
         kk += _default_oversample(cfg.k, topo.fan_ins[-1] * cfg.k)
     elif not cfg.uses_deflation_solve():
         kk += _default_oversample(cfg.k, cfg.num_workers * cfg.k)
-    return initial_basis(cfg.dim, kk, seed=cfg.seed, device=device, v0=v_init)
+    rows = slice(0, cfg.dim) if rows is None else rows
+    if v_init is None:
+        return start_rows(rows.start, rows.stop, kk, seed=cfg.seed, device=device)
+    v = torch.as_tensor(v_init, dtype=torch.float32)
+    if tuple(v.shape) != (cfg.dim, kk):
+        raise ValueError(f"v_init must be ({cfg.dim}, {kk}), got {tuple(v.shape)}")
+    return v[rows].contiguous().to(device)
 
 
 def mean_projector(vs: torch.Tensor, mask=None) -> torch.Tensor:

@@ -17,7 +17,10 @@ over the programs:
    trace): no dense ``d x d`` buffer in a factor-only program;
 4. **cost model** (:mod:`.costmodel`): per-program FLOPs, memory bytes and
    per-mesh-axis collective bytes x hops, budget-enforced per op and
-   diff-gated against the committed ``ANALYSIS_COSTS_TORCH.json``.
+   diff-gated against the committed ``ANALYSIS_COSTS_TORCH.json``;
+5. **sharding contracts** (:mod:`.shardings`): declared layouts against the
+   shapes every rank of a mesh program held and its traced buffers — silent
+   replication of a ``(d, k)`` buffer is a violation.
 
 :mod:`.planner` prices configurations with the cost model and the card's
 calibration record into a ``plan-v1`` artifact (``ANALYSIS_PLAN_TORCH.json``,
@@ -40,6 +43,7 @@ _LAZY = {
     "ast_lints": "distributed_eigenspaces_tpu_torch.analysis.ast_lints",
     "report": "distributed_eigenspaces_tpu_torch.analysis.report",
     "mutations": "distributed_eigenspaces_tpu_torch.analysis.mutations",
+    "shardings": "distributed_eigenspaces_tpu_torch.analysis.shardings",
 }
 
 #: the audit's stable entry points, re-exported from :mod:`.hlo` as the

@@ -27,6 +27,12 @@ its programs, so each pass reads a torch-native source of the same facts:
   are every aten op's outputs (and the program's inputs) during one call,
   traced under a ``TorchDispatchMode`` (``programs.trace_buffers``); this
   runs on the CPU as on the card;
+- *declared layouts* (:mod:`.shardings`, rules ``silent-replication``,
+  ``sharding-contract``): the ``sharding=`` block of a mesh contract names
+  the buffers that must be held sharded (or replicated) over which mesh
+  axes; each rank's local shapes are held against the global ones the
+  program's build states, and its buffer trace against a floor no
+  un-sharded ``(d, k)`` may reach;
 - *cost budget* (``costmodel.check_built``, rule ``cost-bound``): no single
   collective moves more bytes than the payload ceiling at 4 bytes an
   element.
@@ -38,11 +44,9 @@ rank hands over, where the reference's HLO parser keeps one chunk of a
 tuple-shaped all-to-all; the port's count is the larger, so its bound is
 never looser (:mod:`.hlo`).
 
-Not checked here yet: the sharding contracts (the reference's
-``sharding=`` blocks of these contracts and ``shardings.py``, ROADMAP Queue
-1 item 17c) and baked constants (item 9g). Checkers return
-:class:`Violation` records, never raise on a breach; the report aggregates
-and formats them.
+Not checked here yet: baked constants (ROADMAP Queue 1, waiting for item
+9g). Checkers return :class:`Violation` records, never raise on a breach;
+the report aggregates and formats them.
 
 The audited shapes keep every non-feature dimension below ``dense_dim``,
 which makes "two axes >= dense_dim" exactly the dense-matrix class;
@@ -54,6 +58,12 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import Callable
+
+from distributed_eigenspaces_tpu_torch.analysis.shardings import (
+    WILD,
+    DeclaredBuffer,
+    ShardingContract,
+)
 
 
 @dataclass(frozen=True)
@@ -71,7 +81,8 @@ class ProgramParams:
     n_feature_shards: int = 1
     n_workers_mesh: int = 1
     sketch_width: int = 0
-    #: parallel-deflation lane count (the ``components`` axis size)
+    #: parallel-deflation lane count (the ``components`` axis size): lane
+    #: width is k / components
     components: int = 1
     #: merge-tree fan-ins leaf->root (tree_merge programs only): the
     #: tier-local Gram psum is (f*k)^2 per tier
@@ -127,6 +138,11 @@ class ProgramContract:
     #: the dimension the dense-buffer rule measures against (defaults to
     #: the per-rank feature width — d_local on feature-sharded programs)
     dense_dim: Callable[[ProgramParams], int] = field(default=lambda p: p.d_local)
+    #: declared layouts: which buffers must be held sharded over which mesh
+    #: axes — the silent-replication gate. None = no sharding contract
+    #: (programs without one are skipped with a named reason, never passed
+    #: vacuously)
+    sharding: ShardingContract | None = None
     #: kernel tile budget: ceiling in ELEMENTS on every operand extent one
     #: CTA owns, in every recorded launch. None = no kernel contract
     max_block_elems: Callable[[ProgramParams], int] | None = None
@@ -139,6 +155,17 @@ def _factor_stack(p: ProgramParams) -> int:
     """The merge's gathered factor stack — the payload ceiling every
     trainer contract quotes: ``m * d_local * max(k, sketch_width)``."""
     return p.m * p.d_local * max(p.k, p.sketch_width)
+
+
+def _deflation_stack(p: ProgramParams) -> int:
+    """Parallel deflation's payload ceiling: the largest thing a rank may
+    move is the cross-lane gather of its own ``(d_local, k/L)`` panel —
+    gathered size ``d_local * k`` — or the merge's worker factor stack when
+    the operand is an m-wide concat. The deflation corrections are ``(L,
+    kb, kb)`` blocks (k x k class), strictly below both; a lane gathering
+    the full DEFLATED operand over features is d-wide and blows this
+    bound."""
+    return max(_factor_stack(p), p.d_local * p.k)
 
 
 def _tree_bound(p: ProgramParams) -> int:
@@ -154,9 +181,9 @@ def _tree_bound(p: ProgramParams) -> int:
 
 # -- the registry ------------------------------------------------------------
 
-#: Contract per program KIND (programs.py maps each audited program to one).
-#: The mesh contracts carry the reference's collective schedules and memory
-#: policies; their ``sharding=`` blocks wait for ROADMAP Queue 1 item 17c.
+#: Contract per program KIND (programs.py maps each audited program to one):
+#: the reference's collective schedules, memory policies and ``sharding=``
+#: blocks.
 CONTRACTS: dict[str, ProgramContract] = {
     "scan_fit": ProgramContract(
         name="scan_fit",
@@ -170,6 +197,18 @@ CONTRACTS: dict[str, ProgramContract] = {
         max_payload_elems=_factor_stack,
         require_collectives=True,
         memory_policy="dense_state",
+        sharding=ShardingContract(buffers=(
+            DeclaredBuffer(
+                "step blocks", "in",
+                dims=lambda p: (WILD, p.m, p.n, p.d),
+                spec=lambda p: (None, "workers", None, None),
+            ),
+            DeclaredBuffer(
+                "carried state", "in",
+                dims=lambda p: (p.d, p.d),
+                spec=lambda p: (None, None),
+            ),
+        )),
     ),
     "feature_sharded": ProgramContract(
         name="feature_sharded",
@@ -183,6 +222,28 @@ CONTRACTS: dict[str, ProgramContract] = {
         max_payload_elems=_factor_stack,
         require_collectives=True,
         memory_policy="factor_only",
+        sharding=ShardingContract(
+            buffers=(
+                DeclaredBuffer(
+                    "feature-sharded basis", "in",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                ),
+                DeclaredBuffer(
+                    "feature blocks", "in",
+                    dims=lambda p: (WILD, p.m, p.n, p.d),
+                    spec=lambda p: (None, "workers", None, "features"),
+                ),
+                DeclaredBuffer(
+                    "feature-sharded basis", "out",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                ),
+            ),
+            # THE d-ceiling rule: no rank may hold a full-d buffer with
+            # >= 2 companion elements — an un-sharded (d, k)
+            replicated_axis_floor=lambda p: p.d,
+        ),
     ),
     "tree_merge": ProgramContract(
         name="tree_merge",
@@ -198,6 +259,20 @@ CONTRACTS: dict[str, ProgramContract] = {
         max_payload_elems=_tree_bound,
         require_collectives=True,
         memory_policy="dense_state",
+        sharding=ShardingContract(buffers=(
+            DeclaredBuffer(
+                "step blocks", "in",
+                dims=lambda p: (WILD, p.m, p.n, p.d),
+                # the worker dim factors over ALL tier axes (compared as a
+                # set)
+                spec=lambda p: (None, p.tier_axes, None, None),
+            ),
+            DeclaredBuffer(
+                "carried state", "in",
+                dims=lambda p: (p.d, p.d),
+                spec=lambda p: (None, None),
+            ),
+        )),
     ),
     "fleet_fit": ProgramContract(
         name="fleet_fit",
@@ -208,19 +283,257 @@ CONTRACTS: dict[str, ProgramContract] = {
         ),
         allowed_collectives=frozenset(),
         memory_policy="dense_state",
+        sharding=ShardingContract(buffers=(
+            DeclaredBuffer(
+                "tenant blocks", "in",
+                dims=lambda p: (p.B, WILD, WILD, WILD, p.d),
+                spec=lambda p: ("workers", None, None, None, None),
+            ),
+            DeclaredBuffer(
+                "tenant state", "in",
+                dims=lambda p: (p.B, p.d, p.d),
+                spec=lambda p: ("workers", None, None),
+            ),
+            DeclaredBuffer(
+                "tenant state", "out",
+                dims=lambda p: (p.B, p.d, p.d),
+                spec=lambda p: ("workers", None, None),
+            ),
+            DeclaredBuffer(
+                "tenant basis history", "out",
+                dims=lambda p: (p.B, WILD, p.d, WILD),
+                spec=lambda p: ("workers", None, None, None),
+            ),
+        )),
     ),
     "serve_transform": ProgramContract(
         name="serve_transform",
         description=(
             "serving kernels (project / reconstruct / residual): "
             "row-local matmuls — ZERO collectives, and factor-only "
-            "memory (no program may materialize V V^T). On the card: one "
-            "device, so no collective can appear; the fp32 project is the "
-            "fixed-order serve kernel, whose launches are recorded"
+            "memory (no program may materialize V V^T). The fp32 project "
+            "is the fixed-order serve kernel on the card, whose launches "
+            "are recorded"
         ),
         allowed_collectives=frozenset(),
         memory_policy="factor_only",
         dense_dim=lambda p: p.d,
+        # every row-indexed buffer that appears must be workers-sharded,
+        # the basis replicated BY DESIGN on this below-crossover engine (d
+        # fits one device); above ``cfg.eigh_crossover_d`` serving runs the
+        # sharded-basis engine instead, whose ``dist_serve`` contract
+        # declares the basis sharded over 'features'
+        sharding=ShardingContract(buffers=(
+            DeclaredBuffer(
+                "row activations", "in",
+                dims=lambda p: (p.rows, p.d),
+                spec=lambda p: ("workers", None),
+                required=False,
+            ),
+            DeclaredBuffer(
+                "row codes", "in",
+                dims=lambda p: (p.rows, WILD),
+                spec=lambda p: ("workers", None),
+                required=False,
+            ),
+            DeclaredBuffer(
+                "replicated basis", "in",
+                dims=lambda p: (p.d, WILD),
+                spec=lambda p: (None, None),
+                required=False,
+            ),
+            DeclaredBuffer(
+                "row outputs", "out",
+                dims=lambda p: (p.rows, WILD),
+                spec=lambda p: ("workers", None),
+                required=False,
+            ),
+            DeclaredBuffer(
+                "reconstructed rows", "out",
+                dims=lambda p: (p.rows, p.d),
+                spec=lambda p: ("workers", None),
+                required=False,
+            ),
+            DeclaredBuffer(
+                "row scalars", "out",
+                dims=lambda p: (p.rows,),
+                spec=lambda p: ("workers",),
+                required=False,
+            ),
+        )),
+    ),
+    "dist_solve": ProgramContract(
+        name="dist_solve",
+        description=(
+            "distributed eigensolve: merge / extract above the crossover as "
+            "subspace iteration on row-sharded factors — the worker "
+            "factor-stack gather plus k-wide sums over 'features' "
+            "(CholeskyQR2 Grams, factor matvecs, the Rayleigh-Ritz reduce) "
+            "only; nothing quadratic in m*k, nothing d-wide, never a dense "
+            "d x d, and the result stays a (d_local, k) row shard"
+        ),
+        allowed_collectives=frozenset({"all-gather", "all-reduce"}),
+        max_payload_elems=_factor_stack,
+        require_collectives=True,
+        memory_policy="factor_only",
+        sharding=ShardingContract(
+            buffers=(
+                DeclaredBuffer(
+                    "worker factor stack", "in",
+                    dims=lambda p: (p.m, p.d, WILD),
+                    spec=lambda p: ("workers", "features", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "worker mask", "in",
+                    dims=lambda p: (p.m,),
+                    spec=lambda p: ("workers",),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "row-sharded state factors", "in",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "replicated spectrum", "in",
+                    dims=lambda p: (p.sketch_width,),
+                    spec=lambda p: (None,),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "sharded eigenbasis", "out",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                ),
+            ),
+            # the d-ceiling rule, as the sharded trainers': no rank may
+            # hold an un-sharded full-d buffer
+            replicated_axis_floor=lambda p: p.d,
+        ),
+    ),
+    "deflation_solve": ProgramContract(
+        name="deflation_solve",
+        description=(
+            "parallel-deflation eigensolve: k lanes model-parallel over the "
+            "'components' mesh axis, each iterating a (d_local, k/L) block "
+            "against the factor operand with deflation corrections from "
+            "lower lanes. Collectives are the cross-lane gather of one lane "
+            "panel (d_local * k gathered), the (L, kb, kb) correction-"
+            "coefficient sums over 'features', and CholeskyQR2 / "
+            "Rayleigh-Ritz k-wide Grams — corrections ride as k x k "
+            "blocks, never d x d, never an above-floor replicated d x k; "
+            "the result stays a (d_local, k) row shard"
+        ),
+        allowed_collectives=frozenset({"all-gather", "all-reduce"}),
+        max_payload_elems=_deflation_stack,
+        require_collectives=True,
+        memory_policy="factor_only",
+        sharding=ShardingContract(
+            buffers=(
+                DeclaredBuffer(
+                    # THE components-axis witness: the per-lane seed blocks
+                    # enter sharded over ('components', 'features'), which
+                    # makes the audit non-vacuous on that axis
+                    "lane seed blocks", "in",
+                    dims=lambda p: (
+                        p.components,
+                        p.d,
+                        p.k // max(p.components, 1),
+                    ),
+                    spec=lambda p: ("components", "features", None),
+                ),
+                DeclaredBuffer(
+                    "row-sharded state factors", "in",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "replicated spectrum", "in",
+                    dims=lambda p: (p.sketch_width,),
+                    spec=lambda p: (None,),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "worker factor stack", "in",
+                    dims=lambda p: (p.m, p.d, WILD),
+                    spec=lambda p: ("workers", "features", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    # replicated over 'components' (every lane slot
+                    # computes the same finish), row-sharded over
+                    # 'features' — the born-sharded output of dist_solve
+                    "sharded eigenbasis", "out",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                ),
+            ),
+            replicated_axis_floor=lambda p: p.d,
+        ),
+    ),
+    "dist_serve": ProgramContract(
+        name="dist_serve",
+        description=(
+            "sharded-basis serving (above the crossover): the SAME "
+            "row-local kernels on (d_local, k) basis shards, plus the one "
+            "rows x k projection sum the sharding makes necessary — no "
+            "collective ever moves the basis, and the dense (d, k) never "
+            "assembles on one rank. The fp32 project is the fixed-order "
+            "serve kernel on each rank's (rows, d_local) shard"
+        ),
+        allowed_collectives=frozenset({"all-reduce"}),
+        # the projection / input-energy sums carry per-row k-wide (or
+        # scalar) payloads — never anything d-wide
+        max_payload_elems=lambda p: p.rows * max(p.k, 1),
+        # reconstruct is row-local on the shards — zero collectives — so
+        # presence is enforced per kind by the sharding pass, not globally
+        require_collectives=False,
+        memory_policy="factor_only",
+        dense_dim=lambda p: p.d,
+        sharding=ShardingContract(
+            buffers=(
+                DeclaredBuffer(
+                    "row activations", "in",
+                    dims=lambda p: (p.rows, p.d),
+                    spec=lambda p: ("workers", "features"),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "row codes", "in",
+                    dims=lambda p: (p.rows, WILD),
+                    spec=lambda p: ("workers", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "feature-sharded basis", "in",
+                    dims=lambda p: (p.d, WILD),
+                    spec=lambda p: ("features", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "row outputs", "out",
+                    dims=lambda p: (p.rows, WILD),
+                    spec=lambda p: ("workers", None),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "reconstructed rows", "out",
+                    dims=lambda p: (p.rows, p.d),
+                    spec=lambda p: ("workers", "features"),
+                    required=False,
+                ),
+                DeclaredBuffer(
+                    "row scalars", "out",
+                    dims=lambda p: (p.rows,),
+                    spec=lambda p: ("workers",),
+                    required=False,
+                ),
+            ),
+            replicated_axis_floor=lambda p: p.d,
+        ),
     ),
     "serve_pallas": ProgramContract(
         name="serve_pallas",
@@ -261,6 +574,29 @@ CONTRACTS: dict[str, ProgramContract] = {
         max_payload_elems=_factor_stack,
         require_collectives=True,
         memory_policy="factor_only",
+        sharding=ShardingContract(buffers=(
+            DeclaredBuffer(
+                "cohort stack", "in",
+                dims=lambda p: (p.m, p.d, WILD),
+                spec=lambda p: ("workers", None, None),
+            ),
+            DeclaredBuffer(
+                "arrival mask", "in",
+                dims=lambda p: (p.m,),
+                spec=lambda p: ("workers",),
+            ),
+            DeclaredBuffer(
+                "merged basis", "out",
+                dims=lambda p: (p.d, WILD),
+                spec=lambda p: (None, None),
+            ),
+            DeclaredBuffer(
+                "survivor mask", "out",
+                dims=lambda p: (p.m,),
+                spec=lambda p: (None,),
+                required=False,
+            ),
+        )),
     ),
 }
 
@@ -542,10 +878,11 @@ def check_pallas(
 
 def check_program(built) -> tuple[list[Violation], dict]:
     """Every pass over one :class:`~.programs.BuiltProgram`: collectives
-    (and, on a mesh, the ranks' agreement) + memory + kernel tiles + the
-    cost model's byte budget. Returns ``(violations, metrics)`` — the
-    report aggregates."""
+    (and, on a mesh, the ranks' agreement) + memory + kernel tiles +
+    declared layouts (every rank's) + the cost model's byte budget. Returns
+    ``(violations, metrics)`` — the report aggregates."""
     from distributed_eigenspaces_tpu_torch.analysis import costmodel
+    from distributed_eigenspaces_tpu_torch.analysis import shardings as _sh
 
     contract = CONTRACTS[built.contract]
     violations: list[Violation] = []
@@ -561,6 +898,8 @@ def check_program(built) -> tuple[list[Violation], dict]:
         contract, built.params, built.launches, program=built.name
     )
     violations += v
+    v, shard = _sh.check_built(built, contract)
+    violations += v
     v, costs = costmodel.check_built(built)
     violations += v
     return violations, {
@@ -569,6 +908,8 @@ def check_program(built) -> tuple[list[Violation], dict]:
         "collectives": col,
         "memory": mem,
         "pallas": pallas,
+        "shardings": shard,
         "costs": costs,
         "launches": [launch.to_json() for launch in built.launches],
+        "setup_launches": [launch.to_json() for launch in built.setup_launches],
     }

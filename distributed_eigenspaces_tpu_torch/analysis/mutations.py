@@ -3,10 +3,12 @@
 Counterpart of ``distributed_eigenspaces_tpu/analysis/mutations.py``, for
 the mutations whose passes this package has, under the JAX keys and rules.
 Each seeds ONE violation class — a reintroduced dense ``psum``, a tree tier
-moving the factor stack, a materialized ``d x d`` temp, a kernel whose one
-CTA owns the whole operand, a plan whose budgets it cannot meet, a blocking
-call under a lock, … — and requires the matching checker to flag it with
-the expected rule. A static-analysis stage that can only pass is worthless.
+moving the factor stack, a materialized ``d x d`` temp, a ``(d, k)`` basis
+held whole where it is declared sharded, a distributed solve or a deflation
+lane gathering d-wide rows, a kernel whose one CTA owns the whole operand,
+a plan whose budgets it cannot meet, a blocking call under a lock, … — and
+requires the matching checker to flag it with the expected rule. A
+static-analysis stage that can only pass is worthless.
 
 The mesh mutants (:data:`MESH_SEEDS`) run their seeded collectives in the
 ranks of the program matrix's one launch (``programs.build_matrix``), each
@@ -14,7 +16,9 @@ in the port's own mesh program idiom (``parallel.mesh`` collectives inside
 a ``mesh_scope``), and the checkers read rank 0's records. On the card
 ``pallas_full_block`` really launches ``csrc/mutant_full_block.cu`` and
 audits the launch it recorded; on the CPU it audits the launch
-``mutant_full_block_launch`` declares. AST mutants are source-text fixtures
+``mutant_full_block_launch`` declares. ``replicated_dk`` runs its step in
+this process as rank 0 of a features mesh and hands the sharding pass what
+that rank held. AST mutants are source-text fixtures
 (copied verbatim from the JAX package) fed to
 :func:`~.ast_lints.lint_concurrency_source`. Nothing here touches the tree.
 """
@@ -88,6 +92,31 @@ def _seed_wire_dtype_drift(device) -> None:
         pmesh.all_gather(torch.zeros((_D // 2, 2), device=device), "chip")
 
 
+def _seed_dist_dense_gram(device) -> None:
+    """A 'distributed' eigensolve that assembles the full row set over
+    ``features`` and sums the DENSE d x d Gram there, instead of iterating
+    on the row-sharded factors (workers 2 x features 2)."""
+    from distributed_eigenspaces_tpu_torch.analysis.programs import rank_mesh
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    with pmesh.mesh_scope(rank_mesh("features", device)):
+        full = pmesh.all_gather(torch.zeros((_D, 8), device=device), pmesh.FEATURE_AXIS)
+        pmesh.psum(full @ full.T, pmesh.FEATURE_AXIS)
+
+
+def _seed_deflation_lane_gather(device) -> None:
+    """A deflation lane that gathers the full DEFLATED operand over
+    ``features`` (d-wide rows on every rank) instead of moving its own
+    ``(d_local, k/L)`` panel over ``components`` (components 2 x features
+    2)."""
+    from distributed_eigenspaces_tpu_torch.analysis.programs import rank_mesh
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    with pmesh.mesh_scope(rank_mesh("components", device)):
+        full = pmesh.all_gather(torch.zeros((_D, 8), device=device), pmesh.FEATURE_AXIS)
+        full.T @ full
+
+
 #: mesh mutation name -> its seeded collectives, run once in every rank of
 #: ``programs.build_matrix``'s launch under the collective recorder
 MESH_SEEDS: dict[str, Callable[[torch.device], None]] = {
@@ -96,6 +125,8 @@ MESH_SEEDS: dict[str, Callable[[torch.device], None]] = {
     "tree_payload_drift": _seed_tree_payload_drift,
     "population_payload": _seed_population_payload,
     "wire_dtype_drift": _seed_wire_dtype_drift,
+    "dist_dense_gram": _seed_dist_dense_gram,
+    "deflation_lane_gather": _seed_deflation_lane_gather,
 }
 
 
@@ -127,6 +158,66 @@ def _mutant_tree_dense_collective(device) -> list[contracts.Violation]:
         contracts.CONTRACTS["tree_merge"], params,
         _recorded("tree_dense_collective", device),
         program="mutant_tree_dense_collective",
+    )
+    return viols
+
+
+def _mutant_replicated_dk(device) -> list[contracts.Violation]:
+    """The regression the sharding contracts exist for: a feature-sharded
+    step whose ``(d, q)`` basis comes back WHOLE on every rank although the
+    contract declares it sharded over ``features``. Rank 0 of workers 4 x
+    features 2 takes its ``(d/2, q)`` rows; the step hands back all ``d``
+    rows, as a gather over ``features`` inserted into it would. The
+    ``silent-replication`` rule must name the program, the buffer's global
+    shape and where (``out[0]`` on rank 0), from what the rank held."""
+    from distributed_eigenspaces_tpu_torch.analysis import shardings
+    from distributed_eigenspaces_tpu_torch.analysis.programs import _normal, trace_buffers
+
+    d, q = 2 * _D, 2
+    v = _normal((d, q), 18, device)
+    mine, theirs = v[: d // 2], v[d // 2:]
+
+    def step(rows):  # the regression: the whole basis back on this rank
+        return 2.0 * torch.cat([rows, theirs])
+
+    contract = contracts.CONTRACTS["feature_sharded"]
+    params = contracts.ProgramParams(d=d, k=q, m=4, n=8, n_feature_shards=2,
+                                     n_workers_mesh=4)
+    out, buffers = trace_buffers(step, mine)
+    held = shardings.held_shapes(0, (mine,), out, buffers,
+                                 contract.sharding.replicated_axis_floor(params))
+    viols, _ = shardings.check_shardings(
+        contract.sharding, params, program="mutant_replicated_dk",
+        dense_dim=contract.dense_dim(params), axis_sizes={"workers": 4, "features": 2},
+        in_global=[(d, q)], out_global=[(d, q)], held=held,
+    )
+    return viols
+
+
+def _mutant_dist_dense_gram(device) -> list[contracts.Violation]:
+    """A distributed solve summing the dense d x d Gram over ``features``:
+    both op kinds (all-gather, all-reduce) are in the dist_solve contract's
+    allowed set — the PAYLOAD bound is what must catch it."""
+    params = contracts.ProgramParams(d=2 * _D, k=2, m=4, n_feature_shards=2,
+                                     n_workers_mesh=2)
+    viols, _ = contracts.check_collectives(
+        contracts.CONTRACTS["dist_solve"], params, _recorded("dist_dense_gram", device),
+        program="mutant_dist_dense_gram",
+    )
+    return viols
+
+
+def _mutant_deflation_lane_gather(device) -> list[contracts.Violation]:
+    """A lane gathering the full deflated operand over ``features``:
+    all-gather is in the deflation_solve contract's allowed set — the
+    PAYLOAD bound (the ``d_local * k`` lane gather / factor stack) is what
+    must catch it."""
+    params = contracts.ProgramParams(d=2 * _D, k=8, m=1, n_feature_shards=2,
+                                     n_workers_mesh=2, sketch_width=8, components=2)
+    viols, _ = contracts.check_collectives(
+        contracts.CONTRACTS["deflation_solve"], params,
+        _recorded("deflation_lane_gather", device),
+        program="mutant_deflation_lane_gather",
     )
     return viols
 
@@ -299,6 +390,9 @@ MUTATIONS: dict[str, tuple[str, Callable[[torch.device], list]]] = {
     "dense_collective": ("collective-op", _mutant_dense_collective),
     "tree_dense_collective": ("collective-payload", _mutant_tree_dense_collective),
     "dense_temp": ("dense-buffer", _mutant_dense_temp),
+    "replicated_dk": ("silent-replication", _mutant_replicated_dk),
+    "dist_dense_gram": ("collective-payload", _mutant_dist_dense_gram),
+    "deflation_lane_gather": ("collective-payload", _mutant_deflation_lane_gather),
     "tree_payload_drift": ("cost-bound", _mutant_tree_payload_drift),
     "population_payload": ("collective-payload", _mutant_population_payload),
     "pallas_full_block": ("pallas-block", _mutant_pallas_full_block),

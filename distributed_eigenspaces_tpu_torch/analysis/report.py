@@ -4,11 +4,13 @@ Counterpart of ``distributed_eigenspaces_tpu/analysis/report.py``:
 
 - :func:`run_analysis` — the audit (program matrix + lints), what
   ``scripts/torch_analyze.py --all`` emits: per program the collective
-  schedule, the memory footprint, the kernel tiles and the cost model's
-  measured costs and byte budget;
+  schedule, the memory footprint, the kernel tiles, the declared layouts
+  against every rank's held shapes and the cost model's measured costs and
+  byte budget;
 - :func:`run_mutation_report` — the self-test (:mod:`.mutations`);
 - :func:`engine_report` — audit a live ``TransformEngine``'s acquired
-  bucket programs: the report ``MetricsLogger.attach_analysis`` lands in
+  bucket programs (a sharded-basis engine's on every rank of its group):
+  the report ``MetricsLogger.attach_analysis`` lands in
   ``summary()["analysis"]``.
 
 The first two run on ``device="cuda"`` unless the caller asks for the CPU,
@@ -95,24 +97,28 @@ def engine_report(engine) -> dict:
     bucket's shape, under the collective recorder and the buffer trace,
     called directly — the engine's acquisition counters do not move.
 
-    The memory pass runs only on buckets whose row count sits below ``d``
-    (the premise that makes the dense-shape rule exact — a (rows, d)
-    activation with rows >= d is legitimately 'dense' by shape and proves
-    nothing). A sharded-basis engine is audited against the reference's
-    ``dist_serve`` contract, not ported yet (ROADMAP Queue 1 item 17c)."""
+    A sharded-basis engine (``basis_spec``) is audited against the
+    ``dist_serve`` contract, the others against ``serve_transform``. On a
+    mesh of ranks every rank of the engine's group calls this together (a
+    sharded bucket's run includes the sum over ``features`` the engine pairs
+    with a projection), and each audits its own buckets: operands of its
+    ``(rows, d_local)`` shard and ``(d_local, k)`` basis rows, whose
+    layouts the sharding pass holds against the global ``(rows * workers,
+    d)`` and ``(d, k)``.
+
+    The memory pass, and the sharding pass of a sharded engine, run only on
+    buckets whose row count sits below ``d`` (the premise that makes the
+    shape rules exact — a (rows, d) activation with rows >= d is
+    legitimately 'dense' by shape, and its rows axis reaches the floor of
+    an un-sharded ``(d, k)``: it proves nothing)."""
     import torch
 
     from distributed_eigenspaces_tpu_torch.analysis import contracts
     from distributed_eigenspaces_tpu_torch.analysis.programs import trace_buffers
     from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 
-    if getattr(engine, "basis_spec", None) is not None:
-        raise NotImplementedError(
-            "engine_report of a sharded-basis engine (the dist_serve "
-            "contract) is not ported to distributed_eigenspaces_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 17c)"
-        )
-    contract = contracts.CONTRACTS["serve_transform"]
+    sharded = getattr(engine, "basis_spec", None) is not None
+    contract = contracts.CONTRACTS["dist_serve" if sharded else "serve_transform"]
     out: dict = {
         "schema": SCHEMA,
         "contract": contract.name,
@@ -121,19 +127,27 @@ def engine_report(engine) -> dict:
         "n_violations": 0,
     }
     dev = engine.device
+    d_in = engine.d_local  # d itself unless the basis is sharded
     for (kind, rows), fn in sorted(engine._cache.items()):
         params = contracts.ProgramParams(d=engine.d, k=engine.k, rows=rows)
         name = f"serve_{kind}_rows{rows}"
-        width = engine.k if kind == "reconstruct" else engine.d
-        second = (rows, engine.k) if kind == "residual" else (engine.d, engine.k)
+        width = engine.k if kind == "reconstruct" else d_in
+        second = (rows, engine.k) if kind == "residual" else (d_in, engine.k)
         args = (torch.zeros((rows, width), dtype=engine.dtype, device=dev),
                 torch.zeros(second, dtype=torch.float32, device=dev))
+        call = fn
+        if sharded and kind == "project":  # with the engine's sum over features
+            def call(x, v, fn=fn):
+                return engine._psum(fn(x, v).float())
         with pmesh.recording_collectives() as log:
-            _, buffers = trace_buffers(fn, *args)
+            result, buffers = trace_buffers(call, *args)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         viols, col = contracts.check_collectives(contract, params, log, program=name)
         entry: dict = {"collectives": col}
+        v, entry["shardings"] = _sharded_bucket_layout(
+            engine, contract, kind, rows, args, result, buffers, name)
+        viols += v
         if rows < contract.dense_dim(params):
             mv, mem = contracts.check_memory(
                 contract, params, program=name, buffers=buffers
@@ -146,3 +160,31 @@ def engine_report(engine) -> dict:
         out["n_violations"] += len(viols)
     out["ok"] = out["n_violations"] == 0
     return out
+
+
+def _sharded_bucket_layout(engine, contract, kind, rows, args, result, buffers, name):
+    """The sharding pass over one bucket of a sharded-basis engine on this
+    rank: its operands and result against the global shapes of a bucket of
+    ``rows`` rows on each of the mesh's workers (none on another engine,
+    or where those rows reach ``d``)."""
+    from distributed_eigenspaces_tpu_torch.analysis import contracts, shardings
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+
+    if getattr(engine, "basis_spec", None) is None:
+        return [], {"checked": False, "reason": "unsharded program"}
+    axes = dict(engine.mesh.shape)
+    rows_all = rows * axes.get(pmesh.WORKER_AXIS, 1)
+    d, k = engine.d, engine.k
+    if rows_all >= d:
+        return [], {"checked": False, "reason": "rows >= d: the shape rules prove nothing"}
+    glob = {"project": ([(rows_all, d), (d, k)], [(rows_all, k)]),
+            "reconstruct": ([(rows_all, k), (d, k)], [(rows_all, d)]),
+            "residual": ([(rows_all, d), (rows_all, k)], [(rows_all,), (rows_all,)])}[kind]
+    params = contracts.ProgramParams(
+        d=d, k=k, rows=rows_all, n_feature_shards=axes.get(pmesh.FEATURE_AXIS, 1),
+        n_workers_mesh=axes.get(pmesh.WORKER_AXIS, 1))
+    floor = contract.sharding.replicated_axis_floor(params)
+    held = shardings.held_shapes(pmesh.rank(), args, result, buffers, floor)
+    return shardings.check_shardings(
+        contract.sharding, params, program=name, dense_dim=contract.dense_dim(params),
+        axis_sizes=axes, in_global=glob[0], out_global=glob[1], held=held)

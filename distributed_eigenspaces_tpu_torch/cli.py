@@ -1251,8 +1251,13 @@ def _serve_cli(args, cfg, data, truth, dev) -> int:
     if cc is not None:
         metrics.attach_compile(cc)
     prewarm_stats = None
-    # expected dispatch sizes: one query, and a full micro-batch
-    prewarm = (r, r * cfg.serve_bucket_size) if args.prewarm else False
+    # expected dispatch sizes: every micro-batch of 1 to serve_bucket_size
+    # queries (the flush timer can cut a batch short, and a short batch
+    # pads to its own power-of-two bucket)
+    prewarm = (
+        tuple(r * q for q in range(1, cfg.serve_bucket_size + 1))
+        if args.prewarm else False
+    )
     replica_regs = []
     if replicated:
         from distributed_eigenspaces_tpu_torch.serving import ReplicaRegistry

@@ -11,7 +11,9 @@ reference rounds it too.
 
 Random starts are never drawn inside a solver: every solver takes an
 explicit ``v0``, and :func:`initial_basis` draws one from a seeded
-``torch.Generator``.
+``torch.Generator``. :func:`start_rows` draws any rows of a seeded start
+without the others, so a rank of a row-sharded solve draws its own rows
+only.
 """
 
 from __future__ import annotations
@@ -33,6 +35,49 @@ def initial_basis(d: int, k: int, *, seed: int = 0, device="cpu",
         return torch.as_tensor(v0, dtype=torch.float32).to(device)
     gen = torch.Generator().manual_seed(seed)
     return torch.randn((d, k), generator=gen, dtype=torch.float32).to(device)
+
+
+_GOLDEN = 0x9E3779B97F4A7C15
+_MASK64 = (1 << 64) - 1
+
+
+def _s64(c: int) -> int:
+    """The unsigned 64-bit ``c`` as the signed int64 torch holds."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(z):
+    """SplitMix64's finalizer, on Python ints (mod 2^64) or int64 tensors
+    (whose products wrap)."""
+    if isinstance(z, int):
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        return z ^ (z >> 31)
+    z = (z ^ _shr(z, 30)) * _s64(0xBF58476D1CE4E5B9)
+    z = (z ^ _shr(z, 27)) * _s64(0x94D049BB133111EB)
+    return z ^ _shr(z, 31)
+
+
+def start_rows(lo: int, hi: int, width: int, *, seed: int = 0,
+               device="cpu") -> torch.Tensor:
+    """Rows ``lo:hi`` of the seeded float32 standard-normal start of width
+    ``width``, drawn without the other rows: element ``(r, c)`` is a
+    function of ``(seed, r * width + c)`` alone (SplitMix64 bits, one
+    Box-Muller draw each), so a rank of a row-sharded solve draws only its
+    ``(hi - lo, width)`` share, and the shares stacked are the one-device
+    start bit for bit. Drawn on the CPU, then moved to ``device``."""
+    key = _mix64((seed * _GOLDEN + _GOLDEN) & _MASK64)
+    idx = torch.arange(lo * width, hi * width, dtype=torch.int64)
+    bits = _mix64(idx * _s64(_GOLDEN) + _s64(key))
+    u1 = (_shr(bits, 32) + 1).double() * 2.0 ** -32  # (0, 1]
+    u2 = (bits & 0xFFFFFFFF).double() * 2.0 ** -32
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * torch.pi) * u2)
+    return z.float().reshape(hi - lo, width).to(device)
 
 
 def guarded_inv_sqrt(w: torch.Tensor, tol=1e-12) -> torch.Tensor:

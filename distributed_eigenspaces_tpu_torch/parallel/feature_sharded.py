@@ -34,7 +34,8 @@ number of feature shards (the reference's does). The draws: the worker
 solves' ``(m, d, k)`` start ``v_rand`` (every step starts from the same
 noise, as the reference's fixed key does), the sketch's ``(d, p)`` test
 matrix ``omega``, and the crossover merge's ``(d, k')`` ``v_init``
-(``algo.step.merge_start``); each can be passed in instead.
+(``algo.step.merge_start``, drawn by ``ops.linalg.start_rows``: each rank
+draws only its rows); each can be passed in instead.
 
 A bf16 product takes bf16 operands and returns fp32 (``torch.bmm(...,
 out_dtype=torch.float32)`` on the card; widened operands on the CPU,
@@ -423,7 +424,7 @@ def _live_rows(v: torch.Tensor) -> bool:
 
 class _Starts(NamedTuple):
     v_rand: torch.Tensor  # this rank's (m_local, d_local, k)
-    v_init: torch.Tensor | None  # the crossover merge's whole (d, k')
+    v_init: torch.Tensor | None  # this rank's (d_local, k') rows of the merge's start
 
 
 def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts, collectives: str = "xla"):
@@ -490,14 +491,16 @@ def _make_step_core(cfg: PCAConfig, mesh, starts: _Starts, collectives: str = "x
 def _starts(cfg: PCAConfig, mesh, *, v_rand=None, v_init=None, seed=None) -> _Starts:
     """The worker solves' start (``v_rand``, whole ``(m, d, k)``, default
     drawn from ``seed``, default ``cfg.seed``) as this rank's share, and
-    the crossover merge's ``v_init`` (``algo.step.merge_start``)."""
+    this rank's rows of the crossover merge's start (``v_init`` whole, or
+    by default only those rows drawn: ``algo.step.merge_start``)."""
     from distributed_eigenspaces_tpu_torch.algo.step import merge_start
 
     shape = (cfg.num_workers, cfg.dim, cfg.k)
     if v_rand is None:
         (v_rand,) = _draw(cfg.seed if seed is None else seed, [shape])
     return _Starts(_rows_of(mesh, v_rand, shape, "v_rand"),
-                   merge_start(cfg, device=mesh.device, v_init=v_init))
+                   merge_start(cfg, device=mesh.device, v_init=v_init,
+                               rows=pmesh.feature_rows(mesh, cfg.dim)))
 
 
 def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = None,

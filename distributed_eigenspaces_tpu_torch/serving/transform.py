@@ -45,13 +45,13 @@ SPMD:
   (an int8 basis quantized and scaled per shard, so the dequantization
   comes before the reduce) and sums the fp32 partials with ONE psum over
   ``features``; ``reconstruct`` is row-local onto the shards (this rank's
-  columns, no collective); ``residual_energy`` sums the input energy over
-  ``features``. Every sharded reduction is one call of
-  ``TransformEngine._shard_sums``: the partial projection and the partial
-  input energy in one ``(rows, k + 1)`` fp32 psum. Every rank of a
-  features group must make the same calls in the same order
-  (``QueryServer`` agrees on each batch first). The dense ``(d, k)`` basis
-  never lands on one rank.
+  columns, no collective); the ``residual`` bucket sums the input energy
+  over ``features``, as the reference's sharded twins do. The server's
+  ``project_energy`` sums the partial projection and the partial input
+  energy in one ``(rows, k + 1)`` fp32 psum. Every rank of a features
+  group must make the same calls in the same order (``QueryServer`` agrees
+  on each batch first). The dense ``(d, k)`` basis never lands on one
+  rank.
 """
 
 from __future__ import annotations
@@ -169,8 +169,16 @@ class TransformEngine:
         self._fns = {
             "project": project,
             "reconstruct": _reconstruct,
-            "residual": _residual,
+            "residual": self._residual_sharded if self.sharded else _residual,
         }
+
+    def _residual_sharded(self, x, z):
+        """The sharded residual bucket: this rank's ``(rows, d_local)``
+        input energy summed over ``features``, less the energy of the
+        (replicated) projection."""
+        e_in = self._psum(torch.sum(x.float() ** 2, dim=-1))
+        e_out = torch.sum(z.float() ** 2, dim=-1)
+        return torch.clamp_min(e_in - e_out, 0.0), e_in
 
     def _project_quant(self, x, v):
         if self.serve_dtype == "int8":
@@ -391,27 +399,27 @@ class TransformEngine:
             return v.to(device=self.device, dtype=torch.float32).contiguous()
         return self.place_basis(v)
 
-    def _shard_sums(self, x, v=None):
-        """Sharded mode's one reduction: this rank's partial projection of
-        ``x`` against its basis rows ``v`` (the serve kernel; none when
-        ``v`` is None) and its partial input energy, summed over
-        ``features`` in ONE fp32 psum. Returns ``(z or None, input_sq)``
-        for the real rows."""
+    def _shard_sums(self, x, v, *, energy: bool):
+        """Sharded mode's projection reduction: this rank's partial
+        projection of ``x`` against its basis rows ``v`` (the serve kernel)
+        and, with ``energy``, its partial input energy, summed over
+        ``features`` in ONE fp32 psum (``(rows, k)`` or ``(rows, k + 1)``).
+        Returns ``(z, input_sq or None)`` for the real rows."""
         x_pad, rows = self._pad(x, self.d)
-        parts = [torch.sum(x_pad.float() ** 2, dim=-1, keepdim=True)]
-        if v is not None:
-            v = self._check_basis(v)
-            z = self._compiled("project", int(x_pad.shape[0]))(x_pad, v)
-            parts.insert(0, z.float())
+        v = self._check_basis(v)
+        parts = [self._compiled("project", int(x_pad.shape[0]))(x_pad, v).float()]
+        if energy:
+            parts.append(torch.sum(x_pad.float() ** 2, dim=-1, keepdim=True))
         both = self._psum(torch.cat(parts, dim=1))[:rows]
-        return (None if v is None else both[:, :self.k]), both[:, -1]
+        return both[:, :self.k], (both[:, -1] if energy else None)
 
     def project(self, x, v) -> torch.Tensor:
         """``(n, d) -> (n, k)`` against basis ``v``: pad, dispatch the
         bucket's operation, slice. Sharded: this rank's shard through the
-        serve kernel, then the one psum of :meth:`_shard_sums`."""
+        serve kernel, then the one ``(rows, k)`` psum of
+        :meth:`_shard_sums`."""
         if self.sharded:
-            return self._shard_sums(x, v)[0]
+            return self._shard_sums(x, v, energy=False)[0]
         v = self._check_basis(v)
         x_pad, rows = self._pad(x, self.d)
         return self._compiled("project", int(x_pad.shape[0]))(x_pad, v)[:rows]
@@ -423,7 +431,7 @@ class TransformEngine:
             z = self.project(x, v)
             r, e = self.residual_energy(x, z)
             return z, r, e
-        z, e_in = self._shard_sums(x, v)
+        z, e_in = self._shard_sums(x, v, energy=True)
         return z, torch.clamp_min(e_in - torch.sum(z ** 2, dim=-1), 0.0), e_in
 
     def reconstruct(self, z, v) -> torch.Tensor:
@@ -438,12 +446,7 @@ class TransformEngine:
     def residual_energy(self, x, z) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-row ``(residual_sq, input_sq)`` energies from a query batch
         and its projection. Zero-padded rows contribute zero to both.
-        Sharded: the input energy summed over ``features``."""
-        if self.sharded:
-            _, e_in = self._shard_sums(x)
-            z_pad, rows = self._pad(z, self.k)
-            e_out = torch.sum(z_pad[:rows].float() ** 2, dim=-1)
-            return torch.clamp_min(e_in - e_out, 0.0), e_in
+        Sharded: the input energy summed over ``features`` in the bucket."""
         x_pad, rows = self._pad(x, self.d)
         z_pad, _ = self._pad(z, self.k)
         r, e = self._compiled("residual", int(x_pad.shape[0]))(x_pad, z_pad)

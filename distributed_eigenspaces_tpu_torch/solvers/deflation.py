@@ -30,9 +30,10 @@ a ``components`` mesh axis:
 Random starts are explicit, as in ``solvers/distributed.py``: the
 reference draws ``jax.random.normal(key, (d, k))`` (``PRNGKey(0)`` by
 default; per row shard and per lane from ``fold_in`` on a mesh), which
-torch cannot reproduce, so every solve takes the whole block as ``v_init``
-(default: drawn from ``torch.Generator().manual_seed(0)``) and each rank
-takes its rows, and on a ``components`` axis its lane's columns.
+torch cannot reproduce, so every solve takes this rank's rows of the start
+as ``v_init`` (default: those rows drawn from seed 0 by
+``ops.linalg.start_rows``, never the whole block), and on a
+``components`` axis each rank takes its lane's columns of them.
 
 ``tol`` arms the per-lane stop: a lane whose residual drops below ``tol``
 freezes, and the loop ends when every lane froze or at ``iters``. The
@@ -140,8 +141,8 @@ def deflation_eig(
     lanes batched as a ``(L, d, kb)`` stack; returns ``(d, k)`` (and
     ``info`` with ``with_info``).
 
-    The start is ``v_init (d, k)`` (default: drawn from seed 0) on
-    ``device`` (default: ``v_init``'s or ``v0``'s device, else ``"cuda"``);
+    The start is ``v_init (d, k)`` (default: drawn from seed 0 by
+    ``ops.linalg.start_rows``) on ``device`` (default: ``v_init``'s or ``v0``'s device, else ``"cuda"``);
     with ``v0 (d, k0)`` it is the reference's warm blend ``(1e-3 /
     sqrt(d)) v_init`` plus ``v0`` on the leading k0 columns. One
     full-width CholeskyQR2 splits it into the lane stack. Each sweep: one
@@ -153,8 +154,8 @@ def deflation_eig(
     "lanes": L, "lane_width": kb, "syncs": host residual reads}``.
 
     With ``axis_name`` (inside ``mesh_scope``) the rows are this rank's
-    share: ``matvec`` maps rows to rows, ``v_init`` is the whole ``(d, k)``
-    start, ``v0`` this rank's rows, and the correction panels,
+    share: ``matvec`` maps rows to rows, ``v_init`` is this rank's
+    ``(d_local, k)`` rows of the start, ``v0`` this rank's rows, and the correction panels,
     residuals and Grams are summed over the axis."""
     kb = _lane_widths(k, lanes)
     dev = _start_device(device, v_init, v0)
@@ -234,8 +235,9 @@ def dist_deflation_eig(
     finish gathers the lanes once more, then CholeskyQR2 across lanes and
     the shared Rayleigh-Ritz.
 
-    The start is this rank's rows of this lane's columns of ``v_init`` (the
-    whole ``(d, k)`` block, default drawn from seed 0), or this lane's
+    The start is this lane's columns of ``v_init``, this rank's ``(d_local,
+    k)`` rows of the start (default: those rows drawn from seed 0), or this
+    lane's
     ``(d_local, kb)`` seed block ``v0``. ``tol`` freezes this lane once its
     residual is below it while lower lanes keep correcting; the loop runs
     until the largest residual over ``lane_axis`` (one ``pmax`` a sweep,
@@ -362,7 +364,8 @@ def dist_merged_top_k_deflation(
     each rank (:func:`deflation_eig`) with the rows over ``features``.
     Returns this rank's ``(d_local, k)`` rows; an all-masked round returns
     zeros. ``collectives`` and ``wire_dtype`` choose how the factors are
-    gathered, as in ``dist_merged_top_k``."""
+    gathered, as in ``dist_merged_top_k``; ``v_init`` is this rank's
+    ``(d_local, k)`` rows of the start."""
     c, w = _gathered_worker_factors(v_workers, mask, collectives, wire_dtype)
     alive = torch.sum(w) > 0
     cc = _scaled_factor_concat(c, w)
@@ -399,8 +402,7 @@ def grow_directions(
     orthogonal to the parent to fp32 rounding), then Rayleigh-Ritz of the
     new block on the deflated operator: descending, canonical signs. ``info = {"iters_used": int, "residual": float,
     "syncs": host residual reads}``. With ``axis_name`` the parent,
-    ``matvec`` and the result are this rank's rows (``v_init`` the whole
-    block), and the ``k0 x k_new`` correction is summed over the axis."""
+    ``matvec``, ``v_init`` and the result are this rank's rows, and the ``k0 x k_new`` correction is summed over the axis."""
     global syncs
     v_parent = torch.as_tensor(v_parent, dtype=torch.float32)
     d_local = v_parent.shape[0]

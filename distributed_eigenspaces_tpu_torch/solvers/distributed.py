@@ -28,13 +28,12 @@ branches:
   that pass it reach it; the trainers' merge uses :func:`factor_matvec`.
 
 Random starts are explicit: torch cannot draw ``jax.random``'s bits, so
-every solve takes ``v_init (d, k')``, the standard-normal block the
-reference draws with ``jax.random.normal(key, (d, k'))`` (``PRNGKey(0)``
-by default; on a mesh it draws each row shard from ``fold_in(key,
-axis_index)``, so the global start is those shards stacked). Without it
-the block is drawn from ``torch.Generator().manual_seed(0)`` on the CPU
-(:func:`~..ops.linalg.initial_basis`), the same start on every device; on
-a mesh each rank takes its rows of the global start. The trainers pass one
+every solve takes ``v_init``, this rank's ``(d_local, k')`` rows of a
+standard-normal start (on one device the whole ``(d, k')``), as the
+reference draws each row shard from ``fold_in(key, axis_index)``: no rank
+holds the whole start. Without it the rows are drawn from seed 0 by
+:func:`~..ops.linalg.start_rows`, this rank's rows only, whose shards
+stacked are the one-device start. The trainers pass their rows of one
 drawn from ``cfg.seed`` (``algo.step.merge_start``). The merges'
 worker factor-stack gather, the solve's one d-wide payload, takes
 ``collectives="ring"`` (``parallel/ring.py``) or a wire codec
@@ -52,8 +51,8 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
     chol_apply,
     chol_qr,
     chol_qr2,
-    initial_basis,
     rayleigh_ritz,
+    start_rows,
 )
 from distributed_eigenspaces_tpu_torch.ops.matvec_gram import matvec_gram_auto
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
@@ -113,18 +112,20 @@ def _qr2(v: torch.Tensor, axis_name) -> torch.Tensor:
 
 
 def _row_start(v_init, d_local: int, width: int, axis_name, device) -> torch.Tensor:
-    """This rank's ``(d_local, width)`` rows of the whole ``(d, width)``
-    start ``v_init`` along ``axis_name`` (default: drawn whole from seed 0)."""
-    shards = 1 if axis_name is None else pmesh.axis_size(axis_name)
-    v = initial_basis(d_local * shards, width, device=device, v0=v_init)
-    if tuple(v.shape) != (d_local * shards, width):
+    """This rank's ``(d_local, width)`` rows of the start along
+    ``axis_name``: ``v_init``, which holds just those rows, or (default)
+    those rows drawn from seed 0 (:func:`~..ops.linalg.start_rows`). No rank
+    draws or holds the whole ``(d, width)`` start."""
+    if v_init is None:
+        i = 0 if axis_name is None else pmesh.axis_index(axis_name)
+        return start_rows(i * d_local, (i + 1) * d_local, width, device=device)
+    v = torch.as_tensor(v_init, dtype=torch.float32).to(device)
+    if tuple(v.shape) != (d_local, width):
         raise ValueError(
-            f"v_init must be ({d_local * shards}, {width}), got {tuple(v.shape)}"
+            f"v_init must be this rank's ({d_local}, {width}) rows of the start, "
+            f"got {tuple(v.shape)}"
         )
-    if shards == 1:
-        return v
-    i = pmesh.axis_index(axis_name)
-    return v[i * d_local:(i + 1) * d_local]
+    return v
 
 
 def dist_canonicalize_signs(v: torch.Tensor, axis_name=None) -> torch.Tensor:
@@ -187,8 +188,8 @@ def dist_subspace_eig(
     ``with_info``).
 
     ``matvec(v) -> A v`` on ``(d, k')`` blocks, ``k' = k + oversample``.
-    The start is ``v_init (d, k')`` (default: drawn from seed 0), on
-    ``device`` (default: ``v_init``'s or ``v0``'s device, else ``"cuda"``);
+    The start is ``v_init (d, k')`` (default: drawn from seed 0 by
+    :func:`~..ops.linalg.start_rows`), on ``device`` (default: ``v_init``'s or ``v0``'s device, else ``"cuda"``);
     with ``v0 (d, k)`` it is the reference's blend
     ``(1e-3 / sqrt(d)) v_init`` plus ``v0`` on the leading k columns. Per
     iteration one matvec and one CholeskyQR2; ``matvec_gram`` (e.g.
@@ -199,9 +200,10 @@ def dist_subspace_eig(
     (``nan`` without ``tol``).
 
     With ``axis_name`` (inside ``mesh_scope``) ``matvec`` maps this rank's
-    ``(d_local, k')`` rows to rows, ``v_init`` is the whole ``(d, k')``
-    start (this rank takes its rows), ``v0`` this rank's rows
-    of the warm basis, and every Gram and residual is summed over the axis,
+    ``(d_local, k')`` rows to rows, ``v_init`` is this rank's ``(d_local,
+    k')`` rows of the start (default: only those rows drawn), ``v0`` this
+    rank's rows of the warm basis, and every Gram and residual is summed
+    over the axis,
     so the ``tol`` stop reads the same value on every rank. ``matvec_gram``
     fuses a local operator only (``axis_name=None``), as in the
     reference."""
@@ -338,8 +340,9 @@ def dist_merged_top_k(
     (its rows along ``features``) and ``mask (m_local,)`` their mask; both
     are all-gathered over ``workers``, and the solve runs with its rows over
     ``features`` (:func:`dist_subspace_eig`, ``axis_name="features"``), its
-    start ``v_init`` the whole ``(d, k')`` block (default: drawn from seed
-    0), ``v0`` this rank's rows of a warm basis.
+    start ``v_init`` this rank's ``(d_local, k')`` rows of the start
+    (default: those rows drawn from seed 0), ``v0`` this rank's rows of a
+    warm basis.
     Returns this rank's ``(d_local, k)`` rows, the same on every workers
     rank; an all-masked round returns zeros. ``collectives="ring"`` gathers
     the factors and the mask over an explicit ring; ``wire_dtype`` (fp32,
@@ -403,8 +406,8 @@ def dist_extract_top_k(
 ) -> torch.Tensor:
     """Top-k eigenbasis of ``U diag(s) U^T`` from ``u (d, r)``, ``s (r,)``:
     descending, canonical signs, warm-started from ``u[:, :k]``. With
-    ``axis_name`` ``u`` is this rank's rows and so is the result (the
-    published basis stays row-sharded)."""
+    ``axis_name`` ``u`` is this rank's rows and so are ``v_init`` and the
+    result (the published basis stays row-sharded)."""
     if oversample is None:
         oversample = _default_oversample(k, u.shape[1])
     return dist_subspace_eig(

@@ -3,18 +3,20 @@
 
 Runs every program of the port's audit matrix (``distributed_eigenspaces_
 tpu_torch/analysis/programs.py``: four single-device serve and kernel
-programs, and fourteen mesh programs on one launch of 4 gloo ranks) once
-at its audit shapes and holds it against its contract
-(``analysis/contracts.py``): the collective schedule and payload bounds
-read from the run's recorded collectives, the kernel tile budget over the
-launch geometry of its hand-written kernels, no dense d x d buffer in a
-factor-only program, and the cost model's per-op byte budget. Then the
+programs, and 23 mesh programs on one launch of 4 gloo ranks) once at its
+audit shapes and holds it against its contract (``analysis/contracts.py``):
+the collective schedule and payload bounds read from the run's recorded
+collectives, the kernel tile budget over the launch geometry of its
+hand-written kernels, no dense d x d buffer in a factor-only program, the
+declared layouts against the shapes every rank held (``analysis/
+shardings.py``), and the cost model's per-op byte budget. Then the
 lock-discipline lint over the port's threaded runtime.
-``--mutation-check`` also runs the self-test: each seeded violation (a
-dense psum, a tree tier over its payload or byte budget, a population
-gather, a dropped wire codec, a d x d temp, a kernel whose one CTA owns the
-whole operand, an infeasible plan, three lock-discipline fixtures) must be
-CAUGHT.
+``--mutation-check`` also runs the self-test: each of the 14 seeded
+violations (a dense psum, a tree tier over its payload or byte budget, a
+population gather, a dropped wire codec, a d x d temp, a (d, k) basis held
+whole, a distributed solve or a deflation lane gathering d-wide rows, a
+kernel whose one CTA owns the whole operand, an infeasible plan, three
+lock-discipline fixtures) must be CAUGHT.
 
 Usage:
     python scripts/torch_analyze.py --all [--mutation-check] [--json OUT]
@@ -59,12 +61,15 @@ def _print_analysis(rep: dict) -> None:
     print(f"programs audited on {rep['device']}: {len(rep['programs'])}")
     for name, entry in rep["programs"].items():
         pal, mem, col = entry["pallas"], entry["memory"], entry["collectives"]
+        shard = entry["shardings"]
+        held = (f"sharded_ok={shard['n_sharded_ok']}" if shard["checked"]
+                else f"layout={shard['reason'].replace(' ', '_')}")
         print(f"  {name:26s} {'ok' if entry['ok'] else 'FAIL':4s} "
               f"contract={entry['contract']:16s} collectives={col['n_collectives']:3d} "
               f"max_payload={col['max_payload_elems']:6d} "
               f"launches={pal['n_pallas_calls']} "
               f"max_cta_elems={pal['max_block_elems_seen']:6d} "
-              f"policy={mem['policy']}")
+              f"policy={mem['policy']} {held}")
     for key, entry in rep["lints"].items():
         print(f"  lint:{key:21s} {'ok' if entry['ok'] else 'FAIL'}"
               f"   violations={len(entry['violations'])}")

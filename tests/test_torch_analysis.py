@@ -727,8 +727,8 @@ def test_torch_analyze_cli_cpu(tmp_path, capsys):
     out = json.loads(out_path.read_text())
     assert set(out) == {"schema", "device", "analysis", "mutation_check", "elapsed_s", "ok"}
     assert out["ok"] and out["schema"] == report.SCHEMA
-    assert len(out["analysis"]["programs"]) == len(programs.MATRIX) == 18
-    assert len(out["mutation_check"]["mutations"]) == len(mutations.MUTATIONS) == 11
+    assert len(out["analysis"]["programs"]) == len(programs.MATRIX) == 27
+    assert len(out["mutation_check"]["mutations"]) == len(mutations.MUTATIONS) == 14
     assert all(r["caught"] for r in out["mutation_check"]["mutations"])
     assert cli.main(["--list"]) == 0
     assert cli.main(["--lints-only", "--device", "cpu"]) == 0

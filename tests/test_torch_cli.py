@@ -228,6 +228,22 @@ def test_synthetic_lands_on_the_planted_truth(mode, capsys, tmp_path):
         assert out["prewarm"]["compiled"] == out["prewarm"]["submitted"]
 
 
+@pytest.mark.parametrize("queries", [2, 3])
+def test_prewarmed_serve_acquires_nothing_when_the_flush_timer_cuts_a_batch(
+        queries, capsys, tmp_path):
+    """Fewer queries than a bucket holds: only the flush timer dispatches, so
+    every batch is short, and 2 or 3 queries of 8 rows in one batch pad to 16
+    or 32 rows. ``--prewarm`` covers every batch of 1 to
+    ``serve_bucket_size`` queries (8, 16, 32 and 64 rows, two kinds each), so
+    the burst still acquires nothing."""
+    rc, out, _ = _run(cli.main, ["--mode", "serve", "--prewarm", "--serve-queries",
+                                 str(queries)] + SYNTH + CPU, capsys)
+    assert rc == 0 and out["max_abs_err_vs_direct"] == 0.0
+    assert 1 <= out["batches"] <= queries
+    assert out["compile_misses"] == 0 and out["compile_stall_ms"] == 0.0
+    assert out["prewarm"]["compiled"] == out["prewarm"]["submitted"] == 8
+
+
 @pytest.mark.parametrize("trainer", ["scan", "step"])
 def test_resume_with_more_steps_equals_one_run(trainer, capsys, tmp_path):
     # 1/t: a step's weight does not depend on --steps (under 1/T a run of 4

@@ -19,9 +19,10 @@ from distributed_eigenspaces_tpu.analysis import hlo as jhlo
 from distributed_eigenspaces_tpu_torch import analysis
 from distributed_eigenspaces_tpu_torch.analysis import contracts, costmodel, hlo
 
-#: the slice's contracts (and the single-device ones the port had)
+#: every contract kind of the port
 KINDS = ("scan_fit", "feature_sharded", "tree_merge", "fleet_fit",
-         "population_merge", "serve_transform", "serve_pallas")
+         "population_merge", "serve_transform", "serve_pallas", "dist_solve",
+         "deflation_solve", "dist_serve")
 
 #: ProgramParams field sets: the matrix's mesh programs at the port's mesh,
 #: at the reference's, and a large-d tree with a wire policy
@@ -60,8 +61,8 @@ def test_bounds_and_model_costs_equal_the_reference(kind, kw):
 
 @pytest.mark.parametrize("kind", ("dist_solve", "deflation_solve", "dist_serve"))
 def test_model_costs_of_the_later_contracts_equal_the_reference(kind):
-    """model_costs is copied whole: the kinds whose programs wait for 17c
-    price the same bytes already (exact)."""
+    """model_costs is copied whole: the dist, deflation and sharded-serve
+    kinds price the same bytes at their own audit params (exact)."""
     for kw in (dict(d=128, k=2, m=4, n_feature_shards=2, n_workers_mesh=4),
                dict(d=128, k=8, m=1, n_feature_shards=2, n_workers_mesh=4, sketch_width=8,
                     components=4),
@@ -266,13 +267,3 @@ def test_engine_report_audits_the_acquired_buckets_like_the_reference(devices):
         assert ("memory" in entry) == ("memory" in ref["programs"][name])
     m = MetricsLogger().attach_analysis(lambda: report.engine_report(eng))
     assert m.summary()["analysis"]["programs"].keys() == rep["programs"].keys()
-
-
-def test_engine_report_of_a_sharded_basis_engine_names_its_item():
-    class Sharded:
-        basis_spec = ("features", None)
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17c"):
-        from distributed_eigenspaces_tpu_torch.analysis import report
-
-        report.engine_report(Sharded())

@@ -36,6 +36,7 @@ from distributed_eigenspaces_tpu_torch.api.estimator import resolves_feature_sha
 from distributed_eigenspaces_tpu_torch.api.runner import extract_dense
 from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+from distributed_eigenspaces_tpu_torch.ops.linalg import start_rows as tl_start_rows
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.solvers import distributed as tdist
 
@@ -216,6 +217,41 @@ def test_mesh_solves_name_the_roadmap():
                                 matvec_gram=tdist.fused_factor_matvec(tc))
     with pytest.raises(ValueError, match="v_init"):
         tdist.dist_subspace_eig(tdist.factor_matvec(tc), 8, 1, v_init=torch.zeros((8, 3)))
+
+
+def test_the_start_is_one_mode_this_ranks_rows():
+    """``v_init`` is this rank's rows of the start, one shape only: on a
+    one-rank features axis those are all ``d`` rows, and the default draws
+    them with ``start_rows`` from seed 0 (bit-equal to passing that draw);
+    any other shape is refused."""
+    tc = torch.from_numpy(_normal((D, M * K)))
+    mv = tdist.factor_matvec(tc, pmesh.FEATURE_AXIS)
+    with pmesh.mesh_scope(pmesh.local_mesh("cpu")):
+        run = lambda v_init: tdist.dist_subspace_eig(  # noqa: E731
+            mv, D, K, iters=3, v_init=v_init, device="cpu", axis_name=pmesh.FEATURE_AXIS,
+            oversample=KK - K)
+        drawn = tl_start_rows(0, D, KK)
+        assert torch.equal(run(None), run(drawn))
+        with pytest.raises(ValueError, match="this rank's"):
+            run(drawn[: D // 2])
+
+
+def test_merge_start_draws_only_the_rows_asked_for():
+    """``merge_start(rows=)`` is the whole start's rows bit for bit (a
+    feature-sharded rank asks for its own and draws only those); a whole
+    ``v_init`` gives its rows; a mis-shaped one is refused."""
+    cfg = PCAConfig(dim=D, k=K, num_workers=M, rows_per_worker=8, num_steps=2,
+                    solver="distributed", eigh_crossover_d=64)
+    whole = tstep.merge_start(cfg, device="cpu")
+    assert tuple(whole.shape) == (D, KK)
+    for rows in (slice(0, D // 2), slice(D // 2, D)):
+        assert torch.equal(tstep.merge_start(cfg, device="cpu", rows=rows), whole[rows])
+    given = _normal((D, KK), seed=4)
+    assert np.array_equal(
+        tstep.merge_start(cfg, device="cpu", v_init=given, rows=slice(64, 128)).numpy(),
+        given[64:128])
+    with pytest.raises(ValueError, match="v_init"):
+        tstep.merge_start(cfg, device="cpu", v_init=given[:, :K])
 
 
 # -- the whole slice at a small size ------------------------------------------

@@ -55,6 +55,29 @@ def test_initial_basis_is_seeded_and_device_independent():
     assert a.shape == (32, 4) and a.dtype == torch.float32
 
 
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_start_rows_shards_stack_into_the_one_device_start(shards):
+    """Each row shard drawn alone is the whole start's rows, bit for bit,
+    whatever the number of shards (a rank draws only its own)."""
+    whole = tl.start_rows(0, 96, 5, seed=7)
+    per = 96 // shards
+    parts = [tl.start_rows(i * per, (i + 1) * per, 5, seed=7) for i in range(shards)]
+    assert all(p.shape == (per, 5) and p.dtype == torch.float32 for p in parts)
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_start_rows_is_seeded_and_standard_normal():
+    """Seeded (the same seed the same bits, another seed others); over
+    200,000 values the mean within 0.01 of 0 and the standard deviation
+    within 0.01 of 1 (the mean's standard error is 0.0022)."""
+    a = tl.start_rows(0, 40000, 5, seed=3)
+    assert torch.equal(a, tl.start_rows(0, 40000, 5, seed=3))
+    assert not torch.equal(a[:8], tl.start_rows(0, 8, 5, seed=4))
+    x = a.double()
+    assert abs(float(x.mean())) <= 0.01 and abs(float(x.std()) - 1.0) <= 0.01
+    assert bool(torch.isfinite(a).all())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_batched_xtxv_matches_with_reference_casts(rng, dtype):
     """bf16 inputs: both products come out fp32, with v and X v rounded to

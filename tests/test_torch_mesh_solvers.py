@@ -8,7 +8,8 @@ Gloo groups of 2 and 4 ranks (``parallel.mesh.launch``; programs in
 the parent runs the JAX solve on the same numpy operands. The reference
 draws its start per row shard (and per lane) from ``fold_in`` of
 ``PRNGKey(0)``; those shards, stacked into the whole block, are the port's
-``v_init``, of which each rank takes its rows (and its lane's columns).
+``v_init``, of which each rank is handed its rows (and takes its lane's
+columns).
 Tolerances: lane staircases (``iters_used``) and sign flips exact, a dead
 merge exactly zero, every rank's rows bit-equal along the axes that
 replicate them, principal angles within 0.05 degrees of the reference.

@@ -96,7 +96,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "from distributed_eigenspaces_tpu_torch.utils.faults import (\n"
         "    ChaosPlan, ChaosStream, ChurnPlan, ClientChaosPlan, FaultInjector)\n"
         "from distributed_eigenspaces_tpu_torch.analysis import (\n"
-        "    ast_lints, contracts, costmodel, mutations, planner, programs, report)\n"
+        "    ast_lints, contracts, costmodel, mutations, planner, programs, report,\n"
+        "    shardings)\n"
         "runpy.run_path('scripts/torch_plan_calibrate.py', run_name='imported')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
@@ -285,3 +286,5 @@ def test_refusals_name_items_that_exist_in_the_roadmap():
     # the planner is ported: a plan path is accepted, and nothing names 17b
     assert PCAConfig(dim=16, k=2, plan_path="plan.json").plan_path == "plan.json"
     assert "17b" not in named, named.get("17b")
+    # the sharding contracts are ported: nothing names 17c
+    assert "17c" not in named, named.get("17c")

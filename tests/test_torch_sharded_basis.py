@@ -242,6 +242,52 @@ def test_sharded_engine_and_server_on_two_ranks(two_rank_serving):
                     assert np.degrees(np.arccos(np.clip(cos, -1, 1))).max() <= 0.2
 
 
+def test_engine_report_of_a_sharded_basis_engine_on_two_ranks(devices, two_rank_serving):
+    """``analysis.report.engine_report`` of the row-sharded engine on each
+    of the two ranks against the reference's report of the same engine (a
+    ``(1, 2)`` features mesh of two JAX devices, the same calls): the same
+    contract (``dist_serve``), the same bucket programs (8 and 64 rows) with
+    the same collectives, every one ``ok``; on the 8-row buckets each rank's
+    sharding pass finds its ``(rows, d / 2)`` shard and ``(d / 2, k)`` basis
+    rows held sharded (at 64 rows = d the shape rules are skipped, as the
+    memory pass is in both packages), and the audit acquires nothing.
+    Exact."""
+    import jax
+
+    from distributed_eigenspaces_tpu.analysis import report as jreport
+    from distributed_eigenspaces_tpu.parallel.mesh import make_mesh
+    from distributed_eigenspaces_tpu.serving.transform import TransformEngine as JEngine
+
+    out, v, queries, _ = two_rank_serving
+    d, k = v.shape
+    jeng = JEngine(d, k, mesh=make_mesh(num_workers=1, num_feature_shards=2,
+                                        devices=jax.devices()[:2]),
+                   basis_spec=("features", None))
+    for x in (queries[-1], queries[-1][:8]):
+        jz = jeng.project(x, v)
+        jeng.reconstruct(jz, v)
+        jeng.residual_energy(x, jz)
+    ref = jreport.engine_report(jeng)
+    assert (ref["contract"], ref["ok"], ref["n_violations"]) == ("dist_serve", True, 0)
+    for o in out:
+        rep, untouched = o["engine_report"]
+        assert untouched
+        assert (rep["contract"], rep["ok"], rep["n_violations"]) == ("dist_serve", True, 0)
+        assert sorted(rep["programs"]) == sorted(ref["programs"]) == sorted(
+            f"serve_{kind}_rows{rows}" for kind in ("project", "reconstruct", "residual")
+            for rows in (8, 64))
+        for name, entry in rep["programs"].items():
+            assert entry["ok"] and entry["violations"] == []
+            assert entry["collectives"]["ops"] == ref["programs"][name]["collectives"]["ops"]
+            assert ("memory" in entry) == ("memory" in ref["programs"][name])
+            shard = entry["shardings"]
+            if name.endswith("rows8"):
+                assert shard["checked"] and shard["n_sharded_ok"] >= 1, (name, shard)
+                assert all(row["ok"] for row in shard["buffers"]) and shard["buffers"]
+            else:
+                assert not shard["checked"]
+
+
 def test_sharded_server_agrees_on_one_version_and_one_shed(two_rank_serving):
     """Each rank serves through its own replica of one store while rank 0
     publishes. Every served row equals the direct fp32 projection at the

@@ -109,7 +109,8 @@ def sharded_serving(rank, world, v, queries, regdir, dtypes):
     rank installs it; each rank serves ``queries`` through a ``QueryServer``
     on a ``(1, world)`` mesh with a row-sharded engine, at each of
     ``dtypes``. Also the sharded engine's own project / reconstruct /
-    residual against the dense engine, with the reductions each made."""
+    residual against the dense engine, with the reductions each made, and
+    ``analysis.report.engine_report`` of its buckets."""
     from distributed_eigenspaces_tpu_torch.serving.registry import EigenbasisRegistry
     from distributed_eigenspaces_tpu_torch.serving.replication import ReplicaRegistry
     from distributed_eigenspaces_tpu_torch.serving.server import QueryServer
@@ -136,6 +137,15 @@ def sharded_serving(rank, world, v, queries, regdir, dtypes):
     out["engine"] = dict(z=_np(z), xr=_np(xr), r=_np(r), e=_np(e),
                          placed_rows=tuple(placed.shape),
                          psums=(p1 - p0, p2 - p1, eng.psums - p2))
+    # the analyzer's audit of the buckets those calls acquired (every rank
+    # together: a sharded bucket's run sums over ``features``)
+    from distributed_eigenspaces_tpu_torch.analysis.report import engine_report
+
+    z8 = eng.project(x[:8], placed)
+    eng.reconstruct(z8, placed)
+    eng.residual_energy(x[:8], z8)
+    before = eng.stats()
+    out["engine_report"] = (engine_report(eng), before == eng.stats())
     # mesh= alone: each rank projects its own rows against the whole basis
     rows_eng = TransformEngine(d, k, mesh=pmesh.make_mesh(world, 1, device=CPU))
     zr = rows_eng.project(x[:3], v)

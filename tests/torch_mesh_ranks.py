@@ -299,6 +299,7 @@ def dist_solvers(rank, world, shape, vs, mask, v_init, u, s, v_init_u, vsign, k,
     t = torch.from_numpy
     with pmesh.mesh_scope(mesh):
         local = t(vs[rw, rf])
+        v_init, v_init_u = v_init[rf], v_init_u[rf]  # each rank's rows of the starts
         out = dict(coords=(mesh.axis_index(pmesh.WORKER_AXIS),
                            mesh.axis_index(pmesh.FEATURE_AXIS)))
         out["masked"] = _np(sd.dist_merged_top_k(local, k, mask=t(mask[rw]), iters=iters,
@@ -336,6 +337,7 @@ def deflation_lanes(rank, world, comp_shapes, work_shape, u, s, lane_inits, batc
     for (lanes, f), init in zip(comp_shapes, lane_inits):
         cm = pmesh.make_component_mesh(lanes, f, device=CPU)
         rf = pmesh.feature_rows(cm, u.shape[0])
+        init = init[rf]  # this rank's rows of the start
         with pmesh.mesh_scope(cm):
             mv = sd.lowrank_matvec(t(u[rf]), t(s), pmesh.FEATURE_AXIS)
             got, info = sdf.dist_deflation_eig(
@@ -350,6 +352,7 @@ def deflation_lanes(rank, world, comp_shapes, work_shape, u, s, lane_inits, batc
     mesh = pmesh.make_mesh(*work_shape, device=CPU)
     rw = pmesh.worker_rows(mesh, vs.shape[0])
     rf = pmesh.feature_rows(mesh, u.shape[0])
+    batched_init, merge_init, grow_init = batched_init[rf], merge_init[rf], grow_init[rf]
     with pmesh.mesh_scope(mesh):
         mv = sd.lowrank_matvec(t(u[rf]), t(s), pmesh.FEATURE_AXIS)
         batched, info = sdf.deflation_eig(
