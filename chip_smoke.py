@@ -379,6 +379,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -593,6 +594,13 @@ FLEET_LAUNCH_RATIO = 1.5  # a fleet fit's kernels against one solo fit's, at mos
 FLEET_SERVER_EXTRA = 3  # requests after the full bucket: flushed on the deadline
 FLEET_QUERIES = 64  # the published tenant's burst, of 1, 8 or 64 rows
 FLEET_RANK_DEG = 0.01  # a two-rank fleet's tenant against the one-process fleet's
+FLEET_SKEW_AFTER = 2  # rank 1 submits this many, then sleeps past the flush
+FLEET_POISON = dict(tenant=FLEET_B - 1, step=3, worker=2)  # in rank 1's half
+# the guards (utils/guards.py, DET_CHECKIFY=1) at the mnist784 eval's widths
+# on bf16 blocks (a cold step is one TMA Gram), its depth cut to 4 steps
+GUARD_FIT = dict(FLEET_FIT, stage_dtype=None, num_steps=4)
+GUARD_SEGMENT = 2
+GUARD_POISON = dict(step=1, worker=2)
 # fit_fleet(supervisor=): one NaN worker block in one tenant (1-based step)
 FLEET_BAD = dict(tenant=3, step=5, worker=2)
 # the reference bench's population shape (bench.py:2241-2256) and its
@@ -633,6 +641,21 @@ def check(ok: bool, what: str) -> None:
     """Fail the run (also under ``python -O``, which drops asserts)."""
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+@contextlib.contextmanager
+def checkify_env(value: str):
+    """``DET_CHECKIFY`` set to ``value`` inside, restored after: the guards
+    (``utils/guards.py``) are resolved when a trainer is built."""
+    prev = os.environ.get("DET_CHECKIFY")
+    os.environ["DET_CHECKIFY"] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("DET_CHECKIFY", None)
+        else:
+            os.environ["DET_CHECKIFY"] = prev
 
 
 def card_line() -> str:
@@ -721,6 +744,17 @@ def int8_block(shape, gen, dev):
     return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
 
+def events_dropped_only(events, launches) -> bool:
+    """Whether a profiled window lacks events of ``launches`` and holds no
+    event that is not one of them (the same symbol, grid, block and shared
+    memory): what the profiler's dropped events look like, as against a
+    launch of another geometry."""
+    want = collections.Counter((la.kernel, la.grid, la.block, la.smem) for la in launches)
+    got = collections.Counter((ev["symbol"], ev["grid"], ev["block"], ev["smem"])
+                              for ev in events)
+    return len(events) < len(launches) and not got - want
+
+
 def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernels: tuple) -> None:
     """One Gram call of ``shape`` and ``dtype`` under the launch recorder
     and the profiler: its launches must take ``kernels``, in order, and each
@@ -740,16 +774,30 @@ def gram_geometry(dev, gen, shape, dtype: str, phase: str, kernels: tuple) -> No
         run, want = gram_mod.gram_cuda, (gram_mod.gram_launch(*shape, x.dtype),)
     run(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_warm(dev)
-        with geometry.recording() as launches:
-            run(x)
-        torch.cuda.synchronize()
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
-    events = geometry.profiled_kernels(prof, geometry.RECORDED_KERNELS,
-                                       os.path.join(trace_dir, f"chip_smoke_{phase}_trace.json"))
-    mismatches = geometry.geometry_mismatches(events, launches)
+    # the profiler can leave a window's first kernel events out (the
+    # analysis phase's note at ANALYSIS_WARM_ROUNDS): each window opens with
+    # that many warm pairs and a pause, and a window that lacks an event of
+    # the recorded launches, with no event of another geometry, is run
+    # again, up to ANALYSIS_WINDOWS times, each attempt printed; the checks
+    # below hold the last one
+    for attempt in range(1, ANALYSIS_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warm(dev, ANALYSIS_WARM_ROUNDS)
+            time.sleep(PAUSE_S)
+            with geometry.recording() as launches:
+                run(x)
+            torch.cuda.synchronize()
+            time.sleep(PAUSE_S)
+        events = geometry.profiled_kernels(
+            prof, geometry.RECORDED_KERNELS,
+            os.path.join(trace_dir, f"chip_smoke_{phase}_trace.json"))
+        mismatches = geometry.geometry_mismatches(events, launches)
+        if not events_dropped_only(events, launches):
+            break
+        emit(phase, incomplete_window=attempt, recorded_launches=len(launches),
+             profiled_events=len(events), geometry_mismatches=mismatches)
     emit(phase, shape=list(shape), dtype=dtype, recorded=[la.to_json() for la in launches],
          profiled=[{k: ev[k] for k in ("symbol", "grid", "block", "smem", "dur_us")}
                    for ev in events], geometry_mismatches=mismatches)
@@ -3766,7 +3814,130 @@ def slice_fleet_server(dev, card: str, ev: dict) -> dict:
     check(float(angles.max()) <= 0.2, f"fleet_server: served row {float(angles.max())} deg")
     check(serve_launches == dispatches[0] and serve_launches > 0,
           f"fleet_server: {serve_launches} serve launches, {dispatches[0]} dispatches")
-    return {"tma": counts["tma"], "serve_bf16": serve_launches}
+    return {"tma": counts["tma"], "serve_bf16": serve_launches, "served": served}
+
+
+def guard_trainers(cfg, dev, b: int):
+    """The four guarded builders of ``slice_guards``, built under whatever
+    ``DET_CHECKIFY`` says now: name -> ``run(x)``, ``x`` the trainer's input
+    (a ``(T, m, n, d)`` stack, the fleet's ``(B, T, m, n, d)``)."""
+    import numpy as np
+    from distributed_eigenspaces_tpu_torch.algo.online import OnlineState
+    from distributed_eigenspaces_tpu_torch.algo.scan import (
+        SegmentState,
+        make_scan_fit,
+        make_segmented_fit,
+    )
+    from distributed_eigenspaces_tpu_torch.algo.step import make_train_step
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+
+    d, k, T = cfg.dim, cfg.k, cfg.num_steps
+    st = lambda: OnlineState.initial(d, device=dev)  # noqa: E731
+    step = make_train_step(cfg, device=dev)
+    scan = make_scan_fit(cfg, device=dev)
+    seg = make_segmented_fit(cfg, segment=GUARD_SEGMENT, device=dev)
+    ffit = fleet.make_fleet_fit(cfg, device=dev)
+    actives = np.ones((b, T), np.float32)
+    return {
+        "make_train_step": lambda x: step(st(), x[0]),
+        "make_scan_fit": lambda x: scan(st(), x),
+        "make_segmented_fit": lambda x: (lambda s: (s.sigma_tilde, s.v_prev))(
+            seg(SegmentState.initial(d, k, device=dev), x)),
+        "make_fleet_fit": lambda x: ffit(fleet.init_fleet_states(cfg, b, device=dev), x,
+                                         actives),
+    }
+
+
+def slice_guards(dev, card: str) -> dict:
+    """The NaN guards on the card (``DET_CHECKIFY=1`` set for the builds,
+    restored after): ``make_train_step``, ``make_scan_fit``,
+    ``make_segmented_fit`` and ``make_fleet_fit`` (8 tenants) at the
+    mnist784 eval's widths, 4 steps, bf16 blocks. Each guarded build's clean
+    run is bit-equal to the guards-off build's; one inf in one worker's
+    block (the fleet's: one tenant's) raises ``CheckError``; after it a
+    clean run in the same process is bit-equal again (the card stays
+    usable). Prints what the armed guards add a call: kernels and host
+    syncs (profiled), and the guards' own read-backs. Returns the Gram
+    launches (each cold step one bf16 TMA launch)."""
+    import numpy as np
+    import torch
+    import distributed_eigenspaces_tpu_torch as dett
+    from distributed_eigenspaces_tpu_torch.utils import guards
+
+    t_phase = time.perf_counter()
+    cfg = dett.PCAConfig(**GUARD_FIT)
+    T, m, n, d = cfg.num_steps, cfg.num_workers, cfg.rows_per_worker, cfg.dim
+    spec = dett.planted_subspace(d, **MNIST_DATA)
+    xs = spec.sample(torch.Generator(device=dev).manual_seed(0), T * m * n).reshape(T, m, n, d)
+    stack = torch.stack([
+        dett.planted_subspace(d, **dict(MNIST_DATA, seed=b)).sample(
+            torch.Generator(device=dev).manual_seed(b), T * m * n).reshape(T, m, n, d)
+        for b in range(FLEET_B)])
+    with checkify_env("0"):
+        plain = guard_trainers(cfg, dev, FLEET_B)
+    with checkify_env("1"):
+        armed = guard_trainers(cfg, dev, FLEET_B)
+
+    def leaves(out):
+        return [getattr(out[0], "sigma_tilde", out[0]), out[1]]
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    rows, tma = {}, 0
+    for name in plain:
+        x = stack if name == "make_fleet_fit" else xs
+        bad = x.clone()
+        at = (FLEET_POISON["tenant"],) if name == "make_fleet_fit" else ()
+        step = 0 if name == "make_train_step" else GUARD_POISON["step"]  # its one block
+        bad[at + (step, GUARD_POISON["worker"], 0, 0)] = float("inf")
+        zero_counts()
+        want, plain_s = synced_s(lambda: plain[name](x))
+        plain_tma = read_counts()["tma"]
+        zero_counts()
+        s0 = guards.syncs
+        got, armed_s = synced_s(lambda: armed[name](x))
+        armed_tma, own_syncs = read_counts()["tma"], guards.syncs - s0
+        t0 = time.perf_counter()
+        try:
+            armed[name](bad)
+            raised = None
+        except guards.CheckError as e:
+            raised = str(e)
+        raise_s = time.perf_counter() - t0
+        zero_counts()
+        after = armed[name](x)
+        after_tma = read_counts()["tma"]
+        tma += plain_tma + armed_tma + after_tma
+        rows[name] = dict(plain_s=plain_s, armed_s=armed_s, raise_s=raise_s, raised=raised,
+                          clean_bit_equal=equal(got, want), after_bit_equal=equal(after, want),
+                          guard_read_backs=own_syncs, tma=[plain_tma, armed_tma, after_tma])
+        check(raised is not None, f"guards {name}: an inf in step {step + 1} raised nothing")
+        check(rows[name]["clean_bit_equal"] and rows[name]["after_bit_equal"],
+              f"guards {name}: guarded runs differ from the guards-off run: {rows[name]}")
+        check(plain_tma >= 1 and armed_tma == plain_tma == after_tma,
+              f"guards {name}: TMA Gram launches {rows[name]['tma']}")
+        calls = T // GUARD_SEGMENT if name == "make_segmented_fit" else 1
+        check(own_syncs == 2 * calls,
+              f"guards {name}: {own_syncs} guard read-backs, want 2 a guarded call")
+        del want, got, after, bad
+    # what arming adds to one call, profiled (the scan and the fleet)
+    added = {}
+    for name in ("make_scan_fit", "make_fleet_fit"):
+        x = stack if name == "make_fleet_fit" else xs
+        p = profiled_launches(lambda: plain[name](x))
+        a = profiled_launches(lambda: armed[name](x))
+        _, p_syncs = counted_syncs(lambda: plain[name](x))
+        _, a_syncs = counted_syncs(lambda: armed[name](x))
+        added[name] = dict(kernels=a["kernels"] - p["kernels"],
+                           runtime_launch_calls=a["runtime_launch_calls"]
+                           - p["runtime_launch_calls"], syncs=a_syncs - p_syncs)
+    phase_s = time.perf_counter() - t_phase
+    emit("slice_guards", config=f"DET_CHECKIFY=1, mnist784 widths (d={d}, k={cfg.k}, m={m}, "
+                                f"n={n}), {T} steps, bf16 blocks, fleet of {FLEET_B}",
+         trainers=rows, added_per_call=added, phase_s=phase_s, card=card)
+    del xs, stack
+    return {"tma": tma, "s": phase_s, "added": added}
 
 
 def slice_fleet_solo(dev, card: str, spec, data) -> int:
@@ -3937,6 +4108,9 @@ def fleet_rank_phase(rank: int, world: int, one: dict) -> dict:
            "angles": angles, "components": res.components,
            "steps": res.states.step.tolist()}
     del res
+    out["server"] = fleet_server_rank(rank, cfg, mesh, probs, one["served"])
+    out["guards"] = fleet_guards_rank(cfg, mesh, probs, out["components"])
+    del probs
     pcfg = dett.PCAConfig(**POP_FIT)
     cmesh = pmesh.make_mesh(world, device=dev)
     crows = pmesh.worker_rows(cmesh, pcfg.cohort_size)
@@ -3953,18 +4127,120 @@ def fleet_rank_phase(rank: int, world: int, one: dict) -> dict:
     return out
 
 
-def slice_fleet_ranks2(dev, card: str, ev: dict, cohort: dict, work_dir: str) -> int:
+def fleet_server_rank(rank: int, cfg, mesh, probs: list, served_one: list) -> dict:
+    """One rank's ``FleetServer(mesh=fleet_mesh(8))``, prewarmed, given
+    ``slice_fleet_server``'s 11 requests in its order; rank 1 submits 2,
+    sleeps three flush windows, then the other 9. Each result within
+    ``FLEET_RANK_DEG`` of the one-process server's (``served_one``)."""
+    import torch
+    from distributed_eigenspaces_tpu_torch.ops.linalg import principal_angles_degrees
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+    from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+    from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
+
+    dev = mesh.device
+    reqs = list(probs) + [p for _, p in fleet_problems(
+        dev, range(FLEET_B, FLEET_B + FLEET_SERVER_EXTRA))]
+    logger = MetricsLogger()
+    t_part = time.perf_counter()
+    zero_counts()
+    with pmesh.recording_collectives() as log:
+        srv = fleet.FleetServer(cfg, mesh=mesh, device=dev, metrics=logger)
+        srv.prewarm()
+        warm = srv.wait_warm(timeout=600)
+        t0 = time.perf_counter()
+        tickets = []
+        for i, p in enumerate(reqs):
+            tickets.append(srv.submit(p))
+            if rank == 1 and i == FLEET_SKEW_AFTER - 1:
+                time.sleep(3 * cfg.fleet_flush_s)
+        served = [t.result(timeout=600) for t in tickets]
+        burst_s = time.perf_counter() - t0
+        srv.close()
+    counts = read_counts()
+    del reqs
+    buckets = [dict(b) for b in logger.fleet_records if b["fleet"] == "bucket"]
+    angles = [float(principal_angles_degrees(torch.from_numpy(s), torch.from_numpy(w)).max())
+              for s, w in zip(served, served_one)]
+    rounds, cur = [], []
+    for r in log:  # a fit round ends at its results gather
+        cur.append((r["op"], r["axis"], r["dtype"], r["elements"]))
+        if r["axis"] == pmesh.WORKER_AXIS:
+            rounds.append(cur)
+            cur = []
+    check(max(angles) <= FLEET_RANK_DEG,
+          f"fleet server rank {rank}: a request {max(angles)} deg from the one-process server")
+    check(warm and buckets[0]["compile_stall_ms"] == 0.0,
+          f"fleet server rank {rank}: first round stalled {buckets[0]['compile_stall_ms']} ms")
+    check(counts["tma"] == len(buckets) == srv.lockstep_rounds,
+          f"fleet server rank {rank}: {counts['tma']} TMA launches for {len(buckets)} rounds")
+    return {"served": served, "angles": angles, "rounds": srv.lockstep_rounds,
+            "tenants": [b["tenants"] for b in buckets],
+            "compile_stall_ms": [b["compile_stall_ms"] for b in buckets],
+            "round_s": [b["bucket_seconds"] for b in buckets],
+            "queue_wait_s": [b["queue_wait_s"] for b in buckets],
+            "collectives": rounds, "tail": cur, "counts": counts, "burst_s": burst_s,
+            "part_s": time.perf_counter() - t_part}
+
+
+def fleet_guards_rank(cfg, mesh, probs: list, components) -> dict:
+    """The fleet fit on the mesh with the guards armed (its programs
+    acquired into a fresh cache with ``DET_CHECKIFY=1`` set, then restored,
+    as ``slice_guards`` builds): one poisoned tenant in rank 1's half raises
+    ``CheckError`` on both ranks, then a clean fit runs bit-equal to the
+    guards-off one (``components``)."""
+    import numpy as np
+    from distributed_eigenspaces_tpu_torch.parallel import fleet
+    from distributed_eigenspaces_tpu_torch.utils.guards import CheckError
+
+    t_part = time.perf_counter()
+    poisoned = list(probs)
+    b, t, w = (FLEET_POISON[f] for f in ("tenant", "step", "worker"))
+    poisoned[b] = probs[b].copy()
+    poisoned[b][t, w, 0, 0] = np.nan
+    cache: dict = {}
+    with checkify_env("1"):
+        fleet.acquire_fleet_programs(cfg, mesh, masked=False, b_pad=FLEET_B,
+                                     fit_cache=cache, device=mesh.device)
+    t0 = time.perf_counter()
+    try:
+        fleet.fit_fleet(cfg, poisoned, mesh=mesh, fit_cache=cache)
+        raised = None
+    except CheckError as e:
+        raised = str(e)
+    raise_s = time.perf_counter() - t0
+    del poisoned
+    zero_counts()
+    clean, clean_s = synced_s(lambda: fleet.fit_fleet(cfg, probs, mesh=mesh, fit_cache=cache))
+    counts = read_counts()
+    equal = bool(np.array_equal(clean.components, components))
+    check(raised is not None and raise_s < MESH_TIMEOUT_S / 4,
+          f"fleet guards: the poisoned fleet raised {raised!r} after {raise_s} s")
+    check(equal, "fleet guards: the guarded clean fit differs from the unguarded one")
+    return {"raised": raised, "raise_s": raise_s, "clean_s": clean_s, "counts": counts,
+            "clean_bit_equal": equal, "part_s": time.perf_counter() - t_part}
+
+
+def slice_fleet_ranks2(dev, card: str, ev: dict, cohort: dict, served: list,
+                       work_dir: str) -> dict:
     """Two ranks sharing the card in one gloo group (``parallel.mesh.launch``):
     each runs ``fleet_rank_phase``. The fleet's fit makes no collective and
     its results come by one all-gather; each tenant within 0.01 degrees of
-    the one-process fleet; the sharded cohort reduce makes one stack gather
-    in the wire dtype and one fp32 mask gather, is bit-equal across ranks,
-    and at fp32 within 1e-3 degrees of the one-process merge. Returns the
-    ranks' TMA launches."""
+    the one-process fleet. The mesh ``FleetServer`` serves
+    ``slice_fleet_server``'s 11 requests on both ranks (rank 1's submissions
+    skewed past the flush): every request resolves on both, bit-equal
+    across ranks and within 0.01 degrees of the one-process server
+    (``served``), the prewarmed first round stalls 0.0 ms, one bf16 TMA
+    Gram a rank a round. The guarded fleet fit with one poisoned tenant in
+    rank 1's half raises ``CheckError`` on both ranks, then a clean fit
+    runs. The sharded cohort reduce makes one stack gather in the wire
+    dtype and one fp32 mask gather, is bit-equal across ranks, and at fp32
+    within 1e-3 degrees of the one-process merge. Returns the ranks' TMA
+    launches by part."""
     import numpy as np
     from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 
-    one = {"components": ev["result"].components, **cohort}
+    one = {"components": ev["result"].components, "served": served, **cohort}
     out, launch_s = synced_s(lambda: pmesh.launch(
         fleet_rank_phase, MESH_RANKS, one, backend="gloo", timeout=MESH_TIMEOUT_S,
         workdir=work_dir))
@@ -3979,6 +4255,24 @@ def slice_fleet_ranks2(dev, card: str, ev: dict, cohort: dict, work_dir: str) ->
          collectives_in_fit_by_rank=[len(o["fit_log"]) for o in out],
          fit_fleet_collectives=ops(r0["log"]), max_angle_to_one_process_deg=max(
              max(o["angles"]) for o in out),
+         server=dict(rounds=r0["server"]["rounds"], tenants=r0["server"]["tenants"],
+                     compile_stall_ms_by_rank=[o["server"]["compile_stall_ms"] for o in out],
+                     round_s_by_rank=[o["server"]["round_s"] for o in out],
+                     queue_wait_s_by_rank=[o["server"]["queue_wait_s"] for o in out],
+                     collectives_by_round=r0["server"]["collectives"],
+                     collectives_after=r0["server"]["tail"],
+                     tma_by_rank=[o["server"]["counts"]["tma"] for o in out],
+                     burst_s_by_rank=[o["server"]["burst_s"] for o in out],
+                     part_s_by_rank=[o["server"]["part_s"] for o in out],
+                     max_angle_to_one_process_deg=max(max(o["server"]["angles"]) for o in out),
+                     ranks_bit_equal=all(np.array_equal(np.stack(o["server"]["served"]),
+                                                        np.stack(r0["server"]["served"]))
+                                         for o in out)),
+         guards=dict(raised_by_rank=[o["guards"]["raised"] for o in out],
+                     raise_s_by_rank=[o["guards"]["raise_s"] for o in out],
+                     clean_s_by_rank=[o["guards"]["clean_s"] for o in out],
+                     clean_bit_equal=[o["guards"]["clean_bit_equal"] for o in out],
+                     part_s_by_rank=[o["guards"]["part_s"] for o in out]),
          cohort={wire: dict(s_by_rank=[o[f"cohort_{wire}"]["s"] for o in out],
                             collectives=ops(r0[f"cohort_{wire}"]["log"]),
                             deg_to_one_process=r0[f"cohort_{wire}"]["deg_to_one_process"],
@@ -4008,7 +4302,17 @@ def slice_fleet_ranks2(dev, card: str, ev: dict, cohort: dict, work_dir: str) ->
                   f"fleet_ranks2 cohort {wire}: ranks differ")
         check(o["cohort_fp32"]["deg_to_one_process"] <= COHORT_RANK_DEG,
               f"fleet_ranks2: fp32 cohort {o['cohort_fp32']['deg_to_one_process']} deg")
-    return sum(o["counts"]["tma"] for o in out)
+        srv = o["server"]
+        check(len(srv["served"]) == FLEET_B + FLEET_SERVER_EXTRA
+              and srv["tenants"] == r0["server"]["tenants"] == [FLEET_B, FLEET_SERVER_EXTRA],
+              f"fleet_ranks2 server: rounds of {srv['tenants']} tenants")
+        check(np.array_equal(np.stack(srv["served"]), np.stack(r0["server"]["served"])),
+              "fleet_ranks2 server: the ranks' results differ")
+        check(o["guards"]["counts"]["tma"] == 1,
+              f"fleet_ranks2 guards: the clean fit's Gram launches {o['guards']['counts']}")
+    return {"fit": sum(o["counts"]["tma"] for o in out),
+            "server": sum(o["server"]["counts"]["tma"] for o in out),
+            "guards": sum(o["guards"]["counts"]["tma"] for o in out)}
 
 
 # the supervised and elastic fits (runtime/supervisor.py, runtime/membership.py):
@@ -5503,7 +5807,10 @@ def main() -> int:
         fleet_eval = slice_fleet_eval(dev, card)
         fleet_server = slice_fleet_server(dev, card, fleet_eval)
         cohort = slice_clients(dev, card)
-        fleet_ranks_tma = slice_fleet_ranks2(dev, card, fleet_eval, cohort, work_dir)
+        fleet_ranks = slice_fleet_ranks2(dev, card, fleet_eval, cohort,
+                                         fleet_server.pop("served"), work_dir)
+        # 5w. the NaN guards (DET_CHECKIFY=1) on one device
+        guards_phase = slice_guards(dev, card)
         bf16_by_path = {"slice_fit (cifar10 shape)": fit_launches, **mesh_eval["bf16"],
                         "mesh ranks2 bf16 (2 ranks, gloo)": ranks2["bf16"],
                         "tree ranks4 (4 ranks, gloo, 3 arms)": tree4["bf16"],
@@ -5518,7 +5825,12 @@ def main() -> int:
                         "slice_churn quorum loss (2 process starts)": churn["quorum"],
                         "fleet server (2 buckets of 8)": fleet_server["tma"],
                         "fleet solo (cifar10, trainer='fleet')": fleet_solo_tma,
-                        "fleet ranks2 (2 ranks, gloo, (32,1024,784))": fleet_ranks_tma}
+                        "fleet ranks2 (2 ranks, gloo, (32,1024,784))": fleet_ranks["fit"],
+                        "fleet ranks2 mesh server (2 ranks, one a rank a round)":
+                            fleet_ranks["server"],
+                        "fleet ranks2 guarded clean fit (2 ranks)": fleet_ranks["guards"],
+                        "slice_guards (4 trainers: guards off, armed, after a CheckError)":
+                            guards_phase["tma"]}
         fleet_gram = fleet_eval.pop("gram")
         timing[(FLEET_GRAM, "bfloat16")] = {key: fleet_gram[key] for key in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -241,7 +241,7 @@ def online_distributed_pca(
             pmesh.on_writer(pool.mesh, on_step, t, st, v_bar)
 
     state = _drive_stream(
-        stream, cfg, device=dev, step=checked(step),
+        stream, cfg, device=dev, step=checked(step, mesh=pool.mesh),
         state=state, on_step=hook, max_steps=max_steps,
         step_hook=step_hook, ingest_stats=ingest_stats,
     )
@@ -329,7 +329,7 @@ def _fit_feature_sharded(stream, cfg: PCAConfig, *, device, state, on_step,
             pmesh.on_writer(mesh, on_step, t, whole, v_whole)
 
     state = _drive_stream(
-        stream, cfg, device=pmesh.mesh_device(mesh, device), step=checked(step), state=state, on_step=hook, max_steps=max_steps,
+        stream, cfg, device=pmesh.mesh_device(mesh, device), step=step, state=state, on_step=hook, max_steps=max_steps,
         step_hook=step_hook, ingest_stats=ingest_stats,
     )
     with pmesh.mesh_scope(mesh):

@@ -46,6 +46,7 @@ from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import initial_basis, projector
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
+from distributed_eigenspaces_tpu_torch.utils.guards import checked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,6 +287,9 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
     (``algo.step.merge_core``), and a tiered ``mesh``
     (``parallel.topology.make_tiered_mesh``) dispatches to the tier-local
     trainer, ``parallel.topology.make_tree_scan_fit`` (no ``gather``).
+
+    Under ``DET_CHECKIFY=1`` the steps run inside ``utils.guards.checked``
+    (the state and the scheduled blocks in, the state and bases out).
     """
     if masked and gather:
         raise ValueError("masked scan fits take a dense (T, ...) stack")
@@ -308,6 +312,15 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
     if masked:
         body = _masked_body_factory(cfg, cores)
 
+        def masked_steps(state, blocks, masks):
+            carry, out = (state, _zeros_carry(cfg, cores.dev)), []
+            for x, row in zip(blocks, masks):
+                carry, v = body(carry, cores.place(x), row)
+                out.append(v)
+            return carry[0], torch.stack(out)
+
+        masked_steps = checked(masked_steps, mesh=mesh)
+
         def fit_masked_elastic(state, x_steps, masks, membership_masks=None):
             """The masked whole fit, with an elastic run's ``(T, m)``
             per-round membership masks (``runtime/membership.
@@ -325,11 +338,7 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
                     f"masks shape {masks.shape} != (T={len(blocks)}, "
                     f"num_workers={cfg.num_workers})"
                 )
-            carry, out = (state, _zeros_carry(cfg, cores.dev)), []
-            for x, row in zip(blocks, masks):
-                carry, v = body(carry, cores.place(x), row)
-                out.append(v)
-            return carry[0], torch.stack(out)
+            return masked_steps(state, blocks, masks)
 
         return fit_masked_elastic
 
@@ -343,6 +352,9 @@ def make_scan_fit(cfg: PCAConfig, *, mesh=None, device="cuda", v0=None,
                                 first=True)
             return state, out
 
+    # guarded on the scheduled blocks: a gather fit checks the blocks its
+    # schedule reaches, as the reference's program touches only those
+    run = checked(run, mesh=mesh)
     if gather:
 
         def fit_gather(state, blocks, idx):
@@ -440,6 +452,11 @@ def make_segmented_fit(cfg: PCAConfig, *, segment: int = 50, mesh=None,
             carry, _ = masked_body(carry, cores.place(x), row)
         st, vp = carry
         return SegmentState(st.sigma_tilde, st.step, vp)
+
+    # each window is one guarded program, as each of the reference's
+    # segments is one checked program
+    seg = checked(seg, mesh=mesh)
+    seg_masked = checked(seg_masked, mesh=mesh)
 
     def fit_windows(state: SegmentState, windows, on_segment=None,
                     worker_masks=None) -> SegmentState:

@@ -46,6 +46,7 @@ from distributed_eigenspaces_tpu_torch.solvers.distributed import (
     _default_oversample,
     merged_top_k_distributed,
 )
+from distributed_eigenspaces_tpu_torch.utils.guards import checked
 
 
 def make_solve_core(
@@ -231,6 +232,10 @@ def make_train_step(cfg: PCAConfig, *, mesh: pmesh.Mesh | None = None,
     over ``workers`` and the returned state and basis are the same on every
     rank (a one-rank mesh's gather is a copy, so its step is the local
     step bit for bit).
+
+    Under ``DET_CHECKIFY=1`` (read here, when the step is built) every
+    branch runs inside ``utils.guards.checked``: a non-finite input or
+    output raises ``CheckError``, on every rank of ``mesh`` alike.
     """
     dev = pmesh.mesh_device(mesh, device)
     v_merge = merge_start(cfg, device=dev, v_init=v_init)
@@ -270,4 +275,4 @@ def make_train_step(cfg: PCAConfig, *, mesh: pmesh.Mesh | None = None,
             return fold(state, warm_core(x, v0=v_prev))
         return fold(state, round_core(x, v0=v_cold))
 
-    return step
+    return checked(step, mesh=mesh)

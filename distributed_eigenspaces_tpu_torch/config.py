@@ -3,9 +3,8 @@ path (registry, query server, transform engine) read.
 
 Counterpart of ``distributed_eigenspaces_tpu/config.py``. Field names,
 defaults and the ``ValueError`` validation follow the reference for every
-field carried here. Settings that select code this port does not have yet
-raise ``NotImplementedError`` naming the ROADMAP.md item that will add
-them, instead of running something else under their name.
+field carried here, and every setting carried here selects code the port
+has.
 """
 
 from __future__ import annotations
@@ -34,13 +33,6 @@ def _is_integer_dtype(dtype) -> bool:
         return bool(np.issubdtype(np.dtype(dtype), np.integer))
     except TypeError:
         return False
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to distributed_eigenspaces_tpu_torch yet "
-        f"(ROADMAP.md {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,9 +27,8 @@ _FIELDS = tuple(f.name for f in dataclasses.fields(PCAConfig))
 
 def config_from_jax(cfg_dict: dict) -> PCAConfig:
     """The port's ``PCAConfig`` from ``dataclasses.asdict`` of a reference
-    ``PCAConfig``, restricted to the fields this port carries. A value the
-    port does not support (int8 staging, ``"ns"``, a mesh backend, ...)
-    raises ``NotImplementedError`` from the port's own validation."""
+    ``PCAConfig``, restricted to the fields this port carries, validated by
+    the port's own ``PCAConfig`` (its ``ValueError`` on a value it refuses)."""
     kw = {name: cfg_dict[name] for name in _FIELDS if name in cfg_dict}
     if kw.get("merge_topology") is not None:
         kw["merge_topology"] = tuple(kw["merge_topology"])

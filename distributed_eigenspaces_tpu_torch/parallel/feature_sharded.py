@@ -78,6 +78,7 @@ from distributed_eigenspaces_tpu_torch.parallel.mesh import (
     WORKER_AXIS,
     psum,
 )
+from distributed_eigenspaces_tpu_torch.utils.guards import checked
 
 
 def _psum_if(x: torch.Tensor, axis_name) -> torch.Tensor:
@@ -517,7 +518,9 @@ def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = N
     short count; the choice reads the replicated step count on the host.
     ``collectives`` (``"xla"`` or ``"ring"``) chooses the switchable
     reductions (:func:`_collective_ops`). ``step.init_state()`` is this
-    rank's zero state."""
+    rank's zero state. Under ``DET_CHECKIFY=1`` the step runs inside
+    ``utils.guards.checked`` on the mesh: a non-finite share on one rank
+    (its block's columns, its rows of ``u``) raises on every rank."""
     _collective_ops(collectives)
     mesh = _mesh_of(mesh, device)
     r = _resolve_rank(cfg, rank)
@@ -535,6 +538,7 @@ def make_feature_sharded_step(cfg: PCAConfig, mesh=None, *, rank: int | None = N
         with pmesh.mesh_scope(mesh):
             return core(state, x, iters, mask)
 
+    step = checked(step, mesh=mesh)
     step.init_state = lambda: LowRankState.initial(d_local, r, device=mesh.device)
     step.rank = r
     step.mesh = mesh
@@ -623,6 +627,10 @@ def make_feature_sharded_scan_fit(cfg: PCAConfig, mesh=None, *, rank: int | None
                 mask = None if masks is None else _mask_rows(mesh, masks[t], m)[0]
                 state = core(state, x, iters, mask)[0]
         return state
+
+    # every entry (the staged fit, each window, masked or not) runs its
+    # placed, scheduled steps through one guard
+    run = checked(run, mesh=mesh)
 
     def run_window(state, window, first):
         return run(state, _window_steps(mesh, window, m, d), first)
@@ -763,18 +771,13 @@ def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: in
             return warm_step(st, x, mask, alive)
         return cold_step(st, x, mask, alive)
 
-    def run_window(state, window, first):
-        steps = _window_steps(mesh, window, m, d)
+    def plain_steps(state, steps, first):
         with pmesh.mesh_scope(mesh):
             for t, x in enumerate(steps):
                 state = (cold_step if first and t == 0 else warm_step)(state, x)
         return state
 
-    def run_masked(state, window, masks, first=False, idx=None, cold_first=False):
-        # one program for every masked window: the cold / warm choice of
-        # each step reads the carry, so ``first`` is not needed
-        steps = _window_steps(mesh, window, m, d, idx)
-        masks = _mask_window(masks, len(steps), m)
+    def masked_steps(state, steps, masks, cold_first):
         with pmesh.mesh_scope(mesh):
             for t, x in enumerate(steps):
                 mask, alive = _mask_rows(mesh, masks[t], m)
@@ -784,15 +787,25 @@ def make_feature_sharded_sketch_fit(cfg: PCAConfig, mesh=None, *, oversample: in
                     state = masked_step(state, x, mask, alive)
         return state
 
+    # every entry runs its placed, scheduled steps through one guard
+    plain_steps = checked(plain_steps, mesh=mesh)
+    masked_steps = checked(masked_steps, mesh=mesh)
+
+    def run_window(state, window, first):
+        return plain_steps(state, _window_steps(mesh, window, m, d), first)
+
+    def run_masked(state, window, masks, first=False):
+        # one program for every masked window: the cold / warm choice of
+        # each step reads the carry, so ``first`` is not needed
+        steps = _window_steps(mesh, window, m, d)
+        return masked_steps(state, steps, _mask_window(masks, len(steps), m), False)
+
     def fit(state, blocks, idx=None, worker_masks=None):
+        steps = _window_steps(mesh, blocks, m, d, idx)
         if worker_masks is None:
-            steps = _window_steps(mesh, blocks, m, d, idx)
-            with pmesh.mesh_scope(mesh):
-                for t, x in enumerate(steps):
-                    state = (cold_step if t == 0 else warm_step)(state, x)
-            return state
+            return plain_steps(state, steps, True)
         # the staged masked fit runs its first step cold, as the reference
-        return run_masked(state, blocks, worker_masks, idx=idx, cold_first=True)
+        return masked_steps(state, steps, _mask_window(worker_masks, len(steps), m), True)
 
     def extract(state):
         with pmesh.mesh_scope(mesh):

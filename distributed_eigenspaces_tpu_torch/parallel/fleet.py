@@ -37,7 +37,10 @@ launches what a solo step launches, not B times that.
 - :class:`FleetServer`: requests accumulate into exact-signature buckets
   (``runtime.scheduler.ShapeBucketQueue``) that dispatch when full
   (``cfg.fleet_bucket_size``) or on a deadline (``cfg.fleet_flush_s``),
-  padded with inactive tenants to the bucket size.
+  padded with inactive tenants to the bucket size. On a mesh of ranks every
+  rank runs the server, given the same requests in the same order: rank 0
+  cuts the buckets and each is one round of every rank, agreed in small
+  all-gathers before its one results gather.
 
 Solo fits are the B = 1 case: ``OnlineDistributedPCA(trainer="fleet")``.
 
@@ -56,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import hashlib
 import threading
 import time
@@ -63,6 +67,7 @@ from typing import Any, Iterable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from distributed_eigenspaces_tpu_torch.algo.online import (
@@ -75,7 +80,7 @@ from distributed_eigenspaces_tpu_torch.algo.step import (
     merge_knobs,
     merge_start,
 )
-from distributed_eigenspaces_tpu_torch.config import PCAConfig, _not_ported
+from distributed_eigenspaces_tpu_torch.config import PCAConfig
 from distributed_eigenspaces_tpu_torch.device import resolve_device, torch_dtype
 from distributed_eigenspaces_tpu_torch.ops.linalg import (
     initial_basis,
@@ -84,6 +89,14 @@ from distributed_eigenspaces_tpu_torch.ops.linalg import (
 )
 from distributed_eigenspaces_tpu_torch.parallel import mesh as pmesh
 from distributed_eigenspaces_tpu_torch.parallel.worker_pool import _local_eigenspaces
+from distributed_eigenspaces_tpu_torch.runtime.scheduler import (
+    Bucket,
+    QueueClosed,
+    QueueFull,
+    SchedulerError,
+    ShapeBucketQueue,
+)
+from distributed_eigenspaces_tpu_torch.utils.guards import CheckError, checked
 from distributed_eigenspaces_tpu_torch.utils.telemetry import NULL_TRACER, tracer_of
 
 __all__ = [
@@ -234,10 +247,14 @@ def make_fleet_fit(cfg: PCAConfig, mesh=None, *, masked: bool = False,
     ``v0 (d, k)`` is every cold solve's start (default: drawn from
     ``cfg.seed``), ``v_init`` the crossover merge's (``algo.step.
     merge_start``). With ``mesh`` (:func:`fleet_mesh`) the trainer runs on
-    the mesh's device over this rank's tenants; it makes no collective.
+    the mesh's device over this rank's tenants; it makes no collective
+    (with the guards armed, the two flag all-reduces of ``checked``).
 
     ``pipeline_merge`` and ``merge_interval > 1`` are refused, with the
-    reference's messages.
+    reference's messages. Under ``DET_CHECKIFY=1`` both fits run inside
+    ``utils.guards.checked``: a non-finite tenant fails the whole call
+    (the reference's ``checked_jit`` around the batched program), and on a
+    mesh every rank raises alike, each rank having checked its tenants.
     """
     if cfg.pipeline_merge:
         raise ValueError(
@@ -309,7 +326,7 @@ def make_fleet_fit(cfg: PCAConfig, mesh=None, *, masked: bool = False,
         return finish(states, sched, sigma, out)
 
     if not masked:
-        return fit
+        return checked(fit, mesh=mesh)
 
     def fit_masked(states: OnlineState, xs, masks, actives):
         sched = schedule(xs, actives)
@@ -351,7 +368,7 @@ def make_fleet_fit(cfg: PCAConfig, mesh=None, *, masked: bool = False,
             out.append(v_new if all_on[t] else _where(keep[t], v_new, vp))
         return finish(states, sched, sigma, out)
 
-    return fit_masked
+    return checked(fit_masked, mesh=mesh)
 
 
 def init_fleet_states(cfg: PCAConfig, b: int, *, device="cuda") -> OnlineState:
@@ -691,6 +708,14 @@ def _gather_results(mesh, sigma, steps, v_bars, w):
             vb.reshape(b, *v_bars.shape[1:]), ws.reshape(b, *w.shape[1:]))
 
 
+def _check_divisible(b_pad: int, mesh) -> None:
+    if mesh is not None and b_pad % mesh.axis_size(pmesh.WORKER_AXIS):
+        raise ValueError(
+            f"fleet size {b_pad} not divisible by the mesh fleet axis "
+            f"{mesh.axis_size(pmesh.WORKER_AXIS)}"
+        )
+
+
 def fit_fleet(
     cfg: PCAConfig,
     problems: Sequence[Any],
@@ -731,11 +756,7 @@ def fit_fleet(
     masked = batch.masks is not None
     if mesh == "auto":
         mesh = fleet_mesh(b_pad, device)
-    if mesh is not None and b_pad % mesh.axis_size(pmesh.WORKER_AXIS):
-        raise ValueError(
-            f"fleet size {b_pad} not divisible by the mesh fleet axis "
-            f"{mesh.axis_size(pmesh.WORKER_AXIS)}"
-        )
+    _check_divisible(b_pad, mesh)
     if compile_cache == "auto":
         from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
             compile_cache_for,
@@ -746,6 +767,15 @@ def fit_fleet(
         cfg, mesh, masked=masked, b_pad=b_pad, fit_cache=fit_cache,
         compile_cache=compile_cache, device=device, v0=v0, v_init=v_init,
     )
+    local = _fit_batch(cfg, batch, fit, extract, mesh, device)
+    return _fleet_result(batch, mesh, local, build_ms)
+
+
+def _fit_batch(cfg: PCAConfig, batch: FleetBatch, fit, extract, mesh, device) -> tuple:
+    """This rank's half of a fleet fit (every tenant without a mesh):
+    ``(sigma_tilde, steps, v_bars, components)`` of its tenants, made with
+    no collective."""
+    b_pad = batch.fleet_size
     dev = pmesh.mesh_device(mesh, device)
     rows = slice(0, b_pad) if mesh is None else pmesh.worker_rows(mesh, b_pad)
     n_local = rows.stop - rows.start
@@ -753,7 +783,7 @@ def fit_fleet(
     xs = torch.from_numpy(batch.xs[rows]).to(dev)  # one copy of the stack
     states = init_fleet_states(cfg, n_local, device=dev)
     with record_function("det_fleet_fit"):
-        if masked:
+        if batch.masks is not None:
             states, v_bars = fit(states, xs, batch.masks[rows], batch.actives[rows])
         else:
             states, v_bars = fit(states, xs, batch.actives[rows])
@@ -762,7 +792,13 @@ def fit_fleet(
     if real_local:
         # padding lanes carry a zero state: only real tenants are extracted
         w[:real_local] = extract(states.sigma_tilde[:real_local])
-    sigma, steps = states
+    return states.sigma_tilde, states.step, v_bars, w
+
+
+def _fleet_result(batch: FleetBatch, mesh, local: tuple, build_ms: float) -> FleetResult:
+    """The :class:`FleetResult` of :func:`_fit_batch`'s output: on a mesh,
+    after the one all-gather of every rank's tenants."""
+    sigma, steps, v_bars, w = local
     if mesh is not None:
         sigma, steps, v_bars, w = _gather_results(mesh, sigma, steps, v_bars, w)
     nreal = batch.n_tenants
@@ -839,6 +875,43 @@ class _FleetRequest:
     t_submit: float = 0.0
     #: the request's trace (``Tracer.new_trace("fleet")``), or None
     trace_id: str | None = None
+    #: its admission sequence number: its place in the order every rank of
+    #: a mesh server is given the requests (-1 on one device)
+    seq: int = -1
+
+
+#: what rank 0 announces at the head of a mesh round (column 0 of its row)
+_IDLE, _ROUND, _NOTICE, _END = 0, 1, 2, 3
+#: how long a follower waits for a request a round names to be submitted
+#: there, before the round fails it as out of step
+ADMIT_WAIT_S = 30.0
+#: the mesh server's own gloo groups' collective timeout, and how long
+#: ``close()`` waits for every rank to reach it
+ROUND_TIMEOUT_S = 300.0
+#: what a rank holds of a request a round names
+_SHED, _HAVE, _MISSING, _OTHER = 0, 1, 2, 3
+
+
+class FleetRoundError(RuntimeError):
+    """A mesh round's staging, program acquisition or fit raised on the
+    ranks its message names. Every rank raises it alike (the one that
+    raised chains its own exception), so the retry ladder and the breaker
+    see one failure everywhere."""
+
+
+@dataclasses.dataclass
+class _Notice(Bucket):
+    """Rank 0's notice of requests its admission refused: the other ranks
+    fail them alike."""
+
+    shed: tuple = ()
+
+
+def _sig_code(signature) -> int:
+    """A digest of a bucket signature, the same on every rank (62 bits, so
+    it rides an int64 row)."""
+    return int.from_bytes(hashlib.sha256(repr(signature).encode()).digest()[:8],
+                          "little") >> 2
 
 
 class FleetServer:
@@ -856,8 +929,12 @@ class FleetServer:
     (``ServerOverloaded``) and ``cfg.serve_breaker_threshold`` trips a
     signature's breaker.
 
-    Every bucket runs on ``device`` (one process; a server on a mesh of
-    ranks is ROADMAP.md Queue 1 item 15c). ``v0``, when given, is the cold
+    ``mesh``: None runs every bucket on ``device`` in this process; a
+    workers mesh (:func:`fleet_mesh`) or ``"auto"`` inside a process group
+    runs the server on every rank of the group (below); ``"auto"`` resolves
+    per bucket as the reference's ``_resolve_mesh`` does, to
+    ``fleet_mesh(cfg.fleet_bucket_size)`` (None in one process, so there
+    ``"auto"`` is the one-device server). ``v0``, when given, is the cold
     start of every bucket whose k is its width. The server's
     ``MetricsLogger`` (``metrics=``, else one of its own) receives each
     bucket as a fleet event in ``fleet_records``: its tenants, occupancy,
@@ -870,6 +947,43 @@ class FleetServer:
     through ``compile_cache`` (default: ``compile_cache_for(cfg)``, else a
     memory-only ``CompileCache``), so ``compile_stall_ms`` is a measured
     acquisition and a cache directory makes a second process start warm.
+
+    **On a mesh of ranks** every rank of the group constructs the server
+    with the same ``cfg``, ``mesh`` and ``v0`` and is given the same
+    requests in the same order (as ``QueryServer(mesh=)``); each request
+    is numbered by that order. Rank 0's queue cuts the buckets, with its
+    own timer; the others queue as followers (``ShapeBucketQueue(
+    follower=True)``) and run what rank 0 announces. A round is:
+
+    1. rank 0's announcement, one small all-gather: the signature's
+       digest, the requests' numbers, and whether this attempt is the last
+       of the retry ladder (``max_retries``);
+    2. what each rank holds of them, one small all-gather (a follower
+       waits up to ``ADMIT_WAIT_S`` for a request not yet submitted
+       there): a request that any rank shed at admission
+       (``serve_queue_depth``, an open breaker) fails on every rank with
+       ``ServerOverloaded``, one that never reached a rank or differs there
+       fails as out of step, and the rest run;
+    3. staging and program acquisition, then one all-gather of whether
+       every rank got through them;
+    4. the fit, each rank its ``b_pad / W`` tenants with no collective
+       (two flag all-reduces when the guards are armed), then one
+       all-gather of whether it raised anywhere: if so every rank raises
+       the same ``FleetRoundError`` (or ``CheckError``), and rank 0's
+       retry ladder announces the round again or, after its last attempt,
+       every rank fails its tickets;
+    5. the one fp32 all-gather of the results: each rank's tickets resolve
+       to the same arrays, bit for bit.
+
+    Rank 0 announces a shed of its own at admission in a notice round (a
+    ``{"fleet": "notice"}`` record on every rank), so a follower fails the
+    request too, or refuses it if it comes there later. The rounds of
+    ``num_lanes`` lanes run one at a time. ``lockstep_rounds`` counts the
+    rounds that ran a fit. The agreement rides a gloo group of the
+    server's own; ``close()`` first waits at a monitored barrier, so a rank
+    that never reaches ``close()`` within ``ROUND_TIMEOUT_S`` is named in a
+    ``TimeoutError`` instead of being waited on forever. The server has no
+    deadline shed: a bucket's deadline is its flush.
     """
 
     def __init__(
@@ -885,20 +999,16 @@ class FleetServer:
         device="cuda",
         v0=None,
     ):
-        from distributed_eigenspaces_tpu_torch.runtime.scheduler import (
-            ShapeBucketQueue,
-        )
-
         from distributed_eigenspaces_tpu_torch.utils.compile_cache import (
             CompileCache,
             compile_cache_for,
         )
 
         if mesh == "auto":
-            mesh = None
-        if mesh is not None:
-            raise _not_ported("FleetServer on a mesh of ranks",
-                              "Queue 1 item 15c (lockstep bucket agreement)")
+            self.on_mesh = pmesh.world_size() > 1
+        else:
+            self.on_mesh = mesh is not None and mesh.device_mesh is not None
+        self.mesh = mesh
         self.cfg = cfg
         if metrics is None:
             from distributed_eigenspaces_tpu_torch.utils.metrics import MetricsLogger
@@ -910,12 +1020,17 @@ class FleetServer:
             and metrics.fleet_slo_p99_ms is None
         ):
             metrics.fleet_slo_p99_ms = cfg.fleet_slo_p99_ms
-        self.device = pmesh._mesh_device(device)
+        self.device = (mesh.device if mesh not in (None, "auto")
+                       else pmesh._mesh_device(device))
         self.v0 = None if v0 is None else _host_array(v0, np.float32)
         self.compile_cache = (
             compile_cache or compile_cache_for(cfg) or CompileCache(None)
         )
         self.prewarmer = None
+        self.leader = not self.on_mesh or pmesh.rank() == 0
+        self.max_retries = max_retries
+        #: mesh rounds that ran a fit (QueryServer's counter of the same name)
+        self.lockstep_rounds = 0
         self.queue = ShapeBucketQueue(
             bucket_size=cfg.fleet_bucket_size,
             flush_deadline=cfg.fleet_flush_s,
@@ -925,15 +1040,41 @@ class FleetServer:
             max_depth=cfg.serve_queue_depth,
             breaker_threshold=cfg.serve_breaker_threshold,
             continuous=cfg.serve_continuous,
+            follower=not self.leader,
         )
         self._fit_cache: dict = {}
-        self._thread = threading.Thread(
-            target=self.queue.serve,
-            args=(self._fit_bucket,),
-            kwargs={"num_lanes": max(num_lanes, 1)},
-            daemon=True,
-        )
+        lanes = max(num_lanes, 1)
+        if self.on_mesh:
+            self._start_mesh()
+            target = self._lead if self.leader else self._follow
+            args, kwargs = (), ({"num_lanes": lanes} if self.leader else {})
+        else:
+            target, args, kwargs = self.queue.serve, (self._fit_bucket,), {"num_lanes": lanes}
+        self._thread = threading.Thread(target=target, args=args, kwargs=kwargs,
+                                        daemon=True)
         self._thread.start()
+
+    def _start_mesh(self) -> None:
+        """The mesh server's shared state, built on every rank together
+        (two gloo groups of its own, and the server's own bucket mesh)."""
+        timeout = datetime.timedelta(seconds=ROUND_TIMEOUT_S)
+        self._width = self.cfg.fleet_bucket_size
+        self._ctl = dist.new_group(backend="gloo", timeout=timeout)
+        self._close_group = dist.new_group(backend="gloo", timeout=timeout)
+        self._round_lock = threading.Lock()
+        self._cond = threading.Condition()
+        self._next_seq = 0
+        self._table: dict[int, Any] = {}  # admitted, unresolved tickets by number
+        self._shed: set[int] = set()  # numbers this rank refused at admission
+        #: refused numbers no round or notice has named yet: rank 0 still
+        #: announces each (a round that drops it, or its own notice)
+        self._awaited: set[int] = set()
+        self._noticed: set[int] = set()  # numbers rank 0 refused before they came here
+        self._attempts: dict[int, int] = {}  # rank 0: attempts by bucket
+        self._closing = False
+        self._closed = False
+        self._meshes: dict[int, Any] = {}
+        self._resolve_mesh(self.cfg)
 
     # -- client API ----------------------------------------------------------
 
@@ -942,18 +1083,30 @@ class FleetServer:
         """Admit one fit request; returns its ``FleetTicket``
         (``.result()`` blocks for the tenant's ``(d, k)`` components).
         ``tenant`` is the continuous-batching fairness key."""
-        from distributed_eigenspaces_tpu_torch.runtime.scheduler import (
-            QueueClosed,
-            QueueFull,
-        )
-
         cfg = self.cfg if cfg is None else cfg
+        seq = -1
+        if self.on_mesh:
+            with self._cond:
+                seq, self._next_seq = self._next_seq, self._next_seq + 1
+                noticed = seq in self._noticed
+            if noticed:
+                from distributed_eigenspaces_tpu_torch.serving.server import ServerOverloaded
+
+                raise ServerOverloaded(
+                    f"fit request {seq} shed: rank 0 refused it at admission "
+                    "(serve_queue_depth or an open breaker); every rank refuses it")
         pad_cfg = None
         if cfg.fleet_pad_k:
             padded = padded_fleet_cfg(cfg)
             if padded is not cfg:
                 pad_cfg = padded
         bucket_cfg = pad_cfg if pad_cfg is not None else cfg
+        if self.on_mesh and bucket_cfg.fleet_bucket_size > self._width:
+            self._refused(seq)
+            raise ValueError(
+                f"a mesh FleetServer built with fleet_bucket_size {self._width} "
+                f"cannot run a bucket of {bucket_cfg.fleet_bucket_size}: its "
+                "rounds announce at most the server's bucket size of requests")
         sig = (fleet_signature(bucket_cfg), repr(bucket_cfg))
         tr = tracer_of(self.metrics)
         tid = tr.new_trace("fleet")
@@ -962,7 +1115,7 @@ class FleetServer:
             ticket = self.queue.submit(
                 sig,
                 _FleetRequest(cfg, problem, worker_masks, pad_cfg=pad_cfg,
-                              t_submit=t0, trace_id=tid),
+                              t_submit=t0, trace_id=tid, seq=seq),
                 tenant=tenant,
             )
         except QueueClosed as e:
@@ -976,16 +1129,39 @@ class FleetServer:
         except QueueFull as e:
             from distributed_eigenspaces_tpu_torch.serving.server import ServerOverloaded
 
+            self._refused(seq)
             raise ServerOverloaded(
                 f"fit request shed: {self.queue.inflight} requests "
                 f"already in flight >= serve_queue_depth "
                 f"{self.queue.max_depth} (reject-newest load shedding)"
             ) from e
+        except Exception:  # an open breaker (BreakerOpen)
+            self._refused(seq)
+            raise
+        if not self.leader:
+            with self._cond:
+                self._table[seq] = ticket
+                self._cond.notify_all()
         tr.record_span(
             "admit", t0, time.perf_counter(), trace_id=tid,
             category="fleet", attrs={"signature": str(fleet_signature(cfg))},
         )
         return ticket
+
+    def _refused(self, seq: int) -> None:
+        """A mesh rank's admission refused request ``seq``: a follower
+        remembers it for the round that names it; rank 0 announces it in a
+        notice round."""
+        if not self.on_mesh:
+            return
+        if self.leader:
+            with contextlib.suppress(QueueClosed):
+                self.queue.add_control(_Notice(signature=None, tickets=[], shed=(seq,)))
+        else:
+            with self._cond:
+                self._shed.add(seq)
+                self._awaited.add(seq)
+                self._cond.notify_all()
 
     def pending_cfgs(self) -> list[PCAConfig]:
         """One config per signature waiting in a bucket: the live half of
@@ -1027,10 +1203,13 @@ class FleetServer:
             if key in seen:
                 continue
             seen.add(key)
+            # resolved here, on the calling thread: a mesh is built by every
+            # rank together, and the program is the one its buckets fetch
+            mesh = self._resolve_mesh(cfg)
             prewarmer.submit(
                 ("fleet", repr(cfg), masked),
-                lambda c=cfg: acquire_fleet_programs(
-                    c, None, masked=masked, b_pad=c.fleet_bucket_size,
+                lambda c=cfg, m=mesh: acquire_fleet_programs(
+                    c, m, masked=masked, b_pad=c.fleet_bucket_size,
                     fit_cache=self._fit_cache, compile_cache=self.compile_cache,
                     device=self.device, v0=self._v0_for(c),
                 ),
@@ -1045,8 +1224,28 @@ class FleetServer:
 
     def close(self) -> None:
         """Flush partial buckets, drain, and join the dispatch lanes (and
-        the prewarm lane, when there is one)."""
+        the prewarm lane, when there is one). On a mesh every rank calls it:
+        the ranks first meet at a monitored barrier (a rank that does not
+        come within ``ROUND_TIMEOUT_S`` is named in a ``TimeoutError``), then rank
+        0 runs what is left and announces the end, and every rank's round
+        thread exits."""
+        if self.on_mesh:
+            if self._closed:
+                return
+            self._closed = True
+            try:
+                dist.monitored_barrier(
+                    group=self._close_group, wait_all_ranks=True,
+                    timeout=datetime.timedelta(seconds=ROUND_TIMEOUT_S))
+            except RuntimeError as e:
+                raise TimeoutError(
+                    f"FleetServer.close on rank {pmesh.rank()}: a rank of the group "
+                    f"did not reach close() within {ROUND_TIMEOUT_S} s ({e})") from e
         self.queue.close()
+        if self.on_mesh:
+            with self._cond:
+                self._closing = True
+                self._cond.notify_all()
         self._thread.join()
         if self.prewarmer is not None:
             self.prewarmer.close()
@@ -1058,6 +1257,243 @@ class FleetServer:
         self.close()
 
     # -- dispatch ------------------------------------------------------------
+
+    def _resolve_mesh(self, cfg: PCAConfig):
+        """The mesh a ``cfg.fleet_bucket_size``-padded bucket runs on,
+        shared by dispatch and prewarm so they acquire the same program (the
+        reference's ``_resolve_mesh``): ``"auto"`` is ``fleet_mesh(cfg.
+        fleet_bucket_size)``, built once a bucket size."""
+        if not self.on_mesh:
+            return None
+        if self.mesh != "auto":
+            return self.mesh
+        b = cfg.fleet_bucket_size
+        if b not in self._meshes:
+            self._meshes[b] = fleet_mesh(b, self.device)
+        return self._meshes[b]
+
+    def _exchange(self, row: list) -> list[list[int]]:
+        """Every rank's ``row`` of small ints, in rank order: one all-gather
+        of an int64 row over the server's gloo group (recorded as an
+        ``all_gather`` over ``"ranks"`` tagged ``"fleet_round"``)."""
+        buf = torch.full((4 + self._width,), -1, dtype=torch.int64)
+        buf[:len(row)] = torch.tensor(row, dtype=torch.int64)
+        world = dist.get_world_size(self._ctl)
+        pmesh._record("all_gather", "ranks", buf, world, tag="fleet_round",
+                      shape=(world, buf.numel()))
+        parts = [torch.empty_like(buf) for _ in range(world)]
+        dist.all_gather(parts, buf, group=self._ctl)
+        return [p.tolist() for p in parts]
+
+    def _lead(self, num_lanes: int) -> None:
+        """Rank 0's thread: its queue's lanes run the rounds; once closed and
+        drained, the end is announced."""
+        try:
+            self.queue.serve(self._lead_round, num_lanes=num_lanes)
+        finally:
+            with self._round_lock:
+                self._exchange([_END])
+
+    def _lead_round(self, bucket) -> list:
+        """One bucket of rank 0's queue as a round of every rank (a notice
+        when it carries refused requests); returns one result a ticket."""
+        with self._round_lock:
+            if isinstance(bucket, _Notice):
+                self._exchange([_NOTICE, 0, len(bucket.shed), 0, *bucket.shed])
+                self.metrics.fleet({"kind": "notice", "refused": list(bucket.shed)})
+                return []
+            live = [t for t in bucket.tickets if not t.done()]
+            if not live:
+                return [None] * len(bucket.tickets)
+            seqs = [t.payload.seq for t in live]
+            key = id(bucket)  # the work queue retries the same bucket
+            attempt = self._attempts.get(key, 0) + 1
+            self._attempts[key] = attempt
+            final = attempt > self.max_retries
+            self._exchange([_ROUND, _sig_code(bucket.signature), len(seqs), int(final), *seqs])
+            try:
+                out = self._round(dict(zip(seqs, live)), seqs, bucket.t_dispatch)
+            except Exception:
+                if final:
+                    self._attempts.pop(key, None)
+                raise
+            self._attempts.pop(key, None)
+            return [out.get(t.payload.seq) for t in bucket.tickets]
+
+    def _follow(self) -> None:
+        """A follower's thread: whenever it holds an unresolved request, a
+        refused one rank 0 has not named yet, or is closing, it meets rank
+        0's next announcement and runs it; at the end, a request rank 0
+        never ran fails as closed."""
+        from distributed_eigenspaces_tpu_torch.serving.server import ServerClosed
+
+        try:
+            self._follow_rounds()
+        except Exception as e:  # the group itself failed: no round can run
+            with self._cond:
+                left = list(self._table)
+            self._settle(left, error=e)
+            raise
+        with self._cond:
+            left = list(self._table)
+        self._settle(left, error=ServerClosed(
+            "the mesh FleetServer closed before rank 0 ran this request"))
+
+    def _follow_rounds(self) -> None:
+        from distributed_eigenspaces_tpu_torch.serving.server import ServerOverloaded
+
+        while True:
+            with self._cond:
+                while not (self._table or self._awaited or self._closing):
+                    self._cond.wait()
+            kind, code, n, final, *named = self._exchange([_IDLE])[0]
+            named = named[:n]
+            if kind == _END:
+                break
+            with self._cond:
+                self._awaited.difference_update(named)
+            if kind == _NOTICE:
+                self.metrics.fleet({"kind": "notice", "refused": list(named)})
+                with self._cond:
+                    self._noticed.update(named)
+                self._settle(named, error=ServerOverloaded(
+                    f"fit request {named} shed: rank 0 refused it at admission "
+                    "(serve_queue_depth or an open breaker); every rank fails it"))
+                continue
+            with self._cond:
+                sig = next((t.signature for s, t in self._table.items() if s in named), None)
+            br = None if sig is None else self.queue.breaker_for(sig)
+            try:
+                out = self._round(None, named, None, code)
+            except Exception as e:  # every rank raised it alike
+                if br is not None:
+                    br.record_failure(e)
+                if final:
+                    term = SchedulerError(
+                        f"fleet round of requests {named} failed on its last attempt "
+                        f"(max_retries {self.max_retries})")
+                    term.__cause__ = e
+                    self._settle(named, error=term)
+                continue
+            if br is not None:
+                br.record_success()
+            self._settle(named, results=out)
+
+    def _settle(self, seqs, *, results=None, error=None) -> None:
+        """Resolve (``results`` by number) or fail this follower's tickets
+        of ``seqs``, and take them out of its queue."""
+        with self._cond:
+            done = [(s, self._table.pop(s)) for s in seqs if s in self._table
+                    and (results is None or s in results)]
+        for s, t in done:
+            if error is not None:
+                t.fail(error)
+            else:
+                t.resolve(results[s])
+        self.queue.withdraw([t for _, t in done])
+
+    def _take(self, seqs: list, sig_code: int):
+        """A follower's tickets of the named requests, and what it holds of
+        each (``_HAVE``, ``_SHED``, ``_MISSING``, ``_OTHER``), waiting up to
+        ``ADMIT_WAIT_S`` for one not yet submitted here."""
+        deadline = time.monotonic() + ADMIT_WAIT_S
+        local, codes = {}, []
+        with self._cond:
+            for s in seqs:
+                while s not in self._table and s not in self._shed:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cond.wait(left)
+                t = self._table.get(s)
+                if t is None:
+                    codes.append(_SHED if s in self._shed else _MISSING)
+                elif _sig_code(t.signature) != sig_code:
+                    codes.append(_OTHER)
+                else:
+                    local[s] = t
+                    codes.append(_HAVE)
+        return local, codes
+
+    def _agree(self, err, what: str) -> None:
+        """One all-gather of whether ``what`` raised on each rank; if it did
+        anywhere, every rank raises the same kind of error (``CheckError``
+        when a guard fired, else :class:`FleetRoundError`)."""
+        code = 0 if err is None else (1 if isinstance(err, CheckError) else 2)
+        codes = [r[0] for r in self._exchange([code])]
+        if not any(codes):
+            return
+        bad = [r for r, c in enumerate(codes) if c]
+        mine = "" if err is None else f" ({type(err).__name__}: {err})"
+        kind = CheckError if 1 in codes else FleetRoundError
+        raise kind(f"fleet round: the {what} raised on rank(s) {bad}{mine}") from err
+
+    def _round(self, local, seqs: list, t_dispatch, sig_code=None) -> dict:
+        """The rest of a round on this rank (the class docstring, steps 2-5):
+        ``local`` maps each named request to this rank's ticket (rank 0's
+        bucket), or is None on a follower, which takes its own. Returns the
+        results by number; raises what every rank raises."""
+        from distributed_eigenspaces_tpu_torch.serving.server import ServerOverloaded
+
+        t0 = time.perf_counter()
+        if local is None:
+            local, codes = self._take(seqs, sig_code)
+        else:
+            codes = [_HAVE] * len(seqs)
+        held = self._exchange(codes)
+        live = []
+        for j, s in enumerate(seqs):
+            col = [row[j] for row in held]
+            if all(c == _HAVE for c in col):
+                live.append(s)
+                continue
+            shed = [r for r, c in enumerate(col) if c == _SHED]
+            err = (ServerOverloaded(
+                f"fit request {s} shed: rank(s) {shed} refused it at admission "
+                "(serve_queue_depth or an open breaker); every rank fails it")
+                if shed else RuntimeError(
+                f"mesh fleet serving out of step: request {s} never reached, or "
+                f"differs on, rank(s) {[r for r, c in enumerate(col) if c != _HAVE]} "
+                "- every rank must be given the same requests in the same order"))
+            if self.leader:
+                local[s].fail(err)
+            else:
+                self._settle([s], error=err)
+        if not live:
+            return {}
+        tickets = [local[s] for s in live]
+        reqs = [t.payload for t in tickets]
+        cfg = reqs[0].pad_cfg or reqs[0].cfg
+        masks = ([r.worker_masks for r in reqs]
+                 if any(r.worker_masks is not None for r in reqs) else None)
+        scope = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                 else contextlib.nullcontext())
+        mesh = self._resolve_mesh(cfg)
+        err = batch = fit = extract = part = None
+        build_ms = 0.0
+        with scope:
+            try:
+                batch = stage_fleet(cfg, [r.problem for r in reqs], worker_masks=masks,
+                                    pad_to=cfg.fleet_bucket_size)
+                _check_divisible(batch.fleet_size, mesh)
+                fit, extract, build_ms = acquire_fleet_programs(
+                    cfg, mesh, masked=batch.masks is not None, b_pad=batch.fleet_size,
+                    fit_cache=self._fit_cache, compile_cache=self.compile_cache,
+                    device=self.device, v0=self._v0_for(cfg))
+            except Exception as e:
+                err = e
+            self._agree(err, "staging")
+            try:
+                part = _fit_batch(cfg, batch, fit, extract, mesh, self.device)
+            except Exception as e:
+                err = e
+            self._agree(err, "fit")
+            result = _fleet_result(batch, mesh, part, build_ms)
+        now = time.perf_counter()
+        self.lockstep_rounds += 1
+        self._record_bucket(Bucket(tickets[0].signature, tickets, t_dispatch), reqs, cfg,
+                            result, t0, now)
+        return {s: result.components[i][:, :reqs[i].cfg.k] for i, s in enumerate(live)}
 
     def _fit_bucket(self, bucket) -> list:
         t0 = time.perf_counter()

@@ -534,6 +534,25 @@ def ppermute(x: torch.Tensor, axis_name: str, *, tag=None) -> torch.Tensor:
     return out if back is None else out.to(back.device)
 
 
+def any_rank(flag: bool, mesh: Mesh) -> bool:
+    """Whether ``flag`` is True on any rank of ``mesh``: one MAX all-reduce
+    of a one-element flag over the mesh's ranks (the default group when the
+    mesh spans it, else axis by axis), recorded as ``"pmax"`` over
+    ``"mesh"``; ``flag`` itself in one process."""
+    if mesh.device_mesh is None:
+        return flag
+    x = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
+    if mesh.device_mesh.size() == world_size():
+        _record("pmax", "mesh", x, world_size())
+        buf, back = _staged(None, x)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+        return bool(buf.item())
+    with mesh_scope(mesh):
+        for axis in mesh.axis_names:
+            x = pmax(x, axis)
+    return bool(x.item())
+
+
 def barrier() -> None:
     """Wait for every rank of the default group (no-op in a world of one)."""
     if world_size() > 1:

@@ -361,9 +361,12 @@ def make_tree_scan_fit(cfg, mesh, *, masked: bool = False, with_wire_stats: bool
     ``with_wire_stats=True`` (an active policy only) adds a third output,
     the ``(T, n_tiers)`` residual norms. Refused, as in the reference:
     ``merge_interval > 1`` (a flat-merge schedule; the stacked route takes
-    it) and a mesh whose axes are not the tiers."""
+    it) and a mesh whose axes are not the tiers. Under ``DET_CHECKIFY=1``
+    the steps run inside ``utils.guards.checked`` on the mesh: a non-finite
+    leaf block on one rank raises ``CheckError`` on every rank."""
     from distributed_eigenspaces_tpu_torch.algo.online import update_state
     from distributed_eigenspaces_tpu_torch.algo.scan import _cores, _live
+    from distributed_eigenspaces_tpu_torch.utils.guards import checked
 
     topo = resolve_topology(cfg)
     if topo is None:
@@ -434,6 +437,7 @@ def make_tree_scan_fit(cfg, mesh, *, masked: bool = False, with_wire_stats: bool
             return state, torch.stack(out), torch.stack(norms)
         return state, torch.stack(out)
 
+    run = checked(run, mesh=mesh)
     if not masked:
 
         def fit(state, x_steps):

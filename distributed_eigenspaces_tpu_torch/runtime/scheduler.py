@@ -465,6 +465,13 @@ class ShapeBucketQueue:
     in both modes; with ``continuous=False`` (default) the dispatch
     behavior is byte-identical to the bucket-full-or-deadline path
     (pinned in tests/test_scheduler.py).
+
+    **Follower mode** (``follower=True``, the port's own; the mesh
+    ``FleetServer``'s ranks other than 0): admission runs as above, the
+    depth and breaker gates included, but nothing dispatches here: no full
+    bucket, no timer, no continuous batch, no flush on close. The tickets
+    wait in their buckets until the owner, told what rank 0's queue cut,
+    runs them and takes them out (:meth:`withdraw`).
     """
 
     def __init__(
@@ -483,6 +490,7 @@ class ShapeBucketQueue:
         breaker_cooldown_s: float = 1.0,
         on_event: Callable[[str, dict], None] | None = None,
         continuous: bool = False,
+        follower: bool = False,
     ):
         if bucket_size < 1:
             raise ValueError(f"bucket_size must be >= 1: {bucket_size}")
@@ -536,8 +544,9 @@ class ShapeBucketQueue:
         self._inflight_batches = 0
         self._rr: dict[Any, int] = {}
         self._closed = False
+        self.follower = follower
         self._timer: threading.Thread | None = None
-        if start_timer and flush_deadline > 0:
+        if start_timer and flush_deadline > 0 and not follower:
             self._timer = threading.Thread(
                 target=self._timer_loop, daemon=True
             )
@@ -662,7 +671,9 @@ class ShapeBucketQueue:
                     time.monotonic() + self.flush_deadline
                 )
             pending.append(ticket)
-            if self.continuous:
+            if self.follower:
+                pass  # the owner dispatches what rank 0 cuts
+            elif self.continuous:
                 # dispatch into a free lane immediately; while every
                 # lane is busy, POOL (the completion hook assembles the
                 # next batch) — except flush_deadline == 0, which keeps
@@ -697,6 +708,8 @@ class ShapeBucketQueue:
         ``now``; repeated calls with the same ``now`` are idempotent."""
         if now is None:
             now = time.monotonic()
+        if self.follower:
+            return 0
         with self._lock:
             expired = [
                 sig for sig, dl in self._deadlines.items() if dl <= now
@@ -720,12 +733,36 @@ class ShapeBucketQueue:
         self.wq.close()
 
     def _drain_locked(self) -> None:
+        if self.follower:
+            return  # a follower's tickets wait for rank 0's rounds
         # continuous assembly caps a dispatch at bucket_size, so a
         # pooled signature may need several flushes to empty
         for sig in list(self._buckets):
             while sig in self._buckets:
                 if not self._flush_locked(sig):
                     break
+
+    def withdraw(self, tickets) -> None:
+        """Take ``tickets`` out of their pending buckets (a follower's
+        owner, once it has run or failed them)."""
+        gone = set(map(id, tickets))
+        with self._lock:
+            for sig in list(self._buckets):
+                left = [t for t in self._buckets[sig] if id(t) not in gone]
+                if left:
+                    self._buckets[sig] = left
+                else:
+                    del self._buckets[sig]
+                    self._deadlines.pop(sig, None)
+            self._lock.notify_all()
+
+    def add_control(self, payload) -> None:
+        """Hand the dispatch lanes a task that is not a bucket of this
+        queue (a mesh ``FleetServer``'s shed notice), counted as a batch in
+        flight like a flushed bucket."""
+        with self._lock:
+            self._inflight_batches += 1
+            self.wq.add_task(payload)
 
     def _flush_locked(self, signature) -> bool:
         """Dispatch one bucket for ``signature``; True when a bucket was
@@ -876,7 +913,8 @@ class ShapeBucketQueue:
             # poisoned signature trips within one retry ladder), every
             # success resets it. A KillSwitch is lane death, not a
             # dispatch verdict — it bypasses the breaker.
-            br = self.breaker_for(bucket.signature)
+            # a control task (no tickets) is no dispatch verdict either
+            br = self.breaker_for(bucket.signature) if bucket.tickets else None
             try:
                 try:
                     out = fit_bucket(bucket)

@@ -63,6 +63,16 @@ FIT_DEG = 0.05
 SIGMA_ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small CPU tensors: intra-op threads only contend with the other test
+    # workers for the cores (a loaded run spent ten times its time alone)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _normal(shape, seed=0):
     return np.array(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.float32))
 

@@ -47,6 +47,16 @@ D, K, M = 256, 4, 4
 KK = K + 8  # the default oversample of an m*k = 16 wide factor operator
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small CPU tensors: intra-op threads only contend with the other test
+    # workers for the cores (a loaded run spent ten times its time alone)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _normal(shape, seed=0):
     return np.array(jax.random.normal(jax.random.PRNGKey(seed), shape, jnp.float32))
 

@@ -55,6 +55,16 @@ MASKS = np.array([[1, 1, 1, 1], [1, 0, 1, 1], [0, 0, 0, 0], [1, 1, 0, 0],
                   [1, 1, 1, 0]], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small CPU tensors: intra-op threads only contend with the other test
+    # workers for the cores (a loaded run spent ten times its time alone)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(steps=T, seed=11):
     spec = jsyn.planted_spectrum(D, k_planted=K, gap=25.0, noise=0.01, seed=seed)
     rng = np.random.default_rng(seed + 1)

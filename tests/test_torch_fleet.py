@@ -50,6 +50,16 @@ DEG_JAX = 0.2
 DEG_TRUTH = 1.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small CPU tensors: intra-op threads only contend with the other test
+    # workers for the cores (a loaded run spent ten times its time alone)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _base(**kw):
     base = dict(dim=D, k=K, num_workers=M, rows_per_worker=N, num_steps=T,
                 solver="subspace", subspace_iters=10, backend="local")
@@ -393,15 +403,28 @@ def test_eigh_and_cholesky_fail_per_batch_element(monkeypatch):
 # -- the mesh of ranks -------------------------------------------------------------
 
 
-def test_fleet_on_two_gloo_ranks(spec):
+SERVER_PROBS = 8
+
+
+@pytest.fixture(scope="module")
+def two_ranks(spec, tmp_path_factory):
+    """ONE launch of two gloo ranks: the fleet fit on a fleet mesh, then the
+    mesh ``FleetServer``'s cases (``tests/torch_fleet_ranks.py``)."""
+    probs = [_problem(spec, b) for b in range(4)]
+    served = [_problem(spec, 10 + b) for b in range(SERVER_PROBS)]
+    out = pmesh.launch(ranks.fleet_suite, 2, _base(), probs, _v0(), served, backend="gloo",
+                       timeout=240, workdir=str(tmp_path_factory.mktemp("fleet")))
+    return probs, served, out
+
+
+def test_fleet_on_two_gloo_ranks(two_ranks):
     """Two gloo ranks, two tenants a rank: the fit makes no collective, one
     all-gather of the results follows it, every rank holds every tenant's
     results (equal to the one-process fleet), and a fleet the mesh does not
     divide is refused."""
     cfg, _ = _cfgs()
-    probs = [_problem(spec, b) for b in range(4)]
-    out = pmesh.launch(ranks.fleet_rank, 2, _base(), probs, _v0(), backend="gloo",
-                       timeout=240)
+    probs, _, out = two_ranks
+    out = [o["fit"] for o in out]
     one = _fit(cfg, probs)
     for r, o in enumerate(out):
         assert o["mesh"] == {"workers": 2, "features": 1}
@@ -416,6 +439,97 @@ def test_fleet_on_two_gloo_ranks(spec):
             assert _angle(o["components"][b], one.components[b]) < 0.01
         _close(o["local_sigma"], o["sigma"][2 * r:2 * r + 2])
         np.testing.assert_array_equal(o["sigma"], out[0]["sigma"])
+
+
+# the mesh FleetServer: what each case's requests are (rank 0's order) and how
+# each must end, alike on both ranks: "ok", or the error's type
+SERVER_CASES = {
+    "skewed": (list(range(SERVER_PROBS)), ["ok"] * SERVER_PROBS),
+    "signatures": (list(range(SERVER_PROBS)), ["ok"] * SERVER_PROBS),
+    "shed": ([0, 1, 2, 3] * 2, ["ok", "ok", "ServerOverloaded", "ServerOverloaded"] * 2),
+    "raises": ([0, 1], ["SchedulerError", "ok"]),
+    "lanes": (list(range(SERVER_PROBS)), ["ok"] * SERVER_PROBS),
+}
+
+
+def _ending(outcome):
+    return "ok" if outcome[0] == "ok" else outcome[1]
+
+
+@pytest.fixture(scope="module")
+def served_reference(two_ranks):
+    """Each served problem through the one-process ``fit_fleet`` of the port
+    and the reference's ``FleetServer`` on a 2-device mesh, at both
+    signatures (a tenant's result does not depend on its bucket)."""
+    _, served, _ = two_ranks
+    out = {}
+    jmesh = jfleet.fleet_mesh(4, devices=jax.devices()[:2])
+    for steps in (T, T - 2):
+        cfg, jcfg = _cfgs(num_steps=steps, fleet_bucket_size=4, fleet_flush_s=0.05)
+        one = fleet.fit_fleet(cfg, served, mesh=None, device=CPU, v0=_v0(), pad_to=8)
+        with jfleet.FleetServer(jcfg, mesh=jmesh) as srv:
+            ref = [t.result(timeout=300) for t in [srv.submit(p) for p in served]]
+        out[steps] = (one.components, ref)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(SERVER_CASES))
+def test_mesh_fleet_server_serves_alike_on_both_ranks(case, two_ranks, served_reference):
+    """Every request resolves or fails alike on both ranks; the results are
+    bit-equal across ranks, equal to the one-process ``fit_fleet`` and
+    within ``DEG_JAX`` of the reference's server on a 2-device mesh; no
+    round ran out of step."""
+    _, _, out = two_ranks
+    order, want = SERVER_CASES[case]
+    r0, r1 = (o["server"][case] for o in out)
+    assert [_ending(o) for o in r0["outcomes"]] == want
+    assert [_ending(o) for o in r1["outcomes"]] == want
+    for j, (a, b) in enumerate(zip(r0["outcomes"], r1["outcomes"])):
+        if a[0] != "ok":
+            continue
+        np.testing.assert_array_equal(a[1], b[1])
+        steps = T - 2 if case == "signatures" and j % 2 else T
+        one, ref = served_reference[steps]
+        _close(a[1], one[order[j]])
+        assert _angle(a[1], ref[order[j]]) < DEG_JAX
+    assert r0["rounds"] == r1["rounds"]
+    assert [t for t, _ in r0["buckets"]] == [t for t, _ in r1["buckets"]]
+
+
+def test_mesh_fleet_server_rounds_and_collectives(two_ranks):
+    """Rank 0 cuts the rounds, however its timer falls: each round is four
+    small agreement gathers and one fp32 results gather, the server's end
+    one more; the prewarmed server never stalls; interleaved signatures and
+    two lanes run every request in rounds of at most a bucket; the shed
+    case drops rank 1's refusals from their round and sends rank 0's as two
+    notice rounds; a round that raised on rank 1 ran twice (one retry) and
+    failed with the agreed error."""
+    _, _, out = two_ranks
+    agree = [("all_gather", "ranks", "int64", "fleet_round")]
+    fit_round = agree * 4 + [("all_gather", "workers", "float32", None)]
+    for o in out:
+        cases = o["server"]
+
+        def ops(case):
+            return [(op, axis, dtype, tag) for op, axis, dtype, _, _, tag in cases[case]["log"]]
+
+        assert cases["skewed"]["warm"]
+        assert all(stall == 0.0 for _, stall in cases["skewed"]["buckets"])
+        for case, width in (("skewed", 4), ("signatures", 4), ("lanes", 2)):
+            tenants = [t for t, _ in cases[case]["buckets"]]
+            assert sum(tenants) == SERVER_PROBS and max(tenants) <= width
+            assert cases[case]["rounds"] == len(tenants)
+            assert ops(case) == fit_round * len(tenants) + agree
+        shed = cases["shed"]
+        assert shed["notices"] == [[6], [7]]
+        fits = [t for t, _ in shed["buckets"]]
+        assert sum(fits) == 4 and shed["rounds"] == len(fits)
+        n_agree = sum(1 for r in ops("shed") if r == agree[0])
+        dropped = (n_agree - 4 * len(fits) - len(shed["notices"]) - 1) / 2  # announce, holdings
+        assert dropped in (1, 2) and ops("shed").count(fit_round[-1]) == len(fits)
+        assert ops("raises") == agree * 3 * 2 + fit_round + agree  # staging agreed twice
+        raised = cases["raises"]["outcomes"][0]
+        assert raised[1:] == ("SchedulerError", "FleetRoundError")
 
 
 # -- API surface ---------------------------------------------------------------------

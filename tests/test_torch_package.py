@@ -257,7 +257,7 @@ def test_cli_and_compile_lifecycle_run_on_the_card_by_default(monkeypatch, tmp_p
 
 
 def _roadmap_labels() -> set[str]:
-    """The item labels of ROADMAP.md's Queue 1 (``**15c.``, parked ``**9g.``)."""
+    """The item labels of ROADMAP.md's Queue 1 (such as ``**9g.``)."""
     import re
 
     text = (ROOT / "ROADMAP.md").read_text()
@@ -266,8 +266,8 @@ def _roadmap_labels() -> set[str]:
 
 
 def test_refusals_name_items_that_exist_in_the_roadmap():
-    """Every "Queue 1 item X" the port names (its NotImplementedError
-    messages, and the docstrings that point at the queue) is a label of
+    """Every "Queue 1 item X" the port names (the docstrings that point at
+    the queue) is a label of
     ROADMAP.md's Queue 1; nothing names the ported compile cache, prewarm
     or command line as waiting."""
     import re
@@ -288,3 +288,5 @@ def test_refusals_name_items_that_exist_in_the_roadmap():
     assert "17b" not in named, named.get("17b")
     # the sharding contracts are ported: nothing names 17c
     assert "17c" not in named, named.get("17c")
+    # the mesh FleetServer is ported: nothing names 15c
+    assert "15c" not in named, named.get("15c")

@@ -35,6 +35,16 @@ BASE = dict(dim=D, k=K, num_workers=M, rows_per_worker=N, num_steps=T,
             solver="subspace", subspace_iters=12, warm_start_iters=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small CPU tensors: intra-op threads only contend with the other test
+    # workers for the cores (a loaded run spent ten times its time alone)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _v0(d=D, k=K):
     return np.array(jax.random.normal(jax.random.PRNGKey(0), (d, k), jnp.float32))
 
@@ -89,6 +99,19 @@ MASK_CASES = {
 }
 
 
+#: the reference's masked scan programs by config, built once a module: the
+#: blocks and masks are arguments of the compiled program, so the mask cases
+#: of one config share one compile
+_JAX_MASKED: dict = {}
+
+
+def _jax_masked_fit(jcfg):
+    key = repr(jcfg)
+    if key not in _JAX_MASKED:
+        _JAX_MASKED[key] = jscan.make_scan_fit(jcfg, masked=True)
+    return _JAX_MASKED[key]
+
+
 @pytest.mark.parametrize("s", [1, 2, 3])
 @pytest.mark.parametrize("case", sorted(MASK_CASES))
 def test_masked_scan_matches(case, s):
@@ -97,7 +120,7 @@ def test_masked_scan_matches(case, s):
     if zero_step is not None:
         x[zero_step] = 0.0
     cfg, jcfg = _cfgs(merge_interval=s)
-    jst, jvb = jscan.make_scan_fit(jcfg, masked=True)(
+    jst, jvb = _jax_masked_fit(jcfg)(
         jon.OnlineState.initial(D), jnp.asarray(x), jnp.asarray(masks))
     st, vb = tscan.make_scan_fit(cfg, device="cpu", v0=_v0(), masked=True)(
         _state0(), torch.from_numpy(x), masks)

@@ -47,6 +47,16 @@ BASE = dict(dim=D, k=K, num_workers=M, rows_per_worker=N, num_steps=8,
             discount="1/t", backend="feature_sharded")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # small CPU tensors: intra-op threads only contend with the other test
+    # workers for the cores (a loaded run spent ten times its time alone)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spec(gap=25.0, noise=0.01, seed=3):
     return jsyn.planted_spectrum(D, k_planted=K, gap=gap, noise=noise, seed=seed)
 
